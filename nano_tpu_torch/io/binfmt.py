@@ -1,0 +1,392 @@
+"""``.bin`` model reader — the port's copy of the reader half of
+``nano_tpu/io/binfmt.py``.
+
+Format (bit-compatible with the reference; spec: reference
+README.md:239-255, parser infer/infer.c:220-320):
+
+    [0..255]  header: magic "BD4SURLM", version, model_type (0=Nano,
+              2=Qwen2, 3=Qwen3, 10=LoRA), 9 x i32 config, quant_type
+              (0x00 F32 / 0x80 Q80 / 0x42 Q4K), group_size; rope_theta
+              extension at offset 68; zero-padded to 256 B
+    [256..]   embedded tokenizer (trie field, or BPE field for Qwen)
+    [...]     attn_norm[L], ffn_norm[L], final_norm (f32), then tok_emb,
+              wq[L], wk[L], wv[L], wo[L], w1[L], w2[L], w3[L] (f32 or
+              per-group int8 + f32 scales), arch extras, RoPE tables,
+              classifier if untied.
+
+``read_model`` is host-side numpy with the JAX package's stacked (L, in,
+out) layout, so its output compares array for array.
+``quantized_device_params`` builds the device tensors.  Q4K files raise
+``NotImplementedError``: that slice of the port is still to come.
+"""
+
+from __future__ import annotations
+
+import struct
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from nano_tpu_torch.config import ModelConfig
+from nano_tpu_torch.ops.qmatmul import MIN_W8A8_GS, Q80Tensor
+
+MAGIC_0 = 0x42443453  # "BD4S" (LE)
+MAGIC_1 = 0x55524C4D  # "URLM"
+
+MODEL_TYPE_NANO = 0
+MODEL_TYPE_QWEN2 = 2
+MODEL_TYPE_QWEN3 = 3
+MODEL_TYPE_LORA = 10
+
+QUANT_F32 = 0x00
+QUANT_Q80 = 0x80
+QUANT_Q4K = 0x42
+
+HEADER_BYTES = 256
+
+
+def dequantize_q80(q: np.ndarray, scale: np.ndarray, group_size: int
+                   ) -> np.ndarray:
+    g = q.astype(np.float32).reshape(-1, group_size)
+    return (g * scale.reshape(-1, 1)).reshape(-1)
+
+
+# =====================================================================
+# tokenizer field (BNF at reference export.py:72-114)
+# =====================================================================
+
+def parse_tokenizer_field(data: bytes, offset: int) -> Tuple[dict, int]:
+    """-> (tokenizer config dict, next offset)."""
+    total, vocab_size = struct.unpack_from("<II", data, offset)
+    pos = offset + 8
+    itos: List[Optional[str]] = [None] * vocab_size
+    special_flags = [False] * vocab_size
+    for _ in range(vocab_size):
+        length, is_special, _, _ = struct.unpack_from("<BBBB", data, pos)
+        (tid,) = struct.unpack_from("<I", data, pos + 4)
+        chars = struct.unpack_from(f"<{length}I", data, pos + 8)
+        itos[tid] = "".join(chr(c) for c in chars)
+        special_flags[tid] = bool(is_special)
+        pos += 8 + 4 * length
+    if pos - offset != total:
+        raise ValueError("tokenizer field length mismatch")
+    itos_final = [t if t is not None else "" for t in itos]
+    return {
+        "vocab_size": vocab_size,
+        "itos": itos_final,
+        "stoi": {t: i for i, t in enumerate(itos_final)},
+        "special_tokens": {t: i for i, t in enumerate(itos_final)
+                           if special_flags[i]},
+    }, pos
+
+
+# =====================================================================
+# header
+# =====================================================================
+
+@dataclass
+class BinHeader:
+    model_type: int
+    major: int
+    minor: int
+    block_size: int
+    vocab_size: int
+    n_layer: int
+    n_embd: int
+    n_head: int
+    n_kv_head: int
+    n_hidden: int
+    shared_classifier: bool
+    head_dim: int
+    quant_type: int
+    group_size: int
+    rope_theta: float = 0.0    # header extension; 0 in reference files
+
+    def to_model_config(self) -> ModelConfig:
+        kw: Dict[str, Any] = dict(
+            block_size=self.block_size, vocab_size=self.vocab_size,
+            n_layer=self.n_layer, n_embd=self.n_embd, n_head=self.n_head,
+            n_kv_head=self.n_kv_head, n_hidden=self.n_hidden,
+            head_dim=self.head_dim,
+            tie_embeddings=self.shared_classifier)
+        # norm_eps is not in the header; Qwen uses 1e-6 (HF config)
+        if self.model_type == MODEL_TYPE_QWEN2:
+            kw.update(qkv_bias=True, rope_theta=1e6, norm_eps=1e-6)
+        elif self.model_type == MODEL_TYPE_QWEN3:
+            kw.update(use_qk_norm=True, rope_theta=1e6, rope_style="half",
+                      norm_eps=1e-6)
+        if self.rope_theta > 0:
+            kw.update(rope_theta=float(self.rope_theta))
+        return ModelConfig(**kw)
+
+
+def parse_header(data: bytes) -> BinHeader:
+    m0, m1 = struct.unpack_from("<II", data, 0)
+    if (m0, m1) != (MAGIC_0, MAGIC_1):
+        raise ValueError("not a BD4SURLM .bin file")
+    major, minor = struct.unpack_from("<ii", data, 8)
+    model_type, _cfg_len = struct.unpack_from("<ii", data, 16)
+    fields = struct.unpack_from("<9i", data, 24)
+    quant_type, group_size = struct.unpack_from("<ii", data, 60)
+    (rope_theta,) = struct.unpack_from("<f", data, 68)
+    if not (rope_theta > 0) or rope_theta != rope_theta:   # 0/garbage
+        rope_theta = 0.0
+    return BinHeader(
+        model_type=model_type, major=major, minor=minor,
+        block_size=fields[0], vocab_size=fields[1], n_layer=fields[2],
+        n_embd=fields[3], n_head=fields[4], n_kv_head=fields[5],
+        n_hidden=fields[6], shared_classifier=bool(fields[7]),
+        head_dim=fields[8], quant_type=quant_type, group_size=group_size,
+        rope_theta=float(rope_theta))
+
+
+# =====================================================================
+# weight import
+# =====================================================================
+
+class _Reader:
+    def __init__(self, data: bytes, offset: int):
+        self.data = data
+        self.pos = offset
+
+    def f32(self, count: int) -> np.ndarray:
+        out = np.frombuffer(self.data, dtype="<f4", count=count,
+                            offset=self.pos)
+        self.pos += 4 * count
+        return np.asarray(out)
+
+    def i8(self, count: int) -> np.ndarray:
+        out = np.frombuffer(self.data, dtype=np.int8, count=count,
+                            offset=self.pos)
+        self.pos += count
+        return np.asarray(out)
+
+
+@dataclass
+class QuantTensor:
+    """A per-group int8 tensor as stored in the file."""
+    q: np.ndarray          # int8, logical shape
+    scale: np.ndarray      # f32, (numel // group_size,)
+    group_size: int
+
+    def dequantize(self) -> np.ndarray:
+        return dequantize_q80(self.q.reshape(-1), self.scale,
+                              self.group_size).reshape(self.q.shape)
+
+
+@dataclass
+class BinModel:
+    header: BinHeader
+    config: ModelConfig
+    tokenizer_config: dict
+    params: Dict[str, Any]                     # f32 arrays (JAX layout)
+    qparams: Optional[Dict[str, Any]] = None   # QuantTensors (Q80 files)
+    rope_cos: Optional[np.ndarray] = None
+    rope_sin: Optional[np.ndarray] = None
+
+
+def _read_tensor(r: _Reader, shape: Tuple[int, ...], quant_type: int,
+                 group_size: int, dense: bool = True):
+    numel = int(np.prod(shape))
+    if quant_type == QUANT_F32:
+        return r.f32(numel).reshape(shape), None
+    q = r.i8(numel).reshape(shape)
+    s = r.f32(numel // group_size)
+    qt = QuantTensor(q=q, scale=s, group_size=group_size)
+    if not dense:
+        return None, qt
+    return qt.dequantize().astype(np.float32), qt
+
+
+def read_model(path: str, dense: bool = True) -> BinModel:
+    """Parse a Nano/Qwen .bin (F32 or Q80) into the stacked-params layout.
+
+    dense=False skips the f32 dequantized copies of quantized matmul
+    weights (params then carries only norms/extras); the quantized load
+    consumes only qparams.  F32 files ignore the flag.
+    """
+    with open(path, "rb") as f:
+        data = f.read()
+    hdr = parse_header(data)
+    if hdr.model_type == MODEL_TYPE_LORA:
+        raise ValueError("LoRA files are not model files")
+    if hdr.quant_type == QUANT_Q4K:
+        raise NotImplementedError(
+            "Q4K .bin files are not ported to nano_tpu_torch yet")
+    if hdr.quant_type not in (QUANT_F32, QUANT_Q80):
+        raise ValueError(f"unsupported quant_type 0x{hdr.quant_type:x}")
+    if hdr.model_type in (MODEL_TYPE_QWEN2, MODEL_TYPE_QWEN3):
+        from nano_tpu_torch.tokenizer.bpe import BpeTokenizer
+        bpe, pos = BpeTokenizer.parse_field(data, HEADER_BYTES,
+                                            hdr.vocab_size)
+        tok_cfg = {"type": "bpe", "tokenizer": bpe}
+    else:
+        tok_cfg, pos = parse_tokenizer_field(data, HEADER_BYTES)
+    cfg = hdr.to_model_config()
+    r = _Reader(data, pos)
+
+    L, E, V = cfg.n_layer, cfg.n_embd, cfg.vocab_size
+    H, KV, D, F = cfg.n_head, cfg.n_kv_head, cfg.head_dim, cfg.n_hidden
+    gs = hdr.group_size
+    if hdr.quant_type == QUANT_F32:
+        dense = True
+
+    attn_norm = np.stack([r.f32(E) for _ in range(L)])
+    ffn_norm = np.stack([r.f32(E) for _ in range(L)])
+    final_norm = r.f32(E)
+
+    def read_stack(shape_out_in):
+        """L matrices stored (out, in) -> stacked (L, in, out) + quants."""
+        fs, qs = [], []
+        for _ in range(L):
+            w, qt = _read_tensor(r, shape_out_in, hdr.quant_type, gs, dense)
+            fs.append(np.ascontiguousarray(w.T) if dense else None)
+            qs.append(qt)
+        return (np.stack(fs) if dense else None), qs
+
+    tok_emb, tok_emb_q = _read_tensor(r, (V, E), hdr.quant_type, gs, dense)
+    wq, wq_q = read_stack((H * D, E))
+    wk, wk_q = read_stack((KV * D, E))
+    wv, wv_q = read_stack((KV * D, E))
+    wo, wo_q = read_stack((E, H * D))
+    w1, w1_q = read_stack((F, E))
+    w2, w2_q = read_stack((E, F))
+    w3, w3_q = read_stack((F, E))
+
+    extras: Dict[str, Any] = {}
+    if hdr.model_type == MODEL_TYPE_QWEN2:
+        extras["bq"] = np.stack([r.f32(H * D) for _ in range(L)])
+        extras["bk"] = np.stack([r.f32(KV * D) for _ in range(L)])
+        extras["bv"] = np.stack([r.f32(KV * D) for _ in range(L)])
+    elif hdr.model_type == MODEL_TYPE_QWEN3:
+        extras["q_norm"] = np.stack([r.f32(D) for _ in range(L)])
+        extras["k_norm"] = np.stack([r.f32(D) for _ in range(L)])
+
+    rope_cos = r.f32(cfg.block_size * (D // 2)).reshape(cfg.block_size, -1)
+    rope_sin = r.f32(cfg.block_size * (D // 2)).reshape(cfg.block_size, -1)
+
+    params: Dict[str, Any] = {
+        "norm": final_norm,
+        "blocks": {"attn_norm": attn_norm, "ffn_norm": ffn_norm, **extras},
+    }
+    if dense:
+        params["tok_embeddings"] = tok_emb
+        params["blocks"].update(wq=wq, wk=wk, wv=wv, wo=wo,
+                                w1=w1, w2=w2, w3=w3)
+    qparams = None
+    if hdr.quant_type == QUANT_Q80:
+        qparams = {
+            "tok_embeddings": tok_emb_q,
+            "blocks": {"wq": wq_q, "wk": wk_q, "wv": wv_q, "wo": wo_q,
+                       "w1": w1_q, "w2": w2_q, "w3": w3_q},
+        }
+
+    if not hdr.shared_classifier:
+        clf, clf_q = _read_tensor(r, (V, E), hdr.quant_type, gs, dense)
+        if dense:
+            params["output"] = np.ascontiguousarray(clf.T)
+        if qparams is not None:
+            qparams["output"] = clf_q
+
+    return BinModel(header=hdr, config=cfg, tokenizer_config=tok_cfg,
+                    params=params, qparams=qparams,
+                    rope_cos=rope_cos, rope_sin=rope_sin)
+
+
+# =====================================================================
+# device params
+# =====================================================================
+
+def dense_device_params(params: Dict[str, Any], dtype, device) -> Dict[str, Any]:
+    """numpy pytree -> tensors on `device`: matrices in `dtype`, vectors
+    (norms, biases) in f32."""
+    def conv(x):
+        t = torch.from_numpy(np.array(x))
+        return t.to(device=device,
+                    dtype=dtype if t.dim() >= 2 else torch.float32)
+    return {k: (dense_device_params(v, dtype, device) if isinstance(v, dict)
+                else conv(v)) for k, v in params.items()}
+
+
+def quantized_device_params(bm: BinModel, fuse: bool = True,
+                            device=None) -> Dict[str, Any]:
+    """Device params keeping the matmul weights quantized.
+
+    Matmul weights become stacked Q80Tensors (int8 + scales, (L, out, in)
+    file layout); norms and arch extras stay f32.  fuse=True concatenates
+    wq/wk/wv -> wqkv and w1/w3 -> w13 along the output dim (valid because
+    Q80 groups run along the input dim): fewer, larger launches per step.
+    """
+    if bm.qparams is None:
+        raise ValueError("not a quantized model file")
+    gs = bm.header.group_size
+
+    def tens(x):
+        return torch.from_numpy(np.array(x)).to(device)
+
+    def stack_q(qt_lists) -> Q80Tensor:
+        L = len(qt_lists[0])
+        qs, ss = [], []
+        for i in range(L):
+            qs.append(np.concatenate([lst[i].q for lst in qt_lists], axis=0))
+            ss.append(np.concatenate(
+                [lst[i].scale.reshape(lst[i].q.shape[0], -1)
+                 for lst in qt_lists], axis=0))
+        return Q80Tensor(q=tens(np.stack(qs)), scales=tens(np.stack(ss)),
+                         group_size=gs)
+
+    def single_q(qt) -> Q80Tensor:
+        out, inn = qt.q.shape
+        return Q80Tensor(q=tens(qt.q),
+                         scales=tens(qt.scale.reshape(out, inn // gs)),
+                         group_size=gs)
+
+    qb = bm.qparams["blocks"]
+    blocks: Dict[str, Any] = {
+        "attn_norm": tens(bm.params["blocks"]["attn_norm"]),
+        "ffn_norm": tens(bm.params["blocks"]["ffn_norm"]),
+        "wo": stack_q([qb["wo"]]),
+        "w2": stack_q([qb["w2"]]),
+    }
+    for name in ("q_norm", "k_norm", "bq", "bk", "bv"):
+        if name in bm.params["blocks"]:
+            blocks[name] = tens(bm.params["blocks"][name])
+    if fuse:
+        blocks["wqkv"] = stack_q([qb["wq"], qb["wk"], qb["wv"]])
+        blocks["w13"] = stack_q([qb["w1"], qb["w3"]])
+    else:
+        blocks.update(wq=stack_q([qb["wq"]]), wk=stack_q([qb["wk"]]),
+                      wv=stack_q([qb["wv"]]), w1=stack_q([qb["w1"]]),
+                      w3=stack_q([qb["w3"]]))
+    params: Dict[str, Any] = {
+        "tok_embeddings": single_q(bm.qparams["tok_embeddings"]),
+        "norm": tens(bm.params["norm"]),
+        "blocks": blocks,
+    }
+    if "output" in bm.qparams:
+        params["output"] = single_q(bm.qparams["output"])
+    _maybe_int8_layout(params)
+    return params
+
+
+def _maybe_int8_layout(params: Dict[str, Any]) -> None:
+    """The load-time numerics decision, in place: every Q80 weight with
+    group size >= 256 takes the W8A8 form (int8 activations, exact int32
+    group partials), smaller groups the f32 rows form; a tied Q80 head
+    becomes ``output_q``, which shares the embedding table's storage (the
+    JAX package kept a second, grouped copy for its matrix unit)."""
+    def conv(t):
+        if isinstance(t, Q80Tensor):
+            t.w8a8 = t.group_size >= MIN_W8A8_GS
+        return t
+
+    for v in params["blocks"].values():
+        conv(v)
+    if isinstance(params.get("output"), Q80Tensor):
+        conv(params["output"])
+        return
+    tok = params["tok_embeddings"]
+    if isinstance(tok, Q80Tensor):
+        params["output_q"] = conv(tok)

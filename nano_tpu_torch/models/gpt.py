@@ -1,0 +1,360 @@
+"""Nano GPT decoder with a KV cache — the inference forward of the port.
+
+Port of the cached-forward half of ``nano_tpu/models/gpt.py``: RMSNorm,
+RoPE (interleaved or half), GQA without expanding KV, optional qk-norm
+and qkv biases, SwiGLU, tied / untied / ``output_q`` heads, and
+``forward_with_cache`` with ``attn_len`` and ``last_idx``.
+
+The parameters keep the JAX package's layout so the two compare like with
+like: layer weights are STACKED along a leading (n_layer,) axis, dense
+matrices are (in, out), quantized ones are ``Q80Tensor`` in the file's
+(out, in) rows.  PyTorch runs eagerly, so the layer scan is a Python loop
+over views of the stacked tensors, and the KV cache is updated IN PLACE
+(the JAX version returned a new cache; here the same object comes back).
+
+Kernels on the card: every quantized projection and head goes through
+``ops.qmatmul`` and every single-token attention through
+``ops.decode_attn``.  Prefill attention (S > 1), RMSNorm, RoPE, SwiGLU and
+the cache write are plain PyTorch, as they were XLA-fused ops on the TPU.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from nano_tpu_torch.config import ModelConfig
+from nano_tpu_torch.ops import decode_attn
+from nano_tpu_torch.ops.qmatmul import Q80Tensor, q80_matmul
+
+Params = Dict[str, Any]
+
+
+# =====================================================================
+# RoPE
+# =====================================================================
+
+def precompute_rope(head_dim: int, end: int, theta: float = 10000.0,
+                    device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables (end, head_dim // 2), f32.  Computed on the CPU and
+    moved, so every device sees the same table."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim
+    freqs = 1.0 / (theta ** exps)
+    t = torch.arange(end, dtype=torch.float32)
+    angles = torch.outer(t, freqs)
+    return torch.cos(angles).to(device), torch.sin(angles).to(device)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               style: str = "interleaved") -> torch.Tensor:
+    """Rotate (..., S, H, D) by position tables (S, D//2).
+
+    interleaved: (x[2i], x[2i+1]) pairs (Nano/Qwen2 layout).
+    half: (x[i], x[i+D/2]) pairs (Qwen3/HF rotate_half layout).
+    """
+    dtype = x.dtype
+    xf = x.float()
+    if cos.dim() == 2:
+        cos = cos[:, None, :]
+        sin = sin[:, None, :]
+    if style == "interleaved":
+        xr = xf[..., 0::2]
+        xi = xf[..., 1::2]
+        out = torch.stack([xr * cos - xi * sin, xr * sin + xi * cos],
+                          dim=-1).reshape(x.shape)
+    elif style == "half":
+        D = x.shape[-1]
+        x1 = xf[..., :D // 2]
+        x2 = xf[..., D // 2:]
+        out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    else:
+        raise ValueError(f"unknown rope style {style}")
+    return out.to(dtype)
+
+
+# =====================================================================
+# primitive layers
+# =====================================================================
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float
+             ) -> torch.Tensor:
+    """x * rsqrt(mean(x^2) + eps) * w, computed in f32."""
+    xf = x.float()
+    normed = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (normed * weight.float()).to(x.dtype)
+
+
+def _dense(x: torch.Tensor, w, dtype) -> torch.Tensor:
+    """x @ w in the compute dtype.  Dense weights are (in, out); Q80
+    weights keep the file's (out, in) rows and run the Q80 kernels."""
+    if isinstance(w, Q80Tensor):
+        return q80_matmul(x, w, dtype)
+    return torch.matmul(x.to(dtype), w.to(dtype))
+
+
+def _dot_f32(h: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
+    """h @ w with both operands rounded to `dtype`, accumulated in f32
+    (the JAX preferred_element_type=f32 dot of the LM head)."""
+    return torch.matmul(h.to(dtype).float(), w.to(dtype).float())
+
+
+def embed_tokens(params: Params, idx: torch.Tensor, dtype) -> torch.Tensor:
+    """Embedding row gather; a Q80 table dequantizes the gathered rows."""
+    w = params["tok_embeddings"]
+    if isinstance(w, Q80Tensor):
+        g = w.group_size
+        q = w.q[idx]                        # (..., E) int8
+        s = w.scales[idx]                   # (..., E // g)
+        shape = q.shape
+        deq = (q.float().reshape(*shape[:-1], shape[-1] // g, g)
+               * s[..., None]).reshape(shape)
+        return deq.to(dtype)
+    return w[idx].to(dtype)
+
+
+def compute_logits(h: torch.Tensor, params: Params, dtype) -> torch.Tensor:
+    """LM head -> f32 logits: ``output_q`` (the int8 head, tied to the
+    embedding table at load), untied ``output`` (in, out), or the tied
+    embedding table (V, E) transposed."""
+    w = params.get("output_q")
+    if w is not None:
+        return _dense(h, w, torch.float32)
+    w = params.get("output")
+    if w is None:
+        w = params["tok_embeddings"]
+        if isinstance(w, Q80Tensor):
+            return _dense(h, w, torch.float32)
+        return _dot_f32(h, w.t(), dtype)
+    if isinstance(w, Q80Tensor):
+        return _dense(h, w, torch.float32)
+    return _dot_f32(h, w, dtype)
+
+
+# =====================================================================
+# attention
+# =====================================================================
+
+def _kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., D) -> int8 values + f32 per-vector scale; rounds half to even
+    (torch.round, like jnp.round — unlike the C rounding of Q80)."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=-1)
+    scale = absmax / torch.full_like(absmax, 127.0)
+    safe = torch.where(scale == 0.0, torch.ones_like(scale), scale)
+    return torch.round(xf / safe[..., None]).to(torch.int8), scale
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor, cfg: ModelConfig
+                ) -> torch.Tensor:
+    """q (B, S, H, D), k (B, T, KV, D) -> (B, KV, rep, S, T) f32."""
+    B, S, H, D = q.shape
+    qg = q.float().reshape(B, S, cfg.n_kv_head, H // cfg.n_kv_head, D)
+    scores = torch.einsum("bskrd,btkd->bkrst", qg, k.float())
+    return scores / math.sqrt(D)
+
+
+def _gqa_out(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """probs (B, KV, rep, S, T), v (B, T, KV, D) -> (B, S, KV*rep*D)."""
+    out = torch.einsum("bkrst,btkd->bskrd", probs, v)
+    return out.reshape(out.shape[0], out.shape[1], -1)
+
+
+def attention(x: torch.Tensor, layer: Params, cfg: ModelConfig,
+              cos: Optional[torch.Tensor], sin: Optional[torch.Tensor],
+              mask: Optional[torch.Tensor], dtype,
+              kv_cache: Tuple[torch.Tensor, ...], start_pos: int,
+              pos_t: torch.Tensor, attn_len: Optional[int] = None
+              ) -> torch.Tensor:
+    """One attention layer over a cache (k, v, k_scale, v_scale) of one
+    layer, each (B, T, KV, D) / (B, T, KV).  The S new keys and values
+    are written at rows [start_pos, start_pos + S) in place.
+
+    S == 1 runs the decode-attention kernel over rows t <= start_pos
+    (`pos_t` holds start_pos as an int32 tensor on the device).  S > 1 is
+    the einsum path over the first `attn_len` rows (all when None), with
+    the additive `mask` (S, attn_len).
+    """
+    B, S, E = x.shape
+    H, KV, D = cfg.n_head, cfg.n_kv_head, cfg.head_dim
+
+    if "wqkv" in layer:
+        qkv = _dense(x, layer["wqkv"], dtype)
+        q = qkv[..., :H * D]
+        k = qkv[..., H * D:(H + KV) * D]
+        v = qkv[..., (H + KV) * D:]
+    else:
+        q = _dense(x, layer["wq"], dtype)
+        k = _dense(x, layer["wk"], dtype)
+        v = _dense(x, layer["wv"], dtype)
+    if cfg.qkv_bias:
+        q = q + layer["bq"].to(dtype)
+        k = k + layer["bk"].to(dtype)
+        v = v + layer["bv"].to(dtype)
+    q = q.reshape(B, S, H, D)
+    k = k.reshape(B, S, KV, D)
+    v = v.reshape(B, S, KV, D)
+
+    if cfg.use_qk_norm:
+        q = rms_norm(q, layer["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, layer["k_norm"], cfg.norm_eps)
+    if cos is not None:
+        q = apply_rope(q, cos, sin, cfg.rope_style)
+        k = apply_rope(k, cos, sin, cfg.rope_style)
+
+    ck, cv, ks, vs = kv_cache
+    quant = ck.dtype == torch.int8
+    rows = slice(start_pos, start_pos + S)
+    if quant:
+        kq, k_sc = _kv_quantize(k)
+        vq, v_sc = _kv_quantize(v)
+        ck[:, rows], cv[:, rows] = kq, vq
+        ks[:, rows], vs[:, rows] = k_sc, v_sc
+    else:
+        ck[:, rows], cv[:, rows] = k, v
+
+    if S == 1:
+        heads = decode_attn.decode_attention(
+            q[:, 0], ck, cv, ks if quant else None, vs if quant else None,
+            pos_t, KV, H // KV)[:, None, :].to(dtype)
+        return _dense(heads, layer["wo"], dtype)
+
+    Ta = attn_len if attn_len is not None else ck.shape[1]
+    ck, cv = ck[:, :Ta], cv[:, :Ta]
+    if quant:
+        # int8 KV: fold the per-vector scales into scores and probs
+        scores = _gqa_scores(q, ck.to(dtype), cfg)
+        scores = scores * ks[:, :Ta].permute(0, 2, 1)[:, :, None, None, :]
+        probs = torch.softmax(scores + mask, dim=-1).to(dtype)
+        probs = probs * vs[:, :Ta].permute(0, 2, 1)[:, :, None, None, :
+                                                      ].to(dtype)
+        heads = _gqa_out(probs, cv.to(dtype))
+    else:
+        scores = _gqa_scores(q, ck, cfg) + mask
+        probs = torch.softmax(scores, dim=-1).to(dtype)
+        heads = _gqa_out(probs, cv.to(dtype))
+    return _dense(heads, layer["wo"], dtype)
+
+
+def feed_forward(x: torch.Tensor, layer: Params, dtype) -> torch.Tensor:
+    """SwiGLU: w2(silu(w1 x) * w3 x)."""
+    if "w13" in layer:
+        h13 = _dense(x, layer["w13"], dtype)
+        Fh = h13.shape[-1] // 2
+        h1, h3 = h13[..., :Fh], h13[..., Fh:]
+    else:
+        h1 = _dense(x, layer["w1"], dtype)
+        h3 = _dense(x, layer["w3"], dtype)
+    return _dense(F.silu(h1) * h3, layer["w2"], dtype)
+
+
+def block(x: torch.Tensor, layer: Params, cfg: ModelConfig, cos, sin, mask,
+          dtype, kv_cache, start_pos: int, pos_t: torch.Tensor,
+          attn_len: Optional[int] = None) -> torch.Tensor:
+    """Pre-norm residual block."""
+    xn = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+    h = x + attention(xn, layer, cfg, cos, sin, mask, dtype, kv_cache,
+                      start_pos, pos_t, attn_len)
+    hn = rms_norm(h, layer["ffn_norm"], cfg.norm_eps)
+    return h + feed_forward(hn, layer, dtype)
+
+
+# =====================================================================
+# KV cache and the cached forward
+# =====================================================================
+
+@dataclass
+class KVCache:
+    """Static-shape KV cache stacked over layers: (L, B, T, KV, D).
+
+    dtype=torch.int8 stores per-(position, head) symmetrically quantized
+    vectors with f32 scales (L, B, T, KV).
+    """
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @classmethod
+    def create(cls, cfg: ModelConfig, batch: int, max_seq: int,
+               dtype=torch.bfloat16, device=None) -> "KVCache":
+        shape = (cfg.n_layer, batch, max_seq, cfg.n_kv_head, cfg.head_dim)
+        if dtype == torch.int8:
+            sshape = shape[:-1]
+            return cls(k=torch.zeros(shape, dtype=torch.int8, device=device),
+                       v=torch.zeros(shape, dtype=torch.int8, device=device),
+                       k_scale=torch.zeros(sshape, device=device),
+                       v_scale=torch.zeros(sshape, device=device))
+        return cls(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
+
+    @property
+    def max_seq(self) -> int:
+        return self.k.shape[2]
+
+    def layer(self, i: int) -> Tuple[Optional[torch.Tensor], ...]:
+        return (self.k[i], self.v[i],
+                None if self.k_scale is None else self.k_scale[i],
+                None if self.v_scale is None else self.v_scale[i])
+
+
+def layer_params(blocks: Params, i: int) -> Params:
+    """Layer i's weights: views into the stacked tensors."""
+    return {name: (w.layer(i) if isinstance(w, Q80Tensor) else w[i])
+            for name, w in blocks.items()}
+
+
+def forward_with_cache(params: Params, idx: torch.Tensor, cache: KVCache,
+                       start_pos: int, cfg: ModelConfig,
+                       dtype=torch.bfloat16, attn_len: Optional[int] = None,
+                       last_idx: Optional[int] = None,
+                       rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                       ) -> Tuple[torch.Tensor, KVCache]:
+    """Forward S new tokens at absolute position start_pos using the cache.
+
+    idx: (B, S) token ids.  Returns f32 logits (B, S, V) — or (B, 1, V)
+    with `last_idx`, where the LM head runs for that position only — and
+    the cache, updated in place.  `attn_len` bounds the rows the S > 1
+    (prefill) attention reads; the caller guarantees start_pos + S <=
+    attn_len.  Decode (S == 1) reads rows <= start_pos whatever it is.
+    `rope` passes precomputed (cos, sin) tables covering the cache.
+    """
+    B, S = idx.shape
+    T = cache.max_seq
+    Ta = attn_len if attn_len is not None else T
+    dev = idx.device
+    h = embed_tokens(params, idx, dtype)
+
+    if cfg.use_rope:
+        cos_t, sin_t = (rope if rope is not None else
+                        precompute_rope(cfg.head_dim, T, cfg.rope_theta, dev))
+        cos, sin = cos_t[start_pos:start_pos + S], sin_t[start_pos:start_pos + S]
+    else:
+        cos = sin = None
+        h = h + params["wpe"][start_pos:start_pos + S].to(dtype)
+
+    mask = None
+    pos_t = None
+    if S > 1:
+        # query i (absolute start_pos+i) sees cache rows j <= start_pos+i
+        # (causal) or j < start_pos+S (global)
+        j = torch.arange(Ta, device=dev)[None, :]
+        if cfg.is_causal:
+            seen = j <= start_pos + torch.arange(S, device=dev)[:, None]
+        else:
+            seen = (j < start_pos + S).expand(S, Ta)
+        mask = torch.where(seen, 0.0, -float("inf")).to(torch.float32)
+    else:
+        pos_t = torch.full((1,), start_pos, dtype=torch.int32, device=dev)
+
+    for i in range(cfg.n_layer):
+        h = block(h, layer_params(params["blocks"], i), cfg, cos, sin, mask,
+                  dtype, cache.layer(i), start_pos, pos_t, attn_len)
+
+    h = rms_norm(h, params["norm"], cfg.norm_eps)
+    if last_idx is not None:
+        h = h[:, last_idx:last_idx + 1]
+    return compute_logits(h, params, dtype), cache

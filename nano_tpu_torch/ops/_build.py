@@ -1,0 +1,126 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``nano_tpu_torch/csrc/*.cu`` compiles with ``nvcc`` into its own
+shared library with a plain C interface under ``build/torch_kernels/`` at
+the repository root, and loads through ``ctypes``.  Nothing is built when
+a module is imported: the first launch (or an explicit ``build_all()``)
+builds, and every source is compiled in parallel, one ``nvcc`` each.  A
+library newer than its source and built with the same flags is reused.
+
+IEEE division and square root are required (``q80_act_quant`` must
+reproduce the JAX package's int8 decisions bit for bit), so the flags
+never include ``--use_fast_math``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, List
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# C signature of every entry point: (argtypes, library stem)
+SIGNATURES = {
+    "q80_act_quant": ([P, I, P, P, I, I, I, P], "q80_matmul"),
+    "q80_matmul_w8a8": ([P, P, P, P, P, I, I, I, I, I, P], "q80_matmul"),
+    "q80_matmul_rows": ([P, I, P, P, P, I, I, I, I, I, P], "q80_matmul"),
+    "decode_attention": ([P, P, P, P, P, P, I, P, P, P, I, I, I, I, I, I, F,
+                          I, P], "decode_attn"),
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels of nano_tpu_torch "
+                       "are built on the machine with the GPU")
+
+
+def _stamp(src: str) -> str:
+    with open(src, "rb") as f:
+        h = hashlib.sha256(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()
+
+
+def _read(path: str) -> str:
+    with open(path) as f:
+        return f.read()
+
+
+def _lib_path(stem: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{stem}.so")
+
+
+def build_all() -> Dict[str, str]:
+    """Compile every stale source in parallel; -> {stem: ptxas log}."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    stems = sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
+    procs: List = []
+    logs: Dict[str, str] = {}
+    for stem in stems:
+        src = os.path.join(CSRC_DIR, stem + ".cu")
+        stamp_file = _lib_path(stem) + ".stamp"
+        stamp = _stamp(src)
+        if (os.path.exists(_lib_path(stem)) and os.path.exists(stamp_file)
+                and _read(stamp_file) == stamp):
+            logs[stem] = "(up to date)"
+            continue
+        tmp = _lib_path(stem) + f".{os.getpid()}.tmp"
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
+        procs.append((stem, tmp, stamp_file, stamp,
+                      subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for stem, tmp, stamp_file, stamp, proc in procs:
+        out, _ = proc.communicate()
+        logs[stem] = out
+        if proc.returncode != 0:
+            failed.append(f"{stem}.cu (rc {proc.returncode}):\n{out}")
+            continue
+        os.replace(tmp, _lib_path(stem))
+        with open(stamp_file, "w") as f:
+            f.write(stamp)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return logs
+
+
+def lib(stem: str) -> ctypes.CDLL:
+    """The loaded library ``lib<stem>.so``, building everything first if
+    any source is stale."""
+    with _lock:
+        if stem not in _libs:
+            build_all()
+            handle = ctypes.CDLL(_lib_path(stem))
+            for name, (argtypes, owner) in SIGNATURES.items():
+                if owner == stem:
+                    fn = getattr(handle, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+            _libs[stem] = handle
+        return _libs[stem]
+
+
+def check(rc: int, name: str) -> None:
+    """Raise when a launch reported a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")

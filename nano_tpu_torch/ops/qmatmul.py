@@ -1,0 +1,260 @@
+"""Q80 quantized matmul: int8 weights with f32 per-group scales.
+
+Port of ``nano_tpu/ops/qmatmul.py``.  The weights keep the ``.bin`` file's
+layout on every device: ``q`` int8 ``(..., out, in)`` with ``scales`` f32
+``(..., out, in // group_size)``, groups running along the input
+dimension.  (The JAX package re-laid W8A8 weights out as ``(G, out, gs)``
+for the TPU's matrix unit; the card needs no such copy, so the tied LM
+head reads the very int8 table that the embedding gather uses.)
+
+Two numerics forms, chosen per tensor at load (``Q80Tensor.w8a8``):
+
+* W8A8 (``q80_matmul_int8``), the default at group size >= 256: the
+  activation is quantized per group with the C engine's rounding
+  (``act_quant_q80``), then each group's int8 x int8 dot is an exact
+  int32 and the f32 combine is ``sum_g P * sa * sw`` (``q80_w8a8``).
+* rows (``q80_matmul_rows``), below group size 256: f32 dequant and an
+  f32 dot — the math of the TPU kernel ``_q80_kernel``.
+
+Each wrapper runs its hand-written CUDA kernel (``csrc/q80_matmul.cu``)
+for CUDA tensors and its plain PyTorch version (``*_plain``) only for
+tensors on the CPU.  ``<wrapper>.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Tuple
+
+import torch
+
+from nano_tpu_torch.ops import _build
+
+# smallest group size that takes the W8A8 form (the JAX package's
+# MIN_GROUPED_GS: the default load decision, binfmt._maybe_int8_layout)
+MIN_W8A8_GS = 256
+
+
+@dataclass
+class Q80Tensor:
+    """Per-group symmetric int8 tensor in the file's row layout.
+
+    q:      int8, shape (..., out, in)
+    scales: f32,  shape (..., out, in // group_size)
+    w8a8:   True selects the int8-activation form of the matmul.
+    """
+    q: torch.Tensor
+    scales: torch.Tensor
+    group_size: int
+    w8a8: bool = False
+
+    @property
+    def out_dim(self) -> int:
+        return self.q.shape[-2]
+
+    @property
+    def in_dim(self) -> int:
+        return self.q.shape[-1]
+
+    def layer(self, i: int) -> "Q80Tensor":
+        """The i-th matrix of a stacked (L, out, in) tensor (a view)."""
+        return replace(self, q=self.q[i], scales=self.scales[i])
+
+    def to(self, device) -> "Q80Tensor":
+        return replace(self, q=self.q.to(device), scales=self.scales.to(device))
+
+    def dequantize(self, dtype=torch.float32) -> torch.Tensor:
+        *lead, out, inn = self.q.shape
+        g = self.group_size
+        w = self.q.to(dtype).reshape(*lead, out, inn // g, g)
+        w = w * self.scales[..., None].to(dtype)
+        return w.reshape(*lead, out, inn)
+
+
+# =====================================================================
+# plain PyTorch versions (CPU path; on the card only for comparisons)
+# =====================================================================
+
+def c_round(x: torch.Tensor) -> torch.Tensor:
+    """C round(): half away from zero (torch.round is half-to-even)."""
+    return torch.sign(x) * torch.floor(torch.abs(x) + 0.5)
+
+
+def act_quant_q80_plain(x: torch.Tensor, group_size: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, K) -> (int8 (B, G, gs), scales f32 (B, G)).
+
+    C semantics (reference: infer/tensor.c:21-47): scale = absmax/127 in
+    f32, values = round(x / scale) half away from zero; an all-zero group
+    gets scale 0 and values 0.  Both divisions divide by a tensor: PyTorch
+    turns a division by a Python number on a CUDA tensor into a multiply
+    by its reciprocal, which would move the int8 decisions."""
+    B, K = x.shape
+    xg = x.float().reshape(B, K // group_size, group_size)
+    amax = xg.abs().amax(dim=-1)
+    sa = amax / torch.full_like(amax, 127.0)
+    safe = torch.where(sa == 0.0, torch.ones_like(sa), sa)
+    aq = c_round(xg / safe[..., None])
+    return aq.to(torch.int8), sa
+
+
+def q80_w8a8_plain(aq: torch.Tensor, sa: torch.Tensor, w: Q80Tensor,
+                   dtype=torch.bfloat16) -> torch.Tensor:
+    """Quantized activations (int8 (B, G, gs), f32 (B, G)) x w -> (B, out):
+    y = sum_g P[b, g, n] * sa[b, g] * sw[n, g] with P the exact int8 group
+    dots.  They run as float products of integers: below 2^24 every
+    partial sum is an integer that f32 holds exactly (f64 above that)."""
+    B, G, gs = aq.shape
+    exact = torch.float32 if gs * 127 * 127 < 2 ** 24 else torch.float64
+    P = torch.einsum("bgk,ngk->bgn", aq.to(exact),
+                     w.q.reshape(w.out_dim, G, gs).to(exact)).float()
+    y = (P * sa[:, :, None] * w.scales.t()[None]).sum(dim=1)
+    return y.to(dtype)
+
+
+def q80_matmul_int8_plain(x: torch.Tensor, w: Q80Tensor,
+                          dtype=torch.bfloat16) -> torch.Tensor:
+    """W8A8: x (B, K) -> (B, out), activations quantized per group."""
+    aq, sa = act_quant_q80_plain(x, w.group_size)
+    return q80_w8a8_plain(aq, sa, w, dtype)
+
+
+def q80_matmul_rows_plain(x: torch.Tensor, w: Q80Tensor,
+                          dtype=torch.bfloat16) -> torch.Tensor:
+    """rows: x (B, K) -> (B, out) with f32 dequant and an f32 dot."""
+    return (x.float() @ w.dequantize(torch.float32).t()).to(dtype)
+
+
+def q80_matmul_ref(x: torch.Tensor, w: Q80Tensor,
+                   dtype=torch.bfloat16) -> torch.Tensor:
+    """x (..., in) @ dequant(w).T -> (..., out), dequantized in `dtype`."""
+    return x.to(dtype) @ w.dequantize(dtype).transpose(-1, -2)
+
+
+# =====================================================================
+# kernel wrappers
+# =====================================================================
+
+_OUT_TYPES = (torch.float32, torch.bfloat16)
+
+
+def _stream(t: torch.Tensor) -> int:
+    if t.device.index != torch.cuda.current_device():
+        raise ValueError(f"tensor on {t.device}, but the current CUDA device "
+                         f"is {torch.cuda.current_device()}")
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_weight(x: torch.Tensor, w: Q80Tensor) -> None:
+    if x.dim() != 2 or x.shape[1] != w.in_dim or w.q.dim() != 2:
+        raise ValueError(f"x {tuple(x.shape)} does not match weight "
+                         f"{tuple(w.q.shape)}")
+    if (w.q.device != x.device or w.scales.device != x.device
+            or w.q.dtype != torch.int8 or w.scales.dtype != torch.float32
+            or not w.q.is_contiguous() or not w.scales.is_contiguous()):
+        raise ValueError("Q80 weight must be contiguous int8 q and f32 "
+                         "scales on the activation's device")
+    if w.in_dim % 16 or w.q.data_ptr() % 16:
+        raise ValueError(f"in_dim {w.in_dim} must be a multiple of 16 with "
+                         "16-byte aligned rows")
+
+
+def act_quant_q80(x: torch.Tensor, group_size: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, K) f32/bf16 -> (int8 (B, G, gs), scales f32 (B, G)) with the
+    C engine's rounding; kernel ``q80_act_quant`` on the card."""
+    if x.device.type == "cpu":
+        return act_quant_q80_plain(x, group_size)
+    B, K = x.shape
+    if x.dtype not in _OUT_TYPES or not x.is_contiguous() or K % group_size:
+        raise ValueError(f"act_quant_q80 takes contiguous f32/bf16 (B, K) "
+                         f"with K % {group_size} == 0, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    G = K // group_size
+    xq = torch.empty((B, G, group_size), dtype=torch.int8, device=x.device)
+    sa = torch.empty((B, G), dtype=torch.float32, device=x.device)
+    fn = _build.lib("q80_matmul").q80_act_quant
+    rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), xq.data_ptr(),
+            sa.data_ptr(), B, K, group_size, _stream(x))
+    act_quant_q80.launches += 1
+    _build.check(rc, "q80_act_quant")
+    return xq, sa
+
+
+act_quant_q80.launches = 0
+
+
+def q80_w8a8(xq: torch.Tensor, sa: torch.Tensor, w: Q80Tensor,
+             dtype=torch.bfloat16) -> torch.Tensor:
+    """Quantized activations (int8 (B, G, gs), f32 (B, G)) x w -> (B, out)
+    in `dtype`; kernel ``q80_matmul_w8a8`` on the card."""
+    if xq.device.type == "cpu":
+        return q80_w8a8_plain(xq, sa, w, dtype)
+    B, G, gs = xq.shape
+    _check_weight(xq.reshape(B, G * gs), w)
+    if (gs != w.group_size or not (gs == 256 or gs % 512 == 0)
+            or dtype not in _OUT_TYPES):
+        raise ValueError(f"q80_matmul_w8a8 takes group size 256 or a "
+                         f"multiple of 512 and f32/bf16 output, got gs={gs} "
+                         f"(weight {w.group_size}), {dtype}")
+    if (xq.dtype != torch.int8 or sa.dtype != torch.float32
+            or sa.shape != (B, G) or not xq.is_contiguous()
+            or not sa.is_contiguous()):
+        raise ValueError("quantized activations must be contiguous int8 "
+                         "(B, G, gs) with f32 (B, G) scales")
+    y = torch.empty((B, w.out_dim), dtype=dtype, device=xq.device)
+    fn = _build.lib("q80_matmul").q80_matmul_w8a8
+    rc = fn(xq.data_ptr(), sa.data_ptr(), w.q.data_ptr(), w.scales.data_ptr(),
+            y.data_ptr(), int(dtype == torch.bfloat16), B, G * gs, w.out_dim,
+            gs, _stream(xq))
+    q80_w8a8.launches += 1
+    _build.check(rc, "q80_matmul_w8a8")
+    return y
+
+
+q80_w8a8.launches = 0
+
+
+def q80_matmul_int8(x: torch.Tensor, w: Q80Tensor,
+                    dtype=torch.bfloat16) -> torch.Tensor:
+    """W8A8 form: x (B, K) -> (B, out) in `dtype`: ``act_quant_q80`` then
+    ``q80_w8a8`` (two kernels on the card)."""
+    xq, sa = act_quant_q80(x.contiguous(), w.group_size)
+    return q80_w8a8(xq, sa, w, dtype)
+
+
+def q80_matmul_rows(x: torch.Tensor, w: Q80Tensor,
+                    dtype=torch.bfloat16) -> torch.Tensor:
+    """rows form: x (B, K) -> (B, out) in `dtype`; kernel
+    ``q80_matmul_rows`` on the card."""
+    if x.device.type == "cpu":
+        return q80_matmul_rows_plain(x, w, dtype)
+    _check_weight(x, w)
+    if x.dtype not in _OUT_TYPES or dtype not in _OUT_TYPES:
+        raise ValueError(f"q80_matmul_rows takes f32/bf16, got {x.dtype} -> "
+                         f"{dtype}")
+    x = x.contiguous()
+    B, K = x.shape
+    y = torch.empty((B, w.out_dim), dtype=dtype, device=x.device)
+    fn = _build.lib("q80_matmul").q80_matmul_rows
+    rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), w.q.data_ptr(),
+            w.scales.data_ptr(), y.data_ptr(), int(dtype == torch.bfloat16),
+            B, K, w.out_dim, w.group_size, _stream(x))
+    q80_matmul_rows.launches += 1
+    _build.check(rc, "q80_matmul_rows")
+    return y
+
+
+q80_matmul_rows.launches = 0
+
+
+def q80_matmul(x: torch.Tensor, w: Q80Tensor, dtype=torch.bfloat16
+               ) -> torch.Tensor:
+    """x (..., in) @ dequant(w).T -> (..., out) in `dtype`, in the form
+    the weight was loaded for (W8A8 or rows)."""
+    if w.q.dim() != 2:
+        raise ValueError("index stacked weights with Q80Tensor.layer(i)")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, w.in_dim)
+    fn = q80_matmul_int8 if w.w8a8 else q80_matmul_rows
+    return fn(x2, w, dtype).reshape(*lead, w.out_dim)

@@ -1,0 +1,86 @@
+"""nano_tpu_torch stands alone: it never imports jax or nano_tpu, and its
+entry points run on CUDA unless the caller asks for the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import nano_tpu_torch
+from nano_tpu_torch.config import ModelConfig
+from nano_tpu_torch.infer import engine
+from nano_tpu_torch.io.from_jax import params_from_jax
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIX = os.path.join(ROOT, "tests", "js", "fixtures")
+
+
+def _sources():
+    pkg = os.path.join(ROOT, "nano_tpu_torch")
+    for d, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(d, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def _imported_modules(path):
+    """Every module an import statement in `path` names, at any depth."""
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_source_names_jax_or_nano_tpu():
+    for path in _sources():
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "nano_tpu"), (path, mod)
+
+
+def test_importing_everything_loads_no_jax():
+    mods = sorted({m for p in _sources() for m in _imported_modules(p)
+                   if m.split(".")[0] in ("nano_tpu_torch", "torch", "numpy")})
+    pkg_mods = []
+    for path in _sources():
+        rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
+        pkg_mods.append(rel[:-len(".__init__")] if rel.endswith("__init__")
+                        else rel)
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {ROOT!r})\n"
+        f"for m in {sorted(set(mods + pkg_mods))!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'nano_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env, cwd=ROOT)
+    assert out.returncode == 0 and "clean" in out.stdout, out.stderr
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        nano_tpu_torch.resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine.LLMContext.from_bin(os.path.join(FIX, "tiny_f32.bin"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine.LLMContext(cfg=ModelConfig(), params={}, tokenizer=None,
+                          max_seq_len=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_jax({"norm": [1.0, 2.0]})
+    # asking for the CPU is the only way onto it
+    ctx = engine.LLMContext.from_bin(os.path.join(FIX, "tiny_f32.bin"),
+                                     device="cpu")
+    assert ctx.device.type == "cpu"
+    assert ctx.params["norm"].device.type == "cpu"

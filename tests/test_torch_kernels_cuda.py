@@ -1,0 +1,115 @@
+"""The CUDA kernels of nano_tpu_torch against their plain PyTorch versions
+on the card.  Every test here needs a GPU (marker `cuda`) and skips
+without one: a CUDA kernel has no CPU mode.  This file imports neither
+jax nor nano_tpu, so it also runs where only PyTorch is installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nano_tpu_torch.ops import decode_attn as tda
+from nano_tpu_torch.ops import qmatmul as tqm
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+
+
+def _q80(rng, out, inn, gs):
+    q = rng.randint(-127, 128, (out, inn)).astype(np.int8)
+    s = (rng.rand(out, inn // gs).astype(np.float32) * 0.02 + 1e-3)
+    return q, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 5, 64])
+def test_q80_kernels_match_plain(B):
+    _need_card()
+    rng = np.random.RandomState(B)
+    for K, N, gs in ((1024, 4096, 256), (3072, 1024, 256), (256, 264, 256),
+                     (1024, 384, 512), (128, 256, 32), (64, 72, 32)):
+        q, s = _q80(rng, N, K, gs)
+        for xdt in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(rng.randn(B, K).astype(np.float32)).to(
+                "cuda", xdt)
+            w = tqm.Q80Tensor(q=torch.from_numpy(q).cuda(),
+                              scales=torch.from_numpy(s).cuda(),
+                              group_size=gs, w8a8=gs >= tqm.MIN_W8A8_GS)
+            if w.w8a8:
+                kq, ks = tqm.act_quant_q80(x, gs)
+                pq, ps = tqm.act_quant_q80_plain(x, gs)
+                torch.cuda.synchronize()
+                assert torch.equal(kq, pq) and torch.equal(ks, ps)
+                want = tqm.q80_matmul_int8_plain(x, w, torch.float32)
+            else:
+                want = tqm.q80_matmul_rows_plain(x, w, torch.float32)
+            got = tqm.q80_matmul(x, w, torch.float32)
+            got16 = tqm.q80_matmul(x, w, torch.bfloat16)
+            torch.cuda.synchronize()
+            # same integer decisions / same f32 dequant; f32 sums in
+            # another order
+            torch.testing.assert_close(got, want, rtol=1e-5,
+                                       atol=1e-5 * want.abs().max().item())
+            torch.testing.assert_close(got16, want.to(torch.bfloat16),
+                                       rtol=1e-2, atol=1e-2 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.int8,
+                                         torch.float32])
+def test_decode_attention_kernel_matches_plain(cache_dtype):
+    _need_card()
+    for B, T, n_kv, rep, D in ((1, 1024, 8, 2, 128), (3, 256, 2, 4, 64),
+                               (2, 64, 2, 2, 16), (2, 128, 1, 8, 256)):
+        rng = np.random.RandomState(T + D)
+        q = torch.from_numpy(rng.randn(B, n_kv * rep, D).astype(np.float32))
+        if cache_dtype == torch.int8:
+            kc = torch.from_numpy(rng.randint(-127, 128, (B, T, n_kv, D)).astype(np.int8))
+            vc = torch.from_numpy(rng.randint(-127, 128, (B, T, n_kv, D)).astype(np.int8))
+            ks = torch.from_numpy(rng.rand(B, T, n_kv).astype(np.float32) * 0.02).cuda()
+            vs = torch.from_numpy(rng.rand(B, T, n_kv).astype(np.float32) * 0.02).cuda()
+        else:
+            kc = torch.from_numpy(rng.randn(B, T, n_kv, D).astype(np.float32)).to(cache_dtype)
+            vc = torch.from_numpy(rng.randn(B, T, n_kv, D).astype(np.float32)).to(cache_dtype)
+            ks = vs = None
+        args = [q.cuda(), kc.cuda(), vc.cuda(), ks, vs]
+        for p in (0, T // 2, T - 1):
+            for pos in (torch.full((B,), p, dtype=torch.int32, device="cuda"),
+                        torch.tensor([p], dtype=torch.int32, device="cuda")):
+                got = tda.decode_attention(*args, pos, n_kv, rep)
+                want = tda.decode_attention_plain(*args, pos, n_kv, rep)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_launch_counters_count_kernel_launches():
+    _need_card()
+    x = torch.randn(2, 256, device="cuda")
+    w = tqm.Q80Tensor(q=torch.randint(-127, 128, (64, 256), dtype=torch.int8,
+                                      device="cuda"),
+                      scales=torch.rand(64, 1, device="cuda"),
+                      group_size=256, w8a8=True)
+    n0 = (tqm.act_quant_q80.launches, tqm.q80_w8a8.launches)
+    tqm.q80_matmul(x, w, torch.float32)
+    assert (tqm.act_quant_q80.launches, tqm.q80_w8a8.launches) == (
+        n0[0] + 1, n0[1] + 1)
+
+
+@pytest.mark.cuda
+def test_python_scalar_division_is_not_ieee_on_the_card():
+    """Why the plain versions divide by tensors: on a CUDA tensor,
+    `x / 127.0` multiplies by the f32 reciprocal of 127, which moves some
+    quotients by an ulp and with them the int8 rounding decisions."""
+    _need_card()
+    x = torch.randn(1 << 20, device="cuda") * 100
+    by_scalar = x / 127.0
+    assert torch.equal(by_scalar, x * (1.0 / 127.0))
+    assert not torch.equal(by_scalar, x / torch.full_like(x, 127.0))
+    xq, sa = tqm.act_quant_q80(x.reshape(-1, 256), 256)
+    pq, ps = tqm.act_quant_q80_plain(x.reshape(-1, 256), 256)
+    assert torch.equal(xq, pq) and torch.equal(sa, ps)
