@@ -6,9 +6,11 @@ module of ``nano_tpu``: what it needs from there it keeps as its own copy.
 
   config     — ModelConfig dataclass (JSON-compatible)
   tokenizer  — trie tokenizer (Nano) and byte-level BPE (Qwen)
-  io         — .bin model reader (F32 / Q80), JAX-params bridge for tests
-  ops        — hand-written CUDA kernels (Q80 matmul, decode attention)
-               with their plain PyTorch versions, samplers
+  io         — .bin model reader (F32 / Q80 / Q4K), JAX-params bridge for
+               tests
+  ops        — hand-written CUDA kernels (Q80 matmul, decode attention,
+               Q4K activation fake-quant and fused-dequant matmul) with
+               their plain PyTorch versions, samplers
   models     — GPT forward with a KV cache (prefill + decode)
   infer      — LLMContext / Session / generate_sync / generate_on_device
 

@@ -138,13 +138,14 @@ class LLMContext:
                  dtype=torch.bfloat16, quantized: Optional[bool] = None,
                  device=None, **kw) -> "LLMContext":
         """Load a .bin model onto `device` (cuda unless asked otherwise).
-        quantized=None keeps Q80 files quantized on the device (int8
-        weights, Q80 kernels); quantized=False dequantizes to `dtype`."""
+        quantized=None keeps Q80 and Q4K files quantized on the device
+        (Q80 / Q4K kernels); quantized=False dequantizes to `dtype`."""
         device = resolve_device(device)
         with open(path, "rb") as f:
             hdr = binfmt.parse_header(f.read(binfmt.HEADER_BYTES))
         if quantized is None:
-            quantized = hdr.quant_type == binfmt.QUANT_Q80
+            quantized = hdr.quant_type in (binfmt.QUANT_Q80,
+                                           binfmt.QUANT_Q4K)
         bm = binfmt.read_model(path, dense=not quantized)
         if quantized:
             params = binfmt.quantized_device_params(bm, device=device)

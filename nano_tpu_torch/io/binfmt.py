@@ -12,12 +12,15 @@ README.md:239-255, parser infer/infer.c:220-320):
     [...]     attn_norm[L], ffn_norm[L], final_norm (f32), then tok_emb,
               wq[L], wk[L], wv[L], wo[L], w1[L], w2[L], w3[L] (f32 or
               per-group int8 + f32 scales), arch extras, RoPE tables,
-              classifier if untied.
+              classifier if untied.  Q4K files hold the eight matrices
+              as self-describing Q4K tensor frames (ops/q4k.py), then the
+              extras, and RoPE tables for Nano only.
 
 ``read_model`` is host-side numpy with the JAX package's stacked (L, in,
 out) layout, so its output compares array for array.
-``quantized_device_params`` builds the device tensors.  Q4K files raise
-``NotImplementedError``: that slice of the port is still to come.
+``quantized_device_params`` builds the device tensors: stacked
+``Q80Tensor``s for Q80 files, stacked packed ``Q4KTensor``s for Q4K files
+with the tied head requantized to Q80 (``q4k_head_requant``).
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ import numpy as np
 import torch
 
 from nano_tpu_torch.config import ModelConfig
+from nano_tpu_torch.ops import q4k
+from nano_tpu_torch.ops.q4k import Q4KTensor
 from nano_tpu_torch.ops.qmatmul import MIN_W8A8_GS, Q80Tensor
 
 MAGIC_0 = 0x42443453  # "BD4S" (LE)
@@ -45,6 +50,22 @@ QUANT_Q80 = 0x80
 QUANT_Q4K = 0x42
 
 HEADER_BYTES = 256
+
+
+def quantize_q80(w: np.ndarray, group_size: int
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """Symmetric per-group int8 (reference: export.py:40-63) -> (int8
+    values, f32 scales per group); rounds half to even (np.rint), as the
+    JAX package's writer does."""
+    flat = np.ascontiguousarray(w, dtype=np.float32).reshape(-1)
+    if flat.size % group_size:
+        raise ValueError(f"{flat.size} values do not split into groups of "
+                         f"{group_size}")
+    groups = flat.reshape(-1, group_size)
+    scale = np.max(np.abs(groups), axis=1) / 127.0
+    safe = np.where(scale == 0.0, 1.0, scale)
+    q = np.rint(groups / safe[:, None]).astype(np.int8)
+    return q.reshape(-1), scale.astype(np.float32)
 
 
 def dequantize_q80(q: np.ndarray, scale: np.ndarray, group_size: int
@@ -177,12 +198,24 @@ class QuantTensor:
 
 
 @dataclass
+class Q4KFrame:
+    """One self-describing Q4K tensor frame as stored in the file."""
+    blocks: np.ndarray          # (nb, 160) uint8
+    shape: Tuple[int, ...]
+
+    def dequantize(self) -> np.ndarray:
+        rows = int(np.prod(self.shape[:-1])) if len(self.shape) > 1 else 1
+        return q4k.dequantize_lines_np(self.blocks, rows,
+                                       self.shape[-1]).reshape(self.shape)
+
+
+@dataclass
 class BinModel:
     header: BinHeader
     config: ModelConfig
     tokenizer_config: dict
     params: Dict[str, Any]                     # f32 arrays (JAX layout)
-    qparams: Optional[Dict[str, Any]] = None   # QuantTensors (Q80 files)
+    qparams: Optional[Dict[str, Any]] = None   # QuantTensors / Q4KFrames
     rope_cos: Optional[np.ndarray] = None
     rope_sin: Optional[np.ndarray] = None
 
@@ -200,8 +233,18 @@ def _read_tensor(r: _Reader, shape: Tuple[int, ...], quant_type: int,
     return qt.dequantize().astype(np.float32), qt
 
 
+def _rope_tables(cfg: ModelConfig) -> Tuple[np.ndarray, np.ndarray]:
+    dim = cfg.head_dim
+    freqs = 1.0 / (cfg.rope_theta ** (
+        np.arange(0, dim, 2, dtype=np.float32)[: dim // 2] / dim))
+    t = np.arange(cfg.block_size, dtype=np.float32)
+    angles = np.outer(t, freqs).astype(np.float32)
+    return np.cos(angles), np.sin(angles)
+
+
 def read_model(path: str, dense: bool = True) -> BinModel:
-    """Parse a Nano/Qwen .bin (F32 or Q80) into the stacked-params layout.
+    """Parse a Nano/Qwen .bin (F32, Q80 or Q4K) into the stacked-params
+    layout.
 
     dense=False skips the f32 dequantized copies of quantized matmul
     weights (params then carries only norms/extras); the quantized load
@@ -212,10 +255,7 @@ def read_model(path: str, dense: bool = True) -> BinModel:
     hdr = parse_header(data)
     if hdr.model_type == MODEL_TYPE_LORA:
         raise ValueError("LoRA files are not model files")
-    if hdr.quant_type == QUANT_Q4K:
-        raise NotImplementedError(
-            "Q4K .bin files are not ported to nano_tpu_torch yet")
-    if hdr.quant_type not in (QUANT_F32, QUANT_Q80):
+    if hdr.quant_type not in (QUANT_F32, QUANT_Q80, QUANT_Q4K):
         raise ValueError(f"unsupported quant_type 0x{hdr.quant_type:x}")
     if hdr.model_type in (MODEL_TYPE_QWEN2, MODEL_TYPE_QWEN3):
         from nano_tpu_torch.tokenizer.bpe import BpeTokenizer
@@ -236,6 +276,10 @@ def read_model(path: str, dense: bool = True) -> BinModel:
     attn_norm = np.stack([r.f32(E) for _ in range(L)])
     ffn_norm = np.stack([r.f32(E) for _ in range(L)])
     final_norm = r.f32(E)
+
+    if hdr.quant_type == QUANT_Q4K:
+        return _read_model_q4k(data, hdr, cfg, tok_cfg, r,
+                               attn_norm, ffn_norm, final_norm, dense)
 
     def read_stack(shape_out_in):
         """L matrices stored (out, in) -> stacked (L, in, out) + quants."""
@@ -295,6 +339,60 @@ def read_model(path: str, dense: bool = True) -> BinModel:
                     rope_cos=rope_cos, rope_sin=rope_sin)
 
 
+def _read_model_q4k(data: bytes, hdr: BinHeader, cfg: ModelConfig,
+                    tok_cfg: dict, r: _Reader, attn_norm, ffn_norm,
+                    final_norm, dense: bool) -> BinModel:
+    """Q4K tail: 8 stacked tensor frames, extras, RoPE tables for Nano
+    (reference: infer/infer.c:140-216)."""
+    L, E, V = cfg.n_layer, cfg.n_embd, cfg.vocab_size
+    H, KV, D, F = cfg.n_head, cfg.n_kv_head, cfg.head_dim, cfg.n_hidden
+
+    order = [("tok_embeddings", (V, E)), ("wq", (L, H * D, E)),
+             ("wk", (L, KV * D, E)), ("wv", (L, KV * D, E)),
+             ("wo", (L, E, H * D)), ("w1", (L, F, E)),
+             ("w2", (L, E, F)), ("w3", (L, F, E))]
+    frames: Dict[str, Q4KFrame] = {}
+    for name, shape in order:
+        blocks, fshape, r.pos = q4k.parse_tensor_frame(data, r.pos)
+        if fshape != shape:
+            raise ValueError(f"Q4K frame {name} has shape {fshape}, "
+                             f"expected {shape}")
+        frames[name] = Q4KFrame(blocks=blocks, shape=shape)
+
+    extras: Dict[str, Any] = {}
+    if hdr.model_type == MODEL_TYPE_QWEN3:
+        extras["q_norm"] = np.stack([r.f32(D) for _ in range(L)])
+        extras["k_norm"] = np.stack([r.f32(D) for _ in range(L)])
+    elif hdr.model_type == MODEL_TYPE_QWEN2:
+        raise ValueError("Q4K Qwen2 files are not well-formed "
+                         "(reference drops the qkv biases)")
+
+    if hdr.model_type == MODEL_TYPE_NANO:
+        rope_cos = r.f32(cfg.block_size * (D // 2)).reshape(cfg.block_size, -1)
+        rope_sin = r.f32(cfg.block_size * (D // 2)).reshape(cfg.block_size, -1)
+    else:  # Qwen3 recomputes theta=1e6 tables (infer/infer.c:189-204)
+        rope_cos, rope_sin = _rope_tables(cfg)
+
+    def deq_T(name):  # (L, out, in) -> (L, in, out)
+        return np.ascontiguousarray(
+            frames[name].dequantize().transpose(0, 2, 1))
+
+    params: Dict[str, Any] = {
+        "norm": final_norm,
+        "blocks": {"attn_norm": attn_norm, "ffn_norm": ffn_norm, **extras},
+    }
+    if dense:
+        params["tok_embeddings"] = frames["tok_embeddings"].dequantize()
+        params["blocks"].update({n: deq_T(n) for n in
+                                 ("wq", "wk", "wv", "wo", "w1", "w2", "w3")})
+    qparams = {"tok_embeddings": frames["tok_embeddings"],
+               "blocks": {n: frames[n] for n in
+                          ("wq", "wk", "wv", "wo", "w1", "w2", "w3")}}
+    return BinModel(header=hdr, config=cfg, tokenizer_config=tok_cfg,
+                    params=params, qparams=qparams,
+                    rope_cos=rope_cos, rope_sin=rope_sin)
+
+
 # =====================================================================
 # device params
 # =====================================================================
@@ -321,6 +419,8 @@ def quantized_device_params(bm: BinModel, fuse: bool = True,
     """
     if bm.qparams is None:
         raise ValueError("not a quantized model file")
+    if bm.header.quant_type == QUANT_Q4K:
+        return _q4k_device_params(bm, fuse, device)
     gs = bm.header.group_size
 
     def tens(x):
@@ -390,3 +490,64 @@ def _maybe_int8_layout(params: Dict[str, Any]) -> None:
     tok = params["tok_embeddings"]
     if isinstance(tok, Q80Tensor):
         params["output_q"] = conv(tok)
+
+
+def _q4k_device_params(bm: BinModel, fuse: bool, device) -> Dict[str, Any]:
+    """Q4K frames -> stacked packed Q4KTensors (fused wqkv / w13: Q4K
+    groups run along the input dim, so rows concatenate), norms f32, and
+    the tied head requantized to Q80 as ``output_q`` (or the packed table
+    itself when n_embd is not a multiple of 32)."""
+    def stack(names) -> Q4KTensor:
+        """(L, out, in) frames -> one stacked tensor, concatenated along out."""
+        frames = [bm.qparams["blocks"][n] for n in names]
+        L, _, inn = frames[0].shape
+        per = [[q4k.packed_from_blocks(b, f.shape[1], inn)
+                for b in f.blocks.reshape(L, -1, q4k.BLOCK_BYTES)]
+               for f in frames]
+        p, s, b = (torch.from_numpy(np.stack(
+            [np.concatenate([fr[i][k] for fr in per]) for i in range(L)])
+        ).to(device) for k in range(3))
+        return Q4KTensor(packed=p, scales=s, biases=b, in_dim=inn)
+
+    def tens(x):
+        return torch.from_numpy(np.array(x)).to(device)
+
+    blocks: Dict[str, Any] = {
+        "attn_norm": tens(bm.params["blocks"]["attn_norm"]),
+        "ffn_norm": tens(bm.params["blocks"]["ffn_norm"]),
+        "wo": stack(["wo"]),
+        "w2": stack(["w2"]),
+    }
+    for name in ("q_norm", "k_norm"):
+        if name in bm.params["blocks"]:
+            blocks[name] = tens(bm.params["blocks"][name])
+    if fuse:
+        blocks["wqkv"] = stack(["wq", "wk", "wv"])
+        blocks["w13"] = stack(["w1", "w3"])
+    else:
+        blocks.update({n: stack([n]) for n in ("wq", "wk", "wv", "w1", "w3")})
+    V, E = bm.config.vocab_size, bm.config.n_embd
+    tok_blocks = bm.qparams["tok_embeddings"].blocks
+    tok = Q4KTensor.from_blocks(tok_blocks, V, E, device)
+    head = q4k_head_requant(tok_blocks, V, E, device)
+    return {"tok_embeddings": tok, "norm": tens(bm.params["norm"]),
+            "blocks": blocks, "output_q": tok if head is None else head}
+
+
+def q4k_head_requant(blocks: np.ndarray, out_dim: int, in_dim: int,
+                     device=None) -> Optional[Q80Tensor]:
+    """Q4K LM head -> Q80 rows at the largest group size in (256, 128, 64,
+    32) that divides in_dim (W8A8 form at >= 256), computed on the host
+    from the file's blocks, as the JAX package does.  The head values are
+    already 4-bit, so the int8 step adds noise far below the Q4K error.
+    None when in_dim is not a multiple of 32 (the packed head stays)."""
+    divisors = [g for g in (256, 128, 64, 32) if in_dim % g == 0]
+    if not divisors:
+        return None
+    gs = max(divisors)
+    dense = q4k.dequantize_lines_np(blocks, out_dim, in_dim)
+    q, scales = quantize_q80(dense, gs)
+    return Q80Tensor(q=torch.from_numpy(q.reshape(out_dim, in_dim)).to(device),
+                     scales=torch.from_numpy(
+                         scales.reshape(out_dim, in_dim // gs)).to(device),
+                     group_size=gs, w8a8=gs >= MIN_W8A8_GS)

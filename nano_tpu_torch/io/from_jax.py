@@ -7,8 +7,11 @@ is recognised by its fields (``q``, ``scales``, ``group_size``,
 ``layout``) — this module imports neither ``jax`` nor ``nano_tpu``.  A
 grouped ``(..., G, out, gs)`` tensor (the TPU's int8 layout) goes back to
 the file's ``(..., out, in)`` rows and takes the W8A8 form; a rows tensor
-takes the f32 rows form.  An ``output_q`` head that holds the same values
-as a Q80 embedding table shares its storage.
+takes the f32 rows form.  A JAX ``Q4KTensor`` (fields ``packed``,
+``scales``, ``biases``, ``in_dim``, ``layout``) in the packed layout
+carries across field for field; its ``unpacked`` and ``grouped`` layouts
+are not ported.  An ``output_q`` head that holds the same values as the
+embedding table shares its storage.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from nano_tpu_torch import resolve_device
+from nano_tpu_torch.ops.q4k import Q4KTensor
 from nano_tpu_torch.ops.qmatmul import Q80Tensor
 
 
@@ -44,11 +48,34 @@ def _q80(t, device) -> Q80Tensor:
                      w8a8=layout == "grouped")
 
 
+def _q4k(t, device) -> Q4KTensor:
+    layout = getattr(t, "layout", "packed")
+    if layout != "packed":
+        raise NotImplementedError(
+            f"the JAX Q4K layout {layout!r} is not ported (packed only)")
+    return Q4KTensor(packed=_tensor(t.packed, device),
+                     scales=_tensor(t.scales, device),
+                     biases=_tensor(t.biases, device), in_dim=int(t.in_dim))
+
+
+def _same(a, b) -> bool:
+    """Two weights of one kind holding the same values."""
+    if isinstance(a, Q80Tensor) and isinstance(b, Q80Tensor):
+        return (a.q.shape == b.q.shape and torch.equal(a.q, b.q)
+                and torch.equal(a.scales, b.scales))
+    if isinstance(a, Q4KTensor) and isinstance(b, Q4KTensor):
+        return (a.packed.shape == b.packed.shape and a.in_dim == b.in_dim
+                and torch.equal(a.packed, b.packed)
+                and torch.equal(a.scales, b.scales)
+                and torch.equal(a.biases, b.biases))
+    return False
+
+
 def _convert(x, device):
     if isinstance(x, dict):
         return {k: _convert(v, device) for k, v in x.items()}
     if hasattr(x, "packed"):
-        raise NotImplementedError("Q4K tensors are not ported yet")
+        return _q4k(x, device)
     if all(hasattr(x, a) for a in ("q", "scales", "group_size")):
         return _q80(x, device)
     return _tensor(x, device)
@@ -59,10 +86,8 @@ def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     `device` (cuda unless asked otherwise)."""
     params = _convert(tree, resolve_device(device))
     tok, head = params.get("tok_embeddings"), params.get("output_q")
-    if (isinstance(tok, Q80Tensor) and isinstance(head, Q80Tensor)
-            and tok.q.shape == head.q.shape
-            and torch.equal(tok.q, head.q)
-            and torch.equal(tok.scales, head.scales)):
-        tok.w8a8 = head.w8a8
+    if _same(tok, head):
+        if isinstance(tok, Q80Tensor):
+            tok.w8a8 = head.w8a8
         params["output_q"] = tok
     return params

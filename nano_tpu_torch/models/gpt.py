@@ -8,12 +8,14 @@ and qkv biases, SwiGLU, tied / untied / ``output_q`` heads, and
 The parameters keep the JAX package's layout so the two compare like with
 like: layer weights are STACKED along a leading (n_layer,) axis, dense
 matrices are (in, out), quantized ones are ``Q80Tensor`` in the file's
-(out, in) rows.  PyTorch runs eagerly, so the layer scan is a Python loop
-over views of the stacked tensors, and the KV cache is updated IN PLACE
-(the JAX version returned a new cache; here the same object comes back).
+(out, in) rows or packed ``Q4KTensor``.  PyTorch runs eagerly, so the
+layer scan is a Python loop over views of the stacked tensors, and the KV
+cache is updated IN PLACE (the JAX version returned a new cache; here the
+same object comes back).
 
 Kernels on the card: every quantized projection and head goes through
-``ops.qmatmul`` and every single-token attention through
+``ops.qmatmul`` (Q80) or ``ops.q4k`` (Q4K: activation fake-quant, then
+the fused-dequant matmul), and every single-token attention through
 ``ops.decode_attn``.  Prefill attention (S > 1), RMSNorm, RoPE, SwiGLU and
 the cache write are plain PyTorch, as they were XLA-fused ops on the TPU.
 """
@@ -29,6 +31,7 @@ import torch.nn.functional as F
 
 from nano_tpu_torch.config import ModelConfig
 from nano_tpu_torch.ops import decode_attn
+from nano_tpu_torch.ops.q4k import Q4KTensor, fake_quant_act, q4k_matmul
 from nano_tpu_torch.ops.qmatmul import Q80Tensor, q80_matmul
 
 Params = Dict[str, Any]
@@ -90,9 +93,12 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float
 
 def _dense(x: torch.Tensor, w, dtype) -> torch.Tensor:
     """x @ w in the compute dtype.  Dense weights are (in, out); Q80
-    weights keep the file's (out, in) rows and run the Q80 kernels."""
+    weights keep the file's (out, in) rows and run the Q80 kernels, Q4K
+    weights the Q4K kernels."""
     if isinstance(w, Q80Tensor):
         return q80_matmul(x, w, dtype)
+    if isinstance(w, Q4KTensor):
+        return q4k_matmul(x, w, dtype)
     return torch.matmul(x.to(dtype), w.to(dtype))
 
 
@@ -103,8 +109,14 @@ def _dot_f32(h: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def embed_tokens(params: Params, idx: torch.Tensor, dtype) -> torch.Tensor:
-    """Embedding row gather; a Q80 table dequantizes the gathered rows."""
+    """Embedding row gather; a quantized table dequantizes the gathered
+    rows.  Ids outside [0, V) are clamped into it, as the JAX gather does
+    (the tiny fixtures' trie tokenizer has one entry more than the table)."""
     w = params["tok_embeddings"]
+    V = w.out_dim if isinstance(w, (Q80Tensor, Q4KTensor)) else w.shape[0]
+    idx = idx.clamp(0, V - 1)
+    if isinstance(w, Q4KTensor):
+        return w.dequantize_rows(idx, dtype)
     if isinstance(w, Q80Tensor):
         g = w.group_size
         q = w.q[idx]                        # (..., E) int8
@@ -117,11 +129,17 @@ def embed_tokens(params: Params, idx: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def compute_logits(h: torch.Tensor, params: Params, dtype) -> torch.Tensor:
-    """LM head -> f32 logits: ``output_q`` (the int8 head, tied to the
+    """LM head -> f32 logits: ``output_q`` (the quantized head, tied to the
     embedding table at load), untied ``output`` (in, out), or the tied
-    embedding table (V, E) transposed."""
+    embedding table (V, E) transposed.  A Q80 head requantized from a Q4K
+    table still gets the C engine's Q4K treatment of its activation first
+    (reference: infer/infer.c:1012-1014), then runs the Q80 kernels."""
     w = params.get("output_q")
     if w is not None:
+        if (isinstance(params["tok_embeddings"], Q4KTensor)
+                and isinstance(w, Q80Tensor)):
+            E = h.shape[-1]
+            h = fake_quant_act(h.reshape(-1, E))[:, :E].reshape(h.shape)
         return _dense(h, w, torch.float32)
     w = params.get("output")
     if w is None:
@@ -303,7 +321,8 @@ class KVCache:
 
 def layer_params(blocks: Params, i: int) -> Params:
     """Layer i's weights: views into the stacked tensors."""
-    return {name: (w.layer(i) if isinstance(w, Q80Tensor) else w[i])
+    return {name: (w.layer(i) if isinstance(w, (Q80Tensor, Q4KTensor))
+                   else w[i])
             for name, w in blocks.items()}
 
 

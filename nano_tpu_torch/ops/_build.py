@@ -7,9 +7,10 @@ a module is imported: the first launch (or an explicit ``build_all()``)
 builds, and every source is compiled in parallel, one ``nvcc`` each.  A
 library newer than its source and built with the same flags is reused.
 
-IEEE division and square root are required (``q80_act_quant`` must
-reproduce the JAX package's int8 decisions bit for bit), so the flags
-never include ``--use_fast_math``.
+IEEE division and square root, and denormals, are required
+(``q80_act_quant`` and ``q4k_fake_quant`` must reproduce the JAX package's
+integer decisions bit for bit), so the flags never include
+``--use_fast_math``.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import shutil
 import subprocess
 import threading
 from typing import Dict, List
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -38,6 +41,8 @@ SIGNATURES = {
     "q80_matmul_rows": ([P, I, P, P, P, I, I, I, I, I, P], "q80_matmul"),
     "decode_attention": ([P, P, P, P, P, P, I, P, P, P, I, I, I, I, I, I, F,
                           I, P], "decode_attn"),
+    "q4k_fake_quant": ([P, I, P, I, I, I, P], "q4k"),
+    "q4k_matmul": ([P, P, P, P, P, I, I, I, I, I, P], "q4k"),
 }
 
 _lock = threading.Lock()
@@ -118,6 +123,15 @@ def lib(stem: str) -> ctypes.CDLL:
                     fn.restype = ctypes.c_int
             _libs[stem] = handle
         return _libs[stem]
+
+
+def stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of t's device, as the int a kernel takes;
+    raises when t is not on the current device."""
+    if t.device.index != torch.cuda.current_device():
+        raise ValueError(f"tensor on {t.device}, but the current CUDA device "
+                         f"is {torch.cuda.current_device()}")
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def check(rc: int, name: str) -> None:

@@ -1,0 +1,361 @@
+"""Q4K 4-bit k-quant: host-side frame parsing, the activation fake-quant
+and the fused-dequant matmul.
+
+Port of ``nano_tpu/ops/q4k.py``.  The scheme (reference:
+infer/tensor.c:71-483): the last axis of a tensor is split into 256-value
+blocks; each block holds 8 groups of 32 values quantized asymmetrically to
+4 bits (``x ~= v * s_g - b_g``, ``b_g >= 0``), with the 8 group scales and
+biases themselves quantized to 6 bits against two per-block f32
+super-scales.  One block is 160 bytes: u32 header, u32 length, u32 meta,
+f32 s_scale, f32 s_bias, 12 B packed 6-bit scale/bias table, 128 B packed
+nibbles.
+
+Device layout (``Q4KTensor``, the JAX package's "packed" layout): byte
+``g*16+j`` of a row holds value ``g*32+j`` in its low nibble and value
+``g*32+16+j`` in its high nibble, so a 32-group is exactly 16 bytes; the
+f32 group scales and biases (already dequantized from 6 bits) sit beside
+it.  The file's interleaved nibble pairs are re-laid out at load.
+
+The C engine quantizes the *activation* to Q4K before every quantized
+matmul (reference: infer/infer.c:781-785).  ``fake_quant_act`` reproduces
+that quantize->dequantize with the same rounding, bit for bit, and
+``q4k_matmul_f32`` is the TPU kernel ``_q4k_kernel``'s math: f32 dequant
+``v*s - b`` and an f32 dot.  Unlike the TPU, the card needs no
+activation permutation (``_permute_act``): a lane reads a whole group.
+
+Each wrapper runs its hand-written CUDA kernel (``csrc/q4k.cu``) for CUDA
+tensors and its plain PyTorch version (``*_plain``) only for tensors on
+the CPU.  ``<wrapper>.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from nano_tpu_torch.ops import _build
+
+BLOCK_LEN = 256
+GROUP_LEN = 32
+GROUPS_PER_BLOCK = 8
+BLOCK_BYTES = 160
+QUANT_TYPE_Q4K = 0x42
+
+_FLT_MAX = np.float32(np.finfo(np.float32).max)
+_FLT_TRUE_MIN = np.float32(1.401298464324817e-45)  # smallest denormal
+_MAGIC = np.float32(12582912.0)  # 1.5 * 2**23
+
+
+# =====================================================================
+# host side (numpy): rounding, block unpacking, tensor frames
+# =====================================================================
+
+def nearest_int_np(x: np.ndarray) -> np.ndarray:
+    """The C engine's nearest_int (infer/tensor.c:4-9): add 1.5*2^23 and
+    read the mantissa bits."""
+    val = (np.asarray(x, np.float32) + _MAGIC).view(np.int32)
+    return (val & 0x007FFFFF) - 0x00400000
+
+
+def n_blocks_per_line(n: int) -> int:
+    return -(-n // BLOCK_LEN)
+
+
+def unpack_blocks_np(blocks: np.ndarray
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """(nb, 160) uint8 -> (values uint8 (nb, 256), s f32 (nb, 8), b f32
+    (nb, 8), lengths u32 (nb,)).  s and b are the dequantized group
+    parameters (reference: infer/tensor.c:113-141)."""
+    blocks = np.ascontiguousarray(blocks, np.uint8).reshape(-1, BLOCK_BYTES)
+    nb = blocks.shape[0]
+    lens = blocks[:, 4:8].copy().view("<u4").reshape(nb)
+    s_scale = blocks[:, 12:16].copy().view("<f4").reshape(nb)
+    s_bias = blocks[:, 16:20].copy().view("<f4").reshape(nb)
+    sb = blocks[:, 20:32]
+    sq = np.zeros((nb, 8), np.uint8)
+    bq = np.zeros((nb, 8), np.uint8)
+    sq[:, 0:4] = sb[:, 0:4] & 0x3F
+    sq[:, 4:8] = (((sb[:, 0:4] >> 6) << 4) | (sb[:, 8:12] & 0x0F)) & 0x3F
+    bq[:, 0:4] = sb[:, 4:8] & 0x3F
+    bq[:, 4:8] = (((sb[:, 4:8] >> 6) << 4) | (sb[:, 8:12] >> 4)) & 0x3F
+    s = (sq.astype(np.float32) * s_scale[:, None]).astype(np.float32)
+    b = (bq.astype(np.float32) * s_bias[:, None]).astype(np.float32)
+    pv = blocks[:, 32:160]
+    v = np.zeros((nb, BLOCK_LEN), np.uint8)
+    v[:, 0::2] = pv & 0x0F
+    v[:, 1::2] = pv >> 4
+    return v, s, b, lens
+
+
+def dequantize_lines_np(blocks: np.ndarray, rows: int, n: int) -> np.ndarray:
+    """Blocks of `rows` lines of length n -> (rows, n) f32."""
+    v, s, b, _lens = unpack_blocks_np(blocks)
+    vals = (v.reshape(-1, GROUPS_PER_BLOCK, GROUP_LEN).astype(np.float32)
+            * s[:, :, None] - b[:, :, None])
+    out = vals.reshape(rows, n_blocks_per_line(n) * BLOCK_LEN)[:, :n]
+    return np.ascontiguousarray(out, np.float32)
+
+
+def parse_tensor_frame(data: bytes, offset: int
+                       ) -> Tuple[np.ndarray, Tuple[int, ...], int]:
+    """One frame (u64 total, u32 header, u32 ndim, u32 shape[6], u32
+    num_blocks, blocks; reference: infer/tensor.c:71-110) -> (blocks
+    uint8 (nb, 160), shape, next offset)."""
+    total = int(np.frombuffer(data, "<u8", 1, offset)[0])
+    header, ndim = np.frombuffer(data, "<u4", 2, offset + 8)
+    if header != QUANT_TYPE_Q4K:
+        raise ValueError(f"not a Q4K frame: header 0x{int(header):x}")
+    shape = tuple(int(x) for x in
+                  np.frombuffer(data, "<u4", 6, offset + 16)[:ndim])
+    nb = int(np.frombuffer(data, "<u4", 1, offset + 40)[0])
+    blocks = np.frombuffer(data, np.uint8, nb * BLOCK_BYTES,
+                           offset + 44).reshape(nb, BLOCK_BYTES)
+    if total != 44 + nb * BLOCK_BYTES:
+        raise ValueError("Q4K frame length mismatch")
+    return blocks, shape, offset + total
+
+
+def packed_from_blocks(blocks: np.ndarray, out_dim: int, in_dim: int
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """File blocks of an (out, in) matrix -> the device layout as numpy:
+    (packed uint8 (out, n_pad/2), scales f32 (out, n_pad/32), biases)."""
+    v, s, b, _l = unpack_blocks_np(blocks)
+    npad = n_blocks_per_line(in_dim) * BLOCK_LEN
+    v = v.reshape(out_dim, npad // GROUP_LEN, 2, GROUP_LEN // 2)
+    packed = (v[:, :, 0, :] | (v[:, :, 1, :] << 4)).reshape(out_dim, npad // 2)
+    return packed, s.reshape(out_dim, -1), b.reshape(out_dim, -1)
+
+
+# =====================================================================
+# device tensor
+# =====================================================================
+
+@dataclass
+class Q4KTensor:
+    """Q4K weight in the packed device layout.
+
+    packed: uint8 (..., out, n_pad // 2); byte g*16+j holds value g*32+j
+            (low nibble) and value g*32+16+j (high nibble)
+    scales, biases: f32 (..., out, n_pad // 32), the dequantized group
+            parameters
+    in_dim: the true contraction length (n_pad rounds it up to 256)
+    """
+    packed: torch.Tensor
+    scales: torch.Tensor
+    biases: torch.Tensor
+    in_dim: int
+
+    @property
+    def out_dim(self) -> int:
+        return self.packed.shape[-2]
+
+    @property
+    def n_pad(self) -> int:
+        return self.packed.shape[-1] * 2
+
+    @classmethod
+    def from_blocks(cls, blocks: np.ndarray, out_dim: int, in_dim: int,
+                    device=None) -> "Q4KTensor":
+        p, s, b = packed_from_blocks(blocks, out_dim, in_dim)
+        return cls(packed=torch.from_numpy(p).to(device),
+                   scales=torch.from_numpy(s).to(device),
+                   biases=torch.from_numpy(b).to(device), in_dim=in_dim)
+
+    def layer(self, i: int) -> "Q4KTensor":
+        """The i-th matrix of a stacked (L, out, ...) tensor (a view)."""
+        return replace(self, packed=self.packed[i], scales=self.scales[i],
+                       biases=self.biases[i])
+
+    def to(self, device) -> "Q4KTensor":
+        return replace(self, packed=self.packed.to(device),
+                       scales=self.scales.to(device),
+                       biases=self.biases.to(device))
+
+    def dequantize(self, dtype=torch.float32) -> torch.Tensor:
+        """-> (..., out, in_dim) dense weight, the affine run in `dtype`."""
+        *lead, out, nh = self.packed.shape
+        ng = nh // (GROUP_LEN // 2)
+        p = self.packed.reshape(*lead, out, ng, GROUP_LEN // 2)
+        v = torch.cat([p & 0x0F, p >> 4], dim=-1).to(dtype)
+        w = (v * self.scales[..., None].to(dtype)
+             - self.biases[..., None].to(dtype))
+        return w.reshape(*lead, out, ng * GROUP_LEN)[..., :self.in_dim]
+
+    def dequantize_rows(self, ids: torch.Tensor, dtype=torch.float32
+                        ) -> torch.Tensor:
+        """Gather + dequantize rows (an embedding lookup on a Q4K table)."""
+        return replace(self, packed=self.packed[ids], scales=self.scales[ids],
+                       biases=self.biases[ids]).dequantize(dtype)
+
+
+# =====================================================================
+# plain PyTorch versions (CPU path; on the card only for comparisons)
+# =====================================================================
+
+def _const(c, like: torch.Tensor) -> torch.Tensor:
+    """c as an f32 scalar tensor on like's device.  Divisions divide by such
+    a tensor: on a CUDA tensor a division by a Python number is a multiply
+    by its reciprocal, not an IEEE division."""
+    return torch.full((), float(c), dtype=torch.float32, device=like.device)
+
+
+def nearest_int(x: torch.Tensor) -> torch.Tensor:
+    """nearest_int_np on an f32 tensor -> int32 (exact for every input,
+    NaN and inf included, as the C engine's bit trick)."""
+    val = (x + _const(_MAGIC, x)).view(torch.int32)
+    return (val & 0x007FFFFF) - 0x00400000
+
+
+def act_quant_q4k_plain(x2d: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Q4K activation quantization, the INTEGER form.
+
+    x2d (B, n) -> (values int8 (B, G, 32) in [0, 15], s_eff f32 (B, G),
+    b_eff f32 (B, G)), G = n rounded up to 256, / 32; the dequantized
+    activation is ``v * s_eff - b_eff``.  The masked formulation of the JAX
+    package's ``act_quant_q4k`` (max starts at -FLT_MAX, min at FLT_MAX,
+    only valid positions update them; reference: infer/tensor.c:144-251).
+    Its aligned fast path computes the same values (nano_tpu's tests pin
+    that), so one formulation serves every n."""
+    B, n = x2d.shape
+    nbpl = n_blocks_per_line(n)
+    npad = nbpl * BLOCK_LEN
+    xf = x2d.float()
+    if npad != n:
+        xf = torch.nn.functional.pad(xf, (0, npad - n))
+    valid = (torch.arange(npad, device=xf.device) < n).reshape(
+        nbpl, GROUPS_PER_BLOCK, GROUP_LEN)
+    vals = xf.reshape(B, nbpl, GROUPS_PER_BLOCK, GROUP_LEN)
+    zero = _const(0.0, xf)
+
+    vmax = torch.where(valid, vals, _const(-_FLT_MAX, xf)).amax(-1)
+    vmax = torch.maximum(vmax, _const(_FLT_TRUE_MIN, xf))
+    vmin = torch.where(valid, vals, _const(_FLT_MAX, xf)).amin(-1)
+    neg = vmin <= 0.0
+    s = torch.where(neg, vmax - vmin, vmax) / _const(15.0, xf)
+    b = torch.where(neg, -vmin, zero)
+
+    safe_s = torch.where(s == 0.0, _const(1.0, xf), s)
+    v = nearest_int((vals + b[..., None]) / safe_s[..., None]) & 0x0F
+    v = torch.where((s[..., None] == 0.0) | ~valid, 0, v)
+
+    s_max = torch.maximum(s.amax(-1), _const(_FLT_TRUE_MIN, xf))
+    b_max = torch.maximum(b.amax(-1), _const(_FLT_TRUE_MIN, xf))
+    s_scale = (s_max / _const(63.0, xf))[..., None]
+    s_bias = (b_max / _const(63.0, xf))[..., None]
+    one = _const(1.0, xf)
+    sq = torch.where(s_scale == 0.0, 0,
+                     nearest_int(s / torch.where(s_scale == 0.0, one, s_scale))
+                     & 0x3F)
+    bq = torch.where(s_bias == 0.0, 0,
+                     nearest_int(b / torch.where(s_bias == 0.0, one, s_bias))
+                     & 0x3F)
+    s_eff = sq.float() * s_scale
+    b_eff = bq.float() * s_bias
+    G = nbpl * GROUPS_PER_BLOCK
+    return (v.reshape(B, G, GROUP_LEN).to(torch.int8),
+            s_eff.reshape(B, G), b_eff.reshape(B, G))
+
+
+def fake_quant_act_plain(x2d: torch.Tensor) -> torch.Tensor:
+    """x2d (B, n) -> (B, n_pad) f32: the Q4K quantize->dequantize of the
+    activation, positions >= n written as 0.  Its first n columns equal
+    the JAX package's ``fake_quant_act`` bit for bit: the same integer
+    decisions, then ``v * s_eff - b_eff`` as two rounded f32 operations."""
+    B, n = x2d.shape
+    v, s_eff, b_eff = act_quant_q4k_plain(x2d)
+    deq = (v.float() * s_eff[..., None] - b_eff[..., None]).reshape(B, -1)
+    keep = torch.arange(deq.shape[1], device=deq.device) < n
+    return torch.where(keep, deq, _const(0.0, deq))
+
+
+def q4k_matmul_plain(xq: torch.Tensor, w: Q4KTensor,
+                     dtype=torch.bfloat16) -> torch.Tensor:
+    """Fake-quantized activation (B, n_pad or in_dim) x w -> (B, out):
+    f32 dequant ``v * s - b`` and an f32 dot over the first in_dim
+    positions, the math of the TPU kernel ``_q4k_kernel``."""
+    x = xq[:, :w.in_dim].float()
+    return (x @ w.dequantize(torch.float32).t()).to(dtype)
+
+
+# =====================================================================
+# kernel wrappers
+# =====================================================================
+
+_OUT_TYPES = (torch.float32, torch.bfloat16)
+
+
+def fake_quant_act(x2d: torch.Tensor) -> torch.Tensor:
+    """x2d (B, n) f32/bf16 -> (B, n_pad) f32 fake-quantized activation,
+    positions >= n zero; kernel ``q4k_fake_quant`` on the card."""
+    if x2d.device.type == "cpu":
+        return fake_quant_act_plain(x2d)
+    if x2d.dim() != 2 or x2d.dtype not in _OUT_TYPES:
+        raise ValueError(f"fake_quant_act takes f32/bf16 (B, n), got "
+                         f"{x2d.dtype} {tuple(x2d.shape)}")
+    x2d = x2d.contiguous()
+    B, n = x2d.shape
+    n_pad = n_blocks_per_line(n) * BLOCK_LEN
+    out = torch.empty((B, n_pad), dtype=torch.float32, device=x2d.device)
+    fn = _build.lib("q4k").q4k_fake_quant
+    rc = fn(x2d.data_ptr(), int(x2d.dtype == torch.bfloat16), out.data_ptr(),
+            B, n, n_pad, _build.stream(x2d))
+    fake_quant_act.launches += 1
+    _build.check(rc, "q4k_fake_quant")
+    return out
+
+
+fake_quant_act.launches = 0
+
+
+def q4k_matmul_f32(xq: torch.Tensor, w: Q4KTensor,
+                   dtype=torch.bfloat16) -> torch.Tensor:
+    """Fake-quantized activation xq (B, n_pad) f32 x w -> (B, out) in
+    `dtype`; kernel ``q4k_matmul`` on the card (positions >= in_dim of
+    xq are never read)."""
+    if xq.device.type == "cpu":
+        return q4k_matmul_plain(xq, w, dtype)
+    B = xq.shape[0]
+    if (xq.dim() != 2 or xq.shape[1] != w.n_pad or xq.dtype != torch.float32
+            or not xq.is_contiguous() or xq.data_ptr() % 16):
+        raise ValueError(f"q4k_matmul takes a contiguous, 16-byte aligned "
+                         f"f32 (B, {w.n_pad}), got {xq.dtype} "
+                         f"{tuple(xq.shape)}")
+    if w.packed.dim() != 2:
+        raise ValueError("index stacked weights with Q4KTensor.layer(i)")
+    parts = (w.packed, w.scales, w.biases)
+    if (any(p.device != xq.device or not p.is_contiguous() for p in parts)
+            or w.packed.dtype != torch.uint8
+            or w.scales.dtype != torch.float32
+            or w.biases.dtype != torch.float32
+            or w.scales.shape != (w.out_dim, w.n_pad // GROUP_LEN)
+            or w.biases.shape != w.scales.shape
+            or w.packed.data_ptr() % 16 or dtype not in _OUT_TYPES):
+        raise ValueError("Q4K weight must be contiguous uint8 packed and f32 "
+                         "scales/biases on the activation's device, "
+                         "16-byte aligned, with f32/bf16 output")
+    y = torch.empty((B, w.out_dim), dtype=dtype, device=xq.device)
+    fn = _build.lib("q4k").q4k_matmul
+    rc = fn(xq.data_ptr(), w.packed.data_ptr(), w.scales.data_ptr(),
+            w.biases.data_ptr(), y.data_ptr(), int(dtype == torch.bfloat16),
+            B, w.n_pad, w.in_dim, w.out_dim, _build.stream(xq))
+    q4k_matmul_f32.launches += 1
+    _build.check(rc, "q4k_matmul")
+    return y
+
+
+q4k_matmul_f32.launches = 0
+
+
+def q4k_matmul(x: torch.Tensor, w: Q4KTensor, dtype=torch.bfloat16
+               ) -> torch.Tensor:
+    """x (..., in) -> (..., out) in `dtype`: the activation fake-quant,
+    then the fused-dequant matmul (two kernels on the card)."""
+    if w.packed.dim() != 2:
+        raise ValueError("index stacked weights with Q4KTensor.layer(i)")
+    lead = x.shape[:-1]
+    xq = fake_quant_act(x.reshape(-1, w.in_dim))
+    return q4k_matmul_f32(xq, w, dtype).reshape(*lead, w.out_dim)

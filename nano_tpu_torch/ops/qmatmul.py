@@ -138,13 +138,6 @@ def q80_matmul_ref(x: torch.Tensor, w: Q80Tensor,
 _OUT_TYPES = (torch.float32, torch.bfloat16)
 
 
-def _stream(t: torch.Tensor) -> int:
-    if t.device.index != torch.cuda.current_device():
-        raise ValueError(f"tensor on {t.device}, but the current CUDA device "
-                         f"is {torch.cuda.current_device()}")
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _check_weight(x: torch.Tensor, w: Q80Tensor) -> None:
     if x.dim() != 2 or x.shape[1] != w.in_dim or w.q.dim() != 2:
         raise ValueError(f"x {tuple(x.shape)} does not match weight "
@@ -175,7 +168,7 @@ def act_quant_q80(x: torch.Tensor, group_size: int
     sa = torch.empty((B, G), dtype=torch.float32, device=x.device)
     fn = _build.lib("q80_matmul").q80_act_quant
     rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), xq.data_ptr(),
-            sa.data_ptr(), B, K, group_size, _stream(x))
+            sa.data_ptr(), B, K, group_size, _build.stream(x))
     act_quant_q80.launches += 1
     _build.check(rc, "q80_act_quant")
     return xq, sa
@@ -206,7 +199,7 @@ def q80_w8a8(xq: torch.Tensor, sa: torch.Tensor, w: Q80Tensor,
     fn = _build.lib("q80_matmul").q80_matmul_w8a8
     rc = fn(xq.data_ptr(), sa.data_ptr(), w.q.data_ptr(), w.scales.data_ptr(),
             y.data_ptr(), int(dtype == torch.bfloat16), B, G * gs, w.out_dim,
-            gs, _stream(xq))
+            gs, _build.stream(xq))
     q80_w8a8.launches += 1
     _build.check(rc, "q80_matmul_w8a8")
     return y
@@ -239,7 +232,7 @@ def q80_matmul_rows(x: torch.Tensor, w: Q80Tensor,
     fn = _build.lib("q80_matmul").q80_matmul_rows
     rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), w.q.data_ptr(),
             w.scales.data_ptr(), y.data_ptr(), int(dtype == torch.bfloat16),
-            B, K, w.out_dim, w.group_size, _stream(x))
+            B, K, w.out_dim, w.group_size, _build.stream(x))
     q80_matmul_rows.launches += 1
     _build.check(rc, "q80_matmul_rows")
     return y

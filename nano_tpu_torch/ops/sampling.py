@@ -132,8 +132,11 @@ def seen_mask_from_ids(ids: torch.Tensor, length: torch.Tensor,
     B, T = ids.shape
     valid = (torch.arange(T, device=ids.device)[None, :]
              < torch.as_tensor(length, device=ids.device).reshape(-1, 1))
+    # an id outside [0, V) marks nothing (the JAX one-hot is all false)
+    valid &= (ids >= 0) & (ids < vocab_size)
     counts = torch.zeros((B, vocab_size), dtype=torch.int32, device=ids.device)
-    counts.scatter_add_(1, ids.long(), valid.to(torch.int32))
+    counts.scatter_add_(1, ids.long().clamp(0, vocab_size - 1),
+                        valid.to(torch.int32))
     return counts > 0
 
 

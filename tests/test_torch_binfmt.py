@@ -79,8 +79,3 @@ def test_quantized_device_params_match_jax_loader():
             assert torch.equal(got["blocks"][k].scales, v.scales), k
         else:
             assert torch.equal(got["blocks"][k], v), k
-
-
-def test_q4k_file_is_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        tbin.read_model(os.path.join(FIX, "tiny_q4k.bin"))

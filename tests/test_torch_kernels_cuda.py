@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from nano_tpu_torch.ops import decode_attn as tda
+from nano_tpu_torch.ops import q4k as tq4
 from nano_tpu_torch.ops import qmatmul as tqm
 
 
@@ -86,6 +87,58 @@ def test_decode_attention_kernel_matches_plain(cache_dtype):
                 torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
+def _act_rows(rng, B, n):
+    """Random rows with an all-zero group and constant groups."""
+    x = (rng.randn(B, n) * 0.7).astype(np.float32)
+    x[0, :min(n, 32)] = 0.0
+    if n >= 64:
+        x[-1, 32:64] = 2.5
+    if n >= 128:
+        x[0, 64:96] = -1.25
+    return torch.from_numpy(x).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [40, 64, 128, 256, 1024, 2048, 3072])
+def test_q4k_fake_quant_kernel_is_bit_equal(n):
+    _need_card()
+    rng = np.random.RandomState(n)
+    for B in (1, 64):
+        x = _act_rows(rng, B, n)
+        for xt in (x, x.to(torch.bfloat16)):
+            got = tq4.fake_quant_act(xt)
+            want = tq4.fake_quant_act_plain(xt)
+            torch.cuda.synchronize()
+            assert got.shape == (B, tq4.n_blocks_per_line(n) * 256)
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inn,out", [(1024, 4096), (2048, 1024), (1024, 6144),
+                                     (3072, 1024), (64, 128), (128, 64),
+                                     (40, 3)])
+def test_q4k_matmul_kernel_matches_plain(inn, out):
+    _need_card()
+    rng = np.random.RandomState(inn + out)
+    npad = tq4.n_blocks_per_line(inn) * 256
+    w = tq4.Q4KTensor(
+        packed=torch.from_numpy(rng.randint(0, 256, (out, npad // 2)).astype(np.uint8)).cuda(),
+        scales=torch.from_numpy(rng.rand(out, npad // 32).astype(np.float32) * 0.02 + 1e-3).cuda(),
+        biases=torch.from_numpy(rng.rand(out, npad // 32).astype(np.float32) * 0.02).cuda(),
+        in_dim=inn)
+    for B in (1, 5, 64):
+        xq = tq4.fake_quant_act(_act_rows(rng, B, inn))
+        want = tq4.q4k_matmul_plain(xq, w, torch.float32)
+        got = tq4.q4k_matmul_f32(xq, w, torch.float32)
+        got16 = tq4.q4k_matmul_f32(xq, w, torch.bfloat16)
+        torch.cuda.synchronize()
+        # the same f32 dequant and products; sums in another order
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * want.abs().max().item())
+        torch.testing.assert_close(got16, want.to(torch.bfloat16),
+                                   rtol=1e-2, atol=1e-2 * want.abs().max().item())
+
+
 @pytest.mark.cuda
 def test_launch_counters_count_kernel_launches():
     _need_card()
@@ -97,6 +150,14 @@ def test_launch_counters_count_kernel_launches():
     n0 = (tqm.act_quant_q80.launches, tqm.q80_w8a8.launches)
     tqm.q80_matmul(x, w, torch.float32)
     assert (tqm.act_quant_q80.launches, tqm.q80_w8a8.launches) == (
+        n0[0] + 1, n0[1] + 1)
+    w4 = tq4.Q4KTensor(packed=torch.zeros(64, 128, dtype=torch.uint8,
+                                          device="cuda"),
+                       scales=torch.ones(64, 8, device="cuda"),
+                       biases=torch.zeros(64, 8, device="cuda"), in_dim=256)
+    n0 = (tq4.fake_quant_act.launches, tq4.q4k_matmul_f32.launches)
+    tq4.q4k_matmul(x, w4, torch.float32)
+    assert (tq4.fake_quant_act.launches, tq4.q4k_matmul_f32.launches) == (
         n0[0] + 1, n0[1] + 1)
 
 

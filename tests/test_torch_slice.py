@@ -177,6 +177,27 @@ def test_greedy_matches_jax_on_fixtures(name):
     assert s.output_ids == expected["greedy"][name[5:-4]]
 
 
+@pytest.mark.parametrize("name", ["tiny_f32.bin", "tiny_q80.bin"])
+@pytest.mark.parametrize("penalty", [1.0, 1.1])
+def test_out_of_vocabulary_ids_clamp_like_jax(name, penalty):
+    """The fixtures' trie tokenizer has 65 entries for a 64-row table, so
+    " " encodes to id 64: the embedding gather clamps it to the last row,
+    as the JAX gather does, and the repetition penalty ignores it."""
+    path = os.path.join(FIX, name)
+    sampler = dict(temperature=0.0, repetition_penalty=penalty)
+    jctx = jeng.LLMContext.from_bin(path, max_seq_len=64, dtype=jnp.float32,
+                                    quantized=False,
+                                    sampler=jsamp.SamplerConfig(**sampler))
+    tctx = teng.LLMContext.from_bin(path, max_seq_len=64,
+                                    dtype=torch.float32, device="cpu",
+                                    sampler=tsamp.SamplerConfig(**sampler))
+    ids = tctx.encode("hello world abc")
+    assert ids == jctx.encode("hello world abc")
+    assert max(ids) >= tctx.cfg.vocab_size
+    want = jeng.generate_on_device(jctx, ids, 16).tolist()
+    assert teng.generate_on_device(tctx, ids, 16).tolist() == want
+
+
 def test_int8_kv_cache_decode_matches_jax(qwen_tiny):
     jcfg, tcfg, jp, tp = qwen_tiny
     sampler = dict(temperature=0.0, repetition_penalty=1.0)
