@@ -27,6 +27,27 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   count of every kernel on the path, a profile of the
                   decode step, and first-step logits against the plain
                   versions on the CPU
+  6. training     Nano-168M (config/model_168m.json: 24 layers, width 768,
+                  16/8 heads of 48) under config/pretrain.json (batch 64 x
+                  512, bf16, remat "ffn"), random weights from the config's
+                  seed: a corpus under build/ made by repeating
+                  dataset/pretrain_sample.txt, tokenized into shards by
+                  generate_pretrain_dataset; Trainer init / load_data /
+                  start for 12 steps with an eval and a checkpoint at step
+                  6; the loss must start at ln 16384 and fall, every
+                  attention must go through the flash-attention kernels
+                  (launch counts asserted), a second Trainer resumed from
+                  the step-12 checkpoint must reproduce step 13's loss bit
+                  for bit; ms/step, tokens/s, peak memory and a profile of
+                  one step; and one f32 step (4 layers, batch 2) on the card
+                  against the same step on the CPU through the plain versions
+
+Phase 3 also holds the two flash-attention kernels (forward, backward)
+against the plain version at the Nano-168M and Qwen3-0.6B head shapes,
+bf16 and f32, a ragged length and rep = 1, and at the training shape
+itself (batch 64 x 512, bf16, each of the 24 layers' tensors), and times a
+training step's 24 forward and 24 backward launches beside the plain
+version, scaled_dot_product_attention and the bound.
 
 The last two lines of stdout are one JSON object listing the kernels and
 then {"ok": true, "device": {...}}.  Without a CUDA device the script
@@ -45,6 +66,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12           # dense int8 tensor-core peak
+BF16_OPS_PER_S = 989e12            # dense bf16 tensor-core peak
 F32_OPS_PER_S = 67e12              # f32 outside the tensor cores
 
 # Qwen3-0.6B (config/model_0.6b.json; tools/bench_stages.py QWEN3_06B)
@@ -55,6 +77,7 @@ QWEN3_06B = dict(block_size=1024, vocab_size=151936, n_layer=28,
 GS = 256
 SEED = 1234
 PROMPT_LEN, N_TOKENS = 64, 256
+TRAIN_STEPS, TRAIN_EVAL_AT = 12, 6
 # operations per value of the Q4K fake-quant: max, min, add, divide, the
 # two rounding operations, the dequant multiply and subtract
 FQ_OPS_PER_VALUE = 8
@@ -203,9 +226,13 @@ def main() -> int:
     import numpy as np
     from dataclasses import replace
     from nano_tpu_torch.config import ModelConfig
+    from nano_tpu_torch.data import preprocess
     from nano_tpu_torch.infer import engine
     from nano_tpu_torch.models import gpt
-    from nano_tpu_torch.ops import _build, decode_attn, q4k, qmatmul, sampling
+    from nano_tpu_torch.ops import (_build, decode_attn, flash_attn, q4k,
+                                    qmatmul, sampling)
+    from nano_tpu_torch.train.data import DataLoader
+    from nano_tpu_torch.train.trainer import Trainer
     from nano_tpu_torch.tokenizer.bpe import QWEN_STOP_TOKENS
     from nano_tpu_torch.tokenizer.trie import TrieTokenizer
     import torch.nn.functional as F
@@ -277,6 +304,10 @@ def main() -> int:
           "nano_tpu_torch/csrc/q4k.cu")
     entry("q4k_matmul", "nano_tpu/ops/q4k.py:717",
           "nano_tpu_torch/csrc/q4k.cu")
+    entry("flash_attn_fwd", "nano_tpu/models/gpt.py:239",
+          "nano_tpu_torch/csrc/flash_attn.cu")
+    entry("flash_attn_bwd", "nano_tpu/models/gpt.py:239",
+          "nano_tpu_torch/csrc/flash_attn.cu")
 
     def note_err(name, err):
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
@@ -409,6 +440,141 @@ def main() -> int:
             if not err <= tol:
                 raise AssertionError(f"q4k_matmul {name} B={B} off by {err}")
             note_err("q4k_matmul", err)
+
+    # K4, causal GQA flash attention: forward and backward against the
+    # plain version differentiated by autograd, at the Nano-168M and
+    # Qwen3-0.6B head shapes, a ragged length and rep = 1.  f32: the same
+    # arithmetic in another order (1e-5 of max|ref| forward, 1e-4
+    # backward); bf16: the kernel keeps the probabilities in f32 where the
+    # plain version rounds them to bf16, and both round the results (2e-2).
+    def flash_case(B, S, Hh, KVh, Dh, dt):
+        mk = lambda *shape: torch.randn(*shape, device=dev, generator=gen).to(dt)
+        return mk(B, S, Hh, Dh), mk(B, S, KVh, Dh), mk(B, S, KVh, Dh), mk(B, S, Hh * Dh)
+
+    def fwd_bwd(fn, q, k, v, g):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves)
+        return out, torch.autograd.grad(out, leaves, g)
+
+    for B, S, Hh, KVh, Dh in ((4, 512, 16, 8, 48), (2, 1024, 16, 8, 128),
+                              (2, 200, 4, 2, 64), (2, 96, 4, 4, 48)):
+        for dt in (torch.bfloat16, torch.float32):
+            case = flash_case(B, S, Hh, KVh, Dh, dt)
+            out, grads = fwd_bwd(flash_attn.flash_attention, *case)
+            _, grads2 = fwd_bwd(flash_attn.flash_attention, *case)
+            ref, rgrads = fwd_bwd(flash_attn.flash_attention_plain, *case)
+            torch.cuda.synchronize()
+            tol_f, tol_b = ((1e-5, 1e-4) if dt == torch.float32
+                            else (2e-2, 2e-2))
+            err_f = (out.float() - ref.float()).abs().max().item()
+            lim_f = tol_f * ref.float().abs().max().item()
+            errs = [(a.float() - b.float()).abs().max().item()
+                    for a, b in zip(grads, rgrads)]
+            lims = [tol_b * b.float().abs().max().item() for b in rgrads]
+            same = all(torch.equal(a, b) for a, b in zip(grads, grads2))
+            log(f"[kernel] flash_attn {str(dt)[6:]} B={B} S={S} H={Hh} "
+                f"KV={KVh} D={Dh}: fwd max_abs_err {err_f:.3e} (tol "
+                f"{lim_f:.3e} = {tol_f:g} of max|ref|); bwd dq/dk/dv "
+                + "/".join(f"{e:.3e}" for e in errs) + " (tol "
+                + "/".join(f"{x:.3e}" for x in lims) + f" = {tol_b:g} of "
+                f"max|ref|); two backward runs bit-equal: {same}")
+            if not (err_f <= lim_f and all(e <= x for e, x in zip(errs, lims))
+                    and same and out.shape == ref.shape):
+                raise AssertionError(f"flash attention B={B} S={S} D={Dh} "
+                                     f"{dt} disagrees with the plain version")
+            note_err("flash_attn_fwd", err_f)
+            note_err("flash_attn_bwd", max(errs))
+            del case, out, grads, grads2, ref, rgrads
+
+    # K4 timing: one training step's launches at the Nano-168M shape (24
+    # layers, batch 64 x 512, bf16), each layer on its own tensors; device
+    # time between CUDA events around each layer's forward and backward,
+    # summed over the layers, the better of two passes after a warm-up.
+    # The same way for the kernels, the plain version and SDPA.
+    tcfg = ModelConfig.from_json(os.path.join(ROOT, "config", "model_168m.json"))
+    TB, TS, TL = 64, tcfg.block_size, tcfg.n_layer
+    TH, TKV, TD = tcfg.n_head, tcfg.n_kv_head, tcfg.head_dim
+    step_layers = []
+    for _ in range(TL):
+        q, k, v, g = flash_case(TB, TS, TH, TKV, TD, torch.bfloat16)
+        step_layers.append((q.requires_grad_(True), k.requires_grad_(True),
+                            v.requires_grad_(True), g))
+
+    # the training shape itself against the plain version, layer by layer
+    # (the plain version's (B, H, S, S) scores fit at batch 64): the same
+    # 2e-2 of max|ref| as the smaller bf16 cases above
+    worst_f = worst_b = 0.0
+    for q, k, v, g in step_layers:
+        out, grads = fwd_bwd(flash_attn.flash_attention, q, k, v, g)
+        ref, rgrads = fwd_bwd(flash_attn.flash_attention_plain, q, k, v, g)
+        err_f = (out.float() - ref.float()).abs().max().item()
+        errs = [(a.float() - b.float()).abs().max().item()
+                for a, b in zip(grads, rgrads)]
+        ok = (out.shape == ref.shape
+              and err_f <= 2e-2 * ref.float().abs().max().item()
+              and all(e <= 2e-2 * b.float().abs().max().item()
+                      for e, b in zip(errs, rgrads)))
+        if not ok:
+            raise AssertionError(
+                f"flash attention at the training shape B={TB} S={TS} "
+                f"D={TD} bf16 disagrees with the plain version: fwd "
+                f"{err_f:.3e}, dq/dk/dv {errs}")
+        worst_f, worst_b = max(worst_f, err_f), max(worst_b, *errs)
+        del out, grads, ref, rgrads
+    note_err("flash_attn_fwd", worst_f)
+    note_err("flash_attn_bwd", worst_b)
+    log(f"[kernel] flash_attn bf16 at the training shape B={TB} S={TS} "
+        f"H={TH} KV={TKV} D={TD}, {TL} layers' tensors: fwd max_abs_err "
+        f"{worst_f:.3e}, bwd {worst_b:.3e} (tol 2e-2 of max|ref| for out "
+        f"and each of dq, dk, dv)")
+
+    def step_times(fn, grad_out=lambda g: g):
+        best = None
+        for _ in range(3):
+            marks = []
+            for q, k, v, g in step_layers:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                ev[0].record()
+                out = fn(q, k, v)
+                ev[1].record()
+                grads = torch.autograd.grad(out, (q, k, v), grad_out(g))
+                ev[2].record()
+                marks.append(ev)
+                del out, grads
+            torch.cuda.synchronize()
+            t = (sum(e[0].elapsed_time(e[1]) for e in marks),
+                 sum(e[1].elapsed_time(e[2]) for e in marks))
+            best = t if best is None else (min(best[0], t[0]),
+                                           min(best[1], t[1]))
+        return best
+
+    def sdpa(q, k, v):      # (B, H, S, D) out, as the library gives it
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+
+    k_ms = step_times(flash_attn.flash_attention)
+    p_ms = step_times(flash_attn.flash_attention_plain)
+    l_ms = step_times(sdpa, lambda g: g.reshape(TB, TS, TH, TD).transpose(1, 2))
+    el = 2                                       # bytes of a bf16
+    qo_bytes, kv_bytes = TB * TS * TH * TD * el, TB * TS * TKV * TD * el
+    lse_bytes = TB * TH * TS * 4
+    pair_flops = 2 * TB * TH * TD * TS * (TS + 1) // 2   # one causal product
+    for name, i, n_bytes, n_prod in (
+            ("flash_attn_fwd", 0, 2 * qo_bytes + 2 * kv_bytes + lse_bytes, 2),
+            # reads q, k, v, out, dout, lse; writes dq, dk, dv; S, dP, dV,
+            # dK, dQ are the five products it cannot do without
+            ("flash_attn_bwd", 1, 4 * qo_bytes + 4 * kv_bytes + lse_bytes, 5)):
+        kk = kernels[name]
+        kk["ms"], kk["plain_ms"], kk["library_ms"] = k_ms[i], p_ms[i], l_ms[i]
+        set_bound(name, TL * n_bytes, TL * n_prod * pair_flops, BF16_OPS_PER_S)
+        log(f"[time] one training step of attention, {name} ({TL} layers, "
+            f"B={TB} S={TS} H={TH} KV={TKV} D={TD}, bf16): kernel "
+            f"{kk['ms']:.3f} ms, plain {kk['plain_ms']:.3f} ms, SDPA(is_causal, "
+            f"enable_gqa) {kk['library_ms']:.3f} ms, bound {kk['bound_ms']:.4f} "
+            f"ms ({kk['bound_by']}: {TL * n_bytes / 1e6:.1f} MB, "
+            f"{TL * n_prod * pair_flops / 1e12:.3f} TFLOP)")
+    del step_layers
 
     # ---- timing: one decode step's launches of each kernel, B=1 ----
     lib = _build.lib("q80_matmul")
@@ -626,22 +792,26 @@ def main() -> int:
               sum(2 * wl.q.numel() for wl in tiny_calls), F32_OPS_PER_S)
 
     names = list(kernels)
-    counters = dict(q80_act_quant=qmatmul.act_quant_q80,
-                    q80_matmul_w8a8=qmatmul.q80_w8a8,
-                    q80_matmul_rows=qmatmul.q80_matmul_rows,
-                    decode_attention=decode_attn.decode_attention,
-                    q4k_fake_quant=q4k.fake_quant_act,
-                    q4k_matmul=q4k.q4k_matmul_f32)
+    # kernel -> (the wrapper that counts its launches, the count's name)
+    counters = dict(
+        q80_act_quant=(qmatmul.act_quant_q80, "launches"),
+        q80_matmul_w8a8=(qmatmul.q80_w8a8, "launches"),
+        q80_matmul_rows=(qmatmul.q80_matmul_rows, "launches"),
+        decode_attention=(decode_attn.decode_attention, "launches"),
+        q4k_fake_quant=(q4k.fake_quant_act, "launches"),
+        q4k_matmul=(q4k.q4k_matmul_f32, "launches"),
+        flash_attn_fwd=(flash_attn.flash_attention, "launches"),
+        flash_attn_bwd=(flash_attn.flash_attention, "backward_launches"))
     assert sorted(counters) == sorted(names)
 
     def reset():
         torch.cuda.synchronize()
-        for c in counters.values():
-            c.launches = 0
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
 
     def read():
         torch.cuda.synchronize()
-        return {n: counters[n].launches for n in names}
+        return {n: getattr(*counters[n]) for n in names}
 
     def tiny_stream(ctx, file, want, must_launch):
         reset()
@@ -946,6 +1116,215 @@ def main() -> int:
                    ("Q4K without activation fake-quant, rows-form head",
                     rows_form, False, 1e-4)], out4)
 
+    del params4
+    torch.cuda.empty_cache()
+
+    # ---------------- 6. training ----------------
+    work = os.path.join(ROOT, "build", "smoke_train")
+    os.makedirs(work, exist_ok=True)
+    tok_path = os.path.join(ROOT, "tokenizer", "nano_16384.json")
+    ttok = TrieTokenizer.from_file(tok_path)
+    with open(os.path.join(ROOT, "dataset", "pretrain_sample.txt"),
+              encoding="utf-8") as f:
+        sample = f.read()
+    width = tcfg.block_size + 1
+    n_copies = -(-1100 * width // len(ttok.encode(sample)))
+    corpus = os.path.join(work, "corpus.txt")
+    with open(corpus, "w", encoding="utf-8") as f:
+        f.write(sample * n_copies)
+    t0 = time.time()
+    train_p, val_p = preprocess.generate_pretrain_dataset(
+        [corpus], ttok, tcfg.block_size, os.path.join(work, "pt"))
+    n_blocks = sum(len(preprocess.load_shard(p_)[0]) for p_ in (train_p, val_p))
+    log(f"[train] corpus: dataset/pretrain_sample.txt x {n_copies} -> "
+        f"{n_blocks} blocks of {width} tokens in {time.time() - t0:.1f} s")
+    if n_blocks < 1024:
+        raise AssertionError("corpus gave fewer than 1024 blocks")
+
+    with open(os.path.join(ROOT, "config", "pretrain.json")) as f:
+        train_cfg = json.load(f)
+    train_cfg.update(dataset_path=[[train_p, val_p]], tokenizer_path=tok_path,
+                     save_checkpoint_to=work, warmup_iters=4,
+                     eval_interval=TRAIN_EVAL_AT, eval_iters=1)
+    A = train_cfg["gradient_accumulation_steps"]
+    tokens_per_step = train_cfg["batch_size"] * A * tcfg.block_size
+    trainer = Trainer(tcfg, train_cfg, max_steps=TRAIN_STEPS)
+    trainer.init()
+    trainer.load_data()
+    if trainer.device.type != "cuda":
+        raise AssertionError("the trainer did not take the card")
+    step_ms = []
+    plain_step = trainer._train_step
+
+    def timed_step(xs, ys, ms):
+        torch.cuda.synchronize()
+        t_step = time.time()
+        loss = plain_step(xs, ys, ms)
+        torch.cuda.synchronize()
+        step_ms.append((time.time() - t_step) * 1e3)
+        return loss
+
+    trainer._train_step = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    trainer.start()
+    counts = read()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [l for _, l in trainer.loss_history]
+    n_eval_fwd = 2 * train_cfg["eval_iters"] * TL * (
+        (TRAIN_STEPS - 1) // TRAIN_EVAL_AT)
+    expect_t = {n: 0 for n in names}
+    expect_t.update(flash_attn_fwd=TL * A * TRAIN_STEPS + n_eval_fwd,
+                    flash_attn_bwd=TL * A * TRAIN_STEPS)
+    log(f"[train] launches {counts}; expected {expect_t} ({TL} forward and "
+        f"{TL} backward per microbatch, {n_eval_fwd} eval forwards)")
+    if counts != expect_t:
+        raise AssertionError("training launch counts differ from 24 per "
+                             "microbatch, forward and backward")
+    for name in ("flash_attn_fwd", "flash_attn_bwd"):
+        kernels[name]["launches"] = counts[name]
+    steady = sorted(step_ms[2:])
+    ms_step = steady[len(steady) // 2]
+    fell = losses[0] - sum(losses[-3:]) / 3
+    log(f"[train] Nano-168M, {TL} layers, batch {train_cfg['batch_size']} x "
+        f"{tcfg.block_size}, bf16, remat {train_cfg['remat_policy']!r}, on "
+        f"{card}: median {ms_step:.1f} ms/step over steps 3-{TRAIN_STEPS} "
+        f"(first {step_ms[0]:.1f}), {tokens_per_step / ms_step * 1e3:.0f} "
+        f"tokens/s, {trainer.flop_per_token * tokens_per_step / ms_step / 1e6:.1f} "
+        f"GFLOP/s by the trainer's formula, peak memory {peak_gb:.2f} GB")
+    log(f"[train] losses {[round(l, 4) for l in losses]}; first - mean of "
+        f"last three = {fell:.3f} (must be >= 1.0; first within 0.3 of "
+        f"ln {tcfg.vocab_size} = {np.log(tcfg.vocab_size):.3f})")
+    if not (len(losses) == TRAIN_STEPS and all(np.isfinite(losses))
+            and abs(losses[0] - np.log(tcfg.vocab_size)) <= 0.3
+            and fell >= 1.0):
+        raise AssertionError("the training losses are not what a model that "
+                             "learns gives")
+    ckpt = os.path.join(work, "checkpoint.npz")
+    ckpt12 = os.path.join(work, "step12.npz")
+    if not os.path.exists(ckpt):
+        raise AssertionError("no checkpoint written")
+    os.replace(ckpt, ckpt12)
+
+    # the run that did not stop takes step 13; a second Trainer resumed
+    # from the step-12 checkpoint (data stream replayed) takes it too
+    trainer.max_steps = TRAIN_STEPS + 1
+    trainer.start()
+    resumed = Trainer(tcfg, dict(train_cfg, from_checkpoint=ckpt12),
+                      max_steps=TRAIN_STEPS + 1, is_continued_pretrain=True,
+                      ckpt_filename="resumed.npz")
+    resumed.init()
+    resumed.load_data()
+    os.remove(ckpt12)
+    resumed.start()
+    os.remove(os.path.join(work, "resumed.npz"))
+    os.remove(ckpt)
+    a, b = trainer.loss_history[-1], resumed.loss_history[-1]
+    log(f"[train] step {a[0]} loss: the run that did not stop {a[1]!r}, "
+        f"resumed from the checkpoint {b[1]!r} (must be equal)")
+    if not (a[0] == b[0] == TRAIN_STEPS + 1 and a[1] == b[1]
+            and all(torch.equal(x, y) for (_, x), (_, y) in zip(
+                gpt.param_leaves(trainer.params),
+                gpt.param_leaves(resumed.params)))):
+        raise AssertionError("the resumed run left the trajectory")
+    del resumed
+    torch.cuda.empty_cache()
+
+    # where a training step's time goes
+    from torch.profiler import ProfilerActivity, profile
+    xs, ys, ms = trainer._get_accum_batch()
+    plain_step(xs, ys, ms)      # refills the allocator's cache emptied above
+    torch.cuda.synchronize()
+    t0 = time.time()
+    plain_step(xs, ys, ms)      # the same batch with the profiler off
+    torch.cuda.synchronize()
+    bare_ms = (time.time() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        plain_step(xs, ys, ms)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    groups = {"K4 forward": 0.0, "K4 backward": 0.0, "matmuls": 0.0,
+              "other": 0.0}
+    others, n_kernels = {}, 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us_ = getattr(e, "self_device_time_total", 0.0)
+        n_kernels += e.count
+        if "flash_fwd" in e.key:
+            key = "K4 forward"
+        elif "flash_bwd" in e.key or "flash_delta" in e.key:
+            key = "K4 backward"
+        elif any(x in e.key for x in ("gemm", "cutlass", "nvjet", "xmma",
+                                      "cublas")):
+            key = "matmuls"
+        else:
+            key = "other"
+            others[e.key] = others.get(e.key, 0.0) + us_ / 1e3
+        groups[key] += us_ / 1e3
+    busy_ms = sum(groups.values())
+    if busy_ms > 0:
+        top = sorted(others.items(), key=lambda kv: -kv[1])[:5]
+        # the profiler itself slows the host, so the idle share is taken
+        # against the same batch's step timed just before with it off; not
+        # clamped, so a busy time above that step shows as a negative share
+        log(f"[profile train] one step ({card}): card busy (profiled) "
+            f"{busy_ms:.1f} ms of the same batch's {bare_ms:.1f} ms step "
+            f"with the profiler off, idle share {1 - busy_ms / bare_ms:.3f} "
+            f"(wall with the profiler on {wall_ms:.1f} ms, median step "
+            f"{ms_step:.1f} ms), {n_kernels} kernels; busy ms: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in groups.items())
+            + "; largest of other: "
+            + ", ".join(f"{k[:48]} {v:.1f}" for k, v in top))
+    else:
+        log("[profile train] the profiler recorded no device time: not "
+            "measured")
+    del trainer, prof
+    torch.cuda.empty_cache()
+
+    # one f32 step at full width (4 layers, batch 2 x 512) on the card
+    # against the same step on the CPU through the plain versions.  Same
+    # f32 arithmetic, sums in other orders (a 16384-way softmax, width-768
+    # dots, K4's tiles): loss within 1e-4 relative, every parameter's
+    # gradient within 1e-3 of its max|grad|.
+    cfg4 = replace(tcfg, n_layer=4)
+    cpu_params = gpt.init_params(torch.Generator().manual_seed(SEED), cfg4,
+                                 device="cpu")
+    gpu_params = gpt.map_leaves(
+        lambda t_: t_.detach().to(dev).requires_grad_(True), cpu_params)
+    x, y, m = DataLoader([train_p], seed=SEED).get_batch(2, tcfg.block_size)
+    step_loss = {}
+    for tag, d, p in (("cpu", "cpu", cpu_params), ("card", dev, gpu_params)):
+        to = lambda arr: torch.from_numpy(np.ascontiguousarray(arr)).to(
+            d, torch.int64)
+        n0 = flash_attn.flash_attention.launches
+        loss = gpt.loss_fn(p, to(x), to(y), to(m), cfg4, dtype=torch.float32,
+                           remat="ffn")
+        loss.backward()
+        step_loss[tag] = loss.item()
+        if (flash_attn.flash_attention.launches - n0
+                != (cfg4.n_layer if tag == "card" else 0)):
+            raise AssertionError("K4 ran where it should not, or did not "
+                                 "where it should")
+    rel = abs(step_loss["card"] - step_loss["cpu"]) / abs(step_loss["cpu"])
+    worst, worst_name = 0.0, ""
+    for (name, c), (_, g) in zip(gpt.param_leaves(cpu_params),
+                                 gpt.param_leaves(gpu_params)):
+        r = ((g.grad.cpu() - c.grad).abs().max() / c.grad.abs().max()).item()
+        if r > worst:
+            worst, worst_name = r, name
+    log(f"[train] one f32 step, 4 layers, batch 2 x {tcfg.block_size}, card "
+        f"(kernels) vs CPU (plain): loss {step_loss['card']:.6f} vs "
+        f"{step_loss['cpu']:.6f}, relative {rel:.2e} (tol 1e-4); largest "
+        f"gradient difference over max|grad| {worst:.2e} at {worst_name} "
+        f"(tol 1e-3)")
+    if not (rel <= 1e-4 and worst <= 1e-3):
+        raise AssertionError("the f32 step on the card disagrees with the "
+                             "plain versions on the CPU")
+    del cpu_params, gpu_params
+
     # ---------------- result ----------------
     for k in kernels.values():
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms"):
@@ -953,8 +1332,9 @@ def main() -> int:
                 k[key] = float(k[key])
         lib_ms = ("none" if k["library_ms"] is None
                   else f"{k['library_ms']:.4f} ms")
+        per = ("training" if k["name"].startswith("flash_attn") else "decode")
         log(f"[summary] {k['name']}: {k['launches']} launches, max_abs_err "
-            f"{k['max_abs_err']:.3e}; per decode step {k['ms']:.4f} ms, plain "
+            f"{k['max_abs_err']:.3e}; per {per} step {k['ms']:.4f} ms, plain "
             f"{k['plain_ms']:.4f} ms, library {lib_ms}, bound "
             f"{k['bound_ms']:.6f} ms ({k['bound_by']})")
     log(f"[done] {time.time() - t_start:.1f} s")

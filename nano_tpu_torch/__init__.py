@@ -4,15 +4,20 @@ The package mirrors ``nano_tpu``'s subpackages and module names so each
 piece has an obvious counterpart, but it imports neither ``jax`` nor any
 module of ``nano_tpu``: what it needs from there it keeps as its own copy.
 
-  config     — ModelConfig dataclass (JSON-compatible)
+  config     — ModelConfig and TrainConfig dataclasses (JSON-compatible)
   tokenizer  — trie tokenizer (Nano) and byte-level BPE (Qwen)
-  io         — .bin model reader (F32 / Q80 / Q4K), JAX-params bridge for
-               tests
+  data       — corpus preprocessing: raw text -> packed token shards
+  io         — .bin model reader (F32 / Q80 / Q4K), io.checkpoint (.npz
+               training checkpoints, params interchangeable with the JAX
+               package's), JAX-params bridge for tests
   ops        — hand-written CUDA kernels (Q80 matmul, decode attention,
-               Q4K activation fake-quant and fused-dequant matmul) with
-               their plain PyTorch versions, samplers
-  models     — GPT forward with a KV cache (prefill + decode)
+               Q4K activation fake-quant and fused-dequant matmul,
+               ops.flash_attn: causal GQA flash attention, forward and
+               backward) with their plain PyTorch versions, samplers
+  models     — GPT forward with a KV cache (prefill + decode) and the
+               full-sequence training forward, loss and init
   infer      — LLMContext / Session / generate_sync / generate_on_device
+  train      — DataLoader, AdamW, Trainer; ``python -m nano_tpu_torch.train``
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 A CUDA tensor always goes through the hand-written kernel; only tensors

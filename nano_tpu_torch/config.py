@@ -1,7 +1,9 @@
-"""Model configuration: the port's own copy of ``nano_tpu.config.ModelConfig``.
+"""Model and training configuration: the port's own copies of
+``nano_tpu.config.ModelConfig`` and ``TrainConfig``.
 
-Same fields, defaults and JSON loading (config/model_*.json), kept here
-so the port never imports the JAX package.
+Same fields, defaults and JSON loading (config/model_*.json,
+config/pretrain.json), kept here so the port never imports the JAX
+package.
 """
 
 from __future__ import annotations
@@ -9,7 +11,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional
 
 
 def _round_up(x: int, m: int) -> int:
@@ -67,6 +69,89 @@ class ModelConfig:
 
     @classmethod
     def from_json(cls, path: str) -> "ModelConfig":
+        with open(path, "r", encoding="utf-8") as f:
+            return cls.from_dict(json.load(f))
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+@dataclass
+class TrainConfig:
+    """Training hyperparameters (reference: model.py:35-85).
+
+    Unknown JSON keys are dropped, so the JAX package's and the reference's
+    config files load as they are.
+    """
+
+    dropout: float = 0.0
+
+    # AdamW
+    learning_rate: float = 6e-4
+    weight_decay: float = 1e-1
+    beta1: float = 0.9
+    beta2: float = 0.99
+
+    # LR schedule (cosine with warmup)
+    decay_lr: bool = True
+    warmup_iters: int = 300
+    lr_decay_iters: int = 100000
+    min_lr: float = 6e-5
+
+    # LoRA
+    use_lora: bool = False
+    lora_rank: int = 16
+    lora_alpha: int = 32
+    lora_dropout: float = 0.0
+
+    # Task / paths
+    from_checkpoint: str = ""
+    save_checkpoint_to: str = ""
+    dataset_path: Optional[List[List[str]]] = None
+    tokenizer_path: str = ""
+
+    batch_size: int = 128
+    gradient_accumulation_steps: int = 4
+    grad_clip: float = 1.0
+
+    random_seed: int = 114514
+    eval_interval: int = 100
+    log_interval: int = 1
+    eval_iters: int = 5
+
+    # Runtime fields of the reference's config files; kept so the files
+    # load and a checkpoint's train_config round-trips, read by nothing
+    backend: str = "jax"
+    device: str = "tpu"
+    sdp_kernel: str = "flash"
+    dtype: str = "bfloat16"
+    use_amp: bool = True
+
+    mesh_shape: Optional[dict] = None     # more than one device is refused
+                                          # by the trainer (not ported yet)
+    param_dtype: str = "float32"          # master weights
+    remat: bool = False                   # recompute activations in backward
+    remat_policy: str = "full"            # "full" | "ffn" ("dots", "heads":
+                                          # not ported)
+    ce_chunk: int = 0                     # chunked cross-entropy: the LM head
+                                          # + CE over token chunks of this
+                                          # size (0 = one shot)
+    pp_microbatches: int = 0              # pipeline microbatches (pipeline
+                                          # parallelism is not ported yet)
+    adam_mu_dtype: Optional[str] = None   # Adam first-moment dtype
+                                          # ("bfloat16" halves that buffer;
+                                          # None = f32)
+    max_resident_shards: Optional[int] = None
+                                          # bound loaded data shards (LRU);
+                                          # None = keep all once touched
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "TrainConfig":
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
+
+    @classmethod
+    def from_json(cls, path: str) -> "TrainConfig":
         with open(path, "r", encoding="utf-8") as f:
             return cls.from_dict(json.load(f))
 

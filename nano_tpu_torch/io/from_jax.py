@@ -11,7 +11,9 @@ takes the f32 rows form.  A JAX ``Q4KTensor`` (fields ``packed``,
 ``scales``, ``biases``, ``in_dim``, ``layout``) in the packed layout
 carries across field for field; its ``unpacked`` and ``grouped`` layouts
 are not ported.  An ``output_q`` head that holds the same values as the
-embedding table shares its storage.
+embedding table shares its storage.  A dense f32 tree from
+``gpt.init_params`` takes the same path; with ``trainable=True`` its
+leaves require grad.  ``params_to_numpy`` is the way back.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from nano_tpu_torch import resolve_device
+from nano_tpu_torch.models.gpt import map_leaves
 from nano_tpu_torch.ops.q4k import Q4KTensor
 from nano_tpu_torch.ops.qmatmul import Q80Tensor
 
@@ -81,13 +84,35 @@ def _convert(x, device):
     return _tensor(x, device)
 
 
-def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
+def params_from_jax(tree: Dict[str, Any], device=None,
+                    trainable: bool = False) -> Dict[str, Any]:
     """nano_tpu params (numpy leaves) -> nano_tpu_torch params on
-    `device` (cuda unless asked otherwise)."""
+    `device` (cuda unless asked otherwise).  `trainable` marks every
+    dense floating-point leaf as requiring grad."""
     params = _convert(tree, resolve_device(device))
+    if trainable:
+        params = map_leaves(
+            lambda t: (t.requires_grad_(True)
+                       if isinstance(t, torch.Tensor) and t.is_floating_point()
+                       else t), params)
     tok, head = params.get("tok_embeddings"), params.get("output_q")
     if _same(tok, head):
         if isinstance(tok, Q80Tensor):
             tok.w8a8 = head.w8a8
         params["output_q"] = tok
     return params
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:           # numpy has no bf16 of its own
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Dense nano_tpu_torch params -> the same nested dict of numpy arrays
+    (bf16 leaves as ``ml_dtypes.bfloat16``), as the JAX package takes
+    them."""
+    return map_leaves(_to_numpy, params)

@@ -1,9 +1,11 @@
-"""Nano GPT decoder with a KV cache — the inference forward of the port.
+"""Nano GPT decoder: the cached inference forward and the full-sequence
+training forward of the port.
 
-Port of the cached-forward half of ``nano_tpu/models/gpt.py``: RMSNorm,
-RoPE (interleaved or half), GQA without expanding KV, optional qk-norm
-and qkv biases, SwiGLU, tied / untied / ``output_q`` heads, and
-``forward_with_cache`` with ``attn_len`` and ``last_idx``.
+Port of ``nano_tpu/models/gpt.py``: RMSNorm, RoPE (interleaved or half),
+GQA without expanding KV, optional qk-norm and qkv biases, SwiGLU, tied /
+untied / ``output_q`` heads; ``forward_with_cache`` with ``attn_len`` and
+``last_idx``; and the no-cache path ``forward_hidden`` / ``forward`` /
+``loss_fn`` (masked CE, chunked CE, remat) with ``init_params``.
 
 The parameters keep the JAX package's layout so the two compare like with
 like: layer weights are STACKED along a leading (n_layer,) axis, dense
@@ -15,22 +17,33 @@ same object comes back).
 
 Kernels on the card: every quantized projection and head goes through
 ``ops.qmatmul`` (Q80) or ``ops.q4k`` (Q4K: activation fake-quant, then
-the fused-dequant matmul), and every single-token attention through
-``ops.decode_attn``.  Prefill attention (S > 1), RMSNorm, RoPE, SwiGLU and
-the cache write are plain PyTorch, as they were XLA-fused ops on the TPU.
+the fused-dequant matmul), every single-token attention through
+``ops.decode_attn``, and every full-sequence causal attention of the
+no-cache forward through ``ops.flash_attn``, forward and backward.  The
+cached prefill attention (S > 1), RMSNorm, RoPE, SwiGLU and the cache
+write are plain PyTorch, as they were XLA-fused ops on the TPU; dense
+projections, the LM head and the loss are ``torch.matmul`` and plain
+PyTorch, as they were XLA's.
+
+Training parameters are leaf tensors with ``requires_grad`` in the same
+nested dict and the same stacked layout, f32 masters cast to the compute
+type at each use.  The no-cache forward never touches a ``KVCache``, so
+the cache's in-place writes stay out of every autograd graph.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from nano_tpu_torch.config import ModelConfig
 from nano_tpu_torch.ops import decode_attn
+from nano_tpu_torch.ops.flash_attn import flash_attention
 from nano_tpu_torch.ops.q4k import Q4KTensor, fake_quant_act, q4k_matmul
 from nano_tpu_torch.ops.qmatmul import Q80Tensor, q80_matmul
 
@@ -181,21 +194,11 @@ def _gqa_out(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out.reshape(out.shape[0], out.shape[1], -1)
 
 
-def attention(x: torch.Tensor, layer: Params, cfg: ModelConfig,
-              cos: Optional[torch.Tensor], sin: Optional[torch.Tensor],
-              mask: Optional[torch.Tensor], dtype,
-              kv_cache: Tuple[torch.Tensor, ...], start_pos: int,
-              pos_t: torch.Tensor, attn_len: Optional[int] = None
-              ) -> torch.Tensor:
-    """One attention layer over a cache (k, v, k_scale, v_scale) of one
-    layer, each (B, T, KV, D) / (B, T, KV).  The S new keys and values
-    are written at rows [start_pos, start_pos + S) in place.
-
-    S == 1 runs the decode-attention kernel over rows t <= start_pos
-    (`pos_t` holds start_pos as an int32 tensor on the device).  S > 1 is
-    the einsum path over the first `attn_len` rows (all when None), with
-    the additive `mask` (S, attn_len).
-    """
+def _qkv(x: torch.Tensor, layer: Params, cfg: ModelConfig,
+         cos: Optional[torch.Tensor], sin: Optional[torch.Tensor], dtype
+         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The attention prologue: projections (fused or not), biases, per-head
+    qk-norm and RoPE.  x (B, S, E) -> q (B, S, H, D), k / v (B, S, KV, D)."""
     B, S, E = x.shape
     H, KV, D = cfg.n_head, cfg.n_kv_head, cfg.head_dim
 
@@ -222,6 +225,42 @@ def attention(x: torch.Tensor, layer: Params, cfg: ModelConfig,
     if cos is not None:
         q = apply_rope(q, cos, sin, cfg.rope_style)
         k = apply_rope(k, cos, sin, cfg.rope_style)
+    return q, k, v
+
+
+def attention_nocache(x: torch.Tensor, layer: Params, cfg: ModelConfig,
+                      cos: Optional[torch.Tensor],
+                      sin: Optional[torch.Tensor], dtype) -> torch.Tensor:
+    """One full-sequence attention layer without a cache (training).
+    Causal models go through ``flash_attention`` (the kernels on the card,
+    forward and backward); global attention is the unmasked einsum path."""
+    q, k, v = _qkv(x, layer, cfg, cos, sin, dtype)
+    if cfg.is_causal:
+        heads = flash_attention(q, k, v)
+    else:
+        probs = torch.softmax(_gqa_scores(q, k, cfg), dim=-1).to(dtype)
+        heads = _gqa_out(probs, v)
+    return _dense(heads, layer["wo"], dtype)
+
+
+def attention(x: torch.Tensor, layer: Params, cfg: ModelConfig,
+              cos: Optional[torch.Tensor], sin: Optional[torch.Tensor],
+              mask: Optional[torch.Tensor], dtype,
+              kv_cache: Tuple[torch.Tensor, ...], start_pos: int,
+              pos_t: torch.Tensor, attn_len: Optional[int] = None
+              ) -> torch.Tensor:
+    """One attention layer over a cache (k, v, k_scale, v_scale) of one
+    layer, each (B, T, KV, D) / (B, T, KV).  The S new keys and values
+    are written at rows [start_pos, start_pos + S) in place.
+
+    S == 1 runs the decode-attention kernel over rows t <= start_pos
+    (`pos_t` holds start_pos as an int32 tensor on the device).  S > 1 is
+    the einsum path over the first `attn_len` rows (all when None), with
+    the additive `mask` (S, attn_len).
+    """
+    S = x.shape[1]
+    H, KV = cfg.n_head, cfg.n_kv_head
+    q, k, v = _qkv(x, layer, cfg, cos, sin, dtype)
 
     ck, cv, ks, vs = kv_cache
     quant = ck.dtype == torch.int8
@@ -257,8 +296,8 @@ def attention(x: torch.Tensor, layer: Params, cfg: ModelConfig,
     return _dense(heads, layer["wo"], dtype)
 
 
-def feed_forward(x: torch.Tensor, layer: Params, dtype) -> torch.Tensor:
-    """SwiGLU: w2(silu(w1 x) * w3 x)."""
+def _ffn_hidden(x: torch.Tensor, layer: Params, dtype) -> torch.Tensor:
+    """silu(w1 x) * w3 x, the 2F-wide half of SwiGLU."""
     if "w13" in layer:
         h13 = _dense(x, layer["w13"], dtype)
         Fh = h13.shape[-1] // 2
@@ -266,7 +305,19 @@ def feed_forward(x: torch.Tensor, layer: Params, dtype) -> torch.Tensor:
     else:
         h1 = _dense(x, layer["w1"], dtype)
         h3 = _dense(x, layer["w3"], dtype)
-    return _dense(F.silu(h1) * h3, layer["w2"], dtype)
+    return F.silu(h1) * h3
+
+
+def feed_forward(x: torch.Tensor, layer: Params, dtype,
+                 remat: bool = False) -> torch.Tensor:
+    """SwiGLU: w2(silu(w1 x) * w3 x).  With `remat` the w1 / w3 outputs
+    are not kept for backward but computed again there."""
+    if remat:
+        hidden = checkpoint(_ffn_hidden, x, layer, dtype, use_reentrant=False,
+                            preserve_rng_state=False)
+    else:
+        hidden = _ffn_hidden(x, layer, dtype)
+    return _dense(hidden, layer["w2"], dtype)
 
 
 def block(x: torch.Tensor, layer: Params, cfg: ModelConfig, cos, sin, mask,
@@ -377,3 +428,228 @@ def forward_with_cache(params: Params, idx: torch.Tensor, cache: KVCache,
     if last_idx is not None:
         h = h[:, last_idx:last_idx + 1]
     return compute_logits(h, params, dtype), cache
+
+
+# =====================================================================
+# Full-sequence forward and loss — the training path
+# =====================================================================
+
+def block_nocache(x: torch.Tensor, layer: Params, cfg: ModelConfig, cos, sin,
+                  dtype, remat_ffn: bool = False) -> torch.Tensor:
+    """Pre-norm residual block of the no-cache forward."""
+    xn = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+    h = x + attention_nocache(xn, layer, cfg, cos, sin, dtype)
+    hn = rms_norm(h, layer["ffn_norm"], cfg.norm_eps)
+    return h + feed_forward(hn, layer, dtype, remat_ffn)
+
+
+def unstack_layers(blocks: Params) -> List[Params]:
+    """Every layer's dense weights as views of the stacked tensors.  One
+    ``unbind`` per tensor, so its backward is one ``stack`` of the layers'
+    gradients (a ``w[i]`` per layer would build a full-size zero tensor
+    for each)."""
+    per_name = {name: w.unbind(0) for name, w in blocks.items()}
+    n_layer = len(next(iter(per_name.values())))
+    return [{name: ws[i] for name, ws in per_name.items()}
+            for i in range(n_layer)]
+
+
+def _remat_mode(remat: Union[bool, str, None]) -> Optional[str]:
+    """False -> None; True / "full" -> "full"; "ffn" -> "ffn".  A name the
+    table does not know means full remat, as in the JAX package."""
+    if not remat:
+        return None
+    if remat in ("dots", "heads"):
+        raise NotImplementedError(
+            f"remat policy {remat!r} is not ported; use 'full' or 'ffn'")
+    return "ffn" if remat == "ffn" else "full"
+
+
+def forward_hidden(params: Params, idx: torch.Tensor, cfg: ModelConfig,
+                   dtype=torch.bfloat16, remat: Union[bool, str] = False
+                   ) -> torch.Tensor:
+    """Full-sequence forward -> final-norm hidden states (B, S, E).
+
+    A Python loop over the layers' views of the stacked parameters.
+    `remat`: True or "full" recomputes each block in backward
+    (``torch.utils.checkpoint``; only the residual stream survives);
+    "ffn" keeps everything but the 2F-wide w1 / w3 outputs, which
+    backward computes again.
+    """
+    mode = _remat_mode(remat)
+    S = idx.shape[1]
+    h = embed_tokens(params, idx, dtype)
+    if cfg.use_rope:
+        cos, sin = precompute_rope(cfg.head_dim, S, cfg.rope_theta,
+                                   idx.device)
+    else:
+        cos = sin = None
+        h = h + params["wpe"][:S].to(dtype)
+    for layer in unstack_layers(params["blocks"]):
+        if mode == "full":
+            h = checkpoint(block_nocache, h, layer, cfg, cos, sin, dtype,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            h = block_nocache(h, layer, cfg, cos, sin, dtype, mode == "ffn")
+    return rms_norm(h, params["norm"], cfg.norm_eps)
+
+
+def forward(params: Params, idx: torch.Tensor, cfg: ModelConfig,
+            dtype=torch.bfloat16, remat: Union[bool, str] = False
+            ) -> torch.Tensor:
+    """Full-sequence forward -> f32 logits (B, S, V)."""
+    return compute_logits(forward_hidden(params, idx, cfg, dtype, remat),
+                          params, dtype)
+
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-token -log softmax(logits)[target], in f32."""
+    V = logits.shape[-1]
+    return F.cross_entropy(logits.float().reshape(-1, V),
+                           targets.reshape(-1), reduction="none"
+                           ).reshape(targets.shape)
+
+
+def loss_fn(params: Params, idx: torch.Tensor, targets: torch.Tensor,
+            loss_mask: Optional[torch.Tensor], cfg: ModelConfig,
+            dtype=torch.bfloat16, remat: Union[bool, str] = False,
+            ce_chunk: int = 0) -> torch.Tensor:
+    """Per-token CE, optionally masked and normalized by the mask sum
+    (the mean when the mask is None).
+
+    ``ce_chunk`` > 0 computes the LM head and the cross-entropy in token
+    chunks of that size, each chunk's logits computed again in backward,
+    so the full (B*S, V) f32 logits never exist; values match the one-shot
+    loss up to the f32 summation order.
+    """
+    if ce_chunk and ce_chunk > 0:
+        h = forward_hidden(params, idx, cfg, dtype, remat)
+        return _chunked_ce(h, params, targets, loss_mask, dtype, ce_chunk)
+    nll = _nll(forward(params, idx, cfg, dtype, remat), targets)
+    if loss_mask is None:
+        return nll.mean()
+    m = loss_mask.float()
+    return (nll * m).sum() / m.sum().clamp(min=1.0)
+
+
+def _chunked_ce_sums(h: torch.Tensor, params: Params, targets: torch.Tensor,
+                     loss_mask: Optional[torch.Tensor], dtype, ce_chunk: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The LM head + CE over token chunks -> (nll_sum, mask_sum).  The
+    last chunk is simply shorter (the JAX scan pads it with zero-weight
+    rows: the same sum)."""
+    B, S, E = h.shape
+    N = B * S
+    m = (torch.ones(N, dtype=torch.float32, device=h.device)
+         if loss_mask is None else loss_mask.reshape(N).float())
+    hf, tf = h.reshape(N, E), targets.reshape(N)
+
+    def body(h_c, t_c, m_c):
+        return (_nll(compute_logits(h_c, params, dtype), t_c) * m_c).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for lo in range(0, N, ce_chunk):
+        hi = min(lo + ce_chunk, N)
+        total = total + checkpoint(body, hf[lo:hi], tf[lo:hi], m[lo:hi],
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+    return total, m.sum()
+
+
+def _chunked_ce(h: torch.Tensor, params: Params, targets: torch.Tensor,
+                loss_mask: Optional[torch.Tensor], dtype, ce_chunk: int
+                ) -> torch.Tensor:
+    total, msum = _chunked_ce_sums(h, params, targets, loss_mask, dtype,
+                                   ce_chunk)
+    if loss_mask is None:
+        return total / (h.shape[0] * h.shape[1])
+    return total / msum.clamp(min=1.0)
+
+
+# =====================================================================
+# Initialization
+# =====================================================================
+
+def init_params(rng: torch.Generator, cfg: ModelConfig,
+                param_dtype=torch.float32, device=None) -> Params:
+    """GPT-2-style init: N(0, 0.02); w3 / wo scaled by 1/sqrt(2L); ones
+    for norms, zeros for biases.  Drawn on the CPU from `rng` (a
+    ``torch.Generator``; its numbers are not ``jax.random``'s) and moved
+    to `device`, so a seed gives the same model on every device.  The
+    leaves require grad."""
+    L, E, V = cfg.n_layer, cfg.n_embd, cfg.vocab_size
+    H, KV, D, Fh = cfg.n_head, cfg.n_kv_head, cfg.head_dim, cfg.n_hidden
+    std = 0.02
+    res_std = 0.02 / math.sqrt(2 * L)
+
+    def leaf(t):
+        return t.to(device=device, dtype=param_dtype).requires_grad_(True)
+
+    def normal(shape, s):
+        return leaf(torch.randn(shape, generator=rng, dtype=torch.float32) * s)
+
+    ones = lambda *shape: leaf(torch.ones(shape))
+    zeros = lambda *shape: leaf(torch.zeros(shape))
+    params: Params = {
+        "tok_embeddings": normal((V, E), std),
+        "norm": ones(E),
+        "blocks": {
+            "attn_norm": ones(L, E),
+            "ffn_norm": ones(L, E),
+            "wq": normal((L, E, H * D), std),
+            "wk": normal((L, E, KV * D), std),
+            "wv": normal((L, E, KV * D), std),
+            "wo": normal((L, H * D, E), res_std),
+            "w1": normal((L, E, Fh), std),
+            "w2": normal((L, Fh, E), std),
+            "w3": normal((L, E, Fh), res_std),
+        },
+    }
+    if not cfg.use_rope:
+        params["wpe"] = normal((cfg.block_size, E), std)
+    if not cfg.tie_embeddings:
+        params["output"] = normal((E, V), std)
+    if cfg.qkv_bias:
+        params["blocks"]["bq"] = zeros(L, H * D)
+        params["blocks"]["bk"] = zeros(L, KV * D)
+        params["blocks"]["bv"] = zeros(L, KV * D)
+    if cfg.use_qk_norm:
+        params["blocks"]["q_norm"] = ones(L, D)
+        params["blocks"]["k_norm"] = ones(L, D)
+    return params
+
+
+def param_leaves(params: Params, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(path, leaf) pairs of a nested params dict, keys sorted within each
+    dict (the order ``jax.tree.leaves`` gives)."""
+    out: List[Tuple[str, Any]] = []
+    for name in sorted(params):
+        path = f"{prefix}/{name}" if prefix else name
+        if isinstance(params[name], dict):
+            out.extend(param_leaves(params[name], path))
+        else:
+            out.append((path, params[name]))
+    return out
+
+
+def map_leaves(fn, tree: Any) -> Any:
+    """The nested dict `tree` with fn applied to every leaf."""
+    if isinstance(tree, dict):
+        return {k: map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def count_params(params: Params, cfg: ModelConfig,
+                 non_embedding: bool = True) -> int:
+    """Total parameter count (learned positions left out, as the reference
+    counts)."""
+    n = sum(int(p.numel()) for _, p in param_leaves(params))
+    if non_embedding and not cfg.use_rope and "wpe" in params:
+        n -= int(params["wpe"].numel())
+    return n
+
+
+def estimate_flops_per_token(cfg: ModelConfig, n_params: int) -> float:
+    """PaLM appendix-B formula 6N + 12*L*H*Q*T."""
+    return (6 * n_params
+            + 12 * cfg.n_layer * cfg.n_head * cfg.head_dim * cfg.block_size)

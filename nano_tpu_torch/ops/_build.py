@@ -32,7 +32,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, F, Q = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
 # C signature of every entry point: (argtypes, library stem)
 SIGNATURES = {
@@ -43,6 +43,10 @@ SIGNATURES = {
                           I, P], "decode_attn"),
     "q4k_fake_quant": ([P, I, P, I, I, I, P], "q4k"),
     "q4k_matmul": ([P, P, P, P, P, I, I, I, I, I, P], "q4k"),
+    "flash_attn_fwd": ([P, P, P, P, P, I, I, I, I, I, I, *[Q] * 9, F, P],
+                       "flash_attn"),
+    "flash_attn_bwd": ([*[P] * 10, I, I, I, I, I, I, *[Q] * 9, F, P],
+                       "flash_attn"),
 }
 
 _lock = threading.Lock()

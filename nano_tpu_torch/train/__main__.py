@@ -1,0 +1,52 @@
+"""Train a Nano model on one CUDA device.
+
+    python -m nano_tpu_torch.train -m config/model_168m.json -t config/pretrain.json
+    python -m nano_tpu_torch.train ... -c      # continued pretrain: replay
+                                               # the data stream to the
+                                               # checkpoint's step
+    python -m nano_tpu_torch.train ... --device cpu   # plain PyTorch versions
+
+The model JSON holds ModelConfig fields; the train JSON holds TrainConfig
+fields plus `max_steps` (alias `max_iters`).  Unknown keys are ignored, so
+the reference's and the JAX package's config files work as they are.
+"""
+
+import argparse
+import json
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="python -m nano_tpu_torch.train",
+                                 description="Nano trainer (PyTorch/CUDA)")
+    ap.add_argument("-m", "--model_config", required=True)
+    ap.add_argument("-t", "--train_config", required=True)
+    ap.add_argument("-c", "--continue_pretrain", action="store_true",
+                    help="resume the data stream position as well as the "
+                         "model (reference: train.py:374-377)")
+    ap.add_argument("--max_steps", type=int, default=None,
+                    help="override max training steps")
+    ap.add_argument("--device", default=None,
+                    help="cuda unless given; 'cpu' runs the plain versions")
+    args = ap.parse_args(argv)
+
+    with open(args.model_config, "r", encoding="utf-8") as f:
+        mc = json.load(f)
+    with open(args.train_config, "r", encoding="utf-8") as f:
+        tc = json.load(f)
+    mc = mc.get("model_config", mc)  # accept both flat and nested schemas
+    tc = tc.get("train_config", tc)
+
+    max_steps = (args.max_steps or tc.get("max_steps") or
+                 tc.get("max_iters") or 10 ** 10)
+
+    from nano_tpu_torch.train.trainer import Trainer
+    t = Trainer(mc, tc, max_steps=int(max_steps),
+                is_continued_pretrain=args.continue_pretrain,
+                device=args.device)
+    t.init()
+    t.load_data()
+    t.start(denoise=bool(tc.get("denoise", False)))
+
+
+if __name__ == "__main__":
+    main()

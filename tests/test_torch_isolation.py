@@ -13,6 +13,8 @@ import nano_tpu_torch
 from nano_tpu_torch.config import ModelConfig
 from nano_tpu_torch.infer import engine
 from nano_tpu_torch.io.from_jax import params_from_jax
+from nano_tpu_torch.train import __main__ as train_main
+from nano_tpu_torch.train.trainer import Trainer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIX = os.path.join(ROOT, "tests", "js", "fixtures")
@@ -79,8 +81,30 @@ def test_entry_points_default_to_cuda(monkeypatch):
                           max_seq_len=16)
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_jax({"norm": [1.0, 2.0]})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(ModelConfig(), {})
     # asking for the CPU is the only way onto it
+    assert Trainer(ModelConfig(), {}, device="cpu").device.type == "cpu"
     ctx = engine.LLMContext.from_bin(os.path.join(FIX, "tiny_f32.bin"),
                                      device="cpu")
     assert ctx.device.type == "cpu"
     assert ctx.params["norm"].device.type == "cpu"
+
+
+def test_new_modules_are_among_the_checked_sources():
+    """The walk above covers the training slice's modules too."""
+    rel = {os.path.relpath(p, ROOT) for p in _sources()}
+    for mod in ("data/preprocess.py", "train/data.py", "train/trainer.py",
+                "train/__main__.py", "io/checkpoint.py", "ops/flash_attn.py"):
+        assert os.path.join("nano_tpu_torch", mod) in rel
+
+
+def test_train_entry_point_defaults_to_cuda(monkeypatch, tmp_path):
+    import json
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mc, tc = str(tmp_path / "m.json"), str(tmp_path / "t.json")
+    for path in (mc, tc):
+        with open(path, "w") as f:
+            json.dump({}, f)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_main.main(["-m", mc, "-t", tc, "--max_steps", "1"])

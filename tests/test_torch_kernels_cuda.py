@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from nano_tpu_torch.ops import decode_attn as tda
+from nano_tpu_torch.ops import flash_attn as tfa
 from nano_tpu_torch.ops import q4k as tq4
 from nano_tpu_torch.ops import qmatmul as tqm
 
@@ -137,6 +138,71 @@ def test_q4k_matmul_kernel_matches_plain(inn, out):
                                    atol=1e-5 * want.abs().max().item())
         torch.testing.assert_close(got16, want.to(torch.bfloat16),
                                    rtol=1e-2, atol=1e-2 * want.abs().max().item())
+
+
+def _flash_case(B, S, H, KV, D, dtype, seed):
+    rng = np.random.RandomState(seed)
+    mk = lambda *shape: torch.from_numpy(
+        rng.randn(*shape).astype(np.float32)).to("cuda", dtype)
+    return mk(B, S, H, D), mk(B, S, KV, D), mk(B, S, KV, D), mk(B, S, H * D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,D", [
+    (2, 512, 16, 8, 48), (1, 1024, 16, 8, 128), (2, 200, 4, 2, 64),
+    (3, 67, 4, 4, 48), (2, 33, 4, 1, 16), (1, 130, 6, 3, 64)])
+def test_flash_attention_kernels_match_plain(B, S, H, KV, D, dtype):
+    """Forward and backward against the plain version differentiated by
+    autograd.  f32: the same f32 arithmetic in another order, 1e-5 of
+    max|ref| forward and 1e-4 backward; bf16: the kernel keeps the
+    probabilities in f32 where the plain version rounds them to bf16, and
+    both round the result, 2e-2 of max|ref|."""
+    _need_card()
+    q, k, v, g = _flash_case(B, S, H, KV, D, dtype, S + D)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    n0 = (tfa.flash_attention.launches, tfa.flash_attention.backward_launches)
+    got = tfa.flash_attention(*leaves)
+    got.backward(g)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention.launches,
+            tfa.flash_attention.backward_launches) == (n0[0] + 1, n0[1] + 1)
+    ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = tfa.flash_attention_plain(*ref_leaves)
+    want.backward(g)
+    f32 = dtype == torch.float32
+    assert got.shape == (B, S, H * D) and got.dtype == dtype
+    tol = (1e-5 if f32 else 2e-2) * want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    for name, a, b in zip("qkv", leaves, ref_leaves):
+        assert a.grad.shape == b.grad.shape and a.grad.dtype == dtype
+        tol = (1e-4 if f32 else 2e-2) * b.grad.float().abs().max().item()
+        err = (a.grad.float() - b.grad.float()).abs().max().item()
+        assert err <= tol, (name, err, tol)
+    # no atomics: a second backward gives the same bits
+    again = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    tfa.flash_attention(*again).backward(g)
+    for a, b in zip(leaves, again):
+        assert torch.equal(a.grad, b.grad)
+
+
+@pytest.mark.cuda
+def test_flash_attention_takes_strided_views_and_refuses_other_head_dims():
+    _need_card()
+    B, S, H, KV, D = 2, 96, 4, 2, 48
+    qkv = torch.randn(B, S, (H + 2 * KV) * D, device="cuda")
+    q = qkv[..., :H * D].reshape(B, S, H, D)
+    k = qkv[..., H * D:(H + KV) * D].reshape(B, S, KV, D)
+    v = qkv[..., (H + KV) * D:].reshape(B, S, KV, D)
+    assert not q.is_contiguous()
+    got = tfa.flash_attention(q, k, v)
+    want = tfa.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    with pytest.raises(ValueError, match="D in"):
+        tfa.flash_attention(torch.randn(1, 8, 2, 40, device="cuda"),
+                            torch.randn(1, 8, 2, 40, device="cuda"),
+                            torch.randn(1, 8, 2, 40, device="cuda"))
 
 
 @pytest.mark.cuda
