@@ -44,10 +44,23 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
 Phase 3 also holds the two flash-attention kernels (forward, backward)
 against the plain version at the Nano-168M and Qwen3-0.6B head shapes,
-bf16 and f32, a ragged length and rep = 1, and at the training shape
-itself (batch 64 x 512, bf16, each of the 24 layers' tensors), and times a
-training step's 24 forward and 24 backward launches beside the plain
-version, scaled_dot_product_attention and the bound.
+bf16 and f32, a ragged length, rep = 1 and rep = 4, and at the training
+shape itself (batch 64 x 512, bf16, each of the 24 layers' tensors); the
+forward alone (out and the row log-sum-exp the backward reads, two runs
+bit-equal) at S = 1, below one tile and at 64 k +- 1; decode attention at
+every D and heads-per-KV-head instance it is built for with f32 and bf16
+q, three cache types,
+positions that end inside a split or leave splits empty, batch 64, and
+two calls on one workspace bit-equal.  It times a training step's 24
+forward and 24 backward launches beside the plain version,
+scaled_dot_product_attention and the bound, and a decode step's 28
+attention launches both on f32 q and as the model feeds them (bf16 q,
+result cast to bf16).
+
+`python3 chip_smoke.py bench [flash] [decode] [pipes]` runs none of the
+phases: it times the two attention kernels alone beside SDPA (a ladder over
+the decode kernel's rows per block), and what an SM sustains of mma.sync
+and ex2, for work on those kernels.
 
 The last two lines of stdout are one JSON object listing the kernels and
 then {"ok": true, "device": {...}}.  Without a CUDA device the script
@@ -217,6 +230,171 @@ def params_to(params, device):
     return out
 
 
+# ---------------------------------------------------------------------
+# `python3 chip_smoke.py bench [flash] [decode] [pipes]`: the two attention
+# kernels timed alone beside SDPA, and what an SM sustains of mma.sync and
+# ex2.  A measuring mode for work on those kernels (about a minute and a
+# half with the build); it checks nothing and prints no result lines.
+# ---------------------------------------------------------------------
+
+def _best_of(torch, fn, reps=5):
+    """Best device time (ms) of fn() over `reps` runs, after one warm-up."""
+    fn()
+    best = float("inf")
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        best = min(best, a.elapsed_time(b))
+    return best
+
+
+def bench_flash(torch):
+    """One Nano-168M training step's 24 forward launches of flash_attn_fwd
+    (B=64, S=512, H=16, KV=8, D=48, bf16, each layer on its own tensors) and
+    the Qwen3 head shape (D=128), no autograd, beside
+    scaled_dot_product_attention(is_causal, enable_gqa): CUDA events around
+    the step, best of five, in the order library, kernel, kernel, library."""
+    import torch.nn.functional as F
+    from nano_tpu_torch.ops import _build, flash_attn
+    occ = _build.lib("flash_attn").flash_attn_fwd_blocks_per_sm
+    log("[bench flash] blocks of flash_fwd_mma_kernel per SM by (D, query "
+        "heads a block): " + ", ".join(f"({d}, {h}) {occ(d, h)}" for d, h in (
+            (48, 1), (48, 2), (48, 4), (64, 2), (128, 1), (128, 2))))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for B, S, H, KV, D, L in ((64, 512, 16, 8, 48, 24), (8, 1024, 16, 8, 128, 8)):
+        mk = lambda *s: torch.randn(*s, device="cuda", generator=gen
+                                    ).to(torch.bfloat16)
+        layers = [(mk(B, S, H, D), mk(B, S, KV, D), mk(B, S, KV, D))
+                  for _ in range(L)]
+
+        def kernel():
+            for q, k, v in layers:
+                flash_attn.flash_attn_fwd(q, k, v)
+
+        def library():
+            for q, k, v in layers:
+                F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=True, enable_gqa=True)
+
+        t = [_best_of(torch, f) for f in (library, kernel, kernel, library)]
+        flops = L * 2 * 2 * B * H * D * S * (S + 1) // 2
+        log(f"[bench flash] {L} x flash_attn_fwd B={B} S={S} H={H} KV={KV} "
+            f"D={D} bf16: kernel {t[1]:.3f} / {t[2]:.3f} ms "
+            f"({flops / min(t[1], t[2]) / 1e9:.1f} TFLOP/s on the causal "
+            f"work), SDPA {t[0]:.3f} / {t[3]:.3f} ms, kernel / SDPA "
+            f"{min(t[1], t[2]) / min(t[0], t[3]):.2f}")
+        del layers
+
+
+def bench_decode(torch):
+    """One Qwen3-0.6B decode step's 28 launches of decode_attention (KV=8,
+    rep=2, D=128, bf16 cache of 512 rows, pos 318) fed as the model feeds it
+    (bf16 q, f32 result cast to bf16), replayed from a CUDA graph, beside
+    SDPA fed the same way; for three choices of the least rows per block
+    (MIN_CHUNK), at batch 1, 8 and 64."""
+    import torch.nn.functional as F
+    from nano_tpu_torch.ops import decode_attn
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    L, KV, rep, D, T, p = 28, 8, 2, 128, 512, 318
+    H = KV * rep
+    for B in (1, 8, 64):
+        mk = lambda *s: torch.randn(*s, device="cuda", generator=gen
+                                    ).to(torch.bfloat16)
+        kc = [mk(B, T, KV, D) for _ in range(L)]
+        vc = [mk(B, T, KV, D) for _ in range(L)]
+        qs = [mk(B, H, D) for _ in range(L)]
+        pos = torch.full((B,), p, dtype=torch.int32, device="cuda")
+        kv_lib = [(k[:, :p + 1].transpose(1, 2), v[:, :p + 1].transpose(1, 2))
+                  for k, v in zip(kc, vc)]
+
+        def kernel():
+            for i in range(L):
+                decode_attn.decode_attention(
+                    qs[i], kc[i], vc[i], None, None, pos, KV, rep
+                ).to(torch.bfloat16)
+
+        def library():
+            for i in range(L):
+                F.scaled_dot_product_attention(
+                    qs[i][:, :, None, :], kv_lib[i][0], kv_lib[i][1],
+                    enable_gqa=True)
+
+        lib_ms = timer(library, reps=50)
+        line = [f"[bench decode] {L} x decode_attention B={B} KV={KV} "
+                f"rep={rep} D={D} bf16 cache T={T} pos={p}, bf16 q, result "
+                f"cast to bf16: SDPA {lib_ms:.4f} ms"]
+        saved = decode_attn.MIN_CHUNK
+        for min_chunk in (16, 32, 64):
+            decode_attn.MIN_CHUNK = min_chunk
+            chunk, n_split = decode_attn.choose_splits(B, KV, T)
+            ms = timer(kernel, reps=50)
+            line.append(f"MIN_CHUNK {min_chunk} (chunk {chunk}, {n_split} "
+                        f"splits) {ms:.4f} ms = {ms / lib_ms:.2f} x SDPA")
+        decode_attn.MIN_CHUNK = saved
+        log("; ".join(line))
+
+
+def bench_pipes(torch):
+    """Builds nano_tpu_torch/csrc/bench/pipes.cu into build/pipes/ and times
+    its four modes with every SM filled by 8, 16 and 32 warps."""
+    import ctypes
+    from nano_tpu_torch.ops import _build
+    work = os.path.join(ROOT, "build", "pipes")
+    os.makedirs(work, exist_ok=True)
+    so = os.path.join(work, "libpipes.so")
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    subprocess.run([_build.nvcc_path(), *flags, "-o", so,
+                    os.path.join(_build.CSRC_DIR, "bench", "pipes.cu")],
+                   check=True)
+    lib = ctypes.CDLL(so)
+    lib.run.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.zeros(4, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    iters, chains = 20000, 8
+    for threads, per_sm in ((128, 2), (256, 2), (256, 4)):
+        blocks = sms * per_sm
+        warps = blocks * threads // 32
+        row = [f"[bench pipes] {per_sm * threads // 32} warps an SM "
+               f"({per_sm} blocks of {threads} threads):"]
+        for mode, name in ((1, "mma"), (2, "ex2"), (3, "mixed"), (4, "split")):
+            def run(n):
+                rc = lib.run(out.data_ptr(), blocks, threads, n, mode, stream)
+                assert rc == 0, rc
+            ms = _best_of(torch, lambda: run(iters), reps=2)
+            mma_warps = warps if mode in (1, 3) else warps // 2 if mode == 4 else 0
+            ex2_warps = warps if mode in (2, 3) else warps // 2 if mode == 4 else 0
+            n_mma = mma_warps * iters * chains
+            n_ex2 = ex2_warps * iters * chains * (1 if mode == 3 else 2) * 32
+            row.append(f"{name} {ms:.3f} ms"
+                       + (f", {n_mma * 4096 / ms / 1e9:.0f} TFLOP/s" if n_mma else "")
+                       + (f", {n_ex2 / ms / 1e6 / sms:.2f} ex2/ns/SM" if n_ex2 else ""))
+        log("; ".join(row))
+    log("[bench pipes] published: 989 TFLOP/s dense bf16 (wgmma); 16 ex2 per "
+        "clock per SM = 31.7 ex2/ns/SM at 1980 MHz")
+
+
+def bench(what) -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    log(f"[bench] card: {card_line()}")
+    for name, fn in (("flash", bench_flash), ("decode", bench_decode),
+                     ("pipes", bench_pipes)):
+        if not what or name in what:
+            fn(torch)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -263,6 +441,10 @@ def main() -> int:
         log(f"[build] {stem}.cu ok: {len(regs)} kernels, registers "
             f"{sorted(set(regs))}, spilling kernels {len(spills)}")
     log(f"[build] {time.time() - t0:.1f} s")
+    occ = _build.lib("flash_attn").flash_attn_fwd_blocks_per_sm
+    log("[build] flash_fwd_mma_kernel blocks per SM by (D, query heads a "
+        "block): " + ", ".join(f"({d}, {h}) {occ(d, h)}" for d, h in (
+            (48, 2), (48, 4), (64, 2), (128, 2))))
 
     cfg = ModelConfig(**QWEN3_06B)
     t0 = time.time()
@@ -390,6 +572,63 @@ def main() -> int:
                     raise AssertionError(f"decode_attention T={T} pos={p} off by {err}")
                 note_err("decode_attention", err)
 
+    # what the kernel special-cases: every D and every instance of the heads
+    # per KV head it is built for (rep 3 runs in the instance for 4, rep 7
+    # in the one for 8), f32 and bf16 q, the three cache types; at batch 1 (positions split
+    # over the grid) pos 0, T - 1, a pos inside a split and two that leave
+    # whole splits empty; at batch 64 (one block per head) a pos per row.
+    # Two calls in a row on one workspace must give the same bits: the
+    # ticket counters are back at zero after each call.
+    def decode_case(B, T, n_kv, rep, Dh, cdt, qdt):
+        q = torch.randn(B, n_kv * rep, Dh, device=dev, generator=gen).to(qdt)
+        if cdt == torch.int8:
+            kc, vc = (torch.randint(-127, 128, (B, T, n_kv, Dh), dtype=torch.int8,
+                                    device=dev, generator=gen) for _ in range(2))
+            ksc, vsc = (torch.rand(B, T, n_kv, device=dev, generator=gen) * 0.02
+                        for _ in range(2))
+        else:
+            kc, vc = (torch.randn(B, T, n_kv, Dh, device=dev, generator=gen).to(cdt)
+                      for _ in range(2))
+            ksc = vsc = None
+        return q, kc, vc, ksc, vsc
+
+    n_dec, worst_dec = 0, 0.0
+    for Dh in (16, 32, 48, 64, 128):
+        for rep in (1, 2, 3, 4, 7):
+            for qdt in (torch.float32, torch.bfloat16):
+                for cdt in (torch.bfloat16, torch.int8, torch.float32):
+                    T = 512
+                    chunk, n_split = decode_attn.choose_splits(1, 2, T)
+                    assert n_split >= 4
+                    cases = [(decode_case(1, T, 2, rep, Dh, cdt, qdt),
+                              torch.tensor([p], dtype=torch.int32, device=dev))
+                             for p in (0, T - 1, chunk + chunk // 2,
+                                       2 * chunk - 1, 2 * chunk)]
+                    pos64 = torch.randint(0, 128, (64,), dtype=torch.int32,
+                                          device=dev, generator=gen)
+                    pos64[0], pos64[1] = 0, 127
+                    cases.append((decode_case(64, 128, 2, rep, Dh, cdt, qdt), pos64))
+                    for args, pos in cases:
+                        out = decode_attn.decode_attention(*args, pos, 2, rep)
+                        again = decode_attn.decode_attention(*args, pos, 2, rep)
+                        ref = decode_attn.decode_attention_plain(*args, pos, 2, rep)
+                        err = (out - ref).abs().max().item()
+                        if not (torch.allclose(out, ref, rtol=2e-5, atol=2e-5)
+                                and torch.equal(out, again)
+                                and out.dtype == torch.float32):
+                            raise AssertionError(
+                                f"decode_attention D={Dh} rep={rep} q {qdt} cache "
+                                f"{cdt} B={args[0].shape[0]} pos={pos[:4].tolist()}: "
+                                f"off by {err}, or two calls differ")
+                        worst_dec = max(worst_dec, err)
+                        n_dec += 1
+    note_err("decode_attention", worst_dec)
+    log(f"[kernel] decode_attention: {n_dec} more cases (D 16/32/48/64/128 x "
+        f"rep 1/2/3/4/7 x f32/bf16 q x bf16/int8/f32 cache; B=1 T=512 at pos 0, T-1, "
+        f"inside a split, whole splits empty; B=64 T=128 a pos per row): "
+        f"worst max_abs_err {worst_dec:.3e} (tol 2e-5 + 2e-5*|ref|), two "
+        f"calls on one workspace bit-equal in all")
+
     # Q4K activation fake-quant: bit-equal to its plain version (the same
     # IEEE operations), rows holding an all-zero group and constant groups
     def act_rows(B, n):
@@ -457,7 +696,8 @@ def main() -> int:
         return out, torch.autograd.grad(out, leaves, g)
 
     for B, S, Hh, KVh, Dh in ((4, 512, 16, 8, 48), (2, 1024, 16, 8, 128),
-                              (2, 200, 4, 2, 64), (2, 96, 4, 4, 48)):
+                              (2, 200, 4, 2, 64), (2, 96, 4, 4, 48),
+                              (2, 130, 8, 2, 48)):
         for dt in (torch.bfloat16, torch.float32):
             case = flash_case(B, S, Hh, KVh, Dh, dt)
             out, grads = fwd_bwd(flash_attn.flash_attention, *case)
@@ -485,6 +725,43 @@ def main() -> int:
             note_err("flash_attn_fwd", err_f)
             note_err("flash_attn_bwd", max(errs))
             del case, out, grads, grads2, ref, rgrads
+
+    # the forward alone, at what its design special-cases: rep 4 (four
+    # heads a block at D <= 64, two at D = 128), rep 3 and 1, S below one
+    # tile, one row, and S = 64 k +- 1.  out against the plain version (as
+    # above) and lse, the backward's input, against the log-sum-exp of the
+    # plain scaled scores: 1e-5 absolute in f32, 1e-3 in bf16 (bf16 inputs,
+    # f32 sums on both sides).  Two runs must give the same bits.
+    n_fwd, worst_lse = 0, 0.0
+    for B, S, Hh, KVh, Dh in ((2, 1, 4, 2, 48), (2, 63, 8, 2, 48), (2, 64, 8, 2, 64),
+                              (2, 65, 4, 1, 48), (1, 127, 8, 2, 128),
+                              (1, 129, 8, 1, 128), (2, 256, 12, 4, 48),
+                              (2, 33, 4, 1, 16), (1, 191, 6, 1, 64)):
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v, _ = flash_case(B, S, Hh, KVh, Dh, dt)
+            out, lse = flash_attn.flash_attn_fwd(q, k, v)
+            out2, lse2 = flash_attn.flash_attn_fwd(q, k, v)
+            ref = flash_attn.flash_attention_plain(q, k, v).reshape(B, S, Hh, Dh)
+            ref_lse = flash_attn.plain_lse(q, k)
+            f32c = dt == torch.float32
+            err_f = (out.float() - ref.float()).abs().max().item()
+            lim_f = (1e-5 if f32c else 2e-2) * ref.float().abs().max().item()
+            err_l = (lse - ref_lse).abs().max().item()
+            if not (err_f <= lim_f and err_l <= (1e-5 if f32c else 1e-3)
+                    and lse.shape == (B, Hh, S) and torch.equal(out, out2)
+                    and torch.equal(lse, lse2)):
+                raise AssertionError(
+                    f"flash_attn_fwd B={B} S={S} H={Hh} KV={KVh} D={Dh} {dt}: "
+                    f"out off by {err_f:.3e} (tol {lim_f:.3e}), lse by "
+                    f"{err_l:.3e}, or two runs differ")
+            note_err("flash_attn_fwd", err_f)
+            if not f32c:
+                worst_lse = max(worst_lse, err_l)
+            n_fwd += 1
+    log(f"[kernel] flash_attn_fwd: {n_fwd} forward-only cases (rep 1/2/3/4, "
+        f"S = 1, 33, 63, 64, 65, 127, 129, 191, 256; bf16 and f32): out "
+        f"within tolerance, lse vs logsumexp of the plain scores within "
+        f"1e-5 (f32) / 1e-3 (bf16; worst {worst_lse:.3e}), two runs bit-equal")
 
     # K4 timing: one training step's launches at the Nano-168M shape (24
     # layers, batch 64 x 512, bf16), each layer on its own tensors; device
@@ -745,6 +1022,23 @@ def main() -> int:
         f"T={T_main}, pos={p_main}): kernel {k['ms']:.4f} ms, plain "
         f"{k['plain_ms']:.4f} ms, SDPA(enable_gqa) {k['library_ms']:.4f} ms, "
         f"bound {k['bound_ms']:.4f} ms")
+
+    # the same step fed as the model feeds it (gpt.attention: bf16 q, the
+    # f32 result cast to bf16), so that everything a call puts on the stream
+    # is counted; SDPA the same way (bf16 in, bf16 out)
+    def run_attn_fed():
+        for i in range(L):
+            decode_attn.decode_attention(q16[i][:, :, 0], cache.k[i], cache.v[i],
+                                         None, None, pos, KV, H // KV
+                                         ).to(torch.bfloat16)
+
+    fed_ms = timer(run_attn_fed)
+    fed_lib_ms = timer(run_attn_library)
+    chunk, n_split = decode_attn.choose_splits(1, KV, T_main)
+    log(f"[time] the same step as the model feeds it (bf16 q, result cast to "
+        f"bf16; grid {KV} x {n_split} blocks of {chunk} rows): kernel + cast "
+        f"{fed_ms:.4f} ms, SDPA(enable_gqa) {fed_lib_ms:.4f} ms, ratio "
+        f"{fed_ms / fed_lib_ms:.2f}")
     del cache, kvs
 
     # ---------------- 4. tiny fixtures ----------------
@@ -1347,4 +1641,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(bench(sys.argv[2:]) if sys.argv[1:2] == ["bench"] else main())

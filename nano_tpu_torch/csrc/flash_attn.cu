@@ -21,24 +21,31 @@
 // limit.  Two paths share one structure (tiles of 64 rows in shared memory,
 // a loop over the tiles of the other side of the product, f32 softmax
 // state in registers):
-//   bf16  mma.sync m16n8k16 tiles with f32 accumulators: 4 warps, each
-//         owning 16 rows of the block's 64; A fragments by ldmatrix, B
-//         fragments by 32-bit loads where the product runs along a tile's
-//         rows and by ldmatrix.trans where it runs down its columns, so no
-//         tile is ever stored transposed; P (and dS) go from the score
-//         accumulators straight into the next product's A fragments,
-//         rounded to bf16 as the plain version rounds its probabilities.
-//         Tiles are loaded synchronously; wgmma, TMA and a pipelined ring
-//         of tiles are later work.
+//   bf16  mma.sync m16n8k16 tiles with f32 accumulators, each warp owning
+//         blocks of 16 rows; P (and dS) go from the score accumulators
+//         straight into the next product's A fragments, rounded to bf16 as
+//         the plain version rounds its probabilities; no tile is ever
+//         stored transposed (ldmatrix.trans where a product runs down a
+//         tile's columns).  The forward takes a (query tile, KV head) per
+//         block for all the query heads of that KV head, keeps Q in
+//         registers, fetches K/V by cp.async into a ring of stages, takes
+//         two 8-row blocks of B fragments per ldmatrix.x4 (for two row
+//         blocks at once where D <= 64), and on the diagonal tile masks,
+//         and skips what lies wholly above the diagonal.  At D = 48 a score
+//         costs about as much on the exp2 unit and the CUDA cores as on
+//         the tensor cores, and on this card the three overlap only
+//         partly, so the kernel is faster for every instruction it
+//         leaves out.  The backward still loads its tiles synchronously, B
+//         fragments by 32-bit loads.  wgmma and TMA are later work.
 //   f32   the oracle type: f32 tiles, products as CUDA-core FMAs from
 //         shared memory with a 4 x (cols / 16) register tile per thread
 //         (row-major tiles with an odd leading dimension: a walk along a
 //         row or down a column is free of bank conflicts).
 //
-// flash_attn_fwd   one block per (query tile, head, batch row); loop over
-//                  the K/V tiles up to the diagonal with an online softmax
-//                  (running max and sum in f32); writes out and the row
-//                  log-sum-exp lse (B, H, S).
+// flash_attn_fwd   one block per (query tile, head or group of heads of a
+//                  KV head, batch row); loop over the K/V tiles up to the
+//                  diagonal with an online softmax (running max and sum in
+//                  f32); writes out and the row log-sum-exp lse (B, H, S).
 // flash_attn_bwd   delta = rowsum(dout * out); then P = exp(S - lse) is
 //                  recomputed tile by tile, twice: a block that owns a
 //                  (K tile, KV head, batch row) loops over the rep query
@@ -555,87 +562,390 @@ __device__ __forceinline__ void store_block(bf16* __restrict__ dst, int64_t row_
 template <int D>
 struct MmaCfg {
   static constexpr int LDS = D + 8, TILE = kTile * LDS;   // elements of one 64-row tile
-  static constexpr size_t fwd_smem = sizeof(bf16) * 3 * TILE;
   static constexpr size_t dq_smem = sizeof(bf16) * 4 * TILE;
   static constexpr size_t dkdv_smem = sizeof(bf16) * 4 * TILE + sizeof(float) * 2 * kTile;
 };
 
+// ---------------------------------------------------------------------
+// Asynchronous tiles and fragment loaders (the forward uses them; written
+// so that the backward kernels can take them over)
+// ---------------------------------------------------------------------
+
+// 16 bytes global -> shared without passing through registers; `ok` false
+// writes 16 zero bytes and reads nothing
+__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// returns when at most N of this thread's committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// load_tile16 without the wait: a ROWS x D bf16 tile -> shared memory
+// [ROWS][D + 8] by cp.async, 16 bytes a thread; rows at or past `valid`
+// become zeros.  The caller commits the group and waits for it.
+template <int ROWS, int D, int THREADS>
+__device__ __forceinline__ void cp_tile16(bf16* __restrict__ dst, const bf16* __restrict__ src,
+                                          int64_t row_stride, int valid) {
+  constexpr int LDS = D + 8, CH = D / 8;
+  for (int idx = threadIdx.x; idx < ROWS * CH; idx += THREADS) {
+    const int r = idx / CH, c = (idx - r * CH) * 8;
+    const bool ok = r < valid;
+    cp_async16(dst + r * LDS + c, src + (ok ? (int64_t)r * row_stride : 0) + c, ok);
+  }
+}
+
+// cp_tile16 for a loop that copies many tiles of one shape: which chunks a
+// thread copies never changes, so their offsets are worked out once and a
+// copy costs a few integer instructions instead of a division and 64-bit
+// products per chunk.  The offsets from the tile's first element are 32-bit:
+// ROWS * row_stride must stay below 2^31 elements.
+template <int ROWS, int D, int THREADS>
+struct TileCopier {
+  static constexpr int LDS = D + 8, CH = D / 8, N = (ROWS * CH + THREADS - 1) / THREADS;
+  int row[N];      // the chunk's row; ROWS and more where the thread has no chunk
+  int src_off[N];  // elements from the tile's first element
+  int dst_off[N];  // bytes from the tile's first byte in shared memory
+
+  __device__ __forceinline__ void init(int64_t row_stride) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int idx = threadIdx.x + i * THREADS, r = idx / CH, c = (idx - r * CH) * 8;
+      row[i] = idx < ROWS * CH ? r : (1 << 30);
+      src_off[i] = r * (int)row_stride + c;
+      dst_off[i] = (r * LDS + c) * (int)sizeof(bf16);
+    }
+  }
+  // rows at or past `valid` become zeros
+  __device__ __forceinline__ void copy(uint32_t dst, const bf16* __restrict__ src,
+                                       int valid) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (N * THREADS > ROWS * CH && row[i] >= ROWS) continue;
+      const bool ok = row[i] < valid;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst + dst_off[i]),
+                   "l"(src + (ok ? src_off[i] : 0)), "r"(ok ? 16 : 0)
+                   : "memory");
+    }
+  }
+};
+
+// four 8 x 8 matrices, each handed out transposed
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// The A fragments of a warp's 16 rows (from row0 of sA, [rows][D + 8]),
+// all D / 16 k-steps: loaded once where A does not change in a loop.
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
+__device__ __forceinline__ void load_a_frags(uint32_t (&a)[D / 16][4], const bf16* __restrict__ sA,
+                                             int row0, int lane) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+    ldsm_x4(a[ks], sA + (row0 + (lane & 15)) * (D + 8) + 16 * ks + ((lane >> 4) << 3));
+}
+
+// How much of a 64-column tile a warp's row blocks have to look at.  XB < 0:
+// a tile wholly below the diagonal, all four 16-column pairs for every row
+// block.  XB >= 0: the tile on the diagonal, for a warp whose first row is
+// 16 XB rows into it: its row block mb ends at row 16 (XB + mb) + 15, so
+// only the first XB + mb + 1 pairs hold a column at or below the diagonal;
+// the rest is skipped, products and softmax alike.
+template <int XB>
+__device__ __forceinline__ constexpr int pairs_of(int mb) {
+  return XB < 0 ? 4 : XB + mb + 1;
+}
+
+// c[mb][j] += A_mb B^T for the A fragments of a warp's MB blocks of 16 rows,
+// held in registers, against the 64 rows of sB walked along their rows
+// (k = the D columns).  One ldmatrix.x4 brings the B fragments of two 8-row
+// blocks of sB (matrices (rows 0-7, k 0-7), (rows 0-7, k 8-15), (rows 8-15,
+// k 0-7), (rows 8-15, k 8-15)) and feeds up to 2 MB mma: a B fragment is
+// loaded once for all of the warp's row blocks.
+template <int D, int MB, int XB>
+__device__ __forceinline__ void mma_frags_rows(float (&c)[MB][8][4],
+                                               const uint32_t (&a)[MB][D / 16][4],
+                                               const bf16* __restrict__ sB, int lane) {
+  constexpr int NP = pairs_of<XB>(MB - 1);
+  const bf16* bp = sB + ((lane & 7) + ((lane >> 4) << 3)) * (D + 8) + (((lane >> 3) & 1) << 3);
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+#pragma unroll
+    for (int jp = 0; jp < NP; ++jp) {
+      uint32_t bq[4];
+      ldsm_x4(bq, bp + 16 * jp * (D + 8) + 16 * ks);
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb) {
+        if (jp < pairs_of<XB>(mb)) {
+          mma_bf16(c[mb][2 * jp], a[mb][ks], bq[0], bq[1]);
+          mma_bf16(c[mb][2 * jp + 1], a[mb][ks], bq[2], bq[3]);
+        }
+      }
+    }
+}
+
+// acc[mb] += P_mb M for a warp's MB 16 x 64 blocks P, held in the
+// accumulator layout of mma_frags_rows and rounded to bf16 here, against the
+// 64 x D tile sM walked down its columns (k = its 64 rows): mma_regs_cols
+// with one ldmatrix.x4.trans for two 8-column blocks of sM (matrices (k 0-7,
+// cols 0-7), (k 8-15, cols 0-7), (k 0-7, cols 8-15), (k 8-15, cols 8-15)).
+template <int D, int MB, int XB>
+__device__ __forceinline__ void mma_regs_cols_x4(float (&acc)[MB][D / 8][4],
+                                                 const float (&p)[MB][8][4],
+                                                 const bf16* __restrict__ sM, int lane) {
+  constexpr int NJ = D / 16, NP = pairs_of<XB>(MB - 1);
+  const bf16* bp = sM + ((lane & 7) + (((lane >> 3) & 1) << 3)) * (D + 8) + ((lane >> 4) << 3);
+#pragma unroll
+  for (int kk = 0; kk < NP; ++kk) {
+    uint32_t a[MB][4];
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb) {
+      a[mb][0] = pack2(p[mb][2 * kk][0], p[mb][2 * kk][1]);
+      a[mb][1] = pack2(p[mb][2 * kk][2], p[mb][2 * kk][3]);
+      a[mb][2] = pack2(p[mb][2 * kk + 1][0], p[mb][2 * kk + 1][1]);
+      a[mb][3] = pack2(p[mb][2 * kk + 1][2], p[mb][2 * kk + 1][3]);
+    }
+#pragma unroll
+    for (int jp = 0; jp < NJ; ++jp) {
+      uint32_t bq[4];
+      ldsm_x4_trans(bq, bp + 16 * kk * (D + 8) + 16 * jp);
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb) {
+        if (kk < pairs_of<XB>(mb)) {
+          mma_bf16(acc[mb][2 * jp], a[mb], bq[0], bq[1]);
+          mma_bf16(acc[mb][2 * jp + 1], a[mb], bq[2], bq[3]);
+        }
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {   // 2^x; -inf -> 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One step of the online softmax over the first NB 8-column blocks of a
+// warp's 16 x 64 block of raw scores s (accumulator layout): afterwards s
+// holds p = 2^((s - max) * sl) there, mi the running maximum of the raw
+// scores, li this thread's share of the running row sums (the quad is summed
+// once, after the loop), and o is rescaled.  MASKED: the tile on the
+// diagonal, where column n0 + c may lie past the row.
+template <int D, int NB, bool MASKED>
+__device__ __forceinline__ void softmax_step(float (&s)[8][4], float (&o)[D / 8][4],
+                                             float (&mi)[2], float (&li)[2], float sl, int row_lo,
+                                             int n0, int t) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    // four partial maxima and sums: short dependent chains
+    float mx[4] = {mi[hh], -INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (MASKED && n0 + 8 * j + 2 * t + e > row_lo + 8 * hh) s[j][2 * hh + e] = -INFINITY;
+        mx[j & 3] = fmaxf(mx[j & 3], s[j][2 * hh + e]);
+      }
+    // the diagonal column is never masked, so the maximum is finite
+    const float m_new = quad_max(fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3])));
+    const float corr = fast_exp2((mi[hh] - m_new) * sl), shift = m_new * sl;
+    mi[hh] = m_new;
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = fast_exp2(fmaf(s[j][2 * hh + e], sl, -shift));
+        s[j][2 * hh + e] = p;
+        part[j & 3] += p;
+      }
+    const float sum = (part[0] + part[1]) + (part[2] + part[3]);
+    li[hh] = li[hh] * corr + sum;
+#pragma unroll
+    for (int jd = 0; jd < D / 8; ++jd) {
+      o[jd][2 * hh] *= corr;
+      o[jd][2 * hh + 1] *= corr;
+    }
+  }
+}
+
+// One K/V tile for a warp: scores, softmax step, P V (XB as in pairs_of).
+template <int D, int MB, int XB>
+__device__ __forceinline__ void attend_tile(float (&o)[MB][D / 8][4], float (&mi)[MB][2],
+                                            float (&li)[MB][2],
+                                            const uint32_t (&qf)[MB][D / 16][4],
+                                            const bf16* __restrict__ sK,
+                                            const bf16* __restrict__ sV, float sl, int row_lo,
+                                            int n0, int lane) {
+  float s[MB][8][4];
+#pragma unroll
+  for (int mb = 0; mb < MB; ++mb) zero(s[mb]);
+  mma_frags_rows<D, MB, XB>(s, qf, sK, lane);
+  softmax_step<D, 2 * pairs_of<XB>(0), XB >= 0>(s[0], o[0], mi[0], li[0], sl, row_lo, n0, lane & 3);
+  if constexpr (MB == 2)
+    softmax_step<D, 2 * pairs_of<XB>(1), XB >= 0>(s[1], o[1], mi[1], li[1], sl, row_lo + 16, n0,
+                                                   lane & 3);
+  mma_regs_cols_x4<D, MB, XB>(o, s, sV, lane);
+}
+
+// Shapes of the bf16 forward: a block takes 64 query positions of HPB query
+// heads of one KV head, MB blocks of 16 score rows a warp (two where the
+// registers allow it, D <= 64); its K/V tiles go round a ring of NSTAGE
+// stages.
+template <int D, int HPB>
+struct FwdMma {
+  static_assert(D % 16 == 0, "k-steps of 16");
+  static constexpr int MB = D <= 64 ? 2 : 1, WARPS = 4 * HPB / MB, THREADS = 32 * WARPS;
+  static constexpr int LDS = D + 8, TILE = kTile * LDS, NSTAGE = 3;
+  static constexpr size_t smem = sizeof(bf16) * (HPB * TILE + NSTAGE * 2 * TILE);
+};
+
+// bf16 forward.  Block (mt, hg, b): the 64 query positions from m0 = 64 * mt
+// of the HPB query heads h0 = hg * HPB .. h0 + HPB - 1, which share the KV
+// head h0 / rep (HPB divides rep), so each K/V tile is fetched once for all
+// of them.  Score rows are laid out head-major: row R = r * 64 + x of the
+// block is head h0 + r, position m0 + x; warp w owns the 16 MB rows from
+// R = 16 MB w, all of one head, as MB blocks of 16 rows that share every B
+// fragment they multiply with.
+//
+// Q is copied to shared memory once and from there into A fragments that
+// stay in registers.  K/V tiles are fetched by cp.async into the ring, tile
+// nt + NSTAGE - 1 while tile nt is multiplied; one __syncthreads per tile
+// both publishes the tile that landed and frees the stage read before.  The
+// loop runs over the tiles 0 .. mt; only the last, on the diagonal, is
+// masked (tiles are aligned, so it is also the only one that can reach past
+// S: its zero-filled rows lie above the diagonal of every row that is
+// stored).  The output goes back through the warp's own Q rows in shared
+// memory and leaves in 16-byte stores.
+template <int D, int HPB>
+__global__ void __launch_bounds__(FwdMma<D, HPB>::THREADS)
     flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, bf16* __restrict__ out,
                          float* __restrict__ lse, int S, int H, int rep, Strides qs, Strides ks,
                          Strides vs, float scale) {
-  constexpr int BM = kTile, BN = kTile, TILE = MmaCfg<D>::TILE;
+  using C = FwdMma<D, HPB>;
+  constexpr int BN = kTile, LDS = C::LDS, TILE = C::TILE, NSTAGE = C::NSTAGE, MB = C::MB;
+  constexpr int THREADS = C::THREADS, CH = D / 8, ROWS = 16 * MB;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + TILE;
-  bf16* sV = sK + TILE;
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [HPB * 64][LDS]
+  bf16* ring = sQ + HPB * TILE;                   // stage i: K at 2 i TILE, V behind it
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int mt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / rep, m0 = mt * BM;
-  load_tile16<BM, D>(sQ, q + b * qs.b + h * qs.h + (int64_t)m0 * qs.s, qs.s, S - m0);
+  // the tiles with the longest loops first
+  const int mt = gridDim.x - 1 - blockIdx.x, h0 = blockIdx.y * HPB, b = blockIdx.z;
+  const int kvh = h0 / rep, m0 = mt * kTile;
+  const int h = h0 + warp * ROWS / kTile, x0 = warp * ROWS % kTile;
   const bf16* kb = k + b * ks.b + kvh * ks.h;
   const bf16* vb = v + b * vs.b + kvh * vs.h;
+  const int n_tiles = mt + 1;
+
+  TileCopier<BN, D, THREADS> k_copy, v_copy;
+  k_copy.init(ks.s);
+  v_copy.init(vs.s);
+  const uint32_t ring_u32 = smem_u32(ring);
+  auto fetch = [&](int tile) {
+    const uint32_t sK = ring_u32 + (tile % NSTAGE) * 2 * TILE * (int)sizeof(bf16);
+    const int n0 = tile * BN;
+    k_copy.copy(sK, kb + (int64_t)n0 * ks.s, S - n0);
+    v_copy.copy(sK + TILE * (int)sizeof(bf16), vb + (int64_t)n0 * vs.s, S - n0);
+  };
+
+#pragma unroll
+  for (int r = 0; r < HPB; ++r)
+    cp_tile16<kTile, D, THREADS>(sQ + r * TILE, q + b * qs.b + (h0 + r) * qs.h + (int64_t)m0 * qs.s,
+                                 qs.s, S - m0);
+  cp_async_commit();
+#pragma unroll
+  for (int i = 0; i < NSTAGE - 1; ++i) {   // one group per tile, empty past the last
+    if (i < n_tiles) fetch(i);
+    cp_async_commit();
+  }
+  cp_async_wait<NSTAGE - 1>();   // Q is in
+  __syncthreads();
+  uint32_t qf[MB][D / 16][4];
+#pragma unroll
+  for (int mb = 0; mb < MB; ++mb) load_a_frags<D>(qf[mb], sQ, warp * ROWS + 16 * mb, lane);
+
   const float sl = scale * kLog2e;
-  const int row_lo = m0 + warp * 16 + g;          // this thread's rows: row_lo, row_lo + 8
-
-  float o[D / 8][4], mi[2] = {-INFINITY, -INFINITY}, li[2] = {0.f, 0.f};
-  zero(o);
-
-  const int n_tiles = min((S + BN - 1) / BN, (m0 + BM - 1) / BN + 1);
-  for (int nt = 0; nt < n_tiles; ++nt) {
-    const int n0 = nt * BN;
-    __syncthreads();   // the tile before is read to its end
-    load_tile16<BN, D>(sK, kb + (int64_t)n0 * ks.s, ks.s, S - n0);
-    load_tile16<BN, D>(sV, vb + (int64_t)n0 * vs.s, vs.s, S - n0);
-    __syncthreads();
-    float s[8][4];
-    zero(s);
-    mma_rows_rows<D>(s, sQ, warp * 16, sK, lane);
+  const int row_lo = m0 + x0 + g;   // this thread's positions: row_lo + 16 mb + 8 hh
+  float o[MB][D / 8][4], mi[MB][2], li[MB][2];
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = row_lo + 8 * hh;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = n0 + 8 * j + 2 * t + e;
-          const float x = (col > row || col >= S) ? -INFINITY : s[j][2 * hh + e] * sl;
-          s[j][2 * hh + e] = x;
-          mx = fmaxf(mx, x);
-        }
-      const float m_new = fmaxf(mi[hh], quad_max(mx));
-      const float m_safe = m_new == -INFINITY ? 0.f : m_new;
-      const float corr = exp2f(mi[hh] - m_safe);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p = exp2f(s[j][2 * hh + e] - m_safe);
-          s[j][2 * hh + e] = p;
-          sum += p;
-        }
-      li[hh] = li[hh] * corr + quad_sum(sum);
-      mi[hh] = m_new;
-#pragma unroll
-      for (int jd = 0; jd < D / 8; ++jd) {
-        o[jd][2 * hh] *= corr;
-        o[jd][2 * hh + 1] *= corr;
-      }
-    }
-    mma_regs_cols<D>(o, s, sV, lane);
+  for (int mb = 0; mb < MB; ++mb) {
+    zero(o[mb]);
+    mi[mb][0] = mi[mb][1] = -INFINITY;
+    li[mb][0] = li[mb][1] = 0.f;
   }
 
-  store_block<D>(out + ((int64_t)b * S * H + h) * D, (int64_t)H * D, o, 1.f / li[0], 1.f / li[1],
-                 row_lo, S, lane);
+  for (int nt = 0; nt < n_tiles; ++nt) {
+    cp_async_wait<NSTAGE - 2>();   // this thread's part of tile nt is in
+    __syncthreads();               // everybody's is, and tile nt - 1 is read to its end
+    if (nt + NSTAGE - 1 < n_tiles) fetch(nt + NSTAGE - 1);   // into the stage of tile nt - 1
+    cp_async_commit();
+    const bf16* sK = ring + (nt % NSTAGE) * 2 * TILE;
+    const bf16* sV = sK + TILE;
+    if (nt < n_tiles - 1) {
+      attend_tile<D, MB, -1>(o, mi, li, qf, sK, sV, sl, row_lo, nt * BN, lane);
+    } else {   // the diagonal: what lies above it is skipped
+#define NANO_DIAG(XB) attend_tile<D, MB, XB>(o, mi, li, qf, sK, sV, sl, row_lo, nt * BN, lane)
+      if constexpr (MB == 2) {
+        if (x0 == 0)
+          NANO_DIAG(0);
+        else
+          NANO_DIAG(2);
+      } else {
+        switch (x0 / 16) {
+          case 0: NANO_DIAG(0); break;
+          case 1: NANO_DIAG(1); break;
+          case 2: NANO_DIAG(2); break;
+          default: NANO_DIAG(3); break;
+        }
+      }
+#undef NANO_DIAG
+    }
+  }
+
+  // out rows -> the warp's own rows of sQ (nobody else reads them) -> 16-byte stores
+  bf16* so = sQ + warp * ROWS * LDS;
+#pragma unroll
+  for (int mb = 0; mb < MB; ++mb) {
+    float inv[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      li[mb][hh] = quad_sum(li[mb][hh]);
+      inv[hh] = 1.f / li[mb][hh];
+    }
+#pragma unroll
+    for (int jd = 0; jd < D / 8; ++jd) {
+      *reinterpret_cast<uint32_t*>(so + (16 * mb + g) * LDS + 8 * jd + 2 * t) =
+          pack2(o[mb][jd][0] * inv[0], o[mb][jd][1] * inv[0]);
+      *reinterpret_cast<uint32_t*>(so + (16 * mb + g + 8) * LDS + 8 * jd + 2 * t) =
+          pack2(o[mb][jd][2] * inv[1], o[mb][jd][3] * inv[1]);
+    }
+  }
+  __syncwarp();
+  for (int idx = lane; idx < ROWS * CH; idx += 32) {
+    const int rr = idx / CH, c = (idx - rr * CH) * 8, pos = m0 + x0 + rr;
+    if (pos < S)
+      *reinterpret_cast<uint4*>(out + (((int64_t)b * S + pos) * H + h) * D + c) =
+          *reinterpret_cast<const uint4*>(so + rr * LDS + c);
+  }
   if (t == 0) {
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
-      if (row_lo + 8 * hh < S)
-        lse[((int64_t)b * H + h) * S + row_lo + 8 * hh] = mi[hh] / kLog2e + logf(li[hh]);
+    for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int pos = row_lo + 16 * mb + 8 * hh;
+        if (pos < S)
+          lse[((int64_t)b * H + h) * S + pos] = mi[mb][hh] * scale + logf(li[mb][hh]);
+      }
   }
 }
 
@@ -780,27 +1090,49 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+template <int D, int HPB>
+int launch_fwd_mma(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse, int B, int S,
+                   int H, int KV, Strides qs, Strides ks, Strides vs, float scale,
+                   cudaStream_t st) {
+  using C = FwdMma<D, HPB>;
+  // the kernel's per-thread copy offsets are 32-bit
+  if (ks.s * kTile >= (1ll << 31) || vs.s * kTile >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(flash_fwd_mma_kernel<D, HPB>, C::smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((S + kTile - 1) / kTile, H / HPB, B);
+  flash_fwd_mma_kernel<D, HPB><<<grid, C::THREADS, C::smem, st>>>(q, k, v, out, lse, S, H, H / KV,
+                                                                   qs, ks, vs, scale);
+  return (int)cudaGetLastError();
+}
+
 template <int D, typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int B, int S,
                int H, int KV, Strides qs, Strides ks, Strides vs, float scale, cudaStream_t st) {
-  const dim3 grid((S + kTile - 1) / kTile, H, B);
   const T* q_ = static_cast<const T*>(q);
   const T* k_ = static_cast<const T*>(k);
   const T* v_ = static_cast<const T*>(v);
   T* out_ = static_cast<T*>(out);
   float* lse_ = static_cast<float*>(lse);
   if constexpr (sizeof(T) == 2) {
-    cudaError_t err = allow_smem(flash_fwd_mma_kernel<D>, MmaCfg<D>::fwd_smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_fwd_mma_kernel<D><<<grid, kMmaThreads, MmaCfg<D>::fwd_smem, st>>>(
-        q_, k_, v_, out_, lse_, S, H, H / KV, qs, ks, vs, scale);
+    // query heads of one KV head that a block serves: all of them for rep 1,
+    // 2 and (D <= 64: shared memory for the Q rows) 4; else the largest of
+    // 4, 2, 1 that divides rep, and a KV head's heads take rep / HPB blocks
+    const int rep = H / KV;
+    if constexpr (D <= 64) {
+      if (rep % 4 == 0)
+        return launch_fwd_mma<D, 4>(q_, k_, v_, out_, lse_, B, S, H, KV, qs, ks, vs, scale, st);
+    }
+    if (rep % 2 == 0)
+      return launch_fwd_mma<D, 2>(q_, k_, v_, out_, lse_, B, S, H, KV, qs, ks, vs, scale, st);
+    return launch_fwd_mma<D, 1>(q_, k_, v_, out_, lse_, B, S, H, KV, qs, ks, vs, scale, st);
   } else {
+    const dim3 grid((S + kTile - 1) / kTile, H, B);
     cudaError_t err = allow_smem(flash_fwd_kernel<D>, FwdCfg<D>::smem);
     if (err != cudaSuccess) return (int)err;
     flash_fwd_kernel<D><<<grid, kThreads, FwdCfg<D>::smem, st>>>(q_, k_, v_, out_, lse_, S, H,
                                                                  H / KV, qs, ks, vs, scale);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
 }
 
 template <int D, typename T>
@@ -897,4 +1229,23 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const
   launch_bwd<DD, TT>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, S, H, KV, qs, ks, vs, scale, st)
   NANO_FLASH_DISPATCH(NANO_BWD)
 #undef NANO_BWD
+}
+
+// Blocks of the bf16 forward kernel for (D, heads per block) that fit one
+// SM at once, by the runtime's occupancy calculator; -1 for a pair not built.
+extern "C" int flash_attn_fwd_blocks_per_sm(int D, int hpb) {
+  int n = -1;
+#define NANO_OCC(DD, HH)                                                                   \
+  if (D == DD && hpb == HH) {                                                              \
+    if (allow_smem(flash_fwd_mma_kernel<DD, HH>, FwdMma<DD, HH>::smem) != cudaSuccess ||   \
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(                                     \
+            &n, flash_fwd_mma_kernel<DD, HH>, FwdMma<DD, HH>::THREADS,                     \
+            FwdMma<DD, HH>::smem) != cudaSuccess)                                          \
+      n = -1;                                                                              \
+  }
+  NANO_OCC(16, 1) NANO_OCC(16, 2) NANO_OCC(16, 4) NANO_OCC(48, 1) NANO_OCC(48, 2)
+  NANO_OCC(48, 4) NANO_OCC(64, 1) NANO_OCC(64, 2) NANO_OCC(64, 4) NANO_OCC(128, 1)
+  NANO_OCC(128, 2)
+#undef NANO_OCC
+  return n;
 }

@@ -39,12 +39,14 @@ SIGNATURES = {
     "q80_act_quant": ([P, I, P, P, I, I, I, P], "q80_matmul"),
     "q80_matmul_w8a8": ([P, P, P, P, P, I, I, I, I, I, P], "q80_matmul"),
     "q80_matmul_rows": ([P, I, P, P, P, I, I, I, I, I, P], "q80_matmul"),
-    "decode_attention": ([P, P, P, P, P, P, I, P, P, P, I, I, I, I, I, I, F,
-                          I, P], "decode_attn"),
+    "decode_attention": ([P, P, P, P, P, P, I, P, P, P, I, Q, I, I, I, I, I,
+                          I, F, I, P], "decode_attn"),
+    "decode_attention_part_stride": ([I, I], "decode_attn"),
     "q4k_fake_quant": ([P, I, P, I, I, I, P], "q4k"),
     "q4k_matmul": ([P, P, P, P, P, I, I, I, I, I, P], "q4k"),
     "flash_attn_fwd": ([P, P, P, P, P, I, I, I, I, I, I, *[Q] * 9, F, P],
                        "flash_attn"),
+    "flash_attn_fwd_blocks_per_sm": ([I, I], "flash_attn"),
     "flash_attn_bwd": ([*[P] * 10, I, I, I, I, I, I, *[Q] * 9, F, P],
                        "flash_attn"),
 }

@@ -54,6 +54,17 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return out.reshape(B, S, H * D)
 
 
+def plain_lse(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """What ``flash_attn_fwd`` returns beside out, in plain PyTorch: the
+    row log-sum-exp of the scaled causal scores, (B, H, S) f32."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    qg = q.float().reshape(B, S, KV, H // KV, D)
+    scores = torch.einsum("bskrd,btkd->bkrst", qg, k.float()) / math.sqrt(D)
+    return torch.logsumexp(scores + causal_mask(S, q.device), dim=-1
+                           ).reshape(B, H, S)
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """t with D contiguous and every row on a 16-byte boundary, as the
     kernels' vector loads need; anything else is copied."""

@@ -70,3 +70,79 @@ def test_shared_position_broadcasts():
     each = tda.decode_attention(*args, torch.full((3,), 17, dtype=torch.int32),
                                 2, 2)
     torch.testing.assert_close(one, each, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("edge", ["first", "last"])
+@pytest.mark.parametrize("rep,D", [(1, 128), (4, 64), (4, 128)])
+def test_plain_matches_pallas_interpret_bf16_q_and_edge_positions(
+        rep, D, edge, quant):
+    """What the card's kernel special-cases: q in bf16 (read in its own
+    type), one and four query heads per KV head, and the first and the
+    last cache row as the position.  Both sides get the same bf16-rounded
+    q and widen it to f32; f32 scores and softmax, sum order differs:
+    2e-5, as above."""
+    B, T, n_kv = 2, 128, 2
+    q, kc, vc, ks, vs, _ = _inputs(quant, B, T, n_kv, rep, D,
+                                   rep * 100 + D + quant)
+    q16 = np.asarray(jnp.asarray(q, jnp.bfloat16))
+    pos = np.full((B,), 0 if edge == "first" else T - 1, np.int32)
+    want = np.asarray(jda.decode_attention(
+        jnp.asarray(q16), jnp.asarray(kc), jnp.asarray(vc),
+        None if ks is None else jnp.asarray(ks),
+        None if vs is None else jnp.asarray(vs),
+        jnp.asarray(pos), n_kv, rep, interpret=True))
+    got = tda.decode_attention(
+        _torch_cache(q16), _torch_cache(kc), _torch_cache(vc),
+        None if ks is None else torch.from_numpy(ks),
+        None if vs is None else torch.from_numpy(vs),
+        torch.from_numpy(pos), n_kv, rep)
+    assert got.dtype == torch.float32 and got.shape == (B, n_kv * rep * D)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("n_sm", [132, 108])
+@pytest.mark.parametrize("B", [1, 8, 64])
+@pytest.mark.parametrize("n_kv,T", [(8, 512), (8, 1024), (2, 64), (1, 4096),
+                                    (8, 32768), (4, 100)])
+def test_split_choice_fills_the_card_and_covers_every_row_once(B, n_kv, T,
+                                                               n_sm):
+    """`choose_splits` is pure Python on shapes (it is never handed `pos`):
+    the chunks tile [0, T) exactly once in order, at most MAX_SPLITS of
+    them; the grid B * KV * n_split stays within two blocks per SM unless
+    B * KV alone exceeds that (then one block per head), and reaches one
+    block per SM wherever T has MIN_CHUNK rows for each split."""
+    chunk, n_split = tda.choose_splits(B, n_kv, T, n_sm)
+    assert 1 <= n_split <= tda.MAX_SPLITS
+    assert n_split == -(-T // chunk)
+    # every row t in [0, T) (so every t <= pos) lies in exactly one split
+    covered = np.zeros(T, np.int64)
+    for s in range(n_split):
+        covered[s * chunk:min((s + 1) * chunk, T)] += 1
+    assert (covered == 1).all()
+    blocks = B * n_kv * n_split
+    if B * n_kv >= 2 * n_sm:
+        assert n_split == 1
+    else:
+        assert blocks <= 2 * n_sm
+        could = min(tda.MAX_SPLITS, -(-T // tda.MIN_CHUNK))   # splits T allows
+        if B * n_kv * could >= 2 * n_sm:
+            assert blocks >= n_sm
+        elif n_split < could:
+            assert B * n_kv * (n_split + 1) > 2 * n_sm
+    # a position anywhere leaves the splits past it empty and the rest whole
+    for p in (0, chunk - 1, chunk, T - 1):
+        active = min(n_split, p // chunk + 1)
+        assert (active - 1) * chunk <= p < active * chunk or active == n_split
+
+
+def test_wrapper_never_reads_pos_on_the_host():
+    """The call must stay capturable in a CUDA graph: `choose_splits` takes
+    shapes only, and the wrapper's source hands `pos` to the kernel by
+    pointer without `.item()`, `.tolist()`, `.cpu()` or `int(pos...)`."""
+    import inspect
+    src = inspect.getsource(tda.decode_attention)
+    assert "choose_splits(B, n_kv, T" in src
+    for banned in (".item()", ".tolist()", ".cpu()", "int(pos"):
+        assert banned not in src, banned
+    assert "pos" not in inspect.signature(tda.choose_splits).parameters

@@ -120,3 +120,32 @@ def test_check_refuses_what_the_kernels_do_not_take(bad):
         v = torch.zeros(1, 7, 2, 48)
     with pytest.raises(ValueError, match="flash_attention takes"):
         tfa._check(q, k, v)
+
+
+# what the card's forward kernel special-cases: four query heads of a KV
+# head in one block, a sequence of one row, and one row short of / past a
+# 64-row tile
+EDGE_CASES = [(B, S, KV, 4, D) for D in (16, 48) for B, S, KV in
+              ((2, 1, 1), (1, 63, 2), (2, 65, 1))]
+
+
+@pytest.mark.parametrize("B,S,KV,rep,D", EDGE_CASES)
+def test_plain_forward_and_lse_at_tile_edges_and_rep4(B, S, KV, rep, D):
+    """out within 1e-5 of max|ref| of the JAX einsum path, and `plain_lse`
+    (what the kernel's second output is held against on the card) within
+    1e-5 of logsumexp over the JAX path's masked scores."""
+    q, k, v, _ = _inputs(B, S, KV, rep, D, 11 * S + D)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    want = np.asarray(_jax_attention(jq, jk, jv))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got = tfa.flash_attention(tq, tk, tv)       # CPU: the plain version
+    assert got.shape == (B, S, KV * rep * D)
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+    cfg = JModelConfig(n_embd=KV * rep * D, n_head=KV * rep, n_kv_head=KV,
+                       head_dim=D)
+    scores = jgpt._gqa_scores(jq, jk, cfg) + jgpt._causal_mask(S)
+    want_lse = np.asarray(jax.nn.logsumexp(scores, axis=-1)
+                          ).reshape(B, KV * rep, S)
+    got_lse = tfa.plain_lse(tq, tk).numpy()
+    assert got_lse.shape == (B, KV * rep, S)
+    np.testing.assert_allclose(got_lse, want_lse, rtol=0, atol=1e-5)

@@ -60,6 +60,21 @@ def test_q80_kernels_match_plain(B):
                                        rtol=1e-2, atol=1e-2 * want.abs().max().item())
 
 
+def _decode_case(rng, B, T, n_kv, rep, D, cache_dtype, q_dtype):
+    q = torch.from_numpy(rng.randn(B, n_kv * rep, D).astype(np.float32)
+                         ).to("cuda", q_dtype)
+    if cache_dtype == torch.int8:
+        kc = torch.from_numpy(rng.randint(-127, 128, (B, T, n_kv, D)).astype(np.int8))
+        vc = torch.from_numpy(rng.randint(-127, 128, (B, T, n_kv, D)).astype(np.int8))
+        ks = torch.from_numpy(rng.rand(B, T, n_kv).astype(np.float32) * 0.02).cuda()
+        vs = torch.from_numpy(rng.rand(B, T, n_kv).astype(np.float32) * 0.02).cuda()
+    else:
+        kc = torch.from_numpy(rng.randn(B, T, n_kv, D).astype(np.float32)).to(cache_dtype)
+        vc = torch.from_numpy(rng.randn(B, T, n_kv, D).astype(np.float32)).to(cache_dtype)
+        ks = vs = None
+    return [q, kc.cuda(), vc.cuda(), ks, vs]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.int8,
                                          torch.float32])
@@ -68,17 +83,8 @@ def test_decode_attention_kernel_matches_plain(cache_dtype):
     for B, T, n_kv, rep, D in ((1, 1024, 8, 2, 128), (3, 256, 2, 4, 64),
                                (2, 64, 2, 2, 16), (2, 128, 1, 8, 256)):
         rng = np.random.RandomState(T + D)
-        q = torch.from_numpy(rng.randn(B, n_kv * rep, D).astype(np.float32))
-        if cache_dtype == torch.int8:
-            kc = torch.from_numpy(rng.randint(-127, 128, (B, T, n_kv, D)).astype(np.int8))
-            vc = torch.from_numpy(rng.randint(-127, 128, (B, T, n_kv, D)).astype(np.int8))
-            ks = torch.from_numpy(rng.rand(B, T, n_kv).astype(np.float32) * 0.02).cuda()
-            vs = torch.from_numpy(rng.rand(B, T, n_kv).astype(np.float32) * 0.02).cuda()
-        else:
-            kc = torch.from_numpy(rng.randn(B, T, n_kv, D).astype(np.float32)).to(cache_dtype)
-            vc = torch.from_numpy(rng.randn(B, T, n_kv, D).astype(np.float32)).to(cache_dtype)
-            ks = vs = None
-        args = [q.cuda(), kc.cuda(), vc.cuda(), ks, vs]
+        args = _decode_case(rng, B, T, n_kv, rep, D, cache_dtype,
+                            torch.float32)
         for p in (0, T // 2, T - 1):
             for pos in (torch.full((B,), p, dtype=torch.int32, device="cuda"),
                         torch.tensor([p], dtype=torch.int32, device="cuda")):
@@ -86,6 +92,82 @@ def test_decode_attention_kernel_matches_plain(cache_dtype):
                 want = tda.decode_attention_plain(*args, pos, n_kv, rep)
                 torch.cuda.synchronize()
                 torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rep", [1, 2, 3, 4, 7])
+@pytest.mark.parametrize("D", [16, 32, 48, 64, 128])
+def test_decode_attention_kernel_shapes_it_is_built_for(D, rep, q_dtype):
+    """Every D and every instance of the heads per KV head (rep 3 runs in
+    the instance for 4, rep 7 in the one for 8), f32 and bf16 q, the three cache types, at
+    batch 1 (positions split over the grid: pos 0, pos T - 1, a pos inside
+    a split, a pos that leaves whole splits empty) and batch 64 (one block
+    per head, every row its own pos).  Same f32 arithmetic as the plain
+    version (which sees the same, already rounded q), sums in another
+    order: 2e-5.  Two calls on one workspace give the same bits: the ticket
+    counters are back at zero after each."""
+    _need_card()
+    rng = np.random.RandomState(1000 * D + 10 * rep)
+    n_kv, T = 2, 512
+    for cache_dtype in (torch.bfloat16, torch.int8, torch.float32):
+        args = _decode_case(rng, 1, T, n_kv, rep, D, cache_dtype, q_dtype)
+        chunk, n_split = tda.choose_splits(1, n_kv, T)
+        assert n_split > 2
+        for p in (0, T - 1, chunk + chunk // 2, 2 * chunk - 1, 2 * chunk):
+            pos = torch.tensor([p], dtype=torch.int32, device="cuda")
+            n0 = tda.decode_attention.launches
+            got = tda.decode_attention(*args, pos, n_kv, rep)
+            again = tda.decode_attention(*args, pos, n_kv, rep)
+            want = tda.decode_attention_plain(*args, pos, n_kv, rep)
+            torch.cuda.synchronize()
+            assert tda.decode_attention.launches == n0 + 2
+            assert got.dtype == torch.float32 and got.shape == (1, n_kv * rep * D)
+            torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+            assert torch.equal(got, again)
+        args = _decode_case(rng, 64, 128, n_kv, rep, D, cache_dtype, q_dtype)
+        pos = torch.from_numpy(rng.randint(0, 128, (64,)).astype(np.int32)).cuda()
+        pos[0], pos[1] = 0, 127
+        got = tda.decode_attention(*args, pos, n_kv, rep)
+        again = tda.decode_attention(*args, pos, n_kv, rep)
+        want = tda.decode_attention_plain(*args, pos, n_kv, rep)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_decode_attention_is_one_launch_and_refuses_other_shapes():
+    """On the model's path (bf16 q, bf16 cache) the call puts one kernel on
+    the stream: no memset, no cast, no allocation of scratch after the
+    first call."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.RandomState(7)
+    args = _decode_case(rng, 1, 512, 8, 2, 128, torch.bfloat16, torch.bfloat16)
+    pos = torch.tensor([318], dtype=torch.int32, device="cuda")
+    tda.decode_attention(*args, pos, 8, 2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            tda.decode_attention(*args, pos, 8, 2)
+        torch.cuda.synchronize()
+    events = [(e.key, e.count) for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if events:      # a profiler that records no device activity shows nothing
+        assert len(events) == 1 and events[0][1] == 4, events
+        assert "decode_attn_kernel" in events[0][0]
+    lib = tda._build.lib("decode_attn")
+    for rep, held, D in ((1, 1, 16), (2, 2, 128), (3, 4, 32), (7, 8, 48),
+                         (4, 4, 256)):
+        assert (lib.decode_attention_part_stride(rep, D)
+                == held * D + (2 * held + 3) // 4 * 4)
+    bad = _decode_case(rng, 1, 64, 1, 9, 64, torch.bfloat16, torch.float32)
+    with pytest.raises(ValueError, match="rep <="):
+        tda.decode_attention(*bad, pos, 1, 9)
+    bad = _decode_case(rng, 1, 64, 2, 2, 40, torch.bfloat16, torch.float32)
+    with pytest.raises(ValueError, match="D in"):
+        tda.decode_attention(*bad, pos, 2, 2)
 
 
 def _act_rows(rng, B, n):
@@ -151,7 +233,9 @@ def _flash_case(B, S, H, KV, D, dtype, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,H,KV,D", [
     (2, 512, 16, 8, 48), (1, 1024, 16, 8, 128), (2, 200, 4, 2, 64),
-    (3, 67, 4, 4, 48), (2, 33, 4, 1, 16), (1, 130, 6, 3, 64)])
+    (3, 67, 4, 4, 48), (2, 33, 4, 1, 16), (1, 130, 6, 3, 64),
+    (2, 63, 4, 2, 48), (2, 64, 8, 2, 64), (2, 65, 4, 1, 48),
+    (1, 127, 8, 2, 128), (1, 129, 8, 1, 128), (2, 256, 12, 4, 48)])
 def test_flash_attention_kernels_match_plain(B, S, H, KV, D, dtype):
     """Forward and backward against the plain version differentiated by
     autograd.  f32: the same f32 arithmetic in another order, 1e-5 of
@@ -184,6 +268,32 @@ def test_flash_attention_kernels_match_plain(B, S, H, KV, D, dtype):
     tfa.flash_attention(*again).backward(g)
     for a, b in zip(leaves, again):
         assert torch.equal(a.grad, b.grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,D", [
+    (2, 512, 16, 8, 48), (1, 1, 4, 2, 48), (2, 63, 4, 2, 64), (2, 64, 4, 1, 48),
+    (2, 65, 8, 2, 16), (1, 200, 16, 8, 128), (1, 129, 4, 1, 128),
+    (2, 100, 3, 3, 48), (1, 191, 6, 1, 64)])
+def test_flash_attn_fwd_out_and_lse(B, S, H, KV, D, dtype):
+    """The forward alone: out against the plain version and lse against
+    the log-sum-exp of the plain scaled scores (what the backward kernels
+    read), 1e-5 absolute in f32 and 1e-3 in bf16 (bf16 inputs, f32 sums on
+    both sides); two runs give the same bits."""
+    _need_card()
+    q, k, v, _ = _flash_case(B, S, H, KV, D, dtype, 3 * S + D)
+    out, lse = tfa.flash_attn_fwd(q, k, v)
+    out2, lse2 = tfa.flash_attn_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    want = tfa.flash_attention_plain(q, k, v).reshape(B, S, H, D)
+    f32 = dtype == torch.float32
+    tol = (1e-5 if f32 else 2e-2) * want.float().abs().max().item()
+    assert (out.float() - want.float()).abs().max().item() <= tol
+    want_lse = tfa.plain_lse(q, k)
+    assert lse.shape == want_lse.shape == (B, H, S)
+    assert (lse - want_lse).abs().max().item() <= (1e-5 if f32 else 1e-3)
 
 
 @pytest.mark.cuda
