@@ -13,7 +13,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   the Qwen3-0.6B shape at B=1 and B=64, decode attention
                   over bf16 and int8 caches, the Q4K activation fake-quant
                   at widths 1024/2048/3072 and 40/64/128, the four Q4K
-                  matmuls at B=1 and B=64 and the tiny fixture's), and
+                  matmuls at B=1 and B=64 and the tiny fixture's, and the
+                  decode kernel with the fake-quant folded in, bit-equal to
+                  the two), and
                   timed over one decode step's launches: kernel, plain
                   version, one PyTorch library call as a yardstick, and the
                   least time the card needs for the bytes and operations
@@ -39,12 +41,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   (launch counts asserted), a second Trainer resumed from
                   the step-12 checkpoint must reproduce step 13's loss bit
                   for bit; ms/step, tokens/s, peak memory and a profile of
-                  one step; and one f32 step (4 layers, batch 2) on the card
+                  one step; Nano-56M (config/model_56m.json, heads of 32,
+                  config/pretrain_56m.json: batch 64 x 512, bf16, full
+                  remat) for 3 steps with its launch counts and a falling
+                  loss; and one f32 step (4 layers, batch 2) on the card
                   against the same step on the CPU through the plain versions
 
 Phase 3 also holds the two flash-attention kernels (forward, backward)
-against the plain version at the Nano-168M and Qwen3-0.6B head shapes,
-bf16 and f32, a ragged length, rep = 1 and rep = 4, and at the training
+against the plain version at every head width (the Nano-168M, Nano-56M and
+Qwen3-0.6B head shapes, D = 32 at Nano-56M's training shape, batch 64 x
+512), bf16 and f32, ragged lengths, rep = 1 and rep = 4, two backward runs
+bit-equal, and at the training
 shape itself (batch 64 x 512, bf16, each of the 24 layers' tensors); the
 forward alone (out and the row log-sum-exp the backward reads, two runs
 bit-equal) at S = 1, below one tile and at 64 k +- 1; decode attention at
@@ -57,10 +64,12 @@ scaled_dot_product_attention and the bound, and a decode step's 28
 attention launches both on f32 q and as the model feeds them (bf16 q,
 result cast to bf16).
 
-`python3 chip_smoke.py bench [flash] [decode] [pipes]` runs none of the
-phases: it times the two attention kernels alone beside SDPA (a ladder over
-the decode kernel's rows per block), and what an SM sustains of mma.sync
-and ex2, for work on those kernels.
+`python3 chip_smoke.py bench [flash [clocks]] [decode] [q4k] [pipes]` runs
+none of the phases: it times the two attention kernels alone beside SDPA
+(the flash forward and backward, a ladder over the decode kernel's rows
+per block), a Q4K decode step's matmuls with the fake-quant folded in or
+not, what an SM sustains of mma.sync and ex2, and with `clocks` where the
+backward's warps spend their cycles, for work on those kernels.
 
 The last two lines of stdout are one JSON object listing the kernels and
 then {"ok": true, "device": {...}}.  Without a CUDA device the script
@@ -72,6 +81,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -231,10 +241,11 @@ def params_to(params, device):
 
 
 # ---------------------------------------------------------------------
-# `python3 chip_smoke.py bench [flash] [decode] [pipes]`: the two attention
-# kernels timed alone beside SDPA, and what an SM sustains of mma.sync and
-# ex2.  A measuring mode for work on those kernels (about a minute and a
-# half with the build); it checks nothing and prints no result lines.
+# `python3 chip_smoke.py bench [flash [clocks]] [decode] [q4k] [pipes]`:
+# the attention kernels timed alone beside SDPA, a Q4K decode step's
+# matmuls, and what an SM sustains of mma.sync and ex2.  A measuring mode
+# for work on those kernels (about a minute and a half with the build); it
+# checks little and prints no result lines.
 # ---------------------------------------------------------------------
 
 def _best_of(torch, fn, reps=5):
@@ -252,18 +263,29 @@ def _best_of(torch, fn, reps=5):
     return best
 
 
-def bench_flash(torch):
+def bench_flash(torch, clocks=False):
     """One Nano-168M training step's 24 forward launches of flash_attn_fwd
     (B=64, S=512, H=16, KV=8, D=48, bf16, each layer on its own tensors) and
     the Qwen3 head shape (D=128), no autograd, beside
     scaled_dot_product_attention(is_causal, enable_gqa): CUDA events around
-    the step, best of five, in the order library, kernel, kernel, library."""
+    the step, best of five, in the order library, kernel, kernel, library.
+    Then the step's 24 backward launches of flash_attn_bwd beside SDPA's
+    backward (autograd of the same call) the same way, and what bounds the
+    backward: its kernels' instruction mix in the SASS and the cycles each
+    warp spends in each phase (bench_bwd_clocks, with `bench flash
+    clocks`)."""
     import torch.nn.functional as F
     from nano_tpu_torch.ops import _build, flash_attn
-    occ = _build.lib("flash_attn").flash_attn_fwd_blocks_per_sm
+    lib = _build.lib("flash_attn")
+    occ = lib.flash_attn_fwd_blocks_per_sm
     log("[bench flash] blocks of flash_fwd_mma_kernel per SM by (D, query "
         "heads a block): " + ", ".join(f"({d}, {h}) {occ(d, h)}" for d, h in (
-            (48, 1), (48, 2), (48, 4), (64, 2), (128, 1), (128, 2))))
+            (32, 2), (48, 1), (48, 2), (48, 4), (64, 2), (128, 1), (128, 2))))
+    bocc = lib.flash_attn_bwd_blocks_per_sm
+    log("[bench flash] blocks per SM of the backward by D: dq (1 / 2 query "
+        "heads a block), dk/dv: " + ", ".join(
+            f"D={d} {bocc(d, 1)} / {bocc(d, 2)}, {bocc(d, 0)}"
+            for d in (32, 48, 64, 128)))
     gen = torch.Generator(device="cuda").manual_seed(0)
     for B, S, H, KV, D, L in ((64, 512, 16, 8, 48, 24), (8, 1024, 16, 8, 128, 8)):
         mk = lambda *s: torch.randn(*s, device="cuda", generator=gen
@@ -288,7 +310,127 @@ def bench_flash(torch):
             f"({flops / min(t[1], t[2]) / 1e9:.1f} TFLOP/s on the causal "
             f"work), SDPA {t[0]:.3f} / {t[3]:.3f} ms, kernel / SDPA "
             f"{min(t[1], t[2]) / min(t[0], t[3]):.2f}")
-        del layers
+
+        # the backward: the kernel on what the forward wrote, SDPA's
+        # backward through autograd on its own forward (graph kept)
+        fwd = [flash_attn.flash_attn_fwd(q, k, v) for q, k, v in layers]
+        douts = [mk(B, S, H, D) for _ in range(L)]
+        lib_graphs = []
+        for q, k, v in layers:
+            leaves = [x.detach().transpose(1, 2).requires_grad_(True)
+                      for x in (q, k, v)]
+            lib_graphs.append((F.scaled_dot_product_attention(
+                *leaves, is_causal=True, enable_gqa=True), leaves))
+
+        def kernel_bwd():
+            for (q, k, v), (o, lse), g in zip(layers, fwd, douts):
+                flash_attn.flash_attn_bwd(q, k, v, o, lse, g)
+
+        def library_bwd():
+            for (o, leaves), g in zip(lib_graphs, douts):
+                torch.autograd.grad(o, leaves, g.transpose(1, 2),
+                                    retain_graph=True)
+
+        t = [_best_of(torch, f) for f in (library_bwd, kernel_bwd, kernel_bwd,
+                                          library_bwd)]
+        log(f"[bench flash] {L} x flash_attn_bwd B={B} S={S} H={H} KV={KV} "
+            f"D={D} bf16: kernel {t[1]:.3f} / {t[2]:.3f} ms "
+            f"({2.5 * flops / min(t[1], t[2]) / 1e9:.1f} TFLOP/s on the five "
+            f"causal products), SDPA backward {t[0]:.3f} / {t[3]:.3f} ms, "
+            f"kernel / SDPA {min(t[1], t[2]) / min(t[0], t[3]):.2f}")
+        if D == 48 and clocks:
+            bench_bwd_clocks(torch, layers[0], fwd[0], douts[0])
+        del layers, fwd, douts, lib_graphs
+    bench_bwd_sass()
+
+
+def bench_bwd_sass():
+    """Instruction mix of the bf16 backward kernels at D = 48 as built:
+    cuobjdump's SASS of libflash_attn.so, opcodes counted per kernel (the
+    whole kernel, every unrolled diagonal variant included).  The full
+    listing goes to build/flash_bwd_sass.txt."""
+    from nano_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", _build._lib_path("flash_attn")],
+                          capture_output=True, text=True, check=True).stdout
+    out_dir = os.path.join(ROOT, "build")
+    os.makedirs(out_dir, exist_ok=True)
+    kernels, name = {}, None
+    for line in text.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            keep = ("flash_bwd_dq_v3_kernelILi48ELi2E" in name
+                    or "flash_bwd_dkdv_v3_kernelILi48E" in name)
+            name = name if keep else None
+            if name:
+                kernels[name] = []
+        elif name and line.strip().startswith("/*") and ";" in line:
+            op = line.split("*/", 1)[1].strip().split(";")[0].split()
+            if op and op[0].startswith("@"):
+                op = op[1:]
+            if op:
+                kernels[name].append(op[0])
+    with open(os.path.join(out_dir, "flash_bwd_sass.txt"), "w") as f:
+        f.write(text)
+    groups = (("HMMA", "mma"), ("MUFU.EX2", "ex2"), ("LDSM", "ldmatrix"),
+              ("LDGSTS", "cp.async"), ("BAR", "barrier"),
+              ("FFMA", "ffma"), ("FMUL", "fmul"), ("FADD", "fadd"),
+              ("F2FP", "bf16 pack"), ("IMAD", "imad"), ("IADD3", "iadd"),
+              ("LEA", "lea"), ("MOV", "mov"), ("ISETP", "isetp"),
+              ("FSEL", "fsel"), ("SHFL", "shfl"), ("STS", "sts"), ("LDS", "lds"))
+    for name, ops in kernels.items():
+        counts = {label: sum(1 for o in ops if o.startswith(prefix))
+                  for prefix, label in groups}
+        known = sum(counts.values())
+        short = "dq" if "dq_v3" in name else "dk/dv"
+        log(f"[bench flash] SASS of the {short} kernel at D=48: {len(ops)} "
+            f"instructions: " + ", ".join(f"{k} {v}" for k, v in counts.items()
+                                          if v) + f", other {len(ops) - known}")
+
+
+def bench_bwd_clocks(torch, qkv, fwd, dout):
+    """Builds flash_attn.cu once more with -DNANO_BWD_CLOCKS into
+    build/flash_clocks/ and runs one layer's backward (training shape)
+    through it: the cycles every warp spends in each phase of the two
+    kernels, summed over the grid, as shares of the kernel's total."""
+    import ctypes
+    from nano_tpu_torch.ops import _build
+    work = os.path.join(ROOT, "build", "flash_clocks")
+    os.makedirs(work, exist_ok=True)
+    so = os.path.join(work, "libflash_clocks.so")
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    subprocess.run([_build.nvcc_path(), *flags, "-DNANO_BWD_CLOCKS", "-o", so,
+                    os.path.join(_build.CSRC_DIR, "flash_attn.cu")], check=True)
+    lib = ctypes.CDLL(so)
+    lib.flash_attn_bwd.argtypes = _build.SIGNATURES["flash_attn_bwd"][0]
+    lib.flash_attn_bwd_clocks.argtypes = [ctypes.c_void_p]
+    q, k, v = qkv
+    o, lse = fwd
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    grads = [torch.empty_like(x) for x in (q, k, v)]
+    delta = torch.empty(B, H, S, device="cuda")
+    clocks = (ctypes.c_ulonglong * 12)()
+    strides = [x.stride(i) for x in (q, k, v) for i in range(3)]
+    for _ in range(2):      # the first run warms up; its counts are dropped
+        assert lib.flash_attn_bwd_clocks(clocks) == 0
+        rc = lib.flash_attn_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), dout.data_ptr(), *(g.data_ptr() for g in grads),
+            delta.data_ptr(), 1, B, S, H, KV, D, *strides, D ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, rc
+        torch.cuda.synchronize()
+    assert lib.flash_attn_bwd_clocks(clocks) == 0
+    phases = ("prologue", "waits+barrier", "S/dP products", "softmax, dS",
+              "gradient products", "epilogue")
+    for i, kname in enumerate(("dq", "dk/dv")):
+        c = list(clocks)[6 * i:6 * i + 6]
+        tot = sum(c) or 1
+        log(f"[bench flash] clock64 per warp, {kname} kernel, one layer B={B} "
+            f"S={S} H={H} KV={KV} D={D} (instrumented build): "
+            + ", ".join(f"{p} {x / tot:.3f}" for p, x in zip(phases, c))
+            + f" of {tot / 1e9:.3f} G warp-cycles")
 
 
 def bench_decode(torch):
@@ -381,6 +523,63 @@ def bench_pipes(torch):
         "clock per SM = 31.7 ex2/ns/SM at 1980 MHz")
 
 
+def bench_q4k(torch):
+    """One Qwen3-0.6B Q4K decode step's 112 matmuls (4 per layer, random
+    per-layer weights as random_q4k_params makes them, bf16 rows) replayed
+    from a CUDA graph: q4k_fake_quant + q4k_matmul (113 fake-quants with the
+    head's) against q4k_matvec_fq, in the order two, fused, fused, two; the
+    fused results must equal the two kernels' bit for bit."""
+    import numpy as np
+    from nano_tpu_torch.config import ModelConfig
+    from nano_tpu_torch.ops import _build, q4k
+    cfg = ModelConfig(**QWEN3_06B)
+    L, E, F, V, HD, KVD, D = _shapes(cfg)
+    rng = np.random.default_rng(SEED + 2)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    calls = []
+    for _ in range(L):
+        for out, inn in ((HD + 2 * KVD, E), (E, HD), (2 * F, E), (E, F)):
+            G = inn // 32
+            w = q4k.Q4KTensor(
+                packed=torch.from_numpy(rng.integers(0, 256, (out, inn // 2), dtype=np.uint8)).cuda(),
+                scales=torch.from_numpy(rng.random((out, G), dtype=np.float32) * 0.02 + 1e-3).cuda(),
+                biases=torch.from_numpy(rng.random((out, G), dtype=np.float32) * 0.02).cuda(),
+                in_dim=inn)
+            x = torch.randn(1, inn, device="cuda", generator=gen).to(torch.bfloat16)
+            calls.append((w, x, torch.empty(1, w.n_pad, device="cuda"),
+                          torch.empty(1, out, device="cuda", dtype=torch.bfloat16),
+                          torch.empty(1, out, device="cuda", dtype=torch.bfloat16)))
+    head_x = torch.randn(1, E, device="cuda", generator=gen).to(torch.bfloat16)
+    head_xq = torch.empty(1, q4k.n_blocks_per_line(E) * 256, device="cuda")
+    lib = _build.lib("q4k")
+    st = lambda: torch.cuda.current_stream().cuda_stream
+
+    def two():
+        lib.q4k_fake_quant(head_x.data_ptr(), 1, head_xq.data_ptr(), 1, E,
+                           head_xq.shape[1], st())
+        for w, x, xq, y, _ in calls:
+            lib.q4k_fake_quant(x.data_ptr(), 1, xq.data_ptr(), 1, w.in_dim,
+                               w.n_pad, st())
+            lib.q4k_matmul(xq.data_ptr(), w.packed.data_ptr(), w.scales.data_ptr(),
+                           w.biases.data_ptr(), y.data_ptr(), 1, 1, w.n_pad,
+                           w.in_dim, w.out_dim, st())
+
+    def fused():
+        for w, x, _, _, y in calls:
+            lib.q4k_matvec_fq(x.data_ptr(), 1, w.packed.data_ptr(),
+                              w.scales.data_ptr(), w.biases.data_ptr(),
+                              y.data_ptr(), 1, w.n_pad, w.in_dim, w.out_dim, st())
+
+    timer = Timer(torch)
+    t = [timer(f, reps=50) for f in (two, fused, fused, two)]
+    same = all(torch.equal(a, b) for _, _, _, a, b in calls)
+    log(f"[bench q4k] one Q4K decode step, {len(calls)} matmuls: "
+        f"q4k_fake_quant + q4k_matmul {t[0]:.4f} / {t[3]:.4f} ms, "
+        f"q4k_matvec_fq {t[1]:.4f} / {t[2]:.4f} ms; results bit-equal: {same}")
+    if not same:
+        raise AssertionError("q4k_matvec_fq differs from the two kernels")
+
+
 def bench(what) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -389,9 +588,9 @@ def bench(what) -> int:
     sys.path.insert(0, ROOT)
     log(f"[bench] card: {card_line()}")
     for name, fn in (("flash", bench_flash), ("decode", bench_decode),
-                     ("pipes", bench_pipes)):
+                     ("q4k", bench_q4k), ("pipes", bench_pipes)):
         if not what or name in what:
-            fn(torch)
+            fn(torch, **({"clocks": "clocks" in what} if name == "flash" else {}))
     return 0
 
 
@@ -485,6 +684,8 @@ def main() -> int:
     entry("q4k_fake_quant", "nano_tpu/ops/q4k.py:644",
           "nano_tpu_torch/csrc/q4k.cu")
     entry("q4k_matmul", "nano_tpu/ops/q4k.py:717",
+          "nano_tpu_torch/csrc/q4k.cu")
+    entry("q4k_matvec_fq", "nano_tpu/ops/q4k.py:717",
           "nano_tpu_torch/csrc/q4k.cu")
     entry("flash_attn_fwd", "nano_tpu/models/gpt.py:239",
           "nano_tpu_torch/csrc/flash_attn.cu")
@@ -680,9 +881,38 @@ def main() -> int:
                 raise AssertionError(f"q4k_matmul {name} B={B} off by {err}")
             note_err("q4k_matmul", err)
 
+    # the decode kernel with the fake-quant folded in: one raw activation
+    # row, f32 or bf16, into f32 or bf16, at the same shapes; the same
+    # operations in the same order as q4k_fake_quant + q4k_matmul, so
+    # torch.equal, and within 1e-5 of max|y| of the plain version (f32
+    # sums in another order)
+    n_fused = 0
+    for name, w in q4_cases:
+        x = act_rows(1, w.in_dim)
+        for xt in (x, x.to(torch.bfloat16)):
+            for dt in (torch.float32, torch.bfloat16):
+                got = q4k.q4k_matvec_fq(xt, w, dt)
+                want = q4k.q4k_matmul_f32(q4k.fake_quant_act(xt), w, dt)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"q4k_matvec_fq differs from the two "
+                                         f"kernels at {name} {xt.dtype} -> {dt}")
+                if dt == torch.float32:
+                    ref = q4k.q4k_matvec_fq_plain(xt, w, dt)
+                    err = (got - ref).abs().max().item()
+                    if not err <= 1e-5 * ref.abs().max().item():
+                        raise AssertionError(f"q4k_matvec_fq {name} off by {err}")
+                    note_err("q4k_matvec_fq", err)
+                n_fused += 1
+    log(f"[kernel] q4k_matvec_fq: torch.equal with q4k_fake_quant + "
+        f"q4k_matmul in {n_fused} cases (the four Q4K matmuls of a layer and "
+        f"the tiny widths 40/64/128 x f32/bf16 row x f32/bf16 out); worst "
+        f"max_abs_err vs the plain version "
+        f"{kernels['q4k_matvec_fq']['max_abs_err']:.3e} (tol 1e-5 of max|y|)")
+
     # K4, causal GQA flash attention: forward and backward against the
     # plain version differentiated by autograd, at the Nano-168M and
-    # Qwen3-0.6B head shapes, a ragged length and rep = 1.  f32: the same
+    # Qwen3-0.6B head shapes, every head width (D = 32 at Nano-56M's
+    # training shape, batch 64 x 512), ragged lengths and rep = 1.  f32: the same
     # arithmetic in another order (1e-5 of max|ref| forward, 1e-4
     # backward); bf16: the kernel keeps the probabilities in f32 where the
     # plain version rounds them to bf16, and both round the results (2e-2).
@@ -697,7 +927,8 @@ def main() -> int:
 
     for B, S, Hh, KVh, Dh in ((4, 512, 16, 8, 48), (2, 1024, 16, 8, 128),
                               (2, 200, 4, 2, 64), (2, 96, 4, 4, 48),
-                              (2, 130, 8, 2, 48)):
+                              (2, 130, 8, 2, 48), (2, 65, 4, 1, 16),
+                              (64, 512, 16, 8, 32)):
         for dt in (torch.bfloat16, torch.float32):
             case = flash_case(B, S, Hh, KVh, Dh, dt)
             out, grads = fwd_bwd(flash_attn.flash_attention, *case)
@@ -978,6 +1209,35 @@ def main() -> int:
         f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms for "
         f"{mm4_bytes / 1e6:.1f} MB and {mm4_ops / 1e9:.3f} GFLOP f32), bf16 "
         f"torch.matmul on pre-dequantized weights {k['library_ms']:.4f} ms")
+
+    # the fused kernel over the same 112 raw rows: what a decode step runs
+    def run_fused():
+        for wl, x, xq, y, _ in mm4:
+            lib4.q4k_matvec_fq(x.data_ptr(), 1, wl.packed.data_ptr(),
+                               wl.scales.data_ptr(), wl.biases.data_ptr(),
+                               y.data_ptr(), 1, wl.n_pad, wl.in_dim,
+                               wl.out_dim, stream())
+
+    def run_fused_plain():
+        for wl, x, *_ in mm4:
+            q4k.q4k_matvec_fq_plain(x, wl, torch.bfloat16)
+
+    k = kernels["q4k_matvec_fq"]
+    k["ms"] = timer(run_fused)
+    k["plain_ms"] = timer(run_fused_plain)
+    k["library_ms"] = timer(run_mm4_library)
+    # the weights once, the bf16 row in, the bf16 result out; the dot and
+    # the row's fake-quant
+    fused_bytes = sum(wl.packed.numel() + 8 * wl.scales.numel()
+                      + 2 * wl.in_dim + 2 * wl.out_dim for wl, *_ in mm4)
+    fused_ops = mm4_ops + FQ_OPS_PER_VALUE * sum(wl.in_dim for wl, *_ in mm4)
+    set_bound("q4k_matvec_fq", fused_bytes, fused_ops, F32_OPS_PER_S)
+    log(f"[time] the same step through q4k_matvec_fq ({len(mm4)} launches, "
+        f"fake-quant folded in): {k['ms']:.4f} ms against "
+        f"{kernels['q4k_fake_quant']['ms'] + kernels['q4k_matmul']['ms']:.4f} "
+        f"ms for the two kernels (plain {k['plain_ms']:.4f} ms, bound "
+        f"{k['bound_ms']:.4f} ms for {fused_bytes / 1e6:.1f} MB, library "
+        f"{k['library_ms']:.4f} ms)")
     del mm4, fq4
 
     # attention: the last step of the main path's decode (cache of 512
@@ -1094,6 +1354,7 @@ def main() -> int:
         decode_attention=(decode_attn.decode_attention, "launches"),
         q4k_fake_quant=(q4k.fake_quant_act, "launches"),
         q4k_matmul=(q4k.q4k_matmul_f32, "launches"),
+        q4k_matvec_fq=(q4k.q4k_matvec_fq, "launches"),
         flash_attn_fwd=(flash_attn.flash_attention, "launches"),
         flash_attn_bwd=(flash_attn.flash_attention, "backward_launches"))
     assert sorted(counters) == sorted(names)
@@ -1132,8 +1393,8 @@ def main() -> int:
             and isinstance(head4, qmatmul.Q80Tensor)
             and head4.group_size == 64 and not head4.w8a8)
     tiny_stream(tiny4, "tiny_q4k.bin", expected["greedy"]["q4k"],
-                ("q4k_matmul", "q4k_fake_quant", "q80_matmul_rows",
-                 "decode_attention"))
+                ("q4k_matmul", "q4k_fake_quant", "q4k_matvec_fq",
+                 "q80_matmul_rows", "decode_attention"))
     del tiny, tiny4
 
     # ---------------- 5. full width ----------------
@@ -1146,6 +1407,7 @@ def main() -> int:
     profile_keys = (("w8a8_kernel", "q80_matmul_w8a8"),
                     ("act_quant_kernel", "q80_act_quant"),
                     ("decode_attn_kernel", "decode_attention"),
+                    ("matvec_fq", "q4k_matvec_fq"),
                     ("q4k_mat", "q4k_matmul"),      # matvec (B=1), matmul
                     ("fake_quant_kernel", "q4k_fake_quant"),
                     ("rows_kernel", "q80_matmul_rows"))
@@ -1255,14 +1517,17 @@ def main() -> int:
             raise AssertionError(f"main path launched no {name}")
 
     expect4 = {n: 0 for n in names}
-    expect4.update(q4k_matmul=112 * N_TOKENS, q4k_fake_quant=113 * N_TOKENS,
+    expect4.update(q4k_matmul=112, q4k_fake_quant=112 + N_TOKENS,
+                   q4k_matvec_fq=112 * n_steps,
                    q80_act_quant=N_TOKENS, q80_matmul_w8a8=N_TOKENS,
                    decode_attention=28 * n_steps)
     log("[full Q4K] expected launches: 112 Q4K matmuls = 4 x 28 per forward, "
-        "113 fake-quants (one before each and before the requantized Q80 "
-        "head), one W8A8 head, 28 attentions per decode step")
+        "as q4k_matvec_fq (fake-quant folded in) in a decode step and as "
+        "q4k_fake_quant + q4k_matmul in the prefill; one fake-quant before "
+        "the requantized Q80 head and one W8A8 head per forward, 28 "
+        "attentions per decode step")
     _, out4, counts4 = drive("Q4K", params4, expect4)
-    for name in ("q4k_matmul", "q4k_fake_quant"):
+    for name in ("q4k_matmul", "q4k_fake_quant", "q4k_matvec_fq"):
         kernels[name]["launches"] = counts4[name]
         if counts4[name] == 0:
             raise AssertionError(f"Q4K path launched no {name}")
@@ -1307,13 +1572,16 @@ def main() -> int:
 
     @contextlib.contextmanager
     def fake_quant(on):
-        saved = q4k.fake_quant_act
+        saved = q4k.fake_quant_act, q4k.q4k_matvec_fq
         if not on:
             q4k.fake_quant_act = gpt.fake_quant_act = pad_only
+            q4k.q4k_matvec_fq = lambda x2d, w, dtype: q4k.q4k_matmul_f32(
+                pad_only(x2d), w, dtype)
         try:
             yield
         finally:
-            q4k.fake_quant_act = gpt.fake_quant_act = saved
+            q4k.fake_quant_act = gpt.fake_quant_act = saved[0]
+            q4k.q4k_matvec_fq = saved[1]
 
     def layer_by_layer(gp, cp, tokens, start, caches, last):
         """-> (worst per-layer relative error, logits rel error, logits)."""
@@ -1576,6 +1844,53 @@ def main() -> int:
         log("[profile train] the profiler recorded no device time: not "
             "measured")
     del trainer, prof
+    torch.cuda.empty_cache()
+
+    # Nano-56M (config/model_56m.json: 16 layers, width 512, 16/8 heads of
+    # 32) under config/pretrain_56m.json (batch 64 x 512, bf16, remat true)
+    # on the same corpus, warmup cut to 1 step so that 3 steps show the
+    # loss falling: every attention through K4 at D = 32, forward again for
+    # each layer in the backward (full remat recomputes the block)
+    cfg56 = ModelConfig.from_json(os.path.join(ROOT, "config", "model_56m.json"))
+    with open(os.path.join(ROOT, "config", "pretrain_56m.json")) as f:
+        train56 = json.load(f)
+    work56 = os.path.join(work, "56m")
+    train56.update(dataset_path=[[train_p, val_p]], tokenizer_path=tok_path,
+                   save_checkpoint_to=work56, warmup_iters=1, log_interval=1)
+    steps56 = 3
+    t56 = Trainer(cfg56, train56, max_steps=steps56)
+    t56.init()
+    t56.load_data()
+    full56 = gpt._remat_mode(t56._remat()) == "full"
+    reset()
+    t0 = time.time()
+    t56.start()
+    torch.cuda.synchronize()
+    secs56 = time.time() - t0
+    counts = read()
+    L56, A56 = cfg56.n_layer, train56["gradient_accumulation_steps"]
+    expect56 = {n: 0 for n in names}
+    expect56.update(flash_attn_fwd=L56 * A56 * steps56 * (2 if full56 else 1),
+                    flash_attn_bwd=L56 * A56 * steps56)
+    losses56 = [l for _, l in t56.loss_history]
+    log(f"[train] Nano-56M, {L56} layers, width {cfg56.n_embd}, heads of "
+        f"{cfg56.head_dim}, batch {train56['batch_size']} x {cfg56.block_size}, "
+        f"bf16, remat {t56._remat()!r}, on {card}: {steps56} steps in "
+        f"{secs56:.2f} s with a checkpoint, losses "
+        f"{[round(l, 4) for l in losses56]} (first within 0.3 of ln "
+        f"{cfg56.vocab_size} = {np.log(cfg56.vocab_size):.3f}, last below "
+        f"first); launches {counts}; expected {expect56}")
+    if counts != expect56:
+        raise AssertionError("Nano-56M launch counts differ from one forward "
+                             "(two under full remat) and one backward per "
+                             "layer and microbatch")
+    if not (len(losses56) == steps56 and all(np.isfinite(losses56))
+            and abs(losses56[0] - np.log(cfg56.vocab_size)) <= 0.3
+            and losses56[-1] < losses56[0]):
+        raise AssertionError("the Nano-56M losses are not what a model that "
+                             "learns gives")
+    shutil.rmtree(work56)
+    del t56
     torch.cuda.empty_cache()
 
     # one f32 step at full width (4 layers, batch 2 x 512) on the card

@@ -35,8 +35,21 @@
 //         costs about as much on the exp2 unit and the CUDA cores as on
 //         the tensor cores, and on this card the three overlap only
 //         partly, so the kernel is faster for every instruction it
-//         leaves out.  The backward still loads its tiles synchronously, B
-//         fragments by 32-bit loads.  wgmma and TMA are later work.
+//         leaves out.  The backward is built the same way (cp.async rings,
+//         A fragments held in registers where D <= 64, ldmatrix.x4 for B,
+//         the diagonal tile masked and its wholly hidden 16-column pairs
+//         skipped) and makes two passes, so that no sum crosses blocks.
+//         What bounds it, read on the card at the training shape (D = 48,
+//         `chip_smoke.py bench flash clocks`): clock64 per warp puts the dq
+//         kernel's time 36% in its prologue (its first tiles and out
+//         arriving: a block walks only mt + 1 <= 8 tiles), 15% at the
+//         barrier, 26% in the S and dP products, 10% in P and dS, 9% in the
+//         dQ product; the dk/dv kernel's 9% prologue, 24% barrier and
+//         waits, 28% S and dP, 16% P and dS, 19% dV and dK.  Their static
+//         SASS has ~800 integer multiply-adds, adds and address LEAs beside
+//         252 mma (dq) and ~490 beside 336 (dk/dv).  So latency and issue,
+//         not a pipe: 154 of mma.sync's ~646 TFLOP/s on the five products.
+//         wgmma and TMA are later work.
 //   f32   the oracle type: f32 tiles, products as CUDA-core FMAs from
 //         shared memory with a 4 x (cols / 16) register tile per thread
 //         (row-major tiles with an odd leading dimension: a walk along a
@@ -48,14 +61,16 @@
 //                  f32); writes out and the row log-sum-exp lse (B, H, S).
 // flash_attn_bwd   delta = rowsum(dout * out); then P = exp(S - lse) is
 //                  recomputed tile by tile, twice: a block that owns a
-//                  (K tile, KV head, batch row) loops over the rep query
-//                  heads and the query tiles at or below the diagonal for
-//                  dk, dv; a block that owns a (query tile, head, batch row)
-//                  loops over the K tiles for dq.  No atomics: every sum is
-//                  taken in a fixed order, so two runs agree bit for bit.
+//                  (query tile, head or two heads of a KV head, batch row)
+//                  loops over the K tiles for dq (bf16: it computes delta
+//                  too, and runs first); a block that owns a (K tile, KV
+//                  head, batch row) loops over the rep query heads and the
+//                  query tiles at or below the diagonal for dk, dv.  No
+//                  atomics: every sum is taken in a fixed order, so two
+//                  runs agree bit for bit.
 //
-// Inputs f32 or bf16 (accumulation always f32); D in {16, 48, 64, 128};
-// any S (the ragged last tile is masked).
+// Inputs f32 or bf16 (accumulation always f32); D in {16, 32, 48, 64,
+// 128}; any S (the ragged last tile is masked).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -453,17 +468,6 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
                : "r"(smem_u32(p)));
 }
 
-// two 8 x 8 matrices, each handed out transposed (lanes 0-15 give the rows)
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t& r0, uint32_t& r1, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -478,61 +482,6 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(kFull, x, 2);
 }
 
-// A ROWS x D bf16 tile -> shared memory [ROWS][D + 8] (the 16 bytes of
-// padding keep fragment loads off each other's banks); rows at or past
-// `valid` read as zero.
-template <int ROWS, int D>
-__device__ __forceinline__ void load_tile16(bf16* __restrict__ dst, const bf16* __restrict__ src,
-                                            int64_t row_stride, int valid) {
-  constexpr int LDS = D + 8, CH = D / 8;
-  for (int idx = threadIdx.x; idx < ROWS * CH; idx += kMmaThreads) {
-    const int r = idx / CH, c = (idx - r * CH) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) x = *reinterpret_cast<const uint4*>(src + (int64_t)r * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LDS + c) = x;
-  }
-}
-
-// c[j] += A B^T for the warp's 16 rows of sA (from row0) against the 64 rows
-// of sB: both tiles are walked along their rows (k = the D columns).
-template <int D>
-__device__ __forceinline__ void mma_rows_rows(float (&c)[8][4], const bf16* __restrict__ sA,
-                                              int row0, const bf16* __restrict__ sB, int lane) {
-  constexpr int LDS = D + 8;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    uint32_t a[4];
-    ldsm_x4(a, sA + (row0 + (lane & 15)) * LDS + 16 * ks + ((lane >> 4) << 3));
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const bf16* bp = sB + (8 * j + g) * LDS + 16 * ks + 2 * t;
-      mma_bf16(c[j], a, ld32(bp), ld32(bp + 8));
-    }
-  }
-}
-
-// acc[jd] += P M for the warp's 16 x 64 block P, held in the accumulator
-// layout of mma_rows_rows and rounded to bf16 here, against the 64 x D tile
-// sM walked down its columns (k = its 64 rows).
-template <int D>
-__device__ __forceinline__ void mma_regs_cols(float (&acc)[D / 8][4], const float (&p)[8][4],
-                                              const bf16* __restrict__ sM, int lane) {
-  constexpr int LDS = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t a[4] = {pack2(p[2 * kk][0], p[2 * kk][1]), pack2(p[2 * kk][2], p[2 * kk][3]),
-                           pack2(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                           pack2(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int jd = 0; jd < D / 8; ++jd) {
-      uint32_t b0, b1;
-      ldsm_x2_trans(b0, b1, sM + (16 * kk + (lane & 15)) * LDS + 8 * jd);
-      mma_bf16(acc[jd], a, b0, b1);
-    }
-  }
-}
-
 template <int N>
 __device__ __forceinline__ void zero(float (&c)[N][4]) {
 #pragma unroll
@@ -541,34 +490,8 @@ __device__ __forceinline__ void zero(float (&c)[N][4]) {
     for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
 }
 
-// the warp's 16 x D accumulator block, scaled, -> rows row0 + g and + 8 of a
-// tensor whose rows lie row_stride elements apart
-template <int D>
-__device__ __forceinline__ void store_block(bf16* __restrict__ dst, int64_t row_stride,
-                                            const float (&acc)[D / 8][4], float s_lo, float s_hi,
-                                            int row_lo, int n_rows, int lane) {
-  const int t = lane & 3;
-#pragma unroll
-  for (int jd = 0; jd < D / 8; ++jd) {
-    if (row_lo < n_rows)
-      *reinterpret_cast<uint32_t*>(dst + (int64_t)row_lo * row_stride + 8 * jd + 2 * t) =
-          pack2(acc[jd][0] * s_lo, acc[jd][1] * s_lo);
-    if (row_lo + 8 < n_rows)
-      *reinterpret_cast<uint32_t*>(dst + (int64_t)(row_lo + 8) * row_stride + 8 * jd + 2 * t) =
-          pack2(acc[jd][2] * s_hi, acc[jd][3] * s_hi);
-  }
-}
-
-template <int D>
-struct MmaCfg {
-  static constexpr int LDS = D + 8, TILE = kTile * LDS;   // elements of one 64-row tile
-  static constexpr size_t dq_smem = sizeof(bf16) * 4 * TILE;
-  static constexpr size_t dkdv_smem = sizeof(bf16) * 4 * TILE + sizeof(float) * 2 * kTile;
-};
-
 // ---------------------------------------------------------------------
-// Asynchronous tiles and fragment loaders (the forward uses them; written
-// so that the backward kernels can take them over)
+// Asynchronous tiles and fragment loaders
 // ---------------------------------------------------------------------
 
 // 16 bytes global -> shared without passing through registers; `ok` false
@@ -587,9 +510,10 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// load_tile16 without the wait: a ROWS x D bf16 tile -> shared memory
-// [ROWS][D + 8] by cp.async, 16 bytes a thread; rows at or past `valid`
-// become zeros.  The caller commits the group and waits for it.
+// A ROWS x D bf16 tile -> shared memory [ROWS][D + 8] (the 16 bytes of
+// padding keep fragment loads off each other's banks) by cp.async, 16
+// bytes a thread; rows at or past `valid` become zeros.  The caller commits
+// the group and waits for it.
 template <int ROWS, int D, int THREADS>
 __device__ __forceinline__ void cp_tile16(bf16* __restrict__ dst, const bf16* __restrict__ src,
                                           int64_t row_stride, int valid) {
@@ -694,8 +618,8 @@ __device__ __forceinline__ void mma_frags_rows(float (&c)[MB][8][4],
 
 // acc[mb] += P_mb M for a warp's MB 16 x 64 blocks P, held in the
 // accumulator layout of mma_frags_rows and rounded to bf16 here, against the
-// 64 x D tile sM walked down its columns (k = its 64 rows): mma_regs_cols
-// with one ldmatrix.x4.trans for two 8-column blocks of sM (matrices (k 0-7,
+// 64 x D tile sM walked down its columns (k = its 64 rows), with one
+// ldmatrix.x4.trans for two 8-column blocks of sM (matrices (k 0-7,
 // cols 0-7), (k 8-15, cols 0-7), (k 0-7, cols 8-15), (k 8-15, cols 8-15)).
 template <int D, int MB, int XB>
 __device__ __forceinline__ void mma_regs_cols_x4(float (&acc)[MB][D / 8][4],
@@ -949,136 +873,517 @@ __global__ void __launch_bounds__(FwdMma<D, HPB>::THREADS)
   }
 }
 
-// bf16 dk, dv of one (K tile, KV head, batch row): transposed blocks, the
-// warp's rows are keys, the columns queries
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                              const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                              const float* __restrict__ lse, const float* __restrict__ delta,
-                              bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H, int rep,
-                              Strides qs, Strides ks, Strides vs, float scale) {
-  constexpr int BM = kTile, BN = kTile, TILE = MmaCfg<D>::TILE;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + TILE;
-  bf16* sQ = sV + TILE;
-  bf16* sdO = sQ + TILE;
-  float* sLse = reinterpret_cast<float*>(sdO + TILE);   // in exp2 units
-  float* sDelta = sLse + BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int nt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z, KV = gridDim.y;
-  const int n0 = nt * BN;
-  load_tile16<BN, D>(sK, k + b * ks.b + kvh * ks.h + (int64_t)n0 * ks.s, ks.s, S - n0);
-  load_tile16<BN, D>(sV, v + b * vs.b + kvh * vs.h + (int64_t)n0 * vs.s, vs.s, S - n0);
-  const float sl = scale * kLog2e;
-  const int key_lo = n0 + warp * 16 + g;
+// ---------------------------------------------------------------------
+// bf16 backward
+// ---------------------------------------------------------------------
 
-  float dka[D / 8][4], dva[D / 8][4];
-  zero(dka);
-  zero(dva);
-
-  const int m_tiles = (S + BM - 1) / BM;
-  for (int r = 0; r < rep; ++r) {
-    const int h = kvh * rep + r;
-    const bf16* qb = q + b * qs.b + h * qs.h;
-    const bf16* dob = dout + (int64_t)b * S * H * D + (int64_t)h * D;
-    const float* lse_b = lse + ((int64_t)b * H + h) * S;
-    const float* delta_b = delta + ((int64_t)b * H + h) * S;
-    for (int mt = n0 / BM; mt < m_tiles; ++mt) {
-      const int m0 = mt * BM;
-      __syncthreads();   // the tile before is read to its end
-      load_tile16<BM, D>(sQ, qb + (int64_t)m0 * qs.s, qs.s, S - m0);
-      load_tile16<BM, D>(sdO, dob + (int64_t)m0 * H * D, (int64_t)H * D, S - m0);
-      if (threadIdx.x < BM) {
-        const int m = m0 + threadIdx.x;
-        sLse[threadIdx.x] = m < S ? lse_b[m] * kLog2e : 0.f;
-        sDelta[threadIdx.x] = m < S ? delta_b[m] : 0.f;
-      }
-      __syncthreads();
-      float st[8][4], dpt[8][4];
-      zero(st);
-      zero(dpt);
-      mma_rows_rows<D>(st, sK, warp * 16, sQ, lane);
-      mma_rows_rows<D>(dpt, sV, warp * 16, sdO, lane);
+// Cycle counts of the backward's phases, per warp, summed over the grid;
+// only in a build with -DNANO_BWD_CLOCKS (`chip_smoke.py bench flash`
+// makes one beside the real library).  Otherwise every call is empty.
+enum { kClkPrologue, kClkWait, kClkScores, kClkSoftmax, kClkGrads, kClkEpilogue, kClkN };
+#ifdef NANO_BWD_CLOCKS
+__device__ unsigned long long g_bwd_clocks[2][kClkN];   // [dq, dkdv][phase]
+struct Clk {
+  long long last, acc[kClkN];
+  __device__ __forceinline__ void start() {
+    last = clock64();
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = key_lo + 8 * (e >> 1), mc = 8 * j + 2 * t + (e & 1), m = m0 + mc;
-          const bool seen = m >= key && m < S && key < S;
-          const float p = seen ? exp2f(st[j][e] * sl - sLse[mc]) : 0.f;
-          st[j][e] = p;
-          dpt[j][e] = p * (dpt[j][e] - sDelta[mc]);
-        }
-      mma_regs_cols<D>(dva, st, sdO, lane);
-      mma_regs_cols<D>(dka, dpt, sQ, lane);
-    }
+    for (int i = 0; i < kClkN; ++i) acc[i] = 0;
   }
-  const int64_t base = ((int64_t)b * S * KV + kvh) * D;
-  store_block<D>(dk + base, (int64_t)KV * D, dka, scale, scale, key_lo, S, lane);
-  store_block<D>(dv + base, (int64_t)KV * D, dva, 1.f, 1.f, key_lo, S, lane);
+  __device__ __forceinline__ void mark(int phase) {
+    const long long now = clock64();
+    acc[phase] += now - last;
+    last = now;
+  }
+  __device__ __forceinline__ void flush(int kernel) {
+    if ((threadIdx.x & 31) == 0)
+      for (int i = 0; i < kClkN; ++i)
+        atomicAdd(&g_bwd_clocks[kernel][i], (unsigned long long)acc[i]);
+  }
+};
+#else
+struct Clk {
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void flush(int) {}
+};
+#endif
+
+// c[j] += A B^T for the A fragments of a warp's 16 rows (registers) against
+// the rows 16 P0 .. 16 P1 - 1 of sB, walked along their rows (k = the D
+// columns); c[j] is the 8-column block 2 P0 + j.  One ldmatrix.x4 brings
+// the B fragments of 16 rows (see mma_frags_rows).
+template <int D, int P0, int P1>
+__device__ __forceinline__ void mma_a_rows(float (&c)[2 * (P1 - P0)][4],
+                                           const uint32_t (&a)[D / 16][4],
+                                           const bf16* __restrict__ sB, int lane) {
+  const bf16* bp = sB + ((lane & 7) + ((lane >> 4) << 3)) * (D + 8) + (((lane >> 3) & 1) << 3);
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+#pragma unroll
+    for (int jp = P0; jp < P1; ++jp) {
+      uint32_t bq[4];
+      ldsm_x4(bq, bp + 16 * jp * (D + 8) + 16 * ks);
+      mma_bf16(c[2 * (jp - P0)], a[ks], bq[0], bq[1]);
+      mma_bf16(c[2 * (jp - P0) + 1], a[ks], bq[2], bq[3]);
+    }
 }
 
-// bf16 dq of one (query tile, head, batch row)
+// acc += P M for a warp's 16 rows of P (the 8-column blocks 2 P0 .. 2 P1 - 1
+// of a tile, held in accumulators, rounded to bf16 here) against the rows
+// 16 P0 .. 16 P1 - 1 of sM walked down its columns (k = those rows).
+template <int D, int P0, int P1>
+__device__ __forceinline__ void mma_p_cols(float (&acc)[D / 8][4],
+                                           const float (&p)[2 * (P1 - P0)][4],
+                                           const bf16* __restrict__ sM, int lane) {
+  const bf16* bp = sM + ((lane & 7) + (((lane >> 3) & 1) << 3)) * (D + 8) + ((lane >> 4) << 3);
+#pragma unroll
+  for (int kk = P0; kk < P1; ++kk) {
+    const int j = 2 * (kk - P0);
+    const uint32_t a[4] = {pack2(p[j][0], p[j][1]), pack2(p[j][2], p[j][3]),
+                           pack2(p[j + 1][0], p[j + 1][1]), pack2(p[j + 1][2], p[j + 1][3])};
+#pragma unroll
+    for (int jp = 0; jp < D / 16; ++jp) {
+      uint32_t bq[4];
+      ldsm_x4_trans(bq, bp + 16 * kk * (D + 8) + 16 * jp);
+      mma_bf16(acc[2 * jp], a, bq[0], bq[1]);
+      mma_bf16(acc[2 * jp + 1], a, bq[2], bq[3]);
+    }
+  }
+}
+
+// mma_a_rows with the A fragments either held (KEEP) or loaded from the
+// warp's 16 rows of sA just before the product (D = 128: no registers to
+// hold them across the loop).
+template <int D, int P0, int P1, bool KEEP>
+__device__ __forceinline__ void mma_held_rows(float (&c)[2 * (P1 - P0)][4],
+                                              const uint32_t (&a)[D / 16][4],
+                                              const bf16* __restrict__ sA, int row0,
+                                              const bf16* __restrict__ sB, int lane) {
+  if constexpr (KEEP) {
+    mma_a_rows<D, P0, P1>(c, a, sB, lane);
+  } else {
+    uint32_t f[D / 16][4];
+    load_a_frags<D>(f, sA, row0, lane);
+    mma_a_rows<D, P0, P1>(c, f, sB, lane);
+  }
+}
+
+// A warp's 16 rows of a 64 x D accumulator block (scaled, rounded to bf16)
+// -> its own 16 rows of the shared tile sT -> 16-byte stores to the rows
+// row0 .. row0 + 15 of a tensor whose rows lie row_stride elements apart
+// (rows at or past n_rows are not stored).  Nobody else reads those rows
+// of sT any more.
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                            const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                            const float* __restrict__ lse, const float* __restrict__ delta,
-                            bf16* __restrict__ dq, int S, int H, int rep, Strides qs, Strides ks,
-                            Strides vs, float scale) {
-  constexpr int BM = kTile, BN = kTile, TILE = MmaCfg<D>::TILE;
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, int64_t row_stride,
+                                           bf16* __restrict__ sT, const float (&acc)[D / 8][4],
+                                           float sc, int row0, int n_rows, int lane) {
+  constexpr int LDS = D + 8, CH = D / 8;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int jd = 0; jd < D / 8; ++jd) {
+    *reinterpret_cast<uint32_t*>(sT + g * LDS + 8 * jd + 2 * t) =
+        pack2(acc[jd][0] * sc, acc[jd][1] * sc);
+    *reinterpret_cast<uint32_t*>(sT + (g + 8) * LDS + 8 * jd + 2 * t) =
+        pack2(acc[jd][2] * sc, acc[jd][3] * sc);
+  }
+  __syncwarp();
+  for (int idx = lane; idx < 16 * CH; idx += 32) {
+    const int rr = idx / CH, c = (idx - rr * CH) * 8;
+    if (row0 + rr < n_rows)
+      *reinterpret_cast<uint4*>(dst + (int64_t)(row0 + rr) * row_stride + c) =
+          *reinterpret_cast<const uint4*>(sT + rr * LDS + c);
+  }
+}
+
+// ---- dq (and delta): a block per (query tile, HPB query heads of one KV
+// head, batch row), the forward's layout: head-major rows, warp w owns the
+// 16 rows from 16 w, K/V tiles round a cp.async ring, one barrier a tile.
+
+template <int D, int HPB>
+struct BwdQ {
+  static constexpr int WARPS = 4 * HPB, THREADS = 32 * WARPS;
+  // two blocks of 8 warps an SM: at most 128 registers a thread
+  static constexpr int MIN_BLOCKS = HPB == 2 && D <= 64 ? 2 : 1;
+  static constexpr int LDS = D + 8, TILE = kTile * LDS, NSTAGE = D <= 64 ? 3 : 2;
+  static constexpr bool KEEP = D <= 64;   // Q and dO fragments held in registers
+  static constexpr size_t smem = sizeof(bf16) * (2 * HPB * TILE + NSTAGE * 2 * TILE);
+};
+
+// The 16-key pairs [P0, P1) of one K/V tile for a warp's 16 query rows:
+// S = Q K^T, dP = dO V^T, P = 2^(S sl - lse2), dS = P (dP - delta), then
+// dQ += dS K.  MASKED: the diagonal tile, where key n0 + c may lie past the
+// row.
+template <int D, int P0, int P1, bool MASKED, bool KEEP>
+__device__ __forceinline__ void dq_chunk(float (&dqa)[D / 8][4], const uint32_t (&qf)[D / 16][4],
+                                         const uint32_t (&df)[D / 16][4],
+                                         const bf16* __restrict__ sQ, const bf16* __restrict__ sdO,
+                                         int row0, const bf16* __restrict__ sK,
+                                         const bf16* __restrict__ sV, const float (&lse2)[2],
+                                         const float (&dl)[2], float sl, int row_lo, int n0,
+                                         int lane, Clk& clk) {
+  constexpr int NB = 2 * (P1 - P0);
+  float s[NB][4], dp[NB][4];
+  zero(s);
+  zero(dp);
+  mma_held_rows<D, P0, P1, KEEP>(s, qf, sQ, row0, sK, lane);
+  mma_held_rows<D, P0, P1, KEEP>(dp, df, sdO, row0, sV, lane);
+  clk.mark(kClkScores);
+  const int t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int hh = e >> 1;
+      float p = fast_exp2(fmaf(s[j][e], sl, -lse2[hh]));
+      if (MASKED && n0 + 16 * P0 + 8 * j + 2 * t + (e & 1) > row_lo + 8 * hh) p = 0.f;
+      dp[j][e] = p * (dp[j][e] - dl[hh]);
+    }
+  clk.mark(kClkSoftmax);
+  mma_p_cols<D, P0, P1>(dqa, dp, sK, lane);
+  clk.mark(kClkGrads);
+}
+
+// One K/V tile for the dq block: the key pairs 0 .. NP - 1 (all four below
+// the diagonal; on it, those that hold a key at or below the warp's last
+// row), in chunks of two pairs to keep the score blocks small.
+template <int D, int NP, bool MASKED, bool KEEP>
+__device__ __forceinline__ void dq_tile(float (&dqa)[D / 8][4], const uint32_t (&qf)[D / 16][4],
+                                        const uint32_t (&df)[D / 16][4],
+                                        const bf16* __restrict__ sQ, const bf16* __restrict__ sdO,
+                                        int row0, const bf16* __restrict__ sK,
+                                        const bf16* __restrict__ sV, const float (&lse2)[2],
+                                        const float (&dl)[2], float sl, int row_lo, int n0,
+                                        int lane, Clk& clk) {
+  dq_chunk<D, 0, (NP < 2 ? NP : 2), MASKED, KEEP>(dqa, qf, df, sQ, sdO, row0, sK, sV, lse2, dl,
+                                                  sl, row_lo, n0, lane, clk);
+  if constexpr (NP > 2)
+    dq_chunk<D, 2, NP, MASKED, KEEP>(dqa, qf, df, sQ, sdO, row0, sK, sV, lse2, dl, sl, row_lo, n0,
+                                     lane, clk);
+}
+
+// bf16 dq and delta.  Block (mt, hg, b): the 64 query positions from m0 =
+// 64 mt of the query heads h0 = hg HPB .. h0 + HPB - 1 (HPB divides rep).
+// Prologue: Q and dO tiles by cp.async, their A fragments into registers
+// (D <= 64), and delta = rowsum(dO * out) from the thread's dO fragments and
+// the same elements of out read from global memory, summed over the quad in
+// a fixed order; delta goes to global memory for the dk/dv kernel, which
+// runs after this one.  Loop over the K/V tiles 0 .. mt as the forward.
+template <int D, int HPB>
+__global__ void __launch_bounds__(BwdQ<D, HPB>::THREADS, BwdQ<D, HPB>::MIN_BLOCKS)
+    flash_bwd_dq_v3_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, const bf16* __restrict__ out,
+                           const bf16* __restrict__ dout, const float* __restrict__ lse,
+                           float* __restrict__ delta, bf16* __restrict__ dq, int S, int H,
+                           int rep, Strides qs, Strides ks, Strides vs, float scale) {
+  using C = BwdQ<D, HPB>;
+  constexpr int BN = kTile, TILE = C::TILE, NSTAGE = C::NSTAGE, THREADS = C::THREADS;
+  constexpr bool KEEP = C::KEEP;
+  Clk clk;
+  clk.start();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sdO = sQ + TILE;
-  bf16* sK = sdO + TILE;
-  bf16* sV = sK + TILE;
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [HPB * 64][LDS]
+  bf16* sdO = sQ + HPB * TILE;                    // [HPB * 64][LDS]
+  bf16* ring = sdO + HPB * TILE;                  // stage i: K at 2 i TILE, V behind it
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int mt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / rep, m0 = mt * BM;
-  load_tile16<BM, D>(sQ, q + b * qs.b + h * qs.h + (int64_t)m0 * qs.s, qs.s, S - m0);
-  load_tile16<BM, D>(sdO, dout + ((int64_t)b * S + m0) * H * D + (int64_t)h * D, (int64_t)H * D,
-                     S - m0);
+  const int mt = gridDim.x - 1 - blockIdx.x, h0 = blockIdx.y * HPB, b = blockIdx.z;
+  const int kvh = h0 / rep, m0 = mt * kTile;
+  const int h = h0 + warp / 4, x0 = (warp & 3) * 16, row0 = warp * 16;
   const bf16* kb = k + b * ks.b + kvh * ks.h;
   const bf16* vb = v + b * vs.b + kvh * vs.h;
-  const float sl = scale * kLog2e;
-  const int row_lo = m0 + warp * 16 + g;
+  const int n_tiles = mt + 1;
 
-  float dqa[D / 8][4], lse_r[2], delta_r[2];
-  zero(dqa);
+  TileCopier<BN, D, THREADS> k_copy, v_copy;
+  k_copy.init(ks.s);
+  v_copy.init(vs.s);
+  const uint32_t ring_u32 = smem_u32(ring);
+  auto fetch = [&](int tile) {
+    const uint32_t sK = ring_u32 + (tile % NSTAGE) * 2 * TILE * (int)sizeof(bf16);
+    const int n0 = tile * BN;
+    k_copy.copy(sK, kb + (int64_t)n0 * ks.s, S - n0);
+    v_copy.copy(sK + TILE * (int)sizeof(bf16), vb + (int64_t)n0 * vs.s, S - n0);
+  };
+#pragma unroll
+  for (int r = 0; r < HPB; ++r) {
+    cp_tile16<kTile, D, THREADS>(sQ + r * TILE, q + b * qs.b + (h0 + r) * qs.h + (int64_t)m0 * qs.s,
+                                 qs.s, S - m0);
+    cp_tile16<kTile, D, THREADS>(sdO + r * TILE, dout + ((int64_t)b * S + m0) * H * D + (h0 + r) * D,
+                                 (int64_t)H * D, S - m0);
+  }
+  cp_async_commit();
+#pragma unroll
+  for (int i = 0; i < NSTAGE - 1; ++i) {   // one group per tile, empty past the last
+    if (i < n_tiles) fetch(i);
+    cp_async_commit();
+  }
+
+  // this thread's rows row_lo and row_lo + 8: lse (exp2 units), and out at
+  // the places of its dO fragments (below), fetched from global memory
+  // while the tiles are in flight
+  const int row_lo = m0 + x0 + g;
+  const int64_t bh = (int64_t)b * H + h;
+  float lse2[2], dl[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int row = row_lo + 8 * hh;
-    lse_r[hh] = row < S ? lse[((int64_t)b * H + h) * S + row] * kLog2e : 0.f;
-    delta_r[hh] = row < S ? delta[((int64_t)b * H + h) * S + row] : 0.f;
+    lse2[hh] = row < S ? lse[bh * S + row] * kLog2e : 0.f;
   }
-
-  const int n_tiles = min((S + BN - 1) / BN, (m0 + BM - 1) / BN + 1);
-  for (int nt = 0; nt < n_tiles; ++nt) {
-    const int n0 = nt * BN;
-    __syncthreads();   // the tile before is read to its end
-    load_tile16<BN, D>(sK, kb + (int64_t)n0 * ks.s, ks.s, S - n0);
-    load_tile16<BN, D>(sV, vb + (int64_t)n0 * vs.s, vs.s, S - n0);
-    __syncthreads();
-    float s[8][4], dp[8][4];
-    zero(s);
-    zero(dp);
-    mma_rows_rows<D>(s, sQ, warp * 16, sK, lane);
-    mma_rows_rows<D>(dp, sdO, warp * 16, sV, lane);
+  uint32_t ov[D / 16][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+  for (int ks_ = 0; ks_ < D / 16; ++ks_)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = row_lo + 8 * (e & 1);
+      ov[ks_][e] = row < S ? __ldg(reinterpret_cast<const unsigned int*>(
+                                 out + (((int64_t)b * S + row) * H + h) * D + 16 * ks_ +
+                                 8 * (e >> 1) + 2 * t))
+                           : 0u;
+    }
+  cp_async_wait<NSTAGE - 1>();   // Q and dO are in
+  __syncthreads();
+  uint32_t qf[D / 16][4], df[D / 16][4];
+  {
+    uint32_t f[D / 16][4];   // dO's fragments: delta here, the loop too where KEEP
+    load_a_frags<D>(f, sdO, row0, lane);
+    if constexpr (KEEP) {
+      load_a_frags<D>(qf, sQ, row0, lane);
+#pragma unroll
+      for (int ks_ = 0; ks_ < D / 16; ++ks_)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) df[ks_][e] = f[ks_][e];
+    }
+    // f[ks][e] holds dO at row row_lo + 8 (e & 1), columns 16 ks + 8 (e >> 1)
+    // + 2 t and + 1; rows past S are zeros
+    float part[2] = {0.f, 0.f};
+#pragma unroll
+    for (int ks_ = 0; ks_ < D / 16; ++ks_)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int hh = e >> 1, row = row_lo + 8 * hh, col = n0 + 8 * j + 2 * t + (e & 1);
-        const bool seen = col <= row && col < S && row < S;
-        const float p = seen ? exp2f(s[j][e] * sl - lse_r[hh]) : 0.f;
-        dp[j][e] = p * (dp[j][e] - delta_r[hh]);
+        const float2 o = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ov[ks_][e]));
+        const float2 d = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&f[ks_][e]));
+        part[e & 1] = fmaf(d.y, o.y, fmaf(d.x, o.x, part[e & 1]));
       }
-    mma_regs_cols<D>(dqa, dp, sK, lane);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      dl[hh] = quad_sum(part[hh]);
+      const int row = row_lo + 8 * hh;
+      if (t == 0 && row < S) delta[bh * S + row] = dl[hh];
+    }
   }
-  store_block<D>(dq + ((int64_t)b * S * H + h) * D, (int64_t)H * D, dqa, scale, scale, row_lo, S,
-                 lane);
+
+  const float sl = scale * kLog2e;
+  float dqa[D / 8][4];
+  zero(dqa);
+  clk.mark(kClkPrologue);
+  for (int nt = 0; nt < n_tiles; ++nt) {
+    cp_async_wait<NSTAGE - 2>();   // this thread's part of tile nt is in
+    __syncthreads();               // everybody's is, and tile nt - 1 is read to its end
+    if (nt + NSTAGE - 1 < n_tiles) fetch(nt + NSTAGE - 1);   // into the stage of tile nt - 1
+    cp_async_commit();
+    clk.mark(kClkWait);
+    const bf16* sK = ring + (nt % NSTAGE) * 2 * TILE;
+    const bf16* sV = sK + TILE;
+    const int n0 = nt * BN;
+    if (nt < n_tiles - 1) {
+      dq_tile<D, 4, false, KEEP>(dqa, qf, df, sQ, sdO, row0, sK, sV, lse2, dl, sl, row_lo, n0,
+                                 lane, clk);
+    } else {   // the diagonal: key pairs wholly past the warp's rows are skipped
+#define NANO_DQ_DIAG(NP)                                                                      \
+  dq_tile<D, NP, true, KEEP>(dqa, qf, df, sQ, sdO, row0, sK, sV, lse2, dl, sl, row_lo, n0, lane, \
+                             clk)
+      switch (x0 / 16) {
+        case 0: NANO_DQ_DIAG(1); break;
+        case 1: NANO_DQ_DIAG(2); break;
+        case 2: NANO_DQ_DIAG(3); break;
+        default: NANO_DQ_DIAG(4); break;
+      }
+#undef NANO_DQ_DIAG
+    }
+  }
+  store_rows<D>(dq + ((int64_t)b * S * H + h) * D, (int64_t)H * D,
+                sQ + row0 * C::LDS, dqa, scale, m0 + x0, S, lane);
+  clk.mark(kClkEpilogue);
+  clk.flush(0);
+}
+
+// ---- dk, dv: a block per (K tile, KV head, batch row); warp w owns the
+// 16 keys from 16 w.  Loop over the rep query heads and, for each, the
+// query tiles from the diagonal on: the only sum across blocks that dk, dv
+// need is over those, so it stays inside the block, in a fixed order.
+
+template <int D>
+struct BwdKV {
+  static constexpr int LDS = D + 8, TILE = kTile * LDS, NSTAGE = D <= 64 ? 3 : 2;
+  static constexpr bool KEEP = D <= 64;   // K and V fragments held in registers
+  // a stage: Q tile, dO tile, then lse and delta of its 64 rows (f32)
+  static constexpr int STAGE = 2 * TILE * (int)sizeof(bf16) + 2 * kTile * (int)sizeof(float);
+  static constexpr size_t smem = sizeof(bf16) * 2 * TILE + NSTAGE * STAGE;
+};
+
+// The 16-query pairs [P0, P1) of one (head, query tile) for a warp's 16
+// keys: S^T = K Q^T, dP^T = V dO^T, P^T, dS^T as in dq_chunk with the rows
+// now keys, then dV += P^T dO and dK += dS^T Q.  MASKED: the diagonal tile,
+// where query m0 + c may lie before the key.
+template <int D, int P0, int P1, bool MASKED, bool KEEP>
+__device__ __forceinline__ void dkdv_chunk(float (&dka)[D / 8][4], float (&dva)[D / 8][4],
+                                           const uint32_t (&kf)[D / 16][4],
+                                           const uint32_t (&vf)[D / 16][4],
+                                           const bf16* __restrict__ sK, const bf16* __restrict__ sV,
+                                           int row0, const bf16* __restrict__ sQ,
+                                           const bf16* __restrict__ sdO,
+                                           const float* __restrict__ sLse,
+                                           const float* __restrict__ sDelta, float sl, int key_lo,
+                                           int m0, int lane, Clk& clk) {
+  constexpr int NB = 2 * (P1 - P0);
+  float st[NB][4], dpt[NB][4];
+  zero(st);
+  zero(dpt);
+  mma_held_rows<D, P0, P1, KEEP>(st, kf, sK, row0, sQ, lane);
+  mma_held_rows<D, P0, P1, KEEP>(dpt, vf, sV, row0, sdO, lane);
+  clk.mark(kClkScores);
+  const int t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    const int c = 16 * P0 + 8 * j + 2 * t;   // columns c, c + 1 of the tile
+    const float2 ls = *reinterpret_cast<const float2*>(sLse + c);
+    const float2 de = *reinterpret_cast<const float2*>(sDelta + c);
+    const float l2[2] = {ls.x * kLog2e, ls.y * kLog2e}, dd[2] = {de.x, de.y};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = fast_exp2(fmaf(st[j][e], sl, -l2[e & 1]));
+      if (MASKED && m0 + c + (e & 1) < key_lo + 8 * (e >> 1)) p = 0.f;
+      st[j][e] = p;
+      dpt[j][e] = p * (dpt[j][e] - dd[e & 1]);
+    }
+  }
+  clk.mark(kClkSoftmax);
+  mma_p_cols<D, P0, P1>(dva, st, sdO, lane);
+  mma_p_cols<D, P0, P1>(dka, dpt, sQ, lane);
+  clk.mark(kClkGrads);
+}
+
+// One (head, query tile) for the dk/dv block: the query pairs PMIN .. 3
+// (PMIN = 0 below the diagonal; on it, the warp's own index: the pairs
+// before it lie wholly before its keys), in chunks of two pairs.
+template <int D, int PMIN, bool MASKED, bool KEEP>
+__device__ __forceinline__ void dkdv_tile(float (&dka)[D / 8][4], float (&dva)[D / 8][4],
+                                          const uint32_t (&kf)[D / 16][4],
+                                          const uint32_t (&vf)[D / 16][4],
+                                          const bf16* __restrict__ sK, const bf16* __restrict__ sV,
+                                          int row0, const bf16* __restrict__ sQ,
+                                          const bf16* __restrict__ sdO,
+                                          const float* __restrict__ sLse,
+                                          const float* __restrict__ sDelta, float sl, int key_lo,
+                                          int m0, int lane, Clk& clk) {
+  if constexpr (PMIN < 2)
+    dkdv_chunk<D, PMIN, 2, MASKED, KEEP>(dka, dva, kf, vf, sK, sV, row0, sQ, sdO, sLse, sDelta, sl,
+                                         key_lo, m0, lane, clk);
+  dkdv_chunk<D, (PMIN > 2 ? PMIN : 2), 4, MASKED, KEEP>(dka, dva, kf, vf, sK, sV, row0, sQ, sdO,
+                                                        sLse, sDelta, sl, key_lo, m0, lane, clk);
+}
+
+// bf16 dk, dv.  Block (nt, kvh, b).  K and V tiles by cp.async, their A
+// fragments into registers (D <= 64); the (head, query tile) pairs go
+// round a ring of NSTAGE stages, each fetched NSTAGE - 1 steps ahead (Q,
+// dO, and lse, delta 4 bytes a thread), one barrier a step.  Rows past S
+// arrive as zeros (lse and delta too), so their P is 1 and their dO, dS
+// zero: they add exactly nothing, and only the diagonal tile is masked.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_bwd_dkdv_v3_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                             const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H, int rep,
+                             Strides qs, Strides ks, Strides vs, float scale) {
+  using C = BwdKV<D>;
+  constexpr int BM = kTile, TILE = C::TILE, NSTAGE = C::NSTAGE, STAGE = C::STAGE;
+  constexpr bool KEEP = C::KEEP;
+  Clk clk;
+  clk.start();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sV = sK + TILE;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(sV + TILE);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2;
+  const int nt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z, KV = gridDim.y;
+  const int n0 = nt * kTile, row0 = warp * 16;
+  const int m_tiles = (S + BM - 1) / BM, per_r = m_tiles - nt, n_iter = rep * per_r;
+
+  cp_tile16<kTile, D, kMmaThreads>(sK, k + b * ks.b + kvh * ks.h + (int64_t)n0 * ks.s, ks.s, S - n0);
+  cp_tile16<kTile, D, kMmaThreads>(sV, v + b * vs.b + kvh * vs.h + (int64_t)n0 * vs.s, vs.s, S - n0);
+  cp_async_commit();
+
+  TileCopier<BM, D, kMmaThreads> q_copy, do_copy;
+  q_copy.init(qs.s);
+  do_copy.init((int64_t)H * D);
+  const uint32_t ring_u32 = smem_u32(ring);
+  auto fetch = [&](int it) {
+    const int r = it / per_r, m0 = (nt + it - r * per_r) * BM, h = kvh * rep + r;
+    const uint32_t st = ring_u32 + (it % NSTAGE) * STAGE;
+    q_copy.copy(st, q + b * qs.b + h * qs.h + (int64_t)m0 * qs.s, S - m0);
+    do_copy.copy(st + TILE * (int)sizeof(bf16), dout + ((int64_t)b * S + m0) * H * D + h * D,
+                 S - m0);
+    // threads 0-63: lse of row m0 + i; 64-127: delta
+    const int i = threadIdx.x & (BM - 1);
+    const bool ok = m0 + i < S;
+    const float* src = (threadIdx.x < BM ? lse : delta) + ((int64_t)b * H + h) * S + m0 + (ok ? i : 0);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     st + 2 * TILE * (int)sizeof(bf16) + threadIdx.x * (int)sizeof(float)),
+                 "l"(src), "r"(ok ? 4 : 0)
+                 : "memory");
+  };
+#pragma unroll
+  for (int i = 0; i < NSTAGE - 1; ++i) {   // one group per step, empty past the last
+    if (i < n_iter) fetch(i);
+    cp_async_commit();
+  }
+  cp_async_wait<NSTAGE - 1>();   // K and V are in
+  __syncthreads();
+  uint32_t kf[D / 16][4], vf[D / 16][4];
+  if constexpr (KEEP) {
+    load_a_frags<D>(kf, sK, row0, lane);
+    load_a_frags<D>(vf, sV, row0, lane);
+  }
+  const float sl = scale * kLog2e;
+  const int key_lo = n0 + row0 + g;
+  float dka[D / 8][4], dva[D / 8][4];
+  zero(dka);
+  zero(dva);
+  clk.mark(kClkPrologue);
+
+  for (int it = 0; it < n_iter; ++it) {
+    cp_async_wait<NSTAGE - 2>();   // this thread's part of step it is in
+    __syncthreads();               // everybody's is, and step it - 1 is read to its end
+    if (it + NSTAGE - 1 < n_iter) fetch(it + NSTAGE - 1);   // into the stage of step it - 1
+    cp_async_commit();
+    clk.mark(kClkWait);
+    const unsigned char* st = ring + (it % NSTAGE) * STAGE;
+    const bf16* sQ = reinterpret_cast<const bf16*>(st);
+    const bf16* sdO = sQ + TILE;
+    const float* sLse = reinterpret_cast<const float*>(sdO + TILE);
+    const float* sDelta = sLse + BM;
+    const int mi = it % per_r, m0 = (nt + mi) * BM;
+    if (mi != 0) {
+      dkdv_tile<D, 0, false, KEEP>(dka, dva, kf, vf, sK, sV, row0, sQ, sdO, sLse, sDelta, sl,
+                                   key_lo, m0, lane, clk);
+    } else {   // the diagonal: query pairs wholly before the warp's keys are skipped
+#define NANO_KV_DIAG(PM)                                                                       \
+  dkdv_tile<D, PM, true, KEEP>(dka, dva, kf, vf, sK, sV, row0, sQ, sdO, sLse, sDelta, sl, key_lo, \
+                               m0, lane, clk)
+      switch (warp) {
+        case 0: NANO_KV_DIAG(0); break;
+        case 1: NANO_KV_DIAG(1); break;
+        case 2: NANO_KV_DIAG(2); break;
+        default: NANO_KV_DIAG(3); break;
+      }
+#undef NANO_KV_DIAG
+    }
+  }
+  const int64_t base = ((int64_t)b * S * KV + kvh) * D;
+  store_rows<D>(dk + base, (int64_t)KV * D, sK + row0 * C::LDS, dka, scale, n0 + row0, S, lane);
+  store_rows<D>(dv + base, (int64_t)KV * D, sV + row0 * C::LDS, dva, 1.f, n0 + row0, S, lane);
+  clk.mark(kClkEpilogue);
+  clk.flush(1);
 }
 
 // =====================================================================
@@ -1088,6 +1393,17 @@ __global__ void __launch_bounds__(kMmaThreads)
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// blocks of `kernel` that fit one SM at once, by the runtime's occupancy
+// calculator; -1 where it fails
+template <typename Kernel>
+int blocks_per_sm(Kernel kernel, int threads, size_t smem) {
+  int n = -1;
+  if (allow_smem(kernel, smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem) != cudaSuccess)
+    return -1;
+  return n;
 }
 
 template <int D, int HPB>
@@ -1135,6 +1451,19 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse
   }
 }
 
+template <int D, int HPB>
+int launch_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* out, const bf16* dout,
+              const float* lse, float* delta, bf16* dq, int B, int S, int H, int KV, Strides qs,
+              Strides ks, Strides vs, float scale, cudaStream_t st) {
+  using C = BwdQ<D, HPB>;
+  cudaError_t err = allow_smem(flash_bwd_dq_v3_kernel<D, HPB>, C::smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((S + kTile - 1) / kTile, H / HPB, B);
+  flash_bwd_dq_v3_kernel<D, HPB><<<grid, C::THREADS, C::smem, st>>>(
+      q, k, v, out, dout, lse, delta, dq, S, H, H / KV, qs, ks, vs, scale);
+  return (int)cudaGetLastError();
+}
+
 template <int D, typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const void* out, const void* lse,
                const void* dout, void* dq, void* dk, void* dv, void* delta, int B, int S, int H,
@@ -1142,31 +1471,43 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out, con
   const T* q_ = static_cast<const T*>(q);
   const T* k_ = static_cast<const T*>(k);
   const T* v_ = static_cast<const T*>(v);
+  const T* out_ = static_cast<const T*>(out);
   const T* do_ = static_cast<const T*>(dout);
   const float* lse_ = static_cast<const float*>(lse);
   float* delta_ = static_cast<float*>(delta);
   T* dq_ = static_cast<T*>(dq);
   T* dk_ = static_cast<T*>(dk);
   T* dv_ = static_cast<T*>(dv);
-  const int64_t n_rows = (int64_t)B * S * H;
-  const int per_block = kThreads / 32;
-  flash_delta_kernel<T><<<(unsigned)((n_rows + per_block - 1) / per_block), kThreads, 0, st>>>(
-      static_cast<const T*>(out), do_, delta_, n_rows, S, H, D);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid_kv((S + kTile - 1) / kTile, KV, B), grid_q((S + kTile - 1) / kTile, H, B);
+  const dim3 grid_kv((S + kTile - 1) / kTile, KV, B);
+  cudaError_t err;
   if constexpr (sizeof(T) == 2) {
-    err = allow_smem(flash_bwd_dkdv_mma_kernel<D>, MmaCfg<D>::dkdv_smem);
+    // the copiers' per-thread offsets are 32-bit
+    if ((qs.s > ks.s ? qs.s : ks.s) * kTile >= (1ll << 31) || vs.s * kTile >= (1ll << 31) ||
+        (int64_t)H * D * kTile >= (1ll << 31))
+      return (int)cudaErrorInvalidValue;
+    // dq first: it writes delta, which the dk/dv kernel reads.  Two query
+    // heads a block where rep is even (K/V tiles fetched once for both),
+    // but at D = 128, where shared memory would allow only one block an SM.
+    int rc;
+    if (D <= 64 && (H / KV) % 2 == 0)
+      rc = launch_dq<D, (D <= 64 ? 2 : 1)>(q_, k_, v_, out_, do_, lse_, delta_, dq_, B, S, H, KV,
+                                          qs, ks, vs, scale, st);
+    else
+      rc = launch_dq<D, 1>(q_, k_, v_, out_, do_, lse_, delta_, dq_, B, S, H, KV, qs, ks, vs,
+                           scale, st);
+    if (rc != 0) return rc;
+    err = allow_smem(flash_bwd_dkdv_v3_kernel<D>, BwdKV<D>::smem);
     if (err != cudaSuccess) return (int)err;
-    err = allow_smem(flash_bwd_dq_mma_kernel<D>, MmaCfg<D>::dq_smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_bwd_dkdv_mma_kernel<D><<<grid_kv, kMmaThreads, MmaCfg<D>::dkdv_smem, st>>>(
+    flash_bwd_dkdv_v3_kernel<D><<<grid_kv, kMmaThreads, BwdKV<D>::smem, st>>>(
         q_, k_, v_, do_, lse_, delta_, dk_, dv_, S, H, H / KV, qs, ks, vs, scale);
+  } else {
+    const int64_t n_rows = (int64_t)B * S * H;
+    const int per_block = kThreads / 32;
+    flash_delta_kernel<T><<<(unsigned)((n_rows + per_block - 1) / per_block), kThreads, 0, st>>>(
+        out_, do_, delta_, n_rows, S, H, D);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    flash_bwd_dq_mma_kernel<D><<<grid_q, kMmaThreads, MmaCfg<D>::dq_smem, st>>>(
-        q_, k_, v_, do_, lse_, delta_, dq_, S, H, H / KV, qs, ks, vs, scale);
-  } else {
+    const dim3 grid_q((S + kTile - 1) / kTile, H, B);
     err = allow_smem(flash_bwd_dkdv_kernel<D>, DkvCfg<D>::smem);
     if (err != cudaSuccess) return (int)err;
     err = allow_smem(flash_bwd_dq_kernel<D>, DqCfg<D>::smem);
@@ -1187,15 +1528,17 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out, con
 // q: (B, S, H, D), k / v: (B, S, KV, D), each with D contiguous and its
 // batch / position / head strides given in elements (16-byte aligned
 // rows); out: contiguous (B, S, H, D); lse: f32 (B, H, S).  D in
-// {16, 48, 64, 128}.  Launches on the caller's stream and returns
+// {16, 32, 48, 64, 128}.  Launches on the caller's stream and returns
 // cudaGetLastError() (cudaErrorInvalidValue for a D or dtype not built).
 #define NANO_FLASH_DISPATCH(CALL)                     \
   switch (dtype * 1000 + D) {                         \
     case 16: return CALL(16, float);                  \
+    case 32: return CALL(32, float);                  \
     case 48: return CALL(48, float);                  \
     case 64: return CALL(64, float);                  \
     case 128: return CALL(128, float);                \
     case 1016: return CALL(16, __nv_bfloat16);        \
+    case 1032: return CALL(32, __nv_bfloat16);        \
     case 1048: return CALL(48, __nv_bfloat16);        \
     case 1064: return CALL(64, __nv_bfloat16);        \
     case 1128: return CALL(128, __nv_bfloat16);       \
@@ -1216,7 +1559,8 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void*
 
 // The backward of flash_attn_fwd: out, lse as it wrote them; dout, dq, dk,
 // dv contiguous in the layouts of out, q, k, v; delta: f32 scratch
-// (B, H, S).  Three launches (delta, dk/dv, dq), no atomics.
+// (B, H, S).  bf16: two launches (dq with delta, then dk/dv); f32: three
+// (delta, dk/dv, dq).  No atomics.
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const void* out,
                               const void* lse, const void* dout, void* dq, void* dk, void* dv,
                               void* delta, int dtype, int B, int S, int H, int KV, int D,
@@ -1234,18 +1578,45 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const
 // Blocks of the bf16 forward kernel for (D, heads per block) that fit one
 // SM at once, by the runtime's occupancy calculator; -1 for a pair not built.
 extern "C" int flash_attn_fwd_blocks_per_sm(int D, int hpb) {
-  int n = -1;
-#define NANO_OCC(DD, HH)                                                                   \
-  if (D == DD && hpb == HH) {                                                              \
-    if (allow_smem(flash_fwd_mma_kernel<DD, HH>, FwdMma<DD, HH>::smem) != cudaSuccess ||   \
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(                                     \
-            &n, flash_fwd_mma_kernel<DD, HH>, FwdMma<DD, HH>::THREADS,                     \
-            FwdMma<DD, HH>::smem) != cudaSuccess)                                          \
-      n = -1;                                                                              \
-  }
-  NANO_OCC(16, 1) NANO_OCC(16, 2) NANO_OCC(16, 4) NANO_OCC(48, 1) NANO_OCC(48, 2)
-  NANO_OCC(48, 4) NANO_OCC(64, 1) NANO_OCC(64, 2) NANO_OCC(64, 4) NANO_OCC(128, 1)
-  NANO_OCC(128, 2)
+#define NANO_OCC(DD, HH)                                                                      \
+  if (D == DD && hpb == HH)                                                                   \
+    return blocks_per_sm(flash_fwd_mma_kernel<DD, HH>, FwdMma<DD, HH>::THREADS,               \
+                         FwdMma<DD, HH>::smem);
+  NANO_OCC(16, 1) NANO_OCC(16, 2) NANO_OCC(16, 4) NANO_OCC(32, 1) NANO_OCC(32, 2)
+  NANO_OCC(32, 4) NANO_OCC(48, 1) NANO_OCC(48, 2) NANO_OCC(48, 4) NANO_OCC(64, 1)
+  NANO_OCC(64, 2) NANO_OCC(64, 4) NANO_OCC(128, 1) NANO_OCC(128, 2)
 #undef NANO_OCC
-  return n;
+  return -1;
 }
+
+// The same for the bf16 backward: the dq kernel with hpb query heads a
+// block (1, or 2 for D <= 64), or with hpb = 0 the dk/dv kernel.
+extern "C" int flash_attn_bwd_blocks_per_sm(int D, int hpb) {
+#define NANO_OCC_D(DD)                                                                      \
+  if (D == DD && hpb == 0)                                                                  \
+    return blocks_per_sm(flash_bwd_dkdv_v3_kernel<DD>, kMmaThreads, BwdKV<DD>::smem);       \
+  if (D == DD && hpb == 1)                                                                  \
+    return blocks_per_sm(flash_bwd_dq_v3_kernel<DD, 1>, BwdQ<DD, 1>::THREADS,               \
+                         BwdQ<DD, 1>::smem);                                                \
+  if (D == DD && hpb == 2)                                                                   \
+    return blocks_per_sm(flash_bwd_dq_v3_kernel<DD, 2>, BwdQ<DD, 2>::THREADS, BwdQ<DD, 2>::smem);
+  NANO_OCC_D(16) NANO_OCC_D(32) NANO_OCC_D(48) NANO_OCC_D(64)
+#undef NANO_OCC_D
+  if (D == 128 && hpb == 0)
+    return blocks_per_sm(flash_bwd_dkdv_v3_kernel<128>, kMmaThreads, BwdKV<128>::smem);
+  if (D == 128 && hpb == 1)
+    return blocks_per_sm(flash_bwd_dq_v3_kernel<128, 1>, BwdQ<128, 1>::THREADS,
+                         BwdQ<128, 1>::smem);
+  return -1;
+}
+
+#ifdef NANO_BWD_CLOCKS
+// Reads and zeroes the phase cycle counts: out[0..5] dq, out[6..11] dk/dv
+// (prologue, waits, score products, softmax, gradient products, epilogue).
+extern "C" int flash_attn_bwd_clocks(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_bwd_clocks, sizeof(g_bwd_clocks));
+  if (err != cudaSuccess) return (int)err;
+  unsigned long long zeros[2][kClkN] = {};
+  return (int)cudaMemcpyToSymbol(g_bwd_clocks, zeros, sizeof(zeros));
+}
+#endif

@@ -11,6 +11,8 @@
 //   q4k_matmul      replaces the TPU kernel nano_tpu/ops/q4k.py::_q4k_kernel
 //                   (launched by _q4k_matmul_2d): f32 dequant v * s - b and
 //                   an f32 dot with the fake-quantized activation.
+//   q4k_matvec_fq   the two at B = 1 (a decode step's Q4K matmuls) in one
+//                   launch, equal to the pair bit for bit.
 //
 // Bit-exactness of q4k_fake_quant.  Every float operation is written as
 // the IEEE operation the JAX package and PyTorch round separately:
@@ -41,8 +43,12 @@
 //           activation rows; the activation (f32, n_pad per row, shared by
 //           every warp) is read through L1/L2, so B = 64 prefill needs no
 //           shared memory.
-// Not yet done: the fake-quant fused into the matmul's prologue, wgmma
-// tiles for prefill.
+//   fused:  a block of 8 warps fake-quantizes the raw row (f32 or bf16)
+//           into shared memory while the weight loads of up to 32 output
+//           rows are in flight, then takes the B = 1 dot for them.  Each
+//           block repeats the fake-quant (up to 3072 values, 13 IEEE
+//           divisions a lane), which still adds ~2 us a launch.
+// Not yet done: wgmma tiles for prefill.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,9 +117,56 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// One warp per (row b, 256-value block).  Lane l holds value g*32+l of each
-// of the 8 groups, so a group's max and min are one xor-shuffle tree (exact
-// in any order).  x (B, n) f32 or bf16 -> out (B, n_pad) f32, 0 at k >= n.
+// The fake-quant of the 256-value block blk of one activation row x (n
+// values), by one warp: lane l takes the 8 values from 8 l, so 4 lanes hold
+// a 32-group.  Max and min over the group's valid values, s and bias, the
+// 6-bit second level over the block's 8 groups, nearest_int, then
+// v * s_eff - b_eff; a group's max and min over its 4 lanes and the block's
+// s_max and b_max over the groups are xor-shuffles, exact in any order.
+// o[e] is value 8 l + e of the block, 0 at or past n.
+template <typename XT>
+__device__ __forceinline__ void fq_block_by_warp(const XT* __restrict__ x, int blk, int n, int lane,
+                                                 float (&o)[8]) {
+  const float true_min = __int_as_float(1);  // FLT_TRUE_MIN, a denormal
+  const int k0 = (blk << 8) + 8 * lane;
+  float vmax = -kFltMax, vmin = kFltMax;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const bool valid = k0 + e < n;
+    o[e] = valid ? load_f(x, k0 + e) : 0.f;
+    vmax = valid ? fmaxf(vmax, o[e]) : vmax;
+    vmin = valid ? fminf(vmin, o[e]) : vmin;
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    vmax = fmaxf(vmax, __shfl_xor_sync(0xffffffffu, vmax, off));
+    vmin = fminf(vmin, __shfl_xor_sync(0xffffffffu, vmin, off));
+  }
+  vmax = fmaxf(vmax, true_min);
+  const bool neg = vmin <= 0.f;
+  const float s = neg ? __fdiv_rn(__fsub_rn(vmax, vmin), 15.f) : __fdiv_rn(vmax, 15.f);
+  const float bias = neg ? -vmin : 0.f;
+  float s_max = s, b_max = bias;
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) {
+    s_max = fmaxf(s_max, __shfl_xor_sync(0xffffffffu, s_max, off));
+    b_max = fmaxf(b_max, __shfl_xor_sync(0xffffffffu, b_max, off));
+  }
+  const float s_scale = __fdiv_rn(fmaxf(s_max, true_min), 63.f);
+  const float s_bias = __fdiv_rn(fmaxf(b_max, true_min), 63.f);
+  const int sq = s_scale == 0.f ? 0 : nearest_int(__fdiv_rn(s, s_scale)) & 0x3F;
+  const int bq = s_bias == 0.f ? 0 : nearest_int(__fdiv_rn(bias, s_bias)) & 0x3F;
+  const float s_eff = __fmul_rn((float)sq, s_scale);
+  const float b_eff = __fmul_rn((float)bq, s_bias);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int v = s == 0.f ? 0 : nearest_int(__fdiv_rn(__fadd_rn(o[e], bias), s)) & 0x0F;
+    o[e] = k0 + e < n ? __fsub_rn(__fmul_rn((float)v, s_eff), b_eff) : 0.f;
+  }
+}
+
+// One warp per (row b, 256-value block): x (B, n) f32 or bf16 -> out
+// (B, n_pad) f32, 0 at k >= n.
 template <typename XT>
 __global__ void fake_quant_kernel(const XT* __restrict__ x, float* __restrict__ out, int B,
                                   int n, int n_pad) {
@@ -122,54 +175,11 @@ __global__ void fake_quant_kernel(const XT* __restrict__ x, float* __restrict__ 
   const int lane = threadIdx.x & 31;
   if (wid >= B * nbpl) return;
   const int b = wid / nbpl, blk = wid - b * nbpl;
-  const float true_min = __int_as_float(1);  // FLT_TRUE_MIN, a denormal
-  float val[8], gmax[8], gmin[8];
-#pragma unroll
-  for (int g = 0; g < 8; ++g) {
-    const int k = (blk << 8) + g * 32 + lane;
-    const bool valid = k < n;
-    val[g] = valid ? load_f(x, (size_t)b * n + k) : 0.f;
-    gmax[g] = valid ? val[g] : -kFltMax;
-    gmin[g] = valid ? val[g] : kFltMax;
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-    for (int g = 0; g < 8; ++g) {
-      gmax[g] = fmaxf(gmax[g], __shfl_xor_sync(0xffffffffu, gmax[g], off));
-      gmin[g] = fminf(gmin[g], __shfl_xor_sync(0xffffffffu, gmin[g], off));
-    }
-  }
-  // group parameters (every lane holds all 8), then the 6-bit second level
-  float s[8], bias[8];
-  float s_max = 0.f, b_max = 0.f;
-#pragma unroll
-  for (int g = 0; g < 8; ++g) {
-    const float vmax = fmaxf(gmax[g], true_min);
-    const float vmin = gmin[g];
-    const bool neg = vmin <= 0.f;
-    s[g] = neg ? __fdiv_rn(__fsub_rn(vmax, vmin), 15.f) : __fdiv_rn(vmax, 15.f);
-    bias[g] = neg ? -vmin : 0.f;
-    s_max = g ? fmaxf(s_max, s[g]) : s[g];
-    b_max = g ? fmaxf(b_max, bias[g]) : bias[g];
-  }
-  const float s_scale = __fdiv_rn(fmaxf(s_max, true_min), 63.f);
-  const float s_bias = __fdiv_rn(fmaxf(b_max, true_min), 63.f);
-  const size_t row = (size_t)b * n_pad + (blk << 8);
-#pragma unroll
-  for (int g = 0; g < 8; ++g) {
-    const int k = (blk << 8) + g * 32 + lane;
-    if (k >= n) {
-      out[row + g * 32 + lane] = 0.f;
-      continue;
-    }
-    const int sq = s_scale == 0.f ? 0 : nearest_int(__fdiv_rn(s[g], s_scale)) & 0x3F;
-    const int bq = s_bias == 0.f ? 0 : nearest_int(__fdiv_rn(bias[g], s_bias)) & 0x3F;
-    const float s_eff = __fmul_rn((float)sq, s_scale);
-    const float b_eff = __fmul_rn((float)bq, s_bias);
-    const int v = s[g] == 0.f ? 0 : nearest_int(__fdiv_rn(__fadd_rn(val[g], bias[g]), s[g])) & 0x0F;
-    out[row + g * 32 + lane] = __fsub_rn(__fmul_rn((float)v, s_eff), b_eff);
-  }
+  float o[8];
+  fq_block_by_warp(x + (size_t)b * n, blk, n, lane, o);
+  float4* dst = reinterpret_cast<float4*>(out + (size_t)b * n_pad + (blk << 8) + 8 * lane);
+  dst[0] = make_float4(o[0], o[1], o[2], o[3]);
+  dst[1] = make_float4(o[4], o[5], o[6], o[7]);
 }
 
 // B = 1: block b takes output rows [R*b, R*b + R); its threads split the
@@ -259,17 +269,99 @@ __global__ void q4k_matmul_kernel(const float* __restrict__ x, const uint8_t* __
   }
 }
 
+constexpr int kFqThreads = 256;   // threads of a q4k_matvec_fq block
+
+// q4k_matvec_kernel on the raw activation x (1, in_dim), for 256 / T sets
+// of R output rows at once, T = `dot_threads` = q4k_matvec_kernel's block.
+// The T threads of set j issue their weight loads first; then the block's
+// 8 warps fake-quantize the row into shared memory, a 256-value block per
+// warp (32-groups padded to 33 floats, so that a thread reading its own
+// group hits no other's banks); then each set takes the dot of its rows
+// exactly as q4k_matvec_kernel does: the same groups on the same threads,
+// the same products in the same order, the same sums (a named barrier per
+// set).  So the result equals q4k_fake_quant + q4k_matmul bit for bit, and
+// the fake-quant, repeated by every block, runs once per 256 / T * R rows,
+// on 8 warps, under the loads' latency.
+template <int R, typename XT, typename OT>
+__global__ void __launch_bounds__(kFqThreads)
+    q4k_matvec_fq_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ packed,
+                         const float* __restrict__ sc, const float* __restrict__ bi,
+                         OT* __restrict__ y, int n_pad, int in_dim, int N, int dot_threads) {
+  __shared__ float part[kFqThreads / 32][R];
+  extern __shared__ float sx[];   // [n_pad / 32][33]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_sets = kFqThreads / dot_threads, set = threadIdx.x / dot_threads;
+  const int t = threadIdx.x - set * dot_threads;   // q4k_matvec_kernel's threadIdx.x
+  const int row0 = (blockIdx.x * n_sets + set) * R;
+  const int G = n_pad >> 5;
+  uint4 pv[R];
+  float s[R], nb[R];
+  auto load_w = [&](int g) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {  // rows past N repeat row N-1, never stored
+      const size_t row = min(row0 + r, N - 1);
+      pv[r] = __ldg(reinterpret_cast<const uint4*>(packed + row * (n_pad >> 1)) + g);
+      s[r] = __ldg(sc + row * G + g);
+      nb[r] = -__ldg(bi + row * G + g);
+    }
+  };
+  const bool dotter = set < n_sets && row0 < N;
+  if (dotter && t * 32 < in_dim) load_w(t);
+  for (int blk = warp; (blk << 8) < in_dim; blk += kFqThreads / 32) {
+    float o[8];
+    fq_block_by_warp(x, blk, in_dim, lane, o);
+    float* dst = sx + (8 * blk + (lane >> 2)) * 33 + 8 * (lane & 3);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) dst[e] = o[e];
+  }
+  __syncthreads();
+  if (!dotter) return;   // a whole set: its threads share row0
+  float acc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = 0.f;
+  for (int g = t; g < G && g * 32 < in_dim; g += dot_threads) {
+    if (g != t) load_w(g);
+    float xv[32], w[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) xv[e] = sx[g * 33 + e];   // 0 at or past in_dim
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      dequant_group(pv[r], s[r], nb[r], w);
+      float a = acc[r];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) a = fmaf(xv[e], w[e], a);
+      acc[r] = a;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float v = warp_sum(acc[r]);
+    if (lane == 0) part[warp][r] = v;
+  }
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + set), "r"(dot_threads) : "memory");
+  if (t < R && row0 + t < N) {
+    const int w0 = set * dot_threads / 32;
+    float v = 0.f;
+    for (int i = 0; i < dot_threads >> 5; ++i) v += part[w0 + i][t];
+    store_f(y, row0 + t, v);
+  }
+}
+
 constexpr int kWarps = 8;  // warps per block
 
 constexpr int kRows = 4;   // output rows per block at B = 1
+
+// threads of a B = 1 block: one 32-group each, up to kWarps warps
+int matvec_threads(int n_pad, int in_dim) {
+  const int groups = (min(n_pad, in_dim) + 31) / 32;
+  return min(kWarps, (groups + 31) / 32) * 32;
+}
 
 template <typename OT>
 void launch_matmul(const float* x, const uint8_t* p, const float* s, const float* b, OT* y, int B,
                    int n_pad, int in_dim, int N, cudaStream_t st) {
   if (B == 1) {
-    const int groups = (min(n_pad, in_dim) + 31) / 32;
-    const int warps = min(kWarps, (groups + 31) / 32);
-    q4k_matvec_kernel<kRows, OT><<<(N + kRows - 1) / kRows, warps * 32, 0, st>>>(
+    q4k_matvec_kernel<kRows, OT><<<(N + kRows - 1) / kRows, matvec_threads(n_pad, in_dim), 0, st>>>(
         x, p, s, b, y, n_pad, in_dim, N);
   } else {
     const unsigned gx = (N + kWarps - 1) / kWarps;
@@ -311,5 +403,39 @@ extern "C" int q4k_matmul(const void* x, const void* packed, const void* scales,
   } else {
     launch_matmul(x_, p_, s_, b_, static_cast<float*>(y), B, n_pad, in_dim, N, st);
   }
+  return (int)cudaGetLastError();
+}
+
+// x (1, in_dim) f32 or bf16, raw -> y (1, N): q4k_fake_quant + q4k_matmul at
+// B = 1 in one launch, each row's dot on the threads of q4k_matmul's B = 1
+// kernel.
+extern "C" int q4k_matvec_fq(const void* x, int x_bf16, const void* packed, const void* scales,
+                             const void* biases, void* y, int y_bf16, int n_pad, int in_dim, int N,
+                             void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint8_t* p_ = static_cast<const uint8_t*>(packed);
+  const float* s_ = static_cast<const float*>(scales);
+  const float* b_ = static_cast<const float*>(biases);
+  const int dot_threads = matvec_threads(n_pad, in_dim);
+  const size_t smem = sizeof(float) * (n_pad / 32) * 33;
+  const int rows = kFqThreads / dot_threads * kRows;   // output rows a block
+  const dim3 grid((N + rows - 1) / rows);
+#define NANO_FQ(XT, OT)                                                                        \
+  do {                                                                                         \
+    if (smem > 48 * 1024) {                                                                    \
+      const cudaError_t err = cudaFuncSetAttribute(q4k_matvec_fq_kernel<kRows, XT, OT>,        \
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize, \
+                                                   (int)smem);                                 \
+      if (err != cudaSuccess) return (int)err;                                                 \
+    }                                                                                          \
+    q4k_matvec_fq_kernel<kRows, XT, OT><<<grid, kFqThreads, smem, st>>>(                       \
+        static_cast<const XT*>(x), p_, s_, b_, static_cast<OT*>(y), n_pad, in_dim, N,          \
+        dot_threads);                                                                          \
+  } while (0)
+  if (x_bf16 && y_bf16) NANO_FQ(__nv_bfloat16, __nv_bfloat16);
+  else if (x_bf16) NANO_FQ(__nv_bfloat16, float);
+  else if (y_bf16) NANO_FQ(float, __nv_bfloat16);
+  else NANO_FQ(float, float);
+#undef NANO_FQ
   return (int)cudaGetLastError();
 }

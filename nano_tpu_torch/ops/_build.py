@@ -44,11 +44,13 @@ SIGNATURES = {
     "decode_attention_part_stride": ([I, I], "decode_attn"),
     "q4k_fake_quant": ([P, I, P, I, I, I, P], "q4k"),
     "q4k_matmul": ([P, P, P, P, P, I, I, I, I, I, P], "q4k"),
+    "q4k_matvec_fq": ([P, I, P, P, P, P, I, I, I, I, P], "q4k"),
     "flash_attn_fwd": ([P, P, P, P, P, I, I, I, I, I, I, *[Q] * 9, F, P],
                        "flash_attn"),
     "flash_attn_fwd_blocks_per_sm": ([I, I], "flash_attn"),
     "flash_attn_bwd": ([*[P] * 10, I, I, I, I, I, I, *[Q] * 9, F, P],
                        "flash_attn"),
+    "flash_attn_bwd_blocks_per_sm": ([I, I], "flash_attn"),
 }
 
 _lock = threading.Lock()

@@ -28,7 +28,7 @@ import torch
 from nano_tpu_torch.ops import _build
 
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 48, 64, 128)
+HEAD_DIMS = (16, 32, 48, 64, 128)
 
 
 def causal_mask(S: int, device=None) -> torch.Tensor:

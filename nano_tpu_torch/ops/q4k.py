@@ -23,9 +23,11 @@ that quantize->dequantize with the same rounding, bit for bit, and
 ``v*s - b`` and an f32 dot.  Unlike the TPU, the card needs no
 activation permutation (``_permute_act``): a lane reads a whole group.
 
-Each wrapper runs its hand-written CUDA kernel (``csrc/q4k.cu``) for CUDA
-tensors and its plain PyTorch version (``*_plain``) only for tensors on
-the CPU.  ``<wrapper>.launches`` counts kernel launches.
+``q4k_matvec_fq`` does both for one activation row (a decode step) in
+one kernel.  Each wrapper runs its hand-written CUDA kernel
+(``csrc/q4k.cu``) for CUDA tensors and its plain PyTorch version
+(``*_plain``) only for tensors on the CPU.  ``<wrapper>.launches`` counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -288,6 +290,22 @@ def q4k_matmul_plain(xq: torch.Tensor, w: Q4KTensor,
 _OUT_TYPES = (torch.float32, torch.bfloat16)
 
 
+def _check_weight(w: Q4KTensor, device: torch.device, dtype) -> None:
+    if w.packed.dim() != 2:
+        raise ValueError("index stacked weights with Q4KTensor.layer(i)")
+    parts = (w.packed, w.scales, w.biases)
+    if (any(p.device != device or not p.is_contiguous() for p in parts)
+            or w.packed.dtype != torch.uint8
+            or w.scales.dtype != torch.float32
+            or w.biases.dtype != torch.float32
+            or w.scales.shape != (w.out_dim, w.n_pad // GROUP_LEN)
+            or w.biases.shape != w.scales.shape
+            or w.packed.data_ptr() % 16 or dtype not in _OUT_TYPES):
+        raise ValueError("Q4K weight must be contiguous uint8 packed and f32 "
+                         "scales/biases on the activation's device, "
+                         "16-byte aligned, with f32/bf16 output")
+
+
 def fake_quant_act(x2d: torch.Tensor) -> torch.Tensor:
     """x2d (B, n) f32/bf16 -> (B, n_pad) f32 fake-quantized activation,
     positions >= n zero; kernel ``q4k_fake_quant`` on the card."""
@@ -324,19 +342,7 @@ def q4k_matmul_f32(xq: torch.Tensor, w: Q4KTensor,
         raise ValueError(f"q4k_matmul takes a contiguous, 16-byte aligned "
                          f"f32 (B, {w.n_pad}), got {xq.dtype} "
                          f"{tuple(xq.shape)}")
-    if w.packed.dim() != 2:
-        raise ValueError("index stacked weights with Q4KTensor.layer(i)")
-    parts = (w.packed, w.scales, w.biases)
-    if (any(p.device != xq.device or not p.is_contiguous() for p in parts)
-            or w.packed.dtype != torch.uint8
-            or w.scales.dtype != torch.float32
-            or w.biases.dtype != torch.float32
-            or w.scales.shape != (w.out_dim, w.n_pad // GROUP_LEN)
-            or w.biases.shape != w.scales.shape
-            or w.packed.data_ptr() % 16 or dtype not in _OUT_TYPES):
-        raise ValueError("Q4K weight must be contiguous uint8 packed and f32 "
-                         "scales/biases on the activation's device, "
-                         "16-byte aligned, with f32/bf16 output")
+    _check_weight(w, xq.device, dtype)
     y = torch.empty((B, w.out_dim), dtype=dtype, device=xq.device)
     fn = _build.lib("q4k").q4k_matmul
     rc = fn(xq.data_ptr(), w.packed.data_ptr(), w.scales.data_ptr(),
@@ -350,12 +356,53 @@ def q4k_matmul_f32(xq: torch.Tensor, w: Q4KTensor,
 q4k_matmul_f32.launches = 0
 
 
+def q4k_matvec_fq_plain(x2d: torch.Tensor, w: Q4KTensor,
+                        dtype=torch.bfloat16) -> torch.Tensor:
+    """What ``q4k_matvec_fq`` computes, in plain PyTorch: the activation
+    fake-quant, then the f32 dequant dot."""
+    return q4k_matmul_plain(fake_quant_act_plain(x2d), w, dtype)
+
+
+def q4k_matvec_fq(x2d: torch.Tensor, w: Q4KTensor, dtype=torch.bfloat16
+                  ) -> torch.Tensor:
+    """One raw activation row x2d (1, in_dim) f32/bf16 x w -> (1, out) in
+    `dtype`: ``fake_quant_act`` then ``q4k_matmul_f32`` in one kernel,
+    ``q4k_matvec_fq`` on the card, equal to the two kernels bit for bit."""
+    if x2d.device.type == "cpu":
+        return q4k_matvec_fq_plain(x2d, w, dtype)
+    if (x2d.dim() != 2 or x2d.shape != (1, w.in_dim)
+            or x2d.dtype not in _OUT_TYPES):
+        raise ValueError(f"q4k_matvec_fq takes an f32/bf16 (1, {w.in_dim}), "
+                         f"got {x2d.dtype} {tuple(x2d.shape)}")
+    _check_weight(w, x2d.device, dtype)
+    x2d = x2d.contiguous()
+    y = torch.empty((1, w.out_dim), dtype=dtype, device=x2d.device)
+    fn = _build.lib("q4k").q4k_matvec_fq
+    rc = fn(x2d.data_ptr(), int(x2d.dtype == torch.bfloat16),
+            w.packed.data_ptr(), w.scales.data_ptr(), w.biases.data_ptr(),
+            y.data_ptr(), int(dtype == torch.bfloat16), w.n_pad, w.in_dim,
+            w.out_dim, _build.stream(x2d))
+    q4k_matvec_fq.launches += 1
+    _build.check(rc, "q4k_matvec_fq")
+    return y
+
+
+q4k_matvec_fq.launches = 0
+
+
 def q4k_matmul(x: torch.Tensor, w: Q4KTensor, dtype=torch.bfloat16
                ) -> torch.Tensor:
     """x (..., in) -> (..., out) in `dtype`: the activation fake-quant,
-    then the fused-dequant matmul (two kernels on the card)."""
+    then the fused-dequant matmul.  One row (a decode step) takes the
+    kernel that does both; more rows take the two kernels (folded into the
+    warp-per-row kernel, the fake-quant would be repeated for every output
+    row)."""
     if w.packed.dim() != 2:
         raise ValueError("index stacked weights with Q4KTensor.layer(i)")
     lead = x.shape[:-1]
-    xq = fake_quant_act(x.reshape(-1, w.in_dim))
-    return q4k_matmul_f32(xq, w, dtype).reshape(*lead, w.out_dim)
+    x2d = x.reshape(-1, w.in_dim)
+    if x2d.shape[0] == 1:
+        y = q4k_matvec_fq(x2d, w, dtype)
+    else:
+        y = q4k_matmul_f32(fake_quant_act(x2d), w, dtype)
+    return y.reshape(*lead, w.out_dim)

@@ -9,6 +9,9 @@ come from numpy seeds.  f32: forward within 1e-5 of max|ref|, gradients
 within 1e-4 of max|grad| (the same f32 arithmetic, sums in another order).
 """
 
+import glob
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +20,12 @@ import torch
 
 from nano_tpu.config import ModelConfig as JModelConfig
 from nano_tpu.models import gpt as jgpt
+from nano_tpu_torch.config import ModelConfig
+from nano_tpu_torch.ops import decode_attn as tda
 from nano_tpu_torch.ops import flash_attn as tfa
+
+CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "config")
 
 
 def _inputs(B, S, KV, rep, D, seed):
@@ -38,7 +46,7 @@ def _jax_attention(q, k, v, dtype=jnp.float32):
     return jgpt._gqa_out(probs, v.astype(dtype))
 
 
-CASES = [(B, S, KV, rep, D) for D in (16, 48) for rep in (1, 2)
+CASES = [(B, S, KV, rep, D) for D in (16, 32, 48) for rep in (1, 2)
          for B, S, KV in ((2, 37, 2), (1, 64, 1))]
 
 
@@ -125,7 +133,7 @@ def test_check_refuses_what_the_kernels_do_not_take(bad):
 # what the card's forward kernel special-cases: four query heads of a KV
 # head in one block, a sequence of one row, and one row short of / past a
 # 64-row tile
-EDGE_CASES = [(B, S, KV, 4, D) for D in (16, 48) for B, S, KV in
+EDGE_CASES = [(B, S, KV, 4, D) for D in (16, 32, 48) for B, S, KV in
               ((2, 1, 1), (1, 63, 2), (2, 65, 1))]
 
 
@@ -149,3 +157,17 @@ def test_plain_forward_and_lse_at_tile_edges_and_rep4(B, S, KV, rep, D):
     got_lse = tfa.plain_lse(tq, tk).numpy()
     assert got_lse.shape == (B, KV * rep, S)
     np.testing.assert_allclose(got_lse, want_lse, rtol=0, atol=1e-5)
+
+
+def test_every_model_config_head_width_is_built():
+    """Both attention ops take the head width of every model config the
+    repo ships (Nano-56M 32, Nano-168M 48, Qwen3-0.6B 128): training goes
+    through flash_attention, serving through decode_attention."""
+    paths = sorted(glob.glob(os.path.join(CONFIG_DIR, "model_*.json")))
+    assert len(paths) >= 3
+    widths = {os.path.basename(p): ModelConfig.from_json(p).head_dim
+              for p in paths}
+    assert widths["model_56m.json"] == 32
+    for name, D in widths.items():
+        assert D in tfa.HEAD_DIMS, (name, D)
+        assert D in tda.HEAD_DIMS, (name, D)

@@ -222,6 +222,40 @@ def test_q4k_matmul_kernel_matches_plain(inn, out):
                                    rtol=1e-2, atol=1e-2 * want.abs().max().item())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("inn,out", [(1024, 4096), (2048, 1024), (1024, 6144),
+                                     (3072, 1024), (40, 3), (64, 128),
+                                     (128, 64)])
+def test_q4k_matvec_fq_is_the_two_kernels_bit_for_bit(inn, out):
+    """The fused decode kernel against q4k_fake_quant + q4k_matmul at the
+    Qwen3-0.6B Q4K shapes and the tiny fixture's widths (ragged 256-value
+    blocks), from f32 and bf16 rows with an all-zero and constant groups,
+    into f32 and bf16: the same operations in the same order, so
+    torch.equal; and q4k_matmul takes it for one row."""
+    _need_card()
+    rng = np.random.RandomState(7 * inn + out)
+    npad = tq4.n_blocks_per_line(inn) * 256
+    w = tq4.Q4KTensor(
+        packed=torch.from_numpy(rng.randint(0, 256, (out, npad // 2)).astype(np.uint8)).cuda(),
+        scales=torch.from_numpy(rng.rand(out, npad // 32).astype(np.float32) * 0.02 + 1e-3).cuda(),
+        biases=torch.from_numpy(rng.rand(out, npad // 32).astype(np.float32) * 0.02).cuda(),
+        in_dim=inn)
+    for x in (_act_rows(rng, 1, inn), _act_rows(rng, 1, inn).to(torch.bfloat16)):
+        for dt in (torch.float32, torch.bfloat16):
+            n0 = tq4.q4k_matvec_fq.launches
+            got = tq4.q4k_matvec_fq(x, w, dt)
+            via = tq4.q4k_matmul(x[0], w, dt)
+            want = tq4.q4k_matmul_f32(tq4.fake_quant_act(x), w, dt)
+            plain = tq4.q4k_matvec_fq_plain(x, w, torch.float32)
+            torch.cuda.synchronize()
+            assert tq4.q4k_matvec_fq.launches == n0 + 2
+            assert got.shape == (1, out) and got.dtype == dt
+            assert torch.equal(got, want) and torch.equal(via, want[0])
+            torch.testing.assert_close(got.float(), plain.to(dt).float(),
+                                       rtol=1e-2 if dt == torch.bfloat16 else 0,
+                                       atol=1e-5 * plain.abs().max().item())
+
+
 def _flash_case(B, S, H, KV, D, dtype, seed):
     rng = np.random.RandomState(seed)
     mk = lambda *shape: torch.from_numpy(
@@ -235,7 +269,8 @@ def _flash_case(B, S, H, KV, D, dtype, seed):
     (2, 512, 16, 8, 48), (1, 1024, 16, 8, 128), (2, 200, 4, 2, 64),
     (3, 67, 4, 4, 48), (2, 33, 4, 1, 16), (1, 130, 6, 3, 64),
     (2, 63, 4, 2, 48), (2, 64, 8, 2, 64), (2, 65, 4, 1, 48),
-    (1, 127, 8, 2, 128), (1, 129, 8, 1, 128), (2, 256, 12, 4, 48)])
+    (1, 127, 8, 2, 128), (1, 129, 8, 1, 128), (2, 256, 12, 4, 48),
+    (2, 512, 16, 8, 32)])
 def test_flash_attention_kernels_match_plain(B, S, H, KV, D, dtype):
     """Forward and backward against the plain version differentiated by
     autograd.  f32: the same f32 arithmetic in another order, 1e-5 of
@@ -275,7 +310,8 @@ def test_flash_attention_kernels_match_plain(B, S, H, KV, D, dtype):
 @pytest.mark.parametrize("B,S,H,KV,D", [
     (2, 512, 16, 8, 48), (1, 1, 4, 2, 48), (2, 63, 4, 2, 64), (2, 64, 4, 1, 48),
     (2, 65, 8, 2, 16), (1, 200, 16, 8, 128), (1, 129, 4, 1, 128),
-    (2, 100, 3, 3, 48), (1, 191, 6, 1, 64)])
+    (2, 100, 3, 3, 48), (1, 191, 6, 1, 64), (2, 512, 16, 8, 32),
+    (2, 65, 8, 2, 32), (1, 1, 4, 1, 32)])
 def test_flash_attn_fwd_out_and_lse(B, S, H, KV, D, dtype):
     """The forward alone: out against the plain version and lse against
     the log-sum-exp of the plain scaled scores (what the backward kernels
@@ -294,6 +330,49 @@ def test_flash_attn_fwd_out_and_lse(B, S, H, KV, D, dtype):
     want_lse = tfa.plain_lse(q, k)
     assert lse.shape == want_lse.shape == (B, H, S)
     assert (lse - want_lse).abs().max().item() <= (1e-5 if f32 else 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("D", [16, 32, 48, 64, 128])
+def test_flash_attn_bwd_matches_plain_on_strided_views(D, rep, dtype):
+    """The backward kernels alone, on q, k, v cut from one fused (B, S,
+    (H + 2 KV) D) projection as the model cuts them, at S = 1, below and
+    past one 64-row tile, two tiles and a bit, and 512: dq, dk, dv against
+    the plain version differentiated by autograd (1e-4 of max|ref| in f32,
+    2e-2 in bf16, as above, and 1e-5 absolute: at S = 1 dq is zero, and
+    the kernel's dP and delta, f32 sums of the same products in other
+    orders, cancel only to their last bits), and a second run gives the
+    same bits (no atomics, every sum in a fixed order)."""
+    _need_card()
+    KV = 2
+    H = KV * rep
+    rng = np.random.RandomState(100 * D + rep)
+    for S in (1, 63, 65, 130, 512):
+        B = 2 if S < 512 else 1
+        qkv = torch.from_numpy(rng.randn(B, S, (H + 2 * KV) * D).astype(
+            np.float32)).to("cuda", dtype)
+        q = qkv[..., :H * D].reshape(B, S, H, D)
+        k = qkv[..., H * D:(H + KV) * D].reshape(B, S, KV, D)
+        v = qkv[..., (H + KV) * D:].reshape(B, S, KV, D)
+        g = torch.from_numpy(rng.randn(B, S, H, D).astype(np.float32)).to(
+            "cuda", dtype)
+        out, lse = tfa.flash_attn_fwd(q, k, v)
+        n0 = tfa.flash_attention.backward_launches
+        got = tfa.flash_attn_bwd(q, k, v, out, lse, g)
+        again = tfa.flash_attn_bwd(q, k, v, out, lse, g)
+        torch.cuda.synchronize()
+        assert tfa.flash_attention.backward_launches == n0 + 2
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        tfa.flash_attention_plain(*leaves).backward(g.reshape(B, S, H * D))
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        for name, a, b, c in zip("qkv", got, leaves, again):
+            assert a.shape == b.shape and a.dtype == dtype
+            err = (a.float() - b.grad.float()).abs().max().item()
+            lim = tol * b.grad.float().abs().max().item() + 1e-5
+            assert err <= lim, (name, S, err, lim)
+            assert torch.equal(a, c), (name, S)
 
 
 @pytest.mark.cuda
@@ -331,10 +410,14 @@ def test_launch_counters_count_kernel_launches():
                                           device="cuda"),
                        scales=torch.ones(64, 8, device="cuda"),
                        biases=torch.zeros(64, 8, device="cuda"), in_dim=256)
-    n0 = (tq4.fake_quant_act.launches, tq4.q4k_matmul_f32.launches)
+    n0 = (tq4.fake_quant_act.launches, tq4.q4k_matmul_f32.launches,
+          tq4.q4k_matvec_fq.launches)
     tq4.q4k_matmul(x, w4, torch.float32)
-    assert (tq4.fake_quant_act.launches, tq4.q4k_matmul_f32.launches) == (
-        n0[0] + 1, n0[1] + 1)
+    assert (tq4.fake_quant_act.launches, tq4.q4k_matmul_f32.launches,
+            tq4.q4k_matvec_fq.launches) == (n0[0] + 1, n0[1] + 1, n0[2])
+    tq4.q4k_matmul(x[:1], w4, torch.float32)
+    assert (tq4.fake_quant_act.launches, tq4.q4k_matmul_f32.launches,
+            tq4.q4k_matvec_fq.launches) == (n0[0] + 1, n0[1] + 1, n0[2] + 1)
 
 
 @pytest.mark.cuda

@@ -10,6 +10,7 @@ import os
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -188,3 +189,42 @@ def test_q4k_matmul_plain_matches_matvec_units(units):
         y = tq.q4k_matmul_plain(x, w, torch.float32).numpy()[0]
         np.testing.assert_allclose(y, u["y"], rtol=u["y_rtol"],
                                    atol=u["y_rtol"] * np.abs(u["y"]).max())
+
+
+@pytest.mark.parametrize("n", [40, 64, 128, 1024, 3072])
+def test_fused_matvec_plain_matches_jax_op_by_op(n, monkeypatch):
+    """``q4k_matvec_fq`` (one row, the fake-quant folded into the decode
+    matmul) takes its plain version on the CPU.  The activation it
+    quantizes equals the JAX ``fake_quant_act`` bit for bit, and its output
+    the JAX ``q4k_matmul`` within 1e-5 of max|y| (f32 sums in another
+    order), the JAX side run op by op with an f32 dequant dot
+    (NANO_TPU_DEQUANT=f32, ``jax.disable_jit()``: jitted on the CPU, XLA
+    folds the fake-quant's rounding away; tests/test_torch_q4k_slice.py).
+    ``q4k_matmul`` takes it for one row and counts no launch."""
+    x = _rows(n, B=1)
+    blocks = _weights(96, n, seed=n)
+    jw = jq.Q4KTensor.from_blocks(blocks, 96, n)
+    tw = tq.Q4KTensor.from_blocks(blocks, 96, n)
+    monkeypatch.setenv("NANO_TPU_DEQUANT", "f32")
+    jax.clear_caches()
+    try:
+        with jax.disable_jit():
+            want_x = np.asarray(jq.fake_quant_act(jnp.asarray(x)))
+            want = np.asarray(jq.q4k_matmul(jnp.asarray(x), jw, jnp.float32))
+    finally:
+        monkeypatch.delenv("NANO_TPU_DEQUANT")
+        jax.clear_caches()
+    tx = torch.from_numpy(x)
+    np.testing.assert_array_equal(tq.fake_quant_act_plain(tx).numpy()[:, :n],
+                                  want_x)
+    n0 = (tq.fake_quant_act.launches, tq.q4k_matmul_f32.launches,
+          tq.q4k_matvec_fq.launches)
+    got = tq.q4k_matvec_fq(tx, tw, torch.float32).numpy()
+    assert got.shape == (1, 96)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    np.testing.assert_array_equal(
+        tq.q4k_matmul(tx[0], tw, torch.float32).numpy(), got[0])
+    assert (tq.fake_quant_act.launches, tq.q4k_matmul_f32.launches,
+            tq.q4k_matvec_fq.launches) == n0
+

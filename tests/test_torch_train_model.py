@@ -32,7 +32,10 @@ QWEN3 = dict(block_size=32, vocab_size=160, n_layer=2, n_embd=48, n_head=4,
 QWEN2 = dict(NANO, qkv_bias=True, tie_embeddings=False)
 LEARNED_POS = dict(NANO, use_rope=False)
 GLOBAL = dict(NANO, is_causal=False)
-CONFIGS = {"nano": NANO, "qwen3": QWEN3, "qwen2": QWEN2,
+# Nano-56M's head width (D = 32), cut to 2 layers and width 128
+NANO56 = dict(block_size=32, vocab_size=128, n_layer=2, n_embd=128, n_head=4,
+              n_kv_head=2, n_hidden=256)
+CONFIGS = {"nano": NANO, "nano56": NANO56, "qwen3": QWEN3, "qwen2": QWEN2,
            "learned_pos": LEARNED_POS, "global": GLOBAL}
 
 
