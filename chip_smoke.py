@@ -15,8 +15,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   at widths 1024/2048/3072 and 40/64/128, the four Q4K
                   matmuls at B=1 and B=64 and the tiny fixture's, and the
                   decode kernel with the fake-quant folded in, bit-equal to
-                  the two), and
-                  timed over one decode step's launches: kernel, plain
+                  the two; the Q80 decode kernel with the activation
+                  quantization folded in at the five products and two small
+                  shapes, its int8 row and scales torch.equal to the plain
+                  act quant, two runs bit-equal), and
+                  timed over one decode step's launches (K1 also by
+                  product, the fused kernel beside the pair): kernel, plain
                   version, one PyTorch library call as a yardstick, and the
                   least time the card needs for the bytes and operations
   4. tiny fixtures tests/js/fixtures/tiny_q80.bin and tiny_q4k.bin, greedy
@@ -64,11 +68,13 @@ scaled_dot_product_attention and the bound, and a decode step's 28
 attention launches both on f32 q and as the model feeds them (bf16 q,
 result cast to bf16).
 
-`python3 chip_smoke.py bench [flash [clocks]] [decode] [q4k] [pipes]` runs
-none of the phases: it times the two attention kernels alone beside SDPA
-(the flash forward and backward, a ladder over the decode kernel's rows
-per block), a Q4K decode step's matmuls with the fake-quant folded in or
-not, what an SM sustains of mma.sync and ex2, and with `clocks` where the
+`python3 chip_smoke.py bench [flash [clocks]] [decode] [q4k] [q80] [pipes]`
+runs none of the phases: it times the two attention kernels alone beside
+SDPA (the flash forward and backward, a ladder over the decode kernel's
+rows per block), a Q4K decode step's matmuls with the fake-quant folded in
+or not, a Q80 decode step's W8A8 products by product, q80_matvec_fq
+against q80_act_quant + q80_matmul_w8a8, what an SM sustains of mma.sync
+and ex2, and with `clocks` where the
 backward's warps spend their cycles, for work on those kernels.
 
 The last two lines of stdout are one JSON object listing the kernels and
@@ -241,9 +247,9 @@ def params_to(params, device):
 
 
 # ---------------------------------------------------------------------
-# `python3 chip_smoke.py bench [flash [clocks]] [decode] [q4k] [pipes]`:
-# the attention kernels timed alone beside SDPA, a Q4K decode step's
-# matmuls, and what an SM sustains of mma.sync and ex2.  A measuring mode
+# `python3 chip_smoke.py bench [flash [clocks]] [decode] [q4k] [q80] [pipes]`:
+# the attention kernels timed alone beside SDPA, a Q4K or Q80 decode
+# step's matmuls, and what an SM sustains of mma.sync and ex2.  A measuring mode
 # for work on those kernels (about a minute and a half with the build); it
 # checks little and prints no result lines.
 # ---------------------------------------------------------------------
@@ -580,6 +586,124 @@ def bench_q4k(torch):
         raise AssertionError("q4k_matvec_fq differs from the two kernels")
 
 
+def bench_q80(torch, clocks=False):
+    """One Qwen3-0.6B Q80 decode step's 113 W8A8 products (random per-layer
+    weights as random_q80_params makes them, bf16 rows) replayed from a
+    CUDA graph, by product and in total: q80_act_quant + q80_matmul_w8a8
+    against q80_matvec_fq, in the order pair, fused, fused, pair; the fused
+    bf16 results must be within 1e-2 of max|y| of the pair's (the same
+    integer decisions, f32 sums in another order).  With `clocks`, where a
+    launch's time goes (bench_q80_clocks)."""
+    import numpy as np
+    from nano_tpu_torch.config import ModelConfig
+    from nano_tpu_torch.ops import _build, qmatmul
+    cfg = ModelConfig(**QWEN3_06B)
+    params = random_q80_params(torch, np, cfg, "cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    lib = _build.lib("q80_matmul")
+    st = lambda: torch.cuda.current_stream().cuda_stream
+    calls = []    # (product, weight, x, xq, sa, y pair, y fused, plan)
+    for name in ("wqkv", "wo", "w13", "w2", "head"):
+        w = params["output_q"] if name == "head" else params["blocks"][name]
+        for wl in ([w] if w.q.dim() == 2 else [w.layer(i) for i in range(w.q.shape[0])]):
+            K, N = wl.in_dim, wl.out_dim
+            calls.append((name, wl,
+                          torch.randn(1, K, device="cuda", generator=gen).to(torch.bfloat16),
+                          torch.empty(1, K, dtype=torch.int8, device="cuda"),
+                          torch.empty(1, K // GS, device="cuda"),
+                          torch.empty(1, N, device="cuda", dtype=torch.bfloat16),
+                          torch.empty(1, N, device="cuda", dtype=torch.bfloat16),
+                          qmatmul.matvec_plan(N, K, GS, sms)))
+
+    def pair(cs):
+        for _, wl, x, xq, sa, y, *_ in cs:
+            lib.q80_act_quant(x.data_ptr(), 1, xq.data_ptr(), sa.data_ptr(), 1,
+                              wl.in_dim, GS, st())
+            lib.q80_matmul_w8a8(xq.data_ptr(), sa.data_ptr(), wl.q.data_ptr(),
+                                wl.scales.data_ptr(), y.data_ptr(), 1, 1,
+                                wl.in_dim, wl.out_dim, GS, st())
+
+    def fused(cs):
+        for _, wl, x, _, _, _, y, plan in cs:
+            _build.check(lib.q80_matvec_fq(
+                x.data_ptr(), 1, wl.q.data_ptr(), wl.scales.data_ptr(),
+                y.data_ptr(), 1, None, None, wl.in_dim, wl.out_dim, GS, *plan,
+                st()), "q80_matvec_fq")
+
+    timer = Timer(torch)
+    for name in ("wqkv", "wo", "w13", "w2", "head", "step"):
+        cs = calls if name == "step" else [c for c in calls if c[0] == name]
+        t = [timer(lambda: f(cs), reps=50) for f in (pair, fused, fused, pair)]
+        b_ms, _ = bound(sum(c[1].q.numel() + 4 * c[1].scales.numel()
+                            + 2 * c[1].in_dim + 2 * c[1].out_dim for c in cs), 0, 1)
+        log(f"[bench q80] {name} ({len(cs)} launches, plan {cs[0][7]}): pair "
+            f"{t[0]:.4f} / {t[3]:.4f} ms, q80_matvec_fq {t[1]:.4f} / "
+            f"{t[2]:.4f} ms, bound {b_ms:.4f} ms")
+    torch.cuda.synchronize()
+    worst = max(((c[6].float() - c[5].float()).abs().max()
+                 / c[5].float().abs().max()).item() for c in calls)
+    log(f"[bench q80] fused vs pair, worst max|d|/max|y| {worst:.2e}")
+    if not worst <= 1e-2:
+        raise AssertionError("q80_matvec_fq differs from the pair")
+    if clocks:
+        bench_q80_clocks(torch, [next(c for c in calls if c[0] == n)
+                                 for n in ("wqkv", "wo", "w13", "w2", "head")])
+
+
+def bench_q80_clocks(torch, calls):
+    """Builds q80_matmul.cu once more with -DNANO_MV_CLOCKS into
+    build/q80_clocks/ and launches each product once (layer 0) with the L2
+    cleared before it (a 256 MB write), x cold and x just written (as in a
+    decode step, where x comes from the kernel before): per launch the
+    span from the first block's entry to the last block's dot, the spread
+    of the entries, and the median over blocks of each stamp (x in shared
+    memory, x quantized, first tile in, dot done) after the block's entry, in ns of
+    %globaltimer (and in cycles of clock64)."""
+    import ctypes
+    import statistics
+    from nano_tpu_torch.ops import _build
+    work = os.path.join(ROOT, "build", "q80_clocks")
+    os.makedirs(work, exist_ok=True)
+    so = os.path.join(work, "libq80_clocks.so")
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    subprocess.run([_build.nvcc_path(), *flags, "-DNANO_MV_CLOCKS", "-o", so,
+                    os.path.join(_build.CSRC_DIR, "q80_matmul.cu")], check=True)
+    lib = ctypes.CDLL(so)
+    lib.q80_matvec_fq.argtypes = _build.SIGNATURES["q80_matvec_fq"][0]
+    lib.q80_matvec_fq_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    flush = torch.empty(64 << 20, device="cuda")
+    st = torch.cuda.current_stream().cuda_stream
+    for (name, wl, x, _, _, _, y, plan), hot in (
+            (c, h) for c in calls for h in (False, True)):
+        for _ in range(2):    # the first launch warms up
+            flush.zero_()
+            if hot:
+                x.mul_(1)
+            assert lib.q80_matvec_fq(
+                x.data_ptr(), 1, wl.q.data_ptr(), wl.scales.data_ptr(),
+                y.data_ptr(), 1, None, None, wl.in_dim, wl.out_dim, GS, *plan,
+                st) == 0
+            torch.cuda.synchronize()
+        nb = plan[0]
+        buf = (ctypes.c_ulonglong * (10 * nb))()
+        assert lib.q80_matvec_fq_clocks(buf, nb) == 0
+        t = [list(buf)[10 * b:10 * b + 10] for b in range(nb)]
+        t0 = min(r[0] for r in t)
+        med = [statistics.median(r[k] - r[0] for r in t) for k in range(1, 5)]
+        cyc = [statistics.median(r[5 + k] - r[5] for r in t) for k in range(1, 5)]
+        mhz = statistics.median((r[9] - r[5]) * 1e3 / max(r[4] - r[0], 1)
+                                for r in t)
+        log(f"[bench q80 clocks] {name} plan {plan}, x "
+            f"{'just written' if hot else 'cold'}: span "
+            f"{max(r[4] for r in t) - t0} ns, entries spread over "
+            f"{max(r[0] for r in t) - t0} ns; median after entry: x in "
+            f"{med[0]:.0f}, x quantized {med[1]:.0f}, first tile in "
+            f"{med[2]:.0f}, dot done {med[3]:.0f} ns ("
+            + "/".join(f"{c:.0f}" for c in cyc)
+            + f" cycles, SM clock ~{mhz:.0f} MHz)")
+
+
 def bench(what) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -588,9 +712,11 @@ def bench(what) -> int:
     sys.path.insert(0, ROOT)
     log(f"[bench] card: {card_line()}")
     for name, fn in (("flash", bench_flash), ("decode", bench_decode),
-                     ("q4k", bench_q4k), ("pipes", bench_pipes)):
+                     ("q4k", bench_q4k), ("q80", bench_q80),
+                     ("pipes", bench_pipes)):
         if not what or name in what:
-            fn(torch, **({"clocks": "clocks" in what} if name == "flash" else {}))
+            fn(torch, **({"clocks": "clocks" in what}
+                         if name in ("flash", "q80") else {}))
     return 0
 
 
@@ -617,6 +743,7 @@ def main() -> int:
     t_start = time.time()
     timer = Timer(torch)
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     stream = lambda: torch.cuda.current_stream().cuda_stream
 
     # ---------------- 1. environment ----------------
@@ -679,6 +806,8 @@ def main() -> int:
           "nano_tpu_torch/csrc/q80_matmul.cu")
     entry("q80_matmul_rows", "nano_tpu/ops/qmatmul.py:129",
           "nano_tpu_torch/csrc/q80_matmul.cu")
+    entry("q80_matvec_fq", "nano_tpu/ops/qmatmul.py:250 + :268",
+          "nano_tpu_torch/csrc/q80_matmul.cu")
     entry("decode_attention", "nano_tpu/ops/decode_attn.py:45",
           "nano_tpu_torch/csrc/decode_attn.cu")
     entry("q4k_fake_quant", "nano_tpu/ops/q4k.py:644",
@@ -726,6 +855,58 @@ def main() -> int:
             if not err <= tol:
                 raise AssertionError(f"q80_matmul_w8a8 {name} B={B} off by {err}")
             note_err("q80_matmul_w8a8", err)
+
+    # K1 at B = 1 with the activation quantization folded in: the five
+    # products and two small shapes (one group, gs 512), f32 and bf16 rows
+    # (group 1 all zero where there is one) into f32 and bf16.  The int8
+    # row and scales it writes must equal act_quant_q80_plain's; y within
+    # 1e-5 of max|y| of the plain version in f32 (the same integer
+    # decisions, f32 sums in another order); two runs the same bits; a
+    # bf16 y is the f32 y rounded.
+    rng = np.random.default_rng(SEED)
+    mv_cases = [(name, layer_weights(w)[0]) for name, w in shapes]
+    for K, N, gs in ((256, 264, 256), (1024, 384, 512)):
+        mv_cases.append((f"{K}->{N} gs={gs}", qmatmul.Q80Tensor(
+            q=torch.from_numpy(rng.integers(-127, 128, (N, K), dtype=np.int8)).to(dev),
+            scales=torch.from_numpy(rng.random((N, K // gs), dtype=np.float32)
+                                    * 0.02 + 1e-3).to(dev),
+            group_size=gs, w8a8=True)))
+    n_mv = 0
+    for name, w0 in mv_cases:
+        gs = w0.group_size
+        x = torch.randn(1, w0.in_dim, device=dev, generator=gen)
+        x[0, gs:2 * gs] = 0.0
+        for xt in (x, x.to(torch.bfloat16)):
+            pq, ps = qmatmul.act_quant_q80_plain(xt, gs)
+            ref = qmatmul.q80_matvec_fq_plain(xt, w0, torch.float32)
+            y32 = None
+            for dt in (torch.float32, torch.bfloat16):
+                y, kq, ks = qmatmul.q80_matvec_fq(xt, w0, dt, with_act=True)
+                again = qmatmul.q80_matvec_fq(xt, w0, dt)
+                if not (torch.equal(kq, pq) and torch.equal(ks, ps)):
+                    raise AssertionError(f"q80_matvec_fq int8 decisions differ "
+                                         f"at {name} {xt.dtype}")
+                if not torch.equal(y, again):
+                    raise AssertionError(f"q80_matvec_fq: two runs differ at "
+                                         f"{name} {xt.dtype} -> {dt}")
+                if dt == torch.float32:
+                    y32 = y
+                    err = (y - ref).abs().max().item()
+                    if not err <= 1e-5 * ref.abs().max().item():
+                        raise AssertionError(f"q80_matvec_fq {name} off by {err}")
+                    note_err("q80_matvec_fq", err)
+                elif not torch.equal(y, y32.to(dt)):
+                    raise AssertionError(f"q80_matvec_fq {name}: bf16 y is not "
+                                         f"the f32 y rounded")
+                n_mv += 1
+    log(f"[kernel] q80_matvec_fq: int8 row and scales torch.equal to "
+        f"act_quant_q80_plain, two runs bit-equal, in {n_mv} cases (the five "
+        f"Qwen3-0.6B products, 256->264 gs 256 and 1024->384 gs 512, f32/bf16 "
+        f"row x f32/bf16 out); worst max_abs_err vs the plain version "
+        f"{kernels['q80_matvec_fq']['max_abs_err']:.3e} (tol 1e-5 of max|y|); "
+        f"plans (blocks, R, S, T): " + ", ".join(
+            f"{name} {qmatmul.matvec_plan(w0.out_dim, w0.in_dim, w0.group_size, sms)}"
+            for name, w0 in mv_cases[:5]))
 
     # rows form at the tiny fixture's shapes (its only user) and at one
     # main-path width with group size 32
@@ -1085,40 +1266,66 @@ def main() -> int:
     del step_layers
 
     # ---- timing: one decode step's launches of each kernel, B=1 ----
+    # (real per-layer weights, so nothing stays in L2), by product and in
+    # total: the pair that now runs only the prefill's products
+    # (q80_act_quant + q80_matmul_w8a8) and q80_matvec_fq, which a decode
+    # step runs
     lib = _build.lib("q80_matmul")
-    step_calls = []      # (weight, x bf16, xq, sa, y, dequantized bf16 weight)
+    step_calls = []      # (product, weight, x bf16, xq, sa, y, plan, bf16 weight)
     for name, w in shapes:
         for wl in layer_weights(w):
             x = torch.randn(1, wl.in_dim, device=dev, generator=gen).to(torch.bfloat16)
             xq, sa = qmatmul.act_quant_q80_plain(x, GS)
-            step_calls.append((wl, x, xq, sa,
+            step_calls.append((name, wl, x, xq, sa,
                                torch.empty(1, wl.out_dim, device=dev,
                                            dtype=torch.bfloat16),
+                               qmatmul.matvec_plan(wl.out_dim, wl.in_dim, GS, sms),
                                wl.dequantize(torch.bfloat16)))
     assert len(step_calls) == 4 * L + 1
 
-    def run_act_quant():
-        for wl, x, xq, sa, y, _ in step_calls:
+    def run_act_quant(calls=step_calls):
+        for _, wl, x, xq, sa, *_ in calls:
             lib.q80_act_quant(x.data_ptr(), 1, xq.data_ptr(), sa.data_ptr(),
                               1, wl.in_dim, GS, stream())
 
-    def run_w8a8():
-        for wl, x, xq, sa, y, _ in step_calls:
+    def run_w8a8(calls=step_calls):
+        for _, wl, x, xq, sa, y, *_ in calls:
             lib.q80_matmul_w8a8(xq.data_ptr(), sa.data_ptr(), wl.q.data_ptr(),
                                 wl.scales.data_ptr(), y.data_ptr(), 1, 1,
                                 wl.in_dim, wl.out_dim, GS, stream())
 
+    def run_pair(calls=step_calls):
+        run_act_quant(calls)
+        run_w8a8(calls)
+
+    def run_matvec(calls=step_calls):
+        for _, wl, x, _, _, y, plan, _ in calls:
+            _build.check(lib.q80_matvec_fq(
+                x.data_ptr(), 1, wl.q.data_ptr(), wl.scales.data_ptr(),
+                y.data_ptr(), 1, None, None, wl.in_dim, wl.out_dim, GS, *plan,
+                stream()), "q80_matvec_fq")
+
     def run_act_quant_plain():
-        for wl, x, *_ in step_calls:
+        for _, wl, x, *_ in step_calls:
             qmatmul.act_quant_q80_plain(x, GS)
 
     def run_w8a8_plain():
-        for wl, x, xq, sa, *_ in step_calls:
+        for _, wl, x, xq, sa, *_ in step_calls:
             qmatmul.q80_w8a8_plain(xq, sa, wl, torch.bfloat16)
 
+    def run_matvec_plain():
+        for _, wl, x, *_ in step_calls:
+            qmatmul.q80_matvec_fq_plain(x, wl, torch.bfloat16)
+
     def run_w8a8_library():
-        for wl, x, *_, wd in step_calls:
+        for _, wl, x, *_, wd in step_calls:
             torch.matmul(x, wd.t())
+
+    def mv_bytes(calls):
+        """q80_matvec_fq's bytes: the weights and scales once, the bf16 row
+        in, the bf16 result out."""
+        return sum(wl.q.numel() + wl.scales.numel() * 4 + 2 * wl.in_dim
+                   + 2 * wl.out_dim for _, wl, *_ in calls)
 
     k = kernels["q80_act_quant"]
     k["ms"] = timer(run_act_quant)
@@ -1126,8 +1333,8 @@ def main() -> int:
     k["library_ms"] = None
     set_bound("q80_act_quant",
               sum(wl.in_dim * 2 + wl.in_dim + wl.in_dim // GS * 4
-                  for wl, *_ in step_calls),
-              sum(3 * wl.in_dim for wl, *_ in step_calls), F32_OPS_PER_S)
+                  for _, wl, *_ in step_calls),
+              sum(3 * wl.in_dim for _, wl, *_ in step_calls), F32_OPS_PER_S)
 
     k = kernels["q80_matmul_w8a8"]
     k["ms"] = timer(run_w8a8)
@@ -1135,14 +1342,43 @@ def main() -> int:
     k["library_ms"] = timer(run_w8a8_library)
     mm_bytes = sum(wl.q.numel() + wl.scales.numel() * 4 + wl.in_dim
                    + wl.in_dim // GS * 4 + wl.out_dim * 2
-                   for wl, *_ in step_calls)
-    set_bound("q80_matmul_w8a8", mm_bytes,
-              sum(2 * wl.q.numel() for wl, *_ in step_calls), INT8_OPS_PER_S)
+                   for _, wl, *_ in step_calls)
+    mm_ops = sum(2 * wl.q.numel() for _, wl, *_ in step_calls)
+    set_bound("q80_matmul_w8a8", mm_bytes, mm_ops, INT8_OPS_PER_S)
     log(f"[time] one Q80 decode step (B=1, {len(step_calls)} matmuls): "
         f"act_quant {kernels['q80_act_quant']['ms']:.4f} ms, w8a8 "
         f"{k['ms']:.4f} ms (bound {k['bound_ms']:.4f} ms for "
         f"{mm_bytes / 1e6:.1f} MB), bf16 torch.matmul on pre-dequantized "
         f"weights {k['library_ms']:.4f} ms")
+
+    k = kernels["q80_matvec_fq"]
+    t_pair = [timer(run_pair)]
+    t_mv = [timer(run_matvec), timer(run_matvec)]
+    t_pair.append(timer(run_pair))
+    k["ms"] = t_mv[0]
+    k["plain_ms"] = timer(run_matvec_plain)
+    k["library_ms"] = kernels["q80_matmul_w8a8"]["library_ms"]
+    set_bound("q80_matvec_fq", mv_bytes(step_calls), mm_ops, INT8_OPS_PER_S)
+    log(f"[time] the same step through q80_matvec_fq ({len(step_calls)} "
+        f"launches, act quant folded in; in turns pair, fused, fused, pair): "
+        f"{t_mv[0]:.4f} / {t_mv[1]:.4f} ms against {t_pair[0]:.4f} / "
+        f"{t_pair[1]:.4f} ms for q80_act_quant + q80_matmul_w8a8 (plain "
+        f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms for "
+        f"{mv_bytes(step_calls) / 1e6:.1f} MB, library {k['library_ms']:.4f} "
+        f"ms)")
+    for name, _ in shapes:
+        calls = [c for c in step_calls if c[0] == name]
+        aq_ms = timer(lambda c=calls: run_act_quant(c))
+        mm_ms = timer(lambda c=calls: run_w8a8(c))
+        mv_ms = timer(lambda c=calls: run_matvec(c))
+        wl = calls[0][1]
+        b_ms, _ = bound(mv_bytes(calls), sum(2 * c[1].q.numel() for c in calls),
+                        INT8_OPS_PER_S)
+        log(f"[time] K1 by product, {name} ({len(calls)} x {wl.in_dim}->"
+            f"{wl.out_dim}, plan {calls[0][6]}): act_quant {aq_ms:.4f} + w8a8 "
+            f"{mm_ms:.4f} = {aq_ms + mm_ms:.4f} ms; q80_matvec_fq "
+            f"{mv_ms:.4f} ms; bound {b_ms:.4f} ms "
+            f"({mv_bytes(calls) / 1e6:.2f} MB); {card}")
     del step_calls
 
     # Q4K: the 112 matmuls of a decode step (real per-layer weights, so
@@ -1351,6 +1587,7 @@ def main() -> int:
         q80_act_quant=(qmatmul.act_quant_q80, "launches"),
         q80_matmul_w8a8=(qmatmul.q80_w8a8, "launches"),
         q80_matmul_rows=(qmatmul.q80_matmul_rows, "launches"),
+        q80_matvec_fq=(qmatmul.q80_matvec_fq, "launches"),
         decode_attention=(decode_attn.decode_attention, "launches"),
         q4k_fake_quant=(q4k.fake_quant_act, "launches"),
         q4k_matmul=(q4k.q4k_matmul_f32, "launches"),
@@ -1406,8 +1643,9 @@ def main() -> int:
     prompt = prng.integers(100, 30000, PROMPT_LEN).tolist()
     profile_keys = (("w8a8_kernel", "q80_matmul_w8a8"),
                     ("act_quant_kernel", "q80_act_quant"),
+                    ("q80_matvec_fq_kernel", "q80_matvec_fq"),
                     ("decode_attn_kernel", "decode_attention"),
-                    ("matvec_fq", "q4k_matvec_fq"),
+                    ("q4k_matvec_fq_kernel", "q4k_matvec_fq"),
                     ("q4k_mat", "q4k_matmul"),      # matvec (B=1), matmul
                     ("fake_quant_kernel", "q4k_fake_quant"),
                     ("rows_kernel", "q80_matmul_rows"))
@@ -1505,27 +1743,30 @@ def main() -> int:
 
     n_steps = N_TOKENS - 1
     expect80 = {n: 0 for n in names}
-    expect80.update(q80_act_quant=113 * N_TOKENS,
-                    q80_matmul_w8a8=113 * N_TOKENS,
+    expect80.update(q80_act_quant=112, q80_matmul_w8a8=112,
+                    q80_matvec_fq=113 * n_steps + 1,
                     decode_attention=28 * n_steps)
     log("[full Q80] expected launches: 113 Q80 matmuls = 4 x 28 + head per "
-        "forward, 28 attentions per decode step")
+        "forward; the prefill's 112 layer products (64 rows) as "
+        "q80_act_quant + q80_matmul_w8a8, its head (the last row only) and "
+        "every decode step's 113 as q80_matvec_fq (act quant folded in); 28 "
+        "attentions per decode step")
     _, out80, counts80 = drive("Q80", params, expect80)
-    for name in ("q80_act_quant", "q80_matmul_w8a8", "decode_attention"):
+    for name in ("q80_act_quant", "q80_matmul_w8a8", "q80_matvec_fq",
+                 "decode_attention"):
         kernels[name]["launches"] = counts80[name]
         if counts80[name] == 0:
             raise AssertionError(f"main path launched no {name}")
 
     expect4 = {n: 0 for n in names}
     expect4.update(q4k_matmul=112, q4k_fake_quant=112 + N_TOKENS,
-                   q4k_matvec_fq=112 * n_steps,
-                   q80_act_quant=N_TOKENS, q80_matmul_w8a8=N_TOKENS,
+                   q4k_matvec_fq=112 * n_steps, q80_matvec_fq=N_TOKENS,
                    decode_attention=28 * n_steps)
     log("[full Q4K] expected launches: 112 Q4K matmuls = 4 x 28 per forward, "
         "as q4k_matvec_fq (fake-quant folded in) in a decode step and as "
         "q4k_fake_quant + q4k_matmul in the prefill; one fake-quant before "
-        "the requantized Q80 head and one W8A8 head per forward, 28 "
-        "attentions per decode step")
+        "the requantized Q80 head and one q80_matvec_fq head (one row) per "
+        "forward, 28 attentions per decode step")
     _, out4, counts4 = drive("Q4K", params4, expect4)
     for name in ("q4k_matmul", "q4k_fake_quant", "q4k_matvec_fq"):
         kernels[name]["launches"] = counts4[name]

@@ -5,27 +5,60 @@
 //
 // Replaces the TPU kernel nano_tpu/ops/qmatmul.py::_q80_kernel (launched
 // by _q80_matmul_2d) and the XLA path it stood beside, q80_matmul_int8 +
-// act_quant_q80, in two numerics forms:
+// act_quant_q80, in three forms:
 //
 //   q80_act_quant    act_quant_q80: per-group absmax/127 scale, values
 //                    sign(v) * floor(|v| + 0.5) with v = x / scale, the C
 //                    engine's rounding, bit for bit (IEEE division; this
 //                    file must never be built with --use_fast_math).
-//   q80_matmul_w8a8  q80_matmul_int8: int8 activation x int8 weight, an
-//                    EXACT int32 partial per group (__dp4a), then the f32
-//                    combine  y[b, n] = sum_g P[b, g, n] * sa[b, g] * sw[n, g].
-//                    The default form at group size >= 256.
+//   q80_matmul_w8a8  q80_matmul_int8 on quantized rows: int8 activation x
+//                    int8 weight, an EXACT int32 partial per group
+//                    (__dp4a), then the f32 combine
+//                    y[b, n] = sum_g P[b, g, n] * sa[b, g] * sw[n, g].
+//                    With q80_act_quant before it, the W8A8 form at B > 1
+//                    (prefill's layer products).
+//   q80_matvec_fq    the two at B = 1 in one launch: every Q80 product of a
+//                    decode step, and the head (one row at prefill too).
+//                    The same integer decisions; f32 sums in another order.
 //   q80_matmul_rows  _q80_kernel's own math: f32 dequant q * s, f32 dot.
 //                    Used below group size 256 (e.g. gs = 32 files).
 //
 // Bound on the H100: bytes.  At decode (B = 1) every weight byte is read
-// once per step and used for one multiply-add, far below the ~600
-// int8 operations per byte the card needs before compute limits it.
-// Design: one warp per output row, 16-byte loads along K so a warp reads
-// 512 contiguous bytes per iteration; the weight row is read once per
-// batch tile of up to 8 activation rows, kept in registers while the tile
-// is consumed.  The activation (K bytes a row) is shared by every warp and
-// stays in L1/L2.  Not yet done: wgmma/TMA tiles for large B (prefill).
+// once per step and used for one multiply-add, far below the ~600 int8
+// operations per byte the card needs before compute limits it.
+//
+// q80_matvec_fq.  Rows n0 .. n0 + R - 1 of the row-major table are one
+// contiguous R * K-byte range and their scales one R * G * 4-byte range,
+// so one thread brings both into shared memory by bulk copy
+// (cp.async.bulk, completion on an mbarrier; no tensor map, no registers
+// or instructions spent on addresses), and the scales arrive with their
+// tile: no dependent load in the loop.  Block b owns a contiguous range of
+// rows and walks it in tiles of R rows round a ring of S stages, the next
+// tiles' bytes in flight while one is consumed.  The grid, R and S come
+// from the shapes alone (ops/qmatmul.py:matvec_plan): up to two blocks an
+// SM, so the small products (N = 1024) spread over every SM with their
+// whole range issued at once in tiles of 8 rows, and the head's 151 936
+// rows stream through 32 KB stages.  The row x is loaded first, by every
+// thread, before the first weight request: asked for after the weights it
+// comes back after them.  While the tiles are in flight the block's 8
+// warps quantize it (a warp a group, the arithmetic of q80_act_quant) into
+// an int8 row and G scales in shared memory: once a block, not once a
+// tile.  The dot: T lanes a row (8 in the head's 32-row tiles, so that a
+// tile is one pass of the block; else a warp), a lane __dp4a-ing 16-byte
+// chunks of the row against the int8 row, a group's ints summed over the
+// lanes that hold it (redux.sync or xor shuffles: exact) before they meet
+// its two scales, the f32 sum over groups in a fixed order, so that two
+// runs give the same bits.  A scale range that is not 16-byte aligned at
+// either end (N * G not a multiple of 4, or a stacked layer's offset) has
+// its < 16-byte ends read by plain loads.  Measured on the H100:
+// chip_smoke.py bench q80 [clocks].
+//
+// q80_matmul_w8a8 / q80_matmul_rows: one warp per output row, 16-byte
+// loads along K so a warp reads 512 contiguous bytes per iteration; the
+// weight row is read once per batch tile of up to 8 activation rows, kept
+// in registers while the tile is consumed.  The activation (K bytes a row)
+// is shared by every warp and stays in L1/L2.  Not yet done: wgmma/TMA
+// tiles for large B (prefill).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -192,6 +225,308 @@ __global__ void rows_kernel(const XT* __restrict__ x, const int8_t* __restrict__
   }
 }
 
+// ---- q80_matvec_fq ----
+
+constexpr int kMvThreads = 256;   // threads of a q80_matvec_fq block (8 warps)
+constexpr int kMvSteps = 2;       // a row's steps a lane holds at once (see the dot)
+constexpr int kMvXVec = 4;        // 16-byte pieces of x a thread loads before any weight
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// Arrive (release: this thread's earlier shared-memory stores become
+// visible to the waiters) and add `bytes` to the phase's expected bytes.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// bytes (a multiple of 16, both addresses 16-byte aligned) from global to
+// shared memory; completion counted on bar.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// n bytes at global src, to be copied to `dst` in shared memory, where dst
+// and src agree modulo 16 (a buffer of n + 16 bytes, 16-byte aligned, and
+// dst = buffer + src % 16): its 16-byte aligned middle goes by bulk copy,
+// its < 16-byte ends by plain loads of the calling thread.
+struct CopyIn {
+  uintptr_t a, am, bm, b;   // [a, b) and its aligned middle [am, bm)
+  unsigned char* dst;
+  __device__ CopyIn(unsigned char* buf, const void* src, size_t n) {
+    a = (uintptr_t)src;
+    b = a + n;
+    am = (a + 15) & ~(uintptr_t)15;
+    bm = b & ~(uintptr_t)15;
+    if (bm < am) bm = am;
+    dst = buf + (a & 15);
+  }
+  __device__ uint32_t bulk_bytes() const { return (uint32_t)(bm - am); }
+  // the ends: before the arrive that releases them
+  __device__ void ends() const {
+    for (uintptr_t p = a; p < (am < b ? am : b); ++p) dst[p - a] = *(const unsigned char*)p;
+    for (uintptr_t p = bm; p < b; ++p) dst[p - a] = *(const unsigned char*)p;
+  }
+  // the middle: after the arrive
+  __device__ void bulk(uint64_t* bar) const {
+    if (bm > am) bulk_copy(dst + (am - a), (const void*)am, (uint32_t)(bm - am), bar);
+  }
+};
+
+// Where a block's time goes, only in a build with -DNANO_MV_CLOCKS
+// (`chip_smoke.py bench q80 clocks` makes one beside the real library):
+// thread 0 of each block of the last launch stamps %globaltimer (ns) and
+// clock64 at entry, when x is in shared memory, when it is quantized, when
+// the first tile is in and when the dot is done.  Otherwise every stamp is
+// empty.
+#ifdef NANO_MV_CLOCKS
+__device__ unsigned long long g_mv_clk[2048][10];   // [block][globaltimer x 5, clock64 x 5]
+#define MV_CLK(k)                                                                  \
+  do {                                                                             \
+    if (threadIdx.x == 0) {                                                        \
+      unsigned long long t_;                                                       \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                      \
+      g_mv_clk[blockIdx.x][k] = t_;                                                \
+      g_mv_clk[blockIdx.x][5 + k] = clock64();                                     \
+    }                                                                              \
+  } while (0)
+#else
+#define MV_CLK(k) \
+  do {            \
+  } while (0)
+#endif
+
+// Bytes of a buffer for n bytes copied in by CopyIn, rounded to 16.
+__host__ __device__ __forceinline__ size_t mv_buf(size_t n) { return (n + 16 + 15) & ~(size_t)15; }
+
+// Shared memory of a block: S barriers; S weight stages of R rows and S
+// scale stages; the raw row x (xbytes); the int8 row and its G scales.
+__host__ __device__ __forceinline__ size_t mv_smem(int K, int G, int R, int S, int xbytes) {
+  return 128 + (size_t)S * ((size_t)R * K + mv_buf((size_t)R * G * 4)) + mv_buf(xbytes) + K +
+         (size_t)G * 4;
+}
+
+// x (1, K) -> the int8 row xs and its G scales sas in shared memory, with
+// q80_act_quant's arithmetic, a warp a group; block 0 also writes them to
+// xq_out / sa_out when they are not null.
+template <typename XT>
+__device__ __forceinline__ void quantize_row(const XT* x, int8_t* xs, float* sas,
+                                             int8_t* __restrict__ xq_out,
+                                             float* __restrict__ sa_out, int K, int gs) {
+  const int lane = threadIdx.x & 31, G = K / gs;
+  const bool write_act = blockIdx.x == 0 && xq_out != nullptr;
+  // a loop with the same count on every thread, so that the shuffles run
+  // on converged warps (under a branch on the warp index the compiler
+  // serializes them)
+  for (int g0 = 0; g0 < G; g0 += kMvThreads / 32) {
+    const int g = g0 + (threadIdx.x >> 5);
+    const bool on = g < G;
+    const XT* xg = x + (size_t)(on ? g : 0) * gs;
+    float amax = 0.f;
+    if (on)
+      for (int i = lane; i < gs; i += 32) amax = fmaxf(amax, fabsf(load_f(xg, i)));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    if (!on) continue;
+    const float sc = amax / 127.0f;
+    const float safe = (sc == 0.f) ? 1.f : sc;
+    for (int i = lane; i < gs; i += 32) {
+      const float v = load_f(xg, i) / safe;
+      const int8_t q = (int8_t)(int)copysignf(floorf(fabsf(v) + 0.5f), v);
+      xs[g * gs + i] = q;
+      if (write_act) xq_out[g * gs + i] = q;
+    }
+    if (lane == 0) {
+      sas[g] = sc;
+      if (write_act) sa_out[g] = sc;
+    }
+  }
+}
+
+// y (1, N) = W8A8(x (1, K)) . w^T.  Block b takes rows [N b / nb, N (b + 1) / nb)
+// in tiles of R rows round S stages; T lanes a row.  Block 0 also writes
+// the int8 row and its scales to xq_out / sa_out when they are not null.
+template <int T, typename XT, typename OT>
+__global__ void __launch_bounds__(kMvThreads, 2)
+    q80_matvec_fq_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
+                         const float* __restrict__ sw, OT* __restrict__ y,
+                         int8_t* __restrict__ xq_out, float* __restrict__ sa_out, int K, int N,
+                         int gs, int R, int S) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int G = K / gs;
+  const size_t wstage = (size_t)R * K, sstage = mv_buf((size_t)R * G * 4);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);   // a barrier a stage
+  unsigned char* wbuf = smem + 128;
+  unsigned char* sbuf = wbuf + S * wstage;
+  unsigned char* xbuf = sbuf + S * sstage;
+  int8_t* xs = reinterpret_cast<int8_t*>(xbuf + mv_buf(K * sizeof(XT)));
+  float* sas = reinterpret_cast<float*>(xs + K);
+  const int r_begin = (int)((long long)N * blockIdx.x / gridDim.x);
+  const int r_end = (int)((long long)N * (blockIdx.x + 1) / gridDim.x);
+  const int ntiles = (r_end - r_begin + R - 1) / R;
+  const int tid = threadIdx.x;
+
+  // tile t's scales: rows n0 .. of sw into stage t % S
+  auto scales_in = [&](int t) {
+    const int n0 = r_begin + t * R;
+    return CopyIn(sbuf + (size_t)(t % S) * sstage, sw + (size_t)n0 * G,
+                  (size_t)min(R, r_end - n0) * G * 4);
+  };
+  // thread 0: start tile t into stage t % S
+  auto issue = [&](int t) {
+    const int n0 = r_begin + t * R, rows = min(R, r_end - n0), s = t % S;
+    const CopyIn sc = scales_in(t);
+    sc.ends();
+    mbar_arrive_expect_tx(&full[s], (uint32_t)(rows * K) + sc.bulk_bytes());
+    bulk_copy(wbuf + s * wstage, w + (size_t)n0 * K, (uint32_t)(rows * K), &full[s]);
+    sc.bulk(&full[s]);
+  };
+
+  MV_CLK(0);
+  // The row first, by plain 16-byte loads of every thread, all issued
+  // before thread 0 sends the first weight request: requested after the
+  // weights, it comes back after them, and the quantization (and every dot
+  // after it) waits for nearly all of the weights.
+  const int xbytes = K * (int)sizeof(XT);
+  const bool xvec = ((uintptr_t)x & 15) == 0;
+  const int4* xg4 = reinterpret_cast<const int4*>(x);
+  int4* xb4 = reinterpret_cast<int4*>(xbuf);
+  int4 xv[kMvXVec];
+#pragma unroll
+  for (int u = 0; u < kMvXVec; ++u)
+    if (xvec && (tid + u * kMvThreads) * 16 < xbytes) xv[u] = __ldg(xg4 + tid + u * kMvThreads);
+  __syncthreads();
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int t = 0; t < min(S, ntiles); ++t) issue(t);
+  }
+  if (xvec) {
+#pragma unroll
+    for (int u = 0; u < kMvXVec; ++u)
+      if ((tid + u * kMvThreads) * 16 < xbytes) xb4[tid + u * kMvThreads] = xv[u];
+    for (int i = tid + kMvXVec * kMvThreads; i * 16 < xbytes; i += kMvThreads) xb4[i] = __ldg(xg4 + i);
+  } else {   // a row that starts off a 16-byte boundary
+    for (int i = tid; i < K; i += kMvThreads) reinterpret_cast<XT*>(xbuf)[i] = x[i];
+  }
+  __syncthreads();   // the row is in; the barriers are initialized
+  MV_CLK(1);
+  quantize_row(reinterpret_cast<const XT*>(xbuf), xs, sas, xq_out, sa_out, K, gs);
+  __syncthreads();
+  MV_CLK(2);
+
+  // The dot.  Lane j of row slot `slot` takes 16-byte chunks j, j + T, ...
+  // of its row; a step is the chunks of one group (T = 8: 2 chunks a lane
+  // at gs = 256; T = 32 at gs >= 512) or of two (T = 32 at gs = 256: lanes
+  // 0-15 and 16-31), and its L lanes sum their ints.  A lane computes
+  // kMvSteps steps' ints, then reduces them together (their reductions
+  // overlap), then adds P * sa * sw for each in step order.  Every loop
+  // that holds a shuffle or a reduction has the same count on every thread,
+  // and every one runs: rows and chunks past the end take part with zeros
+  // (under a branch the compiler cannot prove uniform it serializes them).
+  constexpr int RP = kMvThreads / T;   // rows a pass
+  const int slot = tid / T, j = tid % T;
+  const int nch = K >> 4, cpg = gs >> 4;
+  const int L = cpg < T ? cpg : T;                // 8, 16 or 32
+  const int ips = cpg > T ? cpg / T : 1;          // chunks a lane takes of a step
+  const int cps = T * ips;                        // chunks a step
+  const int nsteps = (nch + cps - 1) / cps;
+  const int gps = cps / cpg > 0 ? cps / cpg : 1;  // groups a step advances
+  const int gj = j / cpg;                         // this lane's group within a step
+  const int4* xr = reinterpret_cast<const int4*>(xs);
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % S, n0 = r_begin + t * R, rows = min(R, r_end - n0);
+    mbar_wait(&full[s], (uint32_t)((t / S) & 1));
+    if (t == 0) MV_CLK(3);
+    const int8_t* wt = reinterpret_cast<const int8_t*>(wbuf + s * wstage);
+    const float* st = reinterpret_cast<const float*>(scales_in(t).dst);
+    for (int base = 0; base < rows; base += RP) {
+      const int r = base + slot;
+      const bool act = r < rows;
+      const int4* wr = reinterpret_cast<const int4*>(wt + (size_t)(act ? r : 0) * K);
+      const float* srow = st + (act ? r : 0) * G;
+      float acc = 0.f;
+      for (int s0 = 0; s0 < nsteps; s0 += kMvSteps) {
+        int p[kMvSteps];
+#pragma unroll
+        for (int u = 0; u < kMvSteps; ++u) {
+          p[u] = 0;
+          const int c0 = (s0 + u) * cps + j;
+          if (act && c0 < nch) {
+            for (int i = 0; i < ips; ++i) {
+              const int4 wv = wr[c0 + i * T], xv = xr[c0 + i * T];
+              p[u] = __dp4a(wv.x, xv.x, p[u]);
+              p[u] = __dp4a(wv.y, xv.y, p[u]);
+              p[u] = __dp4a(wv.z, xv.z, p[u]);
+              p[u] = __dp4a(wv.w, xv.w, p[u]);
+            }
+          }
+        }
+        if (T == 32) {   // a warp's sum (redux.sync) for each half, or for the whole at gs >= 512
+#pragma unroll
+          for (int u = 0; u < kMvSteps; ++u) {
+            const int lo = __reduce_add_sync(0xffffffffu, (j < 16 || L == 32) ? p[u] : 0);
+            const int hi = __reduce_add_sync(0xffffffffu, j < 16 ? 0 : p[u]);
+            p[u] = (L == 32 || j < 16) ? lo : hi;
+          }
+        } else {   // the 8 lanes of a row
+#pragma unroll
+          for (int off = 4; off > 0; off >>= 1) {
+#pragma unroll
+            for (int u = 0; u < kMvSteps; ++u) p[u] += __shfl_xor_sync(0xffffffffu, p[u], off);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kMvSteps; ++u) {
+          if (act && (s0 + u) * cps + j < nch) {
+            const int g = (s0 + u) * gps + gj;
+            acc += (float)p[u] * sas[g] * srow[g];
+          }
+        }
+      }
+      if (T == 32) {   // at gs = 256 the halves hold different groups
+        const float o = __shfl_xor_sync(0xffffffffu, acc, 16);
+        if (L == 16) acc += o;
+      }
+      if (act && j == 0) store_f(y, (size_t)(n0 + r), acc);
+    }
+    if (t + S < ntiles) {
+      __syncthreads();   // every warp is done with stage s
+      if (tid == 0) issue(t + S);
+    }
+  }
+  MV_CLK(4);
+}
+
 constexpr int kWarps = 8;  // output rows per block
 
 template <typename OT>
@@ -271,3 +606,50 @@ extern "C" int q80_matmul_rows(const void* x, int x_bf16, const void* w, const v
   }
   return (int)cudaGetLastError();
 }
+
+// x (1, K) f32 or bf16, raw -> y (1, N): q80_act_quant + q80_matmul_w8a8 at
+// B = 1 in one launch, with the grid (`blocks`), the rows a stage (R), the
+// stages (S) and the lanes a row (T, 8 or 32) of ops/qmatmul.py:matvec_plan.
+// xq_out (K int8) and sa_out (K / gs f32) may be null.
+extern "C" int q80_matvec_fq(const void* x, int x_bf16, const void* w, const void* sw, void* y,
+                             int y_bf16, void* xq_out, void* sa_out, int K, int N, int gs,
+                             int blocks, int R, int S, int T, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem = mv_smem(K, K / gs, R, S, K * (x_bf16 ? 2 : 4));
+  if ((T != 8 && T != 32) || blocks < 1 || R < 1 || S < 1 || S > 4 || smem > 232448)
+    return (int)cudaErrorInvalidValue;
+  const int8_t* w_ = static_cast<const int8_t*>(w);
+  const float* sw_ = static_cast<const float*>(sw);
+  int8_t* xq_ = static_cast<int8_t*>(xq_out);
+  float* sa_ = static_cast<float*>(sa_out);
+#define NANO_MV(TT, XT, OT)                                                                     \
+  do {                                                                                          \
+    if (smem > 48 * 1024) {                                                                     \
+      const cudaError_t err = cudaFuncSetAttribute(q80_matvec_fq_kernel<TT, XT, OT>,            \
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize, \
+                                                   (int)smem);                                  \
+      if (err != cudaSuccess) return (int)err;                                                  \
+    }                                                                                           \
+    q80_matvec_fq_kernel<TT, XT, OT><<<blocks, kMvThreads, smem, st>>>(                         \
+        static_cast<const XT*>(x), w_, sw_, static_cast<OT*>(y), xq_, sa_, K, N, gs, R, S);     \
+  } while (0)
+#define NANO_MV_T(XT, OT)           \
+  do {                              \
+    if (T == 8) NANO_MV(8, XT, OT); \
+    else NANO_MV(32, XT, OT);       \
+  } while (0)
+  if (x_bf16 && y_bf16) NANO_MV_T(__nv_bfloat16, __nv_bfloat16);
+  else if (x_bf16) NANO_MV_T(__nv_bfloat16, float);
+  else if (y_bf16) NANO_MV_T(float, __nv_bfloat16);
+  else NANO_MV_T(float, float);
+#undef NANO_MV_T
+#undef NANO_MV
+  return (int)cudaGetLastError();
+}
+
+#ifdef NANO_MV_CLOCKS
+// The last launch's stamps: out[10 b + k] for block b < n_blocks.
+extern "C" int q80_matvec_fq_clocks(unsigned long long* out, int n_blocks) {
+  return (int)cudaMemcpyFromSymbol(out, g_mv_clk, sizeof(unsigned long long) * 10 * n_blocks);
+}
+#endif

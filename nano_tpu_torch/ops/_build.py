@@ -8,8 +8,8 @@ builds, and every source is compiled in parallel, one ``nvcc`` each.  A
 library newer than its source and built with the same flags is reused.
 
 IEEE division and square root, and denormals, are required
-(``q80_act_quant`` and ``q4k_fake_quant`` must reproduce the JAX package's
-integer decisions bit for bit), so the flags never include
+(``q80_act_quant``, ``q80_matvec_fq`` and ``q4k_fake_quant`` must reproduce
+the JAX package's integer decisions bit for bit), so the flags never include
 ``--use_fast_math``.
 """
 
@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+from functools import lru_cache
 from typing import Dict, List
 
 import torch
@@ -39,6 +40,8 @@ SIGNATURES = {
     "q80_act_quant": ([P, I, P, P, I, I, I, P], "q80_matmul"),
     "q80_matmul_w8a8": ([P, P, P, P, P, I, I, I, I, I, P], "q80_matmul"),
     "q80_matmul_rows": ([P, I, P, P, P, I, I, I, I, I, P], "q80_matmul"),
+    "q80_matvec_fq": ([P, I, P, P, P, I, P, P, I, I, I, I, I, I, I, P],
+                      "q80_matmul"),
     "decode_attention": ([P, P, P, P, P, P, I, P, P, P, I, Q, I, I, I, I, I,
                           I, F, I, P], "decode_attn"),
     "decode_attention_part_stride": ([I, I], "decode_attn"),
@@ -53,8 +56,17 @@ SIGNATURES = {
     "flash_attn_bwd_blocks_per_sm": ([I, I], "flash_attn"),
 }
 
+# The SM count assumed where the device is not asked (an H100's): the
+# kernels' work splits are functions of the shapes and the SM count.
+H100_SMS = 132
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+@lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def nvcc_path() -> str:

@@ -36,11 +36,6 @@ HEAD_DIMS = (16, 32, 48, 64, 128, 256)
 
 
 @lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-@lru_cache(maxsize=None)
 def _part_stride(rep: int, D: int) -> int:
     """Floats of one block's partial, as the kernel lays them out."""
     return _build.lib("decode_attn").decode_attention_part_stride(rep, D)
@@ -75,14 +70,13 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, H * D)
 
 
-# Rows a block takes at least, the most splits the kernel's combine holds,
-# and the SM count assumed where the device is not asked (an H100's).
+# Rows a block takes at least, and the most splits the kernel's combine
+# holds.
 MIN_CHUNK = 32
 MAX_SPLITS = 64
-H100_SMS = 132
 
 
-def choose_splits(B: int, n_kv: int, T: int, n_sm: int = H100_SMS
+def choose_splits(B: int, n_kv: int, T: int, n_sm: int = _build.H100_SMS
                   ) -> Tuple[int, int]:
     """-> (chunk, n_split): block (b * KV + kv, s) of the kernel's grid
     takes cache rows [s * chunk, (s + 1) * chunk).  From shapes alone
@@ -167,7 +161,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if q.stride(2) != 1 or q.stride(1) != D:
         q = q.contiguous()
     lib = _build.lib("decode_attn")
-    chunk, n_split = choose_splits(B, n_kv, T, _sm_count(q.device))
+    chunk, n_split = choose_splits(B, n_kv, T, _build.sm_count(q.device))
     part, counter = _workspace(
         q.device, stream,
         B * n_kv * n_split * _part_stride(rep, D), B * n_kv)

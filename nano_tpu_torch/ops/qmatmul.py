@@ -10,9 +10,13 @@ head reads the very int8 table that the embedding gather uses.)
 Two numerics forms, chosen per tensor at load (``Q80Tensor.w8a8``):
 
 * W8A8 (``q80_matmul_int8``), the default at group size >= 256: the
-  activation is quantized per group with the C engine's rounding
-  (``act_quant_q80``), then each group's int8 x int8 dot is an exact
-  int32 and the f32 combine is ``sum_g P * sa * sw`` (``q80_w8a8``).
+  activation is quantized per group with the C engine's rounding, then
+  each group's int8 x int8 dot is an exact int32 and the f32 combine is
+  ``sum_g P * sa * sw``.  One activation row (every product of a decode
+  step, and the LM head, which runs on the last position only) takes one
+  kernel with the quantization folded in (``q80_matvec_fq``); more rows
+  (prefill's layer products) take two, ``act_quant_q80`` then
+  ``q80_w8a8``.
 * rows (``q80_matmul_rows``), below group size 256: f32 dequant and an
   f32 dot — the math of the TPU kernel ``_q80_kernel``.
 
@@ -119,6 +123,12 @@ def q80_matmul_int8_plain(x: torch.Tensor, w: Q80Tensor,
     return q80_w8a8_plain(aq, sa, w, dtype)
 
 
+def q80_matvec_fq_plain(x: torch.Tensor, w: Q80Tensor,
+                        dtype=torch.bfloat16) -> torch.Tensor:
+    """What ``q80_matvec_fq`` computes, in plain PyTorch: the W8A8 form."""
+    return q80_matmul_int8_plain(x, w, dtype)
+
+
 def q80_matmul_rows_plain(x: torch.Tensor, w: Q80Tensor,
                           dtype=torch.bfloat16) -> torch.Tensor:
     """rows: x (B, K) -> (B, out) with f32 dequant and an f32 dot."""
@@ -208,10 +218,93 @@ def q80_w8a8(xq: torch.Tensor, sa: torch.Tensor, w: Q80Tensor,
 q80_w8a8.launches = 0
 
 
+# q80_matvec_fq's work split: weight bytes of one stage at most (or one
+# row), stages a block at most, the shared memory a block may take so that
+# two fit on an SM (of the H100's 227 KB), and the longest row it takes.
+MATVEC_STAGE_BYTES = 32768
+MATVEC_MAX_STAGES = 4
+MATVEC_SMEM = 112 * 1024
+MAX_MATVEC_K = 16384
+
+
+def matvec_smem(K: int, G: int, R: int, S: int) -> int:
+    """Shared memory of a q80_matvec_fq block for an f32 row (a bf16 row
+    takes 2 K bytes less), as the kernel lays it out
+    (csrc/q80_matmul.cu:mv_smem)."""
+    buf = lambda n: (n + 31) & ~15
+    return 128 + S * (R * K + buf(R * G * 4)) + buf(4 * K) + K + G * 4
+
+
+def matvec_plan(N: int, K: int, group_size: int, n_sm: int = _build.H100_SMS
+                ) -> Tuple[int, int, int, int]:
+    """-> (blocks, R, S, T) of ``q80_matvec_fq``: block b takes rows
+    [N b / blocks, N (b + 1) / blocks) in tiles of R rows round a ring of S
+    stages filled by bulk copy, T lanes a row.  From shapes alone, never
+    from a value on the device (so a launch can be captured in a CUDA
+    graph): up to two blocks an SM and at least 4 rows a block; where a
+    block walks many tiles (the head), 8 lanes a row and tiles of 32 rows,
+    one pass of the block; else a warp a row and tiles of 8 rows, so that
+    the dot of one tile runs while the next arrives; at most
+    MATVEC_STAGE_BYTES of weights a stage; as many stages as the block has
+    tiles, up to MATVEC_MAX_STAGES and within MATVEC_SMEM."""
+    G = K // group_size
+    blocks = max(1, min(2 * n_sm, -(-N // 4)))
+    per_block = -(-N // blocks)
+    T = 8 if per_block >= 64 else 32
+    R = max(1, min(256 // T, per_block, MATVEC_STAGE_BYTES // K))
+    S = min(MATVEC_MAX_STAGES, -(-per_block // R))
+    while S > 1 and matvec_smem(K, G, R, S) > MATVEC_SMEM:
+        S -= 1
+    return blocks, R, S, T
+
+
+def q80_matvec_fq(x: torch.Tensor, w: Q80Tensor, dtype=torch.bfloat16,
+                  with_act: bool = False):
+    """One raw activation row x (1, K) f32/bf16 x w -> (1, out) in
+    `dtype`: ``act_quant_q80`` then ``q80_w8a8`` in one kernel,
+    ``q80_matvec_fq`` on the card (the same int8 decisions; f32 sums in
+    another order).  with_act=True also returns the int8 row (1, G, gs)
+    and its scales (1, G) as the kernel computed them."""
+    if x.device.type == "cpu":
+        y = q80_matvec_fq_plain(x, w, dtype)
+        return (y, *act_quant_q80_plain(x, w.group_size)) if with_act else y
+    _check_weight(x, w)
+    K, N, gs = w.in_dim, w.out_dim, w.group_size
+    if (x.shape[0] != 1 or x.dtype not in _OUT_TYPES
+            or dtype not in _OUT_TYPES or K % gs
+            or not (gs == 256 or gs % 512 == 0) or K > MAX_MATVEC_K):
+        raise ValueError(f"q80_matvec_fq takes one f32/bf16 row of at most "
+                         f"{MAX_MATVEC_K} values into f32/bf16, group size "
+                         f"256 or a multiple of 512, got {x.dtype} "
+                         f"{tuple(x.shape)} -> {dtype}, gs={gs}")
+    x = x.contiguous()
+    y = torch.empty((1, N), dtype=dtype, device=x.device)
+    xq = sa = None
+    if with_act:
+        xq = torch.empty((1, K // gs, gs), dtype=torch.int8, device=x.device)
+        sa = torch.empty((1, K // gs), dtype=torch.float32, device=x.device)
+    blocks, R, S, T = matvec_plan(N, K, gs, _build.sm_count(x.device))
+    fn = _build.lib("q80_matmul").q80_matvec_fq
+    rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), w.q.data_ptr(),
+            w.scales.data_ptr(), y.data_ptr(), int(dtype == torch.bfloat16),
+            xq.data_ptr() if with_act else None,
+            sa.data_ptr() if with_act else None, K, N, gs, blocks, R, S, T,
+            _build.stream(x))
+    q80_matvec_fq.launches += 1
+    _build.check(rc, "q80_matvec_fq")
+    return (y, xq, sa) if with_act else y
+
+
+q80_matvec_fq.launches = 0
+
+
 def q80_matmul_int8(x: torch.Tensor, w: Q80Tensor,
                     dtype=torch.bfloat16) -> torch.Tensor:
-    """W8A8 form: x (B, K) -> (B, out) in `dtype`: ``act_quant_q80`` then
-    ``q80_w8a8`` (two kernels on the card)."""
+    """W8A8 form: x (B, K) -> (B, out) in `dtype`.  One row takes
+    ``q80_matvec_fq`` (one kernel on the card); more rows ``act_quant_q80``
+    then ``q80_w8a8`` (two)."""
+    if x.shape[0] == 1:
+        return q80_matvec_fq(x, w, dtype)
     xq, sa = act_quant_q80(x.contiguous(), w.group_size)
     return q80_w8a8(xq, sa, w, dtype)
 

@@ -60,6 +60,106 @@ def test_q80_kernels_match_plain(B):
                                        rtol=1e-2, atol=1e-2 * want.abs().max().item())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,gs", [(1024, 4096, 256), (2048, 1024, 256),
+                                    (1024, 6144, 256), (3072, 1024, 256),
+                                    (1024, 151936, 256), (256, 264, 256),
+                                    (1024, 384, 512)])
+def test_q80_matvec_fq_matches_plain(K, N, gs):
+    """The B = 1 W8A8 kernel with the activation quantization folded in, at
+    the five Qwen3-0.6B products and two small shapes, from f32 and bf16
+    rows (an all-zero group, .5 ties) into f32 and bf16: the int8 row and
+    scales it writes equal act_quant_q80_plain's, y is within 1e-5 of
+    max|y| of the plain version (the same integer decisions, f32 sums in
+    another order), two runs give the same bits and a bf16 y is the f32 y
+    rounded."""
+    _need_card()
+    rng = np.random.RandomState(K + N + gs)
+    q, s = _q80(rng, N, K, gs)
+    w = tqm.Q80Tensor(q=torch.from_numpy(q).cuda(),
+                      scales=torch.from_numpy(s).cuda(), group_size=gs,
+                      w8a8=True)
+    x = rng.randn(1, K).astype(np.float32) * 2
+    x[0, :9] = [127.0, 0.5, -0.5, 1.5, -2.5, 126.5, -126.5, 0.25, -0.75]
+    x[0, 9:gs] = np.clip(x[0, 9:gs], -100, 100)
+    x[0, gs:2 * gs] = 0.0 if K >= 2 * gs else x[0, gs:2 * gs]
+    x = torch.from_numpy(x).cuda()
+    for xt in (x, x.to(torch.bfloat16)):
+        pq, ps = tqm.act_quant_q80_plain(xt, gs)
+        want = tqm.q80_matvec_fq_plain(xt, w, torch.float32)
+        y, kq, ks = tqm.q80_matvec_fq(xt, w, torch.float32, with_act=True)
+        y2 = tqm.q80_matvec_fq(xt, w, torch.float32)
+        y16 = tqm.q80_matvec_fq(xt, w, torch.bfloat16)
+        torch.cuda.synchronize()
+        assert torch.equal(kq, pq) and torch.equal(ks, ps)
+        assert y.shape == (1, N) and y16.dtype == torch.bfloat16
+        assert torch.equal(y, y2)
+        assert torch.equal(y16, y.to(torch.bfloat16))
+        torch.testing.assert_close(y, want, rtol=0,
+                                   atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,gs,L", [(256, 3, 256, 3), (512, 7, 256, 2),
+                                      (1024, 5, 512, 3)])
+def test_q80_matvec_fq_takes_unaligned_scales_and_rows(K, N, gs, L):
+    """Every layer of a stacked (L, N, K) weight: past the first, the
+    layers' scales start off a 16-byte boundary, so the kernel copies their
+    ends by plain loads; a row x that starts off a 16-byte boundary (a view
+    at an odd offset) the same way.  The same integer decisions, so within
+    1e-5 of max|y| of the plain version."""
+    _need_card()
+    rng = np.random.RandomState(K + N + L)
+    q, s = _q80(rng, L * N, K, gs)
+    w = tqm.Q80Tensor(q=torch.from_numpy(q.reshape(L, N, K)).cuda(),
+                      scales=torch.from_numpy(s.reshape(L, N, K // gs)).cuda(),
+                      group_size=gs, w8a8=True)
+    buf = torch.from_numpy(rng.randn(K + 3).astype(np.float32)).cuda()
+    for i in range(L):
+        wl = w.layer(i)
+        for x in (buf[None, :K], buf[None, 3:], buf[None, 1:K + 1].to(torch.bfloat16),
+                  buf.to(torch.bfloat16)[None, 3:]):
+            y = tqm.q80_matvec_fq(x, wl, torch.float32)
+            want = tqm.q80_matvec_fq_plain(x, wl, torch.float32)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(y, want, rtol=0,
+                                       atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_q80_dispatch_sends_one_row_to_matvec_and_refuses_other_shapes():
+    _need_card()
+    rng = np.random.RandomState(5)
+    q, s = _q80(rng, 128, 512, 256)
+    w = tqm.Q80Tensor(q=torch.from_numpy(q).cuda(),
+                      scales=torch.from_numpy(s).cuda(), group_size=256,
+                      w8a8=True)
+    x = torch.randn(4, 512, device="cuda")
+    counters = (tqm.act_quant_q80, tqm.q80_w8a8, tqm.q80_matvec_fq)
+    n0 = [c.launches for c in counters]
+    one = tqm.q80_matmul(x[:1][None], w, torch.float32)      # (1, 1, K)
+    assert [c.launches - n for c, n in zip(counters, n0)] == [0, 0, 1]
+    many = tqm.q80_matmul(x, w, torch.float32)
+    assert [c.launches - n for c, n in zip(counters, n0)] == [1, 1, 1]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(one[0], many[:1], rtol=0,
+                               atol=1e-5 * many.abs().max().item())
+    w32 = tqm.Q80Tensor(q=w.q, scales=torch.rand(128, 16, device="cuda"),
+                        group_size=32, w8a8=True)
+    w768 = tqm.Q80Tensor(q=torch.zeros(8, 1536, dtype=torch.int8,
+                                       device="cuda"),
+                         scales=torch.ones(8, 2, device="cuda"),
+                         group_size=768, w8a8=True)
+    for bad in ((x, w, torch.float32),                  # two rows
+                (x[:1, :256], w, torch.float32),        # wrong width
+                (x[:1].half(), w, torch.float32),       # f16 row
+                (x[:1], w, torch.float16),              # f16 out
+                (x[:1], w32, torch.float32),            # group size 32
+                (torch.randn(1, 1536, device="cuda"), w768, torch.float32)):
+        with pytest.raises(ValueError):
+            tqm.q80_matvec_fq(*bad)
+
+
 def _decode_case(rng, B, T, n_kv, rep, D, cache_dtype, q_dtype):
     q = torch.from_numpy(rng.randn(B, n_kv * rep, D).astype(np.float32)
                          ).to("cuda", q_dtype)

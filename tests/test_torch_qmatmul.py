@@ -80,18 +80,98 @@ def test_rows_plain_matches_pallas_interpret(B, K, N, gs):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+def _matvec_row(rng, K, gs, bf16):
+    """One activation row: group 0 holds the .5 ties and the f32 edge of
+    test_act_quant_bit_equal_with_ties_and_zero_group (absmax 127, so the
+    scale is exactly 1), group 1 is all zero, the rest random; bf16=True
+    rounds it to bf16-representable f32."""
+    x = (rng.randn(1, K) * 2).astype(np.float32)
+    x[0, :gs] = 0.0
+    x[0, :9] = [127.0, 0.5, -0.5, 1.5, -2.5, 126.5, -126.5,
+                np.float32(0.49999997), -np.float32(0.49999997)]
+    x[0, gs:2 * gs] = 0.0
+    if bf16:
+        x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    return x
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("K,N,gs", [(1024, 4096, 256), (2048, 1024, 256),
+                                    (3072, 1024, 256), (1024, 384, 512)])
+def test_matvec_fq_matches_jax_int8(K, N, gs, bf16):
+    """q80_matvec_fq (its plain version on the CPU) against the JAX
+    package's act_quant_q80 + q80_matmul_int8 at the Qwen3-0.6B decode
+    shapes and gs 512, with .5 ties and an all-zero group."""
+    rng = np.random.RandomState(K + N + gs + bf16)
+    q, s = _q80(rng, N, K, gs)
+    x = _matvec_row(rng, K, gs, bf16)
+    jw = jqm.Q80Tensor(q=jnp.asarray(q), scales=jnp.asarray(s),
+                       group_size=gs).to_grouped()
+    want = np.asarray(jqm.q80_matmul_int8(jnp.asarray(x), jw, jnp.float32))
+    jq, js = jqm.act_quant_q80(jnp.asarray(x), gs)
+    tw = tqm.Q80Tensor(q=torch.from_numpy(q), scales=torch.from_numpy(s),
+                       group_size=gs, w8a8=True)
+    xt = torch.from_numpy(x)
+    got, tq, ts = tqm.q80_matvec_fq(xt, tw, torch.float32, with_act=True)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))   # bitwise
+    assert ts[0, 1] == 0 and (tq[0, 1] == 0).all()
+    assert tq[0, 0, 1] == 1 and tq[0, 0, 4] == -3 and tq[0, 0, 7] == 1
+    # the same integer decisions; only the f32 combine order differs
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+    # the dispatcher takes it for one row, with any leading dims
+    via = tqm.q80_matmul(xt[None], tw, torch.float32)
+    np.testing.assert_array_equal(via[0].numpy(), got.numpy())
+    if bf16:   # a bf16 row gives the same as its f32 copy
+        got16 = tqm.q80_matvec_fq(xt.to(torch.bfloat16), tw, torch.float32)
+        np.testing.assert_array_equal(got16.numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("N,K,gs", [(4096, 1024, 256), (1024, 2048, 256),
+                                    (6144, 1024, 256), (1024, 3072, 256),
+                                    (151936, 1024, 256), (264, 256, 256),
+                                    (384, 1024, 512), (3, 256, 256),
+                                    (1024, 16384, 256)])
+def test_matvec_plan_covers_the_rows_and_fits(N, K, gs):
+    """The kernel's work split from shapes alone: every row in exactly one
+    block, no block without rows, up to two blocks an SM, both blocks'
+    shared memory on an SM, a stage's weight bytes within its budget, the
+    head streaming through a ring of 32-row stages, and the layer products
+    in tiles of 8 rows, all in flight at once."""
+    G = K // gs
+    blocks, R, S, T = tqm.matvec_plan(N, K, gs)
+    edges = [N * b // blocks for b in range(blocks + 1)]
+    assert edges[0] == 0 and edges[-1] == N
+    assert all(b > a for a, b in zip(edges, edges[1:]))
+    sms = tqm._build.H100_SMS
+    assert 1 <= blocks <= 2 * sms and T in (8, 32)
+    if N >= 2 * sms * 4:      # every SM gets work
+        assert blocks == 2 * sms
+    assert 1 <= S <= tqm.MATVEC_MAX_STAGES and 1 <= R <= 256 // T
+    assert R * K <= max(tqm.MATVEC_STAGE_BYTES, K)
+    assert 2 * tqm.matvec_smem(K, G, R, S) <= 227 * 1024
+    if N == 151936:
+        assert (R, S, T) == (32, 3, 8)
+    elif K <= 3072 and N <= 6144:      # every tile of a block in flight at once
+        per_block = -(-N // blocks)
+        assert T == 32 and R == min(8, per_block) and R * S >= per_block
+
+
 def test_cpu_wrappers_launch_nothing():
     rng = np.random.RandomState(3)
     q, s = _q80(rng, 64, 256, 256)
     x = torch.from_numpy(rng.randn(2, 256).astype(np.float32))
-    before = (tqm.act_quant_q80.launches, tqm.q80_w8a8.launches,
-              tqm.q80_matmul_rows.launches)
+    counters = (tqm.act_quant_q80, tqm.q80_w8a8, tqm.q80_matmul_rows,
+                tqm.q80_matvec_fq)
+    before = tuple(c.launches for c in counters)
     for w8a8 in (False, True):
         tw = tqm.Q80Tensor(q=torch.from_numpy(q), scales=torch.from_numpy(s),
                            group_size=256, w8a8=w8a8)
         tqm.q80_matmul(x, tw, torch.bfloat16)
-    assert (tqm.act_quant_q80.launches, tqm.q80_w8a8.launches,
-            tqm.q80_matmul_rows.launches) == before
+        tqm.q80_matmul(x[:1], tw, torch.bfloat16)     # one row: B = 1 path
+    tqm.q80_matvec_fq(x[:1], tw, torch.float32, with_act=True)
+    assert tuple(c.launches for c in counters) == before
 
 
 def test_dequant_reference_matches_jax():
