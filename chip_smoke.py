@@ -24,15 +24,40 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   version, one PyTorch library call as a yardstick, and the
                   least time the card needs for the bytes and operations
   4. tiny fixtures tests/js/fixtures/tiny_q80.bin and tiny_q4k.bin, greedy
-                  through generate_sync, must give expected.json's streams
+                  through generate_sync (a graph replay a token) and
+                  generate_on_device (graph replays), must give
+                  expected.json's streams; tiny_q80.bin through
+                  BatchedEngine, joined after two other streams, too
   5. full width   a Qwen3-0.6B-shaped Q80 model (group size 256) and a
                   Q4K model (tied head requantized to Q80), random weights
                   from a seed, 28 layers: per model 3 requests through
                   generate_sync, generate_on_device with a 64-token prompt
-                  and 256 greedy tokens (TTFT, decode tok/s), the launch
-                  count of every kernel on the path, a profile of the
-                  decode step, and first-step logits against the plain
-                  versions on the CPU
+                  and 256 greedy tokens twice (the first call captures the
+                  decode step as a CUDA graph, the second replays it; TTFT,
+                  decode tok/s), the launch count of every kernel on the
+                  path on both calls, the stream torch.equal to the eager
+                  step loop and to a graph of GRAPH_STEPS steps, a profile
+                  of the eager loop and of the graph (wall and busy ms a
+                  step, idle share, kernels a step; each kernel's launches
+                  as the profiler saw them held to the per-step counts),
+                  and first-step logits against the plain versions on the
+                  CPU
+  5b. batching    the Q80 model in BatchedEngine: 8 prompts of 16-64
+                  tokens joining 8 steps apart, 128 greedy tokens each,
+                  the cache growing 128 -> 256, launch counts exact, one
+                  batched step's logits within BATCH_TOL of each slot's
+                  single stream; every slot's batched stream fed back a
+                  token a step through B = 8 and B = 1 (bf16; the f32
+                  witnesses: W8A8, and the rows form with no activation
+                  rounding): B = 1 reproduces the single stream up to
+                  where they part, the bf16 drift stays below the single
+                  stream's own rounding error, the rows-form drift below
+                  ROWS_DRIFT_TOL, tokens equal where the margin exceeds
+                  the bound; ms per batched step, aggregate tok/s and idle share at
+                  8 and 64 slots; and the kernels of one batched step at 8
+                  and 64 slots (the W8A8 pair, decode attention per-row
+                  positions; the Q4K pair at 8) beside one library call
+                  and the bound
   6. training     Nano-168M (config/model_168m.json: 24 layers, width 768,
                   16/8 heads of 48) under config/pretrain.json (batch 64 x
                   512, bf16, remat "ffn"), random weights from the config's
@@ -106,6 +131,10 @@ QWEN3_06B = dict(block_size=1024, vocab_size=151936, n_layer=28,
 GS = 256
 SEED = 1234
 PROMPT_LEN, N_TOKENS = 64, 256
+GRAPH_STEPS = 8                    # decode steps in one graph, measured beside 1
+BATCH_SLOTS, BATCH_NEW, BATCH_JOIN_EVERY = 8, 128, 8
+BATCH_TOL = 1e-3                   # batched vs single-stream logits, of max|logit|
+ROWS_DRIFT_TOL = 1e-3              # the same, f32 rows form, after 127 steps fed
 TRAIN_STEPS, TRAIN_EVAL_AT = 12, 6
 # operations per value of the Q4K fake-quant: max, min, add, divide, the
 # two rounding operations, the dequant multiply and subtract
@@ -159,6 +188,36 @@ class Timer:
         torch.cuda.synchronize()
         del graph
         return start.elapsed_time(end) / reps
+
+
+def profile_steps(torch, step, n, keys, expect):
+    """torch.profiler over n calls of step() -> ({kernel: busy ms in all
+    calls} for the kernels of `keys` that `expect` counts, plus "other";
+    {kernel of `keys`: launches the profiler saw in all calls}; kernels in
+    all calls; wall ms a call with the profiler on)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3 / n
+    groups = {name: 0.0 for _, name in keys if expect.get(name)}
+    groups["other"] = 0.0
+    seen = {name: 0 for _, name in keys}
+    n_kernels = 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n_kernels += e.count
+        name = next((name for sub, name in keys if sub in e.key), None)
+        if name is not None:
+            seen[name] += e.count
+        key = name if name in groups else "other"
+        groups[key] += getattr(e, "self_device_time_total", 0.0) / 1e3
+    return groups, seen, n_kernels, wall_ms
 
 
 def _shapes(cfg):
@@ -1476,10 +1535,10 @@ def main() -> int:
         f"{k['library_ms']:.4f} ms)")
     del mm4, fq4
 
-    # attention: the last step of the main path's decode (cache of 512
-    # rows, position PROMPT_LEN + N_TOKENS - 2), one call per layer on its
-    # own layer cache
-    T_main = engine._bucket(PROMPT_LEN + N_TOKENS)
+    # attention: the last step of the main path's decode (the decoder's
+    # cache of max_seq_len = 1024 rows, position PROMPT_LEN + N_TOKENS - 2),
+    # one call per layer on its own layer cache
+    T_main = QWEN3_06B["block_size"]
     p_main = PROMPT_LEN + N_TOKENS - 2
     cache = gpt.KVCache.create(cfg, 1, T_main, torch.bfloat16, dev)
     cache.k.normal_(generator=gen)
@@ -1617,11 +1676,41 @@ def main() -> int:
         for name in must_launch:
             if counts[name] == 0:
                 raise AssertionError(f"{file} path launched no {name}")
+        # the same stream by generate_on_device: graph replays, one read
+        ids = ctx.encode(expected["prompt"])
+        god = engine.generate_on_device(ctx, ids, len(want)).tolist()
+        log(f"[tiny] {file} generate_on_device (decode graph): {god}")
+        if god != want:
+            raise AssertionError(f"{file}: the graphed stream differs from "
+                                 f"expected.json")
         return counts
+
+    def tiny_batched(ctx, file, want):
+        """Through BatchedEngine: the expected prompt joins while two other
+        streams decode; it must give the solo greedy stream."""
+        from nano_tpu_torch.serve.batching import BatchedEngine
+        be = BatchedEngine(ctx, n_slots=4)
+        others = [ctx.encode(t) for t in ("abcabc", "xyz" * 5)]
+        for ids in others:
+            be.add(ids, max_new_tokens=40, temperature=0.0,
+                   repetition_penalty=1.0)
+            be.step_burst(3)
+        slot, first = be.add(ctx.encode(expected["prompt"]),
+                             max_new_tokens=len(want), temperature=0.0,
+                             repetition_penalty=1.0)
+        got = [first]
+        while be.slots[slot].active:
+            got.extend(be.step_burst(4).get(slot, []))
+        log(f"[tiny] {file} through BatchedEngine (4 slots, joined after two "
+            f"others): {got}")
+        if got != want:
+            raise AssertionError(f"{file}: the batched stream differs from "
+                                 f"the solo greedy stream")
 
     tiny_counts = tiny_stream(tiny, "tiny_q80.bin", expected["greedy"]["q80"],
                               ("q80_matmul_rows", "decode_attention"))
     kernels["q80_matmul_rows"]["launches"] = tiny_counts["q80_matmul_rows"]
+    tiny_batched(tiny, "tiny_q80.bin", expected["greedy"]["q80"])
     tiny4 = engine.LLMContext.from_bin(
         os.path.join(fix, "tiny_q4k.bin"), max_seq_len=64,
         dtype=torch.float32, sampler=greedy)
@@ -1650,9 +1739,96 @@ def main() -> int:
                     ("fake_quant_kernel", "q4k_fake_quant"),
                     ("rows_kernel", "q80_matmul_rows"))
 
-    def drive(label, p, expect):
-        """3 requests, then generate_on_device(prompt, N_TOKENS) with its
-        launch counts held to `expect`, then a profile of 32 decode steps.
+    def eager_stream(ctx, ids, n):
+        """The engine's decode step called from Python step by step (what
+        the graph captures), on a cache of the decoder's length.
+        -> (ids (n,), seconds with the prefill)."""
+        cache = ctx.new_cache(1)
+        gen = ctx.generator()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        tok_, seen = engine._prefill_first_token(ctx, ids, cache, gen)
+        pos = torch.tensor([len(ids)], dtype=torch.int32, device=dev)
+        out = torch.empty((n,), dtype=torch.int64, device=dev)
+        out[0] = tok_[0]
+        for i in range(1, n):
+            tok_ = engine._decode_step(ctx, tok_, pos, cache, seen, gen)
+            pos += 1
+            out[i] = tok_[0]
+        out = out.cpu()
+        return out.numpy(), time.time() - t0
+
+    def timed_god(ctx, ids, n):
+        """-> (generate_on_device's ids, seconds, launch counts)."""
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = engine.generate_on_device(ctx, ids, n)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        return out, secs, read()
+
+    def timed_k_graph(ctx, ids, n_replays):
+        """The context's decoder run through its graph of GRAPH_STEPS steps
+        (a graph the engine does not replay; measured beside it): prefill,
+        n_replays replays, one read.  -> (ids, seconds, launch counts)."""
+        dec = ctx.decoder()
+        reset()
+        t0 = time.time()
+        with ctx.on_stream():
+            dec.claim()
+            dec.prefill(ids)
+            graph = dec._graph(GRAPH_STEPS)
+            for _ in range(n_replays):
+                graph.run()
+            out = dec.out[:1 + GRAPH_STEPS * n_replays].cpu().numpy()
+        torch.cuda.synchronize()
+        return out, time.time() - t0, read()
+
+    def profile_line(label, kind, step, n, steps_per_call, wall_bare_ms,
+                     per_step):
+        """torch.profiler over n calls of step(), each steps_per_call decode
+        steps: card busy ms a step by kernel, kernels a step, and the idle
+        share against the step timed with the profiler off.  The launches
+        of each kernel of profile_keys that the profiler saw are a witness
+        of what the card ran, apart from the Python counters: never more
+        than per_step's count times the steps (0 where it has none), and
+        that count a step once divided by the steps and rounded (the
+        profiler's trace has lost a record now and then)."""
+        groups, seen, n_kernels, wall_ms = profile_steps(
+            torch, step, n, profile_keys, per_step)
+        wall_ms /= steps_per_call
+        busy_ms = sum(groups.values())
+        per = n * steps_per_call
+        want = {name: per_step.get(name, 0) * per for name in seen}
+        lost = sum(want.values()) - sum(seen.values())
+        log(f"[profile {label}] {kind}: launches by kernel as the profiler "
+            f"saw them {seen}; expected {want} ({lost} not in the trace)")
+        if busy_ms <= 0:
+            log(f"[profile {label}] {kind}: the profiler recorded no device "
+                f"time: not measured")
+            return None
+        if any(seen[k] > want[k] or round(seen[k] / per) * per != want[k]
+               for k in seen):
+            raise AssertionError(f"{label} {kind}: the kernels the card ran "
+                                 f"differ from the per-step counts")
+        busy_ms /= per
+        log(f"[profile {label}] {kind} ({per} steps, {card}): wall "
+            f"{wall_ms:.3f} ms/step with the profiler on, {wall_bare_ms:.3f} "
+            f"off; card busy {busy_ms:.3f} ms, idle share "
+            f"{1 - busy_ms / wall_ms:.3f} (profiler on) / "
+            f"{1 - busy_ms / wall_bare_ms:.3f} (off), {n_kernels / per:.0f} "
+            f"kernels per step; busy ms per step by kernel: "
+            + ", ".join(f"{k} {v / per:.3f}" for k, v in groups.items()))
+        return busy_ms
+
+    def drive(label, p, expect_for):
+        """3 requests; generate_on_device(prompt, N_TOKENS) twice (the
+        first captures the decode graph, the second only replays it), each
+        with its launch counts held to expect_for(N_TOKENS - 1) (the counts
+        of a prefill and that many decode steps); the same stream from the
+        eager step loop, torch.equal; the graph of GRAPH_STEPS steps; and a
+        profile of the eager loop and of the graph in the same call.
         -> (ctx, generated ids, launches of the requests + the run)."""
         ctx = engine.LLMContext(
             cfg=cfg, params=p, tokenizer=tok, max_seq_len=cfg.block_size,
@@ -1669,7 +1845,8 @@ def main() -> int:
             log(f"[full {label}] request prompt {len(pr)} tokens -> "
                 f"{len(sess.output_ids)} tokens (budget {m}), "
                 f"{len(''.join(parts))} characters streamed, first ids "
-                f"{sess.output_ids[:8]}, {sess.tps:.1f} tok/s")
+                f"{sess.output_ids[:8]}, {sess.tps:.1f} tok/s (Session: one "
+                f"graph replay and one token read a step)")
             if not sess.output_ids or max(sess.output_ids) >= cfg.vocab_size:
                 raise AssertionError("request produced no or out-of-range "
                                      "tokens")
@@ -1677,75 +1854,96 @@ def main() -> int:
         log(f"[full {label}] 3 requests in {time.time() - t0:.2f} s; "
             f"launches {req_counts}")
 
+        expect = expect_for(N_TOKENS - 1)
+        per_step = {n: expect_for(1)[n] - expect_for(0)[n] for n in names}
         torch.cuda.synchronize()
         t0 = time.time()
         first = engine.generate_on_device(ctx, prompt, 1)
         ttft_ms = (time.time() - t0) * 1e3
-        reset()
-        t0 = time.time()
-        out = engine.generate_on_device(ctx, prompt, N_TOKENS)
-        torch.cuda.synchronize()
-        t_all = time.time() - t0
-        god_counts = read()
-        decode_tok_s = (N_TOKENS - 1) / max(t_all - ttft_ms / 1e3, 1e-9)
+        out1, secs1, counts1 = timed_god(ctx, prompt, N_TOKENS)
+        out, t_all, god_counts = timed_god(ctx, prompt, N_TOKENS)
+        graph_tok_s = (N_TOKENS - 1) / max(t_all - ttft_ms / 1e3, 1e-9)
         log(f"[full {label}] generate_on_device prompt {PROMPT_LEN}, "
-            f"{N_TOKENS} greedy tokens on {card}: TTFT {ttft_ms:.2f} ms, "
-            f"total {t_all:.3f} s, decode {decode_tok_s:.2f} tok/s; first "
-            f"ids {out[:8].tolist()}")
-        if out.shape != (N_TOKENS,) or out[0] != first[0]:
+            f"{N_TOKENS} greedy tokens on {card}, decode graph of 1 step: "
+            f"TTFT {ttft_ms:.2f} ms, first call (warm-up step + capture) "
+            f"{secs1:.3f} s, second (replays) {t_all:.3f} s, decode "
+            f"{graph_tok_s:.2f} tok/s; first ids {out[:8].tolist()}")
+        if (out.shape != (N_TOKENS,) or out[0] != first[0]
+                or not np.array_equal(out, out1)):
             raise AssertionError("generate_on_device output malformed")
-        log(f"[full {label}] launches {god_counts}; expected {expect}")
-        if god_counts != expect:
+        log(f"[full {label}] launches {god_counts}; first call {counts1}; "
+            f"expected {expect}")
+        if god_counts != expect or counts1 != expect:
             raise AssertionError("launch counts differ from the per-step "
                                  "counts")
 
-        # where a decode step's time goes: torch.profiler over 32 steps of
-        # the same path (kernel time on the card vs the host's wall clock)
-        from torch.profiler import ProfilerActivity, profile
-        pcache = ctx.new_cache(1, seq_len=T_main)
+        eager, eager_s = eager_stream(ctx, prompt, N_TOKENS)
+        eager_tok_s = (N_TOKENS - 1) / max(eager_s - ttft_ms / 1e3, 1e-9)
+        log(f"[full {label}] the eager step loop: {eager_tok_s:.2f} tok/s "
+            f"({eager_s:.3f} s); graphed stream torch.equal to it: "
+            f"{np.array_equal(eager, out)}")
+        if not torch.equal(torch.from_numpy(eager),
+                           torch.from_numpy(out.astype(np.int64))):
+            raise AssertionError(f"{label}: the graphed stream differs from "
+                                 f"the eager step loop")
+
+        n_rep = (N_TOKENS - 1) // GRAPH_STEPS
+        k_steps = GRAPH_STEPS * n_rep
+        outk, _, countsk = timed_k_graph(ctx, prompt, n_rep)
+        outk2, tk, _ = timed_k_graph(ctx, prompt, n_rep)
+        k_tok_s = k_steps / max(tk - ttft_ms / 1e3, 1e-9)
+        log(f"[full {label}] decode graph of {GRAPH_STEPS} steps: "
+            f"{k_tok_s:.2f} tok/s ({tk:.3f} s for {k_steps} steps), stream "
+            f"torch.equal: {np.array_equal(outk2, out[:k_steps + 1])}; "
+            f"launches {countsk}")
+        if not (np.array_equal(outk, out[:k_steps + 1])
+                and np.array_equal(outk2, outk)
+                and countsk == expect_for(k_steps)):
+            raise AssertionError(f"{label}: the {GRAPH_STEPS}-step graph "
+                                 f"differs")
+
+        # where a decode step's time goes, the eager loop and the graph in
+        # the same call: 32 steps each from position PROMPT_LEN
+        n_prof = 32
+        pcache = ctx.new_cache(1)
         pgen = ctx.generator()
         ptok, pseen = engine._prefill_first_token(ctx, prompt, pcache, pgen)
-        torch.cuda.synchronize()
-        n_prof = 32
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.time()
-            for i in range(n_prof):
-                ptok = engine._decode_step(ctx, ptok, PROMPT_LEN + i, pcache,
-                                           pseen, pgen)
-            torch.cuda.synchronize()
-            wall_ms = (time.time() - t0) * 1e3 / n_prof
-        groups = {name: 0.0 for _, name in profile_keys
-                  if expect.get(name)}
-        groups["other"] = 0.0
-        n_kernels = 0
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            us = getattr(e, "self_device_time_total", 0.0)
-            n_kernels += e.count
-            key = next((name for sub, name in profile_keys
-                        if sub in e.key and name in groups), "other")
-            groups[key] += us / 1e3 / n_prof
-        busy_ms = sum(groups.values())
-        if busy_ms > 0:
-            log(f"[profile {label}] decode step (profiler on, {n_prof} "
-                f"steps, {card}): wall {wall_ms:.3f} ms, card busy "
-                f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
-                f"{n_kernels / n_prof:.0f} kernels per step; busy ms per "
-                f"step by kernel: "
-                + ", ".join(f"{k} {v:.3f}" for k, v in groups.items()))
-        else:
-            log(f"[profile {label}] the profiler recorded no device time: "
-                f"not measured")
+        ppos = torch.tensor([PROMPT_LEN], dtype=torch.int32, device=dev)
+
+        def eager_step():
+            nonlocal ptok
+            ptok = engine._decode_step(ctx, ptok, ppos, pcache, pseen, pgen)
+            ppos.add_(1)
+
+        eager_ms = (eager_s - ttft_ms / 1e3) * 1e3 / (N_TOKENS - 1)
+        graph_ms = (t_all - ttft_ms / 1e3) * 1e3 / (N_TOKENS - 1)
+        k_ms = (tk - ttft_ms / 1e3) * 1e3 / k_steps
+        profile_line(label, "eager step loop", eager_step, n_prof, 1,
+                     eager_ms, per_step)
         del pcache
+        dec = ctx.decoder()
+        with ctx.on_stream():
+            dec.claim()
+            dec.prefill(prompt)
+            profile_line(label, "decode graph, 1 step a replay",
+                         dec._graph().run, n_prof, 1, graph_ms, per_step)
+            dec.prefill(prompt)
+            profile_line(label, f"decode graph, {GRAPH_STEPS} steps a "
+                         f"replay", dec._graph(GRAPH_STEPS).run,
+                         n_prof // GRAPH_STEPS, GRAPH_STEPS, k_ms, per_step)
+        log(f"[decode {label}] {card}: eager {eager_tok_s:.2f} tok/s "
+            f"({eager_ms:.3f} ms/step), graph {graph_tok_s:.2f} tok/s "
+            f"({graph_ms:.3f} ms/step), graph of {GRAPH_STEPS} steps "
+            f"{k_tok_s:.2f} tok/s ({k_ms:.3f} ms/step), TTFT {ttft_ms:.2f} ms")
         return ctx, out, {n: req_counts[n] + god_counts[n] for n in names}
 
-    n_steps = N_TOKENS - 1
-    expect80 = {n: 0 for n in names}
-    expect80.update(q80_act_quant=112, q80_matmul_w8a8=112,
-                    q80_matvec_fq=113 * n_steps + 1,
-                    decode_attention=28 * n_steps)
+    def expect80(steps):
+        """Launches of a Q80 prefill (64 rows) and `steps` decode steps."""
+        e = {n: 0 for n in names}
+        e.update(q80_act_quant=112, q80_matmul_w8a8=112,
+                 q80_matvec_fq=113 * steps + 1, decode_attention=28 * steps)
+        return e
+
     log("[full Q80] expected launches: 113 Q80 matmuls = 4 x 28 + head per "
         "forward; the prefill's 112 layer products (64 rows) as "
         "q80_act_quant + q80_matmul_w8a8, its head (the last row only) and "
@@ -1758,10 +1956,14 @@ def main() -> int:
         if counts80[name] == 0:
             raise AssertionError(f"main path launched no {name}")
 
-    expect4 = {n: 0 for n in names}
-    expect4.update(q4k_matmul=112, q4k_fake_quant=112 + N_TOKENS,
-                   q4k_matvec_fq=112 * n_steps, q80_matvec_fq=N_TOKENS,
-                   decode_attention=28 * n_steps)
+    def expect4(steps):
+        """Launches of a Q4K prefill and `steps` decode steps."""
+        e = {n: 0 for n in names}
+        e.update(q4k_matmul=112, q4k_fake_quant=112 + 1 + steps,
+                 q4k_matvec_fq=112 * steps, q80_matvec_fq=1 + steps,
+                 decode_attention=28 * steps)
+        return e
+
     log("[full Q4K] expected launches: 112 Q4K matmuls = 4 x 28 per forward, "
         "as q4k_matvec_fq (fake-quant folded in) in a decode step and as "
         "q4k_fake_quant + q4k_matmul in the prefill; one fake-quant before "
@@ -1772,6 +1974,390 @@ def main() -> int:
         kernels[name]["launches"] = counts4[name]
         if counts4[name] == 0:
             raise AssertionError(f"Q4K path launched no {name}")
+
+    # ---------------- 5b. continuous batching ----------------
+    # Qwen3-0.6B Q80, BATCH_SLOTS slots: a prompt of 16-64 tokens joins
+    # every BATCH_JOIN_EVERY steps, each stream BATCH_NEW greedy tokens, the
+    # cache growing 128 -> 256; bursts of graph replays.
+    from nano_tpu_torch.serve.batching import BatchedEngine
+    bctx = engine.LLMContext(
+        cfg=cfg, params=params, tokenizer=tok, max_seq_len=cfg.block_size,
+        device=dev, dtype=torch.bfloat16, sampler=greedy,
+        stop_tokens=QWEN_STOP_TOKENS, arch="qwen3")
+    brng = np.random.default_rng(SEED + 3)
+    joins = [brng.integers(100, 30000, int(m)).tolist()
+             for m in brng.integers(16, 65, BATCH_SLOTS)]
+    be = BatchedEngine(bctx, n_slots=BATCH_SLOTS)
+    streams, order, n_bsteps, caps = {}, [], 0, [be._cache_len()]
+
+    def burst():
+        nonlocal n_bsteps
+        for sl, ts in be.step_burst(BATCH_JOIN_EVERY).items():
+            streams[sl].extend(ts)
+        n_bsteps += BATCH_JOIN_EVERY
+        caps.append(be._cache_len())
+
+    reset()
+    t0 = time.time()
+    for pr in joins:
+        slot, first = be.add(pr, max_new_tokens=BATCH_NEW, temperature=0.0,
+                             repetition_penalty=1.0)
+        streams[slot] = [] if first is None else [first]
+        order.append(slot)
+        burst()
+    while be.n_active:
+        burst()
+    torch.cuda.synchronize()
+    b_secs = time.time() - t0
+    b_counts = read()
+    n_j = len(joins)
+    expect_b = {n: 0 for n in names}
+    expect_b.update(q80_act_quant=112 * n_j + 113 * n_bsteps,
+                    q80_matmul_w8a8=112 * n_j + 113 * n_bsteps,
+                    q80_matvec_fq=n_j, decode_attention=28 * n_bsteps)
+    full_len = all(len(streams[sl]) == BATCH_NEW for sl in order)
+    log(f"[batch] Qwen3-0.6B Q80, {BATCH_SLOTS} slots, {n_j} prompts of "
+        f"{[len(p_) for p_ in joins]} tokens joining every "
+        f"{BATCH_JOIN_EVERY} steps, {BATCH_NEW} tokens each: {n_bsteps} "
+        f"batched steps in {b_secs:.2f} s ({card}), capacities "
+        f"{sorted(set(caps))}; launches {b_counts}; expected {expect_b} "
+        f"(112 pair products + a one-row head per join's prefill, 113 pair "
+        f"products and 28 attentions per batched step)")
+    if b_counts != expect_b:
+        raise AssertionError("batched launch counts differ from the per-step "
+                             "counts")
+    for name in ("q80_act_quant", "q80_matmul_w8a8", "decode_attention"):
+        if b_counts[name] == 0:
+            raise AssertionError(f"the batching path launched no {name}")
+    if full_len and sorted(set(caps)) != [128, 256]:
+        raise AssertionError("the cache did not grow 128 -> 256")
+    for sl in order:
+        be.release(sl)
+    if be._cache_len() != 128:
+        raise AssertionError("the cache did not reset when the engine went "
+                             "idle")
+
+    # one batched step's logits against each slot's single stream (B = 1:
+    # q80_matvec_fq; B = 8: the W8A8 pair): the same int8 decisions, f32
+    # sums in another order -> within BATCH_TOL of max|logit|
+    for i, pr in enumerate(joins):
+        if be.add(pr, max_new_tokens=2, temperature=0.0,
+                  repetition_penalty=1.0)[0] != i:
+            raise AssertionError("a released slot was not free")
+    c_b = gpt.KVCache(*(None if t_ is None else t_.clone() for t_ in (
+        be.cache.k, be.cache.v, be.cache.k_scale, be.cache.v_scale)))
+    lb, _ = gpt.forward_decode_batched(params, be.tok.clone(), c_b,
+                                       be.pos.clone(), cfg, torch.bfloat16,
+                                       bctx.rope_tables())
+    worst_rel = 0.0
+    for i, pr in enumerate(joins):
+        c1 = bctx.new_cache(1, seq_len=be._cache_len())
+        t1, _ = engine._prefill_first_token(bctx, pr, c1, bctx.generator())
+        l1, _ = gpt.forward_with_cache(params, t1[:, None], c1, len(pr), cfg,
+                                       torch.bfloat16, rope=bctx.rope_tables())
+        l1 = l1[0, 0]
+        if int(t1[0]) != int(be.tok[i]):
+            raise AssertionError(f"slot {i}: the first token differs")
+        worst_rel = max(worst_rel, ((lb[i] - l1).abs().max()
+                                    / l1.abs().max()).item())
+    for i in range(BATCH_SLOTS):
+        be.release(i)
+    del c_b
+    log(f"[batch] one batched step's logits vs each slot's single stream: "
+        f"worst max|d|/max|ref| {worst_rel:.3e} (tol {BATCH_TOL})")
+    if not worst_rel <= BATCH_TOL:
+        raise AssertionError("batched logits disagree with the single stream")
+
+    # every slot's stream against its single stream.  They are equal up to
+    # the first step d where they part, if they part; after d their
+    # histories differ, so the two paths are compared on one history: each
+    # slot's batched stream fed back a token a step through B = 8 (row s
+    # stream s; the W8A8 pair) and through B = 1 (q80_matvec_fq), logits of
+    # every step kept.  Checks: B = 1 reproduces the single stream up to d
+    # (the same arithmetic); the drift max|l8 - l1|/max|l1| of each slot
+    # stays below the single stream's own rounding error, its distance
+    # from the same B = 1 path in f32 with no activation rounding (the
+    # rows form); tokens agree wherever the B = 1 top-2 margin exceeds that
+    # bound.  Two f32 witnesses fed the same history: the W8A8 path with
+    # f32 activations and cache (only the int8 activation rounding left)
+    # and the rows form (no activation rounding: only f32 sums in another
+    # order), whose drift must stay below ROWS_DRIFT_TOL.
+    def rows_form(p):
+        """The same weights (shared storage) with every Q80 tensor in the
+        rows form."""
+        conv = lambda v: (replace(v, w8a8=False)
+                          if isinstance(v, qmatmul.Q80Tensor) else v)
+        out = {**p, "blocks": {k: conv(v) for k, v in p["blocks"].items()},
+               "tok_embeddings": conv(p["tok_embeddings"])}
+        out["output_q"] = (out["tok_embeddings"]
+                           if p["output_q"] is p["tok_embeddings"]
+                           else conv(p["output_q"]))
+        return out
+
+    def forced(fctx, fparams, B, feed, lens_prompts):
+        """Logits (n, S, V) f32 of every step when the streams' tokens feed
+        (n, S) are fed a step at a time after their prompts: in one forward
+        of B = S rows (row s stream s) or, B = 1, each stream alone.  The
+        step is a DecodeGraph (warm-up, capture, replays)."""
+        n, S = feed.shape
+        V = cfg.vocab_size
+        rec = torch.empty((n, S, V), device=dev)
+        c = fctx.new_cache(B)
+        tok_ = torch.zeros((B,), dtype=torch.int64, device=dev)
+        pos_ = torch.zeros((B,), dtype=torch.int32, device=dev)
+        i_ = torch.zeros((1,), dtype=torch.int64, device=dev)
+        col = torch.zeros((n, B), dtype=torch.int64, device=dev)
+        out_ = torch.empty((n, B, V), device=dev)
+
+        def step():
+            tok_.copy_(col.index_select(0, i_)[0])
+            lg, _ = gpt.forward_decode_batched(fparams, tok_, c, pos_, cfg,
+                                               fctx.dtype, fctx.rope_tables())
+            out_.index_copy_(0, i_, lg.float()[None])
+            pos_.add_(1)
+            i_.add_(1)
+
+        graph = engine.DecodeGraph(step, dev, 1, None, fctx.graph_pool())
+        groups = ([list(range(S))] if B == S else [[s_] for s_ in range(S)])
+        with fctx.on_stream():
+            for g in groups:
+                for r, s_ in enumerate(g):
+                    c1 = fctx.new_cache(1)
+                    engine._prefill(fctx, lens_prompts[s_], c1)
+                    for dst, src in zip(BatchedEngine._tensors(c),
+                                        BatchedEngine._tensors(c1)):
+                        dst[:, r] = src[:, 0]
+                    pos_[r] = len(lens_prompts[s_])
+                    col[:, r] = feed[:, s_]
+                i_.zero_()
+                for _ in range(n):
+                    graph.run()
+                rec[:, g] = out_
+        torch.cuda.synchronize()
+        del graph
+        return rec
+
+    def rel(a, b):
+        return ((a - b).abs().amax(-1) / b.abs().amax(-1))     # (n, S)
+
+    solos, parts = [], []
+    for slot, pr in zip(order, joins):
+        got = streams[slot]
+        solo = engine.generate_on_device(bctx, pr, len(got)).tolist()
+        solos.append(solo)
+        parts.append(next((j for j, (a_, b_) in enumerate(zip(got, solo))
+                           if a_ != b_), len(got)))
+    n_f = min(len(streams[sl]) for sl in order) - 1
+    feed = torch.tensor([streams[sl][:n_f] for sl in order], device=dev).t()
+    f32ctx = engine.LLMContext(
+        cfg=cfg, params=params, tokenizer=tok, max_seq_len=cfg.block_size,
+        device=dev, dtype=torch.float32, sampler=greedy,
+        stop_tokens=QWEN_STOP_TOKENS, arch="qwen3")
+    t0 = time.time()
+    fed = {}
+    for kind, fp in (("bf16", params), ("f32 W8A8", params),
+                     ("f32 rows", rows_form(params))):
+        fctx = bctx if kind == "bf16" else f32ctx
+        l8 = forced(fctx, fp, BATCH_SLOTS, feed, joins)
+        l1 = forced(fctx, fp, 1, feed, joins)
+        top2 = l1.topk(2, dim=-1).values
+        fed[kind] = dict(drift=rel(l8, l1), a8=l8.argmax(-1),
+                         a1=l1.argmax(-1),
+                         margin=(top2[..., 0] - top2[..., 1])
+                         / l1.abs().amax(-1))
+        del l8, top2
+        if kind == "bf16":
+            l1_bf16 = l1
+        elif kind == "f32 rows":
+            fed["bf16"]["noise"] = rel(l1_bf16, l1)
+        del l1
+        torch.cuda.empty_cache()
+    del l1_bf16, f32ctx
+    f_secs = time.time() - t0
+    fb, fw, fr = fed["bf16"], fed["f32 W8A8"], fed["f32 rows"]
+    want_next = feed[1:].t().cpu()          # (S, n_f - 1): what each fed
+    drift_b, noise_b = fb["drift"].cpu(), fb["noise"].cpu()
+    drift_w, drift_r = fw["drift"].cpu(), fr["drift"].cpu()
+    a1_b, a8_b, margin_b = fb["a1"].cpu(), fb["a8"].cpu(), fb["margin"].cpu()
+    failures = []
+    for s_, (slot, d) in enumerate(zip(order, parts)):
+        J = min(d, n_f)
+        single_ok = a1_b[:J, s_].tolist() == solos[s_][1:J + 1]
+        bound_ = noise_b[:, s_].max().item()
+        sure = margin_b[:, s_] > bound_
+        tok_ok = torch.equal(a8_b[sure, s_], a1_b[sure, s_])
+        own = int((a8_b[:n_f - 1, s_] == want_next[s_]).sum())
+        log(f"[batch] slot {slot}: parts from its single stream at step {d} "
+            f"of {len(streams[slot])}; fed its batched stream for {n_f} "
+            f"steps: B = 1 reproduces the single stream up to the parting "
+            f"{single_ok}; drift max|l8 - l1|/max|l1| bf16 "
+            f"{drift_b[:, s_].max().item():.3e} (bound: the B = 1 bf16 path "
+            f"against its f32 rows form {bound_:.3e}), f32 W8A8 "
+            f"{drift_w[:, s_].max().item():.3e}, f32 rows "
+            f"{drift_r[:, s_].max().item():.3e} (tol {ROWS_DRIFT_TOL}); "
+            f"tokens equal at the {int(sure.sum())} steps whose top-2 margin "
+            f"exceeds the bound {tok_ok}; B = 8 gives the batched stream's "
+            f"own next token at {own} of {n_f - 1} steps")
+        if not single_ok:
+            failures.append(f"slot {slot}: B = 1 fed the stream does not "
+                            f"reproduce the single stream")
+        if not drift_b[:, s_].max().item() <= bound_:
+            failures.append(f"slot {slot}: the bf16 drift exceeds the single "
+                            f"stream's rounding error")
+        if not tok_ok:
+            failures.append(f"slot {slot}: tokens differ where the margin "
+                            f"exceeds the bound")
+        if not drift_r[:, s_].max().item() <= ROWS_DRIFT_TOL:
+            failures.append(f"slot {slot}: the rows-form drift exceeds "
+                            f"ROWS_DRIFT_TOL")
+    at = [j for j in (0, 15, 31, 63, 95, n_f - 1) if j < n_f]
+    for kind, dr in (("bf16", drift_b), ("f32 W8A8", drift_w),
+                     ("f32 rows", drift_r), ("bf16 vs f32 rows (B = 1)",
+                                             noise_b)):
+        log(f"[batch] drift {kind}, max over the slots after "
+            + ", ".join(f"{j + 1}: {dr[j].max().item():.3e}" for j in at)
+            + " steps fed")
+    log(f"[batch] streams equal to their single streams for {parts} of "
+        f"{[len(streams[sl]) for sl in order]} tokens; the fed comparison "
+        f"took {f_secs:.1f} s ({card})")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    del fed, fb, fw, fr
+
+    def throughput(n_slots):
+        """Every slot decoding from a 32-token prompt: bursts of 16 replays
+        timed, then one profiled; -> aggregate tok/s."""
+        eng_ = BatchedEngine(bctx, n_slots=n_slots)
+        trng = np.random.default_rng(SEED + n_slots)
+        for _ in range(n_slots):
+            eng_.add(trng.integers(100, 30000, 32).tolist(),
+                     max_new_tokens=10 ** 6, temperature=0.0,
+                     repetition_penalty=1.0)
+        eng_.step_burst(8)                      # warm-up step + capture
+        torch.cuda.synchronize()
+        t0_ = time.time()
+        res = [eng_.step_burst(16) for _ in range(3)]
+        secs = time.time() - t0_
+        got = sum(len(v) for r in res for v in r.values())
+        ms_step = secs * 1e3 / 48
+        busy = profile_line(f"batch {n_slots}", f"{n_slots} slots, bursts of "
+                            f"16 graph replays", lambda: eng_.step_burst(16),
+                            1, 16, ms_step,
+                            dict(q80_act_quant=113, q80_matmul_w8a8=113,
+                                 decode_attention=28))
+        idle = "not measured" if busy is None else f"{1 - busy / ms_step:.3f}"
+        log(f"[batch] {n_slots} slots, Qwen3-0.6B Q80, positions 40-88 "
+            f"({card}): {ms_step:.3f} ms per batched step, {got / secs:.1f} "
+            f"tok/s aggregate ({got} tokens in {secs:.3f} s), idle share "
+            f"{idle}")
+        del eng_
+        torch.cuda.empty_cache()
+
+    for n_slots in (8, 64):
+        throughput(n_slots)
+    del be, bctx
+
+    # §6 rows: the kernels of one batched step at 8 and 64 slots beside one
+    # library call and the bound
+    prods = [wl for _, w in shapes for wl in layer_weights(w)]
+    wds = [wl.dequantize(torch.bfloat16) for wl in prods]
+    for B in (8, 64):
+        xs = [torch.randn(B, wl.in_dim, device=dev, generator=gen
+                          ).to(torch.bfloat16) for wl in prods]
+
+        def run_pair_b():
+            for x, wl in zip(xs, prods):
+                qmatmul.q80_w8a8(*qmatmul.act_quant_q80(x, GS), wl,
+                                 torch.bfloat16)
+
+        def run_lib_b():
+            for x, wd in zip(xs, wds):
+                torch.matmul(x, wd.t())
+
+        k_ms, l_ms = timer(run_pair_b), timer(run_lib_b)
+        nb = sum(wl.q.numel() + 4 * wl.scales.numel()
+                 + 2 * B * (wl.in_dim + wl.out_dim) for wl in prods)
+        b_ms, b_by = bound(nb, sum(2 * B * wl.q.numel() for wl in prods),
+                           INT8_OPS_PER_S)
+        log(f"[batched kernels] B={B}: W8A8 pair (q80_act_quant + "
+            f"q80_matmul_w8a8, {len(prods)} launches each, a step's products "
+            f"and the head): {k_ms:.4f} ms; bf16 torch.matmul on weights "
+            f"dequantized ahead {l_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}, "
+            f"{nb / 1e6:.1f} MB); {card}")
+        del xs
+    del wds
+
+    T_b = 256
+    for B in (8, 64):
+        caches = [(torch.randn(B, T_b, KV, D, device=dev, generator=gen
+                               ).to(torch.bfloat16),
+                   torch.randn(B, T_b, KV, D, device=dev, generator=gen
+                               ).to(torch.bfloat16)) for _ in range(L)]
+        qs = [torch.randn(B, H, D, device=dev, generator=gen
+                          ).to(torch.bfloat16) for _ in range(L)]
+        pos_b = torch.randint(T_b // 4, T_b, (B,), dtype=torch.int32,
+                              device=dev, generator=gen)
+        tr = [(k_.transpose(1, 2).contiguous(), v_.transpose(1, 2).contiguous())
+              for k_, v_ in caches]
+        amask = (torch.arange(T_b, device=dev)[None, :]
+                 <= pos_b[:, None].long())[:, None, None, :]
+        for i in range(2):
+            out = decode_attn.decode_attention(qs[i], *caches[i], None, None,
+                                               pos_b, KV, H // KV)
+            ref = decode_attn.decode_attention_plain(qs[i], *caches[i], None,
+                                                     None, pos_b, KV, H // KV)
+            if not torch.allclose(out, ref, rtol=2e-5, atol=2e-5):
+                raise AssertionError(f"decode_attention B={B} off")
+
+        def run_k2_b():
+            for q_, (k_, v_) in zip(qs, caches):
+                decode_attn.decode_attention(q_, k_, v_, None, None, pos_b,
+                                             KV, H // KV).to(torch.bfloat16)
+
+        def run_sdpa_b():
+            for q_, (k_, v_) in zip(qs, tr):
+                F.scaled_dot_product_attention(q_[:, :, None, :], k_, v_,
+                                               attn_mask=amask,
+                                               enable_gqa=True)
+
+        k_ms, l_ms = timer(run_k2_b), timer(run_sdpa_b)
+        rows_read = int((pos_b.long() + 1).sum())
+        b_ms, b_by = bound(L * (rows_read * KV * D * 2 * 2 + B * H * D * 4),
+                           L * 4 * rows_read * H * D, F32_OPS_PER_S)
+        log(f"[batched kernels] B={B}: decode_attention ({L} launches, bf16 "
+            f"cache T={T_b}, positions {T_b // 4}-{T_b - 1} a row, bf16 q, "
+            f"result cast) {k_ms:.4f} ms; SDPA(enable_gqa, a mask a row) "
+            f"{l_ms:.4f} ms; ratio {k_ms / l_ms:.2f}; bound {b_ms:.4f} ms "
+            f"({b_by}); {card}")
+        del caches, tr, qs
+
+    prods4 = [wl for name in ("wqkv", "wo", "w13", "w2")
+              for wl in layer_weights(params4["blocks"][name])]
+    wds4 = [wl.dequantize(torch.bfloat16) for wl in prods4]
+    B = 8
+    xs = [torch.randn(B, wl.in_dim, device=dev, generator=gen
+                      ).to(torch.bfloat16) for wl in prods4]
+
+    def run_q4_pair():
+        for x, wl in zip(xs, prods4):
+            q4k.q4k_matmul_f32(q4k.fake_quant_act(x), wl, torch.bfloat16)
+
+    def run_q4_lib():
+        for x, wd in zip(xs, wds4):
+            torch.matmul(x, wd.t())
+
+    k_ms, l_ms = timer(run_q4_pair), timer(run_q4_lib)
+    nb = sum(wl.packed.numel() + 8 * wl.scales.numel()
+             + 2 * B * (wl.in_dim + wl.out_dim) for wl in prods4)
+    b_ms, b_by = bound(nb, sum(2 * B * wl.out_dim * wl.in_dim for wl in prods4)
+                       + FQ_OPS_PER_VALUE * B * sum(wl.in_dim for wl in prods4),
+                       F32_OPS_PER_S)
+    log(f"[batched kernels] B={B}: Q4K pair (q4k_fake_quant + q4k_matmul, "
+        f"{len(prods4)} launches each, a step's layer products) {k_ms:.4f} "
+        f"ms; bf16 torch.matmul on weights dequantized ahead {l_ms:.4f} ms; "
+        f"bound {b_ms:.4f} ms ({b_by}, {nb / 1e6:.1f} MB); {card}")
+    del xs, wds4, prods4, prods
+    torch.cuda.empty_cache()
 
     # first-step logits, kernels on the card vs plain versions on the CPU
     # (weights moved to the CPU), both in the f32 oracle dtype.
@@ -1790,18 +2376,6 @@ def main() -> int:
     rope_g = gpt.precompute_rope(cfg.head_dim, 128, cfg.rope_theta, dev)
     rope_c = tuple(r.cpu() for r in rope_g)
     ids = torch.tensor([prompt], dtype=torch.int64)
-
-    def rows_form(p):
-        """The same weights (shared storage) with every Q80 tensor in the
-        rows form."""
-        conv = lambda v: (replace(v, w8a8=False)
-                          if isinstance(v, qmatmul.Q80Tensor) else v)
-        out = {**p, "blocks": {k: conv(v) for k, v in p["blocks"].items()},
-               "tok_embeddings": conv(p["tok_embeddings"])}
-        out["output_q"] = (out["tok_embeddings"]
-                           if p["output_q"] is p["tok_embeddings"]
-                           else conv(p["output_q"]))
-        return out
 
     def pad_only(x2d):
         """The activation as K3 takes it, without the fake-quant."""
@@ -1834,21 +2408,25 @@ def main() -> int:
         for p, d, rope in ((gp, dev, rope_g), (cp, "cpu", rope_c)):
             cos, sin = rope[0][start:start + S], rope[1][start:start + S]
             mask = pos_t = None
+            row = start
             if S > 1:
                 j = torch.arange(start + S, device=d)[None, :]
                 seen = j <= start + torch.arange(S, device=d)[:, None]
                 mask = torch.where(seen, 0.0, -float("inf"))
             else:
+                # decode: the position on the device, and the cache row
+                # (batch row 0) it writes
                 pos_t = torch.full((1,), start, dtype=torch.int32, device=d)
-            per_dev.append((p, cos, sin, mask, pos_t))
+                row = pos_t.long()
+            per_dev.append((p, cos, sin, mask, pos_t, row))
         attn_len = start + S if S > 1 else None
         for i in range(L):
             outs = []
-            for (p, cos, sin, mask, pos_t), c, x in zip(
+            for (p, cos, sin, mask, pos_t, row), c, x in zip(
                     per_dev, caches, (h, h.cpu())):
                 outs.append(gpt.block(
                     x, gpt.layer_params(p["blocks"], i), cfg, cos, sin, mask,
-                    f32, c.layer(i), start, pos_t, attn_len))
+                    f32, c.layer(i), row, pos_t, attn_len))
             worst = max(worst, ((outs[0].cpu() - outs[1]).abs().max()
                                 / outs[1].abs().max()).item())
             h = outs[0]

@@ -16,7 +16,9 @@ module of ``nano_tpu``: what it needs from there it keeps as its own copy.
                backward) with their plain PyTorch versions, samplers
   models     — GPT forward with a KV cache (prefill + decode) and the
                full-sequence training forward, loss and init
-  infer      — LLMContext / Session / generate_sync / generate_on_device
+  infer      — LLMContext / Session / generate_sync / generate_on_device;
+               the decode step captured as a CUDA graph and replayed
+  serve      — continuous batching (BatchedEngine)
   train      — DataLoader, AdamW, Trainer; ``python -m nano_tpu_torch.train``
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

@@ -9,17 +9,29 @@ token).
 
 Prompts are padded to power-of-two buckets and the prefill computes the
 LM head only at the last prompt position (``last_idx``), as in the JAX
-engine, so both compare the same positions.  PyTorch runs eagerly: the
-decode loop is a Python loop (no ``lax.scan``), and the decode attention
-reads only the rows up to the current position, so the per-segment
-``attn_len`` buckets of the JAX scan have no counterpart here.
-Speculative decode, LoRA, batching and observers are not ported yet.
+engine, so both compare the same positions.  The prefill runs eagerly.
+The decode step (``_decode_step``) takes every input as a device tensor —
+token, position, seen mask, cache — so on the card it is captured once as
+a CUDA graph (``DecodeGraph``) per sampler and replayed, one step a
+replay: the counterpart of the JAX engine's ``_decode_scan``.  The context
+keeps one ``SingleDecoder`` (the static buffers, a max_seq_len cache and
+the graphs).  Every piece of work on the context's CUDA stream (prefill,
+capture, replay) holds the context's lock, so a capture never records
+another thread's kernels.  On the CPU (an explicit ``device="cpu"``) the same
+step runs eagerly.  The decode attention reads only the rows up to each
+position, so the per-segment ``attn_len`` buckets of the JAX scan have no
+counterpart here.  Continuous batching is ``serve.batching``; speculative
+decode, LoRA and observers are not ported yet.
 """
 
 from __future__ import annotations
 
 import codecs
+import contextlib
+import gc
+import threading
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -30,7 +42,7 @@ from nano_tpu_torch import resolve_device
 from nano_tpu_torch.config import ModelConfig
 from nano_tpu_torch.io import binfmt
 from nano_tpu_torch.models import gpt
-from nano_tpu_torch.ops import sampling
+from nano_tpu_torch.ops import decode_attn, launches, sampling
 from nano_tpu_torch.tokenizer.trie import TrieTokenizer, apply_instruct_template
 
 # Nano stop tokens: <|padding|>=0 and <|eos|>=3
@@ -53,10 +65,20 @@ def _exact_multinomial(sampler: sampling.SamplerConfig) -> bool:
     return (not sampler.top_k) and not (0.0 < sampler.top_p < 1.0)
 
 
+def _draw(probs: torch.Tensor, generator: Optional[torch.Generator]
+          ) -> torch.Tensor:
+    """One index per row of `probs` (B, n), drawn in proportion to it: the
+    exponential race argmax(p / E), E ~ Exp(1) (the Gumbel-max draw of
+    jax.random.categorical).  No host synchronization, so a CUDA graph can
+    capture it."""
+    race = torch.empty_like(probs).exponential_(generator=generator)
+    return torch.argmax(probs / race, dim=-1)
+
+
 def _sample_windowed(logits: torch.Tensor, sampler: sampling.SamplerConfig,
                      generator: Optional[torch.Generator]) -> torch.Tensor:
     """Next tokens (B,) from f32 logits (B, V): argmax at temperature 0
-    (the first maximum on ties); full-vocab multinomial when exact; else
+    (the first maximum on ties); a full-vocab draw when exact; else
     nucleus sampling over the top-K window with the true full-vocab
     probabilities (top-k renormalizes within the window)."""
     if sampler.temperature <= 0.0:
@@ -65,8 +87,7 @@ def _sample_windowed(logits: torch.Tensor, sampler: sampling.SamplerConfig,
                       dtype=logits.dtype, device=logits.device)
     scaled = logits / temp
     if _exact_multinomial(sampler):
-        probs = torch.softmax(scaled, dim=-1)
-        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+        return _draw(torch.softmax(scaled, dim=-1), generator)
     window = min(sampler.top_k or NUCLEUS_WINDOW, logits.shape[-1])
     top_logits, top_idx = torch.topk(scaled, window, dim=-1)
     if sampler.top_k:
@@ -78,8 +99,7 @@ def _sample_windowed(logits: torch.Tensor, sampler: sampling.SamplerConfig,
         cum = torch.cumsum(probs, dim=-1)
         probs = torch.where((cum - probs) <= sampler.top_p, probs,
                             torch.zeros_like(probs))
-    draw = torch.multinomial(probs, 1, generator=generator)
-    return torch.gather(top_idx, -1, draw)[:, 0]
+    return torch.gather(top_idx, -1, _draw(probs, generator)[:, None])[:, 0]
 
 
 # =====================================================================
@@ -106,11 +126,52 @@ class LLMContext:
     arch: str = "nano"                  # "nano" | "qwen2" | "qwen3"
     enable_thinking: bool = False       # Qwen chat template switch
     kv_cache_dtype: Optional[torch.dtype] = None   # torch.int8 halves it
+    spec_k: int = 0                     # speculative decode: not ported
     _rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = field(
         default=None, init=False, repr=False)
+    _decoder: Optional["SingleDecoder"] = field(
+        default=None, init=False, repr=False)
+    _lock: Any = field(default_factory=threading.RLock, init=False,
+                       repr=False)
+    _stream: Any = field(default=None, init=False, repr=False)
+    _pool: Any = field(default=None, init=False, repr=False)
 
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
+
+    @contextlib.contextmanager
+    def on_stream(self):
+        """Run the enclosed decode work on the context's own CUDA stream
+        (made once; every decode graph is captured and replayed on it, and
+        the decode-attention workspace is kept per stream), ordered after
+        the caller's stream and before it again, holding the context's lock
+        (re-entrant): one thread's work at a time, so no thread's kernels
+        land in another's capture.  On the CPU: only the lock."""
+        with self._lock:
+            if self.device.type != "cuda":
+                yield
+                return
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(self.device)
+            caller = torch.cuda.current_stream(self.device)
+            self._stream.wait_stream(caller)
+            with torch.cuda.stream(self._stream):
+                yield
+            caller.wait_stream(self._stream)
+
+    def graph_pool(self):
+        """One memory pool for every decode graph of this context (they are
+        replayed one at a time and keep no tensor of the pool alive)."""
+        if self._pool is None and self.device.type == "cuda":
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def decoder(self) -> "SingleDecoder":
+        """The single-stream decode state (a max_seq_len cache) and its
+        graphs, made once and kept."""
+        if self._decoder is None:
+            self._decoder = SingleDecoder(self)
+        return self._decoder
 
     def rope_tables(self) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
         """(cos, sin) covering max_seq_len on the device, made once."""
@@ -215,14 +276,21 @@ class StreamDecoder:
 
 
 # =====================================================================
-# prefill shared by Session and generate_on_device
+# prefill and the decode step
 # =====================================================================
 
-def _prefill_first_token(ctx: LLMContext, prompt_ids: List[int],
-                         cache: gpt.KVCache, generator: torch.Generator
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run the pow2-padded prompt, sample the first token from the last
-    prompt position.  -> (token (1,) on the device, seen mask (1, V))."""
+def _not_ported(ctx: LLMContext) -> None:
+    if ctx.spec_k > 0:
+        raise NotImplementedError(
+            "speculative decode (spec_k > 0) is not ported yet: ROADMAP "
+            "queue 1 item 7")
+
+
+def _prefill(ctx: LLMContext, prompt_ids: List[int], cache: gpt.KVCache
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the pow2-padded prompt into `cache` (host positions, eager).
+    -> (f32 logits of the last prompt position (1, V), the prompt's seen
+    mask (1, V))."""
     n = len(prompt_ids)
     pad_len = min(_bucket(n), ctx.max_seq_len)
     ids = np.zeros((1, pad_len), np.int64)
@@ -235,22 +303,32 @@ def _prefill_first_token(ctx: LLMContext, prompt_ids: List[int],
     # repetition-penalty scope: the prompt tokens
     seen = sampling.seen_mask_from_ids(
         ids_t, torch.tensor([n], device=ctx.device), ctx.cfg.vocab_size)
+    return logits[:, 0].float(), seen
+
+
+def _prefill_first_token(ctx: LLMContext, prompt_ids: List[int],
+                         cache: gpt.KVCache, generator: torch.Generator
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Prefill, then sample the first token from the last prompt position.
+    -> (token (1,) on the device, seen mask (1, V))."""
+    last, seen = _prefill(ctx, prompt_ids, cache)
     last = sampling.apply_repetition_penalty(
-        logits[:, 0].float(), seen, ctx.sampler.repetition_penalty)
+        last, seen, ctx.sampler.repetition_penalty)
     tok = _sample_windowed(last, ctx.sampler, generator)
     sampling.update_seen_mask(seen, tok)
     return tok, seen
 
 
-def _decode_step(ctx: LLMContext, tok: torch.Tensor, pos: int,
+def _decode_step(ctx: LLMContext, tok: torch.Tensor, pos: torch.Tensor,
                  cache: gpt.KVCache, seen: torch.Tensor,
-                 generator: torch.Generator) -> torch.Tensor:
-    """Forward one token at `pos`, sample the next (seen updated in
-    place when a repetition penalty applies)."""
-    logits, _ = gpt.forward_with_cache(
-        ctx.params, tok[:, None], cache, pos, ctx.cfg, dtype=ctx.dtype,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Forward tok (B,) at positions pos (B,) int32 on the device, sample
+    the next tokens (seen updated in place when a repetition penalty
+    applies).  Every input is a device tensor: this is the function a
+    decode graph captures, and the eager loop it is held against."""
+    logits, _ = gpt.forward_decode_batched(
+        ctx.params, tok, cache, pos, ctx.cfg, dtype=ctx.dtype,
         rope=ctx.rope_tables())
-    logits = logits[:, 0].float()
     penalty = ctx.sampler.repetition_penalty
     if penalty != 1.0:
         logits = sampling.apply_repetition_penalty(logits, seen, penalty)
@@ -258,6 +336,172 @@ def _decode_step(ctx: LLMContext, tok: torch.Tensor, pos: int,
     if penalty != 1.0:
         sampling.update_seen_mask(seen, nxt)
     return nxt
+
+
+class DecodeGraph:
+    """`n_steps` calls of `step` — decode steps that read and write only
+    static device buffers — captured once as a CUDA graph and replayed
+    (the counterpart of the JAX engine's ``_decode_scan``).
+
+    The first ``run`` on the card is eager, on the caller's stream (the
+    context's own stream): every one-time CUDA call (library load, kernel
+    attributes, the decode-attention workspace) happens there, and those
+    steps are real.  Then the graph is captured on that stream; a capture
+    that fails raises.  Later runs replay it and add to the kernels' launch
+    counters what the capture counted (capturing records launches but runs
+    none, so its own counts are taken back).  The graph holds the
+    decode-attention workspaces alive.  A stochastic sampler draws from
+    `generator`, which the graph registers.  On the CPU every run is the
+    eager steps.
+    """
+
+    def __init__(self, step: Callable[[], None], device: torch.device,
+                 n_steps: int = 1, generator: Optional[torch.Generator] = None,
+                 pool=None):
+        self.step, self.device, self.n_steps = step, device, n_steps
+        self.generator, self.pool = generator, pool
+        self.graph = None
+        self.delta: Dict = {}           # launch counts of one replay
+        self.workspaces: tuple = ()     # what the captured launches write
+
+    def _eager(self) -> None:
+        for _ in range(self.n_steps):
+            self.step()
+
+    def _capture(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            if not hasattr(graph, "register_generator_state"):
+                raise RuntimeError(
+                    "this PyTorch cannot register a torch.Generator with a "
+                    "CUDA graph (CUDAGraph.register_generator_state), so "
+                    "stochastic sampling cannot be captured; use greedy "
+                    "sampling (temperature 0)")
+            graph.register_generator_state(self.generator)
+        before = launches.counts()
+        # no garbage collection under capture: a graph freed by a collection
+        # (of anything holding one in a reference cycle) would be destroyed
+        # while the stream captures, which invalidates the capture
+        gc_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool,
+                                  stream=torch.cuda.current_stream(
+                                      self.device)):
+                self._eager()
+            after = launches.counts()
+        finally:
+            launches.restore(before)
+            if gc_on:
+                gc.enable()
+        self.delta = {k: after[k] - before[k] for k in before}
+        self.graph = graph
+        self.workspaces = decode_attn.workspaces()
+
+    def prepare(self) -> None:
+        """Warm up and capture now (the warm-up steps are real steps)."""
+        if self.device.type == "cuda" and self.graph is None:
+            self._eager()
+            self._capture()
+
+    def run(self) -> None:
+        if self.device.type != "cuda":
+            self._eager()
+        elif self.graph is None:
+            self.prepare()
+        else:
+            self.graph.replay()
+            launches.add(self.delta)
+
+
+class SingleDecoder:
+    """The single stream's decode state on the device — token, position,
+    seen mask, a max_seq_len cache, an output buffer and the index of its
+    next row — with one single-step ``DecodeGraph`` per sampler.  The
+    context keeps one.
+
+    Streams share it one at a time: a stream ``claim``s it before each use,
+    and the state of the stream that held it is copied out (to be copied
+    back when that stream claims it again)."""
+
+    def __init__(self, ctx: LLMContext):
+        dev = ctx.device
+        # weak references here and in the graphs' steps: no reference
+        # cycle, so the cache and the graphs go with the context
+        self.ctx = weakref.proxy(ctx)
+        self.cache = ctx.new_cache(1)
+        self.tok = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.pos = torch.zeros((1,), dtype=torch.int32, device=dev)
+        self.seen = torch.zeros((1, ctx.cfg.vocab_size), dtype=torch.bool,
+                                device=dev)
+        self.out = torch.zeros((ctx.max_seq_len,), dtype=torch.int64,
+                               device=dev)
+        self.n_out = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.gen = ctx.generator()
+        self.graphs: Dict[Tuple[sampling.SamplerConfig, int], DecodeGraph] = {}
+        self._owner: Optional[weakref.ref] = None
+        # the state of each stream that does not hold the buffers now
+        self._saved: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+    def _buffers(self) -> List[torch.Tensor]:
+        c = self.cache
+        return [t for t in (c.k, c.v, c.k_scale, c.v_scale, self.tok,
+                            self.pos, self.seen, self.n_out) if t is not None]
+
+    def claim(self, owner: Any = None) -> None:
+        """Make `owner`'s stream the one in the buffers; None: a stream
+        that is started and finished in one call (generate_on_device)."""
+        held = self._owner() if self._owner is not None else None
+        if held is not None and held is owner:
+            return
+        if held is not None:
+            self._saved[held] = ([t.clone() for t in self._buffers()],
+                                 self.gen.get_state())
+        saved = self._saved.pop(owner, None) if owner is not None else None
+        if saved is not None:
+            for t, s in zip(self._buffers(), saved[0]):
+                t.copy_(s)
+            self.gen.set_state(saved[1])
+        self._owner = weakref.ref(owner) if owner is not None else None
+
+    def prefill(self, prompt_ids: List[int]) -> torch.Tensor:
+        """Start a stream: prefill into the cache, the first token into
+        the buffers and out[0].  -> the first token (1,)."""
+        self.gen.manual_seed(self.ctx.random_seed)
+        tok, seen = _prefill_first_token(self.ctx, prompt_ids, self.cache,
+                                         self.gen)
+        self.tok.copy_(tok)
+        self.seen.copy_(seen)
+        self.pos.fill_(len(prompt_ids))
+        self.out[:1] = tok
+        self.n_out.fill_(1)
+        return tok
+
+    def _step(self) -> None:
+        nxt = _decode_step(self.ctx, self.tok, self.pos, self.cache,
+                           self.seen, self.gen)
+        self.tok.copy_(nxt)
+        self.out.index_copy_(0, self.n_out, nxt)
+        self.pos.add_(1)
+        self.n_out.add_(1)
+
+    def _graph(self, n_steps: int = 1) -> DecodeGraph:
+        """The graph of `n_steps` steps for the context's sampler (the
+        engine replays single steps; a longer graph is for measurement)."""
+        key = (self.ctx.sampler, n_steps)
+        if key not in self.graphs:
+            stochastic = self.ctx.sampler.temperature > 0.0
+            me = weakref.proxy(self)
+            self.graphs[key] = DecodeGraph(
+                lambda: me._step(), self.ctx.device, n_steps,
+                self.gen if stochastic else None, self.ctx.graph_pool())
+        return self.graphs[key]
+
+    def run(self, n: int) -> None:
+        """n decode steps, a replay each."""
+        graph = self._graph()
+        for _ in range(n):
+            graph.run()
 
 
 # =====================================================================
@@ -289,21 +533,21 @@ class Session:
         self.state = Session.PREFILLING
         self.max_new_tokens = (max_new_tokens if max_new_tokens is not None
                                else ctx.max_seq_len - len(self.prompt_ids))
-        self._cache = ctx.new_cache(1)
-        self._gen = ctx.generator()
-        self._seen: Optional[torch.Tensor] = None
-        self._cur_tok: Optional[torch.Tensor] = None
+        _not_ported(ctx)
+        self._dec: Optional[SingleDecoder] = None
         self.t_start = time.time()
         self.t_first_token: Optional[float] = None
         self.tps = 0.0
 
     def _do_prefill(self) -> int:
-        self._cur_tok, self._seen = _prefill_first_token(
-            self.ctx, self.prompt_ids, self._cache, self._gen)
+        self._dec = self.ctx.decoder()
+        with self.ctx.on_stream():
+            self._dec.claim(self)
+            first = int(self._dec.prefill(self.prompt_ids)[0])
         self.pos = len(self.prompt_ids)
         self.state = Session.DECODING
         self.t_first_token = time.time()
-        return int(self._cur_tok[0])
+        return first
 
     def step(self) -> Optional[int]:
         """Generate the next token, or None when finished."""
@@ -317,10 +561,12 @@ class Session:
                     len(self.output_ids) >= self.max_new_tokens):
                 self.state = Session.FINISHED
                 return None
-            self._cur_tok = _decode_step(ctx, self._cur_tok, self.pos,
-                                         self._cache, self._seen, self._gen)
+            # one replay of the context's graphed step, one token read
+            with ctx.on_stream():
+                self._dec.claim(self)
+                self._dec._graph().run()
+                tok = int(self._dec.tok[0])
             self.pos += 1
-            tok = int(self._cur_tok[0])
 
         if tok in ctx.stop_tokens:
             self.state = Session.FINISHED
@@ -371,8 +617,11 @@ def generate_on_device(ctx: LLMContext, prompt_ids: List[int],
     """Throughput path: prefill + n_tokens decode with the tokens kept on
     the device until the end.  Returns the generated ids (n_tokens,).
     No early stop.  Over-long prompts keep their tail and n_tokens is
-    capped to the cache room, both matching Session.  The cache is sized
-    to the pow2 bucket of prompt + output, not max_seq_len."""
+    capped to the cache room, both matching Session.  On the card the
+    n_tokens - 1 decode steps are replays of the context's captured step,
+    each writing its token to a device buffer at an index held on the
+    device; one host read at the end."""
+    _not_ported(ctx)
     if not prompt_ids:
         prompt_ids = [getattr(ctx.tokenizer, "bos_id", 0)]
     if len(prompt_ids) >= ctx.max_seq_len:
@@ -381,13 +630,10 @@ def generate_on_device(ctx: LLMContext, prompt_ids: List[int],
     n_tokens = min(n_tokens, ctx.max_seq_len - n)
     if n_tokens <= 0:
         return np.zeros((0,), np.int32)
-    cache = ctx.new_cache(1, seq_len=min(_bucket(n + n_tokens),
-                                         ctx.max_seq_len))
-    gen = ctx.generator()
-    tok, seen = _prefill_first_token(ctx, prompt_ids, cache, gen)
-    out = torch.empty((n_tokens,), dtype=torch.int64, device=ctx.device)
-    out[0] = tok[0]
-    for i in range(1, n_tokens):
-        tok = _decode_step(ctx, tok, n + i - 1, cache, seen, gen)
-        out[i] = tok[0]
-    return out.cpu().numpy().astype(np.int32)
+    dec = ctx.decoder()
+    with ctx.on_stream():
+        dec.claim()
+        dec.prefill(prompt_ids)
+        dec.run(n_tokens - 1)
+        out = dec.out[:n_tokens].cpu()
+    return out.numpy().astype(np.int32)

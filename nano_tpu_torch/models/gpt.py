@@ -4,8 +4,9 @@ training forward of the port.
 Port of ``nano_tpu/models/gpt.py``: RMSNorm, RoPE (interleaved or half),
 GQA without expanding KV, optional qk-norm and qkv biases, SwiGLU, tied /
 untied / ``output_q`` heads; ``forward_with_cache`` with ``attn_len`` and
-``last_idx``; and the no-cache path ``forward_hidden`` / ``forward`` /
-``loss_fn`` (masked CE, chunked CE, remat) with ``init_params``.
+``last_idx``; ``forward_decode_batched`` (one token per row at
+positions held on the device); and the no-cache path ``forward_hidden`` /
+``forward`` / ``loss_fn`` (masked CE, chunked CE, remat) with ``init_params``.
 
 The parameters keep the JAX package's layout so the two compare like with
 like: layer weights are STACKED along a leading (n_layer,) axis, dense
@@ -246,39 +247,47 @@ def attention_nocache(x: torch.Tensor, layer: Params, cfg: ModelConfig,
 def attention(x: torch.Tensor, layer: Params, cfg: ModelConfig,
               cos: Optional[torch.Tensor], sin: Optional[torch.Tensor],
               mask: Optional[torch.Tensor], dtype,
-              kv_cache: Tuple[torch.Tensor, ...], start_pos: int,
-              pos_t: torch.Tensor, attn_len: Optional[int] = None
+              kv_cache: Tuple[torch.Tensor, ...],
+              start_pos: Union[int, torch.Tensor],
+              pos_t: Optional[torch.Tensor], attn_len: Optional[int] = None
               ) -> torch.Tensor:
     """One attention layer over a cache (k, v, k_scale, v_scale) of one
-    layer, each (B, T, KV, D) / (B, T, KV).  The S new keys and values
-    are written at rows [start_pos, start_pos + S) in place.
+    layer, each (B, T, KV, D) / (B, T, KV), written in place.
 
-    S == 1 runs the decode-attention kernel over rows t <= start_pos
-    (`pos_t` holds start_pos as an int32 tensor on the device).  S > 1 is
-    the einsum path over the first `attn_len` rows (all when None), with
-    the additive `mask` (S, attn_len).
+    S == 1 (decode, positions on the device): `pos_t` (B,) int32 holds
+    each row's position and `start_pos` the (B,) int64 index b * T +
+    pos_t[b] of the row it writes in the cache seen as (B * T, ...); the
+    decode-attention kernel then reads rows t <= pos_t[b].  S > 1
+    (prefill): `start_pos` is a host int, the S new rows go to [start_pos,
+    start_pos + S), and the einsum path reads the first `attn_len` rows
+    (all when None) with the additive `mask` (S, attn_len).
     """
-    S = x.shape[1]
+    B, S = x.shape[:2]
     H, KV = cfg.n_head, cfg.n_kv_head
     q, k, v = _qkv(x, layer, cfg, cos, sin, dtype)
 
     ck, cv, ks, vs = kv_cache
     quant = ck.dtype == torch.int8
-    rows = slice(start_pos, start_pos + S)
     if quant:
-        kq, k_sc = _kv_quantize(k)
-        vq, v_sc = _kv_quantize(v)
-        ck[:, rows], cv[:, rows] = kq, vq
-        ks[:, rows], vs[:, rows] = k_sc, v_sc
-    else:
-        ck[:, rows], cv[:, rows] = k, v
-
+        k, k_sc = _kv_quantize(k)
+        v, v_sc = _kv_quantize(v)
     if S == 1:
+        T = ck.shape[1]
+        flat = lambda c: c.view(B * T, *c.shape[2:])
+        flat(ck).index_copy_(0, start_pos, k[:, 0].to(ck.dtype))
+        flat(cv).index_copy_(0, start_pos, v[:, 0].to(cv.dtype))
+        if quant:
+            flat(ks).index_copy_(0, start_pos, k_sc[:, 0])
+            flat(vs).index_copy_(0, start_pos, v_sc[:, 0])
         heads = decode_attn.decode_attention(
             q[:, 0], ck, cv, ks if quant else None, vs if quant else None,
             pos_t, KV, H // KV)[:, None, :].to(dtype)
         return _dense(heads, layer["wo"], dtype)
 
+    rows = slice(start_pos, start_pos + S)
+    ck[:, rows], cv[:, rows] = k, v
+    if quant:
+        ks[:, rows], vs[:, rows] = k_sc, v_sc
     Ta = attn_len if attn_len is not None else ck.shape[1]
     ck, cv = ck[:, :Ta], cv[:, :Ta]
     if quant:
@@ -321,9 +330,11 @@ def feed_forward(x: torch.Tensor, layer: Params, dtype,
 
 
 def block(x: torch.Tensor, layer: Params, cfg: ModelConfig, cos, sin, mask,
-          dtype, kv_cache, start_pos: int, pos_t: torch.Tensor,
-          attn_len: Optional[int] = None) -> torch.Tensor:
-    """Pre-norm residual block."""
+          dtype, kv_cache, start_pos: Union[int, torch.Tensor],
+          pos_t: Optional[torch.Tensor], attn_len: Optional[int] = None
+          ) -> torch.Tensor:
+    """Pre-norm residual block (`start_pos` and `pos_t` as in
+    ``attention``)."""
     xn = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
     h = x + attention(xn, layer, cfg, cos, sin, mask, dtype, kv_cache,
                       start_pos, pos_t, attn_len)
@@ -378,7 +389,7 @@ def layer_params(blocks: Params, i: int) -> Params:
 
 
 def forward_with_cache(params: Params, idx: torch.Tensor, cache: KVCache,
-                       start_pos: int, cfg: ModelConfig,
+                       start_pos: Union[int, torch.Tensor], cfg: ModelConfig,
                        dtype=torch.bfloat16, attn_len: Optional[int] = None,
                        last_idx: Optional[int] = None,
                        rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
@@ -389,15 +400,24 @@ def forward_with_cache(params: Params, idx: torch.Tensor, cache: KVCache,
     with `last_idx`, where the LM head runs for that position only — and
     the cache, updated in place.  `attn_len` bounds the rows the S > 1
     (prefill) attention reads; the caller guarantees start_pos + S <=
-    attn_len.  Decode (S == 1) reads rows <= start_pos whatever it is.
-    `rope` passes precomputed (cos, sin) tables covering the cache.
+    attn_len.  S == 1 is ``forward_decode_batched`` with every row at
+    start_pos (a host int, or an int32 tensor on the device, (1,) or
+    (B,)), and reads rows <= start_pos whatever `attn_len` is.  `rope`
+    passes precomputed (cos, sin) tables covering the cache.
     """
     B, S = idx.shape
+    dev = idx.device
+    if S == 1:
+        pos = (start_pos if isinstance(start_pos, torch.Tensor) else
+               torch.full((1,), start_pos, dtype=torch.int32, device=dev))
+        logits, _ = forward_decode_batched(params, idx[:, 0],
+                                           cache, pos.expand(B), cfg, dtype,
+                                           rope)
+        return logits[:, None], cache
+
     T = cache.max_seq
     Ta = attn_len if attn_len is not None else T
-    dev = idx.device
     h = embed_tokens(params, idx, dtype)
-
     if cfg.use_rope:
         cos_t, sin_t = (rope if rope is not None else
                         precompute_rope(cfg.head_dim, T, cfg.rope_theta, dev))
@@ -406,28 +426,64 @@ def forward_with_cache(params: Params, idx: torch.Tensor, cache: KVCache,
         cos = sin = None
         h = h + params["wpe"][start_pos:start_pos + S].to(dtype)
 
-    mask = None
-    pos_t = None
-    if S > 1:
-        # query i (absolute start_pos+i) sees cache rows j <= start_pos+i
-        # (causal) or j < start_pos+S (global)
-        j = torch.arange(Ta, device=dev)[None, :]
-        if cfg.is_causal:
-            seen = j <= start_pos + torch.arange(S, device=dev)[:, None]
-        else:
-            seen = (j < start_pos + S).expand(S, Ta)
-        mask = torch.where(seen, 0.0, -float("inf")).to(torch.float32)
+    # query i (absolute start_pos+i) sees cache rows j <= start_pos+i
+    # (causal) or j < start_pos+S (global)
+    j = torch.arange(Ta, device=dev)[None, :]
+    if cfg.is_causal:
+        seen = j <= start_pos + torch.arange(S, device=dev)[:, None]
     else:
-        pos_t = torch.full((1,), start_pos, dtype=torch.int32, device=dev)
+        seen = (j < start_pos + S).expand(S, Ta)
+    mask = torch.where(seen, 0.0, -float("inf")).to(torch.float32)
 
     for i in range(cfg.n_layer):
         h = block(h, layer_params(params["blocks"], i), cfg, cos, sin, mask,
-                  dtype, cache.layer(i), start_pos, pos_t, attn_len)
+                  dtype, cache.layer(i), start_pos, None, attn_len)
 
     h = rms_norm(h, params["norm"], cfg.norm_eps)
     if last_idx is not None:
         h = h[:, last_idx:last_idx + 1]
     return compute_logits(h, params, dtype), cache
+
+
+def forward_decode_batched(params: Params, tok: torch.Tensor, cache: KVCache,
+                           pos: torch.Tensor, cfg: ModelConfig,
+                           dtype=torch.bfloat16,
+                           rope: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                           = None) -> Tuple[torch.Tensor, KVCache]:
+    """One decode step with a position per batch row, every input on the
+    device — the continuous-batching primitive, and the single stream's
+    step at B = 1.  tok (B,) ids, pos (B,) int32 absolute positions ->
+    f32 logits (B, V) and the cache, updated in place.
+
+    The RoPE (or learned-position) rows are gathered by `pos`, each row's
+    new k / v go to row pos[b] of its cache by one ``index_copy_``, and
+    decode attention reads rows <= pos[b]: no host value enters the step,
+    so it can be captured in a CUDA graph and replayed.  A position past
+    the cache (a slot that is no longer decoding) is taken as the last
+    row, where the JAX gathers clamp too; its output is garbage the
+    caller ignores, as there.
+    """
+    B = tok.shape[0]
+    T = cache.max_seq
+    p = pos.clamp(max=T - 1)
+    pl = p.long()
+    h = embed_tokens(params, tok[:, None], dtype)          # (B, 1, E)
+    if cfg.use_rope:
+        cos_t, sin_t = (rope if rope is not None else precompute_rope(
+            cfg.head_dim, T, cfg.rope_theta, tok.device))
+        cos = cos_t.index_select(0, pl)[:, None, None, :]    # (B, 1, 1, D/2)
+        sin = sin_t.index_select(0, pl)[:, None, None, :]
+    else:
+        cos = sin = None
+        wpe = params["wpe"]
+        h = h + wpe.index_select(0, pl.clamp(max=wpe.shape[0] - 1)
+                                 )[:, None, :].to(dtype)
+    rows = torch.arange(B, device=tok.device) * T + pl     # into (B * T, ...)
+    for i in range(cfg.n_layer):
+        h = block(h, layer_params(params["blocks"], i), cfg, cos, sin, None,
+                  dtype, cache.layer(i), rows, p)
+    h = rms_norm(h, params["norm"], cfg.norm_eps)
+    return compute_logits(h, params, dtype)[:, 0], cache
 
 
 # =====================================================================

@@ -117,6 +117,13 @@ def _workspace(device: torch.device, stream: int, n_part: int,
     return ws
 
 
+def workspaces() -> Tuple[Tuple[torch.Tensor, torch.Tensor], ...]:
+    """Every workspace kept now.  A CUDA graph captured over
+    ``decode_attention`` holds these, so that the one its launches write
+    outlives a later, larger workspace of its stream."""
+    return tuple(_workspaces.values())
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, k_scale: Optional[torch.Tensor],
                      v_scale: Optional[torch.Tensor], pos: torch.Tensor,

@@ -118,10 +118,9 @@ def sample_with_coin(logits: torch.Tensor, coin: torch.Tensor,
 
 def update_seen_mask(seen_mask: torch.Tensor, tokens: torch.Tensor
                      ) -> torch.Tensor:
-    """Mark tokens (B,) as seen in the (B, V) mask, in place."""
-    B = seen_mask.shape[0]
-    seen_mask[torch.arange(B, device=seen_mask.device), tokens.long()] = True
-    return seen_mask
+    """Mark tokens (B,) as seen in the (B, V) mask, in place (one scatter
+    on the device, so a CUDA graph can capture it)."""
+    return seen_mask.scatter_(1, tokens.long()[:, None], True)
 
 
 def seen_mask_from_ids(ids: torch.Tensor, length: torch.Tensor,

@@ -1,0 +1,442 @@
+"""Continuous batching: many independent generation streams share one
+batched decode step.
+
+Port of ``nano_tpu/serve/batching.py`` without speculative serving and
+LoRA adapters (``ctx.spec_k > 0`` and ``adapters`` raise
+``NotImplementedError``).  A slot-based engine: the KV cache carries a
+batch axis, every slot advances one token per step wherever its stream is
+(a position per slot, on the device), and slots attach and detach without
+new shapes (idle slots compute garbage that is ignored).  Per-slot sampler
+parameters (temperature, top-p, repetition penalty) are (B,) device
+vectors.
+
+The batched step (``gpt.forward_decode_batched`` + ``_sample_rows``) reads
+and writes only the engine's static buffers, so on the card it is captured
+as a CUDA graph once per (cache length, all-greedy or not) and replayed:
+``step_burst(n)`` is n replays and one host read.  The cache is one allocation of max_seq_len rows per slot; each
+capacity of the pow2 bucketing (128, 256, ...) is a contiguous view of its
+front, so every graph stays valid while capacity grows and resets.  All
+of it runs on the context's stream under the context's lock
+(``LLMContext.on_stream``), which the engine's own lock always precedes:
+a client's prefill waits for a burst's replays and captures, and is never
+recorded into them.
+"""
+
+from __future__ import annotations
+
+import threading
+import weakref
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from nano_tpu_torch.infer import engine as eng
+from nano_tpu_torch.models import gpt
+from nano_tpu_torch.ops import sampling
+
+
+def _sample_rows(logits: torch.Tensor, temperature: torch.Tensor,
+                 top_p: torch.Tensor, top_k: int,
+                 generator: Optional[torch.Generator], greedy: bool = False
+                 ) -> torch.Tensor:
+    """Per-slot sampling over penalized f32 logits (B, V) with (B,)
+    temperature and top-p -> tokens (B,).  `greedy` (every active slot at
+    temperature 0) is a bare argmax.  Otherwise nucleus sampling over the
+    top-K window with the true full-vocab probabilities, a full-vocab draw
+    for slots whose top_p is outside (0, 1) (when top_k is 0), and the
+    argmax for slots at temperature 0."""
+    greedy_tok = torch.argmax(logits, dim=-1)
+    if greedy:
+        return greedy_tok
+    window = min(top_k if top_k else eng.NUCLEUS_WINDOW, logits.shape[-1])
+    scaled = logits / temperature.clamp(min=1e-6)[:, None]
+    top_logits, top_idx = torch.topk(scaled, window, dim=-1)
+    if top_k:
+        probs = torch.softmax(top_logits, dim=-1)
+    else:
+        probs = torch.exp(top_logits - torch.logsumexp(scaled, dim=-1,
+                                                       keepdim=True))
+    cum = torch.cumsum(probs, dim=-1)
+    keep = (cum - probs) <= top_p[:, None]
+    use_topp = ((top_p > 0.0) & (top_p < 1.0))[:, None]
+    probs = torch.where(keep | ~use_topp, probs, torch.zeros_like(probs))
+    sampled = torch.gather(top_idx, -1,
+                           eng._draw(probs, generator)[:, None])[:, 0]
+    if not top_k:
+        full = eng._draw(torch.softmax(scaled, dim=-1), generator)
+        sampled = torch.where(use_topp[:, 0], sampled, full)
+    return torch.where(temperature <= 0.0, greedy_tok, sampled)
+
+
+@dataclass
+class Slot:
+    """Slot lifecycle: FREE -> attached (claimed by add(), survives the
+    end of decoding) -> FREE again only at the handler's explicit
+    release().  `active` means "currently decoding"; a finished stream has
+    active=False but attached=True, so a concurrent add() can never alias
+    a slot whose consumer is still draining its queue."""
+    active: bool = False
+    attached: bool = False
+    prompt_len: int = 0
+    generated: int = 0
+    max_new_tokens: int = 0
+    finished_reason: Optional[str] = None
+    sink: Optional[object] = None   # consumer's queue, set under the lock
+
+
+class BurstResult(Dict[int, list]):
+    """{slot: [tokens...]} plus per-slot end flags and sinks captured
+    under the engine lock — consumers must use `ended` and `sinks` instead
+    of re-reading live slot state (a new stream may have re-claimed the
+    slot by the time they look)."""
+
+    def __init__(self, toks: Dict[int, list], ended: Dict[int, bool],
+                 sinks: Optional[Dict[int, object]] = None):
+        super().__init__(toks)
+        self.ended = ended
+        self.sinks = sinks or {}
+
+
+class BatchedEngine:
+    """Slot-based continuous batching over one LLMContext."""
+
+    def __init__(self, ctx: "eng.LLMContext", n_slots: int = 8,
+                 adapters: Optional[Dict[str, str]] = None):
+        if adapters:
+            raise NotImplementedError(
+                "batched LoRA adapters are not ported yet: ROADMAP queue 1 "
+                "item 8")
+        if ctx.spec_k > 0:
+            raise NotImplementedError(
+                "speculative serving (spec_k > 0) is not ported yet: ROADMAP "
+                "queue 1 item 7")
+        self.ctx = ctx
+        self.n_slots = n_slots
+        dev = ctx.device
+        V = ctx.cfg.vocab_size
+        self._store = ctx.new_cache(n_slots)        # max_seq_len rows
+        self.cache = self._view(self._min_cache_len())
+        self.pos = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
+        self.tok = torch.zeros((n_slots,), dtype=torch.int64, device=dev)
+        self.seen = torch.zeros((n_slots, V), dtype=torch.bool, device=dev)
+        self._temperature_t = torch.ones((n_slots,), device=dev)
+        self._top_p_t = torch.full((n_slots,), 0.8, device=dev)
+        self._rep_penalty_t = torch.ones((n_slots,), device=dev)
+        self.out = torch.zeros((ctx.max_seq_len, n_slots), dtype=torch.int64,
+                               device=dev)
+        self.n_out = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.gen = ctx.generator()
+        self.temperature = np.full(n_slots, 1.0, np.float32)
+        self.top_p = np.full(n_slots, 0.8, np.float32)
+        self.rep_penalty = np.full(n_slots, 1.0, np.float32)
+        self._pos_host = np.zeros(n_slots, np.int64)
+        self.slots: List[Slot] = [Slot() for _ in range(n_slots)]
+        self.lock = threading.Lock()   # one device mutator at a time
+        self._graphs: Dict[tuple, eng.DecodeGraph] = {}
+
+    # ------------------------------------------------------------
+    def _min_cache_len(self) -> int:
+        return min(128, self.ctx.max_seq_len)
+
+    def _cache_len(self) -> int:
+        return self.cache.max_seq
+
+    def _view(self, C: int) -> gpt.KVCache:
+        """The cache of capacity C: (L, B, C, ...) contiguous over the
+        front of the max_seq_len store."""
+        def view(t):
+            if t is None:
+                return None
+            shape = (*t.shape[:2], C, *t.shape[3:])
+            return t.view(-1)[:int(np.prod(shape))].view(shape)
+        s = self._store
+        return gpt.KVCache(k=view(s.k), v=view(s.v), k_scale=view(s.k_scale),
+                           v_scale=view(s.v_scale))
+
+    @staticmethod
+    def _tensors(cache: gpt.KVCache) -> List[torch.Tensor]:
+        return [t for t in (cache.k, cache.v, cache.k_scale, cache.v_scale)
+                if t is not None]
+
+    def _set_capacity(self, C: int) -> None:
+        """Move to capacity C, keeping every slot's rows (zero past them),
+        as the JAX engine's _grow_cache pads.  Caller holds the lock."""
+        with self.ctx.on_stream():
+            old = self._cache_len()
+            keep = [t[:, :, :min(old, C)].clone()
+                    for t in self._tensors(self.cache)]
+            self.cache = self._view(C)
+            for t, k in zip(self._tensors(self.cache), keep):
+                t.zero_()
+                t[:, :, :k.shape[2]] = k
+
+    def _ensure_capacity(self, need: int) -> None:
+        """Grow the cache's capacity to cover `need` rows (pow2-bucketed
+        from 128, capped at max_seq_len).  Caller holds the lock."""
+        want = min(eng._bucket(max(need, 1), minimum=self._min_cache_len()),
+                   self.ctx.max_seq_len)
+        if want > self._cache_len():
+            self._set_capacity(want)
+
+    # ------------------------------------------------------------
+    def _step(self, cache: gpt.KVCache, greedy: bool) -> None:
+        """One decode step for all slots over the static buffers."""
+        ctx = self.ctx
+        logits, _ = gpt.forward_decode_batched(
+            ctx.params, self.tok, cache, self.pos, ctx.cfg, dtype=ctx.dtype,
+            rope=ctx.rope_tables())
+        logits = torch.where(self.seen, logits / self._rep_penalty_t[:, None],
+                             logits)
+        nxt = _sample_rows(logits, self._temperature_t, self._top_p_t,
+                           ctx.sampler.top_k, self.gen, greedy)
+        sampling.update_seen_mask(self.seen, nxt)
+        self.tok.copy_(nxt)
+        self.out.index_copy_(0, self.n_out, nxt[None])
+        self.pos.add_(1)
+        self.n_out.add_(1)
+
+    def _graph(self, greedy: bool) -> "eng.DecodeGraph":
+        key = (self._cache_len(), greedy)
+        if key not in self._graphs:
+            cache, me = self.cache, weakref.proxy(self)
+            # the step holds the engine weakly: no reference cycle, so the
+            # engine's cache is freed with the engine
+            self._graphs[key] = eng.DecodeGraph(
+                lambda: me._step(cache, greedy), self.ctx.device, 1,
+                None if greedy else self.gen, self.ctx.graph_pool())
+        return self._graphs[key]
+
+    def _run(self, n: int, greedy: bool) -> np.ndarray:
+        """n batched steps -> their tokens (n, B), one host read."""
+        with self.ctx.on_stream():
+            self.n_out.zero_()
+            graph = self._graph(greedy)
+            for _ in range(n):
+                graph.run()
+            toks = self.out[:n].cpu().numpy()
+        self._pos_host += n
+        return toks
+
+    def warmup(self) -> int:
+        """Capture every decode graph serving can hit — each cache
+        capacity, all-greedy or not — and run each prefill bucket once, so no client pays a capture at first
+        contact.  The engine must be idle: the warm-up steps run on its own
+        buffers.  Returns the number of graphs and prefill buckets."""
+        ctx = self.ctx
+        T = ctx.max_seq_len
+        with self.lock:
+            if any(s.attached for s in self.slots):
+                raise RuntimeError("warmup() needs an idle engine")
+            n = 0
+            pad = eng._bucket(1)
+            pads = []
+            while pad < T:
+                pads.append(pad)
+                pad *= 2
+            for pad in pads + [T]:
+                with ctx.on_stream():
+                    eng._prefill(ctx, [0] * min(pad, T - 1),
+                                 ctx.new_cache(1, seq_len=pad))
+                n += 1
+            caps, c = [], self._min_cache_len()
+            while c < T:
+                caps.append(c)
+                c *= 2
+            for cap in caps + [T]:
+                self.cache = self._view(cap)
+                for greedy in (True, False):
+                    self.n_out.zero_()
+                    with ctx.on_stream():
+                        self._graph(greedy).prepare()
+                    n += 1
+            self._set_capacity(self._min_cache_len())
+            return n
+
+    # ------------------------------------------------------------
+    def free_slot(self) -> Optional[int]:
+        for i, s in enumerate(self.slots):
+            if not s.active and not s.attached:
+                return i
+        return None
+
+    @property
+    def n_active(self) -> int:
+        return sum(s.active for s in self.slots)
+
+    # ------------------------------------------------------------
+    def add(self, prompt_ids: List[int], max_new_tokens: int = 256,
+            temperature: float = 1.0, top_p: float = 0.8,
+            repetition_penalty: float = 1.1,
+            sink: Optional[object] = None,
+            adapter: Optional[str] = None) -> Optional[tuple]:
+        """Attach a stream.  Returns (slot, first_token or None-if-stopped),
+        or None when no slot is free (caller queues/retries).
+
+        The engine lock is held only to claim the slot and to splice the
+        prefilled rows in; the prefill holds only the context's lock, so it
+        runs between two bursts and never inside one's capture."""
+        if adapter is not None:
+            raise NotImplementedError(
+                "batched LoRA adapters are not ported yet: ROADMAP queue 1 "
+                "item 8")
+        ctx = self.ctx
+        with self.lock:
+            slot = self.free_slot()
+            if slot is None:
+                return None
+            st = self.slots[slot]
+            st.attached = True         # reserved; unclaimable until release
+            st.active = False
+        try:
+            if not prompt_ids:
+                # BOS-seed empty prompts, matching Session
+                prompt_ids = [getattr(ctx.tokenizer, "bos_id", 0)]
+            if len(prompt_ids) >= ctx.max_seq_len:
+                prompt_ids = prompt_ids[-(ctx.max_seq_len - 1):]
+            n = len(prompt_ids)
+            # prefill on a bucket-sized batch-1 staging cache, then splice
+            # the rows into the slot
+            pad = min(eng._bucket(n), ctx.max_seq_len)
+            tmp = ctx.new_cache(1, seq_len=pad)
+            with ctx.on_stream():
+                last, seen_row = eng._prefill(ctx, prompt_ids, tmp)
+                last = sampling.apply_repetition_penalty(
+                    last, seen_row, repetition_penalty)
+        except BaseException:
+            with self.lock:
+                st.attached = False
+            raise
+        try:
+            return self._attach_prefilled(
+                st, slot, n, pad, tmp, seen_row, last, temperature, top_p,
+                repetition_penalty, max_new_tokens, sink)
+        except BaseException:
+            with self.lock:
+                st.attached = False
+                st.active = False
+            raise
+
+    def _attach_prefilled(self, st, slot, n, pad, tmp, seen_row, last,
+                          temperature, top_p, repetition_penalty,
+                          max_new_tokens, sink=None):
+        ctx = self.ctx
+        with self.lock:
+            # the spliced prompt rows (and the first decode write at n)
+            # must fit the current capacity
+            self._ensure_capacity(max(pad, n + 1))
+            with ctx.on_stream():
+                for dst, src in zip(self._tensors(self.cache),
+                                    self._tensors(tmp)):
+                    dst[:, slot, :pad] = src[:, 0]
+                sampler = sampling.SamplerConfig(
+                    temperature=temperature, top_p=top_p,
+                    top_k=ctx.sampler.top_k,
+                    repetition_penalty=repetition_penalty)
+                first_t = eng._sample_windowed(last, sampler, self.gen)
+                sampling.update_seen_mask(seen_row, first_t)
+                self.pos[slot] = n
+                self.tok[slot] = first_t[0]
+                self.seen[slot] = seen_row[0]
+                self._temperature_t[slot] = temperature
+                self._top_p_t[slot] = top_p
+                self._rep_penalty_t[slot] = repetition_penalty
+                first = int(first_t[0])
+            self._pos_host[slot] = n
+            self.temperature[slot] = temperature
+            self.top_p[slot] = top_p
+            self.rep_penalty[slot] = repetition_penalty
+
+            st.active = True
+            st.prompt_len = n
+            st.generated = 0
+            st.max_new_tokens = max_new_tokens
+            st.finished_reason = None
+            st.sink = sink
+
+            if first in ctx.stop_tokens:
+                st.active = False
+                st.finished_reason = "stop"
+                return slot, None
+            st.generated = 1
+            if max_new_tokens <= 1:
+                st.active = False
+                st.finished_reason = "length"
+            return slot, first
+
+    def release(self, slot: int) -> None:
+        """Return the slot to the free pool (consumer is done with it)."""
+        with self.lock:
+            self.slots[slot].active = False
+            self.slots[slot].attached = False
+            self.slots[slot].sink = None
+            # fully idle: reset the cache capacity (positions only grow
+            # while streams live, so this is the one safe shrink point)
+            if (not any(s.active or s.attached for s in self.slots)
+                    and self._cache_len() > self._min_cache_len()):
+                self.cache = self._view(self._min_cache_len())
+                with self.ctx.on_stream():
+                    for t in self._tensors(self.cache):
+                        t.zero_()
+
+    # ------------------------------------------------------------
+    def _consume(self, toks_2d: np.ndarray) -> BurstResult:
+        """Slot bookkeeping over an (n_steps, B) token burst.
+
+        Returns a BurstResult {slot: [tokens...]} with per-slot `ended`
+        flags; tokens after a stop token (or past the length limits) are
+        discarded.  The flags are the ONLY safe end-of-stream signal.  The
+        length cut uses prompt_len + generated, the same bound as
+        Session's."""
+        ctx = self.ctx
+        out: Dict[int, list] = {}
+        ended: Dict[int, bool] = {}
+        sinks: Dict[int, object] = {}
+        for i, st in enumerate(self.slots):
+            if not st.active:
+                continue
+            sinks[i] = st.sink
+            got: list = []
+            for t in toks_2d[:, i].tolist():
+                if t in ctx.stop_tokens:
+                    st.active = False
+                    st.finished_reason = "stop"
+                    break
+                st.generated += 1
+                got.append(t)
+                if (st.generated >= st.max_new_tokens or
+                        st.prompt_len + st.generated >= ctx.max_seq_len):
+                    st.active = False
+                    st.finished_reason = "length"
+                    break
+            out[i] = got
+            ended[i] = not st.active
+        return BurstResult(out, ended, sinks)
+
+    def step_burst(self, n_steps: int = 1) -> BurstResult:
+        """Advance every active slot up to n_steps tokens: n_steps replays
+        of the batched step and one host read (bursts longer than
+        max_seq_len in pieces).  `.ended[slot]` flags which streams
+        finished during this burst (slots[slot].finished_reason says
+        why)."""
+        ctx = self.ctx
+        with self.lock:
+            if self.n_active == 0:
+                return BurstResult({}, {}, {})
+            max_pos = max(int(self._pos_host[i])
+                          for i, s in enumerate(self.slots) if s.active)
+            self._ensure_capacity(1 + n_steps + max_pos)
+            # all-greedy bursts replay the graph with a bare argmax
+            greedy = all(self.temperature[i] <= 0.0
+                         for i, s in enumerate(self.slots) if s.active)
+            T = ctx.max_seq_len
+            toks = np.concatenate(
+                [self._run(min(T, n_steps - lo), greedy)
+                 for lo in range(0, n_steps, T)])
+            return self._consume(toks)
+
+    def step(self) -> BurstResult:
+        """Advance every active slot one device step.  `.ended[slot]` flags
+        streams that finished (stop token / length)."""
+        return self.step_burst(1)

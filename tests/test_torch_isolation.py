@@ -92,10 +92,12 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_new_modules_are_among_the_checked_sources():
-    """The walk above covers the training slice's modules too."""
+    """The walk above covers the training slice's modules and the serving
+    package too."""
     rel = {os.path.relpath(p, ROOT) for p in _sources()}
     for mod in ("data/preprocess.py", "train/data.py", "train/trainer.py",
-                "train/__main__.py", "io/checkpoint.py", "ops/flash_attn.py"):
+                "train/__main__.py", "io/checkpoint.py", "ops/flash_attn.py",
+                "ops/launches.py", "serve/__init__.py", "serve/batching.py"):
         assert os.path.join("nano_tpu_torch", mod) in rel
 
 

@@ -6,6 +6,9 @@ jax nor nano_tpu, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -533,3 +536,165 @@ def test_python_scalar_division_is_not_ieee_on_the_card():
     xq, sa = tqm.act_quant_q80(x.reshape(-1, 256), 256)
     pq, ps = tqm.act_quant_q80_plain(x.reshape(-1, 256), 256)
     assert torch.equal(xq, pq) and torch.equal(sa, ps)
+
+
+# ---------------------------------------------------------------------
+# decode on the device: the graphed step against the eager one
+# ---------------------------------------------------------------------
+
+FIX = os.path.join(os.path.dirname(__file__), "js", "fixtures")
+
+
+def _fixture_ctx(name, penalty=1.1, **kw):
+    from nano_tpu_torch.infer import engine
+    from nano_tpu_torch.ops import sampling
+    return engine.LLMContext.from_bin(
+        os.path.join(FIX, name), max_seq_len=64, dtype=torch.float32,
+        sampler=sampling.SamplerConfig(temperature=0.0,
+                                       repetition_penalty=penalty), **kw)
+
+
+def _eager_stream(ctx, prompt_ids, n_tokens, cache_len):
+    """The engine's decode step called from Python, step by step."""
+    from nano_tpu_torch.infer import engine
+    cache = ctx.new_cache(1, seq_len=cache_len)
+    gen = ctx.generator()
+    tok, seen = engine._prefill_first_token(ctx, prompt_ids, cache, gen)
+    pos = torch.tensor([len(prompt_ids)], dtype=torch.int32, device="cuda")
+    out = [int(tok[0])]
+    for _ in range(n_tokens - 1):
+        tok = engine._decode_step(ctx, tok, pos, cache, seen, gen)
+        pos += 1
+        out.append(int(tok[0]))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tiny_f32.bin", "tiny_q80.bin",
+                                  "tiny_q4k.bin"])
+@pytest.mark.parametrize("graph_steps", [1, 4])
+def test_graphed_decode_equals_eager_loop(name, graph_steps):
+    """The captured step replayed (generate_on_device at one step a graph,
+    the context's decoder through a graph of `graph_steps` steps): the
+    same tokens as the eager step loop, bit for bit, with exact launch
+    counts on the first call (warm-up + capture) and on a second (replays
+    only); the committed streams through Session."""
+    _need_card()
+    from nano_tpu_torch.infer import engine
+    ctx = _fixture_ctx(name)
+    ids = ctx.encode("helloworldabc")
+    want = _eager_stream(ctx, ids, 29, 64)
+
+    def graphed():
+        if graph_steps == 1:
+            return engine.generate_on_device(ctx, ids, 29).tolist()
+        dec = ctx.decoder()
+        with ctx.on_stream():
+            dec.claim()
+            dec.prefill(ids)
+            for _ in range(28 // graph_steps):
+                dec._graph(graph_steps).run()
+            return dec.out[:29].tolist()
+
+    for _ in range(2):
+        n0 = tda.decode_attention.launches
+        got = graphed()
+        torch.cuda.synchronize()
+        assert got == want
+        assert tda.decode_attention.launches - n0 == ctx.cfg.n_layer * 28
+    with open(os.path.join(FIX, "expected.json")) as f:
+        expected = json.load(f)
+    plain = _fixture_ctx(name, penalty=1.0)
+    s = engine.generate_sync(plain, expected["prompt"], max_new_tokens=16)
+    assert s.output_ids == expected["greedy"][name[5:-4]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tiny_q80.bin", "tiny_q4k.bin"])
+def test_batched_engine_equals_solo_on_the_card(name):
+    """Streams joining a graphed batched engine at different times give
+    their solo greedy streams (int8 KV too), across a growth 128 -> 256."""
+    _need_card()
+    from nano_tpu_torch.infer import engine
+    from nano_tpu_torch.serve.batching import BatchedEngine
+    for kv in (None, torch.int8):
+        ctx = _fixture_ctx(name, kv_cache_dtype=kv)
+        ctx.max_seq_len = 256
+        be = BatchedEngine(ctx, n_slots=4)
+        prompts = [ctx.encode(p) for p in ("hello", "abcabcabc", "xyz" * 30)]
+        outs, slots = {}, {}
+        for i, p in enumerate(prompts):
+            slot, first = be.add(p, max_new_tokens=100 - 20 * i,
+                                 temperature=0.0, repetition_penalty=1.1)
+            slots[slot], outs[slot] = i, [first]
+            for s, toks in be.step_burst(5).items():   # all advance
+                outs[s].extend(toks)
+        while be.n_active:
+            for s, toks in be.step_burst(7).items():
+                outs[s].extend(toks)
+        assert be._cache_len() == 256
+        for s, i in slots.items():
+            solo = engine.generate_on_device(ctx, prompts[i], 100 - 20 * i)
+            assert outs[s] == solo.tolist()[:len(outs[s])]
+
+
+@pytest.mark.cuda
+def test_join_from_another_thread_during_captures():
+    """One thread serves bursts that grow the cache and capture a graph at
+    each new capacity while clients join from the main thread: no capture
+    fails, and every stream is its solo greedy stream."""
+    _need_card()
+    import threading
+    from nano_tpu_torch.infer import engine
+    from nano_tpu_torch.serve.batching import BatchedEngine
+    ctx = _fixture_ctx("tiny_q80.bin")
+    ctx.max_seq_len = 256
+    be = BatchedEngine(ctx, n_slots=4)
+    prompts = [ctx.encode(p) for p in ("xyz" * 40, "hello", "abcabcabc")]
+    outs, slots, errors = {}, {}, []
+    slot, first = be.add(prompts[0], max_new_tokens=60, temperature=0.0,
+                         repetition_penalty=1.1)
+    slots[slot], outs[slot] = 0, [first]
+
+    def serve():
+        try:
+            while be.n_active:
+                for s, toks in be.step_burst(3).items():
+                    outs[s].extend(toks)
+        except BaseException as e:          # re-raised below
+            errors.append(e)
+
+    server = threading.Thread(target=serve)
+    server.start()
+    for i, p in enumerate(prompts[1:], 1):
+        slot, first = be.add(p, max_new_tokens=30, temperature=0.0,
+                             repetition_penalty=1.1)
+        slots[slot], outs[slot] = i, [first]
+    server.join(120)
+    assert not server.is_alive() and not errors
+    assert be._cache_len() == 256
+    for s, i in slots.items():
+        solo = engine.generate_on_device(ctx, prompts[i], len(outs[s]))
+        assert outs[s] == solo.tolist()
+
+
+@pytest.mark.cuda
+def test_stochastic_sampling_under_the_graph():
+    """A stochastic sampler's draws come from the context's generator,
+    which the graph registers: two calls from the same seed give the same
+    stream.  Where this PyTorch cannot register a generator with a graph,
+    the capture raises and says so."""
+    _need_card()
+    from nano_tpu_torch.infer import engine
+    from nano_tpu_torch.ops import sampling
+    ctx = _fixture_ctx("tiny_q80.bin")
+    ctx.sampler = sampling.SamplerConfig(temperature=0.9, top_p=0.9,
+                                         repetition_penalty=1.1)
+    ids = ctx.encode("helloworldabc")
+    if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+        with pytest.raises(RuntimeError, match="register_generator_state"):
+            engine.generate_on_device(ctx, ids, 20)
+        return
+    a = engine.generate_on_device(ctx, ids, 40).tolist()
+    b = engine.generate_on_device(ctx, ids, 40).tolist()
+    assert a == b and all(0 <= t < ctx.cfg.vocab_size for t in a)
