@@ -10,7 +10,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   build/torch_kernels/ (one process per source, in parallel)
   3. kernels      each kernel against its plain PyTorch version on the
                   card, at the main paths' shapes (the five Q80 matmuls of
-                  the Qwen3-0.6B shape at B=1 and B=64, decode attention
+                  the Qwen3-0.6B shape at B=1, 8, 64 and 65 through the
+                  int8 tensor-core kernel, two runs bit-equal, decode attention
                   over bf16 and int8 caches, the Q4K activation fake-quant
                   at widths 1024/2048/3072 and 40/64/128, the four Q4K
                   matmuls at B=1 and B=64 and the tiny fixture's, and the
@@ -20,7 +21,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   shapes, its int8 row and scales torch.equal to the plain
                   act quant, two runs bit-equal), and
                   timed over one decode step's launches (K1 also by
-                  product, the fused kernel beside the pair): kernel, plain
+                  product, the fused kernel beside the pair; the pair also
+                  over a 64-token prefill's 112 layer products, its main
+                  path): kernel, plain
                   version, one PyTorch library call as a yardstick, and the
                   least time the card needs for the bytes and operations
   4. tiny fixtures tests/js/fixtures/tiny_q80.bin and tiny_q4k.bin, greedy
@@ -93,14 +96,18 @@ scaled_dot_product_attention and the bound, and a decode step's 28
 attention launches both on f32 q and as the model feeds them (bf16 q,
 result cast to bf16).
 
-`python3 chip_smoke.py bench [flash [clocks]] [decode] [q4k] [q80] [pipes]`
-runs none of the phases: it times the two attention kernels alone beside
-SDPA (the flash forward and backward, a ladder over the decode kernel's
-rows per block), a Q4K decode step's matmuls with the fake-quant folded in
-or not, a Q80 decode step's W8A8 products by product, q80_matvec_fq
-against q80_act_quant + q80_matmul_w8a8, what an SM sustains of mma.sync
-and ex2, and with `clocks` where the
-backward's warps spend their cycles, for work on those kernels.
+`python3 chip_smoke.py bench [flash [clocks]] [decode] [q4k] [q80 [batched
+[sweep] [clocks]]] [pipes]` runs none of the phases: it times the two
+attention kernels alone beside SDPA (the flash forward and backward, a
+ladder over the decode kernel's rows per block), a Q4K decode step's
+matmuls with the fake-quant folded in or not, a Q80 decode step's W8A8
+products by product, q80_matvec_fq against q80_act_quant +
+q80_matmul_w8a8, what an SM sustains of mma.sync and ex2, and with
+`clocks` where the backward's warps spend their cycles, for work on those
+kernels.  `bench q80 batched` times K1 at B > 1 instead: a batched step's
+113 products at 8 and 64 slots and a 64-token prefill's 112, by product,
+beside the bf16 torch.matmul and the bound (`sweep`: every work split of
+the kernel; `clocks`: where a block's time goes).
 
 The last two lines of stdout are one JSON object listing the kernels and
 then {"ok": true, "device": {...}}.  Without a CUDA device the script
@@ -306,9 +313,10 @@ def params_to(params, device):
 
 
 # ---------------------------------------------------------------------
-# `python3 chip_smoke.py bench [flash [clocks]] [decode] [q4k] [q80] [pipes]`:
-# the attention kernels timed alone beside SDPA, a Q4K or Q80 decode
-# step's matmuls, and what an SM sustains of mma.sync and ex2.  A measuring mode
+# `python3 chip_smoke.py bench [flash [clocks]] [decode] [q4k] [q80 [batched
+# [sweep] [clocks]]] [pipes]`: the attention kernels timed alone beside SDPA,
+# a Q4K or Q80 decode step's matmuls, K1 at B > 1 (batched step, prefill),
+# and what an SM sustains of mma.sync and ex2.  A measuring mode
 # for work on those kernels (about a minute and a half with the build); it
 # checks little and prints no result lines.
 # ---------------------------------------------------------------------
@@ -645,14 +653,17 @@ def bench_q4k(torch):
         raise AssertionError("q4k_matvec_fq differs from the two kernels")
 
 
-def bench_q80(torch, clocks=False):
-    """One Qwen3-0.6B Q80 decode step's 113 W8A8 products (random per-layer
+def bench_q80(torch, clocks=False, batched=False, sweep=False):
+    """With `batched`, bench_q80_batched and nothing else.  Else: one
+    Qwen3-0.6B Q80 decode step's 113 W8A8 products (random per-layer
     weights as random_q80_params makes them, bf16 rows) replayed from a
     CUDA graph, by product and in total: q80_act_quant + q80_matmul_w8a8
     against q80_matvec_fq, in the order pair, fused, fused, pair; the fused
     bf16 results must be within 1e-2 of max|y| of the pair's (the same
     integer decisions, f32 sums in another order).  With `clocks`, where a
     launch's time goes (bench_q80_clocks)."""
+    if batched:
+        return bench_q80_batched(torch, sweep, clocks)
     import numpy as np
     from nano_tpu_torch.config import ModelConfig
     from nano_tpu_torch.ops import _build, qmatmul
@@ -661,6 +672,7 @@ def bench_q80(torch, clocks=False):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     lib = _build.lib("q80_matmul")
+    qmatmul.w8a8_init(torch.device("cuda", 0))
     st = lambda: torch.cuda.current_stream().cuda_stream
     calls = []    # (product, weight, x, xq, sa, y pair, y fused, plan)
     for name in ("wqkv", "wo", "w13", "w2", "head"):
@@ -679,9 +691,12 @@ def bench_q80(torch, clocks=False):
         for _, wl, x, xq, sa, y, *_ in cs:
             lib.q80_act_quant(x.data_ptr(), 1, xq.data_ptr(), sa.data_ptr(), 1,
                               wl.in_dim, GS, st())
-            lib.q80_matmul_w8a8(xq.data_ptr(), sa.data_ptr(), wl.q.data_ptr(),
-                                wl.scales.data_ptr(), y.data_ptr(), 1, 1,
-                                wl.in_dim, wl.out_dim, GS, st())
+            _build.check(lib.q80_matmul_w8a8(
+                xq.data_ptr(), sa.data_ptr(), wl.q.data_ptr(),
+                wl.scales.data_ptr(), y.data_ptr(), 1, 1, wl.in_dim,
+                wl.out_dim, GS, *qmatmul.w8a8_plan(1, wl.out_dim, wl.in_dim,
+                                                   GS, sms), st()),
+                "q80_matmul_w8a8")
 
     def fused(cs):
         for _, wl, x, _, _, _, y, plan in cs:
@@ -708,6 +723,187 @@ def bench_q80(torch, clocks=False):
     if clocks:
         bench_q80_clocks(torch, [next(c for c in calls if c[0] == n)
                                  for n in ("wqkv", "wo", "w13", "w2", "head")])
+
+
+def bench_q80_batched(torch, sweep=False, clocks=False):
+    """K1 at B > 1 as batched serving and prefill call it: a batched decode
+    step's 113 Q80 products (28 layers' wqkv, wo, w13, w2 on random
+    per-layer weights as random_q80_params makes them, and the head) at 8
+    and 64 slots, and a 64-token prefill's 112 (the layer products; its
+    head is one q80_matvec_fq row), replayed from a CUDA graph, by product
+    and in total: q80_matmul_w8a8 alone on rows quantized ahead, the pair
+    q80_act_quant + q80_matmul_w8a8 as the model calls it, and the bf16
+    torch.matmul on weights dequantized ahead, in the order kernel, library,
+    library, kernel, beside the bound.  Layer 0 of each product is held
+    to q80_w8a8_plain first (f32 out, 1e-5 of max|y|).  It uses only the
+    wrappers' interface, which the warp-per-row kernel before it had too,
+    so a copy of this file in an older tree times that tree's kernel.  With `sweep`, also bench_w8a8_plans, and
+    with `clocks` bench_w8a8_clocks, at 8 and 64 slots."""
+    import numpy as np
+    from nano_tpu_torch.config import ModelConfig
+    from nano_tpu_torch.ops import qmatmul
+    cfg = ModelConfig(**QWEN3_06B)
+    params = random_q80_params(torch, np, cfg, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    bf16 = torch.bfloat16
+    prods = [(name, wl) for name in ("wqkv", "wo", "w13", "w2", "head")
+             for wl in ([params["output_q"]] if name == "head" else
+                        [params["blocks"][name].layer(i)
+                         for i in range(cfg.n_layer)])]
+    wds = [wl.dequantize(bf16) for _, wl in prods]
+    plan = getattr(qmatmul, "w8a8_plan", None)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    timer = Timer(torch)
+    for label, B, names in (("step, 8 slots", 8, None),
+                            ("step, 64 slots", 64, None),
+                            ("prefill, 64 rows", 64, ("wqkv", "wo", "w13", "w2"))):
+        xs = [torch.randn(B, wl.in_dim, device="cuda", generator=gen).to(bf16)
+              for _, wl in prods]
+        qs = [qmatmul.act_quant_q80_plain(x, GS) for x in xs]
+        if names is None:
+            for name in ("wqkv", "wo", "w13", "w2", "head"):
+                i = next(j for j, (n, _) in enumerate(prods) if n == name)
+                y = qmatmul.q80_w8a8(*qs[i], prods[i][1], torch.float32)
+                ref = qmatmul.q80_w8a8_plain(*qs[i], prods[i][1], torch.float32)
+                err = (y - ref).abs().max().item() / ref.abs().max().item()
+                if not err <= 1e-5:
+                    raise AssertionError(f"q80_matmul_w8a8 {name} B={B}: "
+                                         f"max|d|/max|y| {err:.2e}")
+        for name in ("wqkv", "wo", "w13", "w2", "head", "all"):
+            if name == "all":
+                idx = [j for j, (n, _) in enumerate(prods)
+                       if names is None or n in names]
+            elif names is not None and name not in names:
+                continue
+            else:
+                idx = [j for j, (n, _) in enumerate(prods) if n == name]
+            run_k = lambda idx=idx: [qmatmul.q80_w8a8(*qs[j], prods[j][1], bf16)
+                                     for j in idx]
+            run_p = lambda idx=idx: [qmatmul.q80_w8a8(
+                *qmatmul.act_quant_q80(xs[j], GS), prods[j][1], bf16) for j in idx]
+            run_l = lambda idx=idx: [torch.matmul(xs[j], wds[j].t()) for j in idx]
+            t_k = [timer(run_k, reps=20)]
+            t_l = [timer(run_l, reps=20), timer(run_l, reps=20)]
+            t_k.append(timer(run_k, reps=20))
+            t_p = timer(run_p, reps=20)
+            ws = [prods[j][1] for j in idx]
+            nb = sum(wl.q.numel() + 4 * wl.scales.numel() + B * wl.in_dim
+                     + 4 * B * wl.in_dim // GS + 2 * B * wl.out_dim for wl in ws)
+            b_ms, b_by = bound(nb, sum(2 * B * wl.q.numel() for wl in ws),
+                               INT8_OPS_PER_S)
+            wl = ws[0]
+            what = (f"{len(idx)} launches" if name == "all" else
+                    f"{len(idx)} x {wl.in_dim}->{wl.out_dim}" + (
+                        f", plan (MB, BN, CS, S) "
+                        f"{plan(B, wl.out_dim, wl.in_dim, GS, sms)}" if plan else ""))
+            log(f"[bench q80 batched] {label}, {name} ({what}): q80_matmul_w8a8 "
+                f"{t_k[0]:.4f} / {t_k[1]:.4f} ms, bf16 torch.matmul "
+                f"{t_l[0]:.4f} / {t_l[1]:.4f} ms (kernel / library "
+                f"{min(t_k) / min(t_l):.2f}), with q80_act_quant {t_p:.4f} ms, "
+                f"bound {b_ms:.4f} ms ({b_by}, {nb / 1e6:.1f} MB)")
+        if sweep and names is None:
+            bench_w8a8_plans(torch, B, prods, qs)
+        if clocks and names is None:
+            bench_w8a8_clocks(torch, B, prods, qs)
+        del xs, qs
+    torch.cuda.synchronize()
+
+
+def bench_w8a8_clocks(torch, B, prods, qs):
+    """Builds q80_matmul.cu once more with -DNANO_W8A8_CLOCKS into
+    build/q80_clocks/ and launches layer 0 of each product once with
+    w8a8_plan's split, the L2 cleared before it (a 256 MB write): per
+    launch the span from the first block's entry to the last block's exit,
+    the spread of the entries, and the median over blocks of each stamp
+    (first chunk in, products done, the cluster's tiles met, exit) after
+    the block's entry, in ns of %globaltimer."""
+    import ctypes
+    import statistics
+    from nano_tpu_torch.ops import _build, qmatmul
+    work = os.path.join(ROOT, "build", "q80_clocks")
+    os.makedirs(work, exist_ok=True)
+    so = os.path.join(work, "libq80_w8a8_clocks.so")
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    subprocess.run([_build.nvcc_path(), *flags, "-DNANO_W8A8_CLOCKS", "-o", so,
+                    os.path.join(_build.CSRC_DIR, "q80_matmul.cu")], check=True)
+    lib = ctypes.CDLL(so)
+    lib.q80_matmul_init()
+    lib.q80_matmul_w8a8.argtypes = _build.SIGNATURES["q80_matmul_w8a8"][0]
+    lib.q80_matmul_w8a8_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    flush = torch.empty(64 << 20, device="cuda")
+    st = torch.cuda.current_stream().cuda_stream
+    for name in ("wqkv", "wo", "w13", "w2", "head"):
+        j = next(i for i, (n, _) in enumerate(prods) if n == name)
+        wl = prods[j][1]
+        K, N = wl.in_dim, wl.out_dim
+        plan = qmatmul.w8a8_plan(B, N, K, GS, sms)
+        y = torch.empty(B, N, dtype=torch.bfloat16, device="cuda")
+        for _ in range(2):    # the first launch warms up
+            flush.zero_()
+            assert lib.q80_matmul_w8a8(
+                qs[j][0].data_ptr(), qs[j][1].data_ptr(), wl.q.data_ptr(),
+                wl.scales.data_ptr(), y.data_ptr(), 1, B, K, N, GS, *plan,
+                st) == 0
+            torch.cuda.synchronize()
+        MB, BN, CS, _ = plan
+        nb = min(8192, -(-N // MB) * CS * -(-B // BN))
+        buf = (ctypes.c_ulonglong * (5 * nb))()
+        assert lib.q80_matmul_w8a8_clocks(buf, nb) == 0
+        t = [list(buf)[5 * b:5 * b + 5] for b in range(nb)]
+        t0 = min(r[0] for r in t)
+        med = [statistics.median(r[k] - r[0] for r in t) for k in range(1, 5)]
+        log(f"[bench q80 clocks] B={B} {name} plan {plan}, {nb} blocks: span "
+            f"{max(r[4] for r in t) - t0} ns, entries spread over "
+            f"{max(r[0] for r in t) - t0} ns; median after entry: first "
+            f"chunk in {med[0]:.0f}, products done {med[1]:.0f}, tiles met "
+            f"{med[2]:.0f}, exit {med[3]:.0f} ns")
+
+
+def bench_w8a8_plans(torch, B, prods, qs):
+    """Every work split q80_matmul_w8a8 takes (MB rows a block, BN slots a
+    tile: w8a8_plan's, half or a quarter of it, CS blocks a cluster, S
+    stages) at each product's launches (all layers), the fastest first,
+    beside w8a8_plan's choice: for work on the plan."""
+    from nano_tpu_torch.ops import _build, qmatmul
+    lib = _build.lib("q80_matmul")
+    qmatmul.w8a8_init(torch.device("cuda", 0))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    timer = Timer(torch)
+    for name in ("wqkv", "wo", "w13", "w2", "head"):
+        idx = [j for j, (n, _) in enumerate(prods) if n == name]
+        wl0 = prods[idx[0]][1]
+        K, N = wl0.in_dim, wl0.out_dim
+        G = K // GS
+        ys = [torch.empty(B, N, dtype=torch.bfloat16, device="cuda") for _ in idx]
+        chosen = qmatmul.w8a8_plan(B, N, K, GS, sms)
+        res = []
+        for MB, BN in ((mb, bn) for mb in (64, 128)
+                       for bn in sorted({max(8, chosen[1] >> k) for k in range(3)})):
+            for CS in (1, 2, 4, 8):
+                if CS > min(8, G):
+                    continue
+                for S in (1, 2, 3, 4):
+                    if (S > -(-G // CS) * GS // qmatmul.W8A8_KC
+                            or qmatmul.w8a8_smem(MB, BN, CS, S) > 232448):
+                        continue
+                    pl = (MB, BN, CS, S)
+
+                    def run(pl=pl):
+                        for j, y in zip(idx, ys):
+                            wl = prods[j][1]
+                            _build.check(lib.q80_matmul_w8a8(
+                                qs[j][0].data_ptr(), qs[j][1].data_ptr(),
+                                wl.q.data_ptr(), wl.scales.data_ptr(),
+                                y.data_ptr(), 1, B, K, N, GS, *pl,
+                                torch.cuda.current_stream().cuda_stream),
+                                "q80_matmul_w8a8")
+                    res.append((timer(run, reps=10), pl))
+        res.sort()
+        at = next(t for t, pl in res if pl == chosen)
+        log(f"[bench q80 plans] B={B} {name} ({len(idx)} x {K}->{N}): "
+            + ", ".join(f"{pl} {t:.4f}" for t, pl in res[:8])
+            + f"; w8a8_plan {chosen} {at:.4f} ms ({len(res)} splits)")
 
 
 def bench_q80_clocks(torch, calls):
@@ -770,12 +966,13 @@ def bench(what) -> int:
         return 2
     sys.path.insert(0, ROOT)
     log(f"[bench] card: {card_line()}")
+    flags = {"clocks": "clocks" in what}
+    q80_flags = dict(flags, batched="batched" in what, sweep="sweep" in what)
     for name, fn in (("flash", bench_flash), ("decode", bench_decode),
                      ("q4k", bench_q4k), ("q80", bench_q80),
                      ("pipes", bench_pipes)):
         if not what or name in what:
-            fn(torch, **({"clocks": "clocks" in what}
-                         if name in ("flash", "q80") else {}))
+            fn(torch, **{"flash": flags, "q80": q80_flags}.get(name, {}))
     return 0
 
 
@@ -892,7 +1089,10 @@ def main() -> int:
         return ([w.layer(i) for i in range(lead.shape[0])] if lead.dim() == 3
                 else [w])
 
-    for B in (1, 64):
+    # K1 at B > 1 (the int8 tensor-core kernel) at one slot, 8 and 64 slots
+    # (a batched step; 64: also a 64-token prefill) and 65 (two slot tiles),
+    # f32 out; two runs the same bits
+    for B in (1, 8, 64, 65):
         for name, w in shapes:
             w0 = layer_weights(w)[0]
             K, N = w0.in_dim, w0.out_dim
@@ -905,14 +1105,19 @@ def main() -> int:
                 raise AssertionError(f"act_quant int8 decisions differ at "
                                      f"{name} B={B}")
             y = qmatmul.q80_w8a8(kq, ks, w0, torch.float32)
+            again = qmatmul.q80_w8a8(kq, ks, w0, torch.float32)
             ref = qmatmul.q80_w8a8_plain(pq, ps, w0, torch.float32)
             err = (y - ref).abs().max().item()
             tol = 1e-5 * ref.abs().max().item()
-            log(f"[kernel] q80_matmul_w8a8 {name} {K}->{N} B={B}: int8 "
-                f"equal, max_abs_err {err:.3e} (tol {tol:.3e} = 1e-5 of "
-                f"max|y|)")
+            log(f"[kernel] q80_matmul_w8a8 {name} {K}->{N} B={B} plan (MB, "
+                f"BN, CS, S) {qmatmul.w8a8_plan(B, N, K, GS, sms)}: int8 equal, "
+                f"max_abs_err {err:.3e} (tol {tol:.3e} = 1e-5 of max|y|), two "
+                f"runs bit-equal {torch.equal(y, again)}")
             if not err <= tol:
                 raise AssertionError(f"q80_matmul_w8a8 {name} B={B} off by {err}")
+            if not torch.equal(y, again):
+                raise AssertionError(f"q80_matmul_w8a8 {name} B={B}: two runs "
+                                     f"differ")
             note_err("q80_matmul_w8a8", err)
 
     # K1 at B = 1 with the activation quantization folded in: the five
@@ -1326,10 +1531,10 @@ def main() -> int:
 
     # ---- timing: one decode step's launches of each kernel, B=1 ----
     # (real per-layer weights, so nothing stays in L2), by product and in
-    # total: the pair that now runs only the prefill's products
-    # (q80_act_quant + q80_matmul_w8a8) and q80_matvec_fq, which a decode
-    # step runs
+    # total: the pair, which runs only at B > 1 (q80_act_quant +
+    # q80_matmul_w8a8), and q80_matvec_fq, which a decode step runs
     lib = _build.lib("q80_matmul")
+    qmatmul.w8a8_init(dev)
     step_calls = []      # (product, weight, x bf16, xq, sa, y, plan, bf16 weight)
     for name, w in shapes:
         for wl in layer_weights(w):
@@ -1349,9 +1554,12 @@ def main() -> int:
 
     def run_w8a8(calls=step_calls):
         for _, wl, x, xq, sa, y, *_ in calls:
-            lib.q80_matmul_w8a8(xq.data_ptr(), sa.data_ptr(), wl.q.data_ptr(),
-                                wl.scales.data_ptr(), y.data_ptr(), 1, 1,
-                                wl.in_dim, wl.out_dim, GS, stream())
+            _build.check(lib.q80_matmul_w8a8(
+                xq.data_ptr(), sa.data_ptr(), wl.q.data_ptr(),
+                wl.scales.data_ptr(), y.data_ptr(), 1, 1, wl.in_dim,
+                wl.out_dim, GS, *qmatmul.w8a8_plan(1, wl.out_dim, wl.in_dim,
+                                                   GS, sms), stream()),
+                "q80_matmul_w8a8")
 
     def run_pair(calls=step_calls):
         run_act_quant(calls)
@@ -1363,14 +1571,6 @@ def main() -> int:
                 x.data_ptr(), 1, wl.q.data_ptr(), wl.scales.data_ptr(),
                 y.data_ptr(), 1, None, None, wl.in_dim, wl.out_dim, GS, *plan,
                 stream()), "q80_matvec_fq")
-
-    def run_act_quant_plain():
-        for _, wl, x, *_ in step_calls:
-            qmatmul.act_quant_q80_plain(x, GS)
-
-    def run_w8a8_plain():
-        for _, wl, x, xq, sa, *_ in step_calls:
-            qmatmul.q80_w8a8_plain(xq, sa, wl, torch.bfloat16)
 
     def run_matvec_plain():
         for _, wl, x, *_ in step_calls:
@@ -1386,37 +1586,14 @@ def main() -> int:
         return sum(wl.q.numel() + wl.scales.numel() * 4 + 2 * wl.in_dim
                    + 2 * wl.out_dim for _, wl, *_ in calls)
 
-    k = kernels["q80_act_quant"]
-    k["ms"] = timer(run_act_quant)
-    k["plain_ms"] = timer(run_act_quant_plain)
-    k["library_ms"] = None
-    set_bound("q80_act_quant",
-              sum(wl.in_dim * 2 + wl.in_dim + wl.in_dim // GS * 4
-                  for _, wl, *_ in step_calls),
-              sum(3 * wl.in_dim for _, wl, *_ in step_calls), F32_OPS_PER_S)
-
-    k = kernels["q80_matmul_w8a8"]
-    k["ms"] = timer(run_w8a8)
-    k["plain_ms"] = timer(run_w8a8_plain)
-    k["library_ms"] = timer(run_w8a8_library)
-    mm_bytes = sum(wl.q.numel() + wl.scales.numel() * 4 + wl.in_dim
-                   + wl.in_dim // GS * 4 + wl.out_dim * 2
-                   for _, wl, *_ in step_calls)
     mm_ops = sum(2 * wl.q.numel() for _, wl, *_ in step_calls)
-    set_bound("q80_matmul_w8a8", mm_bytes, mm_ops, INT8_OPS_PER_S)
-    log(f"[time] one Q80 decode step (B=1, {len(step_calls)} matmuls): "
-        f"act_quant {kernels['q80_act_quant']['ms']:.4f} ms, w8a8 "
-        f"{k['ms']:.4f} ms (bound {k['bound_ms']:.4f} ms for "
-        f"{mm_bytes / 1e6:.1f} MB), bf16 torch.matmul on pre-dequantized "
-        f"weights {k['library_ms']:.4f} ms")
-
     k = kernels["q80_matvec_fq"]
     t_pair = [timer(run_pair)]
     t_mv = [timer(run_matvec), timer(run_matvec)]
     t_pair.append(timer(run_pair))
     k["ms"] = t_mv[0]
     k["plain_ms"] = timer(run_matvec_plain)
-    k["library_ms"] = kernels["q80_matmul_w8a8"]["library_ms"]
+    k["library_ms"] = timer(run_w8a8_library)
     set_bound("q80_matvec_fq", mv_bytes(step_calls), mm_ops, INT8_OPS_PER_S)
     log(f"[time] the same step through q80_matvec_fq ({len(step_calls)} "
         f"launches, act quant folded in; in turns pair, fused, fused, pair): "
@@ -1439,6 +1616,62 @@ def main() -> int:
             f"{mv_ms:.4f} ms; bound {b_ms:.4f} ms "
             f"({mv_bytes(calls) / 1e6:.2f} MB); {card}")
     del step_calls
+
+    # ---- timing: the pair on its main path, a 64-token prefill's 112
+    # layer products (B = PROMPT_LEN; its head is one q80_matvec_fq) ----
+    pre_calls = []       # (weight, x bf16, xq, sa)
+    for name, w in shapes[:4]:
+        for wl in layer_weights(w):
+            x = torch.randn(PROMPT_LEN, wl.in_dim, device=dev, generator=gen
+                            ).to(torch.bfloat16)
+            pre_calls.append((wl, x, *qmatmul.act_quant_q80_plain(x, GS)))
+    assert len(pre_calls) == 4 * L
+    B = PROMPT_LEN
+
+    def run_pre_act_quant():
+        for wl, x, *_ in pre_calls:
+            qmatmul.act_quant_q80(x, GS)
+
+    def run_pre_act_quant_plain():
+        for wl, x, *_ in pre_calls:
+            qmatmul.act_quant_q80_plain(x, GS)
+
+    def run_pre_w8a8():
+        for wl, _, xq, sa in pre_calls:
+            qmatmul.q80_w8a8(xq, sa, wl, torch.bfloat16)
+
+    def run_pre_w8a8_plain():
+        for wl, _, xq, sa in pre_calls:
+            qmatmul.q80_w8a8_plain(xq, sa, wl, torch.bfloat16)
+
+    k = kernels["q80_act_quant"]
+    k["ms"] = timer(run_pre_act_quant)
+    k["plain_ms"] = timer(run_pre_act_quant_plain)
+    k["library_ms"] = None
+    set_bound("q80_act_quant",
+              sum(B * (wl.in_dim * 2 + wl.in_dim + wl.in_dim // GS * 4)
+                  for wl, *_ in pre_calls),
+              sum(3 * B * wl.in_dim for wl, *_ in pre_calls), F32_OPS_PER_S)
+    k = kernels["q80_matmul_w8a8"]
+    k["ms"] = timer(run_pre_w8a8)
+    k["plain_ms"] = timer(run_pre_w8a8_plain)
+    wds = [wl.dequantize(torch.bfloat16) for wl, *_ in pre_calls]
+    k["library_ms"] = timer(lambda: [torch.matmul(c[1], wd.t())
+                                     for c, wd in zip(pre_calls, wds)])
+    del wds
+    pre_bytes = sum(wl.q.numel() + wl.scales.numel() * 4 + B * wl.in_dim
+                    + B * wl.in_dim // GS * 4 + B * wl.out_dim * 2
+                    for wl, *_ in pre_calls)
+    set_bound("q80_matmul_w8a8", pre_bytes,
+              sum(2 * B * wl.q.numel() for wl, *_ in pre_calls), INT8_OPS_PER_S)
+    log(f"[time] a {B}-token Q80 prefill's {len(pre_calls)} layer products "
+        f"(B={B}): q80_act_quant {kernels['q80_act_quant']['ms']:.4f} ms "
+        f"(plain {kernels['q80_act_quant']['plain_ms']:.4f}), "
+        f"q80_matmul_w8a8 {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}; bound "
+        f"{k['bound_ms']:.4f} ms, {k['bound_by']}, {pre_bytes / 1e6:.1f} MB), "
+        f"bf16 torch.matmul on weights dequantized ahead "
+        f"{k['library_ms']:.4f} ms; {card}")
+    del pre_calls
 
     # Q4K: the 112 matmuls of a decode step (real per-layer weights, so
     # nothing stays in L2) and the 113 fake-quants before them and the head
@@ -2265,26 +2498,34 @@ def main() -> int:
         xs = [torch.randn(B, wl.in_dim, device=dev, generator=gen
                           ).to(torch.bfloat16) for wl in prods]
 
+        qs = [qmatmul.act_quant_q80_plain(x, GS) for x in xs]
+
         def run_pair_b():
             for x, wl in zip(xs, prods):
                 qmatmul.q80_w8a8(*qmatmul.act_quant_q80(x, GS), wl,
                                  torch.bfloat16)
 
+        def run_w8a8_b():
+            for (xq, sa), wl in zip(qs, prods):
+                qmatmul.q80_w8a8(xq, sa, wl, torch.bfloat16)
+
         def run_lib_b():
             for x, wd in zip(xs, wds):
                 torch.matmul(x, wd.t())
 
-        k_ms, l_ms = timer(run_pair_b), timer(run_lib_b)
+        k_ms, m_ms, l_ms = timer(run_pair_b), timer(run_w8a8_b), timer(run_lib_b)
         nb = sum(wl.q.numel() + 4 * wl.scales.numel()
                  + 2 * B * (wl.in_dim + wl.out_dim) for wl in prods)
         b_ms, b_by = bound(nb, sum(2 * B * wl.q.numel() for wl in prods),
                            INT8_OPS_PER_S)
         log(f"[batched kernels] B={B}: W8A8 pair (q80_act_quant + "
-            f"q80_matmul_w8a8, {len(prods)} launches each, a step's products "
-            f"and the head): {k_ms:.4f} ms; bf16 torch.matmul on weights "
-            f"dequantized ahead {l_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}, "
+            f"q80_matmul_w8a8 on the int8 tensor cores, {len(prods)} launches "
+            f"each, a step's products and the head): {k_ms:.4f} ms, "
+            f"q80_matmul_w8a8 alone {m_ms:.4f} ms; bf16 torch.matmul on "
+            f"weights dequantized ahead {l_ms:.4f} ms (pair / library "
+            f"{k_ms / l_ms:.2f}); bound {b_ms:.4f} ms ({b_by}, "
             f"{nb / 1e6:.1f} MB); {card}")
-        del xs
+        del xs, qs
     del wds
 
     T_b = 256

@@ -11,12 +11,14 @@
 //                    sign(v) * floor(|v| + 0.5) with v = x / scale, the C
 //                    engine's rounding, bit for bit (IEEE division; this
 //                    file must never be built with --use_fast_math).
-//   q80_matmul_w8a8  q80_matmul_int8 on quantized rows: int8 activation x
-//                    int8 weight, an EXACT int32 partial per group
-//                    (__dp4a), then the f32 combine
+//   q80_matmul_w8a8  q80_matmul_int8 (and _q80_kernel's product) on
+//                    quantized rows: int8 activation x int8 weight on the
+//                    int8 tensor cores, an EXACT int32 partial per group,
+//                    then the f32 combine
 //                    y[b, n] = sum_g P[b, g, n] * sa[b, g] * sw[n, g].
-//                    With q80_act_quant before it, the W8A8 form at B > 1
-//                    (prefill's layer products).
+//                    With q80_act_quant before it, the W8A8 form at B > 1:
+//                    every batched decode step (B = slots) and every
+//                    prefill's layer products (B = prompt length).
 //   q80_matvec_fq    the two at B = 1 in one launch: every Q80 product of a
 //                    decode step, and the head (one row at prefill too).
 //                    The same integer decisions; f32 sums in another order.
@@ -53,16 +55,54 @@
 // its < 16-byte ends read by plain loads.  Measured on the H100:
 // chip_smoke.py bench q80 [clocks].
 //
-// q80_matmul_w8a8 / q80_matmul_rows: one warp per output row, 16-byte
-// loads along K so a warp reads 512 contiguous bytes per iteration; the
-// weight row is read once per batch tile of up to 8 activation rows, kept
-// in registers while the tile is consumed.  The activation (K bytes a row)
-// is shared by every warp and stays in L1/L2.  Not yet done: wgmma/TMA
-// tiles for large B (prefill).
+// q80_matmul_w8a8.  Bound on the H100 by bytes up to B = 64: a batched
+// step's 113 products move ~600 MB of weights (0.18 ms at 3.35 TB/s) for
+// 2 B multiply-adds a weight byte, and the card's int8 tensor cores need
+// ~600 operations a byte before they, and not the memory, set the pace.
+// But the multiply-adds are too many for the CUDA cores (__dp4a: ~0.5 ms
+// at B = 64 however well issued), so they go to the tensor cores, and the
+// design is about the bytes:
+//   * each weight byte leaves device memory once: a block's slot tile
+//     (BN = 8, 16, 32 or 64 columns of the mma, an instance each, the
+//     ragged edge read as zeros) covers every row of a batched step, or,
+//     for a weight that stays in L2 (a layer product, 2-6 MB), 32 of them,
+//     the other tile's blocks reading it at the same time from L2;
+//   * both operands in their natural layout: q (N, K) row-major is the
+//     mma's row A operand (weight rows on M, 16 a warp, MB = 64 or 128 a
+//     block) and xq (B, K) row-major its col B operand (slots on N), so
+//     ldmatrix feeds both from tiles of 256 bytes of K, swizzled so that
+//     its 8 rows fall in 8 bank groups, that stream through a ring of up to
+//     4 stages by cp.async (the activation too: at B = 64, K = 3072 it is
+//     192 KB);
+//   * mma.sync m16n8k32 s8: a group of 256 is 8 k-steps into an int32
+//     fragment (256 * 127^2 < 2^31, exact), folded into f32 accumulators
+//     with the group's two scales when the group ends;
+//   * 132 SMs at every product: N = 1024 has 16 row tiles, so the plan
+//     (ops/qmatmul.py:w8a8_plan, from the shapes alone) splits the groups
+//     over a cluster of up to 8 blocks, which leave their partial tiles in
+//     each other's shared memory and sum them in a fixed order (no atomics,
+//     no second launch, the same bits every run);
+//   * nothing allocated, one launch, and every instance's shared-memory
+//     limit raised once when the library is first used
+//     (q80_matmul_init), so that a CUDA-graph capture never meets one first.
+// Where its time goes (chip_smoke.py bench q80 batched clocks, a layer
+// product at B = 64): ~2-3 us until a block's first chunk is in (the
+// weights come cold from device memory), ~1-2 us of products, ~2 us for
+// the cluster's partial tiles to meet and be written; the plan's choices
+// come from chip_smoke.py bench q80 batched sweep.
+//
+// q80_matmul_rows: one warp per output row, 16-byte loads along K so a
+// warp reads 512 contiguous bytes per iteration; the weight row is read
+// once per batch tile of up to 8 activation rows, kept in registers while
+// the tile is consumed.  The activation is shared by every warp and stays
+// in L1/L2.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -105,78 +145,6 @@ __global__ void act_quant_kernel(const XT* __restrict__ x, int8_t* __restrict__ 
     xq[base + i] = (int8_t)(int)copysignf(r, v);
   }
   if (lane == 0) sa[(size_t)b * G + g] = s;
-}
-
-// One warp per output row n, BT activation rows per block row of the grid.
-// gs is 256 (a group is 16 lanes of one iteration) or a multiple of 512
-// (a group spans whole iterations).
-template <int BT, typename OT>
-__global__ void w8a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sa,
-                            const int8_t* __restrict__ w, const float* __restrict__ sw,
-                            OT* __restrict__ y, int B, int K, int N, int gs) {
-  const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (n >= N) return;
-  const int b0 = blockIdx.y * BT;
-  const int G = K / gs;
-  const int cpg = gs >> 4;  // 16-byte chunks per group
-  const int4* wrow = reinterpret_cast<const int4*>(w + (size_t)n * K);
-  const float* swrow = sw + (size_t)n * G;
-  float acc[BT];
-  int part[BT];
-#pragma unroll
-  for (int j = 0; j < BT; ++j) {
-    acc[j] = 0.f;
-    part[j] = 0;
-  }
-  const int n_iter = (K + 511) >> 9;
-  for (int it = 0; it < n_iter; ++it) {
-    const int c = it * 32 + lane;
-    const bool valid = c * 16 < K;
-    int4 wv = make_int4(0, 0, 0, 0);
-    if (valid) wv = __ldg(wrow + c);
-#pragma unroll
-    for (int j = 0; j < BT; ++j) {
-      if (valid && b0 + j < B) {
-        const int4 xv = __ldg(reinterpret_cast<const int4*>(xq + (size_t)(b0 + j) * K) + c);
-        int p = part[j];
-        p = __dp4a(wv.x, xv.x, p);
-        p = __dp4a(wv.y, xv.y, p);
-        p = __dp4a(wv.z, xv.z, p);
-        p = __dp4a(wv.w, xv.w, p);
-        part[j] = p;
-      }
-    }
-    if (cpg <= 32) {
-      // the groups of this iteration are runs of cpg lanes: exact int sum
-#pragma unroll
-      for (int j = 0; j < BT; ++j) {
-        int p = part[j];
-        for (int off = cpg >> 1; off > 0; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off);
-        part[j] = 0;
-        if (valid && (lane & (cpg - 1)) == 0 && b0 + j < B) {
-          const int g = c / cpg;
-          acc[j] += (float)p * sa[(size_t)(b0 + j) * G + g] * swrow[g];
-        }
-      }
-    } else if (((it + 1) * 32) % cpg == 0) {
-      // a group spans cpg / 32 iterations and ends with this one
-      const int g = (it * 32) / cpg;
-#pragma unroll
-      for (int j = 0; j < BT; ++j) {
-        int p = part[j];
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off);
-        part[j] = 0;
-        if (lane == 0 && b0 + j < B) acc[j] += (float)p * sa[(size_t)(b0 + j) * G + g] * swrow[g];
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < BT; ++j) {
-    const float v = warp_sum(acc[j]);
-    if (lane == 0 && b0 + j < B) store_f(y, (size_t)(b0 + j) * N + n, v);
-  }
 }
 
 // One warp per output row n: f32 dequant w = q * s, f32 dot with x.
@@ -527,19 +495,303 @@ __global__ void __launch_bounds__(kMvThreads, 2)
   MV_CLK(4);
 }
 
-constexpr int kWarps = 8;  // output rows per block
+// ---- q80_matmul_w8a8 ----
 
-template <typename OT>
-void launch_w8a8(const int8_t* xq, const float* sa, const int8_t* w, const float* sw, OT* y,
-                 int B, int K, int N, int gs, cudaStream_t st) {
-  const unsigned gx = (N + kWarps - 1) / kWarps;
-  if (B == 1) {
-    w8a8_kernel<1, OT><<<dim3(gx, 1), kWarps * 32, 0, st>>>(xq, sa, w, sw, y, B, K, N, gs);
-  } else {
-    w8a8_kernel<8, OT><<<dim3(gx, (B + 7) / 8), kWarps * 32, 0, st>>>(xq, sa, w, sw, y, B, K,
-                                                                       N, gs);
+constexpr int kMmaMaxWarps = 8;    // a q80_matmul_w8a8 block: 4 or 8 warps of 16 weight rows
+constexpr int kMmaKC = 256;        // bytes of K a stage: 16 chunks of 16 a row
+constexpr int kMmaCh = kMmaKC / 16;
+constexpr int kMmaMaxStages = 4;
+constexpr int kMmaMaxCluster = 8;
+
+// Bytes of one stage of a block of MB weight rows: the weight tile, the
+// slot tile, then one scale a row and one a slot (the group of the
+// stage's chunk).
+__host__ __device__ __forceinline__ size_t mma_stage(int MB, int BN) {
+  return (size_t)(MB + BN) * (kMmaKC + 4);
+}
+
+// Bytes of the box where the CS blocks of a cluster leave a block their
+// partial sums of its MB / CS rows, [rank][row][slot] with slot rows of
+// BN + 2 floats: past the stages where CS > 1 (other blocks write into it
+// while this one may still be reading its stages), over them where CS = 1
+// (the shared memory is then the larger of the two).
+__host__ __device__ __forceinline__ size_t mma_box(int MB, int BN) {
+  return (size_t)MB * (BN + 2) * 4;
+}
+
+__host__ __device__ __forceinline__ size_t mma_smem(int MB, int BN, int CS, int S) {
+  const size_t stages = (size_t)S * mma_stage(MB, BN), box = mma_box(MB, BN);
+  return CS > 1 ? stages + box : (stages > box ? stages : box);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most n (0 .. kMmaMaxStages - 1) of this thread's groups are pending
+__device__ __forceinline__ void cp_async_wait(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
   }
 }
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+// c (16 x 8 s32) += a (16 x 32 s8, row) . b (32 x 8 s8, col): exact
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Where a q80_matmul_w8a8 block's time goes, only in a build with
+// -DNANO_W8A8_CLOCKS (`chip_smoke.py bench q80 batched clocks` makes one
+// beside the real library): thread 0 of each block of the last launch
+// stamps %globaltimer (ns) at entry, when its first chunk is in, when its
+// products are done, when the cluster's partial tiles meet and at exit.
+#ifdef NANO_W8A8_CLOCKS
+__device__ unsigned long long g_w8_clk[8192][5];
+#define W8_CLK(k)                                                              \
+  do {                                                                         \
+    const unsigned b_ = blockIdx.y * gridDim.x + blockIdx.x;                   \
+    if (threadIdx.x == 0 && b_ < 8192) {                                       \
+      unsigned long long t_;                                                   \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                  \
+      g_w8_clk[b_][k] = t_;                                                    \
+    }                                                                          \
+  } while (0)
+#else
+#define W8_CLK(k) \
+  do {            \
+  } while (0)
+#endif
+
+// Byte offset of 16-byte chunk c (0 .. 15) of row r in a tile of 256-byte
+// rows: chunk c ^ (r & 7), so that the 8 rows one ldmatrix reads at one
+// chunk lie in 8 different bank groups.
+__device__ __forceinline__ int swz(int r, int c) { return r * kMmaKC + ((c ^ (r & 7)) << 4); }
+
+// y (B, N) = sum_g P[b, g, n] * sa[b, g] * sw[n, g], P the exact int8 group
+// dots, on the int8 tensor cores with the operands swapped: MB weight rows
+// a block on M (A = q, row-major), BN slots on N (B = xq, row-major, the
+// "col" operand), both fed by ldmatrix from swizzled tiles.  A block of
+// MB / 16 warps (blockIdx.x / CS, rank blockIdx.x % CS of its cluster,
+// blockIdx.y) takes rows n0 .. n0 + MB - 1, slots b0 .. b0 + BN - 1 and groups
+// [G rank / CS, G (rank + 1) / CS), walking them in chunks of 256 bytes of
+// K round a ring of S stages filled by cp.async (rows and slots past the
+// end, and their scales, read as zeros).  Warp w holds rows 16 w .. 16 w +
+// 15 against every slot: an int32 fragment a group (8 k-steps of 32 at gs
+// = 256), folded into f32 as (P * sa) * sw when its group ends.  The CS
+// blocks of a cluster then add their partial tiles through distributed
+// shared memory, rank 0's first, each block summing and writing one CS-th
+// of the tile's rows: a fixed order and no atomics.
+template <int BN, typename OT>
+__global__ void __launch_bounds__(kMmaMaxWarps * 32)
+    w8a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sa,
+                const int8_t* __restrict__ w, const float* __restrict__ sw, OT* __restrict__ y,
+                int B, int K, int N, int gs, int CS, int S) {
+  constexpr int NF = BN / 8;   // 8-slot fragments a warp
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int G = K / gs, cpg = gs / kMmaKC;
+  const int nt = blockDim.x, MB = nt / 2;   // 16 weight rows a warp
+  const int rank = blockIdx.x % CS;
+  const int n0 = (blockIdx.x / CS) * MB, b0 = blockIdx.y * BN;
+  const int c_lo = (G * rank / CS) * cpg;
+  const int nch = (G * (rank + 1) / CS) * cpg - c_lo;
+  const size_t stage = mma_stage(MB, BN);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  // chunk c_lo + t (its weights, slots and the scales of its group) into stage t % S
+  auto load = [&](int t) {
+    unsigned char* wt = smem + (size_t)(t % S) * stage;
+    unsigned char* at = wt + MB * kMmaKC;
+    float* sws = reinterpret_cast<float*>(at + BN * kMmaKC);
+    float* sas = sws + MB;
+    const int kc = c_lo + t, g = kc / cpg;
+    const size_t k0 = (size_t)kc * kMmaKC;
+    for (int i = tid; i < MB * kMmaCh; i += nt) {
+      const int r = i / kMmaCh, c = i % kMmaCh, n = n0 + r;
+      cp_async16(wt + swz(r, c), n < N ? w + (size_t)n * K + k0 + c * 16 : w, n < N ? 16 : 0);
+    }
+    for (int i = tid; i < BN * kMmaCh; i += nt) {
+      const int r = i / kMmaCh, c = i % kMmaCh, b = b0 + r;
+      cp_async16(at + swz(r, c), b < B ? xq + (size_t)b * K + k0 + c * 16 : xq, b < B ? 16 : 0);
+    }
+    for (int i = tid; i < MB + BN; i += nt) {
+      if (i < MB) {
+        const int n = n0 + i;
+        cp_async4(sws + i, n < N ? sw + (size_t)n * G + g : sw, n < N ? 4 : 0);
+      } else {
+        const int b = b0 + i - MB;
+        cp_async4(sas + i - MB, b < B ? sa + (size_t)b * G + g : sa, b < B ? 4 : 0);
+      }
+    }
+  };
+
+  W8_CLK(0);
+  // every stage's chunk in flight before the first is consumed; one commit
+  // group a chunk (empty past the end), so that "chunk t is in" is "at most
+  // S - 1 groups pending" at every t
+  for (int t = 0; t < S; ++t) {
+    if (t < nch) load(t);
+    cp_async_commit();
+  }
+  int ci[NF][4];
+  float acc[NF][4];
+#pragma unroll
+  for (int j = 0; j < NF; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      ci[j][e] = 0;
+      acc[j][e] = 0.f;
+    }
+  const int gid = lane >> 2, tig = lane & 3;
+  for (int t = 0; t < nch; ++t) {
+    cp_async_wait(S - 1);
+    __syncthreads();   // every thread's copies of chunk t are in
+    if (t == 0) W8_CLK(1);
+    const unsigned char* wt = smem + (size_t)(t % S) * stage;
+    const unsigned char* at = wt + MB * kMmaKC;
+#pragma unroll
+    for (int ks = 0; ks < kMmaKC / 32; ++ks) {
+      uint32_t a[4];
+      {   // matrices (rows 0-7, k 0-15), (8-15, 0-15), (0-7, 16-31), (8-15, 16-31)
+        const int m = lane >> 3;
+        ldsm_x4(a, wt + swz(warp * 16 + (lane & 7) + (m & 1) * 8, 2 * ks + (m >> 1)));
+      }
+#pragma unroll
+      for (int j = 0; j < NF; j += 2) {
+        uint32_t b[4];
+        if constexpr (NF == 1) {   // (slots 0-7, k 0-15), (0-7, 16-31)
+          ldsm_x2(b, at + swz(lane & 7, 2 * ks + ((lane >> 3) & 1)));
+        } else {   // the same for fragments j and j + 1
+          const int m = lane >> 3;
+          ldsm_x4(b, at + swz(8 * (j + (m >> 1)) + (lane & 7), 2 * ks + (m & 1)));
+        }
+        mma_s8(ci[j], a, b[0], b[1]);
+        if constexpr (NF > 1) mma_s8(ci[j + 1], a, b[2], b[3]);
+      }
+    }
+    if ((c_lo + t + 1) % cpg == 0) {   // the group ends with this chunk
+      const float* sws = reinterpret_cast<const float*>(at + BN * kMmaKC);
+      const float* sas = sws + MB;
+#pragma unroll
+      for (int j = 0; j < NF; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[j][e] += (float)ci[j][e] * sas[8 * j + 2 * tig + (e & 1)] *
+                       sws[warp * 16 + gid + 8 * (e >> 1)];
+          ci[j][e] = 0;
+        }
+    }
+    __syncthreads();   // stage t % S is free
+    if (t + S < nch) load(t + S);
+    cp_async_commit();
+  }
+  cp_async_wait(0);
+  W8_CLK(2);
+
+  // Each block leaves its partial sums of rows MB q / CS .. of its tile in
+  // block q's box (remote stores: nothing waits for them), all in one
+  // cluster barrier, and then sums its own rows' CS partials in rank order
+  // from its own shared memory and writes them out.
+  const int own = MB / CS;   // rows a block sums (8 or more)
+  float* box = reinterpret_cast<float*>(smem + (CS > 1 ? (size_t)S * stage : 0));
+  const int ldo = BN + 2;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = warp * 16 + gid + 8 * h;
+    float* dst = cluster.map_shared_rank(box, r / own) + (rank * own + r % own) * ldo;
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+      *reinterpret_cast<float2*>(dst + 8 * j + 2 * tig) =
+          make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+  }
+  cluster.sync();
+  W8_CLK(3);
+  for (int i = tid; i < own * BN; i += nt) {
+    const int r = i % own, b = i / own;
+    float v = box[r * ldo + b];
+    for (int q = 1; q < CS; ++q) v += box[(q * own + r) * ldo + b];
+    const int n = n0 + rank * own + r;
+    if (b0 + b < B && n < N) store_f(y, (size_t)(b0 + b) * N + n, v);
+  }
+  W8_CLK(4);
+}
+
+template <int BN, typename OT>
+cudaError_t launch_w8a8(const int8_t* xq, const float* sa, const int8_t* w, const float* sw,
+                        OT* y, int B, int K, int N, int gs, int MB, int CS, int S,
+                        cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((N + MB - 1) / MB * CS), (unsigned)((B + BN - 1) / BN), 1);
+  cfg.blockDim = dim3((unsigned)(MB * 2), 1, 1);
+  cfg.dynamicSmemBytes = mma_smem(MB, BN, CS, S);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)CS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, w8a8_kernel<BN, OT>, xq, sa, w, sw, y, B, K, N, gs, CS, S);
+}
+
+template <typename OT>
+cudaError_t launch_w8a8_bn(int BN, const int8_t* xq, const float* sa, const int8_t* w,
+                           const float* sw, OT* y, int B, int K, int N, int gs, int MB, int CS,
+                           int S, cudaStream_t st) {
+  switch (BN) {
+    case 8: return launch_w8a8<8>(xq, sa, w, sw, y, B, K, N, gs, MB, CS, S, st);
+    case 16: return launch_w8a8<16>(xq, sa, w, sw, y, B, K, N, gs, MB, CS, S, st);
+    case 32: return launch_w8a8<32>(xq, sa, w, sw, y, B, K, N, gs, MB, CS, S, st);
+    default: return launch_w8a8<64>(xq, sa, w, sw, y, B, K, N, gs, MB, CS, S, st);
+  }
+}
+
+// Every instance may take all of an SM's shared memory a block can have.
+template <typename OT>
+cudaError_t w8a8_allow_smem() {
+  const int most = 232448;
+  cudaError_t e;
+  const auto a = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  if ((e = cudaFuncSetAttribute(w8a8_kernel<8, OT>, a, most)) != cudaSuccess) return e;
+  if ((e = cudaFuncSetAttribute(w8a8_kernel<16, OT>, a, most)) != cudaSuccess) return e;
+  if ((e = cudaFuncSetAttribute(w8a8_kernel<32, OT>, a, most)) != cudaSuccess) return e;
+  return cudaFuncSetAttribute(w8a8_kernel<64, OT>, a, most);
+}
+
+constexpr int kWarps = 8;  // output rows per block
 
 template <typename XT, typename OT>
 void launch_rows(const XT* x, const int8_t* w, const float* sw, OT* y, int B, int K, int N,
@@ -575,19 +827,38 @@ extern "C" int q80_act_quant(const void* x, int x_bf16, void* xq, void* sa, int 
   return (int)cudaGetLastError();
 }
 
+// Shared memory over 48 KB for every q80_matmul_w8a8 instance on the current
+// device: once, before any launch (a CUDA-graph capture must not be the
+// first to meet an instance).
+extern "C" int q80_matmul_init() {
+  cudaError_t e = w8a8_allow_smem<float>();
+  if (e == cudaSuccess) e = w8a8_allow_smem<__nv_bfloat16>();
+  return (int)e;
+}
+
+// xq (B, K) int8 and sa (B, K / gs) f32 from q80_act_quant, w (N, K) int8
+// with sw (N, K / gs) f32 -> y (B, N) f32 or bf16, with the weight rows a
+// block (MB, 64 or 128), the slot tile (BN), the blocks a cluster splitting
+// the groups (CS) and the stages (S) of ops/qmatmul.py:w8a8_plan.  xq and w
+// 16-byte aligned; gs a multiple of 256.
 extern "C" int q80_matmul_w8a8(const void* xq, const void* sa, const void* w, const void* sw,
-                               void* y, int y_bf16, int B, int K, int N, int gs, void* stream) {
+                               void* y, int y_bf16, int B, int K, int N, int gs, int MB, int BN,
+                               int CS, int S, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((MB != 64 && MB != 128) || (BN != 8 && BN != 16 && BN != 32 && BN != 64) || B < 1 ||
+      N < 1 || gs < kMmaKC || gs % kMmaKC || K < gs || K % gs || CS < 1 || CS > kMmaMaxCluster ||
+      (CS & (CS - 1)) || CS > K / gs || S < 1 || S > kMmaMaxStages ||
+      mma_smem(MB, BN, CS, S) > 232448)
+    return (int)cudaErrorInvalidValue;
   const int8_t* xq_ = static_cast<const int8_t*>(xq);
   const float* sa_ = static_cast<const float*>(sa);
   const int8_t* w_ = static_cast<const int8_t*>(w);
   const float* sw_ = static_cast<const float*>(sw);
-  if (y_bf16) {
-    launch_w8a8(xq_, sa_, w_, sw_, static_cast<__nv_bfloat16*>(y), B, K, N, gs, st);
-  } else {
-    launch_w8a8(xq_, sa_, w_, sw_, static_cast<float*>(y), B, K, N, gs, st);
-  }
-  return (int)cudaGetLastError();
+  if (y_bf16)
+    return (int)launch_w8a8_bn(BN, xq_, sa_, w_, sw_, static_cast<__nv_bfloat16*>(y), B, K, N, gs,
+                               MB, CS, S, st);
+  return (int)launch_w8a8_bn(BN, xq_, sa_, w_, sw_, static_cast<float*>(y), B, K, N, gs, MB, CS,
+                             S, st);
 }
 
 extern "C" int q80_matmul_rows(const void* x, int x_bf16, const void* w, const void* sw,
@@ -646,6 +917,13 @@ extern "C" int q80_matvec_fq(const void* x, int x_bf16, const void* w, const voi
 #undef NANO_MV
   return (int)cudaGetLastError();
 }
+
+#ifdef NANO_W8A8_CLOCKS
+// The last q80_matmul_w8a8 launch's stamps: out[5 b + k] for block b < n_blocks.
+extern "C" int q80_matmul_w8a8_clocks(unsigned long long* out, int n_blocks) {
+  return (int)cudaMemcpyFromSymbol(out, g_w8_clk, sizeof(unsigned long long) * 5 * n_blocks);
+}
+#endif
 
 #ifdef NANO_MV_CLOCKS
 // The last launch's stamps: out[10 b + k] for block b < n_blocks.

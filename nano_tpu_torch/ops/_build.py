@@ -38,7 +38,9 @@ P, I, F, Q = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C signature of every entry point: (argtypes, library stem)
 SIGNATURES = {
     "q80_act_quant": ([P, I, P, P, I, I, I, P], "q80_matmul"),
-    "q80_matmul_w8a8": ([P, P, P, P, P, I, I, I, I, I, P], "q80_matmul"),
+    "q80_matmul_init": ([], "q80_matmul"),
+    "q80_matmul_w8a8": ([P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
+                        "q80_matmul"),
     "q80_matmul_rows": ([P, I, P, P, P, I, I, I, I, I, P], "q80_matmul"),
     "q80_matvec_fq": ([P, I, P, P, P, I, P, P, I, I, I, I, I, I, I, P],
                       "q80_matmul"),

@@ -15,8 +15,8 @@ Two numerics forms, chosen per tensor at load (``Q80Tensor.w8a8``):
   ``sum_g P * sa * sw``.  One activation row (every product of a decode
   step, and the LM head, which runs on the last position only) takes one
   kernel with the quantization folded in (``q80_matvec_fq``); more rows
-  (prefill's layer products) take two, ``act_quant_q80`` then
-  ``q80_w8a8``.
+  (a batched decode step, prefill's layer products) take two,
+  ``act_quant_q80`` then ``q80_w8a8`` on the int8 tensor cores.
 * rows (``q80_matmul_rows``), below group size 256: f32 dequant and an
   f32 dot — the math of the TPU kernel ``_q80_kernel``.
 
@@ -187,10 +187,87 @@ def act_quant_q80(x: torch.Tensor, group_size: int
 act_quant_q80.launches = 0
 
 
+# q80_matmul_w8a8's work split (csrc/q80_matmul.cu): bytes of K a stage,
+# stages at most, blocks a cluster at most (the portable cluster size), and
+# the shared memory a block may take so that two fit on an SM.
+W8A8_KC = 256
+W8A8_MAX_STAGES = 4
+W8A8_MAX_CLUSTER = 8
+W8A8_SMEM = 113 * 1024
+# weight bytes up to which a product's slot tiles re-read it from L2 (of
+# the H100's 50 MB): every layer product of the Qwen3-0.6B shape, not its head
+W8A8_L2_WEIGHT = 16 << 20
+
+
+def w8a8_smem(MB: int, BN: int, CS: int, S: int) -> int:
+    """Shared memory of a q80_matmul_w8a8 block of MB weight rows: S stages
+    of the weight tile, the slot tile and one scale a row and a slot, and
+    past them, where CS > 1, the box where the cluster's blocks leave their
+    partial sums (over the stages where CS = 1; csrc/q80_matmul.cu:
+    mma_smem)."""
+    stages, box = S * (MB + BN) * (W8A8_KC + 4), MB * (BN + 2) * 4
+    return stages + box if CS > 1 else max(stages, box)
+
+
+def w8a8_plan(B: int, N: int, K: int, group_size: int,
+              n_sm: int = _build.H100_SMS) -> Tuple[int, int, int, int]:
+    """-> (MB, BN, CS, S) of ``q80_matmul_w8a8``, from the shapes alone
+    (never from a value on the device, so that a launch can be captured in
+    a CUDA graph); the choices are the fastest splits of
+    ``chip_smoke.py bench q80 batched sweep`` at a Qwen3-0.6B step's
+    products:
+
+    * BN slots a tile (8, 16, 32 or 64), the least that holds B, so that a
+      weight byte is read once; but at most 32 where the weight fits
+      W8A8_L2_WEIGHT (a layer product): its two slot tiles at B = 64 read
+      the weight together, the second from L2, and give twice the blocks;
+    * MB = 128 weight rows a block where 128-row tiles still give two
+      blocks for every SM (the head: half the activation bytes a block
+      reads for each weight byte), else 64;
+    * the groups of K split over a cluster of CS blocks, doubled from 1
+      while the grid has fewer than 1.5 blocks an SM, up to
+      W8A8_MAX_CLUSTER and the group count;
+    * a ring of S stages of 256 bytes of K: as many as a block has chunks,
+      up to W8A8_MAX_STAGES, where the grid is one wave or a few, and 2
+      where it is many (more blocks an SM instead), within W8A8_SMEM."""
+    G = K // group_size
+    BN = next(bn for bn in (8, 16, 32, 64) if bn >= min(B, 64))
+    if N * K <= W8A8_L2_WEIGHT:
+        BN = min(BN, 32)
+    col_tiles = -(-B // BN)
+    MB = 128 if -(-N // 128) * col_tiles >= 2 * n_sm else 64
+    tiles = -(-N // MB) * col_tiles
+    CS = 1
+    while 2 * tiles * CS < 3 * n_sm and 2 * CS <= min(W8A8_MAX_CLUSTER, G):
+        CS *= 2
+    chunks = -(-G // CS) * (group_size // W8A8_KC)
+    S = min(W8A8_MAX_STAGES if tiles * CS < 4 * n_sm else 2, chunks)
+    while S > 1 and w8a8_smem(MB, BN, CS, S) > W8A8_SMEM:
+        S -= 1
+    return MB, BN, CS, S
+
+
+_w8a8_ready = set()
+
+
+def w8a8_init(device: torch.device) -> None:
+    """Raise every q80_matmul_w8a8 instance's shared-memory limit on
+    `device`, once, before its first launch there (the wrapper does; a
+    caller of the C function does it first)."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    if index in _w8a8_ready:
+        return
+    with torch.cuda.device(index):
+        _build.check(_build.lib("q80_matmul").q80_matmul_init(),
+                     "q80_matmul_init")
+    _w8a8_ready.add(index)
+
+
 def q80_w8a8(xq: torch.Tensor, sa: torch.Tensor, w: Q80Tensor,
              dtype=torch.bfloat16) -> torch.Tensor:
     """Quantized activations (int8 (B, G, gs), f32 (B, G)) x w -> (B, out)
-    in `dtype`; kernel ``q80_matmul_w8a8`` on the card."""
+    in `dtype`; kernel ``q80_matmul_w8a8`` (int8 tensor cores, split by
+    ``w8a8_plan``) on the card."""
     if xq.device.type == "cpu":
         return q80_w8a8_plain(xq, sa, w, dtype)
     B, G, gs = xq.shape
@@ -202,14 +279,18 @@ def q80_w8a8(xq: torch.Tensor, sa: torch.Tensor, w: Q80Tensor,
                          f"(weight {w.group_size}), {dtype}")
     if (xq.dtype != torch.int8 or sa.dtype != torch.float32
             or sa.shape != (B, G) or not xq.is_contiguous()
-            or not sa.is_contiguous()):
+            or not sa.is_contiguous() or xq.data_ptr() % 16 or B < 1):
         raise ValueError("quantized activations must be contiguous int8 "
-                         "(B, G, gs) with f32 (B, G) scales")
-    y = torch.empty((B, w.out_dim), dtype=dtype, device=xq.device)
+                         "(B >= 1, G, gs), 16-byte aligned, with f32 (B, G) "
+                         "scales")
+    w8a8_init(xq.device)
+    K, N = G * gs, w.out_dim
+    y = torch.empty((B, N), dtype=dtype, device=xq.device)
+    plan = w8a8_plan(B, N, K, gs, _build.sm_count(xq.device))
     fn = _build.lib("q80_matmul").q80_matmul_w8a8
     rc = fn(xq.data_ptr(), sa.data_ptr(), w.q.data_ptr(), w.scales.data_ptr(),
-            y.data_ptr(), int(dtype == torch.bfloat16), B, G * gs, w.out_dim,
-            gs, _build.stream(xq))
+            y.data_ptr(), int(dtype == torch.bfloat16), B, K, N, gs, *plan,
+            _build.stream(xq))
     q80_w8a8.launches += 1
     _build.check(rc, "q80_matmul_w8a8")
     return y

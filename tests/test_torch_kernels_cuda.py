@@ -163,6 +163,133 @@ def test_q80_dispatch_sends_one_row_to_matvec_and_refuses_other_shapes():
             tqm.q80_matvec_fq(*bad)
 
 
+# the five Qwen3-0.6B products: (N, K)
+QWEN3_PRODUCTS = {"wqkv": (4096, 1024), "wo": (1024, 2048),
+                  "w13": (6144, 1024), "w2": (1024, 3072),
+                  "head": (151936, 1024)}
+_WEIGHTS = {}
+
+
+def _card_weight(N, K, gs):
+    """A random Q80 weight on the card, made once per shape."""
+    if (N, K, gs) not in _WEIGHTS:
+        q, s = _q80(np.random.RandomState(N + K + gs), N, K, gs)
+        _WEIGHTS[(N, K, gs)] = tqm.Q80Tensor(
+            q=torch.from_numpy(q).cuda(), scales=torch.from_numpy(s).cuda(),
+            group_size=gs, w8a8=True)
+    return _WEIGHTS[(N, K, gs)]
+
+
+def _check_w8a8(w, B, seed):
+    """q80_w8a8 on quantized bf16 rows against q80_w8a8_plain: f32 within
+    1e-5 of max|y| (the same exact int32 group dots, f32 sums in another
+    order), two runs the same bits, the bf16 output the f32 one rounded."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(B, w.in_dim, device="cuda", generator=g).to(torch.bfloat16)
+    xq, sa = tqm.act_quant_q80(x, w.group_size)
+    y = tqm.q80_w8a8(xq, sa, w, torch.float32)
+    y2 = tqm.q80_w8a8(xq, sa, w, torch.float32)
+    y16 = tqm.q80_w8a8(xq, sa, w, torch.bfloat16)
+    want = tqm.q80_w8a8_plain(xq, sa, w, torch.float32)
+    torch.cuda.synchronize()
+    assert y.shape == (B, w.out_dim) and y16.dtype == torch.bfloat16
+    assert torch.equal(y, y2)
+    assert torch.equal(y16, y.to(torch.bfloat16))
+    torch.testing.assert_close(y, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [2, 7, 8, 9, 63, 64, 65, 200])
+@pytest.mark.parametrize("product", sorted(QWEN3_PRODUCTS))
+def test_q80_w8a8_tensor_core_kernel_matches_plain(product, B):
+    """K1 at B > 1 on the int8 tensor cores at the five Qwen3-0.6B products,
+    one slot tile up to 64 rows (ragged below), two and four tiles above."""
+    _need_card()
+    _check_w8a8(_card_weight(*QWEN3_PRODUCTS[product], 256), B, B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [9, 64, 65])
+@pytest.mark.parametrize("N,K", [(4096, 1024), (1024, 3072), (384, 1536)])
+def test_q80_w8a8_tensor_core_kernel_group_size_512(N, K, B):
+    """A group spans two chunks of K: its int32 fragment carries over."""
+    _need_card()
+    _check_w8a8(_card_weight(N, K, 512), B, B + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [7, 100])
+def test_q80_w8a8_on_a_stacked_layer_view(N):
+    """Every layer of a stacked (3, N, 768) weight through Q80Tensor.layer:
+    past the first, a layer's scales start off a 16-byte boundary (N * 3
+    scales a layer), and N is not a multiple of the 64-row tile."""
+    _need_card()
+    L, K, gs = 3, 768, 256
+    q, s = _q80(np.random.RandomState(N), L * N, K, gs)
+    w = tqm.Q80Tensor(q=torch.from_numpy(q.reshape(L, N, K)).cuda(),
+                      scales=torch.from_numpy(s.reshape(L, N, K // gs)).cuda(),
+                      group_size=gs, w8a8=True)
+    for i in range(L):
+        for B in (5, 64):
+            _check_w8a8(w.layer(i), B, 10 * i + B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gs", [256, 512])
+@pytest.mark.parametrize("B", [8, 65])
+def test_q80_w8a8_integer_witness(B, gs):
+    """All scales 1.0 and int8 values at +-127 and random: y must be the
+    exact sum of the int32 group dots (every partial sum an integer below
+    2^24, so any f32 order gives it exactly), torch.equal; the groups split
+    over a cluster (N = 200: 4 row tiles)."""
+    _need_card()
+    rng = np.random.RandomState(B + gs)
+    N, K = 200, 1024
+    q = rng.randint(-127, 128, (N, K)).astype(np.int8)
+    xq = rng.randint(-127, 128, (B, K)).astype(np.int8)
+    q[:3] = [[127], [-127], [127]]
+    xq[:2] = [[127], [-127]]
+    q[3, ::2], q[3, 1::2] = 127, -127
+    w = tqm.Q80Tensor(q=torch.from_numpy(q).cuda(),
+                      scales=torch.ones(N, K // gs, device="cuda"),
+                      group_size=gs, w8a8=True)
+    want = (xq.astype(np.int64) @ q.astype(np.int64).T).astype(np.float32)
+    assert np.abs(want).max() == 127 * 127 * K
+    y = tqm.q80_w8a8(torch.from_numpy(xq).cuda().reshape(B, K // gs, gs),
+                     torch.ones(B, K // gs, device="cuda"), w, torch.float32)
+    torch.cuda.synchronize()
+    assert tqm.w8a8_plan(B, N, K, gs)[2] > 1
+    assert torch.equal(y.cpu(), torch.from_numpy(want))
+
+
+@pytest.mark.cuda
+def test_q80_w8a8_under_graph_capture_and_refusals():
+    """A slot tile no other test launches (BN = 32) met first inside a
+    CUDA-graph capture gives the eager launch's bits on replay; misaligned
+    or mis-shaped activations raise."""
+    _need_card()
+    w = _card_weight(1024, 2048, 256)
+    g = torch.Generator(device="cuda").manual_seed(20)
+    x = torch.randn(20, 2048, device="cuda", generator=g)
+    xq, sa = tqm.act_quant_q80(x, 256)
+    assert tqm.w8a8_plan(20, 1024, 2048, 256)[1] == 32
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = tqm.q80_w8a8(xq, sa, w, torch.float32)
+    graph.replay()
+    eager = tqm.q80_w8a8(xq, sa, w, torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(y, eager)
+    flat = torch.zeros(20 * 2048 + 1, dtype=torch.int8, device="cuda")
+    for bad in ((flat[1:].reshape(20, 8, 256), sa, w),        # misaligned
+                (xq, sa[:, :4], w),                           # scales shape
+                (xq.reshape(20, 16, 128), sa, w),             # group size
+                (xq[:0], sa[:0], w)):                         # no rows
+        with pytest.raises(ValueError):
+            tqm.q80_w8a8(*bad, torch.float32)
+
+
 def _decode_case(rng, B, T, n_kv, rep, D, cache_dtype, q_dtype):
     q = torch.from_numpy(rng.randn(B, n_kv * rep, D).astype(np.float32)
                          ).to("cuda", q_dtype)

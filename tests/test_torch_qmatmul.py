@@ -43,7 +43,8 @@ def test_act_quant_bit_equal_with_ties_and_zero_group():
 
 
 @pytest.mark.parametrize("B,K,N,gs", [(1, 512, 384, 256), (5, 1024, 256, 256),
-                                      (3, 1024, 128, 512)])
+                                      (3, 1024, 128, 512), (9, 1024, 256, 256),
+                                      (65, 512, 128, 256), (65, 1024, 96, 512)])
 def test_w8a8_plain_matches_jax_int8(B, K, N, gs):
     rng = np.random.RandomState(B + K + N + gs)
     q, s = _q80(rng, N, K, gs)
@@ -156,6 +157,90 @@ def test_matvec_plan_covers_the_rows_and_fits(N, K, gs):
     elif K <= 3072 and N <= 6144:      # every tile of a block in flight at once
         per_block = -(-N // blocks)
         assert T == 32 and R == min(8, per_block) and R * S >= per_block
+
+
+# the five Qwen3-0.6B products: (N, K)
+QWEN3_PRODUCTS = {"wqkv": (4096, 1024), "wo": (1024, 2048),
+                  "w13": (6144, 1024), "w2": (1024, 3072),
+                  "head": (151936, 1024)}
+
+
+@pytest.mark.parametrize("B", [1, 2, 7, 8, 9, 63, 64, 65, 200])
+@pytest.mark.parametrize("product", sorted(QWEN3_PRODUCTS))
+def test_w8a8_plan_covers_every_output_once_and_fits(product, B):
+    """The B > 1 kernel's work split from shapes alone: every (weight row,
+    slot, group) in exactly one block; up to 64 slots one slot tile (32
+    for a weight that stays in L2), so that each weight byte leaves device
+    memory once; the groups split over a cluster of at most 8 blocks (a
+    power of two, no rank without groups) until the grid has 1.5 blocks
+    for every SM, or the split is at its cap; at most 4 stages, two blocks' shared
+    memory on an SM (of the H100's 227 KB), no more stages than a block
+    has chunks."""
+    N, K = QWEN3_PRODUCTS[product]
+    _plan_checks(B, N, K, 256)
+
+
+@pytest.mark.parametrize("B,N,K,gs", [(9, 4096, 1024, 512), (64, 1024, 3072, 512),
+                                      (65, 384, 1536, 512), (3, 7, 768, 256),
+                                      (8, 264, 256, 256), (300, 1000, 2048, 1024)])
+def test_w8a8_plan_other_shapes(B, N, K, gs):
+    _plan_checks(B, N, K, gs)
+
+
+def _w8a8_blocks(B, N, K, gs, plan):
+    """Every block of a q80_matmul_w8a8 launch as the kernel splits the
+    work (csrc/q80_matmul.cu:w8a8_kernel): [(rows, slots, groups)] in grid
+    order, ranges clipped to the tensors (the kernel reads past them as
+    zeros)."""
+    MB, BN, CS, _ = plan
+    G = K // gs
+    out = []
+    for by in range(-(-B // BN)):
+        for bx in range(-(-N // MB) * CS):
+            n0, r = bx // CS * MB, bx % CS
+            out.append((range(n0, min(n0 + MB, N)),
+                        range(by * BN, min(by * BN + BN, B)),
+                        range(G * r // CS, G * (r + 1) // CS)))
+    return out
+
+
+def _plan_checks(B, N, K, gs):
+    G = K // gs
+    MB, BN, CS, S = plan = tqm.w8a8_plan(B, N, K, gs)
+    blocks = _w8a8_blocks(B, N, K, gs, plan)
+    count = np.zeros((N, B, G), np.int8) if N * B * G <= 2e7 else None
+    for rows, slots, groups in blocks:
+        assert len(groups) > 0 and len(slots) > 0 and len(rows) > 0
+        if count is not None:
+            count[rows.start:rows.stop, slots.start:slots.stop,
+                  groups.start:groups.stop] += 1
+    if count is not None:
+        assert (count == 1).all()
+    else:   # the head: rows x groups once for each slot tile, tiles disjoint
+        by_tile = {}
+        for rows, slots, groups in blocks:
+            by_tile.setdefault((slots.start, slots.stop), []).append(
+                (rows.start, rows.stop, groups.start, groups.stop))
+        assert sorted(by_tile) == [(b, min(b + BN, B)) for b in range(0, B, BN)]
+        for cells in by_tile.values():
+            assert sum((r1 - r0) * (g1 - g0) for r0, r1, g0, g1 in cells) == N * G
+            assert len(set(cells)) == len(cells)
+    assert MB in (64, 128) and BN in (8, 16, 32, 64)
+    assert BN >= min(B, 64 if N * K > tqm.W8A8_L2_WEIGHT else 32)
+    assert BN == 8 or BN // 2 < min(B, 64)
+    assert CS in (1, 2, 4, 8) and CS <= G
+    n_blocks = len(blocks)
+    assert n_blocks == -(-N // MB) * CS * -(-B // BN)
+    if B <= (64 if N * K > tqm.W8A8_L2_WEIGHT else 32):
+        assert -(-B // BN) == 1   # one slot tile: each weight byte read once
+    # 1.5 blocks for every SM, or the split can grow no further
+    assert 2 * n_blocks >= 3 * tqm._build.H100_SMS or 2 * CS > min(8, G)
+    chunks = -(-G // CS) * (gs // tqm.W8A8_KC)
+    most = tqm.W8A8_MAX_STAGES if n_blocks < 4 * tqm._build.H100_SMS else 2
+    assert 1 <= S <= min(most, chunks)
+    assert 2 * tqm.w8a8_smem(MB, BN, CS, S) <= 227 * 1024
+    if S < min(most, chunks):   # cut by the budget only
+        assert tqm.w8a8_smem(MB, BN, CS, S + 1) > tqm.W8A8_SMEM
 
 
 def test_cpu_wrappers_launch_nothing():
