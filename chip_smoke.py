@@ -16,14 +16,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   at widths 1024/2048/3072 and 40/64/128, the four Q4K
                   matmuls at B=1 and B=64 and the tiny fixture's, and the
                   decode kernel with the fake-quant folded in, bit-equal to
-                  the two; the Q80 decode kernel with the activation
+                  the two; K3 at B > 1 on the int8 tensor cores: the Q4K
+                  activation quantization in integer form torch.equal at
+                  B=2, 8, 64, 65, the product within 1e-5 of max|y| at the
+                  four matmuls, the tiny widths and in=40 with 0xE pad
+                  nibbles, two runs bit-equal; the Q80 decode kernel with the activation
                   quantization folded in at the five products and two small
                   shapes, its int8 row and scales torch.equal to the plain
                   act quant, two runs bit-equal), and
                   timed over one decode step's launches (K1 also by
-                  product, the fused kernel beside the pair; the pair also
-                  over a 64-token prefill's 112 layer products, its main
-                  path): kernel, plain
+                  product, the fused kernel beside the pair; the pairs of
+                  K1 and K3 at B > 1 over a 64-token prefill's 112 layer
+                  products, their main path): kernel, plain
                   version, one PyTorch library call as a yardstick, and the
                   least time the card needs for the bytes and operations
   4. tiny fixtures tests/js/fixtures/tiny_q80.bin and tiny_q4k.bin, greedy
@@ -59,8 +63,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   the bound; ms per batched step, aggregate tok/s and idle share at
                   8 and 64 slots; and the kernels of one batched step at 8
                   and 64 slots (the W8A8 pair, decode attention per-row
-                  positions; the Q4K pair at 8) beside one library call
-                  and the bound
+                  positions; K3 at B > 1 and the pair it replaced) beside
+                  one library call and the bound; the Q4K model the same
+                  way: the same joins, BATCH_NEW4 tokens each, launch
+                  counts exact, one batched step's logits within
+                  Q4K_BATCH_TOL of each slot's single stream (two faulty
+                  B > 1 paths, rebound here, must read above it), and 8
+                  and 64 slots timed with its B > 1 products through K3's int8
+                  kernels and, rebound here, through the pair they replaced
   6. training     Nano-168M (config/model_168m.json: 24 layers, width 768,
                   16/8 heads of 48) under config/pretrain.json (batch 64 x
                   512, bf16, remat "ffn"), random weights from the config's
@@ -96,8 +106,8 @@ scaled_dot_product_attention and the bound, and a decode step's 28
 attention launches both on f32 q and as the model feeds them (bf16 q,
 result cast to bf16).
 
-`python3 chip_smoke.py bench [flash [clocks]] [decode] [q4k] [q80 [batched
-[sweep] [clocks]]] [pipes]` runs none of the phases: it times the two
+`python3 chip_smoke.py bench [flash [clocks]] [decode] [q4k [batched]] [q80
+[batched [sweep] [clocks]]] [pipes]` runs none of the phases: it times the two
 attention kernels alone beside SDPA (the flash forward and backward, a
 ladder over the decode kernel's rows per block), a Q4K decode step's
 matmuls with the fake-quant folded in or not, a Q80 decode step's W8A8
@@ -107,7 +117,11 @@ q80_matmul_w8a8, what an SM sustains of mma.sync and ex2, and with
 kernels.  `bench q80 batched` times K1 at B > 1 instead: a batched step's
 113 products at 8 and 64 slots and a 64-token prefill's 112, by product,
 beside the bf16 torch.matmul and the bound (`sweep`: every work split of
-the kernel; `clocks`: where a block's time goes).
+the kernel; `clocks`: where a block's time goes).  `bench q4k batched`
+times K3 at B > 1 the same way: a Q4K forward's 112 layer products at 8 and
+64 rows, by product, q4k_matmul_w4a4 alone, with q4k_act_quant, the pair it
+replaced (q4k_fake_quant + q4k_matmul) and the bf16 torch.matmul, beside
+the bound.
 
 The last two lines of stdout are one JSON object listing the kernels and
 then {"ok": true, "device": {...}}.  Without a CUDA device the script
@@ -146,6 +160,20 @@ TRAIN_STEPS, TRAIN_EVAL_AT = 12, 6
 # operations per value of the Q4K fake-quant: max, min, add, divide, the
 # two rounding operations, the dequant multiply and subtract
 FQ_OPS_PER_VALUE = 8
+# of q4k_act_quant: the same without the dequant, and the group sum
+AQ_OPS_PER_VALUE = 7
+# f32 operations of q4k_matmul_w4a4's combine per (slot, row, group):
+# sa * s, then three multiply-adds (sa s P, c m, ba s Q)
+W4_COMBINE_OPS = 7
+# Q4K batched drive: tokens per stream (the Q80 drive above grows the cache)
+BATCH_NEW4 = 32
+# batched vs single-stream logits of the Q4K model, of max|logit|: the
+# same 4-bit decisions with f32 sums in another order, where one 4-bit step
+# could flip as an int8 step can for the Q80 model, so the same limit as
+# BATCH_TOL.  It lies between the readings of phase 5b: the sound path
+# (0.0 in every run so far) and its two controls, faulty B > 1 paths that
+# must read above it (see k3_route)
+Q4K_BATCH_TOL = 1e-3
 
 
 def log(*a):
@@ -312,10 +340,101 @@ def params_to(params, device):
     return out
 
 
+def q4k_padded_weight(torch, rng, inn, out, device, pad_nibble=0xE):
+    """A random packed Q4K weight (out, inn) whose every nibble at a
+    position >= inn holds pad_nibble (a right product never reads them)."""
+    import numpy as np
+    from nano_tpu_torch.ops.q4k import Q4KTensor, n_blocks_per_line
+    npad = n_blocks_per_line(inn) * 256
+    p = rng.integers(0, 256, (out, npad // 2), dtype=np.uint8)
+    pos = np.arange(npad).reshape(-1, 2, 16)      # (G, low / high, 16)
+    for half, shift, keep in ((0, 0, 0xF0), (1, 4, 0x0F)):
+        past = (pos[:, half] >= inn).reshape(-1)
+        p[:, past] = (p[:, past] & keep) | (pad_nibble << shift)
+    G = npad // 32
+    return Q4KTensor(
+        packed=torch.from_numpy(p).to(device),
+        scales=torch.from_numpy(rng.random((out, G), dtype=np.float32) * 0.02
+                                + 1e-3).to(device),
+        biases=torch.from_numpy(rng.random((out, G), dtype=np.float32) * 0.02
+                                ).to(device), in_dim=inn)
+
+
+def w4a4_bound(ws, B):
+    """The least time (ms) of q4k_matmul_w4a4 over the weights ws at B
+    rows, what bounds it, and its bytes: the packed weights with their f32
+    scales and biases once, the packed rows with their sa, ba and c in, the
+    bf16 result out; the operations, the int8 tensor cores' 2 per weight
+    value and slot and, beside them on the CUDA cores, the f32 combine's
+    W4_COMBINE_OPS per (slot, row, group), whichever takes longer."""
+    nb = sum(w.packed.numel() + 8 * w.scales.numel()
+             + B * (w.n_pad // 2 + 12 * (w.n_pad // 32)) + 2 * B * w.out_dim
+             for w in ws)
+    f32_ops = sum(W4_COMBINE_OPS * B * w.out_dim * -(-w.in_dim // 32)
+                  for w in ws)
+    int8_ops = sum(2 * B * w.out_dim * w.in_dim for w in ws)
+    ms, by = bound(nb, max(f32_ops, int8_ops * F32_OPS_PER_S / INT8_OPS_PER_S),
+                   F32_OPS_PER_S)
+    return ms, by, nb
+
+
+def k3_batched_times(torch, prods, B, tag, label, by_product=False):
+    """K3 at B > 1 over the layer products `prods` ((name, Q4KTensor) of
+    the 28 layers' wqkv, wo, w13, w2, random per-layer weights as
+    random_q4k_params makes them) on random bf16 rows, replayed from a CUDA
+    graph: q4k_matmul_w4a4 alone on rows quantized ahead and the bf16
+    torch.matmul on weights dequantized ahead, in the order kernel,
+    library, library, kernel; then the pair as the model calls it
+    (q4k_act_quant + q4k_matmul_w4a4) and the pair it replaced
+    (q4k_fake_quant + q4k_matmul); beside the bound.  By product too with
+    by_product.  -> the ms of all the launches: {kernel, library, pair,
+    old_pair, bound}."""
+    from nano_tpu_torch.ops import q4k
+    gen = torch.Generator(device="cuda").manual_seed(SEED + B)
+    bf16 = torch.bfloat16
+    xs = [torch.randn(B, w.in_dim, device="cuda", generator=gen).to(bf16)
+          for _, w in prods]
+    acts = [q4k.act_quant_q4k_packed_plain(x) for x in xs]
+    wds = [w.dequantize(bf16) for _, w in prods]
+    timer = Timer(torch)
+    card = card_line()
+    out = None
+    for name in (("wqkv", "wo", "w13", "w2") if by_product else ()) + ("all",):
+        idx = [j for j, (n, _) in enumerate(prods) if name in ("all", n)]
+        run_k = lambda: [q4k.q4k_matmul_w4a4(*acts[j], prods[j][1], bf16)
+                         for j in idx]
+        run_l = lambda: [torch.matmul(xs[j], wds[j].t()) for j in idx]
+        run_p = lambda: [q4k.q4k_matmul_w4a4(*q4k.act_quant_q4k_packed(xs[j]),
+                                             prods[j][1], bf16) for j in idx]
+        run_o = lambda: [q4k.q4k_matmul_f32(q4k.fake_quant_act(xs[j]),
+                                            prods[j][1], bf16) for j in idx]
+        t_k = [timer(run_k)]
+        t_l = [timer(run_l), timer(run_l)]
+        t_k.append(timer(run_k))
+        t_p, t_o = timer(run_p), timer(run_o)
+        ws = [prods[j][1] for j in idx]
+        b_ms, b_by, nb = w4a4_bound(ws, B)
+        w0 = ws[0]
+        what = (f"{len(idx)} launches" if name == "all" else
+                f"{len(idx)} x {w0.in_dim}->{w0.out_dim}, plan (MB, BN, CS, "
+                f"S) {q4k.w4a4_plan(B, w0.out_dim, w0.n_pad)}")
+        log(f"[{tag}] {label}, {name} ({what}): q4k_matmul_w4a4 "
+            f"{t_k[0]:.4f} / {t_k[1]:.4f} ms, bf16 torch.matmul "
+            f"{t_l[0]:.4f} / {t_l[1]:.4f} ms (kernel / library "
+            f"{min(t_k) / min(t_l):.2f}); with q4k_act_quant {t_p:.4f} ms "
+            f"(pair / library {t_p / min(t_l):.2f}); the pair it replaced, "
+            f"q4k_fake_quant + q4k_matmul, {t_o:.4f} ms; bound {b_ms:.4f} "
+            f"ms ({b_by}, {nb / 1e6:.1f} MB); {card}")
+        out = dict(kernel=min(t_k), library=min(t_l), pair=t_p, old_pair=t_o,
+                   bound=b_ms)
+    return out
+
+
 # ---------------------------------------------------------------------
-# `python3 chip_smoke.py bench [flash [clocks]] [decode] [q4k] [q80 [batched
-# [sweep] [clocks]]] [pipes]`: the attention kernels timed alone beside SDPA,
-# a Q4K or Q80 decode step's matmuls, K1 at B > 1 (batched step, prefill),
+# `python3 chip_smoke.py bench [flash [clocks]] [decode] [q4k [batched]] [q80
+# [batched [sweep] [clocks]]] [pipes]`: the attention kernels timed alone
+# beside SDPA, a Q4K or Q80 decode step's matmuls, K1 and K3 at B > 1
+# (batched step, prefill),
 # and what an SM sustains of mma.sync and ex2.  A measuring mode
 # for work on those kernels (about a minute and a half with the build); it
 # checks little and prints no result lines.
@@ -596,12 +715,15 @@ def bench_pipes(torch):
         "clock per SM = 31.7 ex2/ns/SM at 1980 MHz")
 
 
-def bench_q4k(torch):
-    """One Qwen3-0.6B Q4K decode step's 112 matmuls (4 per layer, random
+def bench_q4k(torch, batched=False, sweep=False):
+    """With `batched`, bench_q4k_batched and nothing else.  Else: one
+    Qwen3-0.6B Q4K decode step's 112 matmuls (4 per layer, random
     per-layer weights as random_q4k_params makes them, bf16 rows) replayed
     from a CUDA graph: q4k_fake_quant + q4k_matmul (113 fake-quants with the
     head's) against q4k_matvec_fq, in the order two, fused, fused, two; the
     fused results must equal the two kernels' bit for bit."""
+    if batched:
+        return bench_q4k_batched(torch, sweep)
     import numpy as np
     from nano_tpu_torch.config import ModelConfig
     from nano_tpu_torch.ops import _build, q4k
@@ -653,6 +775,90 @@ def bench_q4k(torch):
         raise AssertionError("q4k_matvec_fq differs from the two kernels")
 
 
+def bench_q4k_batched(torch, sweep=False):
+    """K3 at B > 1 as batched serving and prefill call it: the 112 layer
+    products of a Qwen3-0.6B Q4K forward (the head is Q80) at 8 rows (a
+    batched step at 8 slots) and 64 (a batched step at 64 slots, or a
+    64-token prefill), by product and in total: k3_batched_times.  Layer 0
+    of each product is held to q4k_matmul_w4a4_plain first (f32 out, 1e-5
+    of max|y|).  With `sweep`, also bench_w4a4_plans."""
+    import numpy as np
+    from nano_tpu_torch.config import ModelConfig
+    from nano_tpu_torch.ops import q4k
+    cfg = ModelConfig(**QWEN3_06B)
+    blocks = random_q4k_params(torch, np, cfg, "cuda")["blocks"]
+    prods = [(name, blocks[name].layer(i)) for name in ("wqkv", "wo", "w13", "w2")
+             for i in range(cfg.n_layer)]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for B, label in ((8, "a batched step, 8 slots"),
+                     (64, "a batched step at 64 slots or a 64-token prefill")):
+        for name in ("wqkv", "wo", "w13", "w2"):
+            w = blocks[name].layer(0)
+            act = q4k.act_quant_q4k_packed(
+                torch.randn(B, w.in_dim, device="cuda", generator=gen))
+            y = q4k.q4k_matmul_w4a4(*act, w, torch.float32)
+            ref = q4k.q4k_matmul_w4a4_plain(*act, w, torch.float32)
+            err = (y - ref).abs().max().item() / ref.abs().max().item()
+            if not err <= 1e-5:
+                raise AssertionError(f"q4k_matmul_w4a4 {name} B={B}: "
+                                     f"max|d|/max|y| {err:.2e}")
+        k3_batched_times(torch, prods, B, "bench q4k batched", label,
+                         by_product=True)
+        if sweep:
+            bench_w4a4_plans(torch, B, prods)
+    torch.cuda.synchronize()
+
+
+def bench_w4a4_plans(torch, B, prods):
+    """Every work split q4k_matmul_w4a4 takes (MB rows a block; BN slots a
+    tile, w4a4_plan's, half and twice it within 8-64; CS blocks a cluster;
+    S stages) at each product's launches (all layers) on random rows, the
+    fastest first, beside w4a4_plan's choice: for work on the plan."""
+    from nano_tpu_torch.ops import _build, int8_mma, q4k
+    lib = _build.lib("q4k")
+    int8_mma.init(torch.device("cuda", 0), "q4k_matmul_w4a4_init")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    timer = Timer(torch)
+    for name in ("wqkv", "wo", "w13", "w2"):
+        idx = [j for j, (n, _) in enumerate(prods) if n == name]
+        w0 = prods[idx[0]][1]
+        N, n_pad = w0.out_dim, w0.n_pad
+        nck = n_pad // q4k.BLOCK_LEN
+        acts = [q4k.act_quant_q4k_packed(torch.randn(
+            B, w0.in_dim, device="cuda", generator=gen)) for _ in idx]
+        ys = [torch.empty(B, N, dtype=torch.bfloat16, device="cuda")
+              for _ in idx]
+        chosen = q4k.w4a4_plan(B, N, n_pad)
+        res = []
+        for MB in (64, 128):
+            for BN in (8, 16, 32, 64):
+                if not chosen[1] // 2 <= BN <= 2 * chosen[1]:
+                    continue
+                for CS in (1, 2, 4, 8):
+                    for S in (1, 2, 3, 4):
+                        if (CS > nck or S > -(-nck // CS)
+                                or q4k.w4a4_smem(MB, BN, CS, S) > 232448):
+                            continue
+                        pl = (MB, BN, CS, S)
+
+                        def run(pl=pl):
+                            for j, act, y in zip(idx, acts, ys):
+                                wl = prods[j][1]
+                                _build.check(lib.q4k_matmul_w4a4(
+                                    *(t.data_ptr() for t in act),
+                                    wl.packed.data_ptr(), wl.scales.data_ptr(),
+                                    wl.biases.data_ptr(), y.data_ptr(), 1, B,
+                                    n_pad, wl.in_dim, N, *pl,
+                                    torch.cuda.current_stream().cuda_stream),
+                                    "q4k_matmul_w4a4")
+                        res.append((timer(run, reps=10), pl))
+        res.sort()
+        at = next(t for t, pl in res if pl == chosen)
+        log(f"[bench q4k plans] B={B} {name} ({len(idx)} x {w0.in_dim}->{N}): "
+            + ", ".join(f"{pl} {t:.4f}" for t, pl in res[:8])
+            + f"; w4a4_plan {chosen} {at:.4f} ms ({len(res)} splits)")
+
+
 def bench_q80(torch, clocks=False, batched=False, sweep=False):
     """With `batched`, bench_q80_batched and nothing else.  Else: one
     Qwen3-0.6B Q80 decode step's 113 W8A8 products (random per-layer
@@ -666,13 +872,13 @@ def bench_q80(torch, clocks=False, batched=False, sweep=False):
         return bench_q80_batched(torch, sweep, clocks)
     import numpy as np
     from nano_tpu_torch.config import ModelConfig
-    from nano_tpu_torch.ops import _build, qmatmul
+    from nano_tpu_torch.ops import _build, int8_mma, qmatmul
     cfg = ModelConfig(**QWEN3_06B)
     params = random_q80_params(torch, np, cfg, "cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     lib = _build.lib("q80_matmul")
-    qmatmul.w8a8_init(torch.device("cuda", 0))
+    int8_mma.init(torch.device("cuda", 0), "q80_matmul_init")
     st = lambda: torch.cuda.current_stream().cuda_stream
     calls = []    # (product, weight, x, xq, sa, y pair, y fused, plan)
     for name in ("wqkv", "wo", "w13", "w2", "head"):
@@ -865,9 +1071,9 @@ def bench_w8a8_plans(torch, B, prods, qs):
     tile: w8a8_plan's, half or a quarter of it, CS blocks a cluster, S
     stages) at each product's launches (all layers), the fastest first,
     beside w8a8_plan's choice: for work on the plan."""
-    from nano_tpu_torch.ops import _build, qmatmul
+    from nano_tpu_torch.ops import _build, int8_mma, qmatmul
     lib = _build.lib("q80_matmul")
-    qmatmul.w8a8_init(torch.device("cuda", 0))
+    int8_mma.init(torch.device("cuda", 0), "q80_matmul_init")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     timer = Timer(torch)
     for name in ("wqkv", "wo", "w13", "w2", "head"):
@@ -968,11 +1174,13 @@ def bench(what) -> int:
     log(f"[bench] card: {card_line()}")
     flags = {"clocks": "clocks" in what}
     q80_flags = dict(flags, batched="batched" in what, sweep="sweep" in what)
+    q4k_flags = dict(batched="batched" in what, sweep="sweep" in what)
     for name, fn in (("flash", bench_flash), ("decode", bench_decode),
                      ("q4k", bench_q4k), ("q80", bench_q80),
                      ("pipes", bench_pipes)):
         if not what or name in what:
-            fn(torch, **{"flash": flags, "q80": q80_flags}.get(name, {}))
+            fn(torch, **{"flash": flags, "q80": q80_flags,
+                         "q4k": q4k_flags}.get(name, {}))
     return 0
 
 
@@ -988,8 +1196,8 @@ def main() -> int:
     from nano_tpu_torch.data import preprocess
     from nano_tpu_torch.infer import engine
     from nano_tpu_torch.models import gpt
-    from nano_tpu_torch.ops import (_build, decode_attn, flash_attn, q4k,
-                                    qmatmul, sampling)
+    from nano_tpu_torch.ops import (_build, decode_attn, flash_attn, int8_mma,
+                                    q4k, qmatmul, sampling)
     from nano_tpu_torch.train.data import DataLoader
     from nano_tpu_torch.train.trainer import Trainer
     from nano_tpu_torch.tokenizer.bpe import QWEN_STOP_TOKENS
@@ -1050,11 +1258,12 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     kernels = {}
 
-    def entry(name, replaces, source):
+    def entry(name, replaces, source, main_path=True):
         kernels[name] = dict(name=name, route="cuda", source=source,
                              replaces=replaces, launches=0, max_abs_err=0.0,
                              ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                             bound_by="bytes", library_ms=0.0)
+                             bound_by="bytes", library_ms=0.0,
+                             main_path=main_path)
 
     entry("q80_act_quant", "nano_tpu/ops/qmatmul.py:250",
           "nano_tpu_torch/csrc/q80_matmul.cu")
@@ -1068,9 +1277,15 @@ def main() -> int:
           "nano_tpu_torch/csrc/decode_attn.cu")
     entry("q4k_fake_quant", "nano_tpu/ops/q4k.py:644",
           "nano_tpu_torch/csrc/q4k.cu")
+    # K3's f32 kernel: held against its plain version here and timed as
+    # the "before" of q4k_matmul_w4a4, on no main path
     entry("q4k_matmul", "nano_tpu/ops/q4k.py:717",
-          "nano_tpu_torch/csrc/q4k.cu")
+          "nano_tpu_torch/csrc/q4k.cu", main_path=False)
     entry("q4k_matvec_fq", "nano_tpu/ops/q4k.py:717",
+          "nano_tpu_torch/csrc/q4k.cu")
+    entry("q4k_act_quant", "nano_tpu/ops/q4k.py:459",
+          "nano_tpu_torch/csrc/q4k.cu")
+    entry("q4k_matmul_w4a4", "nano_tpu/ops/q4k.py:717",
           "nano_tpu_torch/csrc/q4k.cu")
     entry("flash_attn_fwd", "nano_tpu/models/gpt.py:239",
           "nano_tpu_torch/csrc/flash_attn.cu")
@@ -1354,6 +1569,65 @@ def main() -> int:
         f"max_abs_err vs the plain version "
         f"{kernels['q4k_matvec_fq']['max_abs_err']:.3e} (tol 1e-5 of max|y|)")
 
+    # K3 at B > 1 in integer form.  q4k_act_quant: torch.equal to its plain
+    # version (the same IEEE operations), rows with an all-zero group and
+    # constant groups.  q4k_matmul_w4a4: within 1e-5 of max|y| of its plain
+    # version on the same integer form (the same integers, f32 sums in
+    # another order; 8-9e-7 between the two plain forms on the CPU) at the
+    # four products of a layer, the tiny widths and a ragged one (in = 40,
+    # 0xE in every nibble past it), into f32 and bf16 (the f32 y rounded);
+    # two runs the same bits
+    n_aq = 0
+    for n in (1024, 2048, 3072, 40, 64, 128):
+        for B in (2, 8, 64, 65):
+            x = act_rows(B, n)
+            for xt in (x, x.to(torch.bfloat16)):
+                got = q4k.act_quant_q4k_packed(xt)
+                want = q4k.act_quant_q4k_packed_plain(xt)
+                note_err("q4k_act_quant", max(
+                    (a.float() - b.float()).abs().max().item()
+                    for a, b in zip(got, want)))
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"q4k_act_quant differs at n={n} "
+                                         f"B={B} {xt.dtype}")
+                n_aq += 1
+    log(f"[kernel] q4k_act_quant: values, sa, ba and c torch.equal with the "
+        f"plain version in {n_aq} cases (n = 1024, 2048, 3072, 40, 64, 128; "
+        f"B = 2, 8, 64, 65; f32 and bf16 input; all-zero and constant "
+        f"groups)")
+    w4_cases = q4_cases + [("ragged 40->200, pad nibbles 0xE", q4k_padded_weight(
+        torch, rng, 40, 200, dev))]
+    n_w4 = 0
+    for B in (2, 8, 64, 65):
+        for name, w in w4_cases:
+            act = q4k.act_quant_q4k_packed(act_rows(B, w.in_dim))
+            y = q4k.q4k_matmul_w4a4(*act, w, torch.float32)
+            again = q4k.q4k_matmul_w4a4(*act, w, torch.float32)
+            y16 = q4k.q4k_matmul_w4a4(*act, w, torch.bfloat16)
+            ref = q4k.q4k_matmul_w4a4_plain(*act, w, torch.float32)
+            err = (y - ref).abs().max().item()
+            tol = 1e-5 * ref.abs().max().item()
+            if B in (8, 64) and not name.startswith("tiny"):
+                log(f"[kernel] q4k_matmul_w4a4 {name} {w.in_dim}->{w.out_dim} "
+                    f"B={B} plan (MB, BN, CS, S) "
+                    f"{q4k.w4a4_plan(B, w.out_dim, w.n_pad, sms)}: max_abs_err "
+                    f"{err:.3e} (tol {tol:.3e} = 1e-5 of max|y|), two runs "
+                    f"bit-equal {torch.equal(y, again)}")
+            if not err <= tol:
+                raise AssertionError(f"q4k_matmul_w4a4 {name} B={B} off by "
+                                     f"{err}")
+            if not (torch.equal(y, again) and torch.equal(y16, y.to(torch.bfloat16))):
+                raise AssertionError(f"q4k_matmul_w4a4 {name} B={B}: two runs "
+                                     f"differ, or bf16 y is not the f32 y "
+                                     f"rounded")
+            note_err("q4k_matmul_w4a4", err)
+            n_w4 += 1
+    log(f"[kernel] q4k_matmul_w4a4: within 1e-5 of max|y| of the plain "
+        f"version, two runs bit-equal, in {n_w4} cases (the four Q4K products "
+        f"of a layer, the tiny widths and in = 40 with 0xE pad nibbles; B = "
+        f"2, 8, 64, 65); worst max_abs_err "
+        f"{kernels['q4k_matmul_w4a4']['max_abs_err']:.3e}")
+
     # K4, causal GQA flash attention: forward and backward against the
     # plain version differentiated by autograd, at the Nano-168M and
     # Qwen3-0.6B head shapes, every head width (D = 32 at Nano-56M's
@@ -1534,7 +1808,7 @@ def main() -> int:
     # total: the pair, which runs only at B > 1 (q80_act_quant +
     # q80_matmul_w8a8), and q80_matvec_fq, which a decode step runs
     lib = _build.lib("q80_matmul")
-    qmatmul.w8a8_init(dev)
+    int8_mma.init(dev, "q80_matmul_init")
     step_calls = []      # (product, weight, x bf16, xq, sa, y, plan, bf16 weight)
     for name, w in shapes:
         for wl in layer_weights(w):
@@ -1768,6 +2042,62 @@ def main() -> int:
         f"{k['library_ms']:.4f} ms)")
     del mm4, fq4
 
+    # ---- timing: K3 at B > 1 on its main path, a 64-token prefill's 112
+    # layer products (B = PROMPT_LEN) as the model calls them:
+    # q4k_act_quant, then q4k_matmul_w4a4 ----
+    B = PROMPT_LEN
+    pre4 = []     # (weight, x bf16, its integer form)
+    for name in ("wqkv", "wo", "w13", "w2"):
+        for wl in layer_weights(b4[name]):
+            x = torch.randn(B, wl.in_dim, device=dev, generator=gen
+                            ).to(torch.bfloat16)
+            pre4.append((wl, x, q4k.act_quant_q4k_packed_plain(x)))
+    assert len(pre4) == 4 * L
+
+    def run_pre4_aq():
+        for wl, x, _ in pre4:
+            q4k.act_quant_q4k_packed(x)
+
+    def run_pre4_aq_plain():
+        for wl, x, _ in pre4:
+            q4k.act_quant_q4k_packed_plain(x)
+
+    def run_pre4_w4():
+        for wl, _, act in pre4:
+            q4k.q4k_matmul_w4a4(*act, wl, torch.bfloat16)
+
+    def run_pre4_w4_plain():
+        for wl, _, act in pre4:
+            q4k.q4k_matmul_w4a4_plain(*act, wl, torch.bfloat16)
+
+    k = kernels["q4k_act_quant"]
+    k["ms"] = timer(run_pre4_aq)
+    k["plain_ms"] = timer(run_pre4_aq_plain)
+    k["library_ms"] = None
+    set_bound("q4k_act_quant",
+              sum(B * (2 * wl.in_dim + wl.n_pad // 2 + 12 * (wl.n_pad // 32))
+                  for wl, *_ in pre4),
+              AQ_OPS_PER_VALUE * B * sum(wl.in_dim for wl, *_ in pre4),
+              F32_OPS_PER_S)
+    k = kernels["q4k_matmul_w4a4"]
+    k["ms"] = timer(run_pre4_w4)
+    k["plain_ms"] = timer(run_pre4_w4_plain)
+    wds4 = [wl.dequantize(torch.bfloat16) for wl, *_ in pre4]
+    k["library_ms"] = timer(lambda: [torch.matmul(c[1], wd.t())
+                                     for c, wd in zip(pre4, wds4)])
+    del wds4
+    k["bound_ms"], k["bound_by"], pre4_bytes = w4a4_bound(
+        [wl for wl, *_ in pre4], B)
+    log(f"[time] a {B}-token Q4K prefill's {len(pre4)} layer products "
+        f"(B={B}): q4k_act_quant {kernels['q4k_act_quant']['ms']:.4f} ms "
+        f"(plain {kernels['q4k_act_quant']['plain_ms']:.4f}, bound "
+        f"{kernels['q4k_act_quant']['bound_ms']:.4f}), q4k_matmul_w4a4 "
+        f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f}; bound "
+        f"{k['bound_ms']:.4f} ms, {k['bound_by']}, {pre4_bytes / 1e6:.1f} MB), "
+        f"bf16 torch.matmul on weights dequantized ahead "
+        f"{k['library_ms']:.4f} ms; {card}")
+    del pre4
+
     # attention: the last step of the main path's decode (the decoder's
     # cache of max_seq_len = 1024 rows, position PROMPT_LEN + N_TOKENS - 2),
     # one call per layer on its own layer cache
@@ -1884,6 +2214,8 @@ def main() -> int:
         q4k_fake_quant=(q4k.fake_quant_act, "launches"),
         q4k_matmul=(q4k.q4k_matmul_f32, "launches"),
         q4k_matvec_fq=(q4k.q4k_matvec_fq, "launches"),
+        q4k_act_quant=(q4k.act_quant_q4k_packed, "launches"),
+        q4k_matmul_w4a4=(q4k.q4k_matmul_w4a4, "launches"),
         flash_attn_fwd=(flash_attn.flash_attention, "launches"),
         flash_attn_bwd=(flash_attn.flash_attention, "backward_launches"))
     assert sorted(counters) == sorted(names)
@@ -1952,8 +2284,8 @@ def main() -> int:
             and isinstance(head4, qmatmul.Q80Tensor)
             and head4.group_size == 64 and not head4.w8a8)
     tiny_stream(tiny4, "tiny_q4k.bin", expected["greedy"]["q4k"],
-                ("q4k_matmul", "q4k_fake_quant", "q4k_matvec_fq",
-                 "q80_matmul_rows", "decode_attention"))
+                ("q4k_act_quant", "q4k_matmul_w4a4", "q4k_fake_quant",
+                 "q4k_matvec_fq", "q80_matmul_rows", "decode_attention"))
     del tiny, tiny4
 
     # ---------------- 5. full width ----------------
@@ -1964,7 +2296,9 @@ def main() -> int:
     budgets = (64, 128, 64)
     prompt = prng.integers(100, 30000, PROMPT_LEN).tolist()
     profile_keys = (("w8a8_kernel", "q80_matmul_w8a8"),
-                    ("act_quant_kernel", "q80_act_quant"),
+                    ("w4a4_kernel", "q4k_matmul_w4a4"),
+                    ("q4k_act_quant_kernel", "q4k_act_quant"),
+                    ("act_quant_kernel", "q80_act_quant"),   # after q4k's
                     ("q80_matvec_fq_kernel", "q80_matvec_fq"),
                     ("decode_attn_kernel", "decode_attention"),
                     ("q4k_matvec_fq_kernel", "q4k_matvec_fq"),
@@ -2026,26 +2360,32 @@ def main() -> int:
         of each kernel of profile_keys that the profiler saw are a witness
         of what the card ran, apart from the Python counters: never more
         than per_step's count times the steps (0 where it has none), and
-        that count a step once divided by the steps and rounded (the
-        profiler's trace has lost a record now and then)."""
-        groups, seen, n_kernels, wall_ms = profile_steps(
-            torch, step, n, profile_keys, per_step)
-        wall_ms /= steps_per_call
-        busy_ms = sum(groups.values())
+        equal to it in one of at most three profiles (the trace loses a
+        record now and then: each short profile is logged with what it
+        lost, and the window profiled again)."""
         per = n * steps_per_call
-        want = {name: per_step.get(name, 0) * per for name in seen}
-        lost = sum(want.values()) - sum(seen.values())
-        log(f"[profile {label}] {kind}: launches by kernel as the profiler "
-            f"saw them {seen}; expected {want} ({lost} not in the trace)")
-        if busy_ms <= 0:
-            log(f"[profile {label}] {kind}: the profiler recorded no device "
-                f"time: not measured")
-            return None
-        if any(seen[k] > want[k] or round(seen[k] / per) * per != want[k]
-               for k in seen):
-            raise AssertionError(f"{label} {kind}: the kernels the card ran "
-                                 f"differ from the per-step counts")
-        busy_ms /= per
+        for attempt in range(1, 4):
+            groups, seen, n_kernels, wall_ms = profile_steps(
+                torch, step, n, profile_keys, per_step)
+            want = {name: per_step.get(name, 0) * per for name in seen}
+            lost = {k: want[k] - seen[k] for k in seen if seen[k] < want[k]}
+            log(f"[profile {label}] {kind}: launches by kernel as the "
+                f"profiler saw them {seen}; expected {want}"
+                + (f"; short by {lost} in profile {attempt}" if lost else ""))
+            if sum(groups.values()) <= 0:
+                log(f"[profile {label}] {kind}: the profiler recorded no "
+                    f"device time: not measured")
+                return None
+            if any(seen[k] > want[k] for k in seen):
+                raise AssertionError(f"{label} {kind}: the card ran kernels "
+                                     f"beyond the per-step counts")
+            if not lost:
+                break
+        else:
+            raise AssertionError(f"{label} {kind}: three profiles lost "
+                                 f"records of the per-step counts")
+        wall_ms /= steps_per_call
+        busy_ms = sum(groups.values()) / per
         log(f"[profile {label}] {kind} ({per} steps, {card}): wall "
             f"{wall_ms:.3f} ms/step with the profiler on, {wall_bare_ms:.3f} "
             f"off; card busy {busy_ms:.3f} ms, idle share "
@@ -2192,21 +2532,74 @@ def main() -> int:
     def expect4(steps):
         """Launches of a Q4K prefill and `steps` decode steps."""
         e = {n: 0 for n in names}
-        e.update(q4k_matmul=112, q4k_fake_quant=112 + 1 + steps,
-                 q4k_matvec_fq=112 * steps, q80_matvec_fq=1 + steps,
-                 decode_attention=28 * steps)
+        e.update(q4k_act_quant=112, q4k_matmul_w4a4=112,
+                 q4k_fake_quant=1 + steps, q4k_matvec_fq=112 * steps,
+                 q80_matvec_fq=1 + steps, decode_attention=28 * steps)
         return e
 
     log("[full Q4K] expected launches: 112 Q4K matmuls = 4 x 28 per forward, "
         "as q4k_matvec_fq (fake-quant folded in) in a decode step and as "
-        "q4k_fake_quant + q4k_matmul in the prefill; one fake-quant before "
-        "the requantized Q80 head and one q80_matvec_fq head (one row) per "
-        "forward, 28 attentions per decode step")
+        "q4k_act_quant + q4k_matmul_w4a4 (int8 tensor cores) in the prefill; "
+        "one fake-quant before the requantized Q80 head and one "
+        "q80_matvec_fq head (one row) per forward, 28 attentions per decode "
+        "step")
     _, out4, counts4 = drive("Q4K", params4, expect4)
-    for name in ("q4k_matmul", "q4k_fake_quant", "q4k_matvec_fq"):
+    for name in ("q4k_act_quant", "q4k_matmul_w4a4", "q4k_fake_quant",
+                 "q4k_matvec_fq"):
         kernels[name]["launches"] = counts4[name]
         if counts4[name] == 0:
             raise AssertionError(f"Q4K path launched no {name}")
+    # drive() held every count to expect4, q4k_matmul's to 0: reported as
+    # the main path's count, with the entry's main_path false
+    kernels["q4k_matmul"]["launches"] = counts4["q4k_matmul"]
+
+    def pad_only(x2d):
+        """The activation as K3 takes it, without the fake-quant."""
+        n = x2d.shape[1]
+        xp = torch.zeros(x2d.shape[0], -(-n // 256) * 256,
+                         dtype=torch.float32, device=x2d.device)
+        xp[:, :n] = x2d
+        return xp
+
+    @contextlib.contextmanager
+    def k3_route(route):
+        """The model's Q4K product (gpt.q4k_matmul) and the head's
+        fake-quant (gpt.fake_quant_act) rebound here for a measurement, not
+        a switch of the package: "pair", more than one row through the pair
+        K3 at B > 1 was before (q4k_fake_quant + q4k_matmul); "unquantized",
+        no activation quantization at all (K3's f32 kernel on the padded
+        activation at every row count, the head's fake-quant a pad).  Two
+        faulty B > 1 paths, the controls of the Q4K logits check:
+        "unquantized_rows", more than one row without the activation's
+        quantization (one row as the package has it); "shifted_scales",
+        more than one row through the new pair with each row's sa, ba and
+        c taken from the row before it."""
+        saved = gpt.q4k_matmul, gpt.fake_quant_act
+
+        def product(x, w, dtype):
+            x2d = x.reshape(-1, w.in_dim)
+            if route == "unquantized":
+                y = q4k.q4k_matmul_f32(pad_only(x2d), w, dtype)
+            elif x2d.shape[0] == 1:
+                y = q4k.q4k_matvec_fq(x2d, w, dtype)
+            elif route == "unquantized_rows":
+                y = q4k.q4k_matmul_f32(pad_only(x2d), w, dtype)
+            elif route == "shifted_scales":
+                vp, *per_group = q4k.act_quant_q4k_packed(x2d)
+                y = q4k.q4k_matmul_w4a4(
+                    vp, *(t.roll(1, 0).contiguous() for t in per_group), w,
+                    dtype)
+            else:
+                y = q4k.q4k_matmul_f32(q4k.fake_quant_act(x2d), w, dtype)
+            return y.reshape(*x.shape[:-1], w.out_dim)
+
+        gpt.q4k_matmul = product
+        if route == "unquantized":
+            gpt.fake_quant_act = pad_only
+        try:
+            yield
+        finally:
+            gpt.q4k_matmul, gpt.fake_quant_act = saved
 
     # ---------------- 5b. continuous batching ----------------
     # Qwen3-0.6B Q80, BATCH_SLOTS slots: a prompt of 16-64 tokens joins
@@ -2220,29 +2613,78 @@ def main() -> int:
     brng = np.random.default_rng(SEED + 3)
     joins = [brng.integers(100, 30000, int(m)).tolist()
              for m in brng.integers(16, 65, BATCH_SLOTS)]
-    be = BatchedEngine(bctx, n_slots=BATCH_SLOTS)
-    streams, order, n_bsteps, caps = {}, [], 0, [be._cache_len()]
+    def join_drive(ctx_, n_new):
+        """The joins, one every BATCH_JOIN_EVERY steps into a BatchedEngine
+        of BATCH_SLOTS slots on ctx_, n_new greedy tokens each, in bursts of
+        graph replays until every stream ends.  -> (engine, {slot: tokens},
+        slots in join order, batched steps, cache capacities, launch
+        counts, seconds)."""
+        be_ = BatchedEngine(ctx_, n_slots=BATCH_SLOTS)
+        streams_, order_, caps_ = {}, [], [be_._cache_len()]
+        n_steps = 0
 
-    def burst():
-        nonlocal n_bsteps
-        for sl, ts in be.step_burst(BATCH_JOIN_EVERY).items():
-            streams[sl].extend(ts)
-        n_bsteps += BATCH_JOIN_EVERY
-        caps.append(be._cache_len())
+        def burst():
+            nonlocal n_steps
+            for sl, ts in be_.step_burst(BATCH_JOIN_EVERY).items():
+                streams_[sl].extend(ts)
+            n_steps += BATCH_JOIN_EVERY
+            caps_.append(be_._cache_len())
 
-    reset()
-    t0 = time.time()
-    for pr in joins:
-        slot, first = be.add(pr, max_new_tokens=BATCH_NEW, temperature=0.0,
-                             repetition_penalty=1.0)
-        streams[slot] = [] if first is None else [first]
-        order.append(slot)
-        burst()
-    while be.n_active:
-        burst()
-    torch.cuda.synchronize()
-    b_secs = time.time() - t0
-    b_counts = read()
+        reset()
+        t0_ = time.time()
+        for pr in joins:
+            slot, first = be_.add(pr, max_new_tokens=n_new, temperature=0.0,
+                                   repetition_penalty=1.0)
+            streams_[slot] = [] if first is None else [first]
+            order_.append(slot)
+            burst()
+        while be_.n_active:
+            burst()
+        torch.cuda.synchronize()
+        secs = time.time() - t0_
+        return be_, streams_, order_, n_steps, caps_, read(), secs
+
+    def first_logits_rel(be_, ctx_, p_):
+        """One batched step's logits (B = BATCH_SLOTS, every join's prompt
+        in its slot again) against each slot's single stream (B = 1), both
+        after the same prefill: -> the worst max|d| / max|logit|."""
+        for i, pr in enumerate(joins):
+            if be_.add(pr, max_new_tokens=2, temperature=0.0,
+                       repetition_penalty=1.0)[0] != i:
+                raise AssertionError("a released slot was not free")
+        c_b = gpt.KVCache(*(None if t_ is None else t_.clone() for t_ in (
+            be_.cache.k, be_.cache.v, be_.cache.k_scale, be_.cache.v_scale)))
+        lb, _ = gpt.forward_decode_batched(p_, be_.tok.clone(), c_b,
+                                           be_.pos.clone(), cfg, torch.bfloat16,
+                                           ctx_.rope_tables())
+        worst_rel = 0.0
+        for i, pr in enumerate(joins):
+            c1 = ctx_.new_cache(1, seq_len=be_._cache_len())
+            t1, _ = engine._prefill_first_token(ctx_, pr, c1, ctx_.generator())
+            l1, _ = gpt.forward_with_cache(p_, t1[:, None], c1, len(pr), cfg,
+                                           torch.bfloat16,
+                                           rope=ctx_.rope_tables())
+            l1 = l1[0, 0]
+            if int(t1[0]) != int(be_.tok[i]):
+                raise AssertionError(f"slot {i}: the first token differs")
+            worst_rel = max(worst_rel, ((lb[i] - l1).abs().max()
+                                        / l1.abs().max()).item())
+        for i in range(BATCH_SLOTS):
+            be_.release(i)
+        del c_b
+        return worst_rel
+
+    def first_logits_check(be_, ctx_, p_, tol, why):
+        """first_logits_rel within tol (why: the reason for tol)."""
+        worst_rel = first_logits_rel(be_, ctx_, p_)
+        log(f"[batch] one batched step's logits vs each slot's single stream "
+            f"({why}): worst max|d|/max|ref| {worst_rel:.3e} (tol {tol:.3e})")
+        if not worst_rel <= tol:
+            raise AssertionError("batched logits disagree with the single "
+                                 "stream")
+
+    be, streams, order, n_bsteps, caps, b_counts, b_secs = join_drive(
+        bctx, BATCH_NEW)
     n_j = len(joins)
     expect_b = {n: 0 for n in names}
     expect_b.update(q80_act_quant=112 * n_j + 113 * n_bsteps,
@@ -2269,37 +2711,9 @@ def main() -> int:
     if be._cache_len() != 128:
         raise AssertionError("the cache did not reset when the engine went "
                              "idle")
-
-    # one batched step's logits against each slot's single stream (B = 1:
-    # q80_matvec_fq; B = 8: the W8A8 pair): the same int8 decisions, f32
-    # sums in another order -> within BATCH_TOL of max|logit|
-    for i, pr in enumerate(joins):
-        if be.add(pr, max_new_tokens=2, temperature=0.0,
-                  repetition_penalty=1.0)[0] != i:
-            raise AssertionError("a released slot was not free")
-    c_b = gpt.KVCache(*(None if t_ is None else t_.clone() for t_ in (
-        be.cache.k, be.cache.v, be.cache.k_scale, be.cache.v_scale)))
-    lb, _ = gpt.forward_decode_batched(params, be.tok.clone(), c_b,
-                                       be.pos.clone(), cfg, torch.bfloat16,
-                                       bctx.rope_tables())
-    worst_rel = 0.0
-    for i, pr in enumerate(joins):
-        c1 = bctx.new_cache(1, seq_len=be._cache_len())
-        t1, _ = engine._prefill_first_token(bctx, pr, c1, bctx.generator())
-        l1, _ = gpt.forward_with_cache(params, t1[:, None], c1, len(pr), cfg,
-                                       torch.bfloat16, rope=bctx.rope_tables())
-        l1 = l1[0, 0]
-        if int(t1[0]) != int(be.tok[i]):
-            raise AssertionError(f"slot {i}: the first token differs")
-        worst_rel = max(worst_rel, ((lb[i] - l1).abs().max()
-                                    / l1.abs().max()).item())
-    for i in range(BATCH_SLOTS):
-        be.release(i)
-    del c_b
-    log(f"[batch] one batched step's logits vs each slot's single stream: "
-        f"worst max|d|/max|ref| {worst_rel:.3e} (tol {BATCH_TOL})")
-    if not worst_rel <= BATCH_TOL:
-        raise AssertionError("batched logits disagree with the single stream")
+    # B = 1: q80_matvec_fq; B = 8: the W8A8 pair
+    first_logits_check(be, bctx, params, BATCH_TOL, "the same int8 decisions, "
+                       "f32 sums in another order")
 
     # every slot's stream against its single stream.  They are equal up to
     # the first step d where they part, if they part; after d their
@@ -2457,10 +2871,11 @@ def main() -> int:
         raise AssertionError("; ".join(failures))
     del fed, fb, fw, fr
 
-    def throughput(n_slots):
+    def throughput(ctx_, n_slots, model, per_step):
         """Every slot decoding from a 32-token prompt: bursts of 16 replays
-        timed, then one profiled; -> aggregate tok/s."""
-        eng_ = BatchedEngine(bctx, n_slots=n_slots)
+        timed, then one profiled.  -> (ms per batched step, aggregate
+        tok/s, idle share or None)."""
+        eng_ = BatchedEngine(ctx_, n_slots=n_slots)
         trng = np.random.default_rng(SEED + n_slots)
         for _ in range(n_slots):
             eng_.add(trng.integers(100, 30000, 32).tolist(),
@@ -2473,22 +2888,97 @@ def main() -> int:
         secs = time.time() - t0_
         got = sum(len(v) for r in res for v in r.values())
         ms_step = secs * 1e3 / 48
-        busy = profile_line(f"batch {n_slots}", f"{n_slots} slots, bursts of "
-                            f"16 graph replays", lambda: eng_.step_burst(16),
-                            1, 16, ms_step,
-                            dict(q80_act_quant=113, q80_matmul_w8a8=113,
-                                 decode_attention=28))
-        idle = "not measured" if busy is None else f"{1 - busy / ms_step:.3f}"
-        log(f"[batch] {n_slots} slots, Qwen3-0.6B Q80, positions 40-88 "
+        busy = profile_line(f"batch {n_slots}" if model == "Q80" else
+                            f"batch {model} {n_slots}", f"{n_slots} slots, "
+                            f"bursts of 16 graph replays",
+                            lambda: eng_.step_burst(16), 1, 16, ms_step,
+                            per_step)
+        idle = None if busy is None else 1 - busy / ms_step
+        log(f"[batch] {n_slots} slots, Qwen3-0.6B {model}, positions 40-88 "
             f"({card}): {ms_step:.3f} ms per batched step, {got / secs:.1f} "
             f"tok/s aggregate ({got} tokens in {secs:.3f} s), idle share "
-            f"{idle}")
+            + ("not measured" if idle is None else f"{idle:.3f}"))
         del eng_
         torch.cuda.empty_cache()
+        return ms_step, got / secs, idle
 
     for n_slots in (8, 64):
-        throughput(n_slots)
+        throughput(bctx, n_slots, "Q80", dict(
+            q80_act_quant=113, q80_matmul_w8a8=113, decode_attention=28))
     del be, bctx
+
+    # The Q4K model in BatchedEngine: the same joins, BATCH_NEW4 greedy
+    # tokens each (the Q80 drive holds the cache growth); a batched step
+    # runs its 112 Q4K products as q4k_act_quant + q4k_matmul_w4a4 and its
+    # head (the Q4K fake-quant, then the Q80 head at B = slots) as
+    # q4k_fake_quant + the W8A8 pair
+    bctx4 = engine.LLMContext(
+        cfg=cfg, params=params4, tokenizer=tok, max_seq_len=cfg.block_size,
+        device=dev, dtype=torch.bfloat16, sampler=greedy,
+        stop_tokens=QWEN_STOP_TOKENS, arch="qwen3")
+    be4, streams4, order4, n_b4, _, b4_counts, b4_secs = join_drive(
+        bctx4, BATCH_NEW4)
+    expect_b4 = {n: 0 for n in names}
+    expect_b4.update(q4k_act_quant=112 * n_j + 112 * n_b4,
+                     q4k_matmul_w4a4=112 * n_j + 112 * n_b4,
+                     q4k_fake_quant=n_j + n_b4, q80_matvec_fq=n_j,
+                     q80_act_quant=n_b4, q80_matmul_w8a8=n_b4,
+                     decode_attention=28 * n_b4)
+    log(f"[batch] Qwen3-0.6B Q4K, {BATCH_SLOTS} slots, the same {n_j} joins, "
+        f"{BATCH_NEW4} tokens each: {n_b4} batched steps in {b4_secs:.2f} s "
+        f"({card}), streams of {[len(streams4[sl]) for sl in order4]} "
+        f"tokens; launches {b4_counts}; expected {expect_b4} (112 Q4K pair "
+        f"products, a fake-quant and a one-row head per join's prefill; 112 "
+        f"Q4K pair products, a fake-quant, a W8A8 pair head and 28 attentions "
+        f"per batched step)")
+    if b4_counts != expect_b4:
+        raise AssertionError("Q4K batched launch counts differ from the "
+                             "per-step counts")
+    for name in ("q4k_act_quant", "q4k_matmul_w4a4", "decode_attention"):
+        if b4_counts[name] == 0:
+            raise AssertionError(f"the Q4K batching path launched no {name}")
+    if not all(len(streams4[sl]) == BATCH_NEW4 for sl in order4):
+        raise AssertionError("a Q4K batched stream ended early")
+    for sl in order4:
+        be4.release(sl)
+    # B = 1: q4k_matvec_fq (f32 dequant dot); B = 8: the integer expansion
+    first_logits_check(be4, bctx4, params4, Q4K_BATCH_TOL, "the same 4-bit "
+                       "decisions, f32 sums in another order")
+    # the same check on two faulty B > 1 paths: each must read above the
+    # limit, or the check could not see such a fault
+    controls = {}
+    for route in ("unquantized_rows", "shifted_scales"):
+        with k3_route(route):
+            controls[route] = first_logits_rel(be4, bctx4, params4)
+    log(f"[batch] the Q4K logits check's controls, worst max|d|/max|ref| "
+        f"(limit {Q4K_BATCH_TOL:.3e}): B > 1 products without the "
+        f"activation's quantization {controls['unquantized_rows']:.3e}, "
+        f"with each row's sa, ba, c from the row before "
+        f"{controls['shifted_scales']:.3e}")
+    if not min(controls.values()) > Q4K_BATCH_TOL:
+        raise AssertionError("the Q4K logits check passes a faulty B > 1 "
+                             "path")
+    del be4, streams4
+    q4_step = dict(q4k_act_quant=112, q4k_matmul_w4a4=112, q4k_fake_quant=1,
+                   q80_act_quant=1, q80_matmul_w8a8=1, decode_attention=28)
+    old_step = dict(q4k_fake_quant=113, q4k_matmul=112, q80_act_quant=1,
+                    q80_matmul_w8a8=1, decode_attention=28)
+    for n_slots in (8, 64):
+        # in turns: the pair it replaced, this pair, this pair, the old one
+        runs = []
+        for route in ("pair", None, None, "pair"):
+            with contextlib.nullcontext() if route is None else k3_route(route):
+                runs.append(throughput(bctx4, n_slots, "Q4K" if route is None
+                                       else "Q4K, K3 at B > 1 as q4k_fake_quant"
+                                       " + q4k_matmul",
+                                       q4_step if route is None else old_step))
+        new_ms = min(r[0] for r in runs[1:3])
+        old_ms = min(r[0] for r in (runs[0], runs[3]))
+        log(f"[batch] Q4K, {n_slots} slots ({card}): {new_ms:.3f} ms per "
+            f"batched step through q4k_act_quant + q4k_matmul_w4a4, "
+            f"{old_ms:.3f} through the pair it replaced, in one call (the "
+            f"better of two each)")
+    del bctx4
 
     # §6 rows: the kernels of one batched step at 8 and 64 slots beside one
     # library call and the bound
@@ -2572,32 +3062,14 @@ def main() -> int:
             f"({b_by}); {card}")
         del caches, tr, qs
 
-    prods4 = [wl for name in ("wqkv", "wo", "w13", "w2")
+    # K3 at B > 1 over a batched step's 112 layer products at 8 and 64
+    # slots (at 64 also a 64-token prefill's)
+    prods4 = [(name, wl) for name in ("wqkv", "wo", "w13", "w2")
               for wl in layer_weights(params4["blocks"][name])]
-    wds4 = [wl.dequantize(torch.bfloat16) for wl in prods4]
-    B = 8
-    xs = [torch.randn(B, wl.in_dim, device=dev, generator=gen
-                      ).to(torch.bfloat16) for wl in prods4]
-
-    def run_q4_pair():
-        for x, wl in zip(xs, prods4):
-            q4k.q4k_matmul_f32(q4k.fake_quant_act(x), wl, torch.bfloat16)
-
-    def run_q4_lib():
-        for x, wd in zip(xs, wds4):
-            torch.matmul(x, wd.t())
-
-    k_ms, l_ms = timer(run_q4_pair), timer(run_q4_lib)
-    nb = sum(wl.packed.numel() + 8 * wl.scales.numel()
-             + 2 * B * (wl.in_dim + wl.out_dim) for wl in prods4)
-    b_ms, b_by = bound(nb, sum(2 * B * wl.out_dim * wl.in_dim for wl in prods4)
-                       + FQ_OPS_PER_VALUE * B * sum(wl.in_dim for wl in prods4),
-                       F32_OPS_PER_S)
-    log(f"[batched kernels] B={B}: Q4K pair (q4k_fake_quant + q4k_matmul, "
-        f"{len(prods4)} launches each, a step's layer products) {k_ms:.4f} "
-        f"ms; bf16 torch.matmul on weights dequantized ahead {l_ms:.4f} ms; "
-        f"bound {b_ms:.4f} ms ({b_by}, {nb / 1e6:.1f} MB); {card}")
-    del xs, wds4, prods4, prods
+    for B in (8, 64):
+        k3_batched_times(torch, prods4, B, "batched kernels", f"B={B}, Q4K "
+                         f"(a step's layer products)")
+    del prods4, prods
     torch.cuda.empty_cache()
 
     # first-step logits, kernels on the card vs plain versions on the CPU
@@ -2617,27 +3089,6 @@ def main() -> int:
     rope_g = gpt.precompute_rope(cfg.head_dim, 128, cfg.rope_theta, dev)
     rope_c = tuple(r.cpu() for r in rope_g)
     ids = torch.tensor([prompt], dtype=torch.int64)
-
-    def pad_only(x2d):
-        """The activation as K3 takes it, without the fake-quant."""
-        n = x2d.shape[1]
-        xp = torch.zeros(x2d.shape[0], -(-n // 256) * 256,
-                         dtype=torch.float32, device=x2d.device)
-        xp[:, :n] = x2d
-        return xp
-
-    @contextlib.contextmanager
-    def fake_quant(on):
-        saved = q4k.fake_quant_act, q4k.q4k_matvec_fq
-        if not on:
-            q4k.fake_quant_act = gpt.fake_quant_act = pad_only
-            q4k.q4k_matvec_fq = lambda x2d, w, dtype: q4k.q4k_matmul_f32(
-                pad_only(x2d), w, dtype)
-        try:
-            yield
-        finally:
-            q4k.fake_quant_act = gpt.fake_quant_act = saved[0]
-            q4k.q4k_matvec_fq = saved[1]
 
     def layer_by_layer(gp, cp, tokens, start, caches, last):
         """-> (worst per-layer relative error, logits rel error, logits)."""
@@ -2693,7 +3144,7 @@ def main() -> int:
         for form, conv, fq_on, tol in forms:
             caches = (gpt.KVCache.create(cfg, 1, 128, f32, dev),
                       gpt.KVCache.create(cfg, 1, 128, f32, "cpu"))
-            with fake_quant(fq_on):
+            with contextlib.nullcontext() if fq_on else k3_route("unquantized"):
                 w0, r0, lg0 = layer_by_layer(conv(gp), conv(cpu_p), ids, 0,
                                              caches, PROMPT_LEN - 1)
                 nxt = torch.tensor([[int(lg0.argmax())]])
@@ -3001,9 +3452,13 @@ def main() -> int:
                 k[key] = float(k[key])
         lib_ms = ("none" if k["library_ms"] is None
                   else f"{k['library_ms']:.4f} ms")
-        per = ("training" if k["name"].startswith("flash_attn") else "decode")
-        log(f"[summary] {k['name']}: {k['launches']} launches, max_abs_err "
-            f"{k['max_abs_err']:.3e}; per {per} step {k['ms']:.4f} ms, plain "
+        per = ("training" if k["name"].startswith("flash_attn") else
+               "prefill" if k["name"] in ("q80_act_quant", "q80_matmul_w8a8",
+                                          "q4k_act_quant", "q4k_matmul_w4a4")
+               else "decode")
+        off = "" if k["main_path"] else " (on no main path)"
+        log(f"[summary] {k['name']}: {k['launches']} launches{off}, max_abs_err "
+            f"{k['max_abs_err']:.3e}; per {per} {k['ms']:.4f} ms, plain "
             f"{k['plain_ms']:.4f} ms, library {lib_ms}, bound "
             f"{k['bound_ms']:.6f} ms ({k['bound_by']})")
     log(f"[done] {time.time() - t_start:.1f} s")

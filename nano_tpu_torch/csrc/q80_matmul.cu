@@ -78,13 +78,15 @@
 //     fragment (256 * 127^2 < 2^31, exact), folded into f32 accumulators
 //     with the group's two scales when the group ends;
 //   * 132 SMs at every product: N = 1024 has 16 row tiles, so the plan
-//     (ops/qmatmul.py:w8a8_plan, from the shapes alone) splits the groups
+//     (ops/int8_mma.py:plan, from the shapes alone) splits the groups
 //     over a cluster of up to 8 blocks, which leave their partial tiles in
 //     each other's shared memory and sum them in a fixed order (no atomics,
 //     no second launch, the same bits every run);
 //   * nothing allocated, one launch, and every instance's shared-memory
 //     limit raised once when the library is first used
 //     (q80_matmul_init), so that a CUDA-graph capture never meets one first.
+// The ring, the mma, the cluster's sum and the launch are int8_mma.cuh's,
+// shared with q4k.cu's q4k_matmul_w4a4.
 // Where its time goes (chip_smoke.py bench q80 batched clocks, a layer
 // product at B = 64): ~2-3 us until a block's first chunk is in (the
 // weights come cold from device memory), ~1-2 us of products, ~2 us for
@@ -102,9 +104,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int8_mma.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
+
+using namespace mma8;
 
 __device__ __forceinline__ float load_f(const float* p, size_t i) { return p[i]; }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p, size_t i) {
@@ -198,10 +204,6 @@ __global__ void rows_kernel(const XT* __restrict__ x, const int8_t* __restrict__
 constexpr int kMvThreads = 256;   // threads of a q80_matvec_fq block (8 warps)
 constexpr int kMvSteps = 2;       // a row's steps a lane holds at once (see the dot)
 constexpr int kMvXVec = 4;        // 16-byte pieces of x a thread loads before any weight
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
@@ -500,8 +502,6 @@ __global__ void __launch_bounds__(kMvThreads, 2)
 constexpr int kMmaMaxWarps = 8;    // a q80_matmul_w8a8 block: 4 or 8 warps of 16 weight rows
 constexpr int kMmaKC = 256;        // bytes of K a stage: 16 chunks of 16 a row
 constexpr int kMmaCh = kMmaKC / 16;
-constexpr int kMmaMaxStages = 4;
-constexpr int kMmaMaxCluster = 8;
 
 // Bytes of one stage of a block of MB weight rows: the weight tile, the
 // slot tile, then one scale a row and one a slot (the group of the
@@ -510,44 +510,8 @@ __host__ __device__ __forceinline__ size_t mma_stage(int MB, int BN) {
   return (size_t)(MB + BN) * (kMmaKC + 4);
 }
 
-// Bytes of the box where the CS blocks of a cluster leave a block their
-// partial sums of its MB / CS rows, [rank][row][slot] with slot rows of
-// BN + 2 floats: past the stages where CS > 1 (other blocks write into it
-// while this one may still be reading its stages), over them where CS = 1
-// (the shared memory is then the larger of the two).
-__host__ __device__ __forceinline__ size_t mma_box(int MB, int BN) {
-  return (size_t)MB * (BN + 2) * 4;
-}
-
 __host__ __device__ __forceinline__ size_t mma_smem(int MB, int BN, int CS, int S) {
-  const size_t stages = (size_t)S * mma_stage(MB, BN), box = mma_box(MB, BN);
-  return CS > 1 ? stages + box : (stages > box ? stages : box);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most n (0 .. kMmaMaxStages - 1) of this thread's groups are pending
-__device__ __forceinline__ void cp_async_wait(int n) {
-  switch (n) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
-  }
+  return ring_smem(mma_stage(MB, BN), MB, BN, CS, S);
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
@@ -560,16 +524,6 @@ __device__ __forceinline__ void ldsm_x2(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_u32(p)));
-}
-
-// c (16 x 8 s32) += a (16 x 32 s8, row) . b (32 x 8 s8, col): exact
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Where a q80_matmul_w8a8 block's time goes, only in a build with
@@ -724,71 +678,31 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32)
   // block q's box (remote stores: nothing waits for them), all in one
   // cluster barrier, and then sums its own rows' CS partials in rank order
   // from its own shared memory and writes them out.
-  const int own = MB / CS;   // rows a block sums (8 or more)
-  float* box = reinterpret_cast<float*>(smem + (CS > 1 ? (size_t)S * stage : 0));
-  const int ldo = BN + 2;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = warp * 16 + gid + 8 * h;
-    float* dst = cluster.map_shared_rank(box, r / own) + (rank * own + r % own) * ldo;
-#pragma unroll
-    for (int j = 0; j < NF; ++j)
-      *reinterpret_cast<float2*>(dst + 8 * j + 2 * tig) =
-          make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
-  }
+  float* box = reinterpret_cast<float*>(smem + box_offset(stage, CS, S));
+  leave_partials(acc, box, MB, BN, CS, rank, warp, lane);
   cluster.sync();
   W8_CLK(3);
-  for (int i = tid; i < own * BN; i += nt) {
-    const int r = i % own, b = i / own;
-    float v = box[r * ldo + b];
-    for (int q = 1; q < CS; ++q) v += box[(q * own + r) * ldo + b];
-    const int n = n0 + rank * own + r;
-    if (b0 + b < B && n < N) store_f(y, (size_t)(b0 + b) * N + n, v);
-  }
+  sum_partials(box, MB, BN, CS, rank, [&](int r, int b, float v) {
+    if (b0 + b < B && n0 + r < N) store_f(y, (size_t)(b0 + b) * N + n0 + r, v);
+  });
   W8_CLK(4);
 }
 
-template <int BN, typename OT>
-cudaError_t launch_w8a8(const int8_t* xq, const float* sa, const int8_t* w, const float* sw,
-                        OT* y, int B, int K, int N, int gs, int MB, int CS, int S,
+template <typename OT>
+cudaError_t launch_w8a8(int BN, const int8_t* xq, const float* sa, const int8_t* w,
+                        const float* sw, OT* y, int B, int K, int N, int gs, int MB, int CS, int S,
                         cudaStream_t st) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)((N + MB - 1) / MB * CS), (unsigned)((B + BN - 1) / BN), 1);
-  cfg.blockDim = dim3((unsigned)(MB * 2), 1, 1);
-  cfg.dynamicSmemBytes = mma_smem(MB, BN, CS, S);
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)CS;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, w8a8_kernel<BN, OT>, xq, sa, w, sw, y, B, K, N, gs, CS, S);
-}
-
-template <typename OT>
-cudaError_t launch_w8a8_bn(int BN, const int8_t* xq, const float* sa, const int8_t* w,
-                           const float* sw, OT* y, int B, int K, int N, int gs, int MB, int CS,
-                           int S, cudaStream_t st) {
+  const size_t smem = mma_smem(MB, BN, CS, S);
+#define NANO_W8A8(BN_)                                                                          \
+  launch_tiles(w8a8_kernel<BN_, OT>, B, N, MB, BN_, CS, smem, st, xq, sa, w, sw, y, B, K, N, gs, \
+               CS, S)
   switch (BN) {
-    case 8: return launch_w8a8<8>(xq, sa, w, sw, y, B, K, N, gs, MB, CS, S, st);
-    case 16: return launch_w8a8<16>(xq, sa, w, sw, y, B, K, N, gs, MB, CS, S, st);
-    case 32: return launch_w8a8<32>(xq, sa, w, sw, y, B, K, N, gs, MB, CS, S, st);
-    default: return launch_w8a8<64>(xq, sa, w, sw, y, B, K, N, gs, MB, CS, S, st);
+    case 8: return NANO_W8A8(8);
+    case 16: return NANO_W8A8(16);
+    case 32: return NANO_W8A8(32);
+    default: return NANO_W8A8(64);
   }
-}
-
-// Every instance may take all of an SM's shared memory a block can have.
-template <typename OT>
-cudaError_t w8a8_allow_smem() {
-  const int most = 232448;
-  cudaError_t e;
-  const auto a = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  if ((e = cudaFuncSetAttribute(w8a8_kernel<8, OT>, a, most)) != cudaSuccess) return e;
-  if ((e = cudaFuncSetAttribute(w8a8_kernel<16, OT>, a, most)) != cudaSuccess) return e;
-  if ((e = cudaFuncSetAttribute(w8a8_kernel<32, OT>, a, most)) != cudaSuccess) return e;
-  return cudaFuncSetAttribute(w8a8_kernel<64, OT>, a, most);
+#undef NANO_W8A8
 }
 
 constexpr int kWarps = 8;  // output rows per block
@@ -831,9 +745,10 @@ extern "C" int q80_act_quant(const void* x, int x_bf16, void* xq, void* sa, int 
 // device: once, before any launch (a CUDA-graph capture must not be the
 // first to meet an instance).
 extern "C" int q80_matmul_init() {
-  cudaError_t e = w8a8_allow_smem<float>();
-  if (e == cudaSuccess) e = w8a8_allow_smem<__nv_bfloat16>();
-  return (int)e;
+  return (int)allow_smem(w8a8_kernel<8, float>, w8a8_kernel<16, float>, w8a8_kernel<32, float>,
+                         w8a8_kernel<64, float>, w8a8_kernel<8, __nv_bfloat16>,
+                         w8a8_kernel<16, __nv_bfloat16>, w8a8_kernel<32, __nv_bfloat16>,
+                         w8a8_kernel<64, __nv_bfloat16>);
 }
 
 // xq (B, K) int8 and sa (B, K / gs) f32 from q80_act_quant, w (N, K) int8
@@ -845,20 +760,18 @@ extern "C" int q80_matmul_w8a8(const void* xq, const void* sa, const void* w, co
                                void* y, int y_bf16, int B, int K, int N, int gs, int MB, int BN,
                                int CS, int S, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((MB != 64 && MB != 128) || (BN != 8 && BN != 16 && BN != 32 && BN != 64) || B < 1 ||
-      N < 1 || gs < kMmaKC || gs % kMmaKC || K < gs || K % gs || CS < 1 || CS > kMmaMaxCluster ||
-      (CS & (CS - 1)) || CS > K / gs || S < 1 || S > kMmaMaxStages ||
-      mma_smem(MB, BN, CS, S) > 232448)
+  if (B < 1 || N < 1 || gs < kMmaKC || gs % kMmaKC || K < gs || K % gs ||
+      !split_ok(MB, BN, CS, K / gs, S, mma_smem(MB, BN, CS, S)))
     return (int)cudaErrorInvalidValue;
   const int8_t* xq_ = static_cast<const int8_t*>(xq);
   const float* sa_ = static_cast<const float*>(sa);
   const int8_t* w_ = static_cast<const int8_t*>(w);
   const float* sw_ = static_cast<const float*>(sw);
   if (y_bf16)
-    return (int)launch_w8a8_bn(BN, xq_, sa_, w_, sw_, static_cast<__nv_bfloat16*>(y), B, K, N, gs,
-                               MB, CS, S, st);
-  return (int)launch_w8a8_bn(BN, xq_, sa_, w_, sw_, static_cast<float*>(y), B, K, N, gs, MB, CS,
-                             S, st);
+    return (int)launch_w8a8(BN, xq_, sa_, w_, sw_, static_cast<__nv_bfloat16*>(y), B, K, N, gs, MB,
+                            CS, S, st);
+  return (int)launch_w8a8(BN, xq_, sa_, w_, sw_, static_cast<float*>(y), B, K, N, gs, MB, CS, S,
+                          st);
 }
 
 extern "C" int q80_matmul_rows(const void* x, int x_bf16, const void* w, const void* sw,

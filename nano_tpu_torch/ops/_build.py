@@ -5,12 +5,13 @@ shared library with a plain C interface under ``build/torch_kernels/`` at
 the repository root, and loads through ``ctypes``.  Nothing is built when
 a module is imported: the first launch (or an explicit ``build_all()``)
 builds, and every source is compiled in parallel, one ``nvcc`` each.  A
-library newer than its source and built with the same flags is reused.
+library built from the same source, the same headers (``csrc/*.cuh``) and
+the same flags is reused.
 
 IEEE division and square root, and denormals, are required
-(``q80_act_quant``, ``q80_matvec_fq`` and ``q4k_fake_quant`` must reproduce
-the JAX package's integer decisions bit for bit), so the flags never include
-``--use_fast_math``.
+(``q80_act_quant``, ``q80_matvec_fq``, ``q4k_fake_quant`` and
+``q4k_act_quant`` must reproduce the JAX package's integer decisions bit
+for bit), so the flags never include ``--use_fast_math``.
 """
 
 from __future__ import annotations
@@ -50,6 +51,9 @@ SIGNATURES = {
     "q4k_fake_quant": ([P, I, P, I, I, I, P], "q4k"),
     "q4k_matmul": ([P, P, P, P, P, I, I, I, I, I, P], "q4k"),
     "q4k_matvec_fq": ([P, I, P, P, P, P, I, I, I, I, P], "q4k"),
+    "q4k_act_quant": ([P, I, P, P, P, P, I, I, I, P], "q4k"),
+    "q4k_matmul_w4a4_init": ([], "q4k"),
+    "q4k_matmul_w4a4": ([*[P] * 8, I, I, I, I, I, I, I, I, I, P], "q4k"),
     "flash_attn_fwd": ([P, P, P, P, P, I, I, I, I, I, I, *[Q] * 9, F, P],
                        "flash_attn"),
     "flash_attn_fwd_blocks_per_sm": ([I, I], "flash_attn"),
@@ -82,8 +86,12 @@ def nvcc_path() -> str:
 
 
 def _stamp(src: str) -> str:
-    with open(src, "rb") as f:
-        h = hashlib.sha256(f.read())
+    """A hash of the source, every header beside it and the flags."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()
 

@@ -24,6 +24,8 @@ COUNTERS: Tuple[Tuple[object, str, str], ...] = (
     (q4k, "fake_quant_act", "launches"),
     (q4k, "q4k_matmul_f32", "launches"),
     (q4k, "q4k_matvec_fq", "launches"),
+    (q4k, "act_quant_q4k_packed", "launches"),
+    (q4k, "q4k_matmul_w4a4", "launches"),
     (flash_attn, "flash_attention", "launches"),
     (flash_attn, "flash_attention", "backward_launches"),
 )

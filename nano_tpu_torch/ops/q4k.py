@@ -24,7 +24,11 @@ that quantize->dequantize with the same rounding, bit for bit, and
 activation permutation (``_permute_act``): a lane reads a whole group.
 
 ``q4k_matvec_fq`` does both for one activation row (a decode step) in
-one kernel.  Each wrapper runs its hand-written CUDA kernel
+one kernel.  More rows (a batched step, a prefill) keep the activation's
+quantization as integers (``act_quant_q4k_packed``, the values packed in
+the weights' layout) and take the C engine's integer expansion of the
+product on the int8 tensor cores (``q4k_matmul_w4a4``; the JAX package's
+``q4k_matmul_int8``).  Each wrapper runs its hand-written CUDA kernel
 (``csrc/q4k.cu``) for CUDA tensors and its plain PyTorch version
 (``*_plain``) only for tensors on the CPU.  ``<wrapper>.launches`` counts
 kernel launches.
@@ -38,7 +42,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from nano_tpu_torch.ops import _build
+from nano_tpu_torch.ops import _build, int8_mma
 
 BLOCK_LEN = 256
 GROUP_LEN = 32
@@ -283,6 +287,66 @@ def q4k_matmul_plain(xq: torch.Tensor, w: Q4KTensor,
     return (x @ w.dequantize(torch.float32).t()).to(dtype)
 
 
+def pack_act_q4k(v: torch.Tensor, sa: torch.Tensor, ba: torch.Tensor,
+                 n: int) -> Tuple[torch.Tensor, ...]:
+    """The integer form (values (B, G, 32) in [0, 15], 0 at positions >= n;
+    s_eff, b_eff (B, G)) -> (vp u8 (B, G * 16), sa, ba, c f32 (B, G)): the
+    values packed in the weights' own layout (byte g*16+j holds value
+    g*32+j in its low nibble and g*32+16+j in its high nibble), and
+    c = sa * A - n_g * ba with A the group's value sum and n_g its
+    positions < n, each product and the difference rounded to f32."""
+    B, G, _ = v.shape
+    vi = v.to(torch.uint8)
+    vp = (vi[..., :GROUP_LEN // 2] | (vi[..., GROUP_LEN // 2:] << 4))
+    A = v.to(torch.int32).sum(-1).float()
+    n_g = (n - torch.arange(G, device=v.device) * GROUP_LEN).clamp(
+        0, GROUP_LEN).float()
+    c = sa * A - n_g * ba
+    return vp.reshape(B, G * GROUP_LEN // 2).contiguous(), sa, ba, c
+
+
+def act_quant_q4k_packed_plain(x2d: torch.Tensor
+                               ) -> Tuple[torch.Tensor, ...]:
+    """x2d (B, n) -> (vp u8 (B, n_pad / 2), sa, ba, c f32 (B, G)):
+    ``act_quant_q4k_plain``'s integer decisions packed by
+    ``pack_act_q4k`` for ``q4k_matmul_w4a4``."""
+    return pack_act_q4k(*act_quant_q4k_plain(x2d), x2d.shape[1])
+
+
+def q4k_matmul_w4a4_plain(vp: torch.Tensor, sa: torch.Tensor,
+                          ba: torch.Tensor, c: torch.Tensor, w: Q4KTensor,
+                          dtype=torch.bfloat16) -> torch.Tensor:
+    """The activation's integer form (``act_quant_q4k_packed_plain``) x w
+    -> (B, out): the Q4K product as the C engine expands it
+    (infer/tensor.c:359-434; the JAX package's ``q4k_matmul_int8``).  With
+    a = sa * va - ba and w = s * q - m over a group's n_g positions < in_dim,
+
+        y[b, o] = sum_g sa * s * P - c * m - ba * s * Q,
+
+    P = sum va * q and Q = sum q over those positions (the weight's nibbles
+    at positions >= in_dim masked to 0), exact integers; c from the
+    activation side.  P runs as an f32 product of integers: every partial
+    sum is below 32 * 225 < 2^24, so any order gives it exactly."""
+    B = vp.shape[0]
+    G, out = w.scales.shape[-1], w.out_dim
+    half = GROUP_LEN // 2
+
+    def unpack(p, rows):
+        p = p.reshape(rows, G, half)
+        return torch.cat([p & 0x0F, p >> 4], dim=-1)       # (rows, G, 32)
+
+    keep = (torch.arange(G * GROUP_LEN, device=vp.device)
+            < w.in_dim).reshape(G, GROUP_LEN)
+    q = torch.where(keep, unpack(w.packed, out), 0).float()
+    va = unpack(vp, B).float()
+    P = torch.einsum("bgk,ogk->bgo", va, q)                 # (B, G, out)
+    sQ = (w.scales * q.sum(-1)).t()                         # (G, out)
+    s, m = w.scales.t(), w.biases.t()
+    y = ((sa[:, :, None] * s[None]) * P - c[:, :, None] * m[None]
+         - ba[:, :, None] * sQ[None])
+    return y.sum(1).to(dtype)
+
+
 # =====================================================================
 # kernel wrappers
 # =====================================================================
@@ -390,13 +454,102 @@ def q4k_matvec_fq(x2d: torch.Tensor, w: Q4KTensor, dtype=torch.bfloat16
 q4k_matvec_fq.launches = 0
 
 
+def act_quant_q4k_packed(x2d: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """x2d (B, n) f32/bf16 -> (vp u8 (B, n_pad / 2), sa, ba, c f32 (B, G)),
+    the activation's integer form for ``q4k_matmul_w4a4``; kernel
+    ``q4k_act_quant`` on the card, equal to the plain version bit for
+    bit."""
+    if x2d.device.type == "cpu":
+        return act_quant_q4k_packed_plain(x2d)
+    if x2d.dim() != 2 or x2d.dtype not in _OUT_TYPES or x2d.shape[0] < 1:
+        raise ValueError(f"q4k_act_quant takes f32/bf16 (B, n), got "
+                         f"{x2d.dtype} {tuple(x2d.shape)}")
+    x2d = x2d.contiguous()
+    B, n = x2d.shape
+    n_pad = n_blocks_per_line(n) * BLOCK_LEN
+    G = n_pad // GROUP_LEN
+    vp = torch.empty((B, n_pad // 2), dtype=torch.uint8, device=x2d.device)
+    sa, ba, c = (torch.empty((B, G), dtype=torch.float32, device=x2d.device)
+                 for _ in range(3))
+    fn = _build.lib("q4k").q4k_act_quant
+    rc = fn(x2d.data_ptr(), int(x2d.dtype == torch.bfloat16), vp.data_ptr(),
+            sa.data_ptr(), ba.data_ptr(), c.data_ptr(), B, n, n_pad,
+            _build.stream(x2d))
+    act_quant_q4k_packed.launches += 1
+    _build.check(rc, "q4k_act_quant")
+    return vp, sa, ba, c
+
+
+act_quant_q4k_packed.launches = 0
+
+
+def _w4a4_stage(MB: int, BN: int) -> int:
+    """Bytes of a q4k_matmul_w4a4 stage, 256 values of K (csrc/q4k.cu:
+    w4_stage): the packed weight tile (144 bytes a row: 128 and a pad), its
+    scales and biases (96 bytes a row), the packed slot tile (144 bytes a
+    slot) and its sa, ba, c (128 bytes a slot)."""
+    return 240 * MB + 272 * BN
+
+
+def w4a4_smem(MB: int, BN: int, CS: int, S: int) -> int:
+    """Shared memory of a q4k_matmul_w4a4 block of MB weight rows."""
+    return int8_mma.smem(_w4a4_stage(MB, BN), MB, BN, CS, S)
+
+
+def w4a4_plan(B: int, N: int, n_pad: int, n_sm: int = _build.H100_SMS
+              ) -> Tuple[int, int, int, int]:
+    """-> (MB, BN, CS, S) of ``q4k_matmul_w4a4``: ``int8_mma.plan`` with the
+    256-value chunks of K split over a cluster, a stage each; the weight
+    is 3/4 of a byte a value with its scales and biases."""
+    return int8_mma.plan(B, N, N * n_pad * 3 // 4, n_pad // BLOCK_LEN, 1,
+                         _w4a4_stage, n_sm)
+
+
+def q4k_matmul_w4a4(vp: torch.Tensor, sa: torch.Tensor, ba: torch.Tensor,
+                    c: torch.Tensor, w: Q4KTensor, dtype=torch.bfloat16
+                    ) -> torch.Tensor:
+    """The activation's integer form (``act_quant_q4k_packed``) x w ->
+    (B, out) in `dtype`; kernel ``q4k_matmul_w4a4`` (int8 tensor cores,
+    split by ``w4a4_plan``) on the card."""
+    if vp.device.type == "cpu":
+        return q4k_matmul_w4a4_plain(vp, sa, ba, c, w, dtype)
+    _check_weight(w, vp.device, dtype)
+    B, G = sa.shape[0], w.n_pad // GROUP_LEN
+    if (vp.dtype != torch.uint8 or vp.shape != (B, w.n_pad // 2) or B < 1
+            or any(t.dtype != torch.float32 or t.shape != (B, G)
+                   or not t.is_contiguous() or t.device != vp.device
+                   for t in (sa, ba, c))
+            or not vp.is_contiguous() or vp.data_ptr() % 16
+            or w.scales.data_ptr() % 16 or w.biases.data_ptr() % 16):
+        raise ValueError(f"q4k_matmul_w4a4 takes contiguous u8 (B >= 1, "
+                         f"{w.n_pad // 2}) values, 16-byte aligned, with f32 "
+                         f"(B, {G}) sa, ba, c, got {vp.dtype} "
+                         f"{tuple(vp.shape)}, {tuple(sa.shape)}")
+    int8_mma.init(vp.device, "q4k_matmul_w4a4_init")
+    y = torch.empty((B, w.out_dim), dtype=dtype, device=vp.device)
+    plan = w4a4_plan(B, w.out_dim, w.n_pad, _build.sm_count(vp.device))
+    fn = _build.lib("q4k").q4k_matmul_w4a4
+    rc = fn(vp.data_ptr(), sa.data_ptr(), ba.data_ptr(), c.data_ptr(),
+            w.packed.data_ptr(), w.scales.data_ptr(), w.biases.data_ptr(),
+            y.data_ptr(), int(dtype == torch.bfloat16), B, w.n_pad, w.in_dim,
+            w.out_dim, *plan, _build.stream(vp))
+    q4k_matmul_w4a4.launches += 1
+    _build.check(rc, "q4k_matmul_w4a4")
+    return y
+
+
+q4k_matmul_w4a4.launches = 0
+
+
 def q4k_matmul(x: torch.Tensor, w: Q4KTensor, dtype=torch.bfloat16
                ) -> torch.Tensor:
-    """x (..., in) -> (..., out) in `dtype`: the activation fake-quant,
-    then the fused-dequant matmul.  One row (a decode step) takes the
-    kernel that does both; more rows take the two kernels (folded into the
-    warp-per-row kernel, the fake-quant would be repeated for every output
-    row)."""
+    """x (..., in) -> (..., out) in `dtype`: the activation's Q4K
+    quantization, then the product.  One row (a decode step) takes the
+    kernel that does both, the f32 dequant dot of the fake-quantized row;
+    more rows (a batched step, a prefill) take two: ``q4k_act_quant``, then
+    ``q4k_matmul_w4a4`` on the int8 tensor cores, the C engine's integer
+    expansion of the same product (the same quantization decisions; f32
+    sums in another order)."""
     if w.packed.dim() != 2:
         raise ValueError("index stacked weights with Q4KTensor.layer(i)")
     lead = x.shape[:-1]
@@ -404,5 +557,5 @@ def q4k_matmul(x: torch.Tensor, w: Q4KTensor, dtype=torch.bfloat16
     if x2d.shape[0] == 1:
         y = q4k_matvec_fq(x2d, w, dtype)
     else:
-        y = q4k_matmul_f32(fake_quant_act(x2d), w, dtype)
+        y = q4k_matmul_w4a4(*act_quant_q4k_packed(x2d), w, dtype)
     return y.reshape(*lead, w.out_dim)

@@ -32,7 +32,7 @@ from typing import Tuple
 
 import torch
 
-from nano_tpu_torch.ops import _build
+from nano_tpu_torch.ops import _build, int8_mma
 
 # smallest group size that takes the W8A8 form (the JAX package's
 # MIN_GROUPED_GS: the default load decision, binfmt._maybe_int8_layout)
@@ -187,80 +187,28 @@ def act_quant_q80(x: torch.Tensor, group_size: int
 act_quant_q80.launches = 0
 
 
-# q80_matmul_w8a8's work split (csrc/q80_matmul.cu): bytes of K a stage,
-# stages at most, blocks a cluster at most (the portable cluster size), and
-# the shared memory a block may take so that two fit on an SM.
+# q80_matmul_w8a8's work split (csrc/q80_matmul.cu, ops/int8_mma.py):
+# bytes of K a stage
 W8A8_KC = 256
-W8A8_MAX_STAGES = 4
-W8A8_MAX_CLUSTER = 8
-W8A8_SMEM = 113 * 1024
-# weight bytes up to which a product's slot tiles re-read it from L2 (of
-# the H100's 50 MB): every layer product of the Qwen3-0.6B shape, not its head
-W8A8_L2_WEIGHT = 16 << 20
+
+
+def _w8a8_stage(MB: int, BN: int) -> int:
+    """Bytes of a q80_matmul_w8a8 stage: the weight tile, the slot tile and
+    one scale a row and a slot (csrc/q80_matmul.cu:mma_stage)."""
+    return (MB + BN) * (W8A8_KC + 4)
 
 
 def w8a8_smem(MB: int, BN: int, CS: int, S: int) -> int:
-    """Shared memory of a q80_matmul_w8a8 block of MB weight rows: S stages
-    of the weight tile, the slot tile and one scale a row and a slot, and
-    past them, where CS > 1, the box where the cluster's blocks leave their
-    partial sums (over the stages where CS = 1; csrc/q80_matmul.cu:
-    mma_smem)."""
-    stages, box = S * (MB + BN) * (W8A8_KC + 4), MB * (BN + 2) * 4
-    return stages + box if CS > 1 else max(stages, box)
+    """Shared memory of a q80_matmul_w8a8 block of MB weight rows."""
+    return int8_mma.smem(_w8a8_stage(MB, BN), MB, BN, CS, S)
 
 
 def w8a8_plan(B: int, N: int, K: int, group_size: int,
               n_sm: int = _build.H100_SMS) -> Tuple[int, int, int, int]:
-    """-> (MB, BN, CS, S) of ``q80_matmul_w8a8``, from the shapes alone
-    (never from a value on the device, so that a launch can be captured in
-    a CUDA graph); the choices are the fastest splits of
-    ``chip_smoke.py bench q80 batched sweep`` at a Qwen3-0.6B step's
-    products:
-
-    * BN slots a tile (8, 16, 32 or 64), the least that holds B, so that a
-      weight byte is read once; but at most 32 where the weight fits
-      W8A8_L2_WEIGHT (a layer product): its two slot tiles at B = 64 read
-      the weight together, the second from L2, and give twice the blocks;
-    * MB = 128 weight rows a block where 128-row tiles still give two
-      blocks for every SM (the head: half the activation bytes a block
-      reads for each weight byte), else 64;
-    * the groups of K split over a cluster of CS blocks, doubled from 1
-      while the grid has fewer than 1.5 blocks an SM, up to
-      W8A8_MAX_CLUSTER and the group count;
-    * a ring of S stages of 256 bytes of K: as many as a block has chunks,
-      up to W8A8_MAX_STAGES, where the grid is one wave or a few, and 2
-      where it is many (more blocks an SM instead), within W8A8_SMEM."""
-    G = K // group_size
-    BN = next(bn for bn in (8, 16, 32, 64) if bn >= min(B, 64))
-    if N * K <= W8A8_L2_WEIGHT:
-        BN = min(BN, 32)
-    col_tiles = -(-B // BN)
-    MB = 128 if -(-N // 128) * col_tiles >= 2 * n_sm else 64
-    tiles = -(-N // MB) * col_tiles
-    CS = 1
-    while 2 * tiles * CS < 3 * n_sm and 2 * CS <= min(W8A8_MAX_CLUSTER, G):
-        CS *= 2
-    chunks = -(-G // CS) * (group_size // W8A8_KC)
-    S = min(W8A8_MAX_STAGES if tiles * CS < 4 * n_sm else 2, chunks)
-    while S > 1 and w8a8_smem(MB, BN, CS, S) > W8A8_SMEM:
-        S -= 1
-    return MB, BN, CS, S
-
-
-_w8a8_ready = set()
-
-
-def w8a8_init(device: torch.device) -> None:
-    """Raise every q80_matmul_w8a8 instance's shared-memory limit on
-    `device`, once, before its first launch there (the wrapper does; a
-    caller of the C function does it first)."""
-    index = torch.cuda.current_device() if device.index is None else device.index
-    if index in _w8a8_ready:
-        return
-    with torch.cuda.device(index):
-        _build.check(_build.lib("q80_matmul").q80_matmul_init(),
-                     "q80_matmul_init")
-    _w8a8_ready.add(index)
+    """-> (MB, BN, CS, S) of ``q80_matmul_w8a8``: ``int8_mma.plan`` with the
+    groups of K split over a cluster, each group_size / W8A8_KC stages."""
+    return int8_mma.plan(B, N, N * K, K // group_size,
+                         group_size // W8A8_KC, _w8a8_stage, n_sm)
 
 
 def q80_w8a8(xq: torch.Tensor, sa: torch.Tensor, w: Q80Tensor,
@@ -283,7 +231,7 @@ def q80_w8a8(xq: torch.Tensor, sa: torch.Tensor, w: Q80Tensor,
         raise ValueError("quantized activations must be contiguous int8 "
                          "(B >= 1, G, gs), 16-byte aligned, with f32 (B, G) "
                          "scales")
-    w8a8_init(xq.device)
+    int8_mma.init(xq.device, "q80_matmul_init")
     K, N = G * gs, w.out_dim
     y = torch.empty((B, N), dtype=dtype, device=xq.device)
     plan = w8a8_plan(B, N, K, gs, _build.sm_count(xq.device))

@@ -486,6 +486,96 @@ def test_q4k_matvec_fq_is_the_two_kernels_bit_for_bit(inn, out):
                                        atol=1e-5 * plain.abs().max().item())
 
 
+def _q4k_card_weight(rng, inn, out, pad_nibble=None):
+    """A random packed Q4K weight on the card; with pad_nibble, every
+    nibble at a position >= inn holds it (a right product never reads
+    them)."""
+    npad = tq4.n_blocks_per_line(inn) * 256
+    p = rng.randint(0, 256, (out, npad // 2)).astype(np.uint8)
+    if pad_nibble is not None:
+        pos = np.arange(npad).reshape(-1, 2, 16)        # (G, lo/hi, 16)
+        for half, shift, keep in ((0, 0, 0xF0), (1, 4, 0x0F)):
+            past = (pos[:, half] >= inn).reshape(-1)
+            p[:, past] = (p[:, past] & keep) | (pad_nibble << shift)
+    return tq4.Q4KTensor(
+        packed=torch.from_numpy(p).cuda(),
+        scales=torch.from_numpy(rng.rand(out, npad // 32).astype(np.float32) * 0.02 + 1e-3).cuda(),
+        biases=torch.from_numpy(rng.rand(out, npad // 32).astype(np.float32) * 0.02).cuda(),
+        in_dim=inn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [40, 64, 128, 1024, 2048, 3072])
+def test_q4k_act_quant_kernel_is_bit_equal(n):
+    """The activation's Q4K quantization in integer form (K3 at B > 1): the
+    packed values, sa, ba and c torch.equal to the plain version, from f32
+    and bf16 rows with an all-zero and constant groups."""
+    _need_card()
+    rng = np.random.RandomState(n + 1)
+    for B in (2, 8, 64, 65):
+        x = _act_rows(rng, B, n)
+        for xt in (x, x.to(torch.bfloat16)):
+            got = tq4.act_quant_q4k_packed(xt)
+            want = tq4.act_quant_q4k_packed_plain(xt)
+            torch.cuda.synchronize()
+            assert got[0].shape == (B, tq4.n_blocks_per_line(n) * 128)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [2, 8, 64, 65])
+@pytest.mark.parametrize("inn,out", [(1024, 4096), (2048, 1024), (1024, 6144),
+                                     (3072, 1024), (64, 128), (128, 64),
+                                     (40, 3), (40, 200), (320, 72)])
+def test_q4k_matmul_w4a4_matches_plain(inn, out, B):
+    """K3 at B > 1 on the int8 tensor cores at the four Qwen3-0.6B products
+    and the tiny and ragged widths (in = 40 with 0xE in every nibble past
+    in): within 1e-5 of max|y| of the plain version on the same integer
+    form (the same integers, f32 sums in another order), two runs the same
+    bits, the bf16 output the f32 one rounded."""
+    _need_card()
+    rng = np.random.RandomState(inn * 7 + out + B)
+    w = _q4k_card_weight(rng, inn, out, pad_nibble=0xE if inn % 256 else None)
+    act = tq4.act_quant_q4k_packed(_act_rows(rng, B, inn))
+    y = tq4.q4k_matmul_w4a4(*act, w, torch.float32)
+    y2 = tq4.q4k_matmul_w4a4(*act, w, torch.float32)
+    y16 = tq4.q4k_matmul_w4a4(*act, w, torch.bfloat16)
+    want = tq4.q4k_matmul_w4a4_plain(*act, w, torch.float32)
+    torch.cuda.synchronize()
+    assert y.shape == (B, out) and y16.dtype == torch.bfloat16
+    assert torch.equal(y, y2)
+    assert torch.equal(y16, y.to(torch.bfloat16))
+    torch.testing.assert_close(y, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_q4k_w4a4_under_graph_capture_and_refusals():
+    """q4k_matmul at 16 rows (a slot tile no other test launches, BN = 16)
+    met first inside a CUDA-graph capture gives the eager launches' bits
+    on replay; misaligned or mis-shaped activations raise."""
+    _need_card()
+    rng = np.random.RandomState(16)
+    w = _q4k_card_weight(rng, 2048, 1024)
+    x = _act_rows(rng, 16, 2048)
+    assert tq4.w4a4_plan(16, 1024, 2048)[1] == 16
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = tq4.q4k_matmul(x, w, torch.bfloat16)
+    graph.replay()
+    eager = tq4.q4k_matmul(x, w, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(y, eager)
+    vp, sa, ba, c = tq4.act_quant_q4k_packed(x)
+    flat = torch.zeros(16 * 1024 + 1, dtype=torch.uint8, device="cuda")
+    for bad in ((flat[1:].reshape(16, 1024), sa, ba, c),   # misaligned
+                (vp, sa[:, :32], ba, c),                   # sa shape
+                (vp[:, :512], sa, ba, c),                  # width
+                (vp[:0], sa[:0], ba[:0], c[:0])):          # no rows
+        with pytest.raises(ValueError):
+            tq4.q4k_matmul_w4a4(*bad, w, torch.float32)
+
+
 def _flash_case(B, S, H, KV, D, dtype, seed):
     rng = np.random.RandomState(seed)
     mk = lambda *shape: torch.from_numpy(
@@ -640,14 +730,15 @@ def test_launch_counters_count_kernel_launches():
                                           device="cuda"),
                        scales=torch.ones(64, 8, device="cuda"),
                        biases=torch.zeros(64, 8, device="cuda"), in_dim=256)
-    n0 = (tq4.fake_quant_act.launches, tq4.q4k_matmul_f32.launches,
-          tq4.q4k_matvec_fq.launches)
+    counters = (tq4.act_quant_q4k_packed, tq4.q4k_matmul_w4a4,
+                tq4.q4k_matvec_fq, tq4.fake_quant_act, tq4.q4k_matmul_f32)
+    n0 = [f.launches for f in counters]
     tq4.q4k_matmul(x, w4, torch.float32)
-    assert (tq4.fake_quant_act.launches, tq4.q4k_matmul_f32.launches,
-            tq4.q4k_matvec_fq.launches) == (n0[0] + 1, n0[1] + 1, n0[2])
+    assert [f.launches for f in counters] == [n0[0] + 1, n0[1] + 1, n0[2],
+                                              n0[3], n0[4]]
     tq4.q4k_matmul(x[:1], w4, torch.float32)
-    assert (tq4.fake_quant_act.launches, tq4.q4k_matmul_f32.launches,
-            tq4.q4k_matvec_fq.launches) == (n0[0] + 1, n0[1] + 1, n0[2] + 1)
+    assert [f.launches for f in counters] == [n0[0] + 1, n0[1] + 1,
+                                              n0[2] + 1, n0[3], n0[4]]
 
 
 @pytest.mark.cuda

@@ -167,11 +167,16 @@ def test_q4k_matmul_plain_matches_interpret_kernel(out, inn, B):
     got = tq.q4k_matmul_plain(txq, tw, torch.float32).numpy()
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-5 * np.abs(want).max())
-    # the wrappers take the plain versions for CPU tensors
-    n0 = (tq.fake_quant_act.launches, tq.q4k_matmul_f32.launches)
+    # more than one row: the wrappers take the integer-form plain versions
+    # for CPU tensors (tests/test_torch_q4k_w4a4.py holds them to K3)
+    n0 = (tq.act_quant_q4k_packed.launches, tq.q4k_matmul_w4a4.launches)
     np.testing.assert_array_equal(
-        tq.q4k_matmul(torch.from_numpy(x), tw, torch.float32).numpy(), got)
-    assert (tq.fake_quant_act.launches, tq.q4k_matmul_f32.launches) == n0
+        tq.q4k_matmul(torch.from_numpy(x), tw, torch.float32).numpy(),
+        tq.q4k_matmul_w4a4_plain(
+            *tq.act_quant_q4k_packed_plain(torch.from_numpy(x)), tw,
+            torch.float32).numpy())
+    assert (tq.act_quant_q4k_packed.launches,
+            tq.q4k_matmul_w4a4.launches) == n0
 
 
 def test_q4k_matmul_plain_matches_matvec_units(units):

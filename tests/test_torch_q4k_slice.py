@@ -276,3 +276,39 @@ def test_tiny_q4k_reproduces_expected_stream():
     assert ids == jctx.encode(expected["prompt"])
     assert (teng.generate_on_device(tctx, ids, 16).tolist()
             == jeng.generate_on_device(jctx, ids, 16).tolist())
+
+
+@pytest.mark.parametrize("which", ["tiny", "qwen3"])
+def test_batched_engine_streams_match_jax_solo(qwen_q4k, which):
+    """Three greedy streams join mid-flight through the port's
+    BatchedEngine on a Q4K file: every batched step's Q4K products take
+    more than one row (the integer form on the CPU), and each stream is
+    token-identical to the JAX engine's solo greedy stream.  The prompts'
+    ids lie inside the embedding table (tiny_q4k.bin's trie also has id 64,
+    past its 64-row table, where JAX reads NaN rows and the port clamps)."""
+    from nano_tpu_torch.serve.batching import BatchedEngine
+    path = TINY if which == "tiny" else qwen_q4k
+    jctx, tctx = _contexts(path)
+    assert isinstance(tctx.params["blocks"]["w13"], TQ4K)
+    prompts = ([[3, 9, 14, 20, 7, 1], [5, 6, 7], [30, 31, 2, 8, 40]]
+               if which == "tiny" else
+               [[11, 22, 33, 444, 55], [100, 200, 300], [7, 8, 9, 10, 11]])
+    n = 12
+    be = BatchedEngine(tctx, n_slots=4)
+    got = {}
+    for i, prompt in enumerate(prompts):
+        slot, first = be.add(prompt, max_new_tokens=n, temperature=0.0,
+                             repetition_penalty=1.0)
+        got[i] = (slot, [first])
+        for _ in range(3):                    # the others decode meanwhile
+            out = be.step()
+            for j, (sl, toks) in got.items():
+                toks.extend(out.get(sl, []))
+    while be.n_active:
+        out = be.step()
+        for j, (sl, toks) in got.items():
+            toks.extend(out.get(sl, []))
+    for i, prompt in enumerate(prompts):
+        want = jeng.generate_on_device(jctx, prompt, n).tolist()
+        toks = got[i][1]
+        assert len(toks) == n and toks == want, (i, toks, want)

@@ -12,6 +12,8 @@ import jax.numpy as jnp
 import torch
 
 from nano_tpu.ops import qmatmul as jqm
+from nano_tpu_torch.ops import int8_mma
+from nano_tpu_torch.ops import q4k as tq4
 from nano_tpu_torch.ops import qmatmul as tqm
 
 
@@ -177,37 +179,49 @@ def test_w8a8_plan_covers_every_output_once_and_fits(product, B):
     memory on an SM (of the H100's 227 KB), no more stages than a block
     has chunks."""
     N, K = QWEN3_PRODUCTS[product]
-    _plan_checks(B, N, K, 256)
+    _w8a8_plan_checks(B, N, K, 256)
 
 
 @pytest.mark.parametrize("B,N,K,gs", [(9, 4096, 1024, 512), (64, 1024, 3072, 512),
                                       (65, 384, 1536, 512), (3, 7, 768, 256),
                                       (8, 264, 256, 256), (300, 1000, 2048, 1024)])
 def test_w8a8_plan_other_shapes(B, N, K, gs):
-    _plan_checks(B, N, K, gs)
+    _w8a8_plan_checks(B, N, K, gs)
 
 
-def _w8a8_blocks(B, N, K, gs, plan):
-    """Every block of a q80_matmul_w8a8 launch as the kernel splits the
-    work (csrc/q80_matmul.cu:w8a8_kernel): [(rows, slots, groups)] in grid
-    order, ranges clipped to the tensors (the kernel reads past them as
-    zeros)."""
+@pytest.mark.parametrize("B", [2, 8, 9, 64, 65, 200])
+@pytest.mark.parametrize("N,n_pad", [(4096, 1024), (1024, 2048), (6144, 1024),
+                                     (1024, 3072), (64, 256), (7, 768)])
+def test_w4a4_plan_covers_every_output_once_and_fits(N, n_pad, B):
+    """q4k_matmul_w4a4's split (the same rule, int8_mma.plan, over chunks
+    of 256 values of K, a stage each): the checks above."""
+    _plan_checks(B, N, n_pad // 256, 1, N * n_pad * 3 // 4,
+                 tq4.w4a4_plan(B, N, n_pad), tq4.w4a4_smem)
+
+
+def _tile_blocks(B, N, pieces, plan):
+    """Every block of a launch as the int8 tensor-core kernels split the
+    work (csrc/int8_mma.cuh): [(rows, slots, pieces of K)] in grid order,
+    ranges clipped to the tensors (the kernels read past them as zeros)."""
     MB, BN, CS, _ = plan
-    G = K // gs
     out = []
     for by in range(-(-B // BN)):
         for bx in range(-(-N // MB) * CS):
             n0, r = bx // CS * MB, bx % CS
             out.append((range(n0, min(n0 + MB, N)),
                         range(by * BN, min(by * BN + BN, B)),
-                        range(G * r // CS, G * (r + 1) // CS)))
+                        range(pieces * r // CS, pieces * (r + 1) // CS)))
     return out
 
 
-def _plan_checks(B, N, K, gs):
-    G = K // gs
-    MB, BN, CS, S = plan = tqm.w8a8_plan(B, N, K, gs)
-    blocks = _w8a8_blocks(B, N, K, gs, plan)
+def _w8a8_plan_checks(B, N, K, gs):
+    _plan_checks(B, N, K // gs, gs // tqm.W8A8_KC, N * K,
+                 tqm.w8a8_plan(B, N, K, gs), tqm.w8a8_smem)
+
+
+def _plan_checks(B, N, G, piece_chunks, weight_bytes, plan, smem):
+    MB, BN, CS, S = plan
+    blocks = _tile_blocks(B, N, G, plan)
     count = np.zeros((N, B, G), np.int8) if N * B * G <= 2e7 else None
     for rows, slots, groups in blocks:
         assert len(groups) > 0 and len(slots) > 0 and len(rows) > 0
@@ -225,22 +239,23 @@ def _plan_checks(B, N, K, gs):
         for cells in by_tile.values():
             assert sum((r1 - r0) * (g1 - g0) for r0, r1, g0, g1 in cells) == N * G
             assert len(set(cells)) == len(cells)
+    in_l2 = weight_bytes <= int8_mma.L2_WEIGHT
     assert MB in (64, 128) and BN in (8, 16, 32, 64)
-    assert BN >= min(B, 64 if N * K > tqm.W8A8_L2_WEIGHT else 32)
+    assert BN >= min(B, 32 if in_l2 else 64)
     assert BN == 8 or BN // 2 < min(B, 64)
     assert CS in (1, 2, 4, 8) and CS <= G
     n_blocks = len(blocks)
     assert n_blocks == -(-N // MB) * CS * -(-B // BN)
-    if B <= (64 if N * K > tqm.W8A8_L2_WEIGHT else 32):
+    if B <= (32 if in_l2 else 64):
         assert -(-B // BN) == 1   # one slot tile: each weight byte read once
     # 1.5 blocks for every SM, or the split can grow no further
     assert 2 * n_blocks >= 3 * tqm._build.H100_SMS or 2 * CS > min(8, G)
-    chunks = -(-G // CS) * (gs // tqm.W8A8_KC)
-    most = tqm.W8A8_MAX_STAGES if n_blocks < 4 * tqm._build.H100_SMS else 2
+    chunks = -(-G // CS) * piece_chunks
+    most = int8_mma.MAX_STAGES if n_blocks < 4 * tqm._build.H100_SMS else 2
     assert 1 <= S <= min(most, chunks)
-    assert 2 * tqm.w8a8_smem(MB, BN, CS, S) <= 227 * 1024
+    assert 2 * smem(MB, BN, CS, S) <= 227 * 1024
     if S < min(most, chunks):   # cut by the budget only
-        assert tqm.w8a8_smem(MB, BN, CS, S + 1) > tqm.W8A8_SMEM
+        assert smem(MB, BN, CS, S + 1) > int8_mma.SMEM
 
 
 def test_cpu_wrappers_launch_nothing():
