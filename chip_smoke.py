@@ -23,11 +23,25 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   nibbles, two runs bit-equal; the Q80 decode kernel with the activation
                   quantization folded in at the five products and two small
                   shapes, its int8 row and scales torch.equal to the plain
-                  act quant, two runs bit-equal), and
+                  act quant, two runs bit-equal; every row of K1 at B = 8,
+                  64, 65 torch.equal to that row through the B = 1 kernel,
+                  and every row of decode attention at B = 8 and 64 to
+                  that row alone: one order of summation at every batch
+                  size; the residual add + RMSNorm and SwiGLU kernels
+                  with the Q80 quantization as their epilogue at E = 1024
+                  and 2F = 6144, B = 1, 8, 64, 65, bf16 and f32, group
+                  sizes 0, 256, 512: the add and SwiGLU torch.equal to the
+                  eager ops, the norm torch.equal to the eager ops summed
+                  in the kernel's order and within one bf16 ulp of eager
+                  rms_norm, int8 rows and scales torch.equal to
+                  q80_act_quant of the kernel's own output, a row the same
+                  bits alone and in a batch), and
                   timed over one decode step's launches (K1 also by
                   product, the fused kernel beside the pair; the pairs of
                   K1 and K3 at B > 1 over a 64-token prefill's 112 layer
-                  products, their main path): kernel, plain
+                  products, their main path; the norm and SwiGLU kernels
+                  over a step's 57 + 28 launches at B = 1, 8 and 64 beside
+                  the eager chain they replace): kernel, plain
                   version, one PyTorch library call as a yardstick, and the
                   least time the card needs for the bytes and operations
   4. tiny fixtures tests/js/fixtures/tiny_q80.bin and tiny_q4k.bin, greedy
@@ -48,7 +62,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   step, idle share, kernels a step; each kernel's launches
                   as the profiler saw them held to the per-step counts),
                   and first-step logits against the plain versions on the
-                  CPU
+                  CPU; then each model's B = 1 decode step and TTFT with
+                  the fused norms and SwiGLU and, rebound here, with the
+                  eager ops they replaced, in turns in one call
   5b. batching    the Q80 model in BatchedEngine: 8 prompts of 16-64
                   tokens joining 8 steps apart, 128 greedy tokens each,
                   the cache growing 128 -> 256, launch counts exact, one
@@ -64,7 +80,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   8 and 64 slots; and the kernels of one batched step at 8
                   and 64 slots (the W8A8 pair, decode attention per-row
                   positions; K3 at B > 1 and the pair it replaced) beside
-                  one library call and the bound; the Q4K model the same
+                  one library call and the bound; 8 and 64 slots also with
+                  the eager norms, SwiGLU and q80_act_quant rebound, in
+                  turns in one call; the Q4K model the same
                   way: the same joins, BATCH_NEW4 tokens each, launch
                   counts exact, one batched step's logits within
                   Q4K_BATCH_TOL of each slot's single stream (two faulty
@@ -162,6 +180,12 @@ TRAIN_STEPS, TRAIN_EVAL_AT = 12, 6
 FQ_OPS_PER_VALUE = 8
 # of q4k_act_quant: the same without the dequant, and the group sum
 AQ_OPS_PER_VALUE = 7
+# of rms_norm_q80 with its Q80 epilogue: the residual add, the square and
+# its sum, two multiplies, the group's max, the divide, floor and add
+NORM_OPS_PER_VALUE = 9
+# of swiglu_q80: the negation, exp, add and divide of silu, the product,
+# the group's max, the divide, floor and add
+SWIGLU_OPS_PER_VALUE = 9
 # f32 operations of q4k_matmul_w4a4's combine per (slot, row, group):
 # sa * s, then three multiply-adds (sa s P, c m, ba s Q)
 W4_COMBINE_OPS = 7
@@ -185,6 +209,45 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def ulps(a, b):
+    """The distance in units in the last place between two tensors of one
+    float dtype (f32 or bf16), element by element."""
+    import torch
+    it, mag = ((torch.int16, 0x7FFF) if a.dtype == torch.bfloat16
+               else (torch.int32, 0x7FFFFFFF))
+    mono = lambda t: (lambda i: torch.where(i < 0, -(i & mag), i))(
+        t.contiguous().view(it).long())
+    return (mono(a) - mono(b)).abs()
+
+
+def rms_norm_kernel_order(torch, norm_quant, h, w, eps):
+    """rms_norm of h (B, E) with the sum of squares taken in rms_norm_q80's
+    order (ops/norm_quant.plan: T threads of P chunks of 4 values; a
+    thread's squares in order, a warp's xor butterfly, the warps' sums in
+    order), each step an f32 PyTorch op, and the f32 factor it gives.
+    -> (hn in h's dtype, factor (B, 1))."""
+    B, E = h.shape
+    T, P = norm_quant.plan(E)
+    hf = h.float()
+    sq = torch.zeros(B, P * T * 4, device=h.device)
+    sq[:, :E] = hf * hf
+    sq = sq.view(B, P, T, 4)
+    s = torch.zeros(B, T, device=h.device)
+    for p in range(P):
+        for j in range(4):
+            s = s + sq[:, p, :, j]
+    s = s.view(B, T // 32, 32)
+    lane = torch.arange(32, device=h.device)
+    for off in (16, 8, 4, 2, 1):
+        s = s + s[:, :, lane ^ off]
+    tot = torch.zeros(B, device=h.device)
+    for k in range(T // 32):
+        tot = tot + s[:, k, 0]
+    inv_e = torch.ones((), device=h.device) / E
+    r = torch.rsqrt(tot * inv_e + eps)[:, None]
+    return ((hf * r) * w.float()).to(h.dtype), r
 
 
 def bound(n_bytes: float, n_ops: float, ops_per_s: float):
@@ -666,7 +729,7 @@ def bench_decode(torch):
         saved = decode_attn.MIN_CHUNK
         for min_chunk in (16, 32, 64):
             decode_attn.MIN_CHUNK = min_chunk
-            chunk, n_split = decode_attn.choose_splits(B, KV, T)
+            chunk, n_split = decode_attn.choose_splits(KV, T)
             ms = timer(kernel, reps=50)
             line.append(f"MIN_CHUNK {min_chunk} (chunk {chunk}, {n_split} "
                         f"splits) {ms:.4f} ms = {ms / lib_ms:.2f} x SDPA")
@@ -909,7 +972,8 @@ def bench_q80(torch, clocks=False, batched=False, sweep=False):
             _build.check(lib.q80_matvec_fq(
                 x.data_ptr(), 1, wl.q.data_ptr(), wl.scales.data_ptr(),
                 y.data_ptr(), 1, None, None, wl.in_dim, wl.out_dim, GS, *plan,
-                st()), "q80_matvec_fq")
+                qmatmul.w8a8_ranges(wl.out_dim, wl.in_dim, GS, sms), st()),
+                "q80_matvec_fq")
 
     timer = Timer(torch)
     for name in ("wqkv", "wo", "w13", "w2", "head", "step"):
@@ -1123,7 +1187,7 @@ def bench_q80_clocks(torch, calls):
     %globaltimer (and in cycles of clock64)."""
     import ctypes
     import statistics
-    from nano_tpu_torch.ops import _build
+    from nano_tpu_torch.ops import _build, qmatmul
     work = os.path.join(ROOT, "build", "q80_clocks")
     os.makedirs(work, exist_ok=True)
     so = os.path.join(work, "libq80_clocks.so")
@@ -1144,7 +1208,8 @@ def bench_q80_clocks(torch, calls):
             assert lib.q80_matvec_fq(
                 x.data_ptr(), 1, wl.q.data_ptr(), wl.scales.data_ptr(),
                 y.data_ptr(), 1, None, None, wl.in_dim, wl.out_dim, GS, *plan,
-                st) == 0
+                qmatmul.w8a8_ranges(wl.out_dim, wl.in_dim, GS,
+                                    _build.sm_count(x.device)), st) == 0
             torch.cuda.synchronize()
         nb = plan[0]
         buf = (ctypes.c_ulonglong * (10 * nb))()
@@ -1197,7 +1262,7 @@ def main() -> int:
     from nano_tpu_torch.infer import engine
     from nano_tpu_torch.models import gpt
     from nano_tpu_torch.ops import (_build, decode_attn, flash_attn, int8_mma,
-                                    q4k, qmatmul, sampling)
+                                    norm_quant, q4k, qmatmul, sampling)
     from nano_tpu_torch.train.data import DataLoader
     from nano_tpu_torch.train.trainer import Trainer
     from nano_tpu_torch.tokenizer.bpe import QWEN_STOP_TOKENS
@@ -1273,6 +1338,12 @@ def main() -> int:
           "nano_tpu_torch/csrc/q80_matmul.cu")
     entry("q80_matvec_fq", "nano_tpu/ops/qmatmul.py:250 + :268",
           "nano_tpu_torch/csrc/q80_matmul.cu")
+    # q80_act_quant redesigned as the epilogue of the kernels that make its
+    # input: the residual add + RMSNorm and SwiGLU beside K1
+    entry("rms_norm_q80", "nano_tpu/ops/qmatmul.py:250 + "
+          "nano_tpu/models/gpt.py:96", "nano_tpu_torch/csrc/norm_quant.cu")
+    entry("swiglu_q80", "nano_tpu/ops/qmatmul.py:250 + "
+          "nano_tpu/models/gpt.py:454", "nano_tpu_torch/csrc/norm_quant.cu")
     entry("decode_attention", "nano_tpu/ops/decode_attn.py:45",
           "nano_tpu_torch/csrc/decode_attn.cu")
     entry("q4k_fake_quant", "nano_tpu/ops/q4k.py:644",
@@ -1306,7 +1377,11 @@ def main() -> int:
 
     # K1 at B > 1 (the int8 tensor-core kernel) at one slot, 8 and 64 slots
     # (a batched step; 64: also a 64-token prefill) and 65 (two slot tiles),
-    # f32 out; two runs the same bits
+    # f32 out; two runs the same bits; every row torch.equal to the same row
+    # through q80_matvec_fq (the two kernels add a row's group terms in one
+    # order, csrc/q80_matmul.cu:RangeSum: a batched step gives the single
+    # stream's bits)
+    n_rows_equal = 0
     for B in (1, 8, 64, 65):
         for name, w in shapes:
             w0 = layer_weights(w)[0]
@@ -1333,7 +1408,17 @@ def main() -> int:
             if not torch.equal(y, again):
                 raise AssertionError(f"q80_matmul_w8a8 {name} B={B}: two runs "
                                      f"differ")
+            for i in range(B if B > 1 else 0):
+                if not torch.equal(y[i], qmatmul.q80_matvec_fq(
+                        x[i:i + 1], w0, torch.float32)[0]):
+                    raise AssertionError(f"q80_matmul_w8a8 {name} B={B}: row "
+                                         f"{i} differs from q80_matvec_fq's")
+                n_rows_equal += 1
             note_err("q80_matmul_w8a8", err)
+
+    log(f"[kernel] q80_matmul_w8a8 at B = 8, 64, 65: all {n_rows_equal} rows "
+        f"torch.equal to q80_matvec_fq's of the same row (one order of "
+        f"summation at every batch size; cluster = w8a8_ranges(G))")
 
     # K1 at B = 1 with the activation quantization folded in: the five
     # products and two small shapes (one group, gs 512), f32 and bf16 rows
@@ -1387,6 +1472,215 @@ def main() -> int:
             f"{name} {qmatmul.matvec_plan(w0.out_dim, w0.in_dim, w0.group_size, sms)}"
             for name, w0 in mv_cases[:5]))
 
+    # the residual add + RMSNorm and SwiGLU kernels with the Q80
+    # quantization as their epilogue (csrc/norm_quant.cu), against the eager
+    # ops on the card at the Qwen3-0.6B widths (E = 1024, 2F = 6144), B = 1,
+    # 8, 64 and 65, bf16 and f32, with and without the residual, group sizes
+    # 0 (no quantization), 256 and 512: h and the SwiGLU output torch.equal
+    # to the eager ops; hn torch.equal to the eager ops with the sum of
+    # squares taken in the kernel's order (rms_norm_kernel_order), and
+    # against eager rms_norm within one bf16 ulp, or 2 k + 2 f32 ulps where
+    # the two f32 factors rsqrt(mean + eps) are k apart (an f32 value's ulp
+    # may be half the factor's, relatively, and each of the two products'
+    # roundings adds one); xq and sa
+    # torch.equal to q80_act_quant of the kernel's own output, with and
+    # without that output written; two runs bit-equal; an all-zero row
+    # scale 0 and values 0; a row the same bits at B = 1 and inside B = 64
+    E_, F2 = cfg.n_embd, 2 * cfg.n_hidden
+    eps = cfg.norm_eps
+    nw = torch.from_numpy(1 + 0.1 * rng.standard_normal(E_).astype(np.float32)
+                          ).to(dev)
+    worst_ulp = {torch.bfloat16: 0, torch.float32: 0}
+    eager_ulp = {torch.bfloat16: 0, torch.float32: 0}
+    factor_ulp = 0
+    n_nq = 0
+
+    def same_act(p, q):
+        return torch.equal(p.xq, q.xq) and torch.equal(p.sa, q.sa)
+
+    for B in (1, 8, 64, 65):
+        for dt in (torch.bfloat16, torch.float32):
+            x = (torch.randn(B, E_, device=dev, generator=gen) * 2).to(dt)
+            a = torch.randn(B, E_, device=dev, generator=gen).to(dt)
+            h13 = (torch.randn(B, F2, device=dev, generator=gen) * 2).to(dt)
+            if B > 2:
+                x[2], a[2], h13[2] = 0, 0, 0
+            for res in (None, a):
+                want_h = x if res is None else x + res
+                want_hn = norm_quant.rms_norm(want_h, nw, eps)
+                ordered, r_k = rms_norm_kernel_order(torch, norm_quant, want_h,
+                                                     nw, eps)
+                hf = want_h.float()
+                r_e = torch.rsqrt(torch.mean(hf * hf, dim=-1, keepdim=True)
+                                  + eps)
+                k_rows = ulps(r_k, r_e)
+                factor_ulp = max(factor_ulp, int(k_rows.max()))
+                limit = (torch.ones_like(k_rows) if dt == torch.bfloat16
+                         else torch.where(k_rows > 0, 2 * k_rows + 2, 0))
+                if B > 1:   # eager's own rows alone against inside B rows
+                    eager_ulp[dt] = max(eager_ulp[dt], int(ulps(
+                        norm_quant.rms_norm(want_h[-1:], nw, eps),
+                        want_hn[-1:]).max()))
+                for gs in (0, 256, 512):
+                    h, hn, act = norm_quant.rms_norm_q80(x, nw, eps, res, gs)
+                    h2, hn2, act2 = norm_quant.rms_norm_q80(x, nw, eps, res, gs)
+                    _, none, act3 = norm_quant.rms_norm_q80(x, nw, eps, res, gs,
+                                                            want_hn=False)
+                    u_rows = ulps(hn, want_hn).amax(dim=-1, keepdim=True)
+                    u = int(u_rows.max())
+                    worst_ulp[dt] = max(worst_ulp[dt], u)
+                    note_err("rms_norm_q80",
+                             (hn.float() - want_hn.float()).abs().max().item())
+                    ok = (torch.equal(hn, ordered)
+                          and bool((u_rows <= limit).all())
+                          and torch.equal(hn2, hn) and none is None
+                          and (h is None if res is None else
+                               torch.equal(h, want_h) and torch.equal(h2, h)))
+                    if gs:
+                        kq, ks = qmatmul.act_quant_q80(hn, gs)
+                        ok = ok and (torch.equal(act.xq, kq)
+                                     and torch.equal(act.sa, ks)
+                                     and same_act(act2, act)
+                                     and same_act(act3, act))
+                        if B > 2:
+                            ok = ok and not act.sa[2].any() and not act.xq[2].any()
+                    if not ok:
+                        raise AssertionError(f"rms_norm_q80 B={B} {dt} gs={gs} "
+                                             f"residual {res is not None}: "
+                                             f"differs from the eager ops "
+                                             f"({u} ulp)")
+                    n_nq += 1
+            want_y = F.silu(h13[:, :F2 // 2]) * h13[:, F2 // 2:]
+            for gs in (0, 256, 512):
+                y, act = norm_quant.swiglu_q80(h13, gs)
+                y2, act2 = norm_quant.swiglu_q80(h13, gs)
+                none, act3 = norm_quant.swiglu_q80(h13, gs, want_hidden=False)
+                ok = torch.equal(y, want_y) and torch.equal(y2, y) and none is None
+                if gs:
+                    kq, ks = qmatmul.act_quant_q80(y, gs)
+                    ok = ok and (torch.equal(act.xq, kq)
+                                 and torch.equal(act.sa, ks)
+                                 and same_act(act2, act) and same_act(act3, act))
+                    if B > 2:
+                        ok = ok and not act.sa[2].any() and not act.xq[2].any()
+                if not ok:
+                    raise AssertionError(f"swiglu_q80 B={B} {dt} gs={gs}: "
+                                         f"differs from the eager ops")
+                note_err("swiglu_q80",
+                         (y.float() - want_y.float()).abs().max().item())
+                n_nq += 1
+            if B == 64:
+                h, hn, act = norm_quant.rms_norm_q80(x, nw, eps, a, GS)
+                y, yact = norm_quant.swiglu_q80(h13, GS)
+                for r in (0, 2, 37, 63):
+                    h1, hn1, act1 = norm_quant.rms_norm_q80(
+                        x[r:r + 1], nw, eps, a[r:r + 1], GS)
+                    y1, yact1 = norm_quant.swiglu_q80(h13[r:r + 1], GS)
+                    if not (torch.equal(h1[0], h[r]) and torch.equal(hn1[0], hn[r])
+                            and torch.equal(act1.xq[0], act.xq[r])
+                            and torch.equal(act1.sa[0], act.sa[r])
+                            and torch.equal(y1[0], y[r])
+                            and torch.equal(yact1.xq[0], yact.xq[r])
+                            and torch.equal(yact1.sa[0], yact.sa[r])):
+                        raise AssertionError(f"norm_quant {dt}: row {r} alone "
+                                             f"differs from row {r} of 64")
+    log(f"[kernel] rms_norm_q80 / swiglu_q80 at E={E_}, 2F={F2}, B = 1, 8, "
+        f"64, 65, bf16 and f32, gs 0/256/512, with and without the residual "
+        f"({n_nq} cases): h and the SwiGLU output torch.equal to the eager "
+        f"ops; hn torch.equal to the eager ops summed in the kernel's order, "
+        f"and at most {worst_ulp[torch.bfloat16]} bf16 ulp and "
+        f"{worst_ulp[torch.float32]} f32 ulp from eager rms_norm (limits 1 "
+        f"and 2 k + 2, the f32 factors up to k = {factor_ulp} ulp apart; "
+        f"eager rms_norm's own last row alone against inside B rows: "
+        f"{eager_ulp[torch.bfloat16]} bf16 ulp, "
+        f"{eager_ulp[torch.float32]} f32 ulp); xq and sa torch.equal to "
+        f"q80_act_quant of the kernel's own output; two runs bit-equal; the "
+        f"all-zero row scale 0 and values 0; rows 0, 2, 37, 63 the same bits "
+        f"at B = 1 and inside B = 64")
+
+    # one step's launches of the two kernels (28 layers: 57 norms, 28
+    # SwiGLUs), replayed from a graph, at B = 1 (hn only: q80_matvec_fq
+    # quantizes a single row itself), 8 and 64 (with the Q80 outputs at GS,
+    # as a batched step or a 64-token prefill asks for them), beside the
+    # eager chain they replace (the norm's ops, the residual add, F.silu *
+    # h3, and q80_act_quant where the product takes int8), their plain
+    # versions, F.rms_norm as the one library call for the norm, and the
+    # bound (bytes: each input read once, each output written once)
+    attn_w = [blocks["attn_norm"][i] for i in range(L)]
+    ffn_w = [blocks["ffn_norm"][i] for i in range(L)]
+    fin_w = params["norm"]
+    nq_rows = {}
+    for B in (1, 8, 64):
+        gs = GS if B > 1 else 0
+        xs = [torch.randn(B, E_, device=dev, generator=gen).to(torch.bfloat16)
+              for _ in range(L + 1)]
+        ats = [torch.randn(B, E_, device=dev, generator=gen).to(torch.bfloat16)
+               for _ in range(L)]
+        hs = [torch.randn(B, F2, device=dev, generator=gen).to(torch.bfloat16)
+              for _ in range(L)]
+
+        def run_norms(rms=norm_quant.rms_norm_q80):
+            for i in range(L):
+                rms(xs[i], attn_w[i], eps, None, gs, not gs)
+                rms(xs[i], ffn_w[i], eps, ats[i], gs, not gs)
+            rms(xs[L], fin_w, eps, None, gs, not gs)
+
+        def run_swiglus(sw=norm_quant.swiglu_q80):
+            for i in range(L):
+                sw(hs[i], gs, not gs)
+
+        def run_eager():
+            quant = ((lambda t: qmatmul.act_quant_q80(t, gs)) if gs
+                     else (lambda t: t))
+            for i in range(L):
+                quant(norm_quant.rms_norm(xs[i], attn_w[i], eps))
+                quant(norm_quant.rms_norm(xs[i] + ats[i], ffn_w[i], eps))
+                quant(F.silu(hs[i][:, :F2 // 2]) * hs[i][:, F2 // 2:])
+            quant(norm_quant.rms_norm(xs[L], fin_w, eps))
+
+        def run_library():
+            for i in range(L):
+                F.rms_norm(xs[i], (E_,), attn_w[i], eps)
+                F.rms_norm(xs[i] + ats[i], (E_,), ffn_w[i], eps)
+            F.rms_norm(xs[L], (E_,), fin_w, eps)
+
+        out_b = (lambda n: B * n + B * (n // gs) * 4) if gs else (
+            lambda n: 2 * B * n)
+        norm_bytes = ((2 * L + 1) * (2 * B * E_ + 4 * E_ + out_b(E_))
+                      + L * (2 * B * E_ + 2 * B * E_))    # the residual, h
+        sw_bytes = L * (2 * B * F2 + out_b(F2 // 2))
+        t_norm, t_sw = timer(run_norms), timer(run_swiglus)
+        t_fused = timer(lambda: (run_norms(), run_swiglus()))
+        t_eager = timer(run_eager)
+        t_norm_plain = timer(lambda: run_norms(norm_quant.rms_norm_q80_plain))
+        t_sw_plain = timer(lambda: run_swiglus(norm_quant.swiglu_q80_plain))
+        t_lib = timer(run_library) if hasattr(F, "rms_norm") else None
+        b_norm = bound(norm_bytes, NORM_OPS_PER_VALUE * (2 * L + 1) * B * E_,
+                       F32_OPS_PER_S)
+        b_sw = bound(sw_bytes, SWIGLU_OPS_PER_VALUE * L * B * F2 // 2,
+                     F32_OPS_PER_S)
+        nq_rows[B] = (t_norm, t_sw, t_norm_plain, t_sw_plain, t_lib, b_norm,
+                      b_sw)
+        log(f"[time] a step's {2 * L + 1} rms_norm_q80 + {L} swiglu_q80 "
+            f"launches at B={B} ({'Q80 outputs at gs ' + str(gs) if gs else 'hn only'}"
+            f"): {t_fused:.4f} ms ({t_norm:.4f} + {t_sw:.4f}) against the "
+            f"eager chain they replace {t_eager:.4f} ms (norm ops, residual "
+            f"add, F.silu * h3" + (", q80_act_quant" if gs else "") +
+            f"); plain {t_norm_plain:.4f} + {t_sw_plain:.4f} ms; "
+            f"F.rms_norm x {2 * L + 1} "
+            + ("not in this PyTorch" if t_lib is None else f"{t_lib:.4f} ms")
+            + f"; bound {b_norm[0]:.4f} + {b_sw[0]:.4f} ms (bytes, "
+            f"{norm_bytes / 1e6:.2f} + {sw_bytes / 1e6:.2f} MB); {card}")
+        del xs, ats, hs
+    # the JSON rows: the 64-row step (a 64-slot batched step or a 64-token
+    # prefill, both with the Q80 outputs)
+    t_norm, t_sw, t_norm_plain, t_sw_plain, t_lib, b_norm, b_sw = nq_rows[64]
+    for name, ms_, plain_, lib_, b_ in (
+            ("rms_norm_q80", t_norm, t_norm_plain, t_lib, b_norm),
+            ("swiglu_q80", t_sw, t_sw_plain, None, b_sw)):
+        kernels[name].update(ms=ms_, plain_ms=plain_, library_ms=lib_,
+                             bound_ms=b_[0], bound_by=b_[1])
+
     # rows form at the tiny fixture's shapes (its only user) and at one
     # main-path width with group size 32
     rng = np.random.default_rng(SEED)
@@ -1437,7 +1731,7 @@ def main() -> int:
     # per KV head it is built for (rep 3 runs in the instance for 4, rep 7
     # in the one for 8), f32 and bf16 q, the three cache types; at batch 1 (positions split
     # over the grid) pos 0, T - 1, a pos inside a split and two that leave
-    # whole splits empty; at batch 64 (one block per head) a pos per row.
+    # whole splits empty; at batch 64 a pos per row.
     # Two calls in a row on one workspace must give the same bits: the
     # ticket counters are back at zero after each call.
     def decode_case(B, T, n_kv, rep, Dh, cdt, qdt):
@@ -1459,7 +1753,7 @@ def main() -> int:
             for qdt in (torch.float32, torch.bfloat16):
                 for cdt in (torch.bfloat16, torch.int8, torch.float32):
                     T = 512
-                    chunk, n_split = decode_attn.choose_splits(1, 2, T)
+                    chunk, n_split = decode_attn.choose_splits(2, T)
                     assert n_split >= 4
                     cases = [(decode_case(1, T, 2, rep, Dh, cdt, qdt),
                               torch.tensor([p], dtype=torch.int32, device=dev))
@@ -1489,6 +1783,30 @@ def main() -> int:
         f"inside a split, whole splits empty; B=64 T=128 a pos per row): "
         f"worst max_abs_err {worst_dec:.3e} (tol 2e-5 + 2e-5*|ref|), two "
         f"calls on one workspace bit-equal in all")
+
+    # the split comes from (KV, T) alone: at the Qwen3-0.6B heads, every row
+    # of a batch of 8 or 64 torch.equal to the same row alone (a batched
+    # step gives the single stream's bits)
+    n_same = 0
+    for T in (128, 1024):
+        for B in (8, 64):
+            args = decode_case(B, T, KV, H // KV, D, torch.bfloat16,
+                               torch.bfloat16)
+            pos_b = torch.randint(0, T, (B,), dtype=torch.int32, device=dev,
+                                  generator=gen)
+            out = decode_attn.decode_attention(*args, pos_b, KV, H // KV)
+            for i in range(B):
+                one = decode_attn.decode_attention(
+                    *(a[i:i + 1] if a is not None else None for a in args),
+                    pos_b[i:i + 1], KV, H // KV)
+                if not torch.equal(out[i], one[0]):
+                    raise AssertionError(f"decode_attention T={T} B={B}: row "
+                                         f"{i} differs from the row alone")
+                n_same += 1
+    log(f"[kernel] decode_attention at KV={KV}, rep={H // KV}, D={D}, T = 128 "
+        f"and 1024, B = 8 and 64: all {n_same} rows torch.equal to the same "
+        f"row alone (splits {[decode_attn.choose_splits(KV, T) for T in (128, 1024)]} "
+        f"at every B)")
 
     # Q4K activation fake-quant: bit-equal to its plain version (the same
     # IEEE operations), rows holding an all-zero group and constant groups
@@ -1844,7 +2162,8 @@ def main() -> int:
             _build.check(lib.q80_matvec_fq(
                 x.data_ptr(), 1, wl.q.data_ptr(), wl.scales.data_ptr(),
                 y.data_ptr(), 1, None, None, wl.in_dim, wl.out_dim, GS, *plan,
-                stream()), "q80_matvec_fq")
+                qmatmul.w8a8_ranges(wl.out_dim, wl.in_dim, GS, sms), stream()),
+                "q80_matvec_fq")
 
     def run_matvec_plain():
         for _, wl, x, *_ in step_calls:
@@ -1902,12 +2221,12 @@ def main() -> int:
     assert len(pre_calls) == 4 * L
     B = PROMPT_LEN
 
-    def run_pre_act_quant():
-        for wl, x, *_ in pre_calls:
+    def run_pre_act_quant(calls=pre_calls):
+        for wl, x, *_ in calls:
             qmatmul.act_quant_q80(x, GS)
 
-    def run_pre_act_quant_plain():
-        for wl, x, *_ in pre_calls:
+    def run_pre_act_quant_plain(calls=pre_calls):
+        for wl, x, *_ in calls:
             qmatmul.act_quant_q80_plain(x, GS)
 
     def run_pre_w8a8():
@@ -1918,14 +2237,20 @@ def main() -> int:
         for wl, _, xq, sa in pre_calls:
             qmatmul.q80_w8a8_plain(xq, sa, wl, torch.bfloat16)
 
+    # q80_act_quant's main path since the norms and SwiGLU quantize their
+    # output: wo's 28 inputs (the attention output); all 112, the path
+    # before, beside it
+    wo_calls = pre_calls[L:2 * L]
+    assert all(wl.in_dim == H * D for wl, *_ in wo_calls)
     k = kernels["q80_act_quant"]
-    k["ms"] = timer(run_pre_act_quant)
-    k["plain_ms"] = timer(run_pre_act_quant_plain)
+    aq112_ms = timer(run_pre_act_quant)
+    k["ms"] = timer(lambda: run_pre_act_quant(wo_calls))
+    k["plain_ms"] = timer(lambda: run_pre_act_quant_plain(wo_calls))
     k["library_ms"] = None
     set_bound("q80_act_quant",
               sum(B * (wl.in_dim * 2 + wl.in_dim + wl.in_dim // GS * 4)
-                  for wl, *_ in pre_calls),
-              sum(3 * B * wl.in_dim for wl, *_ in pre_calls), F32_OPS_PER_S)
+                  for wl, *_ in wo_calls),
+              sum(3 * B * wl.in_dim for wl, *_ in wo_calls), F32_OPS_PER_S)
     k = kernels["q80_matmul_w8a8"]
     k["ms"] = timer(run_pre_w8a8)
     k["plain_ms"] = timer(run_pre_w8a8_plain)
@@ -1939,8 +2264,12 @@ def main() -> int:
     set_bound("q80_matmul_w8a8", pre_bytes,
               sum(2 * B * wl.q.numel() for wl, *_ in pre_calls), INT8_OPS_PER_S)
     log(f"[time] a {B}-token Q80 prefill's {len(pre_calls)} layer products "
-        f"(B={B}): q80_act_quant {kernels['q80_act_quant']['ms']:.4f} ms "
-        f"(plain {kernels['q80_act_quant']['plain_ms']:.4f}), "
+        f"(B={B}): q80_act_quant on wo's {len(wo_calls)} inputs "
+        f"{kernels['q80_act_quant']['ms']:.4f} ms (plain "
+        f"{kernels['q80_act_quant']['plain_ms']:.4f}, bound "
+        f"{kernels['q80_act_quant']['bound_ms']:.4f}; on all "
+        f"{len(pre_calls)}, the path before the norms and SwiGLU quantized "
+        f"their output, {aq112_ms:.4f} ms), "
         f"q80_matmul_w8a8 {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}; bound "
         f"{k['bound_ms']:.4f} ms, {k['bound_by']}, {pre_bytes / 1e6:.1f} MB), "
         f"bf16 torch.matmul on weights dequantized ahead "
@@ -2152,7 +2481,7 @@ def main() -> int:
 
     fed_ms = timer(run_attn_fed)
     fed_lib_ms = timer(run_attn_library)
-    chunk, n_split = decode_attn.choose_splits(1, KV, T_main)
+    chunk, n_split = decode_attn.choose_splits(KV, T_main)
     log(f"[time] the same step as the model feeds it (bf16 q, result cast to "
         f"bf16; grid {KV} x {n_split} blocks of {chunk} rows): kernel + cast "
         f"{fed_ms:.4f} ms, SDPA(enable_gqa) {fed_lib_ms:.4f} ms, ratio "
@@ -2210,6 +2539,8 @@ def main() -> int:
         q80_matmul_w8a8=(qmatmul.q80_w8a8, "launches"),
         q80_matmul_rows=(qmatmul.q80_matmul_rows, "launches"),
         q80_matvec_fq=(qmatmul.q80_matvec_fq, "launches"),
+        rms_norm_q80=(norm_quant.rms_norm_q80, "launches"),
+        swiglu_q80=(norm_quant.swiglu_q80, "launches"),
         decode_attention=(decode_attn.decode_attention, "launches"),
         q4k_fake_quant=(q4k.fake_quant_act, "launches"),
         q4k_matmul=(q4k.q4k_matmul_f32, "launches"),
@@ -2300,6 +2631,8 @@ def main() -> int:
                     ("q4k_act_quant_kernel", "q4k_act_quant"),
                     ("act_quant_kernel", "q80_act_quant"),   # after q4k's
                     ("q80_matvec_fq_kernel", "q80_matvec_fq"),
+                    ("rms_norm_q80_kernel", "rms_norm_q80"),
+                    ("swiglu_q80_kernel", "swiglu_q80"),
                     ("decode_attn_kernel", "decode_attention"),
                     ("q4k_matvec_fq_kernel", "q4k_matvec_fq"),
                     ("q4k_mat", "q4k_matmul"),      # matvec (B=1), matmul
@@ -2362,7 +2695,10 @@ def main() -> int:
         than per_step's count times the steps (0 where it has none), and
         equal to it in one of at most three profiles (the trace loses a
         record now and then: each short profile is logged with what it
-        lost, and the window profiled again)."""
+        lost, and the window profiled again).  -> {"busy": card busy ms,
+        "kernels": kernels, "other": busy ms of the kernels profile_keys
+        does not name, each a step}, or None where the profiler recorded
+        no device time."""
         per = n * steps_per_call
         for attempt in range(1, 4):
             groups, seen, n_kernels, wall_ms = profile_steps(
@@ -2393,7 +2729,8 @@ def main() -> int:
             f"{1 - busy_ms / wall_bare_ms:.3f} (off), {n_kernels / per:.0f} "
             f"kernels per step; busy ms per step by kernel: "
             + ", ".join(f"{k} {v / per:.3f}" for k, v in groups.items()))
-        return busy_ms
+        return dict(busy=busy_ms, kernels=n_kernels / per,
+                    other=groups["other"] / per)
 
     def drive(label, p, expect_for):
         """3 requests; generate_on_device(prompt, N_TOKENS) twice (the
@@ -2513,18 +2850,22 @@ def main() -> int:
     def expect80(steps):
         """Launches of a Q80 prefill (64 rows) and `steps` decode steps."""
         e = {n: 0 for n in names}
-        e.update(q80_act_quant=112, q80_matmul_w8a8=112,
-                 q80_matvec_fq=113 * steps + 1, decode_attention=28 * steps)
+        e.update(q80_act_quant=28, q80_matmul_w8a8=112,
+                 q80_matvec_fq=113 * steps + 1, decode_attention=28 * steps,
+                 rms_norm_q80=57 * (1 + steps), swiglu_q80=28 * (1 + steps))
         return e
 
     log("[full Q80] expected launches: 113 Q80 matmuls = 4 x 28 + head per "
-        "forward; the prefill's 112 layer products (64 rows) as "
-        "q80_act_quant + q80_matmul_w8a8, its head (the last row only) and "
-        "every decode step's 113 as q80_matvec_fq (act quant folded in); 28 "
-        "attentions per decode step")
+        "forward; the prefill's 112 layer products (64 rows) through "
+        "q80_matmul_w8a8, 84 of them on int8 rows that rms_norm_q80 (wqkv, "
+        "w13) and swiglu_q80 (w2) wrote, wo's 28 after q80_act_quant; its "
+        "head (the last row only) and every decode step's 113 as "
+        "q80_matvec_fq (act quant folded in); 57 rms_norm_q80 (2 a layer + "
+        "the final norm) and 28 swiglu_q80 per forward; 28 attentions per "
+        "decode step")
     _, out80, counts80 = drive("Q80", params, expect80)
     for name in ("q80_act_quant", "q80_matmul_w8a8", "q80_matvec_fq",
-                 "decode_attention"):
+                 "decode_attention", "rms_norm_q80", "swiglu_q80"):
         kernels[name]["launches"] = counts80[name]
         if counts80[name] == 0:
             raise AssertionError(f"main path launched no {name}")
@@ -2534,15 +2875,17 @@ def main() -> int:
         e = {n: 0 for n in names}
         e.update(q4k_act_quant=112, q4k_matmul_w4a4=112,
                  q4k_fake_quant=1 + steps, q4k_matvec_fq=112 * steps,
-                 q80_matvec_fq=1 + steps, decode_attention=28 * steps)
+                 q80_matvec_fq=1 + steps, decode_attention=28 * steps,
+                 rms_norm_q80=57 * (1 + steps), swiglu_q80=28 * (1 + steps))
         return e
 
     log("[full Q4K] expected launches: 112 Q4K matmuls = 4 x 28 per forward, "
         "as q4k_matvec_fq (fake-quant folded in) in a decode step and as "
         "q4k_act_quant + q4k_matmul_w4a4 (int8 tensor cores) in the prefill; "
         "one fake-quant before the requantized Q80 head and one "
-        "q80_matvec_fq head (one row) per forward, 28 attentions per decode "
-        "step")
+        "q80_matvec_fq head (one row) per forward; 57 rms_norm_q80 and 28 "
+        "swiglu_q80 per forward, with no Q80 output; 28 attentions per "
+        "decode step")
     _, out4, counts4 = drive("Q4K", params4, expect4)
     for name in ("q4k_act_quant", "q4k_matmul_w4a4", "q4k_fake_quant",
                  "q4k_matvec_fq"):
@@ -2600,6 +2943,105 @@ def main() -> int:
             yield
         finally:
             gpt.q4k_matmul, gpt.fake_quant_act = saved
+
+    # The eager ops that rms_norm_q80 and swiglu_q80 replaced, rebound
+    # into the model here for a measurement, not a switch of the package:
+    # the norm's ops (and the residual add), F.silu * h3, and q80_act_quant
+    # where the product takes int8 rows (the path before them)
+    def eager_act(y, gs):
+        if not gs:
+            return None
+        xq, sa = qmatmul.act_quant_q80(y.reshape(-1, y.shape[-1]), gs)
+        return qmatmul.Q80Act(xq, sa, y.shape)
+
+    def eager_rms_norm_q80(x, weight, eps_, residual=None, group_size=0,
+                           want_hn=True):
+        h = x if residual is None else x + residual
+        hn = norm_quant.rms_norm(h, weight, eps_)
+        return None if residual is None else h, hn, eager_act(hn, group_size)
+
+    def eager_swiglu_q80(h13_, group_size=0, want_hidden=True):
+        Fh = h13_.shape[-1] // 2
+        y = F.silu(h13_[..., :Fh]) * h13_[..., Fh:]
+        return y, eager_act(y, group_size)
+
+    @contextlib.contextmanager
+    def norm_route(route):
+        """route "eager": gpt's fused norm and SwiGLU rebound to the eager
+        ops; "fused": as the package has them."""
+        saved = gpt.rms_norm_q80, gpt.swiglu_q80
+        if route == "eager":
+            gpt.rms_norm_q80, gpt.swiglu_q80 = (eager_rms_norm_q80,
+                                                eager_swiglu_q80)
+        try:
+            yield
+        finally:
+            gpt.rms_norm_q80, gpt.swiglu_q80 = saved
+
+    def eager_counts(step):
+        """A step's launch counts with the eager route: no norm or SwiGLU
+        kernel, and q80_act_quant before each product they fed int8 rows
+        (85 a step where any was)."""
+        e = dict(step, rms_norm_q80=0, swiglu_q80=0)
+        if step.get("q80_act_quant", 0) >= 28:
+            e["q80_act_quant"] = step["q80_act_quant"] + 85
+        return e
+
+    def timed_ms(fn):
+        torch.cuda.synchronize()
+        t0_ = time.time()
+        fn()
+        torch.cuda.synchronize()
+        return (time.time() - t0_) * 1e3
+
+    def decode_routes(label, p, expect_for):
+        """The B = 1 decode step (the engine's graph of one step) and TTFT
+        with the fused norms and SwiGLU and with the eager ops, in turns
+        eager, fused, fused, eager, each on a fresh context (its decode
+        graph captured under its route); the better of two each."""
+        fused_step = {n: expect_for(1)[n] - expect_for(0)[n] for n in names}
+        res = {"eager": [], "fused": []}
+        for route in ("eager", "fused", "fused", "eager"):
+            with norm_route(route):
+                ctx = engine.LLMContext(
+                    cfg=cfg, params=p, tokenizer=tok,
+                    max_seq_len=cfg.block_size, device=dev,
+                    dtype=torch.bfloat16, sampler=greedy,
+                    stop_tokens=QWEN_STOP_TOKENS, arch="qwen3")
+                engine.generate_on_device(ctx, prompts[0][:8], 4)  # capture
+                ttft = min(timed_ms(lambda: engine.generate_on_device(
+                    ctx, prompt, 1)) for _ in range(3))
+                outr = []
+                t_all = timed_ms(lambda: outr.append(
+                    engine.generate_on_device(ctx, prompt, N_TOKENS)))
+                step_ms = (t_all - ttft) / (N_TOKENS - 1)
+                dec = ctx.decoder()
+                with ctx.on_stream():
+                    dec.claim()
+                    dec.prefill(prompt)
+                    prof = profile_line(
+                        f"{label} {route}", "decode graph, 1 step a replay",
+                        dec._graph().run, 32, 1, step_ms,
+                        fused_step if route == "fused" else
+                        eager_counts(fused_step))
+                res[route].append((ttft, step_ms, prof, outr[0]))
+                del ctx, dec
+        best = {r: (min(v[0] for v in res[r]), min(v[1] for v in res[r]),
+                    res[r][0][2]) for r in res}
+        same = all(np.array_equal(v[3], res["fused"][0][3])
+                   for r in res for v in res[r])
+        pr = lambda b: ("not measured" if b[2] is None else
+                        f"busy {b[2]['busy']:.3f} ms, {b[2]['kernels']:.0f} "
+                        f"kernels, other {b[2]['other']:.3f} ms a step")
+        log(f"[norms {label}] B = 1 decode ({card}), one call, better of two "
+            f"in turns: fused norms and SwiGLU TTFT {best['fused'][0]:.2f} ms, "
+            f"{best['fused'][1]:.3f} ms a step ({pr(best['fused'])}); eager "
+            f"ops TTFT {best['eager'][0]:.2f} ms, {best['eager'][1]:.3f} ms a "
+            f"step ({pr(best['eager'])}); the four streams equal: {same}")
+        return same
+
+    decode_routes("Q80", params, expect80)
+    decode_routes("Q4K", params4, expect4)
 
     # ---------------- 5b. continuous batching ----------------
     # Qwen3-0.6B Q80, BATCH_SLOTS slots: a prompt of 16-64 tokens joins
@@ -2687,21 +3129,26 @@ def main() -> int:
         bctx, BATCH_NEW)
     n_j = len(joins)
     expect_b = {n: 0 for n in names}
-    expect_b.update(q80_act_quant=112 * n_j + 113 * n_bsteps,
+    expect_b.update(q80_act_quant=28 * n_j + 28 * n_bsteps,
                     q80_matmul_w8a8=112 * n_j + 113 * n_bsteps,
-                    q80_matvec_fq=n_j, decode_attention=28 * n_bsteps)
+                    q80_matvec_fq=n_j, decode_attention=28 * n_bsteps,
+                    rms_norm_q80=57 * (n_j + n_bsteps),
+                    swiglu_q80=28 * (n_j + n_bsteps))
     full_len = all(len(streams[sl]) == BATCH_NEW for sl in order)
     log(f"[batch] Qwen3-0.6B Q80, {BATCH_SLOTS} slots, {n_j} prompts of "
         f"{[len(p_) for p_ in joins]} tokens joining every "
         f"{BATCH_JOIN_EVERY} steps, {BATCH_NEW} tokens each: {n_bsteps} "
         f"batched steps in {b_secs:.2f} s ({card}), capacities "
         f"{sorted(set(caps))}; launches {b_counts}; expected {expect_b} "
-        f"(112 pair products + a one-row head per join's prefill, 113 pair "
-        f"products and 28 attentions per batched step)")
+        f"(112 W8A8 products, 28 of them after q80_act_quant, + a one-row "
+        f"head per join's prefill; 113 W8A8 products, 28 act quants (wo), 57 "
+        f"rms_norm_q80 and 28 swiglu_q80 writing the other 85's int8 rows, "
+        f"and 28 attentions per batched step)")
     if b_counts != expect_b:
         raise AssertionError("batched launch counts differ from the per-step "
                              "counts")
-    for name in ("q80_act_quant", "q80_matmul_w8a8", "decode_attention"):
+    for name in ("q80_act_quant", "q80_matmul_w8a8", "decode_attention",
+                 "rms_norm_q80", "swiglu_q80"):
         if b_counts[name] == 0:
             raise AssertionError(f"the batching path launched no {name}")
     if full_len and sorted(set(caps)) != [128, 256]:
@@ -2874,7 +3321,7 @@ def main() -> int:
     def throughput(ctx_, n_slots, model, per_step):
         """Every slot decoding from a 32-token prompt: bursts of 16 replays
         timed, then one profiled.  -> (ms per batched step, aggregate
-        tok/s, idle share or None)."""
+        tok/s, idle share or None, profile_line's result)."""
         eng_ = BatchedEngine(ctx_, n_slots=n_slots)
         trng = np.random.default_rng(SEED + n_slots)
         for _ in range(n_slots):
@@ -2888,23 +3335,45 @@ def main() -> int:
         secs = time.time() - t0_
         got = sum(len(v) for r in res for v in r.values())
         ms_step = secs * 1e3 / 48
-        busy = profile_line(f"batch {n_slots}" if model == "Q80" else
+        prof = profile_line(f"batch {n_slots}" if model == "Q80" else
                             f"batch {model} {n_slots}", f"{n_slots} slots, "
                             f"bursts of 16 graph replays",
                             lambda: eng_.step_burst(16), 1, 16, ms_step,
                             per_step)
-        idle = None if busy is None else 1 - busy / ms_step
+        idle = None if prof is None else 1 - prof["busy"] / ms_step
         log(f"[batch] {n_slots} slots, Qwen3-0.6B {model}, positions 40-88 "
             f"({card}): {ms_step:.3f} ms per batched step, {got / secs:.1f} "
             f"tok/s aggregate ({got} tokens in {secs:.3f} s), idle share "
             + ("not measured" if idle is None else f"{idle:.3f}"))
         del eng_
         torch.cuda.empty_cache()
-        return ms_step, got / secs, idle
+        return ms_step, got / secs, idle, prof
 
+    def route_summary(label, n_slots, runs, new, old, what_new, what_old):
+        """One line of a batched step through two routes in turns, the
+        better of two each."""
+        pick = lambda rs: min(rs, key=lambda r: r[0])
+        pr = lambda r: ("not measured" if r[3] is None else
+                        f"busy {r[3]['busy']:.3f} ms, {r[3]['kernels']:.0f} "
+                        f"kernels, other {r[3]['other']:.3f} ms a step")
+        a, b = pick(runs[new]), pick(runs[old])
+        log(f"[batch] {label}, {n_slots} slots ({card}), one call, better of "
+            f"two in turns: {a[0]:.3f} ms per batched step {what_new} "
+            f"({pr(a)}); {b[0]:.3f} ms {what_old} ({pr(b)})")
+
+    q80_step = dict(q80_act_quant=28, q80_matmul_w8a8=113,
+                    decode_attention=28, rms_norm_q80=57, swiglu_q80=28)
     for n_slots in (8, 64):
-        throughput(bctx, n_slots, "Q80", dict(
-            q80_act_quant=113, q80_matmul_w8a8=113, decode_attention=28))
+        runs = {"eager": [], "fused": []}
+        for route in ("eager", "fused", "fused", "eager"):
+            with norm_route(route):
+                runs[route].append(throughput(
+                    bctx, n_slots, "Q80" if route == "fused" else
+                    "Q80, eager norms, SwiGLU and q80_act_quant",
+                    q80_step if route == "fused" else eager_counts(q80_step)))
+        route_summary("Q80", n_slots, runs, "fused", "eager",
+                      "through rms_norm_q80 + swiglu_q80",
+                      "through the eager ops and q80_act_quant")
     del be, bctx
 
     # The Q4K model in BatchedEngine: the same joins, BATCH_NEW4 greedy
@@ -2923,14 +3392,17 @@ def main() -> int:
                      q4k_matmul_w4a4=112 * n_j + 112 * n_b4,
                      q4k_fake_quant=n_j + n_b4, q80_matvec_fq=n_j,
                      q80_act_quant=n_b4, q80_matmul_w8a8=n_b4,
-                     decode_attention=28 * n_b4)
+                     decode_attention=28 * n_b4,
+                     rms_norm_q80=57 * (n_j + n_b4),
+                     swiglu_q80=28 * (n_j + n_b4))
     log(f"[batch] Qwen3-0.6B Q4K, {BATCH_SLOTS} slots, the same {n_j} joins, "
         f"{BATCH_NEW4} tokens each: {n_b4} batched steps in {b4_secs:.2f} s "
         f"({card}), streams of {[len(streams4[sl]) for sl in order4]} "
         f"tokens; launches {b4_counts}; expected {expect_b4} (112 Q4K pair "
         f"products, a fake-quant and a one-row head per join's prefill; 112 "
         f"Q4K pair products, a fake-quant, a W8A8 pair head and 28 attentions "
-        f"per batched step)")
+        f"per batched step; 57 rms_norm_q80 and 28 swiglu_q80 per forward, "
+        f"with no Q80 output)")
     if b4_counts != expect_b4:
         raise AssertionError("Q4K batched launch counts differ from the "
                              "per-step counts")
@@ -2960,24 +3432,31 @@ def main() -> int:
                              "path")
     del be4, streams4
     q4_step = dict(q4k_act_quant=112, q4k_matmul_w4a4=112, q4k_fake_quant=1,
-                   q80_act_quant=1, q80_matmul_w8a8=1, decode_attention=28)
+                   q80_act_quant=1, q80_matmul_w8a8=1, decode_attention=28,
+                   rms_norm_q80=57, swiglu_q80=28)
     old_step = dict(q4k_fake_quant=113, q4k_matmul=112, q80_act_quant=1,
-                    q80_matmul_w8a8=1, decode_attention=28)
+                    q80_matmul_w8a8=1, decode_attention=28, rms_norm_q80=57,
+                    swiglu_q80=28)
     for n_slots in (8, 64):
-        # in turns: the pair it replaced, this pair, this pair, the old one
-        runs = []
-        for route in ("pair", None, None, "pair"):
-            with contextlib.nullcontext() if route is None else k3_route(route):
-                runs.append(throughput(bctx4, n_slots, "Q4K" if route is None
-                                       else "Q4K, K3 at B > 1 as q4k_fake_quant"
-                                       " + q4k_matmul",
-                                       q4_step if route is None else old_step))
-        new_ms = min(r[0] for r in runs[1:3])
-        old_ms = min(r[0] for r in (runs[0], runs[3]))
-        log(f"[batch] Q4K, {n_slots} slots ({card}): {new_ms:.3f} ms per "
-            f"batched step through q4k_act_quant + q4k_matmul_w4a4, "
-            f"{old_ms:.3f} through the pair it replaced, in one call (the "
-            f"better of two each)")
+        # in turns: the pair K3 at B > 1 replaced, the eager norms and SwiGLU,
+        # the package's path twice, the eager norms, K3's old pair
+        runs = {"pair": [], "eager": [], None: []}
+        for route in ("pair", "eager", None, None, "eager", "pair"):
+            with (k3_route(route) if route == "pair" else
+                  norm_route(route or "fused")):
+                runs[route].append(throughput(
+                    bctx4, n_slots, {None: "Q4K", "pair": "Q4K, K3 at B > 1 "
+                                     "as q4k_fake_quant + q4k_matmul",
+                                     "eager": "Q4K, eager norms and SwiGLU"
+                                     }[route],
+                    old_step if route == "pair" else
+                    eager_counts(q4_step) if route == "eager" else q4_step))
+        route_summary("Q4K", n_slots, runs, None, "pair",
+                      "through q4k_act_quant + q4k_matmul_w4a4",
+                      "through the pair it replaced")
+        route_summary("Q4K", n_slots, runs, None, "eager",
+                      "through rms_norm_q80 + swiglu_q80 (hn only)",
+                      "through the eager norm ops and SwiGLU")
     del bctx4
 
     # §6 rows: the kernels of one batched step at 8 and 64 slots beside one
@@ -3455,6 +3934,8 @@ def main() -> int:
         per = ("training" if k["name"].startswith("flash_attn") else
                "prefill" if k["name"] in ("q80_act_quant", "q80_matmul_w8a8",
                                           "q4k_act_quant", "q4k_matmul_w4a4")
+               else "64-row step" if k["name"] in ("rms_norm_q80",
+                                                   "swiglu_q80")
                else "decode")
         off = "" if k["main_path"] else " (on no main path)"
         log(f"[summary] {k['name']}: {k['launches']} launches{off}, max_abs_err "

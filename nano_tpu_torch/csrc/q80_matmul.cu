@@ -10,18 +10,24 @@
 //   q80_act_quant    act_quant_q80: per-group absmax/127 scale, values
 //                    sign(v) * floor(|v| + 0.5) with v = x / scale, the C
 //                    engine's rounding, bit for bit (IEEE division; this
-//                    file must never be built with --use_fast_math).
+//                    file must never be built with --use_fast_math).  The
+//                    arithmetic is q80_quant.cuh's, shared with
+//                    q80_matvec_fq and norm_quant.cu, whose norm and SwiGLU
+//                    kernels quantize their own output: this kernel is left
+//                    with wo's input (the attention output) at B > 1.
 //   q80_matmul_w8a8  q80_matmul_int8 (and _q80_kernel's product) on
 //                    quantized rows: int8 activation x int8 weight on the
 //                    int8 tensor cores, an EXACT int32 partial per group,
 //                    then the f32 combine
 //                    y[b, n] = sum_g P[b, g, n] * sa[b, g] * sw[n, g].
-//                    With q80_act_quant before it, the W8A8 form at B > 1:
-//                    every batched decode step (B = slots) and every
-//                    prefill's layer products (B = prompt length).
+//                    The W8A8 form at B > 1: every batched decode step
+//                    (B = slots) and every prefill's layer products
+//                    (B = prompt length).
 //   q80_matvec_fq    the two at B = 1 in one launch: every Q80 product of a
 //                    decode step, and the head (one row at prefill too).
-//                    The same integer decisions; f32 sums in another order.
+//                    The same integer decisions, and the same f32 sums
+//                    (RangeSum): a row's output has the same bits here
+//                    and in a batch.
 //   q80_matmul_rows  _q80_kernel's own math: f32 dequant q * s, f32 dot.
 //                    Used below group size 256 (e.g. gs = 32 files).
 //
@@ -46,11 +52,12 @@
 // warps quantize it (a warp a group, the arithmetic of q80_act_quant) into
 // an int8 row and G scales in shared memory: once a block, not once a
 // tile.  The dot: T lanes a row (8 in the head's 32-row tiles, so that a
-// tile is one pass of the block; else a warp), a lane __dp4a-ing 16-byte
-// chunks of the row against the int8 row, a group's ints summed over the
-// lanes that hold it (redux.sync or xor shuffles: exact) before they meet
-// its two scales, the f32 sum over groups in a fixed order, so that two
-// runs give the same bits.  A scale range that is not 16-byte aligned at
+// tile is one pass of the block; 16 at gs = 256 and K <= 1024; else a
+// warp), a lane __dp4a-ing 16-byte chunks of the row against the int8
+// row, a group's ints summed over the lanes that hold it (redux.sync or
+// xor shuffles: exact) before they meet its two scales, the f32 sum over
+// groups in q80_matmul_w8a8's order (RangeSum), so that a row gets the
+// same bits here as in a batch.  A scale range that is not 16-byte aligned at
 // either end (N * G not a multiple of 4, or a stacked layer's offset) has
 // its < 16-byte ends read by plain loads.  Measured on the H100:
 // chip_smoke.py bench q80 [clocks].
@@ -105,6 +112,7 @@
 #include <stdint.h>
 
 #include "int8_mma.cuh"
+#include "q80_quant.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -120,6 +128,46 @@ __device__ __forceinline__ void store_f(float* p, size_t i, float v) { p[i] = v;
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, size_t i, float v) {
   p[i] = __float2bfloat16_rn(v);
 }
+
+// The order in which both W8A8 kernels add a row's group terms, whatever
+// the batch: the G groups fall into R ranges (R a power of two up to
+// min(8, G), a product's own, ops/qmatmul.py:w8a8_ranges; range r holds
+// groups [G r / R, G (r + 1) / R)), each group's term (P * sa) * sw
+// rounded after each multiply, each range's terms added in group order,
+// then the range sums added in range order.  q80_matmul_w8a8 gives each block of a cluster of
+// R one range (ops/qmatmul.py:w8a8_plan) and adds the cluster's partials
+// in rank order; q80_matvec_fq walks the ranges itself.  So a row's output
+// has the same bits at every batch size: a batched decode step gives the
+// single stream's logits.
+
+// a group's term (P * sa) * sw, each multiply rounded (never fused)
+__device__ __forceinline__ float group_term(int P, float sa, float sw) {
+  return __fmul_rn(__fmul_rn((float)P, sa), sw);
+}
+
+// Bit g set: a range other than the first of R starts at group g (G <= 64).
+__device__ __forceinline__ unsigned long long range_starts(int G, int R) {
+  unsigned long long m = 0;
+  for (int r = 1; r < R; ++r) m |= 1ull << (G * r / R);
+  return m;
+}
+
+// One row's sum in that order, its group terms given in group order.
+struct RangeSum {
+  float outer = 0.f, inner = 0.f;
+  bool first = true;            // no range has ended yet
+  unsigned long long starts;    // range_starts(G)
+  __device__ explicit RangeSum(unsigned long long starts_) : starts(starts_) {}
+  __device__ void add(int g, float term) {
+    if ((starts >> g) & 1ull) {   // a range ends: add its sum to those before it
+      outer = first ? inner : __fadd_rn(outer, inner);
+      first = false;
+      inner = 0.f;
+    }
+    inner = __fadd_rn(inner, term);
+  }
+  __device__ float total() const { return first ? inner : __fadd_rn(outer, inner); }
+};
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -143,13 +191,9 @@ __global__ void act_quant_kernel(const XT* __restrict__ x, int8_t* __restrict__ 
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  const float s = amax / 127.0f;
-  const float safe = (s == 0.f) ? 1.f : s;
-  for (int i = lane; i < gs; i += 32) {
-    const float v = load_f(x, base + i) / safe;
-    const float r = floorf(fabsf(v) + 0.5f);
-    xq[base + i] = (int8_t)(int)copysignf(r, v);
-  }
+  const float s = q80q::scale(amax);
+  const float div = q80q::divisor(s);
+  for (int i = lane; i < gs; i += 32) xq[base + i] = q80q::value(load_f(x, base + i), div);
   if (lane == 0) sa[(size_t)b * G + g] = s;
 }
 
@@ -327,11 +371,10 @@ __device__ __forceinline__ void quantize_row(const XT* x, int8_t* xs, float* sas
     for (int off = 16; off > 0; off >>= 1)
       amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
     if (!on) continue;
-    const float sc = amax / 127.0f;
-    const float safe = (sc == 0.f) ? 1.f : sc;
+    const float sc = q80q::scale(amax);
+    const float div = q80q::divisor(sc);
     for (int i = lane; i < gs; i += 32) {
-      const float v = load_f(xg, i) / safe;
-      const int8_t q = (int8_t)(int)copysignf(floorf(fabsf(v) + 0.5f), v);
+      const int8_t q = q80q::value(load_f(xg, i), div);
       xs[g * gs + i] = q;
       if (write_act) xq_out[g * gs + i] = q;
     }
@@ -350,7 +393,7 @@ __global__ void __launch_bounds__(kMvThreads, 2)
     q80_matvec_fq_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
                          const float* __restrict__ sw, OT* __restrict__ y,
                          int8_t* __restrict__ xq_out, float* __restrict__ sa_out, int K, int N,
-                         int gs, int R, int S) {
+                         int gs, int R, int S, int ranges) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int G = K / gs;
   const size_t wstage = (size_t)R * K, sstage = mv_buf((size_t)R * G * 4);
@@ -419,7 +462,9 @@ __global__ void __launch_bounds__(kMvThreads, 2)
   // at gs = 256; T = 32 at gs >= 512) or of two (T = 32 at gs = 256: lanes
   // 0-15 and 16-31), and its L lanes sum their ints.  A lane computes
   // kMvSteps steps' ints, then reduces them together (their reductions
-  // overlap), then adds P * sa * sw for each in step order.  Every loop
+  // overlap), then every lane of the row adds P * sa * sw for each group
+  // of those steps in group order (RangeSum; at T = 32 and gs = 256 a
+  // step's two groups are the two halves' sums, both in every lane).  Every loop
   // that holds a shuffle or a reduction has the same count on every thread,
   // and every one runs: rows and chunks past the end take part with zeros
   // (under a branch the compiler cannot prove uniform it serializes them).
@@ -427,11 +472,11 @@ __global__ void __launch_bounds__(kMvThreads, 2)
   const int slot = tid / T, j = tid % T;
   const int nch = K >> 4, cpg = gs >> 4;
   const int L = cpg < T ? cpg : T;                // 8, 16 or 32
+  const unsigned long long starts = range_starts(G, ranges);
   const int ips = cpg > T ? cpg / T : 1;          // chunks a lane takes of a step
   const int cps = T * ips;                        // chunks a step
   const int nsteps = (nch + cps - 1) / cps;
   const int gps = cps / cpg > 0 ? cps / cpg : 1;  // groups a step advances
-  const int gj = j / cpg;                         // this lane's group within a step
   const int4* xr = reinterpret_cast<const int4*>(xs);
   for (int t = 0; t < ntiles; ++t) {
     const int s = t % S, n0 = r_begin + t * R, rows = min(R, r_end - n0);
@@ -444,9 +489,9 @@ __global__ void __launch_bounds__(kMvThreads, 2)
       const bool act = r < rows;
       const int4* wr = reinterpret_cast<const int4*>(wt + (size_t)(act ? r : 0) * K);
       const float* srow = st + (act ? r : 0) * G;
-      float acc = 0.f;
+      RangeSum sum(starts);
       for (int s0 = 0; s0 < nsteps; s0 += kMvSteps) {
-        int p[kMvSteps];
+        int p[kMvSteps], q[kMvSteps];   // q: a step's second group (T = 32, gs = 256)
 #pragma unroll
         for (int u = 0; u < kMvSteps; ++u) {
           p[u] = 0;
@@ -465,29 +510,27 @@ __global__ void __launch_bounds__(kMvThreads, 2)
 #pragma unroll
           for (int u = 0; u < kMvSteps; ++u) {
             const int lo = __reduce_add_sync(0xffffffffu, (j < 16 || L == 32) ? p[u] : 0);
-            const int hi = __reduce_add_sync(0xffffffffu, j < 16 ? 0 : p[u]);
-            p[u] = (L == 32 || j < 16) ? lo : hi;
+            q[u] = __reduce_add_sync(0xffffffffu, j < 16 ? 0 : p[u]);
+            p[u] = lo;
           }
-        } else {   // the 8 lanes of a row
+        } else {   // the 8 or 16 lanes of a row
 #pragma unroll
-          for (int off = 4; off > 0; off >>= 1) {
+          for (int off = T / 2; off > 0; off >>= 1) {
 #pragma unroll
             for (int u = 0; u < kMvSteps; ++u) p[u] += __shfl_xor_sync(0xffffffffu, p[u], off);
           }
         }
+        // every lane of the row adds the step's group terms in group order
+        // (at T = 32 and gs = 256 a step's two groups: both halves' sums)
 #pragma unroll
         for (int u = 0; u < kMvSteps; ++u) {
-          if (act && (s0 + u) * cps + j < nch) {
-            const int g = (s0 + u) * gps + gj;
-            acc += (float)p[u] * sas[g] * srow[g];
-          }
+          const int g = (s0 + u) * gps;
+          if (act && g < G) sum.add(g, group_term(p[u], sas[g], srow[g]));
+          if (T == 32 && L == 16 && act && g + 1 < G)
+            sum.add(g + 1, group_term(q[u], sas[g + 1], srow[g + 1]));
         }
       }
-      if (T == 32) {   // at gs = 256 the halves hold different groups
-        const float o = __shfl_xor_sync(0xffffffffu, acc, 16);
-        if (L == 16) acc += o;
-      }
-      if (act && j == 0) store_f(y, (size_t)(n0 + r), acc);
+      if (act && j == 0) store_f(y, (size_t)(n0 + r), sum.total());
     }
     if (t + S < ntiles) {
       __syncthreads();   // every warp is done with stage s
@@ -662,8 +705,8 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32)
       for (int j = 0; j < NF; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          acc[j][e] += (float)ci[j][e] * sas[8 * j + 2 * tig + (e & 1)] *
-                       sws[warp * 16 + gid + 8 * (e >> 1)];
+          acc[j][e] = __fadd_rn(acc[j][e], group_term(ci[j][e], sas[8 * j + 2 * tig + (e & 1)],
+                                                      sws[warp * 16 + gid + 8 * (e >> 1)]));
           ci[j][e] = 0;
         }
     }
@@ -793,14 +836,17 @@ extern "C" int q80_matmul_rows(const void* x, int x_bf16, const void* w, const v
 
 // x (1, K) f32 or bf16, raw -> y (1, N): q80_act_quant + q80_matmul_w8a8 at
 // B = 1 in one launch, with the grid (`blocks`), the rows a stage (R), the
-// stages (S) and the lanes a row (T, 8 or 32) of ops/qmatmul.py:matvec_plan.
-// xq_out (K int8) and sa_out (K / gs f32) may be null.
+// stages (S) and the lanes a row (T, 8 or 32) of ops/qmatmul.py:matvec_plan,
+// and the ranges of its sum (ops/qmatmul.py:w8a8_ranges: a power of two up
+// to min(8, K / gs); K / gs <= 64).  xq_out (K int8) and sa_out (K / gs f32)
+// may be null.
 extern "C" int q80_matvec_fq(const void* x, int x_bf16, const void* w, const void* sw, void* y,
                              int y_bf16, void* xq_out, void* sa_out, int K, int N, int gs,
-                             int blocks, int R, int S, int T, void* stream) {
+                             int blocks, int R, int S, int T, int ranges, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t smem = mv_smem(K, K / gs, R, S, K * (x_bf16 ? 2 : 4));
-  if ((T != 8 && T != 32) || blocks < 1 || R < 1 || S < 1 || S > 4 || smem > 232448)
+  if ((T != 8 && T != 16 && T != 32) || blocks < 1 || R < 1 || S < 1 || S > 4 || smem > 232448 ||
+      K / gs > 64 || ranges < 1 || ranges > 8 || ranges > K / gs || (ranges & (ranges - 1)))
     return (int)cudaErrorInvalidValue;
   const int8_t* w_ = static_cast<const int8_t*>(w);
   const float* sw_ = static_cast<const float*>(sw);
@@ -815,11 +861,12 @@ extern "C" int q80_matvec_fq(const void* x, int x_bf16, const void* w, const voi
       if (err != cudaSuccess) return (int)err;                                                  \
     }                                                                                           \
     q80_matvec_fq_kernel<TT, XT, OT><<<blocks, kMvThreads, smem, st>>>(                         \
-        static_cast<const XT*>(x), w_, sw_, static_cast<OT*>(y), xq_, sa_, K, N, gs, R, S);     \
+        static_cast<const XT*>(x), w_, sw_, static_cast<OT*>(y), xq_, sa_, K, N, gs, R, S, ranges); \
   } while (0)
 #define NANO_MV_T(XT, OT)           \
   do {                              \
-    if (T == 8) NANO_MV(8, XT, OT); \
+    if (T == 8) NANO_MV(8, XT, OT);  \
+    else if (T == 16) NANO_MV(16, XT, OT); \
     else NANO_MV(32, XT, OT);       \
   } while (0)
   if (x_bf16 && y_bf16) NANO_MV_T(__nv_bfloat16, __nv_bfloat16);

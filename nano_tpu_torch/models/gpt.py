@@ -20,10 +20,15 @@ Kernels on the card: every quantized projection and head goes through
 ``ops.qmatmul`` (Q80) or ``ops.q4k`` (Q4K: activation fake-quant, then
 the fused-dequant matmul), every single-token attention through
 ``ops.decode_attn``, and every full-sequence causal attention of the
-no-cache forward through ``ops.flash_attn``, forward and backward.  The
-cached prefill attention (S > 1), RMSNorm, RoPE, SwiGLU and the cache
-write are plain PyTorch, as they were XLA-fused ops on the TPU; dense
-projections, the LM head and the loss are ``torch.matmul`` and plain
+no-cache forward through ``ops.flash_attn``, forward and backward.  In
+the cached forward each block's two RMSNorms (the second with the
+residual add before it), its SwiGLU and the final norm are one kernel each
+(``ops.norm_quant``), which also quantize their output for a W8A8 Q80
+product fed more than one row, so that no ``q80_act_quant`` runs on it.
+The cached prefill attention (S > 1), the qk-norm, RoPE and the cache
+write are plain PyTorch, as they were XLA-fused ops on the TPU; so are the
+no-cache forward's norms and SwiGLU (the fused kernels have no backward);
+dense projections, the LM head and the loss are ``torch.matmul`` and plain
 PyTorch, as they were XLA's.
 
 Training parameters are leaf tensors with ``requires_grad`` in the same
@@ -45,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 from nano_tpu_torch.config import ModelConfig
 from nano_tpu_torch.ops import decode_attn
 from nano_tpu_torch.ops.flash_attn import flash_attention
+from nano_tpu_torch.ops.norm_quant import rms_norm, rms_norm_q80, swiglu_q80
 from nano_tpu_torch.ops.q4k import Q4KTensor, fake_quant_act, q4k_matmul
 from nano_tpu_torch.ops.qmatmul import Q80Tensor, q80_matmul
 
@@ -97,23 +103,48 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
 # primitive layers
 # =====================================================================
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float
-             ) -> torch.Tensor:
-    """x * rsqrt(mean(x^2) + eps) * w, computed in f32."""
-    xf = x.float()
-    normed = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-    return (normed * weight.float()).to(x.dtype)
+def _q80_group(ws, rows: int) -> int:
+    """The group size at which a fused norm or SwiGLU also quantizes its
+    output for the products `ws`: that of W8A8 Q80 weights of one group
+    size fed more than one row; else 0 (one row goes to q80_matvec_fq,
+    which quantizes it itself, and other weights take the tensor)."""
+    if rows < 2 or not all(isinstance(w, Q80Tensor) and w.w8a8 for w in ws):
+        return 0
+    sizes = {w.group_size for w in ws}
+    return sizes.pop() if len(sizes) == 1 else 0
 
 
-def _dense(x: torch.Tensor, w, dtype) -> torch.Tensor:
+def _norm(x: torch.Tensor, weight: torch.Tensor, eps: float, ws,
+          residual: Optional[torch.Tensor] = None):
+    """The cached forward's RMSNorm of x (+ residual) for the products
+    `ws`, one ``rms_norm_q80`` launch -> (h, the normed activation: a
+    ``Q80Act`` where ``_q80_group`` asks for one, else a tensor)."""
+    gs = _q80_group(ws, x.numel() // x.shape[-1])
+    h, hn, act = rms_norm_q80(x, weight, eps, residual, gs, want_hn=not gs)
+    return h, act if gs else hn
+
+
+def _dense(x, w, dtype) -> torch.Tensor:
     """x @ w in the compute dtype.  Dense weights are (in, out); Q80
-    weights keep the file's (out, in) rows and run the Q80 kernels, Q4K
-    weights the Q4K kernels."""
+    weights keep the file's (out, in) rows and run the Q80 kernels (x may
+    be a ``Q80Act`` for a W8A8 one), Q4K weights the Q4K kernels."""
     if isinstance(w, Q80Tensor):
         return q80_matmul(x, w, dtype)
     if isinstance(w, Q4KTensor):
         return q4k_matmul(x, w, dtype)
     return torch.matmul(x.to(dtype), w.to(dtype))
+
+
+def _head_q80(params: Params) -> Optional[Q80Tensor]:
+    """The Q80 weight that ``compute_logits`` applies to the final norm's
+    output as it is, if any (not the Q4K model's requantized head, whose
+    activation is fake-quantized first)."""
+    w = params.get("output_q")
+    if w is not None and isinstance(params["tok_embeddings"], Q4KTensor):
+        return None
+    for w in (w, params.get("output"), params["tok_embeddings"]):
+        if w is not None:
+            return w if isinstance(w, Q80Tensor) else None
 
 
 def _dot_f32(h: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
@@ -142,12 +173,13 @@ def embed_tokens(params: Params, idx: torch.Tensor, dtype) -> torch.Tensor:
     return w[idx].to(dtype)
 
 
-def compute_logits(h: torch.Tensor, params: Params, dtype) -> torch.Tensor:
+def compute_logits(h, params: Params, dtype) -> torch.Tensor:
     """LM head -> f32 logits: ``output_q`` (the quantized head, tied to the
     embedding table at load), untied ``output`` (in, out), or the tied
     embedding table (V, E) transposed.  A Q80 head requantized from a Q4K
     table still gets the C engine's Q4K treatment of its activation first
-    (reference: infer/infer.c:1012-1014), then runs the Q80 kernels."""
+    (reference: infer/infer.c:1012-1014), then runs the Q80 kernels.  h may
+    be a ``Q80Act`` for ``_head_q80``'s weight."""
     w = params.get("output_q")
     if w is not None:
         if (isinstance(params["tok_embeddings"], Q4KTensor)
@@ -329,17 +361,46 @@ def feed_forward(x: torch.Tensor, layer: Params, dtype,
     return _dense(hidden, layer["w2"], dtype)
 
 
+def feed_forward_cached(x, layer: Params, dtype) -> torch.Tensor:
+    """SwiGLU of the cached forward: w2(silu(w1 x) * w3 x) with the
+    silu-product one ``swiglu_q80`` launch, which also quantizes it for a
+    W8A8 w2 fed more than one row (``_q80_group``)."""
+    if "w13" in layer:
+        h13 = _dense(x, layer["w13"], dtype)
+    else:
+        h13 = torch.cat([_dense(x, layer["w1"], dtype),
+                         _dense(x, layer["w3"], dtype)], dim=-1)
+    gs = _q80_group([layer["w2"]], h13.numel() // h13.shape[-1])
+    hidden, act = swiglu_q80(h13, gs, want_hidden=not gs)
+    return _dense(act if gs else hidden, layer["w2"], dtype)
+
+
+def _final(h: torch.Tensor, params: Params, cfg: ModelConfig, dtype
+           ) -> torch.Tensor:
+    """The final norm (one ``rms_norm_q80`` launch) and the LM head -> f32
+    logits."""
+    w = _head_q80(params)
+    _, hn = _norm(h, params["norm"], cfg.norm_eps, [] if w is None else [w])
+    return compute_logits(hn, params, dtype)
+
+
 def block(x: torch.Tensor, layer: Params, cfg: ModelConfig, cos, sin, mask,
           dtype, kv_cache, start_pos: Union[int, torch.Tensor],
           pos_t: Optional[torch.Tensor], attn_len: Optional[int] = None
           ) -> torch.Tensor:
-    """Pre-norm residual block (`start_pos` and `pos_t` as in
-    ``attention``)."""
-    xn = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-    h = x + attention(xn, layer, cfg, cos, sin, mask, dtype, kv_cache,
-                      start_pos, pos_t, attn_len)
-    hn = rms_norm(h, layer["ffn_norm"], cfg.norm_eps)
-    return h + feed_forward(hn, layer, dtype)
+    """Pre-norm residual block of the cached forward (`start_pos` and
+    `pos_t` as in ``attention``).  The attention norm, the residual add
+    with the FFN norm, and SwiGLU are one kernel each, which also write
+    the Q80 quantization of their output where the product they feed takes
+    it (``_q80_group``); the last residual add stays one eager add."""
+    qkv = ([layer["wqkv"]] if "wqkv" in layer
+           else [layer["wq"], layer["wk"], layer["wv"]])
+    w13 = [layer["w13"]] if "w13" in layer else [layer["w1"], layer["w3"]]
+    _, xn = _norm(x, layer["attn_norm"], cfg.norm_eps, qkv)
+    a = attention(xn, layer, cfg, cos, sin, mask, dtype, kv_cache, start_pos,
+                  pos_t, attn_len)
+    h, hn = _norm(x, layer["ffn_norm"], cfg.norm_eps, w13, residual=a)
+    return h + feed_forward_cached(hn, layer, dtype)
 
 
 # =====================================================================
@@ -439,10 +500,9 @@ def forward_with_cache(params: Params, idx: torch.Tensor, cache: KVCache,
         h = block(h, layer_params(params["blocks"], i), cfg, cos, sin, mask,
                   dtype, cache.layer(i), start_pos, None, attn_len)
 
-    h = rms_norm(h, params["norm"], cfg.norm_eps)
-    if last_idx is not None:
+    if last_idx is not None:     # the norm is per row: slice first
         h = h[:, last_idx:last_idx + 1]
-    return compute_logits(h, params, dtype), cache
+    return _final(h, params, cfg, dtype), cache
 
 
 def forward_decode_batched(params: Params, tok: torch.Tensor, cache: KVCache,
@@ -482,8 +542,7 @@ def forward_decode_batched(params: Params, tok: torch.Tensor, cache: KVCache,
     for i in range(cfg.n_layer):
         h = block(h, layer_params(params["blocks"], i), cfg, cos, sin, None,
                   dtype, cache.layer(i), rows, p)
-    h = rms_norm(h, params["norm"], cfg.norm_eps)
-    return compute_logits(h, params, dtype)[:, 0], cache
+    return _final(h, params, cfg, dtype)[:, 0], cache
 
 
 # =====================================================================

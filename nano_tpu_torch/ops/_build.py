@@ -9,9 +9,10 @@ library built from the same source, the same headers (``csrc/*.cuh``) and
 the same flags is reused.
 
 IEEE division and square root, and denormals, are required
-(``q80_act_quant``, ``q80_matvec_fq``, ``q4k_fake_quant`` and
-``q4k_act_quant`` must reproduce the JAX package's integer decisions bit
-for bit), so the flags never include ``--use_fast_math``.
+(``q80_act_quant``, ``q80_matvec_fq``, ``rms_norm_q80``, ``swiglu_q80``,
+``q4k_fake_quant`` and ``q4k_act_quant`` must reproduce the JAX package's
+integer decisions bit for bit), so the flags never include
+``--use_fast_math``.
 """
 
 from __future__ import annotations
@@ -43,10 +44,13 @@ SIGNATURES = {
     "q80_matmul_w8a8": ([P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
                         "q80_matmul"),
     "q80_matmul_rows": ([P, I, P, P, P, I, I, I, I, I, P], "q80_matmul"),
-    "q80_matvec_fq": ([P, I, P, P, P, I, P, P, I, I, I, I, I, I, I, P],
+    "q80_matvec_fq": ([P, I, P, P, P, I, P, P, I, I, I, I, I, I, I, I, P],
                       "q80_matmul"),
+    "rms_norm_q80": ([P, P, P, P, P, P, P, I, I, I, F, I, I, I, I, P],
+                     "norm_quant"),
+    "swiglu_q80": ([P, P, P, P, I, I, I, I, I, I, I, P], "norm_quant"),
     "decode_attention": ([P, P, P, P, P, P, I, P, P, P, I, Q, I, I, I, I, I,
-                          I, F, I, P], "decode_attn"),
+                          I, F, I, I, P], "decode_attn"),
     "decode_attention_part_stride": ([I, I], "decode_attn"),
     "q4k_fake_quant": ([P, I, P, I, I, I, P], "q4k"),
     "q4k_matmul": ([P, P, P, P, P, I, I, I, I, I, P], "q4k"),

@@ -70,25 +70,42 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, H * D)
 
 
-# Rows a block takes at least, and the most splits the kernel's combine
-# holds.
+# Rows a split takes at least, and the most splits the kernel's combine
+# holds.  The split does not follow the batch, so a block at a large
+# batch takes several splits in turn, each its own partial; 32 rows keep
+# batch 1, the single stream, fastest (chip_smoke.py bench decode on an
+# H100 at T = 512: 64-row splits take 1.06x the time at batch 1, 0.88x at
+# batch 8 and 64).
 MIN_CHUNK = 32
 MAX_SPLITS = 64
 
 
-def choose_splits(B: int, n_kv: int, T: int, n_sm: int = _build.H100_SMS
+def choose_splits(n_kv: int, T: int, n_sm: int = _build.H100_SMS
                   ) -> Tuple[int, int]:
     """-> (chunk, n_split): block (b * KV + kv, s) of the kernel's grid
     takes cache rows [s * chunk, (s + 1) * chunk).  From shapes alone
     (``pos`` lives on the device and is never read here, so a call can be
-    captured in a CUDA graph): the splits bring the grid to between one
-    and two blocks per SM where B * KV alone is below that and T has the
-    rows for it (chunks of at least MIN_CHUNK rows, at most MAX_SPLITS
-    splits); at a large batch a (batch row, KV head) is one block."""
-    want = max(1, (2 * n_sm) // (B * n_kv))
+    captured in a CUDA graph), and never from the batch: a row's partials
+    and the order they are merged in are then the same at every batch
+    size, so a batched decode step gives each row the single stream's bits.
+    The splits bring one row's grid to between one and two blocks per SM
+    where T has the rows for it (chunks of at least MIN_CHUNK rows, at most
+    MAX_SPLITS splits); a batch multiplies the grid."""
+    want = max(1, (2 * n_sm) // n_kv)
     n = max(1, min(want, MAX_SPLITS, -(-T // MIN_CHUNK)))
     chunk = -(-T // n)
     return chunk, -(-T // chunk)
+
+
+def splits_per_block(B: int, n_kv: int, n_split: int,
+                     n_sm: int = _build.H100_SMS) -> int:
+    """The splits one block of the kernel takes in turn, each its own
+    partial computed as a block of one split computes it: the fewest that
+    keep the grid B * KV * ceil(n_split / per_block) within two blocks per
+    SM (all of them where even that is more).  It moves the grid only,
+    never a row's arithmetic."""
+    return next((per for per in range(1, n_split + 1)
+                 if B * n_kv * -(-n_split // per) <= 2 * n_sm), n_split)
 
 
 # (device index, stream handle) -> (part f32, counter int32).  The kernel's
@@ -168,7 +185,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if q.stride(2) != 1 or q.stride(1) != D:
         q = q.contiguous()
     lib = _build.lib("decode_attn")
-    chunk, n_split = choose_splits(B, n_kv, T, _build.sm_count(q.device))
+    n_sm = _build.sm_count(q.device)
+    chunk, n_split = choose_splits(n_kv, T, n_sm)
     part, counter = _workspace(
         q.device, stream,
         B * n_kv * n_split * _part_stride(rep, D), B * n_kv)
@@ -180,7 +198,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         pos.data_ptr(), 1 if pos.numel() == B and B > 1 else 0,
         out.data_ptr(), part.data_ptr(), counter.data_ptr(),
         _Q_TYPES[q.dtype], q.stride(0), _CACHE_TYPES[k_cache.dtype], B, T,
-        n_kv, rep, D, 1.0 / math.sqrt(D), chunk, stream)
+        n_kv, rep, D, 1.0 / math.sqrt(D), chunk,
+        splits_per_block(B, n_kv, n_split, n_sm), stream)
     decode_attention.launches += 1
     _build.check(rc, "decode_attention")
     return out

@@ -10,7 +10,7 @@ piece holds and the bytes of one stage; the rule is the same for both.
 
 from __future__ import annotations
 
-from typing import Callable, Set, Tuple
+from typing import Callable, Optional, Set, Tuple
 
 import torch
 
@@ -33,8 +33,8 @@ def smem(stage: int, MB: int, BN: int, CS: int, S: int) -> int:
 
 
 def plan(B: int, N: int, weight_bytes: int, pieces: int, piece_chunks: int,
-         stage: Callable[[int, int], int], n_sm: int = _build.H100_SMS
-         ) -> Tuple[int, int, int, int]:
+         stage: Callable[[int, int], int], n_sm: int = _build.H100_SMS,
+         cluster: Optional[int] = None) -> Tuple[int, int, int, int]:
     """-> (MB, BN, CS, S) from the shapes alone (never from a value on the
     device, so that a launch can be captured in a CUDA graph), for B slots,
     N weight rows, K in `pieces` that a cluster may split (each
@@ -51,7 +51,8 @@ def plan(B: int, N: int, weight_bytes: int, pieces: int, piece_chunks: int,
       reads for each weight byte), else 64;
     * the pieces of K split over a cluster of CS blocks, doubled from 1
       while the grid has fewer than 1.5 blocks an SM, up to MAX_CLUSTER
-      and the piece count;
+      and the piece count; or `cluster` blocks where the product fixes it
+      (q80_matmul_w8a8: its order of summation);
     * a ring of S stages: as many as a block has chunks, up to MAX_STAGES,
       where the grid is one wave or a few, and 2 where it is many (more
       blocks an SM instead), within SMEM."""
@@ -64,6 +65,8 @@ def plan(B: int, N: int, weight_bytes: int, pieces: int, piece_chunks: int,
     CS = 1
     while 2 * tiles * CS < 3 * n_sm and 2 * CS <= min(MAX_CLUSTER, pieces):
         CS *= 2
+    if cluster is not None:
+        CS = cluster
     chunks = -(-pieces // CS) * piece_chunks
     S = min(MAX_STAGES if tiles * CS < 4 * n_sm else 2, chunks)
     while S > 1 and smem(stage(MB, BN), MB, BN, CS, S) > SMEM:

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
-from nano_tpu_torch.ops import decode_attn, flash_attn, q4k, qmatmul
+from nano_tpu_torch.ops import decode_attn, flash_attn, norm_quant, q4k, qmatmul
 
 # (module, wrapper, counter attribute)
 COUNTERS: Tuple[Tuple[object, str, str], ...] = (
@@ -20,6 +20,8 @@ COUNTERS: Tuple[Tuple[object, str, str], ...] = (
     (qmatmul, "q80_w8a8", "launches"),
     (qmatmul, "q80_matmul_rows", "launches"),
     (qmatmul, "q80_matvec_fq", "launches"),
+    (norm_quant, "rms_norm_q80", "launches"),
+    (norm_quant, "swiglu_q80", "launches"),
     (decode_attn, "decode_attention", "launches"),
     (q4k, "fake_quant_act", "launches"),
     (q4k, "q4k_matmul_f32", "launches"),

@@ -1,0 +1,194 @@
+"""The cached forward's RMSNorm (with the residual add before it) and
+SwiGLU, each with the Q80 quantization of its output as an epilogue.
+
+Port of the XLA fusions around the TPU kernel K1 (``_q80_kernel``,
+``nano_tpu/ops/qmatmul.py``): ``rms_norm`` and ``block``'s ``x + a``
+(``nano_tpu/models/gpt.py``), ``feed_forward``'s ``silu(h1) * h3``, and
+``act_quant_q80``, which ``q80_matmul_int8`` applies to their rounded
+output.  On the card each is one kernel (``csrc/norm_quant.cu``) that
+writes its output in the activation dtype and, when asked
+(``group_size`` > 0), also the ``Q80Act`` that a W8A8 product takes
+instead of launching ``q80_act_quant`` on it: the same integer decisions.
+
+Each wrapper runs its kernel for CUDA tensors and its plain PyTorch
+version (``*_plain``: the eager ops, then ``act_quant_q80_plain``) only
+for tensors on the CPU.  ``<wrapper>.launches`` counts kernel launches.
+The kernels have no backward: the training forward keeps the eager ops.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from nano_tpu_torch.ops import _build
+from nano_tpu_torch.ops.qmatmul import Q80Act, act_quant_q80_plain
+
+_TYPES = (torch.float32, torch.bfloat16)
+VALUES_PER_THREAD = 4       # a thread's chunk of a row (csrc/norm_quant.cu)
+MAX_THREADS = 1024
+PASSES = (1, 2, 4, 8, 16)   # the kernels' instances
+
+
+# =====================================================================
+# plain PyTorch versions (CPU path; on the card only for comparisons)
+# =====================================================================
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float
+             ) -> torch.Tensor:
+    """x * rsqrt(mean(x^2) + eps) * w, computed in f32."""
+    xf = x.float()
+    normed = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (normed * weight.float()).to(x.dtype)
+
+
+def _act(y: torch.Tensor, group_size: int) -> Optional[Q80Act]:
+    if not group_size:
+        return None
+    xq, sa = act_quant_q80_plain(y.reshape(-1, y.shape[-1]), group_size)
+    return Q80Act(xq, sa, y.shape)
+
+
+def rms_norm_q80_plain(x: torch.Tensor, weight: torch.Tensor, eps: float,
+                       residual: Optional[torch.Tensor] = None,
+                       group_size: int = 0, want_hn: bool = True):
+    """What ``rms_norm_q80`` computes, in plain PyTorch: h = x + residual,
+    hn = rms_norm(h), and with group_size > 0 hn's Q80Act."""
+    h = x if residual is None else x + residual
+    hn = rms_norm(h, weight, eps)
+    return (None if residual is None else h, hn if want_hn else None,
+            _act(hn, group_size))
+
+
+def swiglu_q80_plain(h13: torch.Tensor, group_size: int = 0,
+                     want_hidden: bool = True):
+    """What ``swiglu_q80`` computes, in plain PyTorch: silu(h1) * h3 of
+    h13 = [h1 | h3], and with group_size > 0 its Q80Act."""
+    Fh = h13.shape[-1] // 2
+    y = F.silu(h13[..., :Fh]) * h13[..., Fh:]
+    return y if want_hidden else None, _act(y, group_size)
+
+
+# =====================================================================
+# kernel wrappers
+# =====================================================================
+
+def plan(n: int) -> Tuple[int, int]:
+    """-> (threads, passes) of a block that holds a row of n values, 4 a
+    thread a pass: at most 1024 threads, from the width alone (a row's bits
+    never depend on the row count)."""
+    chunks = -(-n // VALUES_PER_THREAD)
+    T = min(MAX_THREADS, -(-chunks // 32) * 32)
+    P = next((p for p in PASSES if p * T >= chunks), None)
+    if P is None:
+        raise ValueError(f"a row of {n} values is wider than the kernels "
+                         f"take ({PASSES[-1] * MAX_THREADS * 4})")
+    return T, P
+
+
+def _check_group(n: int, group_size: int, T: int) -> None:
+    gs = group_size
+    if gs and not (gs >= VALUES_PER_THREAD and gs & (gs - 1) == 0
+                   and n % gs == 0 and T % (gs // VALUES_PER_THREAD) == 0):
+        raise ValueError(f"group size {gs} must be a power of two >= 4 "
+                         f"dividing the row ({n}) with at most {4 * T}")
+
+
+def _aligned(*ts: torch.Tensor) -> bool:
+    """Every row of every tensor starts on 4 values (8 bytes of bf16, 16
+    of f32)."""
+    return all(t.data_ptr() % (VALUES_PER_THREAD * t.element_size()) == 0
+               and t.shape[-1] % VALUES_PER_THREAD == 0 for t in ts)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _outputs(B: int, n: int, group_size: int, device):
+    if not group_size:
+        return None, None
+    xq = torch.empty((B, n // group_size, group_size), dtype=torch.int8,
+                     device=device)
+    sa = torch.empty((B, n // group_size), dtype=torch.float32, device=device)
+    return xq, sa
+
+
+def rms_norm_q80(x: torch.Tensor, weight: torch.Tensor, eps: float,
+                 residual: Optional[torch.Tensor] = None,
+                 group_size: int = 0, want_hn: bool = True):
+    """x (..., E) f32/bf16 [+ residual] -> (h, hn, act): h = x + residual
+    in x's dtype (None without a residual), hn = rms_norm(h, weight, eps)
+    in x's dtype (None unless want_hn), act the Q80Act of hn at
+    group_size (None at 0); kernel ``rms_norm_q80`` on the card."""
+    if x.device.type == "cpu":
+        return rms_norm_q80_plain(x, weight, eps, residual, group_size,
+                                  want_hn)
+    E = x.shape[-1]
+    if (x.dtype not in _TYPES or weight.shape != (E,)
+            or (residual is not None and (residual.shape != x.shape
+                                          or residual.dtype != x.dtype))):
+        raise ValueError(f"rms_norm_q80 takes f32/bf16 (..., E) x, a "
+                         f"residual like it and an (E,) weight, got x "
+                         f"{x.dtype} {tuple(x.shape)}, weight "
+                         f"{tuple(weight.shape)}, residual "
+                         f"{None if residual is None else tuple(residual.shape)}")
+    T, P = plan(E)
+    _check_group(E, group_size, T)
+    lead = x.shape
+    x2 = x.reshape(-1, E).contiguous()
+    B = x2.shape[0]
+    a2 = None if residual is None else residual.reshape(-1, E).contiguous()
+    w = weight.float().contiguous()
+    h = None if a2 is None else torch.empty_like(x2)
+    hn = torch.empty_like(x2) if want_hn else None
+    xq, sa = _outputs(B, E, group_size, x.device)
+    vec = _aligned(*(t for t in (x2, a2, h, hn, w) if t is not None))
+    fn = _build.lib("norm_quant").rms_norm_q80
+    rc = fn(x2.data_ptr(), _ptr(a2), w.data_ptr(), _ptr(h), _ptr(hn),
+            _ptr(xq), _ptr(sa), int(x.dtype == torch.bfloat16), B, E, eps,
+            group_size, T, P, int(vec), _build.stream(x2))
+    rms_norm_q80.launches += 1
+    _build.check(rc, "rms_norm_q80")
+    return (None if h is None else h.reshape(lead),
+            None if hn is None else hn.reshape(lead),
+            None if xq is None else Q80Act(xq, sa, lead))
+
+
+rms_norm_q80.launches = 0
+
+
+def swiglu_q80(h13: torch.Tensor, group_size: int = 0,
+               want_hidden: bool = True):
+    """h13 (..., 2F) f32/bf16 = [h1 | h3] -> (hidden, act): hidden =
+    silu(h1) * h3 (..., F) in h13's dtype (None unless want_hidden), act
+    its Q80Act at group_size (None at 0); kernel ``swiglu_q80`` on the
+    card."""
+    if h13.device.type == "cpu":
+        return swiglu_q80_plain(h13, group_size, want_hidden)
+    if h13.dtype not in _TYPES or h13.shape[-1] % 2:
+        raise ValueError(f"swiglu_q80 takes f32/bf16 (..., 2F), got "
+                         f"{h13.dtype} {tuple(h13.shape)}")
+    Fh = h13.shape[-1] // 2
+    T, P = plan(Fh)
+    _check_group(Fh, group_size, T)
+    lead = (*h13.shape[:-1], Fh)
+    x2 = h13.reshape(-1, 2 * Fh).contiguous()
+    B = x2.shape[0]
+    y = (torch.empty((B, Fh), dtype=h13.dtype, device=h13.device)
+         if want_hidden else None)
+    xq, sa = _outputs(B, Fh, group_size, h13.device)
+    vec = _aligned(*(t for t in (x2[:, :Fh], y) if t is not None))
+    fn = _build.lib("norm_quant").swiglu_q80
+    rc = fn(x2.data_ptr(), _ptr(y), _ptr(xq), _ptr(sa),
+            int(h13.dtype == torch.bfloat16), B, Fh, group_size, T, P,
+            int(vec), _build.stream(x2))
+    swiglu_q80.launches += 1
+    _build.check(rc, "swiglu_q80")
+    return (None if y is None else y.reshape(lead),
+            None if xq is None else Q80Act(xq, sa, torch.Size(lead)))
+
+
+swiglu_q80.launches = 0

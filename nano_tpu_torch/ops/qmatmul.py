@@ -16,7 +16,10 @@ Two numerics forms, chosen per tensor at load (``Q80Tensor.w8a8``):
   step, and the LM head, which runs on the last position only) takes one
   kernel with the quantization folded in (``q80_matvec_fq``); more rows
   (a batched decode step, prefill's layer products) take two,
-  ``act_quant_q80`` then ``q80_w8a8`` on the int8 tensor cores.
+  ``act_quant_q80`` then ``q80_w8a8`` on the int8 tensor cores.  An
+  activation that arrives already quantized (``Q80Act``: the cached
+  forward's norms and SwiGLU write it, ``ops/norm_quant.py``) goes
+  straight to ``q80_w8a8``.
 * rows (``q80_matmul_rows``), below group size 256: f32 dequant and an
   f32 dot — the math of the TPU kernel ``_q80_kernel``.
 
@@ -73,6 +76,24 @@ class Q80Tensor:
         w = self.q.to(dtype).reshape(*lead, out, inn // g, g)
         w = w * self.scales[..., None].to(dtype)
         return w.reshape(*lead, out, inn)
+
+
+@dataclass
+class Q80Act:
+    """An activation (..., K) quantized as ``act_quant_q80`` quantizes it,
+    by the kernel that produced it (``ops/norm_quant.py``).
+
+    xq:    int8, shape (B, G, gs), B the rows of the activation
+    sa:    f32,  shape (B, G)
+    shape: the activation's shape (..., K)
+    """
+    xq: torch.Tensor
+    sa: torch.Tensor
+    shape: torch.Size
+
+    @property
+    def group_size(self) -> int:
+        return self.xq.shape[-1]
 
 
 # =====================================================================
@@ -203,12 +224,31 @@ def w8a8_smem(MB: int, BN: int, CS: int, S: int) -> int:
     return int8_mma.smem(_w8a8_stage(MB, BN), MB, BN, CS, S)
 
 
+# the slots at which int8_mma.plan's cluster fixes a product's ranges
+RANGES_AT = 64
+
+
+def w8a8_ranges(N: int, K: int, group_size: int,
+                n_sm: int = _build.H100_SMS) -> int:
+    """The ranges into which both W8A8 kernels split a row's groups when
+    they add its group terms (csrc/q80_matmul.cu:RangeSum): the cluster
+    ``int8_mma.plan`` picks for the product at RANGES_AT slots (a batched
+    step at 64 slots, a 64-token prefill).  q80_matmul_w8a8 takes that
+    cluster at every batch size, a block one range, and q80_matvec_fq
+    walks the same ranges, so that a row gets the same bits in every
+    batch and alone."""
+    return int8_mma.plan(RANGES_AT, N, N * K, K // group_size,
+                         group_size // W8A8_KC, _w8a8_stage, n_sm)[2]
+
+
 def w8a8_plan(B: int, N: int, K: int, group_size: int,
               n_sm: int = _build.H100_SMS) -> Tuple[int, int, int, int]:
     """-> (MB, BN, CS, S) of ``q80_matmul_w8a8``: ``int8_mma.plan`` with the
-    groups of K split over a cluster, each group_size / W8A8_KC stages."""
+    groups of K split over a cluster of ``w8a8_ranges`` blocks, each
+    group_size / W8A8_KC stages."""
     return int8_mma.plan(B, N, N * K, K // group_size,
-                         group_size // W8A8_KC, _w8a8_stage, n_sm)
+                         group_size // W8A8_KC, _w8a8_stage, n_sm,
+                         cluster=w8a8_ranges(N, K, group_size, n_sm))
 
 
 def q80_w8a8(xq: torch.Tensor, sa: torch.Tensor, w: Q80Tensor,
@@ -273,13 +313,18 @@ def matvec_plan(N: int, K: int, group_size: int, n_sm: int = _build.H100_SMS
     graph): up to two blocks an SM and at least 4 rows a block; where a
     block walks many tiles (the head), 8 lanes a row and tiles of 32 rows,
     one pass of the block; else a warp a row and tiles of 8 rows, so that
-    the dot of one tile runs while the next arrives; at most
+    the dot of one tile runs while the next arrives, or at group size 256
+    and K <= 1024 a half-warp a row (a group a step, so a row's terms need
+    no exchange between halves: chip_smoke.py bench q80 on an H100, 0.87x
+    and 0.96x the warp's time at wqkv and w13, 1.09x and 1.11x at wo and
+    w2); at most
     MATVEC_STAGE_BYTES of weights a stage; as many stages as the block has
     tiles, up to MATVEC_MAX_STAGES and within MATVEC_SMEM."""
     G = K // group_size
     blocks = max(1, min(2 * n_sm, -(-N // 4)))
     per_block = -(-N // blocks)
-    T = 8 if per_block >= 64 else 32
+    T = (8 if per_block >= 64 else 16 if group_size == 256 and K <= 1024
+         else 32)
     R = max(1, min(256 // T, per_block, MATVEC_STAGE_BYTES // K))
     S = min(MATVEC_MAX_STAGES, -(-per_block // R))
     while S > 1 and matvec_smem(K, G, R, S) > MATVEC_SMEM:
@@ -312,13 +357,14 @@ def q80_matvec_fq(x: torch.Tensor, w: Q80Tensor, dtype=torch.bfloat16,
     if with_act:
         xq = torch.empty((1, K // gs, gs), dtype=torch.int8, device=x.device)
         sa = torch.empty((1, K // gs), dtype=torch.float32, device=x.device)
-    blocks, R, S, T = matvec_plan(N, K, gs, _build.sm_count(x.device))
+    n_sm = _build.sm_count(x.device)
+    blocks, R, S, T = matvec_plan(N, K, gs, n_sm)
     fn = _build.lib("q80_matmul").q80_matvec_fq
     rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), w.q.data_ptr(),
             w.scales.data_ptr(), y.data_ptr(), int(dtype == torch.bfloat16),
             xq.data_ptr() if with_act else None,
             sa.data_ptr() if with_act else None, K, N, gs, blocks, R, S, T,
-            _build.stream(x))
+            w8a8_ranges(N, K, gs, n_sm), _build.stream(x))
     q80_matvec_fq.launches += 1
     _build.check(rc, "q80_matvec_fq")
     return (y, xq, sa) if with_act else y
@@ -327,11 +373,15 @@ def q80_matvec_fq(x: torch.Tensor, w: Q80Tensor, dtype=torch.bfloat16,
 q80_matvec_fq.launches = 0
 
 
-def q80_matmul_int8(x: torch.Tensor, w: Q80Tensor,
-                    dtype=torch.bfloat16) -> torch.Tensor:
+def q80_matmul_int8(x, w: Q80Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     """W8A8 form: x (B, K) -> (B, out) in `dtype`.  One row takes
     ``q80_matvec_fq`` (one kernel on the card); more rows ``act_quant_q80``
-    then ``q80_w8a8`` (two)."""
+    then ``q80_w8a8`` (two); a ``Q80Act`` ``q80_w8a8`` alone."""
+    if isinstance(x, Q80Act):
+        if x.group_size != w.group_size:
+            raise ValueError(f"activation quantized at group size "
+                             f"{x.group_size}, weight at {w.group_size}")
+        return q80_w8a8(x.xq, x.sa, w, dtype)
     if x.shape[0] == 1:
         return q80_matvec_fq(x, w, dtype)
     xq, sa = act_quant_q80(x.contiguous(), w.group_size)
@@ -363,13 +413,17 @@ def q80_matmul_rows(x: torch.Tensor, w: Q80Tensor,
 q80_matmul_rows.launches = 0
 
 
-def q80_matmul(x: torch.Tensor, w: Q80Tensor, dtype=torch.bfloat16
-               ) -> torch.Tensor:
+def q80_matmul(x, w: Q80Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     """x (..., in) @ dequant(w).T -> (..., out) in `dtype`, in the form
-    the weight was loaded for (W8A8 or rows)."""
+    the weight was loaded for (W8A8 or rows); x a tensor, or a ``Q80Act``
+    for a W8A8 weight."""
     if w.q.dim() != 2:
         raise ValueError("index stacked weights with Q80Tensor.layer(i)")
     lead = x.shape[:-1]
+    if isinstance(x, Q80Act):
+        if not w.w8a8:
+            raise ValueError("a quantized activation needs a W8A8 weight")
+        return q80_matmul_int8(x, w, dtype).reshape(*lead, w.out_dim)
     x2 = x.reshape(-1, w.in_dim)
     fn = q80_matmul_int8 if w.w8a8 else q80_matmul_rows
     return fn(x2, w, dtype).reshape(*lead, w.out_dim)

@@ -107,12 +107,14 @@ def test_plain_matches_pallas_interpret_bf16_q_and_edge_positions(
                                     (8, 32768), (4, 100)])
 def test_split_choice_fills_the_card_and_covers_every_row_once(B, n_kv, T,
                                                                n_sm):
-    """`choose_splits` is pure Python on shapes (it is never handed `pos`):
-    the chunks tile [0, T) exactly once in order, at most MAX_SPLITS of
-    them; the grid B * KV * n_split stays within two blocks per SM unless
-    B * KV alone exceeds that (then one block per head), and reaches one
-    block per SM wherever T has MIN_CHUNK rows for each split."""
-    chunk, n_split = tda.choose_splits(B, n_kv, T, n_sm)
+    """`choose_splits` is pure Python on shapes (it is never handed `pos`)
+    and never sees the batch, so that a row's partials and their merge are
+    the same at every B: the chunks tile [0, T) exactly once in order, at
+    most MAX_SPLITS of them; one row's grid KV * n_split stays within two
+    blocks per SM unless KV alone exceeds that (then one block per head),
+    and reaches one block per SM wherever T has MIN_CHUNK rows for each
+    split; B rows take it in blocks of splits_per_block splits."""
+    chunk, n_split = tda.choose_splits(n_kv, T, n_sm)
     assert 1 <= n_split <= tda.MAX_SPLITS
     assert n_split == -(-T // chunk)
     # every row t in [0, T) (so every t <= pos) lies in exactly one split
@@ -120,16 +122,25 @@ def test_split_choice_fills_the_card_and_covers_every_row_once(B, n_kv, T,
     for s in range(n_split):
         covered[s * chunk:min((s + 1) * chunk, T)] += 1
     assert (covered == 1).all()
-    blocks = B * n_kv * n_split
-    if B * n_kv >= 2 * n_sm:
+    row_blocks = n_kv * n_split
+    if n_kv >= 2 * n_sm:
         assert n_split == 1
     else:
-        assert blocks <= 2 * n_sm
+        assert row_blocks <= 2 * n_sm
         could = min(tda.MAX_SPLITS, -(-T // tda.MIN_CHUNK))   # splits T allows
-        if B * n_kv * could >= 2 * n_sm:
-            assert blocks >= n_sm
+        if n_kv * could >= 2 * n_sm:
+            assert row_blocks >= n_sm
         elif n_split < could:
-            assert B * n_kv * (n_split + 1) > 2 * n_sm
+            assert n_kv * (n_split + 1) > 2 * n_sm
+    # B rows: each block takes per_block splits in turn (each its own
+    # partial), so that the grid stays near two blocks per SM; it moves the
+    # grid only
+    per = tda.splits_per_block(B, n_kv, n_split, n_sm)
+    assert 1 <= per <= n_split
+    grid = B * n_kv * -(-n_split // per)
+    assert grid <= 2 * n_sm or per == n_split
+    if per > 1:   # the fewest that do
+        assert B * n_kv * -(-n_split // (per - 1)) > 2 * n_sm
     # a position anywhere leaves the splits past it empty and the rest whole
     for p in (0, chunk - 1, chunk, T - 1):
         active = min(n_split, p // chunk + 1)
@@ -142,7 +153,8 @@ def test_wrapper_never_reads_pos_on_the_host():
     pointer without `.item()`, `.tolist()`, `.cpu()` or `int(pos...)`."""
     import inspect
     src = inspect.getsource(tda.decode_attention)
-    assert "choose_splits(B, n_kv, T" in src
+    assert "choose_splits(n_kv, T" in src
     for banned in (".item()", ".tolist()", ".cpu()", "int(pos"):
         assert banned not in src, banned
-    assert "pos" not in inspect.signature(tda.choose_splits).parameters
+    params = inspect.signature(tda.choose_splits).parameters
+    assert "pos" not in params and "B" not in params

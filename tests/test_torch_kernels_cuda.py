@@ -15,6 +15,7 @@ import torch
 
 from nano_tpu_torch.ops import decode_attn as tda
 from nano_tpu_torch.ops import flash_attn as tfa
+from nano_tpu_torch.ops import norm_quant as tnq
 from nano_tpu_torch.ops import q4k as tq4
 from nano_tpu_torch.ops import qmatmul as tqm
 
@@ -342,7 +343,7 @@ def test_decode_attention_kernel_shapes_it_is_built_for(D, rep, q_dtype):
     n_kv, T = 2, 512
     for cache_dtype in (torch.bfloat16, torch.int8, torch.float32):
         args = _decode_case(rng, 1, T, n_kv, rep, D, cache_dtype, q_dtype)
-        chunk, n_split = tda.choose_splits(1, n_kv, T)
+        chunk, n_split = tda.choose_splits(n_kv, T)
         assert n_split > 2
         for p in (0, T - 1, chunk + chunk // 2, 2 * chunk - 1, 2 * chunk):
             pos = torch.tensor([p], dtype=torch.int32, device="cuda")
@@ -916,3 +917,283 @@ def test_stochastic_sampling_under_the_graph():
     a = engine.generate_on_device(ctx, ids, 40).tolist()
     b = engine.generate_on_device(ctx, ids, 40).tolist()
     assert a == b and all(0 <= t < ctx.cfg.vocab_size for t in a)
+
+
+def _ulps(a, b):
+    """The distance in units in the last place between two tensors of one
+    float dtype (f32 or bf16), element by element."""
+    it, mag = ((torch.int16, 0x7FFF) if a.dtype == torch.bfloat16
+               else (torch.int32, 0x7FFFFFFF))
+    mono = lambda t: (lambda i: torch.where(i < 0, -(i & mag), i))(
+        t.contiguous().view(it).long())
+    return (mono(a) - mono(b)).abs()
+
+
+def _rms_norm_kernel_order(h, w, eps):
+    """rms_norm of h (B, E) with the sum of squares taken in rms_norm_q80's
+    order (tnq.plan: T threads of P chunks of 4 values; a thread's squares
+    in order, a warp's xor butterfly, the warps' sums in order), each step
+    an f32 PyTorch op.  -> (hn in h's dtype, the f32 factor (B, 1))."""
+    B, E = h.shape
+    T, P = tnq.plan(E)
+    hf = h.float()
+    sq = torch.zeros(B, P * T * 4, device=h.device)
+    sq[:, :E] = hf * hf
+    sq = sq.view(B, P, T, 4)
+    s = torch.zeros(B, T, device=h.device)
+    for p in range(P):
+        for j in range(4):
+            s = s + sq[:, p, :, j]
+    s = s.view(B, T // 32, 32)
+    lane = torch.arange(32, device=h.device)
+    for off in (16, 8, 4, 2, 1):
+        s = s + s[:, :, lane ^ off]
+    tot = torch.zeros(B, device=h.device)
+    for k in range(T // 32):
+        tot = tot + s[:, k, 0]
+    r = torch.rsqrt(tot * (torch.ones((), device=h.device) / E) + eps)[:, None]
+    return ((hf * r) * w.float()).to(h.dtype), r
+
+
+def _check_hn(hn, h, w, eps):
+    """hn torch.equal to the eager ops summed in the kernel's order; against
+    eager rms_norm within one bf16 ulp, or 2 k + 2 f32 ulps in a row whose
+    two f32 factors rsqrt(mean + eps) are k apart (an f32 value's ulp may
+    be half the factor's, relatively, and each of the two products'
+    roundings adds one).  -> the largest distance from eager, in ulps."""
+    ordered, r_k = _rms_norm_kernel_order(h, w, eps)
+    assert torch.equal(hn, ordered)
+    hf = h.float()
+    r_e = torch.rsqrt(torch.mean(hf * hf, dim=-1, keepdim=True) + eps)
+    k = _ulps(r_k, r_e)
+    u = _ulps(hn, tnq.rms_norm(h, w, eps)).amax(dim=-1, keepdim=True)
+    limit = (torch.ones_like(k) if hn.dtype == torch.bfloat16
+             else torch.where(k > 0, 2 * k + 2, 0))
+    assert bool((u <= limit).all())
+    return int(u.max())
+
+
+def _norm_quant_inputs(rng, B, E, dtype, zero_row=True):
+    x = torch.from_numpy(rng.randn(B, E).astype(np.float32) * 2).to(
+        "cuda", dtype)
+    a = torch.from_numpy(rng.randn(B, E).astype(np.float32)).to("cuda", dtype)
+    if zero_row and B > 2:
+        x[2] = 0
+        a[2] = 0
+    return x, a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 8, 64, 65])
+def test_rms_norm_q80_matches_eager(B, dtype):
+    """At the Qwen3-0.6B width (E = 1024), with and without the residual,
+    at group sizes 0, 256 and 512: h torch.equal to the eager add; hn as
+    _check_hn holds it (torch.equal to the eager ops summed in the kernel's
+    order, near eager rms_norm); xq and sa torch.equal to q80_act_quant (and its plain
+    version) of the kernel's own hn; the Q80 outputs the same with and
+    without hn; two runs bit-equal; an all-zero row scale 0 and values 0."""
+    _need_card()
+    rng = np.random.RandomState(B)
+    E, eps = 1024, 1e-6
+    x, a = _norm_quant_inputs(rng, B, E, dtype)
+    w = torch.from_numpy(1 + 0.1 * rng.randn(E).astype(np.float32)).cuda()
+    worst = 0
+    for res in (None, a):
+        want_h = x if res is None else x + res
+        for gs in (0, 256, 512):
+            h, hn, act = tnq.rms_norm_q80(x, w, eps, res, gs)
+            h2, hn2, act2 = tnq.rms_norm_q80(x, w, eps, res, gs)
+            _, none, act3 = tnq.rms_norm_q80(x, w, eps, res, gs,
+                                             want_hn=False)
+            torch.cuda.synchronize()
+            if res is None:
+                assert h is None
+            else:
+                assert torch.equal(h, want_h) and torch.equal(h2, h)
+            assert hn.dtype == dtype and torch.equal(hn2, hn) and none is None
+            worst = max(worst, _check_hn(hn, want_h, w, eps))
+            if not gs:
+                assert act is None and act3 is None
+                continue
+            kq, ks = tqm.act_quant_q80(hn, gs)
+            pq, ps = tqm.act_quant_q80_plain(hn, gs)
+            assert torch.equal(act.xq, kq) and torch.equal(act.sa, ks)
+            assert torch.equal(act.xq, pq) and torch.equal(act.sa, ps)
+            for other in (act2, act3):
+                assert (torch.equal(other.xq, act.xq)
+                        and torch.equal(other.sa, act.sa))
+            assert act.shape == x.shape and act.group_size == gs
+            if B > 2:
+                assert (act.sa[2] == 0).all() and (act.xq[2] == 0).all()
+    print(f"rms_norm_q80 B={B} {dtype}: hn at most {worst} ulp from eager")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 8, 64, 65])
+def test_swiglu_q80_matches_eager(B, dtype):
+    """At the Qwen3-0.6B width (2F = 6144), at group sizes 0, 256 and 512:
+    the output torch.equal to eager F.silu(h1) * h3 on the card; xq and sa
+    torch.equal to q80_act_quant of it; two runs bit-equal; an all-zero row
+    scale 0 and values 0."""
+    _need_card()
+    rng = np.random.RandomState(100 + B)
+    Fh = 3072
+    h13, _ = _norm_quant_inputs(rng, B, 2 * Fh, dtype)
+    want = torch.nn.functional.silu(h13[:, :Fh]) * h13[:, Fh:]
+    for gs in (0, 256, 512):
+        y, act = tnq.swiglu_q80(h13, gs)
+        y2, act2 = tnq.swiglu_q80(h13, gs)
+        none, act3 = tnq.swiglu_q80(h13, gs, want_hidden=False)
+        torch.cuda.synchronize()
+        assert torch.equal(y, want) and torch.equal(y2, y) and none is None
+        if not gs:
+            assert act is None and act3 is None
+            continue
+        kq, ks = tqm.act_quant_q80(y, gs)
+        assert torch.equal(act.xq, kq) and torch.equal(act.sa, ks)
+        for other in (act2, act3):
+            assert torch.equal(other.xq, act.xq) and torch.equal(other.sa, act.sa)
+        if B > 2:
+            assert (act.sa[2] == 0).all() and (act.xq[2] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_norm_quant_rows_do_not_depend_on_the_row_count(dtype):
+    """A row's h, hn, xq and sa (and SwiGLU's output and Q80 outputs) are
+    the same bits in a launch of one row as inside one of 64."""
+    _need_card()
+    rng = np.random.RandomState(7)
+    E, Fh, eps = 1024, 3072, 1e-6
+    x, a = _norm_quant_inputs(rng, 64, E, dtype)
+    h13, _ = _norm_quant_inputs(rng, 64, 2 * Fh, dtype)
+    w = torch.from_numpy(1 + 0.1 * rng.randn(E).astype(np.float32)).cuda()
+    h, hn, act = tnq.rms_norm_q80(x, w, eps, a, 256)
+    y, yact = tnq.swiglu_q80(h13, 256)
+    for r in (0, 2, 37, 63):
+        h1, hn1, act1 = tnq.rms_norm_q80(x[r:r + 1], w, eps, a[r:r + 1], 256)
+        y1, yact1 = tnq.swiglu_q80(h13[r:r + 1], 256)
+        torch.cuda.synchronize()
+        assert torch.equal(h1[0], h[r]) and torch.equal(hn1[0], hn[r])
+        assert torch.equal(act1.xq[0], act.xq[r])
+        assert torch.equal(act1.sa[0], act.sa[r])
+        assert torch.equal(y1[0], y[r]) and torch.equal(yact1.xq[0], yact.xq[r])
+        assert torch.equal(yact1.sa[0], yact.sa[r])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,gs", [(64, 32), (48, 16), (768, 256),
+                                  (4096, 512), (8192, 256), (50, 0)])
+def test_norm_quant_small_wide_and_unaligned_rows(E, gs):
+    """Widths below a warp's chunk, several passes (8192) and a width that
+    is not a multiple of 4 (scalar loads); rows that start off an aligned
+    boundary (views at an odd offset) take scalar loads too: the same
+    checks as at the Qwen3-0.6B width."""
+    _need_card()
+    rng = np.random.RandomState(E + gs)
+    eps = 1e-5
+    for dtype in (torch.float32, torch.bfloat16):
+        buf = torch.from_numpy(rng.randn(5 * E + 1).astype(np.float32)).to(
+            "cuda", dtype)
+        w = torch.from_numpy(1 + 0.1 * rng.randn(E).astype(np.float32)).cuda()
+        for x, a in ((buf[:4 * E].view(4, E), buf[E:5 * E].view(4, E)),
+                     (buf[1:4 * E + 1].view(4, E), buf[E + 1:].view(4, E))):
+            h, hn, act = tnq.rms_norm_q80(x, w, eps, a, gs)
+            want_h = x + a
+            torch.cuda.synchronize()
+            assert torch.equal(h, want_h)
+            _check_hn(hn, want_h, w, eps)
+            if gs:
+                pq, ps = tqm.act_quant_q80_plain(hn, gs)
+                assert torch.equal(act.xq, pq) and torch.equal(act.sa, ps)
+            if E % 2 == 0:
+                y, yact = tnq.swiglu_q80(x, gs if gs and (E // 2) % gs == 0
+                                         else 0)
+                want = (torch.nn.functional.silu(x[:, :E // 2])
+                        * x[:, E // 2:])
+                torch.cuda.synchronize()
+                assert torch.equal(y, want)
+                if yact is not None:
+                    pq, ps = tqm.act_quant_q80_plain(y, yact.group_size)
+                    assert torch.equal(yact.xq, pq) and torch.equal(yact.sa, ps)
+
+
+@pytest.mark.cuda
+def test_norm_quant_refuses_bad_shapes_and_counts_launches():
+    _need_card()
+    x = torch.randn(3, 1024, device="cuda")
+    w = torch.ones(1024, device="cuda")
+    n0 = (tnq.rms_norm_q80.launches, tnq.swiglu_q80.launches)
+    tnq.rms_norm_q80(x, w, 1e-6, None, 256)
+    tnq.swiglu_q80(x, 512)
+    assert (tnq.rms_norm_q80.launches, tnq.swiglu_q80.launches) == (
+        n0[0] + 1, n0[1] + 1)
+    for bad in (lambda: tnq.rms_norm_q80(x, w, 1e-6, None, 384),
+                lambda: tnq.rms_norm_q80(x, w[:512], 1e-6),
+                lambda: tnq.rms_norm_q80(x.half(), w, 1e-6),
+                lambda: tnq.rms_norm_q80(x, w, 1e-6, x[:, :512]),
+                lambda: tnq.swiglu_q80(x[:, :1023]),
+                lambda: tnq.swiglu_q80(x, 1024)):
+        with pytest.raises(ValueError):
+            bad()
+    assert (tnq.rms_norm_q80.launches, tnq.swiglu_q80.launches) == (
+        n0[0] + 1, n0[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,gs", [(1024, 4096, 256), (2048, 1024, 256),
+                                    (1024, 6144, 256), (3072, 1024, 256),
+                                    (1024, 151936, 256), (768, 264, 256),
+                                    (1024, 384, 512)])
+def test_w8a8_rows_equal_the_matvec_at_every_batch(K, N, gs):
+    """q80_matmul_w8a8 and q80_matvec_fq add a row's group terms in one
+    order (csrc/q80_matmul.cu:RangeSum; the plan's cluster is
+    w8a8_ranges(G)): every row of a batch of 2, 8, 64 or 65 is torch.equal
+    to the same row through the B = 1 kernel, in f32 and bf16."""
+    _need_card()
+    rng = np.random.RandomState(K + N)
+    q, s = _q80(rng, N, K, gs)
+    w = tqm.Q80Tensor(q=torch.from_numpy(q).cuda(),
+                      scales=torch.from_numpy(s).cuda(), group_size=gs,
+                      w8a8=True)
+    for B in (2, 8, 64, 65):
+        x = torch.from_numpy(rng.randn(B, K).astype(np.float32)).to(
+            "cuda", torch.bfloat16)
+        for dt in (torch.float32, torch.bfloat16):
+            y = tqm.q80_w8a8(*tqm.act_quant_q80(x, gs), w, dt)
+            for i in range(B):
+                assert torch.equal(y[i], tqm.q80_matvec_fq(x[i:i + 1], w,
+                                                           dt)[0]), (B, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [32, 128, 256, 1024])
+def test_decode_attention_rows_do_not_depend_on_the_batch(T):
+    """The split comes from (KV, T) alone: every row of a batch of 8 or 64
+    is torch.equal to the same row alone, bf16 and int8 caches."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(T)
+    KV, rep, D = 8, 2, 128
+    for B in (8, 64):
+        q = torch.randn(B, KV * rep, D, device="cuda", generator=g).to(
+            torch.bfloat16)
+        pos = torch.randint(0, T, (B,), dtype=torch.int32, device="cuda",
+                            generator=g)
+        k = torch.randn(B, T, KV, D, device="cuda", generator=g)
+        v = torch.randn(B, T, KV, D, device="cuda", generator=g)
+        ks = torch.rand(B, T, KV, device="cuda", generator=g) * 0.02
+        vs = torch.rand(B, T, KV, device="cuda", generator=g) * 0.02
+        for kc, vc, ksc, vsc in (
+                (k.to(torch.bfloat16), v.to(torch.bfloat16), None, None),
+                ((k * 40).clamp(-127, 127).to(torch.int8),
+                 (v * 40).clamp(-127, 127).to(torch.int8), ks, vs)):
+            out = tda.decode_attention(q, kc, vc, ksc, vsc, pos, KV, rep)
+            for i in range(B):
+                one = tda.decode_attention(
+                    q[i:i + 1], kc[i:i + 1], vc[i:i + 1],
+                    None if ksc is None else ksc[i:i + 1],
+                    None if vsc is None else vsc[i:i + 1], pos[i:i + 1], KV,
+                    rep)
+                assert torch.equal(out[i], one[0]), (B, i)

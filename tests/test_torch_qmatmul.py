@@ -148,7 +148,7 @@ def test_matvec_plan_covers_the_rows_and_fits(N, K, gs):
     assert edges[0] == 0 and edges[-1] == N
     assert all(b > a for a, b in zip(edges, edges[1:]))
     sms = tqm._build.H100_SMS
-    assert 1 <= blocks <= 2 * sms and T in (8, 32)
+    assert 1 <= blocks <= 2 * sms and T in (8, 16, 32)
     if N >= 2 * sms * 4:      # every SM gets work
         assert blocks == 2 * sms
     assert 1 <= S <= tqm.MATVEC_MAX_STAGES and 1 <= R <= 256 // T
@@ -158,7 +158,8 @@ def test_matvec_plan_covers_the_rows_and_fits(N, K, gs):
         assert (R, S, T) == (32, 3, 8)
     elif K <= 3072 and N <= 6144:      # every tile of a block in flight at once
         per_block = -(-N // blocks)
-        assert T == 32 and R == min(8, per_block) and R * S >= per_block
+        assert T == (16 if gs == 256 and K <= 1024 else 32)
+        assert R == min(256 // T, per_block) and R * S >= per_block
 
 
 # the five Qwen3-0.6B products: (N, K)
@@ -216,10 +217,19 @@ def _tile_blocks(B, N, pieces, plan):
 
 def _w8a8_plan_checks(B, N, K, gs):
     _plan_checks(B, N, K // gs, gs // tqm.W8A8_KC, N * K,
-                 tqm.w8a8_plan(B, N, K, gs), tqm.w8a8_smem)
+                 tqm.w8a8_plan(B, N, K, gs), tqm.w8a8_smem,
+                 cluster_fixed=True)
+    # a cluster of w8a8_ranges blocks at every B, the plan's own choice at
+    # RANGES_AT slots: each block one range of the kernels' order of
+    # summation (csrc/q80_matmul.cu:RangeSum)
+    R = tqm.w8a8_ranges(N, K, gs)
+    assert tqm.w8a8_plan(B, N, K, gs)[2] == R
+    assert R == int8_mma.plan(tqm.RANGES_AT, N, N * K, K // gs,
+                              gs // tqm.W8A8_KC, tqm._w8a8_stage)[2]
 
 
-def _plan_checks(B, N, G, piece_chunks, weight_bytes, plan, smem):
+def _plan_checks(B, N, G, piece_chunks, weight_bytes, plan, smem,
+                 cluster_fixed=False):
     MB, BN, CS, S = plan
     blocks = _tile_blocks(B, N, G, plan)
     count = np.zeros((N, B, G), np.int8) if N * B * G <= 2e7 else None
@@ -248,8 +258,10 @@ def _plan_checks(B, N, G, piece_chunks, weight_bytes, plan, smem):
     assert n_blocks == -(-N // MB) * CS * -(-B // BN)
     if B <= (32 if in_l2 else 64):
         assert -(-B // BN) == 1   # one slot tile: each weight byte read once
-    # 1.5 blocks for every SM, or the split can grow no further
-    assert 2 * n_blocks >= 3 * tqm._build.H100_SMS or 2 * CS > min(8, G)
+    # 1.5 blocks for every SM, or the split can grow no further (where the
+    # product fixes its cluster, q80_matmul_w8a8's, the rule that fixed it)
+    if not cluster_fixed:
+        assert 2 * n_blocks >= 3 * tqm._build.H100_SMS or 2 * CS > min(8, G)
     chunks = -(-G // CS) * piece_chunks
     most = int8_mma.MAX_STAGES if n_blocks < 4 * tqm._build.H100_SMS else 2
     assert 1 <= S <= min(most, chunks)
