@@ -46,8 +46,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   least time the card needs for the bytes and operations
   4. tiny fixtures tests/js/fixtures/tiny_q80.bin and tiny_q4k.bin, greedy
                   through generate_sync (a graph replay a token) and
-                  generate_on_device (graph replays), must give
-                  expected.json's streams; tiny_q80.bin through
+                  generate_on_device (graph replays), and both again with
+                  spec_k = 7 (verify rounds replayed from their graphs),
+                  must give expected.json's streams; tiny_q80.bin through
                   BatchedEngine, joined after two other streams, too
   5. full width   a Qwen3-0.6B-shaped Q80 model (group size 256) and a
                   Q4K model (tied head requantized to Q80), random weights
@@ -89,6 +90,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   B > 1 paths, rebound here, must read above it), and 8
                   and 64 slots timed with its B > 1 products through K3's int8
                   kernels and, rebound here, through the pair they replaced
+  5c. speculative decode (spec_phase) on both full-width models:
+                  generate_on_device with spec_k = SPEC_K against plain in
+                  turns on phase 5's prompt and a repeated 8-token pattern
+                  (tok/s, tokens a round, the agreeing prefix, launches of
+                  each replayed round asserted), a round's card ms at k = 1,
+                  3, 7 beside the plain step's (busy ms by the profiler),
+                  verify rounds' logits row by row against the plain
+                  step's within SPEC_LOGITS_TOL and a control above it,
+                  a Session's k trajectory, BatchedEngine at 8 slots (a
+                  sampled slot whose stream must be the plain engine's)
+                  and 64, spec against plain in turns, and one 64-slot
+                  speculative burst profiled
   6. training     Nano-168M (config/model_168m.json: 24 layers, width 768,
                   16/8 heads of 48) under config/pretrain.json (batch 64 x
                   512, bf16, remat "ffn"), random weights from the config's
@@ -106,6 +119,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   remat) for 3 steps with its launch counts and a falling
                   loss; and one f32 step (4 layers, batch 2) on the card
                   against the same step on the CPU through the plain versions
+
+Phase 3 also holds K1 (q80_matmul_w8a8, every row torch.equal to the
+B = 1 kernel's), K3 at B > 1 and the norm kernels at the row counts of a
+verify round (SPEC_ROWS: k + 1 and B (k + 1)).
 
 Phase 3 also holds the two flash-attention kernels (forward, backward)
 against the plain version at every head width (the Nano-168M, Nano-56M and
@@ -125,7 +142,7 @@ attention launches both on f32 q and as the model feeds them (bf16 q,
 result cast to bf16).
 
 `python3 chip_smoke.py bench [flash [clocks]] [decode] [q4k [batched]] [q80
-[batched [sweep] [clocks]]] [pipes]` runs none of the phases: it times the two
+[batched [sweep] [clocks]]] [pipes] [spec]` runs none of the phases: it times the two
 attention kernels alone beside SDPA (the flash forward and backward, a
 ladder over the decode kernel's rows per block), a Q4K decode step's
 matmuls with the fake-quant folded in or not, a Q80 decode step's W8A8
@@ -139,7 +156,7 @@ the kernel; `clocks`: where a block's time goes).  `bench q4k batched`
 times K3 at B > 1 the same way: a Q4K forward's 112 layer products at 8 and
 64 rows, by product, q4k_matmul_w4a4 alone, with q4k_act_quant, the pair it
 replaced (q4k_fake_quant + q4k_matmul) and the bf16 torch.matmul, beside
-the bound.
+the bound.  `bench spec` runs phase 5c alone.
 
 The last two lines of stdout are one JSON object listing the kernels and
 then {"ok": true, "device": {...}}.  Without a CUDA device the script
@@ -155,6 +172,7 @@ import shutil
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
@@ -198,6 +216,26 @@ BATCH_NEW4 = 32
 # (0.0 in every run so far) and its two controls, faulty B > 1 paths that
 # must read above it (see k3_route)
 Q4K_BATCH_TOL = 1e-3
+# rows of the products in a speculative verify round: k + 1 for one stream
+# (k = 1, 2, 4, 7, 8) and B (k + 1) batched (8 slots at k = 1 and 4, 64 at
+# k = 4); phase 3 holds the kernels at these row counts too
+SPEC_ROWS = (2, 3, 5, 8, 9, 16, 40, 320)
+# phase 5c: the draft caps of generate_on_device, Session and BatchedEngine
+SPEC_K, SPEC_SESSION_K, SPEC_BATCH_K = 7, 8, 4
+# phase 5c: verify rounds of 8 rows held row by row against the plain step
+SPEC_LOGIT_ROUNDS = 8
+# a verify row's logits against the plain step's at the same prefix, of
+# max|logit|, by model: the round attends by einsum where the plain step
+# has the decode kernel (both with f32 probabilities, summed in other
+# orders), so the bf16 heads differ in an ulp here and there, which the next
+# product's activation quantization can turn into a flipped int8 or 4-bit
+# step, compounding over 28 random layers.  Each limit lies between the
+# reading and its control, the causal mask shifted by one position (each
+# row also sees the next row), which must read above it: Q80 0.108 against
+# 1.22, Q4K 3.16e-3 against 5.38e-3 on an NVIDIA H100 80GB HBM3 at 700 W
+# (its random weights, positive on average, make the model nearly blind
+# to which rows it attends: a weak control)
+SPEC_LOGITS_TOL = {"Q80": 0.25, "Q4K": 4e-3}
 
 
 def log(*a):
@@ -292,30 +330,44 @@ def profile_steps(torch, step, n, keys, expect):
     """torch.profiler over n calls of step() -> ({kernel: busy ms in all
     calls} for the kernels of `keys` that `expect` counts, plus "other";
     {kernel of `keys`: launches the profiler saw in all calls}; kernels in
-    all calls; wall ms a call with the profiler on)."""
+    all calls; wall ms a call with the profiler on; {name: busy ms in all
+    calls} of the kernels in "other")."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    # one short spin kernel before and one after the window, left out of
+    # the sums: the trace drops a record at its ends now and then, which
+    # is then none of the window's
+    edge = lambda: torch.cuda._sleep(1000)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        edge()
+        torch.cuda.synchronize()
         t0 = time.time()
         for _ in range(n):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3 / n
+        edge()
+        torch.cuda.synchronize()
     groups = {name: 0.0 for _, name in keys if expect.get(name)}
     groups["other"] = 0.0
     seen = {name: 0 for _, name in keys}
+    others = {}
     n_kernels = 0
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or "spin_kernel" in e.key):
             continue
         n_kernels += e.count
         name = next((name for sub, name in keys if sub in e.key), None)
         if name is not None:
             seen[name] += e.count
         key = name if name in groups else "other"
-        groups[key] += getattr(e, "self_device_time_total", 0.0) / 1e3
-    return groups, seen, n_kernels, wall_ms
+        ms = getattr(e, "self_device_time_total", 0.0) / 1e3
+        groups[key] += ms
+        if key == "other":
+            others[e.key] = others.get(e.key, 0.0) + ms
+    return groups, seen, n_kernels, wall_ms, others
 
 
 def _shapes(cfg):
@@ -1230,6 +1282,527 @@ def bench_q80_clocks(torch, calls):
             + f" cycles, SM clock ~{mhz:.0f} MHz)")
 
 
+# (substring of a kernel's name in a profile, the kernel): the witness of
+# profile_witness
+PROFILE_KEYS = (("w8a8_kernel", "q80_matmul_w8a8"),
+                ("w4a4_kernel", "q4k_matmul_w4a4"),
+                ("q4k_act_quant_kernel", "q4k_act_quant"),
+                ("act_quant_kernel", "q80_act_quant"),   # after q4k's
+                ("q80_matvec_fq_kernel", "q80_matvec_fq"),
+                ("rms_norm_q80_kernel", "rms_norm_q80"),
+                ("swiglu_q80_kernel", "swiglu_q80"),
+                ("decode_attn_kernel", "decode_attention"),
+                ("q4k_matvec_fq_kernel", "q4k_matvec_fq"),
+                ("q4k_mat", "q4k_matmul"),      # matvec (B=1), matmul
+                ("fake_quant_kernel", "q4k_fake_quant"),
+                ("rows_kernel", "q80_matmul_rows"))
+
+
+def profile_witness(torch, card, label, kind, step, n, steps_per_call,
+                    wall_bare_ms, per_step):
+    """torch.profiler over n calls of step(), each steps_per_call decode
+    steps: card busy ms a step by kernel, kernels a step, and the idle
+    share against the step timed with the profiler off.  The launches
+    of each kernel of PROFILE_KEYS that the profiler saw are a witness
+    of what the card ran, apart from the Python counters: never more
+    than per_step's count times the steps (0 where it has none), and
+    equal to it in one of at most three profiles (the trace loses a
+    record now and then: each short profile is logged with what it
+    lost, and the window profiled again).  -> {"busy": card busy ms,
+    "kernels": kernels, "other": busy ms of the kernels PROFILE_KEYS
+    does not name, each a step}, or None where the profiler recorded
+    no device time."""
+    per = n * steps_per_call
+    for attempt in range(1, 4):
+        groups, seen, n_kernels, wall_ms, others = profile_steps(
+            torch, step, n, PROFILE_KEYS, per_step)
+        want = {name: per_step.get(name, 0) * per for name in seen}
+        lost = {k: want[k] - seen[k] for k in seen if seen[k] < want[k]}
+        log(f"[profile {label}] {kind}: launches by kernel as the "
+            f"profiler saw them {seen}; expected {want}"
+            + (f"; short by {lost} in profile {attempt}" if lost else ""))
+        if sum(groups.values()) <= 0:
+            log(f"[profile {label}] {kind}: the profiler recorded no "
+                f"device time: not measured")
+            return None
+        if any(seen[k] > want[k] for k in seen):
+            raise AssertionError(f"{label} {kind}: the card ran kernels "
+                                 f"beyond the per-step counts")
+        if not lost:
+            break
+    else:
+        raise AssertionError(f"{label} {kind}: three profiles lost "
+                             f"records of the per-step counts")
+    wall_ms /= steps_per_call
+    busy_ms = sum(groups.values()) / per
+    log(f"[profile {label}] {kind} ({per} steps, {card}): wall "
+        f"{wall_ms:.3f} ms/step with the profiler on, {wall_bare_ms:.3f} "
+        f"off; card busy {busy_ms:.3f} ms, idle share "
+        f"{1 - busy_ms / wall_ms:.3f} (profiler on) / "
+        f"{1 - busy_ms / wall_bare_ms:.3f} (off), {n_kernels / per:.0f} "
+        f"kernels per step; busy ms per step by kernel: "
+        + ", ".join(f"{k} {v / per:.3f}" for k, v in groups.items())
+        + "; the most of other: " + ", ".join(
+            f"{k[:60]} {v / per:.3f}" for k, v in sorted(
+                others.items(), key=lambda kv: -kv[1])[:4]))
+    return dict(busy=busy_ms, kernels=n_kernels / per,
+                other=groups["other"] / per)
+
+
+# each kernel's launch counter: (its wrapper in ops.launches.COUNTERS, the
+# count's name)
+COUNTER_OF = dict(
+    q80_act_quant=("act_quant_q80", "launches"),
+    q80_matmul_w8a8=("q80_w8a8", "launches"),
+    q80_matmul_rows=("q80_matmul_rows", "launches"),
+    q80_matvec_fq=("q80_matvec_fq", "launches"),
+    rms_norm_q80=("rms_norm_q80", "launches"),
+    swiglu_q80=("swiglu_q80", "launches"),
+    decode_attention=("decode_attention", "launches"),
+    q4k_fake_quant=("fake_quant_act", "launches"),
+    q4k_matmul=("q4k_matmul_f32", "launches"),
+    q4k_matvec_fq=("q4k_matvec_fq", "launches"),
+    q4k_act_quant=("act_quant_q4k_packed", "launches"),
+    q4k_matmul_w4a4=("q4k_matmul_w4a4", "launches"),
+    flash_attn_fwd=("flash_attention", "launches"),
+    flash_attn_bwd=("flash_attention", "backward_launches"))
+
+
+def zero_launches(torch):
+    """Every kernel's launch counter set to 0, the card idle first."""
+    from nano_tpu_torch.ops import launches
+    torch.cuda.synchronize()
+    launches.restore({key: 0 for key in launches.counts()})
+
+
+def read_launches(torch, names):
+    """{kernel: its launch count} for the kernels `names`, the card idle
+    first."""
+    from nano_tpu_torch.ops import launches
+    torch.cuda.synchronize()
+    counts = launches.counts()
+    return {n: counts[COUNTER_OF[n]] for n in names}
+
+
+def decode_counts(model, steps, names, L=28):
+    """Launches of an L-layer Qwen3 model's 64-row prefill and `steps`
+    decode steps, over the kernels `names` (0 where none)."""
+    e = {n: 0 for n in names}
+    if model == "Q80":
+        e.update(q80_act_quant=L, q80_matmul_w8a8=4 * L,
+                 q80_matvec_fq=(4 * L + 1) * steps + 1)
+    else:
+        e.update(q4k_act_quant=4 * L, q4k_matmul_w4a4=4 * L,
+                 q4k_fake_quant=1 + steps, q4k_matvec_fq=4 * L * steps,
+                 q80_matvec_fq=1 + steps)
+    e.update(decode_attention=L * steps, rms_norm_q80=(2 * L + 1) * (1 + steps),
+             swiglu_q80=L * (1 + steps))
+    return e
+
+
+def spec_round_counts(model, L=28):
+    """Launches of one verify round of an L-layer Qwen3 model, any k
+    (Qwen3-0.6B: 113 q80_matmul_w8a8, 28 q80_act_quant, 57 rms_norm_q80, 28
+    swiglu_q80 and no decode_attention or q80_matvec_fq for Q80)."""
+    if model == "Q80":
+        return dict(q80_matmul_w8a8=4 * L + 1, q80_act_quant=L,
+                    rms_norm_q80=2 * L + 1, swiglu_q80=L)
+    return dict(q4k_act_quant=4 * L, q4k_matmul_w4a4=4 * L, q4k_fake_quant=1,
+                q80_act_quant=1, q80_matmul_w8a8=1, rms_norm_q80=2 * L + 1,
+                swiglu_q80=L)
+
+
+def runs_of(xs) -> str:
+    """[1, 1, 2, 0, 0] -> "1x2 2 0x2"."""
+    out = []
+    for x in xs:
+        if out and out[-1][0] == x:
+            out[-1][1] += 1
+        else:
+            out.append([x, 1])
+    return " ".join(f"{x}x{n}" if n > 1 else f"{x}" for x, n in out)
+
+
+def agreeing(a, b) -> int:
+    """The length of the common prefix of two token lists."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def spec_phase(torch, np, h):
+    """Phase 5c, speculative decode on the full-width models: h holds the
+    model config, the contexts' keywords, the models [(label, params,
+    expect_for)], phase 5's prompt, the card line, the launch counters'
+    names, reset / read, profile_line and timed_ms.  For each model:
+
+      * generate_on_device with spec_k = SPEC_K and without, in turns
+        (spec, plain, plain, spec), on phase 5's prompt and on a 64-token
+        prompt of a repeated 8-token pattern: tok/s, tokens, rounds and
+        tokens a round, the agreeing prefix of the two streams, the launch
+        counts of each call (the prefill's, then spec_round_counts per
+        replayed round, a multiple of SPEC_READ_EVERY replays);
+      * the busy ms of one verify round at k = 1, 3, 7 (profiler, launches
+        held to spec_round_counts) beside the plain step's;
+      * SPEC_LOGIT_ROUNDS verify rounds of 8 rows fed the plain stream,
+        each row's logits against the plain step's at the same prefix,
+        within SPEC_LOGITS_TOL of max|logit|, and the control (the causal
+        mask shifted by one position) above it;
+      * a Session with spec_k = SPEC_SESSION_K: its k after every token and
+        its decode calls by kind;
+      * BatchedEngine at 8 and 64 slots with spec_k = SPEC_BATCH_K and
+        without, in turns: slot 0 at temperature 0.8 (its stream must be
+        the plain engine's), half the greedy slots on an 8-token pattern;
+        ms a batched step, aggregate tok/s, tokens a slot-step, the greedy
+        slots' agreeing prefixes, bursts by kind, launch counts."""
+    from nano_tpu_torch.infer import engine, speculative
+    from nano_tpu_torch.models import gpt
+    from nano_tpu_torch.serve.batching import BatchedEngine
+    dev, cfg, card = h.dev, h.cfg, h.card
+    srng = np.random.default_rng(SEED + 7)
+    pattern = srng.integers(100, 30000, 8).tolist()
+    prompts = {"random": h.prompt, "repetitive": pattern * (PROMPT_LEN // 8)}
+
+    def ctx_of(p, spec_k):
+        return engine.LLMContext(params=p, spec_k=spec_k, **h.ctx_kw)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    @contextlib.contextmanager
+    def shifted_mask(on):
+        """The control: every block of the verify forward given its causal
+        mask shifted by one position (row i also sees row i + 1), rebound
+        here for the measurement."""
+        saved = gpt.block
+
+        def block(x, layer, cfg_, cos, sin, mask, *a):
+            if mask is not None:
+                mask = torch.cat([mask[..., :1], mask[..., :-1]], dim=-1)
+            return saved(x, layer, cfg_, cos, sin, mask, *a)
+
+        if on:
+            gpt.block = block
+        try:
+            yield
+        finally:
+            gpt.block = saved
+
+    def round_rows(p, ctx, pr, cont, shift=False, first=False):
+        """SPEC_LOGIT_ROUNDS verify rounds of 8 rows fed `cont` after
+        prompt `pr`, each on a copy of the plain steps' cache (the same
+        prefix), each row's logits against the plain step's
+        (forward_decode_batched, the kernels the decode graph replays).
+        `shift`: the control's mask; `first`: row 0 through the decode
+        kernel (first_row_kernel).  -> (the worst max|d| / max|logit|, the
+        rounds whose row 0 is torch.equal to the plain step's)."""
+        k = 7
+        rope = ctx.rope_tables()
+        cp = ctx.new_cache(1)
+        engine._prefill(ctx, pr, cp)
+        full = torch.tensor(pr + cont, device=dev)
+        worst, same0, pos = 0.0, 0, len(pr)
+        for _ in range(SPEC_LOGIT_ROUNDS):
+            cs = gpt.KVCache(*(None if t is None else t.clone() for t in (
+                cp.k, cp.v, cp.k_scale, cp.v_scale)))
+            ids = full[pos:pos + k + 1][None]
+            p_t = torch.tensor([pos], dtype=torch.int32, device=dev)
+            with shifted_mask(shift):
+                ls, _ = gpt.forward_spec_batched(
+                    p, ids, cs, p_t, cfg, ctx.dtype, rope=rope,
+                    attn_len=engine._attn_bucket(pos + k + 2, ctx.max_seq_len,
+                                                 minimum=256),
+                    first_row_kernel=first)
+            for j in range(k + 1):
+                lp, _ = gpt.forward_decode_batched(p, ids[:, j], cp, p_t + j,
+                                                   cfg, ctx.dtype, rope)
+                worst = max(worst, ((ls[0, j] - lp[0]).abs().max()
+                                    / lp[0].abs().max()).item())
+                same0 += j == 0 and torch.equal(ls[0, 0], lp[0])
+            pos += k + 1
+        return worst, same0
+
+    failures = []
+    for model, p, expect_for in h.models:
+        per_round = {n: 0 for n in h.names}
+        per_round.update(spec_round_counts(model, cfg.n_layer))
+        plain_step = {n: expect_for(1)[n] - expect_for(0)[n] for n in h.names}
+        ctxs = {"spec": ctx_of(p, SPEC_K), "plain": ctx_of(p, 0)}
+        tag = f"[spec {model}]"
+
+        # ---- the single stream: generate_on_device, in turns
+        plain_streams = {}
+        for pname, pr in prompts.items():
+            for c in ctxs.values():             # warm-up: the captures
+                engine.generate_on_device(c, pr, N_TOKENS)
+            ttft = min(h.timed_ms(lambda: engine.generate_on_device(
+                ctxs["plain"], pr, 1)) for _ in range(3))
+            res = {"spec": [], "plain": []}
+            for which in ("spec", "plain", "plain", "spec"):
+                got = []
+                h.reset()
+                ms = h.timed_ms(lambda: got.append(engine.generate_on_device(
+                    ctxs[which], pr, N_TOKENS).tolist()))
+                res[which].append((ms, got[0], h.read(),
+                                   dict(speculative.LAST_STATS)))
+            spec, plain = res["spec"][0][1], res["plain"][0][1]
+            plain_streams[pname] = plain
+            stats = res["spec"][0][3]
+            if not (len(spec) == len(plain) == N_TOKENS
+                    and max(spec) < cfg.vocab_size
+                    and all(r[1] == spec for r in res["spec"])
+                    and all(r[1] == plain for r in res["plain"])
+                    and stats["tokens"] >= N_TOKENS - 1):
+                raise AssertionError(f"{model} {pname}: spec or plain streams "
+                                     f"malformed or not repeatable")
+            prefill = expect_for(0)
+            for ms, _, counts, st in res["spec"]:
+                m = ((counts["q80_act_quant"] - prefill["q80_act_quant"])
+                     // per_round["q80_act_quant"])
+                want = {n: prefill[n] + m * per_round[n] for n in h.names}
+                if (counts != want or m % engine.SPEC_READ_EVERY
+                        or m < st["rounds"]):
+                    raise AssertionError(f"{model} {pname}: spec launches "
+                                         f"{counts}, not the prefill's and "
+                                         f"{m} rounds' {per_round}")
+            for _, _, counts, _ in res["plain"]:
+                if counts != expect_for(N_TOKENS - 1):
+                    raise AssertionError(f"{model} {pname}: plain launches "
+                                         f"differ")
+            tps = {w: (N_TOKENS - 1) / ((min(r[0] for r in res[w]) - ttft)
+                                         / 1e3) for w in res}
+            log(f"{tag} generate_on_device, {pname} prompt of {PROMPT_LEN}, "
+                f"{N_TOKENS} tokens ({card}), better of two in turns: spec_k "
+                f"{SPEC_K} {tps['spec']:.1f} tok/s ({stats['tokens']} tokens "
+                f"in {stats['rounds']} rounds, "
+                f"{stats['tokens'] / stats['rounds']:.2f} tokens a round, "
+                f"{m} rounds replayed), plain {tps['plain']:.1f} tok/s, "
+                f"spec / plain {tps['spec'] / tps['plain']:.2f}; the streams "
+                f"agree for {agreeing(spec, plain)} of {N_TOKENS} tokens; "
+                f"launches a round {spec_round_counts(model, cfg.n_layer)} (0 "
+                f"decode_attention, 0 q80_matvec_fq)")
+
+        # ---- one replay's cost, a verify round at k = 1, 3, 7 beside the
+        # plain step: the card's ms between CUDA events on the context's
+        # stream, and a round's busy ms by the profiler, its launches held
+        # to spec_round_counts (the plain step's busy ms: phase 5's profile)
+        cost = {}
+        for which, ks in (("spec", (1, 3, 7)), ("plain", (0,))):
+            ctx = ctxs[which]
+            dec = ctx.decoder()
+            for k in ks:
+                with ctx.on_stream():
+                    dec.claim()
+                    dec.prefill(h.prompt)
+                    g = (dec._round_graph(k, engine._attn_bucket(
+                        PROMPT_LEN + 16 * (k + 1) + 2, ctx.max_seq_len,
+                        minimum=256)) if k else dec._graph())
+                    g.run()
+                    ev = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+                    ev[0].record()
+                    for _ in range(8):
+                        g.run()
+                    ev[1].record()
+                    torch.cuda.synchronize()
+                    ms = ev[0].elapsed_time(ev[1]) / 8
+                    prof = None
+                    if k:
+                        dec.prefill(h.prompt)
+                        prof = h.profile_line(f"spec {model}",
+                                              f"verify round k={k}", g.run,
+                                              8, 1, ms, per_round)
+                cost[k] = (ms, None if prof is None else prof["busy"])
+        fmt = lambda k: f"{cost[k][0]:.3f} ms" + (
+            "" if not k else " (busy not measured)" if cost[k][1] is None
+            else f" (busy {cost[k][1]:.3f} ms)")
+        log(f"{tag} one replay from position {PROMPT_LEN} ({card}), the "
+            f"card's ms between CUDA events: verify round k=1 {fmt(1)}, k=3 "
+            f"{fmt(3)}, k=7 {fmt(7)}; the plain step {fmt(0)}; round / step "
+            + ", ".join(f"k={k} {cost[k][0] / cost[0][0]:.2f}"
+                        for k in (1, 3, 7)))
+
+        # ---- each round's logits row by row against the plain step's,
+        # from a 4-token prompt (few rows attended: the control bites)
+        ctx = ctxs["plain"]
+        short_prompt = h.prompt[:4]
+        cont = engine.generate_on_device(
+            ctx, short_prompt, 8 * SPEC_LOGIT_ROUNDS).tolist()
+        rel, _ = round_rows(p, ctx, short_prompt, cont)
+        ctl, _ = round_rows(p, ctx, short_prompt, cont, shift=True)
+        _, same0 = round_rows(p, ctx, short_prompt, cont, first=True)
+        log(f"{tag} {SPEC_LOGIT_ROUNDS} verify rounds of 8 rows from a "
+            f"4-token prompt fed the plain stream, each row's logits against "
+            f"the plain step's at the same prefix ({ctx.dtype}): worst "
+            f"max|d|/max|logit| {rel:.3e} (limit "
+            f"{SPEC_LOGITS_TOL[model]:.1e}); control, the mask shifted by one "
+            f"position, {ctl:.3e} (must exceed the limit); with row 0 through "
+            f"the decode kernel (first_row_kernel), row 0 torch.equal to the "
+            f"plain step's in {same0} of {SPEC_LOGIT_ROUNDS} rounds"
+            + (" (must be all: K1 rows have the same bits at every B)"
+               if model == "Q80" else " (K3's one-row kernel sums in "
+               "another order than the W4A4 kernel of k + 1 rows)"))
+        if not rel <= SPEC_LOGITS_TOL[model] < ctl:
+            failures.append(f"{model}: verify-round logits off the plain "
+                            f"step's, or the control passes")
+        if model == "Q80" and same0 != SPEC_LOGIT_ROUNDS:
+            failures.append(f"{model}: row 0 through the decode kernel is "
+                            f"not the plain step's")
+
+        # ---- a Session: its k trajectory
+        s = engine.Session(ctx_of(p, SPEC_SESSION_K), "", max_new_tokens=128,
+                           prompt_ids=prompts["repetitive"])
+        ks = []
+        while s.step() is not None:
+            ks.append(s._spec_k_cur)
+        log(f"{tag} Session spec_k {SPEC_SESSION_K}, repetitive prompt: "
+            f"{len(s.output_ids)} tokens, {s.tps:.1f} tok/s, decode calls by "
+            f"kind {dict(s.steps_by)}, agreeing with generate_on_device's "
+            f"plain stream for {agreeing(s.output_ids, plain_streams['repetitive'])} "
+            f"tokens; k after each token: {runs_of(ks)}")
+        if not s.steps_by["round"]:
+            raise AssertionError(f"{model}: the Session ran no verify round")
+
+        # ---- BatchedEngine at 8 and 64 slots, spec and plain in turns
+        bctxs = {"spec": ctx_of(p, SPEC_BATCH_K), "plain": ctx_of(p, 0)}
+        for n_slots in (8, 64):
+            # 8 slots: slot 0 samples, so every step has row 0 attend
+            # through the decode kernel (first_row_kernel); 64: all greedy
+            mixed = n_slots == 8
+            bprompts = [srng.integers(100, 30000, 32).tolist() if i % 2 else
+                        srng.integers(100, 30000, 8).tolist() * 4
+                        for i in range(n_slots)]
+            runs = {"spec": [], "plain": []}
+            for which in ("plain", "spec", "spec", "plain"):
+                be = BatchedEngine(bctxs[which], n_slots=n_slots)
+                got = {}
+                for i, bp in enumerate(bprompts):
+                    slot, first = be.add(
+                        bp, max_new_tokens=10 ** 6,
+                        temperature=0.8 if mixed and i == 0 else 0.0,
+                        repetition_penalty=1.0)
+                    got[slot] = [] if first is None else [first]
+                be._ensure_capacity(512)
+
+                def burst(n):
+                    for sl, ts in be.step_burst(n).items():
+                        got[sl].extend(ts)
+
+                for _ in range(3):                 # warm-up: the captures
+                    burst(8)
+                before = {sl: len(v) for sl, v in got.items()}
+                kinds0 = dict(be.bursts_by)
+                h.reset()
+                sync()
+                t0 = time.time()
+                for _ in range(3):
+                    burst(16)
+                sync()
+                secs = time.time() - t0
+                counts = h.read()
+                kinds = {k: v - kinds0.get(k, 0)
+                         for k, v in be.bursts_by.items()}
+                # a plain step: a round's launches and the decode kernel
+                # per layer; a spec step: a round's, and the decode kernel
+                # for row 0 where a slot samples
+                n_spec = 0 if mixed else 16 * kinds.get("spec", 0)
+                want = {n: 48 * per_round[n] + (48 - n_spec) * (
+                    cfg.n_layer if n == "decode_attention" else 0)
+                    for n in h.names}
+                if counts != want:
+                    raise AssertionError(f"{model} {n_slots} slots {which}: "
+                                         f"launches {counts}, expected {want}")
+                n_tok = sum(len(v) - before[sl] for sl, v in got.items())
+                runs[which].append((secs, n_tok, got, kinds))
+                if which == "spec" and not mixed and len(runs["spec"]) == 2:
+                    # where a speculative step's time goes: one burst of
+                    # 16, every slot verifying (the parks cleared)
+                    be._spec_park[:] = 0
+                    h.profile_line(f"spec {model}", f"{n_slots} slots, a "
+                                   f"speculative burst (k = "
+                                   f"{be._spec_k_cur}, parks cleared)",
+                                   lambda: be.step_burst(16), 1, 16,
+                                   secs * 1e3 / 48, per_round)
+                del be
+                torch.cuda.empty_cache()
+            sp, pl = runs["spec"][0][2], runs["plain"][0][2]
+            if not (all(r[2] == sp for r in runs["spec"])
+                    and all(r[2] == pl for r in runs["plain"])):
+                raise AssertionError(f"{model} {n_slots} slots: two runs of "
+                                     f"one engine differ")
+            stoch_ok = sp[0] == pl[0] if mixed else None
+            greedy_slots = range(1 if mixed else 0, n_slots)
+            agree = [agreeing(sp[sl], pl[sl]) for sl in greedy_slots]
+            best = {w: min(runs[w], key=lambda r: r[0]) for w in runs}
+            ms = {w: best[w][0] * 1e3 / 48 for w in runs}
+            tps = {w: best[w][1] / best[w][0] for w in runs}
+            log(f"{tag} BatchedEngine {n_slots} slots"
+                + (" (slot 0 at temperature 0.8)" if mixed else " (greedy)")
+                + f", spec_k {SPEC_BATCH_K} against plain ({card}), 48 steps "
+                f"timed at capacity 512, "
+                f"better of two in turns: spec {ms['spec']:.3f} ms a step, "
+                f"{tps['spec']:.1f} tok/s, "
+                f"{best['spec'][1] / (48 * n_slots):.2f} tokens a slot-step "
+                f"(bursts by kind {best['spec'][3]}); plain "
+                f"{ms['plain']:.3f} ms a step, {tps['plain']:.1f} tok/s; "
+                f"spec / plain tok/s {tps['spec'] / tps['plain']:.2f}; "
+                + (f"the temperature-0.8 slot's stream equal to the plain "
+                   f"engine's: {stoch_ok} ({len(sp[0])} tokens); "
+                   if mixed else "")
+                + f"greedy slots agree with their plain streams for min "
+                f"{min(agree)}, mean {sum(agree) / len(agree):.1f} tokens (of "
+                f"{min(len(pl[sl]) for sl in greedy_slots)}+)")
+            if stoch_ok is False:
+                failures.append(f"{model} {n_slots} slots: the stochastic "
+                                f"slot's stream differs from the plain "
+                                f"engine's")
+        del ctxs, bctxs
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def bench_spec(torch):
+    """Phase 5c alone (spec_phase), on the full-width models of phase 5
+    made as main makes them, with the kernels built first."""
+    import numpy as np
+    from nano_tpu_torch.config import ModelConfig
+    from nano_tpu_torch.ops import _build, sampling
+    from nano_tpu_torch.tokenizer.bpe import QWEN_STOP_TOKENS
+    from nano_tpu_torch.tokenizer.trie import TrieTokenizer
+    _build.build_all()
+    dev, cfg = torch.device("cuda"), ModelConfig(**QWEN3_06B)
+    params = random_q80_params(torch, np, cfg, dev)
+    params4 = random_q4k_params(torch, np, cfg, dev)
+    tok = TrieTokenizer()
+    tok.build_preset(32768)
+    prng = np.random.default_rng(SEED + 1)
+    for n in (17, 40, 100):            # phase 5's requests, then its prompt
+        prng.integers(100, 30000, n)
+    names = list(COUNTER_OF)
+
+    def timed_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        return (time.time() - t0) * 1e3
+
+    card = card_line()
+    greedy = sampling.SamplerConfig(temperature=0.0, repetition_penalty=1.0)
+    spec_phase(torch, np, SimpleNamespace(
+        dev=dev, cfg=cfg, card=card,
+        prompt=prng.integers(100, 30000, PROMPT_LEN).tolist(), names=names,
+        reset=lambda: zero_launches(torch),
+        read=lambda: read_launches(torch, names), timed_ms=timed_ms,
+        profile_line=lambda *a: profile_witness(torch, card, *a),
+        models=[("Q80", params, lambda s: decode_counts("Q80", s, names)),
+                ("Q4K", params4, lambda s: decode_counts("Q4K", s, names))],
+        ctx_kw=dict(cfg=cfg, tokenizer=tok, max_seq_len=cfg.block_size,
+                    device=dev, dtype=torch.bfloat16, sampler=greedy,
+                    stop_tokens=QWEN_STOP_TOKENS, arch="qwen3")))
+
+
 def bench(what) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1242,7 +1815,7 @@ def bench(what) -> int:
     q4k_flags = dict(batched="batched" in what, sweep="sweep" in what)
     for name, fn in (("flash", bench_flash), ("decode", bench_decode),
                      ("q4k", bench_q4k), ("q80", bench_q80),
-                     ("pipes", bench_pipes)):
+                     ("pipes", bench_pipes), ("spec", bench_spec)):
         if not what or name in what:
             fn(torch, **{"flash": flags, "q80": q80_flags,
                          "q4k": q4k_flags}.get(name, {}))
@@ -1259,7 +1832,7 @@ def main() -> int:
     from dataclasses import replace
     from nano_tpu_torch.config import ModelConfig
     from nano_tpu_torch.data import preprocess
-    from nano_tpu_torch.infer import engine
+    from nano_tpu_torch.infer import engine, speculative
     from nano_tpu_torch.models import gpt
     from nano_tpu_torch.ops import (_build, decode_attn, flash_attn, int8_mma,
                                     norm_quant, q4k, qmatmul, sampling)
@@ -1382,7 +1955,8 @@ def main() -> int:
     # order, csrc/q80_matmul.cu:RangeSum: a batched step gives the single
     # stream's bits)
     n_rows_equal = 0
-    for B in (1, 8, 64, 65):
+    k1_rows = sorted({1, 8, 64, 65, *SPEC_ROWS})
+    for B in k1_rows:
         for name, w in shapes:
             w0 = layer_weights(w)[0]
             K, N = w0.in_dim, w0.out_dim
@@ -1416,8 +1990,8 @@ def main() -> int:
                 n_rows_equal += 1
             note_err("q80_matmul_w8a8", err)
 
-    log(f"[kernel] q80_matmul_w8a8 at B = 8, 64, 65: all {n_rows_equal} rows "
-        f"torch.equal to q80_matvec_fq's of the same row (one order of "
+    log(f"[kernel] q80_matmul_w8a8 at B = {k1_rows[1:]}: all {n_rows_equal} "
+        f"rows torch.equal to q80_matvec_fq's of the same row (one order of "
         f"summation at every batch size; cluster = w8a8_ranges(G))")
 
     # K1 at B = 1 with the activation quantization folded in: the five
@@ -1498,7 +2072,8 @@ def main() -> int:
     def same_act(p, q):
         return torch.equal(p.xq, q.xq) and torch.equal(p.sa, q.sa)
 
-    for B in (1, 8, 64, 65):
+    norm_rows = sorted({1, 8, 64, 65, *SPEC_ROWS})
+    for B in norm_rows:
         for dt in (torch.bfloat16, torch.float32):
             x = (torch.randn(B, E_, device=dev, generator=gen) * 2).to(dt)
             a = torch.randn(B, E_, device=dev, generator=gen).to(dt)
@@ -1584,8 +2159,8 @@ def main() -> int:
                             and torch.equal(yact1.sa[0], yact.sa[r])):
                         raise AssertionError(f"norm_quant {dt}: row {r} alone "
                                              f"differs from row {r} of 64")
-    log(f"[kernel] rms_norm_q80 / swiglu_q80 at E={E_}, 2F={F2}, B = 1, 8, "
-        f"64, 65, bf16 and f32, gs 0/256/512, with and without the residual "
+    log(f"[kernel] rms_norm_q80 / swiglu_q80 at E={E_}, 2F={F2}, B = "
+        f"{norm_rows}, bf16 and f32, gs 0/256/512, with and without the residual "
         f"({n_nq} cases): h and the SwiGLU output torch.equal to the eager "
         f"ops; hn torch.equal to the eager ops summed in the kernel's order, "
         f"and at most {worst_ulp[torch.bfloat16]} bf16 ulp and "
@@ -1896,8 +2471,9 @@ def main() -> int:
     # 0xE in every nibble past it), into f32 and bf16 (the f32 y rounded);
     # two runs the same bits
     n_aq = 0
+    k3_rows = sorted({2, 8, 64, 65, *SPEC_ROWS})
     for n in (1024, 2048, 3072, 40, 64, 128):
-        for B in (2, 8, 64, 65):
+        for B in k3_rows:
             x = act_rows(B, n)
             for xt in (x, x.to(torch.bfloat16)):
                 got = q4k.act_quant_q4k_packed(xt)
@@ -1911,12 +2487,11 @@ def main() -> int:
                 n_aq += 1
     log(f"[kernel] q4k_act_quant: values, sa, ba and c torch.equal with the "
         f"plain version in {n_aq} cases (n = 1024, 2048, 3072, 40, 64, 128; "
-        f"B = 2, 8, 64, 65; f32 and bf16 input; all-zero and constant "
-        f"groups)")
+        f"B = {k3_rows}; f32 and bf16 input; all-zero and constant groups)")
     w4_cases = q4_cases + [("ragged 40->200, pad nibbles 0xE", q4k_padded_weight(
         torch, rng, 40, 200, dev))]
     n_w4 = 0
-    for B in (2, 8, 64, 65):
+    for B in k3_rows:
         for name, w in w4_cases:
             act = q4k.act_quant_q4k_packed(act_rows(B, w.in_dim))
             y = q4k.q4k_matmul_w4a4(*act, w, torch.float32)
@@ -1943,7 +2518,7 @@ def main() -> int:
     log(f"[kernel] q4k_matmul_w4a4: within 1e-5 of max|y| of the plain "
         f"version, two runs bit-equal, in {n_w4} cases (the four Q4K products "
         f"of a layer, the tiny widths and in = 40 with 0xE pad nibbles; B = "
-        f"2, 8, 64, 65); worst max_abs_err "
+        f"{k3_rows}); worst max_abs_err "
         f"{kernels['q4k_matmul_w4a4']['max_abs_err']:.3e}")
 
     # K4, causal GQA flash attention: forward and backward against the
@@ -2533,32 +3108,13 @@ def main() -> int:
               sum(2 * wl.q.numel() for wl in tiny_calls), F32_OPS_PER_S)
 
     names = list(kernels)
-    # kernel -> (the wrapper that counts its launches, the count's name)
-    counters = dict(
-        q80_act_quant=(qmatmul.act_quant_q80, "launches"),
-        q80_matmul_w8a8=(qmatmul.q80_w8a8, "launches"),
-        q80_matmul_rows=(qmatmul.q80_matmul_rows, "launches"),
-        q80_matvec_fq=(qmatmul.q80_matvec_fq, "launches"),
-        rms_norm_q80=(norm_quant.rms_norm_q80, "launches"),
-        swiglu_q80=(norm_quant.swiglu_q80, "launches"),
-        decode_attention=(decode_attn.decode_attention, "launches"),
-        q4k_fake_quant=(q4k.fake_quant_act, "launches"),
-        q4k_matmul=(q4k.q4k_matmul_f32, "launches"),
-        q4k_matvec_fq=(q4k.q4k_matvec_fq, "launches"),
-        q4k_act_quant=(q4k.act_quant_q4k_packed, "launches"),
-        q4k_matmul_w4a4=(q4k.q4k_matmul_w4a4, "launches"),
-        flash_attn_fwd=(flash_attn.flash_attention, "launches"),
-        flash_attn_bwd=(flash_attn.flash_attention, "backward_launches"))
-    assert sorted(counters) == sorted(names)
+    assert sorted(COUNTER_OF) == sorted(names)
 
     def reset():
-        torch.cuda.synchronize()
-        for fn, attr in counters.values():
-            setattr(fn, attr, 0)
+        zero_launches(torch)
 
     def read():
-        torch.cuda.synchronize()
-        return {n: getattr(*counters[n]) for n in names}
+        return read_launches(torch, names)
 
     def tiny_stream(ctx, file, want, must_launch):
         reset()
@@ -2578,6 +3134,18 @@ def main() -> int:
         log(f"[tiny] {file} generate_on_device (decode graph): {god}")
         if god != want:
             raise AssertionError(f"{file}: the graphed stream differs from "
+                                 f"expected.json")
+        # speculative decode, spec_k = 7: verify rounds replayed from their
+        # graphs must give the same streams
+        sctx = replace(ctx, spec_k=SPEC_K)
+        s = engine.generate_sync(sctx, expected["prompt"], max_new_tokens=16)
+        god = engine.generate_on_device(sctx, ids, len(want)).tolist()
+        stats = speculative.LAST_STATS
+        log(f"[tiny] {file} spec_k {SPEC_K}: generate_sync {s.output_ids} "
+            f"(decode calls {dict(s.steps_by)}), generate_on_device {god} "
+            f"({stats})")
+        if s.output_ids != want or god != want or not s.steps_by["round"]:
+            raise AssertionError(f"{file}: a speculative stream differs from "
                                  f"expected.json")
         return counts
 
@@ -2626,18 +3194,9 @@ def main() -> int:
     prompts = [prng.integers(100, 30000, n).tolist() for n in (17, 40, 100)]
     budgets = (64, 128, 64)
     prompt = prng.integers(100, 30000, PROMPT_LEN).tolist()
-    profile_keys = (("w8a8_kernel", "q80_matmul_w8a8"),
-                    ("w4a4_kernel", "q4k_matmul_w4a4"),
-                    ("q4k_act_quant_kernel", "q4k_act_quant"),
-                    ("act_quant_kernel", "q80_act_quant"),   # after q4k's
-                    ("q80_matvec_fq_kernel", "q80_matvec_fq"),
-                    ("rms_norm_q80_kernel", "rms_norm_q80"),
-                    ("swiglu_q80_kernel", "swiglu_q80"),
-                    ("decode_attn_kernel", "decode_attention"),
-                    ("q4k_matvec_fq_kernel", "q4k_matvec_fq"),
-                    ("q4k_mat", "q4k_matmul"),      # matvec (B=1), matmul
-                    ("fake_quant_kernel", "q4k_fake_quant"),
-                    ("rows_kernel", "q80_matmul_rows"))
+
+    def profile_line(*a):
+        return profile_witness(torch, card, *a)
 
     def eager_stream(ctx, ids, n):
         """The engine's decode step called from Python step by step (what
@@ -2685,52 +3244,6 @@ def main() -> int:
         torch.cuda.synchronize()
         return out, time.time() - t0, read()
 
-    def profile_line(label, kind, step, n, steps_per_call, wall_bare_ms,
-                     per_step):
-        """torch.profiler over n calls of step(), each steps_per_call decode
-        steps: card busy ms a step by kernel, kernels a step, and the idle
-        share against the step timed with the profiler off.  The launches
-        of each kernel of profile_keys that the profiler saw are a witness
-        of what the card ran, apart from the Python counters: never more
-        than per_step's count times the steps (0 where it has none), and
-        equal to it in one of at most three profiles (the trace loses a
-        record now and then: each short profile is logged with what it
-        lost, and the window profiled again).  -> {"busy": card busy ms,
-        "kernels": kernels, "other": busy ms of the kernels profile_keys
-        does not name, each a step}, or None where the profiler recorded
-        no device time."""
-        per = n * steps_per_call
-        for attempt in range(1, 4):
-            groups, seen, n_kernels, wall_ms = profile_steps(
-                torch, step, n, profile_keys, per_step)
-            want = {name: per_step.get(name, 0) * per for name in seen}
-            lost = {k: want[k] - seen[k] for k in seen if seen[k] < want[k]}
-            log(f"[profile {label}] {kind}: launches by kernel as the "
-                f"profiler saw them {seen}; expected {want}"
-                + (f"; short by {lost} in profile {attempt}" if lost else ""))
-            if sum(groups.values()) <= 0:
-                log(f"[profile {label}] {kind}: the profiler recorded no "
-                    f"device time: not measured")
-                return None
-            if any(seen[k] > want[k] for k in seen):
-                raise AssertionError(f"{label} {kind}: the card ran kernels "
-                                     f"beyond the per-step counts")
-            if not lost:
-                break
-        else:
-            raise AssertionError(f"{label} {kind}: three profiles lost "
-                                 f"records of the per-step counts")
-        wall_ms /= steps_per_call
-        busy_ms = sum(groups.values()) / per
-        log(f"[profile {label}] {kind} ({per} steps, {card}): wall "
-            f"{wall_ms:.3f} ms/step with the profiler on, {wall_bare_ms:.3f} "
-            f"off; card busy {busy_ms:.3f} ms, idle share "
-            f"{1 - busy_ms / wall_ms:.3f} (profiler on) / "
-            f"{1 - busy_ms / wall_bare_ms:.3f} (off), {n_kernels / per:.0f} "
-            f"kernels per step; busy ms per step by kernel: "
-            + ", ".join(f"{k} {v / per:.3f}" for k, v in groups.items()))
-        return dict(busy=busy_ms, kernels=n_kernels / per,
-                    other=groups["other"] / per)
 
     def drive(label, p, expect_for):
         """3 requests; generate_on_device(prompt, N_TOKENS) twice (the
@@ -2849,11 +3362,7 @@ def main() -> int:
 
     def expect80(steps):
         """Launches of a Q80 prefill (64 rows) and `steps` decode steps."""
-        e = {n: 0 for n in names}
-        e.update(q80_act_quant=28, q80_matmul_w8a8=112,
-                 q80_matvec_fq=113 * steps + 1, decode_attention=28 * steps,
-                 rms_norm_q80=57 * (1 + steps), swiglu_q80=28 * (1 + steps))
-        return e
+        return decode_counts("Q80", steps, names)
 
     log("[full Q80] expected launches: 113 Q80 matmuls = 4 x 28 + head per "
         "forward; the prefill's 112 layer products (64 rows) through "
@@ -2872,12 +3381,7 @@ def main() -> int:
 
     def expect4(steps):
         """Launches of a Q4K prefill and `steps` decode steps."""
-        e = {n: 0 for n in names}
-        e.update(q4k_act_quant=112, q4k_matmul_w4a4=112,
-                 q4k_fake_quant=1 + steps, q4k_matvec_fq=112 * steps,
-                 q80_matvec_fq=1 + steps, decode_attention=28 * steps,
-                 rms_norm_q80=57 * (1 + steps), swiglu_q80=28 * (1 + steps))
-        return e
+        return decode_counts("Q4K", steps, names)
 
     log("[full Q4K] expected launches: 112 Q4K matmuls = 4 x 28 per forward, "
         "as q4k_matvec_fq (fake-quant folded in) in a decode step and as "
@@ -3550,6 +4054,17 @@ def main() -> int:
                          f"(a step's layer products)")
     del prods4, prods
     torch.cuda.empty_cache()
+
+    # ---------------- 5c. speculative decode ----------------
+    t0 = time.time()
+    spec_phase(torch, np, SimpleNamespace(
+        dev=dev, cfg=cfg, card=card, prompt=prompt, names=names, reset=reset,
+        read=read, profile_line=profile_line, timed_ms=timed_ms,
+        models=[("Q80", params, expect80), ("Q4K", params4, expect4)],
+        ctx_kw=dict(cfg=cfg, tokenizer=tok, max_seq_len=cfg.block_size,
+                    device=dev, dtype=torch.bfloat16, sampler=greedy,
+                    stop_tokens=QWEN_STOP_TOKENS, arch="qwen3")))
+    log(f"[spec] phase 5c in {time.time() - t0:.1f} s")
 
     # first-step logits, kernels on the card vs plain versions on the CPU
     # (weights moved to the CPU), both in the f32 oracle dtype.

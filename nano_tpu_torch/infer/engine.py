@@ -5,7 +5,7 @@ Port of the single-stream half of ``nano_tpu/infer/engine.py``:
 token per ``step()`` call), ``generate_sync`` with on_prefilling /
 on_decoding / on_finished callbacks, ``StreamDecoder``, and
 ``generate_on_device`` (prefill + decode with no host round trip per
-token).
+token), each with speculative greedy decode when ``spec_k`` > 0.
 
 Prompts are padded to power-of-two buckets and the prefill computes the
 LM head only at the last prompt position (``last_idx``), as in the JAX
@@ -20,13 +20,21 @@ capture, replay) holds the context's lock, so a capture never records
 another thread's kernels.  On the CPU (an explicit ``device="cpu"``) the same
 step runs eagerly.  The decode attention reads only the rows up to each
 position, so the per-segment ``attn_len`` buckets of the JAX scan have no
-counterpart here.  Continuous batching is ``serve.batching``; speculative
-decode, LoRA and observers are not ported yet.
+counterpart here.
+
+Speculative decode (``infer.speculative``, ``LLMContext.spec_k`` > 0, greedy
+sampling): the decoder's verify round (``speculative.spec_decode_round``)
+is a ``DecodeGraph`` too, captured per (k, attended length).  ``Session``
+replays one round and reads its tokens once; ``generate_on_device`` keeps
+the loop's state on the device and reads it once every
+``SPEC_READ_EVERY`` rounds.  Continuous batching is ``serve.batching``;
+LoRA and observers are not ported yet.
 """
 
 from __future__ import annotations
 
 import codecs
+import collections
 import contextlib
 import gc
 import threading
@@ -40,6 +48,7 @@ import torch
 
 from nano_tpu_torch import resolve_device
 from nano_tpu_torch.config import ModelConfig
+from nano_tpu_torch.infer import speculative
 from nano_tpu_torch.io import binfmt
 from nano_tpu_torch.models import gpt
 from nano_tpu_torch.ops import decode_attn, launches, sampling
@@ -52,12 +61,24 @@ NANO_STOP_TOKENS = (0, 3)
 # of a full-vocab sort (the JAX engine's NUCLEUS_WINDOW)
 NUCLEUS_WINDOW = 128
 
+# speculative verify rounds that generate_on_device replays between two
+# host reads of the loop's state
+SPEC_READ_EVERY = 8
+
 
 def _bucket(n: int, minimum: int = 16) -> int:
     b = minimum
     while b < n:
         b *= 2
     return b
+
+
+def _attn_bucket(cover: int, cap: int, minimum: int = 16) -> Optional[int]:
+    """The attended length of a verify round that must attend `cover` rows
+    of a `cap`-row cache: the covering pow2 bucket, or None when that is
+    the whole cache."""
+    b = min(_bucket(cover, minimum=minimum), cap)
+    return b if b < cap else None
 
 
 def _exact_multinomial(sampler: sampling.SamplerConfig) -> bool:
@@ -126,7 +147,7 @@ class LLMContext:
     arch: str = "nano"                  # "nano" | "qwen2" | "qwen3"
     enable_thinking: bool = False       # Qwen chat template switch
     kv_cache_dtype: Optional[torch.dtype] = None   # torch.int8 halves it
-    spec_k: int = 0                     # speculative decode: not ported
+    spec_k: int = 0                     # speculative draft length cap
     _rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = field(
         default=None, init=False, repr=False)
     _decoder: Optional["SingleDecoder"] = field(
@@ -168,8 +189,8 @@ class LLMContext:
 
     def decoder(self) -> "SingleDecoder":
         """The single-stream decode state (a max_seq_len cache) and its
-        graphs, made once and kept."""
-        if self._decoder is None:
+        graphs, made once and kept (made again for a larger spec_k)."""
+        if self._decoder is None or self._decoder.k_max < self.spec_k:
             self._decoder = SingleDecoder(self)
         return self._decoder
 
@@ -278,13 +299,6 @@ class StreamDecoder:
 # =====================================================================
 # prefill and the decode step
 # =====================================================================
-
-def _not_ported(ctx: LLMContext) -> None:
-    if ctx.spec_k > 0:
-        raise NotImplementedError(
-            "speculative decode (spec_k > 0) is not ported yet: ROADMAP "
-            "queue 1 item 7")
-
 
 def _prefill(ctx: LLMContext, prompt_ids: List[int], cache: gpt.KVCache
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -420,6 +434,14 @@ class SingleDecoder:
     next row — with one single-step ``DecodeGraph`` per sampler.  The
     context keeps one.
 
+    For speculative decode (the context's spec_k > 0 when it was made:
+    ``k_max``) it also holds the token history, the loop's end (``stop_at``,
+    an index of out) and round count, the last round's tokens and count,
+    one spare cache row past max_seq_len (where a round after the loop's
+    end writes) and room in out for a round's overdraft; and one
+    ``DecodeGraph`` of ``speculative.spec_decode_round`` per (k, attended
+    length).
+
     Streams share it one at a time: a stream ``claim``s it before each use,
     and the state of the stream that held it is copied out (to be copied
     back when that stream claims it again)."""
@@ -429,16 +451,22 @@ class SingleDecoder:
         # weak references here and in the graphs' steps: no reference
         # cycle, so the cache and the graphs go with the context
         self.ctx = weakref.proxy(ctx)
-        self.cache = ctx.new_cache(1)
-        self.tok = torch.zeros((1,), dtype=torch.int64, device=dev)
-        self.pos = torch.zeros((1,), dtype=torch.int32, device=dev)
+        self.k_max = ctx.spec_k
+        spec = self.k_max > 0
+        self.cache = ctx.new_cache(1, ctx.max_seq_len + int(spec))
+        zeros = lambda n, dtype=torch.int64: torch.zeros(
+            (n,), dtype=dtype, device=dev)
+        self.tok = zeros(1)
+        self.pos = zeros(1, torch.int32)
         self.seen = torch.zeros((1, ctx.cfg.vocab_size), dtype=torch.bool,
                                 device=dev)
-        self.out = torch.zeros((ctx.max_seq_len,), dtype=torch.int64,
-                               device=dev)
-        self.n_out = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.out = zeros(ctx.max_seq_len + (self.k_max + 1 if spec else 0))
+        self.n_out = zeros(1)
+        self.hist = zeros(ctx.max_seq_len)[None]
+        self.stop_at, self.rounds = zeros(1), zeros(1)
+        self.round_g, self.round_n = zeros(self.k_max + 1), zeros(1)
         self.gen = ctx.generator()
-        self.graphs: Dict[Tuple[sampling.SamplerConfig, int], DecodeGraph] = {}
+        self.graphs: Dict[tuple, DecodeGraph] = {}
         self._owner: Optional[weakref.ref] = None
         # the state of each stream that does not hold the buffers now
         self._saved: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -446,7 +474,9 @@ class SingleDecoder:
     def _buffers(self) -> List[torch.Tensor]:
         c = self.cache
         return [t for t in (c.k, c.v, c.k_scale, c.v_scale, self.tok,
-                            self.pos, self.seen, self.n_out) if t is not None]
+                            self.pos, self.seen, self.n_out, self.hist,
+                            self.stop_at, self.rounds, self.round_g,
+                            self.round_n) if t is not None]
 
     def claim(self, owner: Any = None) -> None:
         """Make `owner`'s stream the one in the buffers; None: a stream
@@ -475,6 +505,12 @@ class SingleDecoder:
         self.pos.fill_(len(prompt_ids))
         self.out[:1] = tok
         self.n_out.fill_(1)
+        self.stop_at.fill_(torch.iinfo(torch.int64).max)
+        if self.k_max > 0:
+            n = len(prompt_ids)
+            self.hist.zero_()
+            self.hist[0, :n] = torch.tensor(prompt_ids, dtype=torch.int64)
+            self.hist[0, n:n + 1] = tok
         return tok
 
     def _step(self) -> None:
@@ -503,6 +539,45 @@ class SingleDecoder:
         for _ in range(n):
             graph.run()
 
+    def _round_graph(self, k: int, attn_len: Optional[int]) -> DecodeGraph:
+        """The graph of one verify round of k drafts attending `attn_len`
+        rows (all when None)."""
+        key = ("round", self.ctx.sampler, k, attn_len)
+        if key not in self.graphs:
+            me = weakref.proxy(self)
+            self.graphs[key] = DecodeGraph(
+                lambda: speculative.spec_decode_round(me, k, attn_len),
+                self.ctx.device, pool=self.ctx.graph_pool())
+        return self.graphs[key]
+
+    def spec_round(self, k: int, attn_len: Optional[int]) -> List[int]:
+        """One verify round (a replay) -> its emitted tokens, read once."""
+        self._round_graph(k, attn_len).run()
+        got = torch.cat([self.round_n, self.round_g[:k + 1]]).tolist()
+        return got[1:1 + got[0]]
+
+    def spec_loop(self, n_tokens: int, k: int, cover_cap: int) -> None:
+        """Speculative decode until out holds n_tokens (JAX's
+        ``spec_decode_loop``): verify rounds replayed SPEC_READ_EVERY at a
+        time, with one host read of (n_out, pos, rounds) between, from which
+        the next replays' graph is chosen, the attended length covering
+        pos + SPEC_READ_EVERY * (k + 1) + 2 rows (at most `cover_cap`, the
+        rows the loop can reach).  Sets ``speculative.LAST_STATS``."""
+        T = self.ctx.max_seq_len
+        self.stop_at.fill_(n_tokens)
+        self.rounds.zero_()
+        while True:
+            n_out, pos, rounds = torch.cat(
+                [self.n_out, self.pos.long(), self.rounds]).tolist()
+            if n_out >= n_tokens or pos + k + 2 > T:
+                break
+            cover = min(pos + SPEC_READ_EVERY * (k + 1) + 2, cover_cap)
+            graph = self._round_graph(
+                k, _attn_bucket(cover, T, minimum=256))
+            for _ in range(SPEC_READ_EVERY):
+                graph.run()
+        speculative.LAST_STATS = {"tokens": n_out - 1, "rounds": rounds}
+
 
 # =====================================================================
 # Session — one token per step() call
@@ -511,11 +586,23 @@ class SingleDecoder:
 class Session:
     """Re-entrant generation session (reference: infer/infer.c:1196-1308).
     step() produces ONE token per call so event-loop frontends can
-    interleave generation with I/O."""
+    interleave generation with I/O.
+
+    With ``ctx.spec_k`` > 0 and greedy sampling a step without pending
+    tokens runs one verify round (a replay), which emits 1..k+1 tokens into
+    ``_pending``.  The draft length adapts as the JAX Session's does: pow2
+    buckets up to spec_k, doubled on full acceptance, the accepted run's
+    bucket on a miss, and a rejected k = 1 probe parks speculation for a
+    backoff-doubled number of plain steps."""
 
     PREFILLING = 0
     DECODING = 1
     FINISHED = 2
+
+    # plain steps after a rejected k = 1 probe before the next probe:
+    # doubled per consecutive rejection, reset on any acceptance
+    _SPEC_PARK_MIN = 4
+    _SPEC_PARK_MAX = 32
 
     def __init__(self, ctx: LLMContext, prompt: str,
                  max_new_tokens: Optional[int] = None,
@@ -533,8 +620,19 @@ class Session:
         self.state = Session.PREFILLING
         self.max_new_tokens = (max_new_tokens if max_new_tokens is not None
                                else ctx.max_seq_len - len(self.prompt_ids))
-        _not_ported(ctx)
         self._dec: Optional[SingleDecoder] = None
+        # speculative decode state
+        self._pending: List[int] = []
+        self._spec_k_cur = 1
+        self._spec_park = 0
+        self._spec_park_len = self._SPEC_PARK_MIN
+        # tokens of the plain steps taken while parked, written into the
+        # history in one device update before the next probe
+        self._park_toks: List[int] = []
+        self._spec = ctx.spec_k > 0 and ctx.sampler.temperature <= 0.0
+        # decode calls by kind: verify rounds, and plain steps by the rule
+        # that took them (spec off, sampling, parked, near the context end)
+        self.steps_by: Dict[str, int] = collections.Counter()
         self.t_start = time.time()
         self.t_first_token: Optional[float] = None
         self.tps = 0.0
@@ -549,6 +647,42 @@ class Session:
         self.t_first_token = time.time()
         return first
 
+    def _spec_adapt(self, k: int, n_acc: int) -> None:
+        """Draft-length controller (pow2-bucketed, with the k = 0 park):
+        full acceptance doubles toward the cap, a partial miss drops to the
+        accepted run's bucket, and a fully rejected k = 1 probe parks
+        speculation (plain steps) with exponential backoff."""
+        if n_acc > 0:
+            self._spec_park_len = self._SPEC_PARK_MIN
+        if n_acc == k:
+            self._spec_k_cur = min(2 * k, self.ctx.spec_k)
+        elif n_acc == 0 and k == 1:
+            self._spec_k_cur = 0
+            self._spec_park = self._spec_park_len
+            self._spec_park_len = min(2 * self._spec_park_len,
+                                      self._SPEC_PARK_MAX)
+        else:
+            self._spec_k_cur = 1 << (max(1, n_acc).bit_length() - 1)
+
+    def _spec_step(self) -> int:
+        """One verify round: the history caught up with the parked plain
+        steps, then a replay of the round's graph."""
+        ctx, dec = self.ctx, self._dec
+        k = max(1, min(self._spec_k_cur, ctx.spec_k,
+                       ctx.max_seq_len - self.pos - 2))
+        ab = _attn_bucket(self.pos + k + 2, ctx.max_seq_len, minimum=256)
+        with ctx.on_stream():
+            dec.claim(self)
+            if self._park_toks:
+                start = self.pos - len(self._park_toks) + 1
+                dec.hist[0, start:self.pos + 1] = torch.tensor(
+                    self._park_toks, dtype=torch.int64)
+                self._park_toks = []
+            self._pending = dec.spec_round(k, ab)
+        self._spec_adapt(k, len(self._pending) - 1)
+        self.pos += len(self._pending)
+        return self._pending.pop(0)
+
     def step(self) -> Optional[int]:
         """Generate the next token, or None when finished."""
         ctx = self.ctx
@@ -556,17 +690,36 @@ class Session:
             return None
         if self.state == Session.PREFILLING:
             tok = self._do_prefill()
+        elif self._pending:
+            tok = self._pending.pop(0)
         else:
             if (self.pos + 1 >= ctx.max_seq_len or
                     len(self.output_ids) >= self.max_new_tokens):
                 self.state = Session.FINISHED
                 return None
-            # one replay of the context's graphed step, one token read
-            with ctx.on_stream():
-                self._dec.claim(self)
-                self._dec._graph().run()
-                tok = int(self._dec.tok[0])
-            self.pos += 1
+            if self._spec and self._spec_k_cur == 0:
+                if self._spec_park > 0:
+                    self._spec_park -= 1      # a plain step this time
+                else:
+                    self._spec_k_cur = 1      # the park is over: probe
+            if (self._spec and self._spec_k_cur > 0
+                    and self.pos + 3 <= ctx.max_seq_len):
+                self.steps_by["round"] += 1
+                tok = self._spec_step()
+            else:
+                self.steps_by[
+                    "plain" if ctx.spec_k == 0 else
+                    "sampling" if not self._spec else
+                    "parked" if self._spec_k_cur == 0 else
+                    "near the context end"] += 1
+                # one replay of the context's graphed step, one token read
+                with ctx.on_stream():
+                    self._dec.claim(self)
+                    self._dec._graph().run()
+                    tok = int(self._dec.tok[0])
+                self.pos += 1
+                if self._spec:
+                    self._park_toks.append(tok)
 
         if tok in ctx.stop_tokens:
             self.state = Session.FINISHED
@@ -620,8 +773,10 @@ def generate_on_device(ctx: LLMContext, prompt_ids: List[int],
     capped to the cache room, both matching Session.  On the card the
     n_tokens - 1 decode steps are replays of the context's captured step,
     each writing its token to a device buffer at an index held on the
-    device; one host read at the end."""
-    _not_ported(ctx)
+    device; one host read at the end.  With spec_k > 0, greedy sampling
+    and room for the last round's drafts (the JAX engine's eligibility),
+    speculative verify rounds instead (``SingleDecoder.spec_loop``; stats
+    in ``speculative.LAST_STATS``)."""
     if not prompt_ids:
         prompt_ids = [getattr(ctx.tokenizer, "bos_id", 0)]
     if len(prompt_ids) >= ctx.max_seq_len:
@@ -630,10 +785,17 @@ def generate_on_device(ctx: LLMContext, prompt_ids: List[int],
     n_tokens = min(n_tokens, ctx.max_seq_len - n)
     if n_tokens <= 0:
         return np.zeros((0,), np.int32)
+    # the rows a verify round can reach past the last token: its drafts
+    need = n + n_tokens + ctx.spec_k + 2
+    spec = (ctx.spec_k > 0 and ctx.sampler.temperature <= 0.0
+            and need <= ctx.max_seq_len)
     dec = ctx.decoder()
     with ctx.on_stream():
         dec.claim()
         dec.prefill(prompt_ids)
-        dec.run(n_tokens - 1)
+        if spec:
+            dec.spec_loop(n_tokens, ctx.spec_k, need)
+        else:
+            dec.run(n_tokens - 1)
         out = dec.out[:n_tokens].cpu()
     return out.numpy().astype(np.int32)

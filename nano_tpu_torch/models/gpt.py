@@ -5,7 +5,8 @@ Port of ``nano_tpu/models/gpt.py``: RMSNorm, RoPE (interleaved or half),
 GQA without expanding KV, optional qk-norm and qkv biases, SwiGLU, tied /
 untied / ``output_q`` heads; ``forward_with_cache`` with ``attn_len`` and
 ``last_idx``; ``forward_decode_batched`` (one token per row at
-positions held on the device); and the no-cache path ``forward_hidden`` /
+positions held on the device) and ``forward_spec_batched`` (S tokens per
+row, the speculative verify round); and the no-cache path ``forward_hidden`` /
 ``forward`` / ``loss_fn`` (masked CE, chunked CE, remat) with ``init_params``.
 
 The parameters keep the JAX package's layout so the two compare like with
@@ -289,10 +290,15 @@ def attention(x: torch.Tensor, layer: Params, cfg: ModelConfig,
     S == 1 (decode, positions on the device): `pos_t` (B,) int32 holds
     each row's position and `start_pos` the (B,) int64 index b * T +
     pos_t[b] of the row it writes in the cache seen as (B * T, ...); the
-    decode-attention kernel then reads rows t <= pos_t[b].  S > 1
-    (prefill): `start_pos` is a host int, the S new rows go to [start_pos,
-    start_pos + S), and the einsum path reads the first `attn_len` rows
-    (all when None) with the additive `mask` (S, attn_len).
+    decode-attention kernel then reads rows t <= pos_t[b].  S > 1: either
+    a prefill, where `start_pos` is a host int and the S new rows go to
+    [start_pos, start_pos + S), or a verify round with positions on the
+    device, where `start_pos` is the (B * S,) int64 index of each new row
+    in the cache seen as (B * T, ...).  Either way the einsum path reads the
+    first `attn_len` rows (all when None) with the additive `mask`, (S,
+    attn_len) or per row (B, 1, 1, S, attn_len); where `pos_t` is given,
+    the first row's heads come from the decode-attention kernel instead, as
+    a decode step at pos_t computes them.
     """
     B, S = x.shape[:2]
     H, KV = cfg.n_head, cfg.n_kv_head
@@ -303,37 +309,46 @@ def attention(x: torch.Tensor, layer: Params, cfg: ModelConfig,
     if quant:
         k, k_sc = _kv_quantize(k)
         v, v_sc = _kv_quantize(v)
-    if S == 1:
+    if isinstance(start_pos, torch.Tensor):
         T = ck.shape[1]
         flat = lambda c: c.view(B * T, *c.shape[2:])
-        flat(ck).index_copy_(0, start_pos, k[:, 0].to(ck.dtype))
-        flat(cv).index_copy_(0, start_pos, v[:, 0].to(cv.dtype))
+        rows_of = lambda x: x.reshape(B * S, *x.shape[2:])
+        flat(ck).index_copy_(0, start_pos, rows_of(k).to(ck.dtype))
+        flat(cv).index_copy_(0, start_pos, rows_of(v).to(cv.dtype))
         if quant:
-            flat(ks).index_copy_(0, start_pos, k_sc[:, 0])
-            flat(vs).index_copy_(0, start_pos, v_sc[:, 0])
-        heads = decode_attn.decode_attention(
+            flat(ks).index_copy_(0, start_pos, rows_of(k_sc))
+            flat(vs).index_copy_(0, start_pos, rows_of(v_sc))
+    else:
+        rows = slice(start_pos, start_pos + S)
+        ck[:, rows], cv[:, rows] = k, v
+        if quant:
+            ks[:, rows], vs[:, rows] = k_sc, v_sc
+    if pos_t is not None:
+        first = decode_attn.decode_attention(
             q[:, 0], ck, cv, ks if quant else None, vs if quant else None,
             pos_t, KV, H // KV)[:, None, :].to(dtype)
-        return _dense(heads, layer["wo"], dtype)
+        if S == 1:
+            return _dense(first, layer["wo"], dtype)
 
-    rows = slice(start_pos, start_pos + S)
-    ck[:, rows], cv[:, rows] = k, v
-    if quant:
-        ks[:, rows], vs[:, rows] = k_sc, v_sc
     Ta = attn_len if attn_len is not None else ck.shape[1]
     ck, cv = ck[:, :Ta], cv[:, :Ta]
+    # a verify round keeps the probabilities and their product with v in
+    # f32, as the decode kernel of the step it verifies does
+    pdt = torch.float32 if isinstance(start_pos, torch.Tensor) else dtype
     if quant:
         # int8 KV: fold the per-vector scales into scores and probs
         scores = _gqa_scores(q, ck.to(dtype), cfg)
         scores = scores * ks[:, :Ta].permute(0, 2, 1)[:, :, None, None, :]
-        probs = torch.softmax(scores + mask, dim=-1).to(dtype)
+        probs = torch.softmax(scores + mask, dim=-1).to(pdt)
         probs = probs * vs[:, :Ta].permute(0, 2, 1)[:, :, None, None, :
-                                                      ].to(dtype)
-        heads = _gqa_out(probs, cv.to(dtype))
+                                                      ].to(pdt)
+        heads = _gqa_out(probs, cv.to(pdt)).to(dtype)
     else:
         scores = _gqa_scores(q, ck, cfg) + mask
-        probs = torch.softmax(scores, dim=-1).to(dtype)
-        heads = _gqa_out(probs, cv.to(dtype))
+        probs = torch.softmax(scores, dim=-1).to(pdt)
+        heads = _gqa_out(probs, cv.to(pdt)).to(dtype)
+    if pos_t is not None:
+        heads = torch.cat([first, heads[:, 1:]], dim=1)
     return _dense(heads, layer["wo"], dtype)
 
 
@@ -543,6 +558,61 @@ def forward_decode_batched(params: Params, tok: torch.Tensor, cache: KVCache,
         h = block(h, layer_params(params["blocks"], i), cfg, cos, sin, None,
                   dtype, cache.layer(i), rows, p)
     return _final(h, params, cfg, dtype)[:, 0], cache
+
+
+def forward_spec_batched(params: Params, toks: torch.Tensor, cache: KVCache,
+                         pos: torch.Tensor, cfg: ModelConfig,
+                         dtype=torch.bfloat16, attn_len: Optional[int] = None,
+                         rope: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                         = None, first_row_kernel: bool = False
+                         ) -> Tuple[torch.Tensor, KVCache]:
+    """S tokens per batch row at positions held on the device — the
+    speculative verify round, batched over slots or for one stream at
+    B = 1.  toks (B, S) ids, pos (B,) int32: row b runs its tokens at
+    positions [pos[b], pos[b] + S), attending its cache prefix causally.
+    -> f32 logits (B, S, V) (the head runs over every row) and the cache,
+    updated in place.
+
+    Built as ``forward_decode_batched`` is: the RoPE (or learned-position)
+    rows are gathered by position, the S new rows of slot b go to rows
+    b * T + pos[b] + j of the cache by one ``index_copy_``, the mask is made
+    on the device from the positions, and the einsum attention reads the
+    first `attn_len` rows (the caller guarantees max(pos) + S <= attn_len).
+    A position past the cache (a slot that is not decoding) is taken as the
+    last row, as in ``forward_decode_batched``: its output is garbage the
+    caller ignores.  The decode-attention kernel takes S == 1 only, as the
+    JAX package's does; with `first_row_kernel` it computes row 0 of every
+    slot (a decode step's problem), so that row 0 has the bits of
+    ``forward_decode_batched``'s logits for the same cache, which a
+    sampled slot of a batched round needs to draw as the plain step draws.
+    """
+    B, S = toks.shape
+    T = cache.max_seq
+    Ta = attn_len if attn_len is not None else T
+    dev = toks.device
+    posm = pos.long()[:, None] + torch.arange(S, device=dev)[None, :]
+    pw = posm.clamp(max=T - 1)                                # (B, S)
+    h = embed_tokens(params, toks, dtype)                     # (B, S, E)
+    if cfg.use_rope:
+        cos_t, sin_t = (rope if rope is not None else precompute_rope(
+            cfg.head_dim, T, cfg.rope_theta, dev))
+        pr = pw.clamp(max=cos_t.shape[0] - 1).reshape(-1)
+        cos = cos_t.index_select(0, pr).reshape(B, S, 1, -1)   # (B, S, 1, D/2)
+        sin = sin_t.index_select(0, pr).reshape(B, S, 1, -1)
+    else:
+        cos = sin = None
+        wpe = params["wpe"]
+        h = h + wpe.index_select(0, pw.clamp(max=wpe.shape[0] - 1).reshape(-1)
+                                 ).reshape(B, S, -1).to(dtype)
+    j = torch.arange(Ta, device=dev)[None, None, :]
+    mask = torch.where(j <= posm[:, :, None], 0.0, -float("inf")
+                       ).to(torch.float32)[:, None, None]    # (B,1,1,S,Ta)
+    rows = (torch.arange(B, device=dev)[:, None] * T + pw).reshape(-1)
+    pos_t = pw[:, 0].to(torch.int32) if first_row_kernel else None
+    for i in range(cfg.n_layer):
+        h = block(h, layer_params(params["blocks"], i), cfg, cos, sin, mask,
+                  dtype, cache.layer(i), rows, pos_t, attn_len)
+    return _final(h, params, cfg, dtype), cache
 
 
 # =====================================================================

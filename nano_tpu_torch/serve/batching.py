@@ -1,14 +1,13 @@
 """Continuous batching: many independent generation streams share one
 batched decode step.
 
-Port of ``nano_tpu/serve/batching.py`` without speculative serving and
-LoRA adapters (``ctx.spec_k > 0`` and ``adapters`` raise
-``NotImplementedError``).  A slot-based engine: the KV cache carries a
-batch axis, every slot advances one token per step wherever its stream is
-(a position per slot, on the device), and slots attach and detach without
-new shapes (idle slots compute garbage that is ignored).  Per-slot sampler
-parameters (temperature, top-p, repetition penalty) are (B,) device
-vectors.
+Port of ``nano_tpu/serve/batching.py`` without LoRA adapters
+(``adapters`` raise ``NotImplementedError``).  A slot-based engine: the KV
+cache carries a batch axis, every slot advances one token per step
+wherever its stream is (a position per slot, on the device), and slots
+attach and detach without new shapes (idle slots compute garbage that is
+ignored).  Per-slot sampler parameters (temperature, top-p, repetition
+penalty) are (B,) device vectors.
 
 The batched step (``gpt.forward_decode_batched`` + ``_sample_rows``) reads
 and writes only the engine's static buffers, so on the card it is captured
@@ -20,19 +19,30 @@ of it runs on the context's stream under the context's lock
 (``LLMContext.on_stream``), which the engine's own lock always precedes:
 a client's prefill waits for a burst's replays and captures, and is never
 recorded into them.
+
+Speculative serving (``ctx.spec_k`` > 0): a step drafts k tokens per slot
+from the slot's own history and verifies k+1 rows per slot in one
+``gpt.forward_spec_batched``; a greedy slot emits 1..k+1 tokens, a
+stochastic or parked one (``spec_ok`` false) its row 0 sampled exactly as
+the plain step samples it.  Its graph is keyed by (cache length,
+all-greedy or not, k); k ramps engine-wide in pow2 buckets and slots park
+one by one, as the JAX engine's do.
 """
 
 from __future__ import annotations
 
+import collections
 import threading
 import weakref
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from nano_tpu_torch.infer import engine as eng
+from nano_tpu_torch.infer import speculative
 from nano_tpu_torch.models import gpt
 from nano_tpu_torch.ops import sampling
 
@@ -108,10 +118,6 @@ class BatchedEngine:
             raise NotImplementedError(
                 "batched LoRA adapters are not ported yet: ROADMAP queue 1 "
                 "item 8")
-        if ctx.spec_k > 0:
-            raise NotImplementedError(
-                "speculative serving (spec_k > 0) is not ported yet: ROADMAP "
-                "queue 1 item 7")
         self.ctx = ctx
         self.n_slots = n_slots
         dev = ctx.device
@@ -135,6 +141,25 @@ class BatchedEngine:
         self.slots: List[Slot] = [Slot() for _ in range(n_slots)]
         self.lock = threading.Lock()   # one device mutator at a time
         self._graphs: Dict[tuple, eng.DecodeGraph] = {}
+        # speculative serving: each slot's token history (drafts come from
+        # its own stream; stale entries cost acceptance, never correctness),
+        # a spec step's tokens (steps, B, spec_k + 1) and counts (steps, B),
+        # which slots verify (greedy and not parked), the engine-wide draft
+        # length and each slot's park (bursts left) and backoff (cap 8)
+        K1 = ctx.spec_k + 1
+        self.hist = torch.zeros((n_slots, ctx.max_seq_len), dtype=torch.int64,
+                                device=dev)
+        self.emit = torch.zeros((ctx.max_seq_len, n_slots, K1),
+                                dtype=torch.int64, device=dev)
+        self.emit_n = torch.zeros((ctx.max_seq_len, n_slots),
+                                  dtype=torch.int64, device=dev)
+        self._spec_ok_t = torch.zeros((n_slots,), dtype=torch.bool,
+                                      device=dev)
+        self._spec_k_cur = 1
+        self._spec_park = np.zeros(n_slots, np.int64)
+        self._spec_park_len = np.ones(n_slots, np.int64)
+        # bursts by kind: speculative, and plain by the rule that took them
+        self.bursts_by: Dict[str, int] = collections.Counter()
 
     # ------------------------------------------------------------
     def _min_cache_len(self) -> int:
@@ -197,15 +222,63 @@ class BatchedEngine:
         self.pos.add_(1)
         self.n_out.add_(1)
 
-    def _graph(self, greedy: bool) -> "eng.DecodeGraph":
-        key = (self._cache_len(), greedy)
+    def _spec_step(self, cache: gpt.KVCache, greedy: bool, k: int) -> None:
+        """One speculative step for all slots over the static buffers (the
+        JAX engine's ``_batched_spec_step``): slots in ``spec_ok`` emit the
+        1..k+1 verified penalized-greedy tokens of their rows; the others
+        emit row 0's token, drawn by ``_sample_rows`` from the generator
+        exactly as ``_step`` draws it, and advance one position.  With a
+        sampled slot in the step (not `greedy`), row 0 of every slot
+        attends through the decode kernel, as the plain step does, so a
+        sampled slot's logits, draws and stream are the plain engine's bit
+        for bit.  Rows past a slot's emitted tokens are rejected drafts,
+        which the next step's cache writes cover."""
+        ctx = self.ctx
+        V = ctx.cfg.vocab_size
+        drafts = speculative.batched_ngram_draft(self.hist, self.pos, k)
+        ids = torch.cat([self.tok[:, None], drafts], dim=1)      # (B, k+1)
+        logits, _ = gpt.forward_spec_batched(
+            ctx.params, ids, cache, self.pos, ctx.cfg, dtype=ctx.dtype,
+            rope=ctx.rope_tables(), first_row_kernel=not greedy)
+        rep = self._rep_penalty_t[:, None, None]
+        pen = torch.where(speculative.prefix_masks(drafts, self.seen),
+                          logits / rep, logits)
+        g = torch.argmax(pen, dim=-1)                            # (B, k+1)
+        n_acc = speculative.accepted(drafts, g)
+        if greedy:
+            row0 = g[:, 0]       # row 0's mask is seen: the plain argmax
+        else:
+            row0 = _sample_rows(
+                torch.where(self.seen, logits[:, 0] / rep[:, 0], logits[:, 0]),
+                self._temperature_t, self._top_p_t, ctx.sampler.top_k,
+                self.gen)
+        ok = self._spec_ok_t
+        n = torch.where(ok, n_acc + 1, 1)
+        emit = torch.where(ok[:, None], g,
+                           torch.cat([row0[:, None], g[:, 1:]], dim=1))
+        nxt = torch.where(ok, g.gather(1, n_acc[:, None])[:, 0], row0)
+        speculative.put_rows(self.hist, self.pos + 1, emit)
+        self.seen |= speculative.emitted_mask(emit, n, V)
+        self.tok.copy_(nxt)
+        self.emit.index_copy_(0, self.n_out, F.pad(
+            emit, (0, self.emit.shape[2] - (k + 1)))[None])
+        self.emit_n.index_copy_(0, self.n_out, n[None])
+        self.pos.add_(n)
+        self.n_out.add_(1)
+
+    def _graph(self, greedy: bool, k: int = 0) -> "eng.DecodeGraph":
+        """The graph of one batched step at the current capacity: plain
+        (k = 0) or speculative with k drafts."""
+        key = (self._cache_len(), greedy, k)
         if key not in self._graphs:
             cache, me = self.cache, weakref.proxy(self)
             # the step holds the engine weakly: no reference cycle, so the
             # engine's cache is freed with the engine
+            step = ((lambda: me._spec_step(cache, greedy, k)) if k else
+                    (lambda: me._step(cache, greedy)))
             self._graphs[key] = eng.DecodeGraph(
-                lambda: me._step(cache, greedy), self.ctx.device, 1,
-                None if greedy else self.gen, self.ctx.graph_pool())
+                step, self.ctx.device, 1, None if greedy else self.gen,
+                self.ctx.graph_pool())
         return self._graphs[key]
 
     def _run(self, n: int, greedy: bool) -> np.ndarray:
@@ -215,13 +288,50 @@ class BatchedEngine:
             graph = self._graph(greedy)
             for _ in range(n):
                 graph.run()
-            toks = self.out[:n].cpu().numpy()
+            out = self.out[:n]
+            if self.ctx.spec_k > 0:
+                # keep each slot's history current through plain bursts:
+                # the token of step t lands at position pos + 1 + t
+                # (dropped past the end)
+                t, b = np.nonzero(self._pos_host[None, :] + 1
+                                  + np.arange(n)[:, None] < self.ctx.max_seq_len)
+                dev = lambda a: torch.from_numpy(a).to(out.device)
+                self.hist[dev(b), dev(self._pos_host[b] + 1 + t)] = \
+                    out[dev(t), dev(b)]
+            toks = out.cpu().numpy()
         self._pos_host += n
         return toks
 
+    def _run_spec(self, n: int, greedy: bool, k: int
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+        """n speculative steps -> their tokens (n, B, k+1) and counts
+        (n, B), one host read."""
+        with self.ctx.on_stream():
+            self.n_out.zero_()
+            graph = self._graph(greedy, k)
+            for _ in range(n):
+                graph.run()
+            both = torch.cat([self.emit[:n, :, :k + 1].reshape(-1),
+                              self.emit_n[:n].reshape(-1)]).cpu().numpy()
+        B = self.n_slots
+        emits = both[:n * B * (k + 1)].reshape(n, B, k + 1)
+        n_outs = both[n * B * (k + 1):].reshape(n, B)
+        self._pos_host += n_outs.sum(axis=0)
+        return emits, n_outs
+
+    def _spec_ks(self) -> List[int]:
+        """The draft lengths the controller can pick: pow2 up to spec_k,
+        and spec_k."""
+        ks, k = [], 1
+        while k < self.ctx.spec_k:
+            ks.append(k)
+            k *= 2
+        return ks + [self.ctx.spec_k] if self.ctx.spec_k > 0 else []
+
     def warmup(self) -> int:
         """Capture every decode graph serving can hit — each cache
-        capacity, all-greedy or not — and run each prefill bucket once, so no client pays a capture at first
+        capacity, all-greedy or not, plain and at each draft length — and
+        run each prefill bucket once, so no client pays a capture at first
         contact.  The engine must be idle: the warm-up steps run on its own
         buffers.  Returns the number of graphs and prefill buckets."""
         ctx = self.ctx
@@ -247,10 +357,11 @@ class BatchedEngine:
             for cap in caps + [T]:
                 self.cache = self._view(cap)
                 for greedy in (True, False):
-                    self.n_out.zero_()
-                    with ctx.on_stream():
-                        self._graph(greedy).prepare()
-                    n += 1
+                    for k in [0] + self._spec_ks():
+                        self.n_out.zero_()
+                        with ctx.on_stream():
+                            self._graph(greedy, k).prepare()
+                        n += 1
             self._set_capacity(self._min_cache_len())
             return n
 
@@ -310,18 +421,19 @@ class BatchedEngine:
             raise
         try:
             return self._attach_prefilled(
-                st, slot, n, pad, tmp, seen_row, last, temperature, top_p,
-                repetition_penalty, max_new_tokens, sink)
+                st, slot, prompt_ids, pad, tmp, seen_row, last, temperature,
+                top_p, repetition_penalty, max_new_tokens, sink)
         except BaseException:
             with self.lock:
                 st.attached = False
                 st.active = False
             raise
 
-    def _attach_prefilled(self, st, slot, n, pad, tmp, seen_row, last,
-                          temperature, top_p, repetition_penalty,
+    def _attach_prefilled(self, st, slot, prompt_ids, pad, tmp, seen_row,
+                          last, temperature, top_p, repetition_penalty,
                           max_new_tokens, sink=None):
         ctx = self.ctx
+        n = len(prompt_ids)
         with self.lock:
             # the spliced prompt rows (and the first decode write at n)
             # must fit the current capacity
@@ -342,8 +454,15 @@ class BatchedEngine:
                 self._temperature_t[slot] = temperature
                 self._top_p_t[slot] = top_p
                 self._rep_penalty_t[slot] = repetition_penalty
+                if ctx.spec_k > 0:
+                    self.hist[slot].zero_()
+                    self.hist[slot, :n] = torch.tensor(prompt_ids,
+                                                       dtype=torch.int64)
+                    self.hist[slot, n] = first_t[0]
                 first = int(first_t[0])
             self._pos_host[slot] = n
+            self._spec_park[slot] = 0         # a fresh stream: probe again
+            self._spec_park_len[slot] = 1
             self.temperature[slot] = temperature
             self.top_p[slot] = top_p
             self.rep_penalty[slot] = repetition_penalty
@@ -365,6 +484,28 @@ class BatchedEngine:
                 st.finished_reason = "length"
             return slot, first
 
+    def _spec_adapt_burst(self, unparked: List[int], n_outs: np.ndarray,
+                          k: int) -> None:
+        """After a speculative burst (the JAX engine's controller): a slot
+        whose burst accepted nothing parks for a backoff-doubled number of
+        bursts (cap 8), reset on any acceptance; the engine-wide k doubles
+        toward spec_k when any slot fully accepted a round, else drops to
+        the pow2 bucket of the best accepted run (floor 1).  n_outs (steps,
+        B): tokens emitted per round."""
+        best = 0
+        for i in unparked:
+            acc = int(n_outs[:, i].max()) - 1
+            best = max(best, acc)
+            if acc <= 0:
+                self._spec_park[i] = self._spec_park_len[i]
+                self._spec_park_len[i] = min(2 * self._spec_park_len[i], 8)
+            else:
+                self._spec_park_len[i] = 1
+        if best >= k:
+            self._spec_k_cur = min(2 * k, self.ctx.spec_k)
+        else:
+            self._spec_k_cur = 1 << (max(1, best).bit_length() - 1)
+
     def release(self, slot: int) -> None:
         """Return the slot to the free pool (consumer is done with it)."""
         with self.lock:
@@ -381,8 +522,8 @@ class BatchedEngine:
                         t.zero_()
 
     # ------------------------------------------------------------
-    def _consume(self, toks_2d: np.ndarray) -> BurstResult:
-        """Slot bookkeeping over an (n_steps, B) token burst.
+    def _consume(self, slot_tokens: Dict[int, list]) -> BurstResult:
+        """Slot bookkeeping over each active slot's candidate tokens.
 
         Returns a BurstResult {slot: [tokens...]} with per-slot `ended`
         flags; tokens after a stop token (or past the length limits) are
@@ -398,7 +539,7 @@ class BatchedEngine:
                 continue
             sinks[i] = st.sink
             got: list = []
-            for t in toks_2d[:, i].tolist():
+            for t in slot_tokens.get(i, []):
                 if t in ctx.stop_tokens:
                     st.active = False
                     st.finished_reason = "stop"
@@ -415,28 +556,61 @@ class BatchedEngine:
         return BurstResult(out, ended, sinks)
 
     def step_burst(self, n_steps: int = 1) -> BurstResult:
-        """Advance every active slot up to n_steps tokens: n_steps replays
-        of the batched step and one host read (bursts longer than
-        max_seq_len in pieces).  `.ended[slot]` flags which streams
-        finished during this burst (slots[slot].finished_reason says
-        why)."""
+        """Advance every active slot n_steps steps: n_steps replays of the
+        batched step and one host read (bursts longer than max_seq_len in
+        pieces).  With spec_k > 0 each step is a speculative one while a
+        greedy slot is unparked and every active slot has room for
+        n_steps rounds of k + 1; a verifying slot emits up to k + 1 tokens
+        a step.  `.ended[slot]` flags which streams finished during this
+        burst (slots[slot].finished_reason says why)."""
         ctx = self.ctx
         with self.lock:
             if self.n_active == 0:
                 return BurstResult({}, {}, {})
             max_pos = max(int(self._pos_host[i])
                           for i, s in enumerate(self.slots) if s.active)
-            self._ensure_capacity(1 + n_steps + max_pos)
             # all-greedy bursts replay the graph with a bare argmax
             greedy = all(self.temperature[i] <= 0.0
                          for i, s in enumerate(self.slots) if s.active)
             T = ctx.max_seq_len
+            eligible = [i for i, s in enumerate(self.slots)
+                        if s.active and self.temperature[i] <= 0.0]
+            unparked = [i for i in eligible if self._spec_park[i] <= 0]
+            if ctx.spec_k > 0:
+                # parked slots sit this burst out and count it toward
+                # their backoff
+                for i in eligible:
+                    if self._spec_park[i] > 0:
+                        self._spec_park[i] -= 1
+            k = max(1, min(self._spec_k_cur, ctx.spec_k))
+            # a spec step may advance a slot k + 1 positions; near the
+            # context end, or with no slot to verify, the plain steps (on
+            # a spec-touched cache: rejected drafts lie past each position)
+            need = max_pos + n_steps * (k + 1) + 2
+            kind = ("plain" if ctx.spec_k == 0 else
+                    "plain: no slot to verify" if not unparked else
+                    "plain: near the context end" if need > T else "spec")
+            self.bursts_by[kind] += 1
+            if kind == "spec":
+                self._ensure_capacity(need)
+                self._spec_ok_t.copy_(torch.from_numpy(
+                    (self.temperature <= 0.0) & (self._spec_park <= 0)))
+                emits, n_outs = self._run_spec(n_steps, greedy, k)
+                self._spec_adapt_burst(unparked, n_outs, k)
+                return self._consume(
+                    {i: [int(t) for step in range(n_steps)
+                         for t in emits[step, i, :n_outs[step, i]]]
+                     for i, s in enumerate(self.slots) if s.active})
+            self._ensure_capacity(1 + n_steps + max_pos)
             toks = np.concatenate(
                 [self._run(min(T, n_steps - lo), greedy)
                  for lo in range(0, n_steps, T)])
-            return self._consume(toks)
+            return self._consume({i: toks[:, i].tolist()
+                                  for i, s in enumerate(self.slots)
+                                  if s.active})
 
     def step(self) -> BurstResult:
-        """Advance every active slot one device step.  `.ended[slot]` flags
-        streams that finished (stop token / length)."""
+        """Advance every active slot one device step (a verifying slot may
+        emit several tokens).  `.ended[slot]` flags streams that finished
+        (stop token / length)."""
         return self.step_burst(1)

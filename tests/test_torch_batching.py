@@ -296,6 +296,3 @@ def test_spec_and_adapters_raise_not_ported(model_path):
     with pytest.raises(NotImplementedError, match="item 8"):
         be.add(tctx.encode("ab"), adapter="a")
     assert be.free_slot() == 0                     # nothing claimed
-    tctx.spec_k = 4
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tbatch.BatchedEngine(tctx, n_slots=2)

@@ -194,11 +194,3 @@ def test_interleaved_sessions_keep_their_own_streams(models):
     # one decode state with a max_seq_len cache, kept by the context
     assert tctx.decoder() is sa._dec is sb._dec
     assert tctx.decoder().cache.k.shape[2] == 64
-
-
-def test_spec_decode_raises_not_ported(models):
-    _, tctx = _ctxs(models, "nano_f32", max_seq_len=64, spec_k=4)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        teng.generate_on_device(tctx, [1, 2], 4)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        teng.Session(tctx, "", prompt_ids=[1, 2])

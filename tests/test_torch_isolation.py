@@ -97,7 +97,8 @@ def test_new_modules_are_among_the_checked_sources():
     rel = {os.path.relpath(p, ROOT) for p in _sources()}
     for mod in ("data/preprocess.py", "train/data.py", "train/trainer.py",
                 "train/__main__.py", "io/checkpoint.py", "ops/flash_attn.py",
-                "ops/launches.py", "serve/__init__.py", "serve/batching.py"):
+                "ops/launches.py", "serve/__init__.py", "serve/batching.py",
+                "infer/speculative.py"):
         assert os.path.join("nano_tpu_torch", mod) in rel
 
 

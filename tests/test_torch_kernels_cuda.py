@@ -201,11 +201,14 @@ def _check_w8a8(w, B, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [2, 7, 8, 9, 63, 64, 65, 200])
+@pytest.mark.parametrize("B", [2, 3, 5, 7, 8, 9, 16, 40, 63, 64, 65, 200,
+                               320])
 @pytest.mark.parametrize("product", sorted(QWEN3_PRODUCTS))
 def test_q80_w8a8_tensor_core_kernel_matches_plain(product, B):
     """K1 at B > 1 on the int8 tensor cores at the five Qwen3-0.6B products,
-    one slot tile up to 64 rows (ragged below), two and four tiles above."""
+    one slot tile up to 64 rows (ragged below), two to five tiles above;
+    among them the rows of a speculative verify round (k + 1 = 2, 3, 5, 8,
+    9; batched 16, 40, 320)."""
     _need_card()
     _check_w8a8(_card_weight(*QWEN3_PRODUCTS[product], 256), B, B)
 
@@ -513,7 +516,7 @@ def test_q4k_act_quant_kernel_is_bit_equal(n):
     and bf16 rows with an all-zero and constant groups."""
     _need_card()
     rng = np.random.RandomState(n + 1)
-    for B in (2, 8, 64, 65):
+    for B in (2, 3, 5, 8, 9, 16, 40, 64, 65, 320):
         x = _act_rows(rng, B, n)
         for xt in (x, x.to(torch.bfloat16)):
             got = tq4.act_quant_q4k_packed(xt)
@@ -524,7 +527,7 @@ def test_q4k_act_quant_kernel_is_bit_equal(n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [2, 8, 64, 65])
+@pytest.mark.parametrize("B", [2, 3, 5, 8, 9, 16, 40, 64, 65, 320])
 @pytest.mark.parametrize("inn,out", [(1024, 4096), (2048, 1024), (1024, 6144),
                                      (3072, 1024), (64, 128), (128, 64),
                                      (40, 3), (40, 200), (320, 72)])
@@ -858,6 +861,57 @@ def test_batched_engine_equals_solo_on_the_card(name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tiny_q80.bin", "tiny_q4k.bin"])
+def test_speculative_rounds_on_the_card(name):
+    """Verify rounds replayed from their graphs (spec_k = 7): the
+    committed streams through Session and generate_on_device, and the
+    launches of each round on the second call: none of the decode kernel,
+    a whole number of rounds."""
+    _need_card()
+    from nano_tpu_torch.infer import engine, speculative
+    with open(os.path.join(FIX, "expected.json")) as f:
+        expected = json.load(f)
+    ctx = _fixture_ctx(name, penalty=1.0)
+    ctx.spec_k = 7
+    want = expected["greedy"][name[5:-4]]
+    s = engine.generate_sync(ctx, expected["prompt"], max_new_tokens=16)
+    assert s.output_ids == want and s.steps_by["round"] > 0
+    ids = ctx.encode(expected["prompt"])
+    assert engine.generate_on_device(ctx, ids, 16).tolist() == want
+    n0 = tda.decode_attention.launches
+    assert engine.generate_on_device(ctx, ids, 16).tolist() == want
+    torch.cuda.synchronize()
+    assert tda.decode_attention.launches == n0
+    assert speculative.LAST_STATS["rounds"] < 15
+
+
+@pytest.mark.cuda
+def test_speculative_batched_sampled_slot_is_the_plain_one():
+    """A sampled slot in a speculative BatchedEngine (its row 0 through the
+    decode kernel) draws the plain engine's stream bit for bit, beside a
+    greedy slot that verifies drafts."""
+    _need_card()
+    from nano_tpu_torch.serve.batching import BatchedEngine
+    outs = []
+    for spec_k in (0, 4):
+        ctx = _fixture_ctx("tiny_q80.bin")
+        ctx.spec_k = spec_k
+        be = BatchedEngine(ctx, n_slots=4)
+        g, gf = be.add(ctx.encode("abcabcabc"), max_new_tokens=30,
+                       temperature=0.0, repetition_penalty=1.0)
+        t, tf = be.add(ctx.encode("hello"), max_new_tokens=30,
+                       temperature=0.8, repetition_penalty=1.1)
+        got = {g: [gf], t: [tf]}
+        while be.n_active:
+            for sl, toks in be.step_burst(4).items():
+                got[sl].extend(toks)
+        outs.append(got[t])
+        if spec_k:
+            assert be.bursts_by["spec"] > 0
+    assert outs[0] == outs[1] and len(outs[0]) == 30
+
+
+@pytest.mark.cuda
 def test_join_from_another_thread_during_captures():
     """One thread serves bursts that grow the cache and capture a graph at
     each new capacity while clients join from the main thread: no capture
@@ -985,7 +1039,7 @@ def _norm_quant_inputs(rng, B, E, dtype, zero_row=True):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B", [1, 8, 64, 65])
+@pytest.mark.parametrize("B", [1, 3, 8, 9, 40, 64, 65, 320])
 def test_rms_norm_q80_matches_eager(B, dtype):
     """At the Qwen3-0.6B width (E = 1024), with and without the residual,
     at group sizes 0, 256 and 512: h torch.equal to the eager add; hn as
@@ -1031,7 +1085,7 @@ def test_rms_norm_q80_matches_eager(B, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B", [1, 8, 64, 65])
+@pytest.mark.parametrize("B", [1, 3, 8, 9, 40, 64, 65, 320])
 def test_swiglu_q80_matches_eager(B, dtype):
     """At the Qwen3-0.6B width (2F = 6144), at group sizes 0, 256 and 512:
     the output torch.equal to eager F.silu(h1) * h3 on the card; xq and sa
@@ -1158,7 +1212,7 @@ def test_w8a8_rows_equal_the_matvec_at_every_batch(K, N, gs):
     w = tqm.Q80Tensor(q=torch.from_numpy(q).cuda(),
                       scales=torch.from_numpy(s).cuda(), group_size=gs,
                       w8a8=True)
-    for B in (2, 8, 64, 65):
+    for B in (2, 3, 5, 8, 9, 16, 40, 64, 65, 320):
         x = torch.from_numpy(rng.randn(B, K).astype(np.float32)).to(
             "cuda", torch.bfloat16)
         for dt in (torch.float32, torch.bfloat16):
