@@ -101,7 +101,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   a Session's k trajectory, BatchedEngine at 8 slots (a
                   sampled slot whose stream must be the plain engine's)
                   and 64, spec against plain in turns, and one 64-slot
-                  speculative burst profiled
+                  speculative burst profiled; then on a trained model:
+                  tools/make_trained_fixture.py's toy (4 layers, width
+                  128, a memorized chorus) trained on the card for 900
+                  steps through loss_fn and AdamW (final loss under
+                  0.15), written as toy_{f32,q80,q4k}.bin by the port's
+                  writer, each served: greedy continues the chorus, and
+                  spec_k = 7 gives the plain stream with more than one
+                  token a verify round
   6. training     Nano-168M (config/model_168m.json: 24 layers, width 768,
                   16/8 heads of 48) under config/pretrain.json (batch 64 x
                   512, bf16, remat "ffn"), random weights from the config's
@@ -119,6 +126,23 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   remat) for 3 steps with its launch counts and a falling
                   loss; and one f32 step (4 layers, batch 2) on the card
                   against the same step on the CPU through the plain versions
+  7. export and import (export_phase)
+                  7a: phase 6's step-12 Nano-168M checkpoint served by
+                  LLMContext.from_checkpoint, exported by
+                  nano_tpu_torch.export's main to f32, Q80 (group size 256)
+                  and Q4K .bin files, each served by from_bin: the f32
+                  stream token-identical to the checkpoint's, the Q80 and
+                  Q4K launches exact (K1's W8A8 pair and K3), their
+                  first-step logits within EXPORT_LOGITS_TOL of the f32
+                  file's, repack f32 -> f32 byte-identical, tok/s and TTFT
+                  of each; 7b: Qwen3-0.6B at full width and depth, dense
+                  f32 random weights written by write_gguf as Q8_0 and
+                  served by from_gguf, every product through
+                  q80_matmul_rows at group size 32 (launches exact), timed
+                  over a decode step's 197 launches beside its plain
+                  version, bf16 torch.matmul and the bound; convert_gguf
+                  to Q80 at group size 256 served by from_bin through K1's
+                  W8A8 pair, the two streams' agreeing prefix
 
 Phase 3 also holds K1 (q80_matmul_w8a8, every row torch.equal to the
 B = 1 kernel's), K3 at B > 1 and the norm kernels at the row counts of a
@@ -142,7 +166,7 @@ attention launches both on f32 q and as the model feeds them (bf16 q,
 result cast to bf16).
 
 `python3 chip_smoke.py bench [flash [clocks]] [decode] [q4k [batched]] [q80
-[batched [sweep] [clocks]]] [pipes] [spec]` runs none of the phases: it times the two
+[batched [sweep] [clocks]]] [pipes] [spec] [toy] [export]` runs none of the phases: it times the two
 attention kernels alone beside SDPA (the flash forward and backward, a
 ladder over the decode kernel's rows per block), a Q4K decode step's
 matmuls with the fake-quant folded in or not, a Q80 decode step's W8A8
@@ -156,7 +180,8 @@ the kernel; `clocks`: where a block's time goes).  `bench q4k batched`
 times K3 at B > 1 the same way: a Q4K forward's 112 layer products at 8 and
 64 rows, by product, q4k_matmul_w4a4 alone, with q4k_act_quant, the pair it
 replaced (q4k_fake_quant + q4k_matmul) and the bf16 torch.matmul, beside
-the bound.  `bench spec` runs phase 5c alone.
+the bound.  `bench spec` runs phase 5c alone, `bench toy` its trained
+toy, and `bench export` phase 7 (on an untrained Nano-168M checkpoint).
 
 The last two lines of stdout are one JSON object listing the kernels and
 then {"ok": true, "device": {...}}.  Without a CUDA device the script
@@ -236,6 +261,22 @@ SPEC_LOGIT_ROUNDS = 8
 # (its random weights, positive on average, make the model nearly blind
 # to which rows it attends: a weak control)
 SPEC_LOGITS_TOL = {"Q80": 0.25, "Q4K": 4e-3}
+# phase 5c on a trained model: tools/make_trained_fixture.py's recipe
+TOY_CHORUS = "滚滚长江东逝水，浪花淘尽英雄。是非成败转头空。"
+TOY_N_CHORUS, TOY_SEED, TOY_STEPS, TOY_BATCH = 40, 20260820, 900, 16
+TOY_LR, TOY_TARGET_LOSS = 1.5e-3, 0.15
+TOY_SPEC_TOKENS = 64
+# phase 7: prompt and greedy tokens of every stream
+EXPORT_PROMPT, EXPORT_NEW = 64, 64
+# phase 7a: the first-step logits of the Q80 and Q4K exports against the f32
+# export's, of max|logit|, all three served in bf16.  On Nano-168M's initial
+# weights (`bench export`) they read 4.9e-2 (Q80: weights and activations
+# rounded to 1/254 of a 256-group's max) and 0.42 (Q4K: 1/15 of a 32-group's
+# range, 4-bit activations), compounding through 24 layers; the f32 file's
+# own logits at another prompt (the control) read 1.50: a writer that
+# misplaces or mis-scales a matrix reads at that level.  Limits 3x and 2x
+# the readings, below the control.
+EXPORT_LOGITS_TOL = {"Q80": 0.15, "Q4K": 0.8}
 
 
 def log(*a):
@@ -1803,6 +1844,458 @@ def bench_spec(torch):
                     stop_tokens=QWEN_STOP_TOKENS, arch="qwen3")))
 
 
+def dense_counts(steps, names, L):
+    """Launches of an L-layer model served dense (bf16 matrices through
+    torch.matmul): its 64-row prefill and `steps` decode steps."""
+    e = {n: 0 for n in names}
+    e.update(decode_attention=L * steps, rms_norm_q80=(2 * L + 1) * (1 + steps),
+             swiglu_q80=L * (1 + steps))
+    return e
+
+
+def gguf_rows_counts(steps, names, L=28):
+    """Launches of an L-layer Qwen3 model from a Q8_0 GGUF (group size 32:
+    the rows form, the seven products of a layer unfused, as the JAX
+    package loads them): its 64-row prefill and `steps` decode steps."""
+    e = dense_counts(steps, names, L)
+    e.update(q80_matmul_rows=(7 * L + 1) * (1 + steps))
+    return e
+
+
+def train_toy(torch, np, dev):
+    """tools/make_trained_fixture.py's recipe through the port's loss_fn and
+    AdamW on `dev`: its corpus (dataset/pretrain_sample.txt around a cyclic
+    chorus), its char-level trie tokenizer, its 4-layer width-128 config,
+    900 steps of batch 16 x 256 drawn by its seed, lr 1.5e-3, b2 0.95,
+    weight decay 0.01, f32.  -> (params, cfg, tokenizer, losses every 100
+    steps and the last, seconds)."""
+    from nano_tpu_torch.config import ModelConfig, TrainConfig
+    from nano_tpu_torch.models import gpt
+    from nano_tpu_torch.tokenizer.trie import TrieTokenizer
+    from nano_tpu_torch.train.trainer import AdamW
+    with open(os.path.join(ROOT, "dataset", "pretrain_sample.txt"),
+              encoding="utf-8") as f:
+        text = f.read()
+    corpus = text + "\n" + TOY_CHORUS * TOY_N_CHORUS + "\n" + text
+    tok = TrieTokenizer()
+    tok.build_from_text(corpus)
+    cfg = ModelConfig(block_size=256, vocab_size=tok.vocab_size, n_layer=4,
+                      n_embd=128, n_head=4, n_kv_head=2, n_hidden=384)
+    ids = np.asarray(tok.encode(corpus), np.int64)
+    params = gpt.init_params(torch.Generator().manual_seed(TOY_SEED), cfg,
+                             device=dev)
+    opt = AdamW(TrainConfig(learning_rate=TOY_LR, beta1=0.9, beta2=0.95,
+                            weight_decay=0.01, decay_lr=False, grad_clip=0.0),
+                params)
+    S = cfg.block_size
+    rng = np.random.RandomState(TOY_SEED)
+    offs = np.arange(S)
+    losses = []
+    t0 = time.time()
+    for it in range(TOY_STEPS):
+        starts = rng.randint(0, len(ids) - S - 1, TOY_BATCH)[:, None] + offs
+        xb = torch.from_numpy(ids[starts]).to(dev)
+        yb = torch.from_numpy(ids[starts + 1]).to(dev)
+        loss = gpt.loss_fn(params, xb, yb, None, cfg, dtype=torch.float32)
+        opt.update(list(torch.autograd.grad(loss, opt.params)))
+        if it % 100 == 0 or it == TOY_STEPS - 1:
+            losses.append((it, loss.item()))
+    return params, cfg, tok, losses, time.time() - t0
+
+
+def trained_toy_phase(torch, np, h):
+    """Phase 5c on a trained model: train_toy on the card (its K4 launches
+    asserted, the final loss under the tool's TOY_TARGET_LOSS), the model
+    written as toy_{f32,q80,q4k}.bin under h.work by the port's writer,
+    each file served from the card: greedy on the chorus prompt must
+    continue the chorus, and generate_on_device with spec_k = SPEC_K must
+    give the plain stream token for token, with more than one token a
+    verify round (printed, with both streams' tok/s in turns)."""
+    from dataclasses import replace
+    from nano_tpu_torch.infer import engine, speculative
+    from nano_tpu_torch.io import binfmt
+    from nano_tpu_torch.ops import sampling
+    dev = h.dev
+    os.makedirs(h.work, exist_ok=True)
+    h.reset()
+    params, cfg, tok, losses, secs = train_toy(torch, np, dev)
+    counts = h.read()
+    L = cfg.n_layer
+    log(f"[toy] {TOY_STEPS} steps of batch {TOY_BATCH} x {cfg.block_size}, "
+        f"f32, {L} layers, width {cfg.n_embd}, vocab {cfg.vocab_size}, on "
+        f"{h.card}: {secs:.1f} s; losses (step, loss) {losses}; launches "
+        f"flash_attn_fwd {counts['flash_attn_fwd']}, flash_attn_bwd "
+        f"{counts['flash_attn_bwd']}")
+    if dev.type == "cuda" and not (
+            counts["flash_attn_fwd"] == counts["flash_attn_bwd"]
+            == L * TOY_STEPS):
+        raise AssertionError("the toy's training did not run K4 once a layer "
+                             "and step, forward and backward")
+    if not losses[-1][1] < TOY_TARGET_LOSS:
+        raise AssertionError(f"the toy is under-trained: final loss "
+                             f"{losses[-1][1]} >= {TOY_TARGET_LOSS}")
+    greedy = sampling.SamplerConfig(temperature=0.0, repetition_penalty=1.0)
+    chorus_ids = None
+    for quant in ("f32", "q80", "q4k"):
+        path = os.path.join(h.work, f"toy_{quant}.bin")
+        binfmt.write_model(path, params, cfg, tok.config, quant=quant,
+                           group_size=128)
+        ctx = engine.LLMContext.from_bin(path, device=dev, sampler=greedy)
+        if chorus_ids is None:
+            chorus_ids = ctx.encode(TOY_CHORUS)
+        ids = ctx.encode(TOY_CHORUS * 2)
+        out = engine.generate_on_device(ctx, ids, 3 * len(chorus_ids))
+        text = ctx.decode(out.tolist())
+        log(f"[toy] toy_{quant}.bin ({os.path.getsize(path)} bytes): greedy "
+            f"on the chorus x 2 -> {text!r}")
+        if not (TOY_CHORUS * 2 in text or text.count(TOY_CHORUS[:8]) >= 2):
+            raise AssertionError(f"toy_{quant}.bin does not continue the "
+                                 f"chorus")
+        sctx = replace(ctx, spec_k=SPEC_K)
+        runs = {}
+        for label, c in (("spec", sctx), ("plain", ctx), ("plain", ctx),
+                         ("spec", sctx)):
+            t0 = time.time()
+            o = engine.generate_on_device(c, ids, TOY_SPEC_TOKENS).tolist()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            runs.setdefault(label, []).append((o, time.time() - t0))
+            if label == "spec":
+                stats = dict(speculative.LAST_STATS)
+        (sp, ts), (pl, tp) = runs["spec"][-1], runs["plain"][-1]
+        per_round = stats["tokens"] / max(stats["rounds"], 1)
+        log(f"[toy] toy_{quant}.bin generate_on_device {TOY_SPEC_TOKENS} "
+            f"tokens on {h.card}: spec_k {SPEC_K} {TOY_SPEC_TOKENS / ts:.1f} "
+            f"tok/s, {stats['tokens']} tokens in {stats['rounds']} rounds = "
+            f"{per_round:.2f} a round; plain {TOY_SPEC_TOKENS / tp:.1f} tok/s; "
+            f"streams token-identical {sp == pl}")
+        if not (sp == pl and runs["spec"][0][0] == pl
+                and runs["plain"][0][0] == pl):
+            raise AssertionError(f"toy_{quant}.bin: the speculative stream "
+                                 f"differs from the plain one")
+        if not per_round > 1.0:
+            raise AssertionError(f"toy_{quant}.bin: no draft accepted on "
+                                 f"the chorus")
+        del ctx, sctx
+    del params
+
+
+def export_phase(torch, np, h):
+    """Phase 7, export and import.  7a: the Nano-168M checkpoint that phase
+    6 trained (h.ckpt, 24 layers, width 768) served by from_checkpoint and
+    exported through nano_tpu_torch.export's main to f32, Q80 (group size
+    256) and Q4K .bin files, each served by from_bin: the f32 file's stream
+    token-identical to the checkpoint's, the Q80 and Q4K files' launches
+    exact (decode_counts at L = 24), their first-step logits within
+    EXPORT_LOGITS_TOL of the f32 file's, repack f32 -> f32 byte-identical.
+    7b: Qwen3-0.6B at full width and depth, dense f32 random weights from
+    a seed written by write_gguf as Q8_0 and served by from_gguf: every
+    product through q80_matmul_rows at group size 32 (launches exact),
+    timed over a decode step's launches beside the bound, its plain
+    version and bf16 torch.matmul; convert_gguf to Q80 at group size 256
+    served by from_bin through K1's W8A8 pair.  -> {"rows": the rows
+    form's launches, ms, plain_ms, library_ms, bound (ms, by) over a decode
+    step, "rows_err"}."""
+    from nano_tpu_torch import export as export_cli
+    from nano_tpu_torch.config import ModelConfig
+    from nano_tpu_torch.infer import engine
+    from nano_tpu_torch.io import binfmt, gguf
+    from nano_tpu_torch.io.checkpoint import Checkpoint
+    from nano_tpu_torch.ops import qmatmul, sampling
+    from nano_tpu_torch.ops.q4k import Q4KTensor
+    from nano_tpu_torch.tokenizer.bpe import BpeTokenizer
+    dev, names, card = h.dev, h.names, h.card
+    greedy = sampling.SamplerConfig(temperature=0.0, repetition_penalty=1.0)
+    os.makedirs(h.work, exist_ok=True)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def serve(ctx, label, ids, n, expect_for):
+        """generate_on_device(ids, n) after a warm-up: TTFT (one token),
+        then twice (the first captures the decode graph where it is not
+        yet, the second replays it), the launches of both held to
+        expect_for(n - 1).  -> (ids, tok/s of the second, TTFT ms, its
+        launches)."""
+        engine.generate_on_device(ctx, ids[:8], 4)
+        sync()
+        t0 = time.time()
+        engine.generate_on_device(ctx, ids, 1)
+        sync()
+        ttft = time.time() - t0
+        h.reset()
+        first = engine.generate_on_device(ctx, ids, n).tolist()
+        c1 = h.read()
+        h.reset()
+        sync()
+        t0 = time.time()
+        out = engine.generate_on_device(ctx, ids, n).tolist()
+        sync()
+        secs = time.time() - t0
+        c2 = h.read()
+        want = expect_for(n - 1)
+        tok_s = (n - 1) / max(secs - ttft, 1e-9)
+        log(f"[export] {label}: {n} greedy tokens from a {len(ids)}-token "
+            f"prompt on {card}: decode {tok_s:.2f} tok/s (graph replays), "
+            f"TTFT {ttft * 1e3:.2f} ms; first ids {out[:8]}; launches "
+            f"{ {k: v for k, v in c2.items() if v} }")
+        if first != out or len(out) != n or max(out) >= ctx.cfg.vocab_size:
+            raise AssertionError(f"{label}: the stream is malformed or not "
+                                 f"reproducible")
+        if not (c1 == want and c2 == want):
+            raise AssertionError(f"{label}: launches {c2} (first call {c1}) "
+                                 f"differ from {want}")
+        return out, tok_s, ttft * 1e3, c2
+
+    def first_logits(ctx, ids):
+        logits, _ = engine._prefill(ctx, ids, ctx.new_cache(1))
+        return logits[0].float().cpu()
+
+    def file_bytes(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    # ---------------- 7a ----------------
+    t7 = time.time()
+    ck = Checkpoint(h.ckpt)
+    ncfg = ModelConfig.from_dict(ck.model_config)
+    L = ncfg.n_layer
+    ids = h.nano_prompt
+    n_new = EXPORT_NEW
+    ctx_ck = engine.LLMContext.from_checkpoint(h.ckpt, device=dev,
+                                               sampler=greedy)
+    want_ck, tps_ck, ttft_ck, _ = serve(
+        ctx_ck, f"Nano-168M step {ck.step} checkpoint (from_checkpoint, bf16)",
+        ids, n_new, lambda s: dense_counts(s, names, L))
+    del ctx_ck
+    files, secs = {}, {}
+    for flag, quant in (("--checkpoint", "f32"), ("--quant", "q80"),
+                        ("--q4k", "q4k")):
+        files[quant] = os.path.join(h.work, f"nano168m_{quant}.bin")
+        t0 = time.time()
+        export_cli.main([files[quant], flag, h.ckpt])
+        secs[quant] = time.time() - t0
+    log(f"[export] nano_tpu_torch.export of the checkpoint: "
+        + ", ".join(f"{q} {os.path.getsize(p)} bytes in {secs[q]:.1f} s"
+                    for q, p in files.items()))
+    same = os.path.join(h.work, "nano168m_f32_repacked.bin")
+    binfmt.repack(files["f32"], same, quant="f32")
+    identical = file_bytes(same) == file_bytes(files["f32"])
+    log(f"[export] repack f32 -> f32 byte-identical: {identical}")
+    if not identical:
+        raise AssertionError("repack f32 -> f32 changed the file")
+    os.remove(same)
+
+    ctx32 = engine.LLMContext.from_bin(files["f32"], quantized=False,
+                                       device=dev, sampler=greedy)
+    out32, tps32, ttft32, _ = serve(ctx32, "Nano-168M f32 .bin (bf16)", ids,
+                                 n_new, lambda s: dense_counts(s, names, L))
+    log(f"[export] the f32 export's stream token-identical to "
+        f"from_checkpoint's: {out32 == want_ck}")
+    if out32 != want_ck:
+        raise AssertionError("the f32 export serves another stream than its "
+                             "checkpoint")
+    l32 = first_logits(ctx32, ids)
+    other = first_logits(ctx32, h.nano_control_prompt)
+    del ctx32
+    scale = l32.abs().max().item()
+    rows = [("checkpoint", tps_ck, ttft_ck, n_new), ("f32", tps32, ttft32,
+                                                     n_new)]
+    for quant, model in (("q80", "Q80"), ("q4k", "Q4K")):
+        ctx = engine.LLMContext.from_bin(files[quant], device=dev,
+                                         sampler=greedy)
+        if quant == "q80":
+            w = ctx.params["blocks"]["wqkv"]
+            assert isinstance(w, qmatmul.Q80Tensor) and w.w8a8
+        else:
+            assert isinstance(ctx.params["blocks"]["wqkv"], Q4KTensor)
+        out, tps, ttft, _ = serve(ctx, f"Nano-168M {model} .bin", ids, n_new,
+                               lambda s, m=model: decode_counts(m, s, names,
+                                                                L=L))
+        err = (first_logits(ctx, ids) - l32).abs().max().item() / scale
+        control = (other - l32).abs().max().item() / scale
+        log(f"[export] Nano-168M {model}: first-step logits against the f32 "
+            f"file's, of max|logit| {scale:.4f}: {err:.4e} (limit "
+            f"{EXPORT_LOGITS_TOL[model]}; the f32 file's own logits at "
+            f"another prompt read {control:.4e}); greedy stream agrees with "
+            f"the f32 file's for {agreeing(out, out32)} of {n_new} tokens")
+        if not err <= EXPORT_LOGITS_TOL[model]:
+            raise AssertionError(f"the {model} export's logits are off by "
+                                 f"{err}")
+        rows.append((model, tps, ttft, agreeing(out, out32)))
+        del ctx
+    for p in files.values():
+        os.remove(p)
+    log(f"[export] 7a on {card}: " + "; ".join(
+        f"{k} {t:.2f} tok/s, TTFT {f:.2f} ms" for k, t, f, _ in rows)
+        + f" ({time.time() - t7:.1f} s)")
+
+    # ---------------- 7b ----------------
+    t7 = time.time()
+    qcfg = h.qcfg
+    QL, E, V, F = qcfg.n_layer, qcfg.n_embd, qcfg.vocab_size, qcfg.n_hidden
+    HD, KVD, D = (qcfg.n_head * qcfg.head_dim, qcfg.n_kv_head * qcfg.head_dim,
+                  qcfg.head_dim)
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+
+    def rnd(*shape, std=0.02, mean=0.0):
+        return torch.randn(*shape, device=dev, generator=g) * std + mean
+
+    qparams = {"tok_embeddings": rnd(V, E), "norm": rnd(E, mean=1.0),
+               "blocks": {"attn_norm": rnd(QL, E, mean=1.0),
+                          "ffn_norm": rnd(QL, E, mean=1.0),
+                          "q_norm": rnd(QL, D, mean=1.0),
+                          "k_norm": rnd(QL, D, mean=1.0),
+                          "wq": rnd(QL, E, HD), "wk": rnd(QL, E, KVD),
+                          "wv": rnd(QL, E, KVD), "wo": rnd(QL, HD, E),
+                          "w1": rnd(QL, E, F), "w2": rnd(QL, F, E),
+                          "w3": rnd(QL, E, F)}}
+    # a byte-level BPE vocabulary of the model's size: the 256 bytes, then
+    # tokens no merge builds
+    vocab = [bytes([i]) for i in range(256)] + [
+        b"<t%d>" % i for i in range(V - 256)]
+    btok = BpeTokenizer(vocab, [0.0] * V)
+    gpath = os.path.join(h.work, "qwen3_0.6b_q8_0.gguf")
+    t0 = time.time()
+    gguf.write_gguf(gpath, qparams, qcfg, btok, arch="qwen3", quant="q8_0")
+    log(f"[export] write_gguf Qwen3-0.6B shape ({QL} layers, width {E}, "
+        f"vocab {V}), dense f32 weights from seed {SEED + 13}, Q8_0: "
+        f"{os.path.getsize(gpath)} bytes in {time.time() - t0:.1f} s")
+    del qparams
+    t0 = time.time()
+    gctx = engine.LLMContext.from_gguf(gpath, device=dev, sampler=greedy)
+    wq = gctx.params["blocks"]["wq"]
+    if not (isinstance(wq, qmatmul.Q80Tensor) and wq.group_size == 32
+            and not wq.w8a8 and gctx.params["output_q"]
+            is gctx.params["tok_embeddings"]):
+        raise AssertionError("the Q8_0 GGUF did not load as group-32 rows")
+    log(f"[export] from_gguf (quantized) in {time.time() - t0:.1f} s")
+    qids = h.qwen_prompt
+    gout, gtps, gttft, gcounts = serve(
+        gctx, "Qwen3-0.6B Q8_0 GGUF (from_gguf, q80_matmul_rows at gs 32)",
+        qids, n_new, lambda s: gguf_rows_counts(s, names, QL))
+
+    # the rows form over one decode step's launches: 7 products a layer and
+    # the head, bf16 activations (f32 for the head, as the model feeds it)
+    calls = []
+    blocks = gctx.params["blocks"]
+    for i in range(QL):
+        for name in ("wq", "wk", "wv", "wo", "w1", "w3", "w2"):
+            calls.append((blocks[name].layer(i), torch.bfloat16))
+    calls.append((gctx.params["output_q"], torch.float32))
+    xs = [torch.randn(1, w.in_dim, device=dev, generator=g).to(torch.bfloat16)
+          for w, _ in calls]
+    res = {}
+    worst = 0.0
+    for (w, odt), x in list(zip(calls, xs))[:8] + [(calls[-1], xs[-1])]:
+        y = qmatmul.q80_matmul_rows(x, w, odt).float()
+        ref = qmatmul.q80_matmul_rows_plain(x, w, odt).float()
+        worst = max(worst, ((y - ref).abs().max()
+                            / ref.abs().max()).item())
+    wds = [w.dequantize(torch.bfloat16) for w, _ in calls]
+    res["ms"] = h.timer(lambda: [qmatmul.q80_matmul_rows(x, w, odt)
+                                 for (w, odt), x in zip(calls, xs)])
+    res["plain_ms"] = h.timer(lambda: [
+        qmatmul.q80_matmul_rows_plain(x, w, odt)
+        for (w, odt), x in zip(calls, xs)], reps=5)
+    res["library_ms"] = h.timer(lambda: [
+        torch.matmul(x, wd.t()) for x, wd in zip(xs, wds)])
+    del wds
+    n_bytes = sum(w.q.numel() + w.scales.numel() * 4 + w.in_dim * 2
+                  + w.out_dim * (4 if odt == torch.float32 else 2)
+                  for w, odt in calls)
+    n_ops = sum(2 * w.q.numel() for w, _ in calls)
+    res["bound"] = bound(n_bytes, n_ops, F32_OPS_PER_S)
+    res["err"] = worst
+    log(f"[export] q80_matmul_rows over a decode step's {len(calls)} "
+        f"launches (Qwen3-0.6B at gs 32, {n_bytes / 1e6:.1f} MB) on "
+        f"{card}: {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+        f"bf16 torch.matmul on weights dequantized ahead "
+        f"{res['library_ms']:.4f} ms, bound {res['bound'][0]:.4f} ms "
+        f"({res['bound'][1]}: {n_bytes / res['ms'] / 1e6:.0f} GB/s "
+        f"achieved); its launches against the plain version: largest "
+        f"error {worst:.3e} of max|y|")
+    if not worst <= 1e-5:
+        raise AssertionError("q80_matmul_rows disagrees with its plain "
+                             "version on the GGUF weights")
+    res["launches"] = gcounts["q80_matmul_rows"]
+    del gctx, calls, xs, blocks, wq
+
+    qbin = os.path.join(h.work, "qwen3_0.6b_q80.bin")
+    t0 = time.time()
+    gguf.convert_gguf(gpath, qbin, quant="q80", group_size=256)
+    log(f"[export] convert_gguf -> Q80 gs 256 .bin "
+        f"({os.path.getsize(qbin)} bytes) in {time.time() - t0:.1f} s")
+    os.remove(gpath)
+    bctx = engine.LLMContext.from_bin(qbin, device=dev, sampler=greedy)
+    if not bctx.params["blocks"]["wqkv"].w8a8:
+        raise AssertionError("the converted .bin did not take the W8A8 form")
+    bout, btps, bttft, _ = serve(bctx, "Qwen3-0.6B Q80 .bin from convert_gguf "
+                              "(from_bin, W8A8)", qids, n_new,
+                              lambda s: decode_counts("Q80", s, names, L=QL))
+    del bctx
+    os.remove(qbin)
+    log(f"[export] 7b on {card}: GGUF Q8_0 (rows form) {gtps:.2f} tok/s, "
+        f"TTFT {gttft:.2f} ms; Q80 gs 256 .bin (W8A8) {btps:.2f} tok/s, TTFT "
+        f"{bttft:.2f} ms; the two greedy streams agree for "
+        f"{agreeing(gout, bout)} of {n_new} tokens ({time.time() - t7:.1f} s)")
+    return res
+
+
+def bench_toy(torch):
+    """Phase 5c on the trained toy alone (trained_toy_phase)."""
+    import numpy as np
+    from nano_tpu_torch.ops import _build
+    _build.build_all()
+    names = list(COUNTER_OF)
+    trained_toy_phase(torch, np, SimpleNamespace(
+        dev=torch.device("cuda"), card=card_line(),
+        reset=lambda: zero_launches(torch),
+        read=lambda: read_launches(torch, names),
+        work=os.path.join(ROOT, "build", "smoke_toy")))
+
+
+def bench_export(torch):
+    """Phase 7 alone (export_phase), on a Nano-168M checkpoint of its
+    initial weights (config/model_168m.json's seed; phase 6 trains it 12
+    steps first) and phase 5's Qwen3-0.6B prompt."""
+    import numpy as np
+    from nano_tpu_torch.config import ModelConfig
+    from nano_tpu_torch.io.checkpoint import save_checkpoint
+    from nano_tpu_torch.models import gpt
+    from nano_tpu_torch.ops import _build
+    from nano_tpu_torch.tokenizer.trie import TrieTokenizer
+    _build.build_all()
+    dev = torch.device("cuda")
+    work = os.path.join(ROOT, "build", "smoke_export")
+    os.makedirs(work, exist_ok=True)
+    ncfg = ModelConfig.from_json(os.path.join(ROOT, "config",
+                                              "model_168m.json"))
+    ttok = TrieTokenizer.from_file(os.path.join(ROOT, "tokenizer",
+                                                "nano_16384.json"))
+    ckpt = os.path.join(work, "nano168m_init.npz")
+    save_checkpoint(ckpt, params=gpt.init_params(
+        torch.Generator().manual_seed(SEED), ncfg, device="cpu"),
+        model_config=ncfg.to_dict(), tokenizer_config=ttok.config)
+    with open(os.path.join(ROOT, "dataset", "pretrain_sample.txt"),
+              encoding="utf-8") as f:
+        nano_ids = ttok.encode(f.read())
+    prng = np.random.default_rng(SEED + 1)
+    for n in (17, 40, 100):            # phase 5's requests, then its prompt
+        prng.integers(100, 30000, n)
+    names = list(COUNTER_OF)
+    res = export_phase(torch, np, SimpleNamespace(
+        dev=dev, card=card_line(), names=names, timer=Timer(torch),
+        reset=lambda: zero_launches(torch),
+        read=lambda: read_launches(torch, names), ckpt=ckpt, qcfg=ModelConfig(**QWEN3_06B), work=work,
+        qwen_prompt=prng.integers(100, 30000, PROMPT_LEN).tolist(),
+        nano_prompt=nano_ids[:EXPORT_PROMPT],
+        nano_control_prompt=nano_ids[1000:1000 + EXPORT_PROMPT]))
+    os.remove(ckpt)
+    log(f"[bench export] {res}")
+
+
 def bench(what) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1815,7 +2308,8 @@ def bench(what) -> int:
     q4k_flags = dict(batched="batched" in what, sweep="sweep" in what)
     for name, fn in (("flash", bench_flash), ("decode", bench_decode),
                      ("q4k", bench_q4k), ("q80", bench_q80),
-                     ("pipes", bench_pipes), ("spec", bench_spec)):
+                     ("pipes", bench_pipes), ("spec", bench_spec),
+                     ("toy", bench_toy), ("export", bench_export)):
         if not what or name in what:
             fn(torch, **{"flash": flags, "q80": q80_flags,
                          "q4k": q4k_flags}.get(name, {}))
@@ -2275,6 +2769,32 @@ def main() -> int:
         if not err <= tol:
             raise AssertionError(f"q80_matmul_rows {K}->{N} off by {err}")
         note_err("q80_matmul_rows", err)
+    # and at the five Qwen3-0.6B products and the head at group sizes 32
+    # (a GGUF Q8_0 weight, phase 7b's path) and 16 (a GGUF Q6_K weight),
+    # one row and 64 (a decode step, a prompt), bf16 rows in as the model
+    # feeds them
+    for name, w in shapes:
+        w0 = layer_weights(w)[0]
+        K, N = w0.in_dim, w0.out_dim
+        for gs in (32, 16):
+            wr = qmatmul.Q80Tensor(
+                q=w0.q, scales=torch.from_numpy(
+                    rng.random((N, K // gs), dtype=np.float32) * 0.02
+                    + np.float32(1e-3)).to(dev), group_size=gs)
+            for B in (1, 64):
+                x = torch.randn(B, K, device=dev, generator=gen).to(
+                    torch.bfloat16)
+                y = qmatmul.q80_matmul_rows(x, wr, torch.float32)
+                ref = qmatmul.q80_matmul_rows_plain(x, wr, torch.float32)
+                err = (y - ref).abs().max().item()
+                tol = 1e-5 * ref.abs().max().item()
+                log(f"[kernel] q80_matmul_rows {name} {K}->{N} gs={gs} B={B}: "
+                    f"max_abs_err {err:.3e} (tol {tol:.3e} = 1e-5 of max|y|)")
+                if not err <= tol:
+                    raise AssertionError(f"q80_matmul_rows {name} gs={gs} "
+                                         f"B={B} off by {err}")
+                note_err("q80_matmul_rows", err)
+            del wr
 
     H, KV, D = cfg.n_head, cfg.n_kv_head, cfg.head_dim
     for cdt in (torch.bfloat16, torch.int8):
@@ -3072,41 +3592,6 @@ def main() -> int:
         os.path.join(fix, "tiny_q80.bin"), max_seq_len=64,
         dtype=torch.float32, sampler=greedy)
     assert tiny.device.type == "cuda"
-    # rows-form timing at the fixture's per-step shapes
-    tiny_calls = []
-    for name in ("wqkv", "wo", "w13", "w2"):
-        for wl in layer_weights(tiny.params["blocks"][name]):
-            tiny_calls.append(wl)
-    tiny_calls.append(tiny.params["output_q"])
-    xs = [torch.randn(1, wl.in_dim, device=dev, generator=gen)
-          for wl in tiny_calls]
-    wds = [wl.dequantize(torch.float32) for wl in tiny_calls]
-    lib_rows = lib.q80_matmul_rows
-    ys = [torch.empty(1, wl.out_dim, device=dev) for wl in tiny_calls]
-
-    def run_rows():
-        for wl, x, y in zip(tiny_calls, xs, ys):
-            lib_rows(x.data_ptr(), 0, wl.q.data_ptr(), wl.scales.data_ptr(),
-                     y.data_ptr(), 0, 1, wl.in_dim, wl.out_dim,
-                     wl.group_size, stream())
-
-    def run_rows_plain():
-        for wl, x in zip(tiny_calls, xs):
-            qmatmul.q80_matmul_rows_plain(x, wl, torch.float32)
-
-    def run_rows_library():
-        for x, wd in zip(xs, wds):
-            torch.matmul(x, wd.t())
-
-    k = kernels["q80_matmul_rows"]
-    k["ms"] = timer(run_rows, reps=100)
-    k["plain_ms"] = timer(run_rows_plain, reps=100)
-    k["library_ms"] = timer(run_rows_library, reps=100)
-    set_bound("q80_matmul_rows",
-              sum(wl.q.numel() + wl.scales.numel() * 4 + wl.in_dim * 4
-                  + wl.out_dim * 4 for wl in tiny_calls),
-              sum(2 * wl.q.numel() for wl in tiny_calls), F32_OPS_PER_S)
-
     names = list(kernels)
     assert sorted(COUNTER_OF) == sorted(names)
 
@@ -3147,7 +3632,6 @@ def main() -> int:
         if s.output_ids != want or god != want or not s.steps_by["round"]:
             raise AssertionError(f"{file}: a speculative stream differs from "
                                  f"expected.json")
-        return counts
 
     def tiny_batched(ctx, file, want):
         """Through BatchedEngine: the expected prompt joins while two other
@@ -3171,9 +3655,8 @@ def main() -> int:
             raise AssertionError(f"{file}: the batched stream differs from "
                                  f"the solo greedy stream")
 
-    tiny_counts = tiny_stream(tiny, "tiny_q80.bin", expected["greedy"]["q80"],
-                              ("q80_matmul_rows", "decode_attention"))
-    kernels["q80_matmul_rows"]["launches"] = tiny_counts["q80_matmul_rows"]
+    tiny_stream(tiny, "tiny_q80.bin", expected["greedy"]["q80"],
+                ("q80_matmul_rows", "decode_attention"))
     tiny_batched(tiny, "tiny_q80.bin", expected["greedy"]["q80"])
     tiny4 = engine.LLMContext.from_bin(
         os.path.join(fix, "tiny_q4k.bin"), max_seq_len=64,
@@ -4065,6 +4548,11 @@ def main() -> int:
                     device=dev, dtype=torch.bfloat16, sampler=greedy,
                     stop_tokens=QWEN_STOP_TOKENS, arch="qwen3")))
     log(f"[spec] phase 5c in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    trained_toy_phase(torch, np, SimpleNamespace(
+        dev=dev, card=card, reset=reset, read=read,
+        work=os.path.join(ROOT, "build", "smoke_toy")))
+    log(f"[toy] phase 5c on the trained toy in {time.time() - t0:.1f} s")
 
     # first-step logits, kernels on the card vs plain versions on the CPU
     # (weights moved to the CPU), both in the f32 oracle dtype.
@@ -4282,7 +4770,6 @@ def main() -> int:
                       ckpt_filename="resumed.npz")
     resumed.init()
     resumed.load_data()
-    os.remove(ckpt12)
     resumed.start()
     os.remove(os.path.join(work, "resumed.npz"))
     os.remove(ckpt)
@@ -4438,6 +4925,23 @@ def main() -> int:
         raise AssertionError("the f32 step on the card disagrees with the "
                              "plain versions on the CPU")
     del cpu_params, gpu_params
+
+    # ---------------- 7. export and import ----------------
+    t0 = time.time()
+    nano_ids = ttok.encode(sample)
+    res7 = export_phase(torch, np, SimpleNamespace(
+        dev=dev, card=card, names=names, reset=reset, read=read, timer=timer,
+        ckpt=ckpt12, qcfg=cfg, qwen_prompt=prompt,
+        work=os.path.join(ROOT, "build", "smoke_export"),
+        nano_prompt=nano_ids[:EXPORT_PROMPT],
+        nano_control_prompt=nano_ids[1000:1000 + EXPORT_PROMPT]))
+    os.remove(ckpt12)
+    kernels["q80_matmul_rows"].update(
+        launches=res7["launches"], ms=res7["ms"], plain_ms=res7["plain_ms"],
+        library_ms=res7["library_ms"], bound_ms=res7["bound"][0],
+        bound_by=res7["bound"][1])
+    note_err("q80_matmul_rows", res7["err"])
+    log(f"[export] phase 7 in {time.time() - t0:.1f} s")
 
     # ---------------- result ----------------
     for k in kernels.values():

@@ -7,16 +7,21 @@ module of ``nano_tpu``: what it needs from there it keeps as its own copy.
   config     — ModelConfig and TrainConfig dataclasses (JSON-compatible)
   tokenizer  — trie tokenizer (Nano) and byte-level BPE (Qwen)
   data       — corpus preprocessing: raw text -> packed token shards
-  io         — .bin model reader (F32 / Q80 / Q4K), io.checkpoint (.npz
-               training checkpoints, params interchangeable with the JAX
+  io         — .bin model reader and writer (F32 / Q80 / Q4K), GGUF
+               (io.gguf), HF safetensors (io.qwen) and reference .pt
+               (io.pt_import) import, io.checkpoint (.npz training
+               checkpoints, params interchangeable with the JAX
                package's), JAX-params bridge for tests
+  export     — ``python -m nano_tpu_torch.export``: the root export.py's
+               conversions
   ops        — hand-written CUDA kernels (Q80 matmul, decode attention,
                Q4K activation fake-quant and fused-dequant matmul,
                ops.flash_attn: causal GQA flash attention, forward and
                backward) with their plain PyTorch versions, samplers
   models     — GPT forward with a KV cache (prefill + decode) and the
                full-sequence training forward, loss and init
-  infer      — LLMContext / Session / generate_sync / generate_on_device;
+  infer      — LLMContext (from_bin / from_checkpoint / from_gguf) /
+               Session / generate_sync / generate_on_device;
                the decode step captured as a CUDA graph and replayed
   serve      — continuous batching (BatchedEngine)
   train      — DataLoader, AdamW, Trainer; ``python -m nano_tpu_torch.train``

@@ -246,6 +246,63 @@ class LLMContext:
                    max_seq_len=max_seq_len or bm.config.block_size,
                    device=device, dtype=dtype, **kw)
 
+    @classmethod
+    def from_gguf(cls, path: str, max_seq_len: Optional[int] = None,
+                  dtype=torch.bfloat16, quantized: Optional[bool] = None,
+                  device=None, **kw) -> "LLMContext":
+        """Load a llama.cpp-ecosystem GGUF checkpoint (dense Qwen2/Qwen3,
+        ``io/gguf.py``) onto `device` (cuda unless asked otherwise).
+        quantized=None keeps a quantized file (Q8_0 / Q4_K / Q6_K / Q4_0
+        blocks) in the port's quantized layouts, which the ggml per-group
+        affines map onto losslessly; quantized=False dequantizes
+        everything to `dtype`."""
+        from nano_tpu_torch.io import gguf
+        from nano_tpu_torch.tokenizer.bpe import QWEN_STOP_TOKENS
+        device = resolve_device(device)
+        g = gguf.GGUFFile(path)
+        wq0 = g.tensors.get("blk.0.attn_q.weight")
+        if quantized is None:
+            quantized = (wq0 is not None and wq0.ggml_type in (
+                gguf.GGML_Q8_0, gguf.GGML_Q4_K, gguf.GGML_Q6_K,
+                gguf.GGML_Q4_0))
+        if quantized:
+            cfg, model_type, tok = gguf.gguf_header_only(g, max_seq_len)
+            params = gguf.quantized_device_params(
+                g, cfg, g.meta["general.architecture"], device=device)
+        else:
+            cfg, raw, model_type, tok = gguf.load_gguf_qwen(path, max_seq_len)
+            params = binfmt.dense_device_params(raw, dtype, device)
+        kw.setdefault("stop_tokens", QWEN_STOP_TOKENS)
+        kw.setdefault("arch", "qwen2" if model_type ==
+                      binfmt.MODEL_TYPE_QWEN2 else "qwen3")
+        return cls(cfg=cfg, params=params, tokenizer=tok,
+                   max_seq_len=max_seq_len or cfg.block_size,
+                   device=device, dtype=dtype, **kw)
+
+    @classmethod
+    def from_checkpoint(cls, path: str, max_seq_len: Optional[int] = None,
+                        dtype=torch.bfloat16, device=None, **kw
+                        ) -> "LLMContext":
+        """Serve a training checkpoint (.npz, this package's or the JAX
+        package's) on `device` (cuda unless asked otherwise): matrices in
+        `dtype`, norms and biases in f32, the trie tokenizer from its
+        metadata."""
+        from nano_tpu_torch.io.checkpoint import Checkpoint
+        device = resolve_device(device)
+        ck = Checkpoint(path)
+        if ck.is_lora and not ck.has("model"):
+            raise ValueError("LoRA-only checkpoint: serving LoRA adapters "
+                             "is not ported yet")
+        cfg = ModelConfig.from_dict(ck.model_config)
+        params = gpt.map_leaves(
+            lambda t: t.to(device=device,
+                           dtype=dtype if t.dim() >= 2 else torch.float32),
+            ck.load_params())
+        tok = TrieTokenizer.from_config_dict(ck.tokenizer_config)
+        return cls(cfg=cfg, params=params, tokenizer=tok,
+                   max_seq_len=max_seq_len or cfg.block_size,
+                   device=device, dtype=dtype, **kw)
+
     def encode(self, text: str) -> List[int]:
         return self.tokenizer.encode(text)
 

@@ -1,5 +1,5 @@
-"""``.bin`` model reader — the port's copy of the reader half of
-``nano_tpu/io/binfmt.py``.
+"""``.bin`` model reader and writer — the port's copy of
+``nano_tpu/io/binfmt.py`` (LoRA files not yet).
 
 Format (bit-compatible with the reference; spec: reference
 README.md:239-255, parser infer/infer.c:220-320):
@@ -17,7 +17,9 @@ README.md:239-255, parser infer/infer.c:220-320):
               extras, and RoPE tables for Nano only.
 
 ``read_model`` is host-side numpy with the JAX package's stacked (L, in,
-out) layout, so its output compares array for array.
+out) layout, so its output compares array for array.  ``write_model``
+takes that layout (numpy arrays or tensors of any device and float type)
+and writes the JAX writer's bytes; ``repack`` re-quantizes a file.
 ``quantized_device_params`` builds the device tensors: stacked
 ``Q80Tensor``s for Q80 files, stacked packed ``Q4KTensor``s for Q4K files
 with the tied head requantized to Q80 (``q4k_head_requant``).
@@ -25,6 +27,8 @@ with the tied head requantized to Q80 (``q4k_head_requant``).
 
 from __future__ import annotations
 
+import io
+import math
 import struct
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
@@ -39,6 +43,7 @@ from nano_tpu_torch.ops.qmatmul import MIN_W8A8_GS, Q80Tensor
 
 MAGIC_0 = 0x42443453  # "BD4S" (LE)
 MAGIC_1 = 0x55524C4D  # "URLM"
+VERSION = (2026, 1)
 
 MODEL_TYPE_NANO = 0
 MODEL_TYPE_QWEN2 = 2
@@ -74,9 +79,41 @@ def dequantize_q80(q: np.ndarray, scale: np.ndarray, group_size: int
     return (g * scale.reshape(-1, 1)).reshape(-1)
 
 
+def pick_group_size(n_embd: int, group_size: int) -> int:
+    """Halve the group size until it divides n_embd (reference:
+    export.py:418-420)."""
+    while n_embd % group_size != 0:
+        group_size //= 2
+    return group_size
+
+
+def _q80_group_size(cfg: ModelConfig, group_size: int) -> int:
+    """The group size must divide every contraction dim (E, H*D, F), so
+    that no group straddles two rows: halve it until it divides their
+    gcd."""
+    g = math.gcd(math.gcd(cfg.n_embd, cfg.n_hidden),
+                 cfg.n_head * cfg.head_dim)
+    return pick_group_size(g, group_size)
+
+
 # =====================================================================
 # tokenizer field (BNF at reference export.py:72-114)
 # =====================================================================
+
+def serialize_tokenizer_field(tokenizer_config: dict) -> bytes:
+    itos: List[str] = tokenizer_config["itos"]
+    specials = set(tokenizer_config["special_tokens"])
+    buf = io.BytesIO()
+    total = 8 + sum((len(t) + 2) * 4 for t in itos)
+    buf.write(struct.pack("<II", total, len(itos)))
+    for i, t in enumerate(itos):
+        buf.write(struct.pack("<BBBB", len(t), 1 if t in specials else 0,
+                              255, 255))
+        buf.write(struct.pack("<I", i))
+        for ch in t:
+            buf.write(struct.pack("<I", ord(ch)))
+    return buf.getvalue()
+
 
 def parse_tokenizer_field(data: bytes, offset: int) -> Tuple[dict, int]:
     """-> (tokenizer config dict, next offset)."""
@@ -106,6 +143,28 @@ def parse_tokenizer_field(data: bytes, offset: int) -> Tuple[dict, int]:
 # =====================================================================
 # header
 # =====================================================================
+
+def _pack_header(model_type: int, cfg: ModelConfig, shared_classifier: bool,
+                 quant_type: int, group_size: int,
+                 rope_theta: float = 0.0) -> bytes:
+    buf = io.BytesIO()
+    buf.write(struct.pack("<II", MAGIC_0, MAGIC_1))
+    buf.write(struct.pack("<ii", *VERSION))
+    buf.write(struct.pack("<ii", model_type, 36))
+    buf.write(struct.pack(
+        "<9i", cfg.block_size, cfg.vocab_size, cfg.n_layer, cfg.n_embd,
+        cfg.n_head, cfg.n_kv_head, cfg.n_hidden, int(shared_classifier),
+        cfg.head_dim))
+    buf.write(struct.pack("<i", quant_type))
+    if quant_type != QUANT_F32 or rope_theta:
+        buf.write(struct.pack("<i", group_size))
+    # extension in the zero-padded region (the C engine ignores it):
+    # rope_theta at offset 68, written only for a non-default theta
+    if rope_theta:
+        buf.write(struct.pack("<f", float(rope_theta)))
+    raw = buf.getvalue()
+    return raw + b"\0" * (HEADER_BYTES - len(raw))
+
 
 @dataclass
 class BinHeader:
@@ -240,6 +299,163 @@ def _rope_tables(cfg: ModelConfig) -> Tuple[np.ndarray, np.ndarray]:
     t = np.arange(cfg.block_size, dtype=np.float32)
     angles = np.outer(t, freqs).astype(np.float32)
     return np.cos(angles), np.sin(angles)
+
+
+# =====================================================================
+# weight export (the writer half)
+# =====================================================================
+
+def _f32(x) -> np.ndarray:
+    """A numpy array or a tensor (any device, any float type) -> f32
+    numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(x, np.float32)
+
+
+def _file_order_tensors(params: Dict[str, Any], cfg: ModelConfig,
+                        include_quantizable: bool = True
+                        ) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+    """-> (f32 norms, the quantizable matrices in file order).
+
+    The checkpoint layout is stacked (L, in, out); the file holds each
+    layer's (out, in) rows.  include_quantizable=False skips the large
+    transposed copies."""
+    b = params["blocks"]
+    L = cfg.n_layer
+
+    def per_layer_T(name):
+        arr = _f32(b[name])
+        return [np.ascontiguousarray(arr[i].T) for i in range(L)]
+
+    attn_norm, ffn_norm = _f32(b["attn_norm"]), _f32(b["ffn_norm"])
+    norms = ([attn_norm[i] for i in range(L)]
+             + [ffn_norm[i] for i in range(L)] + [_f32(params["norm"])])
+    if not include_quantizable:
+        return norms, []
+    quantizable = [_f32(params["tok_embeddings"])]
+    for name in ("wq", "wk", "wv", "wo", "w1", "w2", "w3"):
+        quantizable += per_layer_T(name)
+    return norms, quantizable
+
+
+def write_model(path: str, params: Dict[str, Any], cfg: ModelConfig,
+                tokenizer_config, quant: str = "f32",
+                group_size: int = 128, model_type: int = MODEL_TYPE_NANO,
+                rope_tables: Optional[Tuple[np.ndarray, np.ndarray]] = None
+                ) -> None:
+    """Export params in the checkpoint layout (the JAX pytree names,
+    stacked (L, in, out), numpy arrays or tensors) to a .bin: quant 'f32',
+    'q80' (group size halved until it divides every contraction dim) or
+    'q4k' (eight stacked Q4K frames; Nano and Qwen3 with a tied head).
+
+    tokenizer_config: a trie tokenizer's config dict, or a BpeTokenizer.
+    rope_tables: (cos, sin) to embed verbatim (the tables read from a file
+    keep a re-export byte-identical).  The served layout (fused wqkv /
+    w13, quantized leaves) is not taken."""
+    shared = "output" not in params
+    # the header's theta extension only for non-default thetas, so that
+    # default-theta files stay byte-identical with the reference exporter
+    theta_ext = (0.0 if cfg.rope_theta in (10000.0, 1e6)
+                 else cfg.rope_theta)
+    norms, _ = _file_order_tensors(params, cfg, include_quantizable=False)
+
+    def build_quantizable():
+        _, quantizable_ = _file_order_tensors(params, cfg)
+        if not shared:
+            quantizable_.append(np.ascontiguousarray(
+                _f32(params["output"]).T))
+        return quantizable_
+
+    # arch extras, f32 after the matrices (reference: infer/infer.c:175-183)
+    extras: List[np.ndarray] = []
+    b = params["blocks"]
+    names = {MODEL_TYPE_QWEN2: ("bq", "bk", "bv"),
+             MODEL_TYPE_QWEN3: ("q_norm", "k_norm")}.get(model_type, ())
+    for name in names:
+        arr = _f32(b[name])
+        extras += [arr[i] for i in range(cfg.n_layer)]
+
+    cos, sin = rope_tables if rope_tables is not None else _rope_tables(cfg)
+
+    if isinstance(tokenizer_config, dict):
+        tok_field = serialize_tokenizer_field(tokenizer_config)
+    else:                                          # BpeTokenizer
+        tok_field = tokenizer_config.serialize_field()
+
+    def f32_bytes(w) -> bytes:
+        return np.asarray(w).astype("<f4").tobytes()
+
+    with open(path, "wb") as f:
+        if quant in ("f32", "q80"):
+            if quant == "f32":
+                qtype, gs = QUANT_F32, 0
+            else:
+                qtype, gs = QUANT_Q80, _q80_group_size(cfg, group_size)
+            f.write(_pack_header(model_type, cfg, shared, qtype, gs,
+                                 theta_ext))
+            f.write(tok_field)
+            for w in norms:
+                f.write(f32_bytes(w))
+            quantizable = build_quantizable()
+            classifier = None if shared else quantizable.pop()
+
+            def write_matrix(w):
+                if qtype == QUANT_F32:
+                    f.write(f32_bytes(w))
+                else:
+                    q, s_ = quantize_q80(w, gs)
+                    f.write(q.tobytes())
+                    f.write(f32_bytes(s_))
+
+            for w in quantizable:
+                write_matrix(w)
+            for w in extras:
+                f.write(f32_bytes(w))
+            f.write(f32_bytes(cos))
+            f.write(f32_bytes(sin))
+            if classifier is not None:
+                write_matrix(classifier)
+        elif quant == "q4k":
+            # f32 norms, eight stacked Q4K frames (tok_emb 2-D; wq..w3 3-D
+            # with a leading layer axis), the extras, RoPE tables for Nano
+            # only (reference: infer/tools/export_q4k.c:28-224).  The
+            # classifier is always the shared embedding, and the reference
+            # repack drops Qwen2's qkv biases.
+            if not shared:
+                raise ValueError("Q4K requires a shared classifier")
+            if model_type == MODEL_TYPE_QWEN2:
+                raise ValueError("Q4K does not support Qwen2 (reference "
+                                 "drops its qkv biases)")
+            f.write(_pack_header(model_type, cfg, shared, QUANT_Q4K, 0,
+                                 theta_ext))
+            f.write(tok_field)
+            for w in norms:
+                f.write(f32_bytes(w))
+            f.write(q4k.pack_tensor_frame(_f32(params["tok_embeddings"])))
+            for name in ("wq", "wk", "wv", "wo", "w1", "w2", "w3"):
+                f.write(q4k.pack_tensor_frame(np.ascontiguousarray(
+                    _f32(b[name]).transpose(0, 2, 1))))
+            for w in extras:
+                f.write(f32_bytes(w))
+            if model_type == MODEL_TYPE_NANO:
+                f.write(f32_bytes(cos))
+                f.write(f32_bytes(sin))
+        else:
+            raise ValueError(f"unsupported quant: {quant}")
+
+
+def repack(in_path: str, out_path: str, quant: str = "q4k",
+           group_size: int = 128) -> None:
+    """Re-quantize a .bin into another quant type; the RoPE tables are
+    copied verbatim."""
+    bm = read_model(in_path)
+    tok = bm.tokenizer_config
+    if isinstance(tok, dict) and tok.get("type") == "bpe":
+        tok = tok["tokenizer"]
+    write_model(out_path, bm.params, bm.config, tok, quant=quant,
+                group_size=group_size, model_type=bm.header.model_type,
+                rope_tables=(bm.rope_cos, bm.rope_sin))
 
 
 def read_model(path: str, dense: bool = True) -> BinModel:
@@ -484,8 +700,8 @@ def _maybe_int8_layout(params: Dict[str, Any]) -> None:
 
     for v in params["blocks"].values():
         conv(v)
-    if isinstance(params.get("output"), Q80Tensor):
-        conv(params["output"])
+    if isinstance(params.get("output"), (Q80Tensor, Q4KTensor)):
+        conv(params["output"])          # an untied quantized head stays
         return
     tok = params["tok_embeddings"]
     if isinstance(tok, Q80Tensor):

@@ -119,6 +119,10 @@ class Checkpoint:
         return self.meta["step_count"]
 
     @property
+    def is_lora(self) -> bool:
+        return self.meta["is_lora"]
+
+    @property
     def model_config(self) -> Optional[dict]:
         return self.meta["model_config"]
 

@@ -194,7 +194,7 @@ def compute_logits(h, params: Params, dtype) -> torch.Tensor:
         if isinstance(w, Q80Tensor):
             return _dense(h, w, torch.float32)
         return _dot_f32(h, w.t(), dtype)
-    if isinstance(w, Q80Tensor):
+    if isinstance(w, (Q80Tensor, Q4KTensor)):
         return _dense(h, w, torch.float32)
     return _dot_f32(h, w, dtype)
 

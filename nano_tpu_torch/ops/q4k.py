@@ -1,5 +1,5 @@
-"""Q4K 4-bit k-quant: host-side frame parsing, the activation fake-quant
-and the fused-dequant matmul.
+"""Q4K 4-bit k-quant: the host-side weight quantizer and tensor frames,
+the activation fake-quant and the fused-dequant matmul.
 
 Port of ``nano_tpu/ops/q4k.py``.  The scheme (reference:
 infer/tensor.c:71-483): the last axis of a tensor is split into 256-value
@@ -68,6 +68,115 @@ def nearest_int_np(x: np.ndarray) -> np.ndarray:
 
 def n_blocks_per_line(n: int) -> int:
     return -(-n // BLOCK_LEN)
+
+
+def _group_params_np(vals: np.ndarray, valid: np.ndarray
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-group (s, b) from (nb, 8, 32) values and their validity mask,
+    with the C loop's semantics (infer/tensor.c:157-170): the max starts at
+    FLT_TRUE_MIN, the min at FLT_MAX, and only valid values update them."""
+    vmax = np.max(np.where(valid, vals, -_FLT_MAX), axis=-1)
+    vmax = np.maximum(vmax, _FLT_TRUE_MIN).astype(np.float32)
+    vmin = np.min(np.where(valid, vals, _FLT_MAX), axis=-1).astype(np.float32)
+    neg = vmin <= np.float32(0.0)
+    s = np.where(neg, (vmax - vmin) / np.float32(15.0),
+                 vmax / np.float32(15.0)).astype(np.float32)
+    b = np.where(neg, -vmin, np.float32(0.0)).astype(np.float32)
+    return s, b
+
+
+def quantize_lines_np(lines: np.ndarray) -> np.ndarray:
+    """(rows, n) f32 -> (rows * n_blocks_per_line, 160) uint8 blocks, the C
+    engine's weight quantizer (infer/tensor.c:144-251) in IEEE f32 host
+    arithmetic: the last block of a line is partial when n % 256 != 0, and
+    an all-zero group gets s == 0 and values 0."""
+    lines = np.ascontiguousarray(lines, np.float32)
+    rows, n = lines.shape
+    nbpl = n_blocks_per_line(n)
+    npad = nbpl * BLOCK_LEN
+    x = np.zeros((rows, npad), np.float32)
+    x[:, :n] = lines
+    valid = np.zeros((npad,), bool)
+    valid[:n] = True
+
+    nb = rows * nbpl
+    vals = x.reshape(nb, GROUPS_PER_BLOCK, GROUP_LEN)
+    vmask = np.broadcast_to(
+        valid.reshape(nbpl, GROUPS_PER_BLOCK, GROUP_LEN),
+        (rows, nbpl, GROUPS_PER_BLOCK, GROUP_LEN)
+    ).reshape(nb, GROUPS_PER_BLOCK, GROUP_LEN)
+
+    s, b = _group_params_np(vals, vmask)                       # (nb, 8)
+
+    # 4-bit values: nearest_int((x + b) / s) & 0xF, 0 where s == 0 or
+    # outside the line
+    safe_s = np.where(s == 0.0, np.float32(1.0), s)
+    v = nearest_int_np((vals + b[..., None]).astype(np.float32)
+                       / safe_s[..., None]) & 0x0F
+    v = np.where((s[..., None] == 0.0) | ~vmask, 0, v).astype(np.uint8)
+    v = v.reshape(nb, BLOCK_LEN)
+
+    # 6-bit quantization of s and b against the block's super-scales; both
+    # maxima start at FLT_TRUE_MIN, so all-zero biases still give a tiny
+    # positive s_bias (infer/tensor.c:209-219)
+    s_max = s.max(axis=1).astype(np.float32)
+    b_max = np.maximum(b.max(axis=1), _FLT_TRUE_MIN).astype(np.float32)
+    s_max = np.maximum(s_max, _FLT_TRUE_MIN).astype(np.float32)
+    s_scale = (s_max / np.float32(63.0)).astype(np.float32)
+    s_bias = (b_max / np.float32(63.0)).astype(np.float32)
+    safe_ss = np.where(s_scale == 0.0, np.float32(1.0), s_scale)
+    safe_sb = np.where(s_bias == 0.0, np.float32(1.0), s_bias)
+    sq = np.where(s_scale[:, None] == 0.0, 0,
+                  nearest_int_np(s / safe_ss[:, None]) & 0x3F).astype(np.uint8)
+    bq = np.where(s_bias[:, None] == 0.0, 0,
+                  nearest_int_np(b / safe_sb[:, None]) & 0x3F).astype(np.uint8)
+
+    # the packed table (infer/tensor.c:228-241)
+    sb = np.zeros((nb, 12), np.uint8)
+    sb[:, 0:4] = ((sq[:, 4:8] & 0x30) << 2) | (sq[:, 0:4] & 0x3F)
+    sb[:, 4:8] = ((bq[:, 4:8] & 0x30) << 2) | (bq[:, 0:4] & 0x3F)
+    sb[:, 8:12] = ((bq[:, 4:8] & 0x0F) << 4) | (sq[:, 4:8] & 0x0F)
+
+    packed_v = (v[:, 0::2] & 0x0F) | (v[:, 1::2] << 4)          # (nb, 128)
+
+    lens = np.full((rows, nbpl), BLOCK_LEN, np.uint32)
+    lens[:, -1] = n - (nbpl - 1) * BLOCK_LEN
+    lens = lens.reshape(nb)
+
+    blocks = np.zeros((nb, BLOCK_BYTES), np.uint8)
+    blocks[:, 0:4] = np.frombuffer(
+        np.full(nb, QUANT_TYPE_Q4K, np.uint32).tobytes(), np.uint8
+    ).reshape(nb, 4)
+    blocks[:, 4:8] = lens.astype("<u4").view(np.uint8).reshape(nb, 4)
+    # meta (bytes 8:12) stays zero
+    blocks[:, 12:16] = s_scale.astype("<f4").view(np.uint8).reshape(nb, 4)
+    blocks[:, 16:20] = s_bias.astype("<f4").view(np.uint8).reshape(nb, 4)
+    blocks[:, 20:32] = sb
+    blocks[:, 32:160] = packed_v
+    return blocks
+
+
+def pack_tensor_frame(t: np.ndarray) -> bytes:
+    """f32 tensor -> one self-describing Q4K frame (the inverse of
+    ``parse_tensor_frame``).  Lines are the last axis; the leading axes
+    flatten to rows (infer/tensor.c:281-310)."""
+    shape = t.shape
+    if not 1 <= len(shape) <= 6:
+        raise ValueError(f"a Q4K frame holds 1 to 6 axes, got {shape}")
+    n = shape[-1]
+    rows = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
+    blocks = quantize_lines_np(np.asarray(t, np.float32).reshape(rows, n))
+    nb = blocks.shape[0]
+    total = 8 + 4 + 4 + 24 + 4 + nb * BLOCK_BYTES
+    head = np.zeros(44, np.uint8)
+    head[0:8] = np.array([total], "<u8").view(np.uint8)
+    head[8:12] = np.array([QUANT_TYPE_Q4K], "<u4").view(np.uint8)
+    head[12:16] = np.array([len(shape)], "<u4").view(np.uint8)
+    shp = np.zeros(6, "<u4")
+    shp[: len(shape)] = shape
+    head[16:40] = shp.view(np.uint8)
+    head[40:44] = np.array([nb], "<u4").view(np.uint8)
+    return head.tobytes() + blocks.tobytes()
 
 
 def unpack_blocks_np(blocks: np.ndarray
@@ -169,6 +278,15 @@ class Q4KTensor:
         return cls(packed=torch.from_numpy(p).to(device),
                    scales=torch.from_numpy(s).to(device),
                    biases=torch.from_numpy(b).to(device), in_dim=in_dim)
+
+    @classmethod
+    def stack(cls, tensors) -> "Q4KTensor":
+        """(out, ...) tensors of one in_dim -> one contiguous (L, out, ...)
+        tensor."""
+        return cls(packed=torch.stack([t.packed for t in tensors]),
+                   scales=torch.stack([t.scales for t in tensors]),
+                   biases=torch.stack([t.biases for t in tensors]),
+                   in_dim=tensors[0].in_dim)
 
     def layer(self, i: int) -> "Q4KTensor":
         """The i-th matrix of a stacked (L, out, ...) tensor (a view)."""

@@ -47,6 +47,15 @@ def test_no_source_names_jax_or_nano_tpu():
             assert top not in ("jax", "jaxlib", "nano_tpu"), (path, mod)
 
 
+def test_no_source_names_safetensors_or_transformers():
+    """The machine with the card has neither package: the port reads
+    safetensors files by hand."""
+    for path in _sources():
+        for mod in _imported_modules(path):
+            assert mod.split(".")[0] not in ("safetensors", "transformers"), (
+                path, mod)
+
+
 def test_importing_everything_loads_no_jax():
     mods = sorted({m for p in _sources() for m in _imported_modules(p)
                    if m.split(".")[0] in ("nano_tpu_torch", "torch", "numpy")})
@@ -61,7 +70,7 @@ def test_importing_everything_loads_no_jax():
         f"for m in {sorted(set(mods + pkg_mods))!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'nano_tpu')]\n"
+        "('jax', 'jaxlib', 'nano_tpu', 'safetensors', 'transformers')]\n"
         "assert not bad, bad\n"
         "print('clean')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -83,6 +92,10 @@ def test_entry_points_default_to_cuda(monkeypatch):
         params_from_jax({"norm": [1.0, 2.0]})
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(ModelConfig(), {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine.LLMContext.from_checkpoint("unread.npz")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine.LLMContext.from_gguf("unread.gguf")
     # asking for the CPU is the only way onto it
     assert Trainer(ModelConfig(), {}, device="cpu").device.type == "cpu"
     ctx = engine.LLMContext.from_bin(os.path.join(FIX, "tiny_f32.bin"),
@@ -98,7 +111,8 @@ def test_new_modules_are_among_the_checked_sources():
     for mod in ("data/preprocess.py", "train/data.py", "train/trainer.py",
                 "train/__main__.py", "io/checkpoint.py", "ops/flash_attn.py",
                 "ops/launches.py", "serve/__init__.py", "serve/batching.py",
-                "infer/speculative.py"):
+                "infer/speculative.py", "export.py", "io/gguf.py",
+                "io/qwen.py", "io/pt_import.py"):
         assert os.path.join("nano_tpu_torch", mod) in rel
 
 
