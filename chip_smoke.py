@@ -137,16 +137,29 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   file's, repack f32 -> f32 byte-identical, tok/s and TTFT
                   of each; 7b: Qwen3-0.6B at full width and depth, dense
                   f32 random weights written by write_gguf as Q8_0 and
-                  served by from_gguf, every product through
-                  q80_matmul_rows at group size 32 (launches exact), timed
-                  over a decode step's 197 launches beside its plain
-                  version, bf16 torch.matmul and the bound; convert_gguf
-                  to Q80 at group size 256 served by from_bin through K1's
-                  W8A8 pair, the two streams' agreeing prefix
+                  served by from_gguf (wq/wk/wv and w1/w3 fused: 113
+                  rows-form launches a step at group size 32, one row
+                  through q80_matvec_rows, more through q80_matmul_rows,
+                  launches exact), in turns with the same weights unfused
+                  through the warp-a-row q80_matmul_rows_warp (197 a step: the
+                  "before"); in BatchedEngine at 8 and 64 slots (launches
+                  exact, one batched step's logits within GGUF_BATCH_TOL
+                  of each slot's single stream beside a control, ms per
+                  step, tok/s); the rows form timed over a decode step, 8
+                  and 64 slots and a 64-token prefill (old, new, new, old)
+                  beside its plain version, bf16 and f32 torch.matmul and
+                  the bound; convert_gguf to Q80 at group size 256 served
+                  by from_bin through K1's W8A8 pair, the two streams'
+                  agreeing prefix
 
 Phase 3 also holds K1 (q80_matmul_w8a8, every row torch.equal to the
 B = 1 kernel's), K3 at B > 1 and the norm kernels at the row counts of a
-verify round (SPEC_ROWS: k + 1 and B (k + 1)).
+verify round (SPEC_ROWS: k + 1 and B (k + 1)), and K1's rows form
+(q80_matvec_rows at one row, q80_matmul_rows and the warp-a-row
+q80_matmul_rows_warp at 1, 8 and 64) at the tiny fixtures' shapes, K = 80
+at group size 16, and a Qwen3-0.6B GGUF file's products and head at group
+sizes 32 and 16, within 1e-5 of max|y| of the plain version, two runs
+bit-equal.
 
 Phase 3 also holds the two flash-attention kernels (forward, backward)
 against the plain version at every head width (the Nano-168M, Nano-56M and
@@ -166,7 +179,7 @@ attention launches both on f32 q and as the model feeds them (bf16 q,
 result cast to bf16).
 
 `python3 chip_smoke.py bench [flash [clocks]] [decode] [q4k [batched]] [q80
-[batched [sweep] [clocks]]] [pipes] [spec] [toy] [export]` runs none of the phases: it times the two
+[batched [sweep] [clocks]]] [pipes] [spec] [toy] [export] [rows [sweep] [clocks]]` runs none of the phases: it times the two
 attention kernels alone beside SDPA (the flash forward and backward, a
 ladder over the decode kernel's rows per block), a Q4K decode step's
 matmuls with the fake-quant folded in or not, a Q80 decode step's W8A8
@@ -182,6 +195,11 @@ times K3 at B > 1 the same way: a Q4K forward's 112 layer products at 8 and
 replaced (q4k_fake_quant + q4k_matmul) and the bf16 torch.matmul, beside
 the bound.  `bench spec` runs phase 5c alone, `bench toy` its trained
 toy, and `bench export` phase 7 (on an untrained Nano-168M checkpoint).
+`bench rows` times the rows form (K1 below group size 256) over a
+Qwen3-0.6B GGUF model's products at group sizes 32 and 16 as phase 7b
+does, on random weights; `sweep` adds every work split of its two kernels
+at 1, 8 and 64 rows beside the plan's, `clocks` where a tiled block's time
+goes.
 
 The last two lines of stdout are one JSON object listing the kernels and
 then {"ok": true, "device": {...}}.  Without a CUDA device the script
@@ -277,6 +295,15 @@ EXPORT_PROMPT, EXPORT_NEW = 64, 64
 # misplaces or mis-scales a matrix reads at that level.  Limits 3x and 2x
 # the readings, below the control.
 EXPORT_LOGITS_TOL = {"Q80": 0.15, "Q4K": 0.8}
+# phase 7b: a GGUF model's batched logits (q80_matmul_rows) against each
+# slot's single stream (q80_matvec_rows), of max|logit|: the same f32
+# dequant with f32 sums in other orders, so the bf16 activations between
+# the products differ in an ulp here and there, compounding over 28
+# random layers.  At 8 slots it read 1.39e-2 against a control (each
+# slot's batched logits against the next slot's single stream: another
+# prompt) of 1.32 on an NVIDIA H100 80GB HBM3 at 700 W; the limit is 7x
+# the reading and 13x below the control.
+GGUF_BATCH_TOL = 0.1
 
 
 def log(*a):
@@ -1336,7 +1363,9 @@ PROFILE_KEYS = (("w8a8_kernel", "q80_matmul_w8a8"),
                 ("q4k_matvec_fq_kernel", "q4k_matvec_fq"),
                 ("q4k_mat", "q4k_matmul"),      # matvec (B=1), matmul
                 ("fake_quant_kernel", "q4k_fake_quant"),
-                ("rows_kernel", "q80_matmul_rows"))
+                ("q80_matvec_rows_kernel", "q80_matvec_rows"),
+                ("q80_matmul_rows_kernel", "q80_matmul_rows"),
+                ("rows_kernel", "q80_matmul_rows_warp"))   # after the two
 
 
 def profile_witness(torch, card, label, kind, step, n, steps_per_call,
@@ -1396,6 +1425,8 @@ COUNTER_OF = dict(
     q80_act_quant=("act_quant_q80", "launches"),
     q80_matmul_w8a8=("q80_w8a8", "launches"),
     q80_matmul_rows=("q80_matmul_rows", "launches"),
+    q80_matvec_rows=("q80_matvec_rows", "launches"),
+    q80_matmul_rows_warp=("q80_matmul_rows_warp", "launches"),
     q80_matvec_fq=("q80_matvec_fq", "launches"),
     rms_norm_q80=("rms_norm_q80", "launches"),
     swiglu_q80=("swiglu_q80", "launches"),
@@ -1855,11 +1886,128 @@ def dense_counts(steps, names, L):
 
 def gguf_rows_counts(steps, names, L=28):
     """Launches of an L-layer Qwen3 model from a Q8_0 GGUF (group size 32:
-    the rows form, the seven products of a layer unfused, as the JAX
-    package loads them): its 64-row prefill and `steps` decode steps."""
+    the rows form) as from_gguf serves it, wq / wk / wv and w1 / w3 fused:
+    its 64-row prefill (4 L products at 64 rows through q80_matmul_rows,
+    the head at the last position through q80_matvec_rows) and `steps`
+    decode steps (4 L + 1 q80_matvec_rows each)."""
     e = dense_counts(steps, names, L)
-    e.update(q80_matmul_rows=(7 * L + 1) * (1 + steps))
+    e.update(q80_matmul_rows=4 * L, q80_matvec_rows=(4 * L + 1) * steps + 1)
     return e
+
+
+def gguf_warp_counts(steps, names, L=28):
+    """The same model with the seven products of a layer unfused (as the
+    JAX package loads the file) through the warp-a-row kernel (warp_rows)."""
+    e = dense_counts(steps, names, L)
+    e.update(q80_matmul_rows_warp=(7 * L + 1) * (1 + steps))
+    return e
+
+
+@contextlib.contextmanager
+def warp_rows(qmatmul):
+    """Every rows-form product through the warp-a-row q80_matmul_rows_warp, the
+    kernel before q80_matvec_rows and q80_matmul_rows (a decode graph
+    captured meanwhile keeps it)."""
+    saved = qmatmul.q80_rows
+    qmatmul.q80_rows = qmatmul.q80_matmul_rows_warp
+    try:
+        yield
+    finally:
+        qmatmul.q80_rows = saved
+
+
+def gguf_batched(torch, np, h, ctx, L):
+    """A GGUF model in BatchedEngine at 8 and 64 slots: every slot joins
+    with a 32-token prompt (launches exact: 4 L q80_matmul_rows at 32 rows
+    and one q80_matvec_rows head a prefill), one batched step's logits
+    against each slot's single stream (B = slots through q80_matmul_rows,
+    B = 1 through q80_matvec_rows: the same f32 dequant, f32 sums in other
+    orders, bf16 activations) within GGUF_BATCH_TOL of max|logit|, beside a
+    control (each slot's batched logits against the next slot's single
+    stream), then a burst of 8 steps (the capture) and 3 bursts of 16
+    timed, launches exact (4 L + 1 q80_matmul_rows, L decode attentions a
+    step).  -> {slots: dict(ms, tok_s, rel, control)}."""
+    from nano_tpu_torch.infer import engine
+    from nano_tpu_torch.models import gpt
+    from nano_tpu_torch.serve.batching import BatchedEngine
+    cfg, bf16 = ctx.cfg, torch.bfloat16
+    sync = torch.cuda.synchronize if ctx.device.type == "cuda" else (lambda: 0)
+    out = {}
+    for n_slots in (8, 64):
+        be = BatchedEngine(ctx, n_slots=n_slots)
+        prng = np.random.default_rng(SEED + 14 + n_slots)
+        prompts = [prng.integers(100, min(30000, cfg.vocab_size), 32).tolist()
+                   for _ in range(n_slots)]
+        h.reset()
+        for pr in prompts:
+            be.add(pr, max_new_tokens=10 ** 6, temperature=0.0,
+                   repetition_penalty=1.0)
+        got = h.read()
+        want = {n: 0 for n in h.names}
+        want.update(q80_matmul_rows=4 * L * n_slots, q80_matvec_rows=n_slots,
+                    rms_norm_q80=(2 * L + 1) * n_slots,
+                    swiglu_q80=L * n_slots)
+        if got != want:
+            raise AssertionError(f"GGUF joins at {n_slots} slots: launches "
+                                 f"{got}, expected {want}")
+        c_b = gpt.KVCache(*(None if t is None else t.clone() for t in (
+            be.cache.k, be.cache.v, be.cache.k_scale, be.cache.v_scale)))
+        lb, _ = gpt.forward_decode_batched(ctx.params, be.tok.clone(), c_b,
+                                           be.pos.clone(), cfg, bf16,
+                                           ctx.rope_tables())
+        del c_b
+        singles = []
+        for i, pr in enumerate(prompts):
+            c1 = ctx.new_cache(1, seq_len=be._cache_len())
+            t1, _ = engine._prefill_first_token(ctx, pr, c1, ctx.generator())
+            if int(t1[0]) != int(be.tok[i]):
+                raise AssertionError(f"GGUF slot {i}: the first token differs")
+            l1, _ = gpt.forward_with_cache(ctx.params, t1[:, None], c1,
+                                           len(pr), cfg, bf16,
+                                           rope=ctx.rope_tables())
+            singles.append(l1[0, 0].float())
+            del c1
+        rel = max(((lb[i].float() - l1).abs().max() / l1.abs().max()).item()
+                  for i, l1 in enumerate(singles))
+        control = min(((lb[i].float() - singles[(i + 1) % n_slots]).abs().max()
+                       / singles[(i + 1) % n_slots].abs().max()).item()
+                      for i in range(n_slots))
+        del lb, singles
+        log(f"[export] GGUF in BatchedEngine, {n_slots} slots: one batched "
+            f"step's logits against each slot's single stream, worst "
+            f"max|d|/max|logit| {rel:.3e} (limit {GGUF_BATCH_TOL:.1e}); the "
+            f"control, each slot's batched logits against the next slot's "
+            f"single stream, least {control:.3e}")
+        if not (rel <= GGUF_BATCH_TOL < control):
+            raise AssertionError(f"GGUF batched logits at {n_slots} slots: "
+                                 f"{rel} (control {control}), limit "
+                                 f"{GGUF_BATCH_TOL}")
+        h.reset()
+        be.step_burst(8)                       # warm-up step, capture
+        sync()
+        t0 = time.time()
+        bursts = [be.step_burst(16) for _ in range(3)]
+        sync()
+        secs = time.time() - t0
+        got = h.read()
+        steps = 8 + 48
+        want = {n: 0 for n in h.names}
+        want.update(q80_matmul_rows=(4 * L + 1) * steps,
+                    decode_attention=L * steps,
+                    rms_norm_q80=(2 * L + 1) * steps, swiglu_q80=L * steps)
+        toks = sum(len(v) for b in bursts for v in b.values())
+        if got != want or toks != 48 * n_slots:
+            raise AssertionError(f"GGUF batched steps at {n_slots} slots: "
+                                 f"launches {got}, expected {want}; "
+                                 f"{toks} tokens")
+        out[n_slots] = dict(ms=secs * 1e3 / 48, tok_s=toks / secs, rel=rel,
+                            control=control)
+        log(f"[export] GGUF in BatchedEngine, {n_slots} slots, positions "
+            f"32-88 ({h.card}): {secs * 1e3 / 48:.3f} ms per batched step, "
+            f"{toks / secs:.1f} tok/s aggregate; launches exact ({got})")
+        del be
+        torch.cuda.empty_cache()
+    return out
 
 
 def train_toy(torch, np, dev):
@@ -1996,6 +2144,7 @@ def export_phase(torch, np, h):
     served by from_bin through K1's W8A8 pair.  -> {"rows": the rows
     form's launches, ms, plain_ms, library_ms, bound (ms, by) over a decode
     step, "rows_err"}."""
+    from dataclasses import replace
     from nano_tpu_torch import export as export_cli
     from nano_tpu_torch.config import ModelConfig
     from nano_tpu_torch.infer import engine
@@ -2165,63 +2314,34 @@ def export_phase(torch, np, h):
     del qparams
     t0 = time.time()
     gctx = engine.LLMContext.from_gguf(gpath, device=dev, sampler=greedy)
-    wq = gctx.params["blocks"]["wq"]
-    if not (isinstance(wq, qmatmul.Q80Tensor) and wq.group_size == 32
-            and not wq.w8a8 and gctx.params["output_q"]
+    gb = gctx.params["blocks"]
+    wqkv = gb.get("wqkv")
+    if not (isinstance(wqkv, qmatmul.Q80Tensor) and wqkv.group_size == 32
+            and not wqkv.w8a8 and "w13" in gb and "wq" not in gb
+            and "w1" not in gb and gctx.params["output_q"]
             is gctx.params["tok_embeddings"]):
-        raise AssertionError("the Q8_0 GGUF did not load as group-32 rows")
-    log(f"[export] from_gguf (quantized) in {time.time() - t0:.1f} s")
+        raise AssertionError("the Q8_0 GGUF did not load as fused group-32 "
+                             "rows")
+    log(f"[export] from_gguf (quantized, wq/wk/wv and w1/w3 fused) in "
+        f"{time.time() - t0:.1f} s")
     qids = h.qwen_prompt
-    gout, gtps, gttft, gcounts = serve(
-        gctx, "Qwen3-0.6B Q8_0 GGUF (from_gguf, q80_matmul_rows at gs 32)",
-        qids, n_new, lambda s: gguf_rows_counts(s, names, QL))
-
-    # the rows form over one decode step's launches: 7 products a layer and
-    # the head, bf16 activations (f32 for the head, as the model feeds it)
-    calls = []
-    blocks = gctx.params["blocks"]
-    for i in range(QL):
-        for name in ("wq", "wk", "wv", "wo", "w1", "w3", "w2"):
-            calls.append((blocks[name].layer(i), torch.bfloat16))
-    calls.append((gctx.params["output_q"], torch.float32))
-    xs = [torch.randn(1, w.in_dim, device=dev, generator=g).to(torch.bfloat16)
-          for w, _ in calls]
-    res = {}
-    worst = 0.0
-    for (w, odt), x in list(zip(calls, xs))[:8] + [(calls[-1], xs[-1])]:
-        y = qmatmul.q80_matmul_rows(x, w, odt).float()
-        ref = qmatmul.q80_matmul_rows_plain(x, w, odt).float()
-        worst = max(worst, ((y - ref).abs().max()
-                            / ref.abs().max()).item())
-    wds = [w.dequantize(torch.bfloat16) for w, _ in calls]
-    res["ms"] = h.timer(lambda: [qmatmul.q80_matmul_rows(x, w, odt)
-                                 for (w, odt), x in zip(calls, xs)])
-    res["plain_ms"] = h.timer(lambda: [
-        qmatmul.q80_matmul_rows_plain(x, w, odt)
-        for (w, odt), x in zip(calls, xs)], reps=5)
-    res["library_ms"] = h.timer(lambda: [
-        torch.matmul(x, wd.t()) for x, wd in zip(xs, wds)])
-    del wds
-    n_bytes = sum(w.q.numel() + w.scales.numel() * 4 + w.in_dim * 2
-                  + w.out_dim * (4 if odt == torch.float32 else 2)
-                  for w, odt in calls)
-    n_ops = sum(2 * w.q.numel() for w, _ in calls)
-    res["bound"] = bound(n_bytes, n_ops, F32_OPS_PER_S)
-    res["err"] = worst
-    log(f"[export] q80_matmul_rows over a decode step's {len(calls)} "
-        f"launches (Qwen3-0.6B at gs 32, {n_bytes / 1e6:.1f} MB) on "
-        f"{card}: {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
-        f"bf16 torch.matmul on weights dequantized ahead "
-        f"{res['library_ms']:.4f} ms, bound {res['bound'][0]:.4f} ms "
-        f"({res['bound'][1]}: {n_bytes / res['ms'] / 1e6:.0f} GB/s "
-        f"achieved); its launches against the plain version: largest "
-        f"error {worst:.3e} of max|y|")
-    if not worst <= 1e-5:
-        raise AssertionError("q80_matmul_rows disagrees with its plain "
-                             "version on the GGUF weights")
-    res["launches"] = gcounts["q80_matmul_rows"]
-    del gctx, calls, xs, blocks, wq
-
+    # the same weights as the JAX package serves the file, 7 products a
+    # layer (views of the fused tensors), through the warp-a-row kernel: the
+    # "before", served in turns with the fused model in one call
+    F_ = qcfg.n_hidden
+    cuts = {"wqkv": (("wq", 0, HD), ("wk", HD, HD + KVD),
+                     ("wv", HD + KVD, HD + 2 * KVD)),
+            "w13": (("w1", 0, F_), ("w3", F_, 2 * F_))}
+    ub = {k: v for k, v in gb.items() if k not in cuts}
+    for fused, parts in cuts.items():
+        for name, lo, hi in parts:
+            ub[name] = replace(gb[fused], q=gb[fused].q[:, lo:hi],
+                               scales=gb[fused].scales[:, lo:hi])
+    octx = engine.LLMContext(
+        cfg=gctx.cfg, params={**gctx.params, "blocks": ub},
+        tokenizer=gctx.tokenizer, max_seq_len=gctx.max_seq_len, device=dev,
+        dtype=gctx.dtype, sampler=greedy, stop_tokens=gctx.stop_tokens,
+        arch=gctx.arch)
     qbin = os.path.join(h.work, "qwen3_0.6b_q80.bin")
     t0 = time.time()
     gguf.convert_gguf(gpath, qbin, quant="q80", group_size=256)
@@ -2229,17 +2349,51 @@ def export_phase(torch, np, h):
         f"({os.path.getsize(qbin)} bytes) in {time.time() - t0:.1f} s")
     os.remove(gpath)
     bctx = engine.LLMContext.from_bin(qbin, device=dev, sampler=greedy)
+    os.remove(qbin)
     if not bctx.params["blocks"]["wqkv"].w8a8:
         raise AssertionError("the converted .bin did not take the W8A8 form")
-    bout, btps, bttft, _ = serve(bctx, "Qwen3-0.6B Q80 .bin from convert_gguf "
-                              "(from_bin, W8A8)", qids, n_new,
-                              lambda s: decode_counts("Q80", s, names, L=QL))
+    # in turns: the GGUF model (new), its "before" and the converted .bin
+    runs = {"new": [], "old": [], "bin": []}
+    for route in ("new", "old", "bin", "bin", "old", "new"):
+        if route == "new":
+            runs[route].append(serve(
+                gctx, "Qwen3-0.6B Q8_0 GGUF (from_gguf: 4 products a layer, "
+                "q80_matvec_rows at one row, q80_matmul_rows above)", qids,
+                n_new, lambda s: gguf_rows_counts(s, names, QL)))
+        elif route == "old":
+            with warp_rows(qmatmul):
+                runs[route].append(serve(
+                    octx, "Qwen3-0.6B Q8_0 GGUF, before (7 products a layer, "
+                    "the warp-a-row q80_matmul_rows_warp)", qids, n_new,
+                    lambda s: gguf_warp_counts(s, names, QL)))
+        else:
+            runs[route].append(serve(
+                bctx, "Qwen3-0.6B Q80 .bin from convert_gguf (from_bin, "
+                "W8A8)", qids, n_new,
+                lambda s: decode_counts("Q80", s, names, L=QL)))
+    del octx
+    best = {k: (max(r[1] for r in v), min(r[2] for r in v))
+            for k, v in runs.items()}
+    gout, bout, oout = (runs[k][0][0] for k in ("new", "bin", "old"))
+    gcounts = runs["new"][0][3]
+    log(f"[export] Qwen3-0.6B on {card}, in turns new, old, .bin, .bin, old, "
+        f"new, the better of two: the GGUF Q8_0 file {best['new'][0]:.2f} "
+        f"tok/s, TTFT {best['new'][1]:.2f} ms (113 rows-form launches a "
+        f"step) against {best['old'][0]:.2f} tok/s, TTFT {best['old'][1]:.2f} "
+        f"ms before (197); the converted gs-256 .bin {best['bin'][0]:.2f} "
+        f"tok/s, TTFT {best['bin'][1]:.2f} ms; the GGUF stream agrees with "
+        f"the one before for {agreeing(gout, oout)} and with the .bin's for "
+        f"{agreeing(gout, bout)} of {n_new} tokens")
     del bctx
-    os.remove(qbin)
-    log(f"[export] 7b on {card}: GGUF Q8_0 (rows form) {gtps:.2f} tok/s, "
-        f"TTFT {gttft:.2f} ms; Q80 gs 256 .bin (W8A8) {btps:.2f} tok/s, TTFT "
-        f"{bttft:.2f} ms; the two greedy streams agree for "
-        f"{agreeing(gout, bout)} of {n_new} tokens ({time.time() - t7:.1f} s)")
+    res = dict(launches=dict(q80_matvec_rows=gcounts["q80_matvec_rows"],
+                             q80_matmul_rows=gcounts["q80_matmul_rows"]),
+               tok_s={k: v[0] for k, v in best.items()},
+               ttft={k: v[1] for k, v in best.items()})
+    res["batched"] = gguf_batched(torch, np, h, gctx, QL)
+    res["times"] = rows_form_times(torch, h.timer, gb, gctx.params["output_q"],
+                                   QL, card, g, "export")
+    del gctx, gb, wqkv
+    log(f"[export] 7b in {time.time() - t7:.1f} s")
     return res
 
 
@@ -2296,6 +2450,264 @@ def bench_export(torch):
     log(f"[bench export] {res}")
 
 
+# the rows form's timed cases: (label, rows B, with the head); a decode
+# step and a batched step run the 112 layer products and the head, a
+# prefill the 112 (its head is one row)
+ROWS_TIME_CASES = (("decode step", 1, True), ("8 slots", 8, True),
+                   ("64-token prefill", 64, False), ("64 slots", 64, True))
+
+
+def rows_form_times(torch, timer, blocks, head, L, card, gen, tag):
+    """The rows form of a GGUF model's served weights (`blocks`, stacked
+    over L layers, and the head), over each case of ROWS_TIME_CASES, bf16
+    activations into bf16 (the head into f32), replayed from a CUDA graph:
+    the new kernels as q80_rows picks them (q80_matvec_rows at one row,
+    q80_matmul_rows above) and the warp-a-row q80_matmul_rows_warp in the order old,
+    new, new, old; the plain version; bf16 torch.matmul and f32
+    torch.matmul (TF32 off: the one PyTorch call that computes the same
+    function) on weights dequantized ahead; the bound (bytes: each weight,
+    scale, input and output once; operations: 2 B N K at the f32 rate).
+    Layer 0's products and the head are held to the plain version first (f32
+    out, 1e-5 of max|y|).  -> {label: dict(launches, new, old (two times
+    each), plain, bf16, f32, bound (ms, by), err)}."""
+    from nano_tpu_torch.ops import qmatmul
+    bf16, f32 = torch.bfloat16, torch.float32
+    names = [n for n in ("wqkv", "wq", "wk", "wv", "wo", "w13", "w1", "w3",
+                         "w2") if n in blocks]
+    layer = [blocks[n].layer(i) for i in range(L) for n in names]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    deq16 = [w.dequantize(bf16) for w in layer + [head]]
+    deq32 = [w.dequantize(f32) for w in layer + [head]]
+    out = {}
+    for label, B, with_head in ROWS_TIME_CASES:
+        idx = list(range(len(layer))) + ([len(layer)] if with_head else [])
+        ws = [(layer + [head])[j] for j in idx]
+        odt = [bf16] * len(layer) + [f32] * with_head
+        xs = [torch.randn(B, w.in_dim, device=head.q.device,
+                          generator=gen).to(bf16) for w in ws]
+        err = 0.0
+        for j in list(range(len(names))) + ([len(ws) - 1] if with_head else []):
+            y = qmatmul.q80_rows(xs[j], ws[j], f32)
+            ref = qmatmul.q80_matmul_rows_plain(xs[j], ws[j], f32)
+            err = max(err, ((y - ref).abs().max() / ref.abs().max()).item())
+        if not err <= 1e-5:
+            raise AssertionError(f"the rows form {label}: max|d|/max|y| {err}")
+        run_new = lambda: [qmatmul.q80_rows(x, w, o)
+                           for x, w, o in zip(xs, ws, odt)]
+        run_old = lambda: [qmatmul.q80_matmul_rows_warp(x, w, o)
+                           for x, w, o in zip(xs, ws, odt)]
+        run_plain = lambda: [qmatmul.q80_matmul_rows_plain(x, w, o)
+                             for x, w, o in zip(xs, ws, odt)]
+        run_bf16 = lambda: [torch.matmul(x, deq16[j].t())
+                            for x, j in zip(xs, idx)]
+        run_f32 = lambda: [torch.matmul(x.float(), deq32[j].t())
+                           for x, j in zip(xs, idx)]
+        t_old = [timer(run_old)]
+        t_new = [timer(run_new), timer(run_new)]
+        t_old.append(timer(run_old))
+        t_plain = timer(run_plain, reps=3)
+        t_bf16, t_f32 = timer(run_bf16), timer(run_f32)
+        nb = sum(w.q.numel() + 4 * w.scales.numel() + 2 * B * w.in_dim
+                 + (4 if o == f32 else 2) * B * w.out_dim
+                 for w, o in zip(ws, odt))
+        b = bound(nb, sum(2 * B * w.q.numel() for w in ws), F32_OPS_PER_S)
+        kern = "q80_matvec_rows" if B == 1 else "q80_matmul_rows"
+        log(f"[{tag}] rows form, {label} (B = {B}, {len(ws)} launches, gs "
+            f"{head.group_size}, {nb / 1e6:.1f} MB, "
+            f"{2 * B * sum(w.q.numel() for w in ws) / 1e9:.2f} GFLOP) on "
+            f"{card}: {kern} {t_new[0]:.4f} / {t_new[1]:.4f} ms, the warp-a-row "
+            f"q80_matmul_rows_warp {t_old[0]:.4f} / {t_old[1]:.4f} ms (in the "
+            f"order old, new, new, old), plain {t_plain:.4f} ms, bf16 "
+            f"torch.matmul {t_bf16:.4f} ms, f32 torch.matmul (TF32 off) "
+            f"{t_f32:.4f} ms, bound {b[0]:.4f} ms ({b[1]}); new / old "
+            f"{min(t_new) / min(t_old):.3f}, new / f32 library "
+            f"{min(t_new) / t_f32:.3f}, new / bf16 library "
+            f"{min(t_new) / t_bf16:.3f}, new / bound {min(t_new) / b[0]:.2f}; "
+            f"largest error against the plain version {err:.3e} of max|y|")
+        out[label] = dict(launches=len(ws), new=t_new, old=t_old,
+                          plain=t_plain, bf16=t_bf16, f32=t_f32, bound=b,
+                          err=err)
+        del xs
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    del deq16, deq32
+    torch.cuda.empty_cache()
+    return out
+
+
+def rows_plan_sweep(torch, timer, blocks, head, L, B, tag):
+    """Every work split of the rows-form kernel for B rows at each distinct
+    product of a GGUF model's served weights (its L layers launched in
+    turn, bf16 rows): q80_matvec_rows's (T, R, S) at B = 1,
+    q80_matmul_rows's (MB, BN, CS, S) above, the C function called
+    directly; the fastest three and the plan's."""
+    from nano_tpu_torch.ops import _build, int8_mma, qmatmul
+    bf16 = torch.bfloat16
+    lib = _build.lib("q80_matmul")
+    int8_mma.init(torch.device("cuda"), "q80_matmul_init")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    st = lambda: torch.cuda.current_stream().cuda_stream
+    for name in [n for n in ("wqkv", "wo", "w13", "w2") if n in blocks] + ["head"]:
+        ws = [head] if name == "head" else [blocks[name].layer(i)
+                                            for i in range(L)]
+        w0 = ws[0]
+        K, N, gs = w0.in_dim, w0.out_dim, w0.group_size
+        x = torch.randn(B, K, device="cuda").to(bf16)
+        y = torch.empty(B, N, device="cuda", dtype=bf16)
+        res = []
+        if B == 1:
+            plan = qmatmul.matvec_rows_plan(N, K, gs, sms)
+            for T in (8, 32):
+                for R in (2, 4, 8, 16, 32):
+                    for S in (1, 2, 3, 4):
+                        if qmatmul.matvec_rows_smem(K, K // gs, R, S) > 113 * 1024:
+                            continue
+                        for blocks_ in sorted({plan[0], min(sms, plan[0])}):
+                            args = (blocks_, R, S, T)
+                            run = lambda a=args: [lib.q80_matvec_rows(
+                                x.data_ptr(), 1, w.q.data_ptr(),
+                                w.scales.data_ptr(), y.data_ptr(), 1, K, N, gs,
+                                *a, st()) for w in ws]
+                            if any(run()):
+                                continue
+                            res.append((timer(run), args))
+        else:
+            plan = qmatmul.rows_plan(B, N, K, sms)
+            for BN in (8, 16, 32, 64):
+                if BN < min(B, 64) // 2 or (BN > 8 and BN // 2 >= B):
+                    continue
+                for MB in (64, 128):
+                    for CS in (1, 2, 4, 8):
+                        for S in (1, 2, 3, 4):
+                            if (CS > -(-K // qmatmul.ROWS_KC)
+                                    or qmatmul.rows_smem(MB, BN, CS, S)
+                                    > qmatmul.MAX_SMEM):
+                                continue
+                            args = (MB, BN, CS, S)
+                            run = lambda a=args: [lib.q80_matmul_rows(
+                                x.data_ptr(), 1, w.q.data_ptr(),
+                                w.scales.data_ptr(), y.data_ptr(), 1, B, K, N,
+                                gs, *a, st()) for w in ws]
+                            if any(run()):
+                                continue
+                            res.append((timer(run), args))
+        res.sort()
+        mine = next((t for t, a in res if a == tuple(plan)), None)
+        log(f"[{tag}] sweep B = {B}, {name} ({len(ws)} x {K}->{N}, gs {gs}): "
+            f"fastest " + ", ".join(f"{a} {t:.4f} ms" for t, a in res[:3])
+            + f"; the plan {tuple(plan)} "
+            + ("not run" if mine is None else f"{mine:.4f} ms"))
+
+
+def gguf_rows_params(torch, cfg, gs, seed):
+    """Random Qwen3-0.6B weights in the rows form as from_gguf serves a
+    GGUF file at group size gs (Q8_0: 32, Q6_K: 16): stacked fused wqkv,
+    wo, w13, w2 and the tied head, int8 values and f32 scales from a
+    seed, on the card."""
+    from nano_tpu_torch.ops import qmatmul
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    L, E, F, V, HD, KVD, _ = _shapes(cfg)
+
+    def w(*shape):
+        q = torch.randint(-127, 128, shape, dtype=torch.int8, device="cuda",
+                          generator=g)
+        s = torch.rand(*shape[:-1], shape[-1] // gs, device="cuda",
+                       generator=g) * 2e-3 + 1e-4
+        return qmatmul.Q80Tensor(q=q, scales=s, group_size=gs)
+    blocks = {"wqkv": w(L, HD + 2 * KVD, E), "wo": w(L, E, HD),
+              "w13": w(L, 2 * F, E), "w2": w(L, E, F)}
+    return blocks, w(V, E)
+
+
+def rows_lib_variant(defines, name):
+    """q80_matmul.cu built once more with `defines` (-D flags) into
+    build/rows_variants/<name>/, loaded, its rows entry points typed and its
+    shared-memory limits raised: a build for measurement beside the real
+    library."""
+    import ctypes
+    from nano_tpu_torch.ops import _build
+    work = os.path.join(ROOT, "build", "rows_variants", name)
+    os.makedirs(work, exist_ok=True)
+    so = os.path.join(work, "libq80_matmul.so")
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    subprocess.run([_build.nvcc_path(), *flags, *defines, "-o", so,
+                    os.path.join(_build.CSRC_DIR, "q80_matmul.cu")], check=True)
+    lib = ctypes.CDLL(so)
+    for fn in ("q80_matmul_rows", "q80_matvec_rows"):
+        getattr(lib, fn).argtypes = _build.SIGNATURES[fn][0]
+    if lib.q80_matmul_init() != 0:
+        raise RuntimeError(f"{name}: q80_matmul_init failed")
+    return lib
+
+
+def bench_rows_clocks(torch, blocks, head, B):
+    """Layer 0 of each product at B rows through a build with
+    -DNANO_ROWS_CLOCKS, rows_plan's split, the L2 cleared before it: per
+    launch the span from the first block's entry to the last block's exit,
+    the spread of the entries, and the median over blocks of each stamp
+    (first chunk ready, products done, the cluster's tiles met, exit) after
+    the block's entry, in ns of %globaltimer."""
+    import ctypes
+    import statistics
+    from nano_tpu_torch.ops import qmatmul
+    lib = rows_lib_variant(["-DNANO_ROWS_CLOCKS"], "clocks")
+    lib.q80_matmul_rows_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    flush = torch.empty(64 << 20, device="cuda")
+    st = torch.cuda.current_stream().cuda_stream
+    for name in ("wqkv", "wo", "w13", "w2", "head"):
+        w = head if name == "head" else blocks[name].layer(0)
+        K, N, gs = w.in_dim, w.out_dim, w.group_size
+        plan = qmatmul.rows_plan(B, N, K, sms)
+        x = torch.randn(B, K, device="cuda").to(torch.bfloat16)
+        y = torch.empty(B, N, dtype=torch.bfloat16, device="cuda")
+        for _ in range(2):    # the first launch warms up
+            flush.zero_()
+            assert lib.q80_matmul_rows(x.data_ptr(), 1, w.q.data_ptr(),
+                                       w.scales.data_ptr(), y.data_ptr(), 1, B,
+                                       K, N, gs, *plan, st) == 0
+            torch.cuda.synchronize()
+        MB, BN, CS, _ = plan
+        nb = min(16384, -(-N // MB) * CS * -(-B // BN))
+        buf = (ctypes.c_ulonglong * (5 * nb))()
+        assert lib.q80_matmul_rows_clocks(buf, nb) == 0
+        t = [list(buf)[5 * b:5 * b + 5] for b in range(nb)]
+        t0 = min(r[0] for r in t)
+        med = [statistics.median(r[k] - r[0] for r in t) for k in range(1, 5)]
+        log(f"[bench rows clocks] B={B} {name} plan {plan}, {nb} blocks: span "
+            f"{max(r[4] for r in t) - t0} ns, entries spread over "
+            f"{max(r[0] for r in t) - t0} ns; median after entry: first "
+            f"chunk ready {med[0]:.0f}, products done {med[1]:.0f}, tiles "
+            f"met {med[2]:.0f}, exit {med[3]:.0f} ns")
+
+
+def bench_rows(torch, sweep=False, clocks=False):
+    """The rows form (K1 below group size 256) over a Qwen3-0.6B GGUF
+    model's products at group sizes 32 and 16 (rows_form_times); with
+    `sweep` every work split at 1, 8 and 64 rows (rows_plan_sweep), with
+    `clocks` where a block's time goes at 8 and 64 rows
+    (bench_rows_clocks)."""
+    from nano_tpu_torch.config import ModelConfig
+    from nano_tpu_torch.ops import _build
+    _build.build_all()
+    cfg = ModelConfig(**QWEN3_06B)
+    card, timer = card_line(), Timer(torch)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    for gs in (32, 16):
+        blocks, head = gguf_rows_params(torch, cfg, gs, SEED + gs)
+        rows_form_times(torch, timer, blocks, head, cfg.n_layer, card, gen,
+                        "bench rows")
+        if sweep:
+            for B in (1, 8, 64):
+                rows_plan_sweep(torch, timer, blocks, head, cfg.n_layer, B,
+                                "bench rows")
+        if clocks and gs == 32:
+            for B in (8, 64):
+                bench_rows_clocks(torch, blocks, head, B)
+        del blocks, head
+        torch.cuda.empty_cache()
+
+
 def bench(what) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2309,10 +2721,13 @@ def bench(what) -> int:
     for name, fn in (("flash", bench_flash), ("decode", bench_decode),
                      ("q4k", bench_q4k), ("q80", bench_q80),
                      ("pipes", bench_pipes), ("spec", bench_spec),
-                     ("toy", bench_toy), ("export", bench_export)):
+                     ("toy", bench_toy), ("export", bench_export),
+                     ("rows", bench_rows)):
         if not what or name in what:
             fn(torch, **{"flash": flags, "q80": q80_flags,
-                         "q4k": q4k_flags}.get(name, {}))
+                         "q4k": q4k_flags,
+                         "rows": dict(sweep="sweep" in what,
+                                      clocks="clocks" in what)}.get(name, {}))
     return 0
 
 
@@ -2401,8 +2816,14 @@ def main() -> int:
           "nano_tpu_torch/csrc/q80_matmul.cu")
     entry("q80_matmul_w8a8", "nano_tpu/ops/qmatmul.py:268",
           "nano_tpu_torch/csrc/q80_matmul.cu")
+    # the rows form (gs < 256: a GGUF file's products): one row, more rows,
+    # and the warp-a-row kernel, held and timed here as their "before"
+    entry("q80_matvec_rows", "nano_tpu/ops/qmatmul.py:129",
+          "nano_tpu_torch/csrc/q80_matmul.cu")
     entry("q80_matmul_rows", "nano_tpu/ops/qmatmul.py:129",
           "nano_tpu_torch/csrc/q80_matmul.cu")
+    entry("q80_matmul_rows_warp", "nano_tpu/ops/qmatmul.py:129",
+          "nano_tpu_torch/csrc/q80_matmul.cu", main_path=False)
     entry("q80_matvec_fq", "nano_tpu/ops/qmatmul.py:250 + :268",
           "nano_tpu_torch/csrc/q80_matmul.cu")
     # q80_act_quant redesigned as the epilogue of the kernels that make its
@@ -2750,51 +3171,57 @@ def main() -> int:
         kernels[name].update(ms=ms_, plain_ms=plain_, library_ms=lib_,
                              bound_ms=b_[0], bound_by=b_[1])
 
-    # rows form at the tiny fixture's shapes (its only user) and at one
-    # main-path width with group size 32
+    # The rows form (gs < 256) at the tiny fixtures' shapes, K = 80 at gs
+    # 16 (scale rows off every 16-byte boundary), and at a Qwen3-0.6B GGUF
+    # file's fused products and head at group sizes 32 (Q8_0, phase 7b's
+    # path) and 16 (Q6_K), one row (q80_matvec_rows: a decode step) and 8
+    # and 64 (q80_matmul_rows: batched steps, a prompt), bf16 rows in as the
+    # model feeds them (f32 to the head's f32 out); the warp-a-row
+    # q80_matmul_rows_warp the same way; two runs bit-equal
     rng = np.random.default_rng(SEED)
-    for K, N, gs, B in ((64, 128, 32, 1), (64, 256, 32, 16),
-                        (128, 64, 32, 1), (1024, 4096, 32, 1)):
+
+    def hold_rows(name, fn, x, w, label):
+        y = fn(x, w, torch.float32)
+        again = fn(x, w, torch.float32)
+        ref = qmatmul.q80_matmul_rows_plain(x, w, torch.float32)
+        err = (y - ref).abs().max().item() / ref.abs().max().item()
+        log(f"[kernel] {name} {label}: max|d|/max|y| {err:.3e} (tol 1e-5), "
+            f"two runs bit-equal {torch.equal(y, again)}")
+        if not (err <= 1e-5 and torch.equal(y, again)):
+            raise AssertionError(f"{name} {label} off by {err}")
+        note_err(name, err * ref.abs().max().item())
+
+    for K, N, gs, B in ((64, 128, 32, 1), (64, 256, 32, 16), (128, 64, 32, 1),
+                        (64, 64, 64, 1), (80, 40, 16, 1), (80, 40, 16, 9)):
         w = qmatmul.Q80Tensor(
             q=torch.from_numpy(rng.integers(-127, 128, (N, K), dtype=np.int8)).to(dev),
-            scales=torch.from_numpy(rng.random((N, K // gs), dtype=np.float32) * 0.02).to(dev),
+            scales=torch.from_numpy(rng.random((N, K // gs), dtype=np.float32)
+                                    * 0.02 + np.float32(1e-3)).to(dev),
             group_size=gs)
         x = torch.randn(B, K, device=dev, generator=gen)
-        y = qmatmul.q80_matmul_rows(x, w, torch.float32)
-        ref = qmatmul.q80_matmul_rows_plain(x, w, torch.float32)
-        err = (y - ref).abs().max().item()
-        tol = 1e-5 * ref.abs().max().item()
-        log(f"[kernel] q80_matmul_rows {K}->{N} gs={gs} B={B}: max_abs_err "
-            f"{err:.3e} (tol {tol:.3e})")
-        if not err <= tol:
-            raise AssertionError(f"q80_matmul_rows {K}->{N} off by {err}")
-        note_err("q80_matmul_rows", err)
-    # and at the five Qwen3-0.6B products and the head at group sizes 32
-    # (a GGUF Q8_0 weight, phase 7b's path) and 16 (a GGUF Q6_K weight),
-    # one row and 64 (a decode step, a prompt), bf16 rows in as the model
-    # feeds them
-    for name, w in shapes:
-        w0 = layer_weights(w)[0]
-        K, N = w0.in_dim, w0.out_dim
-        for gs in (32, 16):
-            wr = qmatmul.Q80Tensor(
-                q=w0.q, scales=torch.from_numpy(
-                    rng.random((N, K // gs), dtype=np.float32) * 0.02
-                    + np.float32(1e-3)).to(dev), group_size=gs)
-            for B in (1, 64):
-                x = torch.randn(B, K, device=dev, generator=gen).to(
-                    torch.bfloat16)
-                y = qmatmul.q80_matmul_rows(x, wr, torch.float32)
-                ref = qmatmul.q80_matmul_rows_plain(x, wr, torch.float32)
-                err = (y - ref).abs().max().item()
-                tol = 1e-5 * ref.abs().max().item()
-                log(f"[kernel] q80_matmul_rows {name} {K}->{N} gs={gs} B={B}: "
-                    f"max_abs_err {err:.3e} (tol {tol:.3e} = 1e-5 of max|y|)")
-                if not err <= tol:
-                    raise AssertionError(f"q80_matmul_rows {name} gs={gs} "
-                                         f"B={B} off by {err}")
-                note_err("q80_matmul_rows", err)
-            del wr
+        label = f"{K}->{N} gs={gs} B={B}"
+        hold_rows("q80_matmul_rows", qmatmul.q80_matmul_rows, x, w, label)
+        hold_rows("q80_matmul_rows_warp", qmatmul.q80_matmul_rows_warp, x, w,
+                  label)
+        if B == 1:
+            hold_rows("q80_matvec_rows", qmatmul.q80_matvec_rows, x, w, label)
+    for gs in (32, 16):
+        gblocks, ghead = gguf_rows_params(torch, cfg, gs, SEED + gs)
+        for name, w in [(n, gblocks[n].layer(1)) for n in gblocks] + [
+                ("head", ghead)]:
+            K, N = w.in_dim, w.out_dim
+            for B in (1, 8, 64):
+                x = torch.randn(B, K, device=dev, generator=gen).to(torch.bfloat16)
+                label = f"{name} {K}->{N} gs={gs} B={B}"
+                if B == 1:
+                    hold_rows("q80_matvec_rows", qmatmul.q80_matvec_rows, x,
+                              w, label)
+                hold_rows("q80_matmul_rows", qmatmul.q80_matmul_rows, x, w,
+                          label)
+                if name != "head" or B == 1:
+                    hold_rows("q80_matmul_rows_warp",
+                              qmatmul.q80_matmul_rows_warp, x, w, label)
+        del gblocks, ghead
 
     H, KV, D = cfg.n_head, cfg.n_kv_head, cfg.head_dim
     for cdt in (torch.bfloat16, torch.int8):
@@ -3656,7 +4083,7 @@ def main() -> int:
                                  f"the solo greedy stream")
 
     tiny_stream(tiny, "tiny_q80.bin", expected["greedy"]["q80"],
-                ("q80_matmul_rows", "decode_attention"))
+                ("q80_matvec_rows", "q80_matmul_rows", "decode_attention"))
     tiny_batched(tiny, "tiny_q80.bin", expected["greedy"]["q80"])
     tiny4 = engine.LLMContext.from_bin(
         os.path.join(fix, "tiny_q4k.bin"), max_seq_len=64,
@@ -3667,7 +4094,7 @@ def main() -> int:
             and head4.group_size == 64 and not head4.w8a8)
     tiny_stream(tiny4, "tiny_q4k.bin", expected["greedy"]["q4k"],
                 ("q4k_act_quant", "q4k_matmul_w4a4", "q4k_fake_quant",
-                 "q4k_matvec_fq", "q80_matmul_rows", "decode_attention"))
+                 "q4k_matvec_fq", "q80_matvec_rows", "decode_attention"))
     del tiny, tiny4
 
     # ---------------- 5. full width ----------------
@@ -4936,11 +5363,19 @@ def main() -> int:
         nano_prompt=nano_ids[:EXPORT_PROMPT],
         nano_control_prompt=nano_ids[1000:1000 + EXPORT_PROMPT]))
     os.remove(ckpt12)
-    kernels["q80_matmul_rows"].update(
-        launches=res7["launches"], ms=res7["ms"], plain_ms=res7["plain_ms"],
-        library_ms=res7["library_ms"], bound_ms=res7["bound"][0],
-        bound_by=res7["bound"][1])
-    note_err("q80_matmul_rows", res7["err"])
+    # the rows form's JSON rows (phase 7b's GGUF model): q80_matvec_rows
+    # over a decode step's 113 launches, q80_matmul_rows over a 64-token
+    # prefill's 112 products, the warp-a-row kernel (their "before") over the
+    # decode step; library: f32 torch.matmul (TF32 off) on weights
+    # dequantized ahead, the one PyTorch call of the same function
+    for name, case, key in (("q80_matvec_rows", "decode step", "new"),
+                            ("q80_matmul_rows", "64-token prefill", "new"),
+                            ("q80_matmul_rows_warp", "decode step", "old")):
+        t = res7["times"][case]
+        kernels[name].update(
+            launches=res7["launches"].get(name, 0), ms=min(t[key]),
+            plain_ms=t["plain"], library_ms=t["f32"], bound_ms=t["bound"][0],
+            bound_by=t["bound"][1])
     log(f"[export] phase 7 in {time.time() - t0:.1f} s")
 
     # ---------------- result ----------------
@@ -4955,6 +5390,7 @@ def main() -> int:
                                           "q4k_act_quant", "q4k_matmul_w4a4")
                else "64-row step" if k["name"] in ("rms_norm_q80",
                                                    "swiglu_q80")
+               else "GGUF prefill" if k["name"] == "q80_matmul_rows"
                else "decode")
         off = "" if k["main_path"] else " (on no main path)"
         log(f"[summary] {k['name']}: {k['launches']} launches{off}, max_abs_err "

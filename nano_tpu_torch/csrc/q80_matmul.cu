@@ -28,8 +28,20 @@
 //                    The same integer decisions, and the same f32 sums
 //                    (RangeSum): a row's output has the same bits here
 //                    and in a batch.
-//   q80_matmul_rows  _q80_kernel's own math: f32 dequant q * s, f32 dot.
-//                    Used below group size 256 (e.g. gs = 32 files).
+//   the rows form    _q80_kernel's own math: f32 dequant w = q * s, each
+//                    weight rounded to f32 before it meets x (never fused
+//                    into the multiply-add), an f32 dot, no TF32, no bf16
+//                    operand, no quantized activation.  Used below group
+//                    size 256: every product of a GGUF Q8_0 (gs 32) or
+//                    Q6_K (gs 16) file.  Three kernels, chosen by shape
+//                    (ops/qmatmul.py:q80_rows):
+//     q80_matvec_rows      B = 1 (every product of a decode step, the
+//                          head at prefill), q80_matvec_fq's skeleton;
+//     q80_matmul_rows      B > 1 (a prefill, a batched step, a verify
+//                          round), a tiled SIMT f32 product;
+//     q80_matmul_rows_warp the first rows kernel, a warp a row: group sizes that
+//                          are not a power of two from 16 up, and a
+//                          matvec row too long for shared memory.
 //
 // Bound on the H100: bytes.  At decode (B = 1) every weight byte is read
 // once per step and used for one multiply-add, far below the ~600 int8
@@ -100,11 +112,59 @@
 // the cluster's partial tiles to meet and be written; the plan's choices
 // come from chip_smoke.py bench q80 batched sweep.
 //
-// q80_matmul_rows: one warp per output row, 16-byte loads along K so a
-// warp reads 512 contiguous bytes per iteration; the weight row is read
-// once per batch tile of up to 8 activation rows, kept in registers while
-// the tile is consumed.  The activation is shared by every warp and stays
-// in L1/L2.
+// The rows form.  Its weights are int8 with an f32 scale for every gs
+// inputs: 1 + 4 / gs bytes a weight (12.5 % of them scales at gs 32, 25 %
+// at gs 16).  Each weight is converted to f32 exactly without the I2F
+// unit (a quarter of the FMA rate on sm_90): q ^ 0x80 is put into the low
+// byte of 0x4B000000 (the float 2^23 + q + 128) by one byte permute and
+// 2^23 + 128 subtracted, then multiplied by its scale (rounded, never
+// fused), then fused into the dot.
+//
+// q80_matvec_rows (B = 1).  Bound by bytes: a decode step's 113 products
+// of a Qwen3-0.6B GGUF Q8_0 file move 672 MB for one multiply-add a
+// weight.  q80_matvec_fq's skeleton and plan (ops/qmatmul.py:
+// matvec_rows_plan): block b owns a contiguous range of rows and streams
+// tiles of R rows and their scales by bulk copy into a ring of S stages
+// (a scale range off a 16-byte boundary has its ends read by plain
+// loads, CopyIn); x is loaded once a block, before the first weight
+// request, into shared memory as f32 (bf16 rows from the layers, f32 from
+// the head); T lanes a row (8 in the head's 32-row tiles, where the 4 rows
+// of a warp read each piece of x together; else a warp) take 16-byte
+// chunks j, j + T, ... of it, 16 weights a chunk against 16 f32 of x, into
+// two f32 partials a lane (even and odd weights), summed, then over the T
+// lanes by xor shuffles.
+//
+// q80_matmul_rows (B > 1).  Bound by operations from ~32 rows on (a
+// 64-token prefill's 112 products are 56.4 GFLOP of f32 FMA: 0.84 ms at
+// 67 TFLOP/s, against 0.13 ms for their bytes), by bytes below.  A block
+// of 2 MB threads takes MB weight rows (64 or 128) and BN activation rows
+// (8, 16, 32 or 64: up to 64 rows one tile, so each weight byte leaves
+// device memory once) and walks its share of K in chunks of kRowsKC
+// inputs.  Each chunk's int8 weights, their scales (one for each half of
+// a row's chunk, so any power-of-two gs from 16 is whole groups) and the
+// raw activation rows arrive by cp.async into a ring of S stages; the
+// block then dequantizes the weights once into shared memory as f32,
+// transposed (k-major), converts the activation into f32 beside them, and
+// every thread computes a register tile of TM x TN outputs from 16-byte
+// shared-memory reads (k-major: the TM weights and TN activations of one
+// k are contiguous), an FMA each.  Where the tiles are too few for the
+// card (N = 1024 at B = 64: 16 tiles) the chunks split over a thread block
+// cluster of CS blocks, each leaving its partial tile in its own shared
+// memory and summing one CS-th of the rows from all of them in rank
+// order: no atomics, the same bits every run.  The split (MB, BN, CS, S)
+// comes from the shapes alone (ops/qmatmul.py:rows_plan).
+//
+// Order of summation: q80_matvec_rows adds a row's inputs lane-strided
+// (16-value chunks j, j + T, ... per lane, even and odd partials, then the
+// lanes' xor butterfly); q80_matmul_rows in ascending k within a block,
+// then the cluster's partials in rank order.  So a row's output at B = 1
+// and in a batch may differ in the last bits (f32 sums in another order).
+//
+// q80_matmul_rows_warp (the first rows kernel): one warp per output row, 16-byte loads
+// along K so a warp reads 512 contiguous bytes per iteration; the weight
+// row is read once per batch tile of up to 8 activation rows, kept in
+// registers while the tile is consumed.  The activation is shared by every
+// warp and stays in L1/L2.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -748,6 +808,437 @@ cudaError_t launch_w8a8(int BN, const int8_t* xq, const float* sa, const int8_t*
 #undef NANO_W8A8
 }
 
+// ---- the rows form: q80_matvec_rows, q80_matmul_rows ----
+
+// Weight e (0 .. 3) of the word u = (4 int8 weights) ^ 0x80808080, as an
+// exact f32 (2^23 + q + 128, less 2^23 + 128), times its scale s, rounded.
+__device__ __forceinline__ float deq(uint32_t u, int e, float s) {
+  const float f = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u | (unsigned)e));
+  return __fmul_rn(__fsub_rn(f, 8388736.0f), s);
+}
+
+// 16 int8 weights (one 16-byte chunk, one scale) against 16 f32 of x,
+// fused into two partials: even weights into a0, odd into a1.
+__device__ __forceinline__ void dot16(const int4 wv, float s, const float* xs, float& a0,
+                                      float& a1) {
+  const uint32_t u[4] = {(uint32_t)wv.x ^ 0x80808080u, (uint32_t)wv.y ^ 0x80808080u,
+                         (uint32_t)wv.z ^ 0x80808080u, (uint32_t)wv.w ^ 0x80808080u};
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const float4 xv = reinterpret_cast<const float4*>(xs)[p];
+    a0 = fmaf(deq(u[p], 0, s), xv.x, a0);
+    a1 = fmaf(deq(u[p], 1, s), xv.y, a1);
+    a0 = fmaf(deq(u[p], 2, s), xv.z, a0);
+    a1 = fmaf(deq(u[p], 3, s), xv.w, a1);
+  }
+}
+
+// 16 bytes of x as f32 values: 4 of an f32 row, 8 of a bf16 row.
+__device__ __forceinline__ void x_vals(const int4 v, const float*, float* f) {
+  f[0] = __int_as_float(v.x);
+  f[1] = __int_as_float(v.y);
+  f[2] = __int_as_float(v.z);
+  f[3] = __int_as_float(v.w);
+}
+__device__ __forceinline__ void x_vals(const int4 v, const __nv_bfloat16*, float* f) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 p = __bfloat1622float2(h[i]);
+    f[2 * i] = p.x;
+    f[2 * i + 1] = p.y;
+  }
+}
+
+// 16 bytes of x as f32 at dst (16-byte aligned shared memory).
+template <typename XT>
+__device__ __forceinline__ void x_to_f32(const int4 v, float* dst) {
+  constexpr int XV = 16 / (int)sizeof(XT);
+  float f[XV];
+  x_vals(v, static_cast<const XT*>(nullptr), f);
+#pragma unroll
+  for (int i = 0; i < XV; i += 4)
+    *reinterpret_cast<float4*>(dst + i) = make_float4(f[i], f[i + 1], f[i + 2], f[i + 3]);
+}
+
+// Shared memory of a q80_matvec_rows block: S barriers; S weight stages of
+// R rows and S scale stages; the row x as f32.
+__host__ __device__ __forceinline__ size_t mvr_smem(int K, int G, int R, int S) {
+  return 128 + (size_t)S * ((size_t)R * K + mv_buf((size_t)R * G * 4)) + (size_t)K * 4;
+}
+
+// y (1, N) = x (1, K) . dequant(w)^T.  Block b takes rows
+// [N b / nb, N (b + 1) / nb) in tiles of R rows round S stages; T lanes a
+// row.  gs = 1 << gshift.
+template <int T, typename XT, typename OT>
+__global__ void __launch_bounds__(kMvThreads, 2)
+    q80_matvec_rows_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
+                           const float* __restrict__ sw, OT* __restrict__ y, int K, int N,
+                           int gshift, int R, int S) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int G = K >> gshift;
+  const size_t wstage = (size_t)R * K, sstage = mv_buf((size_t)R * G * 4);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);   // a barrier a stage
+  unsigned char* wbuf = smem + 128;
+  unsigned char* sbuf = wbuf + S * wstage;
+  float* xs = reinterpret_cast<float*>(sbuf + S * sstage);
+  const int r_begin = (int)((long long)N * blockIdx.x / gridDim.x);
+  const int r_end = (int)((long long)N * (blockIdx.x + 1) / gridDim.x);
+  const int ntiles = (r_end - r_begin + R - 1) / R;
+  const int tid = threadIdx.x;
+
+  auto scales_in = [&](int t) {
+    const int n0 = r_begin + t * R;
+    return CopyIn(sbuf + (size_t)(t % S) * sstage, sw + (size_t)n0 * G,
+                  (size_t)min(R, r_end - n0) * G * 4);
+  };
+  auto issue = [&](int t) {
+    const int n0 = r_begin + t * R, rows = min(R, r_end - n0), s = t % S;
+    const CopyIn sc = scales_in(t);
+    sc.ends();
+    mbar_arrive_expect_tx(&full[s], (uint32_t)(rows * K) + sc.bulk_bytes());
+    bulk_copy(wbuf + s * wstage, w + (size_t)n0 * K, (uint32_t)(rows * K), &full[s]);
+    sc.bulk(&full[s]);
+  };
+
+  // The row first, by 16-byte loads of every thread issued before the
+  // first weight request (asked for after the weights, it comes after
+  // them), converted to f32 once the requests are out.
+  constexpr int XV = 16 / (int)sizeof(XT);   // values a 16-byte piece
+  const int npieces = K / XV;
+  const bool xvec = ((uintptr_t)x & 15) == 0;
+  const int4* xg4 = reinterpret_cast<const int4*>(x);
+  int4 xv[kMvXVec];
+#pragma unroll
+  for (int u = 0; u < kMvXVec; ++u)
+    if (xvec && tid + u * kMvThreads < npieces) xv[u] = __ldg(xg4 + tid + u * kMvThreads);
+  __syncthreads();
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int t = 0; t < min(S, ntiles); ++t) issue(t);
+  }
+  if (xvec) {
+#pragma unroll
+    for (int u = 0; u < kMvXVec; ++u) {
+      const int i = tid + u * kMvThreads;
+      if (i < npieces) x_to_f32<XT>(xv[u], xs + i * XV);
+    }
+    for (int i = tid + kMvXVec * kMvThreads; i < npieces; i += kMvThreads)
+      x_to_f32<XT>(__ldg(xg4 + i), xs + i * XV);
+  } else {   // a row that starts off a 16-byte boundary
+    for (int i = tid; i < K; i += kMvThreads) xs[i] = load_f(x, i);
+  }
+  __syncthreads();   // the row is in; the barriers are initialized
+
+  // Lane j of row slot `slot` takes chunks j, j + T, ... of its row.  The
+  // shuffles run on every lane of every pass (rows past the end with
+  // zeros), outside any branch.
+  constexpr int RP = kMvThreads / T;   // rows a pass
+  const int slot = tid / T, j = tid % T;
+  const int nch = K >> 4, cshift = gshift - 4;   // chunks; chunk c is in group c >> cshift
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % S, n0 = r_begin + t * R, rows = min(R, r_end - n0);
+    mbar_wait(&full[s], (uint32_t)((t / S) & 1));
+    const int8_t* wt = reinterpret_cast<const int8_t*>(wbuf + s * wstage);
+    const float* st = reinterpret_cast<const float*>(scales_in(t).dst);
+    for (int base = 0; base < rows; base += RP) {
+      const int r = base + slot;
+      float a0 = 0.f, a1 = 0.f;
+      if (r < rows) {
+        const int4* wr = reinterpret_cast<const int4*>(wt + (size_t)r * K);
+        const float* srow = st + r * G;
+        for (int c = j; c < nch; c += T) dot16(wr[c], srow[c >> cshift], xs + c * 16, a0, a1);
+      }
+      float v = a0 + a1;
+#pragma unroll
+      for (int off = T / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+      if (r < rows && j == 0) store_f(y, (size_t)(n0 + r), v);
+    }
+    if (t + S < ntiles) {
+      __syncthreads();   // every warp is done with stage s
+      if (tid == 0) issue(t + S);
+    }
+  }
+}
+
+constexpr int kRowsKC = 32;             // K values a q80_matmul_rows chunk
+constexpr int kRowsPR = kRowsKC / 16;   // 16-byte pieces of a weight row a chunk
+
+// Bytes of one q80_matmul_rows stage: MB weight rows of kRowsKC int8 (16
+// bytes of padding a row, so that a warp's 16-byte reads of 32 rows fall
+// in distinct bank groups), a scale for each 16-byte piece of a row, BN
+// raw activation rows (padded the same way).
+__host__ __device__ __forceinline__ size_t rows_stage(int MB, int BN, int xsize) {
+  return (size_t)MB * (kRowsKC + 16) + (size_t)MB * kRowsPR * 4 +
+         (size_t)BN * (kRowsKC * xsize + 16);
+}
+
+// Shared memory of a block: S stages, then two buffers of a chunk's
+// weights and activations as f32, k-major (one filled while the other is
+// used); the box of the cluster's partial tile (CS > 1, rows of BN + 4
+// floats) lies over them once the products are done.
+__host__ __device__ __forceinline__ size_t rows_smem(int MB, int BN, int CS, int S, int xsize) {
+  const size_t body = (size_t)S * rows_stage(MB, BN, xsize) + 2 * (size_t)kRowsKC * (MB + BN) * 4;
+  const size_t box = CS > 1 ? (size_t)MB * (BN + 4) * 4 : 0;
+  return body > box ? body : box;
+}
+
+// Where a q80_matmul_rows block's time goes, only in a build with
+// -DNANO_ROWS_CLOCKS (`chip_smoke.py bench rows clocks` makes one beside
+// the real library): thread 0 of each block of the last launch stamps
+// %globaltimer (ns) at entry, when its first chunk is ready, when its
+// products are done, when the cluster's partial tiles are met and at exit.
+#ifdef NANO_ROWS_CLOCKS
+__device__ unsigned long long g_rows_clk[16384][5];
+#define ROWS_CLK(k)                                                            \
+  do {                                                                         \
+    const unsigned b_ = blockIdx.y * gridDim.x + blockIdx.x;                   \
+    if (threadIdx.x == 0 && b_ < 16384) {                                      \
+      unsigned long long t_;                                                   \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                  \
+      g_rows_clk[b_][k] = t_;                                                  \
+    }                                                                          \
+  } while (0)
+#else
+#define ROWS_CLK(k) \
+  do {              \
+  } while (0)
+#endif
+
+// y (B, N) = x (B, K) . dequant(w)^T, a block of 2 MB threads taking
+// weight rows n0 .. n0 + MB - 1 (blockIdx.x / CS), activation rows b0 ..
+// b0 + BN - 1 (blockIdx.y) and the chunks [nch rank / CS, nch (rank + 1) /
+// CS) of K (rank = blockIdx.x % CS); rows, activation rows and inputs past
+// the end read as zeros.  One barrier a chunk: while the block multiplies
+// chunk t from one f32 buffer it dequantizes chunk t + 1 into the other,
+// and the barrier that ends the step also frees the stage chunk t + 1 came
+// in, which is refilled with chunk t + S at the next step.  Thread
+// (tm, tn) holds outputs (n0 + TM tm + i, b0 + TN tn + jj); a warp covers
+// 4 tm by 8 tn, so that its 16-byte reads of the weights and of the
+// activation are each one wavefront.
+template <int BN, typename XT, typename OT>
+__global__ void __launch_bounds__(256)
+    q80_matmul_rows_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
+                           const float* __restrict__ sw, OT* __restrict__ y, int B, int K, int N,
+                           int gshift, int CS, int S) {
+  constexpr int TM = BN == 64 ? 8 : 4;          // weight rows a thread
+  constexpr int TN = BN / (2 * TM);             // activation rows a thread
+  constexpr int TNW = BN / TN / 8;              // warps across the activation rows (1 or 2)
+  constexpr int XSZ = (int)sizeof(XT);
+  constexpr int XV = 16 / XSZ;                  // activation values a 16-byte piece
+  constexpr int XP = kRowsKC / XV;              // 16-byte pieces of an activation row a chunk
+  constexpr int XROW = kRowsKC * XSZ + 16;      // bytes of a raw activation row in a stage
+  constexpr int WROW = kRowsKC + 16;            // bytes of a raw weight row in a stage
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nt = blockDim.x, MB = nt / 2;
+  const int G = K >> gshift;
+  const int rank = blockIdx.x % CS;
+  const int n0 = (blockIdx.x / CS) * MB, b0 = blockIdx.y * BN;
+  const int nch_all = (K + kRowsKC - 1) / kRowsKC;
+  const int c_lo = nch_all * rank / CS, nch = nch_all * (rank + 1) / CS - c_lo;
+  const size_t stage = rows_stage(MB, BN, XSZ);
+  float* bufs = reinterpret_cast<float*>(smem + (size_t)S * stage);   // 2 x [Ws | Xs]
+  const int buf_floats = kRowsKC * (MB + BN);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tn = (lane & 7) + 8 * (warp % TNW), tm = (lane >> 3) + 4 * (warp / TNW);
+  ROWS_CLK(0);
+
+  // chunk c_lo + t (its weights, their scales, the activation) into stage t % S
+  auto load = [&](int t) {
+    unsigned char* wq = smem + (size_t)(t % S) * stage;
+    float* ss = reinterpret_cast<float*>(wq + MB * WROW);
+    unsigned char* xr = reinterpret_cast<unsigned char*>(ss + kRowsPR * MB);
+    const int k0 = (c_lo + t) * kRowsKC;
+    for (int i = tid; i < kRowsPR * MB; i += nt) {
+      const int r = i / kRowsPR, h = i % kRowsPR, n = n0 + r, k = k0 + 16 * h;
+      const bool ok = n < N && k < K;
+      cp_async16(wq + r * WROW + 16 * h, ok ? w + (size_t)n * K + k : w, ok ? 16 : 0);
+      cp_async4(ss + i, ok ? sw + (size_t)n * G + (k >> gshift) : sw, ok ? 4 : 0);
+    }
+    for (int i = tid; i < BN * XP; i += nt) {
+      const int b = i / XP, p = i % XP, k = k0 + p * XV;
+      const bool ok = b0 + b < B && k < K;
+      cp_async16(xr + b * XROW + 16 * p, ok ? x + (size_t)(b0 + b) * K + k : x, ok ? 16 : 0);
+    }
+  };
+  // chunk t from its stage into f32 buffer t % 2: the weights dequantized
+  // (thread (r, h): piece h of row r), the activation converted, k-major
+  auto prepare = [&](int t) {
+    const unsigned char* wq = smem + (size_t)(t % S) * stage;
+    const float* ss = reinterpret_cast<const float*>(wq + MB * WROW);
+    const unsigned char* xr = reinterpret_cast<const unsigned char*>(ss + kRowsPR * MB);
+    float* Ws = bufs + (t & 1) * buf_floats;
+    float* Xs = Ws + kRowsKC * MB;
+    for (int i = tid; i < kRowsPR * MB; i += nt) {
+      const int r = i % MB, h = i / MB;
+      const int4 v = *reinterpret_cast<const int4*>(wq + r * WROW + 16 * h);
+      const float s = ss[kRowsPR * r + h];
+      const uint32_t u[4] = {(uint32_t)v.x ^ 0x80808080u, (uint32_t)v.y ^ 0x80808080u,
+                             (uint32_t)v.z ^ 0x80808080u, (uint32_t)v.w ^ 0x80808080u};
+      float* dst = Ws + 16 * h * MB + r;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) dst[e * MB] = deq(u[e >> 2], e & 3, s);
+    }
+    for (int i = tid; i < BN * XP; i += nt) {
+      const int b = i % BN, p = i / BN;
+      float f[XV];
+      x_vals(*reinterpret_cast<const int4*>(xr + b * XROW + 16 * p), x, f);
+#pragma unroll
+      for (int e = 0; e < XV; ++e) Xs[(p * XV + e) * BN + b] = f[e];
+    }
+  };
+
+  for (int t = 0; t < S; ++t) {
+    if (t < nch) load(t);
+    cp_async_commit();
+  }
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int jj = 0; jj < TN; ++jj) acc[i][jj] = 0.f;
+
+  // Chunk c is commit group c: the prologue commits groups 0 .. S - 1,
+  // step t >= 1 group S + t - 1 (chunk t - 1 + S, or none).  Step t needs
+  // chunk t + 1, so at most S - 2 groups may be pending at step 0 and S - 3
+  // after (S >= 3 where a rank has more than S chunks: the chunk prepared
+  // at step t left device memory a step or more before).
+  cp_async_wait(S > 1 ? S - 1 : 0);
+  __syncthreads();
+  if (nch > 0) prepare(0);
+  for (int t = 0; t < nch; ++t) {
+    const int pending = t == 0 ? S - 2 : S - 3;
+    cp_async_wait(pending > 0 ? pending : 0);
+    __syncthreads();   // chunk t is ready in f32, t + 1 in its stage; chunk t - 1 is done
+    if (t == 0) ROWS_CLK(1);
+    if (t > 0) {   // into the stage chunk t came in
+      if (t - 1 + S < nch) load(t - 1 + S);
+      cp_async_commit();
+    }
+    if (t + 1 < nch) prepare(t + 1);
+    const float* Ws = bufs + (t & 1) * buf_floats;
+    const float* Xs = Ws + kRowsKC * MB;
+#pragma unroll
+    for (int k = 0; k < kRowsKC; ++k) {
+      float a[TM], bv[TN];
+      const float* wk = Ws + k * MB + tm * TM;
+#pragma unroll
+      for (int i = 0; i < TM; i += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(wk + i);
+        a[i] = v.x;
+        a[i + 1] = v.y;
+        a[i + 2] = v.z;
+        a[i + 3] = v.w;
+      }
+      const float* xk = Xs + k * BN + tn * TN;
+      if constexpr (TN == 4) {
+        const float4 v = *reinterpret_cast<const float4*>(xk);
+        bv[0] = v.x;
+        bv[1] = v.y;
+        bv[2] = v.z;
+        bv[3] = v.w;
+      } else if constexpr (TN == 2) {
+        const float2 v = *reinterpret_cast<const float2*>(xk);
+        bv[0] = v.x;
+        bv[1] = v.y;
+      } else {
+        bv[0] = xk[0];
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int jj = 0; jj < TN; ++jj) acc[i][jj] = fmaf(a[i], bv[jj], acc[i][jj]);
+    }
+  }
+  cp_async_wait(0);
+  ROWS_CLK(2);
+
+  auto put = [&](int r, int b, float v) {   // row r, activation row b of the tile
+    if (n0 + r < N && b0 + b < B) store_f(y, (size_t)(b0 + b) * N + n0 + r, v);
+  };
+  if (CS == 1) {
+    ROWS_CLK(3);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int jj = 0; jj < TN; ++jj) put(tm * TM + i, tn * TN + jj, acc[i][jj]);
+    ROWS_CLK(4);
+    return;
+  }
+  // Each block leaves its partial tile in its own box, then sums one CS-th
+  // of the tile's rows over the cluster's boxes in rank order, four
+  // activation rows at a time, every rank's piece asked for before the sum.
+  constexpr int LD = BN + 4;
+  float* box = reinterpret_cast<float*>(smem);
+  __syncthreads();   // every thread is done with the buffers
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int jj = 0; jj < TN; ++jj) box[(tm * TM + i) * LD + tn * TN + jj] = acc[i][jj];
+  cluster.sync();
+  ROWS_CLK(3);
+  const int own = MB / CS;
+  for (int i = tid; i < own * (BN / 4); i += nt) {
+    const int r = rank * own + i % own, b = 4 * (i / own);
+    float4 part[kMaxCluster];
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q)
+      if (q < CS)
+        part[q] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(box, q) + r * LD + b);
+    float4 v = part[0];
+#pragma unroll
+    for (int q = 1; q < kMaxCluster; ++q)
+      if (q < CS) {
+        v.x += part[q].x;
+        v.y += part[q].y;
+        v.z += part[q].z;
+        v.w += part[q].w;
+      }
+    put(r, b, v.x);
+    put(r, b + 1, v.y);
+    put(r, b + 2, v.z);
+    put(r, b + 3, v.w);
+  }
+  cluster.sync();   // no block leaves while another reads its box
+  ROWS_CLK(4);
+}
+
+template <typename XT, typename OT>
+cudaError_t launch_rows_tiled(int BN, const XT* x, const int8_t* w, const float* sw, OT* y,
+                              int B, int K, int N, int gshift, int MB, int CS, int S,
+                              cudaStream_t st) {
+  const size_t smem = rows_smem(MB, BN, CS, S, (int)sizeof(XT));
+#define NANO_ROWS(BN_)                                                                       \
+  launch_tiles(q80_matmul_rows_kernel<BN_, XT, OT>, B, N, MB, BN_, CS, smem, st, x, w, sw, y, \
+               B, K, N, gshift, CS, S)
+  switch (BN) {
+    case 8: return NANO_ROWS(8);
+    case 16: return NANO_ROWS(16);
+    case 32: return NANO_ROWS(32);
+    default: return NANO_ROWS(64);
+  }
+#undef NANO_ROWS
+}
+
+// Every instance of q80_matmul_rows (BN x activation type x output type)
+// and q80_matvec_rows (T x the two types).
+template <typename XT, typename OT>
+cudaError_t allow_rows_smem() {
+  return allow_smem(q80_matmul_rows_kernel<8, XT, OT>, q80_matmul_rows_kernel<16, XT, OT>,
+                    q80_matmul_rows_kernel<32, XT, OT>, q80_matmul_rows_kernel<64, XT, OT>,
+                    q80_matvec_rows_kernel<8, XT, OT>, q80_matvec_rows_kernel<32, XT, OT>);
+}
+
+// log2(gs) for a power of two from 16, else -1
+inline int group_shift(int gs) {
+  if (gs < 16 || (gs & (gs - 1))) return -1;
+  int s = 0;
+  while ((1 << s) < gs) ++s;
+  return s;
+}
+
 constexpr int kWarps = 8;  // output rows per block
 
 template <typename XT, typename OT>
@@ -784,14 +1275,20 @@ extern "C" int q80_act_quant(const void* x, int x_bf16, void* xq, void* sa, int 
   return (int)cudaGetLastError();
 }
 
-// Shared memory over 48 KB for every q80_matmul_w8a8 instance on the current
+// Shared memory over 48 KB for every q80_matmul_w8a8, q80_matmul_rows and
+// q80_matvec_rows instance on the current
 // device: once, before any launch (a CUDA-graph capture must not be the
 // first to meet an instance).
 extern "C" int q80_matmul_init() {
-  return (int)allow_smem(w8a8_kernel<8, float>, w8a8_kernel<16, float>, w8a8_kernel<32, float>,
-                         w8a8_kernel<64, float>, w8a8_kernel<8, __nv_bfloat16>,
-                         w8a8_kernel<16, __nv_bfloat16>, w8a8_kernel<32, __nv_bfloat16>,
-                         w8a8_kernel<64, __nv_bfloat16>);
+  cudaError_t e = allow_smem(w8a8_kernel<8, float>, w8a8_kernel<16, float>, w8a8_kernel<32, float>,
+                             w8a8_kernel<64, float>, w8a8_kernel<8, __nv_bfloat16>,
+                             w8a8_kernel<16, __nv_bfloat16>, w8a8_kernel<32, __nv_bfloat16>,
+                             w8a8_kernel<64, __nv_bfloat16>);
+  if (e == cudaSuccess) e = allow_rows_smem<float, float>();
+  if (e == cudaSuccess) e = allow_rows_smem<float, __nv_bfloat16>();
+  if (e == cudaSuccess) e = allow_rows_smem<__nv_bfloat16, float>();
+  if (e == cudaSuccess) e = allow_rows_smem<__nv_bfloat16, __nv_bfloat16>();
+  return (int)e;
 }
 
 // xq (B, K) int8 and sa (B, K / gs) f32 from q80_act_quant, w (N, K) int8
@@ -817,8 +1314,11 @@ extern "C" int q80_matmul_w8a8(const void* xq, const void* sa, const void* w, co
                           st);
 }
 
-extern "C" int q80_matmul_rows(const void* x, int x_bf16, const void* w, const void* sw,
-                               void* y, int y_bf16, int B, int K, int N, int gs, void* stream) {
+// The first rows kernel, a warp a row: x (B, K) f32 or bf16 -> y (B, N), any
+// gs dividing K.
+extern "C" int q80_matmul_rows_warp(const void* x, int x_bf16, const void* w, const void* sw,
+                                    void* y, int y_bf16, int B, int K, int N, int gs,
+                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* w_ = static_cast<const int8_t*>(w);
   const float* sw_ = static_cast<const float*>(sw);
@@ -831,6 +1331,67 @@ extern "C" int q80_matmul_rows(const void* x, int x_bf16, const void* w, const v
     if (y_bf16) launch_rows(x_, w_, sw_, static_cast<__nv_bfloat16*>(y), B, K, N, gs, st);
     else launch_rows(x_, w_, sw_, static_cast<float*>(y), B, K, N, gs, st);
   }
+  return (int)cudaGetLastError();
+}
+
+// The rows form at any B: x (B, K) f32 or bf16 (16-byte aligned) -> y (B,
+// N), gs a power of two from 16, K a multiple of 16, with the weight rows a
+// block (MB, 64 or 128), the activation rows a tile (BN), the blocks a
+// cluster splitting K's chunks (CS) and the stages (S) of
+// ops/qmatmul.py:rows_plan.
+extern "C" int q80_matmul_rows(const void* x, int x_bf16, const void* w, const void* sw,
+                               void* y, int y_bf16, int B, int K, int N, int gs, int MB, int BN,
+                               int CS, int S, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int gshift = group_shift(gs);
+  const int chunks = (K + kRowsKC - 1) / kRowsKC;
+  if (B < 1 || N < 1 || K < gs || K % gs || K % 16 || gshift < 0 ||
+      (S < 3 && S < (chunks + CS - 1) / CS) ||
+      !split_ok(MB, BN, CS, chunks, S, rows_smem(MB, BN, CS, S, x_bf16 ? 2 : 4)))
+    return (int)cudaErrorInvalidValue;
+  const int8_t* w_ = static_cast<const int8_t*>(w);
+  const float* sw_ = static_cast<const float*>(sw);
+#define NANO_RT(XT, OT)                                                                        \
+  launch_rows_tiled(BN, static_cast<const XT*>(x), w_, sw_, static_cast<OT*>(y), B, K, N, gshift, \
+                    MB, CS, S, st)
+  cudaError_t e;
+  if (x_bf16 && y_bf16) e = NANO_RT(__nv_bfloat16, __nv_bfloat16);
+  else if (x_bf16) e = NANO_RT(__nv_bfloat16, float);
+  else if (y_bf16) e = NANO_RT(float, __nv_bfloat16);
+  else e = NANO_RT(float, float);
+#undef NANO_RT
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// The rows form at B = 1: x (1, K) f32 or bf16 -> y (1, N), gs a power of
+// two from 16, K a multiple of 16, with the grid (`blocks`), the rows a
+// stage (R), the stages (S) and the lanes a row (T, 8 or 32) of
+// ops/qmatmul.py:matvec_rows_plan.
+extern "C" int q80_matvec_rows(const void* x, int x_bf16, const void* w, const void* sw, void* y,
+                               int y_bf16, int K, int N, int gs, int blocks, int R, int S, int T,
+                               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int gshift = group_shift(gs);
+  const size_t smem = gshift < 0 ? 0 : mvr_smem(K, K >> gshift, R, S);
+  if ((T != 8 && T != 32) || blocks < 1 || R < 1 || S < 1 || S > 4 || gshift < 0 || K < gs ||
+      K % gs || K % 16 || smem > (size_t)kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  const int8_t* w_ = static_cast<const int8_t*>(w);
+  const float* sw_ = static_cast<const float*>(sw);
+#define NANO_MVR(TT, XT, OT)                                                                 \
+  q80_matvec_rows_kernel<TT, XT, OT><<<blocks, kMvThreads, smem, st>>>(                      \
+      static_cast<const XT*>(x), w_, sw_, static_cast<OT*>(y), K, N, gshift, R, S)
+#define NANO_MVR_T(XT, OT)            \
+  do {                                \
+    if (T == 8) NANO_MVR(8, XT, OT);  \
+    else NANO_MVR(32, XT, OT);        \
+  } while (0)
+  if (x_bf16 && y_bf16) NANO_MVR_T(__nv_bfloat16, __nv_bfloat16);
+  else if (x_bf16) NANO_MVR_T(__nv_bfloat16, float);
+  else if (y_bf16) NANO_MVR_T(float, __nv_bfloat16);
+  else NANO_MVR_T(float, float);
+#undef NANO_MVR_T
+#undef NANO_MVR
   return (int)cudaGetLastError();
 }
 
@@ -882,6 +1443,13 @@ extern "C" int q80_matvec_fq(const void* x, int x_bf16, const void* w, const voi
 // The last q80_matmul_w8a8 launch's stamps: out[5 b + k] for block b < n_blocks.
 extern "C" int q80_matmul_w8a8_clocks(unsigned long long* out, int n_blocks) {
   return (int)cudaMemcpyFromSymbol(out, g_w8_clk, sizeof(unsigned long long) * 5 * n_blocks);
+}
+#endif
+
+#ifdef NANO_ROWS_CLOCKS
+// The last q80_matmul_rows launch's stamps: out[5 b + k] for block b < n_blocks.
+extern "C" int q80_matmul_rows_clocks(unsigned long long* out, int n_blocks) {
+  return (int)cudaMemcpyFromSymbol(out, g_rows_clk, sizeof(unsigned long long) * 5 * n_blocks);
 }
 #endif
 

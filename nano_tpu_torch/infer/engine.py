@@ -254,8 +254,10 @@ class LLMContext:
         ``io/gguf.py``) onto `device` (cuda unless asked otherwise).
         quantized=None keeps a quantized file (Q8_0 / Q4_K / Q6_K / Q4_0
         blocks) in the port's quantized layouts, which the ggml per-group
-        affines map onto losslessly; quantized=False dequantizes
-        everything to `dtype`."""
+        affines map onto losslessly, with wq / wk / wv and w1 / w3 fused
+        as a .bin file's are where each set is Q80 of one group size
+        (``_fuse_q80_products``); quantized=False dequantizes everything
+        to `dtype`."""
         from nano_tpu_torch.io import gguf
         from nano_tpu_torch.tokenizer.bpe import QWEN_STOP_TOKENS
         device = resolve_device(device)
@@ -269,6 +271,7 @@ class LLMContext:
             cfg, model_type, tok = gguf.gguf_header_only(g, max_seq_len)
             params = gguf.quantized_device_params(
                 g, cfg, g.meta["general.architecture"], device=device)
+            _fuse_q80_products(params["blocks"])
         else:
             cfg, raw, model_type, tok = gguf.load_gguf_qwen(path, max_seq_len)
             params = binfmt.dense_device_params(raw, dtype, device)
@@ -321,6 +324,28 @@ class LLMContext:
 
     def stream_decoder(self) -> "StreamDecoder":
         return StreamDecoder(self.tokenizer)
+
+
+def _fuse_q80_products(blocks: Dict[str, Any]) -> None:
+    """In place: wq / wk / wv -> ``wqkv`` and w1 / w3 -> ``w13``,
+    concatenated along the output dimension as the .bin loader lays them
+    out (``binfmt.quantized_device_params``), where every tensor of the set
+    is a stacked Q80 tensor of one group size: one product where the file
+    had three or two, the same rows and the same math.  Any other set
+    (Q4K, mixed kinds or group sizes) stays as the loader left it."""
+    from nano_tpu_torch.ops.qmatmul import Q80Tensor
+    for fused, names in (("wqkv", ("wq", "wk", "wv")), ("w13", ("w1", "w3"))):
+        ws = [blocks.get(n) for n in names]
+        if not all(isinstance(w, Q80Tensor) for w in ws):
+            continue
+        if len({(w.group_size, w.w8a8) for w in ws}) != 1:
+            continue
+        blocks[fused] = Q80Tensor(
+            q=torch.cat([w.q for w in ws], dim=-2),
+            scales=torch.cat([w.scales for w in ws], dim=-2),
+            group_size=ws[0].group_size, w8a8=ws[0].w8a8)
+        for n in names:
+            del blocks[n]
 
 
 class StreamDecoder:

@@ -418,7 +418,7 @@ def convert_gguf(path: str, out_path: str, quant: str = "q80",
 #   Q6_K:  x = d*sc16*(q - 32) per 16-group, q in 0..63
 #          -> Q80Tensor, group size 16 (q - 32 fits int8)
 #   Q4_0:  x = d*(q - 8) = q*d - 8d per 32-block -> Q4KTensor
-# Below group size 256 a Q80 weight takes the rows form (q80_matmul_rows).
+# Below group size 256 a Q80 weight takes the rows form (qmatmul.q80_rows).
 # A layer stack must share one leaf kind: a name whose layers mix types is
 # unified by requantizing every layer to Q4K from its dequantized values.
 

@@ -43,7 +43,11 @@ SIGNATURES = {
     "q80_matmul_init": ([], "q80_matmul"),
     "q80_matmul_w8a8": ([P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
                         "q80_matmul"),
-    "q80_matmul_rows": ([P, I, P, P, P, I, I, I, I, I, P], "q80_matmul"),
+    "q80_matmul_rows": ([P, I, P, P, P, I, I, I, I, I, I, I, I, I, P],
+                        "q80_matmul"),
+    "q80_matmul_rows_warp": ([P, I, P, P, P, I, I, I, I, I, P], "q80_matmul"),
+    "q80_matvec_rows": ([P, I, P, P, P, I, I, I, I, I, I, I, I, P],
+                        "q80_matmul"),
     "q80_matvec_fq": ([P, I, P, P, P, I, P, P, I, I, I, I, I, I, I, I, P],
                       "q80_matmul"),
     "rms_norm_q80": ([P, P, P, P, P, P, P, I, I, I, F, I, I, I, I, P],

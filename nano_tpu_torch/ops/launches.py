@@ -19,6 +19,8 @@ COUNTERS: Tuple[Tuple[object, str, str], ...] = (
     (qmatmul, "act_quant_q80", "launches"),
     (qmatmul, "q80_w8a8", "launches"),
     (qmatmul, "q80_matmul_rows", "launches"),
+    (qmatmul, "q80_matvec_rows", "launches"),
+    (qmatmul, "q80_matmul_rows_warp", "launches"),
     (qmatmul, "q80_matvec_fq", "launches"),
     (norm_quant, "rms_norm_q80", "launches"),
     (norm_quant, "swiglu_q80", "launches"),

@@ -20,8 +20,12 @@ Two numerics forms, chosen per tensor at load (``Q80Tensor.w8a8``):
   activation that arrives already quantized (``Q80Act``: the cached
   forward's norms and SwiGLU write it, ``ops/norm_quant.py``) goes
   straight to ``q80_w8a8``.
-* rows (``q80_matmul_rows``), below group size 256: f32 dequant and an
-  f32 dot — the math of the TPU kernel ``_q80_kernel``.
+* rows (``q80_rows``), below group size 256: f32 dequant and an f32 dot —
+  the math of the TPU kernel ``_q80_kernel``.  One activation row takes
+  ``q80_matvec_rows``, more rows the tiled ``q80_matmul_rows``, both for a
+  group size that is a power of two from 16 (GGUF Q8_0: 32, Q6_K: 16);
+  other group sizes, and a row too long for the matvec's shared memory,
+  the warp-a-row ``q80_matmul_rows_warp``.  The choice is made by shape.
 
 Each wrapper runs its hand-written CUDA kernel (``csrc/q80_matmul.cu``)
 for CUDA tensors and its plain PyTorch version (``*_plain``) only for
@@ -388,29 +392,203 @@ def q80_matmul_int8(x, w: Q80Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     return q80_w8a8(xq, sa, w, dtype)
 
 
-def q80_matmul_rows(x: torch.Tensor, w: Q80Tensor,
-                    dtype=torch.bfloat16) -> torch.Tensor:
-    """rows form: x (B, K) -> (B, out) in `dtype`; kernel
-    ``q80_matmul_rows`` on the card."""
-    if x.device.type == "cpu":
-        return q80_matmul_rows_plain(x, w, dtype)
+# The rows form's kernels (csrc/q80_matmul.cu).  q80_matvec_rows and
+# q80_matmul_rows take a group size that is a power of two from 16;
+# q80_matmul_rows walks K in chunks of ROWS_KC inputs.
+ROWS_KC = 32
+# dynamic shared memory a block may have (the H100's 227 KB)
+MAX_SMEM = 232448
+
+
+def rows_group_ok(group_size: int) -> bool:
+    """A group size the two new rows-form kernels take."""
+    return group_size >= 16 and group_size & (group_size - 1) == 0
+
+
+def matvec_rows_smem(K: int, G: int, R: int, S: int) -> int:
+    """Shared memory of a q80_matvec_rows block (csrc/q80_matmul.cu:
+    mvr_smem): S barriers, S stages of R weight rows and their scales, the
+    row x as f32."""
+    buf = lambda n: (n + 31) & ~15
+    return 128 + S * (R * K + buf(R * G * 4)) + 4 * K
+
+
+def matvec_rows_plan(N: int, K: int, group_size: int,
+                     n_sm: int = _build.H100_SMS) -> Tuple[int, int, int, int]:
+    """-> (blocks, R, S, T) of ``q80_matvec_rows``, from shapes alone (a
+    CUDA graph captures the launch): ``matvec_plan``'s rule with the row x
+    held as f32 and no quantized copy: up to two blocks an SM and at least
+    4 rows a block; where a block walks many tiles (the head), 8 lanes a
+    row and tiles of 32 rows, else a warp a row and tiles of 8 rows; at
+    most MATVEC_STAGE_BYTES of weights a stage; as many stages as the
+    block has tiles, up to MATVEC_MAX_STAGES and within MATVEC_SMEM."""
+    G = K // group_size
+    blocks = max(1, min(2 * n_sm, -(-N // 4)))
+    per_block = -(-N // blocks)
+    T = 8 if per_block >= 64 else 32
+    R = max(1, min(256 // T, per_block, MATVEC_STAGE_BYTES // K))
+    S = min(MATVEC_MAX_STAGES, -(-per_block // R))
+    while S > 1 and matvec_rows_smem(K, G, R, S) > MATVEC_SMEM:
+        S -= 1
+    return blocks, R, S, T
+
+
+def matvec_rows_fits(N: int, K: int, group_size: int) -> bool:
+    """Whether ``q80_matvec_rows`` takes a row of K inputs into N at this
+    group size (its plan's shared memory within a block's)."""
+    if not rows_group_ok(group_size) or K % group_size:
+        return False
+    _, R, S, _ = matvec_rows_plan(N, K, group_size)
+    return matvec_rows_smem(K, K // group_size, R, S) <= MAX_SMEM
+
+
+def rows_smem(MB: int, BN: int, CS: int, S: int, x_bytes: int = 4) -> int:
+    """Shared memory of a q80_matmul_rows block (csrc/q80_matmul.cu:
+    rows_smem) for activations of x_bytes a value: S stages (MB int8
+    weight rows of ROWS_KC and 16 bytes of padding, a scale for each 16
+    inputs of a row, BN raw activation rows of ROWS_KC padded by 16 bytes),
+    two buffers of a chunk's weights and activations as f32; the cluster's
+    partial tile (CS > 1, rows of BN + 4 floats) lies over them."""
+    stage = (MB * (ROWS_KC + 16) + MB * (ROWS_KC // 16) * 4
+             + BN * (ROWS_KC * x_bytes + 16))
+    body = S * stage + 2 * ROWS_KC * (MB + BN) * 4
+    return max(body, MB * (BN + 4) * 4 if CS > 1 else 0)
+
+
+def rows_plan(B: int, N: int, K: int, n_sm: int = _build.H100_SMS
+              ) -> Tuple[int, int, int, int]:
+    """-> (MB, BN, CS, S) of ``q80_matmul_rows`` from shapes alone (a CUDA
+    graph captures the launch; the same split for f32 and bf16 rows); the
+    choices are the fastest splits of ``chip_smoke.py bench rows sweep`` at
+    a Qwen3-0.6B GGUF model's products on an H100:
+
+    * BN activation rows a tile (8, 16, 32 or 64), the least that holds B
+      up to 64, so that each weight byte leaves device memory once; but at
+      most 32 where the weight fits int8_mma.L2_WEIGHT (a layer product):
+      its two tiles at B = 64 read it together, the second from L2;
+    * MB = 128 weight rows a block where 128-row tiles still give two
+      blocks for every SM (the head), else 64;
+    * K's chunks of ROWS_KC split over a cluster of CS blocks, doubled from
+      1 up to int8_mma.MAX_CLUSTER and the chunk count while the grid has
+      fewer than 1.5 blocks an SM, or 4 where a tile has at most 16 rows
+      (bound by bytes: more blocks in flight);
+    * a ring of 3 stages (the least with a chunk in flight while the block
+      dequantizes the next one and multiplies the one before), or as many
+      as a block has chunks."""
+    BN = next(bn for bn in (8, 16, 32, 64) if bn >= min(B, 64))
+    if N * K <= int8_mma.L2_WEIGHT:
+        BN = min(BN, 32)
+    col_tiles = -(-B // BN)
+    MB = 128 if -(-N // 128) * col_tiles >= 2 * n_sm else 64
+    tiles = -(-N // MB) * col_tiles
+    chunks = -(-K // ROWS_KC)
+    want = 4 * n_sm if BN <= 16 else 1.5 * n_sm
+    CS = 1
+    while tiles * CS < want and 2 * CS <= min(int8_mma.MAX_CLUSTER, chunks):
+        CS *= 2
+    return MB, BN, CS, min(3, -(-chunks // CS))
+
+
+def _rows_args(x: torch.Tensor, w: Q80Tensor, dtype, name: str):
+    """The checks the rows-form kernels share -> x contiguous and 16-byte
+    aligned."""
     _check_weight(x, w)
     if x.dtype not in _OUT_TYPES or dtype not in _OUT_TYPES:
-        raise ValueError(f"q80_matmul_rows takes f32/bf16, got {x.dtype} -> "
-                         f"{dtype}")
+        raise ValueError(f"{name} takes f32/bf16, got {x.dtype} -> {dtype}")
     x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
+def q80_matvec_rows(x: torch.Tensor, w: Q80Tensor,
+                    dtype=torch.bfloat16) -> torch.Tensor:
+    """rows form at one row: x (1, K) f32/bf16 -> (1, out) in `dtype`;
+    kernel ``q80_matvec_rows`` (split by ``matvec_rows_plan``) on the card,
+    for a group size that is a power of two from 16."""
+    if x.device.type == "cpu":
+        return q80_matmul_rows_plain(x, w, dtype)
+    x = _rows_args(x, w, dtype, "q80_matvec_rows")
+    K, N, gs = w.in_dim, w.out_dim, w.group_size
+    if x.shape[0] != 1 or not matvec_rows_fits(N, K, gs):
+        raise ValueError(f"q80_matvec_rows takes one row, a group size that "
+                         f"is a power of two from 16 and a row that fits "
+                         f"shared memory, got {tuple(x.shape)}, gs={gs}")
+    int8_mma.init(x.device, "q80_matmul_init")
+    y = torch.empty((1, N), dtype=dtype, device=x.device)
+    plan = matvec_rows_plan(N, K, gs, _build.sm_count(x.device))
+    fn = _build.lib("q80_matmul").q80_matvec_rows
+    rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), w.q.data_ptr(),
+            w.scales.data_ptr(), y.data_ptr(), int(dtype == torch.bfloat16),
+            K, N, gs, *plan, _build.stream(x))
+    q80_matvec_rows.launches += 1
+    _build.check(rc, "q80_matvec_rows")
+    return y
+
+
+q80_matvec_rows.launches = 0
+
+
+def q80_matmul_rows(x: torch.Tensor, w: Q80Tensor,
+                    dtype=torch.bfloat16) -> torch.Tensor:
+    """rows form: x (B, K) f32/bf16 -> (B, out) in `dtype`; the tiled
+    kernel ``q80_matmul_rows`` (split by ``rows_plan``) on the card, for a
+    group size that is a power of two from 16."""
+    if x.device.type == "cpu":
+        return q80_matmul_rows_plain(x, w, dtype)
+    x = _rows_args(x, w, dtype, "q80_matmul_rows")
     B, K = x.shape
+    if B < 1 or not rows_group_ok(w.group_size):
+        raise ValueError(f"q80_matmul_rows takes a group size that is a "
+                         f"power of two from 16 and B >= 1, got "
+                         f"gs={w.group_size}, B={B}")
+    int8_mma.init(x.device, "q80_matmul_init")
     y = torch.empty((B, w.out_dim), dtype=dtype, device=x.device)
+    plan = rows_plan(B, w.out_dim, K, _build.sm_count(x.device))
     fn = _build.lib("q80_matmul").q80_matmul_rows
     rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), w.q.data_ptr(),
             w.scales.data_ptr(), y.data_ptr(), int(dtype == torch.bfloat16),
-            B, K, w.out_dim, w.group_size, _build.stream(x))
+            B, K, w.out_dim, w.group_size, *plan, _build.stream(x))
     q80_matmul_rows.launches += 1
     _build.check(rc, "q80_matmul_rows")
     return y
 
 
 q80_matmul_rows.launches = 0
+
+
+def q80_matmul_rows_warp(x: torch.Tensor, w: Q80Tensor,
+                         dtype=torch.bfloat16) -> torch.Tensor:
+    """rows form, the first rows kernel (a warp a row, any group size): x (B, K)
+    -> (B, out) in `dtype`; kernel ``q80_matmul_rows_warp`` on the card."""
+    if x.device.type == "cpu":
+        return q80_matmul_rows_plain(x, w, dtype)
+    x = _rows_args(x, w, dtype, "q80_matmul_rows_warp")
+    B, K = x.shape
+    y = torch.empty((B, w.out_dim), dtype=dtype, device=x.device)
+    fn = _build.lib("q80_matmul").q80_matmul_rows_warp
+    rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), w.q.data_ptr(),
+            w.scales.data_ptr(), y.data_ptr(), int(dtype == torch.bfloat16),
+            B, K, w.out_dim, w.group_size, _build.stream(x))
+    q80_matmul_rows_warp.launches += 1
+    _build.check(rc, "q80_matmul_rows_warp")
+    return y
+
+
+q80_matmul_rows_warp.launches = 0
+
+
+def q80_rows(x: torch.Tensor, w: Q80Tensor,
+             dtype=torch.bfloat16) -> torch.Tensor:
+    """The rows form, its kernel chosen by shape: one row
+    ``q80_matvec_rows``, more ``q80_matmul_rows`` (a group size that is a
+    power of two from 16), else ``q80_matmul_rows_warp``."""
+    if x.device.type == "cpu":
+        return q80_matmul_rows_plain(x, w, dtype)
+    if rows_group_ok(w.group_size):
+        if x.shape[0] == 1 and matvec_rows_fits(w.out_dim, w.in_dim,
+                                                w.group_size):
+            return q80_matvec_rows(x, w, dtype)
+        return q80_matmul_rows(x, w, dtype)
+    return q80_matmul_rows_warp(x, w, dtype)
 
 
 def q80_matmul(x, w: Q80Tensor, dtype=torch.bfloat16) -> torch.Tensor:
@@ -425,5 +603,5 @@ def q80_matmul(x, w: Q80Tensor, dtype=torch.bfloat16) -> torch.Tensor:
             raise ValueError("a quantized activation needs a W8A8 weight")
         return q80_matmul_int8(x, w, dtype).reshape(*lead, w.out_dim)
     x2 = x.reshape(-1, w.in_dim)
-    fn = q80_matmul_int8 if w.w8a8 else q80_matmul_rows
+    fn = q80_matmul_int8 if w.w8a8 else q80_rows
     return fn(x2, w, dtype).reshape(*lead, w.out_dim)

@@ -333,9 +333,74 @@ def test_from_gguf_streams_equal_jax(tmp_path, arch, quant):
         assert tctx.arch == jctx.arch == arch
         assert tctx.stop_tokens == jctx.stop_tokens
         assert tctx.encode("abc hello ab") == ids
-        assert isinstance(tctx.params["blocks"]["w1"], Q80Tensor) == (
-            quant == "q8_0" and quantized is None)
+        # a Q8_0 file keeps its Q80 weights, fused as a .bin file's
+        b = tctx.params["blocks"]
+        fused = quant == "q8_0" and quantized is None
+        assert ("wqkv" in b and "w13" in b) == fused
+        assert isinstance(b["w13"] if fused else b["w1"], Q80Tensor) == fused
         assert teng.generate_on_device(tctx, ids, 16).tolist() == want
+
+
+@pytest.mark.parametrize("arch", ["qwen3", "qwen2"])
+def test_from_gguf_fuses_q80_products(tmp_path, arch):
+    """from_gguf serves a Q8_0 file with wq / wk / wv as one wqkv and w1 /
+    w3 as one w13 (the loader's own output stays unfused, as JAX's: see
+    test_quantized_load_q8_0_equals_jax), rows concatenated along the
+    output dimension; the fused model's logits equal the unfused model's
+    within 1e-6 of max|logit| (the same rows and math; the CPU's matmul may
+    sum a wider product in another order)."""
+    path, cfg, _ = _write(tmp_path, arch, "q8_0", seed=5)
+    c = ModelConfig(**cfg)
+    ctx = teng.LLMContext.from_gguf(path, dtype=torch.float32, device="cpu",
+                                    sampler=tsamp.SamplerConfig(**GREEDY))
+    loose = tg.quantized_device_params(tg.GGUFFile(path), c, arch,
+                                       device="cpu")
+    b, lb = ctx.params["blocks"], loose["blocks"]
+    assert not {"wq", "wk", "wv", "w1", "w3"} & set(b)
+    for fused, names in (("wqkv", ("wq", "wk", "wv")), ("w13", ("w1", "w3"))):
+        w = b[fused]
+        assert isinstance(w, Q80Tensor) and w.group_size == 32 and not w.w8a8
+        assert w.q.is_contiguous() and w.scales.is_contiguous()
+        assert torch.equal(w.q, torch.cat([lb[n].q for n in names], dim=1))
+        assert torch.equal(w.scales,
+                           torch.cat([lb[n].scales for n in names], dim=1))
+    unfused = teng.LLMContext(cfg=c, params=loose, tokenizer=ctx.tokenizer,
+                              max_seq_len=64, device="cpu",
+                              dtype=torch.float32, arch=arch,
+                              sampler=tsamp.SamplerConfig(**GREEDY))
+    ids = ctx.encode("abc hello ab")
+    got, _ = teng._prefill(ctx, ids, ctx.new_cache(1))
+    want, _ = teng._prefill(unfused, ids, unfused.new_cache(1))
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-6 * scale
+
+
+def test_from_gguf_leaves_a_mixed_k_quant_file_unfused(tmp_path, monkeypatch):
+    """A file whose attention and FFN sets mix kinds (Q4_K, Q4_0, Q6_K and
+    Q8_0, as a Q4_K_M file mixes Q4_K with Q6_K) is served as the loader
+    gives it: every product unfused."""
+    path, cfg, _ = _write(tmp_path, "qwen3", "q8_0", seed=4, **WIDE)
+    g0 = tg.GGUFFile(path)
+    swaps = {}
+    for i in range(cfg["n_layer"]):
+        for theirs, gtype in (("attn_q", tg.GGML_Q4_K), ("attn_k", tg.GGML_Q4_K),
+                              ("attn_v", tg.GGML_Q6_K), ("ffn_gate", tg.GGML_Q4_K),
+                              ("ffn_down", tg.GGML_Q6_K)):
+            name = f"blk.{i}.{theirs}.weight"
+            swaps[name] = (gtype, raw_blocks(
+                gtype, int(np.prod(g0.tensors[name].shape)), seed=i * 5 + gtype))
+    tfile, _ = _swapped(path, swaps)
+    monkeypatch.setattr(tg, "GGUFFile", lambda p: tfile)
+    ctx = teng.LLMContext.from_gguf(path, dtype=torch.float32, device="cpu",
+                                    sampler=tsamp.SamplerConfig(**GREEDY))
+    b = ctx.params["blocks"]
+    assert {"wq", "wk", "wv", "w1", "w3"} <= set(b)
+    assert not {"wqkv", "w13"} & set(b)
+    assert isinstance(b["wq"], Q4KTensor) and isinstance(b["wv"], Q80Tensor)
+    assert b["wv"].group_size == 16 and isinstance(b["w1"], Q4KTensor)
+    assert isinstance(b["w3"], Q80Tensor) and b["w3"].group_size == 32
+    out = teng.generate_on_device(ctx, [5, 6, 7, 8], 4).tolist()
+    assert len(out) == 4 and all(0 <= t < cfg["vocab_size"] for t in out)
 
 
 def test_from_gguf_goes_through_the_decoder_graph_path(tmp_path):

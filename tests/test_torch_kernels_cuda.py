@@ -164,6 +164,123 @@ def test_q80_dispatch_sends_one_row_to_matvec_and_refuses_other_shapes():
             tqm.q80_matvec_fq(*bad)
 
 
+def _rows_weight(rng, N, K, gs, L=1):
+    q, s = _q80(rng, L * N, K, gs)
+    return tqm.Q80Tensor(q=torch.from_numpy(q.reshape(L, N, K)).cuda(),
+                         scales=torch.from_numpy(
+                             s.reshape(L, N, K // gs)).cuda(), group_size=gs)
+
+
+def _hold_rows(y, want, label):
+    """f32 out within 1e-5 of max|y| of the plain version (f32 dequant, f32
+    sums in another order); bf16 out also within one bf16 rounding of it
+    (2^-8 of |y|: the two f32 sums may round to neighbouring bf16 values)."""
+    tol = 1e-5 * want.abs().max().item()
+    err = (y.float() - want).abs()
+    if y.dtype == torch.float32:
+        assert err.max().item() <= tol, label
+    else:
+        assert (err <= tol + 2.0 ** -8 * want.abs()).all(), label
+
+
+# the rows form's kernels at shapes of a GGUF file's products (a Qwen3-0.6B
+# layer's at gs 16 / 32, 64 and 128 too), a product of 40 rows of K = 80 at
+# gs 16 (scale rows of 20 bytes, off every 16-byte boundary past the
+# first), and small ones
+ROWS_CASES = [(1024, 6144), (3072, 1024), (2048, 1024), (256, 264), (80, 40),
+              (64, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 2, 5, 8, 9, 64, 65, 320])
+@pytest.mark.parametrize("gs", [16, 32, 64, 128])
+def test_rows_kernels_match_plain(gs, B):
+    """q80_matvec_rows (B = 1), q80_matmul_rows (every B) and the warp-a-row
+    q80_matmul_rows_warp against q80_matmul_rows_plain, from f32 and bf16
+    rows into f32 and bf16, on layer 1 of a stacked weight (its scales off a
+    16-byte boundary where N * K / gs is not a multiple of 4); two runs give
+    the same bits; q80_rows picks the kernel by shape and the counters
+    count each launch."""
+    _need_card()
+    rng = np.random.RandomState(gs + B)
+    kernels = [tqm.q80_matmul_rows, tqm.q80_matmul_rows_warp]
+    if B == 1:
+        kernels.append(tqm.q80_matvec_rows)
+    for K, N in ROWS_CASES:
+        if K % gs:
+            continue
+        w = _rows_weight(rng, N, K, gs, L=2).layer(1)
+        x32 = torch.from_numpy(rng.randn(B, K).astype(np.float32)).cuda()
+        for x in (x32, x32.to(torch.bfloat16)):
+            want = tqm.q80_matmul_rows_plain(x, w, torch.float32)
+            for fn in kernels:
+                for odt in (torch.float32, torch.bfloat16):
+                    y = fn(x, w, odt)
+                    again = fn(x, w, odt)
+                    torch.cuda.synchronize()
+                    label = f"{fn.__name__} K={K} N={N} {x.dtype}->{odt}"
+                    _hold_rows(y, want, label)
+                    assert torch.equal(y, again), label
+            n0 = [f.launches for f in (tqm.q80_matvec_rows,
+                                       tqm.q80_matmul_rows,
+                                       tqm.q80_matmul_rows_warp)]
+            y = tqm.q80_matmul(x, w, torch.float32)
+            n1 = [f.launches for f in (tqm.q80_matvec_rows,
+                                       tqm.q80_matmul_rows,
+                                       tqm.q80_matmul_rows_warp)]
+            assert [b - a for a, b in zip(n0, n1)] == ([1, 0, 0] if B == 1
+                                                       else [0, 1, 0])
+            torch.cuda.synchronize()
+            _hold_rows(y, want, f"q80_matmul K={K} N={N}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gs", [16, 32])
+def test_rows_kernels_at_the_head(gs):
+    """The tied head of a Qwen3-0.6B GGUF file, 151 936 rows of 1024: one
+    f32 row (decode, the prefill's last position) through q80_matvec_rows
+    and q80_matmul_rows, and 8 and 64 rows (batched steps) through
+    q80_matmul_rows, into f32."""
+    _need_card()
+    rng = np.random.RandomState(gs)
+    w = _rows_weight(rng, 151936, 1024, gs).layer(0)
+    for B in (1, 8, 64):
+        x = torch.from_numpy(rng.randn(B, 1024).astype(np.float32)).cuda()
+        want = tqm.q80_matmul_rows_plain(x, w, torch.float32)
+        fns = ([tqm.q80_matvec_rows] if B == 1 else []) + [tqm.q80_matmul_rows]
+        for fn in fns:
+            y = fn(x, w, torch.float32)
+            torch.cuda.synchronize()
+            _hold_rows(y, want, f"{fn.__name__} head B={B}")
+            assert torch.equal(y, fn(x, w, torch.float32))
+
+
+@pytest.mark.cuda
+def test_rows_dispatch_by_shape_and_refusals():
+    """q80_rows sends a group size that is not a power of two from 16 to
+    the warp-a-row kernel at every B; the new wrappers refuse it, and refuse more
+    than one row (matvec), f16 and a wrong width."""
+    _need_card()
+    rng = np.random.RandomState(9)
+    w48 = _rows_weight(rng, 64, 96, 48).layer(0)
+    w32 = _rows_weight(rng, 64, 96, 32).layer(0)
+    x = torch.randn(3, 96, device="cuda")
+    for B in (1, 3):
+        n0 = tqm.q80_matmul_rows_warp.launches
+        y = tqm.q80_rows(x[:B], w48, torch.float32)
+        assert tqm.q80_matmul_rows_warp.launches == n0 + 1
+        torch.cuda.synchronize()
+        _hold_rows(y, tqm.q80_matmul_rows_plain(x[:B], w48, torch.float32),
+                   f"q80_rows gs=48 B={B}")
+    for fn, bad in ((tqm.q80_matvec_rows, (x, w32)),
+                    (tqm.q80_matvec_rows, (x[:1], w48)),
+                    (tqm.q80_matmul_rows, (x, w48)),
+                    (tqm.q80_matmul_rows, (x[:, :64], w32)),
+                    (tqm.q80_matmul_rows, (x.half(), w32))):
+        with pytest.raises(ValueError):
+            fn(*bad, torch.float32)
+
+
 # the five Qwen3-0.6B products: (N, K)
 QWEN3_PRODUCTS = {"wqkv": (4096, 1024), "wo": (1024, 2048),
                   "w13": (6144, 1024), "w2": (1024, 3072),
@@ -730,6 +847,14 @@ def test_launch_counters_count_kernel_launches():
     tqm.q80_matmul(x, w, torch.float32)
     assert (tqm.act_quant_q80.launches, tqm.q80_w8a8.launches) == (
         n0[0] + 1, n0[1] + 1)
+    wr = tqm.Q80Tensor(q=w.q, scales=torch.rand(64, 8, device="cuda"),
+                       group_size=32)
+    rows = (tqm.q80_matvec_rows, tqm.q80_matmul_rows, tqm.q80_matmul_rows_warp)
+    n0 = [f.launches for f in rows]
+    tqm.q80_matmul(x, wr, torch.float32)
+    tqm.q80_matmul(x[:1], wr, torch.float32)
+    tqm.q80_matmul_rows_warp(x, wr, torch.float32)
+    assert [f.launches for f in rows] == [n0[0] + 1, n0[1] + 1, n0[2] + 1]
     w4 = tq4.Q4KTensor(packed=torch.zeros(64, 128, dtype=torch.uint8,
                                           device="cuda"),
                        scales=torch.ones(64, 8, device="cuda"),

@@ -69,13 +69,23 @@ def test_w8a8_plain_matches_jax_int8(B, K, N, gs):
     np.testing.assert_array_equal(got2[0].numpy(), got)
 
 
-@pytest.mark.parametrize("B,K,N,gs", [(1, 128, 256, 32), (8, 256, 128, 64)])
+@pytest.mark.parametrize("B,K,N,gs", [(1, 128, 256, 32), (8, 256, 128, 64),
+                                      (1, 128, 256, 16), (64, 256, 384, 32),
+                                      (64, 80, 200, 16), (9, 128, 72, 32)])
 def test_rows_plain_matches_pallas_interpret(B, K, N, gs):
+    """The rows form against the Pallas kernel in interpret mode, at group
+    sizes 16 (GGUF Q6_K) to 64, one row to a 64-token prompt, and a ragged
+    N (the Pallas kernel takes 128-row tiles: it gets the weight padded with
+    zero rows, and its first N rows are compared)."""
     rng = np.random.RandomState(7 + B + K)
     q, s = _q80(rng, N, K, gs)
     x = rng.randn(B, K).astype(np.float32)
-    want = np.asarray(jqm._q80_matmul_2d(jnp.asarray(x), jnp.asarray(q),
-                                         jnp.asarray(s), gs, interpret=True))
+    Np = -(-N // 128) * 128
+    qp = np.concatenate([q, np.zeros((Np - N, K), np.int8)])
+    sp = np.concatenate([s, np.zeros((Np - N, K // gs), np.float32)])
+    want = np.asarray(jqm._q80_matmul_2d(jnp.asarray(x), jnp.asarray(qp),
+                                         jnp.asarray(sp), gs,
+                                         interpret=True))[:, :N]
     tw = tqm.Q80Tensor(q=torch.from_numpy(q), scales=torch.from_numpy(s),
                        group_size=gs)
     got = tqm.q80_matmul(torch.from_numpy(x), tw, torch.float32).numpy()
@@ -160,6 +170,92 @@ def test_matvec_plan_covers_the_rows_and_fits(N, K, gs):
         per_block = -(-N // blocks)
         assert T == (16 if gs == 256 and K <= 1024 else 32)
         assert R == min(256 // T, per_block) and R * S >= per_block
+
+
+# the rows form's products (N, K): a Qwen3-0.6B GGUF file's, fused as
+# from_gguf serves it (wqkv, wo, w13, w2, the tied head), and the tiny
+# fixtures' (tests/js/fixtures/tiny_q80.bin: width 64, 2 layers; K = 80 at
+# gs 16, a scale range off 16-byte boundaries)
+ROWS_SHAPES = [(4096, 1024), (1024, 2048), (6144, 1024), (1024, 3072),
+               (151936, 1024), (128, 64), (64, 64), (256, 64), (64, 128),
+               (40, 80)]
+
+
+@pytest.mark.parametrize("N,K,gs", [(N, K, gs) for N, K in ROWS_SHAPES
+                                    for gs in (16, 32) if K % gs == 0])
+def test_matvec_rows_plan_covers_the_rows_and_fits(N, K, gs):
+    """q80_matvec_rows's split from shapes alone: every row in exactly one
+    block, no block without rows, up to two blocks an SM and both blocks'
+    shared memory on an SM (of the H100's 227 KB) for an f32 row, a stage's
+    weight bytes within its budget, 8 lanes a row where a block streams
+    many tiles (the head), a warp a row elsewhere."""
+    G = K // gs
+    blocks, R, S, T = tqm.matvec_rows_plan(N, K, gs)
+    edges = [N * b // blocks for b in range(blocks + 1)]
+    assert edges[0] == 0 and edges[-1] == N
+    assert all(b > a for a, b in zip(edges, edges[1:]))
+    sms = tqm._build.H100_SMS
+    assert 1 <= blocks <= 2 * sms and T in (8, 32)
+    if N >= 2 * sms * 4:
+        assert blocks == 2 * sms
+    per_block = -(-N // blocks)
+    assert T == (8 if per_block >= 64 else 32)
+    assert 1 <= S <= tqm.MATVEC_MAX_STAGES and 1 <= R <= 256 // T
+    assert R * K <= max(tqm.MATVEC_STAGE_BYTES, K) and S <= -(-per_block // R)
+    assert 2 * tqm.matvec_rows_smem(K, G, R, S) <= 227 * 1024
+    assert tqm.matvec_rows_fits(N, K, gs)
+    if N == 151936:
+        assert (R, S, T) == (32, 2, 8)
+
+
+@pytest.mark.parametrize("B", [1, 2, 8, 9, 64, 65, 320])
+@pytest.mark.parametrize("N,K", ROWS_SHAPES)
+def test_rows_plan_covers_every_output_once_and_fits(N, K, B):
+    """q80_matmul_rows's split from shapes alone: every (weight row,
+    activation row, chunk of K) in exactly one block; up to 64 rows one
+    tile (32 for a weight that stays in L2), so that each weight byte
+    leaves device memory once; the chunks split over a cluster of at most 8
+    blocks (a power of two, no rank without chunks) until the grid has 1.5
+    blocks for every SM (4 for tiles of up to 16 rows) or the split is at
+    its cap; 3 stages, or as many as a rank has chunks; two blocks' shared
+    memory on an SM for f32 rows (bf16 rows take less)."""
+    MB, BN, CS, S = tqm.rows_plan(B, N, K)
+    pieces = -(-K // tqm.ROWS_KC)
+    blocks = _tile_blocks(B, N, pieces, (MB, BN, CS, S))
+    count = np.zeros((N, B, pieces), np.int8) if N * B * pieces <= 2e7 else None
+    for rows, slots, chunks in blocks:
+        assert len(rows) > 0 and len(slots) > 0 and len(chunks) > 0
+        if count is not None:
+            count[rows.start:rows.stop, slots.start:slots.stop,
+                  chunks.start:chunks.stop] += 1
+    if count is not None:
+        assert (count == 1).all()
+    else:   # too many cells to count: each tile's chunks, then the tiles
+        by_tile = {}
+        for rows, slots, chunks in blocks:
+            by_tile.setdefault((rows.start, rows.stop, slots.start,
+                                slots.stop), []).append(chunks)
+        for chunk_list in by_tile.values():
+            got = sorted((c.start, c.stop) for c in chunk_list)
+            assert got[0][0] == 0 and got[-1][1] == pieces
+            assert all(a[1] == b[0] for a, b in zip(got, got[1:]))
+        area = sum((r1 - r0) * (s1 - s0) for r0, r1, s0, s1 in by_tile)
+        assert area == N * B and len(by_tile) == -(-N // MB) * -(-B // BN)
+    in_l2 = N * K <= int8_mma.L2_WEIGHT
+    assert MB in (64, 128) and BN in (8, 16, 32, 64)
+    assert BN >= min(B, 32 if in_l2 else 64)
+    assert BN == 8 or BN // 2 < min(B, 64)
+    if B <= (32 if in_l2 else 64):
+        assert BN >= B      # one tile: each weight byte read once
+    assert CS in (1, 2, 4, 8) and CS <= pieces
+    sms = tqm._build.H100_SMS
+    want = 4 * sms if BN <= 16 else 1.5 * sms
+    assert len(blocks) >= want or 2 * CS > min(8, pieces)
+    assert len(blocks) < 2 * want or CS == 1
+    per_rank = -(-pieces // CS)
+    assert S == min(3, per_rank)      # a chunk in flight past the next one
+    assert 2 * tqm.rows_smem(MB, BN, CS, S, 4) <= 227 * 1024
+    assert tqm.rows_smem(MB, BN, CS, S, 2) <= tqm.rows_smem(MB, BN, CS, S, 4)
 
 
 # the five Qwen3-0.6B products: (N, K)
@@ -275,7 +371,8 @@ def test_cpu_wrappers_launch_nothing():
     q, s = _q80(rng, 64, 256, 256)
     x = torch.from_numpy(rng.randn(2, 256).astype(np.float32))
     counters = (tqm.act_quant_q80, tqm.q80_w8a8, tqm.q80_matmul_rows,
-                tqm.q80_matvec_fq)
+                tqm.q80_matvec_fq, tqm.q80_matvec_rows,
+                tqm.q80_matmul_rows_warp)
     before = tuple(c.launches for c in counters)
     for w8a8 in (False, True):
         tw = tqm.Q80Tensor(q=torch.from_numpy(q), scales=torch.from_numpy(s),
@@ -283,6 +380,13 @@ def test_cpu_wrappers_launch_nothing():
         tqm.q80_matmul(x, tw, torch.bfloat16)
         tqm.q80_matmul(x[:1], tw, torch.bfloat16)     # one row: B = 1 path
     tqm.q80_matvec_fq(x[:1], tw, torch.float32, with_act=True)
+    tw = tqm.Q80Tensor(q=torch.from_numpy(q), scales=torch.from_numpy(
+        s.repeat(8, axis=1) / 8), group_size=32)
+    want = tqm.q80_matmul_rows_plain(x, tw, torch.float32)
+    assert torch.equal(tqm.q80_matvec_rows(x[:1], tw, torch.float32),
+                       tqm.q80_matmul_rows_plain(x[:1], tw, torch.float32))
+    for fn in (tqm.q80_matmul_rows, tqm.q80_matmul_rows_warp, tqm.q80_rows):
+        assert torch.equal(fn(x, tw, torch.float32), want)
     assert tuple(c.launches for c in counters) == before
 
 
