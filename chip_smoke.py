@@ -151,6 +151,31 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   the bound; convert_gguf to Q80 at group size 256 served
                   by from_bin through K1's W8A8 pair, the two streams'
                   agreeing prefix
+  8. LoRA (lora_phase)
+                  8a: phase 5's Q80 model with a random rank-16 adapter
+                  written by write_lora: the graph stream torch.equal to
+                  the eager step loop, launches exact with and without the
+                  adapter (the branch is torch.matmul), a swap to a second
+                  adapter under the captured graph giving a fresh
+                  context's stream, an unload giving phase 5's stream,
+                  decode tok/s with and without the adapter in turns and a
+                  profile of each (the branch's busy ms and kernels a
+                  step), spec_k = 7 with the adapter; phase 5's Q4K model
+                  and phase 7b's GGUF model with the adapter (launches
+                  exact, unload gives the base stream); 8b: BatchedEngine
+                  at 8 and 64 slots with adapters of ranks 16 and 8 and
+                  base slots mixed: one batched step's logits within
+                  BATCH_TOL of each slot's single stream with its adapter
+                  beside a control (two slots' adapters swapped), ms a
+                  step and tok/s beside the engine without adapters in
+                  turns; 8c: --merge-lora's f32 export of phase 6's step-12
+                  checkpoint served against the checkpoint + adapter (f32
+                  logits within MERGE_LOGITS_TOL, a control above it,
+                  tokens equal where the margin allows); 8d: a LoRA
+                  fine-tune of that checkpoint (LORA_STEPS steps: the held
+                  batch's loss falls, the base bit-unchanged, K4 launches
+                  exact, ms/step beside phase 6's), its LoRA-only
+                  checkpoint served by load_lora_checkpoint
 
 Phase 3 also holds K1 (q80_matmul_w8a8, every row torch.equal to the
 B = 1 kernel's), K3 at B > 1 and the norm kernels at the row counts of a
@@ -179,7 +204,8 @@ attention launches both on f32 q and as the model feeds them (bf16 q,
 result cast to bf16).
 
 `python3 chip_smoke.py bench [flash [clocks]] [decode] [q4k [batched]] [q80
-[batched [sweep] [clocks]]] [pipes] [spec] [toy] [export] [rows [sweep] [clocks]]` runs none of the phases: it times the two
+[batched [sweep] [clocks]]] [pipes] [spec] [toy] [export] [rows [sweep] [clocks]]
+[lora]` runs none of the phases: it times the two
 attention kernels alone beside SDPA (the flash forward and backward, a
 ladder over the decode kernel's rows per block), a Q4K decode step's
 matmuls with the fake-quant folded in or not, a Q80 decode step's W8A8
@@ -194,7 +220,8 @@ times K3 at B > 1 the same way: a Q4K forward's 112 layer products at 8 and
 64 rows, by product, q4k_matmul_w4a4 alone, with q4k_act_quant, the pair it
 replaced (q4k_fake_quant + q4k_matmul) and the bf16 torch.matmul, beside
 the bound.  `bench spec` runs phase 5c alone, `bench toy` its trained
-toy, and `bench export` phase 7 (on an untrained Nano-168M checkpoint).
+toy, `bench export` phase 7 (on an untrained Nano-168M checkpoint), and
+`bench lora` phase 8 (on the same, without the GGUF model).
 `bench rows` times the rows form (K1 below group size 256) over a
 Qwen3-0.6B GGUF model's products at group sizes 32 and 16 as phase 7b
 does, on random weights; `sweep` adds every work split of its two kernels
@@ -304,6 +331,20 @@ EXPORT_LOGITS_TOL = {"Q80": 0.15, "Q4K": 0.8}
 # prompt) of 1.32 on an NVIDIA H100 80GB HBM3 at 700 W; the limit is 7x
 # the reading and 13x below the control.
 GGUF_BATCH_TOL = 0.1
+# phase 8: the adapters' rank and alpha (scale 2), the tokens of each
+# stream, the LoRA fine-tune's steps and learning rate (an adapter takes a
+# larger one than a full fine-tune), and the tokens of its held batch
+LORA_RANK, LORA_ALPHA = 16, 32
+LORA_NEW = 64
+LORA_STEPS, LORA_LR = 6, 2e-3
+# phase 8: the --merge-lora f32 export's logits against the base
+# checkpoint with the adapter attached, both served in f32, of max|logit|:
+# W + s A B folded once in f32 against x W + s (x A) B at every step, the
+# same sums rounded in other places over 24 layers.  It read 3.1e-7 on an
+# NVIDIA H100 80GB HBM3 at 700 W; the control, the base without the
+# adapter, must read above the limit (2.8e-3 with B ~ N(0, 0.01^2), so B is
+# drawn at 0.05)
+MERGE_LOGITS_TOL = 1e-3
 
 
 def log(*a):
@@ -507,6 +548,42 @@ def random_q4k_params(torch, np, cfg, device):
                      group_size=GS, w8a8=True)
     return {"tok_embeddings": tok, "output_q": head, "norm": ones(E),
             "blocks": blocks}
+
+
+def random_lora(np, cfg, rank, seed, std_b):
+    """A LoRA adapter for `cfg` in the stacked (L, in, out) layout, f32
+    numpy from `seed`: A ~ N(0, 1/in) (the branch keeps the activation's
+    size), B ~ N(0, std_b^2) (a trained adapter's B is no longer zero)."""
+    rng = np.random.default_rng(seed)
+    L, E, _, _, HD, KVD, _ = _shapes(cfg)
+    out = {}
+    for name, inn, o in (("wq", E, HD), ("wk", E, KVD), ("wv", E, KVD),
+                         ("wo", HD, E)):
+        out[name + "_a"] = (rng.standard_normal((L, inn, rank), np.float32)
+                            / np.float32(np.sqrt(inn)))
+        out[name + "_b"] = (rng.standard_normal((L, rank, o), np.float32)
+                            * np.float32(std_b))
+    return out
+
+
+def pretrain_corpus(ttok, tcfg, work):
+    """dataset/pretrain_sample.txt repeated to at least 1100 blocks of
+    block_size + 1 tokens, tokenized into shards under `work` by
+    generate_pretrain_dataset.  -> (train shard, val shard, copies,
+    blocks)."""
+    from nano_tpu_torch.data import preprocess
+    with open(os.path.join(ROOT, "dataset", "pretrain_sample.txt"),
+              encoding="utf-8") as f:
+        sample = f.read()
+    width = tcfg.block_size + 1
+    n_copies = -(-1100 * width // len(ttok.encode(sample)))
+    corpus = os.path.join(work, "corpus.txt")
+    with open(corpus, "w", encoding="utf-8") as f:
+        f.write(sample * n_copies)
+    train_p, val_p = preprocess.generate_pretrain_dataset(
+        [corpus], ttok, tcfg.block_size, os.path.join(work, "pt"))
+    n_blocks = sum(len(preprocess.load_shard(p_)[0]) for p_ in (train_p, val_p))
+    return train_p, val_p, n_copies, n_blocks
 
 
 def params_to(params, device):
@@ -2143,7 +2220,8 @@ def export_phase(torch, np, h):
     version and bf16 torch.matmul; convert_gguf to Q80 at group size 256
     served by from_bin through K1's W8A8 pair.  -> {"rows": the rows
     form's launches, ms, plain_ms, library_ms, bound (ms, by) over a decode
-    step, "rows_err"}."""
+    step, "rows_err", "gctx": the GGUF model's context, which phase 8
+    serves again}."""
     from dataclasses import replace
     from nano_tpu_torch import export as export_cli
     from nano_tpu_torch.config import ModelConfig
@@ -2392,6 +2470,7 @@ def export_phase(torch, np, h):
     res["batched"] = gguf_batched(torch, np, h, gctx, QL)
     res["times"] = rows_form_times(torch, h.timer, gb, gctx.params["output_q"],
                                    QL, card, g, "export")
+    res["gctx"] = gctx                # phase 8 serves it with an adapter
     del gctx, gb, wqkv
     log(f"[export] 7b in {time.time() - t7:.1f} s")
     return res
@@ -2447,7 +2526,558 @@ def bench_export(torch):
         nano_prompt=nano_ids[:EXPORT_PROMPT],
         nano_control_prompt=nano_ids[1000:1000 + EXPORT_PROMPT]))
     os.remove(ckpt)
+    del res["gctx"]
     log(f"[bench export] {res}")
+
+
+def lora_phase(torch, np, h):
+    """Phase 8, LoRA.  h: dev, card, names, reset, read, cfg (Qwen3-0.6B),
+    tok, prompt (phase 5's), base80 (phase 5's Q80 stream, or None), q80 /
+    q4k (the two full-width models' params, on the host), gctx (phase 7b's
+    GGUF context, or None), tcfg / ckpt (the Nano-168M checkpoint to
+    fine-tune, and its config), train_cfg / full_ms (phase 6's training
+    config and ms/step, or None), nano_prompt, work.
+
+    8a: the Q80 model with a rank-16 adapter written by write_lora: the
+    graph stream (capture, then replays) torch.equal to the eager step
+    loop, launches exact (the same kernels as without an adapter: the
+    branch is torch.matmul); a swap to a second rank-16 adapter (copied
+    into the decoder's buffers, no capture) giving a fresh context's
+    stream; an unload giving the base stream; decode tok/s with and
+    without the adapter in turns and a profile of each (busy ms and
+    kernels a step: the branch's cost); speculative decode with the
+    adapter.  The Q4K model and the GGUF model with the adapter, one
+    stream each (launches exact).  8b: BatchedEngine at 8 and 64 slots,
+    adapters of ranks 16 and 8 and base slots mixed: one batched step's
+    logits within BATCH_TOL of each slot's single stream with its adapter,
+    beside a control with two slots' adapters swapped that must read
+    above it; ms a batched step and tok/s beside the engine without
+    adapters, in turns.  8c: --merge-lora's f32 export of the Nano-168M
+    checkpoint served against the checkpoint with the adapter attached,
+    both f32: logits within MERGE_LOGITS_TOL (the control, the base
+    alone, above it), greedy tokens equal wherever the margin exceeds
+    twice the logits' difference.  8d: a LoRA fine-tune of the checkpoint
+    (LORA_STEPS steps, phase 6's batch): the loss of a held batch falls,
+    the base stays bit-unchanged, K4 launches exact, ms/step beside phase
+    6's full fine-tune, and its LoRA-only checkpoint served by
+    load_lora_checkpoint.  -> {kernel: launches on the LoRA paths}."""
+    from nano_tpu_torch import export as export_cli
+    from nano_tpu_torch.infer import engine, speculative
+    from nano_tpu_torch.io import binfmt
+    from nano_tpu_torch.io.checkpoint import Checkpoint
+    from nano_tpu_torch.models import gpt
+    from nano_tpu_torch.ops import sampling
+    from nano_tpu_torch.serve.batching import BatchedEngine
+    from nano_tpu_torch.tokenizer.bpe import QWEN_STOP_TOKENS
+    from nano_tpu_torch.train.trainer import Trainer
+    dev, card, names, cfg = h.dev, h.card, h.names, h.cfg
+    L = cfg.n_layer
+    bf16, f32 = torch.bfloat16, torch.float32
+    greedy = sampling.SamplerConfig(temperature=0.0, repetition_penalty=1.0)
+    os.makedirs(h.work, exist_ok=True)
+    path_counts = {n: 0 for n in names}
+
+    def counted(c):
+        for n in names:
+            path_counts[n] += c[n]
+        return c
+
+    def adapter(name, c, rank, seed, std_b):
+        path = os.path.join(h.work, f"{name}.bin")
+        binfmt.write_lora(path, random_lora(np, c, rank, seed, std_b), c,
+                          rank=rank, alpha=2 * rank)
+        return path
+
+    a16 = adapter("qwen_a16", cfg, LORA_RANK, SEED + 40, 0.1)
+    b16 = adapter("qwen_b16", cfg, LORA_RANK, SEED + 41, 0.1)
+    c8 = adapter("qwen_c8", cfg, LORA_RANK // 2, SEED + 42, 0.1)
+
+    def qwen_ctx(params):
+        return engine.LLMContext(
+            cfg=cfg, params=params, tokenizer=h.tok,
+            max_seq_len=cfg.block_size, device=dev, dtype=bf16,
+            sampler=greedy, stop_tokens=QWEN_STOP_TOKENS, arch="qwen3")
+
+    def god(ctx, n=LORA_NEW, ids=None):
+        """generate_on_device -> (ids, seconds, launches)."""
+        h.reset()
+        t0 = time.time()
+        out = engine.generate_on_device(ctx, h.prompt if ids is None
+                                        else ids, n)
+        torch.cuda.synchronize()
+        return out, time.time() - t0, h.read()
+
+    def eager(ctx, n=LORA_NEW):
+        """The decode step called from Python with the context's adapter,
+        step by step (what the graph captures)."""
+        cache, gen = ctx.new_cache(1), ctx.generator()
+        tok_, seen = engine._prefill_first_token(
+            ctx, h.prompt, cache, gen, ctx.lora, ctx.lora_scale)
+        pos = torch.tensor([len(h.prompt)], dtype=torch.int32, device=dev)
+        out = [tok_]
+        for _ in range(1, n):
+            tok_ = engine._decode_step(ctx, tok_, pos, cache, seen, gen,
+                                       ctx.lora, ctx.lora_scale)
+            pos += 1
+            out.append(tok_)
+        return torch.cat(out).cpu().numpy()
+
+    def exact(label, got, want):
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+    # ---------------- 8a: one adapter on a context ----------------
+    t8 = time.time()
+    steps = LORA_NEW - 1
+    params = params_to(h.q80, dev)
+    ctx = qwen_ctx(params)
+    expect = decode_counts("Q80", steps, names, L)
+    base, _, c0 = god(ctx)
+    exact("Q80 base", c0, expect)
+    if h.base80 is not None and not np.array_equal(base,
+                                                   h.base80[:LORA_NEW]):
+        raise AssertionError("the Q80 base stream differs from phase 5's")
+    ctx.load_lora(a16)
+    out1, s1, c1 = god(ctx)
+    outa, sa, ca = god(ctx)
+    exact("Q80 + adapter, capture", c1, expect)
+    exact("Q80 + adapter, replays", counted(ca), expect)
+    ea = eager(ctx)
+    dec = ctx.decoder()
+    n_graphs = len(dec.graphs)
+    log(f"[lora] Qwen3-0.6B Q80 + a rank-{LORA_RANK} adapter (alpha "
+        f"{LORA_ALPHA}, write_lora), {LORA_NEW} greedy tokens: first call "
+        f"(capture) {s1:.3f} s, replays {sa:.3f} s; graph stream torch.equal "
+        f"to the eager step loop: {np.array_equal(outa, ea)}; agrees with "
+        f"the base stream for {agreeing(outa.tolist(), base.tolist())} "
+        f"tokens; launches exact with and without the adapter ({ca}); "
+        f"decoder graphs {sorted(str(k[-1]) for k in dec.graphs)}")
+    if not (np.array_equal(out1, outa) and np.array_equal(outa, ea)):
+        raise AssertionError("Q80 + adapter: the graph stream differs from "
+                             "the eager step loop")
+    if np.array_equal(outa, base):
+        raise AssertionError("the adapter did not change the stream")
+    ctx.load_lora(b16)                        # same rank: copied in
+    outb, _, cb = god(ctx)
+    exact("Q80 + swapped adapter", counted(cb), expect)
+    fresh = qwen_ctx(params)
+    fresh.load_lora(b16)
+    outf, _, _ = god(fresh)
+    del fresh
+    if len(dec.graphs) != n_graphs or not np.array_equal(outb, outf):
+        raise AssertionError(f"the swap: {len(dec.graphs)} graphs (before "
+                             f"{n_graphs}), stream equal to a fresh "
+                             f"context's: {np.array_equal(outb, outf)}")
+    ctx.unload_lora()
+    outu, _, cu = god(ctx)
+    exact("Q80 after unload", cu, expect)
+    if not np.array_equal(outu, base):
+        raise AssertionError("the unload did not give the base stream")
+    log(f"[lora] swap to a second rank-{LORA_RANK} adapter under the "
+        f"captured graph (no capture: {n_graphs} graphs before and after): "
+        f"stream torch.equal to a fresh context's; unload: the base stream "
+        f"torch.equal (phase 5's: {h.base80 is not None})")
+
+    marks = [("streams, swap, unload", time.time() - t8)]
+    # decode rate with and without the adapter, in turns, and a profile
+    per_step = {n: expect[n] - decode_counts("Q80", steps - 1, names, L)[n]
+                for n in names}
+    rates = {"base": [], "lora": []}
+    for kind in ("lora", "base", "base", "lora"):
+        if kind == "lora":
+            ctx.load_lora(a16)
+        else:
+            ctx.unload_lora()
+        _, ttft, _ = god(ctx, 1)
+        _, secs, _ = god(ctx, N_TOKENS)
+        rates[kind].append(((N_TOKENS - 1) / max(secs - ttft, 1e-9), ttft))
+    prof = {}
+    for kind in ("base", "lora"):
+        if kind == "lora":
+            ctx.load_lora(a16)
+        else:
+            ctx.unload_lora()
+        with ctx.on_stream():
+            dec.claim()
+            dec.prefill(h.prompt)
+            # the sums only: phase 5 holds the profiler's launches to the
+            # per-step counts (a record lost at the window's edge shows as
+            # a kernel less a step here)
+            got = (profile_steps(torch, dec._graph().run, 16, PROFILE_KEYS,
+                                 per_step) if dev.type == "cuda" else None)
+        prof[kind] = (None if got is None or sum(got[0].values()) <= 0 else
+                      dict(busy=sum(got[0].values()) / 16,
+                           kernels=got[2] / 16))
+    (rb, tb), (rl, tl) = max(rates["base"]), max(rates["lora"])
+    extra = ("not measured" if None in prof.values() else
+             f"card busy {prof['lora']['busy']:.3f} ms a step against "
+             f"{prof['base']['busy']:.3f} (the branch: "
+             f"{prof['lora']['busy'] - prof['base']['busy']:.3f} ms), "
+             f"{prof['lora']['kernels']:.0f} kernels a step against "
+             f"{prof['base']['kernels']:.0f} (+"
+             f"{prof['lora']['kernels'] - prof['base']['kernels']:.0f})")
+    log(f"[decode LoRA Q80] {card}: {N_TOKENS} greedy tokens, better of two "
+        f"in turns: {rl:.2f} tok/s with the rank-{LORA_RANK} adapter (TTFT "
+        f"{tl * 1e3:.2f} ms) against {rb:.2f} tok/s without (TTFT "
+        f"{tb * 1e3:.2f} ms); {extra}")
+
+    marks.append(("rates and profiles", time.time() - t8))
+    # speculative decode with the adapter: the plain adapter stream's
+    # prefix where the verify forward rounds alike
+    pattern = h.prompt[:8] * 8
+    plain_s, _, _ = god(ctx, LORA_NEW, pattern)
+    ctx.spec_k = SPEC_K
+    spec_s, secs, csp = god(ctx, LORA_NEW, pattern)
+    spec_s, secs, csp = god(ctx, LORA_NEW, pattern)
+    counted(csp)
+    st = speculative.LAST_STATS
+    ctx.spec_k = 0
+    if csp["decode_attention"] or not st["rounds"]:
+        raise AssertionError(f"spec with an adapter: launches {csp}, stats "
+                             f"{st}")
+    log(f"[lora] spec_k {SPEC_K} with the adapter on a repeated 8-token "
+        f"pattern: {st['tokens'] / st['rounds']:.2f} tokens a verify round, "
+        f"{(LORA_NEW - 1) / secs:.1f} tok/s; agrees with the plain stream "
+        f"for {agreeing(spec_s.tolist(), plain_s.tolist())} of {LORA_NEW}")
+    del dec
+    marks.append(("spec", time.time() - t8))
+
+    # the Q4K model and the GGUF model with the adapter: a stream each
+    for label, c_, want_for in (
+            ("Q4K", None, lambda st_: decode_counts("Q4K", st_, names, L)),
+            ("GGUF Q8_0", h.gctx,
+             lambda st_: gguf_rows_counts(st_, names, L))):
+        if label == "Q4K":
+            p4 = params_to(h.q4k, dev)
+            c_ = qwen_ctx(p4)
+        elif c_ is None:
+            log("[lora] GGUF: no model given (bench): not run")
+            continue
+        want = want_for(steps)
+        b_, _, cb_ = god(c_)
+        c_.load_lora(a16)
+        o1, _, _ = god(c_)
+        o2, secs, c2 = god(c_)
+        exact(f"{label} + adapter", counted(c2), want)
+        # the prefill's logits with the adapter against without: the
+        # branch reached the model (a random model may keep its argmax)
+        first = [engine._prefill(c_, h.prompt, c_.new_cache(1), *lo)[0]
+                 for lo in ((c_.lora, c_.lora_scale), (None, 0.0))]
+        moved = ((first[0] - first[1]).abs().max()
+                 / first[1].abs().max()).item()
+        c_.unload_lora()
+        ou, _, _ = god(c_)
+        ok = (np.array_equal(o1, o2) and np.array_equal(ou, b_)
+              and moved > 0 and o2.max() < cfg.vocab_size)
+        log(f"[lora] {label} + the adapter: {LORA_NEW} tokens, "
+            f"{(LORA_NEW - 1) / secs:.1f} tok/s (replays), agrees with its "
+            f"base stream for {agreeing(o2.tolist(), b_.tolist())}; the "
+            f"prefill's logits moved by {moved:.3e} of max|logit|; launches "
+            f"exact ({c2}); unload gives the base stream: "
+            f"{np.array_equal(ou, b_)}")
+        if not ok:
+            raise AssertionError(f"{label} + adapter streams")
+        if label == "Q4K":
+            del c_, p4
+    marks.append(("Q4K and GGUF", time.time() - t8))
+    log(f"[lora] 8a in {time.time() - t8:.1f} s (at the end of each part: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in marks) + ")")
+
+    # ---------------- 8b: per-slot adapters in BatchedEngine ----------
+    t8 = time.time()
+    ctx.unload_lora()
+    kinds = ["a", "c", None]
+    res, failures = {}, []
+    for n_slots in (8, 64):
+        be = BatchedEngine(ctx, n_slots=n_slots, adapters={"a": a16,
+                                                           "c": c8})
+        plain = BatchedEngine(ctx, n_slots=n_slots)
+        prng = np.random.default_rng(SEED + 50 + n_slots)
+        prompts = [prng.integers(100, 30000, 32).tolist()
+                   for _ in range(n_slots)]
+        which = [kinds[i % 3] for i in range(n_slots)]
+        h.reset()
+        for pr, name in zip(prompts, which):
+            be.add(pr, max_new_tokens=10 ** 6, temperature=0.0,
+                   repetition_penalty=1.0, adapter=name)
+        want = {n: 0 for n in names}
+        want.update(q80_act_quant=L * n_slots,
+                    q80_matmul_w8a8=4 * L * n_slots, q80_matvec_fq=n_slots,
+                    rms_norm_q80=(2 * L + 1) * n_slots,
+                    swiglu_q80=L * n_slots)
+        exact(f"{n_slots} slots' joins", counted(h.read()), want)
+        for pr in prompts:
+            plain.add(pr, max_new_tokens=10 ** 6, temperature=0.0,
+                      repetition_penalty=1.0)
+
+        def batched_logits(idx):
+            c_b = gpt.KVCache(*(None if t is None else t.clone() for t in (
+                be.cache.k, be.cache.v, be.cache.k_scale, be.cache.v_scale)))
+            lb, _ = gpt.forward_decode_batched(
+                ctx.params, be.tok.clone(), c_b, be.pos.clone(), cfg, bf16,
+                ctx.rope_tables(), lora=be.lora_stack,
+                lora_scale=be.lora_scales, lora_idx=idx)
+            return lb.float()
+
+        lb = batched_logits(be._adapter_idx_t)
+        swapped = be._adapter_idx_t.clone()
+        swapped[0], swapped[1] = be._adapter_idx_t[1], be._adapter_idx_t[0]
+        lc = batched_logits(swapped)
+        rel = {None: 0.0, "a": 0.0, "c": 0.0}
+        ctrl = []
+        for i, (pr, name) in enumerate(zip(prompts, which)):
+            # the adapter as the engine's prefill takes it (padded to the
+            # stack's rank: zero columns)
+            lora, sc = be._adapter_prefill[be.adapter_ids[name]]
+            c1 = ctx.new_cache(1, seq_len=be._cache_len())
+            t1, _ = engine._prefill_first_token(ctx, pr, c1,
+                                                ctx.generator(), lora, sc)
+            if int(t1[0]) != int(be.tok[i]):
+                raise AssertionError(f"slot {i}: the first token differs")
+            l1, _ = gpt.forward_with_cache(ctx.params, t1[:, None], c1,
+                                           len(pr), cfg, bf16,
+                                           rope=ctx.rope_tables(), lora=lora,
+                                           lora_scale=sc)
+            l1 = l1[0, 0].float()
+            rel[name] = max(rel[name], ((lb[i] - l1).abs().max()
+                                        / l1.abs().max()).item())
+            if i < 2:
+                ctrl.append(((lc[i] - l1).abs().max()
+                             / l1.abs().max()).item())
+            del c1
+        log(f"[lora] BatchedEngine, {n_slots} slots, adapters of ranks "
+            f"{LORA_RANK} and {LORA_RANK // 2} and base slots in turn: one "
+            f"batched step's logits against each slot's single stream with "
+            f"its adapter, worst max|d|/max|logit|: base slots "
+            f"{rel[None]:.3e}, rank {LORA_RANK} {rel['a']:.3e}, rank "
+            f"{LORA_RANK // 2} {rel['c']:.3e} (limit {BATCH_TOL:.1e}); the "
+            f"control, slots 0 and 1 with their adapters swapped, "
+            f"{ctrl[0]:.3e} and {ctrl[1]:.3e}")
+        if not max(rel.values()) <= BATCH_TOL < min(ctrl):
+            failures.append(f"batched LoRA logits at {n_slots} slots")
+        del lb, lc
+        times = {"lora": [], "plain": []}
+        for kind in ("lora", "plain", "plain", "lora"):
+            eng_ = be if kind == "lora" else plain
+            h.reset()
+            eng_.step_burst(8)                    # the capture, then bursts
+            torch.cuda.synchronize()
+            t0 = time.time()
+            got = sum(len(v) for _ in range(2)
+                      for v in eng_.step_burst(16).values())
+            torch.cuda.synchronize()
+            secs = time.time() - t0
+            c_ = h.read()
+            want = {n: 0 for n in names}
+            want.update(q80_act_quant=L * 40,
+                        q80_matmul_w8a8=(4 * L + 1) * 40,
+                        decode_attention=L * 40,
+                        rms_norm_q80=(2 * L + 1) * 40, swiglu_q80=L * 40)
+            exact(f"{n_slots} slots {kind}", c_, want)
+            if kind == "lora":
+                counted(c_)
+            times[kind].append((secs * 1e3 / 32, got / secs))
+        (ml, tl_), (mp, tp_) = min(times["lora"]), min(times["plain"])
+        res[n_slots] = dict(ms=ml, tok_s=tl_, plain_ms=mp, rel=rel,
+                            control=min(ctrl))
+        log(f"[batch LoRA] {n_slots} slots ({card}), better of two in turns: "
+            f"{ml:.3f} ms per batched step with per-slot adapters "
+            f"({tl_:.1f} tok/s aggregate) against {mp:.3f} ms without "
+            f"({tp_:.1f} tok/s); launches exact")
+        del be, plain
+        torch.cuda.empty_cache()
+    del ctx, params
+    torch.cuda.empty_cache()
+    log(f"[lora] 8b in {time.time() - t8:.1f} s")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+    # ---------------- 8c: --merge-lora ----------------
+    t8 = time.time()
+    tcfg = h.tcfg
+    nano16 = adapter("nano_a16", tcfg, LORA_RANK, SEED + 43, 0.05)
+    merged = os.path.join(h.work, "nano_merged_f32.bin")
+    export_cli.main([merged, "--checkpoint", h.ckpt, "--merge-lora", nano16])
+    mctx = engine.LLMContext.from_bin(merged, dtype=f32, device=dev,
+                                      sampler=greedy)
+    bctx = engine.LLMContext.from_checkpoint(h.ckpt, dtype=f32, device=dev,
+                                             sampler=greedy)
+    bctx.load_lora(nano16)
+    ids = h.nano_prompt
+    h.reset()
+    mout = engine.generate_on_device(mctx, ids, LORA_NEW)
+    bout = engine.generate_on_device(bctx, ids, LORA_NEW)
+    counted(h.read())
+    # teacher-forced on the merged stream: every position's logits of both
+    full = torch.tensor([ids + mout[:-1].tolist()], device=dev)
+
+    def all_logits(c, lora, sc):
+        cache = c.new_cache(1)
+        lg, _ = gpt.forward_with_cache(c.params, full, cache, 0, c.cfg, f32,
+                                       rope=c.rope_tables(), lora=lora,
+                                       lora_scale=sc)
+        return lg[0, len(ids) - 1:]
+
+    lm = all_logits(mctx, None, 0.0)
+    lb_ = all_logits(bctx, bctx.lora, bctx.lora_scale)
+    l0 = all_logits(bctx, None, 0.0)
+    scale_ = lb_.abs().max()
+    rel = ((lm - lb_).abs().max() / scale_).item()
+    ctrl = ((l0 - lb_).abs().max() / scale_).item()
+    d = (lm - lb_).abs().max(dim=-1).values
+    top2 = lb_.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > 2 * d
+    agree = lm.argmax(-1) == lb_.argmax(-1)
+    log(f"[lora] --merge-lora: Nano-168M's checkpoint + a rank-{LORA_RANK} "
+        f"adapter folded into an f32 .bin ({os.path.getsize(merged)} bytes), "
+        f"served in f32 against the checkpoint with the adapter attached: "
+        f"logits over {LORA_NEW} positions, max|d|/max|logit| {rel:.3e} "
+        f"(limit {MERGE_LOGITS_TOL:.0e}; the control, the base alone, "
+        f"{ctrl:.3e}); greedy argmax equal at {int(agree.sum())} of "
+        f"{LORA_NEW} positions, at all {int(sure.sum())} whose margin "
+        f"exceeds twice the difference; the two generated streams agree for "
+        f"{agreeing(mout.tolist(), bout.tolist())} tokens")
+    if not (rel <= MERGE_LOGITS_TOL < ctrl and bool(agree[sure].all())):
+        raise AssertionError("the merged export disagrees with base + "
+                             "adapter")
+    del mctx, bctx, lm, lb_, l0
+    os.remove(merged)
+    torch.cuda.empty_cache()
+    log(f"[lora] 8c in {time.time() - t8:.1f} s")
+
+    # ---------------- 8d: LoRA fine-tune ----------------
+    t8 = time.time()
+    save_to = os.path.join(h.work, "finetune")
+    lcfg = dict(h.train_cfg, from_checkpoint=h.ckpt, use_lora=True,
+                lora_rank=LORA_RANK, lora_alpha=LORA_ALPHA,
+                learning_rate=LORA_LR, min_lr=LORA_LR / 10, warmup_iters=1,
+                lr_decay_iters=LORA_STEPS, eval_interval=10 ** 6,
+                save_checkpoint_to=save_to)
+    trainer = Trainer(tcfg, lcfg, max_steps=LORA_STEPS, device=dev)
+    trainer.init()
+    trainer.load_data()
+    A = lcfg["gradient_accumulation_steps"]
+    TL = tcfg.n_layer
+    frozen = {k: v.detach().clone() for k, v in
+              gpt.param_leaves(trainer.params)}
+    xs, ys, ms_ = trainer._get_accum_batch()            # the held batch
+    before = trainer._eval_step(xs[0], ys[0], ms_[0])
+    step_ms = []
+    plain_step = trainer._train_step
+
+    def timed_step(xs_, ys_, ms2):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss = plain_step(xs_, ys_, ms2)
+        torch.cuda.synchronize()
+        step_ms.append((time.time() - t0) * 1e3)
+        return loss
+
+    trainer._train_step = timed_step
+    h.reset()
+    trainer.start()
+    c_ = counted(h.read())
+    after = trainer._eval_step(xs[0], ys[0], ms_[0])
+    want = {n: 0 for n in names}
+    want.update(flash_attn_fwd=TL * A * LORA_STEPS,
+                flash_attn_bwd=TL * A * LORA_STEPS)
+    exact("LoRA fine-tune", c_, want)
+    unchanged = all(torch.equal(v, frozen[k]) and v.grad is None
+                    for k, v in gpt.param_leaves(trainer.params))
+    steady = sorted(step_ms[2:])
+    ms_step = steady[len(steady) // 2]
+    n_train = sum(v.numel() for v in trainer.lora.values())
+    log(f"[train LoRA] the Nano-168M checkpoint, a fresh rank-"
+        f"{LORA_RANK} adapter ({n_train:,} parameters) on the frozen base, "
+        f"{LORA_STEPS} steps at lr {LORA_LR:g}, batch "
+        f"{lcfg['batch_size']} x {tcfg.block_size}, {lcfg['dtype']}, remat "
+        f"{lcfg['remat_policy']!r}, on {card}: median {ms_step:.1f} ms/step "
+        f"over steps 3-{LORA_STEPS} (first {step_ms[0]:.1f}) against "
+        + (f"{h.full_ms:.1f}" if h.full_ms else "not measured")
+        + f" for the full fine-tune (phase 6); losses "
+        f"{[round(l, 4) for _, l in trainer.loss_history]}; the held batch's "
+        f"loss {before:.4f} -> {after:.4f}; base bit-unchanged: {unchanged}; "
+        f"K4 launches exact ({c_['flash_attn_fwd']} forward, "
+        f"{c_['flash_attn_bwd']} backward)")
+    if not (after < before and unchanged):
+        raise AssertionError("the LoRA fine-tune did not lower the held "
+                             "batch's loss or moved the base")
+    path = os.path.join(save_to, "checkpoint.npz")
+    ck = Checkpoint(path)
+    if not (ck.is_lora and not ck.has("model")):
+        raise AssertionError("the LoRA fine-tune's checkpoint is not "
+                             "LoRA-only")
+    sctx = engine.LLMContext.from_checkpoint(h.ckpt, device=dev,
+                                             sampler=greedy)
+    sctx.load_lora_checkpoint(path)
+    same = all(torch.equal(sctx.lora[k], v.detach().to(bf16))
+               for k, v in trainer.lora.items())
+    del trainer, frozen
+    torch.cuda.empty_cache()
+    out, secs, c_ = god(sctx, LORA_NEW, h.nano_prompt)
+    exact("the fine-tuned adapter served", counted(c_),
+          dense_counts(LORA_NEW - 1, names, TL))
+    log(f"[lora] the LoRA-only checkpoint served by load_lora_checkpoint on "
+        f"the base: adapter equal to the trainer's (bf16): {same}, scale "
+        f"{sctx.lora_scale}; {LORA_NEW} tokens at "
+        f"{(LORA_NEW - 1) / secs:.1f} tok/s, launches exact")
+    if not (same and sctx.lora_scale == LORA_ALPHA / LORA_RANK
+            and out.max() < tcfg.vocab_size):
+        raise AssertionError("the LoRA-only checkpoint served wrong")
+    del sctx
+    shutil.rmtree(save_to)
+    torch.cuda.empty_cache()
+    log(f"[lora] 8d in {time.time() - t8:.1f} s")
+    return dict(launches=path_counts, batched=res, decode=(rl, rb),
+                train_ms=ms_step)
+
+
+def bench_lora(torch):
+    """Phase 8 alone (lora_phase) on phase 5's models built again, a
+    Nano-168M checkpoint of its initial weights (phase 6 trains it 12 steps
+    first) and phase 6's training config on its corpus; no GGUF model."""
+    import numpy as np
+    from nano_tpu_torch.config import ModelConfig
+    from nano_tpu_torch.io.checkpoint import save_checkpoint
+    from nano_tpu_torch.models import gpt
+    from nano_tpu_torch.ops import _build
+    from nano_tpu_torch.tokenizer.trie import TrieTokenizer
+    _build.build_all()
+    dev = torch.device("cuda")
+    cfg = ModelConfig(**QWEN3_06B)
+    work = os.path.join(ROOT, "build", "smoke_lora")
+    os.makedirs(work, exist_ok=True)
+    tcfg = ModelConfig.from_json(os.path.join(ROOT, "config",
+                                              "model_168m.json"))
+    tok_path = os.path.join(ROOT, "tokenizer", "nano_16384.json")
+    ttok = TrieTokenizer.from_file(tok_path)
+    ckpt = os.path.join(work, "nano168m_init.npz")
+    save_checkpoint(ckpt, params=gpt.init_params(
+        torch.Generator().manual_seed(SEED), tcfg, device="cpu"),
+        model_config=tcfg.to_dict(), tokenizer_config=ttok.config)
+    train_p, val_p, _, _ = pretrain_corpus(ttok, tcfg, work)
+    with open(os.path.join(ROOT, "config", "pretrain.json")) as f:
+        train_cfg = json.load(f)
+    train_cfg.update(dataset_path=[[train_p, val_p]], tokenizer_path=tok_path)
+    with open(os.path.join(ROOT, "dataset", "pretrain_sample.txt"),
+              encoding="utf-8") as f:
+        nano_ids = ttok.encode(f.read())
+    tok = TrieTokenizer()
+    tok.build_preset(32768)
+    prng = np.random.default_rng(SEED + 1)
+    for n in (17, 40, 100):            # phase 5's requests, then its prompt
+        prng.integers(100, 30000, n)
+    names = list(COUNTER_OF)
+    card = card_line()
+    res = lora_phase(torch, np, SimpleNamespace(
+        dev=dev, card=card, names=names, reset=lambda: zero_launches(torch),
+        read=lambda: read_launches(torch, names), cfg=cfg, tok=tok, prompt=prng.integers(100, 30000, PROMPT_LEN).tolist(),
+        base80=None, q80=random_q80_params(torch, np, cfg, "cpu"),
+        q4k=random_q4k_params(torch, np, cfg, "cpu"), gctx=None, tcfg=tcfg,
+        ckpt=ckpt, train_cfg=train_cfg, full_ms=None,
+        nano_prompt=nano_ids[:EXPORT_PROMPT], work=work))
+    shutil.rmtree(work)
+    log(f"[bench lora] {res}")
 
 
 # the rows form's timed cases: (label, rows B, with the head); a decode
@@ -2722,7 +3352,7 @@ def bench(what) -> int:
                      ("q4k", bench_q4k), ("q80", bench_q80),
                      ("pipes", bench_pipes), ("spec", bench_spec),
                      ("toy", bench_toy), ("export", bench_export),
-                     ("rows", bench_rows)):
+                     ("rows", bench_rows), ("lora", bench_lora)):
         if not what or name in what:
             fn(torch, **{"flash": flags, "q80": q80_flags,
                          "q4k": q4k_flags,
@@ -2740,7 +3370,6 @@ def main() -> int:
     import numpy as np
     from dataclasses import replace
     from nano_tpu_torch.config import ModelConfig
-    from nano_tpu_torch.data import preprocess
     from nano_tpu_torch.infer import engine, speculative
     from nano_tpu_torch.models import gpt
     from nano_tpu_torch.ops import (_build, decode_attn, flash_attn, int8_mma,
@@ -5092,12 +5721,15 @@ def main() -> int:
     logits_checks("Q80", params, [("W8A8 form", same, True, 4 / 127),
                                   ("rows form", rows_form, True, 1e-4)],
                   out80)
+    # phase 8 serves the two models again: kept on the host meanwhile
+    q80_host = params_to(params, "cpu")
     del params
     logits_checks("Q4K", params4,
                   [("Q4K with activation fake-quant", same, True, 1 / 15),
                    ("Q4K without activation fake-quant, rows-form head",
                     rows_form, False, 1e-4)], out4)
 
+    q4k_host = params_to(params4, "cpu")
     del params4
     torch.cuda.empty_cache()
 
@@ -5109,17 +5741,11 @@ def main() -> int:
     with open(os.path.join(ROOT, "dataset", "pretrain_sample.txt"),
               encoding="utf-8") as f:
         sample = f.read()
-    width = tcfg.block_size + 1
-    n_copies = -(-1100 * width // len(ttok.encode(sample)))
-    corpus = os.path.join(work, "corpus.txt")
-    with open(corpus, "w", encoding="utf-8") as f:
-        f.write(sample * n_copies)
     t0 = time.time()
-    train_p, val_p = preprocess.generate_pretrain_dataset(
-        [corpus], ttok, tcfg.block_size, os.path.join(work, "pt"))
-    n_blocks = sum(len(preprocess.load_shard(p_)[0]) for p_ in (train_p, val_p))
+    train_p, val_p, n_copies, n_blocks = pretrain_corpus(ttok, tcfg, work)
     log(f"[train] corpus: dataset/pretrain_sample.txt x {n_copies} -> "
-        f"{n_blocks} blocks of {width} tokens in {time.time() - t0:.1f} s")
+        f"{n_blocks} blocks of {tcfg.block_size + 1} tokens in "
+        f"{time.time() - t0:.1f} s")
     if n_blocks < 1024:
         raise AssertionError("corpus gave fewer than 1024 blocks")
 
@@ -5362,7 +5988,6 @@ def main() -> int:
         work=os.path.join(ROOT, "build", "smoke_export"),
         nano_prompt=nano_ids[:EXPORT_PROMPT],
         nano_control_prompt=nano_ids[1000:1000 + EXPORT_PROMPT]))
-    os.remove(ckpt12)
     # the rows form's JSON rows (phase 7b's GGUF model): q80_matvec_rows
     # over a decode step's 113 launches, q80_matmul_rows over a 64-token
     # prefill's 112 products, the warp-a-row kernel (their "before") over the
@@ -5377,6 +6002,29 @@ def main() -> int:
             plain_ms=t["plain"], library_ms=t["f32"], bound_ms=t["bound"][0],
             bound_by=t["bound"][1])
     log(f"[export] phase 7 in {time.time() - t0:.1f} s")
+
+    # ---------------- 8. LoRA ----------------
+    t0 = time.time()
+    res8 = lora_phase(torch, np, SimpleNamespace(
+        dev=dev, card=card, names=names, reset=reset, read=read, cfg=cfg,
+        tok=tok, prompt=prompt,
+        base80=out80, q80=q80_host, q4k=q4k_host, gctx=res7.pop("gctx"),
+        tcfg=tcfg, ckpt=ckpt12, train_cfg=train_cfg, full_ms=ms_step,
+        nano_prompt=nano_ids[:EXPORT_PROMPT],
+        work=os.path.join(ROOT, "build", "smoke_lora")))
+    os.remove(ckpt12)
+    del q80_host, q4k_host
+    lora_path = res8["launches"]
+    log(f"[lora] launches on the LoRA paths (phase 8's driven runs, each "
+        f"counted from 0): {lora_path}")
+    for name in ("q80_act_quant", "q80_matmul_w8a8", "q80_matvec_fq",
+                 "decode_attention", "rms_norm_q80", "swiglu_q80",
+                 "q4k_act_quant", "q4k_matmul_w4a4", "q4k_fake_quant",
+                 "q4k_matvec_fq", "q80_matvec_rows", "q80_matmul_rows",
+                 "flash_attn_fwd", "flash_attn_bwd"):
+        if lora_path[name] == 0:
+            raise AssertionError(f"the LoRA paths launched no {name}")
+    log(f"[lora] phase 8 in {time.time() - t0:.1f} s")
 
     # ---------------- result ----------------
     for k in kernels.values():

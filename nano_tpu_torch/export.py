@@ -7,24 +7,22 @@ arguments, output bytes and messages:
     python -m nano_tpu_torch.export out.bin --checkpoint ckpt.npz   # F32
     python -m nano_tpu_torch.export out.bin --quant ckpt.npz        # Q80
     python -m nano_tpu_torch.export out.bin --q4k ckpt.npz          # Q4K
+    python -m nano_tpu_torch.export out.bin --lora lora_ckpt.npz    # LoRA sidecar
     python -m nano_tpu_torch.export out.bin --checkpoint ref.pt     # reference .pt
     python -m nano_tpu_torch.export out.bin --repack model.bin [--to q4k|q80|f32]
     python -m nano_tpu_torch.export out.bin --from-gguf model.gguf [--to q80]
     python -m nano_tpu_torch.export out.gguf --to-gguf qwen.bin [--to q8_0]
 
-The .bin embeds the checkpoint's tokenizer.  Everything here runs on the
-host (numpy); no device is needed.  LoRA export (``--lora``,
-``--merge-lora``) is not ported yet (ROADMAP queue 1, item 8).
+``--merge-lora adapter`` (a LoRA .npz checkpoint or .bin sidecar) folds
+the adapter into the base weights of a --checkpoint / --quant / --q4k
+.npz export first.  The .bin embeds the checkpoint's tokenizer.
+Everything here runs on the host; no device is needed.
 """
 
 from __future__ import annotations
 
 import argparse
 from typing import List, Optional
-
-LORA_NOT_PORTED = ("LoRA export is not ported to nano_tpu_torch yet "
-                   "(ROADMAP queue 1, item 8): use the root export.py")
-
 
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(description="Nano .bin exporter")
@@ -33,7 +31,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     g.add_argument("--checkpoint", help="FP32 export from .npz checkpoint")
     g.add_argument("--quant", help="Q80 export from .npz checkpoint")
     g.add_argument("--q4k", help="Q4K export from .npz checkpoint")
-    g.add_argument("--lora", help="LoRA export (not ported yet)")
+    g.add_argument("--lora", help="LoRA export from .npz checkpoint")
     g.add_argument("--repack", help="re-quantize an existing .bin")
     g.add_argument("--from-gguf", dest="from_gguf",
                    help="convert a llama.cpp GGUF (dense Qwen2/Qwen3) "
@@ -46,14 +44,13 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="target quant for --repack / --from-gguf "
                          "(f32|q80|q4k) and --to-gguf (f32|f16|q8_0)")
     ap.add_argument("--merge-lora", dest="merge_lora",
-                    help="fold a LoRA adapter in first (not ported yet)")
+                    help="fold a LoRA adapter (.npz checkpoint or .bin "
+                         "sidecar) into the base weights before export "
+                         "(composes with --checkpoint/--quant/--q4k)")
     ap.add_argument("--group_size", type=int, default=256,
                     help="Q80 quantization group (halved until it divides "
                          "the dims; >= 256 takes the W8A8 kernels)")
     args = ap.parse_args(argv)
-
-    if args.lora or args.merge_lora:
-        raise SystemExit(LORA_NOT_PORTED)
 
     from nano_tpu_torch.io import binfmt
 
@@ -88,10 +85,14 @@ def main(argv: Optional[List[str]] = None) -> None:
         print(f"repacked {args.repack} -> {args.output} ({args.to})")
         return
 
-    src = args.checkpoint or args.quant or args.q4k
+    src = args.checkpoint or args.quant or args.q4k or args.lora
     quant = "f32" if args.checkpoint else ("q80" if args.quant else "q4k")
     if src.endswith((".pt", ".pth")):
         from nano_tpu_torch.io import pt_import
+        if args.lora:
+            raise SystemExit("LoRA .pt export needs the base config: "
+                             "convert with pt_import.import_lora() + "
+                             "binfmt.write_lora() instead")
         cfg = pt_import.pt_to_bin(src, args.output, quant=quant,
                                   group_size=args.group_size)
         print(f"exported {quant} from reference .pt -> {args.output} "
@@ -102,9 +103,28 @@ def main(argv: Optional[List[str]] = None) -> None:
     from nano_tpu_torch.io.checkpoint import Checkpoint
     ck = Checkpoint(src)
     cfg = ModelConfig.from_dict(ck.model_config)
-    binfmt.write_model(args.output, ck.load_params(), cfg,
-                       ck.tokenizer_config, quant=quant,
-                       group_size=args.group_size)
+
+    if args.lora:
+        rank, alpha = ck.lora_rank_alpha()
+        binfmt.write_lora(args.output, ck.load_lora(), cfg, rank=rank,
+                          alpha=alpha)
+        print(f"exported LoRA (rank={rank}, alpha={alpha}) -> {args.output}")
+        return
+
+    params = ck.load_params()
+    if args.merge_lora:
+        from nano_tpu_torch.models import gpt
+        if args.merge_lora.endswith(".bin"):
+            bl = binfmt.read_lora(args.merge_lora, cfg)
+            lora, scale = bl.lora, bl.alpha / bl.rank
+        else:
+            lck = Checkpoint(args.merge_lora)
+            rank, alpha = lck.lora_rank_alpha()
+            lora, scale = lck.load_lora(), alpha / rank
+        params = gpt.merge_lora(params, lora, scale)
+        print(f"merged LoRA {args.merge_lora} (scale {scale:g})")
+    binfmt.write_model(args.output, params, cfg, ck.tokenizer_config,
+                       quant=quant, group_size=args.group_size)
     print(f"exported {quant} -> {args.output}")
 
 

@@ -28,7 +28,19 @@ is a ``DecodeGraph`` too, captured per (k, attended length).  ``Session``
 replays one round and reads its tokens once; ``generate_on_device`` keeps
 the loop's state on the device and reads it once every
 ``SPEC_READ_EVERY`` rounds.  Continuous batching is ``serve.batching``;
-LoRA and observers are not ported yet.
+observers are not ported yet.
+
+LoRA: a context carries one adapter (``lora`` / ``lora_scale``), attached,
+swapped and detached by ``load_lora`` / ``load_lora_checkpoint`` /
+``unload_lora`` at any time (the JAX engine's hot-swap), or cloned into a
+variant that shares the base weights (``clone_with_lora``).  The decoder
+keeps its own static copy of the context's adapter
+(``AdapterBuffers``), which its graphs read and which it brings up to date
+each time a stream claims it: an adapter of the same rank is copied into
+the buffers the graphs captured (no capture again, also after a detach),
+one of another rank gets new buffers and the graphs that read the old ones
+are dropped, and a context without an adapter runs the graphs it always
+had.
 """
 
 from __future__ import annotations
@@ -148,6 +160,8 @@ class LLMContext:
     enable_thinking: bool = False       # Qwen chat template switch
     kv_cache_dtype: Optional[torch.dtype] = None   # torch.int8 halves it
     spec_k: int = 0                     # speculative draft length cap
+    lora: Optional[Dict[str, torch.Tensor]] = None   # stacked (L, in, r) ...
+    lora_scale: float = 0.0             # alpha / rank of the adapter
     _rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = field(
         default=None, init=False, repr=False)
     _decoder: Optional["SingleDecoder"] = field(
@@ -294,8 +308,8 @@ class LLMContext:
         device = resolve_device(device)
         ck = Checkpoint(path)
         if ck.is_lora and not ck.has("model"):
-            raise ValueError("LoRA-only checkpoint: serving LoRA adapters "
-                             "is not ported yet")
+            raise ValueError("LoRA-only checkpoint: pass the base model via "
+                             "from_checkpoint(base) + load_lora_checkpoint")
         cfg = ModelConfig.from_dict(ck.model_config)
         params = gpt.map_leaves(
             lambda t: t.to(device=device,
@@ -305,6 +319,38 @@ class LLMContext:
         return cls(cfg=cfg, params=params, tokenizer=tok,
                    max_seq_len=max_seq_len or cfg.block_size,
                    device=device, dtype=dtype, **kw)
+
+    def _attach(self, lora: Dict[str, Any], scale: float) -> None:
+        self.lora = {k: torch.as_tensor(v).to(self.device, self.dtype)
+                     for k, v in lora.items()}
+        self.lora_scale = scale
+
+    def load_lora_checkpoint(self, path: str) -> None:
+        """Attach the LoRA adapter of a training checkpoint (.npz, this
+        package's or the JAX package's): alpha / rank from its train
+        config."""
+        from nano_tpu_torch.io.checkpoint import Checkpoint
+        ck = Checkpoint(path)
+        rank, alpha = ck.lora_rank_alpha()
+        self._attach(ck.load_lora(), alpha / rank)
+
+    def load_lora(self, path: str) -> None:
+        """Hot-swap a LoRA module (reference: infer/infer.c:500-549): the
+        next step of every stream decodes with it."""
+        bl = binfmt.read_lora(path, self.cfg)
+        self._attach(bl.lora, bl.alpha / bl.rank)
+
+    def unload_lora(self) -> None:
+        self.lora = None
+        self.lora_scale = 0.0
+
+    def clone_with_lora(self, path: str) -> "LLMContext":
+        """A variant context sharing the base weights (the same tensors,
+        no copy) with its own LoRA adapter, decoder and stream."""
+        import dataclasses
+        variant = dataclasses.replace(self)
+        variant.load_lora(path)
+        return variant
 
     def encode(self, text: str) -> List[int]:
         return self.tokenizer.encode(text)
@@ -382,11 +428,12 @@ class StreamDecoder:
 # prefill and the decode step
 # =====================================================================
 
-def _prefill(ctx: LLMContext, prompt_ids: List[int], cache: gpt.KVCache
+def _prefill(ctx: LLMContext, prompt_ids: List[int], cache: gpt.KVCache,
+             lora: Optional[Dict[str, torch.Tensor]] = None, lora_scale=0.0
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run the pow2-padded prompt into `cache` (host positions, eager).
-    -> (f32 logits of the last prompt position (1, V), the prompt's seen
-    mask (1, V))."""
+    """Run the pow2-padded prompt into `cache` (host positions, eager),
+    with the adapter `lora` if one is given.  -> (f32 logits of the last
+    prompt position (1, V), the prompt's seen mask (1, V))."""
     n = len(prompt_ids)
     pad_len = min(_bucket(n), ctx.max_seq_len)
     ids = np.zeros((1, pad_len), np.int64)
@@ -395,7 +442,8 @@ def _prefill(ctx: LLMContext, prompt_ids: List[int], cache: gpt.KVCache
     logits, _ = gpt.forward_with_cache(
         ctx.params, ids_t, cache, 0, ctx.cfg, dtype=ctx.dtype,
         attn_len=pad_len if pad_len < cache.max_seq else None,
-        last_idx=n - 1, rope=ctx.rope_tables())
+        last_idx=n - 1, rope=ctx.rope_tables(), lora=lora,
+        lora_scale=lora_scale)
     # repetition-penalty scope: the prompt tokens
     seen = sampling.seen_mask_from_ids(
         ids_t, torch.tensor([n], device=ctx.device), ctx.cfg.vocab_size)
@@ -403,11 +451,12 @@ def _prefill(ctx: LLMContext, prompt_ids: List[int], cache: gpt.KVCache
 
 
 def _prefill_first_token(ctx: LLMContext, prompt_ids: List[int],
-                         cache: gpt.KVCache, generator: torch.Generator
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+                         cache: gpt.KVCache, generator: torch.Generator,
+                         lora: Optional[Dict[str, torch.Tensor]] = None,
+                         lora_scale=0.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prefill, then sample the first token from the last prompt position.
     -> (token (1,) on the device, seen mask (1, V))."""
-    last, seen = _prefill(ctx, prompt_ids, cache)
+    last, seen = _prefill(ctx, prompt_ids, cache, lora, lora_scale)
     last = sampling.apply_repetition_penalty(
         last, seen, ctx.sampler.repetition_penalty)
     tok = _sample_windowed(last, ctx.sampler, generator)
@@ -417,14 +466,18 @@ def _prefill_first_token(ctx: LLMContext, prompt_ids: List[int],
 
 def _decode_step(ctx: LLMContext, tok: torch.Tensor, pos: torch.Tensor,
                  cache: gpt.KVCache, seen: torch.Tensor,
-                 generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Forward tok (B,) at positions pos (B,) int32 on the device, sample
-    the next tokens (seen updated in place when a repetition penalty
-    applies).  Every input is a device tensor: this is the function a
-    decode graph captures, and the eager loop it is held against."""
+                 generator: Optional[torch.Generator],
+                 lora: Optional[Dict[str, torch.Tensor]] = None,
+                 lora_scale=0.0) -> torch.Tensor:
+    """Forward tok (B,) at positions pos (B,) int32 on the device (with the
+    adapter `lora` if one is given; its scale a 0-d device tensor under a
+    capture), sample the next tokens (seen updated in place when a
+    repetition penalty applies).  Every input is a device tensor: this is
+    the function a decode graph captures, and the eager loop it is held
+    against."""
     logits, _ = gpt.forward_decode_batched(
         ctx.params, tok, cache, pos, ctx.cfg, dtype=ctx.dtype,
-        rope=ctx.rope_tables())
+        rope=ctx.rope_tables(), lora=lora, lora_scale=lora_scale)
     penalty = ctx.sampler.repetition_penalty
     if penalty != 1.0:
         logits = sampling.apply_repetition_penalty(logits, seen, penalty)
@@ -510,6 +563,55 @@ class DecodeGraph:
             launches.add(self.delta)
 
 
+class AdapterBuffers:
+    """A LoRA adapter as static device tensors that captured graphs read:
+    ``lora`` (stacked, in the compute dtype) and ``scale`` (a 0-d tensor in
+    that dtype), None while no adapter is attached.  ``sync`` brings them
+    up to an adapter: one of the shapes the buffers have is copied into
+    them, so the graphs that captured them stay valid (detaching keeps the
+    buffers for the next adapter); one of other shapes gets new buffers.
+    ``key`` (the attached adapter's shape, None without one) is part of
+    every graph's key, so no graph outlives the buffers it reads once the
+    caller drops those of the replaced shape."""
+
+    def __init__(self, device: torch.device, dtype: torch.dtype):
+        self.device, self.dtype = device, dtype
+        self.lora: Optional[Dict[str, torch.Tensor]] = None
+        self.scale: Optional[torch.Tensor] = None
+        self._bufs: Optional[tuple] = None      # (lora, scale), kept
+        self._src: tuple = (None, 0.0)
+
+    @property
+    def key(self) -> Optional[tuple]:
+        return None if self.lora is None else tuple(self.lora["wq_a"].shape)
+
+    def sync(self, lora: Optional[Dict[str, torch.Tensor]], scale: float
+             ) -> bool:
+        """Hold `lora` scaled by `scale` (the same dict object as the last
+        call: nothing to do).  -> whether buffers that a graph may have
+        captured were replaced."""
+        if lora is self._src[0] and scale == self._src[1]:
+            return False
+        self._src = (lora, scale)
+        if lora is None:
+            self.lora = self.scale = None
+            return False
+        bufs = self._bufs
+        if bufs is not None and all(bufs[0][k].shape == t.shape
+                                    for k, t in lora.items()):
+            for k, t in lora.items():
+                bufs[0][k].copy_(t)
+            bufs[1].fill_(scale)
+            self.lora, self.scale = bufs
+            return False
+        self._bufs = ({k: t.to(self.device, self.dtype, copy=True)
+                       for k, t in lora.items()},
+                      torch.full((), scale, dtype=self.dtype,
+                                 device=self.device))
+        self.lora, self.scale = self._bufs
+        return bufs is not None
+
+
 class SingleDecoder:
     """The single stream's decode state on the device — token, position,
     seen mask, a max_seq_len cache, an output buffer and the index of its
@@ -526,7 +628,9 @@ class SingleDecoder:
 
     Streams share it one at a time: a stream ``claim``s it before each use,
     and the state of the stream that held it is copied out (to be copied
-    back when that stream claims it again)."""
+    back when that stream claims it again).  A claim also brings the
+    decoder's copy of the context's LoRA adapter (``adapter``) up to date;
+    its graphs are keyed by the adapter's shape as well."""
 
     def __init__(self, ctx: LLMContext):
         dev = ctx.device
@@ -548,6 +652,7 @@ class SingleDecoder:
         self.stop_at, self.rounds = zeros(1), zeros(1)
         self.round_g, self.round_n = zeros(self.k_max + 1), zeros(1)
         self.gen = ctx.generator()
+        self.adapter = AdapterBuffers(dev, ctx.dtype)
         self.graphs: Dict[tuple, DecodeGraph] = {}
         self._owner: Optional[weakref.ref] = None
         # the state of each stream that does not hold the buffers now
@@ -563,6 +668,10 @@ class SingleDecoder:
     def claim(self, owner: Any = None) -> None:
         """Make `owner`'s stream the one in the buffers; None: a stream
         that is started and finished in one call (generate_on_device)."""
+        if self.adapter.sync(self.ctx.lora, self.ctx.lora_scale):
+            # the graphs that read the buffers just released or replaced
+            self.graphs = {k: g for k, g in self.graphs.items()
+                           if k[-1] is None}
         held = self._owner() if self._owner is not None else None
         if held is not None and held is owner:
             return
@@ -581,7 +690,8 @@ class SingleDecoder:
         the buffers and out[0].  -> the first token (1,)."""
         self.gen.manual_seed(self.ctx.random_seed)
         tok, seen = _prefill_first_token(self.ctx, prompt_ids, self.cache,
-                                         self.gen)
+                                         self.gen, self.adapter.lora,
+                                         self.adapter.scale)
         self.tok.copy_(tok)
         self.seen.copy_(seen)
         self.pos.fill_(len(prompt_ids))
@@ -597,7 +707,8 @@ class SingleDecoder:
 
     def _step(self) -> None:
         nxt = _decode_step(self.ctx, self.tok, self.pos, self.cache,
-                           self.seen, self.gen)
+                           self.seen, self.gen, self.adapter.lora,
+                           self.adapter.scale)
         self.tok.copy_(nxt)
         self.out.index_copy_(0, self.n_out, nxt)
         self.pos.add_(1)
@@ -606,7 +717,7 @@ class SingleDecoder:
     def _graph(self, n_steps: int = 1) -> DecodeGraph:
         """The graph of `n_steps` steps for the context's sampler (the
         engine replays single steps; a longer graph is for measurement)."""
-        key = (self.ctx.sampler, n_steps)
+        key = (self.ctx.sampler, n_steps, self.adapter.key)
         if key not in self.graphs:
             stochastic = self.ctx.sampler.temperature > 0.0
             me = weakref.proxy(self)
@@ -624,7 +735,7 @@ class SingleDecoder:
     def _round_graph(self, k: int, attn_len: Optional[int]) -> DecodeGraph:
         """The graph of one verify round of k drafts attending `attn_len`
         rows (all when None)."""
-        key = ("round", self.ctx.sampler, k, attn_len)
+        key = ("round", self.ctx.sampler, k, attn_len, self.adapter.key)
         if key not in self.graphs:
             me = weakref.proxy(self)
             self.graphs[key] = DecodeGraph(

@@ -150,8 +150,8 @@ def verify_step(params, tok: torch.Tensor, pos: torch.Tensor,
                 cache: gpt.KVCache, hist: torch.Tensor, seen: torch.Tensor,
                 rep_penalty: float, cfg, dtype, k: int,
                 attn_len: Optional[int] = None, rope=None,
-                live: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                live: Optional[torch.Tensor] = None, lora=None,
+                lora_scale=0.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """One speculation round of one stream (JAX's ``_verify_round`` and its
     jitted ``verify_step``): draft k, verify k+1 in one forward.
 
@@ -163,12 +163,14 @@ def verify_step(params, tok: torch.Tensor, pos: torch.Tensor,
     and seen (the emitted tokens) are updated in place.  `live` (1,) bool:
     where false the round emits nothing (n_out 0, seen unchanged).  The
     penalty is ``sampling.apply_repetition_penalty``, the plain step's op.
-    The caller guarantees pos + k + 1 < attn_len.
+    `lora`: the stream's adapter, as the plain step takes it.  The caller
+    guarantees pos + k + 1 < attn_len.
     """
     draft = batched_ngram_draft(hist, pos, k)                  # (1, k)
     ids = torch.cat([tok.reshape(1, 1), draft], dim=1)          # (1, k+1)
     logits, _ = gpt.forward_spec_batched(params, ids, cache, pos, cfg,
-                                         dtype, attn_len=attn_len, rope=rope)
+                                         dtype, attn_len=attn_len, rope=rope,
+                                         lora=lora, lora_scale=lora_scale)
     lf = logits[0]                                              # (k+1, V)
     if rep_penalty != 1.0:
         lf = sampling.apply_repetition_penalty(
@@ -185,10 +187,10 @@ def verify_step(params, tok: torch.Tensor, pos: torch.Tensor,
 def spec_decode_round(dec, k: int, attn_len: Optional[int] = None) -> None:
     """One round of the speculative decode loop over a decoder's device
     state (``engine.SingleDecoder``: tok, pos, cache, hist, seen, out,
-    n_out, stop_at, rounds, round_g, round_n), in place: the condition and
-    the body of JAX's ``spec_decode_loop`` ``while_loop``, which
-    ``SingleDecoder`` replays from a CUDA graph and reads back every few
-    rounds.
+    n_out, stop_at, rounds, round_g, round_n and the adapter's buffers),
+    in place: the condition and the body of JAX's ``spec_decode_loop``
+    ``while_loop``, which ``SingleDecoder`` replays from a CUDA graph and
+    reads back every few rounds.
 
     The round is live while n_out < stop_at and pos + k + 2 <= max_seq_len
     (JAX's condition).  A round past the loop's end runs at position
@@ -203,7 +205,8 @@ def spec_decode_round(dec, k: int, attn_len: Optional[int] = None) -> None:
     g, n = verify_step(ctx.params, dec.tok, torch.where(live, dec.pos, T),
                        dec.cache, dec.hist, dec.seen,
                        ctx.sampler.repetition_penalty, ctx.cfg, ctx.dtype, k,
-                       attn_len, ctx.rope_tables(), live)
+                       attn_len, ctx.rope_tables(), live, dec.adapter.lora,
+                       dec.adapter.scale)
     dec.out.index_copy_(0, dec.n_out + torch.arange(k + 1, device=g.device),
                         g)
     dec.tok.copy_(torch.where(live, g.gather(0, (n - 1).clamp(min=0)),

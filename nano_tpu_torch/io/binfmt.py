@@ -1,5 +1,5 @@
-"""``.bin`` model reader and writer — the port's copy of
-``nano_tpu/io/binfmt.py`` (LoRA files not yet).
+"""``.bin`` model and LoRA reader and writer — the port's copy of
+``nano_tpu/io/binfmt.py``.
 
 Format (bit-compatible with the reference; spec: reference
 README.md:239-255, parser infer/infer.c:220-320):
@@ -23,6 +23,8 @@ and writes the JAX writer's bytes; ``repack`` re-quantizes a file.
 ``quantized_device_params`` builds the device tensors: stacked
 ``Q80Tensor``s for Q80 files, stacked packed ``Q4KTensor``s for Q4K files
 with the tied head requantized to Q80 (``q4k_head_requant``).
+``write_lora`` / ``read_lora`` are the LoRA files (model type 10): the
+256-B header and f32 A / B matrices, in the stacked (L, in, out) layout.
 """
 
 from __future__ import annotations
@@ -470,7 +472,7 @@ def read_model(path: str, dense: bool = True) -> BinModel:
         data = f.read()
     hdr = parse_header(data)
     if hdr.model_type == MODEL_TYPE_LORA:
-        raise ValueError("LoRA files are not model files")
+        raise ValueError("LoRA files are not model files: use read_lora")
     if hdr.quant_type not in (QUANT_F32, QUANT_Q80, QUANT_Q4K):
         raise ValueError(f"unsupported quant_type 0x{hdr.quant_type:x}")
     if hdr.model_type in (MODEL_TYPE_QWEN2, MODEL_TYPE_QWEN3):
@@ -767,3 +769,77 @@ def q4k_head_requant(blocks: np.ndarray, out_dim: int, in_dim: int,
                      scales=torch.from_numpy(
                          scales.reshape(out_dim, in_dim // gs)).to(device),
                      group_size=gs, w8a8=gs >= MIN_W8A8_GS)
+
+
+# =====================================================================
+# LoRA files (reference: export.py:119-224, infer/infer.c:413-499)
+# =====================================================================
+
+_LORA_ORDER = ("wq", "wk", "wv", "wo")
+
+
+def write_lora(path: str, lora: Dict[str, Any], cfg: ModelConfig,
+               rank: int, alpha: int) -> None:
+    """LoRA .bin: 256-B header (type 10) + f32 A / B matrices.
+
+    File order: wq_a[L], wq_b[L], wk_a[L], wk_b[L], wv_a[L], wv_b[L],
+    wo_a[L], wo_b[L]; each matrix stored (out, in) row-major.  `lora`
+    holds the stacked (L, in, out) layout, numpy arrays or tensors of any
+    device and float type.
+    """
+    buf = io.BytesIO()
+    buf.write(struct.pack("<II", MAGIC_0, MAGIC_1))
+    buf.write(struct.pack("<ii", *VERSION))
+    buf.write(struct.pack("<ii", MODEL_TYPE_LORA, 32))
+    buf.write(struct.pack("<8i", rank, alpha, cfg.n_layer, cfg.n_embd,
+                          cfg.n_head, cfg.n_kv_head, cfg.n_hidden, 0))
+    raw = buf.getvalue()
+    with open(path, "wb") as f:
+        f.write(raw + b"\0" * (HEADER_BYTES - len(raw)))
+        for name in _LORA_ORDER:
+            for suffix in ("_a", "_b"):
+                stacked = _f32(lora[name + suffix])        # (L, in, out)
+                for w in stacked:
+                    f.write(np.ascontiguousarray(w.T).astype("<f4").tobytes())
+
+
+@dataclass
+class BinLora:
+    rank: int
+    alpha: int
+    lora: Dict[str, np.ndarray]   # the stacked (L, in, out) layout, f32
+
+
+def read_lora(path: str, cfg: ModelConfig) -> BinLora:
+    """Parse a LoRA .bin for the base model `cfg` (its layer count and
+    widths must be the file's)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if struct.unpack_from("<II", data, 0) != (MAGIC_0, MAGIC_1):
+        raise ValueError("not a BD4SURLM .bin file")
+    model_type, _ = struct.unpack_from("<ii", data, 16)
+    if model_type != MODEL_TYPE_LORA:
+        raise ValueError("not a LoRA .bin file")
+    rank, alpha, n_layer, n_embd, n_head, n_kv_head, n_hidden, _res = \
+        struct.unpack_from("<8i", data, 24)
+    if (n_layer, n_embd, n_head, n_kv_head, n_hidden) != (
+            cfg.n_layer, cfg.n_embd, cfg.n_head, cfg.n_kv_head,
+            cfg.n_hidden):
+        raise ValueError("LoRA file does not match base model config")
+    r = _Reader(data, HEADER_BYTES)
+    L, E = cfg.n_layer, cfg.n_embd
+    HD, KD = cfg.n_head * cfg.head_dim, cfg.n_kv_head * cfg.head_dim
+    dims = {"wq": (E, HD), "wk": (E, KD), "wv": (E, KD), "wo": (HD, E)}
+
+    def read_stack(out_dim, in_dim):
+        return np.stack([
+            np.ascontiguousarray(r.f32(out_dim * in_dim)
+                                 .reshape(out_dim, in_dim).T)
+            for _ in range(L)])
+
+    lora = {}
+    for name in _LORA_ORDER:
+        inn, out = dims[name]
+        lora[name + "_a"] = read_stack(rank, inn)
+        lora[name + "_b"] = read_stack(out, rank)
+    return BinLora(rank=rank, alpha=alpha, lora=lora)

@@ -1,13 +1,15 @@
 """Checkpoint save/load — self-contained, resumable.
 
 Port of ``nano_tpu/io/checkpoint.py``: one ``.npz`` holding the model
-params, optimizer state, step count, both configs
+params and / or a LoRA adapter, optimizer state, step count, both configs
 and the full tokenizer config, with JSON metadata under ``__meta__``.
 
-The ``model/…`` keys, their arrays and the metadata are the JAX package's
-(nested dict paths joined by ``/``; a bf16 leaf stored as a uint16 view
-under its key suffixed ``::bfloat16``), so the **params** of a checkpoint
-written by either package load in the other.  The optimizer state is this
+The ``model/…`` and ``lora/…`` keys, their arrays and the metadata are the
+JAX package's (nested dict paths joined by ``/``; a bf16 leaf stored as a
+uint16 view under its key suffixed ``::bfloat16``), so the **params** and
+the **adapter** of a checkpoint written by either package load in the
+other; a LoRA fine-tune's checkpoint holds the adapter alone
+(``is_lora``, no ``model/…``).  The optimizer state is this
 package's own flat layout under ``opt/…`` (``opt/count``, ``opt/mu/<path>``,
 ``opt/nu/<path>``): optax's state tree has no counterpart here, so a
 checkpoint resumes training only in the package that wrote it.
@@ -17,7 +19,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -79,7 +81,7 @@ def _paths(tree: Dict[str, Any], prefix: str = ""):
             yield prefix + k, v
 
 
-def save_checkpoint(path: str, *, params: Any = None,
+def save_checkpoint(path: str, *, params: Any = None, lora: Any = None,
                     opt_state: Any = None, step: int = 0,
                     model_config: Optional[dict] = None,
                     train_config: Optional[dict] = None,
@@ -88,11 +90,13 @@ def save_checkpoint(path: str, *, params: Any = None,
     arrays: Dict[str, np.ndarray] = {}
     if params is not None:
         arrays.update(_flatten(params, "model"))
+    if lora is not None:
+        arrays.update(_flatten(lora, "lora"))
     if opt_state is not None:
         arrays.update(_flatten(opt_state, "opt"))
     meta = {
         "version": VERSION,
-        "is_lora": False,        # the JAX package's readers look for the key
+        "is_lora": lora is not None,
         "step_count": int(step),
         "model_config": model_config,
         "train_config": train_config,
@@ -140,6 +144,16 @@ class Checkpoint:
 
     def load_params(self) -> Dict[str, Any]:
         return _unflatten(self._collect("model"), "model")
+
+    def load_lora(self) -> Dict[str, Any]:
+        """The adapter: {"wq_a": (L, in, r) CPU tensor, ...}."""
+        return _unflatten(self._collect("lora"), "lora")
+
+    def lora_rank_alpha(self) -> Tuple[int, int]:
+        """The adapter's (rank, alpha), from the train config (the
+        reference's defaults 16 and 32 where it has none)."""
+        tc = self.train_config or {}
+        return int(tc.get("lora_rank", 16)), int(tc.get("lora_alpha", 32))
 
     def load_opt_state(self) -> Dict[str, Any]:
         """{"count", "mu": {<path>: tensor}, "nu": {...}} with the

@@ -1,7 +1,6 @@
 """Import reference PyTorch ``.pt`` checkpoints.
 
-Port of ``nano_tpu/io/pt_import.py`` (LoRA checkpoints not yet).  The
-reference saves self-contained checkpoints (reference: train.py:402-427):
+Port of ``nano_tpu/io/pt_import.py``.  The reference saves self-contained checkpoints (reference: train.py:402-427):
 ``{version, is_lora, model|lora (state_dict), optimizer, step_count,
 train_config, model_config, tokenizer_config}`` with the two configs
 pickled as dataclass instances of the reference's own classes.  This
@@ -19,6 +18,10 @@ State-dict name map (reference model.py:311-348):
     layers.{i}.feed_forward.w{1,2,3}.weight -> blocks.w* (L, in, out)
     norm.weight                      -> norm (E,)
     output.weight                    -> ignored when tied (model.py:348)
+LoRA checkpoints wrap the linears (model.py:419-430), so base keys gain
+a ``.w.`` segment and adapters appear as ``.lora_a/.lora_b``; their
+import target (``import_lora``) is the stacked adapter {wq_a (L, E, r),
+wq_b (L, r, out), ...}.
 """
 
 from __future__ import annotations
@@ -167,7 +170,8 @@ def import_checkpoint(path: str) -> Tuple[ModelConfig, Dict[str, Any],
     tokenizer_config|None, step, train_config dict)."""
     ck = load_pt(path)
     if ck.get("is_lora"):
-        raise ValueError("LoRA checkpoint: LoRA is not ported yet")
+        raise ValueError("LoRA checkpoint: use import_lora() with the "
+                         "base model's config")
     cfg = _model_config(ck)
     sd = _strip(ck["model"])
     L = cfg.n_layer
@@ -206,6 +210,28 @@ def import_checkpoint(path: str) -> Tuple[ModelConfig, Dict[str, Any],
     tc_dict = (tc.to_dict() if isinstance(tc, _ConfigShim)
                else dict(tc) if isinstance(tc, dict) else {})
     return cfg, params, tok_cfg, int(ck.get("step_count", 0)), tc_dict
+
+
+def import_lora(path: str, cfg: ModelConfig
+                ) -> Tuple[Dict[str, Any], int, int]:
+    """LoRA .pt -> (the stacked adapter in the (L, in, out) layout, rank,
+    alpha) for the base model `cfg`."""
+    ck = load_pt(path)
+    if not ck.get("is_lora"):
+        raise ValueError("not a LoRA checkpoint")
+    sd = _strip(ck["lora"])
+    tc = ck.get("train_config")
+    tc_d = tc.to_dict() if isinstance(tc, _ConfigShim) else dict(tc or {})
+    rank = int(tc_d.get("lora_rank", 16))
+    alpha = int(tc_d.get("lora_alpha", 32))
+    lora: Dict[str, Any] = {}
+    for proj in ("wq", "wk", "wv", "wo"):
+        for ab in ("a", "b"):
+            lora[f"{proj}_{ab}"] = np.stack([
+                np.ascontiguousarray(_np(sd[
+                    f"layers.{l}.attention.{proj}.lora_{ab}.weight"]).T)
+                for l in range(cfg.n_layer)])
+    return lora, rank, alpha
 
 
 def pt_to_npz(pt_path: str, npz_path: str) -> ModelConfig:

@@ -8,6 +8,11 @@ untied / ``output_q`` heads; ``forward_with_cache`` with ``attn_len`` and
 positions held on the device) and ``forward_spec_batched`` (S tokens per
 row, the speculative verify round); and the no-cache path ``forward_hidden`` /
 ``forward`` / ``loss_fn`` (masked CE, chunked CE, remat) with ``init_params``.
+Every forward takes an optional LoRA adapter (``lora`` / ``lora_scale``):
+the low-rank branch (x @ A) @ B * alpha/rank on q, k, v and wo
+(``_lora_delta``), one adapter for every row or, in the batched decode and
+verify forwards, an adapter per row picked from a stack (``lora_idx``);
+``merge_lora`` folds one into the base and ``init_lora_params`` makes one.
 
 The parameters keep the JAX package's layout so the two compare like with
 like: layer weights are STACKED along a leading (n_layer,) axis, dense
@@ -29,8 +34,8 @@ product fed more than one row, so that no ``q80_act_quant`` runs on it.
 The cached prefill attention (S > 1), the qk-norm, RoPE and the cache
 write are plain PyTorch, as they were XLA-fused ops on the TPU; so are the
 no-cache forward's norms and SwiGLU (the fused kernels have no backward);
-dense projections, the LM head and the loss are ``torch.matmul`` and plain
-PyTorch, as they were XLA's.
+dense projections, the LoRA branch, the LM head and the loss are
+``torch.matmul`` and plain PyTorch, as they were XLA's.
 
 Training parameters are leaf tensors with ``requires_grad`` in the same
 nested dict and the same stacked layout, f32 masters cast to the compute
@@ -116,13 +121,16 @@ def _q80_group(ws, rows: int) -> int:
 
 
 def _norm(x: torch.Tensor, weight: torch.Tensor, eps: float, ws,
-          residual: Optional[torch.Tensor] = None):
+          residual: Optional[torch.Tensor] = None, keep: bool = False):
     """The cached forward's RMSNorm of x (+ residual) for the products
     `ws`, one ``rms_norm_q80`` launch -> (h, the normed activation: a
-    ``Q80Act`` where ``_q80_group`` asks for one, else a tensor)."""
+    ``Q80Act`` where ``_q80_group`` asks for one, else a tensor, and the
+    normed tensor where that is the tensor or `keep` asks for it too, as
+    a LoRA branch beside a W8A8 product does; else None)."""
     gs = _q80_group(ws, x.numel() // x.shape[-1])
-    h, hn, act = rms_norm_q80(x, weight, eps, residual, gs, want_hn=not gs)
-    return h, act if gs else hn
+    h, hn, act = rms_norm_q80(x, weight, eps, residual, gs,
+                              want_hn=keep or not gs)
+    return h, act if gs else hn, hn
 
 
 def _dense(x, w, dtype) -> torch.Tensor:
@@ -134,6 +142,51 @@ def _dense(x, w, dtype) -> torch.Tensor:
     if isinstance(w, Q4KTensor):
         return q4k_matmul(x, w, dtype)
     return torch.matmul(x.to(dtype), w.to(dtype))
+
+
+def _lora_delta(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, scale,
+                dtype, idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The LoRA branch (x @ A) @ B * scale, each product and the scaling
+    rounded to `dtype` as the JAX package's (preferred_element_type=dtype,
+    then `* scale` in dtype).
+
+    a (in, r), b (r, out), scale a float or a 0-d tensor: one adapter for
+    every row.  a (A, in, r), b (A, r, out), idx (B,) and scale (B,): row b
+    of x (B, S, in) takes adapter idx[b] of the stack with scale[b], the
+    JAX per-slot form with its gather (``serve/batching.py``) moved after
+    the products: every adapter's product runs over every row and each row
+    keeps its own, so a step reads each of the few adapters once where a
+    per-row gather of their weights would read them B times."""
+    if idx is None:
+        s = scale if isinstance(scale, torch.Tensor) else torch.tensor(
+            scale, dtype=dtype)
+        h = torch.matmul(x.to(dtype), a.to(dtype))
+        return torch.matmul(h, b.to(dtype)) * s.to(dtype)
+    B, S = x.shape[:2]
+    h = torch.matmul(x.reshape(1, B * S, -1).to(dtype), a.to(dtype))
+    d = torch.matmul(h, b.to(dtype)).view(a.shape[0], B, S, -1)
+    rows = torch.arange(B, device=x.device)
+    return d[idx, rows] * scale.to(dtype)[:, None, None]
+
+
+def _lora_add(y: torch.Tensor, x: torch.Tensor, lora: Optional[Params],
+              name: str, scale, dtype, idx=None) -> torch.Tensor:
+    """y + the LoRA branch of projection `name` on x (y when no adapter)."""
+    if lora is None:
+        return y
+    return y + _lora_delta(x, lora[name + "_a"], lora[name + "_b"], scale,
+                           dtype, idx)
+
+
+def _adapter_kw(lora: Optional[Params], i: int, lora_scale,
+                lora_idx: Optional[torch.Tensor] = None) -> dict:
+    """``block``'s adapter arguments for layer i (its views of the stacked
+    tensors); none without an adapter, so that the block is called as it
+    is without LoRA."""
+    if lora is None:
+        return {}
+    return dict(lora={k: w[i] for k, w in lora.items()},
+                lora_scale=lora_scale, lora_idx=lora_idx)
 
 
 def _head_q80(params: Params) -> Optional[Q80Tensor]:
@@ -229,10 +282,15 @@ def _gqa_out(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def _qkv(x: torch.Tensor, layer: Params, cfg: ModelConfig,
-         cos: Optional[torch.Tensor], sin: Optional[torch.Tensor], dtype
+         cos: Optional[torch.Tensor], sin: Optional[torch.Tensor], dtype,
+         lora: Optional[Params] = None, lora_scale=0.0,
+         lora_idx: Optional[torch.Tensor] = None,
+         xt: Optional[torch.Tensor] = None
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The attention prologue: projections (fused or not), biases, per-head
-    qk-norm and RoPE.  x (B, S, E) -> q (B, S, H, D), k / v (B, S, KV, D)."""
+    """The attention prologue: projections (fused or not), the LoRA deltas
+    on q, k and v (from `xt`, the normed tensor, where x is a ``Q80Act``),
+    biases, per-head qk-norm and RoPE.  x (B, S, E) -> q (B, S, H, D),
+    k / v (B, S, KV, D)."""
     B, S, E = x.shape
     H, KV, D = cfg.n_head, cfg.n_kv_head, cfg.head_dim
 
@@ -245,6 +303,11 @@ def _qkv(x: torch.Tensor, layer: Params, cfg: ModelConfig,
         q = _dense(x, layer["wq"], dtype)
         k = _dense(x, layer["wk"], dtype)
         v = _dense(x, layer["wv"], dtype)
+    if lora is not None:
+        xt = x if xt is None else xt
+        q = _lora_add(q, xt, lora, "wq", lora_scale, dtype, lora_idx)
+        k = _lora_add(k, xt, lora, "wk", lora_scale, dtype, lora_idx)
+        v = _lora_add(v, xt, lora, "wv", lora_scale, dtype, lora_idx)
     if cfg.qkv_bias:
         q = q + layer["bq"].to(dtype)
         k = k + layer["bk"].to(dtype)
@@ -264,17 +327,21 @@ def _qkv(x: torch.Tensor, layer: Params, cfg: ModelConfig,
 
 def attention_nocache(x: torch.Tensor, layer: Params, cfg: ModelConfig,
                       cos: Optional[torch.Tensor],
-                      sin: Optional[torch.Tensor], dtype) -> torch.Tensor:
+                      sin: Optional[torch.Tensor], dtype,
+                      lora: Optional[Params] = None, lora_scale=0.0
+                      ) -> torch.Tensor:
     """One full-sequence attention layer without a cache (training).
     Causal models go through ``flash_attention`` (the kernels on the card,
-    forward and backward); global attention is the unmasked einsum path."""
-    q, k, v = _qkv(x, layer, cfg, cos, sin, dtype)
+    forward and backward); global attention is the unmasked einsum path.
+    `lora`: the layer's adapter, on q, k, v and on wo from the heads."""
+    q, k, v = _qkv(x, layer, cfg, cos, sin, dtype, lora, lora_scale)
     if cfg.is_causal:
         heads = flash_attention(q, k, v)
     else:
         probs = torch.softmax(_gqa_scores(q, k, cfg), dim=-1).to(dtype)
         heads = _gqa_out(probs, v)
-    return _dense(heads, layer["wo"], dtype)
+    return _lora_add(_dense(heads, layer["wo"], dtype), heads, lora, "wo",
+                     lora_scale, dtype)
 
 
 def attention(x: torch.Tensor, layer: Params, cfg: ModelConfig,
@@ -282,8 +349,10 @@ def attention(x: torch.Tensor, layer: Params, cfg: ModelConfig,
               mask: Optional[torch.Tensor], dtype,
               kv_cache: Tuple[torch.Tensor, ...],
               start_pos: Union[int, torch.Tensor],
-              pos_t: Optional[torch.Tensor], attn_len: Optional[int] = None
-              ) -> torch.Tensor:
+              pos_t: Optional[torch.Tensor], attn_len: Optional[int] = None,
+              lora: Optional[Params] = None, lora_scale=0.0,
+              lora_idx: Optional[torch.Tensor] = None,
+              xt: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One attention layer over a cache (k, v, k_scale, v_scale) of one
     layer, each (B, T, KV, D) / (B, T, KV), written in place.
 
@@ -298,11 +367,16 @@ def attention(x: torch.Tensor, layer: Params, cfg: ModelConfig,
     first `attn_len` rows (all when None) with the additive `mask`, (S,
     attn_len) or per row (B, 1, 1, S, attn_len); where `pos_t` is given,
     the first row's heads come from the decode-attention kernel instead, as
-    a decode step at pos_t computes them.
+    a decode step at pos_t computes them.  `lora` (the layer's adapter,
+    `lora_idx` as in ``_lora_delta``) adds its deltas to q, k, v (from
+    `xt`, see ``_qkv``) and to wo's output, from the heads.
     """
     B, S = x.shape[:2]
     H, KV = cfg.n_head, cfg.n_kv_head
-    q, k, v = _qkv(x, layer, cfg, cos, sin, dtype)
+    q, k, v = _qkv(x, layer, cfg, cos, sin, dtype, lora, lora_scale,
+                   lora_idx, xt)
+    out = lambda heads: _lora_add(_dense(heads, layer["wo"], dtype), heads,
+                                  lora, "wo", lora_scale, dtype, lora_idx)
 
     ck, cv, ks, vs = kv_cache
     quant = ck.dtype == torch.int8
@@ -328,7 +402,7 @@ def attention(x: torch.Tensor, layer: Params, cfg: ModelConfig,
             q[:, 0], ck, cv, ks if quant else None, vs if quant else None,
             pos_t, KV, H // KV)[:, None, :].to(dtype)
         if S == 1:
-            return _dense(first, layer["wo"], dtype)
+            return out(first)
 
     Ta = attn_len if attn_len is not None else ck.shape[1]
     ck, cv = ck[:, :Ta], cv[:, :Ta]
@@ -349,7 +423,7 @@ def attention(x: torch.Tensor, layer: Params, cfg: ModelConfig,
         heads = _gqa_out(probs, cv.to(pdt)).to(dtype)
     if pos_t is not None:
         heads = torch.cat([first, heads[:, 1:]], dim=1)
-    return _dense(heads, layer["wo"], dtype)
+    return out(heads)
 
 
 def _ffn_hidden(x: torch.Tensor, layer: Params, dtype) -> torch.Tensor:
@@ -395,26 +469,30 @@ def _final(h: torch.Tensor, params: Params, cfg: ModelConfig, dtype
     """The final norm (one ``rms_norm_q80`` launch) and the LM head -> f32
     logits."""
     w = _head_q80(params)
-    _, hn = _norm(h, params["norm"], cfg.norm_eps, [] if w is None else [w])
+    _, hn, _ = _norm(h, params["norm"], cfg.norm_eps, [] if w is None else [w])
     return compute_logits(hn, params, dtype)
 
 
 def block(x: torch.Tensor, layer: Params, cfg: ModelConfig, cos, sin, mask,
           dtype, kv_cache, start_pos: Union[int, torch.Tensor],
-          pos_t: Optional[torch.Tensor], attn_len: Optional[int] = None
-          ) -> torch.Tensor:
-    """Pre-norm residual block of the cached forward (`start_pos` and
-    `pos_t` as in ``attention``).  The attention norm, the residual add
-    with the FFN norm, and SwiGLU are one kernel each, which also write
-    the Q80 quantization of their output where the product they feed takes
-    it (``_q80_group``); the last residual add stays one eager add."""
+          pos_t: Optional[torch.Tensor], attn_len: Optional[int] = None,
+          lora: Optional[Params] = None, lora_scale=0.0,
+          lora_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pre-norm residual block of the cached forward (`start_pos`, `pos_t`
+    and the adapter as in ``attention``).  The attention norm, the
+    residual add with the FFN norm, and SwiGLU are one kernel each, which
+    also write the Q80 quantization of their output where the product they
+    feed takes it (``_q80_group``; with an adapter the attention norm
+    writes the normed tensor beside it, which the LoRA branch reads); the
+    last residual add stays one eager add."""
     qkv = ([layer["wqkv"]] if "wqkv" in layer
            else [layer["wq"], layer["wk"], layer["wv"]])
     w13 = [layer["w13"]] if "w13" in layer else [layer["w1"], layer["w3"]]
-    _, xn = _norm(x, layer["attn_norm"], cfg.norm_eps, qkv)
+    _, xn, xt = _norm(x, layer["attn_norm"], cfg.norm_eps, qkv,
+                      keep=lora is not None)
     a = attention(xn, layer, cfg, cos, sin, mask, dtype, kv_cache, start_pos,
-                  pos_t, attn_len)
-    h, hn = _norm(x, layer["ffn_norm"], cfg.norm_eps, w13, residual=a)
+                  pos_t, attn_len, lora, lora_scale, lora_idx, xt)
+    h, hn, _ = _norm(x, layer["ffn_norm"], cfg.norm_eps, w13, residual=a)
     return h + feed_forward_cached(hn, layer, dtype)
 
 
@@ -468,7 +546,8 @@ def forward_with_cache(params: Params, idx: torch.Tensor, cache: KVCache,
                        start_pos: Union[int, torch.Tensor], cfg: ModelConfig,
                        dtype=torch.bfloat16, attn_len: Optional[int] = None,
                        last_idx: Optional[int] = None,
-                       rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                       rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                       lora: Optional[Params] = None, lora_scale=0.0
                        ) -> Tuple[torch.Tensor, KVCache]:
     """Forward S new tokens at absolute position start_pos using the cache.
 
@@ -479,7 +558,9 @@ def forward_with_cache(params: Params, idx: torch.Tensor, cache: KVCache,
     attn_len.  S == 1 is ``forward_decode_batched`` with every row at
     start_pos (a host int, or an int32 tensor on the device, (1,) or
     (B,)), and reads rows <= start_pos whatever `attn_len` is.  `rope`
-    passes precomputed (cos, sin) tables covering the cache.
+    passes precomputed (cos, sin) tables covering the cache.  `lora`: an
+    adapter's stacked (L, in, r) / (L, r, out) tensors, scaled by
+    `lora_scale` (a float or a 0-d tensor).
     """
     B, S = idx.shape
     dev = idx.device
@@ -488,7 +569,7 @@ def forward_with_cache(params: Params, idx: torch.Tensor, cache: KVCache,
                torch.full((1,), start_pos, dtype=torch.int32, device=dev))
         logits, _ = forward_decode_batched(params, idx[:, 0],
                                            cache, pos.expand(B), cfg, dtype,
-                                           rope)
+                                           rope, lora, lora_scale)
         return logits[:, None], cache
 
     T = cache.max_seq
@@ -513,7 +594,8 @@ def forward_with_cache(params: Params, idx: torch.Tensor, cache: KVCache,
 
     for i in range(cfg.n_layer):
         h = block(h, layer_params(params["blocks"], i), cfg, cos, sin, mask,
-                  dtype, cache.layer(i), start_pos, None, attn_len)
+                  dtype, cache.layer(i), start_pos, None, attn_len,
+                  **_adapter_kw(lora, i, lora_scale))
 
     if last_idx is not None:     # the norm is per row: slice first
         h = h[:, last_idx:last_idx + 1]
@@ -524,7 +606,10 @@ def forward_decode_batched(params: Params, tok: torch.Tensor, cache: KVCache,
                            pos: torch.Tensor, cfg: ModelConfig,
                            dtype=torch.bfloat16,
                            rope: Optional[Tuple[torch.Tensor, torch.Tensor]]
-                           = None) -> Tuple[torch.Tensor, KVCache]:
+                           = None, lora: Optional[Params] = None,
+                           lora_scale=0.0,
+                           lora_idx: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, KVCache]:
     """One decode step with a position per batch row, every input on the
     device — the continuous-batching primitive, and the single stream's
     step at B = 1.  tok (B,) ids, pos (B,) int32 absolute positions ->
@@ -537,6 +622,10 @@ def forward_decode_batched(params: Params, tok: torch.Tensor, cache: KVCache,
     the cache (a slot that is no longer decoding) is taken as the last
     row, where the JAX gathers clamp too; its output is garbage the
     caller ignores, as there.
+
+    `lora` as in ``forward_with_cache``; or, with `lora_idx` (B,) on the
+    device, a stack of adapters (L, A, in, r) / (L, A, r, out) with their
+    scales (A,), row b decoding with adapter lora_idx[b] (``_lora_delta``).
     """
     B = tok.shape[0]
     T = cache.max_seq
@@ -554,9 +643,12 @@ def forward_decode_batched(params: Params, tok: torch.Tensor, cache: KVCache,
         h = h + wpe.index_select(0, pl.clamp(max=wpe.shape[0] - 1)
                                  )[:, None, :].to(dtype)
     rows = torch.arange(B, device=tok.device) * T + pl     # into (B * T, ...)
+    if lora_idx is not None:        # each row's scale, once for every layer
+        lora_scale = lora_scale[lora_idx]
     for i in range(cfg.n_layer):
         h = block(h, layer_params(params["blocks"], i), cfg, cos, sin, None,
-                  dtype, cache.layer(i), rows, p)
+                  dtype, cache.layer(i), rows, p,
+                  **_adapter_kw(lora, i, lora_scale, lora_idx))
     return _final(h, params, cfg, dtype)[:, 0], cache
 
 
@@ -564,7 +656,9 @@ def forward_spec_batched(params: Params, toks: torch.Tensor, cache: KVCache,
                          pos: torch.Tensor, cfg: ModelConfig,
                          dtype=torch.bfloat16, attn_len: Optional[int] = None,
                          rope: Optional[Tuple[torch.Tensor, torch.Tensor]]
-                         = None, first_row_kernel: bool = False
+                         = None, first_row_kernel: bool = False,
+                         lora: Optional[Params] = None, lora_scale=0.0,
+                         lora_idx: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, KVCache]:
     """S tokens per batch row at positions held on the device — the
     speculative verify round, batched over slots or for one stream at
@@ -585,6 +679,7 @@ def forward_spec_batched(params: Params, toks: torch.Tensor, cache: KVCache,
     slot (a decode step's problem), so that row 0 has the bits of
     ``forward_decode_batched``'s logits for the same cache, which a
     sampled slot of a batched round needs to draw as the plain step draws.
+    The adapter arguments are ``forward_decode_batched``'s.
     """
     B, S = toks.shape
     T = cache.max_seq
@@ -609,9 +704,12 @@ def forward_spec_batched(params: Params, toks: torch.Tensor, cache: KVCache,
                        ).to(torch.float32)[:, None, None]    # (B,1,1,S,Ta)
     rows = (torch.arange(B, device=dev)[:, None] * T + pw).reshape(-1)
     pos_t = pw[:, 0].to(torch.int32) if first_row_kernel else None
+    if lora_idx is not None:        # each row's scale, once for every layer
+        lora_scale = lora_scale[lora_idx]
     for i in range(cfg.n_layer):
         h = block(h, layer_params(params["blocks"], i), cfg, cos, sin, mask,
-                  dtype, cache.layer(i), rows, pos_t, attn_len)
+                  dtype, cache.layer(i), rows, pos_t, attn_len,
+                  **_adapter_kw(lora, i, lora_scale, lora_idx))
     return _final(h, params, cfg, dtype), cache
 
 
@@ -620,10 +718,14 @@ def forward_spec_batched(params: Params, toks: torch.Tensor, cache: KVCache,
 # =====================================================================
 
 def block_nocache(x: torch.Tensor, layer: Params, cfg: ModelConfig, cos, sin,
-                  dtype, remat_ffn: bool = False) -> torch.Tensor:
-    """Pre-norm residual block of the no-cache forward."""
+                  dtype, remat_ffn: bool = False,
+                  lora: Optional[Params] = None, lora_scale=0.0
+                  ) -> torch.Tensor:
+    """Pre-norm residual block of the no-cache forward (`lora`: the
+    layer's adapter)."""
     xn = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-    h = x + attention_nocache(xn, layer, cfg, cos, sin, dtype)
+    h = x + attention_nocache(xn, layer, cfg, cos, sin, dtype, lora,
+                              lora_scale)
     hn = rms_norm(h, layer["ffn_norm"], cfg.norm_eps)
     return h + feed_forward(hn, layer, dtype, remat_ffn)
 
@@ -651,7 +753,8 @@ def _remat_mode(remat: Union[bool, str, None]) -> Optional[str]:
 
 
 def forward_hidden(params: Params, idx: torch.Tensor, cfg: ModelConfig,
-                   dtype=torch.bfloat16, remat: Union[bool, str] = False
+                   dtype=torch.bfloat16, remat: Union[bool, str] = False,
+                   lora: Optional[Params] = None, lora_scale=0.0
                    ) -> torch.Tensor:
     """Full-sequence forward -> final-norm hidden states (B, S, E).
 
@@ -659,7 +762,9 @@ def forward_hidden(params: Params, idx: torch.Tensor, cfg: ModelConfig,
     `remat`: True or "full" recomputes each block in backward
     (``torch.utils.checkpoint``; only the residual stream survives);
     "ffn" keeps everything but the 2F-wide w1 / w3 outputs, which
-    backward computes again.
+    backward computes again.  `lora`: an adapter's stacked tensors (L, ...)
+    scaled by `lora_scale`; the gradient reaches them as it does the
+    parameters.
     """
     mode = _remat_mode(remat)
     S = idx.shape[1]
@@ -670,21 +775,25 @@ def forward_hidden(params: Params, idx: torch.Tensor, cfg: ModelConfig,
     else:
         cos = sin = None
         h = h + params["wpe"][:S].to(dtype)
-    for layer in unstack_layers(params["blocks"]):
+    layers = unstack_layers(params["blocks"])
+    loras = ([None] * len(layers) if lora is None else unstack_layers(lora))
+    for layer, ll in zip(layers, loras):
         if mode == "full":
             h = checkpoint(block_nocache, h, layer, cfg, cos, sin, dtype,
-                           use_reentrant=False, preserve_rng_state=False)
+                           False, ll, lora_scale, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
-            h = block_nocache(h, layer, cfg, cos, sin, dtype, mode == "ffn")
+            h = block_nocache(h, layer, cfg, cos, sin, dtype, mode == "ffn",
+                              ll, lora_scale)
     return rms_norm(h, params["norm"], cfg.norm_eps)
 
 
 def forward(params: Params, idx: torch.Tensor, cfg: ModelConfig,
-            dtype=torch.bfloat16, remat: Union[bool, str] = False
-            ) -> torch.Tensor:
+            dtype=torch.bfloat16, remat: Union[bool, str] = False,
+            lora: Optional[Params] = None, lora_scale=0.0) -> torch.Tensor:
     """Full-sequence forward -> f32 logits (B, S, V)."""
-    return compute_logits(forward_hidden(params, idx, cfg, dtype, remat),
-                          params, dtype)
+    return compute_logits(forward_hidden(params, idx, cfg, dtype, remat,
+                                         lora, lora_scale), params, dtype)
 
 
 def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -698,9 +807,10 @@ def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 def loss_fn(params: Params, idx: torch.Tensor, targets: torch.Tensor,
             loss_mask: Optional[torch.Tensor], cfg: ModelConfig,
             dtype=torch.bfloat16, remat: Union[bool, str] = False,
-            ce_chunk: int = 0) -> torch.Tensor:
+            ce_chunk: int = 0, lora: Optional[Params] = None,
+            lora_scale=0.0) -> torch.Tensor:
     """Per-token CE, optionally masked and normalized by the mask sum
-    (the mean when the mask is None).
+    (the mean when the mask is None); `lora` as in ``forward_hidden``.
 
     ``ce_chunk`` > 0 computes the LM head and the cross-entropy in token
     chunks of that size, each chunk's logits computed again in backward,
@@ -708,9 +818,10 @@ def loss_fn(params: Params, idx: torch.Tensor, targets: torch.Tensor,
     loss up to the f32 summation order.
     """
     if ce_chunk and ce_chunk > 0:
-        h = forward_hidden(params, idx, cfg, dtype, remat)
+        h = forward_hidden(params, idx, cfg, dtype, remat, lora, lora_scale)
         return _chunked_ce(h, params, targets, loss_mask, dtype, ce_chunk)
-    nll = _nll(forward(params, idx, cfg, dtype, remat), targets)
+    nll = _nll(forward(params, idx, cfg, dtype, remat, lora, lora_scale),
+               targets)
     if loss_mask is None:
         return nll.mean()
     m = loss_mask.float()
@@ -802,6 +913,48 @@ def init_params(rng: torch.Generator, cfg: ModelConfig,
         params["blocks"]["q_norm"] = ones(L, D)
         params["blocks"]["k_norm"] = ones(L, D)
     return params
+
+
+def merge_lora(params: Params, lora: Params, scale: float) -> Params:
+    """Fold a LoRA adapter into the base weights: W' = W + scale * (A @ B)
+    for wq, wk, wv and wo of every layer, in f32, then in each weight's
+    own dtype.  Merged params generate as base + adapter does (the delta
+    applied once instead of per step) and export or quantize like any
+    base.  Returns a new dict; the inputs are unchanged."""
+    merged = {k: (dict(v) if isinstance(v, dict) else v)
+              for k, v in params.items()}
+    blocks = merged["blocks"]
+    for name in ("wq", "wk", "wv", "wo"):
+        w = torch.as_tensor(blocks[name])
+        a = torch.as_tensor(lora[f"{name}_a"]).float()
+        b = torch.as_tensor(lora[f"{name}_b"]).float()
+        delta = torch.matmul(a.to(w.device), b.to(w.device)) * scale
+        blocks[name] = (w.float() + delta).to(w.dtype)
+    return merged
+
+
+def init_lora_params(rng: torch.Generator, cfg: ModelConfig, rank: int,
+                     param_dtype=torch.float32, device=None) -> Params:
+    """LoRA A / B for wq, wk, wv and wo (reference: model.py:145-156):
+    A uniform in +-1/sqrt(shape[1]) of its stacked (L, in, r) shape, as the
+    JAX package draws it, B zero.  Drawn on the CPU from `rng` (its numbers
+    are not ``jax.random``'s) and moved to `device`."""
+    L, E, H, KV, D = (cfg.n_layer, cfg.n_embd, cfg.n_head, cfg.n_kv_head,
+                      cfg.head_dim)
+
+    def kaiming(shape):
+        bound = 1.0 / math.sqrt(shape[1])
+        u = torch.rand(shape, generator=rng, dtype=torch.float32)
+        return (u * (2 * bound) - bound).to(device=device, dtype=param_dtype)
+
+    zeros = lambda *shape: torch.zeros(shape, dtype=param_dtype,
+                                       device=device)
+    return {
+        "wq_a": kaiming((L, E, rank)), "wq_b": zeros(L, rank, H * D),
+        "wk_a": kaiming((L, E, rank)), "wk_b": zeros(L, rank, KV * D),
+        "wv_a": kaiming((L, E, rank)), "wv_b": zeros(L, rank, KV * D),
+        "wo_a": kaiming((L, H * D, rank)), "wo_b": zeros(L, rank, E),
+    }
 
 
 def param_leaves(params: Params, prefix: str = "") -> List[Tuple[str, Any]]:

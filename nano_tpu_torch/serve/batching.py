@@ -1,8 +1,7 @@
 """Continuous batching: many independent generation streams share one
 batched decode step.
 
-Port of ``nano_tpu/serve/batching.py`` without LoRA adapters
-(``adapters`` raise ``NotImplementedError``).  A slot-based engine: the KV
+Port of ``nano_tpu/serve/batching.py``.  A slot-based engine: the KV
 cache carries a batch axis, every slot advances one token per step
 wherever its stream is (a position per slot, on the device), and slots
 attach and detach without new shapes (idle slots compute garbage that is
@@ -27,6 +26,18 @@ stochastic or parked one (``spec_ok`` false) its row 0 sampled exactly as
 the plain step samples it.  Its graph is keyed by (cache length,
 all-greedy or not, k); k ramps engine-wide in pow2 buckets and slots park
 one by one, as the JAX engine's do.
+
+LoRA: the engine serves the adapter its context had when the engine was
+made to every slot, or, with ``adapters`` ({name: LoRA .bin}), each slot
+with the adapter it joined with (``add(..., adapter=name)``; None: the
+base).  The named adapters are one stack, padded to the largest rank
+(zero columns add nothing; each keeps its own alpha / rank), whose row 0
+is the base: a zero adapter with scale 0.  Each slot's row is an index in
+a static (B,) device buffer, written when the slot joins, so a slot that
+joins with another adapter replays the same graphs; a step runs every
+adapter's branch over every slot and keeps each slot's own
+(``gpt._lora_delta``).  A joining stream's prefill takes its adapter
+alone.
 """
 
 from __future__ import annotations
@@ -43,6 +54,7 @@ import torch.nn.functional as F
 
 from nano_tpu_torch.infer import engine as eng
 from nano_tpu_torch.infer import speculative
+from nano_tpu_torch.io import binfmt
 from nano_tpu_torch.models import gpt
 from nano_tpu_torch.ops import sampling
 
@@ -110,18 +122,33 @@ class BurstResult(Dict[int, list]):
 
 
 class BatchedEngine:
-    """Slot-based continuous batching over one LLMContext."""
+    """Slot-based continuous batching over one LLMContext.  `adapters`
+    ({name: LoRA .bin path}): slots decode with their own adapters in one
+    batched step (the module's docstring)."""
 
     def __init__(self, ctx: "eng.LLMContext", n_slots: int = 8,
                  adapters: Optional[Dict[str, str]] = None):
-        if adapters:
-            raise NotImplementedError(
-                "batched LoRA adapters are not ported yet: ROADMAP queue 1 "
-                "item 8")
         self.ctx = ctx
         self.n_slots = n_slots
         dev = ctx.device
         V = ctx.cfg.vocab_size
+        # LoRA: each slot's registry row (host and device), the stacked
+        # registry (L, A, in, r) / (L, A, r, out) with its scales (A,) in the
+        # compute dtype, and each row's adapter alone for the prefill
+        self.adapter_idx = np.zeros(n_slots, np.int64)
+        self._adapter_idx_t = torch.zeros((n_slots,), dtype=torch.int64,
+                                          device=dev)
+        self.adapter_ids: Dict[Optional[str], int] = {None: 0}
+        self.lora_stack: Optional[Dict[str, torch.Tensor]] = None
+        self.lora_scales: Optional[torch.Tensor] = None
+        self._adapter_prefill = {0: (ctx.lora, ctx.lora_scale)}
+        self._base_scale = torch.full((), ctx.lora_scale, dtype=ctx.dtype,
+                                      device=dev)
+        if adapters:
+            if ctx.lora is not None:
+                raise ValueError("use either a base-attached LoRA or "
+                                 "named adapters, not both")
+            self._build_adapter_stack(adapters)
         self._store = ctx.new_cache(n_slots)        # max_seq_len rows
         self.cache = self._view(self._min_cache_len())
         self.pos = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
@@ -160,6 +187,46 @@ class BatchedEngine:
         self._spec_park_len = np.ones(n_slots, np.int64)
         # bursts by kind: speculative, and plain by the rule that took them
         self.bursts_by: Dict[str, int] = collections.Counter()
+
+    # ------------------------------------------------------------
+    def _build_adapter_stack(self, adapters: Dict[str, str]) -> None:
+        """Load the named adapters into one stack, each zero-padded to the
+        largest rank (the padding's columns of A and rows of B contribute
+        nothing), behind a zero row 0 of scale 0."""
+        ctx = self.ctx
+        loaded = [(name, binfmt.read_lora(path, ctx.cfg))
+                  for name, path in adapters.items()]
+        rmax = max(bl.rank for _, bl in loaded)
+
+        def pad(key, leaf, r):
+            w = [(0, 0)] * leaf.ndim
+            w[-1 if key.endswith("_a") else -2] = (0, rmax - r)
+            return np.pad(leaf, w)
+
+        padded = [{k: pad(k, v, bl.rank) for k, v in bl.lora.items()}
+                  for _, bl in loaded]
+        self.lora_stack = {
+            k: torch.from_numpy(np.stack(
+                [np.zeros_like(padded[0][k])] + [p[k] for p in padded],
+                axis=1)).to(ctx.device, ctx.dtype)
+            for k in padded[0]}
+        scales = [bl.alpha / bl.rank for _, bl in loaded]
+        self.lora_scales = torch.tensor([0.0] + scales).to(ctx.device,
+                                                           ctx.dtype)
+        for i, ((name, _), sc) in enumerate(zip(loaded, scales)):
+            self.adapter_ids[name] = i + 1
+            self._adapter_prefill[i + 1] = (
+                {k: v[:, i + 1] for k, v in self.lora_stack.items()}, sc)
+
+    def _lora_args(self) -> dict:
+        """The batched forwards' adapter arguments: the stack and each
+        slot's row where adapters are named, else the context's adapter
+        as the engine found it (or none)."""
+        if self.lora_stack is not None:
+            return dict(lora=self.lora_stack, lora_scale=self.lora_scales,
+                        lora_idx=self._adapter_idx_t)
+        lora = self._adapter_prefill[0][0]
+        return dict(lora=lora, lora_scale=self._base_scale)
 
     # ------------------------------------------------------------
     def _min_cache_len(self) -> int:
@@ -211,7 +278,7 @@ class BatchedEngine:
         ctx = self.ctx
         logits, _ = gpt.forward_decode_batched(
             ctx.params, self.tok, cache, self.pos, ctx.cfg, dtype=ctx.dtype,
-            rope=ctx.rope_tables())
+            rope=ctx.rope_tables(), **self._lora_args())
         logits = torch.where(self.seen, logits / self._rep_penalty_t[:, None],
                              logits)
         nxt = _sample_rows(logits, self._temperature_t, self._top_p_t,
@@ -239,7 +306,8 @@ class BatchedEngine:
         ids = torch.cat([self.tok[:, None], drafts], dim=1)      # (B, k+1)
         logits, _ = gpt.forward_spec_batched(
             ctx.params, ids, cache, self.pos, ctx.cfg, dtype=ctx.dtype,
-            rope=ctx.rope_tables(), first_row_kernel=not greedy)
+            rope=ctx.rope_tables(), first_row_kernel=not greedy,
+            **self._lora_args())
         rep = self._rep_penalty_t[:, None, None]
         pen = torch.where(speculative.prefix_masks(drafts, self.seen),
                           logits / rep, logits)
@@ -345,11 +413,16 @@ class BatchedEngine:
             while pad < T:
                 pads.append(pad)
                 pad *= 2
+            # every named adapter's prefill has the same shapes: one covers
+            # them all
+            rows = [0] + ([1] if self.lora_stack is not None else [])
             for pad in pads + [T]:
-                with ctx.on_stream():
-                    eng._prefill(ctx, [0] * min(pad, T - 1),
-                                 ctx.new_cache(1, seq_len=pad))
-                n += 1
+                for row in rows:
+                    with ctx.on_stream():
+                        eng._prefill(ctx, [0] * min(pad, T - 1),
+                                     ctx.new_cache(1, seq_len=pad),
+                                     *self._adapter_prefill[row])
+                    n += 1
             caps, c = [], self._min_cache_len()
             while c < T:
                 caps.append(c)
@@ -387,11 +460,11 @@ class BatchedEngine:
 
         The engine lock is held only to claim the slot and to splice the
         prefilled rows in; the prefill holds only the context's lock, so it
-        runs between two bursts and never inside one's capture."""
-        if adapter is not None:
-            raise NotImplementedError(
-                "batched LoRA adapters are not ported yet: ROADMAP queue 1 "
-                "item 8")
+        runs between two bursts and never inside one's capture.  `adapter`:
+        the name of one of the engine's adapters (None: the base)."""
+        if adapter not in self.adapter_ids:
+            raise ValueError(f"unknown adapter: {adapter!r}")
+        aidx = self.adapter_ids[adapter]
         ctx = self.ctx
         with self.lock:
             slot = self.free_slot()
@@ -412,7 +485,8 @@ class BatchedEngine:
             pad = min(eng._bucket(n), ctx.max_seq_len)
             tmp = ctx.new_cache(1, seq_len=pad)
             with ctx.on_stream():
-                last, seen_row = eng._prefill(ctx, prompt_ids, tmp)
+                last, seen_row = eng._prefill(ctx, prompt_ids, tmp,
+                                              *self._adapter_prefill[aidx])
                 last = sampling.apply_repetition_penalty(
                     last, seen_row, repetition_penalty)
         except BaseException:
@@ -422,7 +496,7 @@ class BatchedEngine:
         try:
             return self._attach_prefilled(
                 st, slot, prompt_ids, pad, tmp, seen_row, last, temperature,
-                top_p, repetition_penalty, max_new_tokens, sink)
+                top_p, repetition_penalty, max_new_tokens, sink, aidx)
         except BaseException:
             with self.lock:
                 st.attached = False
@@ -431,7 +505,7 @@ class BatchedEngine:
 
     def _attach_prefilled(self, st, slot, prompt_ids, pad, tmp, seen_row,
                           last, temperature, top_p, repetition_penalty,
-                          max_new_tokens, sink=None):
+                          max_new_tokens, sink=None, adapter_idx: int = 0):
         ctx = self.ctx
         n = len(prompt_ids)
         with self.lock:
@@ -454,6 +528,7 @@ class BatchedEngine:
                 self._temperature_t[slot] = temperature
                 self._top_p_t[slot] = top_p
                 self._rep_penalty_t[slot] = repetition_penalty
+                self._adapter_idx_t[slot] = adapter_idx
                 if ctx.spec_k > 0:
                     self.hist[slot].zero_()
                     self.hist[slot, :n] = torch.tensor(prompt_ids,
@@ -461,6 +536,7 @@ class BatchedEngine:
                     self.hist[slot, n] = first_t[0]
                 first = int(first_t[0])
             self._pos_host[slot] = n
+            self.adapter_idx[slot] = adapter_idx
             self._spec_park[slot] = 0         # a fresh stream: probe again
             self._spec_park_len[slot] = 1
             self.temperature[slot] = temperature
@@ -512,6 +588,7 @@ class BatchedEngine:
             self.slots[slot].active = False
             self.slots[slot].attached = False
             self.slots[slot].sink = None
+            self.adapter_idx[slot] = 0
             # fully idle: reset the cache capacity (positions only grow
             # while streams live, so this is the one safe shrink point)
             if (not any(s.active or s.attached for s in self.slots)

@@ -19,12 +19,21 @@ What differs from the JAX package, by design:
     ``max_norm / norm`` only when ``norm >= max_norm``; ``adamw`` is
     ``p - lr * (m_hat / (sqrt(v_hat) + 1e-8) + wd * p)`` with the schedule
     read at the count before the update);
-  * parameters are updated in place;
-  * LoRA fine-tuning (``use_lora``) is not ported.
+  * parameters are updated in place.
+
+LoRA fine-tuning (``use_lora``, reference: train.py:225-237) starts a
+fresh adapter (``gpt.init_lora_params``, rank ``lora_rank``) at step 0 on
+the pretrained base of ``from_checkpoint``; the base is frozen (no
+gradient, untouched by AdamW, which holds the adapter's leaves alone), the
+loss scales the adapter by lora_alpha / lora_rank, and checkpoints hold
+the adapter alone (``is_lora``), which ``LLMContext.load_lora_checkpoint``
+serves on the base.
 
 On a CUDA device every layer's attention runs the flash-attention
-kernels, forward and backward (``ops.flash_attn``); a step is
-bit-reproducible, so a resumed run continues the trajectory exactly.
+kernels, forward and backward (``ops.flash_attn``): in a LoRA fine-tune
+the backward carries each layer's gradient down to the adapters of the
+layers below.  A step is bit-reproducible, so a resumed run continues the
+trajectory exactly.
 """
 
 from __future__ import annotations
@@ -194,6 +203,7 @@ class Trainer:
         self.device = resolve_device(device)
 
         self.params = None
+        self.lora = None                # the adapter a LoRA fine-tune trains
         self.opt: Optional[AdamW] = None
         self.step_count = 0
         self.tokenizer: Optional[TrieTokenizer] = None
@@ -243,9 +253,11 @@ class Trainer:
     # ------------------------------------------------------------
     def init(self) -> None:
         tc, mc = self.train_config, self.model_config
-        if tc.use_lora:
+        if tc.use_lora and not tc.from_checkpoint:
             raise NotImplementedError(
-                "LoRA fine-tuning (use_lora) is not ported yet")
+                "LoRA fine-tuning trains an adapter on a pretrained base: "
+                "set from_checkpoint (a fresh model with LoRA is not "
+                "implemented)")
         n_devices = math.prod(v for v in (tc.mesh_shape or {}).values() if v)
         if n_devices > 1:
             raise NotImplementedError(
@@ -263,11 +275,21 @@ class Trainer:
             self.tokenizer = (TrieTokenizer.from_config_dict(
                 ck.tokenizer_config) if ck.tokenizer_config else None)
             self.params = gpt.map_leaves(
-                lambda t: t.to(self.device).requires_grad_(True),
+                lambda t: t.to(self.device).requires_grad_(not tc.use_lora),
                 ck.load_params())
-            self.step_count = ck.step
-            self.log(f"resumed from `{tc.from_checkpoint}` at step "
-                     f"{self.step_count}")
+            if tc.use_lora:
+                # a fresh adapter at step 0 on the frozen base
+                self.step_count = 0
+                self.lora = gpt.map_leaves(
+                    lambda t: t.requires_grad_(True),
+                    gpt.init_lora_params(rng, mc, tc.lora_rank,
+                                         device=self.device))
+                self.log(f"LoRA fine-tune from `{tc.from_checkpoint}` "
+                         f"(rank={tc.lora_rank})")
+            else:
+                self.step_count = ck.step
+                self.log(f"resumed from `{tc.from_checkpoint}` at step "
+                         f"{self.step_count}")
         else:
             if tc.tokenizer_path:
                 self.tokenizer = TrieTokenizer.from_file(tc.tokenizer_path)
@@ -278,13 +300,14 @@ class Trainer:
                 device=self.device)
             self.log("initialized new model")
 
-        self.opt = AdamW(tc, self.params)
-        if ck is not None and ck.has("opt"):
+        self.opt = AdamW(tc, self.lora if tc.use_lora else self.params)
+        if ck is not None and ck.has("opt") and not tc.use_lora:
             self.opt.load_state_dict(ck.load_opt_state())
 
         n_params = gpt.count_params(self.params, mc)
+        n_train = sum(int(p.numel()) for p in self.opt.params)
         self.flop_per_token = gpt.estimate_flops_per_token(mc, n_params)
-        self.log(f"params: total={n_params:,} trainable={n_params:,}")
+        self.log(f"params: total={n_params:,} trainable={n_train:,}")
 
     def _remat(self):
         tc = self.train_config
@@ -296,10 +319,13 @@ class Trainer:
               ) -> torch.Tensor:
         to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
             self.device, torch.int64)
+        tc = self.train_config
         return gpt.loss_fn(self.params, to(x), to(y), to(m),
                            self.model_config, dtype=self.dtype,
-                           remat=self._remat(),
-                           ce_chunk=self.train_config.ce_chunk)
+                           remat=self._remat(), ce_chunk=tc.ce_chunk,
+                           lora=self.lora,
+                           lora_scale=(tc.lora_alpha / tc.lora_rank
+                                       if tc.use_lora else 0.0))
 
     def _train_step(self, xs, ys, ms) -> torch.Tensor:
         """xs: (accum, B, S).  One update from the mean of the
@@ -382,7 +408,8 @@ class Trainer:
                 path = os.path.join(dest, self.ckpt_filename)
         ckpt_io.save_checkpoint(
             path,
-            params=self.params,
+            params=None if tc.use_lora else self.params,
+            lora=self.lora if tc.use_lora else None,
             opt_state=self.opt.state_dict(),
             step=self.step_count,
             model_config=self.model_config.to_dict(),

@@ -288,11 +288,18 @@ def test_join_from_another_thread_during_growth_bursts(model_path,
     assert outs[sb] == solo_greedy(jctx, pb, 12)
 
 
-def test_spec_and_adapters_raise_not_ported(model_path):
+def test_spec_and_adapters_raise_not_ported(model_path, tmp_path):
+    """What the engine still refuses of adapters (serving them is
+    test_torch_lora.py's): a missing file, an adapter it was not given,
+    and named adapters beside a base-attached one."""
     _, tctx = make_ctxs(model_path)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tbatch.BatchedEngine(tctx, n_slots=2, adapters={"a": "x.bin"})
+    with pytest.raises(FileNotFoundError):
+        tbatch.BatchedEngine(tctx, n_slots=2,
+                             adapters={"a": str(tmp_path / "x.bin")})
     be = tbatch.BatchedEngine(tctx, n_slots=2)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="unknown adapter"):
         be.add(tctx.encode("ab"), adapter="a")
     assert be.free_slot() == 0                     # nothing claimed
+    tctx.lora = {}
+    with pytest.raises(ValueError, match="not both"):
+        tbatch.BatchedEngine(tctx, n_slots=2, adapters={"a": "x.bin"})

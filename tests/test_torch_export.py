@@ -298,12 +298,16 @@ def test_export_runs_as_a_module(trained_ckpt, tmp_path):
     assert tbin.parse_header(_read(out)).quant_type == tbin.QUANT_Q80
 
 
-def test_export_lora_is_refused(trained_ckpt, tmp_path):
-    for argv in ([str(tmp_path / "l.bin"), "--lora", trained_ckpt],
-                 [str(tmp_path / "m.bin"), "--checkpoint", trained_ckpt,
-                  "--merge-lora", trained_ckpt]):
-        with pytest.raises(SystemExit, match="queue 1, item 8"):
-            texport.main(argv)
+def test_export_lora_is_refused(trained_ckpt, tmp_path, monkeypatch):
+    """The one LoRA export both entry points refuse: a reference LoRA .pt,
+    which carries no base config (--lora of an .npz: test_torch_lora.py)."""
+    import export as root_export
+    argv = [str(tmp_path / "l.bin"), "--lora", str(tmp_path / "lora.pt")]
+    with pytest.raises(SystemExit, match="needs the base config"):
+        texport.main(argv)
+    monkeypatch.setattr(sys, "argv", ["export.py"] + argv)
+    with pytest.raises(SystemExit, match="needs the base config"):
+        root_export.main()
 
 
 def test_export_repack_entry_point(tmp_path):

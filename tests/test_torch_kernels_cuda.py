@@ -1014,10 +1014,12 @@ def test_speculative_rounds_on_the_card(name):
 def test_speculative_batched_sampled_slot_is_the_plain_one():
     """A sampled slot in a speculative BatchedEngine (its row 0 through the
     decode kernel) draws the plain engine's stream bit for bit, beside a
-    greedy slot that verifies drafts."""
+    greedy slot that verifies drafts.  The stream ends as the engine
+    ends one: at max_new_tokens, or earlier at a stop token of the
+    context, the same way in both engines."""
     _need_card()
     from nano_tpu_torch.serve.batching import BatchedEngine
-    outs = []
+    outs, reasons = [], []
     for spec_k in (0, 4):
         ctx = _fixture_ctx("tiny_q80.bin")
         ctx.spec_k = spec_k
@@ -1031,9 +1033,103 @@ def test_speculative_batched_sampled_slot_is_the_plain_one():
             for sl, toks in be.step_burst(4).items():
                 got[sl].extend(toks)
         outs.append(got[t])
+        reasons.append(be.slots[t].finished_reason)
         if spec_k:
             assert be.bursts_by["spec"] > 0
-    assert outs[0] == outs[1] and len(outs[0]) == 30
+    assert outs[0] == outs[1] and reasons[0] == reasons[1]
+    if reasons[0] == "length":
+        assert len(outs[0]) == 30
+    else:
+        assert reasons[0] == "stop" and 0 < len(outs[0]) < 30
+
+
+def _random_adapters(cfg, tmp_path, ranks):
+    """LoRA files of the given ranks for `cfg`, random A and B from a
+    seed each, written by write_lora."""
+    from nano_tpu_torch.io import binfmt
+    HD = cfg.n_head * cfg.head_dim
+    KD = cfg.n_kv_head * cfg.head_dim
+    paths = []
+    for i, r in enumerate(ranks):
+        rng = np.random.RandomState(i)
+        lora = {}
+        for name, inn, out in (("wq", cfg.n_embd, HD), ("wk", cfg.n_embd, KD),
+                               ("wv", cfg.n_embd, KD), ("wo", HD, cfg.n_embd)):
+            lora[name + "_a"] = rng.randn(cfg.n_layer, inn, r) * 0.3
+            lora[name + "_b"] = rng.randn(cfg.n_layer, r, out) * 0.3
+        paths.append(str(tmp_path / f"lora{i}.bin"))
+        binfmt.write_lora(paths[-1], lora, cfg, rank=r, alpha=2 * r)
+    return paths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tiny_f32.bin", "tiny_q80.bin"])
+def test_lora_hot_swap_under_the_decode_graph(name, tmp_path):
+    """An adapter attached, swapped for one of the same rank (copied into
+    the buffers the captured graph reads: no capture) and detached: each
+    stream that of a fresh context with that adapter, the graph stream the
+    eager step loop's."""
+    _need_card()
+    from nano_tpu_torch.infer import engine
+    ctx = _fixture_ctx(name, penalty=1.0, stop_tokens=())
+    a, b = _random_adapters(ctx.cfg, tmp_path, (4, 4))
+    ids = ctx.encode("abcdefgh")
+    base = engine.generate_on_device(ctx, ids, 24).tolist()
+    streams = []
+    for path in (a, b):
+        ctx.load_lora(path)
+        got = engine.generate_on_device(ctx, ids, 24).tolist()
+        fresh = _fixture_ctx(name, penalty=1.0, stop_tokens=())
+        fresh.load_lora(path)
+        assert got == engine.generate_on_device(fresh, ids, 24).tolist()
+        streams.append(got)
+    dec = ctx.decoder()
+    assert sorted(str(k[-1]) for k in dec.graphs) == [
+        str(tuple(ctx.lora["wq_a"].shape)), "None"]
+    cache = ctx.new_cache(1)
+    gen = ctx.generator()
+    tok, seen = engine._prefill_first_token(ctx, ids, cache, gen, ctx.lora,
+                                            ctx.lora_scale)
+    pos = torch.tensor([len(ids)], dtype=torch.int32, device="cuda")
+    eager = [int(tok[0])]
+    for _ in range(23):
+        tok = engine._decode_step(ctx, tok, pos, cache, seen, gen, ctx.lora,
+                                  ctx.lora_scale)
+        pos += 1
+        eager.append(int(tok[0]))
+    assert eager == streams[1]
+    ctx.unload_lora()
+    assert engine.generate_on_device(ctx, ids, 24).tolist() == base
+    assert streams[0] != base and streams[1] != streams[0]
+
+
+@pytest.mark.cuda
+def test_lora_batched_engine_per_slot_adapters(tmp_path):
+    """Adapters of ranks 2 and 4 and a base slot in one BatchedEngine on
+    tiny_f32.bin, replayed from its graphs: each slot's stream that of a
+    context with its adapter alone."""
+    _need_card()
+    from nano_tpu_torch.infer import engine
+    from nano_tpu_torch.serve.batching import BatchedEngine
+    ctx = _fixture_ctx("tiny_f32.bin", penalty=1.0, stop_tokens=())
+    a, b = _random_adapters(ctx.cfg, tmp_path, (2, 4))
+    be = BatchedEngine(ctx, n_slots=4, adapters={"a": a, "b": b})
+    joins = [("abcdef", "a"), ("ghijk", None), ("lmnop", "b")]
+    got = {}
+    for prompt, adapter in joins:
+        slot, first = be.add(ctx.encode(prompt), max_new_tokens=16,
+                             temperature=0.0, repetition_penalty=1.0,
+                             adapter=adapter)
+        got[slot] = (prompt, adapter, [first])
+    while be.n_active:
+        for slot, toks in be.step_burst(4).items():
+            got[slot][2].extend(toks)
+    for prompt, adapter, toks in got.values():
+        solo = _fixture_ctx("tiny_f32.bin", penalty=1.0, stop_tokens=())
+        if adapter:
+            solo.load_lora({"a": a, "b": b}[adapter])
+        assert toks == engine.generate_on_device(
+            solo, solo.encode(prompt), 16).tolist(), adapter
 
 
 @pytest.mark.cuda
