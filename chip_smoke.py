@@ -176,6 +176,30 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   batch's loss falls, the base bit-unchanged, K4 launches
                   exact, ms/step beside phase 6's), its LoRA-only
                   checkpoint served by load_lora_checkpoint
+  9. training lifecycle (lifecycle_phase)
+                  9a: `python -m nano_tpu_torch.data sft` (its main) makes
+                  SFT shards of dataset/sft_*.jsonl (nano_16384, block 512);
+                  a Trainer under config/sft.json fine-tunes phase 6's
+                  step-12 checkpoint SFT_STEPS steps (masked loss,
+                  accumulation 2, full remat; warmup cut to 1): the held
+                  batch's loss falls, K4's launches exact, ms/step, tokens/s,
+                  peak memory; 9b: the remat policies "full", "ffn", "dots"
+                  and "heads" at the pretrain shape (batch 64 x 512, bf16)
+                  on the same weights and batches, REMAT_STEPS steps each:
+                  step 1's loss torch.equal, the gradient norm within
+                  REMAT_NORM_TOL of "full"'s, K4's launches per microbatch
+                  exact (48 / 24 under "full" and "dots", 24 / 24 under
+                  "ffn" and "heads"), ms/step, busy ms and peak memory; 9c:
+                  model_ppl of phase 5c's toy_{f32,q80,q4k}.bin on the card
+                  (launches exact) and on the CPU over two spans of its
+                  corpus (the fixture's bars, the card within
+                  PPL_CARD_CPU_TOL, a planted fault's control beyond it),
+                  one 512-token f32 window of phase 5's
+                  Q80 model (K1's W8A8 pair and K4 exact, tokens scored/s);
+                  9d: run_problem("sort") (>= SORT_MIN_ACC, the JAX soak
+                  test's bar) and run_problem("calculator") (K4 at D = 16,
+                  launches exact), each exported and served: seq2seq on the
+                  sort model, denoise_generate at top_k = 1 twice
 
 Phase 3 also holds K1 (q80_matmul_w8a8, every row torch.equal to the
 B = 1 kernel's), K3 at B > 1 and the norm kernels at the row counts of a
@@ -205,7 +229,7 @@ result cast to bf16).
 
 `python3 chip_smoke.py bench [flash [clocks]] [decode] [q4k [batched]] [q80
 [batched [sweep] [clocks]]] [pipes] [spec] [toy] [export] [rows [sweep] [clocks]]
-[lora]` runs none of the phases: it times the two
+[lora] [lifecycle]` runs none of the phases: it times the two
 attention kernels alone beside SDPA (the flash forward and backward, a
 ladder over the decode kernel's rows per block), a Q4K decode step's
 matmuls with the fake-quant folded in or not, a Q80 decode step's W8A8
@@ -222,7 +246,8 @@ replaced (q4k_fake_quant + q4k_matmul) and the bf16 torch.matmul, beside
 the bound.  `bench spec` runs phase 5c alone, `bench toy` its trained
 toy, `bench export` phase 7 (on an untrained Nano-168M checkpoint), and
 `bench lora` phase 8 (on the same, without the GGUF model).
-`bench rows` times the rows form (K1 below group size 256) over a
+`bench lifecycle` runs phase 9 alone (on a Nano-168M checkpoint of its
+initial weights and a freshly trained toy).  `bench rows` times the rows form (K1 below group size 256) over a
 Qwen3-0.6B GGUF model's products at group sizes 32 and 16 as phase 7b
 does, on random weights; `sweep` adds every work split of its two kernels
 at 1, 8 and 64 rows beside the plan's, `clocks` where a tiled block's time
@@ -345,6 +370,42 @@ LORA_STEPS, LORA_LR = 6, 2e-3
 # adapter, must read above the limit (2.8e-3 with B ~ N(0, 0.01^2), so B is
 # drawn at 0.05)
 MERGE_LOGITS_TOL = 1e-3
+# phase 9: SFT steps on phase 6's step-12 checkpoint (config/sft.json,
+# warmup cut to 1 step so that a few steps move the held batch), steps of
+# each remat policy, and the problems' sizes (the sort run is the JAX
+# package's soak test, tests/test_problems.py, which must reach
+# SORT_MIN_ACC; the calculator's is cut to fit the phase's time)
+SFT_STEPS = 4
+REMAT_POLICIES = ("full", "ffn", "dots", "heads")
+REMAT_STEPS = 2
+REMAT_NORM_TOL = 1e-5
+SORT_RUN = dict(seq_length=4, max_steps=800, batch_size=64, n_train=8000,
+                n_val=500, n_eval=300, learning_rate=2e-3, dtype="float32")
+SORT_MIN_ACC = 0.9
+CALC_RUN = dict(max_steps=300, batch_size=64, n_train=4000, n_val=200,
+                n_eval=300, learning_rate=1e-3, dtype="bfloat16")
+# phase 9c: the PPL bars of tests/test_trained_fixture.py on the toy's
+# first PPL_CHARS characters, and the card's PPL against the CPU plain
+# versions' (relative) on those and the next PPL_CHARS.  Each tolerance
+# is the geometric mean, to one digit, of the larger sound reading and
+# its asserted control (PPL_CONTROLS), read on an NVIDIA H100 80GB HBM3
+# at 700 W (the toy trains deterministically: every run reads the same):
+# f32 5.68e-8 / 5.62e-8 against K4 run in bf16 2.67e-5; Q80 4.28e-8 /
+# 6.99e-8 against its rows form's products in bf16 1.33e-6; Q4K 1.98e-3
+# / 6.48e-4 against 8 of 32 values a group a step off 4.99e-2.  f32 and
+# the Q80 rows form do the same f32 arithmetic with sums in other
+# orders.  Q4K quantizes every activation to 4 bits, where an f32 sum
+# taken in another order flips a rounding now and then and the flips
+# spread through the layers, so its sound run diverges as far as one
+# value a group a step off (1.63e-3).  That fault and K4's output alone
+# in bf16 (f32: 1.15e-7) are read, not asserted: the PPL of a model this
+# sure of its text cannot tell them from sound; phase 3 holds
+# q4k_act_quant torch.equal and K4's f32 output within 1e-5 of the
+# plain version's largest value.
+PPL_CHARS = 1200
+PPL_F32_MAX, PPL_DQ80_MAX, PPL_DQ4K_MAX = 1.5, 0.05, 0.2
+PPL_CARD_CPU_TOL = {"f32": 1e-6, "q80": 3e-7, "q4k": 1e-2}
+PPL_WINDOW = 512
 
 
 def log(*a):
@@ -1993,6 +2054,96 @@ def warp_rows(qmatmul):
         qmatmul.q80_rows = saved
 
 
+def toy_ppl_counts(quant, windows, L):
+    """Launches of model_ppl on phase 5c's toy_{quant}.bin over `windows`
+    windows: each one f32 forward at block_size rows, K4 once a layer and
+    4 products a layer and the head.  The toy's group size 128 puts its
+    Q80 products in the rows form (q80_matmul_rows); a Q4K file's layer
+    products are the W4A4 pair and its head is Q80, its activation
+    fake-quantized first."""
+    e = dict(flash_attn_fwd=windows * L)
+    if quant == "q80":
+        e.update(q80_matmul_rows=windows * (4 * L + 1))
+    elif quant == "q4k":
+        e.update(q4k_act_quant=windows * 4 * L,
+                 q4k_matmul_w4a4=windows * 4 * L, q4k_fake_quant=windows,
+                 q80_matmul_rows=windows)
+    return e
+
+
+# the control runs of phase 9c, by file: (fault, whether the card-to-CPU
+# tolerance must catch it); a fault the PPL cannot tell from the sound
+# run's divergence is read and printed only
+PPL_CONTROLS = {
+    "f32": (("k4_out_bf16", False), ("k4_bf16", True)),
+    "q80": (("rows_bf16", True),),
+    "q4k": (("q4k_1_of_32", False), ("q4k_8_of_32", True)),
+}
+PPL_FAULTS = {
+    "k4_out_bf16": "K4's output rounded to bf16",
+    "k4_bf16": "K4 run in bf16 (its inputs and output rounded)",
+    "rows_bf16": "the rows form's products rounded to bf16",
+    "q4k_1_of_32": "1 of every 32 activation values a step off",
+    "q4k_8_of_32": "8 of every 32 activation values a step off",
+}
+
+
+@contextlib.contextmanager
+def planted_ppl_fault(torch, fault):
+    """A control of phase 9c's card-against-CPU PPL tolerance: while the
+    block runs, a kernel's wrapper gives what a faulty kernel would
+    (PPL_FAULTS): "k4_out_bf16" K4 writing its output in bf16; "k4_bf16"
+    K4 launched at the bf16 type on bf16 copies of q, k, v; "rows_bf16"
+    the Q80 rows form's product in bf16; "q4k_<n>_of_32" the Q4K
+    activation's integer form with n values of every group of 32 (every
+    32/n-th) one step off (up, or down from 15) and its correction term
+    c = sa * A - n_g * ba moved to match: the 4-bit roundings that the
+    sound run flips now and then, flipped in every group.  A wrapper that
+    counts its launches lends the stand-in its counter, so the control's
+    launches count nowhere."""
+    from nano_tpu_torch.models import gpt
+    from nano_tpu_torch.ops import q4k, qmatmul
+    bf16 = torch.bfloat16
+    if fault in ("k4_out_bf16", "k4_bf16"):
+        mod, name = gpt, "flash_attention"
+        orig = mod.flash_attention
+
+        def planted(q, k, v):
+            if fault == "k4_bf16":
+                return orig(q.to(bf16), k.to(bf16), v.to(bf16)).to(q.dtype)
+            return orig(q, k, v).to(bf16).to(q.dtype)
+    elif fault == "rows_bf16":
+        mod, name = qmatmul, "q80_rows"
+        orig = mod.q80_rows
+
+        def planted(x, w, dtype=bf16):
+            return orig(x, w, dtype).to(bf16).to(dtype)
+    else:
+        mod, name = q4k, "act_quant_q4k_packed"
+        orig = mod.act_quant_q4k_packed
+        GL = q4k.GROUP_LEN
+        every = GL // int(fault.split("_")[1])
+
+        def planted(x2d):
+            vp, sa, ba, c = orig(x2d)
+            B = vp.shape[0]
+            halves = vp.reshape(B, -1, GL // 2)
+            v = torch.cat([halves & 15, halves >> 4], -1).to(torch.int32)
+            live = torch.arange(v.shape[1], device=v.device) * GL < x2d.shape[1]
+            pick = (torch.arange(GL, device=v.device) % every == 0)
+            pick = live[:, None] & pick[None, :]
+            moved = torch.where(pick, torch.where(v < 15, v + 1, v - 1), v)
+            c = c + (moved - v).sum(-1).float() * sa
+            packed = moved[..., :GL // 2] | (moved[..., GL // 2:] << 4)
+            return packed.to(torch.uint8).reshape(B, -1), sa, ba, c
+    planted.launches = getattr(orig, "launches", 0)
+    setattr(mod, name, planted)
+    try:
+        yield
+    finally:
+        setattr(mod, name, orig)
+
+
 def gguf_batched(torch, np, h, ctx, L):
     """A GGUF model in BatchedEngine at 8 and 64 slots: every slot joins
     with a 32-token prompt (launches exact: 4 L q80_matmul_rows at 32 rows
@@ -3080,6 +3231,432 @@ def bench_lora(torch):
     log(f"[bench lora] {res}")
 
 
+def lifecycle_phase(torch, np, h):
+    """Phase 9, the training lifecycle on one card.
+
+    9a: `python -m nano_tpu_torch.data sft` (its main) turns
+    dataset/sft_sample.jsonl and dataset/sft_self_id.jsonl into shards
+    with tokenizer/nano_16384.json at block size 512; a Trainer under
+    config/sft.json (full SFT from h.ckpt, a Nano-168M checkpoint: masked
+    loss, batch 32 x 512, accumulation 2, full remat; warmup cut to 1
+    step) takes SFT_STEPS steps: the masked loss finite and falling on a
+    held batch, K4's launches exact, ms/step, tokens/s, peak memory.
+    9b: the remat policies at the pretrain shape (config/pretrain.json:
+    batch 64 x 512, bf16) on the same weights and batches, REMAT_STEPS
+    steps each: step 1's loss torch.equal across the policies, the first
+    step's gradient norm within REMAT_NORM_TOL of "full"'s, K4's launches
+    per microbatch exact (forward 2L under "full" and "dots", which run
+    the attention again in backward; L under "ffn" and "heads"; backward
+    L), ms/step and peak memory of each.
+    9c: model_ppl on the toy's f32 / Q80 / Q4K files (h.toy_dir) over the
+    first PPL_CHARS characters of its corpus and the next PPL_CHARS, on
+    the card (launches exact, toy_ppl_counts) and on the CPU (plain
+    versions): the bars of tests/test_trained_fixture.py on the first,
+    the card within PPL_CARD_CPU_TOL of the CPU on both, and a control
+    run on the first with a fault planted (planted_ppl_fault) off the CPU
+    by more than that tolerance; then one PPL_WINDOW-token
+    window of the full-width Qwen3-0.6B-shaped Q80 model (h.q80 on the
+    host): K1's W8A8 pair (4 products a layer and the head) and K4's
+    forward launches exact, tokens scored per second.
+    9d: run_problem("sort") (the JAX soak test's run: exact match >=
+    SORT_MIN_ACC, no K4 launch: global attention) and
+    run_problem("calculator") (K4 at D = 16, launches exact), each
+    exported and served: seq2seq on the sort model (its exact match) and
+    denoise_generate at top_k = 1 (two runs the same tokens)."""
+    import contextlib
+    import gc
+    import io as _io
+    import random
+    from dataclasses import replace
+    from nano_tpu_torch import eval as teval
+    from nano_tpu_torch import problems
+    from nano_tpu_torch.config import ModelConfig
+    from nano_tpu_torch.data import __main__ as data_main
+    from nano_tpu_torch.data import preprocess
+    from nano_tpu_torch.infer import engine
+    from nano_tpu_torch.io.checkpoint import Checkpoint
+    from nano_tpu_torch.models import gpt
+    from nano_tpu_torch.train.trainer import Trainer
+    dev, card, names = h.dev, h.card, h.names
+    os.makedirs(h.work, exist_ok=True)
+    tcfg = ModelConfig.from_dict(Checkpoint(h.ckpt).model_config)
+    TL = tcfg.n_layer
+
+    def exact(label, got, **want):
+        w = {n: 0 for n in names}
+        w.update(want)
+        if got != w:
+            raise AssertionError(f"{label}: launches {got}, expected {w}")
+
+    def profiled_busy_ms(fn):
+        """fn() once under torch.profiler -> the card's busy ms (the sum
+        of the kernels' device time), None where it recorded none."""
+        if dev.type != "cuda":
+            return None
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total", 0.0)
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        return us / 1e3 if us > 0 else None
+
+    def timed(trainer, step_ms):
+        plain = trainer._train_step
+
+        def step(xs, ys, ms):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            loss = plain(xs, ys, ms)
+            torch.cuda.synchronize()
+            step_ms.append((time.time() - t0) * 1e3)
+            return loss
+        trainer._train_step = step
+
+    # ---------------- 9a: SFT ----------------
+    t9 = time.time()
+    gc.collect()            # the trainers of earlier phases hold cycles
+    torch.cuda.empty_cache()
+    prefix = os.path.join(h.work, "sft")
+    out = _io.StringIO()
+    with contextlib.redirect_stdout(out):
+        data_main.main(["sft", "-i",
+                        os.path.join(ROOT, "dataset", "sft_sample.jsonl"),
+                        os.path.join(ROOT, "dataset", "sft_self_id.jsonl"),
+                        "-k", os.path.join(ROOT, "tokenizer",
+                                           "nano_16384.json"),
+                        "-b", str(tcfg.block_size), "-o", prefix])
+    train_p, val_p = prefix + "_train.npz", prefix + "_val.npz"
+    ids, mask = preprocess.load_shard(train_p)
+    log(f"[sft] {out.getvalue().strip()}: {ids.shape[0]} train samples of "
+        f"{ids.shape[1]} tokens, {int(mask.sum())} answer tokens in the "
+        f"loss mask")
+    if mask is None or ids.shape[1] != tcfg.block_size + 1:
+        raise AssertionError("the SFT shards have no mask or a wrong width")
+    with open(os.path.join(ROOT, "config", "sft.json")) as f:
+        sft_cfg = json.load(f)
+    sft_cfg.update(from_checkpoint=h.ckpt, dataset_path=[[train_p, val_p]],
+                   save_checkpoint_to=os.path.join(h.work, "sft_ckpt"),
+                   warmup_iters=1)
+    trainer = Trainer(tcfg, sft_cfg, max_steps=10 ** 9, device=dev)
+    trainer.init()
+    trainer.load_data()
+    trainer.max_steps = trainer.step_count + SFT_STEPS
+    A = sft_cfg["gradient_accumulation_steps"]
+    full = gpt._remat_mode(trainer._remat()) == "full"
+    xs, ys, ms_ = trainer._get_accum_batch()            # the held batch
+    before = trainer._eval_step(xs[0], ys[0], ms_[0])
+    step_ms = []
+    timed(trainer, step_ms)
+    torch.cuda.reset_peak_memory_stats()
+    h.reset()
+    trainer.start()
+    got = h.read()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    after = trainer._eval_step(xs[0], ys[0], ms_[0])
+    exact("SFT", got, flash_attn_fwd=TL * A * SFT_STEPS * (2 if full else 1),
+          flash_attn_bwd=TL * A * SFT_STEPS)
+    losses = [l for _, l in trainer.loss_history]
+    tokens = sft_cfg["batch_size"] * A * tcfg.block_size
+    ms_step = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    log(f"[sft] the {TL}-layer width-{tcfg.n_embd} step-"
+        f"{trainer.step_count - SFT_STEPS} checkpoint, "
+        f"config/sft.json (batch {sft_cfg['batch_size']} x "
+        f"{tcfg.block_size}, accumulation {A}, {sft_cfg['dtype']}, remat "
+        f"{trainer._remat()!r}, masked loss), {SFT_STEPS} steps on {card}: "
+        f"median {ms_step:.1f} ms/step over steps 2-{SFT_STEPS} (first "
+        f"{step_ms[0]:.1f}), {tokens / ms_step * 1e3:.0f} tokens/s, peak "
+        f"memory {peak:.2f} GB; losses {[round(l, 4) for l in losses]}; the "
+        f"held batch's masked loss {before:.4f} -> {after:.4f}; K4 launches "
+        f"exact ({got['flash_attn_fwd']} forward, {got['flash_attn_bwd']} "
+        f"backward)")
+    if not (len(losses) == SFT_STEPS and all(np.isfinite(losses))
+            and np.isfinite(before) and after < before):
+        raise AssertionError("the SFT loss is not finite or did not fall on "
+                             "the held batch")
+    del trainer
+    gc.collect()
+    shutil.rmtree(os.path.join(h.work, "sft_ckpt"))
+    torch.cuda.empty_cache()
+    log(f"[sft] 9a in {time.time() - t9:.1f} s")
+
+    # ---------------- 9b: remat policies ----------------
+    t9 = time.time()
+    with open(os.path.join(ROOT, "config", "pretrain.json")) as f:
+        pt_cfg = json.load(f)
+    pt_cfg.update(from_checkpoint=h.ckpt, dataset_path=h.pretrain_data,
+                  remat=True, eval_interval=10 ** 6)
+    trainer = Trainer(tcfg, pt_cfg, max_steps=10 ** 9, device=dev)
+    trainer.init()
+    trainer.load_data()
+    A = pt_cfg["gradient_accumulation_steps"]
+    start = [p.detach().clone() for p in trainer.opt.params]
+    opt0 = ([m.clone() for m in trainer.opt.mu],
+            [v.clone() for v in trainer.opt.nu], trainer.opt.count)
+    data0 = trainer.train_data.state()
+    norms = []
+    update = trainer.opt.update
+
+    def update_with_norm(grads):
+        if len(norms) == 0:
+            norms.append(torch.sqrt(sum((g.float() * g.float()).sum()
+                                        for g in grads)).item())
+        update(grads)
+    trainer.opt.update = update_with_norm
+    rows = {}
+    for policy in REMAT_POLICIES:
+        with torch.no_grad():
+            for p, s0 in zip(trainer.opt.params, start):
+                p.copy_(s0)
+            for dst, src in zip(trainer.opt.mu + trainer.opt.nu,
+                                opt0[0] + opt0[1]):
+                dst.copy_(src)
+        trainer.opt.count = opt0[2]
+        trainer.train_data.set_state(data0)
+        trainer.train_config.remat_policy = policy
+        norms.clear()
+        step_ms, losses = [], []
+        gc.collect()            # the trainers before this one hold cycles
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        h.reset()
+        for _ in range(REMAT_STEPS):
+            xs, ys, ms_ = trainer._get_accum_batch()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            loss = trainer._train_step(xs, ys, ms_)
+            torch.cuda.synchronize()
+            step_ms.append((time.time() - t0) * 1e3)
+            losses.append(loss.detach().clone())
+        got = h.read()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        fwd = TL * (2 if policy in ("full", "dots") else 1)
+        exact(f"remat {policy}", got, flash_attn_fwd=fwd * A * REMAT_STEPS,
+              flash_attn_bwd=TL * A * REMAT_STEPS)
+        # one more step (the same batch as the last) under the profiler:
+        # the card's busy time, against the last step's wall time
+        busy = profiled_busy_ms(lambda: trainer._train_step(xs, ys, ms_))
+        rows[policy] = dict(loss=losses[0], norm=norms[0], ms=step_ms,
+                            peak=peak, fwd=fwd, busy=busy)
+        idle = ("not measured" if busy is None
+                else f"{1 - busy / step_ms[-1]:.3f}")
+        log(f"[remat] {policy!r} at {TL} layers, width {tcfg.n_embd}, batch "
+            f"{pt_cfg['batch_size']} x {tcfg.block_size}, bf16, on {card}: "
+            f"{REMAT_STEPS} steps {[round(t, 1) for t in step_ms]} ms "
+            f"(last {step_ms[-1]:.1f} ms/step), card busy (profiled) "
+            f"{'not measured' if busy is None else f'{busy:.1f}'} ms, idle "
+            f"share {idle}, peak memory {peak:.2f} GB, step-1 loss "
+            f"{losses[0].item():.6f}, gradient norm {norms[0]:.6f}; K4 per "
+            f"microbatch {fwd} forward, {TL} backward (exact)")
+    ref = rows["full"]
+    for policy, r in rows.items():
+        rel = abs(r["norm"] - ref["norm"]) / ref["norm"]
+        if not (torch.equal(r["loss"], ref["loss"])
+                and torch.isfinite(r["loss"]) and rel <= REMAT_NORM_TOL):
+            raise AssertionError(f"remat {policy!r}: step-1 loss or gradient "
+                                 f"norm differs from 'full' ({rel:.2e})")
+    log("[remat] table (" + card + "): " + "; ".join(
+        f"{p} {r['ms'][-1]:.1f} ms/step (busy "
+        f"{'not measured' if r['busy'] is None else round(r['busy'], 1)}), "
+        f"{r['peak']:.2f} GB, K4 {r['fwd']}/{TL} a microbatch"
+        for p, r in rows.items())
+        + f"; step-1 loss torch.equal across the policies, gradient norms "
+        f"within {REMAT_NORM_TOL:g} of 'full'")
+    del trainer, start, opt0
+    torch.cuda.empty_cache()
+    log(f"[remat] 9b in {time.time() - t9:.1f} s")
+
+    # ---------------- 9c: PPL ----------------
+    t9 = time.time()
+    with open(os.path.join(ROOT, "dataset", "pretrain_sample.txt"),
+              encoding="utf-8") as f:
+        text = f.read()
+    corpus = text + "\n" + TOY_CHORUS * TOY_N_CHORUS + "\n" + text
+    spans = (corpus[:PPL_CHARS], corpus[PPL_CHARS:2 * PPL_CHARS])
+    ppl, fails = {}, []
+    for quant in ("f32", "q80", "q4k"):
+        path = os.path.join(h.toy_dir, f"toy_{quant}.bin")
+        cpu_ctx = teval.load_context(path, "cpu")
+        S, L = cpu_ctx.cfg.block_size, cpu_ctx.cfg.n_layer
+        tol = PPL_CARD_CPU_TOL[quant]
+        rels, cpus = [], []
+        for i, text in enumerate(spans):
+            ids = cpu_ctx.encode(text)
+            n_win = len(list(teval.windows(len(ids), S, S)))
+            h.reset()
+            card_ppl = teval.model_ppl(path, text, device=dev)
+            got = h.read()
+            exact(f"toy_{quant}.bin's PPL over characters {i * PPL_CHARS}"
+                  f"-{(i + 1) * PPL_CHARS}", got,
+                  **toy_ppl_counts(quant, n_win, L))
+            cpus.append(teval.ids_ppl(cpu_ctx, ids))
+            rels.append(abs(card_ppl - cpus[-1]) / cpus[-1])
+            if i == 0:
+                ppl[quant] = card_ppl
+            log(f"[ppl] toy_{quant}.bin, characters {i * PPL_CHARS}-"
+                f"{(i + 1) * PPL_CHARS} of its corpus ({len(ids)} tokens, "
+                f"{n_win} windows): card {card_ppl:.6f}, CPU plain "
+                f"{cpus[-1]:.6f} (relative {rels[-1]:.2e}, tol {tol:g}); "
+                f"launches exact {({k: v for k, v in got.items() if v})}")
+        caught = True
+        for fault, must in PPL_CONTROLS[quant]:
+            with planted_ppl_fault(torch, fault):
+                bad = teval.model_ppl(path, spans[0], device=dev)
+            control = abs(bad - cpus[0]) / cpus[0]
+            caught &= control > tol or not must
+            log(f"[ppl] toy_{quant}.bin control, {PPL_FAULTS[fault]}: card "
+                f"{bad:.6f} (relative {control:.2e}, "
+                f"{'must exceed' if must else 'read against'} tol {tol:g})")
+        if not (np.isfinite(rels).all() and max(rels) <= tol and caught):
+            fails.append(f"toy_{quant}.bin: the card's PPL is off the "
+                         f"CPU's by {max(rels):.2e}, or a planted fault "
+                         f"passes the tolerance {tol:g}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    d80, d4k = ppl["q80"] - ppl["f32"], ppl["q4k"] - ppl["f32"]
+    log(f"[ppl] toy f32 {ppl['f32']:.4f} (bar < {PPL_F32_MAX}), Q80 delta "
+        f"{d80:+.4f} (|.| < {PPL_DQ80_MAX}), Q4K delta {d4k:+.4f} (|.| < "
+        f"{PPL_DQ4K_MAX})")
+    if not (ppl["f32"] < PPL_F32_MAX and abs(d80) < PPL_DQ80_MAX
+            and abs(d4k) < PPL_DQ4K_MAX):
+        raise AssertionError("the toy's PPL misses the fixture's bars")
+    qctx = engine.LLMContext(cfg=h.qcfg, params=params_to(h.q80, dev),
+                             tokenizer=None, max_seq_len=PPL_WINDOW,
+                             device=dev, dtype=torch.float32)
+    window = np.random.default_rng(SEED + 9).integers(
+        100, 30000, PPL_WINDOW + 1)
+    teval.window_nll(qctx, window)                       # warm-up
+    h.reset()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    nll = teval.window_nll(qctx, window)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    got = h.read()
+    QL = h.qcfg.n_layer
+    exact("a PPL window of the Q80 model", got, q80_act_quant=4 * QL + 1,
+          q80_matmul_w8a8=4 * QL + 1, flash_attn_fwd=QL)
+    log(f"[ppl] full-width Qwen3-0.6B-shaped Q80 model, one {PPL_WINDOW}-"
+        f"token window in f32 on {card}: {secs * 1e3:.1f} ms, "
+        f"{PPL_WINDOW / secs:.0f} tokens scored/s, mean NLL "
+        f"{nll.mean().item():.4f} (random weights); launches exact "
+        f"({got['q80_act_quant']} q80_act_quant, {got['q80_matmul_w8a8']} "
+        f"q80_matmul_w8a8, {got['flash_attn_fwd']} flash_attn_fwd)")
+    if not bool(torch.isfinite(nll).all()):
+        raise AssertionError("the Q80 window's NLL is not finite")
+    del qctx
+    torch.cuda.empty_cache()
+    log(f"[ppl] 9c in {time.time() - t9:.1f} s")
+
+    # ---------------- 9d: problems ----------------
+    t9 = time.time()
+    acc = {}
+    for task, kw in (("sort", SORT_RUN), ("calculator", CALC_RUN)):
+        work = os.path.join(h.work, task)
+        binp = os.path.join(work, f"{task}.bin")
+        prob = problems.make_problem(task, kw.get("seq_length", 8))
+        pcfg = ModelConfig.from_dict(prob.model_config)
+        out = _io.StringIO()
+        h.reset()
+        t0 = time.time()
+        with contextlib.redirect_stdout(out):
+            acc[task] = problems.run_problem(task, work, export_bin=binp,
+                                             device=dev, **kw)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        got = h.read()
+        S = kw["max_steps"]
+        n_eval = (S - 1) // max(100, S // 10)
+        fwd = pcfg.n_layer * (S + 2 * 5 * n_eval + 1) if pcfg.is_causal else 0
+        exact(f"run_problem({task!r})", got, flash_attn_fwd=fwd,
+              flash_attn_bwd=pcfg.n_layer * S if pcfg.is_causal else 0)
+        losses = [ln for ln in out.getvalue().splitlines() if "Loss:" in ln]
+        log(f"[problems] {task}: {S} steps of batch {kw['batch_size']}, "
+            f"{kw['dtype']}, {pcfg.n_layer} layers, width {pcfg.n_embd}, "
+            f"heads of {pcfg.head_dim}, "
+            f"{'causal' if pcfg.is_causal else 'global attention'}, on "
+            f"{card}: {secs:.1f} s with data and evals, exact match "
+            f"{acc[task]:.3f} over {kw['n_eval']} fresh samples; last log "
+            f"{losses[-1].strip() if losses else None!r}; K4 launches exact "
+            f"({got['flash_attn_fwd']} forward, {got['flash_attn_bwd']} "
+            f"backward)")
+        # a .bin header carries no is_causal (the reference's format)
+        ctx = engine.LLMContext.from_bin(binp, device=dev,
+                                         dtype=torch.float32)
+        ctx.cfg = replace(ctx.cfg, is_causal=pcfg.is_causal)
+        if task == "sort":
+            rng = random.Random(SEED)
+            n_ok, n = 0, 100
+            for _ in range(n):
+                s_ = "".join(str(rng.randint(0, 9)) for _ in range(4))
+                got_ids = engine.seq2seq(ctx, ctx.encode(s_))
+                n_ok += ctx.decode(got_ids) == "".join(sorted(s_))
+            log(f"[problems] sort model served by from_bin: seq2seq exact "
+                f"match {n_ok}/{n}")
+            if not (acc[task] >= SORT_MIN_ACC and n_ok >= SORT_MIN_ACC * n):
+                raise AssertionError("the sort model misses the soak test's "
+                                     "bar")
+        prompt = ctx.encode("(+1(*01))=" if task == "calculator" else "31")
+        outs = [engine.denoise_generate(ctx, prompt, 2 * pcfg.block_size,
+                                        top_k=1) for _ in range(2)]
+        log(f"[problems] {task}: denoise_generate top_k=1, "
+            f"{2 * pcfg.block_size} new tokens -> "
+            f"{ctx.decode(outs[0])[:60]!r}...; "
+            f"two runs equal: {outs[0] == outs[1]}")
+        if not (outs[0] == outs[1]
+                and len(outs[0]) == len(prompt) + 2 * pcfg.block_size
+                and max(outs[0]) < pcfg.vocab_size):
+            raise AssertionError(f"{task}: denoise_generate at top_k=1 is "
+                                 f"not deterministic or left its vocab")
+        del ctx
+        shutil.rmtree(work)
+    log(f"[problems] 9d in {time.time() - t9:.1f} s")
+    return dict(sort=acc["sort"], calculator=acc["calculator"],
+                remat={p: (r["ms"][-1], r["peak"]) for p, r in rows.items()},
+                sft_ms=ms_step, ppl=ppl)
+
+
+def bench_lifecycle(torch):
+    """Phase 9 alone (lifecycle_phase) on a Nano-168M checkpoint of its
+    initial weights (phase 6 trains it 12 steps first), a freshly trained
+    toy (phase 5c's) and phase 5's Q80 model built again."""
+    import numpy as np
+    from nano_tpu_torch.config import ModelConfig
+    from nano_tpu_torch.io.checkpoint import save_checkpoint
+    from nano_tpu_torch.models import gpt
+    from nano_tpu_torch.ops import _build
+    from nano_tpu_torch.tokenizer.trie import TrieTokenizer
+    _build.build_all()
+    dev = torch.device("cuda")
+    work = os.path.join(ROOT, "build", "smoke_lifecycle")
+    os.makedirs(work, exist_ok=True)
+    tcfg = ModelConfig.from_json(os.path.join(ROOT, "config",
+                                              "model_168m.json"))
+    ttok = TrieTokenizer.from_file(os.path.join(ROOT, "tokenizer",
+                                                "nano_16384.json"))
+    ckpt = os.path.join(work, "nano168m_init.npz")
+    save_checkpoint(ckpt, params=gpt.init_params(
+        torch.Generator().manual_seed(SEED), tcfg, device="cpu"),
+        model_config=tcfg.to_dict(), tokenizer_config=ttok.config)
+    train_p, val_p, _, _ = pretrain_corpus(ttok, tcfg, work)
+    names = list(COUNTER_OF)
+    card = card_line()
+    reset = lambda: zero_launches(torch)
+    read = lambda: read_launches(torch, names)
+    toy_dir = os.path.join(ROOT, "build", "smoke_toy")
+    trained_toy_phase(torch, np, SimpleNamespace(
+        dev=dev, card=card, reset=reset, read=read, work=toy_dir))
+    qcfg = ModelConfig(**QWEN3_06B)
+    res = lifecycle_phase(torch, np, SimpleNamespace(
+        dev=dev, card=card, names=names, reset=reset, read=read, ckpt=ckpt,
+        pretrain_data=[[train_p, val_p]], toy_dir=toy_dir, qcfg=qcfg,
+        q80=random_q80_params(torch, np, qcfg, "cpu"), work=work))
+    shutil.rmtree(work)
+    log(f"[bench lifecycle] {res}")
+
+
 # the rows form's timed cases: (label, rows B, with the head); a decode
 # step and a batched step run the 112 layer products and the head, a
 # prefill the 112 (its head is one row)
@@ -3352,7 +3929,8 @@ def bench(what) -> int:
                      ("q4k", bench_q4k), ("q80", bench_q80),
                      ("pipes", bench_pipes), ("spec", bench_spec),
                      ("toy", bench_toy), ("export", bench_export),
-                     ("rows", bench_rows), ("lora", bench_lora)):
+                     ("rows", bench_rows), ("lora", bench_lora),
+                     ("lifecycle", bench_lifecycle)):
         if not what or name in what:
             fn(torch, **{"flash": flags, "q80": q80_flags,
                          "q4k": q4k_flags,
@@ -3431,6 +4009,7 @@ def main() -> int:
               ("w13", blocks["w13"]), ("w2", blocks["w2"]), ("head", head)]
 
     # ---------------- 3. kernels vs plain ----------------
+    log(f"[time] phase 3 starts at {time.time() - t_start:.1f} s")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     kernels = {}
 
@@ -4160,8 +4739,7 @@ def main() -> int:
             q, k, v, _ = flash_case(B, S, Hh, KVh, Dh, dt)
             out, lse = flash_attn.flash_attn_fwd(q, k, v)
             out2, lse2 = flash_attn.flash_attn_fwd(q, k, v)
-            ref = flash_attn.flash_attention_plain(q, k, v).reshape(B, S, Hh, Dh)
-            ref_lse = flash_attn.plain_lse(q, k)
+            ref, ref_lse = flash_attn.flash_attn_fwd_plain(q, k, v)
             f32c = dt == torch.float32
             err_f = (out.float() - ref.float()).abs().max().item()
             lim_f = (1e-5 if f32c else 2e-2) * ref.float().abs().max().item()
@@ -4640,6 +5218,7 @@ def main() -> int:
     del cache, kvs
 
     # ---------------- 4. tiny fixtures ----------------
+    log(f"[time] phase 4 starts at {time.time() - t_start:.1f} s")
     fix = os.path.join(ROOT, "tests", "js", "fixtures")
     with open(os.path.join(fix, "expected.json")) as f:
         expected = json.load(f)
@@ -4727,6 +5306,7 @@ def main() -> int:
     del tiny, tiny4
 
     # ---------------- 5. full width ----------------
+    log(f"[time] phase 5 starts at {time.time() - t_start:.1f} s")
     tok = TrieTokenizer()
     tok.build_preset(32768)
     prng = np.random.default_rng(SEED + 1)
@@ -5087,6 +5667,7 @@ def main() -> int:
     decode_routes("Q4K", params4, expect4)
 
     # ---------------- 5b. continuous batching ----------------
+    log(f"[time] phase 5b starts at {time.time() - t_start:.1f} s")
     # Qwen3-0.6B Q80, BATCH_SLOTS slots: a prompt of 16-64 tokens joins
     # every BATCH_JOIN_EVERY steps, each stream BATCH_NEW greedy tokens, the
     # cache growing 128 -> 256; bursts of graph replays.
@@ -5595,6 +6176,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---------------- 5c. speculative decode ----------------
+    log(f"[time] phase 5c starts at {time.time() - t_start:.1f} s")
     t0 = time.time()
     spec_phase(torch, np, SimpleNamespace(
         dev=dev, cfg=cfg, card=card, prompt=prompt, names=names, reset=reset,
@@ -5734,6 +6316,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---------------- 6. training ----------------
+    log(f"[time] phase 6 starts at {time.time() - t_start:.1f} s")
     work = os.path.join(ROOT, "build", "smoke_train")
     os.makedirs(work, exist_ok=True)
     tok_path = os.path.join(ROOT, "tokenizer", "nano_16384.json")
@@ -5980,6 +6563,7 @@ def main() -> int:
     del cpu_params, gpu_params
 
     # ---------------- 7. export and import ----------------
+    log(f"[time] phase 7 starts at {time.time() - t_start:.1f} s")
     t0 = time.time()
     nano_ids = ttok.encode(sample)
     res7 = export_phase(torch, np, SimpleNamespace(
@@ -6004,6 +6588,7 @@ def main() -> int:
     log(f"[export] phase 7 in {time.time() - t0:.1f} s")
 
     # ---------------- 8. LoRA ----------------
+    log(f"[time] phase 8 starts at {time.time() - t_start:.1f} s")
     t0 = time.time()
     res8 = lora_phase(torch, np, SimpleNamespace(
         dev=dev, card=card, names=names, reset=reset, read=read, cfg=cfg,
@@ -6012,8 +6597,7 @@ def main() -> int:
         tcfg=tcfg, ckpt=ckpt12, train_cfg=train_cfg, full_ms=ms_step,
         nano_prompt=nano_ids[:EXPORT_PROMPT],
         work=os.path.join(ROOT, "build", "smoke_lora")))
-    os.remove(ckpt12)
-    del q80_host, q4k_host
+    del q4k_host
     lora_path = res8["launches"]
     log(f"[lora] launches on the LoRA paths (phase 8's driven runs, each "
         f"counted from 0): {lora_path}")
@@ -6025,6 +6609,18 @@ def main() -> int:
         if lora_path[name] == 0:
             raise AssertionError(f"the LoRA paths launched no {name}")
     log(f"[lora] phase 8 in {time.time() - t0:.1f} s")
+
+    # ---------------- 9. training lifecycle ----------------
+    log(f"[time] phase 9 starts at {time.time() - t_start:.1f} s")
+    t0 = time.time()
+    lifecycle_phase(torch, np, SimpleNamespace(
+        dev=dev, card=card, names=names, reset=reset, read=read, ckpt=ckpt12,
+        pretrain_data=[[train_p, val_p]],
+        toy_dir=os.path.join(ROOT, "build", "smoke_toy"), qcfg=cfg,
+        q80=q80_host, work=os.path.join(ROOT, "build", "smoke_lifecycle")))
+    os.remove(ckpt12)
+    del q80_host
+    log(f"[lifecycle] phase 9 in {time.time() - t0:.1f} s")
 
     # ---------------- result ----------------
     for k in kernels.values():

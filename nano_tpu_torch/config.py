@@ -131,8 +131,8 @@ class TrainConfig:
                                           # by the trainer (not ported yet)
     param_dtype: str = "float32"          # master weights
     remat: bool = False                   # recompute activations in backward
-    remat_policy: str = "full"            # "full" | "ffn" ("dots", "heads":
-                                          # not ported)
+    remat_policy: str = "full"            # "full" | "ffn" | "dots" | "heads"
+                                          # (models/gpt.py _SAVED_OPS)
     ce_chunk: int = 0                     # chunked cross-entropy: the LM head
                                           # + CE over token chunks of this
                                           # size (0 = one shot)

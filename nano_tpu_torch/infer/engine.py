@@ -5,7 +5,9 @@ Port of the single-stream half of ``nano_tpu/infer/engine.py``:
 token per ``step()`` call), ``generate_sync`` with on_prefilling /
 on_decoding / on_finished callbacks, ``StreamDecoder``, and
 ``generate_on_device`` (prefill + decode with no host round trip per
-token), each with speculative greedy decode when ``spec_k`` > 0.
+token), each with speculative greedy decode when ``spec_k`` > 0; and the
+full-sequence decoders of non-causal and denoising models, ``seq2seq``
+and ``denoise_generate`` (eager forwards through the no-cache path).
 
 Prompts are padded to power-of-two buckets and the prefill computes the
 LM head only at the last prompt position (``last_idx``), as in the JAX
@@ -992,3 +994,85 @@ def generate_on_device(ctx: LLMContext, prompt_ids: List[int],
             dec.run(n_tokens - 1)
         out = dec.out[:n_tokens].cpu()
     return out.numpy().astype(np.int32)
+
+
+# =====================================================================
+# seq2seq — non-causal single-pass decode (reference: infer/infer.c:1365-1402)
+# =====================================================================
+
+@torch.no_grad()
+def seq2seq(ctx: LLMContext, input_ids: List[int]) -> List[int]:
+    """Global-attention models (sort/palindrome): one forward over the
+    input, argmax at every position (the first of equal maxima)."""
+    ids = torch.tensor([input_ids], dtype=torch.int64, device=ctx.device)
+    logits = gpt.forward(ctx.params, ids, ctx.cfg, dtype=ctx.dtype,
+                         lora=ctx.lora, lora_scale=ctx.lora_scale)
+    return logits[0].argmax(dim=-1).tolist()
+
+
+# =====================================================================
+# denoise decode (reference: model.py:581-638)
+# =====================================================================
+
+@torch.no_grad()
+def _denoise_round(ctx: LLMContext, x: torch.Tensor, masked: torch.Tensor,
+                   gen: torch.Generator, temperature: float,
+                   confidence_threshold: float, top_k: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One unmasking round: every still-masked position whose top-k
+    probability mass reaches the threshold takes a token drawn from its
+    renormalized top k; when none does, the most confident masked position
+    alone (at least one a round)."""
+    logits = gpt.forward(ctx.params, x, ctx.cfg, dtype=ctx.dtype,
+                         lora=ctx.lora, lora_scale=ctx.lora_scale)
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    tk_probs, tk_idx = torch.topk(probs, top_k, dim=-1)
+    conf = tk_probs.sum(dim=-1)
+    decode_mask = (conf >= confidence_threshold) & masked
+    if not bool(decode_mask.any()):
+        best = int(torch.where(masked, conf, -float("inf"))[0].argmax())
+        decode_mask = torch.zeros_like(masked)
+        decode_mask[0, best] = masked[0, best]
+    tk_norm = tk_probs / tk_probs.sum(dim=-1, keepdim=True)
+    draw = torch.multinomial(tk_norm.reshape(-1, top_k), 1, generator=gen)
+    sampled = tk_idx.reshape(-1, top_k).gather(1, draw).reshape(x.shape)
+    return (torch.where(decode_mask, sampled, x),
+            masked & ~decode_mask)
+
+
+def denoise_generate(ctx: LLMContext, prompt_ids: List[int],
+                     max_new_tokens: int, temperature: float = 1.0,
+                     top_k: int = 8, confidence_threshold: float = 0.9,
+                     mask_token_id: int = 7,
+                     callback: Optional[Callable[[np.ndarray], Any]] = None
+                     ) -> List[int]:
+    """Confidence-thresholded iterative unmasking over fixed-size blocks
+    (the JAX engine's loop): each block of the model's block_size holds
+    the prompt's tail (at most block_size - 1 tokens, so a position is
+    always left to unmask) and mask tokens after it; rounds
+    (``_denoise_round``) unmask it until none is left, then its new tokens
+    join the output.  Generates max_new_tokens tokens beyond the prompt;
+    `callback` sees the block (1, block_size) after each round.  The draws
+    come from a ``torch.Generator`` seeded with ``ctx.random_seed``, not
+    from the JAX engine's ``jax.random`` stream; at top_k = 1 a draw is the
+    argmax and the tokens are the JAX engine's."""
+    block = ctx.cfg.block_size
+    all_tokens = list(prompt_ids)
+    prompt_len = min(len(prompt_ids), block - 1)
+    gen = ctx.generator()
+    target = len(all_tokens) + max_new_tokens
+    while len(all_tokens) < target:
+        block_len = min(block - prompt_len, target - len(all_tokens))
+        x = torch.full((1, block), mask_token_id, dtype=torch.int64)
+        if prompt_len:
+            x[0, :prompt_len] = torch.tensor(all_tokens[-prompt_len:])
+        x = x.to(ctx.device)
+        masked = torch.zeros((1, block), dtype=torch.bool, device=ctx.device)
+        masked[0, prompt_len:prompt_len + block_len] = True
+        while bool(masked.any()):
+            x, masked = _denoise_round(ctx, x, masked, gen, temperature,
+                                       confidence_threshold, top_k)
+            if callback:
+                callback(x.cpu().numpy())
+        all_tokens.extend(x[0, prompt_len:prompt_len + block_len].tolist())
+    return all_tokens

@@ -51,7 +51,8 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                   create_selective_checkpoint_contexts)
 
 from nano_tpu_torch.config import ModelConfig
 from nano_tpu_torch.ops import decode_attn
@@ -332,8 +333,8 @@ def attention_nocache(x: torch.Tensor, layer: Params, cfg: ModelConfig,
                       ) -> torch.Tensor:
     """One full-sequence attention layer without a cache (training).
     Causal models go through ``flash_attention`` (the kernels on the card,
-    forward and backward); global attention is the unmasked einsum path.
-    `lora`: the layer's adapter, on q, k, v and on wo from the heads."""
+    forward and backward); global attention is the unmasked einsum path.  `lora`: the layer's adapter, on q, k, v and on wo from
+    the heads."""
     q, k, v = _qkv(x, layer, cfg, cos, sin, dtype, lora, lora_scale)
     if cfg.is_causal:
         heads = flash_attention(q, k, v)
@@ -734,22 +735,56 @@ def unstack_layers(blocks: Params) -> List[Params]:
     """Every layer's dense weights as views of the stacked tensors.  One
     ``unbind`` per tensor, so its backward is one ``stack`` of the layers'
     gradients (a ``w[i]`` per layer would build a full-size zero tensor
-    for each)."""
-    per_name = {name: w.unbind(0) for name, w in blocks.items()}
+    for each).  Quantized weights (a loaded file's, which take no
+    gradient) give each layer's view by ``layer``."""
+    def layers(w):
+        if isinstance(w, (Q80Tensor, Q4KTensor)):
+            lead = w.q if isinstance(w, Q80Tensor) else w.packed
+            return [w.layer(i) for i in range(lead.shape[0])]
+        return w.unbind(0)
+    per_name = {name: layers(w) for name, w in blocks.items()}
     n_layer = len(next(iter(per_name.values())))
     return [{name: ws[i] for name, ws in per_name.items()}
             for i in range(n_layer)]
 
 
+# The remat policies of the training forward, keyed by TrainConfig's
+# remat_policy (the JAX package's REMAT_POLICIES).  Under "full" (or True,
+# or a name the table does not know) each block keeps only its input;
+# "ffn" keeps everything but the 2F-wide w1 / w3 outputs; the two others
+# are selective checkpoints of the whole block, whose policy sees every
+# dispatcher operator the block runs:
+#   "dots"   keeps the output of every product without batch dimensions
+#            (the JAX dots_with_no_batch_dims_saveable): aten.mm / addmm,
+#            which the projections, the w1 / w3 / w2 products and the LoRA
+#            branch lower to; the attention (batched einsums, the flash
+#            operator) is run again in backward, as JAX runs its Pallas
+#            call again;
+#   "heads"  keeps only the attention context (JAX's 'attn_heads'): the
+#            flash operator's out and lse, so the backward reads them and
+#            K4's forward runs once a layer.  The non-causal einsum path
+#            has no such operator and is recomputed as under "full".
+_SAVED_OPS = {
+    "dots": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default),
+    "heads": (torch.ops.nano_tpu_torch.flash_attn_fwd.default,),
+}
+
+
 def _remat_mode(remat: Union[bool, str, None]) -> Optional[str]:
-    """False -> None; True / "full" -> "full"; "ffn" -> "ffn".  A name the
-    table does not know means full remat, as in the JAX package."""
+    """False -> None; "ffn", "dots", "heads" -> themselves; True, "full"
+    and a name the table does not know -> "full", as in the JAX package."""
     if not remat:
         return None
-    if remat in ("dots", "heads"):
-        raise NotImplementedError(
-            f"remat policy {remat!r} is not ported; use 'full' or 'ffn'")
-    return "ffn" if remat == "ffn" else "full"
+    return remat if remat in ("ffn", "dots", "heads") else "full"
+
+
+def _saving(ops):
+    """A selective-checkpoint context factory that keeps the outputs of
+    `ops` and recomputes everything else."""
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in ops
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return lambda: create_selective_checkpoint_contexts(policy)
 
 
 def forward_hidden(params: Params, idx: torch.Tensor, cfg: ModelConfig,
@@ -759,12 +794,13 @@ def forward_hidden(params: Params, idx: torch.Tensor, cfg: ModelConfig,
     """Full-sequence forward -> final-norm hidden states (B, S, E).
 
     A Python loop over the layers' views of the stacked parameters.
-    `remat`: True or "full" recomputes each block in backward
+    `remat` (``_remat_mode``): "full" recomputes each block in backward
     (``torch.utils.checkpoint``; only the residual stream survives);
     "ffn" keeps everything but the 2F-wide w1 / w3 outputs, which
-    backward computes again.  `lora`: an adapter's stacked tensors (L, ...)
-    scaled by `lora_scale`; the gradient reaches them as it does the
-    parameters.
+    backward computes again; "dots" and "heads" recompute the block but
+    keep what their policy names (``_SAVED_OPS``).  `lora`: an adapter's
+    stacked tensors (L, ...) scaled by `lora_scale`; the gradient reaches
+    them as it does the parameters.
     """
     mode = _remat_mode(remat)
     S = idx.shape[1]
@@ -777,11 +813,13 @@ def forward_hidden(params: Params, idx: torch.Tensor, cfg: ModelConfig,
         h = h + params["wpe"][:S].to(dtype)
     layers = unstack_layers(params["blocks"])
     loras = ([None] * len(layers) if lora is None else unstack_layers(lora))
+    kw = (dict(context_fn=_saving(_SAVED_OPS[mode])) if mode in _SAVED_OPS
+          else {})
     for layer, ll in zip(layers, loras):
-        if mode == "full":
+        if mode in ("full", "dots", "heads"):
             h = checkpoint(block_nocache, h, layer, cfg, cos, sin, dtype,
                            False, ll, lora_scale, use_reentrant=False,
-                           preserve_rng_state=False)
+                           preserve_rng_state=False, **kw)
         else:
             h = block_nocache(h, layer, cfg, cos, sin, dtype, mode == "ffn",
                               ll, lora_scale)

@@ -9,13 +9,23 @@ query head h = kv * rep + r,
                    @ v[b, :, kv]
 
 ``flash_attention`` runs the hand-written CUDA kernels
-(``csrc/flash_attn.cu``) for CUDA tensors — forward and, through
-``FlashAttention``'s backward, the gradient — and
-``flash_attention_plain`` only for tensors on the CPU.  Unlike the TPU
-kernel there is no gate on S and K/V are never repeated to H heads.  The
-backward uses no atomics: two runs on the same inputs agree bit for bit.
-``flash_attention.launches`` counts forward launches,
-``flash_attention.backward_launches`` backward ones.
+(``csrc/flash_attn.cu``) for CUDA tensors — forward and, through the
+operator's backward, the gradient — and their plain versions only for
+tensors on the CPU.  Unlike the TPU kernel there is no gate on S and K/V
+are never repeated to H heads.  The backward uses no atomics: two runs on
+the same inputs agree bit for bit.  ``flash_attention.launches`` counts
+forward launches, ``flash_attention.backward_launches`` backward ones.
+
+The forward is the registered operator
+``torch.ops.nano_tpu_torch.flash_attn_fwd`` (q, k, v) -> (out, lse), whose
+gradient is ``flash_attn_bwd`` on the out and lse it saved: a
+selective-checkpoint policy sees the kernel as that one operator and can
+keep its outputs, so a backward that recomputes the block around it need
+not launch the forward again (the "heads" remat policy of
+``models.gpt``).  For CPU tensors the operator runs the plain versions of
+both kernels (``flash_attn_fwd_plain``, ``flash_attn_bwd_plain``);
+``flash_attention_plain``, the forward under autograd, is the reference
+the kernels' gradients are held against.
 """
 
 from __future__ import annotations
@@ -38,31 +48,57 @@ def causal_mask(S: int, device=None) -> torch.Tensor:
                        ).to(torch.float32)
 
 
+def flash_attn_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What ``flash_attn_fwd`` returns, in plain PyTorch: the einsum path
+    of the JAX package -> (out (B, S, H, D) in q's type, lse (B, H, S)
+    f32, the row log-sum-exp of the scaled causal scores).  Scores in f32,
+    additive -inf mask above the diagonal, f32 softmax cast to the compute
+    type before the V product."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    qg = q.float().reshape(B, S, KV, H // KV, D)
+    scores = (torch.einsum("bskrd,btkd->bkrst", qg, k.float()) / math.sqrt(D)
+              + causal_mask(S, q.device))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkrst,btkd->bskrd", probs, v.to(q.dtype))
+    return (out.reshape(B, S, H, D),
+            torch.logsumexp(scores, dim=-1).reshape(B, H, S))
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor) -> torch.Tensor:
-    """The einsum path of the JAX package in PyTorch, differentiated by
-    autograd: q (B, S, H, D), k / v (B, S, KV, D) -> (B, S, H*D) in q's
-    type.  Scores in f32, additive -inf mask above the diagonal, f32
-    softmax cast to the compute type before the V product."""
+    """``flash_attn_fwd_plain``'s out as (B, S, H*D), differentiated by
+    autograd: the reference for the kernels' forward and gradient."""
     B, S, H, D = q.shape
-    KV = k.shape[2]
-    qg = q.float().reshape(B, S, KV, H // KV, D)
-    scores = torch.einsum("bskrd,btkd->bkrst", qg, k.float()) / math.sqrt(D)
-    probs = torch.softmax(scores + causal_mask(S, q.device), dim=-1
-                          ).to(q.dtype)
-    out = torch.einsum("bkrst,btkd->bskrd", probs, v.to(q.dtype))
-    return out.reshape(B, S, H * D)
+    return flash_attn_fwd_plain(q, k, v)[0].reshape(B, S, H * D)
 
 
-def plain_lse(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """What ``flash_attn_fwd`` returns beside out, in plain PyTorch: the
-    row log-sum-exp of the scaled causal scores, (B, H, S) f32."""
+def flash_attn_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         out: torch.Tensor, lse: torch.Tensor,
+                         dout: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What ``flash_attn_bwd`` returns, in plain PyTorch and f32: the
+    probabilities again from q, k and the saved lse, delta = rowsum(dout *
+    out), dS = P * (dP - delta) -> (dq, dk, dv) in q's type.  It runs no
+    attention forward: out and lse are read, not recomputed."""
     B, S, H, D = q.shape
     KV = k.shape[2]
-    qg = q.float().reshape(B, S, KV, H // KV, D)
-    scores = torch.einsum("bskrd,btkd->bkrst", qg, k.float()) / math.sqrt(D)
-    return torch.logsumexp(scores + causal_mask(S, q.device), dim=-1
-                           ).reshape(B, H, S)
+    R = H // KV
+    scale = 1.0 / math.sqrt(D)
+    qg = q.float().reshape(B, S, KV, R, D)
+    do = dout.float().reshape(B, S, KV, R, D)
+    scores = (torch.einsum("bskrd,btkd->bkrst", qg, k.float()) * scale
+              + causal_mask(S, q.device))
+    p = torch.exp(scores - lse.reshape(B, KV, R, S)[..., None])
+    dv = torch.einsum("bkrst,bskrd->btkd", p, do)
+    dp = torch.einsum("bskrd,btkd->bkrst", do, v.float())
+    delta = (do * out.float().reshape(B, S, KV, R, D)).sum(-1)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkrst,btkd->bskrd", ds, k.float()) * scale
+    dk = torch.einsum("bkrst,bskrd->btkd", ds, qg) * scale
+    return (dq.reshape(B, S, H, D).to(q.dtype), dk.to(q.dtype),
+            dv.to(q.dtype))
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -143,30 +179,39 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
-class FlashAttention(torch.autograd.Function):
-    """The two kernels as one differentiable function of CUDA tensors."""
+@torch.library.custom_op("nano_tpu_torch::flash_attn_fwd", mutates_args=())
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward as one operator: the kernel on the card, the plain
+    version for CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_attn_fwd_plain(q, k, v)
+    return flash_attn_fwd(q, k, v)
 
-    @staticmethod
-    def forward(ctx, q, k, v):
-        out, lse = flash_attn_fwd(q, k, v)
-        ctx.save_for_backward(q, k, v, out, lse)
-        return out
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        return flash_attn_bwd(q, k, v, out, lse, dout)
+def _setup(ctx, inputs, output) -> None:
+    ctx.save_for_backward(*inputs, *output)
+
+
+def _backward(ctx, dout, _dlse
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    q, k, v, out, lse = ctx.saved_tensors
+    bwd = flash_attn_bwd_plain if q.device.type == "cpu" else flash_attn_bwd
+    return bwd(q, k, v, out, lse, dout)
+
+
+_fwd_op.register_autograd(_backward, setup_context=_setup)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                     ) -> torch.Tensor:
     """q (B, S, H, D), k / v (B, S, KV, D), f32 or bf16 -> (B, S, H*D) in
-    q's type; differentiable.  The kernels on the card, the plain version
-    for tensors on the CPU."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v)
+    q's type; differentiable.  Through the operator
+    ``nano_tpu_torch::flash_attn_fwd``: the kernels on the card, their
+    plain versions for CPU tensors."""
     B, S, H, D = q.shape
-    return FlashAttention.apply(q, k, v).reshape(B, S, H * D)
+    out, _ = torch.ops.nano_tpu_torch.flash_attn_fwd(q, k, v)
+    return out.reshape(B, S, H * D)
 
 
 flash_attention.launches = 0

@@ -263,7 +263,6 @@ class Trainer:
             raise NotImplementedError(
                 f"mesh_shape {tc.mesh_shape} asks for {n_devices} devices; "
                 f"multi-device training is not ported yet")
-        gpt._remat_mode(self._remat())           # refuse early
         self.log(f"device: {self.device}")
 
         rng = torch.Generator().manual_seed(tc.random_seed)

@@ -4,7 +4,7 @@ against the JAX package's einsum path on the CPU, forward and gradient.
 On the CPU the JAX package never takes its Pallas flash kernel
 (`gpt._use_flash` is False there), so its einsum path `_gqa_scores` /
 softmax / `_gqa_out` is the kernel's reference; the port's
-`flash_attention` takes `flash_attention_plain` for CPU tensors.  Inputs
+`flash_attention` takes the kernels' plain versions for CPU tensors.  Inputs
 come from numpy seeds.  f32: forward within 1e-5 of max|ref|, gradients
 within 1e-4 of max|grad| (the same f32 arithmetic, sums in another order).
 """
@@ -139,8 +139,8 @@ EDGE_CASES = [(B, S, KV, 4, D) for D in (16, 32, 48) for B, S, KV in
 
 @pytest.mark.parametrize("B,S,KV,rep,D", EDGE_CASES)
 def test_plain_forward_and_lse_at_tile_edges_and_rep4(B, S, KV, rep, D):
-    """out within 1e-5 of max|ref| of the JAX einsum path, and `plain_lse`
-    (what the kernel's second output is held against on the card) within
+    """out within 1e-5 of max|ref| of the JAX einsum path, and the lse of
+    `flash_attn_fwd_plain` (what the kernel's second output is held against on the card) within
     1e-5 of logsumexp over the JAX path's masked scores."""
     q, k, v, _ = _inputs(B, S, KV, rep, D, 11 * S + D)
     jq, jk, jv = map(jnp.asarray, (q, k, v))
@@ -154,7 +154,7 @@ def test_plain_forward_and_lse_at_tile_edges_and_rep4(B, S, KV, rep, D):
     scores = jgpt._gqa_scores(jq, jk, cfg) + jgpt._causal_mask(S)
     want_lse = np.asarray(jax.nn.logsumexp(scores, axis=-1)
                           ).reshape(B, KV * rep, S)
-    got_lse = tfa.plain_lse(tq, tk).numpy()
+    got_lse = tfa.flash_attn_fwd_plain(tq, tk, tv)[1].numpy()
     assert got_lse.shape == (B, KV * rep, S)
     np.testing.assert_allclose(got_lse, want_lse, rtol=0, atol=1e-5)
 

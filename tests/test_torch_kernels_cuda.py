@@ -764,11 +764,10 @@ def test_flash_attn_fwd_out_and_lse(B, S, H, KV, D, dtype):
     out2, lse2 = tfa.flash_attn_fwd(q, k, v)
     torch.cuda.synchronize()
     assert torch.equal(out, out2) and torch.equal(lse, lse2)
-    want = tfa.flash_attention_plain(q, k, v).reshape(B, S, H, D)
+    want, want_lse = tfa.flash_attn_fwd_plain(q, k, v)
     f32 = dtype == torch.float32
     tol = (1e-5 if f32 else 2e-2) * want.float().abs().max().item()
     assert (out.float() - want.float()).abs().max().item() <= tol
-    want_lse = tfa.plain_lse(q, k)
     assert lse.shape == want_lse.shape == (B, H, S)
     assert (lse - want_lse).abs().max().item() <= (1e-5 if f32 else 1e-3)
 
@@ -833,6 +832,74 @@ def test_flash_attention_takes_strided_views_and_refuses_other_head_dims():
         tfa.flash_attention(torch.randn(1, 8, 2, 40, device="cuda"),
                             torch.randn(1, 8, 2, 40, device="cuda"),
                             torch.randn(1, 8, 2, 40, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_operator_is_the_two_kernels(dtype):
+    """The registered operator nano_tpu_torch::flash_attn_fwd returns the
+    forward kernel's out and lse bit for bit, one launch; its gradient is
+    the backward kernel's on that out and lse, one launch."""
+    _need_card()
+    B, S, H, KV, D = 2, 130, 8, 2, 48
+    q, k, v, g = _flash_case(B, S, H, KV, D, dtype, 7)
+    out, lse = tfa.flash_attn_fwd(q, k, v)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    n0 = (tfa.flash_attention.launches, tfa.flash_attention.backward_launches)
+    o2, l2 = torch.ops.nano_tpu_torch.flash_attn_fwd(*leaves)
+    o2.backward(g.reshape(B, S, H, D))
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention.launches,
+            tfa.flash_attention.backward_launches) == (n0[0] + 1, n0[1] + 1)
+    assert torch.equal(o2, out) and torch.equal(l2, lse)
+    want = tfa.flash_attn_bwd(q, k, v, out, lse, g.reshape(B, S, H, D))
+    for a, b in zip(leaves, want):
+        assert torch.equal(a.grad, b)
+
+
+def _remat_step(remat, dtype, over=None):
+    """loss_fn + backward of a 4-layer Nano-shaped model (heads of 48) on
+    the card under `remat` -> (loss, grads, K4 forward and backward
+    launches)."""
+    from nano_tpu_torch.config import ModelConfig
+    from nano_tpu_torch.models import gpt
+    cfg = ModelConfig(**dict(dict(block_size=128, vocab_size=512, n_layer=4,
+                                  n_embd=192, n_head=4, n_kv_head=2,
+                                  n_hidden=384), **(over or {})))
+    params = gpt.init_params(torch.Generator().manual_seed(5), cfg,
+                             device="cuda")
+    rng = np.random.RandomState(6)
+    x, y = (torch.from_numpy(rng.randint(0, 512, (4, 128))).cuda()
+            for _ in range(2))
+    m = torch.from_numpy((rng.rand(4, 128) < 0.6).astype(np.int64)).cuda()
+    n0 = (tfa.flash_attention.launches, tfa.flash_attention.backward_launches)
+    loss = gpt.loss_fn(params, x, y, m, cfg, dtype=dtype, remat=remat)
+    loss.backward()
+    torch.cuda.synchronize()
+    n = (tfa.flash_attention.launches - n0[0],
+         tfa.flash_attention.backward_launches - n0[1])
+    return loss.detach(), [p.grad for _, p in gpt.param_leaves(params)], n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("remat", ["dots", "heads"])
+def test_selective_remat_matches_full_remat_on_the_card(remat, dtype):
+    """"dots" and "heads" give full remat's loss bit for bit (the same
+    forward) and its gradients (each within 1e-5 of its max|grad|: the
+    same kernels on the same inputs, the saved tensors those the recompute
+    would give); K4's forward runs twice a layer under "dots" and once
+    under "heads", whose backward reads the operator's saved out and
+    lse."""
+    _need_card()
+    l0, g0, n0 = _remat_step("full", dtype)
+    l1, g1, n1 = _remat_step(remat, dtype)
+    assert torch.equal(l0, l1) and torch.isfinite(l1)
+    for a, b in zip(g0, g1):
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= 1e-5 * max(a.float().abs().max().item(), 1e-12)
+    assert n0 == (8, 4)
+    assert n1 == ((8, 4) if remat == "dots" else (4, 4))
 
 
 @pytest.mark.cuda

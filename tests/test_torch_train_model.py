@@ -1,5 +1,5 @@
-"""The training forward of the port (forward, loss_fn, chunked CE, remat,
-init_params) against nano_tpu.models.gpt on the CPU.
+"""The training forward of the port (forward, loss_fn, chunked CE, remat
+under every policy, init_params) against nano_tpu.models.gpt on the CPU.
 
 Same parameters (made with numpy from a seed in the JAX package's tree
 structure, carried across with params_from_jax) and the same token ids go
@@ -122,9 +122,18 @@ def test_loss_and_gradients_match_jax(name, masked):
     _assert_same(*_both_losses(name, masked))
 
 
-@pytest.mark.parametrize("remat", [True, "full", "ffn"])
+@pytest.mark.parametrize("remat", [True, "full", "ffn", "dots", "heads"])
 @pytest.mark.parametrize("name", ["nano", "qwen3"])
 def test_remat_policies_match_jax(name, remat):
+    _assert_same(*_both_losses(name, True, remat=remat))
+
+
+@pytest.mark.parametrize("remat", ["dots", "heads"])
+@pytest.mark.parametrize("name", ["global", "learned_pos", "qwen2"])
+def test_selective_remat_policies_match_jax_on_other_models(name, remat):
+    """"dots" and "heads" against jax.grad under the same policy where the
+    attention is the einsum path (global) and on the other parameter
+    layouts."""
     _assert_same(*_both_losses(name, True, remat=remat))
 
 
@@ -140,7 +149,7 @@ def test_remat_changes_no_value():
     tree = _np_params(NANO, 5)
     x, y, m = map(torch.from_numpy, _batch(NANO, 6))
     grads = []
-    for remat in (False, True, "ffn"):
+    for remat in (False, True, "ffn", "dots"):
         params = params_from_jax(tree, "cpu", trainable=True)
         tgpt.loss_fn(params, x, y, m, cfg, dtype=torch.float32,
                      remat=remat).backward()
@@ -150,13 +159,79 @@ def test_remat_changes_no_value():
             assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("policy", ["dots", "heads"])
-def test_unported_remat_policies_raise(policy):
-    cfg = ModelConfig(**NANO)
-    params = params_from_jax(_np_params(NANO, 5), "cpu")
-    x = torch.zeros(1, 4, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match=policy):
-        tgpt.forward_hidden(params, x, cfg, dtype=torch.float32, remat=policy)
+def _counted_step(monkeypatch, remat, **over):
+    """One loss + backward of the NANO model under `remat`, counting the
+    calls of the flash operator's plain forward ("op") and backward
+    ("bwd"): (counts in the forward, counts during the backward, aten.mm
+    calls during the backward)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from nano_tpu_torch.ops import flash_attn as tfa
+    n = dict(op=0, bwd=0)
+
+    def counting(key, fn):
+        def f(*a, **k):
+            n[key] += 1
+            return fn(*a, **k)
+        return f
+    monkeypatch.setattr(tfa, "flash_attn_fwd_plain",
+                        counting("op", tfa.flash_attn_fwd_plain))
+    monkeypatch.setattr(tfa, "flash_attn_bwd_plain",
+                        counting("bwd", tfa.flash_attn_bwd_plain))
+
+    class MMs(TorchDispatchMode):
+        mm = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+                MMs.mm += 1
+            return func(*args, **(kwargs or {}))
+
+    cfg = ModelConfig(**dict(NANO, **over))
+    params = params_from_jax(_np_params(dict(NANO, **over), 5), "cpu",
+                             trainable=True)
+    x, y, m = map(torch.from_numpy, _batch(NANO, 6))
+    loss = tgpt.loss_fn(params, x, y, m, cfg, dtype=torch.float32,
+                        remat=remat)
+    fwd = dict(n)
+    with MMs():
+        loss.backward()
+    return fwd, {k: n[k] - fwd[k] for k in n}, MMs.mm
+
+
+def test_heads_remat_runs_no_attention_forward_in_backward(monkeypatch):
+    """"heads" keeps the flash operator's out and lse: the backward
+    recomputes the block but not the attention (one forward a layer),
+    where full remat runs it again for every layer."""
+    L = NANO["n_layer"]
+    fwd, bwd, _ = _counted_step(monkeypatch, "heads")
+    assert fwd == dict(op=L, bwd=0)
+    assert bwd == dict(op=0, bwd=L)
+    fwd, bwd, _ = _counted_step(monkeypatch, "full")
+    assert fwd == dict(op=L, bwd=0)
+    assert bwd == dict(op=L, bwd=L)                     # computed again
+
+
+def test_dots_remat_keeps_the_projections(monkeypatch):
+    """"dots" keeps every 2-D product's output: its backward runs as many
+    aten.mm as no remat at all (the gradients' products), where full remat
+    also runs the projections of every layer again (6 of its 7: the
+    recompute stops once the tensors the backward reads are back, before
+    w2); the attention runs again under both."""
+    L = NANO["n_layer"]
+    _, _, mm_none = _counted_step(monkeypatch, False)
+    fwd, bwd, mm_dots = _counted_step(monkeypatch, "dots")
+    _, _, mm_full = _counted_step(monkeypatch, "full")
+    assert fwd == dict(op=L, bwd=0) and bwd == dict(op=L, bwd=L)
+    assert mm_dots == mm_none and mm_full == mm_none + 6 * L
+
+
+@pytest.mark.parametrize("policy", ["dots", "heads", "some-other-name"])
+def test_remat_mode_takes_every_policy_name(policy):
+    """The names of the JAX package's table are themselves; one the table
+    does not know means full remat, as there."""
+    assert tgpt._remat_mode(policy) == (
+        policy if policy in ("dots", "heads") else "full")
+    assert tgpt._remat_mode(False) is None and tgpt._remat_mode(True) == "full"
 
 
 def test_bf16_loss_close_to_jax_bf16():

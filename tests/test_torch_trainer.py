@@ -254,8 +254,6 @@ def test_eval_gated_checkpoints_and_the_log_lines(corpus_shards, tmp_path,
 
 @pytest.mark.parametrize("over,match", [
     (dict(use_lora=True), "LoRA"),
-    (dict(remat=True, remat_policy="dots"), "dots"),
-    (dict(remat=True, remat_policy="heads"), "heads"),
     (dict(mesh_shape={"data": 4, "model": 2}), "multi-device"),
 ])
 def test_trainer_refuses_what_is_not_ported(corpus_shards, tmp_path, over,
@@ -264,6 +262,70 @@ def test_trainer_refuses_what_is_not_ported(corpus_shards, tmp_path, over,
                          max_steps=1, device="cpu")
     with pytest.raises(NotImplementedError, match=match):
         t.init()
+
+
+SFT_JSONL = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "dataset", "sft_sample.jsonl")
+
+
+@pytest.fixture(scope="module")
+def sft_shards(tmp_path_factory):
+    """dataset/sft_sample.jsonl through each package's generate_sft_dataset
+    with the corpus tokenizer of `corpus_shards`' text plus the sample's
+    characters, at TINY's block size: (tokenizer path, port shards, JAX
+    shards)."""
+    from nano_tpu.data import preprocess as jpre
+    from nano_tpu.tokenizer.trie import TrieTokenizer as JTrieTokenizer
+    d = tmp_path_factory.mktemp("sft")
+    with open(SFT_JSONL, encoding="utf-8") as f:
+        text = f.read()
+    tok = TrieTokenizer()
+    tok.build_from_text(CORPUS + text)
+    tok_path = str(d / "tok.json")
+    tok.dump_config_file(tok_path)
+    jtok = JTrieTokenizer.from_file(tok_path)
+    block = 4 * TINY["block_size"]
+    port = preprocess.generate_sft_dataset([SFT_JSONL], tok, block,
+                                           str(d / "t"))
+    jax_ = jpre.generate_sft_dataset([SFT_JSONL], jtok, block, str(d / "j"))
+    return tok_path, port, jax_, tok.vocab_size
+
+
+@pytest.mark.parametrize("policy", ["dots", "heads"])
+def test_sft_steps_follow_the_jax_trainer(sft_shards, tmp_path, policy):
+    """Full SFT as config/sft.json runs it (from a checkpoint, masked loss,
+    accumulation 2, remat) under each selective remat policy, on the port's
+    shards for the port and the JAX package's for the JAX Trainer (the same
+    arrays): 4 steps from the same checkpoint, f32 losses within 1e-4
+    relative, as the 5-step pretrain trajectory above."""
+    tok_path, port, jax_, V = sft_shards
+    for a, b in zip(port, jax_):
+        pa, pb = np.load(a), np.load(b)
+        assert all(np.array_equal(pa[k], pb[k]) for k in ("ids", "mask"))
+    cfg = dict(TINY, vocab_size=max(V, TINY["vocab_size"]),
+               block_size=4 * TINY["block_size"])
+    jp = jax.tree.map(np.asarray, jgpt.init_params(jax.random.PRNGKey(3),
+                                                   JModelConfig(**cfg)))
+    ck = str(tmp_path / "base.npz")
+    jckpt.save_checkpoint(ck, params=jp, step=2, model_config=cfg,
+                          train_config={}, tokenizer_config=None)
+    over = dict(from_checkpoint=ck, gradient_accumulation_steps=2,
+                remat=True, remat_policy=policy, batch_size=4)
+    jt = jtrainer.Trainer(cfg, dict(_tc((tok_path, *jax_), tmp_path / "j"),
+                                    **over), max_steps=6)
+    jt.init()
+    jt.load_data()
+    jt.start()
+    pt = ttrainer.Trainer(cfg, dict(_tc((tok_path, *port), tmp_path / "t"),
+                                    **over), max_steps=6, device="cpu")
+    pt.init()
+    assert pt.step_count == 2
+    pt.load_data()
+    pt.start()
+    assert [s for s, _ in pt.loss_history] == [3, 4, 5, 6]
+    for (_, jl), (_, tl) in zip(jt.loss_history, pt.loss_history):
+        assert abs(tl - jl) <= 1e-4 * abs(jl), (jt.loss_history,
+                                                pt.loss_history)
 
 
 def test_one_device_mesh_shape_is_accepted(corpus_shards, tmp_path):
