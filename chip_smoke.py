@@ -200,6 +200,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   test's bar) and run_problem("calculator") (K4 at D = 16,
                   launches exact), each exported and served: seq2seq on the
                   sort model, denoise_generate at top_k = 1 twice
+ 10. parallel (parallel_phase; nano_tpu_torch/parallel)
+                  two gloo ranks sharing the card (``parallel.launch``,
+                  rank functions parallel_rank / nccl_rank below): 10a
+                  serve phase 5's Q80 and Q4K models at TP = 2 (each
+                  kernel at its shard shapes): first-step logits against
+                  the one-device context within PAR_LOGITS_TOL (control: a
+                  planted collective that adds nothing), the agreeing
+                  prefix of PAR_TOKENS greedy tokens, every kernel's
+                  launches per rank exact, TP decode tok/s (eager: a gloo
+                  collective cannot be captured); 10b one NCCL rank decodes
+                  the Q80 model from captured graphs with its all-reduces
+                  inside, its stream torch.equal to the unsharded graphs'
+                  (and TP = 2 over NCCL where the machine has two cards);
+                  10c Nano-168M at full width (PAR_LAYERS layers, batch
+                  PAR_BATCH x 512, bf16) under {"data": 2} and {"model":
+                  2}: PAR_STEPS steps and one resumed step, losses within
+                  PAR_LOSS_TOL of one device's, the resume bit-exact, K4's
+                  launches per rank exact, ms/step
 
 Phase 3 also holds K1 (q80_matmul_w8a8, every row torch.equal to the
 B = 1 kernel's), K3 at B > 1 and the norm kernels at the row counts of a
@@ -229,7 +247,7 @@ result cast to bf16).
 
 `python3 chip_smoke.py bench [flash [clocks]] [decode] [q4k [batched]] [q80
 [batched [sweep] [clocks]]] [pipes] [spec] [toy] [export] [rows [sweep] [clocks]]
-[lora] [lifecycle]` runs none of the phases: it times the two
+[lora] [lifecycle] [parallel] [nccl]` runs none of the phases: it times the two
 attention kernels alone beside SDPA (the flash forward and backward, a
 ladder over the decode kernel's rows per block), a Q4K decode step's
 matmuls with the fake-quant folded in or not, a Q80 decode step's W8A8
@@ -247,7 +265,8 @@ the bound.  `bench spec` runs phase 5c alone, `bench toy` its trained
 toy, `bench export` phase 7 (on an untrained Nano-168M checkpoint), and
 `bench lora` phase 8 (on the same, without the GGUF model).
 `bench lifecycle` runs phase 9 alone (on a Nano-168M checkpoint of its
-initial weights and a freshly trained toy).  `bench rows` times the rows form (K1 below group size 256) over a
+initial weights and a freshly trained toy), `bench parallel` phase 10,
+`bench nccl` its NCCL part (10b) alone.  `bench rows` times the rows form (K1 below group size 256) over a
 Qwen3-0.6B GGUF model's products at group sizes 32 and 16 as phase 7b
 does, on random weights; `sweep` adds every work split of its two kernels
 at 1, 8 and 64 rows beside the plan's, `clocks` where a tiled block's time
@@ -1579,17 +1598,20 @@ COUNTER_OF = dict(
 
 
 def zero_launches(torch):
-    """Every kernel's launch counter set to 0, the card idle first."""
+    """Every kernel's launch counter set to 0, the card idle first (where
+    there is one: phase 10's ranks rehearse on the CPU)."""
     from nano_tpu_torch.ops import launches
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
     launches.restore({key: 0 for key in launches.counts()})
 
 
 def read_launches(torch, names):
     """{kernel: its launch count} for the kernels `names`, the card idle
-    first."""
+    first (where there is one)."""
     from nano_tpu_torch.ops import launches
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
     counts = launches.counts()
     return {n: counts[COUNTER_OF[n]] for n in names}
 
@@ -1926,13 +1948,18 @@ def spec_phase(torch, np, h):
                 runs[which].append((secs, n_tok, got, kinds))
                 if which == "spec" and not mixed and len(runs["spec"]) == 2:
                     # where a speculative step's time goes: one burst of
-                    # 16, every slot verifying (the parks cleared)
-                    be._spec_park[:] = 0
+                    # 16, every slot verifying (the parks cleared before
+                    # each profiled burst: a burst parks the slots whose
+                    # drafts were rejected, and the witness may profile
+                    # again)
+                    def spec_burst():
+                        be._spec_park[:] = 0
+                        be.step_burst(16)
                     h.profile_line(f"spec {model}", f"{n_slots} slots, a "
                                    f"speculative burst (k = "
                                    f"{be._spec_k_cur}, parks cleared)",
-                                   lambda: be.step_burst(16), 1, 16,
-                                   secs * 1e3 / 48, per_round)
+                                   spec_burst, 1, 16, secs * 1e3 / 48,
+                                   per_round)
                 del be
                 torch.cuda.empty_cache()
             sp, pl = runs["spec"][0][2], runs["plain"][0][2]
@@ -3915,6 +3942,402 @@ def bench_rows(torch, sweep=False, clocks=False):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------
+# phase 10: parallelism on torch.distributed (nano_tpu_torch/parallel)
+# ---------------------------------------------------------------------
+
+# 10a: tokens of each TP = 2 stream over gloo and of its one-device
+# reference (two processes time-slice the card, and each eager TP step
+# waits on 56 gloo all-reduces through the host: ~120-155 ms a step on an
+# NVIDIA H100 80GB HBM3 at 700 W, so the phase takes 32; with the rest of
+# the script the run took 1042.8 s of command on a slow host); 10b:
+# tokens of the NCCL streams (captured graphs)
+PAR_TOKENS, PAR_NCCL_TOKENS = 32, 256
+# 10a: a TP = 2 context's first-step logits against the one-device
+# context's on the same card, of max|logit|: the row-parallel products'
+# f32 partial sums added across the two ranks, rounded to bf16 once, where
+# one device sums the whole row in the kernel; an ulp here and there in
+# the bf16 activations, which the next product's activation quantization
+# can turn into a flipped int8 or 4-bit step, compounding over 28 random
+# layers (phase 5c's verify rounds differ from the plain step in the same
+# way).  The control, a planted fault (each rank's partial sums doubled in
+# place of the sum over the ranks: a collective that adds nothing), must
+# read above it; the one-device logits at another prompt are printed too.
+# Read on an NVIDIA H100 80GB HBM3 at 700 W: Q80 4.82e-2 against the
+# control's 1.38 (the limit near their geometric mean); Q4K 0.0 against
+# 8.32e-3 (its random weights, positive on average, make the model nearly
+# blind to its input, as in phase 5c: a weak control), the limit phase
+# 5c's for the same model.
+PAR_LOGITS_TOL = {"Q80": 0.25, "Q4K": 4e-3}
+# 10c: Nano-168M at full width, depth cut to PAR_LAYERS (the time limit:
+# 8 layers read the same losses to 4.7e-4), batch PAR_BATCH x 512, bf16,
+# PAR_STEPS steps and one resumed step under each mesh; the
+# losses beside one device's, relative: bf16 products of other shapes
+# (half the rows under "data", half the heads and hidden units under
+# "model") and the sums over ranks in another order.  The control: the
+# one-device loss moves further than that over the steps.  Read on an
+# NVIDIA H100 80GB HBM3 at 700 W, at 8 layers: 4.70e-4 ({"data": 2}) and
+# 3.35e-4 ({"model": 2}) against the control's 0.106.
+PAR_LAYERS, PAR_BATCH, PAR_STEPS = 4, 16, 3
+PAR_LOSS_TOL = 5e-3
+PAR_MESHES = ({"data": 2}, {"model": 2})
+
+
+def _par_qwen_ctx(torch, engine, cfg, params, dev):
+    from nano_tpu_torch.ops import sampling
+    from nano_tpu_torch.tokenizer.bpe import QWEN_STOP_TOKENS
+    return engine.LLMContext(
+        cfg=cfg, params=params, tokenizer=None, max_seq_len=cfg.block_size,
+        device=dev, dtype=torch.bfloat16,
+        sampler=sampling.SamplerConfig(temperature=0.0,
+                                       repetition_penalty=1.0),
+        stop_tokens=QWEN_STOP_TOKENS, arch="qwen3")
+
+
+def _par_sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def par_serve(torch, np, job, mesh, model):
+    """One Qwen3-0.6B-shaped model of phase 5 on this rank: the one-device
+    context's first logits at the prompt and at another one, and its
+    greedy stream (decode graphs); then the context sharded over `mesh`:
+    its first logits, the same with each rank's partial sums doubled in
+    place of the all-reduce (the control), a warm-up, and a timed
+    generate_on_device of job["tokens"] tokens, launches counted from 0.
+    -> a dict of numbers."""
+    from nano_tpu_torch.config import ModelConfig
+    from nano_tpu_torch.infer import engine
+    dev = torch.device(job["device"])
+    cfg = ModelConfig(**job["qwen"])
+    names, prompt, n = job["names"], job["prompt"], job["tokens"]
+    params = (random_q80_params if model == "Q80" else random_q4k_params)(
+        torch, np, cfg, dev)
+    one = _par_qwen_ctx(torch, engine, cfg, params, dev)
+    ref = engine._prefill(one, prompt, one.new_cache(1))[0][0].float().cpu()
+    other = engine._prefill(one, prompt[1:] + prompt[:1],
+                            one.new_cache(1))[0][0].float().cpu()
+    ref_stream = engine.generate_on_device(one, prompt, n)
+    del one
+    tp = _par_qwen_ctx(torch, engine, cfg, params, dev).shard(mesh)
+    got = engine._prefill(tp, prompt, tp.new_cache(1))[0][0].float().cpu()
+    plan = tp.cfg.tp
+    plan.all_reduce = lambda y: y.mul_(plan.size)           # the control
+    fault = engine._prefill(tp, prompt, tp.new_cache(1))[0][0].float().cpu()
+    del plan.all_reduce
+    engine.generate_on_device(tp, prompt[:8], 4)           # warm-up
+    _par_sync(torch, dev)
+    t0 = time.time()
+    engine.generate_on_device(tp, prompt, 1)
+    _par_sync(torch, dev)
+    ttft = time.time() - t0
+    zero_launches(torch)
+    t0 = time.time()
+    out = engine.generate_on_device(tp, prompt, n)
+    _par_sync(torch, dev)
+    secs = time.time() - t0
+    counts = read_launches(torch, names)
+    scale = float(ref.abs().max())
+    return dict(
+        err=float((got - ref).abs().max()) / scale,
+        control=float((fault - ref).abs().max()) / scale,
+        other=float((other - ref).abs().max()) / scale,
+        agree=agreeing(out.tolist(), ref_stream.tolist()),
+        stream=out.tolist(), counts=counts,
+        expect=decode_counts(model, n - 1, names, cfg.n_layer),
+        tok_s=(n - 1) / max(secs - ttft, 1e-9), ttft_ms=ttft * 1e3,
+        captures=tp.captures, backend=mesh.backend,
+        plan=(plan.heads, plan.kv_heads, plan.attn, plan.ffn, plan.ffn_mode))
+
+
+def par_train(torch, np, job, shape):
+    """Nano-168M (PAR_LAYERS layers) under mesh_shape `shape` on this rank:
+    PAR_STEPS - 1 steps (launches counted), a checkpoint, one more step;
+    a second Trainer resumed from the checkpoint takes that step too.
+    -> losses, the resumed step's loss and whether every local leaf
+    equals the unbroken run's, launches, ms a step."""
+    from nano_tpu_torch.models import gpt
+    from nano_tpu_torch.train.trainer import Trainer
+    dev = torch.device(job["device"])
+    names = ["flash_attn_fwd", "flash_attn_bwd"]
+    tag = "_".join(f"{k}{v}" for k, v in shape.items())
+    tc = dict(job["train_cfg"], mesh_shape=shape,
+              save_checkpoint_to=os.path.join(job["work"], tag))
+    t = Trainer(job["tcfg"], tc, max_steps=PAR_STEPS - 1,
+                ckpt_filename="first.npz", device=dev)
+    t.init()
+    t.load_data()
+    step_ms = []
+    plain_step = t._train_step
+
+    def timed_step(xs, ys, ms):
+        _par_sync(torch, dev)
+        t0 = time.time()
+        loss = plain_step(xs, ys, ms)
+        _par_sync(torch, dev)
+        step_ms.append((time.time() - t0) * 1e3)
+        return loss
+
+    t._train_step = timed_step
+    zero_launches(torch)
+    t.start()
+    counts = read_launches(torch, names)
+    ck = os.path.join(tc["save_checkpoint_to"], "first.npz")
+    t.ckpt_filename = "second.npz"
+    t.max_steps = PAR_STEPS
+    t.start()
+    resumed = Trainer(job["tcfg"], dict(tc, from_checkpoint=ck),
+                      max_steps=PAR_STEPS, is_continued_pretrain=True,
+                      ckpt_filename="resumed.npz", device=dev)
+    resumed.init()
+    resumed.load_data()
+    resumed.start()
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        gpt.param_leaves(t.params), gpt.param_leaves(resumed.params)))
+    A = tc["gradient_accumulation_steps"]
+    L = job["tcfg"]["n_layer"]
+    return dict(losses=[l for _, l in t.loss_history],
+                resumed=resumed.loss_history[-1][1], same=same,
+                counts=counts,
+                expect={n: L * A * (PAR_STEPS - 1) for n in names},
+                ms=sorted(step_ms[1:])[len(step_ms[1:]) // 2],
+                mesh=dict(t.mesh.shape))
+
+
+def parallel_rank(job):
+    """A rank of phase 10's gloo group (``parallel.launch``): TP = 2
+    serving of phase 5's two models, then the two training meshes."""
+    import numpy as np
+    import torch
+    from nano_tpu_torch.parallel import mesh as meshlib
+    mesh = meshlib.make_mesh(n_model=2)
+    out, secs = {}, {}
+    for model in ("Q80", "Q4K"):
+        t0 = time.time()
+        out[model] = par_serve(torch, np, job, mesh, model)
+        secs[model] = time.time() - t0
+    out["train"] = []
+    for shape in PAR_MESHES:
+        t0 = time.time()
+        out["train"].append(par_train(torch, np, job, shape))
+        secs[str(shape)] = time.time() - t0
+    out["secs"] = secs
+    return out
+
+
+def nccl_rank(job):
+    """A rank of a NCCL group: phase 5's Q80 model sharded over all of it
+    (one rank: every cut whole, every all-reduce a sum of one), its decode
+    steps captured in CUDA graphs with the all-reduces inside, beside the
+    unsharded context's graphs.  -> streams, launches, tok/s."""
+    import numpy as np
+    import torch
+    from nano_tpu_torch.config import ModelConfig
+    from nano_tpu_torch.infer import engine
+    from nano_tpu_torch.parallel import mesh as meshlib
+    dev = torch.device(job["device"])
+    cfg = ModelConfig(**job["qwen"])
+    names, prompt, n = job["names"], job["prompt"], job["nccl_tokens"]
+    params = random_q80_params(torch, np, cfg, dev)
+    one = _par_qwen_ctx(torch, engine, cfg, params, dev)
+    ref = engine.generate_on_device(one, prompt, n)
+    del one
+    mesh = meshlib.make_mesh(n_model=torch.distributed.get_world_size())
+    tp = _par_qwen_ctx(torch, engine, cfg, params, dev).shard(mesh)
+    first = engine.generate_on_device(tp, prompt, n)       # captures
+    _par_sync(torch, dev)
+    t0 = time.time()
+    engine.generate_on_device(tp, prompt, 1)
+    _par_sync(torch, dev)
+    ttft = time.time() - t0
+    zero_launches(torch)
+    t0 = time.time()
+    out = engine.generate_on_device(tp, prompt, n)          # replays
+    _par_sync(torch, dev)
+    secs = time.time() - t0
+    counts = read_launches(torch, names)
+    return dict(equal=bool(np.array_equal(out, ref) and
+                           np.array_equal(first, ref)),
+                agree=agreeing(out.tolist(), ref.tolist()),
+                stream=out.tolist(),
+                captures=tp.captures, counts=counts,
+                expect=decode_counts("Q80", n - 1, names, cfg.n_layer),
+                tok_s=(n - 1) / max(secs - ttft, 1e-9),
+                graphs=len(tp.decoder().graphs))
+
+
+def nccl_phase(torch, h, job):
+    """10b: one NCCL rank decodes phase 5's Q80 model from captured graphs
+    with its all-reduces inside, its stream torch.equal to the unsharded
+    graphs'; where the machine has two cards or more, two NCCL ranks at
+    TP = 2 as well (the ranks' streams equal, launches exact)."""
+    from nano_tpu_torch.parallel import launch
+    for n in ((1, 2) if torch.cuda.device_count() >= 2 else (1,)):
+        t0 = time.time()
+        ranks = launch.run("chip_smoke:nccl_rank", n, args=(job,),
+                           backend="nccl", device="cuda")
+        r = ranks[0]
+        tok_s = " / ".join(f"{x['tok_s']:.2f}" for x in ranks)
+        log(f"[parallel nccl] TP = {n} over NCCL ({n} card(s)): decode "
+            f"graphs captured with the all-reduces inside: "
+            f"{r['captures']} ({r['graphs']} graph(s)); the stream "
+            f"torch.equal to the unsharded graphs': {r['equal']} "
+            f"(agreeing {r['agree']} of {h.nccl_tokens}); "
+            f"{tok_s} tok/s by rank; launches {r['counts']}; in "
+            f"{time.time() - t0:.1f} s on {h.card}")
+        for x in ranks:
+            if not x["captures"] or x["counts"] != x["expect"]:
+                raise AssertionError("the NCCL decode was not the captured "
+                                     "graphs' or its launches differ")
+            if x["stream"] != r["stream"]:
+                raise AssertionError("the NCCL ranks took different tokens")
+        if n == 1 and not r["equal"]:
+            raise AssertionError("the one-rank NCCL stream differs from "
+                                 "the unsharded graphs'")
+
+
+def parallel_phase(torch, np, h):
+    """Phase 10 (``nano_tpu_torch/parallel``): two gloo ranks sharing the
+    card serve phase 5's Q80 and Q4K models at TP = 2 and train Nano-168M
+    at full width under {"data": 2} and {"model": 2}; one NCCL rank
+    decodes from captured graphs with its all-reduces inside (and two, at
+    TP = 2, where the machine has two cards).  h: dev, card, names,
+    prompt, train_data, work, and `tokens`, `nccl_tokens`, `qwen`,
+    `layers`, `batch` (the script's sizes, smaller for a rehearsal on the
+    CPU).  -> the rank 0
+    results of the gloo group."""
+    from nano_tpu_torch.config import ModelConfig
+    from nano_tpu_torch.parallel import launch
+    from nano_tpu_torch.train.trainer import Trainer
+    os.makedirs(h.work, exist_ok=True)
+    tcfg = dict(ModelConfig.from_json(os.path.join(
+        ROOT, "config", "model_168m.json")).to_dict(), n_layer=h.layers)
+    with open(os.path.join(ROOT, "config", "pretrain.json")) as f:
+        train_cfg = json.load(f)
+    train_cfg.update(dataset_path=h.train_data, batch_size=h.batch,
+                     tokenizer_path=os.path.join(ROOT, "tokenizer",
+                                                 "nano_16384.json"),
+                     warmup_iters=1, eval_interval=1000, log_interval=1)
+    job = dict(device=h.dev.type, qwen=h.qwen, names=h.names,
+               prompt=h.prompt, tokens=h.tokens, nccl_tokens=h.nccl_tokens,
+               tcfg=tcfg, train_cfg=train_cfg, work=h.work)
+
+    # the one-device trajectory the two meshes are held to
+    one = Trainer(tcfg, dict(train_cfg, save_checkpoint_to=os.path.join(
+        h.work, "one")), max_steps=PAR_STEPS, device=h.dev)
+    one.init()
+    one.load_data()
+    one.start()
+    one_losses = [l for _, l in one.loss_history]
+    del one
+
+    t0 = time.time()
+    ranks = launch.run("chip_smoke:parallel_rank", 2, args=(job,),
+                       backend="gloo", device=h.dev.type)
+    log(f"[parallel] two gloo ranks on one {h.dev.type} device in "
+        f"{time.time() - t0:.1f} s; rank 0's parts: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in ranks[0]["secs"].items()))
+    for model in ("Q80", "Q4K"):
+        r0, r1 = ranks[0][model], ranks[1][model]
+        log(f"[parallel {model}] TP = 2 over {r0['backend']} "
+            f"(decode graphs captured: {r0['captures']}; steps eager), "
+            f"plan heads/kv/attn/ffn {r0['plan']}; first-step logits "
+            f"against one device {r0['err']:.3e} of max|logit| (limit "
+            f"{PAR_LOGITS_TOL[model]}; control, each rank's partial sums "
+            f"doubled in place of the all-reduce: {r0['control']:.3e}; "
+            f"another prompt: {r0['other']:.3e}); {h.tokens} greedy "
+            f"tokens agree with "
+            f"one device's for {r0['agree']} (rank 1: {r1['agree']}); "
+            f"decode {r0['tok_s']:.2f} / {r1['tok_s']:.2f} tok/s by rank, "
+            f"TTFT {r0['ttft_ms']:.1f} ms, on {h.card}")
+        log(f"[parallel {model}] launches per rank {r0['counts']}; "
+            f"expected {r0['expect']}")
+        for r in (r0, r1):
+            if r["counts"] != r["expect"]:
+                raise AssertionError(f"{model} TP launches differ from a "
+                                     f"prefill and {h.tokens - 1} steps'")
+        if r0["stream"] != r1["stream"]:
+            raise AssertionError(f"the two ranks took different {model} "
+                                 f"tokens")
+        if not (r0["err"] <= PAR_LOGITS_TOL[model] < r0["control"]):
+            raise AssertionError(f"{model} TP logits off one device's")
+    for shape, r0, r1 in zip(PAR_MESHES, ranks[0]["train"],
+                             ranks[1]["train"]):
+        rel = [abs(a - b) / b for a, b in zip(r0["losses"], one_losses)]
+        moved = max(abs(l - one_losses[0]) for l in one_losses) / one_losses[0]
+        log(f"[parallel train] Nano-168M {h.layers} layers, batch "
+            f"{h.batch} x 512, bf16, mesh {r0['mesh']} (two gloo ranks): "
+            f"losses {r0['losses']} beside one device's {one_losses} "
+            f"(relative {max(rel):.3e}, limit {PAR_LOSS_TOL}; the "
+            f"one-device loss moved {moved:.3e}); step {PAR_STEPS} resumed "
+            f"{r0['resumed']!r} / {r1['resumed']!r}, unbroken "
+            f"{r0['losses'][-1]!r}, leaves equal {r0['same']} / "
+            f"{r1['same']}; {r0['ms']:.1f} / {r1['ms']:.1f} ms/step by "
+            f"rank; launches per rank {r0['counts']} (expected "
+            f"{r0['expect']}) on {h.card}")
+        for r in (r0, r1):
+            if r["counts"] != r["expect"]:
+                raise AssertionError(f"mesh {shape}: K4 launches differ")
+            if not (r["resumed"] == r["losses"][-1] and r["same"]):
+                raise AssertionError(f"mesh {shape}: the resumed run left "
+                                     f"the trajectory")
+        if not (max(rel) <= PAR_LOSS_TOL < moved):
+            raise AssertionError(f"mesh {shape}: losses off one device's")
+    if h.dev.type == "cuda":
+        nccl_phase(torch, h, job)
+    return ranks[0]
+
+
+def bench_parallel(torch):
+    """Phase 10 alone (parallel_phase): phase 5's prompt and models, phase
+    6's corpus made again."""
+    import numpy as np
+    from nano_tpu_torch.config import ModelConfig
+    from nano_tpu_torch.ops import _build
+    from nano_tpu_torch.tokenizer.trie import TrieTokenizer
+    t0 = time.time()
+    _build.build_all()
+    log(f"[bench parallel] build {time.time() - t0:.1f} s")
+    work = os.path.join(ROOT, "build", "smoke_parallel")
+    os.makedirs(work, exist_ok=True)
+    tcfg = ModelConfig.from_json(os.path.join(ROOT, "config",
+                                              "model_168m.json"))
+    ttok = TrieTokenizer.from_file(os.path.join(ROOT, "tokenizer",
+                                                "nano_16384.json"))
+    train_p, val_p, _, _ = pretrain_corpus(ttok, tcfg, work)
+    prng = np.random.default_rng(SEED + 1)
+    for n in (17, 40, 100):            # phase 5's requests, then its prompt
+        prng.integers(100, 30000, n)
+    t0 = time.time()
+    parallel_phase(torch, np, SimpleNamespace(
+        dev=torch.device("cuda"), card=card_line(), names=list(COUNTER_OF),
+        prompt=prng.integers(100, 30000, PROMPT_LEN).tolist(),
+        qwen=QWEN3_06B, tokens=PAR_TOKENS, nccl_tokens=PAR_NCCL_TOKENS,
+        layers=PAR_LAYERS, batch=PAR_BATCH, train_data=[[train_p, val_p]],
+        work=work))
+    shutil.rmtree(work)
+    log(f"[bench parallel] phase 10 in {time.time() - t0:.1f} s")
+
+
+def bench_nccl(torch):
+    """Phase 10b alone (nccl_phase): phase 5's prompt and Q80 model; two
+    NCCL ranks at TP = 2 where the machine has two cards."""
+    from nano_tpu_torch.ops import _build
+    import numpy as np
+    t0 = time.time()
+    _build.build_all()
+    log(f"[bench nccl] build {time.time() - t0:.1f} s")
+    prng = np.random.default_rng(SEED + 1)
+    for n in (17, 40, 100):            # phase 5's requests, then its prompt
+        prng.integers(100, 30000, n)
+    h = SimpleNamespace(card=card_line(), nccl_tokens=PAR_NCCL_TOKENS)
+    nccl_phase(torch, h, dict(
+        device="cuda", qwen=QWEN3_06B, names=list(COUNTER_OF),
+        prompt=prng.integers(100, 30000, PROMPT_LEN).tolist(),
+        nccl_tokens=PAR_NCCL_TOKENS))
+
+
 def bench(what) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3930,7 +4353,8 @@ def bench(what) -> int:
                      ("pipes", bench_pipes), ("spec", bench_spec),
                      ("toy", bench_toy), ("export", bench_export),
                      ("rows", bench_rows), ("lora", bench_lora),
-                     ("lifecycle", bench_lifecycle)):
+                     ("lifecycle", bench_lifecycle),
+                     ("parallel", bench_parallel), ("nccl", bench_nccl)):
         if not what or name in what:
             fn(torch, **{"flash": flags, "q80": q80_flags,
                          "q4k": q4k_flags,
@@ -6621,6 +7045,19 @@ def main() -> int:
     os.remove(ckpt12)
     del q80_host
     log(f"[lifecycle] phase 9 in {time.time() - t0:.1f} s")
+
+    # ---------------- 10. parallel ----------------
+    log(f"[time] phase 10 starts at {time.time() - t_start:.1f} s")
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    work10 = os.path.join(ROOT, "build", "smoke_parallel")
+    parallel_phase(torch, np, SimpleNamespace(
+        dev=dev, card=card, names=names, prompt=prompt, qwen=QWEN3_06B,
+        tokens=PAR_TOKENS, nccl_tokens=PAR_NCCL_TOKENS, layers=PAR_LAYERS,
+        batch=PAR_BATCH,
+        train_data=[[train_p, val_p]], work=work10))
+    shutil.rmtree(work10)
+    log(f"[parallel] phase 10 in {time.time() - t0:.1f} s")
 
     # ---------------- result ----------------
     for k in kernels.values():

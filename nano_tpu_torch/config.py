@@ -127,8 +127,10 @@ class TrainConfig:
     dtype: str = "bfloat16"
     use_amp: bool = True
 
-    mesh_shape: Optional[dict] = None     # more than one device is refused
-                                          # by the trainer (not ported yet)
+    mesh_shape: Optional[dict] = None     # {"data": D, "model": M} over a
+                                          # torchrun launch's ranks
+                                          # (parallel/mesh.py); "seq" /
+                                          # "pipe" are ROADMAP item 11b
     param_dtype: str = "float32"          # master weights
     remat: bool = False                   # recompute activations in backward
     remat_policy: str = "full"            # "full" | "ffn" | "dots" | "heads"
@@ -137,7 +139,7 @@ class TrainConfig:
                                           # + CE over token chunks of this
                                           # size (0 = one shot)
     pp_microbatches: int = 0              # pipeline microbatches (pipeline
-                                          # parallelism is not ported yet)
+                                          # parallelism: ROADMAP item 11b)
     adam_mu_dtype: Optional[str] = None   # Adam first-moment dtype
                                           # ("bfloat16" halves that buffer;
                                           # None = f32)

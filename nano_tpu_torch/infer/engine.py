@@ -32,6 +32,19 @@ the loop's state on the device and reads it once every
 ``SPEC_READ_EVERY`` rounds.  Continuous batching is ``serve.batching``;
 observers are not ported yet.
 
+Parallel serving (``parallel.mesh``): ``LLMContext.shard`` cuts the
+weights to this rank's part of the mesh's "model" axis (tensor parallel:
+the rank's config then holds its local heads and the plan, through which
+the blocks all-reduce their row-parallel products; caches hold the local
+KV heads), and ``replicate_to`` copies a context onto another device (a
+replica, which serves on its own).  Serving across ranks is SPMD: every
+rank makes the same calls with the same inputs, and since the hidden
+state after each all-reduce is the same on every rank and the samplers
+are seeded alike, every rank takes the same tokens.  Under NCCL the decode
+steps and verify rounds stay CUDA graphs with the all-reduces captured in
+them; a gloo collective cannot be captured, so under gloo they run eagerly
+(``LLMContext.captures``).
+
 LoRA: a context carries one adapter (``lora`` / ``lora_scale``), attached,
 swapped and detached by ``load_lora`` / ``load_lora_checkpoint`` /
 ``unload_lora`` at any time (the JAX engine's hot-swap), or cloned into a
@@ -164,6 +177,7 @@ class LLMContext:
     spec_k: int = 0                     # speculative draft length cap
     lora: Optional[Dict[str, torch.Tensor]] = None   # stacked (L, in, r) ...
     lora_scale: float = 0.0             # alpha / rank of the adapter
+    mesh: Optional[Any] = None          # set by shard()
     _rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = field(
         default=None, init=False, repr=False)
     _decoder: Optional["SingleDecoder"] = field(
@@ -202,6 +216,61 @@ class LLMContext:
         if self._pool is None and self.device.type == "cuda":
             self._pool = torch.cuda.graph_pool_handle()
         return self._pool
+
+    @property
+    def captures(self) -> bool:
+        """Whether decode steps are captured as CUDA graphs: on the card,
+        unless the context is tensor parallel over a backend other than
+        NCCL (gloo's collectives cannot be captured; the steps then run
+        eagerly)."""
+        tp = getattr(self.cfg, "tp", None)
+        return self.device.type == "cuda" and (tp is None
+                                               or tp.backend == "nccl")
+
+    def shard(self, mesh, tensor_parallel: bool = True) -> "LLMContext":
+        """Serve this rank's part of the model over `mesh`
+        (``parallel.mesh.make_mesh``; the JAX engine's ``shard``).  With
+        `tensor_parallel` the weights are cut to this rank's part of the
+        "model" axis (``mesh.shard_inference_params``: heads and hidden
+        units, fused tensors part by part) and the config becomes the
+        rank's (local heads and the plan); without, the weights stay whole
+        and every rank serves them.  Every rank of the model group then
+        makes the same calls.  LoRA under tensor parallelism is ROADMAP
+        item 11b."""
+        from nano_tpu_torch.parallel import mesh as meshlib
+        if getattr(self.cfg, "tp", None) is not None:
+            raise ValueError("this context is sharded already")
+        self.mesh = mesh
+        if tensor_parallel:
+            if self.lora is not None:
+                raise NotImplementedError(
+                    f"LoRA under tensor parallelism is {meshlib.ITEM_11B}")
+            self.params, tp = meshlib.shard_inference_params(
+                self.params, mesh, self.cfg)
+            self.cfg = meshlib.local_config(self.cfg, tp)
+        self._decoder = None
+        return self
+
+    def replicate_to(self, device) -> "LLMContext":
+        """A replica of this context on `device`, the data-parallel
+        serving unit (one BatchedEngine per replica, each decoding on its
+        own): the weights (and adapter) copied there, one copy of a tensor
+        that two leaves share (the tied head); host state (tokenizer,
+        sampler) shared; its own decoder, stream and graphs."""
+        import dataclasses
+        if getattr(self.cfg, "tp", None) is not None:
+            raise ValueError("replicate an unsharded context")
+        device = torch.device(device)
+        copies: Dict[int, Any] = {}
+
+        def put(t):
+            if id(t) not in copies:
+                copies[id(t)] = t.to(device)
+            return copies[id(t)]
+        return dataclasses.replace(
+            self, params=gpt.map_leaves(put, self.params),
+            lora=None if self.lora is None else gpt.map_leaves(put, self.lora),
+            device=device, mesh=None)
 
     def decoder(self) -> "SingleDecoder":
         """The single-stream decode state (a max_seq_len cache) and its
@@ -322,7 +391,16 @@ class LLMContext:
                    max_seq_len=max_seq_len or cfg.block_size,
                    device=device, dtype=dtype, **kw)
 
+    def _lora_ok(self) -> None:
+        """Raise on a tensor-parallel context: LoRA under tensor
+        parallelism is ROADMAP item 11b."""
+        if getattr(self.cfg, "tp", None) is not None:
+            from nano_tpu_torch.parallel.mesh import ITEM_11B
+            raise NotImplementedError(
+                f"LoRA under tensor parallelism is {ITEM_11B}")
+
     def _attach(self, lora: Dict[str, Any], scale: float) -> None:
+        self._lora_ok()
         self.lora = {k: torch.as_tensor(v).to(self.device, self.dtype)
                      for k, v in lora.items()}
         self.lora_scale = scale
@@ -332,6 +410,7 @@ class LLMContext:
         package's or the JAX package's): alpha / rank from its train
         config."""
         from nano_tpu_torch.io.checkpoint import Checkpoint
+        self._lora_ok()
         ck = Checkpoint(path)
         rank, alpha = ck.lora_rank_alpha()
         self._attach(ck.load_lora(), alpha / rank)
@@ -339,6 +418,7 @@ class LLMContext:
     def load_lora(self, path: str) -> None:
         """Hot-swap a LoRA module (reference: infer/infer.c:500-549): the
         next step of every stream decodes with it."""
+        self._lora_ok()
         bl = binfmt.read_lora(path, self.cfg)
         self._attach(bl.lora, bl.alpha / bl.rank)
 
@@ -502,14 +582,16 @@ class DecodeGraph:
     counters what the capture counted (capturing records launches but runs
     none, so its own counts are taken back).  The graph holds the
     decode-attention workspaces alive.  A stochastic sampler draws from
-    `generator`, which the graph registers.  On the CPU every run is the
-    eager steps.
+    `generator`, which the graph registers.  On the CPU, and where
+    `capture` is false (``LLMContext.captures``), every run is the eager
+    steps.
     """
 
     def __init__(self, step: Callable[[], None], device: torch.device,
                  n_steps: int = 1, generator: Optional[torch.Generator] = None,
-                 pool=None):
+                 pool=None, capture: bool = True):
         self.step, self.device, self.n_steps = step, device, n_steps
+        self.capture = capture and device.type == "cuda"
         self.generator, self.pool = generator, pool
         self.graph = None
         self.delta: Dict = {}           # launch counts of one replay
@@ -551,12 +633,12 @@ class DecodeGraph:
 
     def prepare(self) -> None:
         """Warm up and capture now (the warm-up steps are real steps)."""
-        if self.device.type == "cuda" and self.graph is None:
+        if self.capture and self.graph is None:
             self._eager()
             self._capture()
 
     def run(self) -> None:
-        if self.device.type != "cuda":
+        if not self.capture:
             self._eager()
         elif self.graph is None:
             self.prepare()
@@ -725,7 +807,8 @@ class SingleDecoder:
             me = weakref.proxy(self)
             self.graphs[key] = DecodeGraph(
                 lambda: me._step(), self.ctx.device, n_steps,
-                self.gen if stochastic else None, self.ctx.graph_pool())
+                self.gen if stochastic else None, self.ctx.graph_pool(),
+                self.ctx.captures)
         return self.graphs[key]
 
     def run(self, n: int) -> None:
@@ -742,7 +825,8 @@ class SingleDecoder:
             me = weakref.proxy(self)
             self.graphs[key] = DecodeGraph(
                 lambda: speculative.spec_decode_round(me, k, attn_len),
-                self.ctx.device, pool=self.ctx.graph_pool())
+                self.ctx.device, pool=self.ctx.graph_pool(),
+                capture=self.ctx.captures)
         return self.graphs[key]
 
     def spec_round(self, k: int, attn_len: Optional[int]) -> List[int]:

@@ -145,6 +145,30 @@ def _dense(x, w, dtype) -> torch.Tensor:
     return torch.matmul(x.to(dtype), w.to(dtype))
 
 
+def _tp(cfg: ModelConfig):
+    """The tensor-parallel plan a rank's config carries
+    (``parallel.mesh.ShardedConfig``), None on one device."""
+    return getattr(cfg, "tp", None)
+
+
+def _row(x, w, dtype, tp, part: str) -> torch.Tensor:
+    """x @ w of a row-parallel product, `part` "attn" (wo) or "ffn" (w2),
+    under tensor parallelism `tp`, by the plan's mode for that part: where
+    w is whole on every rank (no `tp`, mode "replicated"), the product
+    alone; "gather": the product of the heads of every rank; "row": this
+    rank's partial product, summed over the model group in f32 (a
+    quantized product gives f32 itself) and then rounded to `dtype` once,
+    as one device rounds the whole sum."""
+    mode = None if tp is None else tp.attn if part == "attn" else tp.ffn_mode
+    if tp is None or mode == "replicated":
+        return _dense(x, w, dtype)
+    if mode == "gather":
+        return _dense(tp.gather_heads(x), w, dtype)
+    quant = isinstance(w, (Q80Tensor, Q4KTensor))
+    return tp.leave(_dense(x, w, torch.float32 if quant else dtype)
+                    ).to(dtype)
+
+
 def _lora_delta(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, scale,
                 dtype, idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The LoRA branch (x @ A) @ B * scale, each product and the scaling
@@ -341,8 +365,9 @@ def attention_nocache(x: torch.Tensor, layer: Params, cfg: ModelConfig,
     else:
         probs = torch.softmax(_gqa_scores(q, k, cfg), dim=-1).to(dtype)
         heads = _gqa_out(probs, v)
-    return _lora_add(_dense(heads, layer["wo"], dtype), heads, lora, "wo",
-                     lora_scale, dtype)
+    tp = _tp(cfg)
+    return _lora_add(_row(heads, layer["wo"], dtype, tp, "attn"),
+                     heads, lora, "wo", lora_scale, dtype)
 
 
 def attention(x: torch.Tensor, layer: Params, cfg: ModelConfig,
@@ -376,8 +401,10 @@ def attention(x: torch.Tensor, layer: Params, cfg: ModelConfig,
     H, KV = cfg.n_head, cfg.n_kv_head
     q, k, v = _qkv(x, layer, cfg, cos, sin, dtype, lora, lora_scale,
                    lora_idx, xt)
-    out = lambda heads: _lora_add(_dense(heads, layer["wo"], dtype), heads,
-                                  lora, "wo", lora_scale, dtype, lora_idx)
+    tp = _tp(cfg)
+    out = lambda heads: _lora_add(
+        _row(heads, layer["wo"], dtype, tp, "attn"), heads, lora,
+        "wo", lora_scale, dtype, lora_idx)
 
     ck, cv, ks, vs = kv_cache
     quant = ck.dtype == torch.int8
@@ -440,21 +467,23 @@ def _ffn_hidden(x: torch.Tensor, layer: Params, dtype) -> torch.Tensor:
 
 
 def feed_forward(x: torch.Tensor, layer: Params, dtype,
-                 remat: bool = False) -> torch.Tensor:
+                 remat: bool = False, tp=None) -> torch.Tensor:
     """SwiGLU: w2(silu(w1 x) * w3 x).  With `remat` the w1 / w3 outputs
-    are not kept for backward but computed again there."""
+    are not kept for backward but computed again there.  `tp`: the
+    tensor-parallel plan (w2's partial sums added over the model group)."""
     if remat:
         hidden = checkpoint(_ffn_hidden, x, layer, dtype, use_reentrant=False,
                             preserve_rng_state=False)
     else:
         hidden = _ffn_hidden(x, layer, dtype)
-    return _dense(hidden, layer["w2"], dtype)
+    return _row(hidden, layer["w2"], dtype, tp, "ffn")
 
 
-def feed_forward_cached(x, layer: Params, dtype) -> torch.Tensor:
+def feed_forward_cached(x, layer: Params, dtype, tp=None) -> torch.Tensor:
     """SwiGLU of the cached forward: w2(silu(w1 x) * w3 x) with the
     silu-product one ``swiglu_q80`` launch, which also quantizes it for a
-    W8A8 w2 fed more than one row (``_q80_group``)."""
+    W8A8 w2 fed more than one row (``_q80_group``); `tp` as in
+    ``feed_forward``."""
     if "w13" in layer:
         h13 = _dense(x, layer["w13"], dtype)
     else:
@@ -462,7 +491,7 @@ def feed_forward_cached(x, layer: Params, dtype) -> torch.Tensor:
                          _dense(x, layer["w3"], dtype)], dim=-1)
     gs = _q80_group([layer["w2"]], h13.numel() // h13.shape[-1])
     hidden, act = swiglu_q80(h13, gs, want_hidden=not gs)
-    return _dense(act if gs else hidden, layer["w2"], dtype)
+    return _row(act if gs else hidden, layer["w2"], dtype, tp, "ffn")
 
 
 def _final(h: torch.Tensor, params: Params, cfg: ModelConfig, dtype
@@ -485,7 +514,9 @@ def block(x: torch.Tensor, layer: Params, cfg: ModelConfig, cos, sin, mask,
     also write the Q80 quantization of their output where the product they
     feed takes it (``_q80_group``; with an adapter the attention norm
     writes the normed tensor beside it, which the LoRA branch reads); the
-    last residual add stays one eager add."""
+    last residual add stays one eager add.  Under tensor parallelism
+    (``_tp``) the attention and FFN outputs are the sums over the model
+    group (``_row``) before the norm and the add read them."""
     qkv = ([layer["wqkv"]] if "wqkv" in layer
            else [layer["wq"], layer["wk"], layer["wv"]])
     w13 = [layer["w13"]] if "w13" in layer else [layer["w1"], layer["w3"]]
@@ -494,7 +525,7 @@ def block(x: torch.Tensor, layer: Params, cfg: ModelConfig, cos, sin, mask,
     a = attention(xn, layer, cfg, cos, sin, mask, dtype, kv_cache, start_pos,
                   pos_t, attn_len, lora, lora_scale, lora_idx, xt)
     h, hn, _ = _norm(x, layer["ffn_norm"], cfg.norm_eps, w13, residual=a)
-    return h + feed_forward_cached(hn, layer, dtype)
+    return h + feed_forward_cached(hn, layer, dtype, _tp(cfg))
 
 
 # =====================================================================
@@ -723,12 +754,17 @@ def block_nocache(x: torch.Tensor, layer: Params, cfg: ModelConfig, cos, sin,
                   lora: Optional[Params] = None, lora_scale=0.0
                   ) -> torch.Tensor:
     """Pre-norm residual block of the no-cache forward (`lora`: the
-    layer's adapter)."""
-    xn = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+    layer's adapter).  Under tensor parallelism (``_tp``) the normed
+    activations enter the column-parallel products through ``tp.enter``
+    (their gradients summed over the model group) and the row-parallel
+    products leave summed (``_row``)."""
+    tp = _tp(cfg)
+    enter = tp.enter if tp is not None else (lambda t: t)
+    xn = enter(rms_norm(x, layer["attn_norm"], cfg.norm_eps))
     h = x + attention_nocache(xn, layer, cfg, cos, sin, dtype, lora,
                               lora_scale)
-    hn = rms_norm(h, layer["ffn_norm"], cfg.norm_eps)
-    return h + feed_forward(hn, layer, dtype, remat_ffn)
+    hn = enter(rms_norm(h, layer["ffn_norm"], cfg.norm_eps))
+    return h + feed_forward(hn, layer, dtype, remat_ffn, tp)
 
 
 def unstack_layers(blocks: Params) -> List[Params]:
@@ -864,6 +900,24 @@ def loss_fn(params: Params, idx: torch.Tensor, targets: torch.Tensor,
         return nll.mean()
     m = loss_mask.float()
     return (nll * m).sum() / m.sum().clamp(min=1.0)
+
+
+def loss_sums(params: Params, idx: torch.Tensor, targets: torch.Tensor,
+              loss_mask: Optional[torch.Tensor], cfg: ModelConfig,
+              dtype=torch.bfloat16, remat: Union[bool, str] = False,
+              ce_chunk: int = 0, lora: Optional[Params] = None,
+              lora_scale=0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The masked CE as sums, (sum of nll * mask, sum of mask) (the mask
+    all ones when None), so that ranks holding parts of a batch add theirs
+    and divide once: ``loss_fn`` of the whole batch."""
+    if ce_chunk and ce_chunk > 0:
+        h = forward_hidden(params, idx, cfg, dtype, remat, lora, lora_scale)
+        return _chunked_ce_sums(h, params, targets, loss_mask, dtype,
+                                ce_chunk)
+    nll = _nll(forward(params, idx, cfg, dtype, remat, lora, lora_scale),
+               targets)
+    m = (torch.ones_like(nll) if loss_mask is None else loss_mask.float())
+    return (nll * m).sum(), m.sum()
 
 
 def _chunked_ce_sums(h: torch.Tensor, params: Params, targets: torch.Tensor,
@@ -1013,6 +1067,15 @@ def map_leaves(fn, tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: map_leaves(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def map_leaves_with_path(fn, tree: Any, prefix: str = "") -> Any:
+    """The nested dict `tree` with fn(path, leaf) applied to every leaf,
+    paths as ``param_leaves`` gives them."""
+    if isinstance(tree, dict):
+        return {k: map_leaves_with_path(fn, v, f"{prefix}/{k}" if prefix
+                                        else k) for k, v in tree.items()}
+    return fn(prefix, tree)
 
 
 def count_params(params: Params, cfg: ModelConfig,

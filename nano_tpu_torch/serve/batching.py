@@ -38,6 +38,14 @@ joins with another adapter replays the same graphs; a step runs every
 adapter's branch over every slot and keeps each slot's own
 (``gpt._lora_delta``).  A joining stream's prefill takes its adapter
 alone.
+
+Over a tensor-parallel context (``LLMContext.shard``) every rank runs its
+own engine over its part of the model, and the ranks serve in SPMD: each
+makes the same ``add`` and ``step`` calls with the same prompts, the
+blocks sum their row-parallel products over the model group, and every
+rank draws the same tokens.  Under gloo the steps run eagerly
+(``LLMContext.captures``).  A frontend that feeds every rank from one
+process is ROADMAP item 12.
 """
 
 from __future__ import annotations
@@ -145,6 +153,11 @@ class BatchedEngine:
         self._base_scale = torch.full((), ctx.lora_scale, dtype=ctx.dtype,
                                       device=dev)
         if adapters:
+            if getattr(ctx.cfg, "tp", None) is not None:
+                from nano_tpu_torch.parallel.mesh import ITEM_11B
+                raise NotImplementedError(
+                    f"per-slot adapters under tensor parallelism are "
+                    f"{ITEM_11B}")
             if ctx.lora is not None:
                 raise ValueError("use either a base-attached LoRA or "
                                  "named adapters, not both")
@@ -346,7 +359,7 @@ class BatchedEngine:
                     (lambda: me._step(cache, greedy)))
             self._graphs[key] = eng.DecodeGraph(
                 step, self.ctx.device, 1, None if greedy else self.gen,
-                self.ctx.graph_pool())
+                self.ctx.graph_pool(), self.ctx.captures)
         return self._graphs[key]
 
     def _run(self, n: int, greedy: bool) -> np.ndarray:

@@ -1,6 +1,9 @@
-"""Train a Nano model on one CUDA device.
+"""Train a Nano model on one CUDA device, or over the ranks of a torchrun
+launch (``mesh_shape`` in the train JSON: {"data": D, "model": M}).
 
     python -m nano_tpu_torch.train -m config/model_168m.json -t config/pretrain.json
+    torchrun --nproc_per_node 4 -m nano_tpu_torch.train -m ... -t ...
+                                               # one card a rank (NCCL)
     python -m nano_tpu_torch.train ... -c      # continued pretrain: replay
                                                # the data stream to the
                                                # checkpoint's step
@@ -27,6 +30,10 @@ def main(argv=None):
                     help="override max training steps")
     ap.add_argument("--device", default=None,
                     help="cuda unless given; 'cpu' runs the plain versions")
+    ap.add_argument("--backend", default=None,
+                    help="torch.distributed backend under torchrun: nccl on "
+                         "cuda and gloo on the cpu unless given ('gloo' "
+                         "for ranks that share a card)")
     args = ap.parse_args(argv)
 
     with open(args.model_config, "r", encoding="utf-8") as f:
@@ -39,13 +46,21 @@ def main(argv=None):
     max_steps = (args.max_steps or tc.get("max_steps") or
                  tc.get("max_iters") or 10 ** 10)
 
+    import torch.distributed as dist
+    from nano_tpu_torch.parallel.mesh import maybe_distributed_init
     from nano_tpu_torch.train.trainer import Trainer
-    t = Trainer(mc, tc, max_steps=int(max_steps),
-                is_continued_pretrain=args.continue_pretrain,
-                device=args.device)
-    t.init()
-    t.load_data()
-    t.start(denoise=bool(tc.get("denoise", False)))
+    # under torchrun (its RANK / WORLD_SIZE), as train.py does
+    maybe_distributed_init(args.backend, args.device)
+    try:
+        t = Trainer(mc, tc, max_steps=int(max_steps),
+                    is_continued_pretrain=args.continue_pretrain,
+                    device=args.device)
+        t.init()
+        t.load_data()
+        t.start(denoise=bool(tc.get("denoise", False)))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""Trainer — pretrain on one CUDA device.
+"""Trainer — pretrain on one CUDA device, or data- and tensor-parallel
+over the ranks of a process group.
 
 Port of ``nano_tpu/train/trainer.py``: AdamW with decay / no-decay
 parameter groups, cosine LR schedule with linear warmup, gradient clipping
@@ -9,8 +10,23 @@ resume, continued-pretrain batch replay, and throughput / FLOPS logging
 with the same log lines.
 
 What differs from the JAX package, by design:
-  * one device.  ``mesh_shape`` and ``pp_microbatches`` stay fields of the
-    config and are refused when they ask for more than one device;
+  * a mesh is a process group (``parallel.mesh``; launch with torchrun):
+    ``mesh_shape`` {"data": D, "model": M} over D * M ranks, "data"
+    defaulting to what the world leaves.  Every rank draws the same global
+    batch from the same seeded DataLoader and takes its rows; the loss is
+    taken as sums (``gpt.loss_sums``) whose mask sum is added over "data"
+    first, so it is the masked mean of the whole batch as in the JAX
+    Trainer; gradients are all-reduced over "data" in buckets; under
+    "model" > 1 the weights are cut Megatron-style (``mesh.shard_params``)
+    and the blocks sum over the model group, the global-norm clip adds a
+    cut leaf's squares over "model" and a whole leaf's once, and AdamW
+    runs on the cut leaves.  Only rank 0 logs and writes; a checkpoint
+    holds the whole params and optimizer state (gathered over "model"), so
+    the JAX package loads its params and a resume on the same mesh cuts
+    them again.  The JAX Trainer shrinks "data" to a divisor of
+    batch_size; a process group cannot shrink, so this one raises there.
+    "seq", "pipe" (``pp_microbatches``) and LoRA under "model" > 1 are
+    ROADMAP item 11b and raise;
   * the step is eager PyTorch: a Python loop over the accumulation
     microbatches, ``loss.backward()`` into ``.grad`` (the microbatches'
     gradients sum there and are divided by their number once), then the
@@ -46,11 +62,13 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from nano_tpu_torch import resolve_device
 from nano_tpu_torch.config import ModelConfig, TrainConfig
 from nano_tpu_torch.io import checkpoint as ckpt_io
 from nano_tpu_torch.models import gpt
+from nano_tpu_torch.parallel import mesh as meshlib
 from nano_tpu_torch.tokenizer.trie import TrieTokenizer
 from nano_tpu_torch.train.data import DataLoader
 
@@ -109,8 +127,13 @@ class AdamW:
     whatever ``mu`` is stored in, as in optax.
     """
 
-    def __init__(self, cfg: TrainConfig, params: Dict[str, Any]):
+    def __init__(self, cfg: TrainConfig, params: Dict[str, Any],
+                 cut: Optional[List[bool]] = None, model_group=None):
         self.cfg = cfg
+        # tensor parallel: which leaves are cut over the model group, whose
+        # squares the global norm adds over it (a whole leaf's count once)
+        self.cut, self.model_group = cut, model_group
+        self.last_norm: Optional[torch.Tensor] = None  # before the clip
         self.schedule = make_lr_schedule(cfg)
         named = gpt.param_leaves(params)
         decay = dict(gpt.param_leaves(_decay_mask(params)))
@@ -130,7 +153,7 @@ class AdamW:
         cfg = self.cfg
         grads = [g.float() for g in grads]
         if cfg.grad_clip > 0:
-            norm = torch.sqrt(sum((g * g).sum() for g in grads))
+            norm = self.last_norm = self.global_norm(grads)
             clipped = torch._foreach_div(grads, norm)
             torch._foreach_mul_(clipped, cfg.grad_clip)
             keep = norm < cfg.grad_clip
@@ -158,6 +181,17 @@ class AdamW:
         for stored, m in zip(self.mu, mu):
             if stored is not m:
                 stored.copy_(m)
+
+    def global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The gradients' global norm: over a model group, the cut leaves'
+        squares summed over it and the whole leaves' once."""
+        if self.model_group is None:
+            return torch.sqrt(sum((g * g).sum() for g in grads))
+        sq = [sum(((g * g).sum() for g, c in zip(grads, self.cut) if c == k),
+                  torch.zeros((), device=grads[0].device))
+              for k in (True, False)]
+        dist.all_reduce(sq[0], group=self.model_group)
+        return torch.sqrt(sq[0] + sq[1])
 
     def state_dict(self) -> Dict[str, Any]:
         """The flat checkpoint layout: count, mu/<path>, nu/<path>."""
@@ -217,18 +251,33 @@ class Trainer:
         self.log_file: Optional[str] = None
         self._file_handler: Optional[logging.Handler] = None
 
+        # the mesh (None on one device), this rank's tensor-parallel plan,
+        # the config its forward runs with (local heads under "model" > 1)
+        # and the full shape of each params path
+        self.mesh: Optional[meshlib.Mesh] = None
+        self.tp: Optional[meshlib.TensorParallel] = None
+        self.fwd_config = self.model_config
+        self.full_shapes: Dict[str, Tuple[int, ...]] = {}
+
         self.dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32,
                       "float16": torch.bfloat16}[self.train_config.dtype]
 
     # ------------------------------------------------------------
+    @property
+    def is_main(self) -> bool:
+        """Whether this rank logs and writes (rank 0, or the only one)."""
+        return self.mesh is None or self.mesh.rank == 0
+
     def log(self, msg: str) -> None:
+        if not self.is_main:
+            return
         logger.info(msg)
         print(msg, flush=True)
 
     def _open_log_file(self) -> None:
         """Timestamped train_*.log file for plot_loss.py.  Lands next to
         the checkpoints when a save path is configured, else in the cwd."""
-        if self._file_handler is not None:
+        if self._file_handler is not None or not self.is_main:
             return
         tc = self.train_config
         dest = tc.save_checkpoint_to or "."
@@ -258,12 +307,10 @@ class Trainer:
                 "LoRA fine-tuning trains an adapter on a pretrained base: "
                 "set from_checkpoint (a fresh model with LoRA is not "
                 "implemented)")
-        n_devices = math.prod(v for v in (tc.mesh_shape or {}).values() if v)
-        if n_devices > 1:
-            raise NotImplementedError(
-                f"mesh_shape {tc.mesh_shape} asks for {n_devices} devices; "
-                f"multi-device training is not ported yet")
+        self.mesh = self._make_mesh()
         self.log(f"device: {self.device}")
+        if self.mesh is not None:
+            self.log(f"mesh: {self.mesh.shape} over {self.mesh.backend}")
 
         rng = torch.Generator().manual_seed(tc.random_seed)
         ck = None
@@ -299,14 +346,90 @@ class Trainer:
                 device=self.device)
             self.log("initialized new model")
 
-        self.opt = AdamW(tc, self.lora if tc.use_lora else self.params)
-        if ck is not None and ck.has("opt") and not tc.use_lora:
-            self.opt.load_state_dict(ck.load_opt_state())
-
         n_params = gpt.count_params(self.params, mc)
-        n_train = sum(int(p.numel()) for p in self.opt.params)
+        self.full_shapes = {n: tuple(p.shape)
+                            for n, p in gpt.param_leaves(self.params)}
+        n_train = sum(int(p.numel()) for _, p in gpt.param_leaves(
+            self.lora if tc.use_lora else self.params))
+        self.fwd_config = mc
+        if self.mesh is not None:
+            self.params, self.tp = meshlib.shard_params(
+                self.params, self.mesh, mc,
+                tensor_parallel=self.mesh.size(meshlib.MODEL_AXIS) > 1)
+        if self.tp is not None:
+            self.fwd_config = meshlib.local_config(mc, self.tp)
+        trainable = self.lora if tc.use_lora else self.params
+        names = [n for n, _ in gpt.param_leaves(trainable)]
+        self.opt = AdamW(tc, trainable, [self._ranges(n) is not None
+                                         for n in names],
+                         None if self.tp is None else self.tp.group)
+        if ck is not None and ck.has("opt") and not tc.use_lora:
+            state = ck.load_opt_state()
+            for key in ("mu", "nu"):
+                state[key] = {n: self._cut(n, t)
+                              for n, t in state[key].items()}
+            self.opt.load_state_dict(state)
+
         self.flop_per_token = gpt.estimate_flops_per_token(mc, n_params)
         self.log(f"params: total={n_params:,} trainable={n_train:,}")
+
+    def _make_mesh(self) -> Optional[meshlib.Mesh]:
+        """The mesh of mesh_shape over the process group, or None on one
+        device (no mesh asked for, and no group of more than one rank)."""
+        tc = self.train_config
+        shape = {k: v for k, v in (tc.mesh_shape or {}).items() if v}
+        for axis in (meshlib.SEQ_AXIS, meshlib.PIPE_AXIS):
+            if shape.get(axis, 1) > 1:
+                raise NotImplementedError(
+                    f"mesh_shape {tc.mesh_shape}: the {axis!r} axis is "
+                    f"{meshlib.ITEM_11B}")
+        if tc.pp_microbatches:
+            raise NotImplementedError(f"pipeline microbatches are "
+                                      f"{meshlib.ITEM_11B}")
+        n_model = shape.get(meshlib.MODEL_AXIS, 1)
+        if tc.use_lora and n_model > 1:
+            raise NotImplementedError(
+                f"LoRA under tensor parallelism is {meshlib.ITEM_11B}")
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if math.prod(shape.values()) <= 1 and world == 1:
+            return None
+        n_data = shape.get(meshlib.DATA_AXIS, world // n_model)
+        if tc.batch_size % n_data:
+            raise ValueError(
+                f"batch_size {tc.batch_size} does not divide over data="
+                f"{n_data} (the JAX Trainer shrinks the axis; a process "
+                f"group cannot)")
+        if not dist.is_initialized():
+            raise RuntimeError(
+                f"mesh_shape {tc.mesh_shape} asks for more than one rank: "
+                f"launch with torchrun (python -m torch.distributed.run "
+                f"--nproc_per_node N -m nano_tpu_torch.train ...)")
+        return meshlib.make_mesh(n_data=n_data, n_model=n_model)
+
+    def _ranges(self, path: str):
+        """The ranges of the params path's cut dim this rank holds, or None
+        where it holds the whole leaf."""
+        if self.tp is None:
+            return None
+        return self.tp.ranges(path.split("/")[-1])
+
+    def _cut(self, path: str, t: torch.Tensor) -> torch.Tensor:
+        """A whole leaf of the params path -> this rank's part."""
+        r = self._ranges(path)
+        if r is None:
+            return t
+        return meshlib.cut_ranges(t, meshlib.train_dim(path.split("/")[-1]),
+                                  r)
+
+    def _whole(self, path: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's part of the params path -> the whole leaf (every
+        rank of the model group calls this)."""
+        r = self._ranges(path)
+        if r is None:
+            return t
+        return meshlib.gather_leaf(t, self.full_shapes[path],
+                                   meshlib.train_dim(path.split("/")[-1]),
+                                   r, self.tp.group)
 
     def _remat(self):
         tc = self.train_config
@@ -316,15 +439,60 @@ class Trainer:
     # ------------------------------------------------------------
     def _loss(self, x: np.ndarray, y: np.ndarray, m: np.ndarray
               ) -> torch.Tensor:
+        """The loss of a global batch: on a mesh, this rank's rows' share
+        of it (its nll sum over the mask sum of the whole batch), whose sum
+        over "data" is the loss."""
         to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
             self.device, torch.int64)
         tc = self.train_config
+        lora = dict(lora=self.lora, lora_scale=(
+            tc.lora_alpha / tc.lora_rank if tc.use_lora else 0.0))
+        if self.mesh is not None:
+            x, y, m = meshlib.shard_batch((x, y, m), self.mesh)
+            s, n = gpt.loss_sums(self.params, to(x), to(y), to(m),
+                                 self.fwd_config, dtype=self.dtype,
+                                 remat=self._remat(), ce_chunk=tc.ce_chunk,
+                                 **lora)
+            n = n.detach().clone()
+            dist.all_reduce(n, group=self.mesh.group(meshlib.DATA_AXIS))
+            return s / n.clamp(min=1.0)
         return gpt.loss_fn(self.params, to(x), to(y), to(m),
                            self.model_config, dtype=self.dtype,
-                           remat=self._remat(), ce_chunk=tc.ce_chunk,
-                           lora=self.lora,
-                           lora_scale=(tc.lora_alpha / tc.lora_rank
-                                       if tc.use_lora else 0.0))
+                           remat=self._remat(), ce_chunk=tc.ce_chunk, **lora)
+
+    def _data_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """t summed over "data" (t itself on one device)."""
+        if self.mesh is not None:
+            dist.all_reduce(t, group=self.mesh.group(meshlib.DATA_AXIS))
+        return t
+
+    # gradient bytes of one all-reduce over "data"
+    BUCKET_BYTES = 256 << 20
+
+    def _reduce_grads(self, grads: List[torch.Tensor]) -> None:
+        """In place: sum over the model group the gradients of whole leaves
+        that the rank's heads use in part (q_norm / k_norm), then every
+        gradient over "data", in buckets of up to BUCKET_BYTES."""
+        names = self.opt.names
+        if self.tp is not None:
+            for n, g in zip(names, grads):
+                if n.split("/")[-1] in ("q_norm", "k_norm"):
+                    dist.all_reduce(g, group=self.tp.group)
+        if self.mesh is None or self.mesh.size(meshlib.DATA_AXIS) == 1:
+            return
+        group = self.mesh.group(meshlib.DATA_AXIS)
+        bucket: List[torch.Tensor] = []
+        for i, g in enumerate(grads):
+            bucket.append(g)
+            full = sum(t.numel() * t.element_size() for t in bucket)
+            if full >= self.BUCKET_BYTES or i == len(grads) - 1:
+                flat = torch.cat([t.reshape(-1) for t in bucket])
+                dist.all_reduce(flat, group=group)
+                off = 0
+                for t in bucket:
+                    t.copy_(flat[off:off + t.numel()].view_as(t))
+                    off += t.numel()
+                bucket = []
 
     def _train_step(self, xs, ys, ms) -> torch.Tensor:
         """xs: (accum, B, S).  One update from the mean of the
@@ -340,14 +508,16 @@ class Trainer:
                  for p in self.opt.params]
         if A > 1:
             grads = torch._foreach_div(grads, float(A))
+        if self.mesh is not None:
+            self._reduce_grads(grads)
         self.opt.update(grads)
         for p in self.opt.params:
             p.grad = None
-        return torch.stack(losses).mean()
+        return self._data_sum(torch.stack(losses).mean())
 
     @torch.no_grad()
     def _eval_step(self, x, y, m) -> float:
-        return float(self._loss(x, y, m))
+        return float(self._data_sum(self._loss(x, y, m)))
 
     # ------------------------------------------------------------
     def load_data(self) -> None:
@@ -405,15 +575,25 @@ class Trainer:
             else:
                 os.makedirs(dest, exist_ok=True)
                 path = os.path.join(dest, self.ckpt_filename)
-        ckpt_io.save_checkpoint(
-            path,
-            params=None if tc.use_lora else self.params,
-            lora=self.lora if tc.use_lora else None,
-            opt_state=self.opt.state_dict(),
-            step=self.step_count,
-            model_config=self.model_config.to_dict(),
-            train_config=self.train_config.to_dict(),
-            tokenizer_config=self.tokenizer.config if self.tokenizer else None)
+        params = None if tc.use_lora else self.params
+        opt_state = self.opt.state_dict()
+        if self.tp is not None:
+            params = gpt.map_leaves_with_path(self._whole, params)
+            for key in ("mu", "nu"):
+                opt_state[key] = {n: self._whole(n, t)
+                                  for n, t in opt_state[key].items()}
+        if self.is_main:
+            ckpt_io.save_checkpoint(
+                path, params=params,
+                lora=self.lora if tc.use_lora else None,
+                opt_state=opt_state,
+                step=self.step_count,
+                model_config=self.model_config.to_dict(),
+                train_config=self.train_config.to_dict(),
+                tokenizer_config=(self.tokenizer.config if self.tokenizer
+                                  else None))
+        if self.mesh is not None:
+            dist.barrier()              # the file is whole for every rank
         self.log(f"checkpoint saved to {path}")
         return path
 

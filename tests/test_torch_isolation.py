@@ -112,8 +112,30 @@ def test_new_modules_are_among_the_checked_sources():
                 "train/__main__.py", "io/checkpoint.py", "ops/flash_attn.py",
                 "ops/launches.py", "serve/__init__.py", "serve/batching.py",
                 "infer/speculative.py", "export.py", "io/gguf.py",
-                "io/qwen.py", "io/pt_import.py"):
+                "io/qwen.py", "io/pt_import.py", "parallel/__init__.py",
+                "parallel/mesh.py", "parallel/launch.py"):
         assert os.path.join("nano_tpu_torch", mod) in rel
+
+
+def test_rank_functions_of_the_parallel_tests_import_no_jax():
+    """The spawned ranks of tests/test_torch_parallel.py and
+    tests/test_torch_infer_tp*.py import tests/torch_parallel_ranks.py by
+    name: it, and what it imports, must load no jax."""
+    path = os.path.join(ROOT, "tests", "torch_parallel_ranks.py")
+    for mod in _imported_modules(path):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "nano_tpu"), mod
+    code = ("import sys\n"
+            f"sys.path.insert(0, {ROOT!r})\n"
+            "import tests.torch_parallel_ranks\n"
+            "import nano_tpu_torch.parallel.launch\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'nano_tpu')]\n"
+            "assert not bad, bad\n"
+            "print('clean')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env, cwd=ROOT)
+    assert out.returncode == 0 and "clean" in out.stdout, out.stderr
 
 
 def test_train_entry_point_defaults_to_cuda(monkeypatch, tmp_path):
