@@ -217,7 +217,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   PAR_BATCH x 512, bf16) under {"data": 2} and {"model":
                   2}: PAR_STEPS steps and one resumed step, losses within
                   PAR_LOSS_TOL of one device's, the resume bit-exact, K4's
-                  launches per rank exact, ms/step
+                  launches per rank exact, ms/step; 10d the same under
+                  {"seq": 2} (each rank 256 of the 512 positions, its
+                  queries at their offset against the K/V gathered over
+                  "seq": K4's offset form) and 10e under {"pipe": 2} (two
+                  layers a stage, PAR_MICRO microbatches, GPipe); 10f phase
+                  8's rank-16 adapter on the Q80 model at TP = 2 (logits,
+                  control, stream, launches as 10a), a BatchedEngine of 4
+                  slots with two adapters and the base (each slot's
+                  stream its stream alone), and a LoRA fine-tune of 10c's
+                  one-device checkpoint at {"model": 2}, losses within
+                  PAR_LOSS_TOL of one device's
 
 Phase 3 also holds K1 (q80_matmul_w8a8, every row torch.equal to the
 B = 1 kernel's), K3 at B > 1 and the norm kernels at the row counts of a
@@ -235,7 +245,11 @@ Qwen3-0.6B head shapes, D = 32 at Nano-56M's training shape, batch 64 x
 bit-equal, and at the training
 shape itself (batch 64 x 512, bf16, each of the 24 layers' tensors); the
 forward alone (out and the row log-sum-exp the backward reads, two runs
-bit-equal) at S = 1, below one tile and at 64 k +- 1; decode attention at
+bit-equal) at S = 1, below one tile and at 64 k +- 1; K4's offset form
+(OFFSET_CASES: queries at an offset against longer K/V, offsets 0, S / 2
+and inside a tile, D = 48 and 128, bf16 and f32, out, lse and the three
+gradients, two backward runs bit-equal, the rows of the call on the whole
+sequence), timed at a rank's shapes of 10d; decode attention at
 every D and heads-per-KV-head instance it is built for with f32 and bf16
 q, three cache types,
 positions that end inside a split or leave splits empty, batch 64, and
@@ -247,7 +261,7 @@ result cast to bf16).
 
 `python3 chip_smoke.py bench [flash [clocks]] [decode] [q4k [batched]] [q80
 [batched [sweep] [clocks]]] [pipes] [spec] [toy] [export] [rows [sweep] [clocks]]
-[lora] [lifecycle] [parallel] [nccl]` runs none of the phases: it times the two
+[lora] [lifecycle] [parallel] [nccl] [gloo]` runs none of the phases: it times the two
 attention kernels alone beside SDPA (the flash forward and backward, a
 ladder over the decode kernel's rows per block), a Q4K decode step's
 matmuls with the fake-quant folded in or not, a Q80 decode step's W8A8
@@ -266,7 +280,8 @@ toy, `bench export` phase 7 (on an untrained Nano-168M checkpoint), and
 `bench lora` phase 8 (on the same, without the GGUF model).
 `bench lifecycle` runs phase 9 alone (on a Nano-168M checkpoint of its
 initial weights and a freshly trained toy), `bench parallel` phase 10,
-`bench nccl` its NCCL part (10b) alone.  `bench rows` times the rows form (K1 below group size 256) over a
+`bench nccl` its NCCL part (10b) alone, `bench gloo` reports which
+collectives gloo takes on CUDA tensors in the card's torch.  `bench rows` times the rows form (K1 below group size 256) over a
 Qwen3-0.6B GGUF model's products at group sizes 32 and 16 as phase 7b
 does, on random weights; `sweep` adds every work split of its two kernels
 at 1, 8 and 64 rows beside the plan's, `clocks` where a tiled block's time
@@ -389,6 +404,13 @@ LORA_STEPS, LORA_LR = 6, 2e-3
 # adapter, must read above the limit (2.8e-3 with B ~ N(0, 0.01^2), so B is
 # drawn at 0.05)
 MERGE_LOGITS_TOL = 1e-3
+# phase 3: K4's offset form, (B, Sq, Skv, offset, H, KV, D): Nano-168M's
+# head shape and D = 128 at offsets 0, S / 2 and inside a 64-row tile, and
+# keys past the last query
+OFFSET_CASES = ((2, 256, 512, 0, 16, 8, 48), (2, 256, 512, 256, 16, 8, 48),
+                (2, 256, 512, 77, 16, 8, 48), (2, 200, 512, 131, 16, 8, 48),
+                (1, 256, 512, 256, 16, 8, 128), (1, 256, 512, 77, 16, 8, 128),
+                (1, 130, 300, 131, 8, 2, 128))
 # phase 9: SFT steps on phase 6's step-12 checkpoint (config/sft.json,
 # warmup cut to 1 step so that a few steps move the held batch), steps of
 # each remat policy, and the problems' sizes (the sort run is the JAX
@@ -515,7 +537,13 @@ class Timer:
         return start.elapsed_time(end) / reps
 
 
-def profile_steps(torch, step, n, keys, expect):
+# cycles of the spin kernel at each end of a profiled window: about 50 ms
+# on an H100, many times the stretch the trace has cut off a window's end
+PROFILE_EDGE_CYCLES = 100_000_000
+
+
+def profile_steps(torch, step, n, keys, expect,
+                  edge_cycles=PROFILE_EDGE_CYCLES):
     """torch.profiler over n calls of step() -> ({kernel: busy ms in all
     calls} for the kernels of `keys` that `expect` counts, plus "other";
     {kernel of `keys`: launches the profiler saw in all calls}; kernels in
@@ -523,10 +551,11 @@ def profile_steps(torch, step, n, keys, expect):
     calls} of the kernels in "other")."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    # one short spin kernel before and one after the window, left out of
-    # the sums: the trace drops a record at its ends now and then, which
-    # is then none of the window's
-    edge = lambda: torch.cuda._sleep(1000)
+    # a spin kernel of edge_cycles before and one after the window, left
+    # out of the sums: the trace drops records at its ends now and then (a
+    # tail of the window's last step behind a spin of 1000 cycles: `bench
+    # profile`), which are then none of the window's
+    edge = lambda: torch.cuda._sleep(edge_cycles)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         edge()
@@ -949,7 +978,7 @@ def bench_bwd_clocks(torch, qkv, fwd, dout):
         rc = lib.flash_attn_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), dout.data_ptr(), *(g.data_ptr() for g in grads),
-            delta.data_ptr(), 1, B, S, H, KV, D, *strides, D ** -0.5,
+            delta.data_ptr(), 1, B, S, S, 0, H, KV, D, *strides, D ** -0.5,
             torch.cuda.current_stream().cuda_stream)
         assert rc == 0, rc
         torch.cuda.synchronize()
@@ -1999,6 +2028,57 @@ def spec_phase(torch, np, h):
         raise AssertionError("; ".join(failures))
 
 
+def bench_profile(torch, reps=10):
+    """How often torch.profiler's trace of the Q80 model's decode graphs
+    (phase 5's, 1 step and GRAPH_STEPS steps a replay, 32 steps a window)
+    loses kernel records, behind guard spins of 1000 and of
+    PROFILE_EDGE_CYCLES cycles at the window's ends: each profile's
+    records lost by kernel, then each guard's tally."""
+    import numpy as np
+    from nano_tpu_torch.config import ModelConfig
+    from nano_tpu_torch.infer import engine
+    from nano_tpu_torch.ops import _build, sampling
+    from nano_tpu_torch.tokenizer.bpe import QWEN_STOP_TOKENS
+    from nano_tpu_torch.tokenizer.trie import TrieTokenizer
+    _build.build_all()
+    dev, cfg = torch.device("cuda"), ModelConfig(**QWEN3_06B)
+    tok = TrieTokenizer()
+    tok.build_preset(32768)
+    ctx = engine.LLMContext(
+        cfg=cfg, params=random_q80_params(torch, np, cfg, dev),
+        tokenizer=tok, max_seq_len=cfg.block_size, device=dev,
+        dtype=torch.bfloat16, sampler=sampling.SamplerConfig(
+            temperature=0.0, repetition_penalty=1.0),
+        stop_tokens=QWEN_STOP_TOKENS, arch="qwen3")
+    names = list(COUNTER_OF)
+    counts = lambda s: decode_counts("Q80", s, names)
+    per_step = {n: counts(1)[n] - counts(0)[n] for n in names}
+    prompt = np.random.default_rng(SEED + 1).integers(
+        100, 30000, PROMPT_LEN).tolist()
+    dec = ctx.decoder()
+    tally = {}
+    with ctx.on_stream():
+        dec.claim()
+        for rep in range(reps):
+            for guard in (1000, PROFILE_EDGE_CYCLES):
+                for k in (GRAPH_STEPS, 1):
+                    dec.prefill(prompt)
+                    _, seen, _, wall_ms, _ = profile_steps(
+                        torch, dec._graph(k).run, 32 // k, PROFILE_KEYS,
+                        per_step, guard)
+                    lost = {m: per_step.get(m, 0) * 32 - seen[m]
+                            for m in seen if seen[m] != per_step.get(m, 0) * 32}
+                    tally.setdefault((guard, k), []).append(
+                        sum(lost.values()))
+                    log(f"[bench profile] rep {rep}, guard {guard} cycles, "
+                        f"graph of {k} x {32 // k}: {wall_ms:.2f} ms a "
+                        f"replay; records lost {lost}")
+    for (guard, k), lost in tally.items():
+        log(f"[bench profile] {card_line()}: guard {guard} cycles, graph of "
+            f"{k}: short in {sum(1 for x in lost if x)} of {len(lost)} "
+            f"profiles, records lost {lost}")
+
+
 def bench_spec(torch):
     """Phase 5c alone (spec_phase), on the full-width models of phase 5
     made as main makes them, with the kernels built first."""
@@ -2135,10 +2215,11 @@ def planted_ppl_fault(torch, fault):
         mod, name = gpt, "flash_attention"
         orig = mod.flash_attention
 
-        def planted(q, k, v):
+        def planted(q, k, v, offset=0):
             if fault == "k4_bf16":
-                return orig(q.to(bf16), k.to(bf16), v.to(bf16)).to(q.dtype)
-            return orig(q, k, v).to(bf16).to(q.dtype)
+                return orig(q.to(bf16), k.to(bf16), v.to(bf16),
+                            offset).to(q.dtype)
+            return orig(q, k, v, offset).to(bf16).to(q.dtype)
     elif fault == "rows_bf16":
         mod, name = qmatmul, "q80_rows"
         orig = mod.q80_rows
@@ -3978,9 +4059,21 @@ PAR_LOGITS_TOL = {"Q80": 0.25, "Q4K": 4e-3}
 # one-device loss moves further than that over the steps.  Read on an
 # NVIDIA H100 80GB HBM3 at 700 W, at 8 layers: 4.70e-4 ({"data": 2}) and
 # 3.35e-4 ({"model": 2}) against the control's 0.106.
-PAR_LAYERS, PAR_BATCH, PAR_STEPS = 4, 16, 3
+PAR_LAYERS, PAR_BATCH, PAR_STEPS = 4, 8, 3
 PAR_LOSS_TOL = 5e-3
 PAR_MESHES = ({"data": 2}, {"model": 2})
+# 10d, 10e: sequence and pipeline parallelism on the same model, batch and
+# steps (10d: each rank 256 of the 512 positions, K4's offset form; 10e:
+# two layers a stage, PAR_MICRO microbatches), held to the same
+# one-device losses.  10f: phase 8's rank-16 adapter on phase 5's Q80
+# model at TP = 2 (PAR_LOGITS_TOL, PAR_TOKENS), a BatchedEngine of 4 slots
+# with two adapters and the base (PAR_BATCH_TOKENS each), and a LoRA
+# fine-tune of 10c's one-device checkpoint at {"model": 2} for
+# PAR_LORA_STEPS steps (phase 8's learning rate), losses within
+# PAR_LOSS_TOL of one device's
+PAR_SEQ, PAR_PIPE = {"seq": 2}, {"pipe": 2}
+PAR_MICRO = 4
+PAR_BATCH_TOKENS, PAR_LORA_STEPS = 8, 2
 
 
 def _par_qwen_ctx(torch, engine, cfg, params, dev):
@@ -3999,14 +4092,21 @@ def _par_sync(torch, dev):
         torch.cuda.synchronize()
 
 
-def par_serve(torch, np, job, mesh, model):
-    """One Qwen3-0.6B-shaped model of phase 5 on this rank: the one-device
-    context's first logits at the prompt and at another one, and its
-    greedy stream (decode graphs); then the context sharded over `mesh`:
-    its first logits, the same with each rank's partial sums doubled in
-    place of the all-reduce (the control), a warm-up, and a timed
-    generate_on_device of job["tokens"] tokens, launches counted from 0.
-    -> a dict of numbers."""
+def par_adapter(np, cfg, rank, seed):
+    """Phase 8's adapter of `rank` from `seed` (B ~ N(0, 0.1^2)) -> (its
+    factors, its scale alpha / rank = 2)."""
+    return random_lora(np, cfg, rank, seed, 0.1), 2.0
+
+
+def par_serve(torch, np, job, mesh, model, lora=None):
+    """One Qwen3-0.6B-shaped model of phase 5 on this rank (with the
+    adapter `lora`, (factors, scale), attached, where given): the
+    one-device context's first logits at the prompt and at another one,
+    and its greedy stream (decode graphs); then the context sharded over
+    `mesh`: its first logits, the same with each rank's partial sums
+    doubled in place of the all-reduce (the control), a warm-up, and a
+    timed generate_on_device of job["tokens"] tokens, launches counted
+    from 0.  -> a dict of numbers."""
     from nano_tpu_torch.config import ModelConfig
     from nano_tpu_torch.infer import engine
     dev = torch.device(job["device"])
@@ -4014,17 +4114,27 @@ def par_serve(torch, np, job, mesh, model):
     names, prompt, n = job["names"], job["prompt"], job["tokens"]
     params = (random_q80_params if model == "Q80" else random_q4k_params)(
         torch, np, cfg, dev)
-    one = _par_qwen_ctx(torch, engine, cfg, params, dev)
-    ref = engine._prefill(one, prompt, one.new_cache(1))[0][0].float().cpu()
-    other = engine._prefill(one, prompt[1:] + prompt[:1],
-                            one.new_cache(1))[0][0].float().cpu()
+
+    def ctx_of():
+        ctx = _par_qwen_ctx(torch, engine, cfg, params, dev)
+        if lora is not None:
+            ctx._attach(*lora)
+        return ctx
+
+    def first(ctx, ids):
+        return engine._prefill(ctx, ids, ctx.new_cache(1), ctx.lora,
+                               ctx.lora_scale)[0][0].float().cpu()
+
+    one = ctx_of()
+    ref = first(one, prompt)
+    other = first(one, prompt[1:] + prompt[:1])
     ref_stream = engine.generate_on_device(one, prompt, n)
     del one
-    tp = _par_qwen_ctx(torch, engine, cfg, params, dev).shard(mesh)
-    got = engine._prefill(tp, prompt, tp.new_cache(1))[0][0].float().cpu()
+    tp = ctx_of().shard(mesh)
+    got = first(tp, prompt)
     plan = tp.cfg.tp
     plan.all_reduce = lambda y: y.mul_(plan.size)           # the control
-    fault = engine._prefill(tp, prompt, tp.new_cache(1))[0][0].float().cpu()
+    fault = first(tp, prompt)
     del plan.all_reduce
     engine.generate_on_device(tp, prompt[:8], 4)           # warm-up
     _par_sync(torch, dev)
@@ -4051,20 +4161,26 @@ def par_serve(torch, np, job, mesh, model):
         plan=(plan.heads, plan.kv_heads, plan.attn, plan.ffn, plan.ffn_mode))
 
 
-def par_train(torch, np, job, shape):
-    """Nano-168M (PAR_LAYERS layers) under mesh_shape `shape` on this rank:
-    PAR_STEPS - 1 steps (launches counted), a checkpoint, one more step;
-    a second Trainer resumed from the checkpoint takes that step too.
-    -> losses, the resumed step's loss and whether every local leaf
-    equals the unbroken run's, launches, ms a step."""
+def par_train(torch, np, job, shape, over=None, steps=PAR_STEPS,
+              resume=True):
+    """Nano-168M (PAR_LAYERS layers) under mesh_shape `shape` (and the
+    train config changes `over`) on this rank: steps - 1 steps (launches
+    counted), a checkpoint, one more step; with `resume` a second Trainer
+    resumed from the checkpoint takes that step too.  -> losses, the
+    resumed step's loss and whether every local leaf (the adapter's in a
+    LoRA fine-tune) equals the unbroken run's, launches and the count
+    expected (every layer of a rank's forward once a microbatch: a
+    pipeline stage's layers over its microbatches), ms a step."""
     from nano_tpu_torch.models import gpt
     from nano_tpu_torch.train.trainer import Trainer
     dev = torch.device(job["device"])
     names = ["flash_attn_fwd", "flash_attn_bwd"]
-    tag = "_".join(f"{k}{v}" for k, v in shape.items())
+    tag = "_".join(f"{k}{v}" for k, v in shape.items()) + (
+        "_lora" if (over or {}).get("use_lora") else "")
     tc = dict(job["train_cfg"], mesh_shape=shape,
-              save_checkpoint_to=os.path.join(job["work"], tag))
-    t = Trainer(job["tcfg"], tc, max_steps=PAR_STEPS - 1,
+              save_checkpoint_to=os.path.join(job["work"], tag),
+              **(over or {}))
+    t = Trainer(job["tcfg"], tc, max_steps=steps - 1,
                 ckpt_filename="first.npz", device=dev)
     t.init()
     t.load_data()
@@ -4085,43 +4201,120 @@ def par_train(torch, np, job, shape):
     counts = read_launches(torch, names)
     ck = os.path.join(tc["save_checkpoint_to"], "first.npz")
     t.ckpt_filename = "second.npz"
-    t.max_steps = PAR_STEPS
+    t.max_steps = steps
     t.start()
-    resumed = Trainer(job["tcfg"], dict(tc, from_checkpoint=ck),
-                      max_steps=PAR_STEPS, is_continued_pretrain=True,
-                      ckpt_filename="resumed.npz", device=dev)
-    resumed.init()
-    resumed.load_data()
-    resumed.start()
-    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
-        gpt.param_leaves(t.params), gpt.param_leaves(resumed.params)))
+    out = dict(losses=[l for _, l in t.loss_history], resumed=None,
+               same=True)
+    if resume:
+        resumed = Trainer(job["tcfg"], dict(tc, from_checkpoint=ck),
+                          max_steps=steps, is_continued_pretrain=True,
+                          ckpt_filename="resumed.npz", device=dev)
+        resumed.init()
+        resumed.load_data()
+        resumed.start()
+        out.update(resumed=resumed.loss_history[-1][1], same=all(
+            torch.equal(a, b) for (_, a), (_, b) in zip(
+                gpt.param_leaves(t.params),
+                gpt.param_leaves(resumed.params))))
     A = tc["gradient_accumulation_steps"]
-    L = job["tcfg"]["n_layer"]
-    return dict(losses=[l for _, l in t.loss_history],
-                resumed=resumed.loss_history[-1][1], same=same,
-                counts=counts,
-                expect={n: L * A * (PAR_STEPS - 1) for n in names},
+    P = shape.get("pipe", 1)
+    per_step = job["tcfg"]["n_layer"] // P * (tc["pp_microbatches"] if P > 1
+                                              else 1) * A
+    return dict(out, counts=counts,
+                expect={n: per_step * (steps - 1) for n in names},
                 ms=sorted(step_ms[1:])[len(step_ms[1:]) // 2],
                 mesh=dict(t.mesh.shape))
 
 
+def par_batched_lora(torch, np, job, mesh):
+    """10f, per-slot adapters at TP = 2: phase 5's Q80 model sharded over
+    `mesh`, a BatchedEngine of 4 slots with two rank-16 adapters (phase
+    8's) and the base, four joins at once, PAR_BATCH_TOKENS greedy tokens
+    each (steps eager: gloo's all-reduces are not captured); then each
+    join alone in the same engine.  -> the streams together and alone,
+    launches of the batched run."""
+    from nano_tpu_torch.config import ModelConfig
+    from nano_tpu_torch.infer import engine
+    from nano_tpu_torch.io import binfmt
+    from nano_tpu_torch.serve.batching import BatchedEngine
+    dev = torch.device(job["device"])
+    cfg = ModelConfig(**job["qwen"])
+    paths = {}
+    for name, seed in (("a", SEED + 40), ("b", SEED + 41)):
+        paths[name] = os.path.join(job["work"], f"lora_{name}_"
+                                   f"{torch.distributed.get_rank()}.bin")
+        binfmt.write_lora(paths[name], random_lora(np, cfg, LORA_RANK, seed,
+                                                   0.1), cfg, rank=LORA_RANK,
+                          alpha=2 * LORA_RANK)
+    ctx = _par_qwen_ctx(torch, engine, cfg, random_q80_params(
+        torch, np, cfg, dev), dev).shard(mesh)
+    be = BatchedEngine(ctx, n_slots=4, adapters=paths)
+    prompt = job["prompt"]
+    joins = [(prompt[:40], "a"), (prompt[5:45], None), (prompt[10:50], "b"),
+             (prompt[15:55], "a")]
+
+    def run(which):
+        got, live = {}, {}
+        for i in which:
+            ids, name = joins[i]
+            slot, first = be.add(ids, max_new_tokens=PAR_BATCH_TOKENS,
+                                 temperature=0.0, repetition_penalty=1.0,
+                                 adapter=name)
+            got[i], live[slot] = [first], i
+        while be.n_active:
+            res = be.step_burst(2)
+            for slot, toks in res.items():
+                got[live[slot]].extend(toks)
+            for slot in [x for x, e in res.ended.items() if e]:
+                be.release(slot)
+        return got
+
+    zero_launches(torch)
+    together = run(range(4))
+    counts = read_launches(torch, job["names"])
+    alone = {}
+    for i in range(4):
+        alone.update(run([i]))
+    for p in paths.values():
+        os.remove(p)
+    return dict(together=together, alone=alone, counts=counts)
+
+
 def parallel_rank(job):
     """A rank of phase 10's gloo group (``parallel.launch``): TP = 2
-    serving of phase 5's two models, then the two training meshes."""
+    serving of phase 5's two models, the two training meshes of 10c,
+    sequence (10d) and pipeline (10e) parallelism, and LoRA at TP = 2
+    (10f: serving, per-slot adapters, a fine-tune)."""
     import numpy as np
     import torch
+    from nano_tpu_torch.config import ModelConfig
     from nano_tpu_torch.parallel import mesh as meshlib
     mesh = meshlib.make_mesh(n_model=2)
     out, secs = {}, {}
+
+    def timed(key, fn):
+        t0 = time.time()
+        result = fn()
+        secs[key] = time.time() - t0
+        return result
+
     for model in ("Q80", "Q4K"):
-        t0 = time.time()
-        out[model] = par_serve(torch, np, job, mesh, model)
-        secs[model] = time.time() - t0
-    out["train"] = []
-    for shape in PAR_MESHES:
-        t0 = time.time()
-        out["train"].append(par_train(torch, np, job, shape))
-        secs[str(shape)] = time.time() - t0
+        out[model] = timed(model, lambda: par_serve(torch, np, job, mesh,
+                                                    model))
+    out["train"] = [timed(str(shape), lambda: par_train(torch, np, job,
+                                                        shape))
+                    for shape in PAR_MESHES]
+    out["seq"] = timed("seq", lambda: par_train(torch, np, job, PAR_SEQ))
+    out["pipe"] = timed("pipe", lambda: par_train(
+        torch, np, job, PAR_PIPE, dict(pp_microbatches=PAR_MICRO)))
+    lora = par_adapter(np, ModelConfig(**job["qwen"]), LORA_RANK, SEED + 40)
+    out["lora"] = timed("lora", lambda: par_serve(torch, np, job, mesh,
+                                                  "Q80", lora))
+    out["lora_batched"] = timed("lora_batched", lambda: par_batched_lora(
+        torch, np, job, mesh))
+    out["lora_train"] = timed("lora_train", lambda: par_train(
+        torch, np, job, {"model": 2}, job["lora_train"],
+        steps=PAR_LORA_STEPS, resume=False))
     out["secs"] = secs
     return out
 
@@ -4167,11 +4360,24 @@ def nccl_rank(job):
                 graphs=len(tp.decoder().graphs))
 
 
+def nccl_train_rank(job):
+    """A rank of a NCCL group of two cards: 10d's and 10e's meshes
+    (par_train) over NCCL, a record beside the gloo ranks' (all-gather,
+    reduce-scatter, send and recv on the cards)."""
+    import numpy as np
+    import torch
+    return [par_train(torch, np, job, PAR_SEQ),
+            par_train(torch, np, job, PAR_PIPE,
+                      dict(pp_microbatches=PAR_MICRO))]
+
+
 def nccl_phase(torch, h, job):
     """10b: one NCCL rank decodes phase 5's Q80 model from captured graphs
     with its all-reduces inside, its stream torch.equal to the unsharded
     graphs'; where the machine has two cards or more, two NCCL ranks at
-    TP = 2 as well (the ranks' streams equal, launches exact)."""
+    TP = 2 as well (the ranks' streams equal, launches exact), and, given
+    10c's training job, {"seq": 2} and {"pipe": 2} over NCCL (a record:
+    ms/step, losses, launches)."""
     from nano_tpu_torch.parallel import launch
     for n in ((1, 2) if torch.cuda.device_count() >= 2 else (1,)):
         t0 = time.time()
@@ -4195,17 +4401,32 @@ def nccl_phase(torch, h, job):
         if n == 1 and not r["equal"]:
             raise AssertionError("the one-rank NCCL stream differs from "
                                  "the unsharded graphs'")
+    if torch.cuda.device_count() >= 2 and "tcfg" in job:
+        t0 = time.time()
+        ranks = launch.run("chip_smoke:nccl_train_rank", 2, args=(job,),
+                           backend="nccl", device="cuda")
+        for shape, r0, r1 in zip((PAR_SEQ, PAR_PIPE), *ranks):
+            log(f"[parallel nccl] Nano-168M {job['tcfg']['n_layer']} "
+                f"layers, batch {job['train_cfg']['batch_size']} x 512, "
+                f"bf16, mesh {r0['mesh']} over NCCL (2 cards): losses "
+                f"{r0['losses']}; {r0['ms']:.1f} / {r1['ms']:.1f} ms/step "
+                f"by rank; resumed step {r0['resumed']!r}, leaves equal "
+                f"{r0['same']} / {r1['same']}; launches per rank "
+                f"{r0['counts']} (expected {r0['expect']}) on {h.card}")
+        log(f"[parallel nccl] the two meshes over NCCL in "
+            f"{time.time() - t0:.1f} s")
 
 
 def parallel_phase(torch, np, h):
     """Phase 10 (``nano_tpu_torch/parallel``): two gloo ranks sharing the
     card serve phase 5's Q80 and Q4K models at TP = 2 and train Nano-168M
-    at full width under {"data": 2} and {"model": 2}; one NCCL rank
-    decodes from captured graphs with its all-reduces inside (and two, at
-    TP = 2, where the machine has two cards).  h: dev, card, names,
-    prompt, train_data, work, and `tokens`, `nccl_tokens`, `qwen`,
-    `layers`, `batch` (the script's sizes, smaller for a rehearsal on the
-    CPU).  -> the rank 0
+    at full width under {"data": 2} and {"model": 2} (10a, 10c), under
+    {"seq": 2} (10d: K4's offset form) and {"pipe": 2} (10e), and serve
+    and fine-tune with LoRA at TP = 2 (10f); one NCCL rank decodes from
+    captured graphs with its all-reduces inside (and two, at TP = 2, where
+    the machine has two cards).  h: dev, card, names, prompt, train_data,
+    work, and `tokens`, `nccl_tokens`, `qwen`, `layers`, `batch` (the
+    script's sizes, smaller for a rehearsal on the CPU).  -> the rank 0
     results of the gloo group."""
     from nano_tpu_torch.config import ModelConfig
     from nano_tpu_torch.parallel import launch
@@ -4219,18 +4440,30 @@ def parallel_phase(torch, np, h):
                      tokenizer_path=os.path.join(ROOT, "tokenizer",
                                                  "nano_16384.json"),
                      warmup_iters=1, eval_interval=1000, log_interval=1)
-    job = dict(device=h.dev.type, qwen=h.qwen, names=h.names,
-               prompt=h.prompt, tokens=h.tokens, nccl_tokens=h.nccl_tokens,
-               tcfg=tcfg, train_cfg=train_cfg, work=h.work)
-
-    # the one-device trajectory the two meshes are held to
+    # the one-device trajectory the meshes are held to, and a LoRA
+    # fine-tune of its checkpoint (10f's reference)
     one = Trainer(tcfg, dict(train_cfg, save_checkpoint_to=os.path.join(
         h.work, "one")), max_steps=PAR_STEPS, device=h.dev)
     one.init()
     one.load_data()
     one.start()
     one_losses = [l for _, l in one.loss_history]
+    lora_train = dict(use_lora=True, lora_rank=LORA_RANK,
+                      lora_alpha=LORA_ALPHA, learning_rate=LORA_LR,
+                      from_checkpoint=os.path.join(h.work, "one",
+                                                   "checkpoint.npz"))
+    one = Trainer(tcfg, dict(train_cfg, save_checkpoint_to=os.path.join(
+        h.work, "one_lora"), **lora_train), max_steps=PAR_LORA_STEPS,
+        device=h.dev)
+    one.init()
+    one.load_data()
+    one.start()
+    one_lora = [l for _, l in one.loss_history]
     del one
+    job = dict(device=h.dev.type, qwen=h.qwen, names=h.names,
+               prompt=h.prompt, tokens=h.tokens, nccl_tokens=h.nccl_tokens,
+               tcfg=tcfg, train_cfg=train_cfg, work=h.work,
+               lora_train=lora_train)
 
     t0 = time.time()
     ranks = launch.run("chip_smoke:parallel_rank", 2, args=(job,),
@@ -4262,31 +4495,99 @@ def parallel_phase(torch, np, h):
                                  f"tokens")
         if not (r0["err"] <= PAR_LOGITS_TOL[model] < r0["control"]):
             raise AssertionError(f"{model} TP logits off one device's")
-    for shape, r0, r1 in zip(PAR_MESHES, ranks[0]["train"],
-                             ranks[1]["train"]):
+    meshes = [(shape, r0, r1, "parallel train") for shape, r0, r1 in zip(
+        PAR_MESHES, ranks[0]["train"], ranks[1]["train"])]
+    meshes += [(PAR_SEQ, ranks[0]["seq"], ranks[1]["seq"], "parallel seq"),
+               (PAR_PIPE, ranks[0]["pipe"], ranks[1]["pipe"],
+                "parallel pipe")]
+    for shape, r0, r1, tag in meshes:
         rel = [abs(a - b) / b for a, b in zip(r0["losses"], one_losses)]
         moved = max(abs(l - one_losses[0]) for l in one_losses) / one_losses[0]
-        log(f"[parallel train] Nano-168M {h.layers} layers, batch "
-            f"{h.batch} x 512, bf16, mesh {r0['mesh']} (two gloo ranks): "
+        how = (f", each rank {512 // shape['seq']} positions (K4's offset "
+               f"form)" if "seq" in shape else
+               f", {h.layers // shape['pipe']} layers a stage, {PAR_MICRO} "
+               f"microbatches" if "pipe" in shape else "")
+        log(f"[{tag}] Nano-168M {h.layers} layers, batch {h.batch} x 512, "
+            f"bf16, mesh {r0['mesh']} (two gloo ranks{how}): "
             f"losses {r0['losses']} beside one device's {one_losses} "
             f"(relative {max(rel):.3e}, limit {PAR_LOSS_TOL}; the "
             f"one-device loss moved {moved:.3e}); step {PAR_STEPS} resumed "
             f"{r0['resumed']!r} / {r1['resumed']!r}, unbroken "
-            f"{r0['losses'][-1]!r}, leaves equal {r0['same']} / "
-            f"{r1['same']}; {r0['ms']:.1f} / {r1['ms']:.1f} ms/step by "
-            f"rank; launches per rank {r0['counts']} (expected "
-            f"{r0['expect']}) on {h.card}")
+            f"{r0['losses'][-1]!r} / {r1['losses'][-1]!r}, leaves equal "
+            f"{r0['same']} / {r1['same']}; {r0['ms']:.1f} / "
+            f"{r1['ms']:.1f} ms/step by rank; launches per rank "
+            f"{r0['counts']} / {r1['counts']} (expected {r0['expect']}) on "
+            f"{h.card}")
         for r in (r0, r1):
             if r["counts"] != r["expect"]:
                 raise AssertionError(f"mesh {shape}: K4 launches differ")
             if not (r["resumed"] == r["losses"][-1] and r["same"]):
                 raise AssertionError(f"mesh {shape}: the resumed run left "
                                      f"the trajectory")
+            if r["losses"] != r0["losses"]:
+                raise AssertionError(f"mesh {shape}: the ranks logged "
+                                     f"different losses")
         if not (max(rel) <= PAR_LOSS_TOL < moved):
             raise AssertionError(f"mesh {shape}: losses off one device's")
+    par_lora_checks(h, ranks, one_lora)
     if h.dev.type == "cuda":
         nccl_phase(torch, h, job)
     return ranks[0]
+
+
+def par_lora_checks(h, ranks, one_lora):
+    """10f's checks on the gloo ranks' results: LoRA serving at TP = 2
+    (logits, control, stream, launches), per-slot adapters (each slot's
+    stream its stream alone), the LoRA fine-tune at {"model": 2} (losses
+    beside one device's, launches)."""
+    r0, r1 = ranks[0]["lora"], ranks[1]["lora"]
+    log(f"[parallel lora] Q80 with a rank-{LORA_RANK} adapter at TP = 2 "
+        f"over {r0['backend']} (adapter attached before the shard: B of q, "
+        f"k, v and wo's A cut on the heads): first-step logits against the "
+        f"one-device LoRA context {r0['err']:.3e} of max|logit| (limit "
+        f"{PAR_LOGITS_TOL['Q80']}; control, each rank's partial sums "
+        f"doubled in place of the all-reduce: {r0['control']:.3e}; another "
+        f"prompt: {r0['other']:.3e}); {h.tokens} greedy tokens agree with "
+        f"one device's for {r0['agree']} (rank 1: {r1['agree']}); decode "
+        f"{r0['tok_s']:.2f} / {r1['tok_s']:.2f} tok/s by rank, TTFT "
+        f"{r0['ttft_ms']:.1f} ms; launches per rank {r0['counts']} "
+        f"(expected {r0['expect']}) on {h.card}")
+    for r in (r0, r1):
+        if r["counts"] != r["expect"]:
+            raise AssertionError("LoRA TP launches differ from a prefill and "
+                                 f"{h.tokens - 1} steps'")
+    if r0["stream"] != r1["stream"]:
+        raise AssertionError("the two ranks took different LoRA tokens")
+    if not (r0["err"] <= PAR_LOGITS_TOL["Q80"] < r0["control"]):
+        raise AssertionError("LoRA TP logits off one device's")
+    b0, b1 = ranks[0]["lora_batched"], ranks[1]["lora_batched"]
+    log(f"[parallel lora] BatchedEngine at TP = 2, 4 slots (adapters a, "
+        f"base, b, a), {PAR_BATCH_TOKENS} greedy tokens each: every slot's "
+        f"stream equal to its stream alone: "
+        f"{b0['together'] == b0['alone']} ({b0['together']}); launches of "
+        f"the batched run per rank {b0['counts']}")
+    for b in (b0, b1):
+        if b["together"] != b["alone"] or b["together"] != b0["together"]:
+            raise AssertionError("a slot's stream with per-slot adapters at "
+                                 "TP = 2 differs from its stream alone")
+        if not (b["counts"]["q80_matmul_w8a8"] and
+                b["counts"]["decode_attention"]):
+            raise AssertionError("the batched LoRA run launched no K1 / K2")
+    t0, t1 = ranks[0]["lora_train"], ranks[1]["lora_train"]
+    rel = [abs(a - b) / b for a, b in zip(t0["losses"], one_lora)]
+    log(f"[parallel lora] LoRA fine-tune (rank {LORA_RANK}) of the "
+        f"{h.layers}-layer checkpoint at mesh {t0['mesh']}: losses "
+        f"{t0['losses']} / {t1['losses']} beside one device's {one_lora} "
+        f"(relative {max(rel):.3e}, limit {PAR_LOSS_TOL}); {t0['ms']:.1f} / "
+        f"{t1['ms']:.1f} ms/step by rank; launches per rank {t0['counts']} "
+        f"(expected {t0['expect']}) on {h.card}")
+    for t in (t0, t1):
+        if t["counts"] != t["expect"] or t["losses"] != t0["losses"]:
+            raise AssertionError("the LoRA fine-tune at TP = 2: K4 launches "
+                                 "differ or the ranks logged other losses")
+    if not (len(rel) == PAR_LORA_STEPS and max(rel) <= PAR_LOSS_TOL):
+        raise AssertionError("the LoRA fine-tune at TP = 2: losses off one "
+                             "device's")
 
 
 def bench_parallel(torch):
@@ -4322,8 +4623,11 @@ def bench_parallel(torch):
 
 def bench_nccl(torch):
     """Phase 10b alone (nccl_phase): phase 5's prompt and Q80 model; two
-    NCCL ranks at TP = 2 where the machine has two cards."""
+    NCCL ranks at TP = 2, and 10d's and 10e's meshes over NCCL, where the
+    machine has two cards."""
+    from nano_tpu_torch.config import ModelConfig
     from nano_tpu_torch.ops import _build
+    from nano_tpu_torch.tokenizer.trie import TrieTokenizer
     import numpy as np
     t0 = time.time()
     _build.build_all()
@@ -4331,11 +4635,75 @@ def bench_nccl(torch):
     prng = np.random.default_rng(SEED + 1)
     for n in (17, 40, 100):            # phase 5's requests, then its prompt
         prng.integers(100, 30000, n)
+    work = os.path.join(ROOT, "build", "smoke_nccl")
+    os.makedirs(work, exist_ok=True)
+    tcfg = ModelConfig.from_json(os.path.join(ROOT, "config",
+                                              "model_168m.json"))
+    ttok = TrieTokenizer.from_file(os.path.join(ROOT, "tokenizer",
+                                                "nano_16384.json"))
+    train_p, val_p, _, _ = pretrain_corpus(ttok, tcfg, work)
+    with open(os.path.join(ROOT, "config", "pretrain.json")) as f:
+        train_cfg = json.load(f)
+    train_cfg.update(dataset_path=[[train_p, val_p]], batch_size=PAR_BATCH,
+                     tokenizer_path=os.path.join(ROOT, "tokenizer",
+                                                 "nano_16384.json"),
+                     warmup_iters=1, eval_interval=1000, log_interval=1)
     h = SimpleNamespace(card=card_line(), nccl_tokens=PAR_NCCL_TOKENS)
     nccl_phase(torch, h, dict(
         device="cuda", qwen=QWEN3_06B, names=list(COUNTER_OF),
         prompt=prng.integers(100, 30000, PROMPT_LEN).tolist(),
-        nccl_tokens=PAR_NCCL_TOKENS))
+        nccl_tokens=PAR_NCCL_TOKENS, work=work, train_cfg=train_cfg,
+        tcfg=dict(tcfg.to_dict(), n_layer=PAR_LAYERS)))
+    shutil.rmtree(work)
+
+
+GLOO_PROBES = ("all_reduce", "broadcast", "all_gather",
+               "all_gather_into_tensor", "reduce_scatter",
+               "reduce_scatter_tensor", "send_recv")
+
+
+def gloo_probe_rank(name):
+    """A rank of `bench gloo`: the collective `name` of torch.distributed
+    once over gloo on a small CUDA tensor (the port never tries and
+    catches: ``parallel.mesh`` routes by backend)."""
+    import torch
+    import torch.distributed as dist
+    rank, world = dist.get_rank(), dist.get_world_size()
+    t = torch.full((4,), float(rank + 1), device="cuda")
+    out = torch.zeros(4 * world, device="cuda")
+    parts = list(out.chunk(world))
+    half = out[:4 // world]
+    {"all_reduce": lambda: dist.all_reduce(t),
+     "broadcast": lambda: dist.broadcast(t, 0),
+     "all_gather": lambda: dist.all_gather(parts, t),
+     "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(out, t),
+     "reduce_scatter": lambda: dist.reduce_scatter(
+         half, list(t.clone().chunk(world))),
+     "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(half, t),
+     "send_recv": lambda: (dist.send(t, 1) if rank == 0
+                           else dist.recv(t, 0))}[name]()
+    torch.cuda.synchronize()
+    # what the collective wrote: t in place, or its output
+    return (t if name in ("all_reduce", "broadcast", "send_recv")
+            else out).cpu().tolist()
+
+
+def bench_gloo(torch):
+    """Which torch.distributed collectives gloo takes on CUDA tensors here
+    (`python3 chip_smoke.py bench gloo`): each in a group of two gloo
+    ranks on the card of its own, its failure reported by the error's last
+    line."""
+    from nano_tpu_torch.parallel import launch
+    for name in GLOO_PROBES:
+        try:
+            res = launch.run("chip_smoke:gloo_probe_rank", 2, args=(name,),
+                             backend="gloo", device="cuda")
+            got = f"ran; the ranks' results {res}"
+        except Exception as e:              # the probe's own report
+            lines = [ln for ln in str(e).splitlines() if ln.strip()]
+            got = f"fails: {lines[-1][:200] if lines else type(e).__name__}"
+        log(f"[bench gloo] torch {torch.__version__}, {name} of CUDA "
+            f"tensors over gloo: {got}")
 
 
 def bench(what) -> int:
@@ -4354,7 +4722,8 @@ def bench(what) -> int:
                      ("toy", bench_toy), ("export", bench_export),
                      ("rows", bench_rows), ("lora", bench_lora),
                      ("lifecycle", bench_lifecycle),
-                     ("parallel", bench_parallel), ("nccl", bench_nccl)):
+                     ("parallel", bench_parallel), ("nccl", bench_nccl),
+                     ("gloo", bench_gloo), ("profile", bench_profile)):
         if not what or name in what:
             fn(torch, **{"flash": flags, "q80": q80_flags,
                          "q4k": q4k_flags,
@@ -4481,6 +4850,14 @@ def main() -> int:
     entry("flash_attn_fwd", "nano_tpu/models/gpt.py:239",
           "nano_tpu_torch/csrc/flash_attn.cu")
     entry("flash_attn_bwd", "nano_tpu/models/gpt.py:239",
+          "nano_tpu_torch/csrc/flash_attn.cu")
+    # K4's offset form: the same two kernels, a rank of sequence
+    # parallelism's queries at their offset against the gathered K/V
+    # (phase 10d's main path; the JAX package gets it from GSPMD's
+    # partition of the attention that K4 replaces)
+    entry("flash_attn_fwd_offset", "nano_tpu/models/gpt.py:239",
+          "nano_tpu_torch/csrc/flash_attn.cu")
+    entry("flash_attn_bwd_offset", "nano_tpu/models/gpt.py:239",
           "nano_tpu_torch/csrc/flash_attn.cu")
 
     def note_err(name, err):
@@ -5226,11 +5603,11 @@ def main() -> int:
         f"{worst_f:.3e}, bwd {worst_b:.3e} (tol 2e-2 of max|ref| for out "
         f"and each of dq, dk, dv)")
 
-    def step_times(fn, grad_out=lambda g: g):
+    def step_times(fn, grad_out=lambda g: g, layers=None):
         best = None
         for _ in range(3):
             marks = []
-            for q, k, v, g in step_layers:
+            for q, k, v, g in (step_layers if layers is None else layers):
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
                 ev[0].record()
                 out = fn(q, k, v)
@@ -5273,6 +5650,141 @@ def main() -> int:
             f"ms ({kk['bound_by']}: {TL * n_bytes / 1e6:.1f} MB, "
             f"{TL * n_prod * pair_flops / 1e12:.3f} TFLOP)")
     del step_layers
+
+    # K4's offset form (a rank of sequence parallelism, phase 10d: Sq
+    # queries at an offset against Skv >= offset + Sq gathered keys), at
+    # Nano-168M's head shape and at D = 128, bf16 and f32, offsets 0, S/2
+    # and inside a tile, keys past the last query: out and lse against the
+    # plain version, dq / dk / dv against it differentiated by autograd
+    # (the tolerances above), dk and dv zero past the last query, two
+    # backward runs bit-equal, and the offset call's out and lse rows
+    # against the same rows of the call on the whole sequence within the
+    # plain tolerance.
+    n_off = 0
+    for B, Sq, Skv, off, Hh, KVh, Dh in OFFSET_CASES:
+        for dt in (torch.bfloat16, torch.float32):
+            f32c = dt == torch.float32
+            mk = lambda *shape: torch.randn(*shape, device=dev,
+                                            generator=gen).to(dt)
+            qf, k, v = mk(B, Skv, Hh, Dh), mk(B, Skv, KVh, Dh), mk(
+                B, Skv, KVh, Dh)
+            q, g = qf[:, off:off + Sq].contiguous(), mk(B, Sq, Hh * Dh)
+            out, lse = flash_attn.flash_attn_fwd(q, k, v, off)
+            ref, ref_lse = flash_attn.flash_attn_fwd_plain(q, k, v, off)
+            full, full_lse = flash_attn.flash_attn_fwd(qf, k, v)
+            kern = lambda a, b, c: flash_attn.flash_attention(a, b, c, off)
+            plain = lambda a, b, c: flash_attn.flash_attention_plain(
+                a, b, c, off)
+            _, grads = fwd_bwd(kern, q, k, v, g)
+            _, grads2 = fwd_bwd(kern, q, k, v, g)
+            _, rgrads = fwd_bwd(plain, q, k, v, g)
+            torch.cuda.synchronize()
+            tol_f, tol_b = ((1e-5, 1e-4) if f32c else (2e-2, 2e-2))
+            lim_f = tol_f * ref.float().abs().max().item()
+            tol_l = 1e-5 if f32c else 1e-3
+            err_f = (out.float() - ref.float()).abs().max().item()
+            err_l = (lse - ref_lse).abs().max().item()
+            err_rows = max(
+                (full[:, off:off + Sq].float() - out.float()).abs().max()
+                .item() / max(lim_f, 1e-30),
+                (full_lse[..., off:off + Sq] - lse).abs().max().item()
+                / tol_l)
+            errs = [(a.float() - b.float()).abs().max().item()
+                    for a, b in zip(grads, rgrads)]
+            lims = [tol_b * b.float().abs().max().item() + 1e-5
+                    for b in rgrads]
+            same = all(torch.equal(a, b) for a, b in zip(grads, grads2))
+            past = off + Sq == Skv or not (grads[1][:, off + Sq:].any()
+                                           or grads[2][:, off + Sq:].any())
+            log(f"[kernel] flash_attn offset form {str(dt)[6:]} B={B} "
+                f"Sq={Sq} Skv={Skv} offset={off} H={Hh} KV={KVh} D={Dh}: "
+                f"out {err_f:.3e} (tol {lim_f:.3e}), lse {err_l:.3e} (tol "
+                f"{tol_l:g}); dq/dk/dv " + "/".join(f"{e:.3e}" for e in errs)
+                + " (tol " + "/".join(f"{x:.3e}" for x in lims) + "); rows "
+                f"of the whole call at {err_rows:.3f} of the tolerance; two "
+                f"backward runs bit-equal: {same}; dk, dv zero past the "
+                f"last query: {past}")
+            if not (err_f <= lim_f and err_l <= tol_l and err_rows <= 1.0
+                    and all(e <= x for e, x in zip(errs, lims)) and same
+                    and past and out.shape == (B, Sq, Hh, Dh)):
+                raise AssertionError(
+                    f"flash attention's offset form B={B} Sq={Sq} Skv={Skv} "
+                    f"offset={off} D={Dh} {dt} disagrees with the plain "
+                    f"version or with the whole sequence's rows")
+            note_err("flash_attn_fwd_offset", err_f)
+            note_err("flash_attn_bwd_offset", max(errs))
+            n_off += 1
+            del qf, k, v, q, g, out, lse, ref, ref_lse, full, full_lse
+            del grads, grads2, rgrads
+    log(f"[kernel] flash_attn offset form: {n_off} cases within tolerance")
+
+    # a rank's launches in one step of phase 10d: PAR_LAYERS layers of
+    # Nano-168M at batch PAR_BATCH, rank 1's 256 queries at offset 256 (the
+    # rank with the most work) against the 512 gathered keys, bf16: the
+    # kernels, the plain versions of both and SDPA with the same boolean
+    # mask (its backward: forward and backward less the forward), each the
+    # device time of the 4 layers' calls replayed from a CUDA graph (at
+    # these small shapes the host's dispatch would otherwise be timed)
+    SQ, SOFF = TS // 2, TS // 2
+    sp_layers = []
+    for _ in range(PAR_LAYERS):
+        q, k, v, g = flash_case(PAR_BATCH, TS, TH, TKV, TD, torch.bfloat16)
+        q, g = q[:, SOFF:].contiguous(), g[:, SOFF:].reshape(
+            PAR_BATCH, SQ, TH, TD).contiguous()
+        out, lse = flash_attn.flash_attn_fwd(q, k, v, SOFF)
+        sp_layers.append((q, k, v, g, out, lse))
+    sp_mask = flash_attn.causal_mask(SQ, dev, SOFF, TS) == 0
+    sdpa_leaves = [[t.transpose(1, 2).detach().requires_grad_(True)
+                    for t in (q, k, v)] + [g.transpose(1, 2)]
+                   for q, k, v, g, _, _ in sp_layers]
+
+    def sdpa_offset(backward):
+        for q, k, v, g in sdpa_leaves:
+            o = F.scaled_dot_product_attention(q, k, v, attn_mask=sp_mask,
+                                               enable_gqa=True)
+            if backward:
+                torch.autograd.grad(o, (q, k, v), g)
+
+    def layers_of(fn):
+        return lambda: [fn(*x) for x in sp_layers]
+
+    k_ms = (timer(layers_of(lambda q, k, v, g, o, l:
+                            flash_attn.flash_attn_fwd(q, k, v, SOFF))),
+            timer(layers_of(lambda q, k, v, g, o, l:
+                            flash_attn.flash_attn_bwd(q, k, v, o, l, g,
+                                                      SOFF))))
+    p_ms = (timer(layers_of(lambda q, k, v, g, o, l:
+                            flash_attn.flash_attn_fwd_plain(q, k, v, SOFF))),
+            timer(layers_of(lambda q, k, v, g, o, l:
+                            flash_attn.flash_attn_bwd_plain(q, k, v, o, l, g,
+                                                            SOFF))))
+    l_fwd = timer(lambda: sdpa_offset(False))
+    l_ms = (l_fwd, timer(lambda: sdpa_offset(True)) - l_fwd)
+    qo_bytes = PAR_BATCH * SQ * TH * TD * el
+    kv_bytes = PAR_BATCH * TS * TKV * TD * el
+    lse_bytes = PAR_BATCH * TH * SQ * 4
+    # the (query, key) pairs the mask leaves: query i sees SOFF + i + 1
+    pairs = SQ * SOFF + SQ * (SQ + 1) // 2
+    pair_flops = 2 * PAR_BATCH * TH * TD * pairs
+    for name, i, n_bytes, n_prod in (
+            ("flash_attn_fwd_offset", 0,
+             2 * qo_bytes + 2 * kv_bytes + lse_bytes, 2),
+            ("flash_attn_bwd_offset", 1,
+             4 * qo_bytes + 4 * kv_bytes + lse_bytes, 5)):
+        kk = kernels[name]
+        kk["ms"], kk["plain_ms"], kk["library_ms"] = k_ms[i], p_ms[i], l_ms[i]
+        set_bound(name, PAR_LAYERS * n_bytes,
+                  PAR_LAYERS * n_prod * pair_flops, BF16_OPS_PER_S)
+        log(f"[time] one rank's step of attention under sequence "
+            f"parallelism, {name} ({PAR_LAYERS} layers, B={PAR_BATCH} "
+            f"Sq={SQ} at offset {SOFF}, Skv={TS}, H={TH} KV={TKV} D={TD}, "
+            f"bf16, graph replays): kernel {kk['ms']:.4f} ms, plain "
+            f"{kk['plain_ms']:.4f} ms, SDPA(boolean mask, enable_gqa) "
+            f"{kk['library_ms']:.4f} ms, bound {kk['bound_ms']:.4f} ms "
+            f"({kk['bound_by']}: "
+            f"{PAR_LAYERS * n_bytes / 1e6:.1f} MB, "
+            f"{PAR_LAYERS * n_prod * pair_flops / 1e12:.3f} TFLOP)")
+    del sp_layers, sdpa_leaves
 
     # ---- timing: one decode step's launches of each kernel, B=1 ----
     # (real per-layer weights, so nothing stays in L2), by product and in
@@ -5651,7 +6163,9 @@ def main() -> int:
         os.path.join(fix, "tiny_q80.bin"), max_seq_len=64,
         dtype=torch.float32, sampler=greedy)
     assert tiny.device.type == "cuda"
-    names = list(kernels)
+    # one counter a wrapper: the offset form counts with flash_attn_fwd /
+    # flash_attn_bwd
+    names = [n for n in kernels if not n.endswith("_offset")]
     assert sorted(COUNTER_OF) == sorted(names)
 
     def reset():
@@ -6045,7 +6559,8 @@ def main() -> int:
         """The B = 1 decode step (the engine's graph of one step) and TTFT
         with the fused norms and SwiGLU and with the eager ops, in turns
         eager, fused, fused, eager, each on a fresh context (its decode
-        graph captured under its route); the better of two each."""
+        graph captured under its route); the better of two each, the
+        profile of the first of each route."""
         fused_step = {n: expect_for(1)[n] - expect_for(0)[n] for n in names}
         res = {"eager": [], "fused": []}
         for route in ("eager", "fused", "fused", "eager"):
@@ -6063,14 +6578,17 @@ def main() -> int:
                     engine.generate_on_device(ctx, prompt, N_TOKENS)))
                 step_ms = (t_all - ttft) / (N_TOKENS - 1)
                 dec = ctx.decoder()
+                prof = None
                 with ctx.on_stream():
                     dec.claim()
                     dec.prefill(prompt)
-                    prof = profile_line(
-                        f"{label} {route}", "decode graph, 1 step a replay",
-                        dec._graph().run, 32, 1, step_ms,
-                        fused_step if route == "fused" else
-                        eager_counts(fused_step))
+                    if not res[route]:
+                        prof = profile_line(
+                            f"{label} {route}",
+                            "decode graph, 1 step a replay",
+                            dec._graph().run, 32, 1, step_ms,
+                            fused_step if route == "fused" else
+                            eager_counts(fused_step))
                 res[route].append((ttft, step_ms, prof, outr[0]))
                 del ctx, dec
         best = {r: (min(v[0] for v in res[r]), min(v[1] for v in res[r]),
@@ -6366,10 +6884,11 @@ def main() -> int:
         raise AssertionError("; ".join(failures))
     del fed, fb, fw, fr
 
-    def throughput(ctx_, n_slots, model, per_step):
+    def throughput(ctx_, n_slots, model, per_step, profile=True):
         """Every slot decoding from a 32-token prompt: bursts of 16 replays
-        timed, then one profiled.  -> (ms per batched step, aggregate
-        tok/s, idle share or None, profile_line's result)."""
+        timed, then (with `profile`) one profiled.  -> (ms per batched
+        step, aggregate tok/s, idle share or None, profile_line's result
+        or None)."""
         eng_ = BatchedEngine(ctx_, n_slots=n_slots)
         trng = np.random.default_rng(SEED + n_slots)
         for _ in range(n_slots):
@@ -6383,11 +6902,11 @@ def main() -> int:
         secs = time.time() - t0_
         got = sum(len(v) for r in res for v in r.values())
         ms_step = secs * 1e3 / 48
-        prof = profile_line(f"batch {n_slots}" if model == "Q80" else
-                            f"batch {model} {n_slots}", f"{n_slots} slots, "
-                            f"bursts of 16 graph replays",
-                            lambda: eng_.step_burst(16), 1, 16, ms_step,
-                            per_step)
+        prof = None if not profile else profile_line(
+            f"batch {n_slots}" if model == "Q80" else
+            f"batch {model} {n_slots}", f"{n_slots} slots, bursts of 16 "
+            f"graph replays", lambda: eng_.step_burst(16), 1, 16, ms_step,
+            per_step)
         idle = None if prof is None else 1 - prof["busy"] / ms_step
         log(f"[batch] {n_slots} slots, Qwen3-0.6B {model}, positions 40-88 "
             f"({card}): {ms_step:.3f} ms per batched step, {got / secs:.1f} "
@@ -6399,15 +6918,16 @@ def main() -> int:
 
     def route_summary(label, n_slots, runs, new, old, what_new, what_old):
         """One line of a batched step through two routes in turns, the
-        better of two each."""
-        pick = lambda rs: min(rs, key=lambda r: r[0])
-        pr = lambda r: ("not measured" if r[3] is None else
-                        f"busy {r[3]['busy']:.3f} ms, {r[3]['kernels']:.0f} "
-                        f"kernels, other {r[3]['other']:.3f} ms a step")
-        a, b = pick(runs[new]), pick(runs[old])
+        better of two each, the busy time of the route's profiled run."""
+        best = lambda rs: min(r[0] for r in rs)
+        prof = lambda rs: next((r[3] for r in rs if r[3] is not None), None)
+        pr = lambda p: ("not measured" if p is None else
+                        f"busy {p['busy']:.3f} ms, {p['kernels']:.0f} "
+                        f"kernels, other {p['other']:.3f} ms a step")
         log(f"[batch] {label}, {n_slots} slots ({card}), one call, better of "
-            f"two in turns: {a[0]:.3f} ms per batched step {what_new} "
-            f"({pr(a)}); {b[0]:.3f} ms {what_old} ({pr(b)})")
+            f"two in turns: {best(runs[new]):.3f} ms per batched step "
+            f"{what_new} ({pr(prof(runs[new]))}); {best(runs[old]):.3f} ms "
+            f"{what_old} ({pr(prof(runs[old]))})")
 
     q80_step = dict(q80_act_quant=28, q80_matmul_w8a8=113,
                     decode_attention=28, rms_norm_q80=57, swiglu_q80=28)
@@ -6418,7 +6938,8 @@ def main() -> int:
                 runs[route].append(throughput(
                     bctx, n_slots, "Q80" if route == "fused" else
                     "Q80, eager norms, SwiGLU and q80_act_quant",
-                    q80_step if route == "fused" else eager_counts(q80_step)))
+                    q80_step if route == "fused" else eager_counts(q80_step),
+                    profile=not runs[route]))
         route_summary("Q80", n_slots, runs, "fused", "eager",
                       "through rms_norm_q80 + swiglu_q80",
                       "through the eager ops and q80_act_quant")
@@ -6498,7 +7019,8 @@ def main() -> int:
                                      "eager": "Q4K, eager norms and SwiGLU"
                                      }[route],
                     old_step if route == "pair" else
-                    eager_counts(q4_step) if route == "eager" else q4_step))
+                    eager_counts(q4_step) if route == "eager" else q4_step,
+                    profile=not runs[route]))
         route_summary("Q4K", n_slots, runs, None, "pair",
                       "through q4k_act_quant + q4k_matmul_w4a4",
                       "through the pair it replaced")
@@ -7051,12 +7573,18 @@ def main() -> int:
     t0 = time.time()
     torch.cuda.empty_cache()
     work10 = os.path.join(ROOT, "build", "smoke_parallel")
-    parallel_phase(torch, np, SimpleNamespace(
+    res10 = parallel_phase(torch, np, SimpleNamespace(
         dev=dev, card=card, names=names, prompt=prompt, qwen=QWEN3_06B,
         tokens=PAR_TOKENS, nccl_tokens=PAR_NCCL_TOKENS, layers=PAR_LAYERS,
         batch=PAR_BATCH,
         train_data=[[train_p, val_p]], work=work10))
     shutil.rmtree(work10)
+    # K4's offset form on its main path: rank 0's launches in 10d's
+    # counted steps (rank 1's are the same, asserted)
+    for name in ("flash_attn_fwd", "flash_attn_bwd"):
+        kernels[name + "_offset"]["launches"] = res10["seq"]["counts"][name]
+        if not res10["seq"]["counts"][name]:
+            raise AssertionError(f"sequence parallelism launched no {name}")
     log(f"[parallel] phase 10 in {time.time() - t0:.1f} s")
 
     # ---------------- result ----------------

@@ -127,10 +127,10 @@ class TrainConfig:
     dtype: str = "bfloat16"
     use_amp: bool = True
 
-    mesh_shape: Optional[dict] = None     # {"data": D, "model": M} over a
-                                          # torchrun launch's ranks
-                                          # (parallel/mesh.py); "seq" /
-                                          # "pipe" are ROADMAP item 11b
+    mesh_shape: Optional[dict] = None     # {"data": D, "seq": Q, "pipe": P,
+                                          # "model": M} over a torchrun
+                                          # launch's ranks
+                                          # (parallel/mesh.py)
     param_dtype: str = "float32"          # master weights
     remat: bool = False                   # recompute activations in backward
     remat_policy: str = "full"            # "full" | "ffn" | "dots" | "heads"
@@ -138,8 +138,9 @@ class TrainConfig:
     ce_chunk: int = 0                     # chunked cross-entropy: the LM head
                                           # + CE over token chunks of this
                                           # size (0 = one shot)
-    pp_microbatches: int = 0              # pipeline microbatches (pipeline
-                                          # parallelism: ROADMAP item 11b)
+    pp_microbatches: int = 0              # pipeline microbatches under
+                                          # "pipe" (parallel/pipeline.py;
+                                          # 0 = default_n_micro)
     adam_mu_dtype: Optional[str] = None   # Adam first-moment dtype
                                           # ("bfloat16" halves that buffer;
                                           # None = f32)

@@ -6,9 +6,20 @@
 // and its backward kernels.  Same function, per batch row b and query head
 // h = kv * rep + r:
 //
-//     out[b, s, h] = softmax_t<=s( q[b, s, h] . k[b, t, kv] / sqrt(D) ) @ v[b, :, kv]
+//     out[b, s, h] = softmax_t<=off+s( q[b, s, h] . k[b, t, kv] / sqrt(D) ) @ v[b, :, kv]
 //
 // and its gradient, without ever holding an (S, S) matrix in device memory.
+// q holds Sq positions, k and v Skv >= off + Sq: off = 0 and Sq = Skv is
+// the causal attention of a whole sequence; otherwise a block of queries
+// at positions off .. off + Sq - 1 against every key of the sequence, as a
+// rank of sequence parallelism holds them (the JAX package gets that form
+// from GSPMD's partition of its einsum attention on S).  A tile of keys
+// wholly visible to a tile of queries runs unmasked; one that the shifted
+// diagonal crosses is masked.  Where off is a multiple of the 64-row tile
+// the diagonal falls on tile corners as at off = 0, and the tile keeps the
+// diagonal tile's skipping of what lies wholly above it; otherwise the
+// diagonal crosses one or two tiles of each row of tiles inside them, and
+// those run every 16-column pair, masked element by element.
 // What the design takes from the function and not from the TPU kernel:
 // GQA stays grouped (the TPU kernel wanted K/V repeated to H heads; here a
 // query head reads its KV head's rows, and the backward sums dk, dv over the
@@ -160,8 +171,8 @@ struct FwdCfg {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                     float* __restrict__ out, float* __restrict__ lse, int S, int H, int rep,
-                     Strides qs, Strides ks, Strides vs, float scale) {
+                     float* __restrict__ out, float* __restrict__ lse, int Sq, int Skv, int off, int H,
+                     int rep, Strides qs, Strides ks, Strides vs, float scale) {
   using C = FwdCfg<D>;
   constexpr int BM = C::BM, BN = C::BN, NC = C::NC, ND = C::ND, LD = C::LD, LP = C::LP;
   extern __shared__ float smem[];
@@ -173,7 +184,7 @@ __global__ void __launch_bounds__(kThreads)
   // the tiles with the longest loops first
   const int mt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / rep, m0 = mt * BM;
-  load_tile<BM, D>(sQ, q + b * qs.b + h * qs.h + (int64_t)m0 * qs.s, qs.s, S - m0);
+  load_tile<BM, D>(sQ, q + b * qs.b + h * qs.h + (int64_t)m0 * qs.s, qs.s, Sq - m0);
   const float* kb = k + b * ks.b + kvh * ks.h;
   const float* vb = v + b * vs.b + kvh * vs.h;
 
@@ -186,12 +197,13 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < ND; ++j) o[i][j] = 0.f;
   }
 
-  const int n_tiles = min((S + BN - 1) / BN, (m0 + BM - 1) / BN + 1);
+  // the key tiles up to the last key the block's last row sees
+  const int n_tiles = (off + min(m0 + BM - 1, Sq - 1)) / BN + 1;
   for (int nt = 0; nt < n_tiles; ++nt) {
     const int n0 = nt * BN;
     __syncthreads();   // the tile before is read to its end
-    load_tile<BN, D>(sK, kb + (int64_t)n0 * ks.s, ks.s, S - n0);
-    load_tile<BN, D>(sV, vb + (int64_t)n0 * vs.s, vs.s, S - n0);
+    load_tile<BN, D>(sK, kb + (int64_t)n0 * ks.s, ks.s, Skv - n0);
+    load_tile<BN, D>(sV, vb + (int64_t)n0 * vs.s, vs.s, Skv - n0);
     __syncthreads();
     float s[4][NC];
 #pragma unroll
@@ -206,7 +218,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < NC; ++j) {
         const int col = n0 + tx + 16 * j;
-        const float x = (col > row || col >= S) ? -INFINITY : s[i][j] * scale;
+        const float x = (col > off + row || col >= Skv) ? -INFINITY : s[i][j] * scale;
         s[i][j] = x;
         mx = fmaxf(mx, x);
       }
@@ -232,12 +244,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = m0 + ty * 4 + i;
-    if (row >= S) continue;
+    if (row >= Sq) continue;
     const float inv = 1.f / li[i];
-    float* orow = out + (((int64_t)b * S + row) * H + h) * D;
+    float* orow = out + (((int64_t)b * Sq + row) * H + h) * D;
 #pragma unroll
     for (int j = 0; j < ND; ++j) orow[tx + 16 * j] = o[i][j] * inv;
-    if (tx == 0) lse[((int64_t)b * H + h) * S + row] = mi[i] + logf(li[i]);
+    if (tx == 0) lse[((int64_t)b * H + h) * Sq + row] = mi[i] + logf(li[i]);
   }
 }
 
@@ -275,8 +287,8 @@ __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, const float* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
-                          float* __restrict__ dk, float* __restrict__ dv, int S, int H, int rep,
-                          Strides qs, Strides ks, Strides vs, float scale) {
+                          float* __restrict__ dk, float* __restrict__ dv, int Sq, int Skv, int off,
+                          int H, int rep, Strides qs, Strides ks, Strides vs, float scale) {
   using C = DkvCfg<D>;
   constexpr int BM = C::BM, BN = C::BN, ND = C::ND, LD = C::LD, LP = C::LP;
   extern __shared__ float smem[];
@@ -291,8 +303,8 @@ __global__ void __launch_bounds__(kThreads)
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int nt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z, KV = gridDim.y;
   const int n0 = nt * BN;
-  load_tile<BN, D>(sK, k + b * ks.b + kvh * ks.h + (int64_t)n0 * ks.s, ks.s, S - n0);
-  load_tile<BN, D>(sV, v + b * vs.b + kvh * vs.h + (int64_t)n0 * vs.s, vs.s, S - n0);
+  load_tile<BN, D>(sK, k + b * ks.b + kvh * ks.h + (int64_t)n0 * ks.s, ks.s, Skv - n0);
+  load_tile<BN, D>(sV, v + b * vs.b + kvh * vs.h + (int64_t)n0 * vs.s, vs.s, Skv - n0);
 
   float dka[4][ND], dva[4][ND];
 #pragma unroll
@@ -300,22 +312,23 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < ND; ++j) dka[i][j] = dva[i][j] = 0.f;
 
-  const int m_tiles = (S + BM - 1) / BM;
+  // the query tiles from the first that sees a key of this tile
+  const int m_tiles = (Sq + BM - 1) / BM, mt0 = max(n0 - off, 0) / BM;
   for (int r = 0; r < rep; ++r) {
     const int h = kvh * rep + r;
     const float* qb = q + b * qs.b + h * qs.h;
-    const float* dob = dout + (int64_t)b * S * H * D + (int64_t)h * D;
-    const float* lse_b = lse + ((int64_t)b * H + h) * S;
-    const float* delta_b = delta + ((int64_t)b * H + h) * S;
-    for (int mt = n0 / BM; mt < m_tiles; ++mt) {
+    const float* dob = dout + (int64_t)b * Sq * H * D + (int64_t)h * D;
+    const float* lse_b = lse + ((int64_t)b * H + h) * Sq;
+    const float* delta_b = delta + ((int64_t)b * H + h) * Sq;
+    for (int mt = mt0; mt < m_tiles; ++mt) {
       const int m0 = mt * BM;
       __syncthreads();   // the tile before is read to its end
-      load_tile<BM, D>(sQ, qb + (int64_t)m0 * qs.s, qs.s, S - m0);
-      load_tile<BM, D>(sdO, dob + (int64_t)m0 * H * D, (int64_t)H * D, S - m0);
+      load_tile<BM, D>(sQ, qb + (int64_t)m0 * qs.s, qs.s, Sq - m0);
+      load_tile<BM, D>(sdO, dob + (int64_t)m0 * H * D, (int64_t)H * D, Sq - m0);
       if (threadIdx.x < BM) {
         const int m = m0 + threadIdx.x;
-        sLse[threadIdx.x] = m < S ? lse_b[m] : 0.f;
-        sDelta[threadIdx.x] = m < S ? delta_b[m] : 0.f;
+        sLse[threadIdx.x] = m < Sq ? lse_b[m] : 0.f;
+        sDelta[threadIdx.x] = m < Sq ? delta_b[m] : 0.f;
       }
       __syncthreads();
       float st[4][4], dpt[4][4];
@@ -331,7 +344,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int mc = tx + 16 * j, m = m0 + mc;
-          const bool seen = m >= n && m < S && n < S;
+          const bool seen = off + m >= n && m < Sq && n < Skv;
           const float p = seen ? expf(st[i][j] * scale - sLse[mc]) : 0.f;
           sPt[(ty * 4 + i) * LP + mc] = p;
           sdSt[(ty * 4 + i) * LP + mc] = p * (dpt[i][j] - sDelta[mc]);
@@ -346,8 +359,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int n = n0 + ty * 4 + i;
-    if (n >= S) continue;
-    const int64_t base = (((int64_t)b * S + n) * KV + kvh) * D;
+    if (n >= Skv) continue;
+    const int64_t base = (((int64_t)b * Skv + n) * KV + kvh) * D;
 #pragma unroll
     for (int j = 0; j < ND; ++j) {
       dk[base + tx + 16 * j] = dka[i][j] * scale;
@@ -368,8 +381,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                         const float* __restrict__ dout, const float* __restrict__ lse,
-                        const float* __restrict__ delta, float* __restrict__ dq, int S, int H,
-                        int rep, Strides qs, Strides ks, Strides vs, float scale) {
+                        const float* __restrict__ delta, float* __restrict__ dq, int Sq, int Skv,
+                        int off, int H, int rep, Strides qs, Strides ks, Strides vs, float scale) {
   using C = DqCfg<D>;
   constexpr int BM = C::BM, BN = C::BN, NC = C::NC, ND = C::ND, LD = C::LD, LP = C::LP;
   extern __shared__ float smem[];
@@ -381,9 +394,9 @@ __global__ void __launch_bounds__(kThreads)
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int mt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / rep, m0 = mt * BM;
-  load_tile<BM, D>(sQ, q + b * qs.b + h * qs.h + (int64_t)m0 * qs.s, qs.s, S - m0);
-  load_tile<BM, D>(sdO, dout + ((int64_t)b * S + m0) * H * D + (int64_t)h * D, (int64_t)H * D,
-                   S - m0);
+  load_tile<BM, D>(sQ, q + b * qs.b + h * qs.h + (int64_t)m0 * qs.s, qs.s, Sq - m0);
+  load_tile<BM, D>(sdO, dout + ((int64_t)b * Sq + m0) * H * D + (int64_t)h * D, (int64_t)H * D,
+                   Sq - m0);
   const float* kb = k + b * ks.b + kvh * ks.h;
   const float* vb = v + b * vs.b + kvh * vs.h;
 
@@ -391,18 +404,18 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = m0 + ty * 4 + i;
-    lse_r[i] = row < S ? lse[((int64_t)b * H + h) * S + row] : 0.f;
-    delta_r[i] = row < S ? delta[((int64_t)b * H + h) * S + row] : 0.f;
+    lse_r[i] = row < Sq ? lse[((int64_t)b * H + h) * Sq + row] : 0.f;
+    delta_r[i] = row < Sq ? delta[((int64_t)b * H + h) * Sq + row] : 0.f;
 #pragma unroll
     for (int j = 0; j < ND; ++j) dqa[i][j] = 0.f;
   }
 
-  const int n_tiles = min((S + BN - 1) / BN, (m0 + BM - 1) / BN + 1);
+  const int n_tiles = (off + min(m0 + BM - 1, Sq - 1)) / BN + 1;
   for (int nt = 0; nt < n_tiles; ++nt) {
     const int n0 = nt * BN;
     __syncthreads();   // the tile before is read to its end
-    load_tile<BN, D>(sK, kb + (int64_t)n0 * ks.s, ks.s, S - n0);
-    load_tile<BN, D>(sV, vb + (int64_t)n0 * vs.s, vs.s, S - n0);
+    load_tile<BN, D>(sK, kb + (int64_t)n0 * ks.s, ks.s, Skv - n0);
+    load_tile<BN, D>(sV, vb + (int64_t)n0 * vs.s, vs.s, Skv - n0);
     __syncthreads();
     float s[4][NC], dp[4][NC];
 #pragma unroll
@@ -417,7 +430,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < NC; ++j) {
         const int col = n0 + tx + 16 * j;
-        const bool seen = col <= row && col < S && row < S;
+        const bool seen = col <= off + row && col < Skv && row < Sq;
         const float p = seen ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
         sdS[(ty * 4 + i) * LP + tx + 16 * j] = p * (dp[i][j] - delta_r[i]);
       }
@@ -429,8 +442,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = m0 + ty * 4 + i;
-    if (row >= S) continue;
-    float* drow = dq + (((int64_t)b * S + row) * H + h) * D;
+    if (row >= Sq) continue;
+    float* drow = dq + (((int64_t)b * Sq + row) * H + h) * D;
 #pragma unroll
     for (int j = 0; j < ND; ++j) drow[tx + 16 * j] = dqa[i][j] * scale;
   }
@@ -577,10 +590,12 @@ __device__ __forceinline__ void load_a_frags(uint32_t (&a)[D / 16][4], const bf1
     ldsm_x4(a[ks], sA + (row0 + (lane & 15)) * (D + 8) + 16 * ks + ((lane >> 4) << 3));
 }
 
-// How much of a 64-column tile a warp's row blocks have to look at.  XB < 0:
-// a tile wholly below the diagonal, all four 16-column pairs for every row
-// block.  XB >= 0: the tile on the diagonal, for a warp whose first row is
-// 16 XB rows into it: its row block mb ends at row 16 (XB + mb) + 15, so
+// How much of a 64-column tile a warp's row blocks have to look at.  XB =
+// -1: a tile wholly below the diagonal, all four 16-column pairs for every
+// row block, unmasked.  XB = -2: a tile that the diagonal crosses off its
+// corners (an offset that is no multiple of the tile), all four pairs,
+// masked.  XB >= 0: the tile on the diagonal, for a warp whose first row
+// is 16 XB rows into it: its row block mb ends at row 16 (XB + mb) + 15, so
 // only the first XB + mb + 1 pairs hold a column at or below the diagonal;
 // the rest is skipped, products and softmax alike.
 template <int XB>
@@ -662,8 +677,9 @@ __device__ __forceinline__ float fast_exp2(float x) {   // 2^x; -inf -> 0
 // warp's 16 x 64 block of raw scores s (accumulator layout): afterwards s
 // holds p = 2^((s - max) * sl) there, mi the running maximum of the raw
 // scores, li this thread's share of the running row sums (the quad is summed
-// once, after the loop), and o is rescaled.  MASKED: the tile on the
-// diagonal, where column n0 + c may lie past the row.
+// once, after the loop), and o is rescaled.  MASKED: a tile the diagonal
+// crosses, where column n0 + c may lie past the row's position row_lo
+// (+ 8).
 template <int D, int NB, bool MASKED>
 __device__ __forceinline__ void softmax_step(float (&s)[8][4], float (&o)[D / 8][4],
                                              float (&mi)[2], float (&li)[2], float sl, int row_lo,
@@ -679,7 +695,8 @@ __device__ __forceinline__ void softmax_step(float (&s)[8][4], float (&o)[D / 8]
         if (MASKED && n0 + 8 * j + 2 * t + e > row_lo + 8 * hh) s[j][2 * hh + e] = -INFINITY;
         mx[j & 3] = fmaxf(mx[j & 3], s[j][2 * hh + e]);
       }
-    // the diagonal column is never masked, so the maximum is finite
+    // the maximum is finite: mi already holds one from tile 0, whose key 0
+    // every row sees, or this is tile 0
     const float m_new = quad_max(fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3])));
     const float corr = fast_exp2((mi[hh] - m_new) * sl), shift = m_new * sl;
     mi[hh] = m_new;
@@ -702,7 +719,8 @@ __device__ __forceinline__ void softmax_step(float (&s)[8][4], float (&o)[D / 8]
   }
 }
 
-// One K/V tile for a warp: scores, softmax step, P V (XB as in pairs_of).
+// One K/V tile for a warp: scores, softmax step, P V (XB as in pairs_of;
+// row_lo: the position of the warp's first row, offset included).
 template <int D, int MB, int XB>
 __device__ __forceinline__ void attend_tile(float (&o)[MB][D / 8][4], float (&mi)[MB][2],
                                             float (&li)[MB][2],
@@ -714,10 +732,11 @@ __device__ __forceinline__ void attend_tile(float (&o)[MB][D / 8][4], float (&mi
 #pragma unroll
   for (int mb = 0; mb < MB; ++mb) zero(s[mb]);
   mma_frags_rows<D, MB, XB>(s, qf, sK, lane);
-  softmax_step<D, 2 * pairs_of<XB>(0), XB >= 0>(s[0], o[0], mi[0], li[0], sl, row_lo, n0, lane & 3);
+  softmax_step<D, 2 * pairs_of<XB>(0), XB != -1>(s[0], o[0], mi[0], li[0], sl, row_lo, n0,
+                                                  lane & 3);
   if constexpr (MB == 2)
-    softmax_step<D, 2 * pairs_of<XB>(1), XB >= 0>(s[1], o[1], mi[1], li[1], sl, row_lo + 16, n0,
-                                                   lane & 3);
+    softmax_step<D, 2 * pairs_of<XB>(1), XB != -1>(s[1], o[1], mi[1], li[1], sl, row_lo + 16, n0,
+                                                    lane & 3);
   mma_regs_cols_x4<D, MB, XB>(o, s, sV, lane);
 }
 
@@ -750,12 +769,17 @@ struct FwdMma {
 // S: its zero-filled rows lie above the diagonal of every row that is
 // stored).  The output goes back through the warp's own Q rows in shared
 // memory and leaves in 16-byte stores.
+//
+// With an offset the loop runs over the tiles up to the one that holds key
+// off + m0 + 63 (or off + Sq - 1): those wholly visible to the block's
+// first row unmasked, the rest (one or two) masked, the diagonal's
+// skipping kept where the tile starts at the block's first position.
 template <int D, int HPB>
 __global__ void __launch_bounds__(FwdMma<D, HPB>::THREADS)
     flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, bf16* __restrict__ out,
-                         float* __restrict__ lse, int S, int H, int rep, Strides qs, Strides ks,
-                         Strides vs, float scale) {
+                         float* __restrict__ lse, int Sq, int Skv, int off, int H, int rep,
+                         Strides qs, Strides ks, Strides vs, float scale) {
   using C = FwdMma<D, HPB>;
   constexpr int BN = kTile, LDS = C::LDS, TILE = C::TILE, NSTAGE = C::NSTAGE, MB = C::MB;
   constexpr int THREADS = C::THREADS, CH = D / 8, ROWS = 16 * MB;
@@ -769,7 +793,9 @@ __global__ void __launch_bounds__(FwdMma<D, HPB>::THREADS)
   const int h = h0 + warp * ROWS / kTile, x0 = warp * ROWS % kTile;
   const bf16* kb = k + b * ks.b + kvh * ks.h;
   const bf16* vb = v + b * vs.b + kvh * vs.h;
-  const int n_tiles = mt + 1;
+  // tiles 0 .. n_full - 1 every row of the block sees whole
+  const int n_tiles = (off + min(m0 + kTile - 1, Sq - 1)) / BN + 1;
+  const int n_full = (off + m0 + 1) / BN;
 
   TileCopier<BN, D, THREADS> k_copy, v_copy;
   k_copy.init(ks.s);
@@ -778,14 +804,14 @@ __global__ void __launch_bounds__(FwdMma<D, HPB>::THREADS)
   auto fetch = [&](int tile) {
     const uint32_t sK = ring_u32 + (tile % NSTAGE) * 2 * TILE * (int)sizeof(bf16);
     const int n0 = tile * BN;
-    k_copy.copy(sK, kb + (int64_t)n0 * ks.s, S - n0);
-    v_copy.copy(sK + TILE * (int)sizeof(bf16), vb + (int64_t)n0 * vs.s, S - n0);
+    k_copy.copy(sK, kb + (int64_t)n0 * ks.s, Skv - n0);
+    v_copy.copy(sK + TILE * (int)sizeof(bf16), vb + (int64_t)n0 * vs.s, Skv - n0);
   };
 
 #pragma unroll
   for (int r = 0; r < HPB; ++r)
     cp_tile16<kTile, D, THREADS>(sQ + r * TILE, q + b * qs.b + (h0 + r) * qs.h + (int64_t)m0 * qs.s,
-                                 qs.s, S - m0);
+                                 qs.s, Sq - m0);
   cp_async_commit();
 #pragma unroll
   for (int i = 0; i < NSTAGE - 1; ++i) {   // one group per tile, empty past the last
@@ -799,7 +825,7 @@ __global__ void __launch_bounds__(FwdMma<D, HPB>::THREADS)
   for (int mb = 0; mb < MB; ++mb) load_a_frags<D>(qf[mb], sQ, warp * ROWS + 16 * mb, lane);
 
   const float sl = scale * kLog2e;
-  const int row_lo = m0 + x0 + g;   // this thread's positions: row_lo + 16 mb + 8 hh
+  const int row_lo = off + m0 + x0 + g;   // this thread's positions: row_lo + 16 mb + 8 hh
   float o[MB][D / 8][4], mi[MB][2], li[MB][2];
 #pragma unroll
   for (int mb = 0; mb < MB; ++mb) {
@@ -815,8 +841,10 @@ __global__ void __launch_bounds__(FwdMma<D, HPB>::THREADS)
     cp_async_commit();
     const bf16* sK = ring + (nt % NSTAGE) * 2 * TILE;
     const bf16* sV = sK + TILE;
-    if (nt < n_tiles - 1) {
+    if (nt < n_full) {
       attend_tile<D, MB, -1>(o, mi, li, qf, sK, sV, sl, row_lo, nt * BN, lane);
+    } else if (nt * BN != off + m0) {   // crossed off its corners
+      attend_tile<D, MB, -2>(o, mi, li, qf, sK, sV, sl, row_lo, nt * BN, lane);
     } else {   // the diagonal: what lies above it is skipped
 #define NANO_DIAG(XB) attend_tile<D, MB, XB>(o, mi, li, qf, sK, sV, sl, row_lo, nt * BN, lane)
       if constexpr (MB == 2) {
@@ -857,8 +885,8 @@ __global__ void __launch_bounds__(FwdMma<D, HPB>::THREADS)
   __syncwarp();
   for (int idx = lane; idx < ROWS * CH; idx += 32) {
     const int rr = idx / CH, c = (idx - rr * CH) * 8, pos = m0 + x0 + rr;
-    if (pos < S)
-      *reinterpret_cast<uint4*>(out + (((int64_t)b * S + pos) * H + h) * D + c) =
+    if (pos < Sq)
+      *reinterpret_cast<uint4*>(out + (((int64_t)b * Sq + pos) * H + h) * D + c) =
           *reinterpret_cast<const uint4*>(so + rr * LDS + c);
   }
   if (t == 0) {
@@ -866,9 +894,9 @@ __global__ void __launch_bounds__(FwdMma<D, HPB>::THREADS)
     for (int mb = 0; mb < MB; ++mb)
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        const int pos = row_lo + 16 * mb + 8 * hh;
-        if (pos < S)
-          lse[((int64_t)b * H + h) * S + pos] = mi[mb][hh] * scale + logf(li[mb][hh]);
+        const int pos = row_lo - off + 16 * mb + 8 * hh;
+        if (pos < Sq)
+          lse[((int64_t)b * H + h) * Sq + pos] = mi[mb][hh] * scale + logf(li[mb][hh]);
       }
   }
 }
@@ -1012,8 +1040,8 @@ struct BwdQ {
 
 // The 16-key pairs [P0, P1) of one K/V tile for a warp's 16 query rows:
 // S = Q K^T, dP = dO V^T, P = 2^(S sl - lse2), dS = P (dP - delta), then
-// dQ += dS K.  MASKED: the diagonal tile, where key n0 + c may lie past the
-// row.
+// dQ += dS K.  MASKED: a tile the diagonal crosses, where key n0 + c may
+// lie past the row's position row_lo (+ 8).
 template <int D, int P0, int P1, bool MASKED, bool KEEP>
 __device__ __forceinline__ void dq_chunk(float (&dqa)[D / 8][4], const uint32_t (&qf)[D / 16][4],
                                          const uint32_t (&df)[D / 16][4],
@@ -1045,8 +1073,9 @@ __device__ __forceinline__ void dq_chunk(float (&dqa)[D / 8][4], const uint32_t 
 }
 
 // One K/V tile for the dq block: the key pairs 0 .. NP - 1 (all four below
-// the diagonal; on it, those that hold a key at or below the warp's last
-// row), in chunks of two pairs to keep the score blocks small.
+// the diagonal or where it crosses the tile off its corners; on it, those
+// that hold a key at or below the warp's last row), in chunks of two pairs
+// to keep the score blocks small.
 template <int D, int NP, bool MASKED, bool KEEP>
 __device__ __forceinline__ void dq_tile(float (&dqa)[D / 8][4], const uint32_t (&qf)[D / 16][4],
                                         const uint32_t (&df)[D / 16][4],
@@ -1068,14 +1097,15 @@ __device__ __forceinline__ void dq_tile(float (&dqa)[D / 8][4], const uint32_t (
 // (D <= 64), and delta = rowsum(dO * out) from the thread's dO fragments and
 // the same elements of out read from global memory, summed over the quad in
 // a fixed order; delta goes to global memory for the dk/dv kernel, which
-// runs after this one.  Loop over the K/V tiles 0 .. mt as the forward.
+// runs after this one.  Loop over the K/V tiles as the forward.
 template <int D, int HPB>
 __global__ void __launch_bounds__(BwdQ<D, HPB>::THREADS, BwdQ<D, HPB>::MIN_BLOCKS)
     flash_bwd_dq_v3_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, const bf16* __restrict__ out,
                            const bf16* __restrict__ dout, const float* __restrict__ lse,
-                           float* __restrict__ delta, bf16* __restrict__ dq, int S, int H,
-                           int rep, Strides qs, Strides ks, Strides vs, float scale) {
+                           float* __restrict__ delta, bf16* __restrict__ dq, int Sq, int Skv,
+                           int off, int H, int rep, Strides qs, Strides ks, Strides vs,
+                           float scale) {
   using C = BwdQ<D, HPB>;
   constexpr int BN = kTile, TILE = C::TILE, NSTAGE = C::NSTAGE, THREADS = C::THREADS;
   constexpr bool KEEP = C::KEEP;
@@ -1091,7 +1121,8 @@ __global__ void __launch_bounds__(BwdQ<D, HPB>::THREADS, BwdQ<D, HPB>::MIN_BLOCK
   const int h = h0 + warp / 4, x0 = (warp & 3) * 16, row0 = warp * 16;
   const bf16* kb = k + b * ks.b + kvh * ks.h;
   const bf16* vb = v + b * vs.b + kvh * vs.h;
-  const int n_tiles = mt + 1;
+  const int n_tiles = (off + min(m0 + kTile - 1, Sq - 1)) / BN + 1;
+  const int n_full = (off + m0 + 1) / BN;
 
   TileCopier<BN, D, THREADS> k_copy, v_copy;
   k_copy.init(ks.s);
@@ -1100,15 +1131,15 @@ __global__ void __launch_bounds__(BwdQ<D, HPB>::THREADS, BwdQ<D, HPB>::MIN_BLOCK
   auto fetch = [&](int tile) {
     const uint32_t sK = ring_u32 + (tile % NSTAGE) * 2 * TILE * (int)sizeof(bf16);
     const int n0 = tile * BN;
-    k_copy.copy(sK, kb + (int64_t)n0 * ks.s, S - n0);
-    v_copy.copy(sK + TILE * (int)sizeof(bf16), vb + (int64_t)n0 * vs.s, S - n0);
+    k_copy.copy(sK, kb + (int64_t)n0 * ks.s, Skv - n0);
+    v_copy.copy(sK + TILE * (int)sizeof(bf16), vb + (int64_t)n0 * vs.s, Skv - n0);
   };
 #pragma unroll
   for (int r = 0; r < HPB; ++r) {
     cp_tile16<kTile, D, THREADS>(sQ + r * TILE, q + b * qs.b + (h0 + r) * qs.h + (int64_t)m0 * qs.s,
-                                 qs.s, S - m0);
-    cp_tile16<kTile, D, THREADS>(sdO + r * TILE, dout + ((int64_t)b * S + m0) * H * D + (h0 + r) * D,
-                                 (int64_t)H * D, S - m0);
+                                 qs.s, Sq - m0);
+    cp_tile16<kTile, D, THREADS>(sdO + r * TILE, dout + ((int64_t)b * Sq + m0) * H * D + (h0 + r) * D,
+                                 (int64_t)H * D, Sq - m0);
   }
   cp_async_commit();
 #pragma unroll
@@ -1120,13 +1151,13 @@ __global__ void __launch_bounds__(BwdQ<D, HPB>::THREADS, BwdQ<D, HPB>::MIN_BLOCK
   // this thread's rows row_lo and row_lo + 8: lse (exp2 units), and out at
   // the places of its dO fragments (below), fetched from global memory
   // while the tiles are in flight
-  const int row_lo = m0 + x0 + g;
+  const int row_lo = m0 + x0 + g, pos_lo = off + row_lo;   // row, and its position
   const int64_t bh = (int64_t)b * H + h;
   float lse2[2], dl[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int row = row_lo + 8 * hh;
-    lse2[hh] = row < S ? lse[bh * S + row] * kLog2e : 0.f;
+    lse2[hh] = row < Sq ? lse[bh * Sq + row] * kLog2e : 0.f;
   }
   uint32_t ov[D / 16][4];
 #pragma unroll
@@ -1134,8 +1165,8 @@ __global__ void __launch_bounds__(BwdQ<D, HPB>::THREADS, BwdQ<D, HPB>::MIN_BLOCK
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int row = row_lo + 8 * (e & 1);
-      ov[ks_][e] = row < S ? __ldg(reinterpret_cast<const unsigned int*>(
-                                 out + (((int64_t)b * S + row) * H + h) * D + 16 * ks_ +
+      ov[ks_][e] = row < Sq ? __ldg(reinterpret_cast<const unsigned int*>(
+                                  out + (((int64_t)b * Sq + row) * H + h) * D + 16 * ks_ +
                                  8 * (e >> 1) + 2 * t))
                            : 0u;
     }
@@ -1153,7 +1184,7 @@ __global__ void __launch_bounds__(BwdQ<D, HPB>::THREADS, BwdQ<D, HPB>::MIN_BLOCK
         for (int e = 0; e < 4; ++e) df[ks_][e] = f[ks_][e];
     }
     // f[ks][e] holds dO at row row_lo + 8 (e & 1), columns 16 ks + 8 (e >> 1)
-    // + 2 t and + 1; rows past S are zeros
+    // + 2 t and + 1; rows past Sq are zeros
     float part[2] = {0.f, 0.f};
 #pragma unroll
     for (int ks_ = 0; ks_ < D / 16; ++ks_)
@@ -1167,7 +1198,7 @@ __global__ void __launch_bounds__(BwdQ<D, HPB>::THREADS, BwdQ<D, HPB>::MIN_BLOCK
     for (int hh = 0; hh < 2; ++hh) {
       dl[hh] = quad_sum(part[hh]);
       const int row = row_lo + 8 * hh;
-      if (t == 0 && row < S) delta[bh * S + row] = dl[hh];
+      if (t == 0 && row < Sq) delta[bh * Sq + row] = dl[hh];
     }
   }
 
@@ -1184,12 +1215,15 @@ __global__ void __launch_bounds__(BwdQ<D, HPB>::THREADS, BwdQ<D, HPB>::MIN_BLOCK
     const bf16* sK = ring + (nt % NSTAGE) * 2 * TILE;
     const bf16* sV = sK + TILE;
     const int n0 = nt * BN;
-    if (nt < n_tiles - 1) {
-      dq_tile<D, 4, false, KEEP>(dqa, qf, df, sQ, sdO, row0, sK, sV, lse2, dl, sl, row_lo, n0,
+    if (nt < n_full) {
+      dq_tile<D, 4, false, KEEP>(dqa, qf, df, sQ, sdO, row0, sK, sV, lse2, dl, sl, pos_lo, n0,
                                  lane, clk);
+    } else if (n0 != off + m0) {   // crossed off its corners
+      dq_tile<D, 4, true, KEEP>(dqa, qf, df, sQ, sdO, row0, sK, sV, lse2, dl, sl, pos_lo, n0,
+                                lane, clk);
     } else {   // the diagonal: key pairs wholly past the warp's rows are skipped
 #define NANO_DQ_DIAG(NP)                                                                      \
-  dq_tile<D, NP, true, KEEP>(dqa, qf, df, sQ, sdO, row0, sK, sV, lse2, dl, sl, row_lo, n0, lane, \
+  dq_tile<D, NP, true, KEEP>(dqa, qf, df, sQ, sdO, row0, sK, sV, lse2, dl, sl, pos_lo, n0, lane, \
                              clk)
       switch (x0 / 16) {
         case 0: NANO_DQ_DIAG(1); break;
@@ -1200,16 +1234,18 @@ __global__ void __launch_bounds__(BwdQ<D, HPB>::THREADS, BwdQ<D, HPB>::MIN_BLOCK
 #undef NANO_DQ_DIAG
     }
   }
-  store_rows<D>(dq + ((int64_t)b * S * H + h) * D, (int64_t)H * D,
-                sQ + row0 * C::LDS, dqa, scale, m0 + x0, S, lane);
+  store_rows<D>(dq + ((int64_t)b * Sq * H + h) * D, (int64_t)H * D,
+                sQ + row0 * C::LDS, dqa, scale, m0 + x0, Sq, lane);
   clk.mark(kClkEpilogue);
   clk.flush(0);
 }
 
 // ---- dk, dv: a block per (K tile, KV head, batch row); warp w owns the
 // 16 keys from 16 w.  Loop over the rep query heads and, for each, the
-// query tiles from the diagonal on: the only sum across blocks that dk, dv
-// need is over those, so it stays inside the block, in a fixed order.
+// query tiles from the first that sees a key of the tile on: the only sum
+// across blocks that dk, dv need is over those, so it stays inside the
+// block, in a fixed order.  A tile of keys that no query sees (past off +
+// Sq - 1) loops over nothing and stores zeros.
 
 template <int D>
 struct BwdKV {
@@ -1222,8 +1258,9 @@ struct BwdKV {
 
 // The 16-query pairs [P0, P1) of one (head, query tile) for a warp's 16
 // keys: S^T = K Q^T, dP^T = V dO^T, P^T, dS^T as in dq_chunk with the rows
-// now keys, then dV += P^T dO and dK += dS^T Q.  MASKED: the diagonal tile,
-// where query m0 + c may lie before the key.
+// now keys, then dV += P^T dO and dK += dS^T Q.  MASKED: a tile the
+// diagonal crosses, where the query at position m0 + c (m0: the position of
+// the tile's first query, offset included) may lie before the key.
 template <int D, int P0, int P1, bool MASKED, bool KEEP>
 __device__ __forceinline__ void dkdv_chunk(float (&dka)[D / 8][4], float (&dva)[D / 8][4],
                                            const uint32_t (&kf)[D / 16][4],
@@ -1263,8 +1300,9 @@ __device__ __forceinline__ void dkdv_chunk(float (&dka)[D / 8][4], float (&dva)[
 }
 
 // One (head, query tile) for the dk/dv block: the query pairs PMIN .. 3
-// (PMIN = 0 below the diagonal; on it, the warp's own index: the pairs
-// before it lie wholly before its keys), in chunks of two pairs.
+// (PMIN = 0 below the diagonal or where it crosses the tile off its
+// corners; on it, the warp's own index: the pairs before it lie wholly
+// before its keys), in chunks of two pairs.
 template <int D, int PMIN, bool MASKED, bool KEEP>
 __device__ __forceinline__ void dkdv_tile(float (&dka)[D / 8][4], float (&dva)[D / 8][4],
                                           const uint32_t (&kf)[D / 16][4],
@@ -1285,16 +1323,18 @@ __device__ __forceinline__ void dkdv_tile(float (&dka)[D / 8][4], float (&dva)[D
 // bf16 dk, dv.  Block (nt, kvh, b).  K and V tiles by cp.async, their A
 // fragments into registers (D <= 64); the (head, query tile) pairs go
 // round a ring of NSTAGE stages, each fetched NSTAGE - 1 steps ahead (Q,
-// dO, and lse, delta 4 bytes a thread), one barrier a step.  Rows past S
+// dO, and lse, delta 4 bytes a thread), one barrier a step.  Rows past Sq
 // arrive as zeros (lse and delta too), so their P is 1 and their dO, dS
-// zero: they add exactly nothing, and only the diagonal tile is masked.
+// zero: they add exactly nothing, and only the tiles the diagonal crosses
+// are masked.
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
     flash_bwd_dkdv_v3_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              const bf16* __restrict__ v, const bf16* __restrict__ dout,
                              const float* __restrict__ lse, const float* __restrict__ delta,
-                             bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H, int rep,
-                             Strides qs, Strides ks, Strides vs, float scale) {
+                             bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Skv,
+                             int off, int H, int rep, Strides qs, Strides ks, Strides vs,
+                             float scale) {
   using C = BwdKV<D>;
   constexpr int BM = kTile, TILE = C::TILE, NSTAGE = C::NSTAGE, STAGE = C::STAGE;
   constexpr bool KEEP = C::KEEP;
@@ -1307,10 +1347,12 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2;
   const int nt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z, KV = gridDim.y;
   const int n0 = nt * kTile, row0 = warp * 16;
-  const int m_tiles = (S + BM - 1) / BM, per_r = m_tiles - nt, n_iter = rep * per_r;
+  // the query tiles mt0 .. m_tiles - 1 see a key of this tile
+  const int m_tiles = (Sq + BM - 1) / BM, mt0 = max(n0 - off, 0) / BM;
+  const int per_r = max(m_tiles - mt0, 0), n_iter = rep * per_r;
 
-  cp_tile16<kTile, D, kMmaThreads>(sK, k + b * ks.b + kvh * ks.h + (int64_t)n0 * ks.s, ks.s, S - n0);
-  cp_tile16<kTile, D, kMmaThreads>(sV, v + b * vs.b + kvh * vs.h + (int64_t)n0 * vs.s, vs.s, S - n0);
+  cp_tile16<kTile, D, kMmaThreads>(sK, k + b * ks.b + kvh * ks.h + (int64_t)n0 * ks.s, ks.s, Skv - n0);
+  cp_tile16<kTile, D, kMmaThreads>(sV, v + b * vs.b + kvh * vs.h + (int64_t)n0 * vs.s, vs.s, Skv - n0);
   cp_async_commit();
 
   TileCopier<BM, D, kMmaThreads> q_copy, do_copy;
@@ -1318,15 +1360,15 @@ __global__ void __launch_bounds__(kMmaThreads)
   do_copy.init((int64_t)H * D);
   const uint32_t ring_u32 = smem_u32(ring);
   auto fetch = [&](int it) {
-    const int r = it / per_r, m0 = (nt + it - r * per_r) * BM, h = kvh * rep + r;
+    const int r = it / per_r, m0 = (mt0 + it - r * per_r) * BM, h = kvh * rep + r;
     const uint32_t st = ring_u32 + (it % NSTAGE) * STAGE;
-    q_copy.copy(st, q + b * qs.b + h * qs.h + (int64_t)m0 * qs.s, S - m0);
-    do_copy.copy(st + TILE * (int)sizeof(bf16), dout + ((int64_t)b * S + m0) * H * D + h * D,
-                 S - m0);
+    q_copy.copy(st, q + b * qs.b + h * qs.h + (int64_t)m0 * qs.s, Sq - m0);
+    do_copy.copy(st + TILE * (int)sizeof(bf16), dout + ((int64_t)b * Sq + m0) * H * D + h * D,
+                 Sq - m0);
     // threads 0-63: lse of row m0 + i; 64-127: delta
     const int i = threadIdx.x & (BM - 1);
-    const bool ok = m0 + i < S;
-    const float* src = (threadIdx.x < BM ? lse : delta) + ((int64_t)b * H + h) * S + m0 + (ok ? i : 0);
+    const bool ok = m0 + i < Sq;
+    const float* src = (threadIdx.x < BM ? lse : delta) + ((int64_t)b * H + h) * Sq + m0 + (ok ? i : 0);
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                      st + 2 * TILE * (int)sizeof(bf16) + threadIdx.x * (int)sizeof(float)),
                  "l"(src), "r"(ok ? 4 : 0)
@@ -1362,14 +1404,17 @@ __global__ void __launch_bounds__(kMmaThreads)
     const bf16* sdO = sQ + TILE;
     const float* sLse = reinterpret_cast<const float*>(sdO + TILE);
     const float* sDelta = sLse + BM;
-    const int mi = it % per_r, m0 = (nt + mi) * BM;
-    if (mi != 0) {
+    const int pos0 = off + (mt0 + it % per_r) * BM;   // the tile's first query position
+    if (pos0 >= n0 + BM - 1) {   // every query of the tile sees every key
       dkdv_tile<D, 0, false, KEEP>(dka, dva, kf, vf, sK, sV, row0, sQ, sdO, sLse, sDelta, sl,
-                                   key_lo, m0, lane, clk);
+                                   key_lo, pos0, lane, clk);
+    } else if (pos0 != n0) {   // crossed off its corners
+      dkdv_tile<D, 0, true, KEEP>(dka, dva, kf, vf, sK, sV, row0, sQ, sdO, sLse, sDelta, sl,
+                                  key_lo, pos0, lane, clk);
     } else {   // the diagonal: query pairs wholly before the warp's keys are skipped
 #define NANO_KV_DIAG(PM)                                                                       \
   dkdv_tile<D, PM, true, KEEP>(dka, dva, kf, vf, sK, sV, row0, sQ, sdO, sLse, sDelta, sl, key_lo, \
-                               m0, lane, clk)
+                               pos0, lane, clk)
       switch (warp) {
         case 0: NANO_KV_DIAG(0); break;
         case 1: NANO_KV_DIAG(1); break;
@@ -1379,9 +1424,9 @@ __global__ void __launch_bounds__(kMmaThreads)
 #undef NANO_KV_DIAG
     }
   }
-  const int64_t base = ((int64_t)b * S * KV + kvh) * D;
-  store_rows<D>(dk + base, (int64_t)KV * D, sK + row0 * C::LDS, dka, scale, n0 + row0, S, lane);
-  store_rows<D>(dv + base, (int64_t)KV * D, sV + row0 * C::LDS, dva, 1.f, n0 + row0, S, lane);
+  const int64_t base = ((int64_t)b * Skv * KV + kvh) * D;
+  store_rows<D>(dk + base, (int64_t)KV * D, sK + row0 * C::LDS, dka, scale, n0 + row0, Skv, lane);
+  store_rows<D>(dv + base, (int64_t)KV * D, sV + row0 * C::LDS, dva, 1.f, n0 + row0, Skv, lane);
   clk.mark(kClkEpilogue);
   clk.flush(1);
 }
@@ -1407,23 +1452,24 @@ int blocks_per_sm(Kernel kernel, int threads, size_t smem) {
 }
 
 template <int D, int HPB>
-int launch_fwd_mma(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse, int B, int S,
-                   int H, int KV, Strides qs, Strides ks, Strides vs, float scale,
+int launch_fwd_mma(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse, int B, int Sq,
+                   int Skv, int off, int H, int KV, Strides qs, Strides ks, Strides vs, float scale,
                    cudaStream_t st) {
   using C = FwdMma<D, HPB>;
   // the kernel's per-thread copy offsets are 32-bit
   if (ks.s * kTile >= (1ll << 31) || vs.s * kTile >= (1ll << 31)) return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem(flash_fwd_mma_kernel<D, HPB>, C::smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + kTile - 1) / kTile, H / HPB, B);
-  flash_fwd_mma_kernel<D, HPB><<<grid, C::THREADS, C::smem, st>>>(q, k, v, out, lse, S, H, H / KV,
-                                                                   qs, ks, vs, scale);
+  const dim3 grid((Sq + kTile - 1) / kTile, H / HPB, B);
+  flash_fwd_mma_kernel<D, HPB><<<grid, C::THREADS, C::smem, st>>>(q, k, v, out, lse, Sq, Skv, off,
+                                                                   H, H / KV, qs, ks, vs, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D, typename T>
-int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int B, int S,
-               int H, int KV, Strides qs, Strides ks, Strides vs, float scale, cudaStream_t st) {
+int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int B, int Sq,
+               int Skv, int off, int H, int KV, Strides qs, Strides ks, Strides vs, float scale,
+               cudaStream_t st) {
   const T* q_ = static_cast<const T*>(q);
   const T* k_ = static_cast<const T*>(k);
   const T* v_ = static_cast<const T*>(v);
@@ -1436,38 +1482,42 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse
     const int rep = H / KV;
     if constexpr (D <= 64) {
       if (rep % 4 == 0)
-        return launch_fwd_mma<D, 4>(q_, k_, v_, out_, lse_, B, S, H, KV, qs, ks, vs, scale, st);
+        return launch_fwd_mma<D, 4>(q_, k_, v_, out_, lse_, B, Sq, Skv, off, H, KV, qs, ks, vs,
+                                    scale, st);
     }
     if (rep % 2 == 0)
-      return launch_fwd_mma<D, 2>(q_, k_, v_, out_, lse_, B, S, H, KV, qs, ks, vs, scale, st);
-    return launch_fwd_mma<D, 1>(q_, k_, v_, out_, lse_, B, S, H, KV, qs, ks, vs, scale, st);
+      return launch_fwd_mma<D, 2>(q_, k_, v_, out_, lse_, B, Sq, Skv, off, H, KV, qs, ks, vs, scale,
+                                  st);
+    return launch_fwd_mma<D, 1>(q_, k_, v_, out_, lse_, B, Sq, Skv, off, H, KV, qs, ks, vs, scale,
+                                st);
   } else {
-    const dim3 grid((S + kTile - 1) / kTile, H, B);
+    const dim3 grid((Sq + kTile - 1) / kTile, H, B);
     cudaError_t err = allow_smem(flash_fwd_kernel<D>, FwdCfg<D>::smem);
     if (err != cudaSuccess) return (int)err;
-    flash_fwd_kernel<D><<<grid, kThreads, FwdCfg<D>::smem, st>>>(q_, k_, v_, out_, lse_, S, H,
-                                                                 H / KV, qs, ks, vs, scale);
+    flash_fwd_kernel<D><<<grid, kThreads, FwdCfg<D>::smem, st>>>(q_, k_, v_, out_, lse_, Sq, Skv,
+                                                                 off, H, H / KV, qs, ks, vs, scale);
     return (int)cudaGetLastError();
   }
 }
 
 template <int D, int HPB>
 int launch_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* out, const bf16* dout,
-              const float* lse, float* delta, bf16* dq, int B, int S, int H, int KV, Strides qs,
-              Strides ks, Strides vs, float scale, cudaStream_t st) {
+              const float* lse, float* delta, bf16* dq, int B, int Sq, int Skv, int off, int H, int KV,
+              Strides qs, Strides ks, Strides vs, float scale, cudaStream_t st) {
   using C = BwdQ<D, HPB>;
   cudaError_t err = allow_smem(flash_bwd_dq_v3_kernel<D, HPB>, C::smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + kTile - 1) / kTile, H / HPB, B);
+  const dim3 grid((Sq + kTile - 1) / kTile, H / HPB, B);
   flash_bwd_dq_v3_kernel<D, HPB><<<grid, C::THREADS, C::smem, st>>>(
-      q, k, v, out, dout, lse, delta, dq, S, H, H / KV, qs, ks, vs, scale);
+      q, k, v, out, dout, lse, delta, dq, Sq, Skv, off, H, H / KV, qs, ks, vs, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D, typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const void* out, const void* lse,
-               const void* dout, void* dq, void* dk, void* dv, void* delta, int B, int S, int H,
-               int KV, Strides qs, Strides ks, Strides vs, float scale, cudaStream_t st) {
+               const void* dout, void* dq, void* dk, void* dv, void* delta, int B, int Sq, int Skv,
+               int off, int H, int KV, Strides qs, Strides ks, Strides vs, float scale,
+               cudaStream_t st) {
   const T* q_ = static_cast<const T*>(q);
   const T* k_ = static_cast<const T*>(k);
   const T* v_ = static_cast<const T*>(v);
@@ -1478,7 +1528,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out, con
   T* dq_ = static_cast<T*>(dq);
   T* dk_ = static_cast<T*>(dk);
   T* dv_ = static_cast<T*>(dv);
-  const dim3 grid_kv((S + kTile - 1) / kTile, KV, B);
+  const dim3 grid_kv((Skv + kTile - 1) / kTile, KV, B);
   cudaError_t err;
   if constexpr (sizeof(T) == 2) {
     // the copiers' per-thread offsets are 32-bit
@@ -1490,34 +1540,34 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out, con
     // but at D = 128, where shared memory would allow only one block an SM.
     int rc;
     if (D <= 64 && (H / KV) % 2 == 0)
-      rc = launch_dq<D, (D <= 64 ? 2 : 1)>(q_, k_, v_, out_, do_, lse_, delta_, dq_, B, S, H, KV,
-                                          qs, ks, vs, scale, st);
+      rc = launch_dq<D, (D <= 64 ? 2 : 1)>(q_, k_, v_, out_, do_, lse_, delta_, dq_, B, Sq, Skv,
+                                          off, H, KV, qs, ks, vs, scale, st);
     else
-      rc = launch_dq<D, 1>(q_, k_, v_, out_, do_, lse_, delta_, dq_, B, S, H, KV, qs, ks, vs,
-                           scale, st);
+      rc = launch_dq<D, 1>(q_, k_, v_, out_, do_, lse_, delta_, dq_, B, Sq, Skv, off, H, KV, qs, ks,
+                           vs, scale, st);
     if (rc != 0) return rc;
     err = allow_smem(flash_bwd_dkdv_v3_kernel<D>, BwdKV<D>::smem);
     if (err != cudaSuccess) return (int)err;
     flash_bwd_dkdv_v3_kernel<D><<<grid_kv, kMmaThreads, BwdKV<D>::smem, st>>>(
-        q_, k_, v_, do_, lse_, delta_, dk_, dv_, S, H, H / KV, qs, ks, vs, scale);
+        q_, k_, v_, do_, lse_, delta_, dk_, dv_, Sq, Skv, off, H, H / KV, qs, ks, vs, scale);
   } else {
-    const int64_t n_rows = (int64_t)B * S * H;
+    const int64_t n_rows = (int64_t)B * Sq * H;
     const int per_block = kThreads / 32;
     flash_delta_kernel<T><<<(unsigned)((n_rows + per_block - 1) / per_block), kThreads, 0, st>>>(
-        out_, do_, delta_, n_rows, S, H, D);
+        out_, do_, delta_, n_rows, Sq, H, D);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid_q((S + kTile - 1) / kTile, H, B);
+    const dim3 grid_q((Sq + kTile - 1) / kTile, H, B);
     err = allow_smem(flash_bwd_dkdv_kernel<D>, DkvCfg<D>::smem);
     if (err != cudaSuccess) return (int)err;
     err = allow_smem(flash_bwd_dq_kernel<D>, DqCfg<D>::smem);
     if (err != cudaSuccess) return (int)err;
     flash_bwd_dkdv_kernel<D><<<grid_kv, kThreads, DkvCfg<D>::smem, st>>>(
-        q_, k_, v_, do_, lse_, delta_, dk_, dv_, S, H, H / KV, qs, ks, vs, scale);
+        q_, k_, v_, do_, lse_, delta_, dk_, dv_, Sq, Skv, off, H, H / KV, qs, ks, vs, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     flash_bwd_dq_kernel<D><<<grid_q, kThreads, DqCfg<D>::smem, st>>>(
-        q_, k_, v_, do_, lse_, delta_, dq_, S, H, H / KV, qs, ks, vs, scale);
+        q_, k_, v_, do_, lse_, delta_, dq_, Sq, Skv, off, H, H / KV, qs, ks, vs, scale);
   }
   return (int)cudaGetLastError();
 }
@@ -1525,9 +1575,10 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out, con
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16 (q, k, v, out and the gradients share it).
-// q: (B, S, H, D), k / v: (B, S, KV, D), each with D contiguous and its
+// q: (B, Sq, H, D), k / v: (B, Skv, KV, D), each with D contiguous and its
 // batch / position / head strides given in elements (16-byte aligned
-// rows); out: contiguous (B, S, H, D); lse: f32 (B, H, S).  D in
+// rows); out: contiguous (B, Sq, H, D); lse: f32 (B, H, Sq); query i sees
+// keys 0 .. off + i (0 <= off <= Skv - Sq, which the caller checks).  D in
 // {16, 32, 48, 64, 128}.  Launches on the caller's stream and returns
 // cudaGetLastError() (cudaErrorInvalidValue for a D or dtype not built).
 #define NANO_FLASH_DISPATCH(CALL)                     \
@@ -1546,31 +1597,33 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out, con
   }
 
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
-                              int dtype, int B, int S, int H, int KV, int D, long long q_sb,
-                              long long q_ss, long long q_sh, long long k_sb, long long k_ss,
-                              long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-                              float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
-#define NANO_FWD(DD, TT) launch_fwd<DD, TT>(q, k, v, out, lse, B, S, H, KV, qs, ks, vs, scale, st)
-  NANO_FLASH_DISPATCH(NANO_FWD)
-#undef NANO_FWD
-}
-
-// The backward of flash_attn_fwd: out, lse as it wrote them; dout, dq, dk,
-// dv contiguous in the layouts of out, q, k, v; delta: f32 scratch
-// (B, H, S).  bf16: two launches (dq with delta, then dk/dv); f32: three
-// (delta, dk/dv, dq).  No atomics.
-extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const void* out,
-                              const void* lse, const void* dout, void* dq, void* dk, void* dv,
-                              void* delta, int dtype, int B, int S, int H, int KV, int D,
+                              int dtype, int B, int Sq, int Skv, int off, int H, int KV, int D,
                               long long q_sb, long long q_ss, long long q_sh, long long k_sb,
                               long long k_ss, long long k_sh, long long v_sb, long long v_ss,
                               long long v_sh, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
-#define NANO_BWD(DD, TT) \
-  launch_bwd<DD, TT>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, S, H, KV, qs, ks, vs, scale, st)
+#define NANO_FWD(DD, TT) \
+  launch_fwd<DD, TT>(q, k, v, out, lse, B, Sq, Skv, off, H, KV, qs, ks, vs, scale, st)
+  NANO_FLASH_DISPATCH(NANO_FWD)
+#undef NANO_FWD
+}
+
+// The backward of flash_attn_fwd: out, lse as it wrote them; dout, dq, dk,
+// dv contiguous in the layouts of out, q, k, v (dk, dv over all Skv keys);
+// delta: f32 scratch (B, H, Sq).  bf16: two launches (dq with delta, then
+// dk/dv); f32: three (delta, dk/dv, dq).  No atomics.
+extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const void* out,
+                              const void* lse, const void* dout, void* dq, void* dk, void* dv,
+                              void* delta, int dtype, int B, int Sq, int Skv, int off, int H,
+                              int KV, int D, long long q_sb, long long q_ss, long long q_sh,
+                              long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+                              long long v_ss, long long v_sh, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
+#define NANO_BWD(DD, TT)                                                                         \
+  launch_bwd<DD, TT>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Skv, off, H, KV, qs, ks, vs, \
+                     scale, st)
   NANO_FLASH_DISPATCH(NANO_BWD)
 #undef NANO_BWD
 }

@@ -235,19 +235,20 @@ class LLMContext:
         units, fused tensors part by part) and the config becomes the
         rank's (local heads and the plan); without, the weights stay whole
         and every rank serves them.  Every rank of the model group then
-        makes the same calls.  LoRA under tensor parallelism is ROADMAP
-        item 11b."""
+        makes the same calls.  An attached LoRA adapter is cut with the
+        same plan (``mesh.cut_lora``: the B of q, k and v on the rank's
+        heads, wo's A on wo's input rows where wo is row-parallel); the
+        JAX package replicates it and lets GSPMD cut the products."""
         from nano_tpu_torch.parallel import mesh as meshlib
         if getattr(self.cfg, "tp", None) is not None:
             raise ValueError("this context is sharded already")
         self.mesh = mesh
         if tensor_parallel:
-            if self.lora is not None:
-                raise NotImplementedError(
-                    f"LoRA under tensor parallelism is {meshlib.ITEM_11B}")
             self.params, tp = meshlib.shard_inference_params(
                 self.params, mesh, self.cfg)
             self.cfg = meshlib.local_config(self.cfg, tp)
+            if self.lora is not None:
+                self.lora = meshlib.cut_lora(self.lora, tp)
         self._decoder = None
         return self
 
@@ -391,18 +392,16 @@ class LLMContext:
                    max_seq_len=max_seq_len or cfg.block_size,
                    device=device, dtype=dtype, **kw)
 
-    def _lora_ok(self) -> None:
-        """Raise on a tensor-parallel context: LoRA under tensor
-        parallelism is ROADMAP item 11b."""
-        if getattr(self.cfg, "tp", None) is not None:
-            from nano_tpu_torch.parallel.mesh import ITEM_11B
-            raise NotImplementedError(
-                f"LoRA under tensor parallelism is {ITEM_11B}")
-
     def _attach(self, lora: Dict[str, Any], scale: float) -> None:
-        self._lora_ok()
-        self.lora = {k: torch.as_tensor(v).to(self.device, self.dtype)
-                     for k, v in lora.items()}
+        """Attach a whole adapter, cut to this rank's part on a tensor-
+        parallel context."""
+        lora = {k: torch.as_tensor(v).to(self.device, self.dtype)
+                for k, v in lora.items()}
+        tp = getattr(self.cfg, "tp", None)
+        if tp is not None:
+            from nano_tpu_torch.parallel import mesh as meshlib
+            lora = meshlib.cut_lora(lora, tp)
+        self.lora = lora
         self.lora_scale = scale
 
     def load_lora_checkpoint(self, path: str) -> None:
@@ -410,7 +409,6 @@ class LLMContext:
         package's or the JAX package's): alpha / rank from its train
         config."""
         from nano_tpu_torch.io.checkpoint import Checkpoint
-        self._lora_ok()
         ck = Checkpoint(path)
         rank, alpha = ck.lora_rank_alpha()
         self._attach(ck.load_lora(), alpha / rank)
@@ -418,8 +416,8 @@ class LLMContext:
     def load_lora(self, path: str) -> None:
         """Hot-swap a LoRA module (reference: infer/infer.c:500-549): the
         next step of every stream decodes with it."""
-        self._lora_ok()
-        bl = binfmt.read_lora(path, self.cfg)
+        from nano_tpu_torch.parallel.mesh import full_config
+        bl = binfmt.read_lora(path, full_config(self.cfg))
         self._attach(bl.lora, bl.alpha / bl.rank)
 
     def unload_lora(self) -> None:

@@ -151,6 +151,12 @@ def _tp(cfg: ModelConfig):
     return getattr(cfg, "tp", None)
 
 
+def _sp(cfg: ModelConfig):
+    """The sequence-parallel part a rank's config carries
+    (``parallel.mesh.ShardedConfig``), None without one."""
+    return getattr(cfg, "sp", None)
+
+
 def _row(x, w, dtype, tp, part: str) -> torch.Tensor:
     """x @ w of a row-parallel product, `part` "attn" (wo) or "ffn" (w2),
     under tensor parallelism `tp`, by the plan's mode for that part: where
@@ -170,7 +176,8 @@ def _row(x, w, dtype, tp, part: str) -> torch.Tensor:
 
 
 def _lora_delta(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, scale,
-                dtype, idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                dtype, idx: Optional[torch.Tensor] = None,
+                tp=None) -> torch.Tensor:
     """The LoRA branch (x @ A) @ B * scale, each product and the scaling
     rounded to `dtype` as the JAX package's (preferred_element_type=dtype,
     then `* scale` in dtype).
@@ -181,26 +188,49 @@ def _lora_delta(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, scale,
     JAX per-slot form with its gather (``serve/batching.py``) moved after
     the products: every adapter's product runs over every row and each row
     keeps its own, so a step reads each of the few adapters once where a
-    per-row gather of their weights would read them B times."""
+    per-row gather of their weights would read them B times.
+
+    `tp`: x holds this rank's heads and a their rows of A (wo's branch
+    under a row-parallel wo): the partial products x @ A are summed over
+    the model group in f32 and rounded to `dtype` once, as ``_row`` sums
+    wo's."""
+    first = lambda x, a: torch.matmul(x.to(dtype), a.to(dtype))
+    if tp is not None:
+        first = lambda x, a: tp.leave(torch.matmul(
+            x.to(dtype).float(), a.to(dtype).float())).to(dtype)
     if idx is None:
         s = scale if isinstance(scale, torch.Tensor) else torch.tensor(
             scale, dtype=dtype)
-        h = torch.matmul(x.to(dtype), a.to(dtype))
+        h = first(x, a)
         return torch.matmul(h, b.to(dtype)) * s.to(dtype)
     B, S = x.shape[:2]
-    h = torch.matmul(x.reshape(1, B * S, -1).to(dtype), a.to(dtype))
+    h = first(x.reshape(1, B * S, -1), a)
     d = torch.matmul(h, b.to(dtype)).view(a.shape[0], B, S, -1)
     rows = torch.arange(B, device=x.device)
     return d[idx, rows] * scale.to(dtype)[:, None, None]
 
 
 def _lora_add(y: torch.Tensor, x: torch.Tensor, lora: Optional[Params],
-              name: str, scale, dtype, idx=None) -> torch.Tensor:
-    """y + the LoRA branch of projection `name` on x (y when no adapter)."""
+              name: str, scale, dtype, idx=None, tp=None) -> torch.Tensor:
+    """y + the LoRA branch of projection `name` on x (y when no adapter;
+    `tp` as in ``_lora_delta``)."""
     if lora is None:
         return y
     return y + _lora_delta(x, lora[name + "_a"], lora[name + "_b"], scale,
-                           dtype, idx)
+                           dtype, idx, tp)
+
+
+def _attn_out(heads: torch.Tensor, layer: Params, dtype, tp,
+              lora: Optional[Params] = None, lora_scale=0.0,
+              lora_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """wo's product of the attention heads and its LoRA branch.  Under
+    tensor parallelism with wo row-parallel both read this rank's heads
+    and sum their partial products over the model group; where wo is
+    whole ("gather") both read the heads of every rank."""
+    if tp is not None and tp.attn == "gather":
+        heads, tp = tp.gather_heads(heads), None
+    y = _row(heads, layer["wo"], dtype, tp, "attn")
+    return _lora_add(y, heads, lora, "wo", lora_scale, dtype, lora_idx, tp)
 
 
 def _adapter_kw(lora: Optional[Params], i: int, lora_scale,
@@ -357,17 +387,22 @@ def attention_nocache(x: torch.Tensor, layer: Params, cfg: ModelConfig,
                       ) -> torch.Tensor:
     """One full-sequence attention layer without a cache (training).
     Causal models go through ``flash_attention`` (the kernels on the card,
-    forward and backward); global attention is the unmasked einsum path.  `lora`: the layer's adapter, on q, k, v and on wo from
-    the heads."""
+    forward and backward); global attention is the unmasked einsum path.
+    `lora`: the layer's adapter, on q, k, v and on wo from the heads.
+    Under sequence parallelism (``_sp``) x holds this rank's positions:
+    k and v are gathered over the seq group (after qk-norm and RoPE) and
+    the queries attend at their offset to the whole sequence."""
     q, k, v = _qkv(x, layer, cfg, cos, sin, dtype, lora, lora_scale)
+    sp, offset = _sp(cfg), 0
+    if sp is not None:
+        k, v = sp.gather(k), sp.gather(v)
+        offset = sp.offset(q.shape[1])
     if cfg.is_causal:
-        heads = flash_attention(q, k, v)
+        heads = flash_attention(q, k, v, offset)
     else:
         probs = torch.softmax(_gqa_scores(q, k, cfg), dim=-1).to(dtype)
         heads = _gqa_out(probs, v)
-    tp = _tp(cfg)
-    return _lora_add(_row(heads, layer["wo"], dtype, tp, "attn"),
-                     heads, lora, "wo", lora_scale, dtype)
+    return _attn_out(heads, layer, dtype, _tp(cfg), lora, lora_scale)
 
 
 def attention(x: torch.Tensor, layer: Params, cfg: ModelConfig,
@@ -401,10 +436,8 @@ def attention(x: torch.Tensor, layer: Params, cfg: ModelConfig,
     H, KV = cfg.n_head, cfg.n_kv_head
     q, k, v = _qkv(x, layer, cfg, cos, sin, dtype, lora, lora_scale,
                    lora_idx, xt)
-    tp = _tp(cfg)
-    out = lambda heads: _lora_add(
-        _row(heads, layer["wo"], dtype, tp, "attn"), heads, lora,
-        "wo", lora_scale, dtype, lora_idx)
+    out = lambda heads: _attn_out(heads, layer, dtype, _tp(cfg), lora,
+                                  lora_scale, lora_idx)
 
     ck, cv, ks, vs = kv_cache
     quant = ck.dtype == torch.int8
@@ -823,6 +856,45 @@ def _saving(ops):
     return lambda: create_selective_checkpoint_contexts(policy)
 
 
+def positions(cfg: ModelConfig, params: Params, S: int, device, dtype,
+              embed: bool = True):
+    """The position tables of a training forward over S local positions:
+    (cos, sin) at them, or (None, None) and the ``wpe`` rows for a model
+    without RoPE (None where `embed` is false).  Under sequence
+    parallelism (``_sp``) the positions start at this rank's offset."""
+    sp = _sp(cfg)
+    lo = 0 if sp is None else sp.offset(S)
+    if cfg.use_rope:
+        cos, sin = precompute_rope(cfg.head_dim, lo + S, cfg.rope_theta,
+                                   device)
+        return cos[lo:], sin[lo:], None
+    wpe = params["wpe"][lo:lo + S].to(dtype) if embed else None
+    return None, None, wpe
+
+
+def run_blocks(h: torch.Tensor, blocks: Params, cfg: ModelConfig, cos, sin,
+               dtype, remat: Union[bool, str] = False,
+               lora: Optional[Params] = None, lora_scale=0.0
+               ) -> torch.Tensor:
+    """The residual stream h through the stacked layers `blocks` (all of
+    the model's, or a pipeline stage's), under `remat` as
+    ``forward_hidden`` describes it."""
+    mode = _remat_mode(remat)
+    layers = unstack_layers(blocks)
+    loras = ([None] * len(layers) if lora is None else unstack_layers(lora))
+    kw = (dict(context_fn=_saving(_SAVED_OPS[mode])) if mode in _SAVED_OPS
+          else {})
+    for layer, ll in zip(layers, loras):
+        if mode in ("full", "dots", "heads"):
+            h = checkpoint(block_nocache, h, layer, cfg, cos, sin, dtype,
+                           False, ll, lora_scale, use_reentrant=False,
+                           preserve_rng_state=False, **kw)
+        else:
+            h = block_nocache(h, layer, cfg, cos, sin, dtype, mode == "ffn",
+                              ll, lora_scale)
+    return h
+
+
 def forward_hidden(params: Params, idx: torch.Tensor, cfg: ModelConfig,
                    dtype=torch.bfloat16, remat: Union[bool, str] = False,
                    lora: Optional[Params] = None, lora_scale=0.0
@@ -838,27 +910,12 @@ def forward_hidden(params: Params, idx: torch.Tensor, cfg: ModelConfig,
     stacked tensors (L, ...) scaled by `lora_scale`; the gradient reaches
     them as it does the parameters.
     """
-    mode = _remat_mode(remat)
-    S = idx.shape[1]
+    cos, sin, wpe = positions(cfg, params, idx.shape[1], idx.device, dtype)
     h = embed_tokens(params, idx, dtype)
-    if cfg.use_rope:
-        cos, sin = precompute_rope(cfg.head_dim, S, cfg.rope_theta,
-                                   idx.device)
-    else:
-        cos = sin = None
-        h = h + params["wpe"][:S].to(dtype)
-    layers = unstack_layers(params["blocks"])
-    loras = ([None] * len(layers) if lora is None else unstack_layers(lora))
-    kw = (dict(context_fn=_saving(_SAVED_OPS[mode])) if mode in _SAVED_OPS
-          else {})
-    for layer, ll in zip(layers, loras):
-        if mode in ("full", "dots", "heads"):
-            h = checkpoint(block_nocache, h, layer, cfg, cos, sin, dtype,
-                           False, ll, lora_scale, use_reentrant=False,
-                           preserve_rng_state=False, **kw)
-        else:
-            h = block_nocache(h, layer, cfg, cos, sin, dtype, mode == "ffn",
-                              ll, lora_scale)
+    if wpe is not None:
+        h = h + wpe
+    h = run_blocks(h, params["blocks"], cfg, cos, sin, dtype, remat, lora,
+                   lora_scale)
     return rms_norm(h, params["norm"], cfg.norm_eps)
 
 
@@ -910,12 +967,21 @@ def loss_sums(params: Params, idx: torch.Tensor, targets: torch.Tensor,
     """The masked CE as sums, (sum of nll * mask, sum of mask) (the mask
     all ones when None), so that ranks holding parts of a batch add theirs
     and divide once: ``loss_fn`` of the whole batch."""
+    return ce_sums(forward_hidden(params, idx, cfg, dtype, remat, lora,
+                                  lora_scale),
+                   params, targets, loss_mask, dtype, ce_chunk)
+
+
+def ce_sums(h: torch.Tensor, params: Params, targets: torch.Tensor,
+            loss_mask: Optional[torch.Tensor], dtype, ce_chunk: int = 0
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The LM head and the masked CE of final-norm hidden states h as
+    (sum of nll * mask, sum of mask), in token chunks where ce_chunk > 0
+    (``loss_sums``)."""
     if ce_chunk and ce_chunk > 0:
-        h = forward_hidden(params, idx, cfg, dtype, remat, lora, lora_scale)
         return _chunked_ce_sums(h, params, targets, loss_mask, dtype,
                                 ce_chunk)
-    nll = _nll(forward(params, idx, cfg, dtype, remat, lora, lora_scale),
-               targets)
+    nll = _nll(compute_logits(h, params, dtype), targets)
     m = (torch.ones_like(nll) if loss_mask is None else loss_mask.float())
     return (nll * m).sum(), m.sum()
 

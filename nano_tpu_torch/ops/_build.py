@@ -62,10 +62,10 @@ SIGNATURES = {
     "q4k_act_quant": ([P, I, P, P, P, P, I, I, I, P], "q4k"),
     "q4k_matmul_w4a4_init": ([], "q4k"),
     "q4k_matmul_w4a4": ([*[P] * 8, I, I, I, I, I, I, I, I, I, P], "q4k"),
-    "flash_attn_fwd": ([P, P, P, P, P, I, I, I, I, I, I, *[Q] * 9, F, P],
+    "flash_attn_fwd": ([P, P, P, P, P, *[I] * 8, *[Q] * 9, F, P],
                        "flash_attn"),
     "flash_attn_fwd_blocks_per_sm": ([I, I], "flash_attn"),
-    "flash_attn_bwd": ([*[P] * 10, I, I, I, I, I, I, *[Q] * 9, F, P],
+    "flash_attn_bwd": ([*[P] * 10, *[I] * 8, *[Q] * 9, F, P],
                        "flash_attn"),
     "flash_attn_bwd_blocks_per_sm": ([I, I], "flash_attn"),
 }

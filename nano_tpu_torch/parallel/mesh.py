@@ -8,6 +8,15 @@ leaf, and the collectives are explicit code:
   * "data" (data parallel): every rank takes its contiguous rows of the
     global batch (``batch_rows``); the trainer all-reduces the gradients
     and the loss's sums over the data group.
+  * "seq" (sequence parallel): every rank takes its contiguous S / n_seq
+    columns of its rows (``batch_rows`` / ``batch_cols``); the model's
+    attention all-gathers k and v over the seq group and runs its queries
+    at their offset against the whole sequence (``SequenceParallel``);
+    the trainer sums the loss's sums and the gradients over "seq" as over
+    "data" (the params are whole on every seq rank).
+  * "pipe" (pipeline parallel, ``parallel.pipeline``): the layer stacks
+    are cut on the layer axis, each stage runs its layers on microbatches
+    and hands its activations on (``send`` / ``recv``).
   * "model" (tensor parallel, Megatron-style): attention heads and the FFN
     hidden units are cut over the model group.  wq / wk / wv / w1 / w3
     (and the fused wqkv / w13 of a .bin file, part by part) keep this
@@ -15,20 +24,31 @@ leaf, and the collectives are explicit code:
     head stay whole.  The block all-reduces the row-parallel products'
     partial sums (``TensorParallel``); in training two autograd functions
     put the all-reduce of the column-parallel input's gradient into the
-    backward (``TensorParallel.enter`` / ``leave``).
+    backward (``TensorParallel.enter`` / ``leave``).  A LoRA adapter is
+    cut with the same plan (``cut_lora``).
 
 The tensors stay plain: the kernels launch through ``ctypes`` on local
-tensors, which a DTensor cannot carry a sharding through.  "seq" and
-"pipe" are ROADMAP queue 1 item 11b and raise.
+tensors, which a DTensor cannot carry a sharding through.
 
-Rank order is the JAX mesh's: axes ("data", "model"), "model" innermost,
-so rank = d * n_model + m.
+Rank order is the JAX mesh's: axes ("data", "seq", "pipe", "model"),
+"model" innermost, "seq" and "pipe" only where larger than 1, so rank =
+((d * n_seq + s) * n_pipe + p) * n_model + m.
+
+The collectives beside all-reduce go through one transport
+(``all_gather``, ``reduce_scatter``, ``send``, ``recv``), chosen by the
+group's backend: NCCL runs all four on CUDA tensors and gloo all four on
+CPU tensors; gloo also takes CUDA tensors for all-gather and
+reduce-scatter (as for all-reduce, broadcast and barrier), but not for
+send and recv (its transport is handed the device pointer: the sender
+aborts; ``chip_smoke.py bench gloo``), so between ranks that share a card
+a send or recv is staged through host memory.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -43,10 +63,9 @@ from nano_tpu_torch.ops.qmatmul import Q80Tensor
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-SEQ_AXIS = "seq"      # sequence parallel: ROADMAP item 11b
-PIPE_AXIS = "pipe"    # pipeline parallel: ROADMAP item 11b
-
-ITEM_11B = "ROADMAP queue 1 item 11b"
+SEQ_AXIS = "seq"      # sequence parallel
+PIPE_AXIS = "pipe"    # pipeline parallel (parallel/pipeline.py)
+AXES = (DATA_AXIS, SEQ_AXIS, PIPE_AXIS, MODEL_AXIS)   # outermost first
 
 # how long a collective may wait for the other ranks
 TIMEOUT = datetime.timedelta(minutes=10)
@@ -93,9 +112,10 @@ def maybe_distributed_init(backend: Optional[str] = None,
 
 @dataclass
 class Mesh:
-    """This rank's place in a ("data", "model") grid of ranks and the
-    process groups of its row and column: ``group(MODEL_AXIS)`` holds the
-    ranks that differ from this one in "model" only."""
+    """This rank's place in a ("data", "seq", "pipe", "model") grid of
+    ranks and the process group of each axis: ``group(MODEL_AXIS)`` holds
+    the ranks that differ from this one in "model" only, in the order of
+    their "model" index."""
     shape: Dict[str, int]                 # axis -> size, outermost first
     rank: int
     backend: str
@@ -104,13 +124,19 @@ class Mesh:
     def size(self, axis: str) -> int:
         return self.shape.get(axis, 1)
 
+    def _stride(self, axis: str) -> int:
+        """Ranks between neighbours along `axis`."""
+        inner = AXES[AXES.index(axis) + 1:]
+        return math.prod(self.size(a) for a in inner)
+
     def index(self, axis: str) -> int:
-        """This rank's coordinate along `axis` (rank = d * n_model + m)."""
-        if axis == MODEL_AXIS:
-            return self.rank % self.size(MODEL_AXIS)
-        if axis == DATA_AXIS:
-            return self.rank // self.size(MODEL_AXIS)
-        return 0
+        """This rank's coordinate along `axis`."""
+        return self.rank // self._stride(axis) % self.size(axis)
+
+    def rank_at(self, axis: str, i: int) -> int:
+        """The global rank of the rank that differs from this one in its
+        `axis` coordinate only, which is i there."""
+        return self.rank + (i - self.index(axis)) * self._stride(axis)
 
     def group(self, axis: str):
         return self.groups[axis]
@@ -118,46 +144,103 @@ class Mesh:
 
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
               n_seq: int = 1, n_pipe: int = 1) -> Mesh:
-    """The ("data", "model") mesh over the process group (every rank
-    calls this, in the same order as every other group it makes): rank =
-    d * n_model + m.  n_data defaults to what the world leaves.  "seq" and
-    "pipe" larger than 1 are ROADMAP item 11b."""
-    if n_seq > 1 or n_pipe > 1:
-        raise NotImplementedError(
-            f"sequence and pipeline parallelism (seq={n_seq}, pipe={n_pipe}) "
-            f"are {ITEM_11B}")
+    """The ("data", "seq", "pipe", "model") mesh over the process group
+    (every rank calls this, in the same order as every other group it
+    makes): rank = ((d * n_seq + s) * n_pipe + p) * n_model + m, "seq" and
+    "pipe" in the shape only where larger than 1, as in the JAX package.
+    n_data defaults to what the world leaves."""
     if not dist.is_initialized():
         raise RuntimeError(
             "make_mesh needs a process group: launch with torchrun (or "
             "nano_tpu_torch.parallel.launch) and call maybe_distributed_init")
     world = dist.get_world_size()
     if n_data is None:
-        n_data = world // n_model
-    if n_data * n_model != world:
-        raise ValueError(f"mesh data={n_data} x model={n_model} does not "
-                         f"match the {world} ranks of the process group")
-    rank = dist.get_rank()
-    groups: Dict[str, Any] = {}
-    # every rank makes every group, in one order
-    for d in range(n_data):
-        g = dist.new_group([d * n_model + m for m in range(n_model)])
-        if rank // n_model == d:
-            groups[MODEL_AXIS] = g
-    for m in range(n_model):
-        g = dist.new_group([d * n_model + m for d in range(n_data)])
-        if rank % n_model == m:
-            groups[DATA_AXIS] = g
-    return Mesh(shape={DATA_AXIS: n_data, MODEL_AXIS: n_model}, rank=rank,
-                backend=dist.get_backend(), groups=groups)
+        n_data = world // (n_model * n_seq * n_pipe)
+    if n_data * n_seq * n_pipe * n_model != world:
+        raise ValueError(
+            f"mesh data={n_data} x seq={n_seq} x pipe={n_pipe} x model="
+            f"{n_model} does not match the {world} ranks of the process "
+            f"group")
+    shape = {DATA_AXIS: n_data}
+    if n_seq > 1:
+        shape[SEQ_AXIS] = n_seq
+    if n_pipe > 1:
+        shape[PIPE_AXIS] = n_pipe
+    shape[MODEL_AXIS] = n_model
+    mesh = Mesh(shape=shape, rank=dist.get_rank(),
+                backend=dist.get_backend(), groups={})
+    # every rank makes every group, in one order: for each axis, one group
+    # for each coordinate of the other axes
+    for axis in shape:
+        stride = mesh._stride(axis)
+        for base in range(world):
+            if base // stride % shape[axis]:
+                continue                # not the axis' first rank
+            ranks = [base + i * stride for i in range(shape[axis])]
+            g = dist.new_group(ranks)
+            if mesh.rank in ranks:
+                mesh.groups[axis] = g
+    return mesh
 
 
 # =====================================================================
-# the batch: contiguous rows over "data"
+# the transport: all-gather, reduce-scatter, send and recv
+# =====================================================================
+
+def all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The group's tensors (of t's shape) concatenated along `dim` in the
+    order of the group's ranks."""
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts, dim)
+
+
+def reduce_scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's part along `dim` (the r-th of n equal parts) of the sum
+    of the group's tensors, summed in f32 and rounded to t's type once."""
+    n = dist.get_world_size(group)
+    parts = [p.contiguous() for p in t.float().split(t.shape[dim] // n,
+                                                     dim)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=group)
+    return out.to(t.dtype)
+
+
+def _staged(t: torch.Tensor, group) -> bool:
+    """Whether a send or recv of t over `group` goes through host memory:
+    a CUDA tensor on a gloo group."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def send(t: torch.Tensor, dst: int, group) -> None:
+    """t to global rank `dst` of `group` (staged through host memory for
+    gloo and a CUDA tensor)."""
+    t = t.detach().contiguous()
+    dist.send(t.cpu() if _staged(t, group) else t, dst, group=group)
+
+
+def recv(shape: Sequence[int], dtype, device, src: int, group
+         ) -> torch.Tensor:
+    """A tensor of `shape` and `dtype` from global rank `src` of `group`,
+    on `device`."""
+    out = torch.empty(tuple(shape), dtype=dtype, device=device)
+    if not _staged(out, group):
+        dist.recv(out, src, group=group)
+        return out
+    host = torch.empty(tuple(shape), dtype=dtype)
+    dist.recv(host, src, group=group)
+    return out.copy_(host)
+
+
+# =====================================================================
+# the batch: contiguous rows over "data", columns over "seq"
 # =====================================================================
 
 def batch_spec(mesh: Optional[Mesh] = None) -> Tuple[str, ...]:
-    """The axes a (B, S) batch is cut on: B over "data" (the JAX
-    P("data")); the S axis over "seq" is item 11b."""
+    """The axes a (B, S) batch is cut on: B over "data" and, where the
+    mesh has it, S over "seq" (the JAX P("data"[, "seq"]))."""
+    if mesh is not None and mesh.size(SEQ_AXIS) > 1:
+        return (DATA_AXIS, SEQ_AXIS)
     return (DATA_AXIS,)
 
 
@@ -173,12 +256,73 @@ def batch_rows(n: int, mesh: Mesh) -> slice:
     return slice(d * b, (d + 1) * b)
 
 
+def batch_cols(n: int, mesh: Mesh) -> slice:
+    """This rank's columns of a sequence of n positions: the contiguous
+    s-th of n_seq equal parts, as NamedSharding(P(..., "seq")) lays them
+    out."""
+    ns = mesh.size(SEQ_AXIS)
+    if n % ns:
+        raise ValueError(f"a sequence of {n} positions does not divide over "
+                         f"seq={ns}")
+    c = n // ns
+    s = mesh.index(SEQ_AXIS)
+    return slice(s * c, (s + 1) * c)
+
+
 def shard_batch(batch: Any, mesh: Mesh) -> Any:
-    """This rank's rows of every (B, ...) array or tensor in `batch` (a
-    tuple, list or single array)."""
+    """This rank's rows (and, under "seq", columns) of every (B, S, ...)
+    array or tensor in `batch` (a tuple, list or single array)."""
     if isinstance(batch, (tuple, list)):
         return type(batch)(shard_batch(b, mesh) for b in batch)
-    return batch[batch_rows(len(batch), mesh)]
+    rows = batch[batch_rows(len(batch), mesh)]
+    if mesh.size(SEQ_AXIS) > 1:
+        return rows[:, batch_cols(rows.shape[1], mesh)]
+    return rows
+
+
+# =====================================================================
+# sequence parallelism: K/V gathered over "seq"
+# =====================================================================
+
+@dataclass
+class SequenceParallel:
+    """A rank's part in sequence parallelism over its mesh's "seq" group:
+    it holds the positions [index * S_local, (index + 1) * S_local) of
+    each row.  ``gather`` is the all-gather of k or v along S, whose
+    backward is the reduce-scatter (the sum over the ranks, each keeping
+    its own positions) of their gradients."""
+    size: int
+    index: int
+    group: Any = field(default=None, repr=False, compare=False)
+
+    def offset(self, s_local: int) -> int:
+        """The position of this rank's first query."""
+        return self.index * s_local
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, S_local, ...) -> (B, S_local * size, ...), the seq group's
+        positions in order; differentiable."""
+        return _GatherSeq.apply(x, self)
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sp):
+        ctx.sp = sp
+        return all_gather(x, sp.group, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.sp.group, 1), None
+
+
+def seq_parallel(mesh: Mesh) -> Optional[SequenceParallel]:
+    """This rank's SequenceParallel, None where the mesh has no "seq"."""
+    if mesh.size(SEQ_AXIS) == 1:
+        return None
+    return SequenceParallel(size=mesh.size(SEQ_AXIS),
+                            index=mesh.index(SEQ_AXIS),
+                            group=mesh.group(SEQ_AXIS))
 
 
 # =====================================================================
@@ -281,7 +425,9 @@ class TensorParallel:
     def ranges(self, name: str) -> Optional[List[Tuple[int, int]]]:
         """The element ranges of leaf `name`'s cut dimension (out for
         column-parallel leaves, in for row-parallel ones) that this rank
-        keeps, in order; None: the whole leaf."""
+        keeps, in order; None: the whole leaf.  A LoRA adapter's B of q,
+        k and v keeps the output columns of the rank's heads, and wo's A
+        the input rows of wo's cut; the other factors stay whole."""
         D = self.head_dim
         q, kv = self._q(), self._kv()
         shift = lambda r, o: (r[0] + o, r[1] + o)
@@ -292,8 +438,14 @@ class TensorParallel:
             return [kv]
         if name == "wqkv":
             return [q, shift(kv, HD), shift(kv, HD + KD)]
-        if name == "wo":
+        if name in ("wo", "wo_a"):
             return [q] if self.attn == "row" else None
+        if name == "wq_b":
+            return [q]
+        if name in ("wk_b", "wv_b"):
+            return [kv]
+        if name in _LORA:
+            return None
         if self.ffn_mode == "replicated":
             return None
         if name in ("w1", "w3", "w2"):
@@ -363,27 +515,45 @@ def tp_plan(cfg: ModelConfig, size: int, rank: int, wo=None, w2=None,
 
 @dataclass(frozen=True)
 class ShardedConfig(ModelConfig):
-    """A rank's view of a ModelConfig under tensor parallelism: n_head and
-    n_kv_head are its local heads (what the forwards, the KV cache and
-    decode attention read), and ``tp`` carries the plan and the group
-    (``models/gpt.py`` sums the row-parallel products through it).
-    ``to_dict`` gives the local numbers without the plan."""
+    """A rank's view of a ModelConfig under tensor and sequence
+    parallelism: n_head and n_kv_head are its local heads (what the
+    forwards, the KV cache and decode attention read), ``tp`` carries the
+    plan and the group (``models/gpt.py`` sums the row-parallel products
+    through it) and ``sp`` the rank's positions and the seq group (the
+    training forward gathers k and v through it).  ``to_dict`` gives the
+    local numbers without the plans."""
     tp: Optional[TensorParallel] = field(default=None, compare=False,
                                          repr=False)
+    sp: Optional[SequenceParallel] = field(default=None, compare=False,
+                                           repr=False)
 
     def to_dict(self) -> dict:
         return {f.name: getattr(self, f.name)
                 for f in dataclasses.fields(ModelConfig)}
 
 
-def local_config(cfg: ModelConfig, tp: TensorParallel) -> ShardedConfig:
-    """The config a rank runs its part of `cfg` with under `tp`."""
+def full_config(cfg: ModelConfig) -> ModelConfig:
+    """The whole model's config behind a rank's config (itself where it
+    carries no tensor-parallel plan)."""
+    tp = getattr(cfg, "tp", None)
     fields = {f.name: getattr(cfg, f.name)
               for f in dataclasses.fields(ModelConfig)}
-    fields.update(n_head=tp.heads[1] - tp.heads[0],
-                  n_kv_head=tp.kv_heads[1] - tp.kv_heads[0],
-                  head_dim=cfg.head_dim)
-    return ShardedConfig(**fields, tp=tp)
+    if tp is not None:
+        fields.update(n_head=tp.n_head, n_kv_head=tp.n_kv_head)
+    return ModelConfig(**fields)
+
+
+def local_config(cfg: ModelConfig, tp: Optional[TensorParallel],
+                 sp: Optional[SequenceParallel] = None) -> ShardedConfig:
+    """The config a rank runs its part of `cfg` with under `tp` and `sp`
+    (either may be None)."""
+    fields = {f.name: getattr(cfg, f.name)
+              for f in dataclasses.fields(ModelConfig)}
+    fields.update(head_dim=cfg.head_dim)
+    if tp is not None:
+        fields.update(n_head=tp.heads[1] - tp.heads[0],
+                      n_kv_head=tp.kv_heads[1] - tp.kv_heads[0])
+    return ShardedConfig(**fields, tp=tp, sp=sp)
 
 
 # =====================================================================
@@ -393,6 +563,7 @@ def local_config(cfg: ModelConfig, tp: TensorParallel) -> ShardedConfig:
 _COL = ("wq", "wk", "wv", "wqkv", "w1", "w3", "w13")
 _ROW = ("wo", "w2")
 _BIAS = ("bq", "bk", "bv")
+_LORA = ("wq_a", "wq_b", "wk_a", "wk_b", "wv_a", "wv_b", "wo_a", "wo_b")
 
 
 def _walk(tree: Any, fn, name: Optional[str] = None) -> Any:
@@ -403,12 +574,28 @@ def _walk(tree: Any, fn, name: Optional[str] = None) -> Any:
 
 def train_dim(name: Optional[str]) -> Optional[int]:
     """The dim a training leaf called `name` is cut on (stacked (L, in,
-    out) matrices and (L, n) biases)."""
-    if name in _COL:
+    out) matrices and (L, n) biases; a LoRA adapter's (L, in, r) A and
+    (L, r, out) B)."""
+    if name in _COL or name in ("wq_b", "wk_b", "wv_b"):
         return 2
-    if name in _ROW or name in _BIAS:
+    if name in _ROW or name in _BIAS or name == "wo_a":
         return 1
     return None
+
+
+def cut_lora(lora: Dict[str, torch.Tensor], tp: TensorParallel
+             ) -> Dict[str, torch.Tensor]:
+    """An adapter's factors (L, in, r) / (L, r, out), or a stack of
+    adapters (L, A, in, r) / (L, A, r, out), cut to this rank's part of
+    tensor parallelism `tp` (``TensorParallel.ranges``): the B of q, k
+    and v on its output columns, wo's A on its input rows where wo is
+    row-parallel; the rest whole."""
+    out = {}
+    for name, t in lora.items():
+        r = tp.ranges(name)
+        out[name] = (t if r is None else
+                     cut_ranges(t, -1 if name.endswith("_b") else -2, r))
+    return out
 
 
 def param_specs(params: Any, tensor_parallel: bool = False) -> Any:

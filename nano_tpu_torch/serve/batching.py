@@ -153,11 +153,6 @@ class BatchedEngine:
         self._base_scale = torch.full((), ctx.lora_scale, dtype=ctx.dtype,
                                       device=dev)
         if adapters:
-            if getattr(ctx.cfg, "tp", None) is not None:
-                from nano_tpu_torch.parallel.mesh import ITEM_11B
-                raise NotImplementedError(
-                    f"per-slot adapters under tensor parallelism are "
-                    f"{ITEM_11B}")
             if ctx.lora is not None:
                 raise ValueError("use either a base-attached LoRA or "
                                  "named adapters, not both")
@@ -205,9 +200,11 @@ class BatchedEngine:
     def _build_adapter_stack(self, adapters: Dict[str, str]) -> None:
         """Load the named adapters into one stack, each zero-padded to the
         largest rank (the padding's columns of A and rows of B contribute
-        nothing), behind a zero row 0 of scale 0."""
+        nothing), behind a zero row 0 of scale 0; on a tensor-parallel
+        context the stack is cut as one adapter is (``mesh.cut_lora``)."""
+        from nano_tpu_torch.parallel.mesh import cut_lora, full_config
         ctx = self.ctx
-        loaded = [(name, binfmt.read_lora(path, ctx.cfg))
+        loaded = [(name, binfmt.read_lora(path, full_config(ctx.cfg)))
                   for name, path in adapters.items()]
         rmax = max(bl.rank for _, bl in loaded)
 
@@ -223,6 +220,9 @@ class BatchedEngine:
                 [np.zeros_like(padded[0][k])] + [p[k] for p in padded],
                 axis=1)).to(ctx.device, ctx.dtype)
             for k in padded[0]}
+        tp = getattr(ctx.cfg, "tp", None)
+        if tp is not None:
+            self.lora_stack = cut_lora(self.lora_stack, tp)
         scales = [bl.alpha / bl.rank for _, bl in loaded]
         self.lora_scales = torch.tensor([0.0] + scales).to(ctx.device,
                                                            ctx.dtype)

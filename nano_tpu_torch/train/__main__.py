@@ -1,5 +1,6 @@
 """Train a Nano model on one CUDA device, or over the ranks of a torchrun
-launch (``mesh_shape`` in the train JSON: {"data": D, "model": M}).
+launch (``mesh_shape`` in the train JSON: {"data": D, "seq": Q, "pipe": P,
+"model": M}; "pipe" takes ``pp_microbatches``).
 
     python -m nano_tpu_torch.train -m config/model_168m.json -t config/pretrain.json
     torchrun --nproc_per_node 4 -m nano_tpu_torch.train -m ... -t ...

@@ -1,5 +1,5 @@
-"""Trainer — pretrain on one CUDA device, or data- and tensor-parallel
-over the ranks of a process group.
+"""Trainer — pretrain on one CUDA device, or data-, sequence-, pipeline-
+and tensor-parallel over the ranks of a process group.
 
 Port of ``nano_tpu/train/trainer.py``: AdamW with decay / no-decay
 parameter groups, cosine LR schedule with linear warmup, gradient clipping
@@ -11,22 +11,28 @@ with the same log lines.
 
 What differs from the JAX package, by design:
   * a mesh is a process group (``parallel.mesh``; launch with torchrun):
-    ``mesh_shape`` {"data": D, "model": M} over D * M ranks, "data"
-    defaulting to what the world leaves.  Every rank draws the same global
-    batch from the same seeded DataLoader and takes its rows; the loss is
-    taken as sums (``gpt.loss_sums``) whose mask sum is added over "data"
-    first, so it is the masked mean of the whole batch as in the JAX
-    Trainer; gradients are all-reduced over "data" in buckets; under
-    "model" > 1 the weights are cut Megatron-style (``mesh.shard_params``)
-    and the blocks sum over the model group, the global-norm clip adds a
-    cut leaf's squares over "model" and a whole leaf's once, and AdamW
+    ``mesh_shape`` {"data": D, "seq": Q, "pipe": P, "model": M} over
+    D * Q * P * M ranks, "data" defaulting to what the world leaves.
+    Every rank draws the same global batch from the same seeded DataLoader
+    and takes its rows (and under "seq" its columns); the loss is taken as
+    sums (``gpt.loss_sums``) over the mask sum of the whole batch, so that
+    their sum over "data" and "seq" is the masked mean of the whole batch
+    as in the JAX Trainer; gradients are all-reduced over "data" and
+    "seq" in buckets; under "seq" > 1 each rank's attention gathers k and
+    v over the seq group (``mesh.SequenceParallel``); under "model" > 1
+    the weights are cut Megatron-style (``mesh.shard_params``) and the
+    blocks sum over the model group; under "pipe" > 1 the layer stacks are
+    cut over the stages and a step is a GPipe schedule of
+    ``pp_microbatches`` microbatches (``parallel.pipeline``; it composes
+    with "data" only, as the JAX package's); the global-norm clip adds a
+    cut leaf's squares over its group and a whole leaf's once, and AdamW
     runs on the cut leaves.  Only rank 0 logs and writes; a checkpoint
-    holds the whole params and optimizer state (gathered over "model"), so
-    the JAX package loads its params and a resume on the same mesh cuts
-    them again.  The JAX Trainer shrinks "data" to a divisor of
-    batch_size; a process group cannot shrink, so this one raises there.
-    "seq", "pipe" (``pp_microbatches``) and LoRA under "model" > 1 are
-    ROADMAP item 11b and raise;
+    holds the whole params and optimizer state (gathered over "model" or
+    "pipe"), so the JAX package loads its params and a resume on the same
+    mesh cuts them again.  The JAX Trainer shrinks "data" to a divisor of
+    batch_size; a process group cannot shrink, so this one raises there;
+    "pipe" with "seq" > 1 raises too (the JAX package runs the seq ranks
+    of a pipeline as copies of each other);
   * the step is eager PyTorch: a Python loop over the accumulation
     microbatches, ``loss.backward()`` into ``.grad`` (the microbatches'
     gradients sum there and are divided by their number once), then the
@@ -43,7 +49,9 @@ the pretrained base of ``from_checkpoint``; the base is frozen (no
 gradient, untouched by AdamW, which holds the adapter's leaves alone), the
 loss scales the adapter by lora_alpha / lora_rank, and checkpoints hold
 the adapter alone (``is_lora``), which ``LLMContext.load_lora_checkpoint``
-serves on the base.
+serves on the base.  Under "model" > 1 the adapter is cut with the base's
+plan (``mesh.cut_lora``): the gradients of the whole A's of q, k and v
+are summed over the model group, the cut B's and wo's A stay local.
 
 On a CUDA device every layer's attention runs the flash-attention
 kernels, forward and backward (``ops.flash_attn``): in a LoRA fine-tune
@@ -69,6 +77,7 @@ from nano_tpu_torch.config import ModelConfig, TrainConfig
 from nano_tpu_torch.io import checkpoint as ckpt_io
 from nano_tpu_torch.models import gpt
 from nano_tpu_torch.parallel import mesh as meshlib
+from nano_tpu_torch.parallel import pipeline
 from nano_tpu_torch.tokenizer.trie import TrieTokenizer
 from nano_tpu_torch.train.data import DataLoader
 
@@ -128,11 +137,12 @@ class AdamW:
     """
 
     def __init__(self, cfg: TrainConfig, params: Dict[str, Any],
-                 cut: Optional[List[bool]] = None, model_group=None):
+                 cut: Optional[List[bool]] = None, cut_group=None):
         self.cfg = cfg
-        # tensor parallel: which leaves are cut over the model group, whose
-        # squares the global norm adds over it (a whole leaf's count once)
-        self.cut, self.model_group = cut, model_group
+        # tensor or pipeline parallel: which leaves are cut over the model
+        # or pipe group, whose squares the global norm adds over it (a
+        # whole leaf's count once)
+        self.cut, self.cut_group = cut, cut_group
         self.last_norm: Optional[torch.Tensor] = None  # before the clip
         self.schedule = make_lr_schedule(cfg)
         named = gpt.param_leaves(params)
@@ -183,14 +193,14 @@ class AdamW:
                 stored.copy_(m)
 
     def global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
-        """The gradients' global norm: over a model group, the cut leaves'
+        """The gradients' global norm: over a cut group, the cut leaves'
         squares summed over it and the whole leaves' once."""
-        if self.model_group is None:
+        if self.cut_group is None:
             return torch.sqrt(sum((g * g).sum() for g in grads))
         sq = [sum(((g * g).sum() for g, c in zip(grads, self.cut) if c == k),
                   torch.zeros((), device=grads[0].device))
               for k in (True, False)]
-        dist.all_reduce(sq[0], group=self.model_group)
+        dist.all_reduce(sq[0], group=self.cut_group)
         return torch.sqrt(sq[0] + sq[1])
 
     def state_dict(self) -> Dict[str, Any]:
@@ -347,22 +357,17 @@ class Trainer:
             self.log("initialized new model")
 
         n_params = gpt.count_params(self.params, mc)
+        trainable = self.lora if tc.use_lora else self.params
         self.full_shapes = {n: tuple(p.shape)
-                            for n, p in gpt.param_leaves(self.params)}
-        n_train = sum(int(p.numel()) for _, p in gpt.param_leaves(
-            self.lora if tc.use_lora else self.params))
+                            for n, p in gpt.param_leaves(trainable)}
+        n_train = sum(int(p.numel()) for _, p in gpt.param_leaves(trainable))
         self.fwd_config = mc
         if self.mesh is not None:
-            self.params, self.tp = meshlib.shard_params(
-                self.params, self.mesh, mc,
-                tensor_parallel=self.mesh.size(meshlib.MODEL_AXIS) > 1)
-        if self.tp is not None:
-            self.fwd_config = meshlib.local_config(mc, self.tp)
+            self._shard(mc)
         trainable = self.lora if tc.use_lora else self.params
         names = [n for n, _ in gpt.param_leaves(trainable)]
-        self.opt = AdamW(tc, trainable, [self._ranges(n) is not None
-                                         for n in names],
-                         None if self.tp is None else self.tp.group)
+        self.opt = AdamW(tc, trainable, [self._cut_of(n) is not None
+                                         for n in names], self._cut_group())
         if ck is not None and ck.has("opt") and not tc.use_lora:
             state = ck.load_opt_state()
             for key in ("mu", "nu"):
@@ -375,61 +380,111 @@ class Trainer:
 
     def _make_mesh(self) -> Optional[meshlib.Mesh]:
         """The mesh of mesh_shape over the process group, or None on one
-        device (no mesh asked for, and no group of more than one rank)."""
-        tc = self.train_config
+        device (no mesh asked for, and no group of more than one rank).
+        Raises for what the JAX package refuses too: "pipe" with "model"
+        or LoRA, layers that do not divide over "pipe", a sequence that
+        does not divide over "seq"; and for "pipe" with "seq"."""
+        tc, mc = self.train_config, self.model_config
         shape = {k: v for k, v in (tc.mesh_shape or {}).items() if v}
-        for axis in (meshlib.SEQ_AXIS, meshlib.PIPE_AXIS):
-            if shape.get(axis, 1) > 1:
-                raise NotImplementedError(
-                    f"mesh_shape {tc.mesh_shape}: the {axis!r} axis is "
-                    f"{meshlib.ITEM_11B}")
-        if tc.pp_microbatches:
-            raise NotImplementedError(f"pipeline microbatches are "
-                                      f"{meshlib.ITEM_11B}")
         n_model = shape.get(meshlib.MODEL_AXIS, 1)
-        if tc.use_lora and n_model > 1:
-            raise NotImplementedError(
-                f"LoRA under tensor parallelism is {meshlib.ITEM_11B}")
+        n_seq = shape.get(meshlib.SEQ_AXIS, 1)
+        n_pipe = shape.get(meshlib.PIPE_AXIS, 1)
+        if n_pipe > 1:
+            if n_model > 1 or tc.use_lora:
+                raise NotImplementedError(
+                    f"mesh_shape {tc.mesh_shape}: pipeline parallelism "
+                    f"composes with data parallelism only (not with "
+                    f"'model' or LoRA), as in the JAX package")
+            if n_seq > 1:
+                raise NotImplementedError(
+                    f"mesh_shape {tc.mesh_shape}: pipeline parallelism "
+                    f"with 'seq' > 1")
+            if mc.n_layer % n_pipe:
+                raise ValueError(f"n_layer={mc.n_layer} does not divide "
+                                 f"over pipe={n_pipe}")
+        if mc.block_size % n_seq:
+            raise ValueError(f"block_size {mc.block_size} does not divide "
+                             f"over seq={n_seq}")
         world = dist.get_world_size() if dist.is_initialized() else 1
         if math.prod(shape.values()) <= 1 and world == 1:
             return None
-        n_data = shape.get(meshlib.DATA_AXIS, world // n_model)
+        n_data = shape.get(meshlib.DATA_AXIS,
+                           max(world // (n_model * n_seq * n_pipe), 1))
         if tc.batch_size % n_data:
             raise ValueError(
                 f"batch_size {tc.batch_size} does not divide over data="
                 f"{n_data} (the JAX Trainer shrinks the axis; a process "
                 f"group cannot)")
+        if n_pipe > 1:
+            b_loc = tc.batch_size // n_data
+            if b_loc % (tc.pp_microbatches or pipeline.default_n_micro(
+                    n_pipe, b_loc)):
+                raise ValueError(
+                    f"{b_loc} rows a data rank do not divide into "
+                    f"pp_microbatches={tc.pp_microbatches}")
         if not dist.is_initialized():
             raise RuntimeError(
                 f"mesh_shape {tc.mesh_shape} asks for more than one rank: "
                 f"launch with torchrun (python -m torch.distributed.run "
                 f"--nproc_per_node N -m nano_tpu_torch.train ...)")
-        return meshlib.make_mesh(n_data=n_data, n_model=n_model)
+        return meshlib.make_mesh(n_data=n_data, n_model=n_model,
+                                 n_seq=n_seq, n_pipe=n_pipe)
 
-    def _ranges(self, path: str):
-        """The ranges of the params path's cut dim this rank holds, or None
-        where it holds the whole leaf."""
-        if self.tp is None:
+    @property
+    def _pp(self) -> bool:
+        """Whether the step is a pipeline's (a mesh with "pipe" > 1)."""
+        return (self.mesh is not None
+                and self.mesh.size(meshlib.PIPE_AXIS) > 1)
+
+    def _shard(self, mc: ModelConfig) -> None:
+        """This rank's part of the params (and adapter) on the mesh, its
+        tensor-parallel plan and the config its forward runs with."""
+        mesh, tc = self.mesh, self.train_config
+        if self._pp:
+            self.params = pipeline.shard_params_pp(self.params, mesh,
+                                                   mc.n_layer)
+            return
+        self.params, self.tp = meshlib.shard_params(
+            self.params, mesh, mc,
+            tensor_parallel=mesh.size(meshlib.MODEL_AXIS) > 1)
+        if self.tp is not None and tc.use_lora:
+            self.lora = {k: t.detach().requires_grad_(True) for k, t in
+                         meshlib.cut_lora(self.lora, self.tp).items()}
+        sp = meshlib.seq_parallel(mesh)
+        if self.tp is not None or sp is not None:
+            self.fwd_config = meshlib.local_config(mc, self.tp, sp)
+
+    def _cut_of(self, path: str):
+        """(dim, element ranges of it) of the params or adapter path that
+        this rank holds, or None where it holds the whole leaf."""
+        name = path.split("/")[-1]
+        if self._pp and path.startswith("blocks/"):
+            return 0, [pipeline.stage_layers(
+                self.model_config.n_layer, self.mesh.size(meshlib.PIPE_AXIS),
+                self.mesh.index(meshlib.PIPE_AXIS))]
+        if self.tp is None or self.tp.ranges(name) is None:
             return None
-        return self.tp.ranges(path.split("/")[-1])
+        return meshlib.train_dim(name), self.tp.ranges(name)
+
+    def _cut_group(self):
+        """The group over which the cut leaves are split (None: none is)."""
+        if self._pp:
+            return self.mesh.group(meshlib.PIPE_AXIS)
+        return None if self.tp is None else self.tp.group
 
     def _cut(self, path: str, t: torch.Tensor) -> torch.Tensor:
         """A whole leaf of the params path -> this rank's part."""
-        r = self._ranges(path)
-        if r is None:
-            return t
-        return meshlib.cut_ranges(t, meshlib.train_dim(path.split("/")[-1]),
-                                  r)
+        c = self._cut_of(path)
+        return t if c is None else meshlib.cut_ranges(t, *c)
 
     def _whole(self, path: str, t: torch.Tensor) -> torch.Tensor:
         """This rank's part of the params path -> the whole leaf (every
-        rank of the model group calls this)."""
-        r = self._ranges(path)
-        if r is None:
+        rank of the cut group calls this)."""
+        c = self._cut_of(path)
+        if c is None:
             return t
-        return meshlib.gather_leaf(t, self.full_shapes[path],
-                                   meshlib.train_dim(path.split("/")[-1]),
-                                   r, self.tp.group)
+        return meshlib.gather_leaf(t, self.full_shapes[path], *c,
+                                   self._cut_group())
 
     def _remat(self):
         tc = self.train_config
@@ -437,50 +492,83 @@ class Trainer:
                 else tc.remat)
 
     # ------------------------------------------------------------
-    def _loss(self, x: np.ndarray, y: np.ndarray, m: np.ndarray
-              ) -> torch.Tensor:
-        """The loss of a global batch: on a mesh, this rank's rows' share
-        of it (its nll sum over the mask sum of the whole batch), whose sum
-        over "data" is the loss."""
+    def _loss(self, x: np.ndarray, y: np.ndarray, m: np.ndarray,
+              backward: bool = False) -> torch.Tensor:
+        """The loss of a global batch (with `backward`, its gradient into
+        ``.grad`` too): on a mesh, this rank's share of it (its nll sum over
+        the mask sum of the whole batch), whose sum over the mesh
+        (``_mesh_sum``) is the loss."""
         to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
             self.device, torch.int64)
         tc = self.train_config
         lora = dict(lora=self.lora, lora_scale=(
             tc.lora_alpha / tc.lora_rank if tc.use_lora else 0.0))
-        if self.mesh is not None:
+        if self.mesh is None:
+            loss = gpt.loss_fn(self.params, to(x), to(y), to(m),
+                               self.model_config, dtype=self.dtype,
+                               remat=self._remat(), ce_chunk=tc.ce_chunk,
+                               **lora)
+        else:
+            # every rank holds the whole global batch: the mask sum of the
+            # whole batch needs no collective
+            denom = max(float(m.sum()), 1.0)
             x, y, m = meshlib.shard_batch((x, y, m), self.mesh)
-            s, n = gpt.loss_sums(self.params, to(x), to(y), to(m),
+            if self._pp:
+                return pipeline.pp_step(
+                    self.params, to(x), to(y), to(m), self.model_config,
+                    self.mesh, denom, self.dtype, tc.pp_microbatches,
+                    self._remat(), tc.ce_chunk, backward)
+            s, _ = gpt.loss_sums(self.params, to(x), to(y), to(m),
                                  self.fwd_config, dtype=self.dtype,
                                  remat=self._remat(), ce_chunk=tc.ce_chunk,
                                  **lora)
-            n = n.detach().clone()
-            dist.all_reduce(n, group=self.mesh.group(meshlib.DATA_AXIS))
-            return s / n.clamp(min=1.0)
-        return gpt.loss_fn(self.params, to(x), to(y), to(m),
-                           self.model_config, dtype=self.dtype,
-                           remat=self._remat(), ce_chunk=tc.ce_chunk, **lora)
+            loss = s / denom
+        if backward:
+            loss.backward()                  # sums into .grad
+        return loss.detach()
 
-    def _data_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """t summed over "data" (t itself on one device)."""
+    def _mesh_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """A rank's share of the loss summed over the axes that split the
+        batch ("data", "seq") and the stages ("pipe"); t itself on one
+        device."""
         if self.mesh is not None:
-            dist.all_reduce(t, group=self.mesh.group(meshlib.DATA_AXIS))
+            for axis in (meshlib.DATA_AXIS, meshlib.SEQ_AXIS,
+                         meshlib.PIPE_AXIS):
+                if self.mesh.size(axis) > 1:
+                    dist.all_reduce(t, group=self.mesh.group(axis))
         return t
 
-    # gradient bytes of one all-reduce over "data"
+    # gradient bytes of one all-reduce over "data" or "seq"
     BUCKET_BYTES = 256 << 20
+
+    # whole leaves that a rank uses only in part under "model": the heads'
+    # qk norms, and an adapter's A of q, k and v (its B cut on the heads)
+    _PARTIAL_UNDER_TP = ("q_norm", "k_norm", "wq_a", "wk_a", "wv_a")
 
     def _reduce_grads(self, grads: List[torch.Tensor]) -> None:
         """In place: sum over the model group the gradients of whole leaves
-        that the rank's heads use in part (q_norm / k_norm), then every
-        gradient over "data", in buckets of up to BUCKET_BYTES."""
+        that the rank's heads use in part (``_PARTIAL_UNDER_TP``), over the
+        stages those of the leaves every stage holds whole (embeddings,
+        norm, head: stage 0 and the last one read them), then every
+        gradient over "data" and "seq", in buckets of up to
+        BUCKET_BYTES."""
         names = self.opt.names
         if self.tp is not None:
             for n, g in zip(names, grads):
-                if n.split("/")[-1] in ("q_norm", "k_norm"):
+                if n.split("/")[-1] in self._PARTIAL_UNDER_TP:
                     dist.all_reduce(g, group=self.tp.group)
-        if self.mesh is None or self.mesh.size(meshlib.DATA_AXIS) == 1:
-            return
-        group = self.mesh.group(meshlib.DATA_AXIS)
+        if self._pp:
+            for n, g in zip(names, grads):
+                if not n.startswith("blocks/"):
+                    dist.all_reduce(g, group=self.mesh.group(
+                        meshlib.PIPE_AXIS))
+        for axis in (meshlib.DATA_AXIS, meshlib.SEQ_AXIS):
+            if self.mesh.size(axis) > 1:
+                self._bucketed_sum(grads, self.mesh.group(axis))
+
+    def _bucketed_sum(self, grads: List[torch.Tensor], group) -> None:
+        """Every gradient summed over `group` in place, in buckets of up to
+        BUCKET_BYTES."""
         bucket: List[torch.Tensor] = []
         for i, g in enumerate(grads):
             bucket.append(g)
@@ -499,11 +587,8 @@ class Trainer:
         microbatches' gradients; -> the microbatches' mean loss, on the
         device."""
         A = xs.shape[0]
-        losses = []
-        for a in range(A):
-            loss = self._loss(xs[a], ys[a], ms[a])
-            loss.backward()                  # sums into .grad
-            losses.append(loss.detach())
+        losses = [self._loss(xs[a], ys[a], ms[a], backward=True)
+                  for a in range(A)]
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.opt.params]
         if A > 1:
@@ -513,11 +598,11 @@ class Trainer:
         self.opt.update(grads)
         for p in self.opt.params:
             p.grad = None
-        return self._data_sum(torch.stack(losses).mean())
+        return self._mesh_sum(torch.stack(losses).mean())
 
     @torch.no_grad()
     def _eval_step(self, x, y, m) -> float:
-        return float(self._data_sum(self._loss(x, y, m)))
+        return float(self._mesh_sum(self._loss(x, y, m)))
 
     # ------------------------------------------------------------
     def load_data(self) -> None:
@@ -575,17 +660,17 @@ class Trainer:
             else:
                 os.makedirs(dest, exist_ok=True)
                 path = os.path.join(dest, self.ckpt_filename)
-        params = None if tc.use_lora else self.params
+        trainable = self.lora if tc.use_lora else self.params
         opt_state = self.opt.state_dict()
-        if self.tp is not None:
-            params = gpt.map_leaves_with_path(self._whole, params)
+        if self._cut_group() is not None:
+            trainable = gpt.map_leaves_with_path(self._whole, trainable)
             for key in ("mu", "nu"):
                 opt_state[key] = {n: self._whole(n, t)
                                   for n, t in opt_state[key].items()}
         if self.is_main:
             ckpt_io.save_checkpoint(
-                path, params=params,
-                lora=self.lora if tc.use_lora else None,
+                path, params=None if tc.use_lora else trainable,
+                lora=trainable if tc.use_lora else None,
                 opt_state=opt_state,
                 step=self.step_count,
                 model_config=self.model_config.to_dict(),

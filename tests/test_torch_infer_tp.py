@@ -248,10 +248,18 @@ def test_every_rank_takes_the_same_tokens(served):
 
 
 def test_sharded_contexts_refuse_what_is_item_11b(served):
+    """Sequence- and pipeline-parallel meshes are made over the four ranks
+    (once refused as ROADMAP item 11b), and a sharded context reads LoRA
+    files; what stays refused: meshes that do not match the ranks, a model
+    file given as an adapter, a second shard."""
     got = served["ranks"][0]["tiny_f32/tp2/refusals"]
-    for what in ("seq", "pipe", "lora", "adapters"):
-        assert got[what].startswith("NotImplementedError") and \
-            "ROADMAP queue 1 item 11b" in got[what], (what, got[what])
+    assert got["meshes"] == [{"data": 2, "seq": 2, "model": 1},
+                             {"data": 1, "pipe": 2, "model": 2}]
+    for what in ("seq", "pipe"):
+        assert got[what].startswith("ValueError") and \
+            "does not match the 4 ranks" in got[what], (what, got[what])
+    for what in ("lora", "adapters"):
+        assert got[what] == "ValueError: not a LoRA .bin file", got[what]
     assert got["twice"].startswith("ValueError")
 
 

@@ -815,6 +815,65 @@ def test_flash_attn_bwd_matches_plain_on_strided_views(D, rep, dtype):
             assert torch.equal(a, c), (name, S)
 
 
+# K4's offset form (a rank of sequence parallelism): (B, Sq, Skv, offset,
+# H, KV, D) with offsets on a 64-row tile and inside one, Sq < Skv with
+# keys past the last query, Sq not a multiple of the tile
+OFFSET_CASES = [(2, 256, 512, 256, 16, 8, 48), (2, 256, 512, 0, 16, 8, 48),
+                (2, 100, 512, 77, 16, 8, 48), (1, 130, 300, 131, 4, 2, 128),
+                (2, 64, 256, 192, 8, 2, 64), (2, 37, 200, 5, 4, 1, 16),
+                (1, 200, 256, 56, 8, 8, 32), (2, 65, 130, 65, 4, 4, 48)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,offset,H,KV,D", OFFSET_CASES)
+def test_flash_attention_offset_form_matches_plain(B, Sq, Skv, offset, H, KV,
+                                                   D, dtype):
+    """Queries at positions offset .. offset + Sq - 1 against Skv keys:
+    out and lse against the plain version, dq, dk, dv against it
+    differentiated by autograd (tolerances as above; lse 1e-5 absolute
+    in f32 and 1e-3 in bf16), two backward runs bit-equal, dk and dv zero
+    past the last query, and the rows of the call on the whole sequence
+    within the plain tolerance of the offset call's."""
+    _need_card()
+    rng = np.random.RandomState(Sq + offset + D)
+    mk = lambda *shape: torch.from_numpy(
+        rng.randn(*shape).astype(np.float32)).to("cuda", dtype)
+    qf, k, v = mk(B, Skv, H, D), mk(B, Skv, KV, D), mk(B, Skv, KV, D)
+    q = qf[:, offset:offset + Sq].contiguous()
+    g = mk(B, Sq, H * D)
+    out, lse = tfa.flash_attn_fwd(q, k, v, offset)
+    want, want_lse = tfa.flash_attn_fwd_plain(q, k, v, offset)
+    f32 = dtype == torch.float32
+    tol = (1e-5 if f32 else 2e-2) * want.float().abs().max().item()
+    assert (out.float() - want.float()).abs().max().item() <= tol
+    assert (lse - want_lse).abs().max().item() <= (1e-5 if f32 else 1e-3)
+    full, full_lse = tfa.flash_attn_fwd(qf, k, v)
+    rows = full[:, offset:offset + Sq]
+    assert (rows.float() - out.float()).abs().max().item() <= tol
+    assert (full_lse[..., offset:offset + Sq] - lse).abs().max().item() <= \
+        (1e-5 if f32 else 1e-3)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    n0 = (tfa.flash_attention.launches, tfa.flash_attention.backward_launches)
+    tfa.flash_attention(*leaves, offset=offset).backward(g)
+    again = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    tfa.flash_attention(*again, offset=offset).backward(g)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention.launches,
+            tfa.flash_attention.backward_launches) == (n0[0] + 2, n0[1] + 2)
+    ref = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    tfa.flash_attention_plain(*ref, offset=offset).backward(g)
+    for name, a, b, c in zip("qkv", leaves, ref, again):
+        assert a.grad.shape == b.grad.shape and a.grad.dtype == dtype
+        lim = (1e-4 if f32 else 2e-2) * b.grad.float().abs().max().item()
+        err = (a.grad.float() - b.grad.float()).abs().max().item()
+        assert err <= lim + 1e-5, (name, err, lim)
+        assert torch.equal(a.grad, c.grad), name
+    if offset + Sq < Skv:
+        assert not leaves[1].grad[:, offset + Sq:].any()
+        assert not leaves[2].grad[:, offset + Sq:].any()
+
+
 @pytest.mark.cuda
 def test_flash_attention_takes_strided_views_and_refuses_other_head_dims():
     _need_card()

@@ -372,17 +372,29 @@ def test_batch_rows_are_contiguous_over_data():
 # ---------------------------------------------------------------------
 
 @pytest.mark.parametrize("over,exc,match", [
-    (dict(mesh_shape={"data": 2, "seq": 2}), NotImplementedError,
-     "'seq' axis is ROADMAP queue 1 item 11b"),
-    (dict(mesh_shape={"pipe": 2}), NotImplementedError, "item 11b"),
-    (dict(pp_microbatches=4), NotImplementedError, "item 11b"),
-    (dict(mesh_shape={"model": 2}, use_lora=True,
-          from_checkpoint="unread.npz"), NotImplementedError, "item 11b"),
+    (dict(mesh_shape={"data": 2, "seq": 3}), ValueError,
+     "block_size 128 does not divide over seq=3"),
+    (dict(mesh_shape={"pipe": 2, "model": 2}), NotImplementedError,
+     "composes with data parallelism only"),
+    (dict(mesh_shape={"pipe": 2}, pp_microbatches=3), ValueError,
+     "do not divide into pp_microbatches=3"),
+    (dict(mesh_shape={"pipe": 2}, use_lora=True,
+          from_checkpoint="unread.npz"), NotImplementedError,
+     "not with 'model' or LoRA"),
+    (dict(mesh_shape={"pipe": 4}), ValueError,
+     "n_layer=2 does not divide over pipe=4"),
+    (dict(mesh_shape={"pipe": 2, "seq": 2}), NotImplementedError,
+     "'seq' > 1"),
     (dict(mesh_shape={"data": 3}), ValueError, "does not divide over data"),
     (dict(mesh_shape={"data": 2, "model": 2}), RuntimeError, "torchrun"),
-], ids=["seq", "pipe", "pp_microbatches", "lora_tp", "data_shrink",
-        "no_group"])
+], ids=["seq", "pipe", "pp_microbatches", "pipe_lora", "pipe_layers",
+        "pipe_seq", "data_shrink", "no_group"])
 def test_trainer_refusals(tmp_path, over, exc, match):
+    """What the Trainer refuses before it makes a group: the JAX
+    package's own refusals (a sequence that does not divide over "seq",
+    "pipe" with "model" or LoRA, layers that do not divide over "pipe",
+    microbatches that do not divide a data rank's rows), "pipe" with
+    "seq", and the meshes a process group cannot give."""
     tc = dict(batch_size=4, dataset_path=[["a", "b"]], **over)
     t = ttrainer.Trainer(TINY, tc, max_steps=1, device="cpu")
     with pytest.raises(exc, match=match):
@@ -402,7 +414,7 @@ def test_nccl_refuses_two_ranks_on_one_card(monkeypatch):
     assert not torch.distributed.is_initialized()
     monkeypatch.delenv("RANK")
     assert meshlib.maybe_distributed_init() is False
-    with pytest.raises(NotImplementedError, match="item 11b"):
+    with pytest.raises(RuntimeError, match="process group"):
         meshlib.make_mesh(n_seq=2)
     with pytest.raises(RuntimeError, match="process group"):
         meshlib.make_mesh(n_model=2)

@@ -254,7 +254,8 @@ def test_eval_gated_checkpoints_and_the_log_lines(corpus_shards, tmp_path,
 
 @pytest.mark.parametrize("over,match", [
     (dict(use_lora=True), "LoRA"),
-    (dict(mesh_shape={"data": 4, "seq": 2}), "item 11b"),
+    (dict(mesh_shape={"pipe": 2, "model": 2}),
+     "pipeline parallelism composes with data parallelism only"),
 ])
 def test_trainer_refuses_what_is_not_ported(corpus_shards, tmp_path, over,
                                             match):

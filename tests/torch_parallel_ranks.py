@@ -1,4 +1,4 @@
-"""Rank functions for the port's tensor- and data-parallel CPU tests.
+"""Rank functions for the port's parallel CPU tests.
 
 ``nano_tpu_torch.parallel.launch.run`` starts them as the ranks of a gloo
 group; each child imports this module by name, so it imports only torch,
@@ -9,7 +9,7 @@ package in its own process.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -106,10 +106,13 @@ def serve(files: Dict[str, str], widths: List[int]) -> Dict[str, Any]:
 
 def refusals(ctx, mesh, path: str) -> Dict[str, str]:
     """What a sharded context and the mesh refuse, by message (`path`: a
-    file read as a LoRA adapter, which is refused before it is read)."""
-    got: Dict[str, str] = {}
-    for what, fn in (("seq", lambda: meshlib.make_mesh(n_model=1, n_seq=2)),
-                     ("pipe", lambda: meshlib.make_mesh(n_model=1, n_pipe=2)),
+    model file read as a LoRA adapter, which the reader refuses), and the
+    shapes of the "seq" and "pipe" meshes over the four ranks."""
+    got: Dict[str, Any] = {
+        "meshes": [meshlib.make_mesh(n_seq=2).shape,
+                   meshlib.make_mesh(n_pipe=2, n_model=2).shape]}
+    for what, fn in (("seq", lambda: meshlib.make_mesh(n_seq=3)),
+                     ("pipe", lambda: meshlib.make_mesh(n_pipe=8)),
                      ("lora", lambda: ctx.load_lora(path)),
                      ("adapters", lambda: BatchedEngine(ctx, 2, {"a": path})),
                      ("twice", lambda: ctx.shard(mesh))):
@@ -123,10 +126,12 @@ def refusals(ctx, mesh, path: str) -> Dict[str, str]:
 
 def train(model_config: dict, runs: List[Dict[str, Any]]) -> List[Any]:
     """Port Trainer runs on this rank, one after the other: each run a dict
-    of the train config, max_steps and is_continued_pretrain ->
+    of the train config, max_steps and is_continued_pretrain (and for a
+    LoRA fine-tune the adapter it starts from, "lora") ->
     (loss_history, the last step's gradient norm before the clip, the
     mesh's shape) of each."""
-    from nano_tpu_torch.train.trainer import Trainer
+    from nano_tpu_torch.models import gpt
+    from nano_tpu_torch.train.trainer import AdamW, Trainer
     out = []
     for run in runs:
         t = Trainer(model_config, run["train_config"],
@@ -135,8 +140,138 @@ def train(model_config: dict, runs: List[Dict[str, Any]]) -> List[Any]:
                     is_continued_pretrain=run.get("continued", False),
                     device="cpu")
         t.init()
+        if "lora" in run:
+            # a LoRA fine-tune from the given whole adapter (the JAX
+            # Trainer's fresh one), cut as the Trainer cuts its own
+            lora = {k: torch.from_numpy(v) for k, v in run["lora"].items()}
+            if t.tp is not None:
+                lora = meshlib.cut_lora(lora, t.tp)
+            t.lora = {k: v.clone().requires_grad_(True)
+                      for k, v in lora.items()}
+            names = [n for n, _ in gpt.param_leaves(t.lora)]
+            t.opt = AdamW(t.train_config, t.lora,
+                          [t._cut_of(n) is not None for n in names],
+                          t._cut_group())
         t.load_data()
         t.start()
         out.append((t.loss_history, float(t.opt.last_norm),
                     dict(t.mesh.shape)))
+    return out
+
+
+# ---------------------------------------------------------------------
+# sequence and pipeline parallelism, LoRA under tensor parallelism
+# ---------------------------------------------------------------------
+
+def transport(shape: Dict[str, int]) -> Dict[str, Any]:
+    """The transport of ``parallel.mesh`` over the seq group of a mesh of
+    `shape`: -> the gathered and reduce-scattered tensors, and the tensor
+    a send / recv moved, natively and staged through host memory as for
+    gloo and CUDA tensors (forced here on CPU tensors)."""
+    mesh = meshlib.make_mesh(**{f"n_{k}": v for k, v in shape.items()})
+    group, s = mesh.group(meshlib.SEQ_AXIS), mesh.index(meshlib.SEQ_AXIS)
+    x = torch.arange(6, dtype=torch.float32).reshape(1, 2, 3) + 10 * s
+    out: Dict[str, Any] = dict(
+        gather=meshlib.all_gather(x.to(torch.bfloat16), group, 1),
+        scatter=meshlib.reduce_scatter(
+            (torch.arange(8, dtype=torch.float32).reshape(1, 4, 2)
+             * (s + 1)).to(torch.bfloat16), group, 1))
+    peer = mesh.rank_at(meshlib.SEQ_AXIS, 1 - s)
+    for path, forced in (("native", False), ("staged", True)):
+        real = meshlib._staged
+        meshlib._staged = lambda t, g: forced
+        try:
+            if s == 0:
+                meshlib.send(x, peer, group)
+            else:
+                out[path] = meshlib.recv(x.shape, x.dtype, "cpu", peer,
+                                         group)
+        finally:
+            meshlib._staged = real
+    return out
+
+
+def seq_file(model_config: dict, runs: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Every rank check of tests/test_torch_seq_parallel.py: the
+    transport, then the Trainer runs."""
+    return dict(transport=transport({"data": 2, "seq": 2}),
+                train=train(model_config, runs))
+
+
+def _greedy_ctx(path: str, mesh, lora: Optional[str] = None,
+                before: bool = False, **kw) -> engine.LLMContext:
+    """A context of `path` sharded over `mesh` with the LoRA file `lora`
+    attached after the shard, or before it where `before`."""
+    ctx = _ctx(path, **kw)
+    if lora and before:
+        ctx.load_lora(lora)
+    ctx.shard(mesh)
+    if lora and not before:
+        ctx.load_lora(lora)
+    return ctx
+
+
+def batched_adapters(ctx, adapters: Dict[str, str], joins, n: int = 10
+                     ) -> Dict[int, List[int]]:
+    """tests/test_torch_lora.py's per-slot run: four of the five joins at
+    once, each with its adapter (or the base), the fifth in the first slot
+    freed -> {join: tokens}."""
+    be = BatchedEngine(ctx, n_slots=4, adapters=adapters)
+    got: Dict[int, List[int]] = {}
+    live: Dict[int, int] = {}
+
+    def join(i):
+        prompt, name = joins[i]
+        slot, first = be.add(ctx.encode(prompt), max_new_tokens=n,
+                             temperature=0.0, repetition_penalty=1.0,
+                             adapter=name)
+        got[i], live[slot] = [first], i
+
+    for i in range(4):
+        join(i)
+    while be.n_active:
+        res = be.step_burst(2)
+        for slot, toks in res.items():
+            got[live[slot]].extend(toks)
+        for slot in [s for s, e in res.ended.items() if e]:
+            del live[slot]
+            be.release(slot)
+            if 4 not in got:
+                join(4)
+    return got
+
+
+def lora_tp_file(files: Dict[str, str], joins, model_config: dict,
+                 runs: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Every rank check of tests/test_torch_lora_tp.py at TP = 2: greedy
+    streams of the f32 and Q80 models with an adapter attached after and
+    before the shard, a swap, an unload, a clone, the adapter of a LoRA
+    checkpoint, speculation; per-slot BatchedEngine streams; the cut
+    adapter's shapes; then a LoRA fine-tune (``train``)."""
+    mesh = meshlib.make_mesh(n_model=2)
+    out: Dict[str, Any] = {}
+    for name in ("f32", "q80"):
+        path = files[name]
+        ctx = _greedy_ctx(path, mesh, files["a"])
+        out[f"{name}/a"] = greedy(ctx, "abcdef")
+        out[f"{name}/a_before"] = greedy(
+            _greedy_ctx(path, mesh, files["a"], before=True), "abcdef")
+        clone = ctx.clone_with_lora(files["b"])
+        out[f"{name}/b_clone"] = greedy(clone, "abcdef")
+        ctx.load_lora(files["b"])
+        out[f"{name}/b"] = greedy(ctx, "abcdef")
+        ctx.unload_lora()
+        out[f"{name}/base"] = greedy(ctx, "abcdef")
+        ctx.load_lora_checkpoint(files["ckpt"])
+        out[f"{name}/ckpt"] = greedy(ctx, "abcdef")
+        out[f"{name}/on_device"] = engine.generate_on_device(
+            clone, clone.encode("abcdef"), 12).tolist()
+    spec = _greedy_ctx(files["f32"], mesh, files["b"], spec_k=4)
+    out["spec"] = greedy(spec, "abcabcabcabc", 16)
+    base = _greedy_ctx(files["f32"], mesh)
+    out["batched"] = batched_adapters(
+        base, {"a": files["a"], "b": files["b"]}, joins)
+    cut = _greedy_ctx(files["f32"], mesh, files["b"])
+    out["shapes"] = {k: tuple(t.shape) for k, t in cut.lora.items()}
+    out["train"] = train(model_config, runs)
     return out
