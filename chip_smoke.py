@@ -297,6 +297,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1737,10 +1738,10 @@ def spec_phase(torch, np, h):
         here for the measurement."""
         saved = gpt.block
 
-        def block(x, layer, cfg_, cos, sin, mask, *a):
+        def block(x, layer, cfg_, cos, sin, mask, *a, **kw):
             if mask is not None:
                 mask = torch.cat([mask[..., :1], mask[..., :-1]], dim=-1)
-            return saved(x, layer, cfg_, cos, sin, mask, *a)
+            return saved(x, layer, cfg_, cos, sin, mask, *a, **kw)
 
         if on:
             gpt.block = block
@@ -2464,6 +2465,45 @@ def trained_toy_phase(torch, np, h):
     del params
 
 
+def qwen_gguf(torch, g, qcfg, work):
+    """Phase 7b's file: a Qwen3-0.6B-shaped model (qcfg) of dense random
+    weights drawn from the generator `g` (seeded SEED + 13; its state
+    advances) with a byte-level BPE of the model's vocabulary size,
+    written by the port's write_gguf as Q8_0 under `work`.  -> its path."""
+    from nano_tpu_torch.io import gguf
+    from nano_tpu_torch.tokenizer.bpe import BpeTokenizer
+    dev = g.device
+    QL, E, V, F = qcfg.n_layer, qcfg.n_embd, qcfg.vocab_size, qcfg.n_hidden
+    HD, KVD, D = (qcfg.n_head * qcfg.head_dim, qcfg.n_kv_head * qcfg.head_dim,
+                  qcfg.head_dim)
+
+    def rnd(*shape, std=0.02, mean=0.0):
+        return torch.randn(*shape, device=dev, generator=g) * std + mean
+
+    qparams = {"tok_embeddings": rnd(V, E), "norm": rnd(E, mean=1.0),
+               "blocks": {"attn_norm": rnd(QL, E, mean=1.0),
+                          "ffn_norm": rnd(QL, E, mean=1.0),
+                          "q_norm": rnd(QL, D, mean=1.0),
+                          "k_norm": rnd(QL, D, mean=1.0),
+                          "wq": rnd(QL, E, HD), "wk": rnd(QL, E, KVD),
+                          "wv": rnd(QL, E, KVD), "wo": rnd(QL, HD, E),
+                          "w1": rnd(QL, E, F), "w2": rnd(QL, F, E),
+                          "w3": rnd(QL, E, F)}}
+    # a byte-level BPE vocabulary of the model's size: the 256 bytes, then
+    # tokens no merge builds
+    vocab = [bytes([i]) for i in range(256)] + [
+        b"<t%d>" % i for i in range(V - 256)]
+    btok = BpeTokenizer(vocab, [0.0] * V)
+    gpath = os.path.join(work, "qwen3_0.6b_q8_0.gguf")
+    t0 = time.time()
+    gguf.write_gguf(gpath, qparams, qcfg, btok, arch="qwen3", quant="q8_0")
+    log(f"[export] write_gguf Qwen3-0.6B shape ({QL} layers, width {E}, "
+        f"vocab {V}), dense f32 weights from seed {SEED + 13}, Q8_0: "
+        f"{os.path.getsize(gpath)} bytes in {time.time() - t0:.1f} s")
+    del qparams
+    return gpath
+
+
 def export_phase(torch, np, h):
     """Phase 7, export and import.  7a: the Nano-168M checkpoint that phase
     6 trained (h.ckpt, 24 layers, width 768) served by from_checkpoint and
@@ -2489,7 +2529,6 @@ def export_phase(torch, np, h):
     from nano_tpu_torch.io.checkpoint import Checkpoint
     from nano_tpu_torch.ops import qmatmul, sampling
     from nano_tpu_torch.ops.q4k import Q4KTensor
-    from nano_tpu_torch.tokenizer.bpe import BpeTokenizer
     dev, names, card = h.dev, h.names, h.card
     greedy = sampling.SamplerConfig(temperature=0.0, repetition_penalty=1.0)
     os.makedirs(h.work, exist_ok=True)
@@ -2624,31 +2663,7 @@ def export_phase(torch, np, h):
     HD, KVD, D = (qcfg.n_head * qcfg.head_dim, qcfg.n_kv_head * qcfg.head_dim,
                   qcfg.head_dim)
     g = torch.Generator(device=dev).manual_seed(SEED + 13)
-
-    def rnd(*shape, std=0.02, mean=0.0):
-        return torch.randn(*shape, device=dev, generator=g) * std + mean
-
-    qparams = {"tok_embeddings": rnd(V, E), "norm": rnd(E, mean=1.0),
-               "blocks": {"attn_norm": rnd(QL, E, mean=1.0),
-                          "ffn_norm": rnd(QL, E, mean=1.0),
-                          "q_norm": rnd(QL, D, mean=1.0),
-                          "k_norm": rnd(QL, D, mean=1.0),
-                          "wq": rnd(QL, E, HD), "wk": rnd(QL, E, KVD),
-                          "wv": rnd(QL, E, KVD), "wo": rnd(QL, HD, E),
-                          "w1": rnd(QL, E, F), "w2": rnd(QL, F, E),
-                          "w3": rnd(QL, E, F)}}
-    # a byte-level BPE vocabulary of the model's size: the 256 bytes, then
-    # tokens no merge builds
-    vocab = [bytes([i]) for i in range(256)] + [
-        b"<t%d>" % i for i in range(V - 256)]
-    btok = BpeTokenizer(vocab, [0.0] * V)
-    gpath = os.path.join(h.work, "qwen3_0.6b_q8_0.gguf")
-    t0 = time.time()
-    gguf.write_gguf(gpath, qparams, qcfg, btok, arch="qwen3", quant="q8_0")
-    log(f"[export] write_gguf Qwen3-0.6B shape ({QL} layers, width {E}, "
-        f"vocab {V}), dense f32 weights from seed {SEED + 13}, Q8_0: "
-        f"{os.path.getsize(gpath)} bytes in {time.time() - t0:.1f} s")
-    del qparams
+    gpath = qwen_gguf(torch, g, qcfg, h.work)
     t0 = time.time()
     gctx = engine.LLMContext.from_gguf(gpath, device=dev, sampler=greedy)
     gb = gctx.params["blocks"]
@@ -2684,9 +2699,7 @@ def export_phase(torch, np, h):
     gguf.convert_gguf(gpath, qbin, quant="q80", group_size=256)
     log(f"[export] convert_gguf -> Q80 gs 256 .bin "
         f"({os.path.getsize(qbin)} bytes) in {time.time() - t0:.1f} s")
-    os.remove(gpath)
     bctx = engine.LLMContext.from_bin(qbin, device=dev, sampler=greedy)
-    os.remove(qbin)
     if not bctx.params["blocks"]["wqkv"].w8a8:
         raise AssertionError("the converted .bin did not take the W8A8 form")
     # in turns: the GGUF model (new), its "before" and the converted .bin
@@ -2730,6 +2743,7 @@ def export_phase(torch, np, h):
     res["times"] = rows_form_times(torch, h.timer, gb, gctx.params["output_q"],
                                    QL, card, g, "export")
     res["gctx"] = gctx                # phase 8 serves it with an adapter
+    res["gguf"], res["qbin"] = gpath, qbin      # phase 11 serves both files
     del gctx, gb, wqkv
     log(f"[export] 7b in {time.time() - t7:.1f} s")
     return res
@@ -2786,6 +2800,8 @@ def bench_export(torch):
         nano_control_prompt=nano_ids[1000:1000 + EXPORT_PROMPT]))
     os.remove(ckpt)
     del res["gctx"]
+    os.remove(res.pop("gguf"))
+    os.remove(res.pop("qbin"))
     log(f"[bench export] {res}")
 
 
@@ -4706,6 +4722,567 @@ def bench_gloo(torch):
             f"tensors over gloo: {got}")
 
 
+# Phase 11, the frontends (frontend_phase).  11a: a Session on phase 5's
+# Q80 model draws FRONT_TOKENS greedy tokens after its 64-token prompt in
+# each observing mode; a summary row's mean|x| must lie within
+# FRONT_MEAN_TOL (relative) of the mean of |the callback mode's data| for
+# the same tap (the two modes see the same bf16 tensor; only the order of
+# the f32 sums differs).
+FRONT_TOKENS = 16
+FRONT_MEAN_TOL = 1e-3
+# 11b: WS_CLIENTS concurrent in-process clients of WSServer, half JSON
+# asking WS_TOKENS greedy tokens, half the reference frame (which takes the
+# server's 256); one JSON client sends STOP after WS_STOP_AFTER tokens
+WS_CLIENTS = 8
+WS_TOKENS = 64
+WS_STOP_AFTER = 16
+WS_BURSTS = (1, 4)
+# 11c / 11d: tokens a completion, a gateway request and the CLI draw
+OPENAI_TOKENS = 32
+GATEWAY_TOKENS = 24
+CLI_TOKENS = 32
+
+
+class _Conn:
+    """An in-process WebSocket connection of phase 11: the server's recv()
+    takes the client's messages from a queue (CLOSE: the client went
+    away), its send() appends to `frames`."""
+    CLOSE = object()
+
+    def __init__(self):
+        import asyncio
+        self.inbox = asyncio.Queue()
+        self.frames = []
+        self.changed = asyncio.Event()
+
+    async def recv(self):
+        m = await self.inbox.get()
+        if m is _Conn.CLOSE:
+            raise ConnectionError("closed")
+        return m
+
+    async def send(self, m):
+        self.frames.append(m)
+        self.changed.set()
+
+    async def wait_for(self, pred, timeout=300.0):
+        import asyncio
+        deadline = time.monotonic() + timeout
+        while not pred(self.frames):
+            self.changed.clear()
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(f"{len(self.frames)} frames so far")
+            try:
+                await asyncio.wait_for(self.changed.wait(), left)
+            except asyncio.TimeoutError:
+                pass
+
+
+def _reply_ended(frame) -> bool:
+    """The frame that ends a WSServer / gateway reply: the reference
+    protocol's empty frame, or JSON that is no token frame."""
+    if frame == "":
+        return True
+    try:
+        obj = json.loads(frame)
+    except (TypeError, ValueError):
+        return False
+    return isinstance(obj, dict) and not ("token" in obj or (
+        "text" in obj and "done" not in obj))
+
+
+async def _converse(handler, msg, stop_after=None):
+    """One request `msg` on a fresh connection to `handler` (STOP after
+    `stop_after` frames) -> its frames, up to the end of the reply."""
+    import asyncio
+    conn = _Conn()
+    task = asyncio.create_task(handler(conn))
+    conn.inbox.put_nowait(msg)
+    if stop_after is not None:
+        await conn.wait_for(lambda f: len(f) >= stop_after)
+        conn.inbox.put_nowait("STOP")
+    await conn.wait_for(lambda f: bool(f) and _reply_ended(f[-1]))
+    conn.inbox.put_nowait(_Conn.CLOSE)
+    await asyncio.wait_for(task, 120)
+    return conn.frames
+
+
+def _json_reply(frames):
+    """(token ids, their texts, the done frame) of a JSON reply."""
+    objs = [json.loads(f) for f in frames]
+    toks = [o for o in objs if "token" in o]
+    return ([o["token"] for o in toks], [o["text"] for o in toks],
+            objs[-1])
+
+
+def optional_packages() -> str:
+    """Which of the frontends' optional packages import here: websockets
+    (the WebSocket transports), aiohttp (the OpenAI HTTP transport),
+    transformers (the gateway's HF backend)."""
+    import importlib
+    out = []
+    for name in ("websockets", "aiohttp", "transformers"):
+        try:
+            mod = importlib.import_module(name)
+            out.append(f"{name} {getattr(mod, '__version__', '?')}")
+        except Exception as e:            # absent or broken: say which
+            out.append(f"{name} no ({type(e).__name__})")
+    return ", ".join(out)
+
+
+def frontend_phase(torch, np, h):
+    """Phase 11, the frontends, through the port's servers in-process.
+
+    11a observe: phase 5's Q80 model (h.q80 on h.dev, h.cfg, h.tok, h.prompt)
+    in a Session with no observer, a callback observer and a summary
+    observer (NANO_TPU_OBSERVE=fallback), twice each (the second times the
+    steps): every phase fires, layer phases at every layer; each phase's
+    event count is the prefill's plus one a step (SAMPLE: one a step); the
+    streams torch.equal; launches exact (decode_counts) in every mode; the
+    summary step one graph replay; the summary RESIDUAL rows within
+    FRONT_MEAN_TOL of the callback data's mean|x|; ms a step by mode.
+    11b WebSocket: WSServer (8 slots) on the Q80 model at each of WS_BURSTS:
+    WS_CLIENTS concurrent clients (half JSON, WS_TOKENS tokens, one of them
+    STOPped after WS_STOP_AFTER; half the reference frame), each reply equal
+    to the same request served alone by the same server (where one parts,
+    the alone stream's top-2 margin there, of max|logit|, must be within
+    BATCH_TOL), the stats verb, aggregate tok/s beside h.batch_tok_s (phase
+    5b's 8 slots); on the trained toy (h.toy_dir) the replies' text equals
+    generate_sync's.  11c OpenAI: completions on the Q80 model and chat
+    completions on phase 7b's GGUF file (h.gguf, the Qwen chat template),
+    one-shot and SSE through the transport-free methods: the SSE pieces
+    equal the one-shot text, usage exact, a stop sequence ends with
+    finish_reason "stop".  11d: NativeGGUFGateway on h.gguf (3 requests,
+    3 samplers: pieces equal Session's stream, one decoder), and
+    ``python -m nano_tpu_torch.infer`` on phase 7b's converted .bin (h.qbin)
+    as a subprocess: its text equals generate_sync's; with -o a top-6 line
+    a step and --trace a Chrome trace naming q80_matvec_fq's and decode
+    attention's kernels.  -> {"launches": the counts of every driven run,
+    "ms": 11a's ms a step by mode, "tok_s": 11b's by burst}."""
+    import asyncio
+    from nano_tpu_torch import observe
+    from nano_tpu_torch.infer import engine
+    from nano_tpu_torch.ops import sampling
+    from nano_tpu_torch.serve import gateway, openai_http, wss
+    from nano_tpu_torch.tokenizer.bpe import QWEN_STOP_TOKENS
+    dev, cfg, card, names = h.dev, h.cfg, h.card, h.names
+    L = cfg.n_layer
+    exact = dev.type == "cuda"             # the counters count on the card
+    sync = torch.cuda.synchronize if exact else (lambda: None)
+    greedy = sampling.SamplerConfig(temperature=0.0, repetition_penalty=1.0)
+    launches = {n: 0 for n in names}
+
+    def counted(fn):
+        """fn() with the launch counters from 0 -> (its result, counts),
+        the counts also added to the phase's."""
+        h.reset()
+        out = fn()
+        got = h.read()
+        for n in names:
+            launches[n] += got[n]
+        return out, got
+
+    def q80_ctx(observation=None):
+        return engine.LLMContext(
+            cfg=cfg, params=h.q80, tokenizer=h.tok,
+            max_seq_len=cfg.block_size, device=dev, dtype=torch.bfloat16,
+            sampler=greedy, stop_tokens=QWEN_STOP_TOKENS, arch="qwen3",
+            observation=observation)
+
+    # ---------------- 11a ----------------
+    t11 = time.time()
+    events = {}
+
+    def observer(mode):
+        def fn(o):
+            row = (o.mean_abs if o.summary
+                   else float(np.abs(o.data.astype(np.float64)).mean()))
+            events[mode].append((int(o.phase), o.layer, row))
+        return fn
+
+    def run_session(ctx):
+        """Prefill, then the steps timed -> (ids, ms a step, steps)."""
+        s = engine.Session(ctx, "", max_new_tokens=FRONT_TOKENS,
+                           prompt_ids=h.prompt)
+        s.step()
+        sync()
+        t0 = time.time()
+        while s.step() is not None:
+            pass
+        sync()
+        steps = sum(s.steps_by.values())
+        return s.output_ids, (time.time() - t0) * 1e3 / max(steps, 1), steps
+
+    streams, ms, steps_of = {}, {}, {}
+    saved = observe._FORCE_FALLBACK
+    try:
+        for mode in ("none", "callback", "summary"):
+            observe._FORCE_FALLBACK = mode == "summary"
+            ctx = q80_ctx(None if mode == "none" else observer(mode))
+            events[mode] = []
+            run_session(ctx)                      # captures (graph modes)
+            graph = None
+            if mode == "summary" and exact:
+                graph = ctx.decoder().graphs[(greedy, 1, "fallback", None)]
+                if graph.graph is None:
+                    raise AssertionError("the summary step was not captured")
+                runs = []
+                inner = graph.run
+                graph.run = lambda: (runs.append(1), inner())
+            events[mode] = []
+            (ids, ms[mode], steps), counts = counted(lambda: run_session(ctx))
+            streams[mode], steps_of[mode] = ids, steps
+            if exact and counts != decode_counts("Q80", steps, names, L=L):
+                raise AssertionError(f"11a {mode}: launches {counts}")
+            if graph is not None and len(runs) != steps:
+                raise AssertionError(f"11a summary: {len(runs)} replays for "
+                                     f"{steps} steps")
+            del ctx
+    finally:
+        observe._FORCE_FALLBACK = saved
+    for mode in ("callback", "summary"):
+        if not torch.equal(torch.tensor(streams[mode]),
+                           torch.tensor(streams["none"])):
+            raise AssertionError(f"11a: the {mode} stream differs")
+        n = steps_of[mode]
+        got = {}
+        for ph, layer, _ in events[mode]:
+            got[(ph, layer)] = got.get((ph, layer), 0) + 1
+        want = {(ph, layer): 1 + n for ph in range(1, 9)
+                for layer in range(L)}
+        want.update({(0, -1): 1 + n, (9, -1): 1 + n, (10, -1): 1 + n,
+                     (11, -1): n})
+        if got != want:
+            raise AssertionError(f"11a {mode}: events by (phase, layer) "
+                                 f"{sorted(got.items())[:6]}... want "
+                                 f"{1 + n} a layer phase")
+    res_rows = lambda mode: [r for ph, _, r in events[mode] if ph == 8]
+    cb, sm = np.asarray(res_rows("callback")), np.asarray(res_rows("summary"))
+    worst = float((np.abs(sm - cb) / cb).max())
+    log(f"[frontends] 11a observe, Qwen3-0.6B Q80 ({L} layers) on {card}: a "
+        f"64-token prompt and {FRONT_TOKENS} greedy tokens; "
+        f"{len(events['callback'])} callback events and "
+        f"{len(events['summary'])} summary rows, every phase, layer phases "
+        f"at layers 0-{L - 1}, counts exact; streams torch.equal; launches "
+        f"exact in every mode; summary steps one graph replay each; "
+        f"RESIDUAL summary mean|x| against the callback data's: worst "
+        f"{worst:.3e} relative (tol {FRONT_MEAN_TOL}); ms a step: "
+        f"unobserved {ms['none']:.3f} (graph replay), callback "
+        f"{ms['callback']:.3f} (eager, host copies), summary "
+        f"{ms['summary']:.3f} (graph replay + one read)")
+    if not worst <= FRONT_MEAN_TOL:
+        raise AssertionError("11a: summary rows disagree with the callback "
+                             "data")
+
+    # ---------------- 11b ----------------
+    rng = np.random.default_rng(SEED + 11)
+    texts = [h.tok.decode(rng.integers(100, 30000, 24).tolist())
+             for _ in range(WS_CLIENTS)]
+    n_json = WS_CLIENTS // 2
+    msgs = [json.dumps({"prompt": t, "max_new_tokens": WS_TOKENS,
+                        "temperature": 0.0, "repetition_penalty": 1.0,
+                        "template": False}) for t in texts[:n_json]]
+    msgs += [f"{len(t):05d}|{t}" for t in texts[n_json:]]
+    # what each reference frame asks, in JSON (the alone runs): the
+    # server's defaults
+    alone_msgs = msgs[:n_json] + [json.dumps({
+        "prompt": t, "max_new_tokens": 256, "temperature": 0.0,
+        "repetition_penalty": 1.0, "template": False})
+        for t in texts[n_json:]]
+    sctx = q80_ctx()
+
+    async def serve_all(server):
+        tasks = [_converse(server.handle, m,
+                           WS_STOP_AFTER if i == 0 else None)
+                 for i, m in enumerate(msgs)]
+        sync()
+        t0 = time.time()
+        got = await asyncio.gather(*tasks)
+        secs = time.time() - t0
+        stats = json.loads((await _converse(server.handle, json.dumps(
+            {"stats": True})))[-1])
+        return got, secs, stats
+
+    async def alone(server):
+        return [await _converse(server.handle, m) for m in alone_msgs]
+
+    def margin_at(prompt_text, toks, p):
+        """Top-2 margin of max|logit| where the alone stream `toks` drew
+        token p (a prefill over the prompt and toks[:p])."""
+        ids = sctx.build_prompt_ids(prompt_text, False) + toks[:p]
+        with sctx.on_stream():
+            lg, _ = engine._prefill(sctx, ids, sctx.new_cache(1))
+        top2 = lg[0].topk(2).values
+        return float((top2[0] - top2[1]) / lg[0].abs().max())
+
+    async def runs(server, with_alone):
+        got = await serve_all(server)
+        return got, (await alone(server) if with_alone else None)
+
+    tok_s = {}
+    alone_frames = None
+    for burst in WS_BURSTS[::-1]:
+        server = wss.WSServer(sctx, n_slots=8, template=False, burst=burst)
+        ((got, secs, stats), ref), counts = counted(lambda: asyncio.run(
+            runs(server, alone_frames is None)))
+        alone_frames = alone_frames or ref
+        tok_s[burst] = stats["tokens_total"] / secs
+        parts = []
+        for i, (frames, ref) in enumerate(zip(got, alone_frames)):
+            rt, rtexts, _ = _json_reply(ref)
+            if i < n_json:
+                toks, _, done = _json_reply(frames)
+                want = "interrupted" if i == 0 else "length"
+                if done != {"done": True, "reason": want}:
+                    raise AssertionError(f"11b client {i}: ended {done}")
+                p = next((j for j, (a, b) in enumerate(zip(toks, rt))
+                          if a != b), None)
+                if i == 0 and not len(toks) < len(rt):
+                    raise AssertionError("11b: STOP did not cut the stream")
+            else:
+                if frames[-1] != "":
+                    raise AssertionError(f"11b client {i}: no terminator")
+                text = "".join(frames[:-1])
+                full = "".join(rtexts)
+                if text == full:
+                    p = None
+                else:
+                    c = next((j for j, (a, b) in enumerate(zip(text, full))
+                              if a != b), min(len(text), len(full)))
+                    cum = np.cumsum([len(t) for t in rtexts])
+                    p = int(np.searchsorted(cum, c, side="right"))
+            if p is not None:
+                m = margin_at(texts[i], rt, p)
+                parts.append((i, p, m))
+                if not m <= BATCH_TOL:
+                    raise AssertionError(f"11b client {i} parts from its "
+                                         f"alone stream at {p} where the "
+                                         f"margin is {m:.3e}")
+        if stats["requests_total"] != WS_CLIENTS:
+            raise AssertionError(f"11b stats: {stats}")
+        log(f"[frontends] 11b WSServer, 8 slots, burst {burst}, Qwen3-0.6B "
+            f"Q80 on {card}: {WS_CLIENTS} concurrent clients ({n_json} JSON "
+            f"x {WS_TOKENS} tokens, the first STOPped after "
+            f"{WS_STOP_AFTER}: reason interrupted; {WS_CLIENTS - n_json} "
+            f"reference frames x 256), {stats['tokens_total']} tokens in "
+            f"{secs:.3f} s = {tok_s[burst]:.1f} tok/s aggregate (phase 5b's "
+            f"batched step at 8 slots: "
+            + ("not measured" if h.batch_tok_s is None else
+               f"{h.batch_tok_s:.1f} tok/s") + "); each reply equal to the "
+            f"request served alone " + (f"except {parts} (client, position, "
+                                        f"top-2 margin)" if parts else
+                                        "token for token")
+            + f"; stats verb {stats['requests_total']} requests; launches "
+            f"{ {n: c for n, c in counts.items() if c} }")
+    del server
+
+    # the trained toy: the replies' text equals generate_sync's
+    tctx = engine.LLMContext.from_bin(
+        os.path.join(h.toy_dir, "toy_q80.bin"), device=dev, sampler=greedy)
+    tmsgs = [json.dumps({"prompt": TOY_CHORUS[:k], "max_new_tokens": 48,
+                         "temperature": 0.0, "repetition_penalty": 1.0,
+                         "template": False}) for k in (6, 12)]
+    tserver = wss.WSServer(tctx, n_slots=8, template=False, burst=4)
+
+    async def toy_all():
+        return await asyncio.gather(*[_converse(tserver.handle, m)
+                                      for m in tmsgs])
+    treplies = asyncio.run(toy_all())
+    for k, frames in zip((6, 12), treplies):
+        objs = [json.loads(f) for f in frames]
+        text = "".join(o.get("text", "") for o in objs if "done" not in o)
+        parts_ = []
+        engine.generate_sync(tctx, TOY_CHORUS[:k], max_new_tokens=48,
+                             on_decoding=lambda s_, t_, x: parts_.append(x))
+        want = "".join(parts_)
+        if text != want:
+            raise AssertionError(f"11b toy: {text!r} != {want!r}")
+    log(f"[frontends] 11b the trained toy (toy_q80.bin) through WSServer: "
+        f"2 concurrent replies' text equal to generate_sync's: "
+        f"{text[:24]!r}...")
+    del tserver, tctx
+
+    # ---------------- 11c ----------------
+    async def openai_checks(srv, req, kind):
+        call = srv.chat if kind == "chat" else srv.completions
+        one = await call(req)
+        sse = await call({**req, "stream": True})
+        events_ = [e async for e in sse.events]
+        body = one.body
+        field = ((lambda c: c["message"]["content"]) if kind == "chat"
+                 else (lambda c: c["text"]))
+        piece = ((lambda c: c["delta"].get("content", "")) if kind == "chat"
+                 else (lambda c: c["text"]))
+        text = field(body["choices"][0])
+        streamed = "".join(piece(e["choices"][0]) for e in events_)
+        if not (one.status == sse.status == 200 and streamed == text):
+            raise AssertionError(f"11c {kind}: SSE {streamed!r} != one-shot "
+                                 f"{text!r}")
+        stop = text[len(text) // 2:len(text) // 2 + 3]
+        cut = await call({**req, "stop": stop})
+        ctext = field(cut.body["choices"][0])
+        csse = await call({**req, "stop": [stop], "stream": True})
+        cevents = [e async for e in csse.events]
+        if not (ctext == text[:text.find(stop)] and cut.body["choices"][0][
+                "finish_reason"] == "stop" and cevents[-1]["choices"][0][
+                "finish_reason"] == "stop"):
+            raise AssertionError(f"11c {kind}: the stop {stop!r} did not end "
+                                 f"the stream")
+        return body, ctext
+
+    def openai_on(ctx, req, kind, name):
+        pool = wss.WSServer(ctx, n_slots=8, template=True, model_name=name)
+        return asyncio.run(openai_checks(openai_http.OpenAIServer(pool), req,
+                                         kind))
+
+    creq = {"prompt": texts[0], "max_tokens": OPENAI_TOKENS,
+            "temperature": 0.0, "repetition_penalty": 1.0}
+    (body, ctext), c_counts = counted(
+        lambda: openai_on(sctx, creq, "completions", "qwen3-0.6b-q80"))
+    n_prompt = len(sctx.build_prompt_ids(texts[0], False))
+    if body["usage"] != {"prompt_tokens": n_prompt,
+                         "completion_tokens": OPENAI_TOKENS,
+                         "total_tokens": n_prompt + OPENAI_TOKENS}:
+        raise AssertionError(f"11c completions usage {body['usage']}")
+    gctx = engine.LLMContext.from_gguf(h.gguf, device=dev, sampler=greedy)
+    msgs_chat = [{"role": "system", "content": "be brief"},
+                 {"role": "user", "content": "hello"}]
+    qreq = {"messages": msgs_chat, "max_tokens": OPENAI_TOKENS,
+            "temperature": 0.0, "repetition_penalty": 1.0}
+    (cbody, cctext), g_counts = counted(
+        lambda: openai_on(gctx, qreq, "chat", "qwen3-0.6b-q8_0.gguf"))
+    n_chat = len(gctx.build_chat_ids(msgs_chat))
+    if cbody["usage"]["prompt_tokens"] != n_chat or cbody["usage"][
+            "total_tokens"] != n_chat + cbody["usage"]["completion_tokens"]:
+        raise AssertionError(f"11c chat usage {cbody['usage']}")
+    log(f"[frontends] 11c OpenAIServer on {card}: /v1/completions on the Q80 "
+        f"model and /v1/chat/completions on the Qwen3-0.6B Q8_0 GGUF "
+        f"({n_chat} chat-template prompt tokens), one-shot and SSE equal, "
+        f"usage {body['usage']} / {cbody['usage']}, a stop sequence ends "
+        f"both with finish_reason stop; launches "
+        f"{ {n: c for n, c in c_counts.items() if c} } and "
+        f"{ {n: c for n, c in g_counts.items() if c} }")
+    del gctx, sctx
+
+    # ---------------- 11d ----------------
+    gw = gateway.NativeGGUFGateway(h.gguf, device=dev)
+    decoders, gw_texts = set(), []
+    for rp in (1.0, 1.1, 1.3):
+        req = json.dumps({"prompt": "hello", "template": False,
+                          "max_new_tokens": GATEWAY_TOKENS,
+                          "temperature": 0.0, "repetition_penalty": rp})
+        frames, counts = counted(lambda: asyncio.run(_converse(
+            gw.handle, req)))
+        objs = [json.loads(f) for f in frames]
+        text = "".join(o.get("text", "") for o in objs)
+        decoders.add(id(gw.ctx._decoder))
+        # the sampler the gateway set for the request
+        gw.ctx.sampler = sampling.SamplerConfig(
+            temperature=0.0, top_p=0.8, repetition_penalty=rp)
+        s = engine.generate_sync(gw.ctx, "hello",
+                                 max_new_tokens=GATEWAY_TOKENS)
+        sdec = gw.ctx.stream_decoder()
+        want = "".join(sdec.feed(t) for t in s.output_ids) + sdec.flush()
+        if text != want or objs[-1] != {"done": True, "reason": "stop"}:
+            raise AssertionError(f"11d gateway (rp {rp}): {text!r} != "
+                                 f"{want!r}")
+        gw_texts.append(text)
+    if len(decoders) != 1 or len(gw.ctx._decoder.graphs) != 3:
+        raise AssertionError(f"11d gateway: {len(decoders)} decoders, "
+                             f"{len(gw.ctx._decoder.graphs)} graphs")
+    log(f"[frontends] 11d NativeGGUFGateway on the Qwen3-0.6B Q8_0 GGUF "
+        f"({card}): 3 requests at repetition penalty 1.0, 1.1, 1.3, pieces "
+        f"equal to Session's streams, one SingleDecoder and 3 graphs (one "
+        f"a sampler); launches of the last "
+        f"{ {n: c for n, c in counts.items() if c} }")
+    del gw
+
+    dev_args = [] if exact else ["--device", "cpu"]
+    cli = [sys.executable, "-m", "nano_tpu_torch.infer", "-m", h.qbin, "-q",
+           "hello world", "-n", str(CLI_TOKENS), "-t", "0", "-r", "1.0"]
+    bctx = engine.LLMContext.from_bin(h.qbin, device=dev, sampler=(
+        sampling.SamplerConfig(temperature=0.0, top_p=0.8,
+                               repetition_penalty=1.0)))
+    parts_ = []
+    engine.generate_sync(bctx, "hello world", max_new_tokens=CLI_TOKENS,
+                         on_decoding=lambda s_, t_, x: parts_.append(x))
+    want = "".join(parts_) + "\n"
+    steps = len(parts_) - 1
+    del bctx
+    trace = os.path.join(h.work, "infer_trace")
+    t0 = time.time()
+    r1 = subprocess.run(cli + ["-p"] + dev_args, cwd=ROOT,
+                        capture_output=True, text=True, timeout=300)
+    r2 = subprocess.run(cli + ["-o", "--trace", trace] + dev_args, cwd=ROOT,
+                        capture_output=True, text=True, timeout=300)
+    cli_secs = time.time() - t0
+    for r in (r1, r2):
+        # -p prints a sliding " [x tok/s]" after each token from the 4th
+        text = re.sub(r" \[[0-9.]+ tok/s\]", "", r.stdout)
+        if r.returncode != 0 or text != want:
+            raise AssertionError(f"11d infer CLI rc {r.returncode}: "
+                                 f"{r.stdout[-300:]!r} {r.stderr[-600:]}")
+    top6 = [ln for ln in r2.stderr.splitlines() if "top6:" in ln]
+    with open(os.path.join(trace, "trace.json")) as f:
+        kernel_names = {e.get("name", "") for e in json.load(f)[
+            "traceEvents"] if e.get("cat") == "kernel"}
+    shutil.rmtree(trace)
+    found = {w: any(k in n for n in kernel_names) for k, w in (
+        ("q80_matvec_fq_kernel", "q80_matvec_fq"),
+        ("decode_attn_kernel", "decode_attention"))}
+    tps = [ln for ln in r1.stderr.splitlines() if "tok/s]" in ln]
+    log(f"[frontends] 11d python -m nano_tpu_torch.infer on the converted "
+        f"Q80 .bin, {CLI_TOKENS} greedy tokens, as subprocesses ({card}): "
+        f"text equal to generate_sync's; {tps[-1] if tps else ''}; -o "
+        f"{len(top6)} top-6 lines for {steps} steps; --trace: kernels "
+        f"named {found}; both runs {cli_secs:.1f} s")
+    if len(top6) != steps or (exact and not all(found.values())):
+        raise AssertionError("11d: -o or --trace output malformed")
+    log(f"[frontends] phase 11 launches {launches}; {time.time() - t11:.1f} s")
+    return {"launches": launches, "ms": ms, "tok_s": tok_s}
+
+
+def bench_frontends(torch):
+    """Phase 11 alone (frontend_phase): phase 5's Q80 model and prompt,
+    the trained toy (trained again unless build/smoke_toy holds it) and
+    phase 7b's GGUF file and its converted Q80 .bin, written again."""
+    import numpy as np
+    from nano_tpu_torch.config import ModelConfig
+    from nano_tpu_torch.io import gguf
+    from nano_tpu_torch.ops import _build
+    from nano_tpu_torch.tokenizer.trie import TrieTokenizer
+    _build.build_all()
+    log(f"[bench frontends] optional packages: {optional_packages()}")
+    dev = torch.device("cuda")
+    names = list(COUNTER_OF)
+    reset = lambda: zero_launches(torch)
+    read = lambda: read_launches(torch, names)
+    cfg = ModelConfig(**QWEN3_06B)
+    tok = TrieTokenizer()
+    tok.build_preset(32768)
+    prng = np.random.default_rng(SEED + 1)
+    for n in (17, 40, 100):            # phase 5's requests, then its prompt
+        prng.integers(100, 30000, n)
+    prompt = prng.integers(100, 30000, PROMPT_LEN).tolist()
+    toy_dir = os.path.join(ROOT, "build", "smoke_toy")
+    if not os.path.exists(os.path.join(toy_dir, "toy_q80.bin")):
+        trained_toy_phase(torch, np, SimpleNamespace(
+            dev=dev, card=card_line(), reset=reset, read=read, work=toy_dir))
+    work = os.path.join(ROOT, "build", "smoke_frontends")
+    os.makedirs(work, exist_ok=True)
+    gpath = qwen_gguf(torch, torch.Generator(device=dev).manual_seed(
+        SEED + 13), cfg, work)
+    qbin = os.path.join(work, "qwen3_0.6b_q80.bin")
+    gguf.convert_gguf(gpath, qbin, quant="q80", group_size=256)
+    frontend_phase(torch, np, SimpleNamespace(
+        dev=dev, card=card_line(), names=names, reset=reset, read=read,
+        cfg=cfg, q80=random_q80_params(torch, np, cfg, dev), tok=tok,
+        prompt=prompt, toy_dir=toy_dir, gguf=gpath, qbin=qbin,
+        batch_tok_s=None, work=work))
+    shutil.rmtree(work)
+
+
 def bench(what) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4723,7 +5300,8 @@ def bench(what) -> int:
                      ("rows", bench_rows), ("lora", bench_lora),
                      ("lifecycle", bench_lifecycle),
                      ("parallel", bench_parallel), ("nccl", bench_nccl),
-                     ("gloo", bench_gloo), ("profile", bench_profile)):
+                     ("gloo", bench_gloo), ("profile", bench_profile),
+                     ("frontends", bench_frontends)):
         if not what or name in what:
             fn(torch, **{"flash": flags, "q80": q80_flags,
                          "q4k": q4k_flags,
@@ -4766,6 +5344,7 @@ def main() -> int:
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     log(f"[env] nvcc: {nvcc}")
+    log(f"[env] the frontends' optional packages: {optional_packages()}")
 
     # ---------------- 2. build ----------------
     t0 = time.time()
@@ -6943,6 +7522,8 @@ def main() -> int:
         route_summary("Q80", n_slots, runs, "fused", "eager",
                       "through rms_norm_q80 + swiglu_q80",
                       "through the eager ops and q80_act_quant")
+        if n_slots == 8:                # beside phase 11's server
+            batch_tok_s8 = max(r[1] for r in runs["fused"])
     del be, bctx
 
     # The Q4K model in BatchedEngine: the same joins, BATCH_NEW4 greedy
@@ -7565,7 +8146,6 @@ def main() -> int:
         toy_dir=os.path.join(ROOT, "build", "smoke_toy"), qcfg=cfg,
         q80=q80_host, work=os.path.join(ROOT, "build", "smoke_lifecycle")))
     os.remove(ckpt12)
-    del q80_host
     log(f"[lifecycle] phase 9 in {time.time() - t0:.1f} s")
 
     # ---------------- 10. parallel ----------------
@@ -7586,6 +8166,29 @@ def main() -> int:
         if not res10["seq"]["counts"][name]:
             raise AssertionError(f"sequence parallelism launched no {name}")
     log(f"[parallel] phase 10 in {time.time() - t0:.1f} s")
+
+    # ---------------- 11. frontends ----------------
+    log(f"[time] phase 11 starts at {time.time() - t_start:.1f} s")
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    work11 = os.path.join(ROOT, "build", "smoke_frontends")
+    os.makedirs(work11, exist_ok=True)
+    res11 = frontend_phase(torch, np, SimpleNamespace(
+        dev=dev, card=card, names=names, reset=reset, read=read, cfg=cfg,
+        q80=params_to(q80_host, dev), tok=tok, prompt=prompt,
+        toy_dir=os.path.join(ROOT, "build", "smoke_toy"),
+        gguf=res7["gguf"], qbin=res7["qbin"], batch_tok_s=batch_tok_s8,
+        work=work11))
+    del q80_host
+    shutil.rmtree(work11)
+    for path in (res7["gguf"], res7["qbin"]):
+        os.remove(path)
+    for name in ("q80_act_quant", "q80_matmul_w8a8", "q80_matvec_fq",
+                 "decode_attention", "rms_norm_q80", "swiglu_q80",
+                 "q80_matvec_rows", "q80_matmul_rows"):
+        if res11["launches"][name] == 0:
+            raise AssertionError(f"the frontends launched no {name}")
+    log(f"[frontends] phase 11 in {time.time() - t0:.1f} s")
 
     # ---------------- result ----------------
     for k in kernels.values():

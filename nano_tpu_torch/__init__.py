@@ -22,8 +22,13 @@ module of ``nano_tpu``: what it needs from there it keeps as its own copy.
                full-sequence training forward, loss and init
   infer      — LLMContext (from_bin / from_checkpoint / from_gguf) /
                Session / generate_sync / generate_on_device;
-               the decode step captured as a CUDA graph and replayed
-  serve      — continuous batching (BatchedEngine)
+               the decode step captured as a CUDA graph and replayed;
+               ``python -m nano_tpu_torch.infer``, the REPL
+  observe    — per-phase taps of the forward (callback or summary rows)
+               and a torch.profiler trace
+  serve      — continuous batching (BatchedEngine) and the frontends:
+               WebSocket, OpenAI HTTP, the model gateway, the voice
+               bridge and the ASR FIFO server
   train      — DataLoader, AdamW, Trainer; ``python -m nano_tpu_torch.train``
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

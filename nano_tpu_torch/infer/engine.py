@@ -29,8 +29,17 @@ sampling): the decoder's verify round (``speculative.spec_decode_round``)
 is a ``DecodeGraph`` too, captured per (k, attended length).  ``Session``
 replays one round and reads its tokens once; ``generate_on_device`` keeps
 the loop's state on the device and reads it once every
-``SPEC_READ_EVERY`` rounds.  Continuous batching is ``serve.batching``;
-observers are not ported yet.
+``SPEC_READ_EVERY`` rounds.  Continuous batching is ``serve.batching``.
+
+Observers (``observe``; ``LLMContext.observation``): a ``Session`` attaches
+the context's observer around its prefill and each plain step, and
+speculation is off while one is attached, as in the JAX engine.  A callback
+observer's taps copy to the host, which no CUDA graph can hold, so its
+steps run eagerly (``SingleDecoder.step``); a summary observer
+(``NANO_TPU_OBSERVE=fallback``) keeps the step a graph, captured apart
+with the taps writing rows into a static buffer that the host reads once
+after each replay.  ``generate_on_device`` and ``BatchedEngine`` fire no
+taps, as in JAX: ``on_stream`` attaches no observer for them.
 
 Parallel serving (``parallel.mesh``): ``LLMContext.shard`` cuts the
 weights to this rank's part of the mesh's "model" axis (tensor parallel:
@@ -73,7 +82,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from nano_tpu_torch import resolve_device
+from nano_tpu_torch import observe, resolve_device
 from nano_tpu_torch.config import ModelConfig
 from nano_tpu_torch.infer import speculative
 from nano_tpu_torch.io import binfmt
@@ -178,6 +187,7 @@ class LLMContext:
     lora: Optional[Dict[str, torch.Tensor]] = None   # stacked (L, in, r) ...
     lora_scale: float = 0.0             # alpha / rank of the adapter
     mesh: Optional[Any] = None          # set by shard()
+    observation: Optional[Callable] = None   # nano_tpu_torch/observe.py
     _rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = field(
         default=None, init=False, repr=False)
     _decoder: Optional["SingleDecoder"] = field(
@@ -191,14 +201,16 @@ class LLMContext:
         self.device = resolve_device(self.device)
 
     @contextlib.contextmanager
-    def on_stream(self):
+    def on_stream(self, observer: Optional[Callable] = None):
         """Run the enclosed decode work on the context's own CUDA stream
         (made once; every decode graph is captured and replayed on it, and
         the decode-attention workspace is kept per stream), ordered after
         the caller's stream and before it again, holding the context's lock
         (re-entrant): one thread's work at a time, so no thread's kernels
-        land in another's capture.  On the CPU: only the lock."""
-        with self._lock:
+        land in another's capture.  `observer` is attached for the block on
+        this thread (``observe.attached``), none unless one is given.  On
+        the CPU: only the lock and the observer."""
+        with self._lock, observe.attached(observer):
             if self.device.type != "cuda":
                 yield
                 return
@@ -244,6 +256,8 @@ class LLMContext:
             raise ValueError("this context is sharded already")
         self.mesh = mesh
         if tensor_parallel:
+            if self.observation is not None:
+                raise ValueError(_NO_SHARDED_OBSERVER)
             self.params, tp = meshlib.shard_inference_params(
                 self.params, mesh, self.cfg)
             self.cfg = meshlib.local_config(self.cfg, tp)
@@ -451,6 +465,37 @@ class LLMContext:
     def stream_decoder(self) -> "StreamDecoder":
         return StreamDecoder(self.tokenizer)
 
+    def build_chat_ids(self, messages) -> List[int]:
+        """OpenAI-style role/content messages -> prompt ids.  Multi-turn
+        extension of build_prompt_ids (the reference templates are
+        single-turn): Qwen arches render canonical im_start blocks; Nano
+        renders one instruct/response pair per exchange, the training
+        format (reference: data.py:170-178), with any system message
+        folded into the next user question."""
+        if self.arch in ("qwen2", "qwen3"):
+            return self.tokenizer.apply_chat_template_messages(
+                messages, enable_thinking=self.enable_thinking)
+        text, system = "", ""
+        for m in messages:
+            role = m.get("role", "user")
+            content = str(m.get("content", ""))
+            if role == "system":
+                system = content
+            elif role == "assistant":
+                text += f"{content}<|eos|>"
+            else:
+                q = f"{system}\n{content}" if system else content
+                system = ""
+                text += apply_instruct_template(q)
+        return self.encode(text)
+
+
+# an observer sees one device's activations; a tensor-parallel rank holds
+# only its own heads, so an observed sharded context is refused
+_NO_SHARDED_OBSERVER = ("an observer cannot be attached to a tensor-parallel "
+                        "(sharded) context: each rank holds only its own "
+                        "heads")
+
 
 def _fuse_q80_products(blocks: Dict[str, Any]) -> None:
     """In place: wq / wk / wv -> ``wqkv`` and w1 / w3 -> ``w13``,
@@ -562,6 +607,7 @@ def _decode_step(ctx: LLMContext, tok: torch.Tensor, pos: torch.Tensor,
     if penalty != 1.0:
         logits = sampling.apply_repetition_penalty(logits, seen, penalty)
     nxt = _sample_windowed(logits, ctx.sampler, generator)
+    observe.tap(observe.Phase.SAMPLE, -1, nxt)
     if penalty != 1.0:
         sampling.update_seen_mask(seen, nxt)
     return nxt
@@ -735,6 +781,7 @@ class SingleDecoder:
         self.round_g, self.round_n = zeros(self.k_max + 1), zeros(1)
         self.gen = ctx.generator()
         self.adapter = AdapterBuffers(dev, ctx.dtype)
+        self.obs_rows: Optional[observe.RowBuffer] = None   # summary mode
         self.graphs: Dict[tuple, DecodeGraph] = {}
         self._owner: Optional[weakref.ref] = None
         # the state of each stream that does not hold the buffers now
@@ -767,13 +814,33 @@ class SingleDecoder:
             self.gen.set_state(saved[1])
         self._owner = weakref.ref(owner) if owner is not None else None
 
+    def _row_buffer(self) -> observe.RowBuffer:
+        """Room for the summary rows of one forward: 8 taps a layer,
+        EMBEDDING, FINAL_NORM, LOGITS and SAMPLE."""
+        return observe.RowBuffer(8 * self.ctx.cfg.n_layer + 4,
+                                 self.ctx.device)
+
+    def _rows(self) -> observe.RowBuffer:
+        """The decode step's summary rows, which its summary graph writes
+        (made once, outside any capture; nothing else writes them, so
+        their count stays the captured step's)."""
+        if self.obs_rows is None:
+            self.obs_rows = self._row_buffer()
+        return self.obs_rows
+
     def prefill(self, prompt_ids: List[int]) -> torch.Tensor:
         """Start a stream: prefill into the cache, the first token into
-        the buffers and out[0].  -> the first token (1,)."""
+        the buffers and out[0].  -> the first token (1,).  A summary
+        observer gets the prefill's rows after it (a buffer of their
+        own)."""
         self.gen.manual_seed(self.ctx.random_seed)
-        tok, seen = _prefill_first_token(self.ctx, prompt_ids, self.cache,
-                                         self.gen, self.adapter.lora,
-                                         self.adapter.scale)
+        rows = self._row_buffer() if observe.fallback_active() else None
+        with observe.capture(rows):
+            tok, seen = _prefill_first_token(
+                self.ctx, prompt_ids, self.cache, self.gen,
+                self.adapter.lora, self.adapter.scale)
+        if rows is not None:
+            observe.deliver(rows.read())
         self.tok.copy_(tok)
         self.seen.copy_(seen)
         self.pos.fill_(len(prompt_ids))
@@ -788,18 +855,24 @@ class SingleDecoder:
         return tok
 
     def _step(self) -> None:
-        nxt = _decode_step(self.ctx, self.tok, self.pos, self.cache,
-                           self.seen, self.gen, self.adapter.lora,
-                           self.adapter.scale)
+        """One decode step (what a graph captures); under a summary
+        observer its taps write the decoder's rows."""
+        with observe.capture(self._rows() if observe.fallback_active()
+                             else None):
+            nxt = _decode_step(self.ctx, self.tok, self.pos, self.cache,
+                               self.seen, self.gen, self.adapter.lora,
+                               self.adapter.scale)
         self.tok.copy_(nxt)
         self.out.index_copy_(0, self.n_out, nxt)
         self.pos.add_(1)
         self.n_out.add_(1)
 
-    def _graph(self, n_steps: int = 1) -> DecodeGraph:
+    def _graph(self, n_steps: int = 1, observed=False) -> DecodeGraph:
         """The graph of `n_steps` steps for the context's sampler (the
-        engine replays single steps; a longer graph is for measurement)."""
-        key = (self.ctx.sampler, n_steps, self.adapter.key)
+        engine replays single steps; a longer graph is for measurement),
+        with the summary taps when `observed` is "fallback" (the observing
+        mode, ``observe.trace_token``, is part of the key)."""
+        key = (self.ctx.sampler, n_steps, observed, self.adapter.key)
         if key not in self.graphs:
             stochastic = self.ctx.sampler.temperature > 0.0
             me = weakref.proxy(self)
@@ -808,6 +881,22 @@ class SingleDecoder:
                 self.gen if stochastic else None, self.ctx.graph_pool(),
                 self.ctx.captures)
         return self.graphs[key]
+
+    def step(self) -> None:
+        """One decode step of the stream in the buffers, in the observing
+        mode of this thread: a replay of the tap-free graph; eagerly under a
+        callback observer, whose host copies no graph can hold; a replay of
+        the summary graph under a summary observer, which then gets the
+        step's rows, read once."""
+        mode = observe.trace_token()
+        if mode == "callback":
+            self._step()
+            return
+        if mode:
+            self._rows()                # made before the capture
+        self._graph(1, mode).run()
+        if mode:
+            observe.deliver(self.obs_rows.read())
 
     def run(self, n: int) -> None:
         """n decode steps, a replay each."""
@@ -906,9 +995,16 @@ class Session:
         # tokens of the plain steps taken while parked, written into the
         # history in one device update before the next probe
         self._park_toks: List[int] = []
-        self._spec = ctx.spec_k > 0 and ctx.sampler.temperature <= 0.0
+        # speculation is off while an observer is attached (the JAX
+        # engine's rule): a verify round has no per-phase taps
+        self._spec = (ctx.spec_k > 0 and ctx.sampler.temperature <= 0.0
+                      and ctx.observation is None)
+        if (ctx.observation is not None
+                and getattr(ctx.cfg, "tp", None) is not None):
+            raise ValueError(_NO_SHARDED_OBSERVER)
         # decode calls by kind: verify rounds, and plain steps by the rule
-        # that took them (spec off, sampling, parked, near the context end)
+        # that took them (spec off, observed, sampling, parked, near the
+        # context end)
         self.steps_by: Dict[str, int] = collections.Counter()
         self.t_start = time.time()
         self.t_first_token: Optional[float] = None
@@ -916,7 +1012,7 @@ class Session:
 
     def _do_prefill(self) -> int:
         self._dec = self.ctx.decoder()
-        with self.ctx.on_stream():
+        with self.ctx.on_stream(self.ctx.observation):
             self._dec.claim(self)
             first = int(self._dec.prefill(self.prompt_ids)[0])
         self.pos = len(self.prompt_ids)
@@ -986,13 +1082,15 @@ class Session:
             else:
                 self.steps_by[
                     "plain" if ctx.spec_k == 0 else
+                    "observed" if ctx.observation is not None else
                     "sampling" if not self._spec else
                     "parked" if self._spec_k_cur == 0 else
                     "near the context end"] += 1
-                # one replay of the context's graphed step, one token read
-                with ctx.on_stream():
+                # one replay of the context's graphed step (eager under a
+                # callback observer), one token read
+                with ctx.on_stream(ctx.observation):
                     self._dec.claim(self)
-                    self._dec._graph().run()
+                    self._dec.step()
                     tok = int(self._dec.tok[0])
                 self.pos += 1
                 if self._spec:

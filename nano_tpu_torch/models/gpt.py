@@ -13,6 +13,8 @@ the low-rank branch (x @ A) @ B * alpha/rank on q, k, v and wo
 (``_lora_delta``), one adapter for every row or, in the batched decode and
 verify forwards, an adapter per row picked from a stack (``lora_idx``);
 ``merge_lora`` folds one into the base and ``init_lora_params`` makes one.
+The cached forwards fire an attached observer's taps (``observe``) at the
+JAX package's sites, each layer's by its index.
 
 The parameters keep the JAX package's layout so the two compare like with
 like: layer weights are STACKED along a leading (n_layer,) axis, dense
@@ -54,7 +56,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                    create_selective_checkpoint_contexts)
 
+from nano_tpu_torch import observe
 from nano_tpu_torch.config import ModelConfig
+from nano_tpu_torch.observe import Phase
 from nano_tpu_torch.ops import decode_attn
 from nano_tpu_torch.ops.flash_attn import flash_attention
 from nano_tpu_torch.ops.norm_quant import rms_norm, rms_norm_q80, swiglu_q80
@@ -340,12 +344,13 @@ def _qkv(x: torch.Tensor, layer: Params, cfg: ModelConfig,
          cos: Optional[torch.Tensor], sin: Optional[torch.Tensor], dtype,
          lora: Optional[Params] = None, lora_scale=0.0,
          lora_idx: Optional[torch.Tensor] = None,
-         xt: Optional[torch.Tensor] = None
+         xt: Optional[torch.Tensor] = None, layer_idx: Optional[int] = None
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The attention prologue: projections (fused or not), the LoRA deltas
     on q, k and v (from `xt`, the normed tensor, where x is a ``Q80Act``),
     biases, per-head qk-norm and RoPE.  x (B, S, E) -> q (B, S, H, D),
-    k / v (B, S, KV, D)."""
+    k / v (B, S, KV, D).  With `layer_idx` (the cached forward) q is
+    observed after the projection and after RoPE."""
     B, S, E = x.shape
     H, KV, D = cfg.n_head, cfg.n_kv_head, cfg.head_dim
 
@@ -367,6 +372,8 @@ def _qkv(x: torch.Tensor, layer: Params, cfg: ModelConfig,
         q = q + layer["bq"].to(dtype)
         k = k + layer["bk"].to(dtype)
         v = v + layer["bv"].to(dtype)
+    if layer_idx is not None:
+        observe.tap(Phase.QKV, layer_idx, q)
     q = q.reshape(B, S, H, D)
     k = k.reshape(B, S, KV, D)
     v = v.reshape(B, S, KV, D)
@@ -377,6 +384,8 @@ def _qkv(x: torch.Tensor, layer: Params, cfg: ModelConfig,
     if cos is not None:
         q = apply_rope(q, cos, sin, cfg.rope_style)
         k = apply_rope(k, cos, sin, cfg.rope_style)
+        if layer_idx is not None:
+            observe.tap(Phase.ROPE, layer_idx, q)
     return q, k, v
 
 
@@ -413,7 +422,8 @@ def attention(x: torch.Tensor, layer: Params, cfg: ModelConfig,
               pos_t: Optional[torch.Tensor], attn_len: Optional[int] = None,
               lora: Optional[Params] = None, lora_scale=0.0,
               lora_idx: Optional[torch.Tensor] = None,
-              xt: Optional[torch.Tensor] = None) -> torch.Tensor:
+              xt: Optional[torch.Tensor] = None,
+              layer_idx: int = -1) -> torch.Tensor:
     """One attention layer over a cache (k, v, k_scale, v_scale) of one
     layer, each (B, T, KV, D) / (B, T, KV), written in place.
 
@@ -430,14 +440,20 @@ def attention(x: torch.Tensor, layer: Params, cfg: ModelConfig,
     the first row's heads come from the decode-attention kernel instead, as
     a decode step at pos_t computes them.  `lora` (the layer's adapter,
     `lora_idx` as in ``_lora_delta``) adds its deltas to q, k, v (from
-    `xt`, see ``_qkv``) and to wo's output, from the heads.
+    `xt`, see ``_qkv``) and to wo's output, from the heads.  `layer_idx`
+    names the layer to an observer (``observe``).
     """
     B, S = x.shape[:2]
     H, KV = cfg.n_head, cfg.n_kv_head
     q, k, v = _qkv(x, layer, cfg, cos, sin, dtype, lora, lora_scale,
-                   lora_idx, xt)
-    out = lambda heads: _attn_out(heads, layer, dtype, _tp(cfg), lora,
-                                  lora_scale, lora_idx)
+                   lora_idx, xt, layer_idx)
+
+    def out(heads):
+        observe.tap(Phase.ATTENTION, layer_idx, heads)
+        o = _attn_out(heads, layer, dtype, _tp(cfg), lora, lora_scale,
+                      lora_idx)
+        observe.tap(Phase.ATTN_OUT, layer_idx, o)
+        return o
 
     ck, cv, ks, vs = kv_cache
     quant = ck.dtype == torch.int8
@@ -527,38 +543,64 @@ def feed_forward_cached(x, layer: Params, dtype, tp=None) -> torch.Tensor:
     return _row(act if gs else hidden, layer["w2"], dtype, tp, "ffn")
 
 
-def _final(h: torch.Tensor, params: Params, cfg: ModelConfig, dtype
-           ) -> torch.Tensor:
+def _final(h: torch.Tensor, params: Params, cfg: ModelConfig, dtype,
+           last_idx: Optional[int] = None) -> torch.Tensor:
     """The final norm (one ``rms_norm_q80`` launch) and the LM head -> f32
-    logits."""
+    logits, of row `last_idx` alone where one is given.  The norm is per
+    row, so it runs on that row alone, unless an observer sees the final
+    norm of every row (as the JAX package's tap does)."""
     w = _head_q80(params)
-    _, hn, _ = _norm(h, params["norm"], cfg.norm_eps, [] if w is None else [w])
-    return compute_logits(hn, params, dtype)
+    ws = [] if w is None else [w]
+    tapped = observe.active()
+    if last_idx is not None and not tapped:
+        h, last_idx = h[:, last_idx:last_idx + 1], None
+    _, hn, ht = _norm(h, params["norm"], cfg.norm_eps, ws, keep=tapped)
+    if tapped:
+        observe.tap(Phase.FINAL_NORM, -1, ht)
+        if last_idx is not None:
+            hn = ht[:, last_idx:last_idx + 1]
+    logits = compute_logits(hn, params, dtype)
+    observe.tap(Phase.LOGITS, -1, logits)
+    return logits
 
 
 def block(x: torch.Tensor, layer: Params, cfg: ModelConfig, cos, sin, mask,
           dtype, kv_cache, start_pos: Union[int, torch.Tensor],
           pos_t: Optional[torch.Tensor], attn_len: Optional[int] = None,
           lora: Optional[Params] = None, lora_scale=0.0,
-          lora_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Pre-norm residual block of the cached forward (`start_pos`, `pos_t`
-    and the adapter as in ``attention``).  The attention norm, the
-    residual add with the FFN norm, and SwiGLU are one kernel each, which
+          lora_idx: Optional[torch.Tensor] = None,
+          layer_idx: int = -1) -> torch.Tensor:
+    """Pre-norm residual block of the cached forward (`start_pos`, `pos_t`,
+    the adapter and `layer_idx` as in ``attention``).  The attention norm,
+    the residual add with the FFN norm, and SwiGLU are one kernel each, which
     also write the Q80 quantization of their output where the product they
     feed takes it (``_q80_group``; with an adapter the attention norm
     writes the normed tensor beside it, which the LoRA branch reads); the
     last residual add stays one eager add.  Under tensor parallelism
     (``_tp``) the attention and FFN outputs are the sums over the model
-    group (``_row``) before the norm and the add read them."""
+    group (``_row``) before the norm and the add read them.  An observer
+    sees the normed tensors, which the norms then write beside their
+    quantized output (`keep`)."""
     qkv = ([layer["wqkv"]] if "wqkv" in layer
            else [layer["wq"], layer["wk"], layer["wv"]])
     w13 = [layer["w13"]] if "w13" in layer else [layer["w1"], layer["w3"]]
+    tapped = observe.active()
     _, xn, xt = _norm(x, layer["attn_norm"], cfg.norm_eps, qkv,
-                      keep=lora is not None)
+                      keep=lora is not None or tapped)
+    if tapped:
+        observe.tap(Phase.ATTN_NORM, layer_idx, xt)
     a = attention(xn, layer, cfg, cos, sin, mask, dtype, kv_cache, start_pos,
-                  pos_t, attn_len, lora, lora_scale, lora_idx, xt)
-    h, hn, _ = _norm(x, layer["ffn_norm"], cfg.norm_eps, w13, residual=a)
-    return h + feed_forward_cached(hn, layer, dtype, _tp(cfg))
+                  pos_t, attn_len, lora, lora_scale, lora_idx, xt, layer_idx)
+    h, hn, ht = _norm(x, layer["ffn_norm"], cfg.norm_eps, w13, residual=a,
+                      keep=tapped)
+    if not tapped:
+        return h + feed_forward_cached(hn, layer, dtype, _tp(cfg))
+    observe.tap(Phase.FFN_NORM, layer_idx, ht)
+    f = feed_forward_cached(hn, layer, dtype, _tp(cfg))
+    observe.tap(Phase.FFN, layer_idx, f)
+    out = h + f
+    observe.tap(Phase.RESIDUAL, layer_idx, out)
+    return out
 
 
 # =====================================================================
@@ -647,6 +689,7 @@ def forward_with_cache(params: Params, idx: torch.Tensor, cache: KVCache,
     else:
         cos = sin = None
         h = h + params["wpe"][start_pos:start_pos + S].to(dtype)
+    observe.tap(Phase.EMBEDDING, -1, h)
 
     # query i (absolute start_pos+i) sees cache rows j <= start_pos+i
     # (causal) or j < start_pos+S (global)
@@ -660,11 +703,8 @@ def forward_with_cache(params: Params, idx: torch.Tensor, cache: KVCache,
     for i in range(cfg.n_layer):
         h = block(h, layer_params(params["blocks"], i), cfg, cos, sin, mask,
                   dtype, cache.layer(i), start_pos, None, attn_len,
-                  **_adapter_kw(lora, i, lora_scale))
-
-    if last_idx is not None:     # the norm is per row: slice first
-        h = h[:, last_idx:last_idx + 1]
-    return _final(h, params, cfg, dtype), cache
+                  layer_idx=i, **_adapter_kw(lora, i, lora_scale))
+    return _final(h, params, cfg, dtype, last_idx), cache
 
 
 def forward_decode_batched(params: Params, tok: torch.Tensor, cache: KVCache,
@@ -707,12 +747,13 @@ def forward_decode_batched(params: Params, tok: torch.Tensor, cache: KVCache,
         wpe = params["wpe"]
         h = h + wpe.index_select(0, pl.clamp(max=wpe.shape[0] - 1)
                                  )[:, None, :].to(dtype)
+    observe.tap(Phase.EMBEDDING, -1, h)
     rows = torch.arange(B, device=tok.device) * T + pl     # into (B * T, ...)
     if lora_idx is not None:        # each row's scale, once for every layer
         lora_scale = lora_scale[lora_idx]
     for i in range(cfg.n_layer):
         h = block(h, layer_params(params["blocks"], i), cfg, cos, sin, None,
-                  dtype, cache.layer(i), rows, p,
+                  dtype, cache.layer(i), rows, p, layer_idx=i,
                   **_adapter_kw(lora, i, lora_scale, lora_idx))
     return _final(h, params, cfg, dtype)[:, 0], cache
 
@@ -773,7 +814,7 @@ def forward_spec_batched(params: Params, toks: torch.Tensor, cache: KVCache,
         lora_scale = lora_scale[lora_idx]
     for i in range(cfg.n_layer):
         h = block(h, layer_params(params["blocks"], i), cfg, cos, sin, mask,
-                  dtype, cache.layer(i), rows, pos_t, attn_len,
+                  dtype, cache.layer(i), rows, pos_t, attn_len, layer_idx=i,
                   **_adapter_kw(lora, i, lora_scale, lora_idx))
     return _final(h, params, cfg, dtype), cache
 

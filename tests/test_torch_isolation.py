@@ -47,13 +47,51 @@ def test_no_source_names_jax_or_nano_tpu():
             assert top not in ("jax", "jaxlib", "nano_tpu"), (path, mod)
 
 
+def _imports_by_scope(path):
+    """(module, the dotted names of the classes and functions around the
+    import statement, "" at module level) for every import in `path`."""
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+
+    def walk(node, scope):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.Import):
+                for a in child.names:
+                    yield a.name, scope
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                yield child.module, scope
+            elif isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                    ast.ClassDef)):
+                yield from walk(child, f"{scope}.{child.name}".lstrip("."))
+            else:
+                yield from walk(child, scope)
+    yield from walk(tree, "")
+
+
+# the optional backends that are transformers itself, imported inside the
+# function that runs them and nowhere else: the gateway's HF backend and
+# the HF speech recognizer (the JAX package's counterparts do the same)
+TRANSFORMERS_BACKENDS = {
+    ("nano_tpu_torch/serve/gateway.py", "HFGateway.__init__"),
+    ("nano_tpu_torch/serve/gateway.py", "HFGateway._generate_stream"),
+    ("nano_tpu_torch/serve/asr.py", "make_transformers_recognizer"),
+}
+
+
 def test_no_source_names_safetensors_or_transformers():
-    """The machine with the card has neither package: the port reads
-    safetensors files by hand."""
+    """The port needs neither package: it reads safetensors files by hand,
+    and no code path but the transformers backends (inside their
+    functions, TRANSFORMERS_BACKENDS) names transformers."""
+    seen = set()
     for path in _sources():
-        for mod in _imported_modules(path):
-            assert mod.split(".")[0] not in ("safetensors", "transformers"), (
-                path, mod)
+        rel = os.path.relpath(path, ROOT).replace(os.sep, "/")
+        for mod, scope in _imports_by_scope(path):
+            top = mod.split(".")[0]
+            assert top != "safetensors", (path, mod)
+            if top == "transformers":
+                assert (rel, scope) in TRANSFORMERS_BACKENDS, (path, scope)
+                seen.add((rel, scope))
+    assert seen == TRANSFORMERS_BACKENDS
 
 
 def test_importing_everything_loads_no_jax():
@@ -105,15 +143,18 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_new_modules_are_among_the_checked_sources():
-    """The walk above covers the training slice's modules and the serving
-    package too."""
+    """The walk above covers the training slice's modules, the serving
+    package and its frontends too."""
     rel = {os.path.relpath(p, ROOT) for p in _sources()}
     for mod in ("data/preprocess.py", "train/data.py", "train/trainer.py",
                 "train/__main__.py", "io/checkpoint.py", "ops/flash_attn.py",
                 "ops/launches.py", "serve/__init__.py", "serve/batching.py",
                 "infer/speculative.py", "export.py", "io/gguf.py",
                 "io/qwen.py", "io/pt_import.py", "parallel/__init__.py",
-                "parallel/mesh.py", "parallel/launch.py"):
+                "parallel/mesh.py", "parallel/launch.py", "observe.py",
+                "serve/cli.py", "serve/wss.py", "serve/openai_http.py",
+                "serve/gateway.py", "serve/asr.py", "serve/voice_ws.py",
+                "infer/__main__.py"):
         assert os.path.join("nano_tpu_torch", mod) in rel
 
 

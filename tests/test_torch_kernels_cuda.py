@@ -1598,3 +1598,117 @@ def test_decode_attention_rows_do_not_depend_on_the_batch(T):
                     None if vsc is None else vsc[i:i + 1], pos[i:i + 1], KV,
                     rep)
                 assert torch.equal(out[i], one[0]), (B, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tiny_q80.bin", "tiny_q4k.bin"])
+def test_observer_summary_rows_inside_the_captured_graph(name, monkeypatch):
+    """A summary observer (NANO_TPU_OBSERVE=fallback) keeps the decode
+    step a CUDA graph: each step one replay of a graph of its own, the
+    stream the unobserved one's, each RESIDUAL row's mean|x| within 1e-4
+    of the callback mode's (eager) mean(|data|), the LOGITS rows' top-6
+    ids those of the callback mode's logits."""
+    _need_card()
+    from nano_tpu_torch import observe
+    from nano_tpu_torch.infer import engine
+
+    def run(mode):
+        events = []
+        monkeypatch.setattr(observe, "_FORCE_FALLBACK", mode == "summary")
+        ctx = _fixture_ctx(name, penalty=1.0, stop_tokens=(),
+                           observation=None if mode == "none"
+                           else events.append)
+        for _ in range(2):            # the second session replays
+            events.clear()
+            s = engine.Session(ctx, "abcdefgh", max_new_tokens=12)
+            while s.step() is not None:
+                pass
+        return ctx, events, s.output_ids
+
+    _, _, plain = run("none")
+    _, cb, cb_ids = run("callback")
+    ctx, sm, sm_ids = run("summary")
+    assert cb_ids == plain and sm_ids == plain
+    dec = ctx.decoder()
+    keys = [k for k in dec.graphs if k[2] == "fallback"]
+    assert len(keys) == 1 and dec.graphs[keys[0]].graph is not None
+    by_key = lambda evs: sorted((int(e.phase), e.layer) for e in evs)
+    assert by_key(sm) == by_key(cb)
+    assert len([e for e in sm if e.phase == observe.Phase.SAMPLE]) == 11
+    pick = lambda evs, ph: [e for e in evs if e.phase == ph]
+    for c, s in zip(pick(cb, observe.Phase.RESIDUAL),
+                    pick(sm, observe.Phase.RESIDUAL)):
+        want = float(np.abs(c.data.astype(np.float64)).mean())
+        assert (c.layer == s.layer and s.summary
+                and abs(s.mean_abs - want) <= 1e-4 * want)
+    lc, ls = pick(cb, observe.Phase.LOGITS), pick(sm, observe.Phase.LOGITS)
+    assert len(lc) == len(ls) == 12
+    for c, s in zip(lc, ls):
+        np.testing.assert_array_equal(
+            s.top_ids, observe.top_candidates(c.data, 6)[0])
+
+
+@pytest.mark.cuda
+def test_one_decoder_across_gateway_requests(tmp_path):
+    """NativeGGUFGateway on the card: one context and one SingleDecoder
+    across requests with three samplers, a captured graph each, replayed
+    by a later request with a sampler seen before; the pieces the
+    context's Session stream."""
+    _need_card()
+    import asyncio
+    from nano_tpu_torch.config import ModelConfig
+    from nano_tpu_torch.infer import engine
+    from nano_tpu_torch.io import gguf
+    from nano_tpu_torch.ops import sampling
+    from nano_tpu_torch.serve import gateway
+    from nano_tpu_torch.tokenizer.bpe import BpeTokenizer
+    cfg = ModelConfig(block_size=64, vocab_size=256, n_layer=2, n_embd=64,
+                      n_head=2, n_kv_head=1, n_hidden=96, head_dim=32,
+                      use_qk_norm=True, rope_style="half", rope_theta=1e6,
+                      norm_eps=1e-6, tie_embeddings=True)
+    g = torch.Generator().manual_seed(0)
+    w = lambda *s: torch.randn(*s, generator=g) * 0.05
+    L, E, F, V, D = 2, 64, 96, 256, 32
+    params = {"tok_embeddings": w(V, E), "norm": w(E) + 1, "blocks": {
+        "attn_norm": w(L, E) + 1, "ffn_norm": w(L, E) + 1,
+        "wq": w(L, E, 2 * D), "wk": w(L, E, D), "wv": w(L, E, D),
+        "wo": w(L, 2 * D, E), "w1": w(L, E, F), "w2": w(L, F, E),
+        "w3": w(L, E, F), "q_norm": w(L, D) + 1, "k_norm": w(L, D) + 1}}
+    path = str(tmp_path / "m.gguf")
+    gguf.write_gguf(path, params, cfg, BpeTokenizer(
+        [bytes([i]) for i in range(256)], [0.0] * 256), quant="q8_0")
+    gw = gateway.NativeGGUFGateway(path, n_ctx=64)
+    assert gw.ctx.device.type == "cuda"
+
+    class Conn:
+        def __init__(self, msg):
+            self.inbox = [msg]
+            self.frames = []
+
+        async def recv(self):
+            if self.inbox:
+                return self.inbox.pop()
+            while not (self.frames and "done" in self.frames[-1]):
+                await asyncio.sleep(0.01)
+            raise ConnectionError("closed")
+
+        async def send(self, m):
+            self.frames.append(m)
+
+    decoders = set()
+    for rp in (1.0, 1.2, 1.5, 1.0):
+        conn = Conn(json.dumps({"prompt": "hello", "template": False,
+                                "max_new_tokens": 16, "temperature": 0.0,
+                                "repetition_penalty": rp}))
+        asyncio.run(gw.handle(conn))
+        text = "".join(json.loads(f).get("text", "") for f in conn.frames)
+        decoders.add(id(gw.ctx._decoder))
+        gw.ctx.sampler = sampling.SamplerConfig(temperature=0.0, top_p=0.8,
+                                                repetition_penalty=rp)
+        s = engine.generate_sync(gw.ctx, "hello", max_new_tokens=16)
+        sdec = gw.ctx.stream_decoder()
+        assert text == "".join(sdec.feed(t) for t in s.output_ids) + \
+            sdec.flush()
+    graphs = gw.ctx._decoder.graphs
+    assert len(decoders) == 1 and len(graphs) == 3
+    assert all(gr.graph is not None for gr in graphs.values())

@@ -264,8 +264,9 @@ def _spy(monkeypatch):
 
 
 def _eager_block(x, layer, cfg, cos, sin, mask, dtype, kv_cache, start_pos,
-                 pos_t, attn_len=None):
-    """The cached block through the eager ops the fused kernels replaced."""
+                 pos_t, attn_len=None, layer_idx=-1):
+    """The cached block through the eager ops the fused kernels replaced
+    (`layer_idx` names the layer to an observer; none is attached here)."""
     xn = tgpt.rms_norm(x, layer["attn_norm"], cfg.norm_eps)
     h = x + tgpt.attention(xn, layer, cfg, cos, sin, mask, dtype, kv_cache,
                            start_pos, pos_t, attn_len)
@@ -273,9 +274,11 @@ def _eager_block(x, layer, cfg, cos, sin, mask, dtype, kv_cache, start_pos,
     return h + tgpt.feed_forward(hn, layer, dtype)
 
 
-def _eager_final(h, params, cfg, dtype):
-    return tgpt.compute_logits(tgpt.rms_norm(h, params["norm"], cfg.norm_eps),
-                               params, dtype)
+def _eager_final(h, params, cfg, dtype, last_idx=None):
+    hn = tgpt.rms_norm(h, params["norm"], cfg.norm_eps)
+    if last_idx is not None:
+        hn = hn[:, last_idx:last_idx + 1]
+    return tgpt.compute_logits(hn, params, dtype)
 
 
 def _decode_step(cfg, params, B, dtype, seed=1):
