@@ -1085,15 +1085,24 @@ def bench_pipes(torch):
         "clock per SM = 31.7 ex2/ns/SM at 1980 MHz")
 
 
-def bench_q4k(torch, batched=False, sweep=False):
-    """With `batched`, bench_q4k_batched and nothing else.  Else: one
-    Qwen3-0.6B Q4K decode step's 112 matmuls (4 per layer, random
-    per-layer weights as random_q4k_params makes them, bf16 rows) replayed
-    from a CUDA graph: q4k_fake_quant + q4k_matmul (113 fake-quants with the
-    head's) against q4k_matvec_fq, in the order two, fused, fused, two; the
-    fused results must equal the two kernels' bit for bit."""
+def bench_q4k(torch, batched=False, sweep=False, clocks=False, step=False,
+              pdl=True):
+    """With `batched`, bench_q4k_batched and nothing else; with `step`,
+    bench_q4k_step and nothing else.  Else: one Qwen3-0.6B Q4K decode
+    step's 112 products (4 per layer, random per-layer weights as
+    random_q4k_params makes them, bf16 rows) replayed from a CUDA graph:
+    the two kernels K3 at B = 1 was first (q4k_fake_quant + q4k_matmul, 113
+    fake-quants with the head's) against q4k_matvec_fq on the rows'
+    integer form (as the norms, SwiGLU and q4k_act_quant write it) with
+    programmatic dependent launch on and off, in the order two, on, off,
+    off, on, two; each product's 28 launches alone; every new product
+    within 1e-5 of max|y| of the pair's in f32 (the same fake-quantized
+    row, f32 sums in another order).  With `clocks`, bench_q4k_clocks on
+    layer 0's four products."""
     if batched:
         return bench_q4k_batched(torch, sweep)
+    if step:
+        return bench_q4k_step(torch, pdl)
     import numpy as np
     from nano_tpu_torch.config import ModelConfig
     from nano_tpu_torch.ops import _build, q4k
@@ -1103,7 +1112,8 @@ def bench_q4k(torch, batched=False, sweep=False):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     calls = []
     for _ in range(L):
-        for out, inn in ((HD + 2 * KVD, E), (E, HD), (2 * F, E), (E, F)):
+        for name, (out, inn) in zip(("wqkv", "wo", "w13", "w2"), (
+                (HD + 2 * KVD, E), (E, HD), (2 * F, E), (E, F))):
             G = inn // 32
             w = q4k.Q4KTensor(
                 packed=torch.from_numpy(rng.integers(0, 256, (out, inn // 2), dtype=np.uint8)).cuda(),
@@ -1111,8 +1121,8 @@ def bench_q4k(torch, batched=False, sweep=False):
                 biases=torch.from_numpy(rng.random((out, G), dtype=np.float32) * 0.02).cuda(),
                 in_dim=inn)
             x = torch.randn(1, inn, device="cuda", generator=gen).to(torch.bfloat16)
-            calls.append((w, x, torch.empty(1, w.n_pad, device="cuda"),
-                          torch.empty(1, out, device="cuda", dtype=torch.bfloat16),
+            act = q4k.Q4KAct(*q4k.act_quant_q4k_packed(x), x.shape)
+            calls.append((name, w, x, act, torch.empty(1, w.n_pad, device="cuda"),
                           torch.empty(1, out, device="cuda", dtype=torch.bfloat16)))
     head_x = torch.randn(1, E, device="cuda", generator=gen).to(torch.bfloat16)
     head_xq = torch.empty(1, q4k.n_blocks_per_line(E) * 256, device="cuda")
@@ -1122,27 +1132,483 @@ def bench_q4k(torch, batched=False, sweep=False):
     def two():
         lib.q4k_fake_quant(head_x.data_ptr(), 1, head_xq.data_ptr(), 1, E,
                            head_xq.shape[1], st())
-        for w, x, xq, y, _ in calls:
+        for _, w, x, _, xq, y in calls:
             lib.q4k_fake_quant(x.data_ptr(), 1, xq.data_ptr(), 1, w.in_dim,
                                w.n_pad, st())
             lib.q4k_matmul(xq.data_ptr(), w.packed.data_ptr(), w.scales.data_ptr(),
                            w.biases.data_ptr(), y.data_ptr(), 1, 1, w.n_pad,
                            w.in_dim, w.out_dim, st())
 
-    def fused():
-        for w, x, _, _, y in calls:
-            lib.q4k_matvec_fq(x.data_ptr(), 1, w.packed.data_ptr(),
-                              w.scales.data_ptr(), w.biases.data_ptr(),
-                              y.data_ptr(), 1, w.n_pad, w.in_dim, w.out_dim, st())
+    def new(only=None):
+        for name, w, _, act, _, _ in calls:
+            if only in (None, name):
+                q4k.q4k_matvec_fq(act, w, torch.bfloat16)
+
+    def timed_pdl(on, fn, reps=50):
+        saved = q4k.MATVEC_PDL
+        q4k.MATVEC_PDL = on
+        try:
+            return timer(fn, reps=reps)
+        finally:
+            q4k.MATVEC_PDL = saved
 
     timer = Timer(torch)
-    t = [timer(f, reps=50) for f in (two, fused, fused, two)]
-    same = all(torch.equal(a, b) for _, _, _, a, b in calls)
-    log(f"[bench q4k] one Q4K decode step, {len(calls)} matmuls: "
-        f"q4k_fake_quant + q4k_matmul {t[0]:.4f} / {t[3]:.4f} ms, "
-        f"q4k_matvec_fq {t[1]:.4f} / {t[2]:.4f} ms; results bit-equal: {same}")
-    if not same:
+    t = {"two": [], True: [], False: []}
+    for which in ("two", True, False, False, True, "two"):
+        t[which].append(timer(two, reps=50) if which == "two"
+                        else timed_pdl(which, new))
+    worst = 0.0
+    for name, w, x, act, _, _ in calls[:4]:
+        y = q4k.q4k_matvec_fq(act, w, torch.float32)
+        ref = q4k.q4k_matmul_f32(q4k.fake_quant_act(x), w, torch.float32)
+        err = (y - ref).abs().max().item() / ref.abs().max().item()
+        worst = max(worst, err)
+    card = card_line()
+    log(f"[bench q4k] one Q4K decode step, {len(calls)} products ({card}): "
+        f"q4k_fake_quant + q4k_matmul "
+        f"{'/'.join(f'{v:.4f}' for v in t['two'])} ms; q4k_matvec_fq on the "
+        f"integer form, programmatic dependent launch on "
+        f"{'/'.join(f'{v:.4f}' for v in t[True])} ms, off "
+        f"{'/'.join(f'{v:.4f}' for v in t[False])} ms (in turns); the new "
+        f"products within {worst:.2e} of max|y| of the pair's")
+    if not worst <= 1e-5:
         raise AssertionError("q4k_matvec_fq differs from the two kernels")
+    for name in ("wqkv", "wo", "w13", "w2"):
+        w = next(c[1] for c in calls if c[0] == name)
+        byt = w.packed.numel() + 8 * w.scales.numel()
+        per = {on: timed_pdl(on, lambda: new(name)) / L * 1e3
+               for on in (True, False)}
+        log(f"[bench q4k] {name} {w.in_dim}->{w.out_dim}, plan (blocks, R, S, "
+            f"T) {q4k.matvec_plan(w.out_dim, w.n_pad, _build.sm_count(w.packed.device))}: "
+            f"{per[True]:.2f} us a launch (PDL on), {per[False]:.2f} us (off), "
+            f"bound {byt / HBM_BYTES_PER_S * 1e6:.2f} us ({byt / 1e6:.2f} MB)")
+    # a step's chain of producers and products, as the model runs it (a
+    # layer: the attention norm -> wqkv, the attention output ->
+    # q4k_act_quant -> wo, the residual add and FFN norm -> w13, SwiGLU ->
+    # w2), with programmatic dependent launch on and off, in turns
+    from nano_tpu_torch.ops import norm_quant
+    nw = torch.ones(E, device="cuda")
+    ch = [(torch.randn(1, E, device="cuda", generator=gen).to(torch.bfloat16),
+           torch.randn(1, HD, device="cuda", generator=gen).to(torch.bfloat16),
+           torch.randn(1, 2 * F, device="cuda", generator=gen).to(torch.bfloat16))
+          for _ in range(L)]
+    ws = [c[1] for c in calls]
+
+    def chain():
+        for i, (x, a, h13) in enumerate(ch):
+            wq, wo, w13, w2 = ws[4 * i:4 * i + 4]
+            q4k.q4k_matvec_fq(norm_quant.rms_norm_q4k(x, nw, 1e-6, None,
+                                                      False)[2], wq)
+            q4k.q4k_matvec_fq(a, wo)
+            q4k.q4k_matvec_fq(norm_quant.rms_norm_q4k(x, nw, 1e-6, x,
+                                                      False)[2], w13)
+            q4k.q4k_matvec_fq(norm_quant.swiglu_q4k(h13, False)[1], w2)
+
+    def producers():
+        for x, a, h13 in ch:
+            norm_quant.rms_norm_q4k(x, nw, 1e-6, None, False)
+            q4k.act_quant_q4k_packed(a)
+            norm_quant.rms_norm_q4k(x, nw, 1e-6, x, False)
+            norm_quant.swiglu_q4k(h13, False)
+
+    tc = {True: [], False: []}
+    for on in (True, False, False, True):
+        tc[on].append(timed_pdl(on, chain))
+    log(f"[bench q4k] a step's chain ({2 * L} rms_norm_q4k, {L} swiglu_q4k, "
+        f"{L} q4k_act_quant, {4 * L} q4k_matvec_fq): PDL on "
+        f"{'/'.join(f'{v:.4f}' for v in tc[True])} ms, off "
+        f"{'/'.join(f'{v:.4f}' for v in tc[False])} ms; the producers alone "
+        f"{timer(producers):.4f} ms")
+    # the producers one by one at B = 1, 56 launches each, beside the
+    # norm without quantized output and with the Q80 one
+    x1 = ch[0][0]
+    for label, fn in (
+            ("rms_norm_q80, hn", lambda: norm_quant.rms_norm_q80(x1, nw, 1e-6)),
+            ("rms_norm_q80, Q80 gs 256", lambda: norm_quant.rms_norm_q80(
+                x1, nw, 1e-6, None, 256, False)),
+            ("rms_norm_q4k", lambda: norm_quant.rms_norm_q4k(
+                x1, nw, 1e-6, None, False)),
+            ("q4k_act_quant (1, 1024)", lambda: q4k.act_quant_q4k_packed(x1)),
+            ("swiglu_q80, hidden", lambda: norm_quant.swiglu_q80(ch[0][2])),
+            ("swiglu_q4k", lambda: norm_quant.swiglu_q4k(ch[0][2], False))):
+        us = timer(lambda: [fn() for _ in range(56)]) / 56 * 1e3
+        log(f"[bench q4k] B = 1 producer {label}: {us:.2f} us a launch")
+    if sweep:
+        bench_q4k_plans(torch, calls)
+    if clocks:
+        bench_q4k_clocks(torch, [c for c in calls[:4]])
+
+
+def bench_q4k_plans(torch, calls):
+    """Every work split of q4k_matvec_fq around matvec_plan's at each of a
+    Q4K step's four products (its 28 launches, PDL off): blocks from 132
+    to 8 an SM, tiles of 1, 2 or 4 passes, the ring of every tile or of 2;
+    the fastest first, beside the plan's."""
+    from nano_tpu_torch.ops import _build, q4k
+    lib = _build.lib("q4k")
+    q4k.q4k_matvec_fq(calls[0][3], calls[0][1])       # the init
+    st = lambda: torch.cuda.current_stream().cuda_stream
+    timer = Timer(torch)
+    n_sm = _build.sm_count(calls[0][1].packed.device)
+    for name in ("wqkv", "wo", "w13", "w2"):
+        mine = [c for c in calls if c[0] == name]
+        w0 = mine[0][1]
+        N, n_pad = w0.out_dim, w0.n_pad
+        base = q4k.matvec_plan(N, n_pad, n_sm)
+        T = base[3]
+        RP = 256 // T
+        plans = {base}
+        for blocks in (n_sm, 2 * n_sm, 3 * n_sm, 4 * n_sm, 6 * n_sm, 8 * n_sm):
+            blocks = min(blocks, N)
+            per = -(-N // blocks)
+            for R in (RP, 2 * RP, 4 * RP, min(per, RP)):
+                tiles = -(-per // R)
+                for S in (min(16, tiles), min(2, tiles)):
+                    if q4k.matvec_smem(R, n_pad, S) <= 232448:
+                        plans.add((blocks, R, S, T))
+        res = []
+        for plan in sorted(plans):
+
+            def run(plan=plan):
+                for _, w, _, act, _, y in mine:
+                    lib.q4k_matvec_fq(
+                        act.vp.data_ptr(), act.sa.data_ptr(), act.ba.data_ptr(),
+                        w.packed.data_ptr(), w.scales.data_ptr(),
+                        w.biases.data_ptr(), y.data_ptr(), 1, None, n_pad,
+                        w.in_dim, N, *plan, 0, st())
+            res.append((timer(run) / len(mine) * 1e3, plan))
+        res.sort()
+        log(f"[bench q4k sweep] {name} {w0.in_dim}->{N}: plan {base} "
+            f"{next(t for t, p in res if p == base):.2f} us; fastest "
+            + ", ".join(f"{p} {t:.2f}" for t, p in res[:8]))
+
+
+def bench_q4k_clocks(torch, calls):
+    """q4k_matvec_fq built with -DNANO_Q4K_CLOCKS into build/q4k_clocks/
+    (and norm_quant.cu with -DNANO_NQ_CLOCKS), each of `calls` (name,
+    weight, x, its integer form, ...) launched alone with the L2 cleared
+    before it (a 256 MB write): the span from the first block's entry to
+    the last block's end, the spread of the entries, and the median over
+    blocks of each stamp after the block's entry (the activation in, first
+    tile in, the last tile's dot done, the last row stored), in ns of
+    %globaltimer (and in cycles of clock64).  Then the first pair of a
+    step's chain, rms_norm_q4k -> q4k_matvec_fq (wqkv), replayed from a
+    CUDA graph with programmatic dependent launch off and on: the norm's
+    entry, its row done, every warp's part of the row in and its end, and
+    the product's stamps, all after the norm's entry.  Then the Q4K
+    model's decode step from its graph through the two clocks libraries,
+    PDL on and off in turns: the last layer's FFN norm and SwiGLU and the
+    w2 product after it (the model's own place of the pair)."""
+    import ctypes
+    import statistics
+    from nano_tpu_torch.ops import _build, norm_quant, q4k
+    work = os.path.join(ROOT, "build", "q4k_clocks")
+    os.makedirs(work, exist_ok=True)
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    so, so_n = (os.path.join(work, f"lib{n}_clocks.so")
+                for n in ("q4k", "norm_quant"))
+    procs = [subprocess.Popen([_build.nvcc_path(), *flags, define, "-o", out,
+                               os.path.join(_build.CSRC_DIR, src)])
+             for define, out, src in (("-DNANO_Q4K_CLOCKS", so, "q4k.cu"),
+                                      ("-DNANO_NQ_CLOCKS", so_n,
+                                       "norm_quant.cu"))]
+    assert all(p_.wait() == 0 for p_ in procs)
+    lib, libn = ctypes.CDLL(so), ctypes.CDLL(so_n)
+    lib.q4k_matvec_fq.argtypes = _build.SIGNATURES["q4k_matvec_fq"][0]
+    libn.rms_norm_q4k.argtypes = _build.SIGNATURES["rms_norm_q4k"][0]
+    lib.q4k_matvec_fq_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    libn.norm_quant_clocks.argtypes = [ctypes.c_void_p]
+    assert lib.q4k_matvec_fq_init() == 0 and libn.norm_quant_init() == 0
+    flush = torch.empty(64 << 20, device="cuda")
+    st = lambda: torch.cuda.current_stream().cuda_stream
+    n_sm = _build.sm_count(flush.device)
+
+    def launch(w, act, y, pdl):
+        plan = q4k.matvec_plan(w.out_dim, w.n_pad, n_sm)
+        assert lib.q4k_matvec_fq(
+            act.vp.data_ptr(), act.sa.data_ptr(), act.ba.data_ptr(),
+            w.packed.data_ptr(), w.scales.data_ptr(), w.biases.data_ptr(),
+            y.data_ptr(), 1, None, w.n_pad, w.in_dim, w.out_dim, *plan, pdl,
+            st()) == 0
+        return plan[0]
+
+    def stamps(nb):
+        buf = (ctypes.c_ulonglong * (10 * nb))()
+        assert lib.q4k_matvec_fq_clocks(buf, nb) == 0
+        return [list(buf)[10 * b:10 * b + 10] for b in range(nb)]
+
+    for name, w, _, act, _, y in calls:
+        for _ in range(2):    # the first launch warms up
+            flush.zero_()
+            nb = launch(w, act, y, 0)
+            torch.cuda.synchronize()
+        t = stamps(nb)
+        t0 = min(r[0] for r in t)
+        med = [statistics.median(r[k] - r[0] for r in t) for k in range(1, 5)]
+        cyc = [statistics.median(r[5 + k] - r[5] for r in t) for k in range(1, 5)]
+        mhz = statistics.median((r[9] - r[5]) * 1e3 / max(r[4] - r[0], 1)
+                                for r in t)
+        log(f"[bench q4k clocks] {name}, weights cold: span "
+            f"{max(r[4] for r in t) - t0} ns, entries spread over "
+            f"{max(r[0] for r in t) - t0} ns; median after entry: activation "
+            f"in {med[0]:.0f}, first tile in {med[1]:.0f}, dot done "
+            f"{med[2]:.0f}, rows stored {med[3]:.0f} ns ("
+            + "/".join(f"{c:.0f}" for c in cyc)
+            + f" cycles, SM clock ~{mhz:.0f} MHz)")
+
+    name, w, x, act, _, y = calls[0]
+    E = w.in_dim
+    xn = torch.randn(1, E, device="cuda").to(torch.bfloat16)
+    nw = torch.ones(E, device="cuda")
+    T, P = norm_quant.plan(E)
+    vp, sa, ba, c = (t_.clone() for t_ in act.parts())
+    act_n = q4k.Q4KAct(vp, sa, ba, c, act.shape)
+    for pdl in (0, 1, 0, 1):
+
+        def pair():
+            assert libn.rms_norm_q4k(
+                xn.data_ptr(), None, nw.data_ptr(), None, None, vp.data_ptr(),
+                sa.data_ptr(), ba.data_ptr(), c.data_ptr(), 1, 1, E, 1e-6, T,
+                P, 1, st()) == 0
+            return launch(w, act_n, y, pdl)
+
+        pair()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            nb = pair()
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+        nbuf = (ctypes.c_ulonglong * 12)()
+        assert libn.norm_quant_clocks(nbuf) == 0
+        n0 = nbuf[0]
+        t = stamps(nb)
+        rel = lambda k: [r[k] - n0 for r in t]
+        log(f"[bench q4k clocks] rms_norm_q4k -> q4k_matvec_fq {name} from a "
+            f"graph, programmatic dependent launch {'on' if pdl else 'off'}, "
+            f"ns after the norm's entry: norm row done {nbuf[1] - n0}, every "
+            f"warp's part in {nbuf[3] - n0}, norm end {nbuf[2] - n0}; "
+            f"product entries {min(rel(0))} .. "
+            f"{max(rel(0))}, activation in (median) "
+            f"{statistics.median(rel(1)):.0f}, first tile in "
+            f"{statistics.median(rel(2)):.0f}, dot done "
+            f"{statistics.median(rel(3)):.0f}, last row stored {max(rel(4))}")
+        del graph
+
+    # the Q4K model's decode step through the clocks libraries: the last
+    # layer's FFN norm, its SwiGLU, and the product after it (w2)
+    import numpy as np
+    from nano_tpu_torch.config import ModelConfig
+    from nano_tpu_torch.infer import engine
+    from nano_tpu_torch.ops import sampling
+    from nano_tpu_torch.tokenizer.bpe import QWEN_STOP_TOKENS
+    from nano_tpu_torch.tokenizer.trie import TrieTokenizer
+    for stem, handle in (("q4k", lib), ("norm_quant", libn)):
+        for entry_name, (argtypes, owner) in _build.SIGNATURES.items():
+            if owner == stem:
+                fn = getattr(handle, entry_name)
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _build._libs[stem] = handle
+    cfg = ModelConfig(**QWEN3_06B)
+    tok = TrieTokenizer()
+    tok.build_preset(32768)
+    ctx = engine.LLMContext(
+        cfg=cfg, params=random_q4k_params(torch, np, cfg, flush.device),
+        tokenizer=tok, max_seq_len=cfg.block_size, device=flush.device,
+        dtype=torch.bfloat16, sampler=sampling.SamplerConfig(
+            temperature=0.0, repetition_penalty=1.0),
+        stop_tokens=QWEN_STOP_TOKENS, arch="qwen3")
+    prompt = np.random.default_rng(SEED + 1).integers(100, 30000, 64).tolist()
+    w2 = ctx.params["blocks"]["w2"]
+    nb = q4k.matvec_plan(w2.out_dim, w2.n_pad, n_sm)[0]
+    pdl_saved = q4k.MATVEC_PDL
+    for pdl in (True, False, True, False):
+        q4k.MATVEC_PDL = pdl
+        ctx._decoder = None         # a decoder of its own: graphs of its own
+        dec = ctx.decoder()
+        with ctx.on_stream():
+            dec.claim()
+            dec.prefill(prompt)
+            for _ in range(3):
+                dec._graph().run()
+            torch.cuda.synchronize()
+            assert libn.norm_quant_clocks(nbuf) == 0
+            t = stamps(nb)
+            s0 = nbuf[4]
+            rel = lambda k: [r[k] - s0 for r in t]
+            log(f"[bench q4k clocks] a Q4K decode step from its graph, PDL "
+                f"{'on' if pdl else 'off'}: the last FFN norm (rms_norm_q4k, "
+                f"block 0) row done {nbuf[1] - nbuf[0]}, every warp's part "
+                f"in {nbuf[3] - nbuf[0]}, end {nbuf[2] - nbuf[0]} ns after "
+                f"its entry; the last swiglu_q4k row done {nbuf[5] - s0}, "
+                f"every warp's part in {nbuf[7] - s0}, end {nbuf[6] - s0}; "
+                f"then w2's q4k_matvec_fq, ns after the "
+                f"SwiGLU's entry: entries {min(rel(0))} .. {max(rel(0))}, "
+                f"activation in (median) {statistics.median(rel(1)):.0f}, "
+                f"first tile in {statistics.median(rel(2)):.0f}, dot done "
+                f"{statistics.median(rel(3)):.0f}, last row stored "
+                f"{max(rel(4))}; SM clock ~"
+                f"{statistics.median((r[9] - r[5]) * 1e3 / max(r[4] - r[0], 1) for r in t):.0f}"
+                f" MHz")
+        del dec
+    q4k.MATVEC_PDL = pdl_saved
+    del ctx
+
+
+def timeline_by_kernel(torch, fn, n, keys):
+    """torch.profiler over n calls of fn(): the card's kernels on one time
+    line, each charged the time it adds to the span (its end past the
+    latest end so far), the gaps charged to the kernel after them; named
+    by `keys` (substring, name), else "other".  -> (span ms, {name: ms
+    added}, {name: ms of gaps before it}), each a call."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ev = sorted(((e.time_range.start, e.time_range.end, e.name)
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "spin_kernel" not in e.name), key=lambda t: t[0])
+    added, gaps = {}, {}
+    cur = ev[0][0]
+    for t0, t1, name in ev:
+        key = next((k for sub, k in keys if sub in name), "other")
+        if t0 > cur:
+            gaps[key] = gaps.get(key, 0.0) + (t0 - cur) / 1e3 / n
+        added[key] = added.get(key, 0.0) + max(0.0, t1 - max(cur, t0)) / 1e3 / n
+        cur = max(cur, t1)
+    return (cur - ev[0][0]) / 1e3 / n, added, gaps
+
+
+def bench_q4k_step(torch, pdl=True):
+    """The Qwen3-0.6B Q4K model's decode step end to end through the entry
+    points every tree of the port has (LLMContext, generate_on_device, the
+    decoder's graph, gpt's functions, BatchedEngine), so that a copy of
+    this file in an older tree (git archive into a gitignored directory)
+    times that tree; with pdl=False (`bench q4k step nopdl`) q4k_matvec_fq
+    is launched without programmatic dependent launch throughout.  The
+    model's Q4K chain alone (28 layers of norms, SwiGLU and products, as
+    the cached forward calls them at one row); generate_on_device tok/s (a
+    64-token prompt, N_TOKENS tokens) and TTFT; the one-step graph's ms a
+    step between CUDA events over 64 replays (the least and the median of
+    5 windows), its card busy ms by kernel (torch.profiler over 32
+    replays) and one replay's time line (timeline_by_kernel); 8 and 64
+    slots' ms per batched step."""
+    import numpy as np
+    from nano_tpu_torch.config import ModelConfig
+    from nano_tpu_torch.infer import engine
+    from nano_tpu_torch.models import gpt
+    from nano_tpu_torch.ops import _build, q4k, sampling
+    from nano_tpu_torch.serve.batching import BatchedEngine
+    from nano_tpu_torch.tokenizer.bpe import QWEN_STOP_TOKENS
+    from nano_tpu_torch.tokenizer.trie import TrieTokenizer
+    _build.build_all()
+    has_pdl = hasattr(q4k, "MATVEC_PDL")
+    if has_pdl:
+        q4k.MATVEC_PDL = pdl
+    tag = ("" if not has_pdl else ", programmatic dependent launch "
+           + ("on" if pdl else "off"))
+    dev, cfg = torch.device("cuda"), ModelConfig(**QWEN3_06B)
+    tok = TrieTokenizer()
+    tok.build_preset(32768)
+    ctx = engine.LLMContext(
+        cfg=cfg, params=random_q4k_params(torch, np, cfg, dev), tokenizer=tok,
+        max_seq_len=cfg.block_size, device=dev, dtype=torch.bfloat16,
+        sampler=sampling.SamplerConfig(temperature=0.0, repetition_penalty=1.0),
+        stop_tokens=QWEN_STOP_TOKENS, arch="qwen3")
+    prompt = np.random.default_rng(SEED + 1).integers(
+        100, 30000, PROMPT_LEN).tolist()
+    card = card_line()
+    timer = Timer(torch)
+
+    def timed_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        return (time.time() - t0) * 1e3
+
+    layers = [gpt.layer_params(ctx.params["blocks"], i)
+              for i in range(cfg.n_layer)]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    xs = [torch.randn(1, 1, cfg.n_embd, device=dev, generator=g
+                      ).to(torch.bfloat16) for _ in layers]
+    ats = [torch.randn(1, 1, cfg.n_head * cfg.head_dim, device=dev,
+                       generator=g).to(torch.bfloat16) for _ in layers]
+
+    def chain():
+        for lp, x, at in zip(layers, xs, ats):
+            _, xn, _ = gpt._norm(x, lp["attn_norm"], cfg.norm_eps, [lp["wqkv"]])
+            gpt._dense(xn, lp["wqkv"], torch.bfloat16)
+            a = gpt._dense(at, lp["wo"], torch.bfloat16)
+            _, hn, _ = gpt._norm(x, lp["ffn_norm"], cfg.norm_eps, [lp["w13"]],
+                                 residual=a)
+            gpt.feed_forward_cached(hn, lp, torch.bfloat16)
+
+    t_chain = [timer(chain) for _ in range(3)]
+    del xs, ats
+    engine.generate_on_device(ctx, prompt, 8)          # the capture
+    ttft = min(timed_ms(lambda: engine.generate_on_device(ctx, prompt, 1))
+               for _ in range(3))
+    t_all = timed_ms(lambda: engine.generate_on_device(ctx, prompt, N_TOKENS))
+    step_ms = (t_all - ttft) / (N_TOKENS - 1)
+    dec = ctx.decoder()
+    names = [n for _, n in PROFILE_KEYS]
+    with ctx.on_stream():
+        dec.claim()
+        dec.prefill(prompt)
+        run = dec._graph().run
+        run()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        windows = []
+        for _ in range(5):
+            e0.record()
+            for _ in range(64):
+                run()
+            e1.record()
+            torch.cuda.synchronize()
+            windows.append(e0.elapsed_time(e1) / 64)
+        groups, seen, n_k, _, _ = profile_steps(
+            torch, run, 32, PROFILE_KEYS, {n: 1 for n in names})
+        span, added, gaps = min((timeline_by_kernel(torch, run, 1,
+                                                    PROFILE_KEYS)
+                                 for _ in range(3)), key=lambda r: r[0])
+    del dec
+    busy = sum(groups.values()) / 32
+    log(f"[bench q4k step] {card}{tag}: the model's Q4K chain "
+        f"{'/'.join(f'{t:.4f}' for t in t_chain)} ms; generate_on_device "
+        f"{1e3 / step_ms:.2f} tok/s ({step_ms:.3f} ms a step), TTFT "
+        f"{ttft:.2f} ms; one-step graph {min(windows):.4f} ms a step (least "
+        f"of 5 windows of 64 replays; median "
+        f"{sorted(windows)[2]:.4f}); card busy {busy:.3f} ms a step, "
+        f"{n_k / 32:.0f} kernels; busy ms a step by kernel: "
+        + ", ".join(f"{k} {v / 32:.3f}" for k, v in groups.items() if v)
+        + f"; one replay's time line {span:.4f} ms, time added by kernel: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(added.items()))
+        + "; gaps before: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(gaps.items())))
+    for n_slots in (8, 64):
+        eng = BatchedEngine(ctx, n_slots=n_slots)
+        trng = np.random.default_rng(SEED + n_slots)
+        for _ in range(n_slots):
+            eng.add(trng.integers(100, 30000, 32).tolist(),
+                    max_new_tokens=10 ** 6, temperature=0.0,
+                    repetition_penalty=1.0)
+        eng.step_burst(8)
+        ms = timed_ms(lambda: [eng.step_burst(16) for _ in range(3)]) / 48
+        groups, _, n_k, _, _ = profile_steps(
+            torch, lambda: eng.step_burst(16), 1, PROFILE_KEYS,
+            {n: 1 for n in names})
+        log(f"[bench q4k step] {n_slots} slots ({card}{tag}): {ms:.3f} ms "
+            f"per batched step; card busy {sum(groups.values()) / 16:.3f} ms "
+            f"a step by kernel: " + ", ".join(
+                f"{k} {v / 16:.3f}" for k, v in groups.items() if v))
+        del eng
+        torch.cuda.empty_cache()
 
 
 def bench_q4k_batched(torch, sweep=False):
@@ -1546,6 +2012,8 @@ PROFILE_KEYS = (("w8a8_kernel", "q80_matmul_w8a8"),
                 ("q80_matvec_fq_kernel", "q80_matvec_fq"),
                 ("rms_norm_q80_kernel", "rms_norm_q80"),
                 ("swiglu_q80_kernel", "swiglu_q80"),
+                ("rms_norm_q4k_kernel", "rms_norm_q4k"),
+                ("swiglu_q4k_kernel", "swiglu_q4k"),
                 ("decode_attn_kernel", "decode_attention"),
                 ("q4k_matvec_fq_kernel", "q4k_matvec_fq"),
                 ("q4k_mat", "q4k_matmul"),      # matvec (B=1), matmul
@@ -1617,6 +2085,8 @@ COUNTER_OF = dict(
     q80_matvec_fq=("q80_matvec_fq", "launches"),
     rms_norm_q80=("rms_norm_q80", "launches"),
     swiglu_q80=("swiglu_q80", "launches"),
+    rms_norm_q4k=("rms_norm_q4k", "launches"),
+    swiglu_q4k=("swiglu_q4k", "launches"),
     decode_attention=("decode_attention", "launches"),
     q4k_fake_quant=("fake_quant_act", "launches"),
     q4k_matmul=("q4k_matmul_f32", "launches"),
@@ -1648,17 +2118,23 @@ def read_launches(torch, names):
 
 def decode_counts(model, steps, names, L=28):
     """Launches of an L-layer Qwen3 model's 64-row prefill and `steps`
-    decode steps, over the kernels `names` (0 where none)."""
+    decode steps, over the kernels `names` (0 where none).  The Q4K
+    model's norms and SwiGLUs write its products' Q4K activations at every
+    row count (rms_norm_q4k, swiglu_q4k), so q4k_act_quant runs on wo's
+    input alone, L times a forward; its final norm feeds the requantized
+    Q80 head (rms_norm_q80, no quantized output)."""
     e = {n: 0 for n in names}
     if model == "Q80":
         e.update(q80_act_quant=L, q80_matmul_w8a8=4 * L,
-                 q80_matvec_fq=(4 * L + 1) * steps + 1)
+                 q80_matvec_fq=(4 * L + 1) * steps + 1,
+                 rms_norm_q80=(2 * L + 1) * (1 + steps),
+                 swiglu_q80=L * (1 + steps))
     else:
-        e.update(q4k_act_quant=4 * L, q4k_matmul_w4a4=4 * L,
+        e.update(q4k_act_quant=L * (1 + steps), q4k_matmul_w4a4=4 * L,
                  q4k_fake_quant=1 + steps, q4k_matvec_fq=4 * L * steps,
-                 q80_matvec_fq=1 + steps)
-    e.update(decode_attention=L * steps, rms_norm_q80=(2 * L + 1) * (1 + steps),
-             swiglu_q80=L * (1 + steps))
+                 q80_matvec_fq=1 + steps, rms_norm_q80=1 + steps,
+                 rms_norm_q4k=2 * L * (1 + steps), swiglu_q4k=L * (1 + steps))
+    e.update(decode_attention=L * steps)
     return e
 
 
@@ -1669,9 +2145,9 @@ def spec_round_counts(model, L=28):
     if model == "Q80":
         return dict(q80_matmul_w8a8=4 * L + 1, q80_act_quant=L,
                     rms_norm_q80=2 * L + 1, swiglu_q80=L)
-    return dict(q4k_act_quant=4 * L, q4k_matmul_w4a4=4 * L, q4k_fake_quant=1,
-                q80_act_quant=1, q80_matmul_w8a8=1, rms_norm_q80=2 * L + 1,
-                swiglu_q80=L)
+    return dict(q4k_act_quant=L, q4k_matmul_w4a4=4 * L, q4k_fake_quant=1,
+                q80_act_quant=1, q80_matmul_w8a8=1, rms_norm_q80=1,
+                rms_norm_q4k=2 * L, swiglu_q4k=L)
 
 
 def runs_of(xs) -> str:
@@ -5292,7 +5768,9 @@ def bench(what) -> int:
     log(f"[bench] card: {card_line()}")
     flags = {"clocks": "clocks" in what}
     q80_flags = dict(flags, batched="batched" in what, sweep="sweep" in what)
-    q4k_flags = dict(batched="batched" in what, sweep="sweep" in what)
+    q4k_flags = dict(batched="batched" in what, sweep="sweep" in what,
+                     clocks="clocks" in what, step="step" in what,
+                     pdl="nopdl" not in what)
     for name, fn in (("flash", bench_flash), ("decode", bench_decode),
                      ("q4k", bench_q4k), ("q80", bench_q80),
                      ("pipes", bench_pipes), ("spec", bench_spec),
@@ -5411,6 +5889,12 @@ def main() -> int:
     entry("rms_norm_q80", "nano_tpu/ops/qmatmul.py:250 + "
           "nano_tpu/models/gpt.py:96", "nano_tpu_torch/csrc/norm_quant.cu")
     entry("swiglu_q80", "nano_tpu/ops/qmatmul.py:250 + "
+          "nano_tpu/models/gpt.py:454", "nano_tpu_torch/csrc/norm_quant.cu")
+    # q4k_act_quant redesigned the same way: the Q4K epilogue of the two
+    # kernels beside K3
+    entry("rms_norm_q4k", "nano_tpu/ops/q4k.py:459 + "
+          "nano_tpu/models/gpt.py:96", "nano_tpu_torch/csrc/norm_quant.cu")
+    entry("swiglu_q4k", "nano_tpu/ops/q4k.py:459 + "
           "nano_tpu/models/gpt.py:454", "nano_tpu_torch/csrc/norm_quant.cu")
     entry("decode_attention", "nano_tpu/ops/decode_attn.py:45",
           "nano_tpu_torch/csrc/decode_attn.cu")
@@ -5676,6 +6160,76 @@ def main() -> int:
         f"all-zero row scale 0 and values 0; rows 0, 2, 37, 63 the same bits "
         f"at B = 1 and inside B = 64")
 
+    # the same kernels with the Q4K epilogue (rms_norm_q4k, swiglu_q4k):
+    # h, hn and the SwiGLU output torch.equal to the Q80 instances'; vp,
+    # sa, ba and c torch.equal to q4k_act_quant (and its plain version) of
+    # the kernel's own rounded output, with and without that output
+    # written; two runs bit-equal; the all-zero row all zero; rows 0, 2,
+    # 37, 63 the same bits at B = 1 and inside B = 64
+    def same4(p, q):
+        return all(torch.equal(a, b) for a, b in zip(p.parts(), q.parts()))
+
+    def act_quant_of(act, y):
+        y2 = y.reshape(-1, y.shape[-1])
+        k = q4k.act_quant_q4k_packed(y2)
+        pl = q4k.act_quant_q4k_packed_plain(y2)
+        return (all(torch.equal(a, b) for a, b in zip(act.parts(), k))
+                and all(torch.equal(a, b) for a, b in zip(act.parts(), pl)))
+
+    n_nq4 = 0
+    for B in norm_rows:
+        for dt in (torch.bfloat16, torch.float32):
+            x = (torch.randn(B, E_, device=dev, generator=gen) * 2).to(dt)
+            a = torch.randn(B, E_, device=dev, generator=gen).to(dt)
+            h13 = (torch.randn(B, F2, device=dev, generator=gen) * 2).to(dt)
+            if B > 2:
+                x[2], a[2], h13[2] = 0, 0, 0
+            for res in (None, a):
+                h, hn, act = norm_quant.rms_norm_q4k(x, nw, eps, res)
+                _, none, act2 = norm_quant.rms_norm_q4k(x, nw, eps, res,
+                                                        want_hn=False)
+                h8, hn8, _ = norm_quant.rms_norm_q80(x, nw, eps, res)
+                ok = (torch.equal(hn, hn8) and none is None
+                      and (h is None if res is None else torch.equal(h, h8))
+                      and act_quant_of(act, hn) and same4(act2, act))
+                if B > 2:
+                    ok = ok and not act.vp[2].any() and not act.sa[2].any()
+                if B == 64:
+                    for r in (0, 2, 37, 63):
+                        one = norm_quant.rms_norm_q4k(
+                            x[r:r + 1], nw, eps,
+                            None if res is None else res[r:r + 1])[2]
+                        ok = ok and all(torch.equal(p_[0], q_[r]) for p_, q_
+                                        in zip(one.parts(), act.parts()))
+                if not ok:
+                    raise AssertionError(f"rms_norm_q4k B={B} {dt} residual "
+                                         f"{res is not None}: differs")
+                n_nq4 += 1
+            y, act = norm_quant.swiglu_q4k(h13)
+            none, act2 = norm_quant.swiglu_q4k(h13, want_hidden=False)
+            y8, _ = norm_quant.swiglu_q80(h13)
+            ok = (torch.equal(y, y8) and none is None and act_quant_of(act, y)
+                  and same4(act2, act))
+            if B > 2:
+                ok = ok and not act.vp[2].any() and not act.sa[2].any()
+            if B == 64:
+                for r in (0, 2, 37, 63):
+                    one = norm_quant.swiglu_q4k(h13[r:r + 1])[1]
+                    ok = ok and all(torch.equal(p_[0], q_[r]) for p_, q_
+                                    in zip(one.parts(), act.parts()))
+            if not ok:
+                raise AssertionError(f"swiglu_q4k B={B} {dt}: differs")
+            n_nq4 += 1
+    for name in ("rms_norm_q4k", "swiglu_q4k"):
+        note_err(name, 0.0)
+    log(f"[kernel] rms_norm_q4k / swiglu_q4k at E={E_}, 2F={F2}, B = "
+        f"{norm_rows}, bf16 and f32, with and without the residual "
+        f"({n_nq4} cases): h, hn and the SwiGLU output torch.equal to "
+        f"rms_norm_q80's / swiglu_q80's; vp, sa, ba and c torch.equal to "
+        f"q4k_act_quant and its plain version of the kernel's own output, "
+        f"with and without that output written; the all-zero row all zero; "
+        f"rows 0, 2, 37, 63 the same bits at B = 1 and inside B = 64")
+
     # one step's launches of the two kernels (28 layers: 57 norms, 28
     # SwiGLUs), replayed from a graph, at B = 1 (hn only: q80_matvec_fq
     # quantizes a single row itself), 8 and 64 (with the Q80 outputs at GS,
@@ -5756,6 +6310,85 @@ def main() -> int:
     for name, ms_, plain_, lib_, b_ in (
             ("rms_norm_q80", t_norm, t_norm_plain, t_lib, b_norm),
             ("swiglu_q80", t_sw, t_sw_plain, None, b_sw)):
+        kernels[name].update(ms=ms_, plain_ms=plain_, library_ms=lib_,
+                             bound_ms=b_[0], bound_by=b_[1])
+
+    # the Q4K model's step: 56 rms_norm_q4k + 28 swiglu_q4k launches (the
+    # final norm feeds the Q80 head and writes hn alone), at B = 1, 8 and
+    # 64, beside the path before the fold (the norms writing hn and the
+    # SwiGLU output, then q4k_act_quant on each: 84 launches more), the
+    # eager ops with q4k_act_quant, the plain versions, F.rms_norm x 56 and
+    # the bound (each input read once, each output written once)
+    nq4_rows = {}
+    for B in (1, 8, 64):
+        xs = [torch.randn(B, E_, device=dev, generator=gen).to(torch.bfloat16)
+              for _ in range(L)]
+        ats = [torch.randn(B, E_, device=dev, generator=gen).to(torch.bfloat16)
+               for _ in range(L)]
+        hs = [torch.randn(B, F2, device=dev, generator=gen).to(torch.bfloat16)
+              for _ in range(L)]
+
+        def run_norms4(rms=norm_quant.rms_norm_q4k):
+            for i in range(L):
+                rms(xs[i], attn_w[i], eps, None, False)
+                rms(xs[i], ffn_w[i], eps, ats[i], False)
+
+        def run_swiglus4(sw=norm_quant.swiglu_q4k):
+            for i in range(L):
+                sw(hs[i], False)
+
+        def run_before4():
+            aq = lambda t: q4k.act_quant_q4k_packed(t.reshape(-1, t.shape[-1]))
+            for i in range(L):
+                aq(norm_quant.rms_norm_q80(xs[i], attn_w[i], eps)[1])
+                aq(norm_quant.rms_norm_q80(xs[i], ffn_w[i], eps, ats[i])[1])
+                aq(norm_quant.swiglu_q80(hs[i])[0])
+
+        def run_eager4():
+            aq = lambda t: q4k.act_quant_q4k_packed(t.reshape(-1, t.shape[-1]))
+            for i in range(L):
+                aq(norm_quant.rms_norm(xs[i], attn_w[i], eps))
+                aq(norm_quant.rms_norm(xs[i] + ats[i], ffn_w[i], eps))
+                aq(F.silu(hs[i][:, :F2 // 2]) * hs[i][:, F2 // 2:])
+
+        def run_library4():
+            for i in range(L):
+                F.rms_norm(xs[i], (E_,), attn_w[i], eps)
+                F.rms_norm(xs[i] + ats[i], (E_,), ffn_w[i], eps)
+
+        out4 = lambda n: B * (n // 2 + 12 * (n // 32))    # vp, sa, ba, c
+        norm4_bytes = 2 * L * (2 * B * E_ + 4 * E_ + out4(E_)) + L * (
+            2 * B * E_ + 2 * B * E_)                      # the residual, h
+        sw4_bytes = L * (2 * B * F2 + out4(F2 // 2))
+        t_norm4, t_sw4 = timer(run_norms4), timer(run_swiglus4)
+        t_fused4 = timer(lambda: (run_norms4(), run_swiglus4()))
+        t_before4, t_eager4 = timer(run_before4), timer(run_eager4)
+        t_norm4_plain = timer(lambda: run_norms4(norm_quant.rms_norm_q4k_plain))
+        t_sw4_plain = timer(lambda: run_swiglus4(norm_quant.swiglu_q4k_plain))
+        t_lib4 = timer(run_library4) if hasattr(F, "rms_norm") else None
+        b_norm4 = bound(norm4_bytes, (NORM_OPS_PER_VALUE + AQ_OPS_PER_VALUE)
+                        * 2 * L * B * E_, F32_OPS_PER_S)
+        b_sw4 = bound(sw4_bytes, (SWIGLU_OPS_PER_VALUE + AQ_OPS_PER_VALUE)
+                      * L * B * F2 // 2, F32_OPS_PER_S)
+        nq4_rows[B] = (t_norm4, t_sw4, t_norm4_plain, t_sw4_plain, t_lib4,
+                       b_norm4, b_sw4)
+        log(f"[time] the Q4K step's {2 * L} rms_norm_q4k + {L} swiglu_q4k "
+            f"launches at B={B} (the Q4K form): {t_fused4:.4f} ms ({t_norm4:.4f}"
+            f" + {t_sw4:.4f}) against {t_before4:.4f} ms for the path before "
+            f"them (rms_norm_q80 and swiglu_q80 writing hn, then "
+            f"{3 * L} q4k_act_quant) and {t_eager4:.4f} ms for the eager ops "
+            f"with q4k_act_quant; plain {t_norm4_plain:.4f} + "
+            f"{t_sw4_plain:.4f} ms; F.rms_norm x {2 * L} "
+            + ("not in this PyTorch" if t_lib4 is None else f"{t_lib4:.4f} ms")
+            + f"; bound {b_norm4[0]:.4f} + {b_sw4[0]:.4f} ms ({b_norm4[1]}, "
+            f"{norm4_bytes / 1e6:.2f} + {sw4_bytes / 1e6:.2f} MB); {card}")
+        del xs, ats, hs
+    # the JSON rows: the 64-row step, as for the Q80 epilogue
+    t_norm4, t_sw4, t_norm4_plain, t_sw4_plain, t_lib4, b_norm4, b_sw4 = \
+        nq4_rows[64]
+    for name, ms_, plain_, lib_, b_ in (
+            ("rms_norm_q4k", t_norm4, t_norm4_plain, t_lib4, b_norm4),
+            ("swiglu_q4k", t_sw4, t_sw4_plain, None, b_sw4)):
         kernels[name].update(ms=ms_, plain_ms=plain_, library_ms=lib_,
                              bound_ms=b_[0], bound_by=b_[1])
 
@@ -5969,31 +6602,48 @@ def main() -> int:
                 raise AssertionError(f"q4k_matmul {name} B={B} off by {err}")
             note_err("q4k_matmul", err)
 
-    # the decode kernel with the fake-quant folded in: one raw activation
-    # row, f32 or bf16, into f32 or bf16, at the same shapes; the same
-    # operations in the same order as q4k_fake_quant + q4k_matmul, so
-    # torch.equal, and within 1e-5 of max|y| of the plain version (f32
-    # sums in another order)
+    # K3 at B = 1 (q4k_matvec_fq, redesigned: the weights by bulk copy on
+    # matvec_plan, the fake-quantized row rebuilt from the integer form a
+    # norm, SwiGLU or q4k_act_quant wrote), at the four products of a
+    # layer, the tiny widths and a ragged one (in = 40, 0xE in every nibble
+    # past it), from f32 and bf16 rows: the row it rebuilt torch.equal to
+    # q4k_fake_quant's; y within 1e-5 of max|y| of the plain version (f32
+    # sums in another order); bf16 y the f32 y rounded; two runs bit-equal,
+    # and with and without programmatic dependent launch
     n_fused = 0
-    for name, w in q4_cases:
+    pdl_on = q4k.MATVEC_PDL
+    for name, w in q4_cases + [("ragged 40->200, pad nibbles 0xE",
+                                q4k_padded_weight(torch, rng, 40, 200, dev))]:
         x = act_rows(1, w.in_dim)
         for xt in (x, x.to(torch.bfloat16)):
-            for dt in (torch.float32, torch.bfloat16):
-                got = q4k.q4k_matvec_fq(xt, w, dt)
-                want = q4k.q4k_matmul_f32(q4k.fake_quant_act(xt), w, dt)
-                if not torch.equal(got, want):
-                    raise AssertionError(f"q4k_matvec_fq differs from the two "
-                                         f"kernels at {name} {xt.dtype} -> {dt}")
-                if dt == torch.float32:
-                    ref = q4k.q4k_matvec_fq_plain(xt, w, dt)
-                    err = (got - ref).abs().max().item()
-                    if not err <= 1e-5 * ref.abs().max().item():
-                        raise AssertionError(f"q4k_matvec_fq {name} off by {err}")
-                    note_err("q4k_matvec_fq", err)
-                n_fused += 1
-    log(f"[kernel] q4k_matvec_fq: torch.equal with q4k_fake_quant + "
-        f"q4k_matmul in {n_fused} cases (the four Q4K matmuls of a layer and "
-        f"the tiny widths 40/64/128 x f32/bf16 row x f32/bf16 out); worst "
+            act = q4k.Q4KAct(*q4k.act_quant_q4k_packed(xt), xt.shape)
+            got, xf = q4k.q4k_matvec_fq(act, w, torch.float32, with_act=True)
+            again = q4k.q4k_matvec_fq(act, w, torch.float32)
+            got16 = q4k.q4k_matvec_fq(act, w, torch.bfloat16)
+            try:
+                q4k.MATVEC_PDL = not pdl_on
+                other = q4k.q4k_matvec_fq(act, w, torch.float32)
+            finally:
+                q4k.MATVEC_PDL = pdl_on
+            ref = q4k.q4k_matvec_fq_plain(xt, w, torch.float32)
+            err = (got - ref).abs().max().item()
+            if not (torch.equal(xf, q4k.fake_quant_act(xt))
+                    and err <= 1e-5 * ref.abs().max().item()
+                    and torch.equal(got16, got.to(torch.bfloat16))
+                    and torch.equal(again, got) and torch.equal(other, got)):
+                raise AssertionError(f"q4k_matvec_fq {name} {xt.dtype}: "
+                                     f"rebuilt row, y (off by {err}) or a "
+                                     f"second run differs")
+            note_err("q4k_matvec_fq", err)
+            n_fused += 1
+        if not name.startswith("tiny"):
+            log(f"[kernel] q4k_matvec_fq {name} {w.in_dim}->{w.out_dim}: plan "
+                f"(blocks, R, S, T) {q4k.matvec_plan(w.out_dim, w.n_pad, sms)}")
+    log(f"[kernel] q4k_matvec_fq: the rebuilt row torch.equal to "
+        f"q4k_fake_quant's, two runs and the runs with and without "
+        f"programmatic dependent launch bit-equal, bf16 y the f32 y rounded, "
+        f"in {n_fused} cases (the four Q4K matmuls of a layer, the tiny "
+        f"widths and in = 40 with 0xE pad nibbles x f32/bf16 row); worst "
         f"max_abs_err vs the plain version "
         f"{kernels['q4k_matvec_fq']['max_abs_err']:.3e} (tol 1e-5 of max|y|)")
 
@@ -6585,35 +7235,96 @@ def main() -> int:
         f"{mm4_bytes / 1e6:.1f} MB and {mm4_ops / 1e9:.3f} GFLOP f32), bf16 "
         f"torch.matmul on pre-dequantized weights {k['library_ms']:.4f} ms")
 
-    # the fused kernel over the same 112 raw rows: what a decode step runs
+    # K3 at B = 1 over the same 112 rows as a decode step gives them, in
+    # their integer form (the norms and SwiGLU write it; wo's after
+    # q4k_act_quant): the kernel alone, with and without programmatic
+    # dependent launch; with wo's 28 q4k_act_quant (a step's K3 work); and
+    # a step's chain of producers and products (56 rms_norm_q4k, 28
+    # swiglu_q4k, 28 q4k_act_quant, 112 q4k_matvec_fq) with and without it
+    acts4 = [q4k.Q4KAct(*q4k.act_quant_q4k_packed_plain(x), x.shape)
+             for _, x, *_ in mm4]
+
     def run_fused():
-        for wl, x, xq, y, _ in mm4:
-            lib4.q4k_matvec_fq(x.data_ptr(), 1, wl.packed.data_ptr(),
-                               wl.scales.data_ptr(), wl.biases.data_ptr(),
-                               y.data_ptr(), 1, wl.n_pad, wl.in_dim,
-                               wl.out_dim, stream())
+        for (wl, *_), act in zip(mm4, acts4):
+            q4k.q4k_matvec_fq(act, wl, torch.bfloat16)
 
     def run_fused_plain():
-        for wl, x, *_ in mm4:
-            q4k.q4k_matvec_fq_plain(x, wl, torch.bfloat16)
+        for (wl, *_), act in zip(mm4, acts4):
+            q4k.q4k_matvec_fq_plain(act, wl, torch.bfloat16)
+
+    def run_step_k3():
+        for (wl, x, *_), act in zip(mm4, acts4):
+            q4k.q4k_matvec_fq(x if wl.in_dim == cfg.n_head * cfg.head_dim
+                              else act, wl, torch.bfloat16)
+
+    # a layer's chain: the attention norm -> wqkv, the attention output ->
+    # q4k_act_quant -> wo, the residual add and FFN norm -> w13, SwiGLU ->
+    # w2 (the rows from the products' shapes, the weights the 28 layers')
+    by_name = {n: layer_weights(b4[n]) for n in ("wqkv", "wo", "w13", "w2")}
+    ch_x = [torch.randn(1, cfg.n_embd, device=dev, generator=gen
+                        ).to(torch.bfloat16) for _ in range(L)]
+    ch_a = [torch.randn(1, cfg.n_head * cfg.head_dim, device=dev,
+                        generator=gen).to(torch.bfloat16) for _ in range(L)]
+    ch_h = [torch.randn(1, 2 * cfg.n_hidden, device=dev, generator=gen
+                        ).to(torch.bfloat16) for _ in range(L)]
+    attn_w4 = [params4["blocks"]["attn_norm"][i] for i in range(L)]
+    ffn_w4 = [params4["blocks"]["ffn_norm"][i] for i in range(L)]
+
+    def run_chain():
+        for i in range(L):
+            _, _, act = norm_quant.rms_norm_q4k(ch_x[i], attn_w4[i], eps,
+                                                None, False)
+            q4k.q4k_matvec_fq(act, by_name["wqkv"][i], torch.bfloat16)
+            q4k.q4k_matvec_fq(ch_a[i], by_name["wo"][i], torch.bfloat16)
+            _, _, act = norm_quant.rms_norm_q4k(ch_x[i], ffn_w4[i], eps,
+                                                ch_x[i], False)
+            q4k.q4k_matvec_fq(act, by_name["w13"][i], torch.bfloat16)
+            act = norm_quant.swiglu_q4k(ch_h[i], False)[1]
+            q4k.q4k_matvec_fq(act, by_name["w2"][i], torch.bfloat16)
+
+    def with_pdl(on, fn):
+        saved_pdl = q4k.MATVEC_PDL
+        q4k.MATVEC_PDL = on
+        try:
+            return timer(fn)
+        finally:
+            q4k.MATVEC_PDL = saved_pdl
 
     k = kernels["q4k_matvec_fq"]
-    k["ms"] = timer(run_fused)
+    t_mv = {on: [] for on in (True, False)}
+    t_ch = {on: [] for on in (True, False)}
+    for on in (True, False, False, True):          # in turns
+        t_mv[on].append(with_pdl(on, run_fused))
+        t_ch[on].append(with_pdl(on, run_chain))
+    k["ms"] = min(t_mv[q4k.MATVEC_PDL])
     k["plain_ms"] = timer(run_fused_plain)
     k["library_ms"] = timer(run_mm4_library)
-    # the weights once, the bf16 row in, the bf16 result out; the dot and
-    # the row's fake-quant
+    t_step_k3 = timer(run_step_k3)
+    # the weights once, the integer form in, the bf16 result out; the dot
     fused_bytes = sum(wl.packed.numel() + 8 * wl.scales.numel()
-                      + 2 * wl.in_dim + 2 * wl.out_dim for wl, *_ in mm4)
-    fused_ops = mm4_ops + FQ_OPS_PER_VALUE * sum(wl.in_dim for wl, *_ in mm4)
-    set_bound("q4k_matvec_fq", fused_bytes, fused_ops, F32_OPS_PER_S)
-    log(f"[time] the same step through q4k_matvec_fq ({len(mm4)} launches, "
-        f"fake-quant folded in): {k['ms']:.4f} ms against "
-        f"{kernels['q4k_fake_quant']['ms'] + kernels['q4k_matmul']['ms']:.4f} "
-        f"ms for the two kernels (plain {k['plain_ms']:.4f} ms, bound "
-        f"{k['bound_ms']:.4f} ms for {fused_bytes / 1e6:.1f} MB, library "
-        f"{k['library_ms']:.4f} ms)")
-    del mm4, fq4
+                      + wl.n_pad // 2 + 8 * (wl.n_pad // 32) + 2 * wl.out_dim
+                      for wl, *_ in mm4)
+    set_bound("q4k_matvec_fq", fused_bytes, mm4_ops, F32_OPS_PER_S)
+    plans = {n: q4k.matvec_plan(ws[0].out_dim, ws[0].n_pad, sms)
+             for n, ws in by_name.items()}
+    log(f"[time] a Q4K decode step's {len(mm4)} products through "
+        f"q4k_matvec_fq on their integer form (plans (blocks, R, S, T) "
+        f"{plans}): {k['ms']:.4f} ms with programmatic dependent launch "
+        f"{'on' if q4k.MATVEC_PDL else 'off'} (in turns: on "
+        f"{'/'.join(f'{t:.4f}' for t in t_mv[True])}, off "
+        f"{'/'.join(f'{t:.4f}' for t in t_mv[False])} ms); with wo's "
+        f"{L} q4k_act_quant (a step's K3 work) {t_step_k3:.4f} ms; the two "
+        f"kernels it replaced at B = 1 (q4k_fake_quant + q4k_matmul) "
+        f"{kernels['q4k_fake_quant']['ms'] + kernels['q4k_matmul']['ms']:.4f}"
+        f" ms; plain {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
+        f"for {fused_bytes / 1e6:.1f} MB, library {k['library_ms']:.4f} ms; "
+        f"{card}")
+    log(f"[time] a Q4K decode step's chain of producers and products "
+        f"({2 * L} rms_norm_q4k, {L} swiglu_q4k, {L} q4k_act_quant, "
+        f"{4 * L} q4k_matvec_fq): programmatic dependent launch on "
+        f"{'/'.join(f'{t:.4f}' for t in t_ch[True])} ms, off "
+        f"{'/'.join(f'{t:.4f}' for t in t_ch[False])} ms (in turns); {card}")
+    del mm4, fq4, acts4, ch_x, ch_a, ch_h
 
     # ---- timing: K3 at B > 1 on its main path, a 64-token prefill's 112
     # layer products (B = PROMPT_LEN) as the model calls them:
@@ -6627,12 +7338,12 @@ def main() -> int:
             pre4.append((wl, x, q4k.act_quant_q4k_packed_plain(x)))
     assert len(pre4) == 4 * L
 
-    def run_pre4_aq():
-        for wl, x, _ in pre4:
+    def run_pre4_aq(calls=pre4):
+        for wl, x, _ in calls:
             q4k.act_quant_q4k_packed(x)
 
-    def run_pre4_aq_plain():
-        for wl, x, _ in pre4:
+    def run_pre4_aq_plain(calls=pre4):
+        for wl, x, _ in calls:
             q4k.act_quant_q4k_packed_plain(x)
 
     def run_pre4_w4():
@@ -6643,14 +7354,20 @@ def main() -> int:
         for wl, _, act in pre4:
             q4k.q4k_matmul_w4a4_plain(*act, wl, torch.bfloat16)
 
+    # q4k_act_quant's main path since the norms and SwiGLU write the Q4K
+    # form: wo's 28 inputs (the attention output); all 112, the path
+    # before, beside it
+    wo4 = pre4[L:2 * L]
+    assert all(wl.in_dim == H * D for wl, *_ in wo4)
     k = kernels["q4k_act_quant"]
-    k["ms"] = timer(run_pre4_aq)
-    k["plain_ms"] = timer(run_pre4_aq_plain)
+    aq4_112_ms = timer(run_pre4_aq)
+    k["ms"] = timer(lambda: run_pre4_aq(wo4))
+    k["plain_ms"] = timer(lambda: run_pre4_aq_plain(wo4))
     k["library_ms"] = None
     set_bound("q4k_act_quant",
               sum(B * (2 * wl.in_dim + wl.n_pad // 2 + 12 * (wl.n_pad // 32))
-                  for wl, *_ in pre4),
-              AQ_OPS_PER_VALUE * B * sum(wl.in_dim for wl, *_ in pre4),
+                  for wl, *_ in wo4),
+              AQ_OPS_PER_VALUE * B * sum(wl.in_dim for wl, *_ in wo4),
               F32_OPS_PER_S)
     k = kernels["q4k_matmul_w4a4"]
     k["ms"] = timer(run_pre4_w4)
@@ -6662,9 +7379,11 @@ def main() -> int:
     k["bound_ms"], k["bound_by"], pre4_bytes = w4a4_bound(
         [wl for wl, *_ in pre4], B)
     log(f"[time] a {B}-token Q4K prefill's {len(pre4)} layer products "
-        f"(B={B}): q4k_act_quant {kernels['q4k_act_quant']['ms']:.4f} ms "
-        f"(plain {kernels['q4k_act_quant']['plain_ms']:.4f}, bound "
-        f"{kernels['q4k_act_quant']['bound_ms']:.4f}), q4k_matmul_w4a4 "
+        f"(B={B}): q4k_act_quant on wo's {len(wo4)} inputs "
+        f"{kernels['q4k_act_quant']['ms']:.4f} ms (plain "
+        f"{kernels['q4k_act_quant']['plain_ms']:.4f}, bound "
+        f"{kernels['q4k_act_quant']['bound_ms']:.4f}; on all {len(pre4)} "
+        f"{aq4_112_ms:.4f}), q4k_matmul_w4a4 "
         f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f}; bound "
         f"{k['bound_ms']:.4f} ms, {k['bound_by']}, {pre4_bytes / 1e6:.1f} MB), "
         f"bf16 torch.matmul on weights dequantized ahead "
@@ -6819,7 +7538,8 @@ def main() -> int:
             and head4.group_size == 64 and not head4.w8a8)
     tiny_stream(tiny4, "tiny_q4k.bin", expected["greedy"]["q4k"],
                 ("q4k_act_quant", "q4k_matmul_w4a4", "q4k_fake_quant",
-                 "q4k_matvec_fq", "q80_matvec_rows", "decode_attention"))
+                 "q4k_matvec_fq", "rms_norm_q4k", "swiglu_q4k",
+                 "q80_matvec_rows", "decode_attention"))
     del tiny, tiny4
 
     # ---------------- 5. full width ----------------
@@ -7020,15 +7740,16 @@ def main() -> int:
         return decode_counts("Q4K", steps, names)
 
     log("[full Q4K] expected launches: 112 Q4K matmuls = 4 x 28 per forward, "
-        "as q4k_matvec_fq (fake-quant folded in) in a decode step and as "
-        "q4k_act_quant + q4k_matmul_w4a4 (int8 tensor cores) in the prefill; "
-        "one fake-quant before the requantized Q80 head and one "
-        "q80_matvec_fq head (one row) per forward; 57 rms_norm_q80 and 28 "
-        "swiglu_q80 per forward, with no Q80 output; 28 attentions per "
-        "decode step")
+        "as q4k_matvec_fq in a decode step and as q4k_matmul_w4a4 (int8 "
+        "tensor cores) in the prefill, 84 of them on the Q4K integer form "
+        "that rms_norm_q4k (wqkv, w13) and swiglu_q4k (w2) wrote, wo's 28 "
+        "after q4k_act_quant; one fake-quant before the requantized Q80 head "
+        "and one q80_matvec_fq head (one row) per forward; 56 rms_norm_q4k, "
+        "28 swiglu_q4k and the final rms_norm_q80 (no quantized output) per "
+        "forward; 28 attentions per decode step")
     _, out4, counts4 = drive("Q4K", params4, expect4)
     for name in ("q4k_act_quant", "q4k_matmul_w4a4", "q4k_fake_quant",
-                 "q4k_matvec_fq"):
+                 "q4k_matvec_fq", "rms_norm_q4k", "swiglu_q4k"):
         kernels[name]["launches"] = counts4[name]
         if counts4[name] == 0:
             raise AssertionError(f"Q4K path launched no {name}")
@@ -7048,16 +7769,16 @@ def main() -> int:
     def k3_route(route):
         """The model's Q4K product (gpt.q4k_matmul) and the head's
         fake-quant (gpt.fake_quant_act) rebound here for a measurement, not
-        a switch of the package: "pair", more than one row through the pair
-        K3 at B > 1 was before (q4k_fake_quant + q4k_matmul); "unquantized",
-        no activation quantization at all (K3's f32 kernel on the padded
+        a switch of the package: "unquantized", no activation
+        quantization at all (K3's f32 kernel on the padded
         activation at every row count, the head's fake-quant a pad).  Two
         faulty B > 1 paths, the controls of the Q4K logits check:
         "unquantized_rows", more than one row without the activation's
         quantization (one row as the package has it); "shifted_scales",
         more than one row through the new pair with each row's sa, ba and
-        c taken from the row before it."""
-        saved = gpt.q4k_matmul, gpt.fake_quant_act
+        c taken from the row before it.  Every route takes the activation
+        as a tensor: the norms and SwiGLU write no Q4K form meanwhile."""
+        saved, q4k_out = (gpt.q4k_matmul, gpt.fake_quant_act), gpt._q4k_out
 
         def product(x, w, dtype):
             x2d = x.reshape(-1, w.in_dim)
@@ -7067,32 +7788,44 @@ def main() -> int:
                 y = q4k.q4k_matvec_fq(x2d, w, dtype)
             elif route == "unquantized_rows":
                 y = q4k.q4k_matmul_f32(pad_only(x2d), w, dtype)
-            elif route == "shifted_scales":
+            else:   # "shifted_scales"
                 vp, *per_group = q4k.act_quant_q4k_packed(x2d)
                 y = q4k.q4k_matmul_w4a4(
                     vp, *(t.roll(1, 0).contiguous() for t in per_group), w,
                     dtype)
-            else:
-                y = q4k.q4k_matmul_f32(q4k.fake_quant_act(x2d), w, dtype)
             return y.reshape(*x.shape[:-1], w.out_dim)
 
-        gpt.q4k_matmul = product
+        gpt.q4k_matmul, gpt._q4k_out = product, lambda ws: False
         if route == "unquantized":
             gpt.fake_quant_act = pad_only
         try:
             yield
         finally:
             gpt.q4k_matmul, gpt.fake_quant_act = saved
+            gpt._q4k_out = q4k_out
 
-    # The eager ops that rms_norm_q80 and swiglu_q80 replaced, rebound
-    # into the model here for a measurement, not a switch of the package:
-    # the norm's ops (and the residual add), F.silu * h3, and q80_act_quant
-    # where the product takes int8 rows (the path before them)
+    # The eager ops that rms_norm_q80 / rms_norm_q4k and swiglu_q80 /
+    # swiglu_q4k replaced, rebound into the model here for a measurement,
+    # not a switch of the package: the norm's ops (and the residual add),
+    # F.silu * h3, and q80_act_quant where the product takes int8 rows,
+    # q4k_act_quant where it takes the Q4K form (the path before them)
     def eager_act(y, gs):
         if not gs:
             return None
         xq, sa = qmatmul.act_quant_q80(y.reshape(-1, y.shape[-1]), gs)
         return qmatmul.Q80Act(xq, sa, y.shape)
+
+    def eager_act4(y):
+        return q4k.Q4KAct(*q4k.act_quant_q4k_packed(y.reshape(
+            -1, y.shape[-1])), y.shape)
+
+    def eager_rms_norm_q4k(x, weight, eps_, residual=None, want_hn=True):
+        h, hn, _ = eager_rms_norm_q80(x, weight, eps_, residual)
+        return h, hn, eager_act4(hn)
+
+    def eager_swiglu_q4k(h13_, want_hidden=True):
+        y, _ = eager_swiglu_q80(h13_)
+        return y, eager_act4(y)
 
     def eager_rms_norm_q80(x, weight, eps_, residual=None, group_size=0,
                            want_hn=True):
@@ -7109,22 +7842,29 @@ def main() -> int:
     def norm_route(route):
         """route "eager": gpt's fused norm and SwiGLU rebound to the eager
         ops; "fused": as the package has them."""
-        saved = gpt.rms_norm_q80, gpt.swiglu_q80
+        saved = (gpt.rms_norm_q80, gpt.swiglu_q80, gpt.rms_norm_q4k,
+                 gpt.swiglu_q4k)
         if route == "eager":
-            gpt.rms_norm_q80, gpt.swiglu_q80 = (eager_rms_norm_q80,
-                                                eager_swiglu_q80)
+            (gpt.rms_norm_q80, gpt.swiglu_q80, gpt.rms_norm_q4k,
+             gpt.swiglu_q4k) = (eager_rms_norm_q80, eager_swiglu_q80,
+                                eager_rms_norm_q4k, eager_swiglu_q4k)
         try:
             yield
         finally:
-            gpt.rms_norm_q80, gpt.swiglu_q80 = saved
+            (gpt.rms_norm_q80, gpt.swiglu_q80, gpt.rms_norm_q4k,
+             gpt.swiglu_q4k) = saved
 
     def eager_counts(step):
         """A step's launch counts with the eager route: no norm or SwiGLU
         kernel, and q80_act_quant before each product they fed int8 rows
-        (85 a step where any was)."""
-        e = dict(step, rms_norm_q80=0, swiglu_q80=0)
+        (85 a step where any was), q4k_act_quant before each they fed the
+        Q4K form (84 a step, at every row count)."""
+        e = dict(step, rms_norm_q80=0, swiglu_q80=0, rms_norm_q4k=0,
+                 swiglu_q4k=0)
         if step.get("q80_act_quant", 0) >= 28:
             e["q80_act_quant"] = step["q80_act_quant"] + 85
+        if step.get("rms_norm_q4k", 0):
+            e["q4k_act_quant"] = step["q4k_act_quant"] + 84
         return e
 
     def timed_ms(fn):
@@ -7538,21 +8278,22 @@ def main() -> int:
     be4, streams4, order4, n_b4, _, b4_counts, b4_secs = join_drive(
         bctx4, BATCH_NEW4)
     expect_b4 = {n: 0 for n in names}
-    expect_b4.update(q4k_act_quant=112 * n_j + 112 * n_b4,
+    expect_b4.update(q4k_act_quant=28 * (n_j + n_b4),
                      q4k_matmul_w4a4=112 * n_j + 112 * n_b4,
                      q4k_fake_quant=n_j + n_b4, q80_matvec_fq=n_j,
                      q80_act_quant=n_b4, q80_matmul_w8a8=n_b4,
                      decode_attention=28 * n_b4,
-                     rms_norm_q80=57 * (n_j + n_b4),
-                     swiglu_q80=28 * (n_j + n_b4))
+                     rms_norm_q80=n_j + n_b4,
+                     rms_norm_q4k=56 * (n_j + n_b4),
+                     swiglu_q4k=28 * (n_j + n_b4))
     log(f"[batch] Qwen3-0.6B Q4K, {BATCH_SLOTS} slots, the same {n_j} joins, "
         f"{BATCH_NEW4} tokens each: {n_b4} batched steps in {b4_secs:.2f} s "
         f"({card}), streams of {[len(streams4[sl]) for sl in order4]} "
-        f"tokens; launches {b4_counts}; expected {expect_b4} (112 Q4K pair "
-        f"products, a fake-quant and a one-row head per join's prefill; 112 "
-        f"Q4K pair products, a fake-quant, a W8A8 pair head and 28 attentions "
-        f"per batched step; 57 rms_norm_q80 and 28 swiglu_q80 per forward, "
-        f"with no Q80 output)")
+        f"tokens; launches {b4_counts}; expected {expect_b4} (112 "
+        f"q4k_matmul_w4a4, wo's 28 after q4k_act_quant, a fake-quant and a "
+        f"one-row head per join's prefill; the same, a W8A8 pair head and 28 "
+        f"attentions per batched step; 56 rms_norm_q4k, 28 swiglu_q4k and "
+        f"the final rms_norm_q80 per forward)")
     if b4_counts != expect_b4:
         raise AssertionError("Q4K batched launch counts differ from the "
                              "per-step counts")
@@ -7581,33 +8322,24 @@ def main() -> int:
         raise AssertionError("the Q4K logits check passes a faulty B > 1 "
                              "path")
     del be4, streams4
-    q4_step = dict(q4k_act_quant=112, q4k_matmul_w4a4=112, q4k_fake_quant=1,
+    q4_step = dict(q4k_act_quant=28, q4k_matmul_w4a4=112, q4k_fake_quant=1,
                    q80_act_quant=1, q80_matmul_w8a8=1, decode_attention=28,
-                   rms_norm_q80=57, swiglu_q80=28)
-    old_step = dict(q4k_fake_quant=113, q4k_matmul=112, q80_act_quant=1,
-                    q80_matmul_w8a8=1, decode_attention=28, rms_norm_q80=57,
-                    swiglu_q80=28)
+                   rms_norm_q80=1, rms_norm_q4k=56, swiglu_q4k=28)
     for n_slots in (8, 64):
-        # in turns: the pair K3 at B > 1 replaced, the eager norms and SwiGLU,
-        # the package's path twice, the eager norms, K3's old pair
-        runs = {"pair": [], "eager": [], None: []}
-        for route in ("pair", "eager", None, None, "eager", "pair"):
-            with (k3_route(route) if route == "pair" else
-                  norm_route(route or "fused")):
+        # in turns: the eager norms and SwiGLU (then q4k_act_quant on their
+        # output), the package's path twice, the eager norms (the pair K3 at
+        # B > 1 replaced is timed by `bench q4k batched`)
+        runs = {"eager": [], None: []}
+        for route in ("eager", None, None, "eager"):
+            with norm_route(route or "fused"):
                 runs[route].append(throughput(
-                    bctx4, n_slots, {None: "Q4K", "pair": "Q4K, K3 at B > 1 "
-                                     "as q4k_fake_quant + q4k_matmul",
-                                     "eager": "Q4K, eager norms and SwiGLU"
-                                     }[route],
-                    old_step if route == "pair" else
+                    bctx4, n_slots, "Q4K" if route is None else
+                    "Q4K, eager norms and SwiGLU",
                     eager_counts(q4_step) if route == "eager" else q4_step,
                     profile=not runs[route]))
-        route_summary("Q4K", n_slots, runs, None, "pair",
-                      "through q4k_act_quant + q4k_matmul_w4a4",
-                      "through the pair it replaced")
         route_summary("Q4K", n_slots, runs, None, "eager",
-                      "through rms_norm_q80 + swiglu_q80 (hn only)",
-                      "through the eager norm ops and SwiGLU")
+                      "through rms_norm_q4k + swiglu_q4k (the Q4K form)",
+                      "through the eager norm ops, SwiGLU and q4k_act_quant")
     del bctx4
 
     # §6 rows: the kernels of one batched step at 8 and 64 slots beside one
@@ -8201,7 +8933,8 @@ def main() -> int:
                "prefill" if k["name"] in ("q80_act_quant", "q80_matmul_w8a8",
                                           "q4k_act_quant", "q4k_matmul_w4a4")
                else "64-row step" if k["name"] in ("rms_norm_q80",
-                                                   "swiglu_q80")
+                                                   "swiglu_q80", "rms_norm_q4k",
+                                                   "swiglu_q4k")
                else "GGUF prefill" if k["name"] == "q80_matmul_rows"
                else "decode")
         off = "" if k["main_path"] else " (on no main path)"

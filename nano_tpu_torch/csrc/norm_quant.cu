@@ -1,12 +1,14 @@
-// The producers of the Q80 activations, with the quantization as their
-// epilogue, for Hopper (sm_90a), bound to Python through ctypes
+// The producers of the quantized activations, with the quantization as
+// their epilogue, for Hopper (sm_90a), bound to Python through ctypes
 // (nano_tpu_torch/ops/norm_quant.py).
 //
-// Replaces the TPU path's XLA fusions next to the Pallas K1 kernel
-// (nano_tpu/ops/qmatmul.py::_q80_kernel): the residual add and RMSNorm of
-// nano_tpu/models/gpt.py (rms_norm, block), SwiGLU's silu(h1) * h3
-// (feed_forward), and act_quant_q80 (nano_tpu/ops/qmatmul.py), which
-// q80_matmul_int8 applies to their rounded output:
+// Replaces the TPU path's XLA fusions next to the Pallas K1 and K3 kernels
+// (nano_tpu/ops/qmatmul.py::_q80_kernel, nano_tpu/ops/q4k.py::_q4k_kernel):
+// the residual add and RMSNorm of nano_tpu/models/gpt.py (rms_norm,
+// block), SwiGLU's silu(h1) * h3 (feed_forward), and the activation
+// quantization the products apply to their rounded output: act_quant_q80
+// (nano_tpu/ops/qmatmul.py) before a W8A8 product, act_quant_q4k
+// (nano_tpu/ops/q4k.py:459, inside fake_quant_act) before a Q4K one:
 //
 //   rms_norm_q80  h = x + a rounded to the activation type (when a is
 //                 given: the one rounding of the eager add), hn =
@@ -17,38 +19,54 @@
 //                 CUDA silu computes it (x / (1 + expf(-x)) in f32,
 //                 rounded), the product of the two rounded values rounded
 //                 once more; with gs > 0 also y's Q80 quantization.
+//   rms_norm_q4k, swiglu_q4k
+//                 the same with the Q4K epilogue instead: the rounded
+//                 output's Q4K integer form (vp, sa, ba, c, as
+//                 q4k_act_quant writes it), at every row count: the form
+//                 q4k_matvec_fq (one row) and q4k_matmul_w4a4 (more) take.
 //
-// The quantization is q80_quant.cuh's, the code of q80_act_quant and
-// q80_matvec_fq: the integer decisions are those of q80_act_quant on the
-// rounded output.  IEEE division and expf, no contraction of the eager
-// ops' separate roundings: never built with --use_fast_math.
+// The quantizations are q80_quant.cuh's and q4k_quant.cuh's, the code of
+// q80_act_quant and q4k_act_quant: the integer decisions are those of the
+// standalone kernels on the rounded output.  IEEE division and expf, no
+// contraction of the eager ops' separate roundings: never built with
+// --use_fast_math.
 //
-// Design.  A launch of q80_act_quant alone costs ~2 us on the H100 for
+// Design.  A launch of an act quant alone costs ~2 us on the H100 for
 // ~48 KB of work; the only way to remove it is to not launch it, so the
-// quantization runs where its input is made, while the row is in
-// registers.  One block a row (T threads, a multiple of 32, up to 1024),
-// the row in registers: thread t holds values [4 c, 4 c + 4) of chunk c =
-// p T + t for p < P (8-byte loads of bf16, 16-byte of f32).  The norm's
-// sum of squares: each thread over its chunks in order, a warp's xor
-// shuffle (every lane ends with the same bits), the warps' sums in
-// shared memory added in warp order.  A group of gs values is gs / 4
-// consecutive threads (a power of two): its absmax is a shuffle over
-// them, and where a group spans warps (gs > 128) one exchange of the
-// warps' maxima in shared memory.  Each value is read once and each
-// output written once.  T and P come from the row width alone
-// (ops/norm_quant.py:plan), never from the row count, so a row gets the
-// same bits in a launch of 1 row as in one of 64.
+// quantization runs where its input is made.  One block a row (T
+// threads, a multiple of 32, up to 1024), the row in registers: thread t
+// holds values [4 c, 4 c + 4) of chunk c = p T + t for p < P (8-byte
+// loads of bf16, 16-byte of f32).  The norm's sum of squares: each thread
+// over its chunks in order, a warp's xor shuffle (every lane ends with
+// the same bits), the warps' sums in shared memory added in warp order.
+// Q80: a group of gs values is gs / 4 consecutive threads (a power of
+// two): its absmax is a shuffle over them, and where a group spans warps
+// (gs > 128) one exchange of the warps' maxima in shared memory.  Q4K: a
+// 256-value block spans 64 threads and needs its 8 groups' maxima for
+// the second level, so the rounded row goes to shared memory (as f32, n
+// floats of dynamic shared memory) and each warp quantizes whole blocks
+// from there as q4k_act_quant does (2 x 16-byte reads a lane): the
+// epilogue costs ~0.7 us of a B = 1 norm, ~1.1 us of SwiGLU's 12 blocks
+// (chip_smoke.py bench q4k [clocks], NVIDIA H100 80GB HBM3).  The Q4K kernels let
+// their programmatic dependents (q4k_matvec_fq) launch at entry.  Each
+// value is read once and each output written once.  T and P come from
+// the row width alone (ops/norm_quant.py:plan), never from the row count,
+// so a row gets the same bits in a launch of 1 row as in one of 64.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "q4k_quant.cuh"
 #include "q80_quant.cuh"
 
 namespace {
 
 constexpr int kNV = 4;          // values of a chunk
 constexpr int kMaxWarps = 32;   // 1024 threads
+// dynamic shared memory of a Q4K instance at most (224 KB of the H100's 227
+// KB, the rest for the static arrays): a row of up to 57344 values
+constexpr int kMaxRowSmem = 229376;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -141,15 +159,78 @@ __device__ __forceinline__ void quantize_chunk(const float v[kNV], int i, int n,
   if (i % gs == 0) sa[i / gs] = s;
 }
 
+// Where block 0's time goes, only in a build with -DNANO_NQ_CLOCKS
+// (`chip_smoke.py bench q4k clocks`): thread 0 stamps %globaltimer (ns) at
+// entry, when the row's norm or SwiGLU is done, at the end (after the
+// quantization epilogue) and, in the Q4K epilogue, when every warp's part
+// of the row is in shared memory, in slot 0 for the norm with the Q4K epilogue,
+// 1 for SwiGLU with it, 2 for the others.  Otherwise every stamp is empty.
+#ifdef NANO_NQ_CLOCKS
+__device__ unsigned long long g_nq_clk[3][4];
+#define NQ_CLK(slot, k)                                          \
+  do {                                                           \
+    if (blockIdx.x == 0 && threadIdx.x == 0) {                   \
+      unsigned long long t_;                                     \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));    \
+      g_nq_clk[slot][k] = t_;                                    \
+    }                                                            \
+  } while (0)
+#else
+#define NQ_CLK(slot, k) \
+  do {                  \
+  } while (0)
+#endif
+
+// The chunk v of a row of n values at value i into the row xs in shared
+// memory (16-byte aligned).
+__device__ __forceinline__ void stash_chunk(float* xs, int i, int n, const float v[kNV]) {
+  if (i + kNV <= n) {
+    *reinterpret_cast<float4*>(xs + i) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kNV; ++j)
+      if (i + j < n) xs[i + j] = v[j];
+  }
+}
+
+// The Q4K epilogue: the block's row of n values, rounded to the activation
+// type and left in shared memory (xs), quantized 256 values a warp as
+// q4k_act_quant quantizes them (q4k_quant.cuh:act_quant_block_by_warp)
+// into the row's vp (n_pad / 2), sa, ba and c (n_pad / 32).  Every thread
+// of the block calling, after the row is in xs.
+__device__ __forceinline__ void quantize_row_q4k(const float* xs, int n, uint8_t* __restrict__ vp,
+                                                 float* __restrict__ sa, float* __restrict__ ba,
+                                                 float* __restrict__ c, int slot) {
+  __syncthreads();   // the row is in xs
+  NQ_CLK(slot, 3);
+  const int nblk = (n + 255) >> 8, nw = blockDim.x >> 5;
+  for (int blk = threadIdx.x >> 5; blk < nblk; blk += nw)
+    q4kq::act_quant_block_by_warp(xs, blk, n, threadIdx.x & 31, vp, sa, ba, c);
+}
+
+// The outputs a norm or SwiGLU kernel quantizes its row into: none, the
+// Q80 form (xq, sa at gs) or the Q4K integer form (vp, sa, ba, c; the row
+// also in the dynamic shared memory xs).
+struct Quant {
+  int gs;                    // Q80 group size, 0 for none
+  int8_t* xq;                // Q80 values (B, n)
+  float* sa;                 // Q80 scales (B, n / gs), or Q4K sa (B, n_pad / 32)
+  uint8_t* vp;               // Q4K packed values (B, n_pad / 2), null for none
+  float* ba;                 // Q4K ba
+  float* c;                  // Q4K c
+};
+
 // One block a row of x (B, E): h = x + a (when a), hn = rms_norm(h) * w,
-// and with gs > 0 hn's Q80 quantization.  h, hn, xq / sa may each be null.
-template <typename XT, int P>
-__global__ void __launch_bounds__(1024) rms_norm_q80_kernel(const XT* __restrict__ x, const XT* __restrict__ a,
-                                    const float* __restrict__ w, XT* __restrict__ h,
-                                    XT* __restrict__ hn, int8_t* __restrict__ xq,
-                                    float* __restrict__ sa, int E, float eps, int gs, int vec) {
+// and hn's quantization (q).  h, hn may each be null.
+template <typename XT, int P, bool Q4>
+__device__ __forceinline__ void rms_norm_row(const XT* __restrict__ x, const XT* __restrict__ a,
+                                             const float* __restrict__ w, XT* __restrict__ h,
+                                             XT* __restrict__ hn, Quant q, int E, float eps,
+                                             int vec) {
   __shared__ float wsum[kMaxWarps];
   __shared__ float wmax[kMaxWarps];
+  extern __shared__ float xs[];   // Q4: the rounded row
+  NQ_CLK(Q4 ? 0 : 2, 0);
   const size_t row = blockIdx.x;
   const int T = blockDim.x, t = threadIdx.x;
   x += row * E;
@@ -186,17 +267,50 @@ __global__ void __launch_bounds__(1024) rms_norm_q80_kernel(const XT* __restrict
 #pragma unroll
     for (int j = 0; j < kNV; ++j) v[p][j] = round_to<XT>(__fmul_rn(__fmul_rn(v[p][j], r), wv[j]));
     if (hn && i < E) store_chunk(hn + row * E, i, E, vec, v[p]);
-    if (gs) quantize_chunk(v[p], i, E, gs, xq + row * E, sa + row * (E / gs), wmax);
+    if (Q4) {
+      stash_chunk(xs, i, E, v[p]);
+    } else if (q.gs) {
+      quantize_chunk(v[p], i, E, q.gs, q.xq + row * E, q.sa + row * (E / q.gs), wmax);
+    }
   }
+  NQ_CLK(Q4 ? 0 : 2, 1);
+  if (Q4) {
+    const int G = ((E + 255) >> 8) << 3;
+    quantize_row_q4k(xs, E, q.vp + row * G * 16, q.sa + row * G, q.ba + row * G, q.c + row * G,
+                     0);
+  }
+  NQ_CLK(Q4 ? 0 : 2, 2);
+}
+
+template <typename XT, int P>
+__global__ void __launch_bounds__(1024)
+    rms_norm_q80_kernel(const XT* __restrict__ x, const XT* __restrict__ a,
+                        const float* __restrict__ w, XT* __restrict__ h, XT* __restrict__ hn,
+                        Quant q, int E, float eps, int vec) {
+  rms_norm_row<XT, P, false>(x, a, w, h, hn, q, E, eps, vec);
+}
+
+// Its dependents may launch at once (programmatic dependent launch:
+// q4k_matvec_fq streams its weights while this runs, and reads the Q4K
+// outputs only after this kernel has ended; `bench q4k step` measured a
+// trigger at entry ahead of one after the inputs are read).
+template <typename XT, int P>
+__global__ void __launch_bounds__(1024)
+    rms_norm_q4k_kernel(const XT* __restrict__ x, const XT* __restrict__ a,
+                        const float* __restrict__ w, XT* __restrict__ h, XT* __restrict__ hn,
+                        Quant q, int E, float eps, int vec) {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  rms_norm_row<XT, P, true>(x, a, w, h, hn, q, E, eps, vec);
 }
 
 // One block a row of h13 (B, 2F) = [h1 | h3]: y = silu(h1) * h3 (B, F),
-// and with gs > 0 y's Q80 quantization.  y, xq / sa may each be null.
-template <typename XT, int P>
-__global__ void __launch_bounds__(1024) swiglu_q80_kernel(const XT* __restrict__ h13, XT* __restrict__ y,
-                                  int8_t* __restrict__ xq, float* __restrict__ sa, int F, int gs,
-                                  int vec) {
+// and y's quantization (q).  y may be null.
+template <typename XT, int P, bool Q4>
+__device__ __forceinline__ void swiglu_row(const XT* __restrict__ h13, XT* __restrict__ y, Quant q,
+                                           int F, int vec) {
   __shared__ float wmax[kMaxWarps];
+  extern __shared__ float xs[];   // Q4: the rounded row
+  NQ_CLK(Q4 ? 1 : 2, 0);
   const size_t row = blockIdx.x;
   const int T = blockDim.x, t = threadIdx.x;
   const XT* h1 = h13 + row * 2 * F;
@@ -213,8 +327,33 @@ __global__ void __launch_bounds__(1024) swiglu_q80_kernel(const XT* __restrict__
       g[j] = round_to<XT>(__fmul_rn(s, u[j]));
     }
     if (y && i < F) store_chunk(y + row * F, i, F, vec, g);
-    if (gs) quantize_chunk(g, i, F, gs, xq + row * F, sa + row * (F / gs), wmax);
+    if (Q4) {
+      stash_chunk(xs, i, F, g);
+    } else if (q.gs) {
+      quantize_chunk(g, i, F, q.gs, q.xq + row * F, q.sa + row * (F / q.gs), wmax);
+    }
   }
+  NQ_CLK(Q4 ? 1 : 2, 1);
+  if (Q4) {
+    const int G = ((F + 255) >> 8) << 3;
+    quantize_row_q4k(xs, F, q.vp + row * G * 16, q.sa + row * G, q.ba + row * G, q.c + row * G,
+                     1);
+  }
+  NQ_CLK(Q4 ? 1 : 2, 2);
+}
+
+template <typename XT, int P>
+__global__ void __launch_bounds__(1024)
+    swiglu_q80_kernel(const XT* __restrict__ h13, XT* __restrict__ y, Quant q, int F, int vec) {
+  swiglu_row<XT, P, false>(h13, y, q, F, vec);
+}
+
+// Its dependents may launch at once, as rms_norm_q4k's.
+template <typename XT, int P>
+__global__ void __launch_bounds__(1024)
+    swiglu_q4k_kernel(const XT* __restrict__ h13, XT* __restrict__ y, Quant q, int F, int vec) {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  swiglu_row<XT, P, true>(h13, y, q, F, vec);
 }
 
 #define NANO_NQ_PASSES(MACRO) \
@@ -225,13 +364,16 @@ __global__ void __launch_bounds__(1024) swiglu_q80_kernel(const XT* __restrict__
   MACRO(16)
 
 template <typename XT>
-cudaError_t launch_norm(int P, int B, int T, cudaStream_t st, const XT* x, const XT* a,
-                        const float* w, XT* h, XT* hn, int8_t* xq, float* sa, int E, float eps,
-                        int gs, int vec) {
+cudaError_t launch_norm(bool q4, int P, int B, int T, size_t smem, cudaStream_t st, const XT* x,
+                        const XT* a, const float* w, XT* h, XT* hn, Quant q, int E, float eps,
+                        int vec) {
   switch (P) {
-#define NANO_NQ_CASE(PP)                                                                     \
-  case PP:                                                                                   \
-    rms_norm_q80_kernel<XT, PP><<<B, T, 0, st>>>(x, a, w, h, hn, xq, sa, E, eps, gs, vec);   \
+#define NANO_NQ_CASE(PP)                                                                    \
+  case PP:                                                                                  \
+    if (q4)                                                                                 \
+      rms_norm_q4k_kernel<XT, PP><<<B, T, smem, st>>>(x, a, w, h, hn, q, E, eps, vec);      \
+    else                                                                                    \
+      rms_norm_q80_kernel<XT, PP><<<B, T, 0, st>>>(x, a, w, h, hn, q, E, eps, vec);         \
     break;
     NANO_NQ_PASSES(NANO_NQ_CASE)
 #undef NANO_NQ_CASE
@@ -242,12 +384,15 @@ cudaError_t launch_norm(int P, int B, int T, cudaStream_t st, const XT* x, const
 }
 
 template <typename XT>
-cudaError_t launch_swiglu(int P, int B, int T, cudaStream_t st, const XT* h13, XT* y,
-                          int8_t* xq, float* sa, int F, int gs, int vec) {
+cudaError_t launch_swiglu(bool q4, int P, int B, int T, size_t smem, cudaStream_t st,
+                          const XT* h13, XT* y, Quant q, int F, int vec) {
   switch (P) {
-#define NANO_NQ_CASE(PP)                                                         \
-  case PP:                                                                       \
-    swiglu_q80_kernel<XT, PP><<<B, T, 0, st>>>(h13, y, xq, sa, F, gs, vec);      \
+#define NANO_NQ_CASE(PP)                                                  \
+  case PP:                                                                \
+    if (q4)                                                               \
+      swiglu_q4k_kernel<XT, PP><<<B, T, smem, st>>>(h13, y, q, F, vec);   \
+    else                                                                  \
+      swiglu_q80_kernel<XT, PP><<<B, T, 0, st>>>(h13, y, q, F, vec);      \
     break;
     NANO_NQ_PASSES(NANO_NQ_CASE)
 #undef NANO_NQ_CASE
@@ -266,6 +411,66 @@ bool shape_ok(int n, int gs, int T, int P) {
   return gs >= kNV && (gs & (gs - 1)) == 0 && T % (gs / kNV) == 0 && n % gs == 0;
 }
 
+template <typename K, typename... Rest>
+cudaError_t allow_smem(K* kernel, Rest*... rest) {
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxRowSmem);
+  if constexpr (sizeof...(rest) == 0) {
+    return e;
+  } else {
+    return e != cudaSuccess ? e : allow_smem(rest...);
+  }
+}
+
+template <typename XT>
+cudaError_t allow_q4k_smem() {
+  return allow_smem(rms_norm_q4k_kernel<XT, 1>, rms_norm_q4k_kernel<XT, 2>,
+                    rms_norm_q4k_kernel<XT, 4>, rms_norm_q4k_kernel<XT, 8>,
+                    rms_norm_q4k_kernel<XT, 16>, swiglu_q4k_kernel<XT, 1>,
+                    swiglu_q4k_kernel<XT, 2>, swiglu_q4k_kernel<XT, 4>,
+                    swiglu_q4k_kernel<XT, 8>, swiglu_q4k_kernel<XT, 16>);
+}
+
+// A Q4K epilogue's outputs, and its row within the dynamic shared memory a
+// block may have
+bool q4k_ok(int n, const void* vp, const void* sa, const void* ba, const void* c) {
+  return vp && sa && ba && c && (size_t)n * sizeof(float) <= (size_t)kMaxRowSmem;
+}
+
+// rms_norm_q80 / rms_norm_q4k by q: the Q4K kernel where q.vp, with the
+// row's E floats of dynamic shared memory
+int norm(const void* x, const void* a, const void* w, void* h, void* hn, const Quant& q,
+         int x_bf16, int B, int E, float eps, int T, int P, int vec, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool q4 = q.vp != nullptr;
+  const size_t smem = q4 ? (size_t)E * sizeof(float) : 0;
+  const float* w_ = static_cast<const float*>(w);
+  if (x_bf16) {
+    using XT = __nv_bfloat16;
+    return (int)launch_norm<XT>(q4, P, B, T, smem, st, static_cast<const XT*>(x),
+                                static_cast<const XT*>(a), w_, static_cast<XT*>(h),
+                                static_cast<XT*>(hn), q, E, eps, vec);
+  }
+  return (int)launch_norm<float>(q4, P, B, T, smem, st, static_cast<const float*>(x),
+                                 static_cast<const float*>(a), w_, static_cast<float*>(h),
+                                 static_cast<float*>(hn), q, E, eps, vec);
+}
+
+// swiglu_q80 / swiglu_q4k by q, as `norm`
+int swiglu(const void* h13, void* y, const Quant& q, int x_bf16, int B, int F, int T, int P,
+           int vec, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool q4 = q.vp != nullptr;
+  const size_t smem = q4 ? (size_t)F * sizeof(float) : 0;
+  if (x_bf16) {
+    using XT = __nv_bfloat16;
+    return (int)launch_swiglu<XT>(q4, P, B, T, smem, st, static_cast<const XT*>(h13),
+                                  static_cast<XT*>(y), q, F, vec);
+  }
+  return (int)launch_swiglu<float>(q4, P, B, T, smem, st, static_cast<const float*>(h13),
+                                   static_cast<float*>(y), q, F, vec);
+}
+
 }  // namespace
 
 // Every entry point launches on the caller's stream, never synchronises,
@@ -273,42 +478,65 @@ bool shape_ok(int n, int gs, int T, int P) {
 // activations (else f32); `vec` that every row of every activation
 // pointer is aligned to 4 values (8 bytes of bf16, 16 of f32).
 
+// The dynamic shared memory of the Q4K instances raised to a row of
+// kMaxRowSmem / 4 values on the current device: once, before any launch (a
+// CUDA-graph capture must not be the first to meet an instance).
+extern "C" int norm_quant_init() {
+  const cudaError_t e = allow_q4k_smem<float>();
+  return (int)(e != cudaSuccess ? e : allow_q4k_smem<__nv_bfloat16>());
+}
+
 // x (B, E), a (B, E) or null, w (E) f32 -> h (B, E) or null (written only
 // with a), hn (B, E) or null, and with gs > 0 xq (B, E) int8 and sa
 // (B, E / gs) f32; T threads and P passes of ops/norm_quant.py:plan(E).
 extern "C" int rms_norm_q80(const void* x, const void* a, const void* w, void* h, void* hn,
                             void* xq, void* sa, int x_bf16, int B, int E, float eps, int gs,
                             int T, int P, int vec, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || !shape_ok(E, gs, T, P) || (gs && (!xq || !sa)))
     return (int)cudaErrorInvalidValue;
-  const float* w_ = static_cast<const float*>(w);
-  int8_t* xq_ = gs ? static_cast<int8_t*>(xq) : nullptr;
-  float* sa_ = gs ? static_cast<float*>(sa) : nullptr;
-  if (x_bf16) {
-    using XT = __nv_bfloat16;
-    return (int)launch_norm<XT>(P, B, T, st, static_cast<const XT*>(x), static_cast<const XT*>(a),
-                                w_, static_cast<XT*>(h), static_cast<XT*>(hn), xq_, sa_, E, eps,
-                                gs, vec);
-  }
-  return (int)launch_norm<float>(P, B, T, st, static_cast<const float*>(x),
-                                 static_cast<const float*>(a), w_, static_cast<float*>(h),
-                                 static_cast<float*>(hn), xq_, sa_, E, eps, gs, vec);
+  const Quant q{gs, gs ? static_cast<int8_t*>(xq) : nullptr, gs ? static_cast<float*>(sa) : nullptr,
+                nullptr, nullptr, nullptr};
+  return norm(x, a, w, h, hn, q, x_bf16, B, E, eps, T, P, vec, stream);
+}
+
+// The same with hn's Q4K quantization: vp (B, n_pad / 2) u8 and sa, ba, c
+// (B, n_pad / 32) f32, n_pad = E rounded up to 256 (E at most
+// kMaxRowSmem / 4; norm_quant_init first).
+extern "C" int rms_norm_q4k(const void* x, const void* a, const void* w, void* h, void* hn,
+                            void* vp, void* sa, void* ba, void* c, int x_bf16, int B, int E,
+                            float eps, int T, int P, int vec, void* stream) {
+  if (B < 1 || !shape_ok(E, 0, T, P) || !q4k_ok(E, vp, sa, ba, c))
+    return (int)cudaErrorInvalidValue;
+  const Quant q{0, nullptr, static_cast<float*>(sa), static_cast<uint8_t*>(vp),
+                static_cast<float*>(ba), static_cast<float*>(c)};
+  return norm(x, a, w, h, hn, q, x_bf16, B, E, eps, T, P, vec, stream);
 }
 
 // h13 (B, 2F) -> y (B, F) or null, and with gs > 0 xq (B, F) int8 and sa
 // (B, F / gs) f32; T threads and P passes of ops/norm_quant.py:plan(F).
 extern "C" int swiglu_q80(const void* h13, void* y, void* xq, void* sa, int x_bf16, int B, int F,
                           int gs, int T, int P, int vec, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || !shape_ok(F, gs, T, P) || (gs && (!xq || !sa))) return (int)cudaErrorInvalidValue;
-  int8_t* xq_ = gs ? static_cast<int8_t*>(xq) : nullptr;
-  float* sa_ = gs ? static_cast<float*>(sa) : nullptr;
-  if (x_bf16) {
-    using XT = __nv_bfloat16;
-    return (int)launch_swiglu<XT>(P, B, T, st, static_cast<const XT*>(h13), static_cast<XT*>(y),
-                                  xq_, sa_, F, gs, vec);
-  }
-  return (int)launch_swiglu<float>(P, B, T, st, static_cast<const float*>(h13),
-                                   static_cast<float*>(y), xq_, sa_, F, gs, vec);
+  const Quant q{gs, gs ? static_cast<int8_t*>(xq) : nullptr, gs ? static_cast<float*>(sa) : nullptr,
+                nullptr, nullptr, nullptr};
+  return swiglu(h13, y, q, x_bf16, B, F, T, P, vec, stream);
 }
+
+// The same with y's Q4K quantization: vp (B, n_pad / 2) u8 and sa, ba, c
+// (B, n_pad / 32) f32, n_pad = F rounded up to 256 (F at most
+// kMaxRowSmem / 4; norm_quant_init first).
+extern "C" int swiglu_q4k(const void* h13, void* y, void* vp, void* sa, void* ba, void* c,
+                          int x_bf16, int B, int F, int T, int P, int vec, void* stream) {
+  if (B < 1 || !shape_ok(F, 0, T, P) || !q4k_ok(F, vp, sa, ba, c))
+    return (int)cudaErrorInvalidValue;
+  const Quant q{0, nullptr, static_cast<float*>(sa), static_cast<uint8_t*>(vp),
+                static_cast<float*>(ba), static_cast<float*>(c)};
+  return swiglu(h13, y, q, x_bf16, B, F, T, P, vec, stream);
+}
+
+#ifdef NANO_NQ_CLOCKS
+// The last launch's stamps of block 0, by slot: out[4 slot + k].
+extern "C" int norm_quant_clocks(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_nq_clk, sizeof(unsigned long long) * 12);
+}
+#endif

@@ -7,56 +7,70 @@
 //   q4k_fake_quant  replaces the XLA fusion nano_tpu/ops/q4k.py::fake_quant_act
 //                   (_fake_quant_aligned_lean and the masked act_quant_q4k
 //                   path), which ran before every Q4K matmul: the C engine's
-//                   Q4K quantize->dequantize of the activation, bit for bit.
+//                   Q4K quantize->dequantize of the activation, bit for bit
+//                   (now only the requantized Q80 head's input).
 //   q4k_matmul      replaces the TPU kernel nano_tpu/ops/q4k.py::_q4k_kernel
 //                   (launched by _q4k_matmul_2d): f32 dequant v * s - b and
-//                   an f32 dot with the fake-quantized activation.
-//   q4k_matvec_fq   the two at B = 1 (a decode step's Q4K matmuls) in one
-//                   launch, equal to the pair bit for bit.
-//   q4k_act_quant   the same quantization decisions at B > 1 (a batched
-//                   step, a prefill), kept as integers: the values packed
-//                   in the weights' layout, s_eff, b_eff and c per group.
+//                   an f32 dot with the fake-quantized activation (on no
+//                   main path: the reference of the two below).
+//   q4k_matvec_fq   _q4k_kernel at B = 1 (every Q4K product of a decode
+//                   step) on the activation's integer form: the
+//                   fake-quantized values rebuilt as v * sa - ba (the bits
+//                   of fake_quant_act), then q4k_matmul's f32 dot.
+//   q4k_act_quant   the activation's Q4K quantization (act_quant_q4k, :459)
+//                   kept as integers: the values packed in the weights'
+//                   layout, s_eff, b_eff and c per group.  The norms and
+//                   SwiGLU write the same form as their epilogue
+//                   (norm_quant.cu: rms_norm_q4k, swiglu_q4k); this kernel
+//                   is left with wo's input (the attention output).
 //   q4k_matmul_w4a4 _q4k_kernel's product at B > 1 as the C engine expands
 //                   it (infer/tensor.c:359-434; nano_tpu/ops/q4k.py::
 //                   q4k_matmul_int8): y = sum_g sa s P - c m - ba s Q with
 //                   P the exact int dot of the 4-bit values of a group on
 //                   the int8 tensor cores: every Q4K product of more than
-//                   one row (q4k_matmul is then on no main path).
+//                   one row.
 //
-// Bit-exactness of q4k_fake_quant.  Every float operation is written as
-// the IEEE operation the JAX package and PyTorch round separately:
-// __fadd_rn / __fsub_rn / __fmul_rn / __fdiv_rn are never contracted into
-// FMAs (nvcc contracts a * b - c by default) and the divisions by 15 and 63
-// stay IEEE divisions.  Rounding is the C engine's magic-number trick on
-// the bits of x + 1.5 * 2^23 (never rintf / roundf).  Denormals are kept
-// (no fast-math): the FLT_TRUE_MIN clamps stay what they are in PyTorch;
-// an all-zero group ends with s = FLT_TRUE_MIN and values 0, a constant
-// group with s = |c| / 15, as in the plain version.
+// The quantization's arithmetic is q4k_quant.cuh's, shared with
+// norm_quant.cu: the C engine's integer decisions bit for bit (IEEE
+// divisions, no contraction, denormals kept: never built with
+// --use_fast_math).
 //
 // Bound on the H100: bytes.  At decode (B = 1) every weight byte is read
 // once per step for one multiply-add per 4-bit value (0.75 B per value with
-// the f32 scales and biases), far below the ~20 f32 operations per byte
-// the card needs before compute limits it.  Design of q4k_matmul: a
-// 32-group is one 16-byte load for one thread, with its s and b, so no
-// nibble ever crosses lanes; a nibble becomes a float with one byte permute
-// under the exponent of 2^23 and one subtraction (no int-to-float
-// conversion, a quarter-rate instruction).  A decode step's matrices are
-// 1.5-4.5 MB, so the kernel is as long as one memory latency plus the
-// launch: what counts is having every load in flight at once.
-//   B = 1:  each block takes 4 output rows and splits their groups over
-//           its threads (one group per thread at in <= 8192), so each
-//           thread has 4 independent 16-byte loads in flight and reads its
-//           32 activation values once for the 4 rows; warp shuffles and a
-//           shared-memory sum combine the partials.
-//   B > 1:  one warp per output row reads the row once per tile of 8
-//           activation rows; the activation (f32, n_pad per row, shared by
-//           every warp) is read through L1/L2, so B = 64 prefill needs no
-//           shared memory.
-//   fused:  a block of 8 warps fake-quantizes the raw row (f32 or bf16)
-//           into shared memory while the weight loads of up to 32 output
-//           rows are in flight, then takes the B = 1 dot for them.  Each
-//           block repeats the fake-quant (up to 3072 values, 13 IEEE
-//           divisions a lane), which still adds ~2 us a launch.
+// the f32 scales and biases; a step's 112 products 331 MB, 0.099 ms at
+// 3.35 TB/s), far below the ~20 f32 operations per byte the card needs
+// before compute limits it.  A product's matrix is 1.5-4.7 MB, about what
+// the card has in flight in one memory latency, so a launch is one
+// latency, its bytes, the dot of the last tile and the launch itself.
+//   q4k_matvec_fq.  q80_matvec_fq's skeleton: block b owns rows
+//           [N b / nb, N (b + 1) / nb) and walks them in tiles of R rows
+//           round a ring of S stages; a tile's packed rows are one
+//           contiguous R * n_pad / 2-byte range and its scales and biases
+//           two R * G * 4-byte ranges, brought by thread 0's bulk copies
+//           (cp.async.bulk, completion on an mbarrier; ends off a 16-byte
+//           boundary by plain loads, CopyIn).  The split comes from the
+//           shapes alone (ops/q4k.py:matvec_plan): T lanes a row, the
+//           least whole warps that give every 32-group a lane (32, 64, 96
+//           at in = 1024, 2048, 3072), 256 // T rows a pass and a tile,
+//           up to two blocks an SM, every tile of a block in flight at
+//           once.  Lane j owns groups j, j + T, ... of every row: it
+//           rebuilds their fake-quantized values into registers once (no
+//           division: 16 bytes and two floats of the integer form a
+//           group), then for each row takes the dot of w = v s - b (one FMA
+//           a weight) in four f32 partials, summed (0 + 1) + (2 + 3), over
+//           the warp by xor shuffles, over the row's warps in warp order.
+//           The fake-quant no block repeats (the fused kernel before
+//           quantized the row in every block, ~2 us a launch) is written
+//           once, by the kernel that makes the activation.  Launched as a
+//           programmatic dependent of that kernel (cudaLaunchKernelEx,
+//           kept as a programmatic edge by a CUDA-graph capture), whose
+//           blocks trigger at entry: the weights are requested while it
+//           runs (they never depend on it) and the activation is read
+//           after griddepcontrol.wait; without it the activation is
+//           requested before the weights.  Measured (chip_smoke.py bench
+//           q4k [clocks], NVIDIA H100 80GB HBM3): a step's 112 launches
+//           0.53 ms (the fused kernel before it 0.73); a launch alone waits
+//           ~2 us for its first tile, the last tile's dot takes ~1.3 us.
 //   w4a4:   at B slots the f32 dot is 2 B multiply-adds a weight value, too
 //           many for the CUDA cores at 64 slots (56 GFLOP for a prefill's
 //           112 products), and bf16 or TF32 tensor cores would round the
@@ -72,42 +86,32 @@
 //           rows on M, slots on N, a cp.async ring, chunks of K split over
 //           a cluster for the N = 1024 products, the plan from the shapes
 //           (ops/int8_mma.py), no atomics.
-// Not yet done: wgmma tiles.
+//   q4k_matmul (B = 1: 4 rows a block, a group a thread; B > 1: a warp a
+//           row over tiles of 8 activation rows) and q4k_fake_quant (a
+//           warp a 256-value block) are the first designs.
+// Not yet done: wgmma tiles; the weights of the next product into L2
+// before its producer runs.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
 #include "int8_mma.cuh"
+#include "q4k_quant.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
+using namespace bulk;
 using namespace mma8;
+using namespace q4kq;
 
-constexpr float kMagic = 12582912.0f;  // 1.5 * 2^23
-constexpr float kFltMax = 3.402823466e+38f;
-
-__device__ __forceinline__ float load_f(const float* p, size_t i) { return p[i]; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
-}
 __device__ __forceinline__ void store_f(float* p, size_t i, float v) { p[i] = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, size_t i, float v) {
   p[i] = __float2bfloat16_rn(v);
-}
-
-// The C engine's nearest_int (infer/tensor.c:4-9), exact for every input.
-__device__ __forceinline__ int nearest_int(float x) {
-  return (__float_as_int(__fadd_rn(x, kMagic)) & 0x007FFFFF) - 0x00400000;
-}
-
-// Nibble k (the low 4 bits of byte k) of a word whose bytes are already
-// masked to 4 bits, as an exact float: 0x4B0000vv is 2^23 + vv.
-__device__ __forceinline__ float nibble(uint32_t masked, int k) {
-  return __int_as_float(__byte_perm(masked, 0x4B000000u, 0x7440 | k)) - 8388608.f;
 }
 
 // The 32 dequantized weights w = v * s - b of one 16-byte group.
@@ -148,70 +152,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The Q4K quantization of the 256-value block blk of one activation row x
-// (n values), by one warp: lane l takes the 8 values from 8 l, so 4 lanes
-// hold a 32-group.  Max and min over the group's valid values, s and bias,
-// the 6-bit second level over the block's 8 groups, nearest_int; a group's
-// max and min over its 4 lanes and the block's s_max and b_max over the
-// groups are xor-shuffles, exact in any order.  v[e] is value 8 l + e of
-// the block in [0, 15] (0 at or past n, and where the group's s is 0);
-// s_eff and b_eff are the lane's group's, the dequantized value v * s_eff
-// - b_eff.
-template <typename XT>
-__device__ __forceinline__ void quant_block_by_warp(const XT* __restrict__ x, int blk, int n,
-                                                    int lane, int (&v)[8], float& s_eff,
-                                                    float& b_eff) {
-  const float true_min = __int_as_float(1);  // FLT_TRUE_MIN, a denormal
-  const int k0 = (blk << 8) + 8 * lane;
-  float xv[8];
-  float vmax = -kFltMax, vmin = kFltMax;
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const bool valid = k0 + e < n;
-    xv[e] = valid ? load_f(x, k0 + e) : 0.f;
-    vmax = valid ? fmaxf(vmax, xv[e]) : vmax;
-    vmin = valid ? fminf(vmin, xv[e]) : vmin;
-  }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    vmax = fmaxf(vmax, __shfl_xor_sync(0xffffffffu, vmax, off));
-    vmin = fminf(vmin, __shfl_xor_sync(0xffffffffu, vmin, off));
-  }
-  vmax = fmaxf(vmax, true_min);
-  const bool neg = vmin <= 0.f;
-  const float s = neg ? __fdiv_rn(__fsub_rn(vmax, vmin), 15.f) : __fdiv_rn(vmax, 15.f);
-  const float bias = neg ? -vmin : 0.f;
-  float s_max = s, b_max = bias;
-#pragma unroll
-  for (int off = 4; off < 32; off <<= 1) {
-    s_max = fmaxf(s_max, __shfl_xor_sync(0xffffffffu, s_max, off));
-    b_max = fmaxf(b_max, __shfl_xor_sync(0xffffffffu, b_max, off));
-  }
-  const float s_scale = __fdiv_rn(fmaxf(s_max, true_min), 63.f);
-  const float s_bias = __fdiv_rn(fmaxf(b_max, true_min), 63.f);
-  const int sq = s_scale == 0.f ? 0 : nearest_int(__fdiv_rn(s, s_scale)) & 0x3F;
-  const int bq = s_bias == 0.f ? 0 : nearest_int(__fdiv_rn(bias, s_bias)) & 0x3F;
-  s_eff = __fmul_rn((float)sq, s_scale);
-  b_eff = __fmul_rn((float)bq, s_bias);
-#pragma unroll
-  for (int e = 0; e < 8; ++e)
-    v[e] = (k0 + e < n && s != 0.f) ? nearest_int(__fdiv_rn(__fadd_rn(xv[e], bias), s)) & 0x0F : 0;
-}
-
-// The fake-quant of the same block: o[e] = v * s_eff - b_eff for value
-// 8 l + e, 0 at or past n.
-template <typename XT>
-__device__ __forceinline__ void fq_block_by_warp(const XT* __restrict__ x, int blk, int n, int lane,
-                                                 float (&o)[8]) {
-  int v[8];
-  float s_eff, b_eff;
-  quant_block_by_warp(x, blk, n, lane, v, s_eff, b_eff);
-  const int k0 = (blk << 8) + 8 * lane;
-#pragma unroll
-  for (int e = 0; e < 8; ++e)
-    o[e] = k0 + e < n ? __fsub_rn(__fmul_rn((float)v[e], s_eff), b_eff) : 0.f;
-}
-
 // One warp per (row b, 256-value block): x (B, n) f32 or bf16 -> out
 // (B, n_pad) f32, 0 at k >= n.
 template <typename XT>
@@ -230,51 +170,23 @@ __global__ void fake_quant_kernel(const XT* __restrict__ x, float* __restrict__ 
 }
 
 // One warp per (row b, 256-value block): x (B, n) f32 or bf16 -> the
-// block's values packed in the weights' layout into vp (B, n_pad / 2)
-// (byte g*16+j: value g*32+j low, g*32+16+j high), and for each of its 8
-// groups sa = s_eff, ba = b_eff and c = sa * A - n_g * ba (B, n_pad / 32),
-// A the group's value sum and n_g its positions < n, each product and the
-// difference rounded to f32.  Lanes 4 i and 4 i + 1 write group i's 16
-// bytes, the high nibbles from lanes 4 i + 2 and 4 i + 3.
+// activation's integer form (q4k_quant.cuh:act_quant_block_by_warp): vp
+// (B, n_pad / 2), sa, ba, c (B, n_pad / 32).  Its dependents may launch at
+// once (programmatic dependent launch: q4k_matvec_fq streams its weights
+// while this runs, and reads vp, sa and ba only after it has ended).
 template <typename XT>
 __global__ void q4k_act_quant_kernel(const XT* __restrict__ x, uint8_t* __restrict__ vp,
                                      float* __restrict__ sa, float* __restrict__ ba,
                                      float* __restrict__ c, int B, int n, int n_pad) {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
   const int nbpl = n_pad >> 8;
   const int wid = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (wid >= B * nbpl) return;   // a whole warp
   const int b = wid / nbpl, blk = wid - b * nbpl;
-  int v[8];
-  float s_eff, b_eff;
-  quant_block_by_warp(x + (size_t)b * n, blk, n, lane, v, s_eff, b_eff);
-  uint32_t mine = 0;
-  int sum = 0;
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    mine |= (uint32_t)v[e] << (4 * e);
-    sum += v[e];
-  }
-  const uint32_t high = __shfl_down_sync(0xffffffffu, mine, 2);
-  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-  const int quarter = lane & 3, g = (blk << 3) + (lane >> 2);
-  if (quarter < 2) {
-    uint32_t word[2] = {0u, 0u};
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      word[e >> 2] |= (((mine >> (4 * e)) & 0xFu) | (((high >> (4 * e)) & 0xFu) << 4))
-                      << (8 * (e & 3));
-    *reinterpret_cast<uint2*>(vp + (size_t)b * (n_pad >> 1) + g * 16 + 8 * quarter) =
-        make_uint2(word[0], word[1]);
-  }
-  if (quarter == 0) {
-    const size_t i = (size_t)b * (n_pad >> 5) + g;
-    const int n_g = min(32, max(0, n - 32 * g));
-    sa[i] = s_eff;
-    ba[i] = b_eff;
-    c[i] = __fsub_rn(__fmul_rn(s_eff, (float)sum), __fmul_rn((float)n_g, b_eff));
-  }
+  act_quant_block_by_warp(x + (size_t)b * n, blk, n, lane, vp + (size_t)b * (n_pad >> 1),
+                          sa + (size_t)b * (n_pad >> 5), ba + (size_t)b * (n_pad >> 5),
+                          c + (size_t)b * (n_pad >> 5));
 }
 
 // B = 1: block b takes output rows [R*b, R*b + R); its threads split the
@@ -364,82 +276,217 @@ __global__ void q4k_matmul_kernel(const float* __restrict__ x, const uint8_t* __
   }
 }
 
-constexpr int kFqThreads = 256;   // threads of a q4k_matvec_fq block
+// ---- q4k_matvec_fq ----
 
-// q4k_matvec_kernel on the raw activation x (1, in_dim), for 256 / T sets
-// of R output rows at once, T = `dot_threads` = q4k_matvec_kernel's block.
-// The T threads of set j issue their weight loads first; then the block's
-// 8 warps fake-quantize the row into shared memory, a 256-value block per
-// warp (32-groups padded to 33 floats, so that a thread reading its own
-// group hits no other's banks); then each set takes the dot of its rows
-// exactly as q4k_matvec_kernel does: the same groups on the same threads,
-// the same products in the same order, the same sums (a named barrier per
-// set).  So the result equals q4k_fake_quant + q4k_matmul bit for bit, and
-// the fake-quant, repeated by every block, runs once per 256 / T * R rows,
-// on 8 warps, under the loads' latency.
-template <int R, typename XT, typename OT>
-__global__ void __launch_bounds__(kFqThreads)
-    q4k_matvec_fq_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ packed,
-                         const float* __restrict__ sc, const float* __restrict__ bi,
-                         OT* __restrict__ y, int n_pad, int in_dim, int N, int dot_threads) {
-  __shared__ float part[kFqThreads / 32][R];
-  extern __shared__ float sx[];   // [n_pad / 32][33]
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_sets = kFqThreads / dot_threads, set = threadIdx.x / dot_threads;
-  const int t = threadIdx.x - set * dot_threads;   // q4k_matvec_kernel's threadIdx.x
-  const int row0 = (blockIdx.x * n_sets + set) * R;
-  const int G = n_pad >> 5;
-  uint4 pv[R];
-  float s[R], nb[R];
-  auto load_w = [&](int g) {
+constexpr int kMvThreads = 256;   // threads of a q4k_matvec_fq block at most
+constexpr int kMvMaxGroups = 4;   // a lane's groups at most (n_pad <= 32768)
+constexpr int kMvMaxStages = 16;  // ring stages at most (their barriers in 128 bytes)
+
+// Where a block's time goes, only in a build with -DNANO_Q4K_CLOCKS
+// (`chip_smoke.py bench q4k clocks` makes one beside the real library):
+// thread 0 of each block of the last launch stamps %globaltimer (ns) and
+// clock64 at entry, when the activation is in registers (after
+// griddepcontrol.wait where the launch is a programmatic dependent), when
+// the first tile is in, when the last tile's dot is done and when the
+// block's last row is stored.  Otherwise every stamp is empty.
+#ifdef NANO_Q4K_CLOCKS
+__device__ unsigned long long g_q4_clk[2048][10];   // [block][globaltimer x 5, clock64 x 5]
+#define Q4_CLK(k)                                                                  \
+  do {                                                                             \
+    if (threadIdx.x == 0) {                                                        \
+      unsigned long long t_;                                                       \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                      \
+      g_q4_clk[blockIdx.x][k] = t_;                                                \
+      g_q4_clk[blockIdx.x][5 + k] = clock64();                                     \
+    }                                                                              \
+  } while (0)
+#else
+#define Q4_CLK(k) \
+  do {            \
+  } while (0)
+#endif
+
+// Bytes of one stage of R weight rows: the packed rows, their scales and
+// their biases (each of the two CopyIn buffers a 16-byte pad over).
+__host__ __device__ __forceinline__ size_t mv4_stage(int R, int n_pad) {
+  return (size_t)R * (n_pad / 2) + 2 * copy_in_bytes((size_t)R * (n_pad / 32) * 4);
+}
+
+// Shared memory of a block: S barriers (128 bytes), the row warps' partial
+// sums (128 bytes), S stages.
+__host__ __device__ __forceinline__ size_t mv4_smem(int R, int n_pad, int S) {
+  return 256 + (size_t)S * mv4_stage(R, n_pad);
+}
+
+// y (1, N) = the f32 dot of the fake-quantized activation with w = v s - b,
+// from the activation's integer form (vp (1, n_pad / 2), sa, ba (1, G)).
+// Block b takes rows [N b / nb, N (b + 1) / nb) in tiles of R rows round a
+// ring of S stages, each tile's packed rows, scales and biases brought by
+// thread 0's bulk copies; T lanes a row (blockDim.x / T rows a pass), lane
+// j owning groups j, j + T, ... (GPL at most) of every row, whose
+// fake-quantized values it rebuilds once into registers.  With `pdl`
+// (launched as a programmatic dependent of the kernel that wrote the
+// activation) the weights are requested first and the activation read after
+// griddepcontrol.wait; else the activation is requested first.  Block 0
+// also writes the rebuilt row to xf_out (1, n_pad) when it is not null.
+template <int GPL, typename OT>
+__global__ void __launch_bounds__(kMvThreads)
+    q4k_matvec_fq_kernel(const uint8_t* vp, const float* sa, const float* ba,
+                         const uint8_t* __restrict__ packed, const float* __restrict__ sc,
+                         const float* __restrict__ bi, OT* __restrict__ y,
+                         float* __restrict__ xf_out, int n_pad, int in_dim, int N, int R, int S,
+                         int T, int pdl) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int G = n_pad >> 5, rowb = n_pad >> 1;
+  const size_t stage = mv4_stage(R, n_pad), wbytes = (size_t)R * rowb;
+  const size_t sbytes = copy_in_bytes((size_t)R * G * 4);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);   // a barrier a stage
+  float(*part)[kMvThreads / 32] = reinterpret_cast<float(*)[kMvThreads / 32]>(smem + 128);
+  unsigned char* ring = smem + 256;
+  const int r_begin = (int)((long long)N * blockIdx.x / gridDim.x);
+  const int r_end = (int)((long long)N * (blockIdx.x + 1) / gridDim.x);
+  const int ntiles = (r_end - r_begin + R - 1) / R;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int RP = blockDim.x / T, slot = tid / T, j = tid - slot * T;
+  const int wr = j >> 5, nwr = T >> 5;   // this warp of the row's warps
+
+  // tile t's scales (m = 0) or biases (m = 1): rows n0 .. into stage t % S
+  auto params_in = [&](int t, int m) {
+    const int n0 = r_begin + t * R;
+    return CopyIn(ring + (size_t)(t % S) * stage + wbytes + m * sbytes,
+                  (m ? bi : sc) + (size_t)n0 * G, (size_t)min(R, r_end - n0) * G * 4);
+  };
+  // thread 0: start tile t into stage t % S
+  auto issue = [&](int t) {
+    const int n0 = r_begin + t * R, rows = min(R, r_end - n0), s = t % S;
+    const CopyIn cs = params_in(t, 0), cb = params_in(t, 1);
+    cs.ends();
+    cb.ends();
+    mbar_arrive_expect_tx(&full[s], (uint32_t)(rows * rowb) + cs.bulk_bytes() + cb.bulk_bytes());
+    bulk_copy(ring + (size_t)s * stage, packed + (size_t)n0 * rowb, (uint32_t)(rows * rowb),
+              &full[s]);
+    cs.bulk(&full[s]);
+    cb.bulk(&full[s]);
+  };
+
+  Q4_CLK(0);
+  // the activation's integer form of this lane's groups (plain loads: with
+  // pdl the kernel that writes it may still be running when this starts)
+  uint4 xw[GPL];
+  float xs[GPL], xb[GPL];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {  // rows past N repeat row N-1, never stored
-      const size_t row = min(row0 + r, N - 1);
-      pv[r] = __ldg(reinterpret_cast<const uint4*>(packed + row * (n_pad >> 1)) + g);
-      s[r] = __ldg(sc + row * G + g);
-      nb[r] = -__ldg(bi + row * G + g);
+  for (int i = 0; i < GPL; ++i) {
+    xw[i] = make_uint4(0u, 0u, 0u, 0u);
+    xs[i] = xb[i] = 0.f;
+  }
+  auto load_x = [&]() {
+#pragma unroll
+    for (int i = 0; i < GPL; ++i) {
+      const int g = j + i * T;
+      if (g < G && g * 32 < in_dim) {
+        xw[i] = reinterpret_cast<const uint4*>(vp)[g];
+        xs[i] = sa[g];
+        xb[i] = ba[g];
+      }
     }
   };
-  const bool dotter = set < n_sets && row0 < N;
-  if (dotter && t * 32 < in_dim) load_w(t);
-  for (int blk = warp; (blk << 8) < in_dim; blk += kFqThreads / 32) {
-    float o[8];
-    fq_block_by_warp(x, blk, in_dim, lane, o);
-    float* dst = sx + (8 * blk + (lane >> 2)) * 33 + 8 * (lane & 3);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) dst[e] = o[e];
-  }
+  if (!pdl) load_x();   // requested after the weights, it would come back after them
   __syncthreads();
-  if (!dotter) return;   // a whole set: its threads share row0
-  float acc[R];
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(&full[s], 1);
+    mbar_init_fence();
+    for (int t = 0; t < min(S, ntiles); ++t) issue(t);
+  }
+  if (pdl) {
+    asm volatile("griddepcontrol.wait;" ::: "memory");
+    load_x();
+  }
+  // value 32 g + e of the row: x[i][e], 0 at or past in_dim (a packed 0
+  // there would rebuild to -ba)
+  float x[GPL][32];
 #pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = 0.f;
-  for (int g = t; g < G && g * 32 < in_dim; g += dot_threads) {
-    if (g != t) load_w(g);
-    float xv[32], w[32];
+  for (int i = 0; i < GPL; ++i) {
+    const int g = j + i * T;
+    const bool on = g < G && g * 32 < in_dim;
+    const uint32_t words[4] = {xw[i].x, xw[i].y, xw[i].z, xw[i].w};
 #pragma unroll
-    for (int e = 0; e < 32; ++e) xv[e] = sx[g * 33 + e];   // 0 at or past in_dim
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t lo = words[q] & 0x0F0F0F0Fu, hi = (words[q] >> 4) & 0x0F0F0F0Fu;
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      dequant_group(pv[r], s[r], nb[r], w);
-      float a = acc[r];
+      for (int k = 0; k < 4; ++k) {
+        const int e = 4 * q + k;
+        x[i][e] = on && g * 32 + e < in_dim ? rebuild(nibble(lo, k), xs[i], xb[i]) : 0.f;
+        x[i][16 + e] = on && g * 32 + 16 + e < in_dim ? rebuild(nibble(hi, k), xs[i], xb[i]) : 0.f;
+      }
+    }
+    if (xf_out != nullptr && blockIdx.x == 0 && slot == 0 && g < G) {
 #pragma unroll
-      for (int e = 0; e < 32; ++e) a = fmaf(xv[e], w[e], a);
-      acc[r] = a;
+      for (int e = 0; e < 32; ++e) xf_out[g * 32 + e] = x[i][e];
     }
   }
+  __syncthreads();   // the barriers are initialized
+  Q4_CLK(1);
+
+  // The dot.  A pass: row slot `slot` takes row base + slot of the tile;
+  // lane j multiplies its groups' 32 rebuilt values with w = v s - b (one
+  // FMA a weight, as q4k_matmul dequantizes) into four f32 partials, one a
+  // 4-byte word of the group (its 4 low nibbles, then its 4 high, in
+  // order), over its groups in order; the partials summed (0 + 1) + (2 +
+  // 3), then over the warp by xor shuffles, then over the row's warps in
+  // warp order.  Every loop that holds a shuffle or a barrier has the same
+  // count on every thread: rows past the tile take part with zeros.
+  int pbuf = 0;
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % S, n0 = r_begin + t * R, rows = min(R, r_end - n0);
+    mbar_wait(&full[s], (uint32_t)((t / S) & 1));
+    if (t == 0) Q4_CLK(2);
+    const unsigned char* wt = ring + (size_t)s * stage;
+    const float* st = reinterpret_cast<const float*>(params_in(t, 0).dst);
+    const float* bt = reinterpret_cast<const float*>(params_in(t, 1).dst);
+    for (int base = 0; base < rows; base += RP) {
+      const int r = base + slot;
+      const bool act = r < rows;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const float v = warp_sum(acc[r]);
-    if (lane == 0) part[warp][r] = v;
+      for (int i = 0; i < GPL; ++i) {
+        const int g = j + i * T;
+        if (!act || g >= G || g * 32 >= in_dim) continue;
+        const uint4 pw = *reinterpret_cast<const uint4*>(wt + (size_t)r * rowb + g * 16);
+        const float sw = st[r * G + g], nb = -bt[r * G + g];
+        const uint32_t words[4] = {pw.x, pw.y, pw.z, pw.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const uint32_t lo = words[q] & 0x0F0F0F0Fu, hi = (words[q] >> 4) & 0x0F0F0F0Fu;
+          float a = acc[q];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) a = fmaf(x[i][4 * q + k], fmaf(nibble(lo, k), sw, nb), a);
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            a = fmaf(x[i][16 + 4 * q + k], fmaf(nibble(hi, k), sw, nb), a);
+          acc[q] = a;
+        }
+      }
+      const float v = warp_sum((acc[0] + acc[1]) + (acc[2] + acc[3]));
+      if (nwr == 1) {
+        if (act && lane == 0) store_f(y, (size_t)(n0 + r), v);
+      } else {   // the row's warps meet on a named barrier of their own
+        if (lane == 0) part[pbuf][slot * nwr + wr] = v;
+        asm volatile("bar.sync %0, %1;\n" ::"r"(1 + slot), "r"(T) : "memory");
+        if (act && j == 0) {
+          float sum = 0.f;
+          for (int w = 0; w < nwr; ++w) sum += part[pbuf][slot * nwr + w];
+          store_f(y, (size_t)(n0 + r), sum);
+        }
+        pbuf ^= 1;
+      }
+    }
+    if (t == ntiles - 1) Q4_CLK(3);
+    if (t + S < ntiles) {
+      __syncthreads();   // every warp is done with stage s
+      if (tid == 0) issue(t + S);
+    }
   }
-  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + set), "r"(dot_threads) : "memory");
-  if (t < R && row0 + t < N) {
-    const int w0 = set * dot_threads / 32;
-    float v = 0.f;
-    for (int i = 0; i < dot_threads >> 5; ++i) v += part[w0 + i][t];
-    store_f(y, row0 + t, v);
-  }
+  Q4_CLK(4);
 }
 
 // ---- q4k_matmul_w4a4 ----
@@ -671,6 +718,28 @@ void launch_matmul(const float* x, const uint8_t* p, const float* s, const float
   }
 }
 
+// One q4k_matvec_fq launch, as a programmatic dependent of the kernel before
+// it on the stream where `pdl` (cudaLaunchKernelEx; a CUDA-graph capture
+// keeps the programmatic edge).
+template <int GPL, typename OT>
+cudaError_t launch_mv4(dim3 grid, dim3 block, size_t smem, cudaStream_t st, int pdl,
+                       const uint8_t* vp, const float* sa, const float* ba, const uint8_t* p,
+                       const float* s, const float* b, OT* y, float* xf_out, int n_pad,
+                       int in_dim, int N, int R, int S, int T) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, q4k_matvec_fq_kernel<GPL, OT>, vp, sa, ba, p, s, b, y, xf_out,
+                            n_pad, in_dim, N, R, S, T, pdl);
+}
+
 }  // namespace
 
 // Every entry point launches on the caller's stream, never synchronises,
@@ -707,38 +776,62 @@ extern "C" int q4k_matmul(const void* x, const void* packed, const void* scales,
   return (int)cudaGetLastError();
 }
 
-// x (1, in_dim) f32 or bf16, raw -> y (1, N): q4k_fake_quant + q4k_matmul at
-// B = 1 in one launch, each row's dot on the threads of q4k_matmul's B = 1
-// kernel.
-extern "C" int q4k_matvec_fq(const void* x, int x_bf16, const void* packed, const void* scales,
-                             const void* biases, void* y, int y_bf16, int n_pad, int in_dim, int N,
-                             void* stream) {
+// The activation's integer form (vp (1, n_pad / 2) u8, sa, ba (1, n_pad /
+// 32) f32: q4k_act_quant's, or rms_norm_q4k's / swiglu_q4k's) and the packed
+// weight (N, n_pad / 2) with its scales and biases (N, n_pad / 32) -> y (1,
+// N) f32 or bf16, the f32 dot of the fake-quantized row with the dequantized
+// weight; with xf_out (1, n_pad) f32 not null also the rebuilt row.  The
+// split (blocks, R, S, T) is ops/q4k.py:matvec_plan's; `pdl`: launched as a
+// programmatic dependent of the kernel before it.  The packed weight 16-byte
+// aligned.
+extern "C" int q4k_matvec_fq(const void* vp, const void* sa, const void* ba, const void* packed,
+                             const void* scales, const void* biases, void* y, int y_bf16,
+                             void* xf_out, int n_pad, int in_dim, int N, int blocks, int R, int S,
+                             int T, int pdl, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int G = n_pad / 32;
+  const int gpl = T > 0 ? (G + T - 1) / T : 0;
+  const size_t smem = mv4_smem(R, n_pad, S);
+  if (N < 1 || n_pad < 256 || n_pad % 256 || in_dim < 1 || in_dim > n_pad ||
+      in_dim <= n_pad - 256 || T < 32 || T > kMvThreads || T % 32 || gpl > kMvMaxGroups ||
+      blocks < 1 || blocks > N || R < 1 || S < 1 || S > kMvMaxStages || smem > (size_t)kMaxSmem ||
+      ((uintptr_t)packed & 15) || ((uintptr_t)vp & 15))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(blocks), block(kMvThreads / T * T);
+  const uint8_t* vp_ = static_cast<const uint8_t*>(vp);
+  const float* sa_ = static_cast<const float*>(sa);
+  const float* ba_ = static_cast<const float*>(ba);
   const uint8_t* p_ = static_cast<const uint8_t*>(packed);
   const float* s_ = static_cast<const float*>(scales);
   const float* b_ = static_cast<const float*>(biases);
-  const int dot_threads = matvec_threads(n_pad, in_dim);
-  const size_t smem = sizeof(float) * (n_pad / 32) * 33;
-  const int rows = kFqThreads / dot_threads * kRows;   // output rows a block
-  const dim3 grid((N + rows - 1) / rows);
-#define NANO_FQ(XT, OT)                                                                        \
-  do {                                                                                         \
-    if (smem > 48 * 1024) {                                                                    \
-      const cudaError_t err = cudaFuncSetAttribute(q4k_matvec_fq_kernel<kRows, XT, OT>,        \
-                                                   cudaFuncAttributeMaxDynamicSharedMemorySize, \
-                                                   (int)smem);                                 \
-      if (err != cudaSuccess) return (int)err;                                                 \
-    }                                                                                          \
-    q4k_matvec_fq_kernel<kRows, XT, OT><<<grid, kFqThreads, smem, st>>>(                       \
-        static_cast<const XT*>(x), p_, s_, b_, static_cast<OT*>(y), n_pad, in_dim, N,          \
-        dot_threads);                                                                          \
-  } while (0)
-  if (x_bf16 && y_bf16) NANO_FQ(__nv_bfloat16, __nv_bfloat16);
-  else if (x_bf16) NANO_FQ(__nv_bfloat16, float);
-  else if (y_bf16) NANO_FQ(float, __nv_bfloat16);
-  else NANO_FQ(float, float);
-#undef NANO_FQ
-  return (int)cudaGetLastError();
+  float* xf_ = static_cast<float*>(xf_out);
+#define NANO_MV4(GPL_, OT)                                                                   \
+  launch_mv4<GPL_, OT>(grid, block, smem, st, pdl, vp_, sa_, ba_, p_, s_, b_,                \
+                       static_cast<OT*>(y), xf_, n_pad, in_dim, N, R, S, T)
+#define NANO_MV4_OT(GPL_) \
+  (y_bf16 ? NANO_MV4(GPL_, __nv_bfloat16) : NANO_MV4(GPL_, float))
+  cudaError_t err;
+  switch (gpl) {
+    case 1: err = NANO_MV4_OT(1); break;
+    case 2: err = NANO_MV4_OT(2); break;
+    case 3: err = NANO_MV4_OT(3); break;
+    default: err = NANO_MV4_OT(4); break;
+  }
+#undef NANO_MV4_OT
+#undef NANO_MV4
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// Shared memory over 48 KB for every q4k_matvec_fq instance on the current
+// device: once, before any launch (a CUDA-graph capture must not be the
+// first to meet an instance).
+extern "C" int q4k_matvec_fq_init() {
+  return (int)allow_smem(q4k_matvec_fq_kernel<1, float>, q4k_matvec_fq_kernel<2, float>,
+                         q4k_matvec_fq_kernel<3, float>, q4k_matvec_fq_kernel<4, float>,
+                         q4k_matvec_fq_kernel<1, __nv_bfloat16>,
+                         q4k_matvec_fq_kernel<2, __nv_bfloat16>,
+                         q4k_matvec_fq_kernel<3, __nv_bfloat16>,
+                         q4k_matvec_fq_kernel<4, __nv_bfloat16>);
 }
 
 // x (B, n) f32 or bf16 -> vp (B, n_pad / 2) u8, sa, ba, c (B, n_pad / 32)
@@ -800,3 +893,38 @@ extern "C" int q4k_matmul_w4a4(const void* vp, const void* sa, const void* ba, c
   return (int)launch_w4a4(BN, vp_, sa_, ba_, c_, p_, s_, b_, static_cast<float*>(y), B, n_pad,
                           in_dim, N, MB, CS, S, st);
 }
+
+namespace {
+
+// q[i] = a[i] / b[i] by q4k_quant.cuh's FastDiv and by __fdiv_rn, and
+// whether FastDiv's check calls both operands moderate (b[i] > 0).
+__global__ void fast_div_kernel(const float* a, const float* b, int n, float* fast, float* ieee,
+                                int* exact) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    FastDiv fd;
+    fast[i] = fd.div(a[i], b[i], fd.recip(b[i]));
+    ieee[i] = __fdiv_rn(a[i], b[i]);
+    fd.check(a[i]);
+    fd.check(b[i]);
+    exact[i] = fd.exact;
+  }
+}
+
+}  // namespace
+
+// FastDiv against __fdiv_rn over n pairs (the card tests hold the two
+// bit-equal wherever FastDiv calls a pair exact).
+extern "C" int q4k_fast_div_check(const void* a, const void* b, int n, void* fast, void* ieee,
+                                  void* exact, void* stream) {
+  fast_div_kernel<<<264, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b), n, static_cast<float*>(fast),
+      static_cast<float*>(ieee), static_cast<int*>(exact));
+  return (int)cudaGetLastError();
+}
+
+#ifdef NANO_Q4K_CLOCKS
+// The last q4k_matvec_fq launch's stamps: out[10 b + k] for block b < n_blocks.
+extern "C" int q4k_matvec_fq_clocks(unsigned long long* out, int n_blocks) {
+  return (int)cudaMemcpyFromSymbol(out, g_q4_clk, sizeof(unsigned long long) * 10 * n_blocks);
+}
+#endif

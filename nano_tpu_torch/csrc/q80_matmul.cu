@@ -171,6 +171,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
 #include "int8_mma.cuh"
 #include "q80_quant.cuh"
 
@@ -178,6 +179,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using namespace bulk;
 using namespace mma8;
 
 __device__ __forceinline__ float load_f(const float* p, size_t i) { return p[i]; }
@@ -309,72 +311,6 @@ constexpr int kMvThreads = 256;   // threads of a q80_matvec_fq block (8 warps)
 constexpr int kMvSteps = 2;       // a row's steps a lane holds at once (see the dot)
 constexpr int kMvXVec = 4;        // 16-byte pieces of x a thread loads before any weight
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-// Arrive (release: this thread's earlier shared-memory stores become
-// visible to the waiters) and add `bytes` to the phase's expected bytes.
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// bytes (a multiple of 16, both addresses 16-byte aligned) from global to
-// shared memory; completion counted on bar.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-          smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// n bytes at global src, to be copied to `dst` in shared memory, where dst
-// and src agree modulo 16 (a buffer of n + 16 bytes, 16-byte aligned, and
-// dst = buffer + src % 16): its 16-byte aligned middle goes by bulk copy,
-// its < 16-byte ends by plain loads of the calling thread.
-struct CopyIn {
-  uintptr_t a, am, bm, b;   // [a, b) and its aligned middle [am, bm)
-  unsigned char* dst;
-  __device__ CopyIn(unsigned char* buf, const void* src, size_t n) {
-    a = (uintptr_t)src;
-    b = a + n;
-    am = (a + 15) & ~(uintptr_t)15;
-    bm = b & ~(uintptr_t)15;
-    if (bm < am) bm = am;
-    dst = buf + (a & 15);
-  }
-  __device__ uint32_t bulk_bytes() const { return (uint32_t)(bm - am); }
-  // the ends: before the arrive that releases them
-  __device__ void ends() const {
-    for (uintptr_t p = a; p < (am < b ? am : b); ++p) dst[p - a] = *(const unsigned char*)p;
-    for (uintptr_t p = bm; p < b; ++p) dst[p - a] = *(const unsigned char*)p;
-  }
-  // the middle: after the arrive
-  __device__ void bulk(uint64_t* bar) const {
-    if (bm > am) bulk_copy(dst + (am - a), (const void*)am, (uint32_t)(bm - am), bar);
-  }
-};
-
 // Where a block's time goes, only in a build with -DNANO_MV_CLOCKS
 // (`chip_smoke.py bench q80 clocks` makes one beside the real library):
 // thread 0 of each block of the last launch stamps %globaltimer (ns) and
@@ -399,7 +335,7 @@ __device__ unsigned long long g_mv_clk[2048][10];   // [block][globaltimer x 5, 
 #endif
 
 // Bytes of a buffer for n bytes copied in by CopyIn, rounded to 16.
-__host__ __device__ __forceinline__ size_t mv_buf(size_t n) { return (n + 16 + 15) & ~(size_t)15; }
+__host__ __device__ __forceinline__ size_t mv_buf(size_t n) { return copy_in_bytes(n); }
 
 // Shared memory of a block: S barriers; S weight stages of R rows and S
 // scale stages; the raw row x (xbytes); the int8 row and its G scales.
@@ -500,7 +436,7 @@ __global__ void __launch_bounds__(kMvThreads, 2)
   __syncthreads();
   if (tid == 0) {
     for (int s = 0; s < S; ++s) mbar_init(&full[s], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
     for (int t = 0; t < min(S, ntiles); ++t) issue(t);
   }
   if (xvec) {
@@ -915,7 +851,7 @@ __global__ void __launch_bounds__(kMvThreads, 2)
   __syncthreads();
   if (tid == 0) {
     for (int s = 0; s < S; ++s) mbar_init(&full[s], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
     for (int t = 0; t < min(S, ntiles); ++t) issue(t);
   }
   if (xvec) {

@@ -25,14 +25,16 @@ cache is updated IN PLACE (the JAX version returned a new cache; here the
 same object comes back).
 
 Kernels on the card: every quantized projection and head goes through
-``ops.qmatmul`` (Q80) or ``ops.q4k`` (Q4K: activation fake-quant, then
-the fused-dequant matmul), every single-token attention through
+``ops.qmatmul`` (Q80) or ``ops.q4k`` (Q4K: the activation's Q4K
+quantization, then the fused-dequant matmul), every single-token attention
+through
 ``ops.decode_attn``, and every full-sequence causal attention of the
 no-cache forward through ``ops.flash_attn``, forward and backward.  In
 the cached forward each block's two RMSNorms (the second with the
 residual add before it), its SwiGLU and the final norm are one kernel each
 (``ops.norm_quant``), which also quantize their output for a W8A8 Q80
-product fed more than one row, so that no ``q80_act_quant`` runs on it.
+product fed more than one row, and for Q4K products at every row count,
+so that no ``q80_act_quant`` or ``q4k_act_quant`` runs on it.
 The cached prefill attention (S > 1), the qk-norm, RoPE and the cache
 write are plain PyTorch, as they were XLA-fused ops on the TPU; so are the
 no-cache forward's norms and SwiGLU (the fused kernels have no backward);
@@ -61,7 +63,9 @@ from nano_tpu_torch.config import ModelConfig
 from nano_tpu_torch.observe import Phase
 from nano_tpu_torch.ops import decode_attn
 from nano_tpu_torch.ops.flash_attn import flash_attention
-from nano_tpu_torch.ops.norm_quant import rms_norm, rms_norm_q80, swiglu_q80
+from nano_tpu_torch.ops.norm_quant import (rms_norm, rms_norm_q4k,
+                                           rms_norm_q80, swiglu_q4k,
+                                           swiglu_q80)
 from nano_tpu_torch.ops.q4k import Q4KTensor, fake_quant_act, q4k_matmul
 from nano_tpu_torch.ops.qmatmul import Q80Tensor, q80_matmul
 
@@ -125,13 +129,26 @@ def _q80_group(ws, rows: int) -> int:
     return sizes.pop() if len(sizes) == 1 else 0
 
 
+def _q4k_out(ws) -> bool:
+    """Whether a fused norm or SwiGLU writes the Q4K integer form of its
+    output for the products `ws`: where every one is Q4K, at any row count
+    (one row as much as more: the quantization, not the product, is what a
+    raw row would cost q4k_matvec_fq)."""
+    return bool(ws) and all(isinstance(w, Q4KTensor) for w in ws)
+
+
 def _norm(x: torch.Tensor, weight: torch.Tensor, eps: float, ws,
           residual: Optional[torch.Tensor] = None, keep: bool = False):
     """The cached forward's RMSNorm of x (+ residual) for the products
-    `ws`, one ``rms_norm_q80`` launch -> (h, the normed activation: a
-    ``Q80Act`` where ``_q80_group`` asks for one, else a tensor, and the
-    normed tensor where that is the tensor or `keep` asks for it too, as
-    a LoRA branch beside a W8A8 product does; else None)."""
+    `ws`, one ``rms_norm_q80`` or ``rms_norm_q4k`` launch -> (h, the
+    normed activation: a ``Q4KAct`` where the products are Q4K
+    (``_q4k_out``), a ``Q80Act`` where ``_q80_group`` asks for one, else a
+    tensor, and the normed tensor where that is the tensor or `keep` asks
+    for it too, as a LoRA branch beside a quantized product does; else
+    None)."""
+    if _q4k_out(ws):
+        h, hn, act = rms_norm_q4k(x, weight, eps, residual, want_hn=keep)
+        return h, act, hn
     gs = _q80_group(ws, x.numel() // x.shape[-1])
     h, hn, act = rms_norm_q80(x, weight, eps, residual, gs,
                               want_hn=keep or not gs)
@@ -141,7 +158,8 @@ def _norm(x: torch.Tensor, weight: torch.Tensor, eps: float, ws,
 def _dense(x, w, dtype) -> torch.Tensor:
     """x @ w in the compute dtype.  Dense weights are (in, out); Q80
     weights keep the file's (out, in) rows and run the Q80 kernels (x may
-    be a ``Q80Act`` for a W8A8 one), Q4K weights the Q4K kernels."""
+    be a ``Q80Act`` for a W8A8 one), Q4K weights the Q4K kernels (x may be
+    a ``Q4KAct``)."""
     if isinstance(w, Q80Tensor):
         return q80_matmul(x, w, dtype)
     if isinstance(w, Q4KTensor):
@@ -347,7 +365,8 @@ def _qkv(x: torch.Tensor, layer: Params, cfg: ModelConfig,
          xt: Optional[torch.Tensor] = None, layer_idx: Optional[int] = None
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The attention prologue: projections (fused or not), the LoRA deltas
-    on q, k and v (from `xt`, the normed tensor, where x is a ``Q80Act``),
+    on q, k and v (from `xt`, the normed tensor, where x is a ``Q80Act``
+    or a ``Q4KAct``),
     biases, per-head qk-norm and RoPE.  x (B, S, E) -> q (B, S, H, D),
     k / v (B, S, KV, D).  With `layer_idx` (the cached forward) q is
     observed after the projection and after RoPE."""
@@ -530,14 +549,18 @@ def feed_forward(x: torch.Tensor, layer: Params, dtype,
 
 def feed_forward_cached(x, layer: Params, dtype, tp=None) -> torch.Tensor:
     """SwiGLU of the cached forward: w2(silu(w1 x) * w3 x) with the
-    silu-product one ``swiglu_q80`` launch, which also quantizes it for a
-    W8A8 w2 fed more than one row (``_q80_group``); `tp` as in
-    ``feed_forward``."""
+    silu-product one ``swiglu_q4k`` launch for a Q4K w2 (its Q4K integer
+    form, at any row count), else one ``swiglu_q80`` launch, which also
+    quantizes it for a W8A8 w2 fed more than one row (``_q80_group``);
+    `tp` as in ``feed_forward``."""
     if "w13" in layer:
         h13 = _dense(x, layer["w13"], dtype)
     else:
         h13 = torch.cat([_dense(x, layer["w1"], dtype),
                          _dense(x, layer["w3"], dtype)], dim=-1)
+    if _q4k_out([layer["w2"]]):
+        return _row(swiglu_q4k(h13, want_hidden=False)[1], layer["w2"], dtype,
+                    tp, "ffn")
     gs = _q80_group([layer["w2"]], h13.numel() // h13.shape[-1])
     hidden, act = swiglu_q80(h13, gs, want_hidden=not gs)
     return _row(act if gs else hidden, layer["w2"], dtype, tp, "ffn")
@@ -573,8 +596,9 @@ def block(x: torch.Tensor, layer: Params, cfg: ModelConfig, cos, sin, mask,
     """Pre-norm residual block of the cached forward (`start_pos`, `pos_t`,
     the adapter and `layer_idx` as in ``attention``).  The attention norm,
     the residual add with the FFN norm, and SwiGLU are one kernel each, which
-    also write the Q80 quantization of their output where the product they
-    feed takes it (``_q80_group``; with an adapter the attention norm
+    also write the Q80 or Q4K quantization of their output where the
+    product they feed takes it (``_q80_group``, ``_q4k_out``; with an
+    adapter the attention norm
     writes the normed tensor beside it, which the LoRA branch reads); the
     last residual add stays one eager add.  Under tensor parallelism
     (``_tp``) the attention and FFN outputs are the sums over the model

@@ -10,9 +10,9 @@ the same flags is reused.
 
 IEEE division and square root, and denormals, are required
 (``q80_act_quant``, ``q80_matvec_fq``, ``rms_norm_q80``, ``swiglu_q80``,
-``q4k_fake_quant`` and ``q4k_act_quant`` must reproduce the JAX package's
-integer decisions bit for bit), so the flags never include
-``--use_fast_math``.
+``rms_norm_q4k``, ``swiglu_q4k``, ``q4k_fake_quant`` and ``q4k_act_quant``
+must reproduce the JAX package's integer decisions bit for bit), so the
+flags never include ``--use_fast_math``.
 """
 
 from __future__ import annotations
@@ -53,12 +53,19 @@ SIGNATURES = {
     "rms_norm_q80": ([P, P, P, P, P, P, P, I, I, I, F, I, I, I, I, P],
                      "norm_quant"),
     "swiglu_q80": ([P, P, P, P, I, I, I, I, I, I, I, P], "norm_quant"),
+    "norm_quant_init": ([], "norm_quant"),
+    "rms_norm_q4k": ([P, P, P, P, P, P, P, P, P, I, I, I, F, I, I, I, P],
+                     "norm_quant"),
+    "swiglu_q4k": ([P, P, P, P, P, P, I, I, I, I, I, I, P], "norm_quant"),
     "decode_attention": ([P, P, P, P, P, P, I, P, P, P, I, Q, I, I, I, I, I,
                           I, F, I, I, P], "decode_attn"),
     "decode_attention_part_stride": ([I, I], "decode_attn"),
     "q4k_fake_quant": ([P, I, P, I, I, I, P], "q4k"),
     "q4k_matmul": ([P, P, P, P, P, I, I, I, I, I, P], "q4k"),
-    "q4k_matvec_fq": ([P, I, P, P, P, P, I, I, I, I, P], "q4k"),
+    "q4k_matvec_fq": ([P, P, P, P, P, P, P, I, P, I, I, I, I, I, I, I, I, P],
+                      "q4k"),
+    "q4k_matvec_fq_init": ([], "q4k"),
+    "q4k_fast_div_check": ([P, P, I, P, P, P, P], "q4k"),
     "q4k_act_quant": ([P, I, P, P, P, P, I, I, I, P], "q4k"),
     "q4k_matmul_w4a4_init": ([], "q4k"),
     "q4k_matmul_w4a4": ([*[P] * 8, I, I, I, I, I, I, I, I, I, P], "q4k"),

@@ -24,6 +24,8 @@ COUNTERS: Tuple[Tuple[object, str, str], ...] = (
     (qmatmul, "q80_matvec_fq", "launches"),
     (norm_quant, "rms_norm_q80", "launches"),
     (norm_quant, "swiglu_q80", "launches"),
+    (norm_quant, "rms_norm_q4k", "launches"),
+    (norm_quant, "swiglu_q4k", "launches"),
     (decode_attn, "decode_attention", "launches"),
     (q4k, "fake_quant_act", "launches"),
     (q4k, "q4k_matmul_f32", "launches"),

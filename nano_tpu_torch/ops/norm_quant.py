@@ -1,5 +1,6 @@
 """The cached forward's RMSNorm (with the residual add before it) and
-SwiGLU, each with the Q80 quantization of its output as an epilogue.
+SwiGLU, each with the Q80 or the Q4K quantization of its output as an
+epilogue.
 
 Port of the XLA fusions around the TPU kernel K1 (``_q80_kernel``,
 ``nano_tpu/ops/qmatmul.py``): ``rms_norm`` and ``block``'s ``x + a``
@@ -9,11 +10,17 @@ output.  On the card each is one kernel (``csrc/norm_quant.cu``) that
 writes its output in the activation dtype and, when asked
 (``group_size`` > 0), also the ``Q80Act`` that a W8A8 product takes
 instead of launching ``q80_act_quant`` on it: the same integer decisions.
+``rms_norm_q4k`` and ``swiglu_q4k`` are the same kernels with the Q4K
+epilogue instead (the JAX package's ``act_quant_q4k``,
+``nano_tpu/ops/q4k.py``, which ``fake_quant_act`` applies before every
+Q4K product): the ``Q4KAct`` that ``q4k_matvec_fq`` (one row) and
+``q4k_matmul_w4a4`` (more) take instead of launching ``q4k_act_quant``.
 
 Each wrapper runs its kernel for CUDA tensors and its plain PyTorch
-version (``*_plain``: the eager ops, then ``act_quant_q80_plain``) only
-for tensors on the CPU.  ``<wrapper>.launches`` counts kernel launches.
-The kernels have no backward: the training forward keeps the eager ops.
+version (``*_plain``: the eager ops, then ``act_quant_q80_plain`` or
+``act_quant_q4k_packed_plain``) only for tensors on the CPU.
+``<wrapper>.launches`` counts kernel launches.  The kernels have no
+backward: the training forward keeps the eager ops.
 """
 
 from __future__ import annotations
@@ -23,13 +30,19 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from nano_tpu_torch.ops import _build
+from nano_tpu_torch.ops import _build, int8_mma
+from nano_tpu_torch.ops.q4k import (BLOCK_LEN, GROUP_LEN, Q4KAct,
+                                    act_quant_q4k_packed_plain,
+                                    n_blocks_per_line)
 from nano_tpu_torch.ops.qmatmul import Q80Act, act_quant_q80_plain
 
 _TYPES = (torch.float32, torch.bfloat16)
 VALUES_PER_THREAD = 4       # a thread's chunk of a row (csrc/norm_quant.cu)
 MAX_THREADS = 1024
 PASSES = (1, 2, 4, 8, 16)   # the kernels' instances
+# the widest row the Q4K epilogue takes: the row as f32 in a block's
+# dynamic shared memory (csrc/norm_quant.cu: kMaxRowSmem)
+MAX_Q4K_ROW = 229376 // 4
 
 
 # =====================================================================
@@ -71,6 +84,27 @@ def swiglu_q80_plain(h13: torch.Tensor, group_size: int = 0,
     return y if want_hidden else None, _act(y, group_size)
 
 
+def _act_q4k(y: torch.Tensor) -> Q4KAct:
+    return Q4KAct(*act_quant_q4k_packed_plain(y.reshape(-1, y.shape[-1])),
+                  y.shape)
+
+
+def rms_norm_q4k_plain(x: torch.Tensor, weight: torch.Tensor, eps: float,
+                       residual: Optional[torch.Tensor] = None,
+                       want_hn: bool = True):
+    """What ``rms_norm_q4k`` computes, in plain PyTorch: h = x + residual,
+    hn = rms_norm(h), and hn's Q4KAct."""
+    h, hn, _ = rms_norm_q80_plain(x, weight, eps, residual)
+    return h, hn if want_hn else None, _act_q4k(hn)
+
+
+def swiglu_q4k_plain(h13: torch.Tensor, want_hidden: bool = True):
+    """What ``swiglu_q4k`` computes, in plain PyTorch: silu(h1) * h3 of
+    h13 = [h1 | h3], and its Q4KAct."""
+    y, _ = swiglu_q80_plain(h13)
+    return y if want_hidden else None, _act_q4k(y)
+
+
 # =====================================================================
 # kernel wrappers
 # =====================================================================
@@ -107,6 +141,17 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _outputs_q4k(B: int, n: int, device):
+    if n > MAX_Q4K_ROW:
+        raise ValueError(f"the Q4K epilogue takes rows of at most "
+                         f"{MAX_Q4K_ROW} values, got {n}")
+    n_pad = n_blocks_per_line(n) * BLOCK_LEN
+    vp = torch.empty((B, n_pad // 2), dtype=torch.uint8, device=device)
+    sa, ba, c = (torch.empty((B, n_pad // GROUP_LEN), dtype=torch.float32,
+                             device=device) for _ in range(3))
+    return vp, sa, ba, c
+
+
 def _outputs(B: int, n: int, group_size: int, device):
     if not group_size:
         return None, None
@@ -114,6 +159,31 @@ def _outputs(B: int, n: int, group_size: int, device):
                      device=device)
     sa = torch.empty((B, n // group_size), dtype=torch.float32, device=device)
     return xq, sa
+
+
+def _norm_args(name: str, x: torch.Tensor, weight: torch.Tensor,
+               residual: Optional[torch.Tensor], want_hn: bool):
+    """The checked inputs and the outputs of a norm kernel's launch ->
+    (T, P, x2, a2, w, h, hn, vec): x and the residual as (B, E) rows, the
+    f32 weight, h (with a residual) and hn (where wanted) to write, and
+    whether every row is aligned to 4 values."""
+    E = x.shape[-1]
+    if (x.dtype not in _TYPES or weight.shape != (E,)
+            or (residual is not None and (residual.shape != x.shape
+                                          or residual.dtype != x.dtype))):
+        raise ValueError(f"{name} takes f32/bf16 (..., E) x, a "
+                         f"residual like it and an (E,) weight, got x "
+                         f"{x.dtype} {tuple(x.shape)}, weight "
+                         f"{tuple(weight.shape)}, residual "
+                         f"{None if residual is None else tuple(residual.shape)}")
+    T, P = plan(E)
+    x2 = x.reshape(-1, E).contiguous()
+    a2 = None if residual is None else residual.reshape(-1, E).contiguous()
+    w = weight.float().contiguous()
+    h = None if a2 is None else torch.empty_like(x2)
+    hn = torch.empty_like(x2) if want_hn else None
+    vec = _aligned(*(t for t in (x2, a2, h, hn, w) if t is not None))
+    return T, P, x2, a2, w, h, hn, vec
 
 
 def rms_norm_q80(x: torch.Tensor, weight: torch.Tensor, eps: float,
@@ -126,38 +196,40 @@ def rms_norm_q80(x: torch.Tensor, weight: torch.Tensor, eps: float,
     if x.device.type == "cpu":
         return rms_norm_q80_plain(x, weight, eps, residual, group_size,
                                   want_hn)
-    E = x.shape[-1]
-    if (x.dtype not in _TYPES or weight.shape != (E,)
-            or (residual is not None and (residual.shape != x.shape
-                                          or residual.dtype != x.dtype))):
-        raise ValueError(f"rms_norm_q80 takes f32/bf16 (..., E) x, a "
-                         f"residual like it and an (E,) weight, got x "
-                         f"{x.dtype} {tuple(x.shape)}, weight "
-                         f"{tuple(weight.shape)}, residual "
-                         f"{None if residual is None else tuple(residual.shape)}")
-    T, P = plan(E)
+    T, P, x2, a2, w, h, hn, vec = _norm_args("rms_norm_q80", x, weight,
+                                             residual, want_hn)
+    B, E = x2.shape
     _check_group(E, group_size, T)
-    lead = x.shape
-    x2 = x.reshape(-1, E).contiguous()
-    B = x2.shape[0]
-    a2 = None if residual is None else residual.reshape(-1, E).contiguous()
-    w = weight.float().contiguous()
-    h = None if a2 is None else torch.empty_like(x2)
-    hn = torch.empty_like(x2) if want_hn else None
     xq, sa = _outputs(B, E, group_size, x.device)
-    vec = _aligned(*(t for t in (x2, a2, h, hn, w) if t is not None))
     fn = _build.lib("norm_quant").rms_norm_q80
     rc = fn(x2.data_ptr(), _ptr(a2), w.data_ptr(), _ptr(h), _ptr(hn),
             _ptr(xq), _ptr(sa), int(x.dtype == torch.bfloat16), B, E, eps,
             group_size, T, P, int(vec), _build.stream(x2))
     rms_norm_q80.launches += 1
     _build.check(rc, "rms_norm_q80")
+    lead = x.shape
     return (None if h is None else h.reshape(lead),
             None if hn is None else hn.reshape(lead),
             None if xq is None else Q80Act(xq, sa, lead))
 
 
 rms_norm_q80.launches = 0
+
+
+def _swiglu_args(name: str, h13: torch.Tensor, want_hidden: bool):
+    """The checked input and the output of a SwiGLU kernel's launch ->
+    (T, P, x2, y, vec, lead): h13 as (B, 2F) rows, y (B, F) where wanted,
+    whether every row is aligned to 4 values, and the output's shape."""
+    if h13.dtype not in _TYPES or h13.shape[-1] % 2:
+        raise ValueError(f"{name} takes f32/bf16 (..., 2F), got "
+                         f"{h13.dtype} {tuple(h13.shape)}")
+    Fh = h13.shape[-1] // 2
+    T, P = plan(Fh)
+    x2 = h13.reshape(-1, 2 * Fh).contiguous()
+    y = (torch.empty((x2.shape[0], Fh), dtype=h13.dtype, device=h13.device)
+         if want_hidden else None)
+    vec = _aligned(*(t for t in (x2[:, :Fh], y) if t is not None))
+    return T, P, x2, y, vec, torch.Size((*h13.shape[:-1], Fh))
 
 
 def swiglu_q80(h13: torch.Tensor, group_size: int = 0,
@@ -168,19 +240,10 @@ def swiglu_q80(h13: torch.Tensor, group_size: int = 0,
     card."""
     if h13.device.type == "cpu":
         return swiglu_q80_plain(h13, group_size, want_hidden)
-    if h13.dtype not in _TYPES or h13.shape[-1] % 2:
-        raise ValueError(f"swiglu_q80 takes f32/bf16 (..., 2F), got "
-                         f"{h13.dtype} {tuple(h13.shape)}")
-    Fh = h13.shape[-1] // 2
-    T, P = plan(Fh)
+    T, P, x2, y, vec, lead = _swiglu_args("swiglu_q80", h13, want_hidden)
+    B, Fh = x2.shape[0], lead[-1]
     _check_group(Fh, group_size, T)
-    lead = (*h13.shape[:-1], Fh)
-    x2 = h13.reshape(-1, 2 * Fh).contiguous()
-    B = x2.shape[0]
-    y = (torch.empty((B, Fh), dtype=h13.dtype, device=h13.device)
-         if want_hidden else None)
     xq, sa = _outputs(B, Fh, group_size, h13.device)
-    vec = _aligned(*(t for t in (x2[:, :Fh], y) if t is not None))
     fn = _build.lib("norm_quant").swiglu_q80
     rc = fn(x2.data_ptr(), _ptr(y), _ptr(xq), _ptr(sa),
             int(h13.dtype == torch.bfloat16), B, Fh, group_size, T, P,
@@ -188,7 +251,60 @@ def swiglu_q80(h13: torch.Tensor, group_size: int = 0,
     swiglu_q80.launches += 1
     _build.check(rc, "swiglu_q80")
     return (None if y is None else y.reshape(lead),
-            None if xq is None else Q80Act(xq, sa, torch.Size(lead)))
+            None if xq is None else Q80Act(xq, sa, lead))
 
 
 swiglu_q80.launches = 0
+
+
+def rms_norm_q4k(x: torch.Tensor, weight: torch.Tensor, eps: float,
+                 residual: Optional[torch.Tensor] = None,
+                 want_hn: bool = True):
+    """x (..., E) f32/bf16 [+ residual] -> (h, hn, act): h and hn as
+    ``rms_norm_q80`` gives them, act the Q4KAct of hn (its integer form,
+    ``act_quant_q4k_packed``'s bits); kernel ``rms_norm_q4k`` on the card
+    (``rms_norm_q80``'s with the Q4K epilogue)."""
+    if x.device.type == "cpu":
+        return rms_norm_q4k_plain(x, weight, eps, residual, want_hn)
+    T, P, x2, a2, w, h, hn, vec = _norm_args("rms_norm_q4k", x, weight,
+                                             residual, want_hn)
+    B, E = x2.shape
+    vp, sa, ba, c = _outputs_q4k(B, E, x.device)
+    int8_mma.init(x.device, "norm_quant_init")
+    fn = _build.lib("norm_quant").rms_norm_q4k
+    rc = fn(x2.data_ptr(), _ptr(a2), w.data_ptr(), _ptr(h), _ptr(hn),
+            vp.data_ptr(), sa.data_ptr(), ba.data_ptr(), c.data_ptr(),
+            int(x.dtype == torch.bfloat16), B, E, eps, T, P, int(vec),
+            _build.stream(x2))
+    rms_norm_q4k.launches += 1
+    _build.check(rc, "rms_norm_q4k")
+    lead = x.shape
+    return (None if h is None else h.reshape(lead),
+            None if hn is None else hn.reshape(lead),
+            Q4KAct(vp, sa, ba, c, lead))
+
+
+rms_norm_q4k.launches = 0
+
+
+def swiglu_q4k(h13: torch.Tensor, want_hidden: bool = True):
+    """h13 (..., 2F) f32/bf16 = [h1 | h3] -> (hidden, act): hidden as
+    ``swiglu_q80`` gives it, act its Q4KAct; kernel ``swiglu_q4k`` on the
+    card (``swiglu_q80``'s with the Q4K epilogue)."""
+    if h13.device.type == "cpu":
+        return swiglu_q4k_plain(h13, want_hidden)
+    T, P, x2, y, vec, lead = _swiglu_args("swiglu_q4k", h13, want_hidden)
+    B, Fh = x2.shape[0], lead[-1]
+    vp, sa, ba, c = _outputs_q4k(B, Fh, h13.device)
+    int8_mma.init(h13.device, "norm_quant_init")
+    fn = _build.lib("norm_quant").swiglu_q4k
+    rc = fn(x2.data_ptr(), _ptr(y), vp.data_ptr(), sa.data_ptr(),
+            ba.data_ptr(), c.data_ptr(), int(h13.dtype == torch.bfloat16),
+            B, Fh, T, P, int(vec), _build.stream(x2))
+    swiglu_q4k.launches += 1
+    _build.check(rc, "swiglu_q4k")
+    return (None if y is None else y.reshape(lead),
+            Q4KAct(vp, sa, ba, c, lead))
+
+
+swiglu_q4k.launches = 0

@@ -23,11 +23,14 @@ that quantize->dequantize with the same rounding, bit for bit, and
 ``v*s - b`` and an f32 dot.  Unlike the TPU, the card needs no
 activation permutation (``_permute_act``): a lane reads a whole group.
 
-``q4k_matvec_fq`` does both for one activation row (a decode step) in
-one kernel.  More rows (a batched step, a prefill) keep the activation's
-quantization as integers (``act_quant_q4k_packed``, the values packed in
-the weights' layout) and take the C engine's integer expansion of the
-product on the int8 tensor cores (``q4k_matmul_w4a4``; the JAX package's
+The activation's quantization is kept as integers (``Q4KAct``:
+``act_quant_q4k_packed``, the values packed in the weights' layout),
+written by the norm or SwiGLU kernel that makes the activation
+(``ops/norm_quant.py``) or by ``q4k_act_quant``.  One row (a decode step)
+takes ``q4k_matvec_fq``, which rebuilds the fake-quantized row from it
+and takes ``_q4k_kernel``'s f32 dot; more rows (a batched step, a
+prefill) the C engine's integer expansion of the product on the int8
+tensor cores (``q4k_matmul_w4a4``; the JAX package's
 ``q4k_matmul_int8``).  Each wrapper runs its hand-written CUDA kernel
 (``csrc/q4k.cu``) for CUDA tensors and its plain PyTorch version
 (``*_plain``) only for tensors on the CPU.  ``<wrapper>.launches`` counts
@@ -315,6 +318,37 @@ class Q4KTensor:
                        biases=self.biases[ids]).dequantize(dtype)
 
 
+@dataclass
+class Q4KAct:
+    """An activation (..., n) in its Q4K integer form, as
+    ``act_quant_q4k_packed`` writes it: by ``q4k_act_quant`` or by the
+    norm or SwiGLU kernel that produced the activation
+    (``ops/norm_quant.py``).
+
+    vp:         uint8 (B, n_pad // 2), the values packed in the weights'
+                layout (0 at positions >= n)
+    sa, ba, c:  f32 (B, n_pad // 32), s_eff, b_eff and sa * A - n_g * ba
+                of each group
+    shape:      the activation's shape (..., n), B rows
+    """
+    vp: torch.Tensor
+    sa: torch.Tensor
+    ba: torch.Tensor
+    c: torch.Tensor
+    shape: torch.Size
+
+    @property
+    def rows(self) -> int:
+        return self.vp.shape[0]
+
+    @property
+    def in_dim(self) -> int:
+        return self.shape[-1]
+
+    def parts(self) -> Tuple[torch.Tensor, ...]:
+        return self.vp, self.sa, self.ba, self.c
+
+
 # =====================================================================
 # plain PyTorch versions (CPU path; on the card only for comparisons)
 # =====================================================================
@@ -393,6 +427,19 @@ def fake_quant_act_plain(x2d: torch.Tensor) -> torch.Tensor:
     v, s_eff, b_eff = act_quant_q4k_plain(x2d)
     deq = (v.float() * s_eff[..., None] - b_eff[..., None]).reshape(B, -1)
     keep = torch.arange(deq.shape[1], device=deq.device) < n
+    return torch.where(keep, deq, _const(0.0, deq))
+
+
+def fake_quant_packed_plain(act: Q4KAct) -> torch.Tensor:
+    """The fake-quantized activation (B, n_pad) f32 rebuilt from its
+    integer form: v * sa - ba, the product and the difference each
+    rounded, 0 at positions >= n; bit-equal to ``fake_quant_act_plain``
+    of the activation the form was made from."""
+    B, G = act.sa.shape
+    p = act.vp.reshape(B, G, GROUP_LEN // 2)
+    v = torch.cat([p & 0x0F, p >> 4], dim=-1).float()
+    deq = (v * act.sa[..., None] - act.ba[..., None]).reshape(B, -1)
+    keep = torch.arange(deq.shape[1], device=deq.device) < act.in_dim
     return torch.where(keep, deq, _const(0.0, deq))
 
 
@@ -538,35 +585,112 @@ def q4k_matmul_f32(xq: torch.Tensor, w: Q4KTensor,
 q4k_matmul_f32.launches = 0
 
 
-def q4k_matvec_fq_plain(x2d: torch.Tensor, w: Q4KTensor,
-                        dtype=torch.bfloat16) -> torch.Tensor:
-    """What ``q4k_matvec_fq`` computes, in plain PyTorch: the activation
-    fake-quant, then the f32 dequant dot."""
-    return q4k_matmul_plain(fake_quant_act_plain(x2d), w, dtype)
+# q4k_matvec_fq's work split: lanes a row at most (a block's threads), the
+# ring's stages at most, the shared memory a block may take so that two fit
+# on an SM (of the H100's 227 KB), and the longest padded row it takes
+# (csrc/q4k.cu: kMvThreads, kMvMaxStages, kMvMaxGroups).
+MATVEC_THREADS = 256
+MATVEC_MAX_STAGES = 16
+MATVEC_SMEM = 112 * 1024
+MAX_MATVEC_PAD = 32768
+# q4k_matvec_fq is launched as a programmatic dependent of the kernel before
+# it (its weights streamed while that kernel still runs): chip_smoke.py
+# bench q4k measures it with and without
+MATVEC_PDL = True
 
 
-def q4k_matvec_fq(x2d: torch.Tensor, w: Q4KTensor, dtype=torch.bfloat16
-                  ) -> torch.Tensor:
-    """One raw activation row x2d (1, in_dim) f32/bf16 x w -> (1, out) in
-    `dtype`: ``fake_quant_act`` then ``q4k_matmul_f32`` in one kernel,
-    ``q4k_matvec_fq`` on the card, equal to the two kernels bit for bit."""
-    if x2d.device.type == "cpu":
-        return q4k_matvec_fq_plain(x2d, w, dtype)
-    if (x2d.dim() != 2 or x2d.shape != (1, w.in_dim)
-            or x2d.dtype not in _OUT_TYPES):
-        raise ValueError(f"q4k_matvec_fq takes an f32/bf16 (1, {w.in_dim}), "
-                         f"got {x2d.dtype} {tuple(x2d.shape)}")
-    _check_weight(w, x2d.device, dtype)
-    x2d = x2d.contiguous()
-    y = torch.empty((1, w.out_dim), dtype=dtype, device=x2d.device)
+def matvec_smem(R: int, n_pad: int, S: int) -> int:
+    """Shared memory of a q4k_matvec_fq block (csrc/q4k.cu:mv4_smem): the
+    barriers and the partial sums (256 bytes), S stages of R packed rows
+    with their scales and biases (each with a 16-byte pad, rounded to
+    16)."""
+    buf = lambda n: (n + 31) & ~15
+    G = n_pad // GROUP_LEN
+    return 256 + S * (R * n_pad // 2 + 2 * buf(R * G * 4))
+
+
+def matvec_plan(N: int, n_pad: int, n_sm: int = _build.H100_SMS
+                ) -> Tuple[int, int, int, int]:
+    """-> (blocks, R, S, T) of ``q4k_matvec_fq``: block b takes rows
+    [N b / blocks, N (b + 1) / blocks) in tiles of R rows round a ring of S
+    stages filled by bulk copy, T lanes a row.  From shapes alone, never
+    from a value on the device (so a launch can be captured in a CUDA
+    graph): T the least number of whole warps that gives every lane one
+    32-group of a row (at most MATVEC_THREADS, and then a lane takes up to
+    4), so that 256 // T rows make a pass of the block; up to two blocks an
+    SM, so that the 1024-row products spread over every SM; a tile one pass
+    of rows; as many stages as the block has tiles, up to
+    MATVEC_MAX_STAGES and within MATVEC_SMEM, all issued before the first
+    is consumed."""
+    G = n_pad // GROUP_LEN
+    T = min(MATVEC_THREADS, -(-G // 32) * 32)
+    R = MATVEC_THREADS // T
+    blocks = max(1, min(2 * n_sm, -(-N // R)))
+    per_block = -(-N // blocks)
+    S = min(MATVEC_MAX_STAGES, -(-per_block // R))
+    while S > 1 and matvec_smem(R, n_pad, S) > MATVEC_SMEM:
+        S -= 1
+    return blocks, R, S, T
+
+
+def q4k_matvec_fq_plain(x, w: Q4KTensor, dtype=torch.bfloat16
+                        ) -> torch.Tensor:
+    """What ``q4k_matvec_fq`` computes, in plain PyTorch: the f32 dequant
+    dot of the fake-quantized row, from a raw row or its ``Q4KAct``."""
+    xf = (fake_quant_packed_plain(x) if isinstance(x, Q4KAct)
+          else fake_quant_act_plain(x))
+    return q4k_matmul_plain(xf, w, dtype)
+
+
+def q4k_matvec_fq(x, w: Q4KTensor, dtype=torch.bfloat16,
+                  with_act: bool = False):
+    """One activation row x w -> (1, out) in `dtype`: the f32 dot of the
+    fake-quantized row with the dequantized weight (the function of the
+    TPU kernel ``_q4k_kernel``), kernel ``q4k_matvec_fq`` on the card.  x
+    is the row's ``Q4KAct`` (a norm's or SwiGLU's Q4K output), or the raw
+    row (1, in_dim) f32/bf16, which ``act_quant_q4k_packed`` quantizes
+    first (``q4k_act_quant``: two launches).  The kernel rebuilds the
+    fake-quantized values v * sa - ba from the integer form, the bits of
+    ``fake_quant_act``; with_act=True also returns them, (1, n_pad) f32 as
+    the kernel rebuilt them."""
+    act = x
+    if not isinstance(x, Q4KAct):
+        if (x.dim() != 2 or x.shape != (1, w.in_dim)
+                or x.dtype not in _OUT_TYPES):
+            raise ValueError(f"q4k_matvec_fq takes an f32/bf16 (1, "
+                             f"{w.in_dim}), got {x.dtype} {tuple(x.shape)}")
+        act = Q4KAct(*act_quant_q4k_packed(x), x.shape)
+    dev = act.vp.device
+    if dev.type == "cpu":
+        xf = fake_quant_packed_plain(act)
+        y = q4k_matmul_plain(xf, w, dtype)
+        return (y, xf) if with_act else y
+    _check_weight(w, dev, dtype)
+    G = w.n_pad // GROUP_LEN
+    if (act.rows != 1 or act.in_dim != w.in_dim or w.n_pad > MAX_MATVEC_PAD
+            or act.vp.shape != (1, w.n_pad // 2) or act.vp.dtype != torch.uint8
+            or not act.vp.is_contiguous() or act.vp.data_ptr() % 16
+            or any(t.dtype != torch.float32 or t.shape != (1, G)
+                   or not t.is_contiguous() or t.device != dev
+                   for t in (act.sa, act.ba))):
+        raise ValueError(f"q4k_matvec_fq takes one row's Q4KAct of "
+                         f"{w.in_dim} values (n_pad {w.n_pad}, at most "
+                         f"{MAX_MATVEC_PAD}), got vp {tuple(act.vp.shape)}, "
+                         f"sa {tuple(act.sa.shape)}, in_dim {act.in_dim}")
+    int8_mma.init(dev, "q4k_matvec_fq_init")
+    y = torch.empty((1, w.out_dim), dtype=dtype, device=dev)
+    xf = (torch.empty((1, w.n_pad), dtype=torch.float32, device=dev)
+          if with_act else None)
+    plan = matvec_plan(w.out_dim, w.n_pad, _build.sm_count(dev))
     fn = _build.lib("q4k").q4k_matvec_fq
-    rc = fn(x2d.data_ptr(), int(x2d.dtype == torch.bfloat16),
+    rc = fn(act.vp.data_ptr(), act.sa.data_ptr(), act.ba.data_ptr(),
             w.packed.data_ptr(), w.scales.data_ptr(), w.biases.data_ptr(),
-            y.data_ptr(), int(dtype == torch.bfloat16), w.n_pad, w.in_dim,
-            w.out_dim, _build.stream(x2d))
+            y.data_ptr(), int(dtype == torch.bfloat16),
+            None if xf is None else xf.data_ptr(), w.n_pad, w.in_dim,
+            w.out_dim, *plan, int(MATVEC_PDL), _build.stream(act.vp))
     q4k_matvec_fq.launches += 1
     _build.check(rc, "q4k_matvec_fq")
-    return y
+    return (y, xf) if with_act else y
 
 
 q4k_matvec_fq.launches = 0
@@ -659,21 +783,28 @@ def q4k_matmul_w4a4(vp: torch.Tensor, sa: torch.Tensor, ba: torch.Tensor,
 q4k_matmul_w4a4.launches = 0
 
 
-def q4k_matmul(x: torch.Tensor, w: Q4KTensor, dtype=torch.bfloat16
-               ) -> torch.Tensor:
+def q4k_matmul(x, w: Q4KTensor, dtype=torch.bfloat16) -> torch.Tensor:
     """x (..., in) -> (..., out) in `dtype`: the activation's Q4K
-    quantization, then the product.  One row (a decode step) takes the
-    kernel that does both, the f32 dequant dot of the fake-quantized row;
-    more rows (a batched step, a prefill) take two: ``q4k_act_quant``, then
-    ``q4k_matmul_w4a4`` on the int8 tensor cores, the C engine's integer
-    expansion of the same product (the same quantization decisions; f32
-    sums in another order)."""
+    quantization, then the product.  x is a tensor or its ``Q4KAct``
+    (quantized by the kernel that produced it).  One row (a decode step)
+    takes ``q4k_matvec_fq``, the f32 dequant dot of the fake-quantized row;
+    more rows (a batched step, a prefill) ``q4k_matmul_w4a4`` on the int8
+    tensor cores, the C engine's integer expansion of the same product (the
+    same quantization decisions; f32 sums in another order).  A tensor is
+    quantized first (``q4k_act_quant``)."""
     if w.packed.dim() != 2:
         raise ValueError("index stacked weights with Q4KTensor.layer(i)")
     lead = x.shape[:-1]
-    x2d = x.reshape(-1, w.in_dim)
-    if x2d.shape[0] == 1:
-        y = q4k_matvec_fq(x2d, w, dtype)
+    if isinstance(x, Q4KAct):
+        if x.in_dim != w.in_dim:
+            raise ValueError(f"activation of {x.in_dim} values for a weight "
+                             f"of {w.in_dim}")
+        act = x
     else:
-        y = q4k_matmul_w4a4(*act_quant_q4k_packed(x2d), w, dtype)
+        x2d = x.reshape(-1, w.in_dim)
+        if x2d.shape[0] == 1:
+            return q4k_matvec_fq(x2d, w, dtype).reshape(*lead, w.out_dim)
+        act = Q4KAct(*act_quant_q4k_packed(x2d), x2d.shape)
+    y = (q4k_matvec_fq(act, w, dtype) if act.rows == 1
+         else q4k_matmul_w4a4(*act.parts(), w, dtype))
     return y.reshape(*lead, w.out_dim)

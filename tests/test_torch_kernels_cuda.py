@@ -533,6 +533,48 @@ def _act_rows(rng, B, n):
 
 
 @pytest.mark.cuda
+def test_q4k_fast_division_is_ieee_where_it_says_so():
+    """The Q4K quantization's divisions (csrc/q4k_quant.cuh:FastDiv, the
+    reciprocal fast path of __fdiv_rn written out) against __fdiv_rn over
+    2^24 random pairs of every exponent (and the quantization's own:
+    dividends near integer multiples of the divisor, the divisors 15 and
+    63): bit-equal wherever FastDiv calls the pair exact, and it calls
+    exact every pair whose operands are 0 or normal within 2^-60 .. 2^60."""
+    _need_card()
+    from nano_tpu_torch.ops import _build
+    lib = _build.lib("q4k")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    n = 1 << 24
+    bits = torch.randint(-(1 << 31), 1 << 31, (2, n), device="cuda",
+                         generator=g, dtype=torch.int64).to(torch.int32)
+    a, b = bits.view(torch.float32)          # every exponent, both signs
+    b = b.abs()
+    m = torch.rand(n, device="cuda", generator=g)
+    k = torch.randint(0, 16, (n,), device="cuda", generator=g).float()
+    s = torch.exp2(torch.randint(-40, 40, (n,), device="cuda",
+                                 generator=g).float()) * (1 + m)
+    tie = (k + 0.5) * s * (1 + (m - 0.5) * 2 ** -22)   # near half-integers
+    for aa, bb in ((a, b), (tie, s), (m * 37, torch.full_like(m, 15.0)),
+                   (m * 37, torch.full_like(m, 63.0)),
+                   (torch.zeros_like(m), s)):
+        aa, bb = aa.contiguous(), bb.contiguous()
+        fast, ieee = torch.empty_like(aa), torch.empty_like(aa)
+        exact = torch.empty(n, dtype=torch.int32, device="cuda")
+        assert lib.q4k_fast_div_check(aa.data_ptr(), bb.data_ptr(), n,
+                                      fast.data_ptr(), ieee.data_ptr(),
+                                      exact.data_ptr(),
+                                      torch.cuda.current_stream().cuda_stream) == 0
+        torch.cuda.synchronize()
+        ok = exact.bool()
+        moderate = lambda t: (t == 0) | ((t.abs() >= 2.0 ** -60)
+                                         & (t.abs() < 2.0 ** 61))
+        finite_b = bb > 0
+        assert bool((ok == (moderate(aa) & moderate(bb))).all())
+        assert torch.equal(fast[ok & finite_b].view(torch.int32),
+                           ieee[ok & finite_b].view(torch.int32))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [40, 64, 128, 256, 1024, 2048, 3072])
 def test_q4k_fake_quant_kernel_is_bit_equal(n):
     _need_card()
@@ -576,35 +618,98 @@ def test_q4k_matmul_kernel_matches_plain(inn, out):
 @pytest.mark.cuda
 @pytest.mark.parametrize("inn,out", [(1024, 4096), (2048, 1024), (1024, 6144),
                                      (3072, 1024), (40, 3), (64, 128),
-                                     (128, 64)])
-def test_q4k_matvec_fq_is_the_two_kernels_bit_for_bit(inn, out):
-    """The fused decode kernel against q4k_fake_quant + q4k_matmul at the
-    Qwen3-0.6B Q4K shapes and the tiny fixture's widths (ragged 256-value
-    blocks), from f32 and bf16 rows with an all-zero and constant groups,
-    into f32 and bf16: the same operations in the same order, so
-    torch.equal; and q4k_matmul takes it for one row."""
+                                     (128, 64), (40, 200), (9728, 300)])
+def test_q4k_matvec_fq_rebuilds_the_fake_quant_and_matches_plain(inn, out):
+    """K3 at B = 1 on the activation's integer form, at the Qwen3-0.6B Q4K
+    products, the tiny fixture's widths, a ragged row against 0xE pad
+    nibbles and a row of 2 groups a lane (T = 256), from f32 and bf16 rows
+    with an all-zero and constant groups: (a) the row the kernel rebuilt
+    from q4k_act_quant's integer form torch.equal to q4k_fake_quant's; (b)
+    y within 1e-5 of max|y| of the plain version (f32 sums in another
+    order), bf16 y the f32 y rounded; (c) two runs bit-equal, and with and
+    without programmatic dependent launch; q4k_matmul takes it for one row
+    (q4k_act_quant, then the kernel) and for a norm's Q4KAct."""
     _need_card()
     rng = np.random.RandomState(7 * inn + out)
-    npad = tq4.n_blocks_per_line(inn) * 256
-    w = tq4.Q4KTensor(
-        packed=torch.from_numpy(rng.randint(0, 256, (out, npad // 2)).astype(np.uint8)).cuda(),
-        scales=torch.from_numpy(rng.rand(out, npad // 32).astype(np.float32) * 0.02 + 1e-3).cuda(),
-        biases=torch.from_numpy(rng.rand(out, npad // 32).astype(np.float32) * 0.02).cuda(),
-        in_dim=inn)
+    w = _q4k_card_weight(rng, inn, out, pad_nibble=0xE)
     for x in (_act_rows(rng, 1, inn), _act_rows(rng, 1, inn).to(torch.bfloat16)):
-        for dt in (torch.float32, torch.bfloat16):
-            n0 = tq4.q4k_matvec_fq.launches
-            got = tq4.q4k_matvec_fq(x, w, dt)
-            via = tq4.q4k_matmul(x[0], w, dt)
-            want = tq4.q4k_matmul_f32(tq4.fake_quant_act(x), w, dt)
-            plain = tq4.q4k_matvec_fq_plain(x, w, torch.float32)
+        n0 = (tq4.q4k_matvec_fq.launches, tq4.act_quant_q4k_packed.launches)
+        got, xf = tq4.q4k_matvec_fq(x, w, torch.float32, with_act=True)
+        again = tq4.q4k_matvec_fq(x, w, torch.float32)
+        got16 = tq4.q4k_matvec_fq(x, w, torch.bfloat16)
+        via = tq4.q4k_matmul(x[0], w, torch.float32)
+        act = tq4.Q4KAct(*tq4.act_quant_q4k_packed(x), x.shape)
+        pdl = tq4.MATVEC_PDL
+        try:
+            tq4.MATVEC_PDL = not pdl
+            other = tq4.q4k_matvec_fq(act, w, torch.float32)
+        finally:
+            tq4.MATVEC_PDL = pdl
+        plain = tq4.q4k_matvec_fq_plain(x, w, torch.float32)
+        torch.cuda.synchronize()
+        assert (tq4.q4k_matvec_fq.launches - n0[0],
+                tq4.act_quant_q4k_packed.launches - n0[1]) == (5, 5)
+        assert torch.equal(xf, tq4.fake_quant_act(x))
+        assert got.shape == (1, out) and got16.dtype == torch.bfloat16
+        torch.testing.assert_close(got, plain, rtol=0,
+                                   atol=1e-5 * plain.abs().max().item())
+        assert torch.equal(got16, got.to(torch.bfloat16))
+        for same in (again, via[None], other):
+            assert torch.equal(same, got)
+    x = _act_rows(rng, 1, inn).to(torch.bfloat16)
+    _, hn, act = tnq.rms_norm_q4k(x, torch.ones(inn, device="cuda"), 1e-6)
+    assert torch.equal(tq4.q4k_matmul(act, w, torch.float32),
+                       tq4.q4k_matvec_fq(hn, w, torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pdl", [False, True])
+def test_q4k_matvec_fq_after_its_producers_under_graph_capture(pdl):
+    """A decode step's chain: rms_norm_q4k -> q4k_matvec_fq, swiglu_q4k ->
+    q4k_matvec_fq, decode's attention output -> q4k_act_quant ->
+    q4k_matvec_fq, captured in a CUDA graph (with the programmatic edges
+    where `pdl`) and replayed on new inputs: every product torch.equal to
+    the same chain run eagerly; the refusals raise."""
+    _need_card()
+    rng = np.random.RandomState(11)
+    E, Fh = 1024, 3072
+    w_in = _q4k_card_weight(rng, E, 2048)
+    w_ffn = _q4k_card_weight(rng, Fh, 1024)
+    w_wo = _q4k_card_weight(rng, 2048, 1024)
+    nw = torch.from_numpy(1 + 0.1 * rng.randn(E).astype(np.float32)).cuda()
+    x = torch.randn(1, E, device="cuda").to(torch.bfloat16)
+    h13 = torch.randn(1, 2 * Fh, device="cuda").to(torch.bfloat16)
+    att = torch.randn(1, 2048, device="cuda").to(torch.bfloat16)
+
+    def chain():
+        return (tq4.q4k_matmul(tnq.rms_norm_q4k(x, nw, 1e-6)[2], w_in),
+                tq4.q4k_matmul(tnq.swiglu_q4k(h13, want_hidden=False)[1], w_ffn),
+                tq4.q4k_matmul(att, w_wo))
+
+    saved = tq4.MATVEC_PDL
+    tq4.MATVEC_PDL = pdl
+    try:
+        chain()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = chain()
+        for _ in range(3):
+            x.copy_(torch.randn_like(x))
+            h13.copy_(torch.randn_like(h13))
+            att.copy_(torch.randn_like(att))
+            graph.replay()
+            want = chain()
             torch.cuda.synchronize()
-            assert tq4.q4k_matvec_fq.launches == n0 + 2
-            assert got.shape == (1, out) and got.dtype == dt
-            assert torch.equal(got, want) and torch.equal(via, want[0])
-            torch.testing.assert_close(got.float(), plain.to(dt).float(),
-                                       rtol=1e-2 if dt == torch.bfloat16 else 0,
-                                       atol=1e-5 * plain.abs().max().item())
+            for got, ref in zip(outs, want):
+                assert torch.equal(got, ref)
+    finally:
+        tq4.MATVEC_PDL = saved
+    act = tq4.Q4KAct(*tq4.act_quant_q4k_packed(att), att.shape)
+    with pytest.raises(ValueError):
+        tq4.q4k_matvec_fq(act, w_in)          # 2048 values for a 1024 weight
+    with pytest.raises(ValueError):
+        tq4.q4k_matvec_fq(att[:, :100], w_wo)
 
 
 def _q4k_card_weight(rng, inn, out, pad_nibble=None):
@@ -641,6 +746,38 @@ def test_q4k_act_quant_kernel_is_bit_equal(n):
             torch.cuda.synchronize()
             assert got[0].shape == (B, tq4.n_blocks_per_line(n) * 128)
             assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 1024, 3072])
+def test_q4k_quantization_is_bit_equal_at_every_magnitude(n):
+    """The quantizers (q4k_act_quant, q4k_fake_quant, rms_norm_q4k's and
+    swiglu_q4k's epilogues, by FastDiv or, for a block that leaves its
+    exact range, by __fdiv_rn) against the plain version on rows whose
+    32-groups range over 2^-140 .. 2^70 (denormal, tiny, huge, mixed
+    within a block, constant, all-zero): torch.equal everywhere."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(n)
+    B = 64
+    base = torch.randn(B, n, device="cuda", generator=g)
+    scale = torch.exp2(torch.randint(-140, 70, (B, -(-n // 32)), device="cuda",
+                                     generator=g).float())
+    x = base * scale.repeat_interleave(32, dim=1)[:, :n]
+    x[1, :min(n, 32)] = 3e-39          # a denormal constant group
+    x[2] = 0
+    x[3, ::7] = 1e-42                  # denormals among zeros
+    for xt in (x, x.to(torch.bfloat16)):
+        got = tq4.act_quant_q4k_packed(xt)
+        want = tq4.act_quant_q4k_packed_plain(xt)
+        fq = tq4.fake_quant_act(xt)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert torch.equal(fq, tq4.fake_quant_act_plain(xt))
+    _, act = tnq.swiglu_q4k(torch.cat([torch.full_like(x, 30.0), x], dim=-1))
+    y = torch.nn.functional.silu(torch.full_like(x, 30.0)) * x
+    want = tq4.act_quant_q4k_packed_plain(y)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(act.parts(), want))
 
 
 @pytest.mark.cuda
@@ -992,8 +1129,18 @@ def test_launch_counters_count_kernel_launches():
     assert [f.launches for f in counters] == [n0[0] + 1, n0[1] + 1, n0[2],
                                               n0[3], n0[4]]
     tq4.q4k_matmul(x[:1], w4, torch.float32)
-    assert [f.launches for f in counters] == [n0[0] + 1, n0[1] + 1,
+    assert [f.launches for f in counters] == [n0[0] + 2, n0[1] + 1,
                                               n0[2] + 1, n0[3], n0[4]]
+    norms = (tnq.rms_norm_q4k, tnq.swiglu_q4k, tnq.rms_norm_q80,
+             tnq.swiglu_q80)
+    n0 = [f.launches for f in norms + counters]
+    _, _, act = tnq.rms_norm_q4k(x[:1], torch.ones(256, device="cuda"), 1e-6)
+    tq4.q4k_matmul(act, w4, torch.float32)
+    _, act = tnq.swiglu_q4k(torch.cat([x, x], dim=-1))
+    tq4.q4k_matmul(act, w4, torch.float32)
+    assert [f.launches for f in norms + counters] == [
+        n0[0] + 1, n0[1] + 1, n0[2], n0[3], n0[4], n0[5] + 1, n0[6] + 1,
+        n0[7], n0[8]]
 
 
 @pytest.mark.cuda
@@ -1541,6 +1688,73 @@ def test_norm_quant_refuses_bad_shapes_and_counts_launches():
             bad()
     assert (tnq.rms_norm_q80.launches, tnq.swiglu_q80.launches) == (
         n0[0] + 1, n0[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E", [64, 320, 1024, 3072])
+def test_norm_quant_q4k_outputs_are_q4k_act_quant(E, dtype):
+    """rms_norm_q4k and swiglu_q4k at B = 1, 3, 64 and 65, with and
+    without the residual: h, hn and the SwiGLU output torch.equal to
+    rms_norm_q80's / swiglu_q80's; vp, sa, ba and c torch.equal to
+    q4k_act_quant (and its plain version) of the kernel's own rounded
+    output, with and without that output written; two runs bit-equal; a
+    row the same bits alone as inside 64; an all-zero row all zero; one
+    launch each, and the refusals launch nothing."""
+    _need_card()
+    rng = np.random.RandomState(E)
+    eps = 1e-6
+    w = torch.from_numpy(1 + 0.1 * rng.randn(E).astype(np.float32)).cuda()
+
+    def same(p, q):
+        return all(torch.equal(a, b) for a, b in zip(p.parts(), q.parts()))
+
+    def is_act_quant(act, y):
+        k = tq4.act_quant_q4k_packed(y.reshape(-1, y.shape[-1]))
+        p = tq4.act_quant_q4k_packed_plain(y.reshape(-1, y.shape[-1]))
+        return (all(torch.equal(a, b) for a, b in zip(act.parts(), k))
+                and all(torch.equal(a, b) for a, b in zip(act.parts(), p)))
+
+    for B in (1, 3, 64, 65):
+        x, a = _norm_quant_inputs(rng, B, E, dtype)
+        h13, _ = _norm_quant_inputs(rng, B, 2 * E, dtype)
+        if B > 2:
+            h13[2] = 0
+        for res in (None, a):
+            n0 = (tnq.rms_norm_q4k.launches, tnq.rms_norm_q80.launches)
+            h, hn, act = tnq.rms_norm_q4k(x, w, eps, res)
+            _, none, act2 = tnq.rms_norm_q4k(x, w, eps, res, want_hn=False)
+            h8, hn8, _ = tnq.rms_norm_q80(x, w, eps, res)
+            torch.cuda.synchronize()
+            assert (tnq.rms_norm_q4k.launches - n0[0],
+                    tnq.rms_norm_q80.launches - n0[1]) == (2, 1)
+            assert torch.equal(hn, hn8) and none is None
+            assert h is None if res is None else torch.equal(h, h8)
+            assert is_act_quant(act, hn) and same(act2, act)
+            assert act.shape == x.shape
+            if B > 2:
+                assert not act.vp[2].any() and not act.sa[2].any()
+            if B == 64:
+                for r in (0, 2, 37, 63):
+                    one = tnq.rms_norm_q4k(x[r:r + 1], w, eps,
+                                           None if res is None else res[r:r + 1])[2]
+                    assert all(torch.equal(p[0], q[r])
+                               for p, q in zip(one.parts(), act.parts()))
+        y, act = tnq.swiglu_q4k(h13)
+        none, act2 = tnq.swiglu_q4k(h13, want_hidden=False)
+        y8, _ = tnq.swiglu_q80(h13)
+        torch.cuda.synchronize()
+        assert torch.equal(y, y8) and none is None
+        assert is_act_quant(act, y) and same(act2, act)
+        if B > 2:
+            assert not act.vp[2].any() and not act.sa[2].any()
+    n0 = (tnq.rms_norm_q4k.launches, tnq.swiglu_q4k.launches)
+    for bad in (lambda: tnq.rms_norm_q4k(x, w[:E // 2], eps),
+                lambda: tnq.rms_norm_q4k(x.half(), w, eps),
+                lambda: tnq.swiglu_q4k(h13[:, :-1])):
+        with pytest.raises(ValueError):
+            bad()
+    assert (tnq.rms_norm_q4k.launches, tnq.swiglu_q4k.launches) == n0
 
 
 @pytest.mark.cuda

@@ -30,6 +30,7 @@ from nano_tpu_torch.config import ModelConfig
 from nano_tpu_torch.infer import engine as teng
 from nano_tpu_torch.models import gpt as tgpt
 from nano_tpu_torch.ops import norm_quant as tnq
+from nano_tpu_torch.ops import q4k as tq4
 from nano_tpu_torch.ops import qmatmul as tqm
 
 FIX = os.path.join(os.path.dirname(__file__), "js", "fixtures")
@@ -241,9 +242,10 @@ def tiny_q4k():
 
 def _spy(monkeypatch):
     """Count q80_act_quant's calls and record the group size each norm and
-    SwiGLU call asks for."""
+    SwiGLU call asks for ("q4k" for a call that asks for Q4K outputs)."""
     seen = {"act_quant": 0, "norm": [], "swiglu": []}
     aq, rms, sw = tqm.act_quant_q80, tgpt.rms_norm_q80, tgpt.swiglu_q80
+    rms4, sw4 = tgpt.rms_norm_q4k, tgpt.swiglu_q4k
 
     def act_quant(x, gs):
         seen["act_quant"] += 1
@@ -257,9 +259,19 @@ def _spy(monkeypatch):
         seen["swiglu"].append(group_size)
         return sw(h13, group_size, want_hidden)
 
+    def norm4(x, w, eps, residual=None, want_hn=True):
+        seen["norm"].append("q4k")
+        return rms4(x, w, eps, residual, want_hn)
+
+    def swiglu4(h13, want_hidden=True):
+        seen["swiglu"].append("q4k")
+        return sw4(h13, want_hidden)
+
     monkeypatch.setattr(tqm, "act_quant_q80", act_quant)
     monkeypatch.setattr(tgpt, "rms_norm_q80", norm)
     monkeypatch.setattr(tgpt, "swiglu_q80", swiglu)
+    monkeypatch.setattr(tgpt, "rms_norm_q4k", norm4)
+    monkeypatch.setattr(tgpt, "swiglu_q4k", swiglu4)
     return seen
 
 
@@ -362,16 +374,27 @@ def test_prefill_slices_before_the_final_norm(qwen_tiny, monkeypatch):
 
 @pytest.mark.parametrize("B", [1, 3])
 def test_q4k_model_never_asks_for_q80_outputs(tiny_q4k, monkeypatch, B):
-    """The Q4K model's products quantize their own activations
-    (q4k_act_quant, q4k_matvec_fq) and its requantized Q80 head takes the
-    Q4K fake-quant first: no norm or SwiGLU asks for Q80 outputs; the
-    logits are bit-equal to the eager path's."""
+    """The Q4K model's norms and SwiGLUs write the Q4K integer form of
+    their output for its products at every row count (rms_norm_q4k,
+    swiglu_q4k), so q4k_act_quant runs only on wo's input, n_layer times;
+    the final norm asks for nothing (its requantized Q80 head takes the
+    Q4K fake-quant first) and no norm or SwiGLU ever asks for Q80 outputs;
+    the logits are bit-equal to the eager path's."""
     cfg, params = tiny_q4k
+    aq4 = tq4.act_quant_q4k_packed
+    calls = []
+
+    def act_quant_q4k(x2d):
+        calls.append(x2d.shape[0])
+        return aq4(x2d)
+
     with monkeypatch.context() as m:
         seen = _spy(m)
+        m.setattr(tq4, "act_quant_q4k_packed", act_quant_q4k)
         got = _decode_step(cfg, params, B, torch.float32)
-    assert seen["norm"] == [0] * (2 * cfg.n_layer + 1)
-    assert seen["swiglu"] == [0] * cfg.n_layer
+    assert seen["norm"] == ["q4k"] * (2 * cfg.n_layer) + [0]
+    assert seen["swiglu"] == ["q4k"] * cfg.n_layer
+    assert calls == [B] * cfg.n_layer
     with monkeypatch.context() as m:
         m.setattr(tgpt, "block", _eager_block)
         m.setattr(tgpt, "_final", _eager_final)
