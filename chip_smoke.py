@@ -259,8 +259,8 @@ scaled_dot_product_attention and the bound, and a decode step's 28
 attention launches both on f32 q and as the model feeds them (bf16 q,
 result cast to bf16).
 
-`python3 chip_smoke.py bench [flash [clocks]] [decode] [q4k [batched]] [q80
-[batched [sweep] [clocks]]] [pipes] [spec] [toy] [export] [rows [sweep] [clocks]]
+`python3 chip_smoke.py bench [flash [clocks]] [decode] [q4k [batched [sweep] |
+step] [clocks]] [q80 [batched [sweep] [clocks]]] [pipes] [spec] [toy] [export] [rows [sweep] [clocks]]
 [lora] [lifecycle] [parallel] [nccl] [gloo]` runs none of the phases: it times the two
 attention kernels alone beside SDPA (the flash forward and backward, a
 ladder over the decode kernel's rows per block), a Q4K decode step's
@@ -275,7 +275,11 @@ the kernel; `clocks`: where a block's time goes).  `bench q4k batched`
 times K3 at B > 1 the same way: a Q4K forward's 112 layer products at 8 and
 64 rows, by product, q4k_matmul_w4a4 alone, with q4k_act_quant, the pair it
 replaced (q4k_fake_quant + q4k_matmul) and the bf16 torch.matmul, beside
-the bound.  `bench spec` runs phase 5c alone, `bench toy` its trained
+the bound.  `bench q4k clocks` also splits a q4k_matvec_fq launch into its
+wait for the activation and the first tile, the dot and the store;
+`bench q4k step` drives the Q4K model's decode step and 8 / 64 slots
+through entry points every tree of the port has, so that a copy of this
+file in an older tree times that tree.  `bench spec` runs phase 5c alone, `bench toy` its trained
 toy, `bench export` phase 7 (on an untrained Nano-168M checkpoint), and
 `bench lora` phase 8 (on the same, without the GGUF model).
 `bench lifecycle` runs phase 9 alone (on a Nano-168M checkpoint of its
@@ -1085,24 +1089,22 @@ def bench_pipes(torch):
         "clock per SM = 31.7 ex2/ns/SM at 1980 MHz")
 
 
-def bench_q4k(torch, batched=False, sweep=False, clocks=False, step=False,
-              pdl=True):
+def bench_q4k(torch, batched=False, sweep=False, clocks=False, step=False):
     """With `batched`, bench_q4k_batched and nothing else; with `step`,
     bench_q4k_step and nothing else.  Else: one Qwen3-0.6B Q4K decode
     step's 112 products (4 per layer, random per-layer weights as
     random_q4k_params makes them, bf16 rows) replayed from a CUDA graph:
     the two kernels K3 at B = 1 was first (q4k_fake_quant + q4k_matmul, 113
     fake-quants with the head's) against q4k_matvec_fq on the rows'
-    integer form (as the norms, SwiGLU and q4k_act_quant write it) with
-    programmatic dependent launch on and off, in the order two, on, off,
-    off, on, two; each product's 28 launches alone; every new product
-    within 1e-5 of max|y| of the pair's in f32 (the same fake-quantized
-    row, f32 sums in another order).  With `clocks`, bench_q4k_clocks on
-    layer 0's four products."""
+    integer form (as the norms, SwiGLU and q4k_act_quant write it), in the
+    order two, new, new, two; each product's 28 launches alone; every new
+    product within 1e-5 of max|y| of the pair's in f32 (the same
+    fake-quantized row, f32 sums in another order).  With `clocks`,
+    bench_q4k_clocks on layer 0's four products."""
     if batched:
         return bench_q4k_batched(torch, sweep)
     if step:
-        return bench_q4k_step(torch, pdl)
+        return bench_q4k_step(torch)
     import numpy as np
     from nano_tpu_torch.config import ModelConfig
     from nano_tpu_torch.ops import _build, q4k
@@ -1144,19 +1146,10 @@ def bench_q4k(torch, batched=False, sweep=False, clocks=False, step=False,
             if only in (None, name):
                 q4k.q4k_matvec_fq(act, w, torch.bfloat16)
 
-    def timed_pdl(on, fn, reps=50):
-        saved = q4k.MATVEC_PDL
-        q4k.MATVEC_PDL = on
-        try:
-            return timer(fn, reps=reps)
-        finally:
-            q4k.MATVEC_PDL = saved
-
     timer = Timer(torch)
-    t = {"two": [], True: [], False: []}
-    for which in ("two", True, False, False, True, "two"):
-        t[which].append(timer(two, reps=50) if which == "two"
-                        else timed_pdl(which, new))
+    t = {"two": [], "new": []}
+    for which in ("two", "new", "new", "two"):
+        t[which].append(timer(two if which == "two" else new, reps=50))
     worst = 0.0
     for name, w, x, act, _, _ in calls[:4]:
         y = q4k.q4k_matvec_fq(act, w, torch.float32)
@@ -1167,182 +1160,60 @@ def bench_q4k(torch, batched=False, sweep=False, clocks=False, step=False,
     log(f"[bench q4k] one Q4K decode step, {len(calls)} products ({card}): "
         f"q4k_fake_quant + q4k_matmul "
         f"{'/'.join(f'{v:.4f}' for v in t['two'])} ms; q4k_matvec_fq on the "
-        f"integer form, programmatic dependent launch on "
-        f"{'/'.join(f'{v:.4f}' for v in t[True])} ms, off "
-        f"{'/'.join(f'{v:.4f}' for v in t[False])} ms (in turns); the new "
-        f"products within {worst:.2e} of max|y| of the pair's")
+        f"integer form {'/'.join(f'{v:.4f}' for v in t['new'])} ms (in "
+        f"turns); the new products within {worst:.2e} of max|y| of the "
+        f"pair's")
     if not worst <= 1e-5:
         raise AssertionError("q4k_matvec_fq differs from the two kernels")
     for name in ("wqkv", "wo", "w13", "w2"):
         w = next(c[1] for c in calls if c[0] == name)
         byt = w.packed.numel() + 8 * w.scales.numel()
-        per = {on: timed_pdl(on, lambda: new(name)) / L * 1e3
-               for on in (True, False)}
+        per = timer(lambda: new(name)) / L * 1e3
         log(f"[bench q4k] {name} {w.in_dim}->{w.out_dim}, plan (blocks, R, S, "
             f"T) {q4k.matvec_plan(w.out_dim, w.n_pad, _build.sm_count(w.packed.device))}: "
-            f"{per[True]:.2f} us a launch (PDL on), {per[False]:.2f} us (off), "
-            f"bound {byt / HBM_BYTES_PER_S * 1e6:.2f} us ({byt / 1e6:.2f} MB)")
-    # a step's chain of producers and products, as the model runs it (a
-    # layer: the attention norm -> wqkv, the attention output ->
-    # q4k_act_quant -> wo, the residual add and FFN norm -> w13, SwiGLU ->
-    # w2), with programmatic dependent launch on and off, in turns
-    from nano_tpu_torch.ops import norm_quant
-    nw = torch.ones(E, device="cuda")
-    ch = [(torch.randn(1, E, device="cuda", generator=gen).to(torch.bfloat16),
-           torch.randn(1, HD, device="cuda", generator=gen).to(torch.bfloat16),
-           torch.randn(1, 2 * F, device="cuda", generator=gen).to(torch.bfloat16))
-          for _ in range(L)]
-    ws = [c[1] for c in calls]
-
-    def chain():
-        for i, (x, a, h13) in enumerate(ch):
-            wq, wo, w13, w2 = ws[4 * i:4 * i + 4]
-            q4k.q4k_matvec_fq(norm_quant.rms_norm_q4k(x, nw, 1e-6, None,
-                                                      False)[2], wq)
-            q4k.q4k_matvec_fq(a, wo)
-            q4k.q4k_matvec_fq(norm_quant.rms_norm_q4k(x, nw, 1e-6, x,
-                                                      False)[2], w13)
-            q4k.q4k_matvec_fq(norm_quant.swiglu_q4k(h13, False)[1], w2)
-
-    def producers():
-        for x, a, h13 in ch:
-            norm_quant.rms_norm_q4k(x, nw, 1e-6, None, False)
-            q4k.act_quant_q4k_packed(a)
-            norm_quant.rms_norm_q4k(x, nw, 1e-6, x, False)
-            norm_quant.swiglu_q4k(h13, False)
-
-    tc = {True: [], False: []}
-    for on in (True, False, False, True):
-        tc[on].append(timed_pdl(on, chain))
-    log(f"[bench q4k] a step's chain ({2 * L} rms_norm_q4k, {L} swiglu_q4k, "
-        f"{L} q4k_act_quant, {4 * L} q4k_matvec_fq): PDL on "
-        f"{'/'.join(f'{v:.4f}' for v in tc[True])} ms, off "
-        f"{'/'.join(f'{v:.4f}' for v in tc[False])} ms; the producers alone "
-        f"{timer(producers):.4f} ms")
-    # the producers one by one at B = 1, 56 launches each, beside the
-    # norm without quantized output and with the Q80 one
-    x1 = ch[0][0]
-    for label, fn in (
-            ("rms_norm_q80, hn", lambda: norm_quant.rms_norm_q80(x1, nw, 1e-6)),
-            ("rms_norm_q80, Q80 gs 256", lambda: norm_quant.rms_norm_q80(
-                x1, nw, 1e-6, None, 256, False)),
-            ("rms_norm_q4k", lambda: norm_quant.rms_norm_q4k(
-                x1, nw, 1e-6, None, False)),
-            ("q4k_act_quant (1, 1024)", lambda: q4k.act_quant_q4k_packed(x1)),
-            ("swiglu_q80, hidden", lambda: norm_quant.swiglu_q80(ch[0][2])),
-            ("swiglu_q4k", lambda: norm_quant.swiglu_q4k(ch[0][2], False))):
-        us = timer(lambda: [fn() for _ in range(56)]) / 56 * 1e3
-        log(f"[bench q4k] B = 1 producer {label}: {us:.2f} us a launch")
-    if sweep:
-        bench_q4k_plans(torch, calls)
+            f"{per:.2f} us a launch, bound {byt / HBM_BYTES_PER_S * 1e6:.2f} "
+            f"us ({byt / 1e6:.2f} MB)")
     if clocks:
         bench_q4k_clocks(torch, [c for c in calls[:4]])
 
 
-def bench_q4k_plans(torch, calls):
-    """Every work split of q4k_matvec_fq around matvec_plan's at each of a
-    Q4K step's four products (its 28 launches, PDL off): blocks from 132
-    to 8 an SM, tiles of 1, 2 or 4 passes, the ring of every tile or of 2;
-    the fastest first, beside the plan's."""
-    from nano_tpu_torch.ops import _build, q4k
-    lib = _build.lib("q4k")
-    q4k.q4k_matvec_fq(calls[0][3], calls[0][1])       # the init
-    st = lambda: torch.cuda.current_stream().cuda_stream
-    timer = Timer(torch)
-    n_sm = _build.sm_count(calls[0][1].packed.device)
-    for name in ("wqkv", "wo", "w13", "w2"):
-        mine = [c for c in calls if c[0] == name]
-        w0 = mine[0][1]
-        N, n_pad = w0.out_dim, w0.n_pad
-        base = q4k.matvec_plan(N, n_pad, n_sm)
-        T = base[3]
-        RP = 256 // T
-        plans = {base}
-        for blocks in (n_sm, 2 * n_sm, 3 * n_sm, 4 * n_sm, 6 * n_sm, 8 * n_sm):
-            blocks = min(blocks, N)
-            per = -(-N // blocks)
-            for R in (RP, 2 * RP, 4 * RP, min(per, RP)):
-                tiles = -(-per // R)
-                for S in (min(16, tiles), min(2, tiles)):
-                    if q4k.matvec_smem(R, n_pad, S) <= 232448:
-                        plans.add((blocks, R, S, T))
-        res = []
-        for plan in sorted(plans):
-
-            def run(plan=plan):
-                for _, w, _, act, _, y in mine:
-                    lib.q4k_matvec_fq(
-                        act.vp.data_ptr(), act.sa.data_ptr(), act.ba.data_ptr(),
-                        w.packed.data_ptr(), w.scales.data_ptr(),
-                        w.biases.data_ptr(), y.data_ptr(), 1, None, n_pad,
-                        w.in_dim, N, *plan, 0, st())
-            res.append((timer(run) / len(mine) * 1e3, plan))
-        res.sort()
-        log(f"[bench q4k sweep] {name} {w0.in_dim}->{N}: plan {base} "
-            f"{next(t for t, p in res if p == base):.2f} us; fastest "
-            + ", ".join(f"{p} {t:.2f}" for t, p in res[:8]))
-
-
 def bench_q4k_clocks(torch, calls):
-    """q4k_matvec_fq built with -DNANO_Q4K_CLOCKS into build/q4k_clocks/
-    (and norm_quant.cu with -DNANO_NQ_CLOCKS), each of `calls` (name,
-    weight, x, its integer form, ...) launched alone with the L2 cleared
-    before it (a 256 MB write): the span from the first block's entry to
-    the last block's end, the spread of the entries, and the median over
-    blocks of each stamp after the block's entry (the activation in, first
-    tile in, the last tile's dot done, the last row stored), in ns of
-    %globaltimer (and in cycles of clock64).  Then the first pair of a
-    step's chain, rms_norm_q4k -> q4k_matvec_fq (wqkv), replayed from a
-    CUDA graph with programmatic dependent launch off and on: the norm's
-    entry, its row done, every warp's part of the row in and its end, and
-    the product's stamps, all after the norm's entry.  Then the Q4K
-    model's decode step from its graph through the two clocks libraries,
-    PDL on and off in turns: the last layer's FFN norm and SwiGLU and the
-    w2 product after it (the model's own place of the pair)."""
+    """q4k_matvec_fq built with -DNANO_Q4K_CLOCKS into build/q4k_clocks/,
+    each of `calls` (name, weight, x, its integer form, ...) launched alone
+    with the L2 cleared before it (a 256 MB write): the span from the first
+    block's entry to the last block's end, the spread of the entries, and
+    the median over blocks of each stamp after the block's entry (the
+    activation in, first tile in, the last tile's dot done, the last row
+    stored), in ns of %globaltimer (and in cycles of clock64)."""
     import ctypes
     import statistics
-    from nano_tpu_torch.ops import _build, norm_quant, q4k
+    from nano_tpu_torch.ops import _build, q4k
     work = os.path.join(ROOT, "build", "q4k_clocks")
     os.makedirs(work, exist_ok=True)
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    so, so_n = (os.path.join(work, f"lib{n}_clocks.so")
-                for n in ("q4k", "norm_quant"))
-    procs = [subprocess.Popen([_build.nvcc_path(), *flags, define, "-o", out,
-                               os.path.join(_build.CSRC_DIR, src)])
-             for define, out, src in (("-DNANO_Q4K_CLOCKS", so, "q4k.cu"),
-                                      ("-DNANO_NQ_CLOCKS", so_n,
-                                       "norm_quant.cu"))]
-    assert all(p_.wait() == 0 for p_ in procs)
-    lib, libn = ctypes.CDLL(so), ctypes.CDLL(so_n)
+    so = os.path.join(work, "libq4k_clocks.so")
+    subprocess.run([_build.nvcc_path(), *flags, "-DNANO_Q4K_CLOCKS", "-o", so,
+                    os.path.join(_build.CSRC_DIR, "q4k.cu")], check=True)
+    lib = ctypes.CDLL(so)
     lib.q4k_matvec_fq.argtypes = _build.SIGNATURES["q4k_matvec_fq"][0]
-    libn.rms_norm_q4k.argtypes = _build.SIGNATURES["rms_norm_q4k"][0]
     lib.q4k_matvec_fq_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    libn.norm_quant_clocks.argtypes = [ctypes.c_void_p]
-    assert lib.q4k_matvec_fq_init() == 0 and libn.norm_quant_init() == 0
+    assert lib.q4k_matvec_fq_init() == 0
     flush = torch.empty(64 << 20, device="cuda")
-    st = lambda: torch.cuda.current_stream().cuda_stream
     n_sm = _build.sm_count(flush.device)
-
-    def launch(w, act, y, pdl):
-        plan = q4k.matvec_plan(w.out_dim, w.n_pad, n_sm)
-        assert lib.q4k_matvec_fq(
-            act.vp.data_ptr(), act.sa.data_ptr(), act.ba.data_ptr(),
-            w.packed.data_ptr(), w.scales.data_ptr(), w.biases.data_ptr(),
-            y.data_ptr(), 1, None, w.n_pad, w.in_dim, w.out_dim, *plan, pdl,
-            st()) == 0
-        return plan[0]
-
-    def stamps(nb):
-        buf = (ctypes.c_ulonglong * (10 * nb))()
-        assert lib.q4k_matvec_fq_clocks(buf, nb) == 0
-        return [list(buf)[10 * b:10 * b + 10] for b in range(nb)]
-
     for name, w, _, act, _, y in calls:
+        plan = q4k.matvec_plan(w.out_dim, w.n_pad, n_sm)
         for _ in range(2):    # the first launch warms up
             flush.zero_()
-            nb = launch(w, act, y, 0)
+            assert lib.q4k_matvec_fq(
+                act.vp.data_ptr(), act.sa.data_ptr(), act.ba.data_ptr(),
+                w.packed.data_ptr(), w.scales.data_ptr(), w.biases.data_ptr(),
+                y.data_ptr(), 1, None, w.n_pad, w.in_dim, w.out_dim, *plan,
+                torch.cuda.current_stream().cuda_stream) == 0
             torch.cuda.synchronize()
-        t = stamps(nb)
+        nb = plan[0]
+        buf = (ctypes.c_ulonglong * (10 * nb))()
+        assert lib.q4k_matvec_fq_clocks(buf, nb) == 0
+        t = [list(buf)[10 * b:10 * b + 10] for b in range(nb)]
         t0 = min(r[0] for r in t)
         med = [statistics.median(r[k] - r[0] for r in t) for k in range(1, 5)]
         cyc = [statistics.median(r[5 + k] - r[5] for r in t) for k in range(1, 5)]
@@ -1355,105 +1226,6 @@ def bench_q4k_clocks(torch, calls):
             f"{med[2]:.0f}, rows stored {med[3]:.0f} ns ("
             + "/".join(f"{c:.0f}" for c in cyc)
             + f" cycles, SM clock ~{mhz:.0f} MHz)")
-
-    name, w, x, act, _, y = calls[0]
-    E = w.in_dim
-    xn = torch.randn(1, E, device="cuda").to(torch.bfloat16)
-    nw = torch.ones(E, device="cuda")
-    T, P = norm_quant.plan(E)
-    vp, sa, ba, c = (t_.clone() for t_ in act.parts())
-    act_n = q4k.Q4KAct(vp, sa, ba, c, act.shape)
-    for pdl in (0, 1, 0, 1):
-
-        def pair():
-            assert libn.rms_norm_q4k(
-                xn.data_ptr(), None, nw.data_ptr(), None, None, vp.data_ptr(),
-                sa.data_ptr(), ba.data_ptr(), c.data_ptr(), 1, 1, E, 1e-6, T,
-                P, 1, st()) == 0
-            return launch(w, act_n, y, pdl)
-
-        pair()
-        torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            nb = pair()
-        for _ in range(3):
-            graph.replay()
-        torch.cuda.synchronize()
-        nbuf = (ctypes.c_ulonglong * 12)()
-        assert libn.norm_quant_clocks(nbuf) == 0
-        n0 = nbuf[0]
-        t = stamps(nb)
-        rel = lambda k: [r[k] - n0 for r in t]
-        log(f"[bench q4k clocks] rms_norm_q4k -> q4k_matvec_fq {name} from a "
-            f"graph, programmatic dependent launch {'on' if pdl else 'off'}, "
-            f"ns after the norm's entry: norm row done {nbuf[1] - n0}, every "
-            f"warp's part in {nbuf[3] - n0}, norm end {nbuf[2] - n0}; "
-            f"product entries {min(rel(0))} .. "
-            f"{max(rel(0))}, activation in (median) "
-            f"{statistics.median(rel(1)):.0f}, first tile in "
-            f"{statistics.median(rel(2)):.0f}, dot done "
-            f"{statistics.median(rel(3)):.0f}, last row stored {max(rel(4))}")
-        del graph
-
-    # the Q4K model's decode step through the clocks libraries: the last
-    # layer's FFN norm, its SwiGLU, and the product after it (w2)
-    import numpy as np
-    from nano_tpu_torch.config import ModelConfig
-    from nano_tpu_torch.infer import engine
-    from nano_tpu_torch.ops import sampling
-    from nano_tpu_torch.tokenizer.bpe import QWEN_STOP_TOKENS
-    from nano_tpu_torch.tokenizer.trie import TrieTokenizer
-    for stem, handle in (("q4k", lib), ("norm_quant", libn)):
-        for entry_name, (argtypes, owner) in _build.SIGNATURES.items():
-            if owner == stem:
-                fn = getattr(handle, entry_name)
-                fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        _build._libs[stem] = handle
-    cfg = ModelConfig(**QWEN3_06B)
-    tok = TrieTokenizer()
-    tok.build_preset(32768)
-    ctx = engine.LLMContext(
-        cfg=cfg, params=random_q4k_params(torch, np, cfg, flush.device),
-        tokenizer=tok, max_seq_len=cfg.block_size, device=flush.device,
-        dtype=torch.bfloat16, sampler=sampling.SamplerConfig(
-            temperature=0.0, repetition_penalty=1.0),
-        stop_tokens=QWEN_STOP_TOKENS, arch="qwen3")
-    prompt = np.random.default_rng(SEED + 1).integers(100, 30000, 64).tolist()
-    w2 = ctx.params["blocks"]["w2"]
-    nb = q4k.matvec_plan(w2.out_dim, w2.n_pad, n_sm)[0]
-    pdl_saved = q4k.MATVEC_PDL
-    for pdl in (True, False, True, False):
-        q4k.MATVEC_PDL = pdl
-        ctx._decoder = None         # a decoder of its own: graphs of its own
-        dec = ctx.decoder()
-        with ctx.on_stream():
-            dec.claim()
-            dec.prefill(prompt)
-            for _ in range(3):
-                dec._graph().run()
-            torch.cuda.synchronize()
-            assert libn.norm_quant_clocks(nbuf) == 0
-            t = stamps(nb)
-            s0 = nbuf[4]
-            rel = lambda k: [r[k] - s0 for r in t]
-            log(f"[bench q4k clocks] a Q4K decode step from its graph, PDL "
-                f"{'on' if pdl else 'off'}: the last FFN norm (rms_norm_q4k, "
-                f"block 0) row done {nbuf[1] - nbuf[0]}, every warp's part "
-                f"in {nbuf[3] - nbuf[0]}, end {nbuf[2] - nbuf[0]} ns after "
-                f"its entry; the last swiglu_q4k row done {nbuf[5] - s0}, "
-                f"every warp's part in {nbuf[7] - s0}, end {nbuf[6] - s0}; "
-                f"then w2's q4k_matvec_fq, ns after the "
-                f"SwiGLU's entry: entries {min(rel(0))} .. {max(rel(0))}, "
-                f"activation in (median) {statistics.median(rel(1)):.0f}, "
-                f"first tile in {statistics.median(rel(2)):.0f}, dot done "
-                f"{statistics.median(rel(3)):.0f}, last row stored "
-                f"{max(rel(4))}; SM clock ~"
-                f"{statistics.median((r[9] - r[5]) * 1e3 / max(r[4] - r[0], 1) for r in t):.0f}"
-                f" MHz")
-        del dec
-    q4k.MATVEC_PDL = pdl_saved
-    del ctx
 
 
 def timeline_by_kernel(torch, fn, n, keys):
@@ -1484,15 +1256,14 @@ def timeline_by_kernel(torch, fn, n, keys):
     return (cur - ev[0][0]) / 1e3 / n, added, gaps
 
 
-def bench_q4k_step(torch, pdl=True):
+def bench_q4k_step(torch):
     """The Qwen3-0.6B Q4K model's decode step end to end through the entry
     points every tree of the port has (LLMContext, generate_on_device, the
     decoder's graph, gpt's functions, BatchedEngine), so that a copy of
     this file in an older tree (git archive into a gitignored directory)
-    times that tree; with pdl=False (`bench q4k step nopdl`) q4k_matvec_fq
-    is launched without programmatic dependent launch throughout.  The
-    model's Q4K chain alone (28 layers of norms, SwiGLU and products, as
-    the cached forward calls them at one row); generate_on_device tok/s (a
+    times that tree.  The model's Q4K chain alone (28 layers of norms,
+    SwiGLU and products, as the cached forward calls them at one row);
+    generate_on_device tok/s (a
     64-token prompt, N_TOKENS tokens) and TTFT; the one-step graph's ms a
     step between CUDA events over 64 replays (the least and the median of
     5 windows), its card busy ms by kernel (torch.profiler over 32
@@ -1502,16 +1273,11 @@ def bench_q4k_step(torch, pdl=True):
     from nano_tpu_torch.config import ModelConfig
     from nano_tpu_torch.infer import engine
     from nano_tpu_torch.models import gpt
-    from nano_tpu_torch.ops import _build, q4k, sampling
+    from nano_tpu_torch.ops import _build, sampling
     from nano_tpu_torch.serve.batching import BatchedEngine
     from nano_tpu_torch.tokenizer.bpe import QWEN_STOP_TOKENS
     from nano_tpu_torch.tokenizer.trie import TrieTokenizer
     _build.build_all()
-    has_pdl = hasattr(q4k, "MATVEC_PDL")
-    if has_pdl:
-        q4k.MATVEC_PDL = pdl
-    tag = ("" if not has_pdl else ", programmatic dependent launch "
-           + ("on" if pdl else "off"))
     dev, cfg = torch.device("cuda"), ModelConfig(**QWEN3_06B)
     tok = TrieTokenizer()
     tok.build_preset(32768)
@@ -1579,7 +1345,7 @@ def bench_q4k_step(torch, pdl=True):
                                  for _ in range(3)), key=lambda r: r[0])
     del dec
     busy = sum(groups.values()) / 32
-    log(f"[bench q4k step] {card}{tag}: the model's Q4K chain "
+    log(f"[bench q4k step] {card}: the model's Q4K chain "
         f"{'/'.join(f'{t:.4f}' for t in t_chain)} ms; generate_on_device "
         f"{1e3 / step_ms:.2f} tok/s ({step_ms:.3f} ms a step), TTFT "
         f"{ttft:.2f} ms; one-step graph {min(windows):.4f} ms a step (least "
@@ -1603,7 +1369,7 @@ def bench_q4k_step(torch, pdl=True):
         groups, _, n_k, _, _ = profile_steps(
             torch, lambda: eng.step_burst(16), 1, PROFILE_KEYS,
             {n: 1 for n in names})
-        log(f"[bench q4k step] {n_slots} slots ({card}{tag}): {ms:.3f} ms "
+        log(f"[bench q4k step] {n_slots} slots ({card}): {ms:.3f} ms "
             f"per batched step; card busy {sum(groups.values()) / 16:.3f} ms "
             f"a step by kernel: " + ", ".join(
                 f"{k} {v / 16:.3f}" for k, v in groups.items() if v))
@@ -5769,8 +5535,7 @@ def bench(what) -> int:
     flags = {"clocks": "clocks" in what}
     q80_flags = dict(flags, batched="batched" in what, sweep="sweep" in what)
     q4k_flags = dict(batched="batched" in what, sweep="sweep" in what,
-                     clocks="clocks" in what, step="step" in what,
-                     pdl="nopdl" not in what)
+                     clocks="clocks" in what, step="step" in what)
     for name, fn in (("flash", bench_flash), ("decode", bench_decode),
                      ("q4k", bench_q4k), ("q80", bench_q80),
                      ("pipes", bench_pipes), ("spec", bench_spec),
@@ -6608,10 +6373,8 @@ def main() -> int:
     # layer, the tiny widths and a ragged one (in = 40, 0xE in every nibble
     # past it), from f32 and bf16 rows: the row it rebuilt torch.equal to
     # q4k_fake_quant's; y within 1e-5 of max|y| of the plain version (f32
-    # sums in another order); bf16 y the f32 y rounded; two runs bit-equal,
-    # and with and without programmatic dependent launch
+    # sums in another order); bf16 y the f32 y rounded; two runs bit-equal
     n_fused = 0
-    pdl_on = q4k.MATVEC_PDL
     for name, w in q4_cases + [("ragged 40->200, pad nibbles 0xE",
                                 q4k_padded_weight(torch, rng, 40, 200, dev))]:
         x = act_rows(1, w.in_dim)
@@ -6620,17 +6383,12 @@ def main() -> int:
             got, xf = q4k.q4k_matvec_fq(act, w, torch.float32, with_act=True)
             again = q4k.q4k_matvec_fq(act, w, torch.float32)
             got16 = q4k.q4k_matvec_fq(act, w, torch.bfloat16)
-            try:
-                q4k.MATVEC_PDL = not pdl_on
-                other = q4k.q4k_matvec_fq(act, w, torch.float32)
-            finally:
-                q4k.MATVEC_PDL = pdl_on
             ref = q4k.q4k_matvec_fq_plain(xt, w, torch.float32)
             err = (got - ref).abs().max().item()
             if not (torch.equal(xf, q4k.fake_quant_act(xt))
                     and err <= 1e-5 * ref.abs().max().item()
                     and torch.equal(got16, got.to(torch.bfloat16))
-                    and torch.equal(again, got) and torch.equal(other, got)):
+                    and torch.equal(again, got)):
                 raise AssertionError(f"q4k_matvec_fq {name} {xt.dtype}: "
                                      f"rebuilt row, y (off by {err}) or a "
                                      f"second run differs")
@@ -6640,8 +6398,7 @@ def main() -> int:
             log(f"[kernel] q4k_matvec_fq {name} {w.in_dim}->{w.out_dim}: plan "
                 f"(blocks, R, S, T) {q4k.matvec_plan(w.out_dim, w.n_pad, sms)}")
     log(f"[kernel] q4k_matvec_fq: the rebuilt row torch.equal to "
-        f"q4k_fake_quant's, two runs and the runs with and without "
-        f"programmatic dependent launch bit-equal, bf16 y the f32 y rounded, "
+        f"q4k_fake_quant's, two runs bit-equal, bf16 y the f32 y rounded, "
         f"in {n_fused} cases (the four Q4K matmuls of a layer, the tiny "
         f"widths and in = 40 with 0xE pad nibbles x f32/bf16 row); worst "
         f"max_abs_err vs the plain version "
@@ -7237,10 +6994,8 @@ def main() -> int:
 
     # K3 at B = 1 over the same 112 rows as a decode step gives them, in
     # their integer form (the norms and SwiGLU write it; wo's after
-    # q4k_act_quant): the kernel alone, with and without programmatic
-    # dependent launch; with wo's 28 q4k_act_quant (a step's K3 work); and
-    # a step's chain of producers and products (56 rms_norm_q4k, 28
-    # swiglu_q4k, 28 q4k_act_quant, 112 q4k_matvec_fq) with and without it
+    # q4k_act_quant): the kernel alone, and with wo's 28 q4k_act_quant (a
+    # step's K3 work)
     acts4 = [q4k.Q4KAct(*q4k.act_quant_q4k_packed_plain(x), x.shape)
              for _, x, *_ in mm4]
 
@@ -7257,46 +7012,8 @@ def main() -> int:
             q4k.q4k_matvec_fq(x if wl.in_dim == cfg.n_head * cfg.head_dim
                               else act, wl, torch.bfloat16)
 
-    # a layer's chain: the attention norm -> wqkv, the attention output ->
-    # q4k_act_quant -> wo, the residual add and FFN norm -> w13, SwiGLU ->
-    # w2 (the rows from the products' shapes, the weights the 28 layers')
-    by_name = {n: layer_weights(b4[n]) for n in ("wqkv", "wo", "w13", "w2")}
-    ch_x = [torch.randn(1, cfg.n_embd, device=dev, generator=gen
-                        ).to(torch.bfloat16) for _ in range(L)]
-    ch_a = [torch.randn(1, cfg.n_head * cfg.head_dim, device=dev,
-                        generator=gen).to(torch.bfloat16) for _ in range(L)]
-    ch_h = [torch.randn(1, 2 * cfg.n_hidden, device=dev, generator=gen
-                        ).to(torch.bfloat16) for _ in range(L)]
-    attn_w4 = [params4["blocks"]["attn_norm"][i] for i in range(L)]
-    ffn_w4 = [params4["blocks"]["ffn_norm"][i] for i in range(L)]
-
-    def run_chain():
-        for i in range(L):
-            _, _, act = norm_quant.rms_norm_q4k(ch_x[i], attn_w4[i], eps,
-                                                None, False)
-            q4k.q4k_matvec_fq(act, by_name["wqkv"][i], torch.bfloat16)
-            q4k.q4k_matvec_fq(ch_a[i], by_name["wo"][i], torch.bfloat16)
-            _, _, act = norm_quant.rms_norm_q4k(ch_x[i], ffn_w4[i], eps,
-                                                ch_x[i], False)
-            q4k.q4k_matvec_fq(act, by_name["w13"][i], torch.bfloat16)
-            act = norm_quant.swiglu_q4k(ch_h[i], False)[1]
-            q4k.q4k_matvec_fq(act, by_name["w2"][i], torch.bfloat16)
-
-    def with_pdl(on, fn):
-        saved_pdl = q4k.MATVEC_PDL
-        q4k.MATVEC_PDL = on
-        try:
-            return timer(fn)
-        finally:
-            q4k.MATVEC_PDL = saved_pdl
-
     k = kernels["q4k_matvec_fq"]
-    t_mv = {on: [] for on in (True, False)}
-    t_ch = {on: [] for on in (True, False)}
-    for on in (True, False, False, True):          # in turns
-        t_mv[on].append(with_pdl(on, run_fused))
-        t_ch[on].append(with_pdl(on, run_chain))
-    k["ms"] = min(t_mv[q4k.MATVEC_PDL])
+    k["ms"] = timer(run_fused)
     k["plain_ms"] = timer(run_fused_plain)
     k["library_ms"] = timer(run_mm4_library)
     t_step_k3 = timer(run_step_k3)
@@ -7305,26 +7022,18 @@ def main() -> int:
                       + wl.n_pad // 2 + 8 * (wl.n_pad // 32) + 2 * wl.out_dim
                       for wl, *_ in mm4)
     set_bound("q4k_matvec_fq", fused_bytes, mm4_ops, F32_OPS_PER_S)
-    plans = {n: q4k.matvec_plan(ws[0].out_dim, ws[0].n_pad, sms)
-             for n, ws in by_name.items()}
+    plans = {n: q4k.matvec_plan(b4[n].out_dim, b4[n].n_pad, sms)
+             for n in ("wqkv", "wo", "w13", "w2")}
     log(f"[time] a Q4K decode step's {len(mm4)} products through "
         f"q4k_matvec_fq on their integer form (plans (blocks, R, S, T) "
-        f"{plans}): {k['ms']:.4f} ms with programmatic dependent launch "
-        f"{'on' if q4k.MATVEC_PDL else 'off'} (in turns: on "
-        f"{'/'.join(f'{t:.4f}' for t in t_mv[True])}, off "
-        f"{'/'.join(f'{t:.4f}' for t in t_mv[False])} ms); with wo's "
+        f"{plans}): {k['ms']:.4f} ms; with wo's "
         f"{L} q4k_act_quant (a step's K3 work) {t_step_k3:.4f} ms; the two "
         f"kernels it replaced at B = 1 (q4k_fake_quant + q4k_matmul) "
         f"{kernels['q4k_fake_quant']['ms'] + kernels['q4k_matmul']['ms']:.4f}"
         f" ms; plain {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
         f"for {fused_bytes / 1e6:.1f} MB, library {k['library_ms']:.4f} ms; "
         f"{card}")
-    log(f"[time] a Q4K decode step's chain of producers and products "
-        f"({2 * L} rms_norm_q4k, {L} swiglu_q4k, {L} q4k_act_quant, "
-        f"{4 * L} q4k_matvec_fq): programmatic dependent launch on "
-        f"{'/'.join(f'{t:.4f}' for t in t_ch[True])} ms, off "
-        f"{'/'.join(f'{t:.4f}' for t in t_ch[False])} ms (in turns); {card}")
-    del mm4, fq4, acts4, ch_x, ch_a, ch_h
+    del mm4, fq4, acts4
 
     # ---- timing: K3 at B > 1 on its main path, a 64-token prefill's 112
     # layer products (B = PROMPT_LEN) as the model calls them:
@@ -7769,9 +7478,11 @@ def main() -> int:
     def k3_route(route):
         """The model's Q4K product (gpt.q4k_matmul) and the head's
         fake-quant (gpt.fake_quant_act) rebound here for a measurement, not
-        a switch of the package: "unquantized", no activation
-        quantization at all (K3's f32 kernel on the padded
-        activation at every row count, the head's fake-quant a pad).  Two
+        a switch of the package: "pair", more than one row through the pair
+        K3 at B > 1 was before (q4k_fake_quant + q4k_matmul);
+        "unquantized", no activation quantization at all (K3's f32 kernel
+        on the padded activation at every row count, the head's fake-quant
+        a pad).  Two
         faulty B > 1 paths, the controls of the Q4K logits check:
         "unquantized_rows", more than one row without the activation's
         quantization (one row as the package has it); "shifted_scales",
@@ -7788,11 +7499,13 @@ def main() -> int:
                 y = q4k.q4k_matvec_fq(x2d, w, dtype)
             elif route == "unquantized_rows":
                 y = q4k.q4k_matmul_f32(pad_only(x2d), w, dtype)
-            else:   # "shifted_scales"
+            elif route == "shifted_scales":
                 vp, *per_group = q4k.act_quant_q4k_packed(x2d)
                 y = q4k.q4k_matmul_w4a4(
                     vp, *(t.roll(1, 0).contiguous() for t in per_group), w,
                     dtype)
+            else:
+                y = q4k.q4k_matmul_f32(q4k.fake_quant_act(x2d), w, dtype)
             return y.reshape(*x.shape[:-1], w.out_dim)
 
         gpt.q4k_matmul, gpt._q4k_out = product, lambda ws: False
@@ -8237,16 +7950,17 @@ def main() -> int:
 
     def route_summary(label, n_slots, runs, new, old, what_new, what_old):
         """One line of a batched step through two routes in turns, the
-        better of two each, the busy time of the route's profiled run."""
+        best of each route's runs, the busy time of its profiled run."""
         best = lambda rs: min(r[0] for r in rs)
         prof = lambda rs: next((r[3] for r in rs if r[3] is not None), None)
         pr = lambda p: ("not measured" if p is None else
                         f"busy {p['busy']:.3f} ms, {p['kernels']:.0f} "
                         f"kernels, other {p['other']:.3f} ms a step")
-        log(f"[batch] {label}, {n_slots} slots ({card}), one call, better of "
-            f"two in turns: {best(runs[new]):.3f} ms per batched step "
-            f"{what_new} ({pr(prof(runs[new]))}); {best(runs[old]):.3f} ms "
-            f"{what_old} ({pr(prof(runs[old]))})")
+        log(f"[batch] {label}, {n_slots} slots ({card}), one call, the best "
+            f"of {len(runs[new])} and {len(runs[old])} runs in turns: "
+            f"{best(runs[new]):.3f} ms per batched step {what_new} "
+            f"({pr(prof(runs[new]))}); {best(runs[old]):.3f} ms {what_old} "
+            f"({pr(prof(runs[old]))})")
 
     q80_step = dict(q80_act_quant=28, q80_matmul_w8a8=113,
                     decode_attention=28, rms_norm_q80=57, swiglu_q80=28)
@@ -8325,18 +8039,28 @@ def main() -> int:
     q4_step = dict(q4k_act_quant=28, q4k_matmul_w4a4=112, q4k_fake_quant=1,
                    q80_act_quant=1, q80_matmul_w8a8=1, decode_attention=28,
                    rms_norm_q80=1, rms_norm_q4k=56, swiglu_q4k=28)
+    old_step = dict(q4k_fake_quant=113, q4k_matmul=112, q80_act_quant=1,
+                    q80_matmul_w8a8=1, decode_attention=28, rms_norm_q80=57,
+                    swiglu_q80=28)
     for n_slots in (8, 64):
-        # in turns: the eager norms and SwiGLU (then q4k_act_quant on their
-        # output), the package's path twice, the eager norms (the pair K3 at
-        # B > 1 replaced is timed by `bench q4k batched`)
-        runs = {"eager": [], None: []}
-        for route in ("eager", None, None, "eager"):
-            with norm_route(route or "fused"):
+        # in turns: the package's path, the pair K3 at B > 1 replaced, the
+        # eager norms and SwiGLU (then q4k_act_quant on their output), the
+        # package's path again
+        runs = {"pair": [], "eager": [], None: []}
+        for route in (None, "pair", "eager", None):
+            with (k3_route(route) if route == "pair" else
+                  norm_route(route or "fused")):
                 runs[route].append(throughput(
-                    bctx4, n_slots, "Q4K" if route is None else
-                    "Q4K, eager norms and SwiGLU",
+                    bctx4, n_slots, {None: "Q4K", "pair": "Q4K, K3 at B > 1 "
+                                     "as q4k_fake_quant + q4k_matmul",
+                                     "eager": "Q4K, eager norms and SwiGLU"
+                                     }[route],
+                    old_step if route == "pair" else
                     eager_counts(q4_step) if route == "eager" else q4_step,
                     profile=not runs[route]))
+        route_summary("Q4K", n_slots, runs, None, "pair",
+                      "through the Q4K form and q4k_matmul_w4a4",
+                      "through the pair it replaced")
         route_summary("Q4K", n_slots, runs, None, "eager",
                       "through rms_norm_q4k + swiglu_q4k (the Q4K form)",
                       "through the eager norm ops, SwiGLU and q4k_act_quant")

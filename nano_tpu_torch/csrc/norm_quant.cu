@@ -46,8 +46,9 @@
 // the second level, so the rounded row goes to shared memory (as f32, n
 // floats of dynamic shared memory) and each warp quantizes whole blocks
 // from there as q4k_act_quant does (2 x 16-byte reads a lane): the
-// epilogue costs ~0.7 us of a B = 1 norm, ~1.1 us of SwiGLU's 12 blocks
-// (chip_smoke.py bench q4k [clocks], NVIDIA H100 80GB HBM3).  The Q4K kernels let
+// epilogue adds ~0.8 us a launch at B = 1 (chip_smoke.py phase 3: a Q4K
+// step's 56 + 28 launches 0.221 ms, a Q80 step's 57 + 28 without it 0.155
+// ms, NVIDIA H100 80GB HBM3).  The Q4K kernels let
 // their programmatic dependents (q4k_matvec_fq) launch at entry.  Each
 // value is read once and each output written once.  T and P come from
 // the row width alone (ops/norm_quant.py:plan), never from the row count,
@@ -159,28 +160,6 @@ __device__ __forceinline__ void quantize_chunk(const float v[kNV], int i, int n,
   if (i % gs == 0) sa[i / gs] = s;
 }
 
-// Where block 0's time goes, only in a build with -DNANO_NQ_CLOCKS
-// (`chip_smoke.py bench q4k clocks`): thread 0 stamps %globaltimer (ns) at
-// entry, when the row's norm or SwiGLU is done, at the end (after the
-// quantization epilogue) and, in the Q4K epilogue, when every warp's part
-// of the row is in shared memory, in slot 0 for the norm with the Q4K epilogue,
-// 1 for SwiGLU with it, 2 for the others.  Otherwise every stamp is empty.
-#ifdef NANO_NQ_CLOCKS
-__device__ unsigned long long g_nq_clk[3][4];
-#define NQ_CLK(slot, k)                                          \
-  do {                                                           \
-    if (blockIdx.x == 0 && threadIdx.x == 0) {                   \
-      unsigned long long t_;                                     \
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));    \
-      g_nq_clk[slot][k] = t_;                                    \
-    }                                                            \
-  } while (0)
-#else
-#define NQ_CLK(slot, k) \
-  do {                  \
-  } while (0)
-#endif
-
 // The chunk v of a row of n values at value i into the row xs in shared
 // memory (16-byte aligned).
 __device__ __forceinline__ void stash_chunk(float* xs, int i, int n, const float v[kNV]) {
@@ -200,9 +179,8 @@ __device__ __forceinline__ void stash_chunk(float* xs, int i, int n, const float
 // of the block calling, after the row is in xs.
 __device__ __forceinline__ void quantize_row_q4k(const float* xs, int n, uint8_t* __restrict__ vp,
                                                  float* __restrict__ sa, float* __restrict__ ba,
-                                                 float* __restrict__ c, int slot) {
+                                                 float* __restrict__ c) {
   __syncthreads();   // the row is in xs
-  NQ_CLK(slot, 3);
   const int nblk = (n + 255) >> 8, nw = blockDim.x >> 5;
   for (int blk = threadIdx.x >> 5; blk < nblk; blk += nw)
     q4kq::act_quant_block_by_warp(xs, blk, n, threadIdx.x & 31, vp, sa, ba, c);
@@ -230,7 +208,6 @@ __device__ __forceinline__ void rms_norm_row(const XT* __restrict__ x, const XT*
   __shared__ float wsum[kMaxWarps];
   __shared__ float wmax[kMaxWarps];
   extern __shared__ float xs[];   // Q4: the rounded row
-  NQ_CLK(Q4 ? 0 : 2, 0);
   const size_t row = blockIdx.x;
   const int T = blockDim.x, t = threadIdx.x;
   x += row * E;
@@ -273,13 +250,10 @@ __device__ __forceinline__ void rms_norm_row(const XT* __restrict__ x, const XT*
       quantize_chunk(v[p], i, E, q.gs, q.xq + row * E, q.sa + row * (E / q.gs), wmax);
     }
   }
-  NQ_CLK(Q4 ? 0 : 2, 1);
   if (Q4) {
     const int G = ((E + 255) >> 8) << 3;
-    quantize_row_q4k(xs, E, q.vp + row * G * 16, q.sa + row * G, q.ba + row * G, q.c + row * G,
-                     0);
+    quantize_row_q4k(xs, E, q.vp + row * G * 16, q.sa + row * G, q.ba + row * G, q.c + row * G);
   }
-  NQ_CLK(Q4 ? 0 : 2, 2);
 }
 
 template <typename XT, int P>
@@ -310,7 +284,6 @@ __device__ __forceinline__ void swiglu_row(const XT* __restrict__ h13, XT* __res
                                            int F, int vec) {
   __shared__ float wmax[kMaxWarps];
   extern __shared__ float xs[];   // Q4: the rounded row
-  NQ_CLK(Q4 ? 1 : 2, 0);
   const size_t row = blockIdx.x;
   const int T = blockDim.x, t = threadIdx.x;
   const XT* h1 = h13 + row * 2 * F;
@@ -333,13 +306,10 @@ __device__ __forceinline__ void swiglu_row(const XT* __restrict__ h13, XT* __res
       quantize_chunk(g, i, F, q.gs, q.xq + row * F, q.sa + row * (F / q.gs), wmax);
     }
   }
-  NQ_CLK(Q4 ? 1 : 2, 1);
   if (Q4) {
     const int G = ((F + 255) >> 8) << 3;
-    quantize_row_q4k(xs, F, q.vp + row * G * 16, q.sa + row * G, q.ba + row * G, q.c + row * G,
-                     1);
+    quantize_row_q4k(xs, F, q.vp + row * G * 16, q.sa + row * G, q.ba + row * G, q.c + row * G);
   }
-  NQ_CLK(Q4 ? 1 : 2, 2);
 }
 
 template <typename XT, int P>
@@ -533,10 +503,3 @@ extern "C" int swiglu_q4k(const void* h13, void* y, void* vp, void* sa, void* ba
                 static_cast<float*>(ba), static_cast<float*>(c)};
   return swiglu(h13, y, q, x_bf16, B, F, T, P, vec, stream);
 }
-
-#ifdef NANO_NQ_CLOCKS
-// The last launch's stamps of block 0, by slot: out[4 slot + k].
-extern "C" int norm_quant_clocks(unsigned long long* out) {
-  return (int)cudaMemcpyFromSymbol(out, g_nq_clk, sizeof(unsigned long long) * 12);
-}
-#endif

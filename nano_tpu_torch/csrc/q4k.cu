@@ -66,8 +66,7 @@
 //           kept as a programmatic edge by a CUDA-graph capture), whose
 //           blocks trigger at entry: the weights are requested while it
 //           runs (they never depend on it) and the activation is read
-//           after griddepcontrol.wait; without it the activation is
-//           requested before the weights.  Measured (chip_smoke.py bench
+//           after griddepcontrol.wait.  Measured (chip_smoke.py bench
 //           q4k [clocks], NVIDIA H100 80GB HBM3): a step's 112 launches
 //           0.53 ms (the fused kernel before it 0.73); a launch alone waits
 //           ~2 us for its first tile, the last tile's dot takes ~1.3 us.
@@ -286,7 +285,7 @@ constexpr int kMvMaxStages = 16;  // ring stages at most (their barriers in 128 
 // (`chip_smoke.py bench q4k clocks` makes one beside the real library):
 // thread 0 of each block of the last launch stamps %globaltimer (ns) and
 // clock64 at entry, when the activation is in registers (after
-// griddepcontrol.wait where the launch is a programmatic dependent), when
+// griddepcontrol.wait), when
 // the first tile is in, when the last tile's dot is done and when the
 // block's last row is stored.  Otherwise every stamp is empty.
 #ifdef NANO_Q4K_CLOCKS
@@ -324,10 +323,10 @@ __host__ __device__ __forceinline__ size_t mv4_smem(int R, int n_pad, int S) {
 // ring of S stages, each tile's packed rows, scales and biases brought by
 // thread 0's bulk copies; T lanes a row (blockDim.x / T rows a pass), lane
 // j owning groups j, j + T, ... (GPL at most) of every row, whose
-// fake-quantized values it rebuilds once into registers.  With `pdl`
-// (launched as a programmatic dependent of the kernel that wrote the
-// activation) the weights are requested first and the activation read after
-// griddepcontrol.wait; else the activation is requested first.  Block 0
+// fake-quantized values it rebuilds once into registers.  Launched as a
+// programmatic dependent of the kernel that wrote the activation: the
+// weights are requested first and the activation read after
+// griddepcontrol.wait.  Block 0
 // also writes the rebuilt row to xf_out (1, n_pad) when it is not null.
 template <int GPL, typename OT>
 __global__ void __launch_bounds__(kMvThreads)
@@ -335,7 +334,7 @@ __global__ void __launch_bounds__(kMvThreads)
                          const uint8_t* __restrict__ packed, const float* __restrict__ sc,
                          const float* __restrict__ bi, OT* __restrict__ y,
                          float* __restrict__ xf_out, int n_pad, int in_dim, int N, int R, int S,
-                         int T, int pdl) {
+                         int T) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int G = n_pad >> 5, rowb = n_pad >> 1;
   const size_t stage = mv4_stage(R, n_pad), wbytes = (size_t)R * rowb;
@@ -370,36 +369,24 @@ __global__ void __launch_bounds__(kMvThreads)
   };
 
   Q4_CLK(0);
-  // the activation's integer form of this lane's groups (plain loads: with
-  // pdl the kernel that writes it may still be running when this starts)
-  uint4 xw[GPL];
-  float xs[GPL], xb[GPL];
-#pragma unroll
-  for (int i = 0; i < GPL; ++i) {
-    xw[i] = make_uint4(0u, 0u, 0u, 0u);
-    xs[i] = xb[i] = 0.f;
-  }
-  auto load_x = [&]() {
-#pragma unroll
-    for (int i = 0; i < GPL; ++i) {
-      const int g = j + i * T;
-      if (g < G && g * 32 < in_dim) {
-        xw[i] = reinterpret_cast<const uint4*>(vp)[g];
-        xs[i] = sa[g];
-        xb[i] = ba[g];
-      }
-    }
-  };
-  if (!pdl) load_x();   // requested after the weights, it would come back after them
-  __syncthreads();
   if (tid == 0) {
     for (int s = 0; s < S; ++s) mbar_init(&full[s], 1);
     mbar_init_fence();
     for (int t = 0; t < min(S, ntiles); ++t) issue(t);
   }
-  if (pdl) {
-    asm volatile("griddepcontrol.wait;" ::: "memory");
-    load_x();
+  // the activation's integer form of this lane's groups, once the kernel
+  // that writes it has ended (plain loads: it may still be running when
+  // this starts)
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  uint4 xw[GPL];
+  float xs[GPL], xb[GPL];
+#pragma unroll
+  for (int i = 0; i < GPL; ++i) {
+    const int g = j + i * T;
+    const bool on = g < G && g * 32 < in_dim;
+    xw[i] = on ? reinterpret_cast<const uint4*>(vp)[g] : make_uint4(0u, 0u, 0u, 0u);
+    xs[i] = on ? sa[g] : 0.f;
+    xb[i] = on ? ba[g] : 0.f;
   }
   // value 32 g + e of the row: x[i][e], 0 at or past in_dim (a packed 0
   // there would rebuild to -ba)
@@ -719,10 +706,10 @@ void launch_matmul(const float* x, const uint8_t* p, const float* s, const float
 }
 
 // One q4k_matvec_fq launch, as a programmatic dependent of the kernel before
-// it on the stream where `pdl` (cudaLaunchKernelEx; a CUDA-graph capture
-// keeps the programmatic edge).
+// it on the stream (cudaLaunchKernelEx; a CUDA-graph capture keeps the
+// programmatic edge).
 template <int GPL, typename OT>
-cudaError_t launch_mv4(dim3 grid, dim3 block, size_t smem, cudaStream_t st, int pdl,
+cudaError_t launch_mv4(dim3 grid, dim3 block, size_t smem, cudaStream_t st,
                        const uint8_t* vp, const float* sa, const float* ba, const uint8_t* p,
                        const float* s, const float* b, OT* y, float* xf_out, int n_pad,
                        int in_dim, int N, int R, int S, int T) {
@@ -735,9 +722,9 @@ cudaError_t launch_mv4(dim3 grid, dim3 block, size_t smem, cudaStream_t st, int 
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = pdl ? 1 : 0;
+  cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, q4k_matvec_fq_kernel<GPL, OT>, vp, sa, ba, p, s, b, y, xf_out,
-                            n_pad, in_dim, N, R, S, T, pdl);
+                            n_pad, in_dim, N, R, S, T);
 }
 
 }  // namespace
@@ -781,13 +768,13 @@ extern "C" int q4k_matmul(const void* x, const void* packed, const void* scales,
 // weight (N, n_pad / 2) with its scales and biases (N, n_pad / 32) -> y (1,
 // N) f32 or bf16, the f32 dot of the fake-quantized row with the dequantized
 // weight; with xf_out (1, n_pad) f32 not null also the rebuilt row.  The
-// split (blocks, R, S, T) is ops/q4k.py:matvec_plan's; `pdl`: launched as a
+// split (blocks, R, S, T) is ops/q4k.py:matvec_plan's; launched as a
 // programmatic dependent of the kernel before it.  The packed weight 16-byte
 // aligned.
 extern "C" int q4k_matvec_fq(const void* vp, const void* sa, const void* ba, const void* packed,
                              const void* scales, const void* biases, void* y, int y_bf16,
                              void* xf_out, int n_pad, int in_dim, int N, int blocks, int R, int S,
-                             int T, int pdl, void* stream) {
+                             int T, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int G = n_pad / 32;
   const int gpl = T > 0 ? (G + T - 1) / T : 0;
@@ -806,7 +793,7 @@ extern "C" int q4k_matvec_fq(const void* vp, const void* sa, const void* ba, con
   const float* b_ = static_cast<const float*>(biases);
   float* xf_ = static_cast<float*>(xf_out);
 #define NANO_MV4(GPL_, OT)                                                                   \
-  launch_mv4<GPL_, OT>(grid, block, smem, st, pdl, vp_, sa_, ba_, p_, s_, b_,                \
+  launch_mv4<GPL_, OT>(grid, block, smem, st, vp_, sa_, ba_, p_, s_, b_,                \
                        static_cast<OT*>(y), xf_, n_pad, in_dim, N, R, S, T)
 #define NANO_MV4_OT(GPL_) \
   (y_bf16 ? NANO_MV4(GPL_, __nv_bfloat16) : NANO_MV4(GPL_, float))

@@ -66,7 +66,8 @@ from nano_tpu_torch.ops.flash_attn import flash_attention
 from nano_tpu_torch.ops.norm_quant import (rms_norm, rms_norm_q4k,
                                            rms_norm_q80, swiglu_q4k,
                                            swiglu_q80)
-from nano_tpu_torch.ops.q4k import Q4KTensor, fake_quant_act, q4k_matmul
+from nano_tpu_torch.ops.q4k import (MAX_MATVEC_PAD, Q4KTensor, fake_quant_act,
+                                    q4k_matmul)
 from nano_tpu_torch.ops.qmatmul import Q80Tensor, q80_matmul
 
 Params = Dict[str, Any]
@@ -133,8 +134,10 @@ def _q4k_out(ws) -> bool:
     """Whether a fused norm or SwiGLU writes the Q4K integer form of its
     output for the products `ws`: where every one is Q4K, at any row count
     (one row as much as more: the quantization, not the product, is what a
-    raw row would cost q4k_matvec_fq)."""
-    return bool(ws) and all(isinstance(w, Q4KTensor) for w in ws)
+    raw row would cost q4k_matvec_fq), and no row is wider than
+    q4k_matvec_fq takes (MAX_MATVEC_PAD; a wider one goes as a tensor)."""
+    return bool(ws) and all(isinstance(w, Q4KTensor)
+                            and w.n_pad <= MAX_MATVEC_PAD for w in ws)
 
 
 def _norm(x: torch.Tensor, weight: torch.Tensor, eps: float, ws,

@@ -62,7 +62,7 @@ SIGNATURES = {
     "decode_attention_part_stride": ([I, I], "decode_attn"),
     "q4k_fake_quant": ([P, I, P, I, I, I, P], "q4k"),
     "q4k_matmul": ([P, P, P, P, P, I, I, I, I, I, P], "q4k"),
-    "q4k_matvec_fq": ([P, P, P, P, P, P, P, I, P, I, I, I, I, I, I, I, I, P],
+    "q4k_matvec_fq": ([P, P, P, P, P, P, P, I, P, I, I, I, I, I, I, I, P],
                       "q4k"),
     "q4k_matvec_fq_init": ([], "q4k"),
     "q4k_fast_div_check": ([P, P, I, P, P, P, P], "q4k"),

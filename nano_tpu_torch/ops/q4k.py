@@ -588,15 +588,13 @@ q4k_matmul_f32.launches = 0
 # q4k_matvec_fq's work split: lanes a row at most (a block's threads), the
 # ring's stages at most, the shared memory a block may take so that two fit
 # on an SM (of the H100's 227 KB), and the longest padded row it takes
-# (csrc/q4k.cu: kMvThreads, kMvMaxStages, kMvMaxGroups).
+# (csrc/q4k.cu: kMvThreads, kMvMaxStages, kMvMaxGroups; a lane holds its
+# groups' rebuilt values in registers).  A wider raw row takes the two
+# kernels before it, q4k_fake_quant and q4k_matmul.
 MATVEC_THREADS = 256
 MATVEC_MAX_STAGES = 16
 MATVEC_SMEM = 112 * 1024
 MAX_MATVEC_PAD = 32768
-# q4k_matvec_fq is launched as a programmatic dependent of the kernel before
-# it (its weights streamed while that kernel still runs): chip_smoke.py
-# bench q4k measures it with and without
-MATVEC_PDL = True
 
 
 def matvec_smem(R: int, n_pad: int, S: int) -> int:
@@ -652,13 +650,20 @@ def q4k_matvec_fq(x, w: Q4KTensor, dtype=torch.bfloat16,
     first (``q4k_act_quant``: two launches).  The kernel rebuilds the
     fake-quantized values v * sa - ba from the integer form, the bits of
     ``fake_quant_act``; with_act=True also returns them, (1, n_pad) f32 as
-    the kernel rebuilt them."""
+    the kernel rebuilt them.  The kernel takes n_pad up to
+    MAX_MATVEC_PAD; a wider raw row on the card takes ``fake_quant_act``
+    and ``q4k_matmul_f32`` (the same function), a wider ``Q4KAct`` is
+    refused (the model writes none: ``gpt._q4k_out``)."""
     act = x
     if not isinstance(x, Q4KAct):
         if (x.dim() != 2 or x.shape != (1, w.in_dim)
                 or x.dtype not in _OUT_TYPES):
             raise ValueError(f"q4k_matvec_fq takes an f32/bf16 (1, "
                              f"{w.in_dim}), got {x.dtype} {tuple(x.shape)}")
+        if x.device.type != "cpu" and w.n_pad > MAX_MATVEC_PAD:
+            xf = fake_quant_act(x)
+            y = q4k_matmul_f32(xf, w, dtype)
+            return (y, xf) if with_act else y
         act = Q4KAct(*act_quant_q4k_packed(x), x.shape)
     dev = act.vp.device
     if dev.type == "cpu":
@@ -687,7 +692,7 @@ def q4k_matvec_fq(x, w: Q4KTensor, dtype=torch.bfloat16,
             w.packed.data_ptr(), w.scales.data_ptr(), w.biases.data_ptr(),
             y.data_ptr(), int(dtype == torch.bfloat16),
             None if xf is None else xf.data_ptr(), w.n_pad, w.in_dim,
-            w.out_dim, *plan, int(MATVEC_PDL), _build.stream(act.vp))
+            w.out_dim, *plan, _build.stream(act.vp))
     q4k_matvec_fq.launches += 1
     _build.check(rc, "q4k_matvec_fq")
     return (y, xf) if with_act else y

@@ -626,9 +626,9 @@ def test_q4k_matvec_fq_rebuilds_the_fake_quant_and_matches_plain(inn, out):
     with an all-zero and constant groups: (a) the row the kernel rebuilt
     from q4k_act_quant's integer form torch.equal to q4k_fake_quant's; (b)
     y within 1e-5 of max|y| of the plain version (f32 sums in another
-    order), bf16 y the f32 y rounded; (c) two runs bit-equal, and with and
-    without programmatic dependent launch; q4k_matmul takes it for one row
-    (q4k_act_quant, then the kernel) and for a norm's Q4KAct."""
+    order), bf16 y the f32 y rounded; (c) two runs bit-equal, from the raw
+    row and from its Q4KAct; q4k_matmul takes it for one row (q4k_act_quant,
+    then the kernel) and for a norm's Q4KAct."""
     _need_card()
     rng = np.random.RandomState(7 * inn + out)
     w = _q4k_card_weight(rng, inn, out, pad_nibble=0xE)
@@ -639,12 +639,7 @@ def test_q4k_matvec_fq_rebuilds_the_fake_quant_and_matches_plain(inn, out):
         got16 = tq4.q4k_matvec_fq(x, w, torch.bfloat16)
         via = tq4.q4k_matmul(x[0], w, torch.float32)
         act = tq4.Q4KAct(*tq4.act_quant_q4k_packed(x), x.shape)
-        pdl = tq4.MATVEC_PDL
-        try:
-            tq4.MATVEC_PDL = not pdl
-            other = tq4.q4k_matvec_fq(act, w, torch.float32)
-        finally:
-            tq4.MATVEC_PDL = pdl
+        other = tq4.q4k_matvec_fq(act, w, torch.float32)
         plain = tq4.q4k_matvec_fq_plain(x, w, torch.float32)
         torch.cuda.synchronize()
         assert (tq4.q4k_matvec_fq.launches - n0[0],
@@ -663,13 +658,12 @@ def test_q4k_matvec_fq_rebuilds_the_fake_quant_and_matches_plain(inn, out):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("pdl", [False, True])
-def test_q4k_matvec_fq_after_its_producers_under_graph_capture(pdl):
+def test_q4k_matvec_fq_after_its_producers_under_graph_capture():
     """A decode step's chain: rms_norm_q4k -> q4k_matvec_fq, swiglu_q4k ->
     q4k_matvec_fq, decode's attention output -> q4k_act_quant ->
-    q4k_matvec_fq, captured in a CUDA graph (with the programmatic edges
-    where `pdl`) and replayed on new inputs: every product torch.equal to
-    the same chain run eagerly; the refusals raise."""
+    q4k_matvec_fq, captured in a CUDA graph (with the programmatic edges)
+    and replayed on new inputs: every product torch.equal to the same chain
+    run eagerly; the refusals raise."""
     _need_card()
     rng = np.random.RandomState(11)
     E, Fh = 1024, 3072
@@ -686,30 +680,58 @@ def test_q4k_matvec_fq_after_its_producers_under_graph_capture(pdl):
                 tq4.q4k_matmul(tnq.swiglu_q4k(h13, want_hidden=False)[1], w_ffn),
                 tq4.q4k_matmul(att, w_wo))
 
-    saved = tq4.MATVEC_PDL
-    tq4.MATVEC_PDL = pdl
-    try:
-        chain()
+    chain()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = chain()
+    for _ in range(3):
+        x.copy_(torch.randn_like(x))
+        h13.copy_(torch.randn_like(h13))
+        att.copy_(torch.randn_like(att))
+        graph.replay()
+        want = chain()
         torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            outs = chain()
-        for _ in range(3):
-            x.copy_(torch.randn_like(x))
-            h13.copy_(torch.randn_like(h13))
-            att.copy_(torch.randn_like(att))
-            graph.replay()
-            want = chain()
-            torch.cuda.synchronize()
-            for got, ref in zip(outs, want):
-                assert torch.equal(got, ref)
-    finally:
-        tq4.MATVEC_PDL = saved
+        for got, ref in zip(outs, want):
+            assert torch.equal(got, ref)
     act = tq4.Q4KAct(*tq4.act_quant_q4k_packed(att), att.shape)
     with pytest.raises(ValueError):
         tq4.q4k_matvec_fq(act, w_in)          # 2048 values for a 1024 weight
     with pytest.raises(ValueError):
         tq4.q4k_matvec_fq(att[:, :100], w_wo)
+
+
+@pytest.mark.cuda
+def test_q4k_matvec_fq_takes_wider_rows_through_the_two_kernels():
+    """A raw row wider than q4k_matvec_fq's registers take (n_pad past
+    MAX_MATVEC_PAD) goes through q4k_fake_quant + q4k_matmul: y torch.equal
+    to the two kernels' and within 1e-5 of max|y| of the plain version, no
+    q4k_matvec_fq launch; its Q4KAct is refused, and the model writes none
+    for it (gpt._q4k_out)."""
+    _need_card()
+    from nano_tpu_torch.models import gpt as tgpt
+    rng = np.random.RandomState(5)
+    inn = tq4.MAX_MATVEC_PAD + 200
+    w = _q4k_card_weight(rng, inn, 96, pad_nibble=0xE)
+    assert w.n_pad > tq4.MAX_MATVEC_PAD and not tgpt._q4k_out([w])
+    x = _act_rows(rng, 1, inn).to(torch.bfloat16)
+    n0 = (tq4.q4k_matvec_fq.launches, tq4.fake_quant_act.launches,
+          tq4.q4k_matmul_f32.launches)
+    got, xf = tq4.q4k_matvec_fq(x, w, torch.float32, with_act=True)
+    via = tq4.q4k_matmul(x, w, torch.float32)
+    torch.cuda.synchronize()
+    assert (tq4.q4k_matvec_fq.launches - n0[0],
+            tq4.fake_quant_act.launches - n0[1],
+            tq4.q4k_matmul_f32.launches - n0[2]) == (0, 2, 2)
+    assert torch.equal(xf, tq4.fake_quant_act(x))
+    assert torch.equal(got, tq4.q4k_matmul_f32(xf, w, torch.float32))
+    assert torch.equal(via, got)
+    plain = tq4.q4k_matvec_fq_plain(x, w, torch.float32)
+    torch.testing.assert_close(got, plain, rtol=0,
+                               atol=1e-5 * plain.abs().max().item())
+    act = tq4.Q4KAct(*tq4.act_quant_q4k_packed(x), x.shape)
+    with pytest.raises(ValueError):
+        tq4.q4k_matvec_fq(act, w)
 
 
 def _q4k_card_weight(rng, inn, out, pad_nibble=None):

@@ -246,3 +246,30 @@ def test_matvec_plan_covers_every_row_once_and_fits(N, inn, n_sm):
         for t in range(-(-(hi - lo) // R)):
             seen[lo + t * R:min(hi, lo + (t + 1) * R)] += 1
     assert (seen == 1).all()
+
+
+def test_rows_wider_than_the_matvec_go_as_tensors(monkeypatch):
+    """A Q4K weight wider than q4k_matvec_fq takes (n_pad past
+    MAX_MATVEC_PAD): the model's norm writes no Q4KAct for it but the
+    normed tensor (on the card the raw row then takes q4k_fake_quant +
+    q4k_matmul), and one row's product is within 1e-5 of max|y| of JAX's
+    q4k_matmul_ref on it."""
+    from nano_tpu_torch.models import gpt as tgpt
+    inn, out = tq.MAX_MATVEC_PAD + 200, 4
+    blocks = _weights(out, inn, 1)
+    jw = jq.Q4KTensor.from_blocks(blocks, out, inn)
+    tw = tq.Q4KTensor.from_blocks(blocks, out, inn)
+    assert tw.n_pad > tq.MAX_MATVEC_PAD
+    assert not tgpt._q4k_out([tw]) and tgpt._q4k_out(
+        [tq.Q4KTensor.from_blocks(_weights(out, 320, 2), out, 320)])
+    x = torch.from_numpy(_rows(3, 1, inn))
+    _, hn, _ = tgpt._norm(x, torch.ones(inn), 1e-6, [tw])
+    assert isinstance(hn, torch.Tensor) and hn.shape == (1, inn)
+    monkeypatch.setenv("NANO_TPU_DEQUANT", "f32")
+    want = np.asarray(_jax_op_by_op(
+        lambda a: jq.q4k_matmul_ref(a, jw, jnp.float32),
+        jnp.asarray(hn.numpy())))
+    monkeypatch.delenv("NANO_TPU_DEQUANT")
+    got = tq.q4k_matmul(hn, tw, torch.float32)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
