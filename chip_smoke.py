@@ -411,11 +411,14 @@ LORA_STEPS, LORA_LR = 6, 2e-3
 MERGE_LOGITS_TOL = 1e-3
 # phase 3: K4's offset form, (B, Sq, Skv, offset, H, KV, D): Nano-168M's
 # head shape and D = 128 at offsets 0, S / 2 and inside a 64-row tile, and
-# keys past the last query
+# keys past the last query; the wgmma passes' other widths (32, 64, 16) and
+# an odd count of query heads a KV head
 OFFSET_CASES = ((2, 256, 512, 0, 16, 8, 48), (2, 256, 512, 256, 16, 8, 48),
                 (2, 256, 512, 77, 16, 8, 48), (2, 200, 512, 131, 16, 8, 48),
                 (1, 256, 512, 256, 16, 8, 128), (1, 256, 512, 77, 16, 8, 128),
-                (1, 130, 300, 131, 8, 2, 128))
+                (1, 130, 300, 131, 8, 2, 128), (2, 256, 512, 256, 16, 8, 32),
+                (2, 100, 300, 37, 8, 2, 64), (2, 37, 200, 5, 4, 1, 16),
+                (1, 130, 300, 131, 6, 2, 48))
 # phase 9: SFT steps on phase 6's step-12 checkpoint (config/sft.json,
 # warmup cut to 1 step so that a few steps move the held batch), steps of
 # each remat policy, and the problems' sizes (the sort run is the JAX
@@ -829,16 +832,74 @@ def _best_of(torch, fn, reps=5):
     return best
 
 
+class BwdSplit:
+    """K4's bf16 backward pass by pass, for a split of its time: the
+    launches ops/flash_attn.flash_attn_bwd makes, one at a time, on scratch
+    outputs.  wgmma_dq leaves the row statistics that wgmma_dkdv reads (in
+    self.stats); mma(passes) runs the mma.sync dq pass (1), dk/dv pass (2) or
+    both (3) in csrc/flash_attn.cu.  wgmma_dkdv(pdl=1) launches the dk/dv
+    pass as a programmatic dependent of the launch before it, as the route
+    does; pdl=0 as a plain launch."""
+
+    def __init__(self, torch, q, k, v, out, lse, dout, offset, hpb):
+        from nano_tpu_torch.ops import _build, flash_attn
+        B, Sq, H, D = q.shape
+        Skv, KV = k.shape[1], k.shape[2]
+        self.dq, self.dk, self.dv = (torch.empty_like(x) for x in (q, k, v))
+        self.stats = torch.empty(B, H, -(-Sq // 64), 2, 64, device=q.device)
+        self.delta = torch.empty(B, H, Sq, device=q.device)
+        self.ptrs = [x.data_ptr() for x in (q, k, v, out, lse, dout)]
+        self.shape = (B, Sq, Skv, offset, H, KV, D)
+        self.tail = [*(x.stride(i) for x in (q, k, v) for i in range(3)),
+                     D ** -0.5]
+        self.hpb, self.torch = hpb, torch
+        dev = q.device.index
+        self.spread = (
+            flash_attn.wgmma_spread(-(-Sq // 64), H // hpb * B,
+                                    flash_attn._resident(dev, D, 0, hpb)),
+            flash_attn.wgmma_spread(-(-Skv // 64), KV * B,
+                                    flash_attn._resident(dev, D, 1, 1)))
+        self.wg, self.fa = _build.lib("flash_bwd_wgmma"), _build.lib(
+            "flash_attn")
+
+    def stream(self):      # the current one: a graph capture's, in a Timer
+        return self.torch.cuda.current_stream().cuda_stream
+
+    def wgmma_dq(self):
+        q, k, v, out, lse, dout = self.ptrs
+        assert self.wg.flash_bwd_dq_wgmma(
+            q, k, v, out, lse, dout, self.dq.data_ptr(),
+            self.stats.data_ptr(), *self.shape, self.hpb, self.spread[0],
+            *self.tail, self.stream()) == 0
+
+    def wgmma_dkdv(self, pdl=1):
+        q, k, v, out, lse, dout = self.ptrs
+        assert self.wg.flash_bwd_dkdv_wgmma(
+            q, k, v, dout, self.stats.data_ptr(), self.dk.data_ptr(),
+            self.dv.data_ptr(), *self.shape, self.spread[1], pdl,
+            *self.tail, self.stream()) == 0
+
+    def mma(self, passes):
+        q, k, v, out, lse, dout = self.ptrs
+        assert self.fa.flash_attn_bwd(
+            q, k, v, out, lse, dout, self.dq.data_ptr(), self.dk.data_ptr(),
+            self.dv.data_ptr(), self.delta.data_ptr(), 1, *self.shape,
+            *self.tail, passes, self.stream()) == 0
+
+
 def bench_flash(torch, clocks=False):
     """One Nano-168M training step's 24 forward launches of flash_attn_fwd
     (B=64, S=512, H=16, KV=8, D=48, bf16, each layer on its own tensors) and
     the Qwen3 head shape (D=128), no autograd, beside
     scaled_dot_product_attention(is_causal, enable_gqa): CUDA events around
     the step, best of five, in the order library, kernel, kernel, library.
-    Then the step's 24 backward launches of flash_attn_bwd beside SDPA's
-    backward (autograd of the same call) the same way, and what bounds the
-    backward: its kernels' instruction mix in the SASS and the cycles each
-    warp spends in each phase (bench_bwd_clocks, with `bench flash
+    Then the step's 24 backward launches of flash_attn_bwd (its route's
+    kernels: the wgmma passes at D = 48, the mma.sync passes at D = 128) beside SDPA's
+    backward (autograd of the same call) the same way; the backward by
+    route at 10d's ranks and the training shapes (bench_bwd_routes); and
+    what bounds the backward: the kernels' instruction mix in the SASS and
+    the cycles each warp spends in each phase (bench_bwd_clocks for the mma.sync
+    passes, bench_wgmma_clocks for the wgmma passes, with `bench flash
     clocks`)."""
     import torch.nn.functional as F
     from nano_tpu_torch.ops import _build, flash_attn
@@ -907,18 +968,121 @@ def bench_flash(torch, clocks=False):
         if D == 48 and clocks:
             bench_bwd_clocks(torch, layers[0], fwd[0], douts[0])
         del layers, fwd, douts, lib_graphs
+    bench_bwd_routes(torch, clocks)
     bench_bwd_sass()
 
 
+def bench_bwd_routes(torch, clocks=False):
+    """K4's bf16 backward by route, alone (no autograd), 4 layers' launches
+    replayed from a CUDA graph: phase 10d's two ranks (B=8, 256 queries at
+    offsets 256 and 0 against 512 keys) and the training shapes of
+    Nano-168M (D=48) and Nano-56M (D=32), B=64 x 512.  The wgmma passes
+    with one and two query heads a dq block, in turns with the mma.sync passes
+    (old, new, new, old), and the wgmma passes split: dq, dk/dv alone, the
+    two without and with PDL.  With `clocks`, where the wgmma passes'
+    warps spend their cycles (bench_wgmma_clocks)."""
+    from nano_tpu_torch.ops import _build, flash_attn
+    timer = Timer(torch)
+    wl = _build.lib("flash_bwd_wgmma")
+    log("[bench flash] blocks per SM of the wgmma passes by D: dq (1 / 2 "
+        "query heads a block), dk/dv: " + ", ".join(
+            f"D={d} {wl.flash_bwd_wgmma_blocks_per_sm(d, 0, 1)} / "
+            f"{wl.flash_bwd_wgmma_blocks_per_sm(d, 0, 2)}, "
+            f"{wl.flash_bwd_wgmma_blocks_per_sm(d, 1, 1)}"
+            for d in flash_attn.WGMMA_HEAD_DIMS))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    mk = lambda *s_: torch.randn(*s_, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    for B, Sq, Skv, off, D in ((8, 256, 512, 256, 48), (8, 256, 512, 0, 48),
+                               (64, 512, 512, 0, 48), (64, 512, 512, 0, 32)):
+        H, KV = 16, 8
+        layers = []
+        for _ in range(4):
+            q, k, v, g = (mk(B, Sq, H, D), mk(B, Skv, KV, D),
+                          mk(B, Skv, KV, D), mk(B, Sq, H, D))
+            o, l = flash_attn.flash_attn_fwd(q, k, v, off)
+            layers.append((q, k, v, o, l, g))
+        run = lambda rt: timer(lambda: [flash_attn.flash_attn_bwd(
+            *x, off, route=rt) for x in layers])
+        route = flash_attn.bwd_route(B, Sq, Skv, off, H, KV, D, torch.bfloat16)
+        old = flash_attn.BwdRoute("mma")
+        t = [run(r_) for r_ in (old, route, route, old)]
+        other = flash_attn.BwdRoute("wgmma", 3 - route.hpb)
+        t_other = run(other)
+        splits = [BwdSplit(torch, *x, off, route.hpb) for x in layers]
+        for sp in splits:
+            sp.wgmma_dq()
+        by_pass = [timer(lambda: [sp.wgmma_dq() for sp in splits]),
+                   timer(lambda: [sp.wgmma_dkdv(0) for sp in splits]),
+                   timer(lambda: [(sp.wgmma_dq(), sp.wgmma_dkdv(0))
+                                  for sp in splits]),
+                   timer(lambda: [(sp.wgmma_dq(), sp.wgmma_dkdv(1))
+                                  for sp in splits])]
+        log(f"[bench flash] 4 x flash_attn_bwd B={B} Sq={Sq} Skv={Skv} "
+            f"offset={off} H={H} KV={KV} D={D} bf16, graph replays: the "
+            f"route {tuple(route)} {t[1]:.4f} / {t[2]:.4f} ms, the mma.sync passes "
+            f"{t[0]:.4f} / {t[3]:.4f} ms (new / old "
+            f"{min(t[1], t[2]) / min(t[0], t[3]):.3f}), {tuple(other)} "
+            f"{t_other:.4f} ms; by pass: dq {by_pass[0]:.4f}, dk/dv alone "
+            f"{by_pass[1]:.4f}, both {by_pass[2]:.4f} without PDL, "
+            f"{by_pass[3]:.4f} with it")
+        if clocks and (B, off) in ((8, 256), (64, 0)) and D == 48:
+            bench_wgmma_clocks(torch, layers[0], off, route.hpb)
+        del layers, splits
+
+
+def bench_wgmma_clocks(torch, layer, off, hpb):
+    """Builds flash_bwd_wgmma.cu once more with -DNANO_BWD_CLOCKS into
+    build/flash_clocks/ and runs one layer's two wgmma passes through it:
+    the cycles every consumer warp spends in each phase, summed over the
+    grid, as shares of the pass's total."""
+    import ctypes
+    from nano_tpu_torch.ops import _build, flash_attn
+    work = os.path.join(ROOT, "build", "flash_clocks")
+    os.makedirs(work, exist_ok=True)
+    so = os.path.join(work, "libflash_bwd_wgmma_clocks.so")
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    subprocess.run([_build.nvcc_path(), *flags, "-DNANO_BWD_CLOCKS", "-o", so,
+                    os.path.join(_build.CSRC_DIR, "flash_bwd_wgmma.cu")],
+                   check=True)
+    lib = ctypes.CDLL(so)
+    for name in ("flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma"):
+        getattr(lib, name).argtypes = _build.SIGNATURES[name][0]
+    lib.flash_bwd_wgmma_clocks.argtypes = [ctypes.c_void_p]
+    sp = BwdSplit(torch, *layer, off, hpb)
+    sp.wg = lib
+    clocks = (ctypes.c_ulonglong * 12)()
+    for _ in range(2):      # the first run warms up; its counts are dropped
+        assert lib.flash_bwd_wgmma_clocks(clocks) == 0
+        sp.wgmma_dq()
+        sp.wgmma_dkdv(0)
+        torch.cuda.synchronize()
+    assert lib.flash_bwd_wgmma_clocks(clocks) == 0
+    q, k = layer[0], layer[1]
+    phases = ("prologue", "waits", "S/dP products", "softmax, dS",
+              "gradient products", "epilogue")
+    for i, kname in enumerate(("dq", "dk/dv")):
+        c = list(clocks)[6 * i:6 * i + 6]
+        tot = sum(c) or 1
+        log(f"[bench flash] clock64 per consumer warp, wgmma {kname} pass, "
+            f"one layer B={q.shape[0]} Sq={q.shape[1]} Skv={k.shape[1]} "
+            f"offset={off} D={q.shape[3]} (instrumented build): "
+            + ", ".join(f"{p} {x / tot:.3f}" for p, x in zip(phases, c))
+            + f" of {tot / 1e9:.3f} G warp-cycles")
+
+
 def bench_bwd_sass():
-    """Instruction mix of the bf16 backward kernels at D = 48 as built:
-    cuobjdump's SASS of libflash_attn.so, opcodes counted per kernel (the
-    whole kernel, every unrolled diagonal variant included).  The full
-    listing goes to build/flash_bwd_sass.txt."""
+    """Instruction mix of the bf16 backward kernels at D = 48 as built, the
+    mma.sync passes and the wgmma passes: cuobjdump's SASS of libflash_attn.so
+    and libflash_bwd_wgmma.so, opcodes counted per kernel (the whole
+    kernel, every unrolled variant included).  The full listing goes to
+    build/flash_bwd_sass.txt."""
     from nano_tpu_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
-    text = subprocess.run([tool, "-sass", _build._lib_path("flash_attn")],
-                          capture_output=True, text=True, check=True).stdout
+    text = "".join(subprocess.run(
+        [tool, "-sass", _build._lib_path(stem)], capture_output=True,
+        text=True, check=True).stdout for stem in ("flash_attn",
+                                                   "flash_bwd_wgmma"))
     out_dir = os.path.join(ROOT, "build")
     os.makedirs(out_dir, exist_ok=True)
     kernels, name = {}, None
@@ -926,7 +1090,9 @@ def bench_bwd_sass():
         if "Function : " in line:
             name = line.split("Function : ")[1].strip()
             keep = ("flash_bwd_dq_v3_kernelILi48ELi2E" in name
-                    or "flash_bwd_dkdv_v3_kernelILi48E" in name)
+                    or "flash_bwd_dkdv_v3_kernelILi48E" in name
+                    or "flash_bwd_dq_wgmma_kernelILi48ELi2E" in name
+                    or "flash_bwd_dkdv_wgmma_kernelILi48E" in name)
             name = name if keep else None
             if name:
                 kernels[name] = []
@@ -938,7 +1104,8 @@ def bench_bwd_sass():
                 kernels[name].append(op[0])
     with open(os.path.join(out_dir, "flash_bwd_sass.txt"), "w") as f:
         f.write(text)
-    groups = (("HMMA", "mma"), ("MUFU.EX2", "ex2"), ("LDSM", "ldmatrix"),
+    groups = (("HMMA", "mma"), ("HGMMA", "wgmma"), ("UTMALDG", "tma"),
+              ("MUFU.EX2", "ex2"), ("LDSM", "ldmatrix"),
               ("LDGSTS", "cp.async"), ("BAR", "barrier"),
               ("FFMA", "ffma"), ("FMUL", "fmul"), ("FADD", "fadd"),
               ("F2FP", "bf16 pack"), ("IMAD", "imad"), ("IADD3", "iadd"),
@@ -948,7 +1115,8 @@ def bench_bwd_sass():
         counts = {label: sum(1 for o in ops if o.startswith(prefix))
                   for prefix, label in groups}
         known = sum(counts.values())
-        short = "dq" if "dq_v3" in name else "dk/dv"
+        short = (("wgmma " if "wgmma" in name else "mma.sync ")
+                 + ("dq" if "_dq_" in name else "dk/dv"))
         log(f"[bench flash] SASS of the {short} kernel at D=48: {len(ops)} "
             f"instructions: " + ", ".join(f"{k} {v}" for k, v in counts.items()
                                           if v) + f", other {len(ops) - known}")
@@ -983,7 +1151,7 @@ def bench_bwd_clocks(torch, qkv, fwd, dout):
         rc = lib.flash_attn_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), dout.data_ptr(), *(g.data_ptr() for g in grads),
-            delta.data_ptr(), 1, B, S, S, 0, H, KV, D, *strides, D ** -0.5,
+            delta.data_ptr(), 1, B, S, S, 0, H, KV, D, *strides, D ** -0.5, 3,
             torch.cuda.current_stream().cuda_stream)
         assert rc == 0, rc
         torch.cuda.synchronize()
@@ -1860,7 +2028,11 @@ COUNTER_OF = dict(
     q4k_act_quant=("act_quant_q4k_packed", "launches"),
     q4k_matmul_w4a4=("q4k_matmul_w4a4", "launches"),
     flash_attn_fwd=("flash_attention", "launches"),
-    flash_attn_bwd=("flash_attention", "backward_launches"))
+    flash_attn_bwd=("flash_attention", "backward_launches"),
+    # of those, the backward calls whose route took the wgmma passes
+    # (csrc/flash_bwd_wgmma.cu): the counter that shows a main path went
+    # through them, read beside flash_attn_bwd (no row of its own)
+    flash_attn_bwd_wgmma=("flash_attention", "wgmma_launches"))
 
 
 def zero_launches(torch):
@@ -4432,7 +4604,8 @@ def par_train(torch, np, job, shape, over=None, steps=PAR_STEPS,
     from nano_tpu_torch.models import gpt
     from nano_tpu_torch.train.trainer import Trainer
     dev = torch.device(job["device"])
-    names = ["flash_attn_fwd", "flash_attn_bwd"]
+    # bf16 at D = 48: every backward takes the wgmma passes
+    names = ["flash_attn_fwd", "flash_attn_bwd", "flash_attn_bwd_wgmma"]
     tag = "_".join(f"{k}{v}" for k, v in shape.items()) + (
         "_lora" if (over or {}).get("use_lora") else "")
     tc = dict(job["train_cfg"], mesh_shape=shape,
@@ -5677,8 +5850,11 @@ def main() -> int:
           "nano_tpu_torch/csrc/q4k.cu")
     entry("flash_attn_fwd", "nano_tpu/models/gpt.py:239",
           "nano_tpu_torch/csrc/flash_attn.cu")
+    # the backward: in bf16 at D <= 64 (every training path here) the two
+    # wgmma passes of flash_bwd_wgmma.cu (ops/flash_attn.py:bwd_route);
+    # the mma.sync passes in flash_attn.cu at D = 128, f32 on the CUDA cores
     entry("flash_attn_bwd", "nano_tpu/models/gpt.py:239",
-          "nano_tpu_torch/csrc/flash_attn.cu")
+          "nano_tpu_torch/csrc/flash_bwd_wgmma.cu")
     # K4's offset form: the same two kernels, a rank of sequence
     # parallelism's queries at their offset against the gathered K/V
     # (phase 10d's main path; the JAX package gets it from GSPMD's
@@ -5686,7 +5862,7 @@ def main() -> int:
     entry("flash_attn_fwd_offset", "nano_tpu/models/gpt.py:239",
           "nano_tpu_torch/csrc/flash_attn.cu")
     entry("flash_attn_bwd_offset", "nano_tpu/models/gpt.py:239",
-          "nano_tpu_torch/csrc/flash_attn.cu")
+          "nano_tpu_torch/csrc/flash_bwd_wgmma.cu")
 
     def note_err(name, err):
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
@@ -6635,7 +6811,36 @@ def main() -> int:
             f"enable_gqa) {kk['library_ms']:.3f} ms, bound {kk['bound_ms']:.4f} "
             f"ms ({kk['bound_by']}: {TL * n_bytes / 1e6:.1f} MB, "
             f"{TL * n_prod * pair_flops / 1e12:.3f} TFLOP)")
-    del step_layers
+    # the step's 24 backward launches by route on the forward's out and
+    # lse: the wgmma passes (the route's choice) and the mma.sync passes, in turns,
+    # CUDA events around each layer's call summed, the best of three
+    with torch.no_grad():
+        step_fwd = [flash_attn.flash_attn_fwd(q, k, v)
+                    for q, k, v, _ in step_layers]
+
+    def bwd_by_route(rt):
+        best = float("inf")
+        for _ in range(3):
+            marks = []
+            for (q, k, v, g), (o, l) in zip(step_layers, step_fwd):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                flash_attn.flash_attn_bwd(q.detach(), k.detach(), v.detach(),
+                                          o, l, g.reshape(o.shape), route=rt)
+                ev[1].record()
+                marks.append(ev)
+            torch.cuda.synchronize()
+            best = min(best, sum(a.elapsed_time(b) for a, b in marks))
+        return best
+
+    rt_step = flash_attn.bwd_route(TB, TS, TS, 0, TH, TKV, TD, torch.bfloat16)
+    t_rt = [bwd_by_route(r_) for r_ in (flash_attn.BwdRoute("mma"), rt_step,
+                                        rt_step, flash_attn.BwdRoute("mma"))]
+    log(f"[time] one training step's {TL} flash_attn_bwd launches (B={TB} "
+        f"S={TS} H={TH} KV={TKV} D={TD}, bf16, no autograd), in turns: the "
+        f"route's {tuple(rt_step)} {t_rt[1]:.3f} / {t_rt[2]:.3f} ms, the mma.sync "
+        f"passes {t_rt[0]:.3f} / {t_rt[3]:.3f} ms; on {card}")
+    del step_layers, step_fwd
 
     # K4's offset form (a rank of sequence parallelism, phase 10d: Sq
     # queries at an offset against Skv >= offset + Sq gathered keys), at
@@ -6700,6 +6905,55 @@ def main() -> int:
             note_err("flash_attn_fwd_offset", err_f)
             note_err("flash_attn_bwd_offset", max(errs))
             n_off += 1
+            if not f32c and Dh in flash_attn.WGMMA_HEAD_DIMS:
+                # each route's passes alone on the forward's out and lse:
+                # the wgmma passes (one and, where rep is even, two heads a
+                # dq block) and the mma.sync passes, each against the plain gradients
+                # (the tolerances above), two runs bit-equal, dk and dv zero
+                # past the last query; the wgmma passes against the mma.sync
+                # within the same 2e-2 of max|ref|
+                go = g.reshape(B, Sq, Hh, Dh)
+                routes = [flash_attn.BwdRoute("wgmma", h_)
+                          for h_ in (1, 2) if (Hh // KVh) % h_ == 0]
+                by_route = {}
+                for rt in routes + [flash_attn.BwdRoute("mma")]:
+                    a = flash_attn.flash_attn_bwd(q, k, v, out, lse, go, off,
+                                                  route=rt)
+                    a2 = flash_attn.flash_attn_bwd(q, k, v, out, lse, go, off,
+                                                   route=rt)
+                    torch.cuda.synchronize()
+                    e_ = [(x.float() - y.float()).abs().max().item()
+                          for x, y in zip(a, rgrads)]
+                    zero_past = off + Sq == Skv or not (
+                        a[1][:, off + Sq:].any() or a[2][:, off + Sq:].any())
+                    if not (all(e <= x for e, x in zip(e_, lims))
+                            and all(torch.equal(x, y) for x, y in zip(a, a2))
+                            and zero_past):
+                        raise AssertionError(
+                            f"flash_attn_bwd route {tuple(rt)} B={B} Sq={Sq} "
+                            f"Skv={Skv} offset={off} D={Dh}: dq/dk/dv off the "
+                            f"plain version by {e_} (tol {lims}), or two runs "
+                            f"differ, or dk, dv are not zero past the last "
+                            f"query")
+                    if rt.passes == "wgmma":
+                        note_err("flash_attn_bwd_offset", max(e_))
+                    by_route[rt] = a
+                mma_ = by_route.pop(flash_attn.BwdRoute("mma"))
+                d_old = max((x.float() - y.float()).abs().max().item()
+                            / max(r_.float().abs().max().item(), 1e-30)
+                            for a in by_route.values()
+                            for x, y, r_ in zip(a, mma_, rgrads))
+                log(f"[kernel] flash_attn_bwd offset form B={B} Sq={Sq} "
+                    f"Skv={Skv} offset={off} H={Hh} KV={KVh} D={Dh} bf16, "
+                    f"routes {[tuple(r_) for r_ in by_route]} and the mma.sync "
+                    f"passes: each within tolerance of the plain version, "
+                    f"two runs bit-equal, dk, dv zero past the last query; "
+                    f"wgmma vs the mma.sync passes {d_old:.3e} of max|ref| (tol "
+                    f"2e-2)")
+                if d_old > 2e-2:
+                    raise AssertionError("the wgmma passes disagree with "
+                                         "the mma.sync passes")
+                del by_route, mma_
             del qf, k, v, q, g, out, lse, ref, ref_lse, full, full_lse
             del grads, grads2, rgrads
     log(f"[kernel] flash_attn offset form: {n_off} cases within tolerance")
@@ -6746,6 +7000,52 @@ def main() -> int:
                                                             SOFF))))
     l_fwd = timer(lambda: sdpa_offset(False))
     l_ms = (l_fwd, timer(lambda: sdpa_offset(True)) - l_fwd)
+    # the same launches through the mma.sync passes, and the backward split by
+    # pass: the wgmma dq pass, the wgmma dk/dv pass alone on the statistics
+    # of a dq pass run before, the two without and with PDL; the mma.sync two
+    mma_rt = flash_attn.BwdRoute("mma")
+    mma_ms = timer(layers_of(lambda q, k, v, g, o, l: flash_attn.flash_attn_bwd(
+        q, k, v, o, l, g, SOFF, route=mma_rt)))
+    rt10 = flash_attn.bwd_route(PAR_BATCH, SQ, TS, SOFF, TH, TKV, TD,
+                                torch.bfloat16)
+    splits = [BwdSplit(torch, q, k, v, o, l, g, SOFF, rt10.hpb)
+              for q, k, v, g, o, l in sp_layers]
+    for sp in splits:
+        sp.wgmma_dq()
+    split_ms = dict(
+        wgmma_dq=timer(lambda: [sp.wgmma_dq() for sp in splits]),
+        wgmma_dkdv=timer(lambda: [sp.wgmma_dkdv(0) for sp in splits]),
+        wgmma_no_pdl=timer(lambda: [(sp.wgmma_dq(), sp.wgmma_dkdv(0))
+                                    for sp in splits]),
+        wgmma_pdl=timer(lambda: [(sp.wgmma_dq(), sp.wgmma_dkdv(1))
+                                 for sp in splits]),
+        mma_dq=timer(lambda: [sp.mma(1) for sp in splits]),
+        mma_dkdv=timer(lambda: [sp.mma(2) for sp in splits]))
+    del splits
+    # what a call costs the host (the training step is eager): 100 calls
+    # of each route back to back, the card left to catch up after the clock
+    # stops; the wgmma route encodes four tensor maps a call
+    host_us = {}
+    for tag, rt in (("mma", mma_rt), ("wgmma", rt10), ("mma", mma_rt),
+                    ("wgmma", rt10)):
+        q, k, v, g, o, l = sp_layers[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            flash_attn.flash_attn_bwd(q, k, v, o, l, g, SOFF, route=rt)
+        host_us[tag] = min(host_us.get(tag, 1e9),
+                           (time.perf_counter() - t0) * 1e4)
+        torch.cuda.synchronize()
+    log(f"[time] one rank's step of attention under sequence parallelism, "
+        f"flash_attn_bwd ({PAR_LAYERS} layers, B={PAR_BATCH} Sq={SQ} at "
+        f"offset {SOFF}, Skv={TS}, D={TD}, graph replays): the route "
+        f"{tuple(rt10)} {k_ms[1]:.4f} ms, the mma.sync passes {mma_ms:.4f} ms; by "
+        f"pass: wgmma dq {split_ms['wgmma_dq']:.4f}, wgmma dk/dv alone "
+        f"{split_ms['wgmma_dkdv']:.4f}, the two {split_ms['wgmma_no_pdl']:.4f} "
+        f"without PDL and {split_ms['wgmma_pdl']:.4f} with it; the mma.sync dq "
+        f"{split_ms['mma_dq']:.4f}, dk/dv {split_ms['mma_dkdv']:.4f}; host "
+        f"{host_us['wgmma']:.1f} us a call (the mma.sync passes' {host_us['mma']:.1f}); on "
+        f"{card}")
     qo_bytes = PAR_BATCH * SQ * TH * TD * el
     kv_bytes = PAR_BATCH * TS * TKV * TD * el
     lse_bytes = PAR_BATCH * TH * SQ * 4
@@ -7171,9 +7471,10 @@ def main() -> int:
         dtype=torch.float32, sampler=greedy)
     assert tiny.device.type == "cuda"
     # one counter a wrapper: the offset form counts with flash_attn_fwd /
-    # flash_attn_bwd
+    # flash_attn_bwd, the wgmma route's calls also with
+    # flash_attn_bwd_wgmma, read where a main path trains
     names = [n for n in kernels if not n.endswith("_offset")]
-    assert sorted(COUNTER_OF) == sorted(names)
+    assert sorted(COUNTER_OF) == sorted(names + ["flash_attn_bwd_wgmma"])
 
     def reset():
         zero_launches(torch)
@@ -8343,6 +8644,7 @@ def main() -> int:
     reset()
     trainer.start()
     counts = read()
+    wg_calls = read_launches(torch, ["flash_attn_bwd_wgmma"])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [l for _, l in trainer.loss_history]
     n_eval_fwd = 2 * train_cfg["eval_iters"] * TL * (
@@ -8355,6 +8657,11 @@ def main() -> int:
     if counts != expect_t:
         raise AssertionError("training launch counts differ from 24 per "
                              "microbatch, forward and backward")
+    log(f"[train] backward calls through the wgmma passes: "
+        f"{wg_calls['flash_attn_bwd_wgmma']} of {counts['flash_attn_bwd']}")
+    if wg_calls["flash_attn_bwd_wgmma"] != counts["flash_attn_bwd"]:
+        raise AssertionError("the training step's backward did not take the "
+                             "wgmma passes")
     for name in ("flash_attn_fwd", "flash_attn_bwd"):
         kernels[name]["launches"] = counts[name]
     steady = sorted(step_ms[2:])
@@ -8479,6 +8786,7 @@ def main() -> int:
     torch.cuda.synchronize()
     secs56 = time.time() - t0
     counts = read()
+    wg56 = read_launches(torch, ["flash_attn_bwd_wgmma"])["flash_attn_bwd_wgmma"]
     L56, A56 = cfg56.n_layer, train56["gradient_accumulation_steps"]
     expect56 = {n: 0 for n in names}
     expect56.update(flash_attn_fwd=L56 * A56 * steps56 * (2 if full56 else 1),
@@ -8491,10 +8799,11 @@ def main() -> int:
         f"{[round(l, 4) for l in losses56]} (first within 0.3 of ln "
         f"{cfg56.vocab_size} = {np.log(cfg56.vocab_size):.3f}, last below "
         f"first); launches {counts}; expected {expect56}")
-    if counts != expect56:
+    if counts != expect56 or wg56 != counts["flash_attn_bwd"]:
         raise AssertionError("Nano-56M launch counts differ from one forward "
                              "(two under full remat) and one backward per "
-                             "layer and microbatch")
+                             "layer and microbatch, or its backward did not "
+                             "take the wgmma passes")
     if not (len(losses56) == steps56 and all(np.isfinite(losses56))
             and abs(losses56[0] - np.log(cfg56.vocab_size)) <= 0.3
             and losses56[-1] < losses56[0]):
@@ -8621,6 +8930,10 @@ def main() -> int:
         kernels[name + "_offset"]["launches"] = res10["seq"]["counts"][name]
         if not res10["seq"]["counts"][name]:
             raise AssertionError(f"sequence parallelism launched no {name}")
+    if (res10["seq"]["counts"]["flash_attn_bwd_wgmma"]
+            != res10["seq"]["counts"]["flash_attn_bwd"]):
+        raise AssertionError("sequence parallelism's backward did not take "
+                             "the wgmma passes")
     log(f"[parallel] phase 10 in {time.time() - t0:.1f} s")
 
     # ---------------- 11. frontends ----------------

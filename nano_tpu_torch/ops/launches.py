@@ -34,6 +34,7 @@ COUNTERS: Tuple[Tuple[object, str, str], ...] = (
     (q4k, "q4k_matmul_w4a4", "launches"),
     (flash_attn, "flash_attention", "launches"),
     (flash_attn, "flash_attention", "backward_launches"),
+    (flash_attn, "flash_attention", "wgmma_launches"),
 )
 
 

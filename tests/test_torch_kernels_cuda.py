@@ -1033,6 +1033,105 @@ def test_flash_attention_offset_form_matches_plain(B, Sq, Skv, offset, H, KV,
         assert not leaves[2].grad[:, offset + Sq:].any()
 
 
+# the bf16 backward's routes at the widths the wgmma passes take: the
+# offset cases above and two whole sequences (the training shapes' D)
+ROUTE_CASES = [c for c in OFFSET_CASES if c[-1] in tfa.WGMMA_HEAD_DIMS] + [
+    (4, 512, 512, 0, 16, 8, 48), (2, 512, 512, 0, 16, 8, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Skv,offset,H,KV,D", ROUTE_CASES)
+def test_flash_bwd_routes_match_plain_and_each_other(B, Sq, Skv, offset, H,
+                                                      KV, D):
+    """K4's bf16 backward through each route's passes alone, on the
+    forward's out and lse: the wgmma passes (one and, where the heads of a
+    KV head are even, two query heads a dq block) and the mma.sync passes, each
+    within 2e-2 of max|grad| of the plain version differentiated by
+    autograd, two runs bit-equal, dk and dv zero past the last query, the
+    wgmma passes within the same tolerance of the mma.sync passes'; the wgmma counter
+    counts the route's calls."""
+    _need_card()
+    rng = np.random.RandomState(Sq + offset + D + 7)
+    mk = lambda *shape: torch.from_numpy(
+        rng.randn(*shape).astype(np.float32)).to("cuda", torch.bfloat16)
+    q, k, v = mk(B, Sq, H, D), mk(B, Skv, KV, D), mk(B, Skv, KV, D)
+    g = mk(B, Sq, H, D)
+    out, lse = tfa.flash_attn_fwd(q, k, v, offset)
+    ref = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    tfa.flash_attention_plain(*ref, offset=offset).backward(
+        g.reshape(B, Sq, H * D))
+    routes = [tfa.BwdRoute("wgmma", h) for h in (1, 2) if (H // KV) % h == 0]
+    assert tfa.bwd_route(B, Sq, Skv, offset, H, KV, D, torch.bfloat16) in \
+        routes
+    got = {}
+    for route in routes + [tfa.BwdRoute("mma")]:
+        n0 = tfa.flash_attention.wgmma_launches
+        a = tfa.flash_attn_bwd(q, k, v, out, lse, g, offset, route=route)
+        b = tfa.flash_attn_bwd(q, k, v, out, lse, g, offset, route=route)
+        torch.cuda.synchronize()
+        assert tfa.flash_attention.wgmma_launches - n0 == \
+            (2 if route.passes == "wgmma" else 0)
+        for name, x, y, r in zip("qkv", a, b, ref):
+            lim = 2e-2 * r.grad.float().abs().max().item() + 1e-5
+            err = (x.float() - r.grad.float()).abs().max().item()
+            assert err <= lim, (route, name, err, lim)
+            assert torch.equal(x, y), (route, name)
+        if offset + Sq < Skv:
+            assert not a[1][:, offset + Sq:].any()
+            assert not a[2][:, offset + Sq:].any()
+        got[route] = a
+    old = got.pop(tfa.BwdRoute("mma"))
+    for a in got.values():
+        for x, y, r in zip(a, old, ref):
+            assert (x.float() - y.float()).abs().max().item() <= \
+                2e-2 * r.grad.float().abs().max().item() + 1e-5
+
+
+@pytest.mark.cuda
+def test_wgmma_plan_is_what_the_library_builds():
+    """ops/flash_attn.py:wgmma_plan's shared memory is the kernels', and a
+    block of each pass fits an SM."""
+    _need_card()
+    from nano_tpu_torch.ops import _build
+    lib = _build.lib("flash_bwd_wgmma")
+    for D in tfa.WGMMA_HEAD_DIMS:
+        for hpb in (1, 2):
+            plan = tfa.wgmma_plan(D, hpb)
+            assert lib.flash_bwd_wgmma_smem(D, 0, hpb) == plan["dq"]["smem"]
+            assert lib.flash_bwd_wgmma_smem(D, 1, hpb) == plan["dkdv"]["smem"]
+            assert lib.flash_bwd_wgmma_blocks_per_sm(D, 0, hpb) >= 1
+        assert lib.flash_bwd_wgmma_blocks_per_sm(D, 1, 1) >= 1
+    assert lib.flash_bwd_wgmma_smem(128, 1, 1) == -1
+
+
+@pytest.mark.cuda
+def test_wgmma_backward_captured_in_a_graph_gives_the_eager_bits():
+    """The two passes (the dk/dv pass a programmatic dependent of the dq
+    pass) captured in a CUDA graph and replayed: the eager call's bits."""
+    _need_card()
+    rng = np.random.RandomState(11)
+    mk = lambda *shape: torch.from_numpy(
+        rng.randn(*shape).astype(np.float32)).to("cuda", torch.bfloat16)
+    B, Sq, Skv, offset, H, KV, D = 2, 256, 512, 256, 16, 8, 48
+    q, k, v, g = mk(B, Sq, H, D), mk(B, Skv, KV, D), mk(B, Skv, KV, D), \
+        mk(B, Sq, H, D)
+    out, lse = tfa.flash_attn_fwd(q, k, v, offset)
+    want = tfa.flash_attn_bwd(q, k, v, out, lse, g, offset)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tfa.flash_attn_bwd(q, k, v, out, lse, g, offset)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = tfa.flash_attn_bwd(q, k, v, out, lse, g, offset)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 def test_flash_attention_takes_strided_views_and_refuses_other_head_dims():
     _need_card()

@@ -64,10 +64,13 @@ def _jax_rows(q, k, v, offset):
 
 
 # (B, Sq, Skv, offset, KV, rep, D): offsets inside a tile, Sq < Skv with
-# keys past the last query, a whole sequence, rep 1 and 2
+# keys past the last query, a whole sequence, rep 1 and 2; phase 10d's two
+# ranks of {"seq": 2} (half the positions each, offsets 0 and Sq) cut to a
+# few positions, and D = 32
 OFFSET_CASES = [(2, 9, 37, 13, 2, 2, 16), (1, 20, 20, 0, 1, 2, 16),
                 (2, 16, 64, 29, 2, 1, 48), (1, 33, 70, 30, 1, 2, 48),
-                (2, 7, 40, 33, 2, 2, 48)]
+                (2, 7, 40, 33, 2, 2, 48), (2, 16, 32, 0, 2, 2, 48),
+                (2, 16, 32, 16, 2, 2, 48), (1, 24, 48, 24, 2, 2, 32)]
 
 
 @pytest.mark.parametrize("B,Sq,Skv,offset,KV,rep,D", OFFSET_CASES)
