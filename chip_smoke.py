@@ -57,8 +57,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   and 256 greedy tokens twice (the first call captures the
                   decode step as a CUDA graph, the second replays it; TTFT,
                   decode tok/s), the launch count of every kernel on the
-                  path on both calls, the stream torch.equal to the eager
-                  step loop and to a graph of GRAPH_STEPS steps, a profile
+                  path on both calls, the stream's first EAGER_TOKENS
+                  torch.equal to the eager step loop, the stream torch.equal
+                  to a graph of GRAPH_STEPS steps, a profile
                   of the eager loop and of the graph (wall and busy ms a
                   step, idle share, kernels a step; each kernel's launches
                   as the profiler saw them held to the per-step counts),
@@ -91,8 +92,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   and 64 slots timed with its B > 1 products through K3's int8
                   kernels and, rebound here, through the pair they replaced
   5c. speculative decode (spec_phase) on both full-width models:
-                  generate_on_device with spec_k = SPEC_K against plain in
-                  turns on phase 5's prompt and a repeated 8-token pattern
+                  generate_on_device (SPEC_TOKENS tokens) with spec_k =
+                  SPEC_K against plain in turns on phase 5's prompt and a repeated 8-token pattern
                   (tok/s, tokens a round, the agreeing prefix, launches of
                   each replayed round asserted), a round's card ms at k = 1,
                   3, 7 beside the plain step's (busy ms by the profiler),
@@ -259,11 +260,12 @@ scaled_dot_product_attention and the bound, and a decode step's 28
 attention launches both on f32 q and as the model feeds them (bf16 q,
 result cast to bf16).
 
-`python3 chip_smoke.py bench [flash [clocks]] [decode] [q4k [batched [sweep] |
+`python3 chip_smoke.py bench [flash [clocks]] [routes [clocks]] [decode] [q4k [batched [sweep] |
 step] [clocks]] [q80 [batched [sweep] [clocks]]] [pipes] [spec] [toy] [export] [rows [sweep] [clocks]]
 [lora] [lifecycle] [parallel] [nccl] [gloo]` runs none of the phases: it times the two
 attention kernels alone beside SDPA (the flash forward and backward, a
-ladder over the decode kernel's rows per block), a Q4K decode step's
+ladder over the decode kernel's rows per block; `routes` the backward's
+two routes alone at BWD_ROUTE_SHAPES, as `flash` ends), a Q4K decode step's
 matmuls with the fake-quant folded in or not, a Q80 decode step's W8A8
 products by product, q80_matvec_fq against q80_act_quant +
 q80_matmul_w8a8, what an SM sustains of mma.sync and ex2, and with
@@ -323,6 +325,8 @@ GS = 256
 SEED = 1234
 PROMPT_LEN, N_TOKENS = 64, 256
 GRAPH_STEPS = 8                    # decode steps in one graph, measured beside 1
+# phase 5: tokens of the eager step loop, held to the graphed stream's first
+EAGER_TOKENS = 64
 BATCH_SLOTS, BATCH_NEW, BATCH_JOIN_EVERY = 8, 128, 8
 BATCH_TOL = 1e-3                   # batched vs single-stream logits, of max|logit|
 ROWS_DRIFT_TOL = 1e-3              # the same, f32 rows form, after 127 steps fed
@@ -356,6 +360,8 @@ Q4K_BATCH_TOL = 1e-3
 SPEC_ROWS = (2, 3, 5, 8, 9, 16, 40, 320)
 # phase 5c: the draft caps of generate_on_device, Session and BatchedEngine
 SPEC_K, SPEC_SESSION_K, SPEC_BATCH_K = 7, 8, 4
+# phase 5c: tokens of each generate_on_device stream, spec and plain
+SPEC_TOKENS = 128
 # phase 5c: verify rounds of 8 rows held row by row against the plain step
 SPEC_LOGIT_ROUNDS = 8
 # a verify row's logits against the plain step's at the same prefix, of
@@ -833,58 +839,35 @@ def _best_of(torch, fn, reps=5):
 
 
 class BwdSplit:
-    """K4's bf16 backward pass by pass, for a split of its time: the
-    launches ops/flash_attn.flash_attn_bwd makes, one at a time, on scratch
-    outputs.  wgmma_dq leaves the row statistics that wgmma_dkdv reads (in
-    self.stats); mma(passes) runs the mma.sync dq pass (1), dk/dv pass (2) or
-    both (3) in csrc/flash_attn.cu.  wgmma_dkdv(pdl=1) launches the dk/dv
-    pass as a programmatic dependent of the launch before it, as the route
-    does; pdl=0 as a plain launch."""
+    """K4's bf16 backward on the wgmma passes, pass by pass, for a split of
+    its time: flash_bwd_wgmma with a pass mask, on scratch outputs.  run(1)
+    launches the dq pass, which leaves the row statistics in self.stats;
+    run(2) the dk/dv pass alone on them; run(3) both, as the route does (the
+    dk/dv pass a programmatic dependent of the dq pass).  `lib`: a build of
+    csrc/flash_bwd_wgmma.cu (the package's by default)."""
 
-    def __init__(self, torch, q, k, v, out, lse, dout, offset, hpb):
+    def __init__(self, torch, q, k, v, out, lse, dout, offset, hpb, lib=None):
         from nano_tpu_torch.ops import _build, flash_attn
         B, Sq, H, D = q.shape
         Skv, KV = k.shape[1], k.shape[2]
-        self.dq, self.dk, self.dv = (torch.empty_like(x) for x in (q, k, v))
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
         self.stats = torch.empty(B, H, -(-Sq // 64), 2, 64, device=q.device)
-        self.delta = torch.empty(B, H, Sq, device=q.device)
-        self.ptrs = [x.data_ptr() for x in (q, k, v, out, lse, dout)]
-        self.shape = (B, Sq, Skv, offset, H, KV, D)
+        self.keep = (q, k, v, out, lse, dout, dq, dk, dv)
+        self.args = [*(x.data_ptr() for x in (q, k, v, out, lse, dout, dq, dk,
+                                              dv, self.stats)),
+                     B, Sq, Skv, offset, H, KV, D, hpb,
+                     *flash_attn.wgmma_spreads(q.device.index, B, Sq, Skv, H,
+                                               KV, D, hpb)]
         self.tail = [*(x.stride(i) for x in (q, k, v) for i in range(3)),
                      D ** -0.5]
-        self.hpb, self.torch = hpb, torch
-        dev = q.device.index
-        self.spread = (
-            flash_attn.wgmma_spread(-(-Sq // 64), H // hpb * B,
-                                    flash_attn._resident(dev, D, 0, hpb)),
-            flash_attn.wgmma_spread(-(-Skv // 64), KV * B,
-                                    flash_attn._resident(dev, D, 1, 1)))
-        self.wg, self.fa = _build.lib("flash_bwd_wgmma"), _build.lib(
-            "flash_attn")
+        self.torch = torch
+        self.lib = lib or _build.lib("flash_bwd_wgmma")
 
-    def stream(self):      # the current one: a graph capture's, in a Timer
-        return self.torch.cuda.current_stream().cuda_stream
-
-    def wgmma_dq(self):
-        q, k, v, out, lse, dout = self.ptrs
-        assert self.wg.flash_bwd_dq_wgmma(
-            q, k, v, out, lse, dout, self.dq.data_ptr(),
-            self.stats.data_ptr(), *self.shape, self.hpb, self.spread[0],
-            *self.tail, self.stream()) == 0
-
-    def wgmma_dkdv(self, pdl=1):
-        q, k, v, out, lse, dout = self.ptrs
-        assert self.wg.flash_bwd_dkdv_wgmma(
-            q, k, v, dout, self.stats.data_ptr(), self.dk.data_ptr(),
-            self.dv.data_ptr(), *self.shape, self.spread[1], pdl,
-            *self.tail, self.stream()) == 0
-
-    def mma(self, passes):
-        q, k, v, out, lse, dout = self.ptrs
-        assert self.fa.flash_attn_bwd(
-            q, k, v, out, lse, dout, self.dq.data_ptr(), self.dk.data_ptr(),
-            self.dv.data_ptr(), self.delta.data_ptr(), 1, *self.shape,
-            *self.tail, passes, self.stream()) == 0
+    def run(self, passes):
+        # the current stream: a graph capture's, in a Timer
+        assert self.lib.flash_bwd_wgmma(
+            *self.args, passes, *self.tail,
+            self.torch.cuda.current_stream().cuda_stream) == 0
 
 
 def bench_flash(torch, clocks=False):
@@ -972,15 +955,27 @@ def bench_flash(torch, clocks=False):
     bench_bwd_sass()
 
 
+# bench_bwd_routes' shapes, (B, Sq, Skv, offset, H, KV, D): phase 10d's
+# two ranks (B=8, 256 queries at offsets 256 and 0 against 512 keys), the
+# training shapes of Nano-168M (D=48) and Nano-56M (D=32), B=64 x 512;
+# 10d's rank at D = 32, 16 and 64; the calculator of phase 9d (B=64 x 64,
+# 8 heads on 4 KV heads, D = 16); a whole sequence of B=64 x 512 at D = 64
+BWD_ROUTE_SHAPES = (
+    (8, 256, 512, 256, 16, 8, 48), (8, 256, 512, 0, 16, 8, 48),
+    (64, 512, 512, 0, 16, 8, 48), (64, 512, 512, 0, 16, 8, 32),
+    (8, 256, 512, 256, 16, 8, 32), (8, 256, 512, 256, 16, 8, 16),
+    (64, 64, 64, 0, 8, 4, 16), (8, 256, 512, 256, 16, 8, 64),
+    (64, 512, 512, 0, 16, 8, 64))
+
+
 def bench_bwd_routes(torch, clocks=False):
     """K4's bf16 backward by route, alone (no autograd), 4 layers' launches
-    replayed from a CUDA graph: phase 10d's two ranks (B=8, 256 queries at
-    offsets 256 and 0 against 512 keys) and the training shapes of
-    Nano-168M (D=48) and Nano-56M (D=32), B=64 x 512.  The wgmma passes
-    with one and two query heads a dq block, in turns with the mma.sync passes
-    (old, new, new, old), and the wgmma passes split: dq, dk/dv alone, the
-    two without and with PDL.  With `clocks`, where the wgmma passes'
-    warps spend their cycles (bench_wgmma_clocks)."""
+    replayed from a CUDA graph, at BWD_ROUTE_SHAPES: the wgmma passes with
+    one query head a dq block, in turns with the mma.sync passes (old, new,
+    new, old), then with two where the heads of a KV head are even, and the
+    wgmma passes split: dq, dk/dv alone, the two.  The route's choice beside
+    them.  With `clocks`, where the wgmma passes' warps spend their cycles
+    (bench_wgmma_clocks)."""
     from nano_tpu_torch.ops import _build, flash_attn
     timer = Timer(torch)
     wl = _build.lib("flash_bwd_wgmma")
@@ -993,9 +988,7 @@ def bench_bwd_routes(torch, clocks=False):
     gen = torch.Generator(device="cuda").manual_seed(1)
     mk = lambda *s_: torch.randn(*s_, device="cuda", generator=gen).to(
         torch.bfloat16)
-    for B, Sq, Skv, off, D in ((8, 256, 512, 256, 48), (8, 256, 512, 0, 48),
-                               (64, 512, 512, 0, 48), (64, 512, 512, 0, 32)):
-        H, KV = 16, 8
+    for B, Sq, Skv, off, H, KV, D in BWD_ROUTE_SHAPES:
         layers = []
         for _ in range(4):
             q, k, v, g = (mk(B, Sq, H, D), mk(B, Skv, KV, D),
@@ -1005,29 +998,27 @@ def bench_bwd_routes(torch, clocks=False):
         run = lambda rt: timer(lambda: [flash_attn.flash_attn_bwd(
             *x, off, route=rt) for x in layers])
         route = flash_attn.bwd_route(B, Sq, Skv, off, H, KV, D, torch.bfloat16)
-        old = flash_attn.BwdRoute("mma")
-        t = [run(r_) for r_ in (old, route, route, old)]
-        other = flash_attn.BwdRoute("wgmma", 3 - route.hpb)
-        t_other = run(other)
-        splits = [BwdSplit(torch, *x, off, route.hpb) for x in layers]
+        old, new = flash_attn.BwdRoute("mma"), flash_attn.BwdRoute("wgmma", 1)
+        t = [run(r_) for r_ in (old, new, new, old)]
+        t2 = (run(flash_attn.BwdRoute("wgmma", 2)) if (H // KV) % 2 == 0
+              else None)
+        hpb = route.hpb if route.passes == "wgmma" else 1
+        splits = [BwdSplit(torch, *x, off, hpb) for x in layers]
         for sp in splits:
-            sp.wgmma_dq()
-        by_pass = [timer(lambda: [sp.wgmma_dq() for sp in splits]),
-                   timer(lambda: [sp.wgmma_dkdv(0) for sp in splits]),
-                   timer(lambda: [(sp.wgmma_dq(), sp.wgmma_dkdv(0))
-                                  for sp in splits]),
-                   timer(lambda: [(sp.wgmma_dq(), sp.wgmma_dkdv(1))
-                                  for sp in splits])]
+            sp.run(1)
+        by_pass = [timer(lambda: [sp.run(p_) for sp in splits])
+                   for p_ in (1, 2, 3)]
         log(f"[bench flash] 4 x flash_attn_bwd B={B} Sq={Sq} Skv={Skv} "
-            f"offset={off} H={H} KV={KV} D={D} bf16, graph replays: the "
-            f"route {tuple(route)} {t[1]:.4f} / {t[2]:.4f} ms, the mma.sync passes "
-            f"{t[0]:.4f} / {t[3]:.4f} ms (new / old "
-            f"{min(t[1], t[2]) / min(t[0], t[3]):.3f}), {tuple(other)} "
-            f"{t_other:.4f} ms; by pass: dq {by_pass[0]:.4f}, dk/dv alone "
-            f"{by_pass[1]:.4f}, both {by_pass[2]:.4f} without PDL, "
-            f"{by_pass[3]:.4f} with it")
-        if clocks and (B, off) in ((8, 256), (64, 0)) and D == 48:
-            bench_wgmma_clocks(torch, layers[0], off, route.hpb)
+            f"offset={off} H={H} KV={KV} D={D} bf16, graph replays: "
+            f"('wgmma', 1) {t[1]:.4f} / {t[2]:.4f} ms, the mma.sync passes "
+            f"{t[0]:.4f} / {t[3]:.4f} ms (wgmma / mma.sync "
+            f"{min(t[1], t[2]) / min(t[0], t[3]):.3f}), ('wgmma', 2) "
+            + ("-" if t2 is None else f"{t2:.4f} ms")
+            + f"; the route {tuple(route)}; ('wgmma', {hpb}) by pass: dq "
+            f"{by_pass[0]:.4f}, dk/dv alone {by_pass[1]:.4f}, the two "
+            f"{by_pass[2]:.4f}; {card_line()}")
+        if clocks and (B, off, D) in ((8, 256, 48), (64, 0, 48)):
+            bench_wgmma_clocks(torch, layers[0], off, hpb)
         del layers, splits
 
 
@@ -1046,16 +1037,13 @@ def bench_wgmma_clocks(torch, layer, off, hpb):
                     os.path.join(_build.CSRC_DIR, "flash_bwd_wgmma.cu")],
                    check=True)
     lib = ctypes.CDLL(so)
-    for name in ("flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma"):
-        getattr(lib, name).argtypes = _build.SIGNATURES[name][0]
+    lib.flash_bwd_wgmma.argtypes = _build.SIGNATURES["flash_bwd_wgmma"][0]
     lib.flash_bwd_wgmma_clocks.argtypes = [ctypes.c_void_p]
-    sp = BwdSplit(torch, *layer, off, hpb)
-    sp.wg = lib
+    sp = BwdSplit(torch, *layer, off, hpb, lib=lib)
     clocks = (ctypes.c_ulonglong * 12)()
     for _ in range(2):      # the first run warms up; its counts are dropped
         assert lib.flash_bwd_wgmma_clocks(clocks) == 0
-        sp.wgmma_dq()
-        sp.wgmma_dkdv(0)
+        sp.run(3)
         torch.cuda.synchronize()
     assert lib.flash_bwd_wgmma_clocks(clocks) == 0
     q, k = layer[0], layer[1]
@@ -2210,7 +2198,7 @@ def spec_phase(torch, np, h):
         plain_streams = {}
         for pname, pr in prompts.items():
             for c in ctxs.values():             # warm-up: the captures
-                engine.generate_on_device(c, pr, N_TOKENS)
+                engine.generate_on_device(c, pr, SPEC_TOKENS)
             ttft = min(h.timed_ms(lambda: engine.generate_on_device(
                 ctxs["plain"], pr, 1)) for _ in range(3))
             res = {"spec": [], "plain": []}
@@ -2218,17 +2206,17 @@ def spec_phase(torch, np, h):
                 got = []
                 h.reset()
                 ms = h.timed_ms(lambda: got.append(engine.generate_on_device(
-                    ctxs[which], pr, N_TOKENS).tolist()))
+                    ctxs[which], pr, SPEC_TOKENS).tolist()))
                 res[which].append((ms, got[0], h.read(),
                                    dict(speculative.LAST_STATS)))
             spec, plain = res["spec"][0][1], res["plain"][0][1]
             plain_streams[pname] = plain
             stats = res["spec"][0][3]
-            if not (len(spec) == len(plain) == N_TOKENS
+            if not (len(spec) == len(plain) == SPEC_TOKENS
                     and max(spec) < cfg.vocab_size
                     and all(r[1] == spec for r in res["spec"])
                     and all(r[1] == plain for r in res["plain"])
-                    and stats["tokens"] >= N_TOKENS - 1):
+                    and stats["tokens"] >= SPEC_TOKENS - 1):
                 raise AssertionError(f"{model} {pname}: spec or plain streams "
                                      f"malformed or not repeatable")
             prefill = expect_for(0)
@@ -2242,19 +2230,19 @@ def spec_phase(torch, np, h):
                                          f"{counts}, not the prefill's and "
                                          f"{m} rounds' {per_round}")
             for _, _, counts, _ in res["plain"]:
-                if counts != expect_for(N_TOKENS - 1):
+                if counts != expect_for(SPEC_TOKENS - 1):
                     raise AssertionError(f"{model} {pname}: plain launches "
                                          f"differ")
-            tps = {w: (N_TOKENS - 1) / ((min(r[0] for r in res[w]) - ttft)
+            tps = {w: (SPEC_TOKENS - 1) / ((min(r[0] for r in res[w]) - ttft)
                                          / 1e3) for w in res}
             log(f"{tag} generate_on_device, {pname} prompt of {PROMPT_LEN}, "
-                f"{N_TOKENS} tokens ({card}), better of two in turns: spec_k "
+                f"{SPEC_TOKENS} tokens ({card}), better of two in turns: spec_k "
                 f"{SPEC_K} {tps['spec']:.1f} tok/s ({stats['tokens']} tokens "
                 f"in {stats['rounds']} rounds, "
                 f"{stats['tokens'] / stats['rounds']:.2f} tokens a round, "
                 f"{m} rounds replayed), plain {tps['plain']:.1f} tok/s, "
                 f"spec / plain {tps['spec'] / tps['plain']:.2f}; the streams "
-                f"agree for {agreeing(spec, plain)} of {N_TOKENS} tokens; "
+                f"agree for {agreeing(spec, plain)} of {SPEC_TOKENS} tokens; "
                 f"launches a round {spec_round_counts(model, cfg.n_layer)} (0 "
                 f"decode_attention, 0 q80_matvec_fq)")
 
@@ -5709,7 +5697,8 @@ def bench(what) -> int:
     q80_flags = dict(flags, batched="batched" in what, sweep="sweep" in what)
     q4k_flags = dict(batched="batched" in what, sweep="sweep" in what,
                      clocks="clocks" in what, step="step" in what)
-    for name, fn in (("flash", bench_flash), ("decode", bench_decode),
+    for name, fn in (("flash", bench_flash), ("routes", bench_bwd_routes),
+                     ("decode", bench_decode),
                      ("q4k", bench_q4k), ("q80", bench_q80),
                      ("pipes", bench_pipes), ("spec", bench_spec),
                      ("toy", bench_toy), ("export", bench_export),
@@ -5719,7 +5708,7 @@ def bench(what) -> int:
                      ("gloo", bench_gloo), ("profile", bench_profile),
                      ("frontends", bench_frontends)):
         if not what or name in what:
-            fn(torch, **{"flash": flags, "q80": q80_flags,
+            fn(torch, **{"flash": flags, "routes": flags, "q80": q80_flags,
                          "q4k": q4k_flags,
                          "rows": dict(sweep="sweep" in what,
                                       clocks="clocks" in what)}.get(name, {}))
@@ -7000,27 +6989,24 @@ def main() -> int:
                                                             SOFF))))
     l_fwd = timer(lambda: sdpa_offset(False))
     l_ms = (l_fwd, timer(lambda: sdpa_offset(True)) - l_fwd)
-    # the same launches through the mma.sync passes, and the backward split by
-    # pass: the wgmma dq pass, the wgmma dk/dv pass alone on the statistics
-    # of a dq pass run before, the two without and with PDL; the mma.sync two
+    # the same launches through the mma.sync passes, and the wgmma passes
+    # split: the dq pass, the dk/dv pass alone on the statistics of a dq
+    # pass run before, the two (the one-off reading without PDL is in
+    # PERF.md)
     mma_rt = flash_attn.BwdRoute("mma")
     mma_ms = timer(layers_of(lambda q, k, v, g, o, l: flash_attn.flash_attn_bwd(
         q, k, v, o, l, g, SOFF, route=mma_rt)))
     rt10 = flash_attn.bwd_route(PAR_BATCH, SQ, TS, SOFF, TH, TKV, TD,
                                 torch.bfloat16)
+    if rt10.passes != "wgmma":
+        raise AssertionError(f"phase 10d's rank takes {rt10}, not the wgmma "
+                             f"passes")
     splits = [BwdSplit(torch, q, k, v, o, l, g, SOFF, rt10.hpb)
               for q, k, v, g, o, l in sp_layers]
     for sp in splits:
-        sp.wgmma_dq()
-    split_ms = dict(
-        wgmma_dq=timer(lambda: [sp.wgmma_dq() for sp in splits]),
-        wgmma_dkdv=timer(lambda: [sp.wgmma_dkdv(0) for sp in splits]),
-        wgmma_no_pdl=timer(lambda: [(sp.wgmma_dq(), sp.wgmma_dkdv(0))
-                                    for sp in splits]),
-        wgmma_pdl=timer(lambda: [(sp.wgmma_dq(), sp.wgmma_dkdv(1))
-                                 for sp in splits]),
-        mma_dq=timer(lambda: [sp.mma(1) for sp in splits]),
-        mma_dkdv=timer(lambda: [sp.mma(2) for sp in splits]))
+        sp.run(1)
+    split_ms = [timer(lambda: [sp.run(p_) for sp in splits])
+                for p_ in (1, 2, 3)]
     del splits
     # what a call costs the host (the training step is eager): 100 calls
     # of each route back to back, the card left to catch up after the clock
@@ -7040,12 +7026,10 @@ def main() -> int:
         f"flash_attn_bwd ({PAR_LAYERS} layers, B={PAR_BATCH} Sq={SQ} at "
         f"offset {SOFF}, Skv={TS}, D={TD}, graph replays): the route "
         f"{tuple(rt10)} {k_ms[1]:.4f} ms, the mma.sync passes {mma_ms:.4f} ms; by "
-        f"pass: wgmma dq {split_ms['wgmma_dq']:.4f}, wgmma dk/dv alone "
-        f"{split_ms['wgmma_dkdv']:.4f}, the two {split_ms['wgmma_no_pdl']:.4f} "
-        f"without PDL and {split_ms['wgmma_pdl']:.4f} with it; the mma.sync dq "
-        f"{split_ms['mma_dq']:.4f}, dk/dv {split_ms['mma_dkdv']:.4f}; host "
-        f"{host_us['wgmma']:.1f} us a call (the mma.sync passes' {host_us['mma']:.1f}); on "
-        f"{card}")
+        f"pass: wgmma dq {split_ms[0]:.4f}, wgmma dk/dv alone "
+        f"{split_ms[1]:.4f}, the two {split_ms[2]:.4f}; host "
+        f"{host_us['wgmma']:.1f} us a call (the mma.sync passes' "
+        f"{host_us['mma']:.1f}); on {card}")
     qo_bytes = PAR_BATCH * SQ * TH * TD * el
     kv_bytes = PAR_BATCH * TS * TKV * TD * el
     lse_bytes = PAR_BATCH * TH * SQ * 4
@@ -7666,13 +7650,14 @@ def main() -> int:
             raise AssertionError("launch counts differ from the per-step "
                                  "counts")
 
-        eager, eager_s = eager_stream(ctx, prompt, N_TOKENS)
-        eager_tok_s = (N_TOKENS - 1) / max(eager_s - ttft_ms / 1e3, 1e-9)
-        log(f"[full {label}] the eager step loop: {eager_tok_s:.2f} tok/s "
-            f"({eager_s:.3f} s); graphed stream torch.equal to it: "
-            f"{np.array_equal(eager, out)}")
-        if not torch.equal(torch.from_numpy(eager),
-                           torch.from_numpy(out.astype(np.int64))):
+        eager, eager_s = eager_stream(ctx, prompt, EAGER_TOKENS)
+        eager_tok_s = (EAGER_TOKENS - 1) / max(eager_s - ttft_ms / 1e3, 1e-9)
+        log(f"[full {label}] the eager step loop, {EAGER_TOKENS} tokens: "
+            f"{eager_tok_s:.2f} tok/s ({eager_s:.3f} s); the graphed stream's "
+            f"first {EAGER_TOKENS} torch.equal to it: "
+            f"{np.array_equal(eager, out[:EAGER_TOKENS])}")
+        if not torch.equal(torch.from_numpy(eager), torch.from_numpy(
+                out[:EAGER_TOKENS].astype(np.int64))):
             raise AssertionError(f"{label}: the graphed stream differs from "
                                  f"the eager step loop")
 
@@ -7704,7 +7689,7 @@ def main() -> int:
             ptok = engine._decode_step(ctx, ptok, ppos, pcache, pseen, pgen)
             ppos.add_(1)
 
-        eager_ms = (eager_s - ttft_ms / 1e3) * 1e3 / (N_TOKENS - 1)
+        eager_ms = (eager_s - ttft_ms / 1e3) * 1e3 / (EAGER_TOKENS - 1)
         graph_ms = (t_all - ttft_ms / 1e3) * 1e3 / (N_TOKENS - 1)
         k_ms = (tk - ttft_ms / 1e3) * 1e3 / k_steps
         profile_line(label, "eager step loop", eager_step, n_prof, 1,

@@ -60,16 +60,12 @@
 //         SASS has ~800 integer multiply-adds, adds and address LEAs beside
 //         252 mma (dq) and ~490 beside 336 (dk/dv).  So latency and issue,
 //         not a pipe: 154 of mma.sync's ~646 TFLOP/s on the five products.
-//         These two passes now take the bf16 backward at D = 128 only:
-//         at D <= 64 (every training path of the port, the offset form of a
-//         rank of sequence parallelism and the whole sequence alike) the
-//         route (ops/flash_attn.py:bwd_route) takes the wgmma passes of
-//         csrc/flash_bwd_wgmma.cu (tiles by TMA in the swizzled layouts of
-//         csrc/wgmma_tma.cuh, the dk/dv pass chained to the dq pass by
-//         PDL), 0.76 of these passes' time at 10d's rank and 0.79 / 0.88 at
-//         the training shapes (D = 48 / 32; `chip_smoke.py bench flash`,
-//         NVIDIA H100 80GB HBM3).  flash_attn_bwd's `passes` runs either
-//         pass alone for such a measurement.
+//         The route (ops/flash_attn.py:bwd_route) keeps these two passes
+//         where the wgmma passes of csrc/flash_bwd_wgmma.cu (tiles by TMA
+//         in the swizzled layouts of csrc/wgmma_tma.cuh, the dk/dv pass
+//         chained to the dq pass by PDL) are not measured faster, and at
+//         D = 128, which those passes do not take (`chip_smoke.py bench
+//         flash`, NVIDIA H100 80GB HBM3).
 //   f32   the oracle type: f32 tiles, products as CUDA-core FMAs from
 //         shared memory with a 4 x (cols / 16) register tile per thread
 //         (row-major tiles with an odd leading dimension: a walk along a
@@ -87,9 +83,9 @@
 //                  head, batch row) loops over the rep query heads and the
 //                  query tiles at or below the diagonal for dk, dv.  No
 //                  atomics: every sum is taken in a fixed order, so two
-//                  runs agree bit for bit.  (bf16 at D <= 64: the wgmma
-//                  passes of csrc/flash_bwd_wgmma.cu, the same two passes
-//                  and sums in the same order: the two give the same bits.)
+//                  runs agree bit for bit.  (The wgmma passes of
+//                  csrc/flash_bwd_wgmma.cu are the same two passes with the
+//                  same sums in the same order: the two give the same bits.)
 //
 // Inputs f32 or bf16 (accumulation always f32); D in {16, 32, 48, 64,
 // 128}; any S (the ragged last tile is masked).
@@ -1524,18 +1520,28 @@ int launch_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* out, cons
   return (int)cudaGetLastError();
 }
 
-// The mma.sync bf16 passes: bit 0 of `passes` the dq pass (with delta),
-// bit 1 the dk/dv pass (reads delta); both in that order.
-template <int D>
-int launch_bwd_mma(const bf16* q_, const bf16* k_, const bf16* v_, const bf16* out_,
-                   const bf16* do_, const float* lse_, float* delta_, bf16* dq_, bf16* dk_,
-                   bf16* dv_, int B, int Sq, int Skv, int off, int H, int KV, Strides qs,
-                   Strides ks, Strides vs, float scale, int passes, cudaStream_t st) {
-  // the copiers' per-thread offsets are 32-bit
-  if ((qs.s > ks.s ? qs.s : ks.s) * kTile >= (1ll << 31) || vs.s * kTile >= (1ll << 31) ||
-      (int64_t)H * D * kTile >= (1ll << 31))
-    return (int)cudaErrorInvalidValue;
-  if (passes & 1) {
+template <int D, typename T>
+int launch_bwd(const void* q, const void* k, const void* v, const void* out, const void* lse,
+               const void* dout, void* dq, void* dk, void* dv, void* delta, int B, int Sq, int Skv,
+               int off, int H, int KV, Strides qs, Strides ks, Strides vs, float scale,
+               cudaStream_t st) {
+  const T* q_ = static_cast<const T*>(q);
+  const T* k_ = static_cast<const T*>(k);
+  const T* v_ = static_cast<const T*>(v);
+  const T* out_ = static_cast<const T*>(out);
+  const T* do_ = static_cast<const T*>(dout);
+  const float* lse_ = static_cast<const float*>(lse);
+  float* delta_ = static_cast<float*>(delta);
+  T* dq_ = static_cast<T*>(dq);
+  T* dk_ = static_cast<T*>(dk);
+  T* dv_ = static_cast<T*>(dv);
+  const dim3 grid_kv((Skv + kTile - 1) / kTile, KV, B);
+  cudaError_t err;
+  if constexpr (sizeof(T) == 2) {
+    // the copiers' per-thread offsets are 32-bit
+    if ((qs.s > ks.s ? qs.s : ks.s) * kTile >= (1ll << 31) || vs.s * kTile >= (1ll << 31) ||
+        (int64_t)H * D * kTile >= (1ll << 31))
+      return (int)cudaErrorInvalidValue;
     // dq first: it writes delta, which the dk/dv kernel reads.  Two query
     // heads a block where rep is even (K/V tiles fetched once for both),
     // but at D = 128, where shared memory would allow only one block an SM.
@@ -1547,43 +1553,16 @@ int launch_bwd_mma(const bf16* q_, const bf16* k_, const bf16* v_, const bf16* o
       rc = launch_dq<D, 1>(q_, k_, v_, out_, do_, lse_, delta_, dq_, B, Sq, Skv, off, H, KV, qs, ks,
                            vs, scale, st);
     if (rc != 0) return rc;
-  }
-  if (passes & 2) {
-    cudaError_t err = allow_smem(flash_bwd_dkdv_v3_kernel<D>, BwdKV<D>::smem);
+    err = allow_smem(flash_bwd_dkdv_v3_kernel<D>, BwdKV<D>::smem);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid_kv((Skv + kTile - 1) / kTile, KV, B);
     flash_bwd_dkdv_v3_kernel<D><<<grid_kv, kMmaThreads, BwdKV<D>::smem, st>>>(
         q_, k_, v_, do_, lse_, delta_, dk_, dv_, Sq, Skv, off, H, H / KV, qs, ks, vs, scale);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <int D, typename T>
-int launch_bwd(const void* q, const void* k, const void* v, const void* out, const void* lse,
-               const void* dout, void* dq, void* dk, void* dv, void* delta, int B, int Sq, int Skv,
-               int off, int H, int KV, Strides qs, Strides ks, Strides vs, float scale,
-               int passes, cudaStream_t st) {
-  const T* q_ = static_cast<const T*>(q);
-  const T* k_ = static_cast<const T*>(k);
-  const T* v_ = static_cast<const T*>(v);
-  const T* out_ = static_cast<const T*>(out);
-  const T* do_ = static_cast<const T*>(dout);
-  const float* lse_ = static_cast<const float*>(lse);
-  float* delta_ = static_cast<float*>(delta);
-  T* dq_ = static_cast<T*>(dq);
-  T* dk_ = static_cast<T*>(dk);
-  T* dv_ = static_cast<T*>(dv);
-  if constexpr (sizeof(T) == 2) {
-    return launch_bwd_mma<D>(q_, k_, v_, out_, do_, lse_, delta_, dq_, dk_, dv_, B, Sq, Skv, off, H,
-                             KV, qs, ks, vs, scale, passes, st);
   } else {
-    if (passes != 3) return (int)cudaErrorInvalidValue;   // f32: one call of three kernels
-    const dim3 grid_kv((Skv + kTile - 1) / kTile, KV, B);
     const int64_t n_rows = (int64_t)B * Sq * H;
     const int per_block = kThreads / 32;
     flash_delta_kernel<T><<<(unsigned)((n_rows + per_block - 1) / per_block), kThreads, 0, st>>>(
         out_, do_, delta_, n_rows, Sq, H, D);
-    cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const dim3 grid_q((Sq + kTile - 1) / kTile, H, B);
     err = allow_smem(flash_bwd_dkdv_kernel<D>, DkvCfg<D>::smem);
@@ -1596,8 +1575,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out, con
     if (err != cudaSuccess) return (int)err;
     flash_bwd_dq_kernel<D><<<grid_q, kThreads, DqCfg<D>::smem, st>>>(
         q_, k_, v_, do_, lse_, delta_, dq_, Sq, Skv, off, H, H / KV, qs, ks, vs, scale);
-    return (int)cudaGetLastError();
   }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1640,21 +1619,18 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void*
 // The backward of flash_attn_fwd: out, lse as it wrote them; dout, dq, dk,
 // dv contiguous in the layouts of out, q, k, v (dk, dv over all Skv keys);
 // delta: f32 scratch (B, H, Sq).  bf16: two launches (dq with delta, then
-// dk/dv; `passes` 1 or 2 launches one of them, for a route that takes the
-// other from csrc/flash_bwd_wgmma.cu); f32: three (delta, dk/dv, dq),
-// passes 3 only.  No atomics.
+// dk/dv); f32: three (delta, dk/dv, dq).  No atomics.
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const void* out,
                               const void* lse, const void* dout, void* dq, void* dk, void* dv,
                               void* delta, int dtype, int B, int Sq, int Skv, int off, int H,
                               int KV, int D, long long q_sb, long long q_ss, long long q_sh,
                               long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-                              long long v_ss, long long v_sh, float scale, int passes,
-                              void* stream) {
+                              long long v_ss, long long v_sh, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
 #define NANO_BWD(DD, TT)                                                                         \
   launch_bwd<DD, TT>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Skv, off, H, KV, qs, ks, vs, \
-                     scale, passes, st)
+                     scale, st)
   NANO_FLASH_DISPATCH(NANO_BWD)
 #undef NANO_BWD
 }

@@ -7,9 +7,10 @@
 // rank of sequence parallelism needs (Sq queries at positions off .. off +
 // Sq - 1 against Skv >= off + Sq keys; the JAX package gets it from GSPMD's
 // partition of its attention) and for the whole sequence (off = 0, Sq =
-// Skv), where it also beats csrc/flash_attn.cu's two mma.sync passes (the
-// first design), which keep D = 128.  Per batch row b and query head h =
-// kv * rep + r, with P = exp(S - lse) from the forward's lse:
+// Skv) at D >= 32, where it beats csrc/flash_attn.cu's two mma.sync passes
+// (the first design).  Those keep D = 128 and the whole sequence at D = 16
+// (the route, ops/flash_attn.py:bwd_route).  Per batch row b and query
+// head h = kv * rep + r, with P = exp(S - lse) from the forward's lse:
 //
 //     dV = P^T dO,  dP = dO V^T,  dS = P (dP - delta),  delta = rowsum(dO * out)
 //     dQ = dS K / sqrt(D),  dK = dS^T Q / sqrt(D)
@@ -41,10 +42,12 @@
 //     after it;
 //   * both grids are 1-D in block_order's order: where a grid fits two
 //     waves, the tiles with the longest loops start first.
-// Measured (chip_smoke.py bench flash, NVIDIA H100 80GB HBM3): 0.76 of the
-// mma.sync passes' time at 10d's shape, 0.79 / 0.88 at the training
-// shapes (D = 48 / 32); clock64 puts the dq pass's time ~31% in its prologue (the inputs
-// streaming from memory in one wave) and the dk/dv pass's ~37% in P and dS,
+// Measured (chip_smoke.py bench routes, NVIDIA H100 80GB HBM3): 0.76 of the
+// mma.sync passes' time at 10d's shape, 0.80 / 0.86 at the training
+// shapes (D = 48 / 32), 0.74 at D = 64 on both, 0.98 at D = 16 on 10d's
+// rank and 1.10 at the calculator's whole sequence of 64; clock64 puts the
+// dq pass's time ~31% in its prologue (the inputs streaming from memory in
+// one wave) and the dk/dv pass's ~37% in P and dS,
 // ~21% waiting for its stages: latency, three warpgroups an SM (registers)
 // being too few to hide it.  Tried and slower: a producer warp, four
 // stages, four dk/dv blocks an SM (spills), each k-step's product issued as
@@ -574,51 +577,52 @@ int encode_maps(CUtensorMap (&m)[4], const void* q, const void* dout, const void
   return rc;
 }
 
+// bit 0 of `passes`: the dq pass; bit 1: the dk/dv pass, launched as a
+// programmatic dependent of the launch before it on the stream (the dq
+// pass; a CUDA-graph capture keeps the edge).  The four tensor maps are
+// encoded once for both.
 template <int D, int HPB>
-int launch_dq(const void* q, const void* k, const void* v, const void* out, const void* dout,
-              const float* lse, float* stats, bf16* dq, int B, int Sq, int Skv, int off, int H,
-              int KV, Strides qs, Strides ks, Strides vs, float scale, int spread, cudaStream_t st) {
-  using C = QCfg<D, HPB>;
+int launch_bwd(const void* q, const void* k, const void* v, const void* out, const void* dout,
+               const float* lse, float* stats, bf16* dq, bf16* dk, bf16* dv, int B, int Sq,
+               int Skv, int off, int H, int KV, Strides qs, Strides ks, Strides vs, float scale,
+               int spread_q, int spread_kv, int passes, cudaStream_t st) {
+  using QC = QCfg<D, HPB>;
+  using KC = KvCfg<D>;
+  const int m_tiles = (Sq + kTile - 1) / kTile, q_pairs = H / HPB * B;
+  const int n_tiles = (Skv + kTile - 1) / kTile, kv_pairs = KV * B;
+  if (passes < 1 || passes > 3 || spread_q < 1 || q_pairs % spread_q || spread_kv < 1 ||
+      kv_pairs % spread_kv)
+    return (int)cudaErrorInvalidValue;
   CUtensorMap m[4];
   int rc = encode_maps<D>(m, q, dout, k, v, B, Sq, Skv, H, KV, qs, ks, vs);
   if (rc != 0) return rc;
-  cudaError_t err = allow_smem(flash_bwd_dq_wgmma_kernel<D, HPB>, C::SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const int n = (Sq + kTile - 1) / kTile, pairs = H / HPB * B;
-  if (spread < 1 || pairs % spread) return (int)cudaErrorInvalidValue;
-  flash_bwd_dq_wgmma_kernel<D, HPB><<<n * pairs, C::THREADS, C::SMEM, st>>>(
-      m[0], m[1], m[2], m[3], static_cast<const bf16*>(out), static_cast<const bf16*>(dout), lse,
-      stats, dq, Sq, Skv, off, H, H / KV, spread, scale);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
-                const float* stats, bf16* dk, bf16* dv, int B, int Sq, int Skv, int off, int H,
-                int KV, Strides qs, Strides ks, Strides vs, float scale, int spread, int pdl,
-                cudaStream_t st) {
-  using C = KvCfg<D>;
-  CUtensorMap m[4];
-  int rc = encode_maps<D>(m, q, dout, k, v, B, Sq, Skv, H, KV, qs, ks, vs);
-  if (rc != 0) return rc;
-  cudaError_t err = allow_smem(flash_bwd_dkdv_wgmma_kernel<D>, C::SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const int n = (Skv + kTile - 1) / kTile, pairs = KV * B;
-  if (spread < 1 || pairs % spread) return (int)cudaErrorInvalidValue;
-  // a programmatic dependent of the dq pass before it on the stream (a
-  // CUDA-graph capture keeps the edge)
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n * pairs);
-  cfg.blockDim = dim3(C::THREADS);
-  cfg.dynamicSmemBytes = C::SMEM;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = pdl ? 1 : 0;
-  return (int)cudaLaunchKernelEx(&cfg, flash_bwd_dkdv_wgmma_kernel<D>, m[0], m[1], m[2], m[3],
-                                 (const float*)stats, dk, dv, Sq, Skv, off, H, KV, spread, scale);
+  if (passes & 1) {
+    cudaError_t err = allow_smem(flash_bwd_dq_wgmma_kernel<D, HPB>, QC::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_dq_wgmma_kernel<D, HPB><<<m_tiles * q_pairs, QC::THREADS, QC::SMEM, st>>>(
+        m[0], m[1], m[2], m[3], static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
+        lse, stats, dq, Sq, Skv, off, H, H / KV, spread_q, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (passes & 2) {
+    cudaError_t err = allow_smem(flash_bwd_dkdv_wgmma_kernel<D>, KC::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(n_tiles * kv_pairs);
+    cfg.blockDim = dim3(KC::THREADS);
+    cfg.dynamicSmemBytes = KC::SMEM;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, flash_bwd_dkdv_wgmma_kernel<D>, m[0], m[1], m[2], m[3],
+                             (const float*)stats, dk, dv, Sq, Skv, off, H, KV, spread_kv, scale);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -637,56 +641,44 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
 // bf16 only.  q: (B, Sq, H, D), k / v: (B, Skv, KV, D), each with D
 // contiguous and its batch / position / head strides given in elements
 // (multiples of 8, 16-byte aligned base); out, dout, dq contiguous (B, Sq,
-// H, D); lse f32 (B, H, Sq); query i sees keys 0 .. off + i.  stats: f32
-// scratch of B * H * ceil(Sq / 64) * 128, which the dq pass writes (lse in
-// exp2 units and delta = rowsum(dout * out), 64 of each a query tile) and
-// the dk/dv pass reads.  hpb: query heads a dq block (1, or 2 where it
-// divides H / KV).  Launches on the caller's stream and returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a D not built, an hpb
-// that does not divide H / KV, or a tensor map cuTensorMapEncodeTiled refuses.
-extern "C" int flash_bwd_dq_wgmma(const void* q, const void* k, const void* v, const void* out,
-                                  const void* lse, const void* dout, void* dq, void* stats, int B,
-                                  int Sq, int Skv, int off, int H, int KV, int D, int hpb,
-                                  int spread,
-                                  long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-                                  long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-                                  long long v_sh, float scale, void* stream) {
+// H, D); lse f32 (B, H, Sq); dk, dv contiguous (B, Skv, KV, D), zero for
+// keys no query sees; query i sees keys 0 .. off + i.  stats: f32 scratch
+// of B * H * ceil(Sq / 64) * 128, which the dq pass writes (lse in exp2
+// units and delta = rowsum(dout * out), 64 of each a query tile) and the
+// dk/dv pass reads.  hpb: query heads a dq block (1, or 2 where it divides
+// H / KV); spread_q, spread_kv: block_order's spread of each grid (a
+// divisor of its pairs).  passes: 3 both passes, the dk/dv pass a
+// programmatic dependent of the dq pass; 1 or 2 one of them alone, for a
+// measurement's split (the dk/dv pass on stats an earlier dq pass left).
+// Launches on the caller's stream and returns 0, a CUDA error, or
+// cudaErrorInvalidValue for a D not built, an hpb, spread or passes out of
+// range, or a tensor map cuTensorMapEncodeTiled refuses.
+extern "C" int flash_bwd_wgmma(const void* q, const void* k, const void* v, const void* out,
+                               const void* lse, const void* dout, void* dq, void* dk, void* dv,
+                               void* stats, int B, int Sq, int Skv, int off, int H, int KV, int D,
+                               int hpb, int spread_q, int spread_kv, int passes, long long q_sb,
+                               long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+                               long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+                               float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   if ((hpb != 1 && hpb != 2) || (H / KV) % hpb) return (int)cudaErrorInvalidValue;
-#define NANO_DQ(DD)                                                                                \
-  (hpb == 2 ? launch_dq<DD, 2>(q, k, v, out, dout, static_cast<const float*>(lse),                \
-                               static_cast<float*>(stats), static_cast<bf16*>(dq), B, Sq, Skv, off, \
-                               H, KV, qs, ks, vs, scale, spread, st)                               \
-            : launch_dq<DD, 1>(q, k, v, out, dout, static_cast<const float*>(lse),                \
-                               static_cast<float*>(stats), static_cast<bf16*>(dq), B, Sq, Skv, off, \
-                               H, KV, qs, ks, vs, scale, spread, st))
-  NANO_WG_DISPATCH(NANO_DQ)
-#undef NANO_DQ
-}
-
-// The dk/dv pass on the stats the dq pass wrote; dk, dv contiguous (B, Skv,
-// KV, D), zero for keys no query sees.  As above otherwise.
-extern "C" int flash_bwd_dkdv_wgmma(const void* q, const void* k, const void* v, const void* dout,
-                                    const void* stats, void* dk, void* dv, int B, int Sq, int Skv,
-                                    int off, int H, int KV, int D, int spread, int pdl,
-                                    long long q_sb, long long q_ss,
-                                    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-                                    long long v_sb, long long v_ss, long long v_sh, float scale,
-                                    void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
-#define NANO_KV(DD)                                                                               \
-  launch_dkdv<DD>(q, k, v, dout, static_cast<const float*>(stats), static_cast<bf16*>(dk),       \
-                  static_cast<bf16*>(dv), B, Sq, Skv, off, H, KV, qs, ks, vs, scale, spread, pdl, st)
-  NANO_WG_DISPATCH(NANO_KV)
-#undef NANO_KV
+#define NANO_BWD(DD)                                                                             \
+  (hpb == 2 ? launch_bwd<DD, 2>(q, k, v, out, dout, static_cast<const float*>(lse),             \
+                                static_cast<float*>(stats), static_cast<bf16*>(dq),             \
+                                static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, Sq, Skv, off, \
+                                H, KV, qs, ks, vs, scale, spread_q, spread_kv, passes, st)     \
+            : launch_bwd<DD, 1>(q, k, v, out, dout, static_cast<const float*>(lse),             \
+                                static_cast<float*>(stats), static_cast<bf16*>(dq),             \
+                                static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, Sq, Skv, off, \
+                                H, KV, qs, ks, vs, scale, spread_q, spread_kv, passes, st))
+  NANO_WG_DISPATCH(NANO_BWD)
+#undef NANO_BWD
 }
 
 // Dynamic shared memory (bytes, with the 1024 of alignment slack) of a
 // pass as built: pass 0 the dq pass with hpb heads a block, pass 1 the
-// dk/dv pass; -1 for what is not built.  ops/flash_attn.py:wgmma_plan
-// computes the same.
+// dk/dv pass; -1 for what is not built.
 extern "C" int flash_bwd_wgmma_smem(int D, int pass, int hpb) {
 #define NANO_SMEM(DD)                                                              \
   (pass == 1 ? KvCfg<DD>::SMEM                                                     \

@@ -72,13 +72,11 @@ SIGNATURES = {
     "flash_attn_fwd": ([P, P, P, P, P, *[I] * 8, *[Q] * 9, F, P],
                        "flash_attn"),
     "flash_attn_fwd_blocks_per_sm": ([I, I], "flash_attn"),
-    "flash_attn_bwd": ([*[P] * 10, *[I] * 8, *[Q] * 9, F, I, P],
+    "flash_attn_bwd": ([*[P] * 10, *[I] * 8, *[Q] * 9, F, P],
                        "flash_attn"),
     "flash_attn_bwd_blocks_per_sm": ([I, I], "flash_attn"),
-    "flash_bwd_dq_wgmma": ([*[P] * 8, *[I] * 9, *[Q] * 9, F, P],
-                           "flash_bwd_wgmma"),
-    "flash_bwd_dkdv_wgmma": ([*[P] * 7, *[I] * 9, *[Q] * 9, F, P],
-                             "flash_bwd_wgmma"),
+    "flash_bwd_wgmma": ([*[P] * 10, *[I] * 11, *[Q] * 9, F, P],
+                        "flash_bwd_wgmma"),
     "flash_bwd_wgmma_smem": ([I, I, I], "flash_bwd_wgmma"),
     "flash_bwd_wgmma_blocks_per_sm": ([I, I, I], "flash_bwd_wgmma"),
 }

@@ -17,7 +17,7 @@ gathered over "seq").  The JAX package gets that form from GSPMD, which
 partitions the einsum path's scores on S.
 
 ``flash_attention`` runs the hand-written CUDA kernels
-(``csrc/flash_attn.cu``; the bf16 backward at D <= 64 in
+(``csrc/flash_attn.cu``; most of the bf16 backward at D <= 64 in
 ``csrc/flash_bwd_wgmma.cu``, as ``bwd_route`` chooses) for CUDA tensors —
 forward and, through the operator's backward, the gradient — and their
 plain versions only for tensors on the CPU.  Unlike the TPU
@@ -43,7 +43,7 @@ from __future__ import annotations
 
 import math
 from functools import lru_cache
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -55,8 +55,6 @@ HEAD_DIMS = (16, 32, 48, 64, 128)
 # D = 128 keeps the mma.sync passes: dK and dV of 64 x 128 in f32 are 128
 # registers a thread, S and dP 64 more
 WGMMA_HEAD_DIMS = (16, 32, 48, 64)
-# shared memory a block may take on the H100 (bytes)
-SMEM_LIMIT = 232448
 
 
 def causal_mask(S: int, device=None, offset: int = 0,
@@ -139,75 +137,26 @@ def bwd_route(B: int, Sq: int, Skv: int, offset: int, H: int, KV: int,
               D: int, dtype: torch.dtype) -> BwdRoute:
     """The backward's kernels for these shapes, a function of the shapes
     alone (no device is asked, so it holds under a CUDA graph and on the
-    CPU).  bf16 at the widths the wgmma passes are built for: those passes,
-    for a rank of sequence parallelism (Sq < Skv or offset > 0) and for the
-    whole-sequence call alike, since they beat the mma.sync passes at both
-    (``chip_smoke.py bench flash``), with two query heads a dq block at D =
-    48 where the heads of a KV head are even (one elsewhere: as fast or
-    faster at D = 32).  bf16 at D = 128: the mma.sync passes.  f32: the CUDA
-    cores."""
+    CPU), as ``chip_smoke.py bench routes`` measured them against each
+    other.  bf16: the wgmma passes wherever they were faster than the
+    mma.sync passes, a rank of sequence parallelism (Sq < Skv or offset >
+    0) at D = 16 to 64 and the whole sequence at D = 32 to 64, with two
+    query heads a dq block at D = 48 and 64 where the heads of a KV head
+    are even (one at D = 16 and 32); the mma.sync passes for the whole
+    sequence at D = 16 (the calculator's, where each block has one step and
+    the wgmma passes' prologue loses) and at D = 128, which the wgmma passes
+    do not take.  f32: the CUDA cores."""
     if dtype == torch.float32:
         return BwdRoute("simt")
-    if D not in WGMMA_HEAD_DIMS:
+    if D not in WGMMA_HEAD_DIMS or (D == 16 and offset == 0 and Sq == Skv):
         return BwdRoute("mma")
-    return BwdRoute("wgmma", 2 if D == 48 and (H // KV) % 2 == 0 else 1)
-
-
-def tile_layout(D: int) -> Dict[str, int]:
-    """The shared-memory layout of a 64-row bf16 tile of width D in the
-    wgmma passes, as ``csrc/wgmma_tma.cuh:TileLayout`` builds it: column
-    blocks of E elements (W bytes, the narrowest of 32, 64 and 128 that
-    holds a row's 2 D bytes, 128 where it holds more; a row padded to the
-    blocks, the pad TMA's out-of-bounds zeros), 64 rows each, W bytes
-    apart, swizzled W bytes; one TMA box of E x 64 a block."""
-    row = 2 * D
-    W = 128 if row > 64 else 64 if row > 32 else 32
-    E = W // 2
-    blocks = -(-D // E)
-    return dict(row_bytes=row, swizzle_bytes=W, block_elems=E,
-                blocks=blocks, box=(E, 64), box_bytes=E * 2,
-                block_bytes=64 * W, tile_bytes=blocks * 64 * W)
-
-
-# stages of the wgmma passes' rings, as built
-WGMMA_STAGES = 3
-
-
-def wgmma_plan(D: int, hpb: int = 1) -> Dict[str, object]:
-    """What the wgmma passes take at width D (``hpb`` query heads a dq
-    block), as ``csrc/flash_bwd_wgmma.cu`` builds them: the tile layout,
-    threads (a warpgroup a head of a dq block, one a dk/dv block) and
-    dynamic shared memory (bytes, 1024 of them the alignment slack) of each
-    pass.  dk/dv: K, V, and a ring of (Q, dO, 64 lse and 64 delta in f32);
-    dq: Q and dO of each head and a ring of (K, V); 8 bytes an mbarrier
-    (full and empty a stage, one for the tiles that come once)."""
-    lay = tile_layout(D)
-    tile, n = lay["tile_bytes"], WGMMA_STAGES
-    bars = (2 * n + 1) * 8 + 1024
-    return dict(layout=lay, stages=n,
-                dkdv=dict(threads=128,
-                          smem=2 * tile + n * (2 * tile + 2 * 64 * 4) + bars),
-                dq=dict(threads=128 * hpb,
-                        smem=2 * hpb * tile + n * 2 * tile + bars))
-
-
-def block_order(n: int, pairs: int, spread: int) -> List[Tuple[int, int]]:
-    """(tile, pair) of each block of a wgmma pass's 1-D grid of n tiles x
-    `pairs` pairs, in launch order, as the kernels' ``block_order`` maps
-    them: chunks of `spread` pairs, tiles outer within a chunk.  Tile i is
-    key tile i of the dk/dv pass; query tile n - 1 - i of the dq pass (the
-    longest loops first).  A pair: (KV head, batch row) of the dk/dv pass,
-    kvh + KV b; (head group, batch row) of the dq pass."""
-    order = []
-    for idx in range(n * pairs):
-        chunk, r = divmod(idx, n * spread)
-        i, j = divmod(r, spread)
-        order.append((i, chunk * spread + j))
-    return order
+    return BwdRoute("wgmma", 2 if D >= 48 and (H // KV) % 2 == 0 else 1)
 
 
 def wgmma_spread(n: int, pairs: int, resident: int) -> int:
-    """``block_order``'s spread for a grid of n x pairs blocks of which
+    """The spread of a wgmma pass's 1-D grid of n tiles x `pairs` pairs
+    (``csrc/flash_bwd_wgmma.cu:block_order``: chunks of `spread` pairs,
+    tiles outer within a chunk) for a grid of n x pairs blocks of which
     `resident` run at once: every pair where the grid fits in two waves
     (the tiles with the most steps start first, the short ones fill in
     behind them), else 1 (a pair's tiles run together, and the tiles they
@@ -226,26 +175,14 @@ def _resident(device: int, D: int, pass_: int, hpb: int) -> int:
     return per_sm * _build.sm_count(torch.device("cuda", device))
 
 
-def dkdv_steps(nt: int, Sq: int, offset: int, rep: int
-               ) -> List[Tuple[int, int, bool]]:
-    """The steps of the wgmma dk/dv block of key tile nt, in its order:
-    (query head r of the KV head, query tile mt, masked), masked where the
-    shifted diagonal crosses the pair of tiles."""
-    n0, m_tiles = 64 * nt, -(-Sq // 64)
-    if n0 > offset + Sq - 1:      # no query sees the tile: zeros
-        return []
-    mt0 = max(n0 - offset, 0) // 64
-    return [(r, mt, offset + 64 * mt < n0 + 63)
-            for r in range(rep) for mt in range(mt0, m_tiles)]
-
-
-def dq_tiles(mt: int, Sq: int, offset: int) -> List[Tuple[int, bool]]:
-    """The key tiles of the wgmma dq block of query tile mt, in its order:
-    (key tile nt, masked)."""
-    m0 = 64 * mt
-    n_tiles = (offset + min(m0 + 63, Sq - 1)) // 64 + 1
-    n_full = (offset + m0 + 1) // 64
-    return [(nt, nt >= n_full) for nt in range(n_tiles)]
+def wgmma_spreads(device: int, B: int, Sq: int, Skv: int, H: int, KV: int,
+                  D: int, hpb: int) -> Tuple[int, int]:
+    """``wgmma_spread`` of the dq pass's grid (query tiles x head groups x
+    batch rows) and of the dk/dv pass's (key tiles x KV heads x batch
+    rows) on `device`."""
+    return (wgmma_spread(-(-Sq // 64), H // hpb * B,
+                         _resident(device, D, 0, hpb)),
+            wgmma_spread(-(-Skv // 64), KV * B, _resident(device, D, 1, 1)))
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -340,33 +277,24 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), delta.data_ptr(), _TYPES[q.dtype], B, S, S_kv,
-            offset, H, KV, D, *tail, 3, _build.stream(q))
+            offset, H, KV, D, *tail, _build.stream(q))
         flash_attention.backward_launches += 1
         _build.check(rc, "flash_attn_bwd")
         return dq, dk, dv
     # lse (exp2 units) and delta of each query tile, 64 of each
     stats = torch.empty((B, H, -(-S // 64), 2, 64), dtype=torch.float32,
                         device=q.device)
-    lib, dev = _build.lib("flash_bwd_wgmma"), q.device.index
-    pairs = H // route.hpb * B
-    rc = lib.flash_bwd_dq_wgmma(
+    # the dq pass, then the dk/dv pass as its programmatic dependent (PDL):
+    # its blocks start as the dq pass's retire
+    rc = _build.lib("flash_bwd_wgmma").flash_bwd_wgmma(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), stats.data_ptr(), B,
-        S, S_kv, offset, H, KV, D, route.hpb,
-        wgmma_spread(stats.shape[2], pairs, _resident(dev, D, 0, route.hpb)),
-        *tail, _build.stream(q))
-    _build.check(rc, "flash_bwd_dq_wgmma")
-    # a programmatic dependent of the dq pass (PDL): its blocks start as
-    # the dq pass's retire
-    rc = lib.flash_bwd_dkdv_wgmma(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        stats.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, S_kv, offset,
-        H, KV, D, wgmma_spread(-(-S_kv // 64), KV * B,
-                               _resident(dev, D, 1, 1)), 1,
+        lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), stats.data_ptr(), B, S, S_kv, offset, H, KV, D,
+        route.hpb, *wgmma_spreads(q.device.index, B, S, S_kv, H, KV, D, route.hpb), 3,
         *tail, _build.stream(q))
     flash_attention.backward_launches += 1
     flash_attention.wgmma_launches += 1
-    _build.check(rc, "flash_bwd_dkdv_wgmma")
+    _build.check(rc, "flash_bwd_wgmma")
     return dq, dk, dv
 
 

@@ -1,12 +1,11 @@
-"""K4's backward route and the wgmma passes' plan, on the CPU.
+"""K4's backward route, on the CPU.
 
 ``ops/flash_attn.py:bwd_route`` chooses the kernels of the backward from
 the shapes alone: the wgmma passes (``csrc/flash_bwd_wgmma.cu``) for bf16
-at D <= 64, the mma.sync passes at D = 128, the CUDA-core kernels for
-f32.  ``wgmma_plan`` / ``tile_layout`` say what those passes take (shared
-memory, the tile layout and its swizzle per D); ``block_order``,
-``dkdv_steps`` and ``dq_tiles`` say which block does what.  Nothing here
-needs a card: the kernels themselves are held against their plain version
+where they are measured faster than the mma.sync passes, the mma.sync
+passes elsewhere and at D = 128, the CUDA-core kernels for f32;
+``wgmma_spread`` orders the wgmma passes' grids.  Nothing here needs a
+card: the kernels themselves, their shared memory and occupancy are held
 in tests/test_torch_kernels_cuda.py and chip_smoke.py phase 3.
 """
 
@@ -23,7 +22,9 @@ BF16, F32 = torch.bfloat16, torch.float32
 # (B, Sq, Skv, offset, H, KV, D, dtype) -> (passes, hpb): phase 10d's two
 # ranks of {"seq": 2} (Nano-168M, batch 8, 512 positions), the training
 # shapes of Nano-168M (D = 48) and Nano-56M (D = 32), the Qwen3 head width,
-# f32, an odd rep, the calculator's D = 16 and D = 64
+# f32, an odd rep; 10d's rank at D = 32, 16 and 64, the calculator's
+# whole sequence (D = 16), a whole sequence at D = 64, D = 16 and 64 at
+# other offsets
 ROUTES = [
     ((8, 256, 512, 256, 16, 8, 48, BF16), ("wgmma", 2)),
     ((8, 256, 512, 0, 16, 8, 48, BF16), ("wgmma", 2)),
@@ -32,8 +33,15 @@ ROUTES = [
     ((1, 256, 512, 256, 16, 8, 128, BF16), ("mma", 1)),
     ((8, 256, 512, 256, 16, 8, 48, F32), ("simt", 1)),
     ((2, 64, 128, 64, 3, 1, 48, BF16), ("wgmma", 1)),
-    ((4, 60, 60, 0, 4, 1, 16, BF16), ("wgmma", 1)),
-    ((2, 64, 256, 192, 8, 2, 64, BF16), ("wgmma", 1)),
+    ((8, 256, 512, 256, 16, 8, 32, BF16), ("wgmma", 1)),
+    ((8, 256, 512, 256, 16, 8, 16, BF16), ("wgmma", 1)),
+    ((64, 64, 64, 0, 8, 4, 16, BF16), ("mma", 1)),
+    ((4, 60, 60, 0, 4, 1, 16, BF16), ("mma", 1)),
+    ((2, 37, 200, 5, 4, 1, 16, BF16), ("wgmma", 1)),
+    ((8, 256, 512, 256, 16, 8, 64, BF16), ("wgmma", 2)),
+    ((64, 512, 512, 0, 16, 8, 64, BF16), ("wgmma", 2)),
+    ((2, 64, 256, 192, 8, 2, 64, BF16), ("wgmma", 2)),
+    ((2, 100, 300, 37, 8, 8, 64, BF16), ("wgmma", 1)),
 ]
 
 
@@ -53,72 +61,12 @@ def test_route_never_sends_a_width_or_type_the_kernels_refuse(D):
                               dtype)
         if dtype == F32:
             assert route.passes == "simt"
-        elif D in tfa.WGMMA_HEAD_DIMS:
-            assert route.passes == "wgmma" and rep % route.hpb == 0
+        elif route.passes == "wgmma":
+            assert D in tfa.WGMMA_HEAD_DIMS and rep % route.hpb == 0
         else:
-            assert route.passes == "mma"
-
-
-@pytest.mark.parametrize("D", tfa.WGMMA_HEAD_DIMS)
-def test_tile_layout_swizzle_agrees_with_the_row_bytes(D):
-    lay = tfa.tile_layout(D)
-    W = lay["swizzle_bytes"]
-    assert W in (32, 64, 128)
-    # the narrowest swizzle that holds a row (128 where a row is wider),
-    # and a box of one column block as wide as the swizzle (TMA: inner box
-    # bytes <= the swizzle span)
-    assert lay["row_bytes"] == 2 * D
-    assert lay["row_bytes"] <= W or W == 128
-    assert all(lay["row_bytes"] > w for w in (32, 64) if w < W)
-    assert lay["box"] == (lay["block_elems"], 64)
-    assert lay["box_bytes"] == W and lay["box_bytes"] % 16 == 0
-    # the blocks hold the row, the pad less than a block
-    E = lay["block_elems"]
-    assert lay["blocks"] * E >= D > (lay["blocks"] - 1) * E
-    # every tile starts on the 128-byte swizzle's 1024-byte atom
-    assert lay["tile_bytes"] % 1024 == 0
-    assert lay["tile_bytes"] == lay["blocks"] * 64 * W
-
-
-def test_tile_layout_at_d48_is_one_128_byte_block_with_a_pad():
-    lay = tfa.tile_layout(48)
-    assert (lay["swizzle_bytes"], lay["block_elems"], lay["blocks"]) == \
-        (128, 64, 1)
-    assert lay["tile_bytes"] == 8192      # 96-byte rows padded to 128
-    assert [tfa.tile_layout(d)["swizzle_bytes"] for d in (16, 32, 64)] == \
-        [32, 64, 128]
-    assert tfa.tile_layout(128)["blocks"] == 2
-
-
-@pytest.mark.parametrize("D,hpb", [(d, h) for d in tfa.WGMMA_HEAD_DIMS
-                                   for h in (1, 2)])
-def test_plan_fits_shared_memory(D, hpb):
-    plan = tfa.wgmma_plan(D, hpb)
-    tile = plan["layout"]["tile_bytes"]
-    assert plan["stages"] >= 2
-    for name in ("dq", "dkdv"):
-        assert plan[name]["smem"] <= tfa.SMEM_LIMIT
-    assert plan["dq"]["threads"] == 128 * hpb
-    assert plan["dkdv"]["threads"] == 128
-    # dk/dv: K, V and the ring of (Q, dO, 512 bytes of statistics)
-    assert plan["dkdv"]["smem"] >= 2 * tile + plan["stages"] * (2 * tile + 512)
-    # dq: Q, dO of each head and the ring of (K, V)
-    assert plan["dq"]["smem"] >= 2 * hpb * tile + plan["stages"] * 2 * tile
-    # the dk/dv pass is built for three blocks an SM at D <= 64
-    assert 3 * (plan["dkdv"]["smem"] + 1024) <= 233472
-
-
-@pytest.mark.parametrize("n,pairs", [(8, 64), (4, 64), (8, 512), (3, 5),
-                                     (1, 1)])
-def test_block_order_covers_every_block_once(n, pairs):
-    for spread in {1, pairs}:
-        order = tfa.block_order(n, pairs, spread)
-        assert sorted(order) == sorted(itertools.product(range(n),
-                                                         range(pairs)))
-        if spread == pairs:      # tiles outer: the longest steps first
-            assert [i for i, _ in order] == sorted(i for i, _ in order)
-        else:                    # a pair's tiles together
-            assert [p for _, p in order] == sorted(p for _, p in order)
+            assert route.passes == "mma" and route.hpb == 1
+            # the mma.sync passes where the wgmma passes were not faster
+            assert D not in tfa.WGMMA_HEAD_DIMS or (D == 16 and offset == 0)
 
 
 def test_spread_only_where_the_grid_fits_two_waves():
@@ -127,53 +75,6 @@ def test_spread_only_where_the_grid_fits_two_waves():
     assert tfa.wgmma_spread(8, 64, 3 * 132) == 64
     # the training shape: 8 x 512 pairs
     assert tfa.wgmma_spread(8, 512, 3 * 132) == 1
-
-
-def _visible(q, k, Sq, Skv, off):
-    return q < Sq and k < Skv and k <= off + q
-
-
-# (Sq, Skv, offset, rep): 10d's ranks, cut and whole, offsets inside and on
-# a tile, keys past the last query, a ragged Sq
-COVER = [(256, 512, 256, 2), (256, 512, 0, 2), (16, 32, 16, 2),
-         (16, 32, 0, 2), (130, 300, 131, 1), (37, 200, 5, 1),
-         (512, 512, 0, 2), (65, 130, 65, 4)]
-
-
-@pytest.mark.parametrize("Sq,Skv,off,rep", COVER)
-def test_dkdv_steps_cover_every_visible_tile_pair_once(Sq, Skv, off, rep):
-    for nt in range(-(-Skv // 64)):
-        steps = tfa.dkdv_steps(nt, Sq, off, rep)
-        keys = range(64 * nt, min(64 * nt + 64, Skv))
-        want = {(r, mt) for r in range(rep) for mt in range(-(-Sq // 64))
-                if any(_visible(q, k, Sq, Skv, off) for k in keys
-                       for q in range(64 * mt, 64 * mt + 64))}
-        got = [(r, mt) for r, mt, _ in steps]
-        assert len(got) == len(set(got)) and set(got) >= want
-        # heads outer, query tiles inner: a fixed order of the sums
-        assert got == sorted(got)
-        for r, mt, masked in steps:
-            if not masked:       # every pair of the two tiles is visible
-                assert all(_visible(q, k, Sq, Skv, off) for k in keys
-                           for q in range(64 * mt, min(64 * mt + 64, Sq)))
-        if not any(_visible(q, k, Sq, Skv, off) for k in keys
-                   for q in range(Sq)):
-            assert steps == []   # a tile no query sees stores zeros
-
-
-@pytest.mark.parametrize("Sq,Skv,off,rep", COVER)
-def test_dq_tiles_cover_every_key_tile_a_query_tile_sees(Sq, Skv, off, rep):
-    for mt in range(-(-Sq // 64)):
-        tiles = tfa.dq_tiles(mt, Sq, off)
-        queries = range(64 * mt, min(64 * mt + 64, Sq))
-        want = {nt for nt in range(-(-Skv // 64))
-                if any(_visible(q, k, Sq, Skv, off) for q in queries
-                       for k in range(64 * nt, 64 * nt + 64))}
-        assert [nt for nt, _ in tiles] == sorted(want)
-        for nt, masked in tiles:
-            if not masked:
-                assert all(_visible(q, k, Sq, Skv, off) for q in queries
-                           for k in range(64 * nt, min(64 * nt + 64, Skv)))
 
 
 @pytest.mark.parametrize("route,dtype,D,rep", [
