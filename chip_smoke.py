@@ -417,14 +417,17 @@ LORA_STEPS, LORA_LR = 6, 2e-3
 MERGE_LOGITS_TOL = 1e-3
 # phase 3: K4's offset form, (B, Sq, Skv, offset, H, KV, D): Nano-168M's
 # head shape and D = 128 at offsets 0, S / 2 and inside a 64-row tile, and
-# keys past the last query; the wgmma passes' other widths (32, 64, 16) and
-# an odd count of query heads a KV head
+# keys past the last query; the wgmma kernels' other widths (32, 64, 16)
+# and an odd count of query heads a KV head; one query, and a query tile
+# one row short of and past 64, at offsets inside a tile, with 4, 1 and 4
+# query heads a KV head
 OFFSET_CASES = ((2, 256, 512, 0, 16, 8, 48), (2, 256, 512, 256, 16, 8, 48),
                 (2, 256, 512, 77, 16, 8, 48), (2, 200, 512, 131, 16, 8, 48),
                 (1, 256, 512, 256, 16, 8, 128), (1, 256, 512, 77, 16, 8, 128),
                 (1, 130, 300, 131, 8, 2, 128), (2, 256, 512, 256, 16, 8, 32),
                 (2, 100, 300, 37, 8, 2, 64), (2, 37, 200, 5, 4, 1, 16),
-                (1, 130, 300, 131, 6, 2, 48))
+                (1, 130, 300, 131, 6, 2, 48), (2, 1, 300, 299, 8, 2, 32),
+                (2, 63, 300, 100, 8, 8, 64), (2, 65, 400, 200, 16, 4, 16))
 # phase 9: SFT steps on phase 6's step-12 checkpoint (config/sft.json,
 # warmup cut to 1 step so that a few steps move the held batch), steps of
 # each remat policy, and the problems' sizes (the sort run is the JAX
@@ -875,11 +878,12 @@ def bench_flash(torch, clocks=False):
     (B=64, S=512, H=16, KV=8, D=48, bf16, each layer on its own tensors) and
     the Qwen3 head shape (D=128), no autograd, beside
     scaled_dot_product_attention(is_causal, enable_gqa): CUDA events around
-    the step, best of five, in the order library, kernel, kernel, library.
+    the step, best of five, in the order library, kernel, kernel, library;
+    then the route's kernel in turns with the mma.sync kernel.
     Then the step's 24 backward launches of flash_attn_bwd (its route's
     kernels: the wgmma passes at D = 48, the mma.sync passes at D = 128) beside SDPA's
     backward (autograd of the same call) the same way; the backward by
-    route at 10d's ranks and the training shapes (bench_bwd_routes); and
+    route at 10d's ranks and the training shapes (bench_routes); and
     what bounds the backward: the kernels' instruction mix in the SASS and
     the cycles each warp spends in each phase (bench_bwd_clocks for the mma.sync
     passes, bench_wgmma_clocks for the wgmma passes, with `bench flash
@@ -903,9 +907,9 @@ def bench_flash(torch, clocks=False):
         layers = [(mk(B, S, H, D), mk(B, S, KV, D), mk(B, S, KV, D))
                   for _ in range(L)]
 
-        def kernel():
+        def kernel(route=None):
             for q, k, v in layers:
-                flash_attn.flash_attn_fwd(q, k, v)
+                flash_attn.flash_attn_fwd(q, k, v, route=route)
 
         def library():
             for q, k, v in layers:
@@ -914,12 +918,18 @@ def bench_flash(torch, clocks=False):
                     is_causal=True, enable_gqa=True)
 
         t = [_best_of(torch, f) for f in (library, kernel, kernel, library)]
+        mma = lambda: kernel(flash_attn.FwdRoute("mma"))
+        tm = [_best_of(torch, f) for f in (mma, kernel, kernel, mma)]
         flops = L * 2 * 2 * B * H * D * S * (S + 1) // 2
         log(f"[bench flash] {L} x flash_attn_fwd B={B} S={S} H={H} KV={KV} "
-            f"D={D} bf16: kernel {t[1]:.3f} / {t[2]:.3f} ms "
+            f"D={D} bf16, the route "
+            f"{tuple(flash_attn.fwd_route(B, S, S, 0, H, KV, D, torch.bfloat16))}"
+            f": kernel {t[1]:.3f} / {t[2]:.3f} ms "
             f"({flops / min(t[1], t[2]) / 1e9:.1f} TFLOP/s on the causal "
             f"work), SDPA {t[0]:.3f} / {t[3]:.3f} ms, kernel / SDPA "
-            f"{min(t[1], t[2]) / min(t[0], t[3]):.2f}")
+            f"{min(t[1], t[2]) / min(t[0], t[3]):.2f}; in turns with the "
+            f"mma.sync kernel: route {tm[1]:.3f} / {tm[2]:.3f} ms, mma.sync "
+            f"{tm[0]:.3f} / {tm[3]:.3f} ms")
 
         # the backward: the kernel on what the forward wrote, SDPA's
         # backward through autograd on its own forward (graph kept)
@@ -951,16 +961,16 @@ def bench_flash(torch, clocks=False):
         if D == 48 and clocks:
             bench_bwd_clocks(torch, layers[0], fwd[0], douts[0])
         del layers, fwd, douts, lib_graphs
-    bench_bwd_routes(torch, clocks)
+    bench_routes(torch, clocks)
     bench_bwd_sass()
 
 
-# bench_bwd_routes' shapes, (B, Sq, Skv, offset, H, KV, D): phase 10d's
-# two ranks (B=8, 256 queries at offsets 256 and 0 against 512 keys), the
+# bench_routes' shapes, (B, Sq, Skv, offset, H, KV, D): phase 10d's two
+# ranks (B=8, 256 queries at offsets 256 and 0 against 512 keys), the
 # training shapes of Nano-168M (D=48) and Nano-56M (D=32), B=64 x 512;
 # 10d's rank at D = 32, 16 and 64; the calculator of phase 9d (B=64 x 64,
 # 8 heads on 4 KV heads, D = 16); a whole sequence of B=64 x 512 at D = 64
-BWD_ROUTE_SHAPES = (
+ROUTE_SHAPES = (
     (8, 256, 512, 256, 16, 8, 48), (8, 256, 512, 0, 16, 8, 48),
     (64, 512, 512, 0, 16, 8, 48), (64, 512, 512, 0, 16, 8, 32),
     (8, 256, 512, 256, 16, 8, 32), (8, 256, 512, 256, 16, 8, 16),
@@ -968,17 +978,28 @@ BWD_ROUTE_SHAPES = (
     (64, 512, 512, 0, 16, 8, 64))
 
 
-def bench_bwd_routes(torch, clocks=False):
-    """K4's bf16 backward by route, alone (no autograd), 4 layers' launches
-    replayed from a CUDA graph, at BWD_ROUTE_SHAPES: the wgmma passes with
-    one query head a dq block, in turns with the mma.sync passes (old, new,
-    new, old), then with two where the heads of a KV head are even, and the
-    wgmma passes split: dq, dk/dv alone, the two.  The route's choice beside
-    them.  With `clocks`, where the wgmma passes' warps spend their cycles
-    (bench_wgmma_clocks)."""
+def bench_routes(torch, clocks=False):
+    """K4 by route, alone (no autograd), 4 layers' launches replayed from a
+    CUDA graph, at ROUTE_SHAPES.  The forward: the wgmma kernel (the route's
+    heads a block, or two where the route keeps the mma.sync kernel and
+    the heads of a KV head are even) in turns with the mma.sync kernel
+    (old, new, new, old), then each of its variants once (heads a block,
+    the softmax under the product or not, a producer warp or not).  The
+    backward: the wgmma passes with one query head a dq block, in turns
+    with the mma.sync passes, then with two where the heads of a KV head
+    are even, and the wgmma passes split: dq, dk/dv alone, the two.  The
+    routes' choices beside them.  With `clocks`, where the wgmma kernels'
+    warps spend their cycles (bench_wgmma_clocks)."""
     from nano_tpu_torch.ops import _build, flash_attn
     timer = Timer(torch)
     wl = _build.lib("flash_bwd_wgmma")
+    fl = _build.lib("flash_fwd_wgmma")
+    log("[bench flash] blocks per SM of the wgmma forward by D (hpb, "
+        "overlap, producer): " + "; ".join(
+            f"D={d} " + ", ".join(
+                f"{h}{o}{p_} {fl.flash_fwd_wgmma_blocks_per_sm(d, h, o, p_)}"
+                for h in (1, 2) for o in (0, 1) for p_ in (0, 1))
+            for d in flash_attn.WGMMA_HEAD_DIMS))
     log("[bench flash] blocks per SM of the wgmma passes by D: dq (1 / 2 "
         "query heads a block), dk/dv: " + ", ".join(
             f"D={d} {wl.flash_bwd_wgmma_blocks_per_sm(d, 0, 1)} / "
@@ -988,13 +1009,37 @@ def bench_bwd_routes(torch, clocks=False):
     gen = torch.Generator(device="cuda").manual_seed(1)
     mk = lambda *s_: torch.randn(*s_, device="cuda", generator=gen).to(
         torch.bfloat16)
-    for B, Sq, Skv, off, H, KV, D in BWD_ROUTE_SHAPES:
+    for B, Sq, Skv, off, H, KV, D in ROUTE_SHAPES:
         layers = []
         for _ in range(4):
             q, k, v, g = (mk(B, Sq, H, D), mk(B, Skv, KV, D),
                           mk(B, Skv, KV, D), mk(B, Sq, H, D))
             o, l = flash_attn.flash_attn_fwd(q, k, v, off)
             layers.append((q, k, v, o, l, g))
+        shape = (f"B={B} Sq={Sq} Skv={Skv} offset={off} H={H} KV={KV} D={D} "
+                 f"bf16, graph replays")
+        # the forward
+        run_f = lambda rt: timer(lambda: [flash_attn.flash_attn_fwd(
+            q_, k_, v_, off, route=rt) for q_, k_, v_, *_ in layers])
+        froute = flash_attn.fwd_route(B, Sq, Skv, off, H, KV, D,
+                                      torch.bfloat16)
+        fold = flash_attn.FwdRoute("mma")
+        fnew = (froute if froute.kernel == "wgmma" else flash_attn.FwdRoute(
+            "wgmma", 2 if (H // KV) % 2 == 0 else 1, True))
+        tf = [run_f(r_) for r_ in (fold, fnew, fnew, fold)]
+        variants = [flash_attn.FwdRoute("wgmma", h, o_, p_)
+                    for h in (1, 2) if (H // KV) % h == 0
+                    for o_ in (False, True) for p_ in (False, True)]
+        tv = {r_: run_f(r_) for r_ in variants}
+        log(f"[bench flash] 4 x flash_attn_fwd {shape}: {tuple(fnew)} "
+            f"{tf[1]:.4f} / {tf[2]:.4f} ms, the mma.sync kernel {tf[0]:.4f} / "
+            f"{tf[3]:.4f} ms (wgmma / mma.sync "
+            f"{min(tf[1], tf[2]) / min(tf[0], tf[3]):.3f}); the variants "
+            f"(hpb, overlap, producer): " + ", ".join(
+                f"({r_.hpb}, {int(r_.overlap)}, {int(r_.producer)}) {t_:.4f}"
+                for r_, t_ in tv.items())
+            + f"; the route {tuple(froute)}; {card_line()}")
+        # the backward
         run = lambda rt: timer(lambda: [flash_attn.flash_attn_bwd(
             *x, off, route=rt) for x in layers])
         route = flash_attn.bwd_route(B, Sq, Skv, off, H, KV, D, torch.bfloat16)
@@ -1008,8 +1053,7 @@ def bench_bwd_routes(torch, clocks=False):
             sp.run(1)
         by_pass = [timer(lambda: [sp.run(p_) for sp in splits])
                    for p_ in (1, 2, 3)]
-        log(f"[bench flash] 4 x flash_attn_bwd B={B} Sq={Sq} Skv={Skv} "
-            f"offset={off} H={H} KV={KV} D={D} bf16, graph replays: "
+        log(f"[bench flash] 4 x flash_attn_bwd {shape}: "
             f"('wgmma', 1) {t[1]:.4f} / {t[2]:.4f} ms, the mma.sync passes "
             f"{t[0]:.4f} / {t[3]:.4f} ms (wgmma / mma.sync "
             f"{min(t[1], t[2]) / min(t[0], t[3]):.3f}), ('wgmma', 2) "
@@ -1018,27 +1062,61 @@ def bench_bwd_routes(torch, clocks=False):
             f"{by_pass[0]:.4f}, dk/dv alone {by_pass[1]:.4f}, the two "
             f"{by_pass[2]:.4f}; {card_line()}")
         if clocks and (B, off, D) in ((8, 256, 48), (64, 0, 48)):
-            bench_wgmma_clocks(torch, layers[0], off, hpb)
+            bench_wgmma_clocks(torch, layers[0], off, hpb, fnew)
         del layers, splits
 
 
-def bench_wgmma_clocks(torch, layer, off, hpb):
-    """Builds flash_bwd_wgmma.cu once more with -DNANO_BWD_CLOCKS into
-    build/flash_clocks/ and runs one layer's two wgmma passes through it:
-    the cycles every consumer warp spends in each phase, summed over the
-    grid, as shares of the pass's total."""
+def clocks_lib(stem):
+    """csrc/<stem>.cu built once more with -DNANO_BWD_CLOCKS into
+    build/flash_clocks/, loaded, its entry point's and clock reader's
+    argument types set."""
     import ctypes
-    from nano_tpu_torch.ops import _build, flash_attn
+    from nano_tpu_torch.ops import _build
     work = os.path.join(ROOT, "build", "flash_clocks")
     os.makedirs(work, exist_ok=True)
-    so = os.path.join(work, "libflash_bwd_wgmma_clocks.so")
+    so = os.path.join(work, f"lib{stem}_clocks.so")
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
     subprocess.run([_build.nvcc_path(), *flags, "-DNANO_BWD_CLOCKS", "-o", so,
-                    os.path.join(_build.CSRC_DIR, "flash_bwd_wgmma.cu")],
-                   check=True)
+                    os.path.join(_build.CSRC_DIR, stem + ".cu")], check=True)
     lib = ctypes.CDLL(so)
-    lib.flash_bwd_wgmma.argtypes = _build.SIGNATURES["flash_bwd_wgmma"][0]
-    lib.flash_bwd_wgmma_clocks.argtypes = [ctypes.c_void_p]
+    getattr(lib, stem).argtypes = _build.SIGNATURES[stem][0]
+    getattr(lib, stem + "_clocks").argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def bench_wgmma_clocks(torch, layer, off, hpb, fwd_route):
+    """Builds flash_fwd_wgmma.cu and flash_bwd_wgmma.cu once more with
+    -DNANO_BWD_CLOCKS and runs one layer's wgmma forward (`fwd_route`) and
+    two wgmma passes through them: the cycles every consumer warp spends in
+    each phase, summed over the grid, as shares of the kernel's total."""
+    import ctypes
+    from nano_tpu_torch.ops import flash_attn
+    q, k, v = layer[:3]
+    B, Sq, H, D = q.shape
+    fl = clocks_lib("flash_fwd_wgmma")
+    clk = (ctypes.c_ulonglong * 6)()
+    out = torch.empty_like(q)
+    lse = torch.empty(B, H, Sq, device=q.device)
+    args = [*(x.data_ptr() for x in (q, k, v, out, lse)), B, Sq, k.shape[1],
+            off, H, k.shape[2], D, fwd_route.hpb, int(fwd_route.overlap),
+            int(fwd_route.producer),
+            flash_attn.fwd_spread(q.device.index, B, Sq, H, D, fwd_route),
+            *(x.stride(i) for x in (q, k, v) for i in range(3)), D ** -0.5]
+    for _ in range(2):      # the first run warms up; its counts are dropped
+        assert fl.flash_fwd_wgmma_clocks(clk) == 0
+        assert fl.flash_fwd_wgmma(
+            *args, torch.cuda.current_stream().cuda_stream) == 0
+        torch.cuda.synchronize()
+    assert fl.flash_fwd_wgmma_clocks(clk) == 0
+    c = list(clk)
+    tot = sum(c) or 1
+    log(f"[bench flash] clock64 per consumer warp, wgmma forward "
+        f"{tuple(fwd_route)}, one layer B={B} Sq={Sq} Skv={k.shape[1]} "
+        f"offset={off} D={D} (instrumented build): " + ", ".join(
+            f"{p} {x / tot:.3f}" for p, x in zip(
+                ("prologue", "waits", "S product", "softmax", "P V product",
+                 "epilogue"), c)) + f" of {tot / 1e9:.3f} G warp-cycles")
+    lib = clocks_lib("flash_bwd_wgmma")
     sp = BwdSplit(torch, *layer, off, hpb, lib=lib)
     clocks = (ctypes.c_ulonglong * 12)()
     for _ in range(2):      # the first run warms up; its counts are dropped
@@ -1935,6 +2013,7 @@ PROFILE_KEYS = (("w8a8_kernel", "q80_matmul_w8a8"),
                 ("rms_norm_q80_kernel", "rms_norm_q80"),
                 ("swiglu_q80_kernel", "swiglu_q80"),
                 ("rms_norm_q4k_kernel", "rms_norm_q4k"),
+                ("rms_norm_fq_kernel", "rms_norm_q4k_fq"),
                 ("swiglu_q4k_kernel", "swiglu_q4k"),
                 ("decode_attn_kernel", "decode_attention"),
                 ("q4k_matvec_fq_kernel", "q4k_matvec_fq"),
@@ -2008,6 +2087,7 @@ COUNTER_OF = dict(
     rms_norm_q80=("rms_norm_q80", "launches"),
     swiglu_q80=("swiglu_q80", "launches"),
     rms_norm_q4k=("rms_norm_q4k", "launches"),
+    rms_norm_q4k_fq=("rms_norm_q4k_fq", "launches"),
     swiglu_q4k=("swiglu_q4k", "launches"),
     decode_attention=("decode_attention", "launches"),
     q4k_fake_quant=("fake_quant_act", "launches"),
@@ -2017,10 +2097,13 @@ COUNTER_OF = dict(
     q4k_matmul_w4a4=("q4k_matmul_w4a4", "launches"),
     flash_attn_fwd=("flash_attention", "launches"),
     flash_attn_bwd=("flash_attention", "backward_launches"),
-    # of those, the backward calls whose route took the wgmma passes
-    # (csrc/flash_bwd_wgmma.cu): the counter that shows a main path went
-    # through them, read beside flash_attn_bwd (no row of its own)
+    # of those, the calls whose route took the wgmma kernels
+    # (csrc/flash_fwd_wgmma.cu, csrc/flash_bwd_wgmma.cu): the counters that
+    # show a main path went through them, read beside flash_attn_fwd and
+    # flash_attn_bwd (no rows of their own)
+    flash_attn_fwd_wgmma=("flash_attention", "forward_wgmma_launches"),
     flash_attn_bwd_wgmma=("flash_attention", "wgmma_launches"))
+WGMMA_COUNTERS = ["flash_attn_fwd_wgmma", "flash_attn_bwd_wgmma"]
 
 
 def zero_launches(torch):
@@ -2047,8 +2130,9 @@ def decode_counts(model, steps, names, L=28):
     decode steps, over the kernels `names` (0 where none).  The Q4K
     model's norms and SwiGLUs write its products' Q4K activations at every
     row count (rms_norm_q4k, swiglu_q4k), so q4k_act_quant runs on wo's
-    input alone, L times a forward; its final norm feeds the requantized
-    Q80 head (rms_norm_q80, no quantized output)."""
+    input alone, L times a forward; its final norm writes the fake-quantized
+    row that the requantized Q80 head reads (rms_norm_q4k_fq: no
+    q4k_fake_quant launch)."""
     e = {n: 0 for n in names}
     if model == "Q80":
         e.update(q80_act_quant=L, q80_matmul_w8a8=4 * L,
@@ -2057,9 +2141,9 @@ def decode_counts(model, steps, names, L=28):
                  swiglu_q80=L * (1 + steps))
     else:
         e.update(q4k_act_quant=L * (1 + steps), q4k_matmul_w4a4=4 * L,
-                 q4k_fake_quant=1 + steps, q4k_matvec_fq=4 * L * steps,
-                 q80_matvec_fq=1 + steps, rms_norm_q80=1 + steps,
-                 rms_norm_q4k=2 * L * (1 + steps), swiglu_q4k=L * (1 + steps))
+                 q4k_matvec_fq=4 * L * steps, q80_matvec_fq=1 + steps,
+                 rms_norm_q4k_fq=1 + steps, rms_norm_q4k=2 * L * (1 + steps),
+                 swiglu_q4k=L * (1 + steps))
     e.update(decode_attention=L * steps)
     return e
 
@@ -2071,9 +2155,9 @@ def spec_round_counts(model, L=28):
     if model == "Q80":
         return dict(q80_matmul_w8a8=4 * L + 1, q80_act_quant=L,
                     rms_norm_q80=2 * L + 1, swiglu_q80=L)
-    return dict(q4k_act_quant=L, q4k_matmul_w4a4=4 * L, q4k_fake_quant=1,
-                q80_act_quant=1, q80_matmul_w8a8=1, rms_norm_q80=1,
-                rms_norm_q4k=2 * L, swiglu_q4k=L)
+    return dict(q4k_act_quant=L, q4k_matmul_w4a4=4 * L, q80_act_quant=1,
+                q80_matmul_w8a8=1, rms_norm_q4k_fq=1, rms_norm_q4k=2 * L,
+                swiglu_q4k=L)
 
 
 def runs_of(xs) -> str:
@@ -4592,8 +4676,9 @@ def par_train(torch, np, job, shape, over=None, steps=PAR_STEPS,
     from nano_tpu_torch.models import gpt
     from nano_tpu_torch.train.trainer import Trainer
     dev = torch.device(job["device"])
-    # bf16 at D = 48: every backward takes the wgmma passes
-    names = ["flash_attn_fwd", "flash_attn_bwd", "flash_attn_bwd_wgmma"]
+    # bf16 at D = 48: every forward and backward takes the wgmma kernels
+    names = ["flash_attn_fwd", "flash_attn_bwd", "flash_attn_fwd_wgmma",
+             "flash_attn_bwd_wgmma"]
     tag = "_".join(f"{k}{v}" for k, v in shape.items()) + (
         "_lora" if (over or {}).get("use_lora") else "")
     tc = dict(job["train_cfg"], mesh_shape=shape,
@@ -5697,7 +5782,7 @@ def bench(what) -> int:
     q80_flags = dict(flags, batched="batched" in what, sweep="sweep" in what)
     q4k_flags = dict(batched="batched" in what, sweep="sweep" in what,
                      clocks="clocks" in what, step="step" in what)
-    for name, fn in (("flash", bench_flash), ("routes", bench_bwd_routes),
+    for name, fn in (("flash", bench_flash), ("routes", bench_routes),
                      ("decode", bench_decode),
                      ("q4k", bench_q4k), ("q80", bench_q80),
                      ("pipes", bench_pipes), ("spec", bench_spec),
@@ -5823,10 +5908,17 @@ def main() -> int:
           "nano_tpu/models/gpt.py:96", "nano_tpu_torch/csrc/norm_quant.cu")
     entry("swiglu_q4k", "nano_tpu/ops/q4k.py:459 + "
           "nano_tpu/models/gpt.py:454", "nano_tpu_torch/csrc/norm_quant.cu")
+    # and q4k_fake_quant as the epilogue of the final norm that makes its
+    # input, where the head is the Q80 table requantized from the Q4K one
+    entry("rms_norm_q4k_fq", "nano_tpu/ops/q4k.py:644 + "
+          "nano_tpu/models/gpt.py:96", "nano_tpu_torch/csrc/norm_quant.cu")
     entry("decode_attention", "nano_tpu/ops/decode_attn.py:45",
           "nano_tpu_torch/csrc/decode_attn.cu")
+    # off the decode, batched and speculative paths since the final norm
+    # writes the head's fake-quantized row (rms_norm_q4k_fq); the wide-row
+    # route and the full-sequence forward's head (phase 9c's PPL) keep it
     entry("q4k_fake_quant", "nano_tpu/ops/q4k.py:644",
-          "nano_tpu_torch/csrc/q4k.cu")
+          "nano_tpu_torch/csrc/q4k.cu", main_path=False)
     # K3's f32 kernel: held against its plain version here and timed as
     # the "before" of q4k_matmul_w4a4, on no main path
     entry("q4k_matmul", "nano_tpu/ops/q4k.py:717",
@@ -5837,8 +5929,12 @@ def main() -> int:
           "nano_tpu_torch/csrc/q4k.cu")
     entry("q4k_matmul_w4a4", "nano_tpu/ops/q4k.py:717",
           "nano_tpu_torch/csrc/q4k.cu")
+    # the forward: in bf16 at D <= 64 (every training path here but the
+    # calculator's) the wgmma kernel of flash_fwd_wgmma.cu
+    # (ops/flash_attn.py:fwd_route); the mma.sync kernel in flash_attn.cu
+    # for the calculator's and at D = 128, f32 on the CUDA cores
     entry("flash_attn_fwd", "nano_tpu/models/gpt.py:239",
-          "nano_tpu_torch/csrc/flash_attn.cu")
+          "nano_tpu_torch/csrc/flash_fwd_wgmma.cu")
     # the backward: in bf16 at D <= 64 (every training path here) the two
     # wgmma passes of flash_bwd_wgmma.cu (ops/flash_attn.py:bwd_route);
     # the mma.sync passes in flash_attn.cu at D = 128, f32 on the CUDA cores
@@ -5849,7 +5945,7 @@ def main() -> int:
     # (phase 10d's main path; the JAX package gets it from GSPMD's
     # partition of the attention that K4 replaces)
     entry("flash_attn_fwd_offset", "nano_tpu/models/gpt.py:239",
-          "nano_tpu_torch/csrc/flash_attn.cu")
+          "nano_tpu_torch/csrc/flash_fwd_wgmma.cu")
     entry("flash_attn_bwd_offset", "nano_tpu/models/gpt.py:239",
           "nano_tpu_torch/csrc/flash_bwd_wgmma.cu")
 
@@ -6159,6 +6255,78 @@ def main() -> int:
         f"q4k_act_quant and its plain version of the kernel's own output, "
         f"with and without that output written; the all-zero row all zero; "
         f"rows 0, 2, 37, 63 the same bits at B = 1 and inside B = 64")
+
+    # the Q4K model's final norm with the head's fake-quant as its epilogue
+    # (rms_norm_q4k_fq), at the model's width and at two ragged ones: fq
+    # torch.equal to q4k_fake_quant of rms_norm_q80's hn (the two launches
+    # it replaces) and to the plain version, zeros past E; h and hn
+    # torch.equal to rms_norm_q80's; fq the same without hn written; two
+    # runs bit-equal
+    n_fq = 0
+    for E_fq in (E_, 320, 40):
+        w_fq = (nw if E_fq == E_ else
+                1 + 0.1 * torch.randn(E_fq, device=dev, generator=gen))
+        for B in norm_rows:
+            for dt in (torch.bfloat16, torch.float32):
+                x = (torch.randn(B, E_fq, device=dev, generator=gen) * 2).to(dt)
+                a = torch.randn(B, E_fq, device=dev, generator=gen).to(dt)
+                for res in (None, a):
+                    h, hn, fq = norm_quant.rms_norm_q4k_fq(x, w_fq, eps, res)
+                    _, none, fq2 = norm_quant.rms_norm_q4k_fq(
+                        x, w_fq, eps, res, want_hn=False)
+                    h8, hn8, _ = norm_quant.rms_norm_q80(x, w_fq, eps, res)
+                    ok = (torch.equal(fq, q4k.fake_quant_act(hn8))
+                          and torch.equal(fq, q4k.fake_quant_act_plain(hn8))
+                          and not fq[:, E_fq:].any() and torch.equal(fq2, fq)
+                          and torch.equal(hn, hn8) and none is None
+                          and (h is None if res is None
+                               else torch.equal(h, h8)))
+                    if not ok:
+                        raise AssertionError(
+                            f"rms_norm_q4k_fq E={E_fq} B={B} {dt} residual "
+                            f"{res is not None}: differs from rms_norm_q80 + "
+                            f"q4k_fake_quant")
+                    n_fq += 1
+    note_err("rms_norm_q4k_fq", 0.0)
+    log(f"[kernel] rms_norm_q4k_fq at E = {E_}, 320, 40, B = {norm_rows}, "
+        f"bf16 and f32, with and without the residual ({n_fq} cases): fq "
+        f"torch.equal to q4k_fake_quant of rms_norm_q80's hn and to the "
+        f"plain version, zeros past E, the same without hn written; h, hn "
+        f"torch.equal to rms_norm_q80's")
+
+    # its time: a decode step's one launch (B = 1) and a batched step's (8,
+    # 64), 32 launches on distinct rows replayed from a graph and divided,
+    # beside the two launches it replaces (rms_norm_q80, then
+    # q4k_fake_quant), rms_norm_q80 alone (the final norm without the
+    # fake-quant), the plain version and the bound (x and the weight read,
+    # fq written)
+    fq_rows = {}
+    n_pad_fq = -(-E_ // 256) * 256
+    for B in (1, 8, 64):
+        xs = [torch.randn(B, E_, device=dev, generator=gen).to(torch.bfloat16)
+              for _ in range(32)]
+        t_fq = timer(lambda: [norm_quant.rms_norm_q4k_fq(
+            x, nw, eps, None, False) for x in xs]) / 32
+        t_pair = timer(lambda: [q4k.fake_quant_act(norm_quant.rms_norm_q80(
+            x, nw, eps)[1]) for x in xs]) / 32
+        t_norm = timer(lambda: [norm_quant.rms_norm_q80(x, nw, eps)
+                                for x in xs]) / 32
+        t_plain = timer(lambda: [norm_quant.rms_norm_q4k_fq_plain(
+            x, nw, eps, None, False) for x in xs]) / 32
+        b_fq = bound(2 * B * E_ + 4 * E_ + 4 * B * n_pad_fq,
+                     (NORM_OPS_PER_VALUE + FQ_OPS_PER_VALUE) * B * E_,
+                     F32_OPS_PER_S)
+        fq_rows[B] = (t_fq, t_plain, b_fq)
+        log(f"[time] the Q4K model's final norm at B={B} (E={E_}, bf16, a "
+            f"launch): rms_norm_q4k_fq {t_fq:.5f} ms against the two it "
+            f"replaces (rms_norm_q80, then q4k_fake_quant) {t_pair:.5f} ms and "
+            f"rms_norm_q80 alone {t_norm:.5f} ms; plain {t_plain:.5f} ms; "
+            f"bound {b_fq[0]:.6f} ms ({b_fq[1]}); {card}")
+        del xs
+    t_fq, t_plain, b_fq = fq_rows[1]
+    kernels["rms_norm_q4k_fq"].update(ms=t_fq, plain_ms=t_plain,
+                                      library_ms=None, bound_ms=b_fq[0],
+                                      bound_by=b_fq[1])
 
     # one step's launches of the two kernels (28 layers: 57 norms, 28
     # SwiGLUs), replayed from a graph, at B = 1 (hn only: q80_matvec_fq
@@ -6825,6 +6993,32 @@ def main() -> int:
     rt_step = flash_attn.bwd_route(TB, TS, TS, 0, TH, TKV, TD, torch.bfloat16)
     t_rt = [bwd_by_route(r_) for r_ in (flash_attn.BwdRoute("mma"), rt_step,
                                         rt_step, flash_attn.BwdRoute("mma"))]
+
+    # the step's 24 forward launches by route, the same way
+    def fwd_by_route(rt):
+        best = float("inf")
+        for _ in range(3):
+            marks = []
+            for q, k, v, _ in step_layers:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                flash_attn.flash_attn_fwd(q.detach(), k.detach(), v.detach(),
+                                          route=rt)
+                ev[1].record()
+                marks.append(ev)
+            torch.cuda.synchronize()
+            best = min(best, sum(a.elapsed_time(b) for a, b in marks))
+        return best
+
+    rt_fstep = flash_attn.fwd_route(TB, TS, TS, 0, TH, TKV, TD, torch.bfloat16)
+    t_frt = [fwd_by_route(r_) for r_ in (flash_attn.FwdRoute("mma"), rt_fstep,
+                                         rt_fstep, flash_attn.FwdRoute("mma"))]
+    log(f"[time] one training step's {TL} flash_attn_fwd launches (B={TB} "
+        f"S={TS} H={TH} KV={TKV} D={TD}, bf16, no autograd), in turns: the "
+        f"route's {tuple(rt_fstep)} {t_frt[1]:.4f} / {t_frt[2]:.4f} ms, the "
+        f"mma.sync kernel {t_frt[0]:.4f} / {t_frt[3]:.4f} ms; SDPA "
+        f"{kernels['flash_attn_fwd']['library_ms']:.4f} ms, bound "
+        f"{kernels['flash_attn_fwd']['bound_ms']:.4f} ms; on {card}")
     log(f"[time] one training step's {TL} flash_attn_bwd launches (B={TB} "
         f"S={TS} H={TH} KV={TKV} D={TD}, bf16, no autograd), in turns: the "
         f"route's {tuple(rt_step)} {t_rt[1]:.3f} / {t_rt[2]:.3f} ms, the mma.sync "
@@ -6895,6 +7089,44 @@ def main() -> int:
             note_err("flash_attn_bwd_offset", max(errs))
             n_off += 1
             if not f32c and Dh in flash_attn.WGMMA_HEAD_DIMS:
+                # each forward route alone: the wgmma kernel (one and, where
+                # rep is even, two heads a block) and the mma.sync kernel,
+                # each against the plain version (the tolerances above), two
+                # runs bit-equal; the wgmma kernel against the mma.sync one
+                # within the same 2e-2 of max|ref|
+                fwd_by = {}
+                for rt in [flash_attn.FwdRoute("wgmma", h_) for h_ in (1, 2)
+                           if (Hh // KVh) % h_ == 0] + [
+                               flash_attn.FwdRoute("mma")]:
+                    o1, l1 = flash_attn.flash_attn_fwd(q, k, v, off, route=rt)
+                    o2, l2 = flash_attn.flash_attn_fwd(q, k, v, off, route=rt)
+                    torch.cuda.synchronize()
+                    e_o = (o1.float() - ref.float()).abs().max().item()
+                    e_l = (l1 - ref_lse).abs().max().item()
+                    if not (e_o <= lim_f and e_l <= tol_l
+                            and torch.equal(o1, o2) and torch.equal(l1, l2)):
+                        raise AssertionError(
+                            f"flash_attn_fwd route {tuple(rt)} B={B} Sq={Sq} "
+                            f"Skv={Skv} offset={off} D={Dh}: out off the plain "
+                            f"version by {e_o:.3e} (tol {lim_f:.3e}), lse by "
+                            f"{e_l:.3e} (tol {tol_l:g}), or two runs differ")
+                    if rt.kernel == "wgmma":
+                        note_err("flash_attn_fwd_offset", e_o)
+                    fwd_by[rt] = o1
+                mma_o = fwd_by.pop(flash_attn.FwdRoute("mma"))
+                d_fwd = max((o_.float() - mma_o.float()).abs().max().item()
+                            for o_ in fwd_by.values()) / max(
+                                ref.float().abs().max().item(), 1e-30)
+                log(f"[kernel] flash_attn_fwd offset form B={B} Sq={Sq} "
+                    f"Skv={Skv} offset={off} H={Hh} KV={KVh} D={Dh} bf16, "
+                    f"routes {[tuple(r_) for r_ in fwd_by]} and the mma.sync "
+                    f"kernel: each within tolerance of the plain version, two "
+                    f"runs bit-equal; wgmma vs mma.sync {d_fwd:.3e} of max|ref| "
+                    f"(tol 2e-2)")
+                if d_fwd > 2e-2:
+                    raise AssertionError("the wgmma forward disagrees with "
+                                         "the mma.sync kernel")
+                del fwd_by, mma_o
                 # each route's passes alone on the forward's out and lse:
                 # the wgmma passes (one and, where rep is even, two heads a
                 # dq block) and the mma.sync passes, each against the plain gradients
@@ -6996,6 +7228,17 @@ def main() -> int:
     mma_rt = flash_attn.BwdRoute("mma")
     mma_ms = timer(layers_of(lambda q, k, v, g, o, l: flash_attn.flash_attn_bwd(
         q, k, v, o, l, g, SOFF, route=mma_rt)))
+    # the forward through the mma.sync kernel, in turns with the route's
+    fwd10 = flash_attn.fwd_route(PAR_BATCH, SQ, TS, SOFF, TH, TKV, TD,
+                                 torch.bfloat16)
+    if fwd10.kernel != "wgmma":
+        raise AssertionError(f"phase 10d's rank takes {fwd10}, not the wgmma "
+                             f"forward")
+    fwd_turns = [timer(layers_of(lambda q, k, v, g, o, l, r_=r_:
+                                 flash_attn.flash_attn_fwd(q, k, v, SOFF,
+                                                           route=r_)))
+                 for r_ in (flash_attn.FwdRoute("mma"), fwd10, fwd10,
+                            flash_attn.FwdRoute("mma"))]
     rt10 = flash_attn.bwd_route(PAR_BATCH, SQ, TS, SOFF, TH, TKV, TD,
                                 torch.bfloat16)
     if rt10.passes != "wgmma":
@@ -7022,6 +7265,12 @@ def main() -> int:
         host_us[tag] = min(host_us.get(tag, 1e9),
                            (time.perf_counter() - t0) * 1e4)
         torch.cuda.synchronize()
+    log(f"[time] one rank's step of attention under sequence parallelism, "
+        f"flash_attn_fwd ({PAR_LAYERS} layers, B={PAR_BATCH} Sq={SQ} at "
+        f"offset {SOFF}, Skv={TS}, D={TD}, graph replays), in turns: the "
+        f"route {tuple(fwd10)} {fwd_turns[1]:.4f} / {fwd_turns[2]:.4f} ms, the "
+        f"mma.sync kernel {fwd_turns[0]:.4f} / {fwd_turns[3]:.4f} ms; on "
+        f"{card}")
     log(f"[time] one rank's step of attention under sequence parallelism, "
         f"flash_attn_bwd ({PAR_LAYERS} layers, B={PAR_BATCH} Sq={SQ} at "
         f"offset {SOFF}, Skv={TS}, D={TD}, graph replays): the route "
@@ -7455,10 +7704,10 @@ def main() -> int:
         dtype=torch.float32, sampler=greedy)
     assert tiny.device.type == "cuda"
     # one counter a wrapper: the offset form counts with flash_attn_fwd /
-    # flash_attn_bwd, the wgmma route's calls also with
-    # flash_attn_bwd_wgmma, read where a main path trains
+    # flash_attn_bwd, the wgmma routes' calls also with flash_attn_fwd_wgmma
+    # / flash_attn_bwd_wgmma, read where a main path trains
     names = [n for n in kernels if not n.endswith("_offset")]
-    assert sorted(COUNTER_OF) == sorted(names + ["flash_attn_bwd_wgmma"])
+    assert sorted(COUNTER_OF) == sorted(names + WGMMA_COUNTERS)
 
     def reset():
         zero_launches(torch)
@@ -7738,19 +7987,23 @@ def main() -> int:
         "as q4k_matvec_fq in a decode step and as q4k_matmul_w4a4 (int8 "
         "tensor cores) in the prefill, 84 of them on the Q4K integer form "
         "that rms_norm_q4k (wqkv, w13) and swiglu_q4k (w2) wrote, wo's 28 "
-        "after q4k_act_quant; one fake-quant before the requantized Q80 head "
-        "and one q80_matvec_fq head (one row) per forward; 56 rms_norm_q4k, "
-        "28 swiglu_q4k and the final rms_norm_q80 (no quantized output) per "
-        "forward; 28 attentions per decode step")
+        "after q4k_act_quant; one q80_matvec_fq head (one row) per forward; "
+        "56 rms_norm_q4k, 28 swiglu_q4k and the final rms_norm_q4k_fq, which "
+        "writes the fake-quantized row the requantized Q80 head reads, per "
+        "forward (no q4k_fake_quant); 28 attentions per decode step")
     _, out4, counts4 = drive("Q4K", params4, expect4)
-    for name in ("q4k_act_quant", "q4k_matmul_w4a4", "q4k_fake_quant",
+    for name in ("q4k_act_quant", "q4k_matmul_w4a4", "rms_norm_q4k_fq",
                  "q4k_matvec_fq", "rms_norm_q4k", "swiglu_q4k"):
         kernels[name]["launches"] = counts4[name]
         if counts4[name] == 0:
             raise AssertionError(f"Q4K path launched no {name}")
-    # drive() held every count to expect4, q4k_matmul's to 0: reported as
-    # the main path's count, with the entry's main_path false
-    kernels["q4k_matmul"]["launches"] = counts4["q4k_matmul"]
+    # drive() held every count to expect4, q4k_matmul's and
+    # q4k_fake_quant's to 0: reported as the main path's count, with the
+    # entry's main_path false
+    for name in ("q4k_matmul", "q4k_fake_quant"):
+        kernels[name]["launches"] = counts4[name]
+        if counts4[name]:
+            raise AssertionError(f"the Q4K path launched {name}")
 
     def pad_only(x2d):
         """The activation as K3 takes it, without the fake-quant."""
@@ -7760,11 +8013,20 @@ def main() -> int:
         xp[:, :n] = x2d
         return xp
 
+    def pair_final_norm(x, weight, eps_, residual=None, want_hn=True):
+        """rms_norm_q4k_fq as the two launches it replaced: rms_norm_q80,
+        then the head's fake-quant (gpt.fake_quant_act: q4k_fake_quant, or
+        what a route rebinds it to)."""
+        h, hn, _ = norm_quant.rms_norm_q80(x, weight, eps_, residual)
+        return h, hn, gpt.fake_quant_act(hn.reshape(-1, hn.shape[-1]))
+
     @contextlib.contextmanager
     def k3_route(route):
         """The model's Q4K product (gpt.q4k_matmul) and the head's
-        fake-quant (gpt.fake_quant_act) rebound here for a measurement, not
-        a switch of the package: "pair", more than one row through the pair
+        fake-quant (gpt.fake_quant_act, and the final norm that folds it in,
+        gpt.rms_norm_q4k_fq, as the pair it was before: rms_norm_q80, then
+        q4k_fake_quant) rebound here for a measurement, not a switch of the
+        package: "pair", more than one row through the pair
         K3 at B > 1 was before (q4k_fake_quant + q4k_matmul);
         "unquantized", no activation quantization at all (K3's f32 kernel
         on the padded activation at every row count, the head's fake-quant
@@ -7775,7 +8037,8 @@ def main() -> int:
         more than one row through the new pair with each row's sa, ba and
         c taken from the row before it.  Every route takes the activation
         as a tensor: the norms and SwiGLU write no Q4K form meanwhile."""
-        saved, q4k_out = (gpt.q4k_matmul, gpt.fake_quant_act), gpt._q4k_out
+        saved, q4k_out = (gpt.q4k_matmul, gpt.fake_quant_act,
+                          gpt.rms_norm_q4k_fq), gpt._q4k_out
 
         def product(x, w, dtype):
             x2d = x.reshape(-1, w.in_dim)
@@ -7795,19 +8058,46 @@ def main() -> int:
             return y.reshape(*x.shape[:-1], w.out_dim)
 
         gpt.q4k_matmul, gpt._q4k_out = product, lambda ws: False
+        gpt.rms_norm_q4k_fq = pair_final_norm
         if route == "unquantized":
             gpt.fake_quant_act = pad_only
         try:
             yield
         finally:
-            gpt.q4k_matmul, gpt.fake_quant_act = saved
+            gpt.q4k_matmul, gpt.fake_quant_act, gpt.rms_norm_q4k_fq = saved
             gpt._q4k_out = q4k_out
 
-    # The eager ops that rms_norm_q80 / rms_norm_q4k and swiglu_q80 /
-    # swiglu_q4k replaced, rebound into the model here for a measurement,
-    # not a switch of the package: the norm's ops (and the residual add),
-    # F.silu * h3, and q80_act_quant where the product takes int8 rows,
-    # q4k_act_quant where it takes the Q4K form (the path before them)
+    # The Q4K stream with the final norm as the two launches it replaced
+    # (rms_norm_q80, then q4k_fake_quant: the path before the fold), on a
+    # fresh context whose decode graph is captured so: token-identical
+    saved_fq = gpt.rms_norm_q4k_fq
+    gpt.rms_norm_q4k_fq = pair_final_norm
+    try:
+        ctx_pair = engine.LLMContext(
+            cfg=cfg, params=params4, tokenizer=tok,
+            max_seq_len=cfg.block_size, device=dev, dtype=torch.bfloat16,
+            sampler=greedy, stop_tokens=QWEN_STOP_TOKENS, arch="qwen3")
+        engine.generate_on_device(ctx_pair, prompts[0][:8], 4)   # capture
+        out_pair, _, pair_counts = timed_god(ctx_pair, prompt, N_TOKENS)
+    finally:
+        gpt.rms_norm_q4k_fq = saved_fq
+    del ctx_pair
+    want_pair = dict(expect4(N_TOKENS - 1), rms_norm_q4k_fq=0,
+                     q4k_fake_quant=N_TOKENS, rms_norm_q80=N_TOKENS)
+    log(f"[full Q4K] {N_TOKENS} greedy tokens with the final norm as "
+        f"rms_norm_q80 + q4k_fake_quant (the path before the fold): "
+        f"token-identical to the fused norm's {np.array_equal(out_pair, out4)}"
+        f"; launches {pair_counts} (expected {want_pair})")
+    if not np.array_equal(out_pair, out4) or pair_counts != want_pair:
+        raise AssertionError("the Q4K stream through the fused final norm "
+                             "differs from the two launches it replaced")
+
+    # The eager ops that rms_norm_q80 / rms_norm_q4k / rms_norm_q4k_fq and
+    # swiglu_q80 / swiglu_q4k replaced, rebound into the model here for a
+    # measurement, not a switch of the package: the norm's ops (and the
+    # residual add), F.silu * h3, and q80_act_quant where the product takes
+    # int8 rows, q4k_act_quant where it takes the Q4K form, q4k_fake_quant
+    # before the requantized head (the path before them)
     def eager_act(y, gs):
         if not gs:
             return None
@@ -7826,6 +8116,10 @@ def main() -> int:
         y, _ = eager_swiglu_q80(h13_)
         return y, eager_act4(y)
 
+    def eager_rms_norm_q4k_fq(x, weight, eps_, residual=None, want_hn=True):
+        h, hn, _ = eager_rms_norm_q80(x, weight, eps_, residual)
+        return h, hn, q4k.fake_quant_act(hn.reshape(-1, hn.shape[-1]))
+
     def eager_rms_norm_q80(x, weight, eps_, residual=None, group_size=0,
                            want_hn=True):
         h = x if residual is None else x + residual
@@ -7842,28 +8136,33 @@ def main() -> int:
         """route "eager": gpt's fused norm and SwiGLU rebound to the eager
         ops; "fused": as the package has them."""
         saved = (gpt.rms_norm_q80, gpt.swiglu_q80, gpt.rms_norm_q4k,
-                 gpt.swiglu_q4k)
+                 gpt.swiglu_q4k, gpt.rms_norm_q4k_fq)
         if route == "eager":
             (gpt.rms_norm_q80, gpt.swiglu_q80, gpt.rms_norm_q4k,
-             gpt.swiglu_q4k) = (eager_rms_norm_q80, eager_swiglu_q80,
-                                eager_rms_norm_q4k, eager_swiglu_q4k)
+             gpt.swiglu_q4k, gpt.rms_norm_q4k_fq) = (
+                 eager_rms_norm_q80, eager_swiglu_q80, eager_rms_norm_q4k,
+                 eager_swiglu_q4k, eager_rms_norm_q4k_fq)
         try:
             yield
         finally:
             (gpt.rms_norm_q80, gpt.swiglu_q80, gpt.rms_norm_q4k,
-             gpt.swiglu_q4k) = saved
+             gpt.swiglu_q4k, gpt.rms_norm_q4k_fq) = saved
 
     def eager_counts(step):
         """A step's launch counts with the eager route: no norm or SwiGLU
         kernel, and q80_act_quant before each product they fed int8 rows
         (85 a step where any was), q4k_act_quant before each they fed the
-        Q4K form (84 a step, at every row count)."""
+        Q4K form (84 a step, at every row count), q4k_fake_quant before the
+        requantized head."""
         e = dict(step, rms_norm_q80=0, swiglu_q80=0, rms_norm_q4k=0,
-                 swiglu_q4k=0)
+                 swiglu_q4k=0, rms_norm_q4k_fq=0)
         if step.get("q80_act_quant", 0) >= 28:
             e["q80_act_quant"] = step["q80_act_quant"] + 85
         if step.get("rms_norm_q4k", 0):
             e["q4k_act_quant"] = step["q4k_act_quant"] + 84
+        if step.get("rms_norm_q4k_fq", 0):
+            e["q4k_fake_quant"] = (step.get("q4k_fake_quant", 0)
+                                   + step["rms_norm_q4k_fq"])
         return e
 
     def timed_ms(fn):
@@ -8270,7 +8569,7 @@ def main() -> int:
     # tokens each (the Q80 drive holds the cache growth); a batched step
     # runs its 112 Q4K products as q4k_act_quant + q4k_matmul_w4a4 and its
     # head (the Q4K fake-quant, then the Q80 head at B = slots) as
-    # q4k_fake_quant + the W8A8 pair
+    # rms_norm_q4k_fq + the W8A8 pair
     bctx4 = engine.LLMContext(
         cfg=cfg, params=params4, tokenizer=tok, max_seq_len=cfg.block_size,
         device=dev, dtype=torch.bfloat16, sampler=greedy,
@@ -8280,23 +8579,27 @@ def main() -> int:
     expect_b4 = {n: 0 for n in names}
     expect_b4.update(q4k_act_quant=28 * (n_j + n_b4),
                      q4k_matmul_w4a4=112 * n_j + 112 * n_b4,
-                     q4k_fake_quant=n_j + n_b4, q80_matvec_fq=n_j,
+                     q80_matvec_fq=n_j,
                      q80_act_quant=n_b4, q80_matmul_w8a8=n_b4,
                      decode_attention=28 * n_b4,
-                     rms_norm_q80=n_j + n_b4,
+                     rms_norm_q4k_fq=n_j + n_b4,
                      rms_norm_q4k=56 * (n_j + n_b4),
                      swiglu_q4k=28 * (n_j + n_b4))
     log(f"[batch] Qwen3-0.6B Q4K, {BATCH_SLOTS} slots, the same {n_j} joins, "
         f"{BATCH_NEW4} tokens each: {n_b4} batched steps in {b4_secs:.2f} s "
         f"({card}), streams of {[len(streams4[sl]) for sl in order4]} "
         f"tokens; launches {b4_counts}; expected {expect_b4} (112 "
-        f"q4k_matmul_w4a4, wo's 28 after q4k_act_quant, a fake-quant and a "
-        f"one-row head per join's prefill; the same, a W8A8 pair head and 28 "
-        f"attentions per batched step; 56 rms_norm_q4k, 28 swiglu_q4k and "
-        f"the final rms_norm_q80 per forward)")
+        f"q4k_matmul_w4a4, wo's 28 after q4k_act_quant and a one-row head "
+        f"per join's prefill; the same, a W8A8 pair head and 28 attentions "
+        f"per batched step; 56 rms_norm_q4k, 28 swiglu_q4k and the final "
+        f"rms_norm_q4k_fq, which fake-quantizes the head's row, per forward; "
+        f"no q4k_fake_quant)")
     if b4_counts != expect_b4:
         raise AssertionError("Q4K batched launch counts differ from the "
                              "per-step counts")
+    if b4_counts["q4k_fake_quant"] or not b4_counts["rms_norm_q4k_fq"]:
+        raise AssertionError("the Q4K batching path ran q4k_fake_quant, or "
+                             "no fused final norm")
     for name in ("q4k_act_quant", "q4k_matmul_w4a4", "decode_attention"):
         if b4_counts[name] == 0:
             raise AssertionError(f"the Q4K batching path launched no {name}")
@@ -8322,9 +8625,9 @@ def main() -> int:
         raise AssertionError("the Q4K logits check passes a faulty B > 1 "
                              "path")
     del be4, streams4
-    q4_step = dict(q4k_act_quant=28, q4k_matmul_w4a4=112, q4k_fake_quant=1,
-                   q80_act_quant=1, q80_matmul_w8a8=1, decode_attention=28,
-                   rms_norm_q80=1, rms_norm_q4k=56, swiglu_q4k=28)
+    q4_step = dict(q4k_act_quant=28, q4k_matmul_w4a4=112, q80_act_quant=1,
+                   q80_matmul_w8a8=1, decode_attention=28, rms_norm_q4k_fq=1,
+                   rms_norm_q4k=56, swiglu_q4k=28)
     old_step = dict(q4k_fake_quant=113, q4k_matmul=112, q80_act_quant=1,
                     q80_matmul_w8a8=1, decode_attention=28, rms_norm_q80=57,
                     swiglu_q80=28)
@@ -8629,7 +8932,7 @@ def main() -> int:
     reset()
     trainer.start()
     counts = read()
-    wg_calls = read_launches(torch, ["flash_attn_bwd_wgmma"])
+    wg_calls = read_launches(torch, WGMMA_COUNTERS)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [l for _, l in trainer.loss_history]
     n_eval_fwd = 2 * train_cfg["eval_iters"] * TL * (
@@ -8642,11 +8945,14 @@ def main() -> int:
     if counts != expect_t:
         raise AssertionError("training launch counts differ from 24 per "
                              "microbatch, forward and backward")
-    log(f"[train] backward calls through the wgmma passes: "
-        f"{wg_calls['flash_attn_bwd_wgmma']} of {counts['flash_attn_bwd']}")
-    if wg_calls["flash_attn_bwd_wgmma"] != counts["flash_attn_bwd"]:
-        raise AssertionError("the training step's backward did not take the "
-                             "wgmma passes")
+    log(f"[train] calls through the wgmma kernels: forward "
+        f"{wg_calls['flash_attn_fwd_wgmma']} of {counts['flash_attn_fwd']}, "
+        f"backward {wg_calls['flash_attn_bwd_wgmma']} of "
+        f"{counts['flash_attn_bwd']}")
+    if (wg_calls["flash_attn_fwd_wgmma"] != counts["flash_attn_fwd"]
+            or wg_calls["flash_attn_bwd_wgmma"] != counts["flash_attn_bwd"]):
+        raise AssertionError("the training step's attention did not take the "
+                             "wgmma kernels")
     for name in ("flash_attn_fwd", "flash_attn_bwd"):
         kernels[name]["launches"] = counts[name]
     steady = sorted(step_ms[2:])
@@ -8771,7 +9077,7 @@ def main() -> int:
     torch.cuda.synchronize()
     secs56 = time.time() - t0
     counts = read()
-    wg56 = read_launches(torch, ["flash_attn_bwd_wgmma"])["flash_attn_bwd_wgmma"]
+    wg56 = read_launches(torch, WGMMA_COUNTERS)
     L56, A56 = cfg56.n_layer, train56["gradient_accumulation_steps"]
     expect56 = {n: 0 for n in names}
     expect56.update(flash_attn_fwd=L56 * A56 * steps56 * (2 if full56 else 1),
@@ -8784,11 +9090,13 @@ def main() -> int:
         f"{[round(l, 4) for l in losses56]} (first within 0.3 of ln "
         f"{cfg56.vocab_size} = {np.log(cfg56.vocab_size):.3f}, last below "
         f"first); launches {counts}; expected {expect56}")
-    if counts != expect56 or wg56 != counts["flash_attn_bwd"]:
+    if (counts != expect56
+            or wg56["flash_attn_fwd_wgmma"] != counts["flash_attn_fwd"]
+            or wg56["flash_attn_bwd_wgmma"] != counts["flash_attn_bwd"]):
         raise AssertionError("Nano-56M launch counts differ from one forward "
                              "(two under full remat) and one backward per "
-                             "layer and microbatch, or its backward did not "
-                             "take the wgmma passes")
+                             "layer and microbatch, or its attention did not "
+                             "take the wgmma kernels")
     if not (len(losses56) == steps56 and all(np.isfinite(losses56))
             and abs(losses56[0] - np.log(cfg56.vocab_size)) <= 0.3
             and losses56[-1] < losses56[0]):
@@ -8915,10 +9223,16 @@ def main() -> int:
         kernels[name + "_offset"]["launches"] = res10["seq"]["counts"][name]
         if not res10["seq"]["counts"][name]:
             raise AssertionError(f"sequence parallelism launched no {name}")
-    if (res10["seq"]["counts"]["flash_attn_bwd_wgmma"]
-            != res10["seq"]["counts"]["flash_attn_bwd"]):
-        raise AssertionError("sequence parallelism's backward did not take "
-                             "the wgmma passes")
+    for name in ("flash_attn_fwd", "flash_attn_bwd"):
+        if (res10["seq"]["counts"][name + "_wgmma"]
+                != res10["seq"]["counts"][name]):
+            raise AssertionError(f"sequence parallelism's {name} did not "
+                                 f"take the wgmma kernel")
+    log(f"[parallel] 10d's rank through the wgmma kernels: forward "
+        f"{res10['seq']['counts']['flash_attn_fwd_wgmma']} of "
+        f"{res10['seq']['counts']['flash_attn_fwd']}, backward "
+        f"{res10['seq']['counts']['flash_attn_bwd_wgmma']} of "
+        f"{res10['seq']['counts']['flash_attn_bwd']}")
     log(f"[parallel] phase 10 in {time.time() - t0:.1f} s")
 
     # ---------------- 11. frontends ----------------

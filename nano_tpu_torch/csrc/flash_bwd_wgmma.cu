@@ -86,68 +86,24 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int kTile = 64;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr unsigned kFull = 0xffffffffu;
+using wg::block_order;
+using wg::Clk;
+using wg::fast_exp2;
+using wg::kLog2e;
+using wg::kTile;
+using wg::quad_sum;
 
-__device__ __forceinline__ float fast_exp2(float x) {   // 2^x; -inf -> 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(kFull, x, 1);
-  return x + __shfl_xor_sync(kFull, x, 2);
-}
-
-// the dynamic shared memory from its first 1024-byte boundary (the
-// 128-byte swizzle's atom)
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  return raw + ((1024u - (wg::shared_addr(raw) & 1023u)) & 1023u);
-}
-
-// Cycle counts of the phases, per consumer warp, summed over the grid; only
-// in a build with -DNANO_BWD_CLOCKS (`chip_smoke.py bench flash clocks`).
-enum { kClkPrologue, kClkWait, kClkScores, kClkSoftmax, kClkGrads, kClkEpilogue, kClkN };
+// the phases' cycle counts of the two passes (wgmma_tma.cuh: Clk), in a
+// build with -DNANO_BWD_CLOCKS
 #ifdef NANO_BWD_CLOCKS
-__device__ unsigned long long g_wg_clocks[2][kClkN];   // [dq, dkdv][phase]
-struct Clk {
-  long long last, acc[kClkN];
-  __device__ __forceinline__ void start() {
-    last = clock64();
-#pragma unroll
-    for (int i = 0; i < kClkN; ++i) acc[i] = 0;
-  }
-  __device__ __forceinline__ void mark(int phase) {
-    const long long now = clock64();
-    acc[phase] += now - last;
-    last = now;
-  }
-  __device__ __forceinline__ void flush(int kernel) {
-    if ((threadIdx.x & 31) == 0)
-      for (int i = 0; i < kClkN; ++i)
-        atomicAdd(&g_wg_clocks[kernel][i], (unsigned long long)acc[i]);
-  }
-};
-#else
-struct Clk {
-  __device__ __forceinline__ void start() {}
-  __device__ __forceinline__ void mark(int) {}
-  __device__ __forceinline__ void flush(int) {}
-};
+__device__ unsigned long long g_wg_clocks[2][wg::kClkN];   // [dq, dkdv][phase]
 #endif
-
-// Which (tile i of n, pair p) block `idx` of a 1-D grid takes.  The grid
-// runs in chunks of `spread` pairs, tiles outer within a chunk: with
-// spread = every pair (a grid of about two waves or less) all the tiles
-// with the most steps start first and the short ones fill in behind them;
-// with spread = 1 a pair's tiles run together, and the tiles they share
-// (Q and dO, or K and V) are read from L2 while it still holds them.
-__device__ __forceinline__ void block_order(int idx, int n, int spread, int& i, int& p) {
-  const int chunk = idx / (n * spread), r = idx - chunk * n * spread;
-  i = r / spread;
-  p = chunk * spread + (r - i * spread);
+__device__ __forceinline__ unsigned long long* clocks_of(int pass) {
+#ifdef NANO_BWD_CLOCKS
+  return g_wg_clocks[pass];
+#else
+  return nullptr;
+#endif
 }
 
 // ---------------------------------------------------------------------
@@ -188,7 +144,7 @@ __global__ void __launch_bounds__(KvCfg<D>::THREADS, 3)
   using C = KvCfg<D>;
   constexpr int TILE = C::TILE, NSTAGE = C::NSTAGE, NA = D / 2;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  unsigned char* smem = aligned_smem(smem_raw);
+  unsigned char* smem = wg::aligned_smem(smem_raw);
   float* stats = reinterpret_cast<float*>(smem + C::STATS);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::BARS);
   uint64_t* empty = full + NSTAGE;
@@ -253,7 +209,7 @@ __global__ void __launch_bounds__(KvCfg<D>::THREADS, 3)
     const int key_lo = n0 + 16 * warp + g;   // this thread's keys: key_lo, key_lo + 8
     const uint32_t sK = wg::shared_addr(smem), sV = sK + TILE;
     wg::mbar_wait(kv_bar, 0);
-    clk.mark(kClkPrologue);
+    clk.mark(wg::kClkPrologue);
     for (int it = 0; it < n_iter; ++it) {
       const int s = it % NSTAGE;
       // the stage of step it - 1, once every warp is done with it, takes
@@ -264,7 +220,7 @@ __global__ void __launch_bounds__(KvCfg<D>::THREADS, 3)
         fill_stats(it - 1 + NSTAGE);
       }
       wg::mbar_wait(&full[s], (it / NSTAGE) & 1);
-      clk.mark(kClkWait);
+      clk.mark(wg::kClkWait);
       const uint32_t sQ = sK + C::STAGES + s * 2 * TILE, sdO = sQ + TILE;
       const float* l2 = stats + s * 2 * kTile;
       const float* dl = l2 + kTile;
@@ -283,7 +239,7 @@ __global__ void __launch_bounds__(KvCfg<D>::THREADS, 3)
       wg::commit();
       wg::wait<1>();
       wg::hold(st);
-      clk.mark(kClkScores);
+      clk.mark(wg::kClkScores);
       // P^T = 2^(S^T sl - lse2), zero where the query lies before the key
       // (only in a tile the diagonal crosses), into the A fragments of the
       // dV product
@@ -323,7 +279,7 @@ __global__ void __launch_bounds__(KvCfg<D>::THREADS, 3)
         }
         wg::pack_a(sa[kk], dpt, kk);
       }
-      clk.mark(kClkSoftmax);
+      clk.mark(wg::kClkSoftmax);
       wg::fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) wg::mma_rs<D>(dka, sa[kk], wg::desc_mn<D>(sQ, kk), 1);
@@ -333,7 +289,7 @@ __global__ void __launch_bounds__(KvCfg<D>::THREADS, 3)
       wg::hold(dka);
       wg::hold(pa);
       wg::hold(sa);
-      clk.mark(kClkGrads);
+      clk.mark(wg::kClkGrads);
       __syncwarp();
       if (lane == 0) wg::mbar_arrive(&empty[s]);   // the warp is done with the stage
     }
@@ -352,8 +308,8 @@ __global__ void __launch_bounds__(KvCfg<D>::THREADS, 3)
       *reinterpret_cast<uint32_t*>(dv + at) = wg::pack_bf16(dva[4 * j + 2 * i], dva[4 * j + 2 * i + 1]);
     }
   }
-  clk.mark(kClkEpilogue);
-  clk.flush(1);
+  clk.mark(wg::kClkEpilogue);
+  clk.flush(clocks_of(1));
 }
 
 // ---------------------------------------------------------------------
@@ -389,7 +345,7 @@ __global__ void __launch_bounds__(QCfg<D, HPB>::THREADS, QCfg<D, HPB>::MIN_BLOCK
   using C = QCfg<D, HPB>;
   constexpr int TILE = C::TILE, NSTAGE = C::NSTAGE, NA = D / 2;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  unsigned char* smem = aligned_smem(smem_raw);
+  unsigned char* smem = wg::aligned_smem(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::BARS);
   uint64_t* empty = full + NSTAGE;
   uint64_t* qd_bar = empty + NSTAGE;
@@ -478,7 +434,7 @@ __global__ void __launch_bounds__(QCfg<D, HPB>::THREADS, QCfg<D, HPB>::MIN_BLOCK
 #pragma unroll
   for (int i = 0; i < NA; ++i) dqa[i] = 0.f;
   wg::mbar_wait(qd_bar, 0);
-  clk.mark(kClkPrologue);
+  clk.mark(wg::kClkPrologue);
   for (int nt = 0; nt < n_tiles; ++nt) {
     const int s = nt % NSTAGE, n0 = nt * kTile;
     if (threadIdx.x == 0 && nt > 0 && nt - 1 + NSTAGE < n_tiles) {
@@ -486,7 +442,7 @@ __global__ void __launch_bounds__(QCfg<D, HPB>::THREADS, QCfg<D, HPB>::MIN_BLOCK
       fill(nt - 1 + NSTAGE);
     }
     wg::mbar_wait(&full[s], (nt / NSTAGE) & 1);
-    clk.mark(kClkWait);
+    clk.mark(wg::kClkWait);
     const uint32_t sK = base + C::RING + s * 2 * TILE, sV = sK + TILE;
     // S = Q K^T and dP = dO V^T
     float sc[32], dp[32];
@@ -501,7 +457,7 @@ __global__ void __launch_bounds__(QCfg<D, HPB>::THREADS, QCfg<D, HPB>::MIN_BLOCK
     wg::commit();
     wg::wait<1>();
     wg::hold(sc);
-    clk.mark(kClkScores);
+    clk.mark(wg::kClkScores);
     // P = 2^(S sl - lse2), zero past the row's position (only in a tile the
     // diagonal crosses)
     const bool masked = nt >= n_full;
@@ -525,7 +481,7 @@ __global__ void __launch_bounds__(QCfg<D, HPB>::THREADS, QCfg<D, HPB>::MIN_BLOCK
         for (int e = 0; e < 4; ++e) dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - dl[e >> 1]);
       wg::pack_a(sa[kk], dp, kk);
     }
-    clk.mark(kClkSoftmax);
+    clk.mark(wg::kClkSoftmax);
     wg::fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) wg::mma_rs<D>(dqa, sa[kk], wg::desc_mn<D>(sK, kk), 1);
@@ -533,7 +489,7 @@ __global__ void __launch_bounds__(QCfg<D, HPB>::THREADS, QCfg<D, HPB>::MIN_BLOCK
     wg::wait<0>();
     wg::hold(dqa);
     wg::hold(sa);
-    clk.mark(kClkGrads);
+    clk.mark(wg::kClkGrads);
     __syncwarp();
     if (lane == 0) wg::mbar_arrive(&empty[s]);   // the warp is done with the stage
   }
@@ -548,8 +504,8 @@ __global__ void __launch_bounds__(QCfg<D, HPB>::THREADS, QCfg<D, HPB>::MIN_BLOCK
       *reinterpret_cast<uint32_t*>(drow + 8 * j) =
           wg::pack_bf16(dqa[4 * j + 2 * i] * scale, dqa[4 * j + 2 * i + 1] * scale);
   }
-  clk.mark(kClkEpilogue);
-  clk.flush(0);
+  clk.mark(wg::kClkEpilogue);
+  clk.flush(clocks_of(0));
 }
 
 // =====================================================================
@@ -722,7 +678,7 @@ extern "C" int flash_bwd_wgmma_blocks_per_sm(int D, int pass, int hpb) {
 extern "C" int flash_bwd_wgmma_clocks(unsigned long long* out) {
   cudaError_t err = cudaMemcpyFromSymbol(out, g_wg_clocks, sizeof(g_wg_clocks));
   if (err != cudaSuccess) return (int)err;
-  unsigned long long zeros[2][kClkN] = {};
+  unsigned long long zeros[2][wg::kClkN] = {};
   return (int)cudaMemcpyToSymbol(g_wg_clocks, zeros, sizeof(zeros));
 }
 #endif

@@ -24,6 +24,14 @@
 //                 output's Q4K integer form (vp, sa, ba, c, as
 //                 q4k_act_quant writes it), at every row count: the form
 //                 q4k_matvec_fq (one row) and q4k_matmul_w4a4 (more) take.
+//   rms_norm_q4k_fq
+//                 rms_norm_q4k with the Q4K fake-quant as its epilogue
+//                 instead: the values rebuilt from the rounded hn's Q4K
+//                 quantization, f32 (B, n_pad), 0 at and past E, as
+//                 q4k_fake_quant writes them (nano_tpu/ops/q4k.py:644
+//                 fake_quant_act): the final norm of a Q4K model whose
+//                 head is the Q80 table requantized from its embedding,
+//                 which the C engine feeds that row (infer/infer.c:1012).
 //
 // The quantizations are q80_quant.cuh's and q4k_quant.cuh's, the code of
 // q80_act_quant and q4k_act_quant: the integer decisions are those of the
@@ -48,7 +56,11 @@
 // from there as q4k_act_quant does (2 x 16-byte reads a lane): the
 // epilogue adds ~0.8 us a launch at B = 1 (chip_smoke.py phase 3: a Q4K
 // step's 56 + 28 launches 0.221 ms, a Q80 step's 57 + 28 without it 0.155
-// ms, NVIDIA H100 80GB HBM3).  The Q4K kernels let
+// ms, NVIDIA H100 80GB HBM3).  The fake-quant epilogue is the same walk
+// with q4k_fake_quant's rebuild (q4k_quant.cuh:fq_block_by_warp) in place
+// of the packing: it saves a Q4K decode step the launch of
+// q4k_fake_quant (~1.9 us) on the final norm's output.  The integer-form
+// kernels let
 // their programmatic dependents (q4k_matvec_fq) launch at entry.  Each
 // value is read once and each output written once.  T and P come from
 // the row width alone (ops/norm_quant.py:plan), never from the row count,
@@ -186,9 +198,26 @@ __device__ __forceinline__ void quantize_row_q4k(const float* xs, int n, uint8_t
     q4kq::act_quant_block_by_warp(xs, blk, n, threadIdx.x & 31, vp, sa, ba, c);
 }
 
+// The Q4K fake-quant epilogue: the block's row of n values in xs as
+// quantize_row_q4k takes it, quantized and rebuilt 256 values a warp as
+// q4k_fake_quant does (q4k_quant.cuh:fq_block_by_warp) into the row's fq
+// (n_pad f32, 0 at and past n).  Every thread of the block calling.
+__device__ __forceinline__ void fake_quant_row_q4k(const float* xs, int n, float* __restrict__ fq) {
+  __syncthreads();   // the row is in xs
+  const int nblk = (n + 255) >> 8, nw = blockDim.x >> 5, lane = threadIdx.x & 31;
+  for (int blk = threadIdx.x >> 5; blk < nblk; blk += nw) {
+    float o[8];
+    q4kq::fq_block_by_warp(xs, blk, n, lane, o);
+    float4* dst = reinterpret_cast<float4*>(fq + (blk << 8) + 8 * lane);
+    dst[0] = make_float4(o[0], o[1], o[2], o[3]);
+    dst[1] = make_float4(o[4], o[5], o[6], o[7]);
+  }
+}
+
 // The outputs a norm or SwiGLU kernel quantizes its row into: none, the
-// Q80 form (xq, sa at gs) or the Q4K integer form (vp, sa, ba, c; the row
-// also in the dynamic shared memory xs).
+// Q80 form (xq, sa at gs), the Q4K integer form (vp, sa, ba, c) or the Q4K
+// fake-quant (fq; both Q4K forms with the row also in the dynamic shared
+// memory xs).
 struct Quant {
   int gs;                    // Q80 group size, 0 for none
   int8_t* xq;                // Q80 values (B, n)
@@ -196,18 +225,22 @@ struct Quant {
   uint8_t* vp;               // Q4K packed values (B, n_pad / 2), null for none
   float* ba;                 // Q4K ba
   float* c;                  // Q4K c
+  float* fq;                 // Q4K fake-quant (B, n_pad), null for none
 };
 
+// what a norm kernel's epilogue writes
+enum { kOutQ80, kOutQ4k, kOutQ4kFq };
+
 // One block a row of x (B, E): h = x + a (when a), hn = rms_norm(h) * w,
-// and hn's quantization (q).  h, hn may each be null.
-template <typename XT, int P, bool Q4>
+// and hn's quantization (q) in the form OUT says.  h, hn may each be null.
+template <typename XT, int P, int OUT>
 __device__ __forceinline__ void rms_norm_row(const XT* __restrict__ x, const XT* __restrict__ a,
                                              const float* __restrict__ w, XT* __restrict__ h,
                                              XT* __restrict__ hn, Quant q, int E, float eps,
                                              int vec) {
   __shared__ float wsum[kMaxWarps];
   __shared__ float wmax[kMaxWarps];
-  extern __shared__ float xs[];   // Q4: the rounded row
+  extern __shared__ float xs[];   // a Q4K form: the rounded row
   const size_t row = blockIdx.x;
   const int T = blockDim.x, t = threadIdx.x;
   x += row * E;
@@ -244,16 +277,16 @@ __device__ __forceinline__ void rms_norm_row(const XT* __restrict__ x, const XT*
 #pragma unroll
     for (int j = 0; j < kNV; ++j) v[p][j] = round_to<XT>(__fmul_rn(__fmul_rn(v[p][j], r), wv[j]));
     if (hn && i < E) store_chunk(hn + row * E, i, E, vec, v[p]);
-    if (Q4) {
+    if (OUT != kOutQ80) {
       stash_chunk(xs, i, E, v[p]);
     } else if (q.gs) {
       quantize_chunk(v[p], i, E, q.gs, q.xq + row * E, q.sa + row * (E / q.gs), wmax);
     }
   }
-  if (Q4) {
-    const int G = ((E + 255) >> 8) << 3;
+  const int G = ((E + 255) >> 8) << 3;
+  if (OUT == kOutQ4k)
     quantize_row_q4k(xs, E, q.vp + row * G * 16, q.sa + row * G, q.ba + row * G, q.c + row * G);
-  }
+  if (OUT == kOutQ4kFq) fake_quant_row_q4k(xs, E, q.fq + row * G * 32);
 }
 
 template <typename XT, int P>
@@ -261,7 +294,7 @@ __global__ void __launch_bounds__(1024)
     rms_norm_q80_kernel(const XT* __restrict__ x, const XT* __restrict__ a,
                         const float* __restrict__ w, XT* __restrict__ h, XT* __restrict__ hn,
                         Quant q, int E, float eps, int vec) {
-  rms_norm_row<XT, P, false>(x, a, w, h, hn, q, E, eps, vec);
+  rms_norm_row<XT, P, kOutQ80>(x, a, w, h, hn, q, E, eps, vec);
 }
 
 // Its dependents may launch at once (programmatic dependent launch:
@@ -274,7 +307,17 @@ __global__ void __launch_bounds__(1024)
                         const float* __restrict__ w, XT* __restrict__ h, XT* __restrict__ hn,
                         Quant q, int E, float eps, int vec) {
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
-  rms_norm_row<XT, P, true>(x, a, w, h, hn, q, E, eps, vec);
+  rms_norm_row<XT, P, kOutQ4k>(x, a, w, h, hn, q, E, eps, vec);
+}
+
+// The final norm of a Q4K model with the requantized Q80 head: the row the
+// head reads, fake-quantized.
+template <typename XT, int P>
+__global__ void __launch_bounds__(1024)
+    rms_norm_fq_kernel(const XT* __restrict__ x, const XT* __restrict__ a,
+                       const float* __restrict__ w, XT* __restrict__ h, XT* __restrict__ hn,
+                       Quant q, int E, float eps, int vec) {
+  rms_norm_row<XT, P, kOutQ4kFq>(x, a, w, h, hn, q, E, eps, vec);
 }
 
 // One block a row of h13 (B, 2F) = [h1 | h3]: y = silu(h1) * h3 (B, F),
@@ -334,13 +377,15 @@ __global__ void __launch_bounds__(1024)
   MACRO(16)
 
 template <typename XT>
-cudaError_t launch_norm(bool q4, int P, int B, int T, size_t smem, cudaStream_t st, const XT* x,
+cudaError_t launch_norm(int out, int P, int B, int T, size_t smem, cudaStream_t st, const XT* x,
                         const XT* a, const float* w, XT* h, XT* hn, Quant q, int E, float eps,
                         int vec) {
   switch (P) {
 #define NANO_NQ_CASE(PP)                                                                    \
   case PP:                                                                                  \
-    if (q4)                                                                                 \
+    if (out == kOutQ4kFq)                                                                   \
+      rms_norm_fq_kernel<XT, PP><<<B, T, smem, st>>>(x, a, w, h, hn, q, E, eps, vec);       \
+    else if (out == kOutQ4k)                                                                \
       rms_norm_q4k_kernel<XT, PP><<<B, T, smem, st>>>(x, a, w, h, hn, q, E, eps, vec);      \
     else                                                                                    \
       rms_norm_q80_kernel<XT, PP><<<B, T, 0, st>>>(x, a, w, h, hn, q, E, eps, vec);         \
@@ -396,9 +441,12 @@ template <typename XT>
 cudaError_t allow_q4k_smem() {
   return allow_smem(rms_norm_q4k_kernel<XT, 1>, rms_norm_q4k_kernel<XT, 2>,
                     rms_norm_q4k_kernel<XT, 4>, rms_norm_q4k_kernel<XT, 8>,
-                    rms_norm_q4k_kernel<XT, 16>, swiglu_q4k_kernel<XT, 1>,
-                    swiglu_q4k_kernel<XT, 2>, swiglu_q4k_kernel<XT, 4>,
-                    swiglu_q4k_kernel<XT, 8>, swiglu_q4k_kernel<XT, 16>);
+                    rms_norm_q4k_kernel<XT, 16>, rms_norm_fq_kernel<XT, 1>,
+                    rms_norm_fq_kernel<XT, 2>, rms_norm_fq_kernel<XT, 4>,
+                    rms_norm_fq_kernel<XT, 8>, rms_norm_fq_kernel<XT, 16>,
+                    swiglu_q4k_kernel<XT, 1>, swiglu_q4k_kernel<XT, 2>,
+                    swiglu_q4k_kernel<XT, 4>, swiglu_q4k_kernel<XT, 8>,
+                    swiglu_q4k_kernel<XT, 16>);
 }
 
 // A Q4K epilogue's outputs, and its row within the dynamic shared memory a
@@ -407,21 +455,21 @@ bool q4k_ok(int n, const void* vp, const void* sa, const void* ba, const void* c
   return vp && sa && ba && c && (size_t)n * sizeof(float) <= (size_t)kMaxRowSmem;
 }
 
-// rms_norm_q80 / rms_norm_q4k by q: the Q4K kernel where q.vp, with the
-// row's E floats of dynamic shared memory
+// rms_norm_q80 / rms_norm_q4k / rms_norm_q4k_fq by q: a Q4K kernel where
+// q.vp or q.fq, with the row's E floats of dynamic shared memory
 int norm(const void* x, const void* a, const void* w, void* h, void* hn, const Quant& q,
          int x_bf16, int B, int E, float eps, int T, int P, int vec, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool q4 = q.vp != nullptr;
-  const size_t smem = q4 ? (size_t)E * sizeof(float) : 0;
+  const int out = q.fq ? kOutQ4kFq : q.vp ? kOutQ4k : kOutQ80;
+  const size_t smem = out != kOutQ80 ? (size_t)E * sizeof(float) : 0;
   const float* w_ = static_cast<const float*>(w);
   if (x_bf16) {
     using XT = __nv_bfloat16;
-    return (int)launch_norm<XT>(q4, P, B, T, smem, st, static_cast<const XT*>(x),
+    return (int)launch_norm<XT>(out, P, B, T, smem, st, static_cast<const XT*>(x),
                                 static_cast<const XT*>(a), w_, static_cast<XT*>(h),
                                 static_cast<XT*>(hn), q, E, eps, vec);
   }
-  return (int)launch_norm<float>(q4, P, B, T, smem, st, static_cast<const float*>(x),
+  return (int)launch_norm<float>(out, P, B, T, smem, st, static_cast<const float*>(x),
                                  static_cast<const float*>(a), w_, static_cast<float*>(h),
                                  static_cast<float*>(hn), q, E, eps, vec);
 }
@@ -464,8 +512,8 @@ extern "C" int rms_norm_q80(const void* x, const void* a, const void* w, void* h
                             int T, int P, int vec, void* stream) {
   if (B < 1 || !shape_ok(E, gs, T, P) || (gs && (!xq || !sa)))
     return (int)cudaErrorInvalidValue;
-  const Quant q{gs, gs ? static_cast<int8_t*>(xq) : nullptr, gs ? static_cast<float*>(sa) : nullptr,
-                nullptr, nullptr, nullptr};
+  const Quant q{gs, gs ? static_cast<int8_t*>(xq) : nullptr,
+                gs ? static_cast<float*>(sa) : nullptr, nullptr, nullptr, nullptr, nullptr};
   return norm(x, a, w, h, hn, q, x_bf16, B, E, eps, T, P, vec, stream);
 }
 
@@ -478,7 +526,20 @@ extern "C" int rms_norm_q4k(const void* x, const void* a, const void* w, void* h
   if (B < 1 || !shape_ok(E, 0, T, P) || !q4k_ok(E, vp, sa, ba, c))
     return (int)cudaErrorInvalidValue;
   const Quant q{0, nullptr, static_cast<float*>(sa), static_cast<uint8_t*>(vp),
-                static_cast<float*>(ba), static_cast<float*>(c)};
+                static_cast<float*>(ba), static_cast<float*>(c), nullptr};
+  return norm(x, a, w, h, hn, q, x_bf16, B, E, eps, T, P, vec, stream);
+}
+
+// The same with hn's Q4K fake-quant instead of its integer form: fq (B,
+// n_pad) f32, the values rebuilt from hn's Q4K quantization, 0 at and past
+// E, as q4k_fake_quant gives them (E at most kMaxRowSmem / 4;
+// norm_quant_init first).
+extern "C" int rms_norm_q4k_fq(const void* x, const void* a, const void* w, void* h, void* hn,
+                               void* fq, int x_bf16, int B, int E, float eps, int T, int P,
+                               int vec, void* stream) {
+  if (B < 1 || !shape_ok(E, 0, T, P) || !fq || (size_t)E * sizeof(float) > (size_t)kMaxRowSmem)
+    return (int)cudaErrorInvalidValue;
+  const Quant q{0, nullptr, nullptr, nullptr, nullptr, nullptr, static_cast<float*>(fq)};
   return norm(x, a, w, h, hn, q, x_bf16, B, E, eps, T, P, vec, stream);
 }
 
@@ -487,8 +548,8 @@ extern "C" int rms_norm_q4k(const void* x, const void* a, const void* w, void* h
 extern "C" int swiglu_q80(const void* h13, void* y, void* xq, void* sa, int x_bf16, int B, int F,
                           int gs, int T, int P, int vec, void* stream) {
   if (B < 1 || !shape_ok(F, gs, T, P) || (gs && (!xq || !sa))) return (int)cudaErrorInvalidValue;
-  const Quant q{gs, gs ? static_cast<int8_t*>(xq) : nullptr, gs ? static_cast<float*>(sa) : nullptr,
-                nullptr, nullptr, nullptr};
+  const Quant q{gs, gs ? static_cast<int8_t*>(xq) : nullptr,
+                gs ? static_cast<float*>(sa) : nullptr, nullptr, nullptr, nullptr, nullptr};
   return swiglu(h13, y, q, x_bf16, B, F, T, P, vec, stream);
 }
 
@@ -500,6 +561,6 @@ extern "C" int swiglu_q4k(const void* h13, void* y, void* vp, void* sa, void* ba
   if (B < 1 || !shape_ok(F, 0, T, P) || !q4k_ok(F, vp, sa, ba, c))
     return (int)cudaErrorInvalidValue;
   const Quant q{0, nullptr, static_cast<float*>(sa), static_cast<uint8_t*>(vp),
-                static_cast<float*>(ba), static_cast<float*>(c)};
+                static_cast<float*>(ba), static_cast<float*>(c), nullptr};
   return swiglu(h13, y, q, x_bf16, B, F, T, P, vec, stream);
 }

@@ -1,14 +1,18 @@
 // Hopper's warpgroup products and tensor-map copies, for the kernels that
-// use them (flash_bwd_wgmma.cu: K4's backward on wgmma):
+// use them (flash_bwd_wgmma.cu: K4's backward on wgmma; flash_fwd_wgmma.cu:
+// its forward):
 //   * the shared-memory layout of a 64-row bf16 tile and its swizzle for
 //     each head width D (TileLayout);
 //   * a tensor map on the host for a (B, S, heads, D) tensor addressed
 //     through its strides, the encoder looked up at run time (the
 //     libraries link no libcuda);
 //   * on the device: tile loads by TMA (cp.async.bulk.tensor) completing on
-//     an mbarrier, the wgmma descriptors of such a tile read K-major or
-//     MN-major, and the wgmma products themselves, m64nNk16 bf16 -> f32,
-//     with A from shared memory or from registers.
+//     an mbarrier, tile stores by TMA from a plain row-major tile, the wgmma
+//     descriptors of such a tile read K-major or MN-major, and the wgmma
+//     products themselves, m64nNk16 bf16 -> f32, with A from shared memory
+//     or from registers;
+//   * what the kernels' loops share: the grid order (block_order), the
+//     exp2 of the softmax, and the clock stamps of an instrumented build.
 #pragma once
 
 #include <cuda.h>
@@ -77,20 +81,23 @@ inline EncodeTiled encoder() {
 // strides in elements (multiples of 8, the base 16-byte aligned): its box
 // is one column block of TileLayout<D> (E x 64 rows of one head of one batch
 // row), swizzled as the layout says; rows at or past S and columns at or
-// past D read as zeros.
+// past D read as zeros.  `plain`: the box is a whole 64-row tile, D x 64,
+// unswizzled (a row-major [64][D] tile in shared memory, as store_tile
+// writes it out; rows at or past S are not written).
 // -> 0, or cudaErrorInvalidValue where cuTensorMapEncodeTiled refuses the map.
 template <int D>
 int encode_rows(CUtensorMap* map, const void* base, int B, int S, int heads, long long sb,
-                long long ss, long long sh) {
+                long long ss, long long sh, bool plain = false) {
   using L = TileLayout<D>;
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)L::E, 64, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)(plain ? D : L::E), 64, 1, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                        strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, L::SWIZZLE,
+                        strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        plain ? CU_TENSOR_MAP_SWIZZLE_NONE : L::SWIZZLE,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
@@ -145,6 +152,101 @@ __device__ __forceinline__ void load_tile(void* dst, const CUtensorMap* map, uin
         "r"(shared_addr(bar))
         : "memory");
 }
+
+// The row-major [64][D] bf16 tile at src (16-byte aligned) out to rows
+// row0 .. row0 + 63 of head `head`, batch row `b` of `map` (encode_rows
+// with `plain`), rows past its S dropped; one thread issues it and returns
+// once the tile has been read (src may then be reused).  The threads that
+// wrote src run fence_async_shared() and meet that thread at a barrier
+// first.
+__device__ __forceinline__ void store_tile(const CUtensorMap* map, const void* src, int row0, int head,
+                                           int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(shared_addr(src)), "r"(0), "r"(row0), "r"(head), "r"(b)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// this thread's shared-memory stores made visible to TMA (the async proxy)
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the named barrier `id` (1 .. 15) of `threads` threads (whole warps)
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- device: what the kernels' loops share ----
+
+constexpr int kTile = 64;                       // rows of a tile
+constexpr float kLog2e = 1.4426950408889634f;   // the softmax runs on exp2
+
+__device__ __forceinline__ float fast_exp2(float x) {   // 2^x; -inf -> 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the sum over the quad of lanes that holds one row of an accumulator
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// the dynamic shared memory from its first 1024-byte boundary (the
+// 128-byte swizzle's atom)
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return raw + ((1024u - (shared_addr(raw) & 1023u)) & 1023u);
+}
+
+// Which (tile i of n, pair p) block `idx` of a 1-D grid takes.  The grid
+// runs in chunks of `spread` pairs, tiles outer within a chunk: with
+// spread = every pair (a grid of about two waves or less) all the tiles
+// with the most steps start first and the short ones fill in behind them;
+// with spread = 1 a pair's tiles run together, and the tiles they share
+// are read from L2 while it still holds them.
+__device__ __forceinline__ void block_order(int idx, int n, int spread, int& i, int& p) {
+  const int chunk = idx / (n * spread), r = idx - chunk * n * spread;
+  i = r / spread;
+  p = chunk * spread + (r - i * spread);
+}
+
+// Cycle counts of a loop's phases, per consumer warp, summed over the grid
+// into a kernel's counters (flush); only in a build with -DNANO_BWD_CLOCKS
+// (`chip_smoke.py bench routes clocks`), else every call is empty.  The
+// backward's phases: prologue, waits, the S and dP products, P and dS, the
+// gradient products, epilogue; the forward's: prologue, waits, the S
+// product, the softmax, the P V product, epilogue.
+enum { kClkPrologue, kClkWait, kClkScores, kClkSoftmax, kClkGrads, kClkEpilogue, kClkN };
+#ifdef NANO_BWD_CLOCKS
+struct Clk {
+  long long last, acc[kClkN];
+  __device__ __forceinline__ void start() {
+    last = clock64();
+#pragma unroll
+    for (int i = 0; i < kClkN; ++i) acc[i] = 0;
+  }
+  __device__ __forceinline__ void mark(int phase) {
+    const long long now = clock64();
+    acc[phase] += now - last;
+    last = now;
+  }
+  __device__ __forceinline__ void flush(unsigned long long* counters) {
+    if ((threadIdx.x & 31) == 0)
+      for (int i = 0; i < kClkN; ++i) atomicAdd(&counters[i], (unsigned long long)acc[i]);
+  }
+};
+#else
+struct Clk {
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void flush(unsigned long long*) {}
+};
+#endif
 
 // ---- device: wgmma descriptors ----
 

@@ -64,8 +64,8 @@ from nano_tpu_torch.observe import Phase
 from nano_tpu_torch.ops import decode_attn
 from nano_tpu_torch.ops.flash_attn import flash_attention
 from nano_tpu_torch.ops.norm_quant import (rms_norm, rms_norm_q4k,
-                                           rms_norm_q80, swiglu_q4k,
-                                           swiglu_q80)
+                                           rms_norm_q4k_fq, rms_norm_q80,
+                                           swiglu_q4k, swiglu_q80)
 from nano_tpu_torch.ops.q4k import (MAX_MATVEC_PAD, Q4KTensor, fake_quant_act,
                                     q4k_matmul)
 from nano_tpu_torch.ops.qmatmul import Q80Tensor, q80_matmul
@@ -272,13 +272,21 @@ def _adapter_kw(lora: Optional[Params], i: int, lora_scale,
 def _head_q80(params: Params) -> Optional[Q80Tensor]:
     """The Q80 weight that ``compute_logits`` applies to the final norm's
     output as it is, if any (not the Q4K model's requantized head, whose
-    activation is fake-quantized first)."""
+    activation is fake-quantized first: ``_head_fq``)."""
     w = params.get("output_q")
     if w is not None and isinstance(params["tok_embeddings"], Q4KTensor):
         return None
     for w in (w, params.get("output"), params["tok_embeddings"]):
         if w is not None:
             return w if isinstance(w, Q80Tensor) else None
+
+
+def _head_fq(params: Params) -> bool:
+    """Whether the head is the Q80 table requantized from a Q4K embedding,
+    whose activation ``compute_logits`` fake-quantizes first (the final
+    norm of the cached forward does it instead, ``rms_norm_q4k_fq``)."""
+    return (isinstance(params.get("output_q"), Q80Tensor)
+            and isinstance(params["tok_embeddings"], Q4KTensor))
 
 
 def _dot_f32(h: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
@@ -316,8 +324,7 @@ def compute_logits(h, params: Params, dtype) -> torch.Tensor:
     be a ``Q80Act`` for ``_head_q80``'s weight."""
     w = params.get("output_q")
     if w is not None:
-        if (isinstance(params["tok_embeddings"], Q4KTensor)
-                and isinstance(w, Q80Tensor)):
+        if _head_fq(params):
             E = h.shape[-1]
             h = fake_quant_act(h.reshape(-1, E))[:, :E].reshape(h.shape)
         return _dense(h, w, torch.float32)
@@ -571,21 +578,30 @@ def feed_forward_cached(x, layer: Params, dtype, tp=None) -> torch.Tensor:
 
 def _final(h: torch.Tensor, params: Params, cfg: ModelConfig, dtype,
            last_idx: Optional[int] = None) -> torch.Tensor:
-    """The final norm (one ``rms_norm_q80`` launch) and the LM head -> f32
-    logits, of row `last_idx` alone where one is given.  The norm is per
-    row, so it runs on that row alone, unless an observer sees the final
-    norm of every row (as the JAX package's tap does)."""
+    """The final norm (one ``rms_norm_q80`` launch; ``rms_norm_q4k_fq``,
+    which also fake-quantizes its output, where the head is a Q4K model's
+    requantized Q80 table) and the LM head -> f32 logits, of row
+    `last_idx` alone where one is given.  The norm is per row, so it runs
+    on that row alone, unless an observer sees the final norm of every row
+    (as the JAX package's tap does)."""
+    fq = _head_fq(params)
     w = _head_q80(params)
-    ws = [] if w is None else [w]
     tapped = observe.active()
     if last_idx is not None and not tapped:
         h, last_idx = h[:, last_idx:last_idx + 1], None
-    _, hn, ht = _norm(h, params["norm"], cfg.norm_eps, ws, keep=tapped)
+    if fq:
+        _, ht, hn = rms_norm_q4k_fq(h, params["norm"], cfg.norm_eps,
+                                    want_hn=tapped)
+        hn = hn[..., :h.shape[-1]]
+    else:
+        _, hn, ht = _norm(h, params["norm"], cfg.norm_eps,
+                          [] if w is None else [w], keep=tapped)
     if tapped:
         observe.tap(Phase.FINAL_NORM, -1, ht)
         if last_idx is not None:
-            hn = ht[:, last_idx:last_idx + 1]
-    logits = compute_logits(hn, params, dtype)
+            hn = (hn if fq else ht)[:, last_idx:last_idx + 1]
+    logits = (_dense(hn, params["output_q"], torch.float32) if fq
+              else compute_logits(hn, params, dtype))
     observe.tap(Phase.LOGITS, -1, logits)
     return logits
 

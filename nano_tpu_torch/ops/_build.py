@@ -10,9 +10,9 @@ the same flags is reused.
 
 IEEE division and square root, and denormals, are required
 (``q80_act_quant``, ``q80_matvec_fq``, ``rms_norm_q80``, ``swiglu_q80``,
-``rms_norm_q4k``, ``swiglu_q4k``, ``q4k_fake_quant`` and ``q4k_act_quant``
-must reproduce the JAX package's integer decisions bit for bit), so the
-flags never include ``--use_fast_math``.
+``rms_norm_q4k``, ``rms_norm_q4k_fq``, ``swiglu_q4k``, ``q4k_fake_quant``
+and ``q4k_act_quant`` must reproduce the JAX package's integer decisions
+bit for bit), so the flags never include ``--use_fast_math``.
 """
 
 from __future__ import annotations
@@ -56,6 +56,8 @@ SIGNATURES = {
     "norm_quant_init": ([], "norm_quant"),
     "rms_norm_q4k": ([P, P, P, P, P, P, P, P, P, I, I, I, F, I, I, I, P],
                      "norm_quant"),
+    "rms_norm_q4k_fq": ([P, P, P, P, P, P, I, I, I, F, I, I, I, P],
+                        "norm_quant"),
     "swiglu_q4k": ([P, P, P, P, P, P, I, I, I, I, I, I, P], "norm_quant"),
     "decode_attention": ([P, P, P, P, P, P, I, P, P, P, I, Q, I, I, I, I, I,
                           I, F, I, I, P], "decode_attn"),
@@ -79,6 +81,10 @@ SIGNATURES = {
                         "flash_bwd_wgmma"),
     "flash_bwd_wgmma_smem": ([I, I, I], "flash_bwd_wgmma"),
     "flash_bwd_wgmma_blocks_per_sm": ([I, I, I], "flash_bwd_wgmma"),
+    "flash_fwd_wgmma": ([*[P] * 5, *[I] * 11, *[Q] * 9, F, P],
+                        "flash_fwd_wgmma"),
+    "flash_fwd_wgmma_smem": ([I, I], "flash_fwd_wgmma"),
+    "flash_fwd_wgmma_blocks_per_sm": ([I, I, I, I], "flash_fwd_wgmma"),
 }
 
 # The SM count assumed where the device is not asked (an H100's): the

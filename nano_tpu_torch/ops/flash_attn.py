@@ -17,15 +17,16 @@ gathered over "seq").  The JAX package gets that form from GSPMD, which
 partitions the einsum path's scores on S.
 
 ``flash_attention`` runs the hand-written CUDA kernels
-(``csrc/flash_attn.cu``; most of the bf16 backward at D <= 64 in
-``csrc/flash_bwd_wgmma.cu``, as ``bwd_route`` chooses) for CUDA tensors —
-forward and, through the operator's backward, the gradient — and their
-plain versions only for tensors on the CPU.  Unlike the TPU
-kernel there is no gate on S and K/V are never repeated to H heads.  The
-backward uses no atomics: two runs on the same inputs agree bit for bit.
-``flash_attention.launches`` counts forward launches,
-``flash_attention.backward_launches`` backward ones, and of those
-``wgmma_launches`` the ones that ran on the wgmma passes.
+(``csrc/flash_attn.cu``; most of the bf16 forward and backward at D <= 64
+in ``csrc/flash_fwd_wgmma.cu`` and ``csrc/flash_bwd_wgmma.cu``, as
+``fwd_route`` and ``bwd_route`` choose) for CUDA tensors — forward and,
+through the operator's backward, the gradient — and their plain versions
+only for tensors on the CPU.  Unlike the TPU kernel there is no gate on S
+and K/V are never repeated to H heads.  No kernel uses atomics: two runs
+on the same inputs agree bit for bit.  ``flash_attention.launches``
+counts forward launches, ``flash_attention.backward_launches`` backward
+ones, and of those ``forward_wgmma_launches`` and ``wgmma_launches`` the
+ones that ran on the wgmma kernels.
 
 The forward is the registered operator
 ``torch.ops.nano_tpu_torch.flash_attn_fwd`` (q, k, v) -> (out, lse), whose
@@ -51,9 +52,10 @@ from nano_tpu_torch.ops import _build
 
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 48, 64, 128)
-# the head widths the wgmma passes (csrc/flash_bwd_wgmma.cu) are built for;
-# D = 128 keeps the mma.sync passes: dK and dV of 64 x 128 in f32 are 128
-# registers a thread, S and dP 64 more
+# the head widths the wgmma kernels (csrc/flash_fwd_wgmma.cu,
+# csrc/flash_bwd_wgmma.cu) are built for; D = 128 keeps the mma.sync
+# kernels: dK and dV of 64 x 128 in f32 are 128 registers a thread, S and
+# dP 64 more, and the forward has no n128 product
 WGMMA_HEAD_DIMS = (16, 32, 48, 64)
 
 
@@ -122,6 +124,38 @@ def flash_attn_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dv.to(q.dtype))
 
 
+class FwdRoute(NamedTuple):
+    """Which kernel takes the forward: "wgmma" (``csrc/flash_fwd_wgmma.cu``,
+    bf16), "mma" (the mma.sync kernel in ``csrc/flash_attn.cu``, bf16) or
+    "simt" (f32, the oracle type: flash_attn.cu's CUDA-core kernel).
+    ``hpb``: query heads a block of the wgmma kernel; ``overlap``: a tile's
+    softmax under the P V product of the tile before; ``producer``: its
+    copies from a producer warp."""
+    kernel: str
+    hpb: int = 1
+    overlap: bool = False
+    producer: bool = False
+
+
+def fwd_route(B: int, Sq: int, Skv: int, offset: int, H: int, KV: int,
+              D: int, dtype: torch.dtype) -> FwdRoute:
+    """The forward's kernel for these shapes, a function of the shapes
+    alone (no device is asked, so it holds under a CUDA graph and on the
+    CPU).  bf16: the wgmma kernel at D = 16 to 64, a tile's softmax under
+    the product before it, with two query heads a block where the heads of
+    a KV head are even (one for the whole sequence at D = 32), but for the
+    whole sequence at D = 16 (the calculator's); the mma.sync kernel there
+    and at D = 128, which the wgmma kernel does not take.  f32: the CUDA
+    cores."""
+    if dtype == torch.float32:
+        return FwdRoute("simt")
+    whole = offset == 0 and Sq == Skv
+    if D not in WGMMA_HEAD_DIMS or (D == 16 and whole):
+        return FwdRoute("mma")
+    two = (H // KV) % 2 == 0 and not (D == 32 and whole)
+    return FwdRoute("wgmma", 2 if two else 1, True)
+
+
 class BwdRoute(NamedTuple):
     """Which kernels take the backward: "wgmma" (the two passes of
     ``csrc/flash_bwd_wgmma.cu``, bf16; the dk/dv pass reads the row
@@ -162,6 +196,27 @@ def wgmma_spread(n: int, pairs: int, resident: int) -> int:
     behind them), else 1 (a pair's tiles run together, and the tiles they
     share come from L2 while it holds them)."""
     return pairs if n * pairs <= 2 * resident else 1
+
+
+@lru_cache(maxsize=None)
+def _fwd_resident(device: int, D: int, hpb: int, overlap: bool,
+                  producer: bool) -> int:
+    """Blocks of the wgmma forward that the card runs at once."""
+    per_sm = _build.lib("flash_fwd_wgmma").flash_fwd_wgmma_blocks_per_sm(
+        D, hpb, int(overlap), int(producer))
+    if per_sm < 1:
+        raise RuntimeError(f"flash_fwd_wgmma at D = {D}, hpb {hpb}: no "
+                           f"block fits an SM")
+    return per_sm * _build.sm_count(torch.device("cuda", device))
+
+
+def fwd_spread(device: int, B: int, Sq: int, H: int, D: int,
+               route: FwdRoute) -> int:
+    """``wgmma_spread`` of the wgmma forward's grid (query tiles x head
+    groups x batch rows) on `device`."""
+    return wgmma_spread(-(-Sq // 64), H // route.hpb * B,
+                        _fwd_resident(device, D, route.hpb, route.overlap,
+                                      route.producer))
 
 
 @lru_cache(maxsize=None)
@@ -218,21 +273,47 @@ def _strides(t: torch.Tensor) -> Tuple[int, int, int]:
 
 
 def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                   offset: int = 0, route: Optional[FwdRoute] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel ``flash_attn_fwd`` -> (out (B, Sq, H, D) in q's type, lse
     (B, H, Sq) f32, the row log-sum-exp of the scaled scores); query i
-    sees keys 0 .. offset + i."""
+    sees keys 0 .. offset + i.  The kernel is ``fwd_route``'s for the
+    shapes, or `route` (a measurement's choice); a route the kernels do not
+    take raises."""
     _check(q, k, v, offset)
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     B, S, H, D = q.shape
+    KV = k.shape[2]
+    if route is None:
+        route = fwd_route(B, S, k.shape[1], offset, H, KV, D, q.dtype)
+    if (route.kernel not in ("simt", "mma", "wgmma")
+            or (route.kernel == "simt") != (q.dtype == torch.float32)
+            or (route.kernel == "wgmma" and (D not in WGMMA_HEAD_DIMS
+                                             or route.hpb not in (1, 2)
+                                             or (H // KV) % route.hpb))
+            or (route.kernel != "wgmma"
+                and (route.hpb, route.overlap, route.producer)
+                != (1, False, False))):
+        raise ValueError(f"flash_attn_fwd has no route {route} for {q.dtype} "
+                         f"at D = {D}, {H // KV} query heads a KV head")
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    tail = (*_strides(q), *_strides(k), *_strides(v), 1.0 / math.sqrt(D))
+    if route.kernel == "wgmma":
+        fn = _build.lib("flash_fwd_wgmma").flash_fwd_wgmma
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), B, S, k.shape[1], offset, H, KV, D, route.hpb,
+                int(route.overlap), int(route.producer),
+                fwd_spread(q.device.index, B, S, H, D, route), *tail,
+                _build.stream(q))
+        flash_attention.launches += 1
+        flash_attention.forward_wgmma_launches += 1
+        _build.check(rc, "flash_fwd_wgmma")
+        return out, lse
     fn = _build.lib("flash_attn").flash_attn_fwd
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), _TYPES[q.dtype], B, S, k.shape[1], offset, H,
-            k.shape[2], D,
-            *_strides(q), *_strides(k), *_strides(v), 1.0 / math.sqrt(D),
-            _build.stream(q))
+            lse.data_ptr(), _TYPES[q.dtype], B, S, k.shape[1], offset, H, KV,
+            D, *tail, _build.stream(q))
     flash_attention.launches += 1
     _build.check(rc, "flash_attn_fwd")
     return out, lse
@@ -335,5 +416,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+flash_attention.forward_wgmma_launches = 0
 flash_attention.backward_launches = 0
 flash_attention.wgmma_launches = 0

@@ -25,6 +25,7 @@ COUNTERS: Tuple[Tuple[object, str, str], ...] = (
     (norm_quant, "rms_norm_q80", "launches"),
     (norm_quant, "swiglu_q80", "launches"),
     (norm_quant, "rms_norm_q4k", "launches"),
+    (norm_quant, "rms_norm_q4k_fq", "launches"),
     (norm_quant, "swiglu_q4k", "launches"),
     (decode_attn, "decode_attention", "launches"),
     (q4k, "fake_quant_act", "launches"),
@@ -33,6 +34,7 @@ COUNTERS: Tuple[Tuple[object, str, str], ...] = (
     (q4k, "act_quant_q4k_packed", "launches"),
     (q4k, "q4k_matmul_w4a4", "launches"),
     (flash_attn, "flash_attention", "launches"),
+    (flash_attn, "flash_attention", "forward_wgmma_launches"),
     (flash_attn, "flash_attention", "backward_launches"),
     (flash_attn, "flash_attention", "wgmma_launches"),
 )

@@ -15,6 +15,11 @@ epilogue instead (the JAX package's ``act_quant_q4k``,
 ``nano_tpu/ops/q4k.py``, which ``fake_quant_act`` applies before every
 Q4K product): the ``Q4KAct`` that ``q4k_matvec_fq`` (one row) and
 ``q4k_matmul_w4a4`` (more) take instead of launching ``q4k_act_quant``.
+``rms_norm_q4k_fq`` is ``rms_norm_q4k`` with ``fake_quant_act`` itself as
+the epilogue: the final norm of a Q4K model whose head is the Q80 table
+requantized from its embedding (the C engine's Q4K treatment of that
+row, ``infer/infer.c:1012-1014``), instead of launching
+``q4k_fake_quant`` on it.
 
 Each wrapper runs its kernel for CUDA tensors and its plain PyTorch
 version (``*_plain``: the eager ops, then ``act_quant_q80_plain`` or
@@ -33,7 +38,7 @@ import torch.nn.functional as F
 from nano_tpu_torch.ops import _build, int8_mma
 from nano_tpu_torch.ops.q4k import (BLOCK_LEN, GROUP_LEN, Q4KAct,
                                     act_quant_q4k_packed_plain,
-                                    n_blocks_per_line)
+                                    fake_quant_act_plain, n_blocks_per_line)
 from nano_tpu_torch.ops.qmatmul import Q80Act, act_quant_q80_plain
 
 _TYPES = (torch.float32, torch.bfloat16)
@@ -98,6 +103,18 @@ def rms_norm_q4k_plain(x: torch.Tensor, weight: torch.Tensor, eps: float,
     return h, hn if want_hn else None, _act_q4k(hn)
 
 
+def rms_norm_q4k_fq_plain(x: torch.Tensor, weight: torch.Tensor, eps: float,
+                          residual: Optional[torch.Tensor] = None,
+                          want_hn: bool = True):
+    """What ``rms_norm_q4k_fq`` computes, in plain PyTorch: h = x +
+    residual, hn = rms_norm(h), and fake_quant_act_plain(hn): (..., n_pad)
+    f32, 0 at and past E."""
+    h, hn, _ = rms_norm_q80_plain(x, weight, eps, residual)
+    fq = fake_quant_act_plain(hn.reshape(-1, hn.shape[-1]))
+    return (h, hn if want_hn else None,
+            fq.reshape(*hn.shape[:-1], fq.shape[-1]))
+
+
 def swiglu_q4k_plain(h13: torch.Tensor, want_hidden: bool = True):
     """What ``swiglu_q4k`` computes, in plain PyTorch: silu(h1) * h3 of
     h13 = [h1 | h3], and its Q4KAct."""
@@ -141,11 +158,15 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _outputs_q4k(B: int, n: int, device):
+def _n_pad_q4k(n: int) -> int:
     if n > MAX_Q4K_ROW:
         raise ValueError(f"the Q4K epilogue takes rows of at most "
                          f"{MAX_Q4K_ROW} values, got {n}")
-    n_pad = n_blocks_per_line(n) * BLOCK_LEN
+    return n_blocks_per_line(n) * BLOCK_LEN
+
+
+def _outputs_q4k(B: int, n: int, device):
+    n_pad = _n_pad_q4k(n)
     vp = torch.empty((B, n_pad // 2), dtype=torch.uint8, device=device)
     sa, ba, c = (torch.empty((B, n_pad // GROUP_LEN), dtype=torch.float32,
                              device=device) for _ in range(3))
@@ -285,6 +306,37 @@ def rms_norm_q4k(x: torch.Tensor, weight: torch.Tensor, eps: float,
 
 
 rms_norm_q4k.launches = 0
+
+
+def rms_norm_q4k_fq(x: torch.Tensor, weight: torch.Tensor, eps: float,
+                    residual: Optional[torch.Tensor] = None,
+                    want_hn: bool = True):
+    """x (..., E) f32/bf16 [+ residual] -> (h, hn, fq): h and hn as
+    ``rms_norm_q80`` gives them, fq the Q4K fake-quant of hn, (..., n_pad)
+    f32 with 0 at and past E (``fake_quant_act``'s bits); kernel
+    ``rms_norm_q4k_fq`` on the card (``rms_norm_q4k``'s with
+    ``q4k_fake_quant`` as the epilogue)."""
+    if x.device.type == "cpu":
+        return rms_norm_q4k_fq_plain(x, weight, eps, residual, want_hn)
+    T, P, x2, a2, w, h, hn, vec = _norm_args("rms_norm_q4k_fq", x, weight,
+                                             residual, want_hn)
+    B, E = x2.shape
+    fq = torch.empty((B, _n_pad_q4k(E)), dtype=torch.float32,
+                     device=x.device)
+    int8_mma.init(x.device, "norm_quant_init")
+    fn = _build.lib("norm_quant").rms_norm_q4k_fq
+    rc = fn(x2.data_ptr(), _ptr(a2), w.data_ptr(), _ptr(h), _ptr(hn),
+            fq.data_ptr(), int(x.dtype == torch.bfloat16), B, E, eps, T, P,
+            int(vec), _build.stream(x2))
+    rms_norm_q4k_fq.launches += 1
+    _build.check(rc, "rms_norm_q4k_fq")
+    lead = x.shape
+    return (None if h is None else h.reshape(lead),
+            None if hn is None else hn.reshape(lead),
+            fq.reshape(*lead[:-1], fq.shape[-1]))
+
+
+rms_norm_q4k_fq.launches = 0
 
 
 def swiglu_q4k(h13: torch.Tensor, want_hidden: bool = True):

@@ -1087,6 +1087,116 @@ def test_flash_bwd_routes_match_plain_and_each_other(B, Sq, Skv, offset, H,
                 2e-2 * r.grad.float().abs().max().item() + 1e-5
 
 
+# the forward's routes at the widths the wgmma kernel takes: the route
+# cases above, a query tile one row short of and past 64, one query, and
+# four query heads a KV head
+FWD_ROUTE_CASES = ROUTE_CASES + [
+    (2, 63, 300, 100, 8, 8, 64), (2, 65, 400, 200, 16, 4, 16),
+    (2, 1, 300, 299, 8, 2, 32), (2, 129, 129, 0, 8, 2, 48)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Skv,offset,H,KV,D", FWD_ROUTE_CASES)
+def test_flash_fwd_routes_match_plain_and_each_other(B, Sq, Skv, offset, H,
+                                                      KV, D):
+    """K4's bf16 forward through each route's kernel alone on a strided
+    view of q: the wgmma kernel (one and, where the heads of a KV head are
+    even, two query heads a block) and the mma.sync kernel, out within 2e-2
+    of max|out| and lse within 1e-3 of the plain version, two runs
+    bit-equal, the wgmma kernel within the same tolerance of the mma.sync
+    kernel; the wgmma counter counts the route's calls."""
+    _need_card()
+    rng = np.random.RandomState(Sq + offset + D + 11)
+    mk = lambda *shape: torch.from_numpy(
+        rng.randn(*shape).astype(np.float32)).to("cuda", torch.bfloat16)
+    qf, k, v = mk(B, Skv, H, D), mk(B, Skv, KV, D), mk(B, Skv, KV, D)
+    q = qf[:, offset:offset + Sq]
+    want, want_lse = tfa.flash_attn_fwd_plain(q, k, v, offset)
+    lim = 2e-2 * want.float().abs().max().item()
+    routes = [tfa.FwdRoute("wgmma", h) for h in (1, 2) if (H // KV) % h == 0]
+    got = {}
+    for route in routes + [tfa.FwdRoute("mma")]:
+        n0 = tfa.flash_attention.forward_wgmma_launches
+        a, la = tfa.flash_attn_fwd(q, k, v, offset, route=route)
+        b, lb = tfa.flash_attn_fwd(q, k, v, offset, route=route)
+        torch.cuda.synchronize()
+        assert tfa.flash_attention.forward_wgmma_launches - n0 == \
+            (2 if route.kernel == "wgmma" else 0)
+        assert (a.float() - want.float()).abs().max().item() <= lim, route
+        assert (la - want_lse).abs().max().item() <= 1e-3, route
+        assert torch.equal(a, b) and torch.equal(la, lb), route
+        got[route] = a
+    old = got.pop(tfa.FwdRoute("mma"))
+    for a in got.values():
+        assert (a.float() - old.float()).abs().max().item() <= lim
+
+
+@pytest.mark.cuda
+def test_wgmma_forward_fits_an_sm_and_is_captured_in_a_graph():
+    """The wgmma forward takes at most the 227 KB of shared memory a block
+    may have on the H100 and a block fits an SM (D = 128 is not built);
+    captured in a CUDA graph and replayed it gives the eager call's
+    bits."""
+    _need_card()
+    from nano_tpu_torch.ops import _build
+    lib = _build.lib("flash_fwd_wgmma")
+    for D in tfa.WGMMA_HEAD_DIMS:
+        for hpb in (1, 2):
+            assert 0 < lib.flash_fwd_wgmma_smem(D, hpb) <= 232448
+    assert lib.flash_fwd_wgmma_smem(128, 1) == -1
+    rng = np.random.RandomState(12)
+    mk = lambda *shape: torch.from_numpy(
+        rng.randn(*shape).astype(np.float32)).to("cuda", torch.bfloat16)
+    B, Sq, Skv, offset, H, KV, D = 2, 256, 512, 256, 16, 8, 48
+    q, k, v = mk(B, Sq, H, D), mk(B, Skv, KV, D), mk(B, Skv, KV, D)
+    route = tfa.fwd_route(B, Sq, Skv, offset, H, KV, D, torch.bfloat16)
+    assert route.kernel == "wgmma"
+    want = tfa.flash_attn_fwd(q, k, v, offset)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tfa.flash_attn_fwd(q, k, v, offset)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = tfa.flash_attn_fwd(q, k, v, offset)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [1024, 320, 40])
+def test_fused_final_norm_is_the_two_launches_it_replaces(E):
+    """rms_norm_q4k_fq: fq torch.equal to q4k_fake_quant of rms_norm_q80's
+    hn and to its plain version, zeros past E; h, hn torch.equal to
+    rms_norm_q80's; bf16 and f32, with and without a residual, one row and
+    more; one launch."""
+    _need_card()
+    rng = np.random.RandomState(E)
+    w = torch.from_numpy(1 + 0.1 * rng.randn(E).astype(np.float32)).cuda()
+    for B in (1, 3, 64):
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.from_numpy(rng.randn(B, E).astype(np.float32) * 2).to(
+                "cuda", dt)
+            r = torch.from_numpy(rng.randn(B, E).astype(np.float32)).to(
+                "cuda", dt)
+            for res in (None, r):
+                n0 = (tnq.rms_norm_q4k_fq.launches, tq4.fake_quant_act.launches)
+                h, hn, fq = tnq.rms_norm_q4k_fq(x, w, 1e-6, res)
+                assert (tnq.rms_norm_q4k_fq.launches,
+                        tq4.fake_quant_act.launches) == (n0[0] + 1, n0[1])
+                h8, hn8, _ = tnq.rms_norm_q80(x, w, 1e-6, res)
+                two = tq4.fake_quant_act(hn8)
+                torch.cuda.synchronize()
+                assert torch.equal(fq, two)
+                assert torch.equal(fq, tq4.fake_quant_act_plain(hn8))
+                assert not fq[:, E:].any() and torch.equal(hn, hn8)
+                assert h is None if res is None else torch.equal(h, h8)
+
+
 @pytest.mark.cuda
 def test_wgmma_passes_fit_an_sm():
     """Each wgmma pass as built takes at most the 227 KB of shared memory a

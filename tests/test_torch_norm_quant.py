@@ -242,10 +242,12 @@ def tiny_q4k():
 
 def _spy(monkeypatch):
     """Count q80_act_quant's calls and record the group size each norm and
-    SwiGLU call asks for ("q4k" for a call that asks for Q4K outputs)."""
+    SwiGLU call asks for ("q4k" for a call that asks for Q4K outputs,
+    "q4k_fq" for one that asks for the Q4K fake-quant)."""
     seen = {"act_quant": 0, "norm": [], "swiglu": []}
     aq, rms, sw = tqm.act_quant_q80, tgpt.rms_norm_q80, tgpt.swiglu_q80
     rms4, sw4 = tgpt.rms_norm_q4k, tgpt.swiglu_q4k
+    rms4fq = tgpt.rms_norm_q4k_fq
 
     def act_quant(x, gs):
         seen["act_quant"] += 1
@@ -267,11 +269,16 @@ def _spy(monkeypatch):
         seen["swiglu"].append("q4k")
         return sw4(h13, want_hidden)
 
+    def norm4fq(x, w, eps, residual=None, want_hn=True):
+        seen["norm"].append("q4k_fq")
+        return rms4fq(x, w, eps, residual, want_hn)
+
     monkeypatch.setattr(tqm, "act_quant_q80", act_quant)
     monkeypatch.setattr(tgpt, "rms_norm_q80", norm)
     monkeypatch.setattr(tgpt, "swiglu_q80", swiglu)
     monkeypatch.setattr(tgpt, "rms_norm_q4k", norm4)
     monkeypatch.setattr(tgpt, "swiglu_q4k", swiglu4)
+    monkeypatch.setattr(tgpt, "rms_norm_q4k_fq", norm4fq)
     return seen
 
 
@@ -377,9 +384,9 @@ def test_q4k_model_never_asks_for_q80_outputs(tiny_q4k, monkeypatch, B):
     """The Q4K model's norms and SwiGLUs write the Q4K integer form of
     their output for its products at every row count (rms_norm_q4k,
     swiglu_q4k), so q4k_act_quant runs only on wo's input, n_layer times;
-    the final norm asks for nothing (its requantized Q80 head takes the
-    Q4K fake-quant first) and no norm or SwiGLU ever asks for Q80 outputs;
-    the logits are bit-equal to the eager path's."""
+    the final norm writes the Q4K fake-quant its requantized Q80 head takes
+    (rms_norm_q4k_fq) and no norm or SwiGLU ever asks for Q80 outputs; the
+    logits are bit-equal to the eager path's."""
     cfg, params = tiny_q4k
     aq4 = tq4.act_quant_q4k_packed
     calls = []
@@ -392,7 +399,7 @@ def test_q4k_model_never_asks_for_q80_outputs(tiny_q4k, monkeypatch, B):
         seen = _spy(m)
         m.setattr(tq4, "act_quant_q4k_packed", act_quant_q4k)
         got = _decode_step(cfg, params, B, torch.float32)
-    assert seen["norm"] == ["q4k"] * (2 * cfg.n_layer) + [0]
+    assert seen["norm"] == ["q4k"] * (2 * cfg.n_layer) + ["q4k_fq"]
     assert seen["swiglu"] == ["q4k"] * cfg.n_layer
     assert calls == [B] * cfg.n_layer
     with monkeypatch.context() as m:
