@@ -35,7 +35,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
                   in the kernel's order and within one bf16 ulp of eager
                   rms_norm, int8 rows and scales torch.equal to
                   q80_act_quant of the kernel's own output, a row the same
-                  bits alone and in a batch), and
+                  bits alone and in a batch; the Q4K model's final norm
+                  with the head's fake-quant as its epilogue,
+                  rms_norm_q4k_fq, torch.equal to rms_norm_q80 +
+                  q4k_fake_quant), and
                   timed over one decode step's launches (K1 also by
                   product, the fused kernel beside the pair; the pairs of
                   K1 and K3 at B > 1 over a 64-token prefill's 112 layer
@@ -248,9 +251,12 @@ shape itself (batch 64 x 512, bf16, each of the 24 layers' tensors); the
 forward alone (out and the row log-sum-exp the backward reads, two runs
 bit-equal) at S = 1, below one tile and at 64 k +- 1; K4's offset form
 (OFFSET_CASES: queries at an offset against longer K/V, offsets 0, S / 2
-and inside a tile, D = 48 and 128, bf16 and f32, out, lse and the three
+and inside a tile, D = 16 to 128, bf16 and f32, out, lse and the three
 gradients, two backward runs bit-equal, the rows of the call on the whole
-sequence), timed at a rank's shapes of 10d; decode attention at
+sequence; in bf16 at D <= 64 each route's forward and backward kernels
+alone against the plain version and against each other, two runs
+bit-equal), timed at a rank's shapes of 10d, each direction by route;
+decode attention at
 every D and heads-per-KV-head instance it is built for with f32 and bf16
 q, three cache types,
 positions that end inside a split or leave splits empty, batch 64, and
@@ -264,13 +270,13 @@ result cast to bf16).
 step] [clocks]] [q80 [batched [sweep] [clocks]]] [pipes] [spec] [toy] [export] [rows [sweep] [clocks]]
 [lora] [lifecycle] [parallel] [nccl] [gloo]` runs none of the phases: it times the two
 attention kernels alone beside SDPA (the flash forward and backward, a
-ladder over the decode kernel's rows per block; `routes` the backward's
-two routes alone at BWD_ROUTE_SHAPES, as `flash` ends), a Q4K decode step's
+ladder over the decode kernel's rows per block; `routes` each direction's
+routes alone at ROUTE_SHAPES, as `flash` ends), a Q4K decode step's
 matmuls with the fake-quant folded in or not, a Q80 decode step's W8A8
 products by product, q80_matvec_fq against q80_act_quant +
 q80_matmul_w8a8, what an SM sustains of mma.sync and ex2, and with
-`clocks` where the backward's warps spend their cycles, for work on those
-kernels.  `bench q80 batched` times K1 at B > 1 instead: a batched step's
+`clocks` where the attention kernels' warps spend their cycles, for work
+on those kernels.  `bench q80 batched` times K1 at B > 1 instead: a batched step's
 113 products at 8 and 64 slots and a 64-token prefill's 112, by product,
 beside the bf16 torch.matmul and the bound (`sweep`: every work split of
 the kernel; `clocks`: where a block's time goes).  `bench q4k batched`
@@ -983,8 +989,7 @@ def bench_routes(torch, clocks=False):
     CUDA graph, at ROUTE_SHAPES.  The forward: the wgmma kernel (the route's
     heads a block, or two where the route keeps the mma.sync kernel and
     the heads of a KV head are even) in turns with the mma.sync kernel
-    (old, new, new, old), then each of its variants once (heads a block,
-    the softmax under the product or not, a producer warp or not).  The
+    (old, new, new, old), then with one and two heads a block.  The
     backward: the wgmma passes with one query head a dq block, in turns
     with the mma.sync passes, then with two where the heads of a KV head
     are even, and the wgmma passes split: dq, dk/dv alone, the two.  The
@@ -994,11 +999,10 @@ def bench_routes(torch, clocks=False):
     timer = Timer(torch)
     wl = _build.lib("flash_bwd_wgmma")
     fl = _build.lib("flash_fwd_wgmma")
-    log("[bench flash] blocks per SM of the wgmma forward by D (hpb, "
-        "overlap, producer): " + "; ".join(
-            f"D={d} " + ", ".join(
-                f"{h}{o}{p_} {fl.flash_fwd_wgmma_blocks_per_sm(d, h, o, p_)}"
-                for h in (1, 2) for o in (0, 1) for p_ in (0, 1))
+    log("[bench flash] blocks per SM of the wgmma forward by D (1 / 2 "
+        "query heads a block): " + ", ".join(
+            f"D={d} {fl.flash_fwd_wgmma_blocks_per_sm(d, 1)} / "
+            f"{fl.flash_fwd_wgmma_blocks_per_sm(d, 2)}"
             for d in flash_attn.WGMMA_HEAD_DIMS))
     log("[bench flash] blocks per SM of the wgmma passes by D: dq (1 / 2 "
         "query heads a block), dk/dv: " + ", ".join(
@@ -1025,19 +1029,15 @@ def bench_routes(torch, clocks=False):
                                       torch.bfloat16)
         fold = flash_attn.FwdRoute("mma")
         fnew = (froute if froute.kernel == "wgmma" else flash_attn.FwdRoute(
-            "wgmma", 2 if (H // KV) % 2 == 0 else 1, True))
+            "wgmma", 2 if (H // KV) % 2 == 0 else 1))
         tf = [run_f(r_) for r_ in (fold, fnew, fnew, fold)]
-        variants = [flash_attn.FwdRoute("wgmma", h, o_, p_)
-                    for h in (1, 2) if (H // KV) % h == 0
-                    for o_ in (False, True) for p_ in (False, True)]
-        tv = {r_: run_f(r_) for r_ in variants}
+        tv = {h: run_f(flash_attn.FwdRoute("wgmma", h)) for h in (1, 2)
+              if (H // KV) % h == 0}
         log(f"[bench flash] 4 x flash_attn_fwd {shape}: {tuple(fnew)} "
             f"{tf[1]:.4f} / {tf[2]:.4f} ms, the mma.sync kernel {tf[0]:.4f} / "
             f"{tf[3]:.4f} ms (wgmma / mma.sync "
-            f"{min(tf[1], tf[2]) / min(tf[0], tf[3]):.3f}); the variants "
-            f"(hpb, overlap, producer): " + ", ".join(
-                f"({r_.hpb}, {int(r_.overlap)}, {int(r_.producer)}) {t_:.4f}"
-                for r_, t_ in tv.items())
+            f"{min(tf[1], tf[2]) / min(tf[0], tf[3]):.3f}); by heads a block "
+            + ", ".join(f"{h} {t_:.4f}" for h, t_ in tv.items())
             + f"; the route {tuple(froute)}; {card_line()}")
         # the backward
         run = lambda rt: timer(lambda: [flash_attn.flash_attn_bwd(
@@ -1098,8 +1098,7 @@ def bench_wgmma_clocks(torch, layer, off, hpb, fwd_route):
     out = torch.empty_like(q)
     lse = torch.empty(B, H, Sq, device=q.device)
     args = [*(x.data_ptr() for x in (q, k, v, out, lse)), B, Sq, k.shape[1],
-            off, H, k.shape[2], D, fwd_route.hpb, int(fwd_route.overlap),
-            int(fwd_route.producer),
+            off, H, k.shape[2], D, fwd_route.hpb,
             flash_attn.fwd_spread(q.device.index, B, Sq, H, D, fwd_route),
             *(x.stride(i) for x in (q, k, v) for i in range(3)), D ** -0.5]
     for _ in range(2):      # the first run warms up; its counts are dropped
@@ -7780,7 +7779,7 @@ def main() -> int:
             and isinstance(head4, qmatmul.Q80Tensor)
             and head4.group_size == 64 and not head4.w8a8)
     tiny_stream(tiny4, "tiny_q4k.bin", expected["greedy"]["q4k"],
-                ("q4k_act_quant", "q4k_matmul_w4a4", "q4k_fake_quant",
+                ("q4k_act_quant", "q4k_matmul_w4a4", "rms_norm_q4k_fq",
                  "q4k_matvec_fq", "rms_norm_q4k", "swiglu_q4k",
                  "q80_matvec_rows", "decode_attention"))
     del tiny, tiny4
@@ -9188,11 +9187,13 @@ def main() -> int:
         f"counted from 0): {lora_path}")
     for name in ("q80_act_quant", "q80_matmul_w8a8", "q80_matvec_fq",
                  "decode_attention", "rms_norm_q80", "swiglu_q80",
-                 "q4k_act_quant", "q4k_matmul_w4a4", "q4k_fake_quant",
+                 "q4k_act_quant", "q4k_matmul_w4a4", "rms_norm_q4k_fq",
                  "q4k_matvec_fq", "q80_matvec_rows", "q80_matmul_rows",
                  "flash_attn_fwd", "flash_attn_bwd"):
         if lora_path[name] == 0:
             raise AssertionError(f"the LoRA paths launched no {name}")
+    if lora_path["q4k_fake_quant"]:
+        raise AssertionError("the LoRA paths launched q4k_fake_quant")
     log(f"[lora] phase 8 in {time.time() - t0:.1f} s")
 
     # ---------------- 9. training lifecycle ----------------

@@ -16,29 +16,30 @@
 //
 // Bound on the H100 at phase 10d's rank (B = 8, Sq = 256 at offset 256,
 // Skv = 512, H = 16, KV = 8, D = 48): 12.7 MB a call, 3.8 us; the two
-// products 1.9 us at 989 TFLOP/s.  The mma.sync kernel took ~18.6 us a call
+// products 1.9 us at 989 TFLOP/s.  The mma.sync kernel took ~19 us a call
 // there: every thread copies its share of each K/V tile by cp.async (the
 // addresses its own instructions), one __syncthreads a tile, and the
 // softmax and both products of a warp in series (flash_attn.cu's note).
 // Here:
 //   * a block takes one 64-row query tile of HPB query heads of one KV
-//     head: HPB consumer warpgroups, one a head, and one producer warp, so
-//     each K/V tile is fetched once for every head of the block;
-//   * the producer warp's lane 0 issues every copy by TMA (one instruction
-//     a column block): Q once a head, then the K and V tiles into a ring of
-//     NSTAGE stages, K and V each on a barrier of its own (S waits for K
-//     alone), refilling a stage once every consumer warp has arrived on its
-//     empty barrier; consumer threads spend no instruction on a copy; a wait
-//     that lasts ~17 s traps (wgmma_tma.cuh), so a fault raises and never
-//     hangs the card;
-//   * a consumer warpgroup runs S = Q K^T as wgmma m64n64k16 with both
-//     operands from shared memory (K-major), the online softmax on the
-//     accumulators (exp2, running maximum and sum in f32), and O += P V as
-//     wgmma m64nDk16 with P from the accumulators straight into the A
-//     fragments in registers (rounded to bf16 as the plain version rounds
-//     its probabilities) against the V tile read MN-major; the P V product
-//     runs on while the next tile's S is issued; with OVERLAP the next
-//     tile's S is issued before this tile's softmax, and runs under it;
+//     head, a consumer warpgroup a head, so each K/V tile is fetched once
+//     for every head of the block;
+//   * thread 0 issues every copy by TMA (one instruction a column block):
+//     Q once a head, then the K and V tiles into a ring of NSTAGE stages,
+//     K and V each on a barrier of its own (S waits for K alone),
+//     refilling a stage once every warp has arrived on its empty barrier;
+//     a wait that lasts ~17 s traps (wgmma_tma.cuh), so a fault raises and
+//     never hangs the card;
+//   * a warpgroup runs S = Q K^T as wgmma m64n64k16 with both operands
+//     from shared memory (K-major), the online softmax on the accumulators
+//     (exp2, running maximum and sum in f32), and O += P V as wgmma
+//     m64nDk16 with P from the accumulators straight into the A fragments
+//     in registers (rounded to bf16 as the plain version rounds its
+//     probabilities) against the V tile read MN-major;
+//   * the products and the softmax overlap in FA3's order: tile n's S is
+//     issued, O is rescaled for tile n - 1 and its P V product issued, and
+//     tile n's softmax runs while that product does; no product is in
+//     flight across an iteration (ptxas serializes one that is: C7515);
 //   * tiles wholly visible to the block's first row run unmasked; the one
 //     or two that the shifted diagonal crosses are masked element by
 //     element (a masked score costs no exp2); the products themselves are
@@ -51,6 +52,20 @@
 //   * the grid is 1-D in block_order's order: where it fits two waves, the
 //     query tiles with the longest loops start first.  No atomics: two runs
 //     give the same bits.
+// Measured (chip_smoke.py bench routes, NVIDIA H100 80GB HBM3, 700.00 W):
+// 0.81 of the mma.sync kernel's time at 10d's rank, 0.86 at the training
+// shape (D = 48), 0.81 / 0.89 at D = 64, 0.93 / 0.94 at D = 32, 0.95 at
+// D = 16 on 10d's rank and 1.00 at the calculator's whole sequence of 64
+// (which keeps mma.sync: ops/flash_attn.py:fwd_route).  Two heads a block
+// beat one wherever the heads of a KV head are even, but for the whole
+// sequence at D = 32.  Slower, and gone: the softmax and the products in
+// series (up to 1.07x this design's time), and a producer warp issuing
+// the copies (up to 1.28x: nine warps a block hold two blocks an SM to 96
+// registers a thread, and spill).  Clock stamps put a warp's time at 10d's
+// rank ~48 % in the softmax and ~30 % waiting for its tiles, at the
+// training shape ~29 % in the prologue (a block's Q and first tiles
+// arriving) and ~31 % waiting: latency, two blocks of two warpgroups an SM
+// (registers) being too few to hide it.
 // Shared layout per D as in flash_bwd_wgmma.cu (wgmma_tma.cuh: TileLayout).
 
 #include <cuda_bf16.h>
@@ -79,13 +94,11 @@ __device__ __forceinline__ unsigned long long* fwd_clocks() {
 #endif
 }
 
-template <int D, int HPB, bool PRODUCER>
+template <int D, int HPB>
 struct FwdCfg {
   using L = wg::TileLayout<D>;
   static constexpr int TILE = L::TILE_BYTES, NSTAGE = 3;
-  // the consumer warpgroups, and the producer warp where there is one
-  static constexpr int THREADS = 128 * HPB + (PRODUCER ? 32 : 0);
-  static constexpr int MIN_BLOCKS = HPB == 2 ? 2 : PRODUCER ? 3 : 4;
+  static constexpr int THREADS = 128 * HPB, MIN_BLOCKS = HPB == 2 ? 2 : 4;
   // Q of each head; NSTAGE x (K, V); the barriers (K full, V full and
   // empty a stage, Q a head)
   static constexpr int RING = HPB * TILE;
@@ -166,15 +179,14 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)
   wg::commit();
 }
 
-template <int D, int HPB, bool OVERLAP, bool PRODUCER>
-__global__ void __launch_bounds__(FwdCfg<D, HPB, PRODUCER>::THREADS,
-                                  FwdCfg<D, HPB, PRODUCER>::MIN_BLOCKS)
+template <int D, int HPB>
+__global__ void __launch_bounds__(FwdCfg<D, HPB>::THREADS, FwdCfg<D, HPB>::MIN_BLOCKS)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
                            const __grid_constant__ CUtensorMap tout, float* __restrict__ lse,
                            int Sq, int off, int H, int rep, int spread, float scale) {
-  using C = FwdCfg<D, HPB, PRODUCER>;
+  using C = FwdCfg<D, HPB>;
   constexpr int TILE = C::TILE, NSTAGE = C::NSTAGE, NA = D / 2;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = wg::aligned_smem(smem_raw);
@@ -200,7 +212,7 @@ __global__ void __launch_bounds__(FwdCfg<D, HPB, PRODUCER>::THREADS,
     for (int i = 0; i < NSTAGE; ++i) {
       wg::mbar_init(&kfull[i], 1);
       wg::mbar_init(&vfull[i], 1);
-      wg::mbar_init(&empty[i], 4 * HPB);   // the consumer warps
+      wg::mbar_init(&empty[i], 4 * HPB);   // every warp
     }
 #pragma unroll
     for (int r = 0; r < HPB; ++r) wg::mbar_init(&qbar[r], 1);
@@ -216,35 +228,18 @@ __global__ void __launch_bounds__(FwdCfg<D, HPB, PRODUCER>::THREADS,
     wg::mbar_arrive_expect_tx(&vfull[s], TILE);
     wg::load_tile<D>(sk + TILE, &tv, &vfull[s], nt * kTile, kvh, b);
   };
-  // Q of each head, then the first NSTAGE key tiles (the rest: the producer
-  // warp, or thread 0 as stages are freed)
-  auto load_first = [&] {
+  // Q of each head, then the first NSTAGE key tiles (the rest as stages
+  // are freed: refill)
+  if (threadIdx.x == 0) {
 #pragma unroll
     for (int r = 0; r < HPB; ++r) {
       wg::mbar_arrive_expect_tx(&qbar[r], TILE);
       wg::load_tile<D>(smem + r * TILE, &tq, &qbar[r], m0, h0 + r, b);
     }
     for (int nt = 0; nt < NSTAGE && nt < n_tiles; ++nt) load_kv(nt);
-  };
-
-  if constexpr (PRODUCER) {
-    if (warp == 4 * HPB) {
-      // the producer warp: the stage of tile nt once every consumer warp is
-      // done with tile nt - NSTAGE
-      if (lane == 0) {
-        load_first();
-        for (int nt = NSTAGE; nt < n_tiles; ++nt) {
-          wg::mbar_wait(&empty[nt % NSTAGE], (nt / NSTAGE - 1) & 1);
-          load_kv(nt);
-        }
-      }
-      return;
-    }
-  } else {
-    if (threadIdx.x == 0) load_first();
   }
 
-  // consumer warpgroup wgi: head h; its warp w owns the rows 16 w .. 16 w + 15
+  // warpgroup wgi: head h; its warp w owns the rows 16 w .. 16 w + 15
   wg::Clk clk;
   clk.start();
   const int wgi = warp >> 2, w = warp & 3, g = lane >> 2, t = lane & 3;
@@ -262,10 +257,10 @@ __global__ void __launch_bounds__(FwdCfg<D, HPB, PRODUCER>::THREADS,
     __syncwarp();
     if (lane == 0) wg::mbar_arrive(&empty[nt % NSTAGE]);
   };
-  // without a producer warp, thread 0 refills the stage of tile r (every
-  // warp has released it) with tile r + NSTAGE
+  // thread 0 refills the stage of tile r (every warp has released it)
+  // with tile r + NSTAGE
   auto refill = [&](int r) {
-    if (!PRODUCER && threadIdx.x == 0 && r >= 0 && r + NSTAGE < n_tiles) {
+    if (threadIdx.x == 0 && r >= 0 && r + NSTAGE < n_tiles) {
       wg::mbar_wait(&empty[r % NSTAGE], (r / NSTAGE) & 1);
       load_kv(r + NSTAGE);
     }
@@ -277,81 +272,54 @@ __global__ void __launch_bounds__(FwdCfg<D, HPB, PRODUCER>::THREADS,
   wg::mbar_wait(&qbar[wgi], 0);
   clk.mark(wg::kClkPrologue);
 
-  if constexpr (!OVERLAP) {
-    // tile by tile: S, the softmax, O += P V, each waited for
-    for (int nt = 0; nt < n_tiles; ++nt) {
-      refill(nt - 1);
-      wait_k(nt);
-      clk.mark(wg::kClkWait);
-      float sc[32];
-      issue_scores<D>(sc, sQ, sK(nt));
-      wg::wait<0>();
-      wg::hold(sc);
-      clk.mark(wg::kClkScores);
-      softmax_step(sc, mi, li, corr, sl, nt >= n_full, nt * kTile, pos_lo, t);
-      rescale(o, corr);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wg::pack_a(pa[kk], sc, kk);
-      clk.mark(wg::kClkSoftmax);
-      wait_v(nt);
-      clk.mark(wg::kClkWait);
-      issue_pv<D>(o, pa, sK(nt) + TILE);
-      wg::wait<0>();
-      wg::hold(o);
-      wg::hold(pa);
-      clk.mark(wg::kClkGrads);
-      release(nt);
-    }
-  } else {
-    // Tile nt's S is issued before the P V product of tile nt - 1, and
-    // tile nt's softmax runs while that product does; O is rescaled for
-    // tile nt - 1 just before its product (the factor that tile's softmax
-    // left).  No product is in flight across an iteration.
-    {
-      wait_k(0);
-      clk.mark(wg::kClkWait);
-      float sc[32];
-      issue_scores<D>(sc, sQ, sK(0));
-      wg::wait<0>();
-      wg::hold(sc);
-      clk.mark(wg::kClkScores);
-      softmax_step(sc, mi, li, corr, sl, 0 >= n_full, 0, pos_lo, t);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wg::pack_a(pa[kk], sc, kk);
-      clk.mark(wg::kClkSoftmax);
-    }
-    for (int nt = 1; nt < n_tiles; ++nt) {
-      refill(nt - 2);
-      wait_k(nt);
-      clk.mark(wg::kClkWait);
-      float sc[32];
-      issue_scores<D>(sc, sQ, sK(nt));
-      rescale(o, corr);
-      wait_v(nt - 1);
-      clk.mark(wg::kClkWait);
-      issue_pv<D>(o, pa, sK(nt - 1) + TILE);
-      wg::wait<1>();
-      wg::hold(sc);
-      clk.mark(wg::kClkScores);
-      softmax_step(sc, mi, li, corr, sl, nt >= n_full, nt * kTile, pos_lo, t);
-      clk.mark(wg::kClkSoftmax);
-      wg::wait<0>();
-      wg::hold(o);
-      wg::hold(pa);
-      clk.mark(wg::kClkGrads);
-      release(nt - 1);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wg::pack_a(pa[kk], sc, kk);
-    }
-    rescale(o, corr);
-    wait_v(n_tiles - 1);
+  // Tile nt's S is issued before the P V product of tile nt - 1, and tile
+  // nt's softmax runs while that product does; O is rescaled for tile
+  // nt - 1 just before its product (the factor that tile's softmax left).
+  // No product is in flight across an iteration.
+  {
+    wait_k(0);
     clk.mark(wg::kClkWait);
-    issue_pv<D>(o, pa, sK(n_tiles - 1) + TILE);
+    float sc[32];
+    issue_scores<D>(sc, sQ, sK(0));
+    wg::wait<0>();
+    wg::hold(sc);
+    clk.mark(wg::kClkScores);
+    softmax_step(sc, mi, li, corr, sl, 0 >= n_full, 0, pos_lo, t);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wg::pack_a(pa[kk], sc, kk);
+    clk.mark(wg::kClkSoftmax);
+  }
+  for (int nt = 1; nt < n_tiles; ++nt) {
+    refill(nt - 2);
+    wait_k(nt);
+    clk.mark(wg::kClkWait);
+    float sc[32];
+    issue_scores<D>(sc, sQ, sK(nt));
+    rescale(o, corr);
+    wait_v(nt - 1);
+    clk.mark(wg::kClkWait);
+    issue_pv<D>(o, pa, sK(nt - 1) + TILE);
+    wg::wait<1>();
+    wg::hold(sc);
+    clk.mark(wg::kClkScores);
+    softmax_step(sc, mi, li, corr, sl, nt >= n_full, nt * kTile, pos_lo, t);
+    clk.mark(wg::kClkSoftmax);
     wg::wait<0>();
     wg::hold(o);
     wg::hold(pa);
     clk.mark(wg::kClkGrads);
+    release(nt - 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wg::pack_a(pa[kk], sc, kk);
   }
+  rescale(o, corr);
+  wait_v(n_tiles - 1);
+  clk.mark(wg::kClkWait);
+  issue_pv<D>(o, pa, sK(n_tiles - 1) + TILE);
+  wg::wait<0>();
+  wg::hold(o);
+  wg::hold(pa);
+  clk.mark(wg::kClkGrads);
 
   // out = O / l rounded to bf16, staged row-major [64][D] in the warpgroup's
   // Q tile (free: every product that read it has completed in every warp of
@@ -394,11 +362,11 @@ struct Strides {   // elements between batch rows, positions and heads; D is con
   long long b, s, h;
 };
 
-template <int D, int HPB, bool OVERLAP, bool PRODUCER>
+template <int D, int HPB>
 int launch_fwd(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
                int Skv, int off, int H, int KV, Strides qs, Strides ks, Strides vs, float scale,
                int spread, cudaStream_t st) {
-  using C = FwdCfg<D, HPB, PRODUCER>;
+  using C = FwdCfg<D, HPB>;
   const int m_tiles = (Sq + kTile - 1) / kTile, pairs = H / HPB * B;
   if (spread < 1 || pairs % spread) return (int)cudaErrorInvalidValue;
   // q, k, v read through their strides; out contiguous (B, Sq, H, D)
@@ -409,34 +377,29 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out, float* ls
   if (rc == 0)
     rc = wg::encode_rows<D>(&m[3], out, B, Sq, H, (long long)Sq * H * D, (long long)H * D, D, true);
   if (rc != 0) return rc;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D, HPB, OVERLAP, PRODUCER>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D, HPB>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
-  flash_fwd_wgmma_kernel<D, HPB, OVERLAP, PRODUCER><<<m_tiles * pairs, C::THREADS, C::SMEM, st>>>(
+  flash_fwd_wgmma_kernel<D, HPB><<<m_tiles * pairs, C::THREADS, C::SMEM, st>>>(
       m[0], m[1], m[2], m[3], lse, Sq, off, H, H / KV, spread, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The head widths, heads a block and variants built; others return
-// cudaErrorInvalidValue.
-#define NANO_FWD_D(CALL, DD)                                      \
-  case DD * 8 + 0: return CALL(DD, 1, false, false);              \
-  case DD * 8 + 1: return CALL(DD, 1, false, true);               \
-  case DD * 8 + 2: return CALL(DD, 1, true, false);               \
-  case DD * 8 + 3: return CALL(DD, 1, true, true);                \
-  case DD * 8 + 4: return CALL(DD, 2, false, false);              \
-  case DD * 8 + 5: return CALL(DD, 2, false, true);               \
-  case DD * 8 + 6: return CALL(DD, 2, true, false);               \
-  case DD * 8 + 7: return CALL(DD, 2, true, true);
-#define NANO_FWD_DISPATCH(CALL)                                                     \
-  switch (D * 8 + (hpb - 1) * 4 + (overlap ? 2 : 0) + (producer ? 1 : 0)) {        \
-    NANO_FWD_D(CALL, 16)                                                            \
-    NANO_FWD_D(CALL, 32)                                                            \
-    NANO_FWD_D(CALL, 48)                                                            \
-    NANO_FWD_D(CALL, 64)                                                            \
-    default: return (int)cudaErrorInvalidValue;                                     \
+// CALL(D, hpb) for the head widths and heads a block built (hpb 1 or
+// 2); FAIL for others.
+#define NANO_FWD_DISPATCH(CALL, FAIL)                   \
+  switch ((hpb == 1 || hpb == 2) ? D * 4 + hpb : 0) {   \
+    case 16 * 4 + 1: return CALL(16, 1);                \
+    case 16 * 4 + 2: return CALL(16, 2);                \
+    case 32 * 4 + 1: return CALL(32, 1);                \
+    case 32 * 4 + 2: return CALL(32, 2);                \
+    case 48 * 4 + 1: return CALL(48, 1);                \
+    case 48 * 4 + 2: return CALL(48, 2);                \
+    case 64 * 4 + 1: return CALL(64, 1);                \
+    case 64 * 4 + 2: return CALL(64, 2);                \
+    default: return FAIL;                               \
   }
 
 // bf16 only.  q: (B, Sq, H, D), k / v: (B, Skv, KV, D), each with D
@@ -444,57 +407,46 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out, float* ls
 // (multiples of 8, 16-byte aligned base); out contiguous (B, Sq, H, D)
 // bf16, lse f32 (B, H, Sq); query i sees keys 0 .. off + i (0 <= off <=
 // Skv - Sq, which the caller checks).  hpb: query heads a block (1, or 2
-// where it divides H / KV); overlap: a tile's softmax under the P V
-// product of the tile before (1) or after it (0); producer: the copies
-// from a producer warp (1) or from thread 0 as it goes (0); spread:
-// block_order's spread of the grid (a divisor of H / hpb * B).  Launches on the caller's stream and returns
+// where it divides H / KV); spread: block_order's spread of the grid (a
+// divisor of H / hpb * B).  Launches on the caller's stream and returns
 // 0, a CUDA error, or cudaErrorInvalidValue for a D not built, an hpb or
 // spread out of range, or a tensor map cuTensorMapEncodeTiled refuses.
 extern "C" int flash_fwd_wgmma(const void* q, const void* k, const void* v, void* out, void* lse,
                                int B, int Sq, int Skv, int off, int H, int KV, int D, int hpb,
-                               int overlap, int producer, int spread, long long q_sb, long long q_ss,
-                               long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-                               long long v_sb, long long v_ss, long long v_sh, float scale,
-                               void* stream) {
+                               int spread, long long q_sb, long long q_ss, long long q_sh,
+                               long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+                               long long v_ss, long long v_sh, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
-  if ((hpb != 1 && hpb != 2) || KV < 1 || H % KV || (H / KV) % hpb)
-    return (int)cudaErrorInvalidValue;
-#define NANO_FWD(DD, HH, OO, PP)                                                               \
-  launch_fwd<DD, HH, OO, PP>(q, k, v, out, static_cast<float*>(lse), B, Sq, Skv, off, H, KV, qs,  \
-                             ks, vs, scale, spread, st)
-  NANO_FWD_DISPATCH(NANO_FWD)
+  if (KV < 1 || H % KV || (hpb > 0 && (H / KV) % hpb)) return (int)cudaErrorInvalidValue;
+#define NANO_FWD(DD, HH)                                                                      \
+  launch_fwd<DD, HH>(q, k, v, out, static_cast<float*>(lse), B, Sq, Skv, off, H, KV, qs, ks, vs, \
+                     scale, spread, st)
+  NANO_FWD_DISPATCH(NANO_FWD, (int)cudaErrorInvalidValue)
 #undef NANO_FWD
 }
 
 // Dynamic shared memory (bytes, with the 1024 of alignment slack) of the
 // kernel with hpb query heads a block; -1 for what is not built.
 extern "C" int flash_fwd_wgmma_smem(int D, int hpb) {
-  const int overlap = 0, producer = 0;
-  if (hpb != 1 && hpb != 2) return -1;
-#define NANO_SMEM(DD, HH, OO, PP) FwdCfg<DD, HH, PP>::SMEM
-  NANO_FWD_DISPATCH(NANO_SMEM)
+#define NANO_SMEM(DD, HH) FwdCfg<DD, HH>::SMEM
+  NANO_FWD_DISPATCH(NANO_SMEM, -1)
 #undef NANO_SMEM
 }
 
-// Blocks of the kernel (D, hpb, overlap, producer) that fit one SM at
-// once, by the runtime's occupancy calculator; -1 where it fails or is not
-// built.
-extern "C" int flash_fwd_wgmma_blocks_per_sm(int D, int hpb, int overlap, int producer) {
-  if (hpb != 1 && hpb != 2) return -1;
-#define NANO_OCC(DD, HH, OO, PP)                                                                   \
-  [] {                                                                                             \
-    using C = FwdCfg<DD, HH, PP>;                                                                  \
-    int n = -1;                                                                                    \
-    auto kernel = flash_fwd_wgmma_kernel<DD, HH, OO, PP>;                                          \
-    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM) !=      \
-            cudaSuccess ||                                                                         \
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, C::THREADS, C::SMEM) !=          \
-            cudaSuccess)                                                                           \
-      return -1;                                                                                   \
-    return n;                                                                                      \
-  }()
-  NANO_FWD_DISPATCH(NANO_OCC)
+// Blocks of the kernel (D, hpb) that fit one SM at once, by the runtime's
+// occupancy calculator; -1 where it fails or is not built.
+extern "C" int flash_fwd_wgmma_blocks_per_sm(int D, int hpb) {
+  int n = -1;
+#define NANO_OCC(DD, HH)                                                                          \
+  (cudaFuncSetAttribute(flash_fwd_wgmma_kernel<DD, HH>,                                           \
+                        cudaFuncAttributeMaxDynamicSharedMemorySize, FwdCfg<DD, HH>::SMEM) ||     \
+           cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, flash_fwd_wgmma_kernel<DD, HH>,      \
+                                                         FwdCfg<DD, HH>::THREADS,                 \
+                                                         FwdCfg<DD, HH>::SMEM)                    \
+       ? -1                                                                                       \
+       : n)
+  NANO_FWD_DISPATCH(NANO_OCC, -1)
 #undef NANO_OCC
 }
 

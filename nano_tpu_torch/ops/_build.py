@@ -81,10 +81,10 @@ SIGNATURES = {
                         "flash_bwd_wgmma"),
     "flash_bwd_wgmma_smem": ([I, I, I], "flash_bwd_wgmma"),
     "flash_bwd_wgmma_blocks_per_sm": ([I, I, I], "flash_bwd_wgmma"),
-    "flash_fwd_wgmma": ([*[P] * 5, *[I] * 11, *[Q] * 9, F, P],
+    "flash_fwd_wgmma": ([*[P] * 5, *[I] * 9, *[Q] * 9, F, P],
                         "flash_fwd_wgmma"),
     "flash_fwd_wgmma_smem": ([I, I], "flash_fwd_wgmma"),
-    "flash_fwd_wgmma_blocks_per_sm": ([I, I, I, I], "flash_fwd_wgmma"),
+    "flash_fwd_wgmma_blocks_per_sm": ([I, I], "flash_fwd_wgmma"),
 }
 
 # The SM count assumed where the device is not asked (an H100's): the

@@ -128,24 +128,22 @@ class FwdRoute(NamedTuple):
     """Which kernel takes the forward: "wgmma" (``csrc/flash_fwd_wgmma.cu``,
     bf16), "mma" (the mma.sync kernel in ``csrc/flash_attn.cu``, bf16) or
     "simt" (f32, the oracle type: flash_attn.cu's CUDA-core kernel).
-    ``hpb``: query heads a block of the wgmma kernel; ``overlap``: a tile's
-    softmax under the P V product of the tile before; ``producer``: its
-    copies from a producer warp."""
+    ``hpb``: query heads a block of the wgmma kernel."""
     kernel: str
     hpb: int = 1
-    overlap: bool = False
-    producer: bool = False
 
 
 def fwd_route(B: int, Sq: int, Skv: int, offset: int, H: int, KV: int,
               D: int, dtype: torch.dtype) -> FwdRoute:
     """The forward's kernel for these shapes, a function of the shapes
     alone (no device is asked, so it holds under a CUDA graph and on the
-    CPU).  bf16: the wgmma kernel at D = 16 to 64, a tile's softmax under
-    the product before it, with two query heads a block where the heads of
-    a KV head are even (one for the whole sequence at D = 32), but for the
-    whole sequence at D = 16 (the calculator's); the mma.sync kernel there
-    and at D = 128, which the wgmma kernel does not take.  f32: the CUDA
+    CPU), as ``chip_smoke.py bench routes`` measured them against each
+    other.  bf16: the wgmma kernel wherever it was faster than the mma.sync
+    kernel, at D = 16 to 64 with two query heads a block where the heads
+    of a KV head are even (one for the whole sequence at D = 32, where two
+    were slower), but not for the whole sequence at D = 16 (the
+    calculator's 64 x 64, where the two tie); the mma.sync kernel there and
+    at D = 128, which the wgmma kernel does not take.  f32: the CUDA
     cores."""
     if dtype == torch.float32:
         return FwdRoute("simt")
@@ -153,7 +151,7 @@ def fwd_route(B: int, Sq: int, Skv: int, offset: int, H: int, KV: int,
     if D not in WGMMA_HEAD_DIMS or (D == 16 and whole):
         return FwdRoute("mma")
     two = (H // KV) % 2 == 0 and not (D == 32 and whole)
-    return FwdRoute("wgmma", 2 if two else 1, True)
+    return FwdRoute("wgmma", 2 if two else 1)
 
 
 class BwdRoute(NamedTuple):
@@ -199,11 +197,10 @@ def wgmma_spread(n: int, pairs: int, resident: int) -> int:
 
 
 @lru_cache(maxsize=None)
-def _fwd_resident(device: int, D: int, hpb: int, overlap: bool,
-                  producer: bool) -> int:
+def _fwd_resident(device: int, D: int, hpb: int) -> int:
     """Blocks of the wgmma forward that the card runs at once."""
     per_sm = _build.lib("flash_fwd_wgmma").flash_fwd_wgmma_blocks_per_sm(
-        D, hpb, int(overlap), int(producer))
+        D, hpb)
     if per_sm < 1:
         raise RuntimeError(f"flash_fwd_wgmma at D = {D}, hpb {hpb}: no "
                            f"block fits an SM")
@@ -215,8 +212,7 @@ def fwd_spread(device: int, B: int, Sq: int, H: int, D: int,
     """``wgmma_spread`` of the wgmma forward's grid (query tiles x head
     groups x batch rows) on `device`."""
     return wgmma_spread(-(-Sq // 64), H // route.hpb * B,
-                        _fwd_resident(device, D, route.hpb, route.overlap,
-                                      route.producer))
+                        _fwd_resident(device, D, route.hpb))
 
 
 @lru_cache(maxsize=None)
@@ -290,9 +286,7 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or (route.kernel == "wgmma" and (D not in WGMMA_HEAD_DIMS
                                              or route.hpb not in (1, 2)
                                              or (H // KV) % route.hpb))
-            or (route.kernel != "wgmma"
-                and (route.hpb, route.overlap, route.producer)
-                != (1, False, False))):
+            or (route.kernel != "wgmma" and route.hpb != 1)):
         raise ValueError(f"flash_attn_fwd has no route {route} for {q.dtype} "
                          f"at D = {D}, {H // KV} query heads a KV head")
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
@@ -303,7 +297,6 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         fn = _build.lib("flash_fwd_wgmma").flash_fwd_wgmma
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 lse.data_ptr(), B, S, k.shape[1], offset, H, KV, D, route.hpb,
-                int(route.overlap), int(route.producer),
                 fwd_spread(q.device.index, B, S, H, D, route), *tail,
                 _build.stream(q))
         flash_attention.launches += 1

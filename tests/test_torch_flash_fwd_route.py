@@ -98,7 +98,7 @@ def test_spread_of_the_forward_grid():
     (tfa.FwdRoute("wgmma", 2), BF16, 48, 3),
     (tfa.FwdRoute("wgmma", 4), BF16, 48, 4),
     (tfa.FwdRoute("mma", 2), BF16, 48, 2),
-    (tfa.FwdRoute("simt", 1, True), F32, 48, 2),
+    (tfa.FwdRoute("simt", 2), F32, 48, 2),
     (tfa.FwdRoute("tiles"), BF16, 48, 2),
 ])
 def test_a_route_the_kernels_do_not_take_raises(route, dtype, D, rep):
