@@ -5928,10 +5928,9 @@ def main() -> int:
           "nano_tpu_torch/csrc/q4k.cu")
     entry("q4k_matmul_w4a4", "nano_tpu/ops/q4k.py:717",
           "nano_tpu_torch/csrc/q4k.cu")
-    # the forward: in bf16 at D <= 64 (every training path here but the
-    # calculator's) the wgmma kernel of flash_fwd_wgmma.cu
-    # (ops/flash_attn.py:fwd_route); the mma.sync kernel in flash_attn.cu
-    # for the calculator's and at D = 128, f32 on the CUDA cores
+    # the forward: in bf16 at D <= 64 (every training path here) the wgmma
+    # kernel of flash_fwd_wgmma.cu (ops/flash_attn.py:fwd_route); the
+    # mma.sync kernel in flash_attn.cu at D = 128, f32 on the CUDA cores
     entry("flash_attn_fwd", "nano_tpu/models/gpt.py:239",
           "nano_tpu_torch/csrc/flash_fwd_wgmma.cu")
     # the backward: in bf16 at D <= 64 (every training path here) the two
@@ -8017,7 +8016,8 @@ def main() -> int:
         then the head's fake-quant (gpt.fake_quant_act: q4k_fake_quant, or
         what a route rebinds it to)."""
         h, hn, _ = norm_quant.rms_norm_q80(x, weight, eps_, residual)
-        return h, hn, gpt.fake_quant_act(hn.reshape(-1, hn.shape[-1]))
+        fq = gpt.fake_quant_act(hn.reshape(-1, hn.shape[-1]))
+        return h, hn, fq.reshape(*hn.shape[:-1], fq.shape[-1])
 
     @contextlib.contextmanager
     def k3_route(route):
@@ -8117,7 +8117,8 @@ def main() -> int:
 
     def eager_rms_norm_q4k_fq(x, weight, eps_, residual=None, want_hn=True):
         h, hn, _ = eager_rms_norm_q80(x, weight, eps_, residual)
-        return h, hn, q4k.fake_quant_act(hn.reshape(-1, hn.shape[-1]))
+        fq = q4k.fake_quant_act(hn.reshape(-1, hn.shape[-1]))
+        return h, hn, fq.reshape(*hn.shape[:-1], fq.shape[-1])
 
     def eager_rms_norm_q80(x, weight, eps_, residual=None, group_size=0,
                            want_hn=True):

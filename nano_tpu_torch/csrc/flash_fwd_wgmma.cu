@@ -42,7 +42,7 @@
 //     flight across an iteration (ptxas serializes one that is: C7515);
 //   * tiles wholly visible to the block's first row run unmasked; the one
 //     or two that the shifted diagonal crosses are masked element by
-//     element (a masked score costs no exp2); the products themselves are
+//     element, the others never compared; the products themselves are
 //     warpgroup-wide, so on the diagonal tile the part above the diagonal is
 //     multiplied and masked, not skipped; a tile past Skv holds TMA's
 //     out-of-bounds zeros, which the mask hides from every stored row;
@@ -53,19 +53,19 @@
 //     query tiles with the longest loops start first.  No atomics: two runs
 //     give the same bits.
 // Measured (chip_smoke.py bench routes, NVIDIA H100 80GB HBM3, 700.00 W):
-// 0.81 of the mma.sync kernel's time at 10d's rank, 0.86 at the training
-// shape (D = 48), 0.81 / 0.89 at D = 64, 0.93 / 0.94 at D = 32, 0.95 at
-// D = 16 on 10d's rank and 1.00 at the calculator's whole sequence of 64
-// (which keeps mma.sync: ops/flash_attn.py:fwd_route).  Two heads a block
-// beat one wherever the heads of a KV head are even, but for the whole
-// sequence at D = 32.  Slower, and gone: the softmax and the products in
-// series (up to 1.07x this design's time), and a producer warp issuing
-// the copies (up to 1.28x: nine warps a block hold two blocks an SM to 96
-// registers a thread, and spill).  Clock stamps put a warp's time at 10d's
-// rank ~48 % in the softmax and ~30 % waiting for its tiles, at the
-// training shape ~29 % in the prologue (a block's Q and first tiles
-// arriving) and ~31 % waiting: latency, two blocks of two warpgroups an SM
-// (registers) being too few to hide it.
+// 0.76 of the mma.sync kernel's time at 10d's rank, 0.81 at the training
+// shape (D = 48), 0.76 / 0.84 at D = 64, 0.85 / 0.86 at D = 32, 0.88 at
+// D = 16 on 10d's rank and 0.97 at the calculator's whole sequence of 64,
+// so the route (ops/flash_attn.py:fwd_route) takes it for every bf16
+// forward it is built for.  Two heads a block beat one wherever the heads
+// of a KV head are even, but for the whole sequence at D = 32.  Slower,
+// and gone: the softmax and the products in series (up to 1.07x this
+// design's time), and a producer warp issuing the copies (up to 1.28x:
+// nine warps a block hold two blocks an SM to 96 registers a thread, and
+// spill).  The clock stamps of `bench routes clocks` put most of a warp's
+// time in the softmax and in waiting for its tiles (at the training shape
+// also in the prologue, a block's Q and first tiles arriving): latency,
+// two blocks of two warpgroups an SM (registers) being too few to hide it.
 // Shared layout per D as in flash_bwd_wgmma.cu (wgmma_tma.cuh: TileLayout).
 
 #include <cuda_bf16.h>
@@ -109,15 +109,16 @@ struct FwdCfg {
 
 // The online softmax step of a thread's two rows (row_lo + 8 i at position
 // pos_lo + 8 i) over key tile n0 .. n0 + 63, its raw scores s in the
-// accumulator layout.  Where `masked` (a tile the diagonal crosses) a key
-// past the row's position scores -inf.  Afterwards s holds p = 2^((s - m)
-// sl), 0 where masked; mi the running maximum of the raw scores (finite
-// from tile 0 on, whose key 0 every row sees), li this thread's share of
-// the running sum, and corr the factor by which the O summed so far must
-// be rescaled.
+// accumulator layout.  MASKED (a tile the diagonal crosses): a key past
+// the row's position scores -inf.  Afterwards s holds p = 2^((s - m) sl),
+// 0 where masked (ex2 of -inf); mi the running maximum of the raw scores
+// (finite from tile 0 on, whose key 0 every row sees), li this thread's
+// share of the running sum, and corr the factor by which the O summed so
+// far must be rescaled.
+template <bool MASKED>
 __device__ __forceinline__ void softmax_step(float (&s)[32], float (&mi)[2], float (&li)[2],
-                                             float (&corr)[2], float sl, bool masked, int n0,
-                                             int pos_lo, int t) {
+                                             float (&corr)[2], float sl, int n0, int pos_lo,
+                                             int t) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float mx[4] = {mi[i], -INFINITY, -INFINITY, -INFINITY};
@@ -126,7 +127,7 @@ __device__ __forceinline__ void softmax_step(float (&s)[32], float (&mi)[2], flo
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         float& x = s[4 * j + 2 * i + c];
-        if (masked && n0 + 8 * j + 2 * t + c > pos_lo + 8 * i) x = -INFINITY;
+        if (MASKED && n0 + 8 * j + 2 * t + c > pos_lo + 8 * i) x = -INFINITY;
         mx[j & 3] = fmaxf(mx[j & 3], x);
       }
     float m_new = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]));
@@ -141,11 +142,21 @@ __device__ __forceinline__ void softmax_step(float (&s)[32], float (&mi)[2], flo
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         float& x = s[4 * j + 2 * i + c];
-        x = x == -INFINITY ? 0.f : wg::fast_exp2(fmaf(x, sl, -shift));
+        x = wg::fast_exp2(fmaf(x, sl, -shift));
         part[j & 3] += x;
       }
     li[i] = li[i] * corr[i] + ((part[0] + part[1]) + (part[2] + part[3]));
   }
+}
+
+// softmax_step for key tile nt: masked from tile n_full on
+__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&mi)[2], float (&li)[2],
+                                             float (&corr)[2], float sl, int nt, int n_full,
+                                             int pos_lo, int t) {
+  if (nt >= n_full)
+    softmax_step<true>(s, mi, li, corr, sl, nt * kTile, pos_lo, t);
+  else
+    softmax_step<false>(s, mi, li, corr, sl, nt * kTile, pos_lo, t);
 }
 
 // o (an m64nD accumulator) *= corr of its row
@@ -284,7 +295,7 @@ __global__ void __launch_bounds__(FwdCfg<D, HPB>::THREADS, FwdCfg<D, HPB>::MIN_B
     wg::wait<0>();
     wg::hold(sc);
     clk.mark(wg::kClkScores);
-    softmax_step(sc, mi, li, corr, sl, 0 >= n_full, 0, pos_lo, t);
+    softmax_tile(sc, mi, li, corr, sl, 0, n_full, pos_lo, t);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) wg::pack_a(pa[kk], sc, kk);
     clk.mark(wg::kClkSoftmax);
@@ -302,7 +313,7 @@ __global__ void __launch_bounds__(FwdCfg<D, HPB>::THREADS, FwdCfg<D, HPB>::MIN_B
     wg::wait<1>();
     wg::hold(sc);
     clk.mark(wg::kClkScores);
-    softmax_step(sc, mi, li, corr, sl, nt >= n_full, nt * kTile, pos_lo, t);
+    softmax_tile(sc, mi, li, corr, sl, nt, n_full, pos_lo, t);
     clk.mark(wg::kClkSoftmax);
     wg::wait<0>();
     wg::hold(o);

@@ -138,18 +138,16 @@ def fwd_route(B: int, Sq: int, Skv: int, offset: int, H: int, KV: int,
     """The forward's kernel for these shapes, a function of the shapes
     alone (no device is asked, so it holds under a CUDA graph and on the
     CPU), as ``chip_smoke.py bench routes`` measured them against each
-    other.  bf16: the wgmma kernel wherever it was faster than the mma.sync
-    kernel, at D = 16 to 64 with two query heads a block where the heads
-    of a KV head are even (one for the whole sequence at D = 32, where two
-    were slower), but not for the whole sequence at D = 16 (the
-    calculator's 64 x 64, where the two tie); the mma.sync kernel there and
-    at D = 128, which the wgmma kernel does not take.  f32: the CUDA
-    cores."""
+    other.  bf16: the wgmma kernel at D = 16 to 64, where it was faster
+    than the mma.sync kernel at every shape timed, with two query heads a
+    block where the heads of a KV head are even (one for the whole
+    sequence at D = 32, where two were slower); the mma.sync kernel at
+    D = 128, which the wgmma kernel does not take.  f32: the CUDA cores."""
     if dtype == torch.float32:
         return FwdRoute("simt")
-    whole = offset == 0 and Sq == Skv
-    if D not in WGMMA_HEAD_DIMS or (D == 16 and whole):
+    if D not in WGMMA_HEAD_DIMS:
         return FwdRoute("mma")
+    whole = offset == 0 and Sq == Skv
     two = (H // KV) % 2 == 0 and not (D == 32 and whole)
     return FwdRoute("wgmma", 2 if two else 1)
 
@@ -197,13 +195,13 @@ def wgmma_spread(n: int, pairs: int, resident: int) -> int:
 
 
 @lru_cache(maxsize=None)
-def _fwd_resident(device: int, D: int, hpb: int) -> int:
-    """Blocks of the wgmma forward that the card runs at once."""
-    per_sm = _build.lib("flash_fwd_wgmma").flash_fwd_wgmma_blocks_per_sm(
-        D, hpb)
+def _resident(device: int, kernel: str, *args: int) -> int:
+    """Blocks of a wgmma kernel that the card runs at once: its library's
+    ``<kernel>_blocks_per_sm(*args)`` (the forward's (D, hpb), a backward
+    pass's (D, pass, hpb)) on every SM."""
+    per_sm = getattr(_build.lib(kernel), kernel + "_blocks_per_sm")(*args)
     if per_sm < 1:
-        raise RuntimeError(f"flash_fwd_wgmma at D = {D}, hpb {hpb}: no "
-                           f"block fits an SM")
+        raise RuntimeError(f"{kernel} {args}: no block fits an SM")
     return per_sm * _build.sm_count(torch.device("cuda", device))
 
 
@@ -212,18 +210,7 @@ def fwd_spread(device: int, B: int, Sq: int, H: int, D: int,
     """``wgmma_spread`` of the wgmma forward's grid (query tiles x head
     groups x batch rows) on `device`."""
     return wgmma_spread(-(-Sq // 64), H // route.hpb * B,
-                        _fwd_resident(device, D, route.hpb))
-
-
-@lru_cache(maxsize=None)
-def _resident(device: int, D: int, pass_: int, hpb: int) -> int:
-    """Blocks of a wgmma pass (0 dq, 1 dk/dv) that the card runs at once."""
-    per_sm = _build.lib("flash_bwd_wgmma").flash_bwd_wgmma_blocks_per_sm(
-        D, pass_, hpb)
-    if per_sm < 1:
-        raise RuntimeError(f"flash_bwd_wgmma pass {pass_} at D = {D}, hpb "
-                           f"{hpb}: no block fits an SM")
-    return per_sm * _build.sm_count(torch.device("cuda", device))
+                        _resident(device, "flash_fwd_wgmma", D, route.hpb))
 
 
 def wgmma_spreads(device: int, B: int, Sq: int, Skv: int, H: int, KV: int,
@@ -232,8 +219,9 @@ def wgmma_spreads(device: int, B: int, Sq: int, Skv: int, H: int, KV: int,
     batch rows) and of the dk/dv pass's (key tiles x KV heads x batch
     rows) on `device`."""
     return (wgmma_spread(-(-Sq // 64), H // hpb * B,
-                         _resident(device, D, 0, hpb)),
-            wgmma_spread(-(-Skv // 64), KV * B, _resident(device, D, 1, 1)))
+                         _resident(device, "flash_bwd_wgmma", D, 0, hpb)),
+            wgmma_spread(-(-Skv // 64), KV * B,
+                         _resident(device, "flash_bwd_wgmma", D, 1, 1)))
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
